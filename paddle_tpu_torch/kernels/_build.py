@@ -1,0 +1,166 @@
+"""Build the port's CUDA kernels and load them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
+started together) for ``sm_90a`` into an object file, and the objects are
+linked into one shared library with a plain C interface.  The library
+lands in ``paddle_tpu_torch/_build/`` (listed in ``.gitignore``) under a
+name keyed by the sources and flags, so an unchanged tree builds once.
+
+Nothing here runs at import time: the first call of :func:`lib` builds
+and loads.  The CPU tests import every module of the package on machines
+with no ``nvcc`` and never reach this.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib = None
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda``'s,
+    or the first on ``PATH``."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "paddle_tpu_torch need the CUDA toolkit")
+    return found
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile (if needed) and return the path of the shared library.
+    The compiler's output, including ``-Xptxas -v``'s register and
+    shared-memory report, is kept in ``_build/build-<digest>.log``."""
+    digest = _digest()
+    so_path = os.path.join(BUILD_DIR, f"libpaddle_tpu_torch-{digest}.so")
+    if os.path.exists(so_path):
+        return so_path
+    nvcc = nvcc_path()
+    obj_dir = os.path.join(BUILD_DIR, f"obj-{digest}")
+    os.makedirs(obj_dir, exist_ok=True)
+    jobs = []
+    for src in _sources():
+        obj = os.path.join(obj_dir, os.path.basename(src)[:-3] + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for src, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(f"== {os.path.basename(src)} (rc {proc.returncode})\n"
+                   f"{out}")
+        if proc.returncode:
+            failed.append(os.path.basename(src))
+    with open(os.path.join(BUILD_DIR, f"build-{digest}.log"), "w") as f:
+        f.write("\n".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    link = subprocess.run(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+         "-o", tmp, *[obj for _, obj, _ in jobs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, so_path)
+    return so_path
+
+
+def build_log() -> str:
+    """The compiler output of the current sources' build ('' if none)."""
+    path = os.path.join(BUILD_DIR, f"build-{_digest()}.log")
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+_F = ctypes.c_float
+
+#: C signature of every entry point: (restype, argtypes)
+_SIGNATURES = {
+    "ptt_error_string": (ctypes.c_char_p, [_I]),
+    "ptt_qkv_attention_fwd": (
+        _I, [_P, _P, _P, _P, _L, _L, _L, _L, _P, _I, _I, _I, _I, _F, _I,
+             _P]),
+    "ptt_megastep": (
+        _I, [_P] * 18 + [_I] * 6 + [_F, _F, _P]),
+    "ptt_ffn_chunks": (_I, [_I]),
+    "ptt_ffn_tiles": (_I, [_I]),
+    "ptt_ffn": (_I, [_P] * 10 + [_I, _I, _I, _F, _P]),
+}
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _lib = handle
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err:
+        msg = lib().ptt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def require(tensors, device, what) -> None:
+    """Raise unless every ``name: (tensor, dtype, shape)`` is a contiguous
+    tensor of that dtype and shape on ``device``: the kernels index raw
+    pointers and check nothing themselves."""
+    for name, (a, dtype, shape) in tensors.items():
+        if (a.device != device or a.dtype != dtype
+                or tuple(a.shape) != tuple(shape) or not a.is_contiguous()):
+            raise ValueError(
+                f"{what}: {name} must be a contiguous {dtype} tensor of "
+                f"shape {tuple(shape)} on {device}, got {a.dtype} "
+                f"{tuple(a.shape)} on {a.device}")
+
+
+def stream_of(t) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,4 +1,5 @@
-"""Autoregressive generation: the ring KV cache and the greedy session."""
+"""Autoregressive generation: the ring and paged KV caches and the greedy
+session."""
 
-from .kv_cache import KVCache  # noqa: F401
+from .kv_cache import BlockAllocator, KVCache, PagedKVCache  # noqa: F401
 from .sampler import GenerationSession  # noqa: F401

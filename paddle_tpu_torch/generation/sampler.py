@@ -1,10 +1,19 @@
-"""GenerationSession: greedy generation with the ring KV cache.
+"""GenerationSession: greedy generation with the ring or paged KV cache.
 
 Counterpart of ``paddle_tpu/generation/sampler.py`` ``GenerationSession``
-over the programs ``build_generation_programs`` builds for greedy decoding
-with the default flags (the greedy self-feed with the in-graph eos latch).
-The serving tier reaches the model only through :meth:`prefill` and
-:meth:`decode_step`; :meth:`generate` is the one-shot driver.
+over the programs ``build_generation_programs`` builds for greedy
+decoding.  The reference's build-time flags are constructor arguments
+with its defaults: ``paged``/``block_t``/``num_blocks`` for
+``FLAGS_paged_kv_cache``/``FLAGS_kv_block_t``/``FLAGS_kv_cache_blocks``
+(and the model's ``fused_decode_step`` for ``FLAGS_fused_decode_step``).
+Every route self-feeds its greedy token and latches eos on the device, as
+the reference's fused route does.  The serving tier reaches the model only
+through :meth:`prefill` and :meth:`decode_step`; :meth:`generate` is the
+one-shot entry point.
+
+A paged pool smaller than batch * max_blocks blocks (on either side) arms
+dynamic mode, where only the serving batcher maps blocks, and
+:meth:`generate` refuses, as the reference's does.
 
 Session state lives on the model's device: the self and cross caches with
 their length counters, the last token of every lane and the finished
@@ -20,7 +29,7 @@ import torch
 
 from ..models.transformer import PAD_BIAS, src_token_lengths
 from ..ops.generation_ops import sample_token
-from .kv_cache import KVCache, cache_rows
+from .kv_cache import KVCache, PagedKVCache, cache_rows
 
 
 def _lane_mask(active, batch, device):
@@ -38,10 +47,13 @@ class GenerationSession:
 
     ``max_out_len`` tokens at most per sequence (position 0 is BOS);
     ``src_seq_len`` source positions.  Token 0 is the pad id of the
-    source."""
+    source.  ``paged`` swaps the ring caches for paged pools of
+    ``block_t``-row blocks, ``num_blocks`` per side (0: ring-equivalent)."""
 
     def __init__(self, model, batch_size: int, src_seq_len: int,
-                 max_out_len: int, bos_id: int = 0, eos_id: int = 1):
+                 max_out_len: int, bos_id: int = 0, eos_id: int = 1,
+                 paged: bool = False, block_t: int = 16,
+                 num_blocks: int = 0):
         if (model.max_length < max_out_len + 1
                 or model.max_length < src_seq_len):
             raise ValueError(
@@ -56,10 +68,24 @@ class GenerationSession:
         dev = model.device
         shape = (model.n_layer, batch_size)
         heads = (model.n_head, model.d_key)
-        self.self_cache = KVCache(*shape, cache_rows(max_out_len + 1),
-                                  *heads, dev)
-        self.cross_cache = KVCache(*shape, cache_rows(src_seq_len), *heads,
-                                   dev)
+        rows = (cache_rows(max_out_len + 1), cache_rows(src_seq_len))
+        self.paged = bool(paged)
+        self.dynamic_only = False
+        if self.paged:
+            self.self_cache, self.cross_cache = (
+                PagedKVCache(*shape, r, *heads, dev, block_t=block_t,
+                             num_blocks=num_blocks) for r in rows)
+            caches = (self.self_cache, self.cross_cache)
+            self.dynamic_only = any(
+                c.num_blocks < c.batch * c.max_blocks for c in caches)
+            for c in caches:
+                if self.dynamic_only:
+                    c.reset_dynamic()
+                else:
+                    c.allocate()
+        else:
+            self.self_cache, self.cross_cache = (
+                KVCache(*shape, r, *heads, dev) for r in rows)
         self.last_tok = torch.full((batch_size,), bos_id, dtype=torch.int64,
                                    device=dev)
         self.finished = torch.zeros(batch_size, dtype=torch.int32,
@@ -125,6 +151,12 @@ class GenerationSession:
         """Greedy generation: (tokens [b, n] int64, eos-padded past each
         sequence's end, n steps run).  Prefill once, then one decode step
         per token, stopping early once every sequence has emitted eos."""
+        if self.dynamic_only:
+            raise RuntimeError(
+                "paged KV pool is smaller than batch*max_blocks (dynamic "
+                "serving mode): drive it through ContinuousBatcher, which "
+                "maps blocks per request; generate() needs the static "
+                "identity tables")
         max_tokens = min(max_tokens or self.max_out_len, self.max_out_len)
         rows = np.asarray(src_word).shape[0]
         if rows != self.batch_size:

@@ -119,6 +119,10 @@ _SIGNATURES = {
              _P]),
     "ptt_megastep": (
         _I, [_P] * 18 + [_I] * 6 + [_F, _F, _P]),
+    "ptt_megastep_paged": (
+        _I, [_P] * 20 + [_I] * 10 + [_F, _F, _P]),
+    "ptt_flash_decode": (_I, [_P] * 5 + [_I] * 3 + [_F, _P]),
+    "ptt_flash_decode_paged": (_I, [_P] * 6 + [_I] * 4 + [_F, _P]),
     "ptt_ffn_chunks": (_I, [_I]),
     "ptt_ffn_tiles": (_I, [_I]),
     "ptt_ffn": (_I, [_P] * 10 + [_I, _I, _I, _F, _P]),

@@ -1,22 +1,26 @@
 """Fused decode step: one decoder layer for one token, two launches.
 
 Counterpart of ``paddle_tpu/kernels/decode_step.py`` ``fused_decode_step``
-in its split-FFN mode, the mode the reference's plan takes at
-Transformer-base widths in f32:
+and ``fused_decode_step_paged`` in their split-FFN mode, the mode the
+reference's plans take at Transformer-base widths in f32:
 
 * :func:`megastep` (``csrc/megastep.cu``, for ``_megastep_kernel``): qkv
   projection, the in-place k/v row write into the ring cache, the self
   and cross walks with their projections, residuals and layer norms;
+* :func:`megastep_paged` (the same source's paged instantiation, for
+  ``_paged_megastep_kernel``): the same over paged block pools, every row
+  addressed through the block tables;
 * :func:`ffn_epilogue` (``csrc/ffn.cu``, for ``_ffn_kernel``): the
-  feed-forward, its residual and the last layer norm.
+  feed-forward, its residual and the last layer norm, after either.
 
 The self cache is updated in place: the port's counterpart of the JAX
 package's donated cache buffers.  The returned caches are the tensors
 passed in.
 
-The plain version is :func:`reference_decode_step`, the op chain of the
-reference's ``reference_decode_step`` with :func:`reference_decode` as
-its attention.
+The plain versions are :func:`reference_decode_step` and
+:func:`reference_decode_step_paged`, the op chains of the reference's
+compositions with ``kernels/decode_attention.py``'s plain walks as their
+attention.
 """
 
 from __future__ import annotations
@@ -24,24 +28,10 @@ from __future__ import annotations
 import torch
 
 from . import _build, launches
-from ..ops.generation_ops import kv_cache_update
+from .decode_attention import (KERNEL_D_HEAD, reference_decode,
+                               reference_decode_paged)
+from ..ops.generation_ops import kv_cache_update, paged_kv_cache_update
 from ..ops.nn_ops import layer_norm
-
-#: head width the CUDA kernels are compiled for
-KERNEL_D_HEAD = 64
-
-
-def reference_decode(q, k, v, lengths, scale=1.0):
-    """Single-query attention: q [b, h, dh] against the first lengths[b]
-    rows of k/v [b, max_t, h, dh]; f32 softmax.  A lane with length 0
-    gets a zero context, as in the kernels."""
-    max_t = k.shape[1]
-    logits = torch.einsum("bhd,bthd->bht", q.float(), k.float()) * scale
-    valid = (torch.arange(max_t, device=q.device)[None, :]
-             < lengths.long()[:, None])                      # [b, t]
-    logits = logits.masked_fill(~valid[:, None, :], -1e30)
-    w = torch.softmax(logits, dim=-1) * (lengths > 0).float()[:, None, None]
-    return torch.einsum("bht,bthd->bhd", w, v.float()).to(q.dtype)
 
 
 def reference_megastep(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
@@ -99,32 +89,25 @@ def reference_decode_step(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
     return out, cache_k, cache_v
 
 
-def megastep(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout, ln2_scale,
-             ln2_bias, cache_k, cache_v, cross_k, cross_v, pos, lengths,
-             cross_lengths, active, *, layer, n_head, scale, eps=1e-5):
-    """The attention half of the decoder step (see module docstring).
-    x [b, 1, d_model]; caches [L, b, rows, h, dh] (the self cache is
-    written in place); pos/lengths/cross_lengths/active [b] int32.
-    Returns [b, 1, d_model]."""
-    if x.device.type == "cpu":
-        return reference_megastep(
-            x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout, ln2_scale,
-            ln2_bias, cache_k, cache_v, cross_k, cross_v, pos, lengths,
-            cross_lengths, active, layer=layer, n_head=n_head,
-            scale=scale, eps=eps)
+def _megastep_spec(what, x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
+                   ln2_scale, ln2_bias, cache_k, cache_v, pos, lengths,
+                   cross_lengths, active, n_head, layer):
+    """The checks both megastep wrappers share: raise unless the kernel
+    takes these widths on this device; return the tensor specs of
+    :func:`_build.require` for the weights, the self cache and the int32
+    vectors."""
     b, _, dm = x.shape
-    n_layer, _, max_t, h, dh = cache_k.shape
-    cross_t = cross_k.shape[2]
-    hd = h * dh
+    n_layer, h, dh = cache_k.shape[0], cache_k.shape[-2], cache_k.shape[-1]
     if (x.device.type != "cuda" or h != n_head or dh != KERNEL_D_HEAD
             or dm % 4 or not 0 <= layer < n_layer):
         raise ValueError(
-            f"megastep: no kernel for x {tuple(x.shape)}, cache "
+            f"{what}: no kernel for x {tuple(x.shape)}, cache "
             f"{tuple(cache_k.shape)}, n_head {n_head}, layer {layer} on "
             f"{x.device} (needs CUDA and d_head 64)")
+    hd = h * dh
     f32, i32 = torch.float32, torch.int32
-    vec, cross = (dm,), (n_layer, b, cross_t, h, dh)
-    _build.require({
+    vec = (dm,)
+    return {
         "x": (x, f32, (b, 1, dm)), "wqkv": (wqkv, f32, (dm, 3 * hd)),
         "wout": (wout, f32, (hd, dm)), "ln1_scale": (ln1_scale, f32, vec),
         "ln1_bias": (ln1_bias, f32, vec), "wcq": (wcq, f32, (dm, hd)),
@@ -132,22 +115,106 @@ def megastep(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout, ln2_scale,
         "ln2_bias": (ln2_bias, f32, vec),
         "cache_k": (cache_k, f32, cache_k.shape),
         "cache_v": (cache_v, f32, cache_k.shape),
-        "cross_k": (cross_k, f32, cross), "cross_v": (cross_v, f32, cross),
         "pos": (pos, i32, (b,)), "lengths": (lengths, i32, (b,)),
         "cross_lengths": (cross_lengths, i32, (b,)),
-        "active": (active, i32, (b,))}, x.device, "megastep")
+        "active": (active, i32, (b,))}
+
+
+def megastep(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout, ln2_scale,
+             ln2_bias, cache_k, cache_v, cross_k, cross_v, pos, lengths,
+             cross_lengths, active, *, layer, n_head, scale, eps=1e-5):
+    """The attention half of the decoder step (see module docstring).
+    x [b, 1, d_model]; caches [L, b, rows, h, dh] (the self cache is
+    written in place); pos/lengths/cross_lengths/active [b] int32.
+    Returns [b, 1, d_model]."""
+    args = (x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout, ln2_scale,
+            ln2_bias, cache_k, cache_v, cross_k, cross_v, pos, lengths,
+            cross_lengths, active)
+    if x.device.type == "cpu":
+        return reference_megastep(*args, layer=layer, n_head=n_head,
+                                  scale=scale, eps=eps)
+    spec = _megastep_spec("megastep", *args[:11], *args[13:], n_head,
+                          layer)
+    b, _, dm = x.shape
+    n_layer, _, max_t, h, dh = cache_k.shape
+    cross_t = cross_k.shape[2]
+    cross = (n_layer, b, cross_t, h, dh)
+    spec.update(cross_k=(cross_k, torch.float32, cross),
+                cross_v=(cross_v, torch.float32, cross))
+    _build.require(spec, x.device, "megastep")
     out = torch.empty_like(x)
     err = _build.lib().ptt_megastep(
-        x.data_ptr(), wqkv.data_ptr(), wout.data_ptr(),
-        ln1_scale.data_ptr(), ln1_bias.data_ptr(), wcq.data_ptr(),
-        wcout.data_ptr(), ln2_scale.data_ptr(), ln2_bias.data_ptr(),
-        cache_k.data_ptr(), cache_v.data_ptr(), cross_k.data_ptr(),
-        cross_v.data_ptr(), pos.data_ptr(), lengths.data_ptr(),
-        cross_lengths.data_ptr(), active.data_ptr(), out.data_ptr(),
-        layer, b, dm, h, max_t, cross_t, float(scale), float(eps),
-        _build.stream_of(x))
+        *(a.data_ptr() for a in args), out.data_ptr(), layer, b, dm, h,
+        max_t, cross_t, float(scale), float(eps), _build.stream_of(x))
     _build.check(err, "megastep")
     launches["megastep"] += 1
+    return out
+
+
+def reference_megastep_paged(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
+                             ln2_scale, ln2_bias, cache_k, cache_v, cross_k,
+                             cross_v, pos, lengths, cross_lengths,
+                             self_table, cross_table, active, *, layer,
+                             n_head, scale, eps=1e-5):
+    """Plain version of :func:`megastep_paged`: the attention half of the
+    reference's ``reference_decode_step_paged``.  Updates the self pools
+    in place; returns the layer-norm-2 output [b, 1, d_model]."""
+    b = x.shape[0]
+    dh = cache_k.shape[-1]
+    hd = n_head * dh
+
+    qkv = x @ wqkv
+    q, k, v = torch.split(qkv, hd, dim=-1)
+    paged_kv_cache_update(cache_k, cache_v, k.reshape(b, 1, n_head, dh),
+                          v.reshape(b, 1, n_head, dh), self_table, pos,
+                          layer, active)
+    ctx = reference_decode_paged(q.reshape(b, n_head, dh), cache_k[layer],
+                                 cache_v[layer], self_table, lengths, scale)
+    x = layer_norm(x + ctx.reshape(b, 1, hd) @ wout, ln1_scale, ln1_bias,
+                   eps)
+    cq = x @ wcq
+    cctx = reference_decode_paged(cq.reshape(b, n_head, dh), cross_k[layer],
+                                  cross_v[layer], cross_table,
+                                  cross_lengths, scale)
+    return layer_norm(x + cctx.reshape(b, 1, hd) @ wcout, ln2_scale,
+                      ln2_bias, eps)
+
+
+def megastep_paged(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
+                   ln2_scale, ln2_bias, cache_k, cache_v, cross_k, cross_v,
+                   pos, lengths, cross_lengths, self_table, cross_table,
+                   active, *, layer, n_head, scale, eps=1e-5):
+    """:func:`megastep` over paged caches.  cache_k/cache_v [L, num_blocks,
+    block_t, h, dh] (written in place) and cross_k/cross_v [L,
+    cross_num_blocks, cross_block_t, h, dh] pools; self_table/cross_table
+    [b, max_blocks] int32 block ids.  A row at or past
+    max_blocks * block_t is dropped, as the reference's composition drops
+    it.  Returns [b, 1, d_model]."""
+    args = (x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout, ln2_scale,
+            ln2_bias, cache_k, cache_v, cross_k, cross_v, pos, lengths,
+            cross_lengths, self_table, cross_table, active)
+    if x.device.type == "cpu":
+        return reference_megastep_paged(*args, layer=layer, n_head=n_head,
+                                        scale=scale, eps=eps)
+    spec = _megastep_spec("megastep_paged", *args[:11], *args[13:16],
+                          active, n_head, layer)
+    b, _, dm = x.shape
+    n_layer, nb, bt, h, dh = cache_k.shape
+    cnb, cbt = cross_k.shape[1:3]
+    mb, cmb = self_table.shape[1], cross_table.shape[1]
+    f32, i32 = torch.float32, torch.int32
+    cross = (n_layer, cnb, cbt, h, dh)
+    spec.update(cross_k=(cross_k, f32, cross), cross_v=(cross_v, f32, cross),
+                self_table=(self_table, i32, (b, mb)),
+                cross_table=(cross_table, i32, (b, cmb)))
+    _build.require(spec, x.device, "megastep_paged")
+    out = torch.empty_like(x)
+    err = _build.lib().ptt_megastep_paged(
+        *(a.data_ptr() for a in args), out.data_ptr(), layer, b, dm, h, nb,
+        bt, mb, cnb, cbt, cmb, float(scale), float(eps),
+        _build.stream_of(x))
+    _build.check(err, "megastep_paged")
+    launches["megastep_paged"] += 1
     return out
 
 
@@ -218,6 +285,52 @@ def fused_decode_step(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
                  ln2_bias, cache_k, cache_v, cross_k, cross_v, pos, lengths,
                  cross_lengths, active, layer=layer, n_head=n_head,
                  scale=scale, eps=eps)
+    out = ffn_epilogue(x, ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b,
+                       ln3_scale, ln3_bias, eps)
+    return out, cache_k, cache_v
+
+
+def reference_decode_step_paged(x, wqkv, wout, ln1_scale, ln1_bias, wcq,
+                                wcout, ln2_scale, ln2_bias, ffn_in_w,
+                                ffn_in_b, ffn_out_w, ffn_out_b, ln3_scale,
+                                ln3_bias, cache_k, cache_v, cross_k,
+                                cross_v, pos, lengths, cross_lengths,
+                                self_table, cross_table, active=None, *,
+                                layer, n_head, scale, eps=1e-5):
+    """The whole decoder step over paged caches in plain PyTorch (the
+    reference's ``reference_decode_step_paged``).  Returns
+    (out [b, 1, d_model], cache_k, cache_v)."""
+    if active is None:
+        active = torch.ones_like(pos)
+    x = reference_megastep_paged(
+        x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout, ln2_scale,
+        ln2_bias, cache_k, cache_v, cross_k, cross_v, pos, lengths,
+        cross_lengths, self_table, cross_table, active, layer=layer,
+        n_head=n_head, scale=scale, eps=eps)
+    out = reference_ffn(x, ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b,
+                        ln3_scale, ln3_bias, eps)
+    return out, cache_k, cache_v
+
+
+def fused_decode_step_paged(x, wqkv, wout, ln1_scale, ln1_bias, wcq,
+                            wcout, ln2_scale, ln2_bias, ffn_in_w,
+                            ffn_in_b, ffn_out_w, ffn_out_b, ln3_scale,
+                            ln3_bias, cache_k, cache_v, cross_k, cross_v,
+                            pos, lengths, cross_lengths, self_table,
+                            cross_table, active=None, *, layer, n_head,
+                            scale, eps=1e-5):
+    """One decoder layer over paged caches, in the argument order of the
+    reference's ``fused_decode_step_paged``: :func:`megastep_paged`, then
+    :func:`ffn_epilogue`.  Pools [L, num_blocks, block_t, h, dh] (the self
+    pools updated in place); tables [b, max_blocks] int32.  Returns
+    (out [b, 1, d_model], cache_k, cache_v)."""
+    if active is None:
+        active = torch.ones_like(pos)
+    x = megastep_paged(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
+                       ln2_scale, ln2_bias, cache_k, cache_v, cross_k,
+                       cross_v, pos, lengths, cross_lengths, self_table,
+                       cross_table, active, layer=layer, n_head=n_head,
+                       scale=scale, eps=eps)
     out = ffn_epilogue(x, ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b,
                        ln3_scale, ln3_bias, eps)
     return out, cache_k, cache_v

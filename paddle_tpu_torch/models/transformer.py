@@ -8,11 +8,19 @@ and the default flags, at inference (dropout 0):
   encoder layers on the fused-qkv route with the "dan" post-process chain
   (add + layer norm at rate 0), ``_src_token_lengths`` and
   ``_prefill_cross_cache``;
-* decode: the cached decoder step on the fused route, one
-  ``fused_decode_step`` per layer, then ``predict_w``/``predict_b``.
+* decode: ``cached_decoder_step``, then ``predict_w``/``predict_b``.  On
+  the fused route (``fused_decode_step=True``, the reference's default
+  ``FLAGS_fused_decode_step``) each layer is one ``fused_decode_step``
+  (ring caches) or ``fused_decode_step_paged`` (paged caches); on the
+  unfused route it is the reference's op chain: the qkv ``mul``, the cache
+  write, ``decode_attention`` through the cache, the output ``mul``, the
+  "dan" layer norm, cross-attention the same way and the feed-forward.
+  There only the two attentions are kernels; the matmuls and the FFN are
+  plain PyTorch, as the reference leaves them to XLA.
 
-Weights keep the reference's [in, out] layout, so the JAX package's
-arrays load as they are (``interop.load_paddle_tpu_params``).
+Weights keep the reference's [in, out] layout, and neither choice changes
+their names or shapes, so the JAX package's arrays load as they are
+(``interop.load_paddle_tpu_params``).
 """
 
 from __future__ import annotations
@@ -24,8 +32,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..kernels.attention import flash_qkv_attention
-from ..kernels.decode_step import fused_decode_step
-from ..ops.generation_ops import kv_cache_update
+from ..kernels.decode_step import fused_decode_step, fused_decode_step_paged
 from ..ops.nn_ops import layer_norm, lookup_table, mul
 
 #: additive score bias of a padded source key (the reference's -1e9)
@@ -107,32 +114,70 @@ class DecoderLayer(nn.Module):
         self.cross_v_w = _param(d_model, hd, device=device)
 
     def step(self, x, self_cache, cross_cache, pos, lengths, active,
-             layer):
-        """The cached decoder step of this layer over x [b, 1, d_model]."""
-        out, _, _ = fused_decode_step(
-            x, self.attn_qkv_w, self.attn_out_w, self.ln1_scale,
-            self.ln1_bias, self.cross_q_w, self.cross_out_w, self.ln2_scale,
-            self.ln2_bias, self.ffn_in_w, self.ffn_in_b, self.ffn_out_w,
-            self.ffn_out_b, self.ln3_scale, self.ln3_bias, self_cache.k,
-            self_cache.v, cross_cache.k, cross_cache.v, pos, lengths,
-            cross_cache.lengths, active, layer=layer, n_head=self.n_head,
-            scale=self.d_key ** -0.5)
+             layer, fused=True):
+        """The cached decoder step of this layer over x [b, 1, d_model]:
+        one fused step (ring or paged by the caches' type), or the
+        unfused op chain when ``fused`` is False."""
+        scale = self.d_key ** -0.5
+        if not fused:
+            return self._unfused_step(x, self_cache, cross_cache, pos,
+                                      lengths, active, layer, scale)
+        weights = (self.attn_qkv_w, self.attn_out_w, self.ln1_scale,
+                   self.ln1_bias, self.cross_q_w, self.cross_out_w,
+                   self.ln2_scale, self.ln2_bias, self.ffn_in_w,
+                   self.ffn_in_b, self.ffn_out_w, self.ffn_out_b,
+                   self.ln3_scale, self.ln3_bias)
+        caches = (self_cache.k, self_cache.v, cross_cache.k, cross_cache.v,
+                  pos, lengths, cross_cache.lengths)
+        kw = dict(layer=layer, n_head=self.n_head, scale=scale)
+        if hasattr(self_cache, "table"):  # paged caches carry a table
+            out, _, _ = fused_decode_step_paged(
+                x, *weights, *caches, self_cache.table, cross_cache.table,
+                active, **kw)
+        else:
+            out, _, _ = fused_decode_step(x, *weights, *caches, active,
+                                          **kw)
         return out
+
+    def _unfused_step(self, x, self_cache, cross_cache, pos, lengths,
+                      active, layer, scale):
+        """The reference's flag-off ``cached_decoder_step`` chain."""
+        b = x.shape[0]
+        heads = (b, 1, self.n_head, self.d_key)
+        q, k, v = torch.split(mul(x, self.attn_qkv_w),
+                              self.n_head * self.d_key, dim=-1)
+        self_cache.write(k.reshape(heads), v.reshape(heads), pos, layer,
+                         active)
+        ctx = self_cache.attend(q.reshape(heads), lengths, layer, scale)
+        x = layer_norm(x + mul(ctx.reshape(b, 1, -1), self.attn_out_w),
+                       self.ln1_scale, self.ln1_bias)
+        cq = mul(x, self.cross_q_w)
+        cctx = cross_cache.attend(cq.reshape(heads), cross_cache.lengths,
+                                  layer, scale)
+        x = layer_norm(x + mul(cctx.reshape(b, 1, -1), self.cross_out_w),
+                       self.ln2_scale, self.ln2_bias)
+        ffd = positionwise_feed_forward(x, self.ffn_in_w, self.ffn_in_b,
+                                        self.ffn_out_w, self.ffn_out_b)
+        return layer_norm(x + ffd, self.ln3_scale, self.ln3_bias)
 
 
 class Transformer(nn.Module):
     """Encoder-decoder Transformer for generation.  Runs on CUDA unless
     ``device`` says otherwise; parameters are uninitialized until
-    :meth:`init_params` or ``interop.load_paddle_tpu_params``."""
+    :meth:`init_params` or ``interop.load_paddle_tpu_params``.
+    ``fused_decode_step`` picks the decoder step's route (the reference's
+    ``FLAGS_fused_decode_step``)."""
 
     def __init__(self, src_vocab_size=10000, trg_vocab_size=10000,
                  max_length=256, n_layer=6, n_head=8, d_key=64, d_value=64,
-                 d_model=512, d_inner_hid=2048, device=None):
+                 d_model=512, d_inner_hid=2048, device=None,
+                 fused_decode_step=True):
         super().__init__()
         if d_key != d_value:
-            raise ValueError("Transformer: the fused serving route needs "
+            raise ValueError("Transformer: the cached decoder step needs "
                              f"d_key == d_value, got {d_key}, {d_value}")
         device = resolve_device(device)
+        self.fused_decode_step = bool(fused_decode_step)
         self.n_layer, self.n_head, self.d_key = n_layer, n_head, d_key
         self.d_model, self.max_length = d_model, max_length
         self.trg_vocab_size = trg_vocab_size
@@ -184,8 +229,9 @@ class Transformer(nn.Module):
         return x
 
     def prefill_cross_cache(self, enc_out, cross_cache, active):
-        """Project enc_out into every layer's cross K/V and write them at
-        row 0 of the active lanes' cache slots."""
+        """Project enc_out into every layer's cross K/V and write them
+        through the cache (ring or paged) at row 0 of the active lanes'
+        slots."""
         b, ts, _ = enc_out.shape
         zero = torch.zeros(b, dtype=torch.int32, device=enc_out.device)
         for i, layer in enumerate(self.decoder):
@@ -193,8 +239,7 @@ class Transformer(nn.Module):
                                                       self.d_key)
             v = mul(enc_out, layer.cross_v_w).reshape(b, ts, self.n_head,
                                                       self.d_key)
-            kv_cache_update(cross_cache.k, cross_cache.v, k, v, zero,
-                            layer=i, active=active)
+            cross_cache.write(k, v, zero, i, active)
 
     def decode_logits(self, token, self_cache, cross_cache, lengths,
                       active):
@@ -206,5 +251,5 @@ class Transformer(nn.Module):
                             self.trg_word_emb, self.trg_pos_enc)
         for i, layer in enumerate(self.decoder):
             x = layer.step(x, self_cache, cross_cache, pos, lengths,
-                           active, i)
+                           active, i, fused=self.fused_decode_step)
         return (mul(x, self.predict_w) + self.predict_b)[:, 0, :]

@@ -15,8 +15,10 @@ import torch
 import jax.numpy as jnp
 
 from paddle_tpu.kernels import attention as jax_attention
+from paddle_tpu.kernels import decode_attention as jax_decode_attention
 from paddle_tpu.kernels import decode_step as jax_decode_step
 from paddle_tpu_torch.kernels import attention as ka
+from paddle_tpu_torch.kernels import decode_attention as kda
 from paddle_tpu_torch.kernels import decode_step as kds
 from paddle_tpu_torch.ops.generation_ops import sample_token
 
@@ -93,6 +95,100 @@ def test_flash_qkv_attention_refuses_what_it_cannot_compute():
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError):
         ka.flash_qkv_attention(*meta, n_head=2)
+
+
+# ---------------------------------------------------------------------------
+# flash_decode, flash_decode_paged, paged_scatter_rows
+# ---------------------------------------------------------------------------
+
+#: lengths of the decode-attention cases: an empty lane, a mid-block
+#: tail, a block boundary plus one and a full window
+_DECODE_LENS = np.array([0, 5, 33, 64], np.int32)
+
+
+def _decode_attention_inputs(seed, rows_or_pool, b=4, h=8, dh=64):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, h, dh).astype(np.float32)
+    k = rng.randn(*rows_or_pool, h, dh).astype(np.float32)
+    v = rng.randn(*rows_or_pool, h, dh).astype(np.float32)
+    return rng, q, k, v
+
+
+def test_flash_decode_matches_jax_interpret_kernel():
+    """The ring walk against the interpret-mode Pallas kernel (which also
+    gives the empty lane 0)."""
+    _, q, k, v = _decode_attention_inputs(0, (4, 64))
+    want = jax_decode_attention.flash_decode(
+        *(jnp.asarray(a) for a in (q, k, v, _DECODE_LENS)), scale=0.125,
+        block_t=16, interpret=True)
+    got = kda.flash_decode(*(torch.from_numpy(a)
+                             for a in (q, k, v, _DECODE_LENS)), scale=0.125)
+    _close(got, want)
+    assert torch.count_nonzero(got[0]) == 0
+
+
+def test_flash_decode_paged_matches_jax_interpret_kernel():
+    """The paged walk on a shuffled table over a pool with holes, against
+    the interpret-mode Pallas kernel."""
+    rng, q, k, v = _decode_attention_inputs(1, (32, 16))
+    table = rng.permutation(32)[:16].reshape(4, 4).astype(np.int32)
+    args = (q, k, v, table, _DECODE_LENS)
+    want = jax_decode_attention.flash_decode_paged(
+        *(jnp.asarray(a) for a in args), scale=0.125, interpret=True)
+    got = kda.flash_decode_paged(*(torch.from_numpy(a) for a in args),
+                                 scale=0.125)
+    _close(got, want)
+    # the same rows in a ring give the same answer
+    ring = kda.reference_decode(
+        torch.from_numpy(q), torch.from_numpy(k[table].reshape(4, 64, 8, 64)),
+        torch.from_numpy(v[table].reshape(4, 64, 8, 64)),
+        torch.from_numpy(_DECODE_LENS), 0.125)
+    _close(got, ring, 0.0)
+
+
+def test_paged_scatter_rows_matches_jax():
+    """Two rows per lane: lane 0 across a block boundary, lane 1
+    inactive, lane 2 half past the logical window (dropped), lane 3 at
+    the last row; the pool is written in place, only where the
+    reference writes."""
+    rng = np.random.RandomState(2)
+    cache = rng.randn(2, 12, 8, 2, 64).astype(np.float32)
+    new = rng.randn(4, 2, 2, 64).astype(np.float32)
+    table = rng.permutation(12)[:8].reshape(4, 2).astype(np.int32)
+    pos = np.array([7, 3, 15, 14], np.int32)
+    active = np.array([1, 0, 1, 1], np.int32)
+    want = jax_decode_attention.paged_scatter_rows(
+        *(jnp.asarray(a) for a in (cache, new, table, pos, active)), 1)
+    got = torch.from_numpy(cache.copy())
+    kda.paged_scatter_rows(got, *(torch.from_numpy(a)
+                                  for a in (new, table, pos, active)), 1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy() != cache).any(axis=(2, 3, 4)).sum() == 4
+
+
+def test_paged_scatter_rows_drops_everything_when_no_row_is_kept():
+    rng = np.random.RandomState(3)
+    cache = torch.from_numpy(rng.randn(1, 4, 8, 2, 64).astype(np.float32))
+    before = cache.clone()
+    kda.paged_scatter_rows(
+        cache, torch.ones(2, 1, 2, 64), torch.tensor([[1], [2]],
+                                                     dtype=torch.int32),
+        torch.tensor([3, 8], dtype=torch.int32),
+        torch.tensor([0, 1], dtype=torch.int32), 0)
+    assert torch.equal(cache, before)
+
+
+def test_decode_attention_wrappers_refuse_non_cpu_tensors():
+    _, q, k, v = _decode_attention_inputs(0, (4, 64))
+    meta = [torch.from_numpy(a).to("meta")
+            for a in (q, k, v, _DECODE_LENS)]
+    with pytest.raises(ValueError):
+        kda.flash_decode(*meta)
+    table = torch.zeros(4, 4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        kda.flash_decode_paged(meta[0], meta[1].reshape(16, 16, 8, 64),
+                               meta[2].reshape(16, 16, 8, 64), table,
+                               meta[3])
 
 
 # ---------------------------------------------------------------------------

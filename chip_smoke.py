@@ -8,8 +8,13 @@ Phases, each fatal on failure:
 
 1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` (nvcc, sm_90a);
 2. hold every kernel against its plain PyTorch version on the card, at
-   the shapes of the serving path, and time kernel, plain version and
-   (where one exists) the one PyTorch call computing the same function;
+   the shapes of the serving and training paths, and time kernel, plain
+   version and (where one exists) the one PyTorch call computing the same
+   function.  The bthd flash kernels (#4, #6, #7) are checked on the
+   encoder self-attention (key-padding bias [32, 1, 1, 256]), the decoder
+   self-attention ([32, 1, 256, 256]), a cross case with target 128 and
+   source 256, a ``causal=True`` case, and a causal case with tq > tk and
+   a row masked to -1e30;
 3. the main paths on Transformer-base (6 layers, 8 heads, d_model 512,
    d_inner 2048, vocab 32000, source 256, 64 tokens) with seeded random
    weights.  The launch counters are zeroed just before each path and read
@@ -33,8 +38,22 @@ Phases, each fatal on failure:
    tokens, the paged run must prefill once per prefix-registry leader,
    and the pools and the registry must drain; 16 sampled requests are
    replayed on a batch-1 session on the card, teacher-forced;
+   (d) training: ``Transformer(fused_qkv_attention=False)`` with Paddle's
+   ``Adam(1e-4)`` at batch 32, source and target 256 with seeded padded
+   tails (label weight 0 on the pads): 18 ``flash_fwd``, 18
+   ``flash_bwd_dq`` and 18 ``flash_bwd_dkv`` launches per step and no
+   ``qkv_attention_fwd``.  The same model copied to the CPU takes the same
+   first 2 steps through the plain path, at the full batch (about a
+   minute): each step's loss within 1e-4 relative.  A float64 copy on the
+   CPU gives step 1's exact gradient; the card's must be within 1e-4
+   relative of it per parameter tensor (norm), or no further than twice
+   the CPU's f32 gradient is (f32 alone is off by more than 1e-4 at this
+   depth and length; see TOL_TRAIN_GRAD).  Then 10 timed steps on the card
+   on one repeated batch (median step ms, target tokens/s, share of the
+   f32 peak), whose loss must fall;
 4. where the time goes: torch.profiler over one prefill and 16 decode
-   steps at each batch, device time by kernel beside host wall time.
+   steps at each batch, and over one training step: device time by kernel
+   beside host wall time.
 
 Prints the card and its power limit, the timings, one JSON line with a
 record per kernel, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -446,6 +465,137 @@ def check_paged_decode_kernels(gen, b):
         "paddle_tpu/kernels/decode_step.py:383 (launch :889)")
 
 
+#: phase 2's bthd flash-attention cases at the training path's shapes:
+#: (name, tq, tk, bias, causal).  "pad" is the key-padding bias [b, 1, 1,
+#: tk], "decoder" the causal-plus-padding bias [b, 1, tq, tk] (both -1e9),
+#: "masked" the decoder bias with one row at -1e30
+FLASH_CASES = (("encoder self", 256, 256, "pad", False),
+               ("decoder self", 256, 256, "decoder", False),
+               ("cross trg 128 src 256", 128, 256, "pad", False),
+               ("causal", 256, 256, "pad", True),
+               ("causal tq>tk, -1e30 row", 256, 128, "masked", True))
+#: the case whose records go into the JSON line (the heaviest bias)
+FLASH_RECORD_CASE = "decoder self"
+TRAIN_BATCH, TRAIN_LEN = 32, 256
+
+
+def _flash_inputs(gen, tq, tk, bias_kind, causal):
+    """q, k, v, dO [b, t, 8, 64] and the case's bias; padded key tails of
+    ragged lengths (row 0 unpadded)."""
+    b, h, dh = TRAIN_BATCH, BASE["n_head"], BASE["d_key"]
+    q, do = randn(gen, b, tq, h, dh), randn(gen, b, tq, h, dh)
+    k, v = randn(gen, b, tk, h, dh), randn(gen, b, tk, h, dh)
+    lens = torch.randint(tk // 2, tk + 1, (b,), generator=gen)
+    lens[0] = tk
+    pad = (torch.arange(tk)[None, :] >= lens[:, None]).float() * -1e9
+    bias = pad.reshape(b, 1, 1, tk)
+    if bias_kind in ("decoder", "masked"):
+        future = torch.ones(tq, tk).triu(1 + tk - tq) * -1e9
+        bias = bias + future.reshape(1, 1, tq, tk)
+    if bias_kind == "masked":
+        bias[-1, 0, tq - 5, :] = -1e30
+    return q, k, v, do, bias.cuda()
+
+
+def _visible_pairs(tq, tk, causal):
+    """(q, k) pairs a head computes: all, or the causally visible ones."""
+    if not causal:
+        return tq * tk
+    return int(torch.ones(tq, tk).tril(tk - tq).sum().item())
+
+
+def check_flash_attention(gen):
+    """#4, #6 and #7 against their plain twins on FLASH_CASES (the
+    backward kernels from the forward kernel's out and lse), then each
+    timed beside its twin and the library yardstick: masked
+    ``F.scaled_dot_product_attention`` for #4, its backward (dq, dk and
+    dv together) for #6 and #7.  Returns {(kernel, case): record}."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import attention as ka
+
+    b, h, dh = TRAIN_BATCH, BASE["n_head"], BASE["d_key"]
+    scale = dh ** -0.5
+    out = {}
+    for name, tq, tk, bias_kind, causal in FLASH_CASES:
+        q, k, v, do, bias = _flash_inputs(gen, tq, tk, bias_kind, causal)
+        kw = dict(scale=scale, causal=causal)
+        o, lse = ka.flash_fwd(q, k, v, bias, **kw)
+        want_o, want_lse = ka.reference_flash_fwd(q, k, v, bias, **kw)
+        torch.cuda.synchronize()
+        err_fwd = compare(f"flash_fwd {name}", o, want_o, TOL_KERNEL)
+        hidden = torch.isinf(want_lse)
+        require(torch.equal(hidden, torch.isinf(lse)),
+                f"flash_fwd {name}: masked rows differ")
+        require((bias_kind == "masked") == bool(hidden.any()),
+                f"flash_fwd {name}: {int(hidden.sum())} masked rows")
+        err_fwd = max(err_fwd, compare(f"flash_fwd {name} lse",
+                                       lse[~hidden], want_lse[~hidden],
+                                       TOL_KERNEL))
+        delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+        bw = (q, k, v, bias, do, lse, delta)
+        dq = ka.flash_bwd_dq(*bw, **kw)
+        dk, dv = ka.flash_bwd_dkv(*bw, **kw)
+        want_dq = ka.reference_flash_bwd_dq(*bw, **kw)
+        want_dk, want_dv = ka.reference_flash_bwd_dkv(*bw, **kw)
+        torch.cuda.synchronize()
+        err_dq = compare(f"flash_bwd_dq {name}", dq, want_dq, TOL_KERNEL)
+        err_dkv = max(compare(f"flash_bwd_dkv {name} dk", dk, want_dk,
+                              TOL_KERNEL),
+                      compare(f"flash_bwd_dkv {name} dv", dv, want_dv,
+                              TOL_KERNEL))
+
+        # the library yardstick: one SDPA call with the same additive mask
+        mask = bias
+        if causal:
+            keep = torch.ones(tq, tk, dtype=torch.bool,
+                              device=q.device).tril(tk - tq)
+            mask = bias.masked_fill(~keep, -1e30)
+        lq, lk, lv = (a.transpose(1, 2).detach().requires_grad_()
+                      for a in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
+                                                 scale=scale)
+        lib_do = do.transpose(1, 2)
+        live = ~hidden.transpose(1, 2)[..., None].expand_as(o)
+        lib_err = (lib_out.detach().transpose(1, 2)[live]
+                   - want_o[live]).abs().max().item()
+
+        def lib_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(
+                    lq, lk, lv, attn_mask=mask, scale=scale)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (lq, lk, lv), lib_do,
+                                       retain_graph=True)
+
+        pairs = _visible_pairs(tq, tk, causal)
+        rows = F32 * b * h * (tq * dh)  # one [b, tq, h, dh] tensor
+        keys = F32 * b * h * (tk * dh)
+        bias_bytes = F32 * bias.numel()
+        stats = F32 * 2 * b * h * tq  # lse and delta
+        src = "paddle_tpu_torch/csrc/flash_attention.cu"
+        flops = b * h * pairs * dh
+        out[("flash_fwd", name)] = timed_record(
+            "flash_fwd", src, "paddle_tpu/kernels/attention.py:550",
+            err_fwd, lambda: ka.flash_fwd(q, k, v, bias, **kw),
+            lambda: ka.reference_flash_fwd(q, k, v, bias, **kw), 4 * flops,
+            2 * rows + 2 * keys + bias_bytes + stats // 2, lib_fwd, b)
+        out[("flash_fwd", name)]["library_max_abs_err"] = lib_err
+        out[("flash_bwd_dq", name)] = timed_record(
+            "flash_bwd_dq", src, "paddle_tpu/kernels/attention.py:618",
+            err_dq, lambda: ka.flash_bwd_dq(*bw, **kw),
+            lambda: ka.reference_flash_bwd_dq(*bw, **kw), 6 * flops,
+            3 * rows + 2 * keys + bias_bytes + stats, lib_bwd, b)
+        out[("flash_bwd_dkv", name)] = timed_record(
+            "flash_bwd_dkv", src, "paddle_tpu/kernels/attention.py:678",
+            err_dkv, lambda: ka.flash_bwd_dkv(*bw, **kw),
+            lambda: ka.reference_flash_bwd_dkv(*bw, **kw), 8 * flops,
+            2 * rows + 4 * keys + bias_bytes + stats, lib_bwd, b)
+        del lib_out
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main paths
 # ---------------------------------------------------------------------------
@@ -768,6 +918,171 @@ def check_sampled(model, prompts, results):
     return decided, total
 
 
+#: phase 3 (d): per-step loss of the card against the CPU's plain path
+#: (f32, TF32 off), relative
+TOL_TRAIN_LOSS = 1e-4
+#: step 1's gradient, per parameter tensor, ||g - g64|| / ||g64|| against a
+#: float64 evaluation of the same step on the CPU: the card must be within
+#: 1e-4 of it, or no further than twice the CPU's own f32 gradient is.  At
+#: length 256, 12 layers deep, f32 itself is off float64 by more than 1e-4
+#: for most tensors (this phase prints both): the softmax backward's
+#: dp - delta and the layer norms' backward cancel, so two f32 orders of
+#: summation differ by that much and 1e-4 between them is out of reach.
+TOL_TRAIN_GRAD = 1e-4
+TRAIN_LR, TRAIN_PARITY_STEPS, TRAIN_TIMED_STEPS = 1e-4, 2, 10
+#: f32 FLOPs per step per launch site: 6 encoder self, 6 decoder self and
+#: 6 cross-attention calls of each bthd kernel
+TRAIN_SITES = 3 * BASE["n_layer"]
+
+
+def transformer_train_flops_per_token(n_layer, d_model, d_ff, n_head, d_key,
+                                      seq_len, vocab):
+    """Analytic matmul FLOPs per token, fwd, for the enc+dec transformer
+    (matmuls only; 2 FLOPs per MAC).  Train = 3x fwd (bwd ~= 2x fwd).
+    Copied from the reference's ``bench.py``."""
+    dh = n_head * d_key
+    attn = 4 * d_model * dh + 2 * seq_len * dh
+    ffn = 2 * d_model * d_ff
+    enc = n_layer * (attn + ffn)
+    dec = n_layer * (2 * attn + ffn)
+    fwd_macs = enc + dec + d_model * vocab
+    return 3 * 2 * fwd_macs
+
+
+def training_batch(seed):
+    """The reference's make_batch at batch 32, source and target 256, with
+    padded tails (pad id 0) of lengths uniform in 128-256 on both sides
+    (row 0 unpadded) and label weight 0 on the target pads (numpy)."""
+    from paddle_tpu_torch import make_batch
+
+    vocab = BASE["src_vocab_size"]
+    rng = np.random.RandomState(seed)
+    batch = make_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, BASE["n_head"],
+                       vocab, vocab, rng)
+    for side in ("src_word", "trg_word"):
+        lens = rng.randint(TRAIN_LEN // 2, TRAIN_LEN + 1, TRAIN_BATCH)
+        lens[0] = TRAIN_LEN
+        pad = np.arange(TRAIN_LEN)[None, :] >= lens[:, None]
+        batch[side][pad] = 0
+        if side == "trg_word":
+            batch["lbl_weight"][pad] = 0.0
+    return batch
+
+
+def _to(batch, device):
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _grad_rel(got, want):
+    return ((got.double() - want.double()).norm()
+            / want.double().norm().clamp_min(1e-300)).item()
+
+
+def run_training(model, cpu_model, cpu64):
+    """Phase 3 (d).  The card's model and its f32 CPU copy (same weights)
+    take TRAIN_PARITY_STEPS Adam steps on one batch, and a float64 CPU
+    copy gives step 1's exact gradient; then the card times
+    TRAIN_TIMED_STEPS steps on another batch, repeated.  Returns the run's
+    record; every check is fatal."""
+    from paddle_tpu_torch import Adam, kernels
+
+    sites = TRAIN_SITES
+    batch = training_batch(seed=1)
+    opt = Adam(model.parameters(), learning_rate=TRAIN_LR)
+    cpu_opt = Adam(cpu_model.parameters(), learning_rate=TRAIN_LR)
+    names = {p: n for n, p in model.named_parameters()}
+    cpu_names = {p: n for n, p in cpu_model.named_parameters()}
+    feed, cpu_feed = _to(batch, "cuda"), _to(batch, "cpu")
+
+    t0 = time.perf_counter()
+    loss64, _ = cpu64(**cpu_feed)
+    loss64.backward()
+    exact = {n: p.grad for n, p in cpu64.named_parameters()
+             if p.grad is not None}
+    cpu_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, worst_grad = [], []
+    for step in range(TRAIN_PARITY_STEPS):
+        loss, _ = model(**feed)
+        grads = {names[p]: g for p, g in opt.minimize(loss)}
+        torch.cuda.synchronize()
+        require(kernels.launches == expected(
+            flash_fwd=sites * (step + 1), flash_bwd_dq=sites * (step + 1),
+            flash_bwd_dkv=sites * (step + 1)),
+            f"training step {step}: launches {kernels.launches}")
+        t0 = time.perf_counter()
+        cpu_loss, _ = cpu_model(**cpu_feed)
+        cpu_grads = {cpu_names[p]: g for p, g in cpu_opt.minimize(cpu_loss)}
+        cpu_s += time.perf_counter() - t0
+        got, want = loss.item(), cpu_loss.item()
+        require(np.isfinite(got) and abs(got - want) <= TOL_TRAIN_LOSS
+                * abs(want), f"training step {step}: loss {got} on the "
+                f"card, {want} on the CPU")
+        losses.append((got, want))
+        if step == 0:
+            require(np.isfinite(loss64.item()) and abs(got - loss64.item())
+                    <= TOL_TRAIN_LOSS * abs(loss64.item()),
+                    f"training: loss {got} on the card, {loss64.item()} in "
+                    f"float64")
+            require(grads.keys() == cpu_grads.keys() == exact.keys(),
+                    "training: the card and the CPU trained other params")
+            for n, g in grads.items():
+                card, f32 = (_grad_rel(g.cpu(), exact[n]),
+                             _grad_rel(cpu_grads[n], exact[n]))
+                require(card <= max(TOL_TRAIN_GRAD, 2 * f32),
+                        f"training step 0: gradient of {n} off float64 by "
+                        f"{card} on the card, {f32} on the CPU in f32")
+                worst_grad.append((card, f32, _grad_rel(g.cpu(),
+                                                        cpu_grads[n]), n))
+        del grads, cpu_grads
+    counts = dict(kernels.launches)
+    del cpu_feed
+
+    # timed: one repeated batch, synchronized step by step (host clock)
+    feed = _to(training_batch(seed=2), "cuda")
+    step_ms, timed_losses = [], []
+    kernels.reset_launches()
+    for _ in range(TRAIN_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model(**feed)
+        opt.minimize(loss)
+        timed_losses.append(loss.item())  # syncs: the step is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    n = TRAIN_TIMED_STEPS
+    require(kernels.launches == expected(
+        flash_fwd=sites * n, flash_bwd_dq=sites * n,
+        flash_bwd_dkv=sites * n), f"timed training: launches "
+        f"{kernels.launches}")
+    require(all(np.isfinite(timed_losses))
+            and timed_losses[-1] < timed_losses[0],
+            f"training: loss did not fall on a repeated batch "
+            f"{timed_losses}")
+    for name, c in kernels.launches.items():
+        counts[name] += c
+    med_ms = float(np.median(step_ms))
+    tokens = TRAIN_BATCH * TRAIN_LEN  # target tokens, as bench.py counts
+    flops_tok = transformer_train_flops_per_token(
+        BASE["n_layer"], BASE["d_model"], BASE["d_inner_hid"],
+        BASE["n_head"], BASE["d_key"], TRAIN_LEN, BASE["trg_vocab_size"])
+    tok_s = tokens / (med_ms / 1e3)
+    worst_grad.sort(reverse=True)
+    return dict(route="training", batch=TRAIN_BATCH, launches=counts,
+                parity_losses=losses, parity_loss_f64=loss64.item(),
+                # (card vs f64, cpu f32 vs f64, card vs cpu f32, name)
+                parity_grad_rel_worst=worst_grad[:4],
+                parity_grad_rel_median=[float(np.median(
+                    [w[i] for w in worst_grad])) for i in range(3)],
+                cpu_parity_s=cpu_s, step_ms_median=med_ms,
+                step_ms_range=(min(step_ms), max(step_ms)),
+                tokens_per_s=tok_s, flops_per_token=flops_tok,
+                f32_peak_share=tok_s * flops_tok / PEAK_F32_FLOPS,
+                timed_losses=timed_losses,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: where the time goes (torch.profiler)
 # ---------------------------------------------------------------------------
@@ -827,7 +1142,43 @@ def profile_serving(model, b, steps=16):
     return out
 
 
+def profile_training(model):
+    """Device time by kernel over one training step (forward, backward,
+    Adam) on the timed batch, beside host wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import Adam
+
+    opt = Adam(model.parameters(), learning_rate=TRAIN_LR)
+    feed = _to(training_batch(seed=2), "cuda")
+    opt.minimize(model(**feed)[0])  # warm: the allocator and the state
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt.minimize(model(**feed)[0])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_kernels(prof)
+    busy_us = sum(us for _, us in rows)
+    with open(os.path.join(OUT_DIR, "profile_training_step.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=60))
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+                idle_share=1 - busy_us / wall_us if busy_us else None,
+                top=[(name[:60], us / 1e3) for name, us in rows[:12]])
+
+
 # ---------------------------------------------------------------------------
+
+
+def print_record(r, label):
+    print(f"phase 2: {r['name']}{label}: max_abs_err "
+          f"{r['max_abs_err']:.3e} ms {r['ms']} plain_ms {r['plain_ms']} "
+          f"bound_ms {r['bound_ms']} ({r['bound_by']}) library_ms "
+          f"{r['library_ms']}"
+          + (f" (library max_abs_err {r['library_max_abs_err']:.3e})"
+             if "library_max_abs_err" in r else ""))
 
 
 def main():
@@ -874,16 +1225,14 @@ def main():
                                         ffn_paged)]
         checked += [(side, r) for (_, side), r in decode.items()]
         for side, r in checked:
-            print(f"phase 2: {r['name']}{' ' + side if side else ''} b={b}: "
-                  f"max_abs_err "
-                  f"{r['max_abs_err']:.3e} ms {r['ms']} plain_ms "
-                  f"{r['plain_ms']} bound_ms {r['bound_ms']} "
-                  f"({r['bound_by']}) library_ms {r['library_ms']}"
-                  + (f" (library max_abs_err {r['library_max_abs_err']:.3e})"
-                     if "library_max_abs_err" in r else ""))
+            print_record(r, f"{' ' + side if side else ''} b={b}")
             # the JSON line carries the cross side of the flash-decode pair
             if side in (None, "cross"):
                 records[(r["name"], b)] = r
+    for (name, case), r in check_flash_attention(gen).items():
+        print_record(r, f" {case} b={r['batch']}")
+        if case == FLASH_RECORD_CASE:
+            records[(name, max(BATCHES))] = r
 
     model = paddle_tpu_torch.Transformer(**BASE).init_params(seed=0)
     cpu_model = paddle_tpu_torch.Transformer(**BASE, device="cpu")
@@ -928,6 +1277,18 @@ def main():
             f"{k} {v}" for k, v in stats.items() if k != "route"))
         serving.append(stats)
 
+    del cpu_model, unfused
+    train_model = paddle_tpu_torch.Transformer(
+        **BASE, fused_qkv_attention=False).init_params(seed=1)
+    cpu_copies = [paddle_tpu_torch.Transformer(
+        **BASE, device="cpu", fused_qkv_attention=False).to(dtype)
+        for dtype in (torch.float32, torch.float64)]
+    for copy in cpu_copies:
+        copy.load_state_dict(train_model.state_dict())
+    training = run_training(train_model, *cpu_copies)
+    del cpu_copies
+    print("phase 3: " + ", ".join(f"{k} {v}" for k, v in training.items()))
+
     for b in BATCHES:
         prof = profile_serving(model, b)
         for phase, r in prof.items():
@@ -941,10 +1302,20 @@ def main():
                   f"ms, idle share {r['idle_share']}")
             for name, ms in r["top"]:
                 print(f"    {ms:.4f} ms  {name}")
+    r = profile_training(train_model)
+    if r["device_busy_ms"]:
+        print(f"phase 4: training step: wall {r['wall_ms']} ms, device "
+              f"busy {r['device_busy_ms']} ms, idle share "
+              f"{r['idle_share']}")
+        for name, ms in r["top"]:
+            print(f"    {ms:.4f} ms  {name}")
+    else:
+        print("phase 4: training step: device time not measured (the "
+              "profiler saw no device events)")
 
     # launches over every counted path; the FFN counter is split between
     # the ring paths (#11) and the paged ones (#13)
-    paths = runs + serving
+    paths = runs + serving + [training]
     total = {name: sum(r["launches"][name] for r in paths)
              for name in paths[0]["launches"]}
     paged_ffn = sum(r["launches"]["ffn"] for r in paths
@@ -953,14 +1324,16 @@ def main():
     total["ffn"] -= paged_ffn
     kernels_line = []
     for name in ("qkv_attention_fwd", "megastep", "ffn", "megastep_paged",
-                 "ffn_paged", "flash_decode", "flash_decode_paged"):
+                 "ffn_paged", "flash_decode", "flash_decode_paged",
+                 "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         r = dict(records[(name, max(BATCHES))])
         r.pop("batch")
         r.pop("library_max_abs_err", None)
         r["launches"] = total[name]
         require(r["launches"] > 0, f"{name}: no launch on the main paths")
         kernels_line.append(r)
-    print(json.dumps({"main_path": runs, "serving": serving, "power": smi}))
+    print(json.dumps({"main_path": runs, "serving": serving,
+                      "training": training, "power": smi}))
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.transformer import PAD_BIAS, src_token_lengths
+from ..models.transformer import pad_bias, src_token_lengths
 from ..ops.generation_ops import sample_token
 from .kv_cache import KVCache, PagedKVCache, cache_rows
 
@@ -112,8 +112,7 @@ class GenerationSession:
         else:
             pos = torch.as_tensor(np.asarray(src_pos, np.int64),
                                   device=dev).reshape(b, ts)
-        bias = (PAD_BIAS * (word == 0).float()).reshape(b, 1, 1, ts)
-        enc_out = self.model.encode(word, pos, bias)
+        enc_out = self.model.encode(word, pos, pad_bias(word))
         src_lens = src_token_lengths(word)
         a = _lane_mask(active, b, dev)
         inv = 1 - a

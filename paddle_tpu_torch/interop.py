@@ -1,10 +1,17 @@
-"""Weights from the JAX package: ``load_paddle_tpu_params``.
+"""Weights and Adam state to and from the JAX package's scopes.
 
-The reference names its parameters through ``unique_name`` draws in the
-order ``build_generation_programs`` builds the prefill and the decode
-programs.  :func:`paddle_tpu_param_names` lists those names with the
-attribute of the port's :class:`~paddle_tpu_torch.models.transformer.
-Transformer` each one fills.
+The reference names its parameters through ``unique_name`` draws.  The
+generation programs (``build_generation_programs``) and the training
+program (``transformer(...)`` + ``Adam.minimize``) draw the same names in
+different orders, so one map serves both: :func:`paddle_tpu_param_names`
+lists each name with the attribute of the port's
+:class:`~paddle_tpu_torch.models.transformer.Transformer` it fills.
+:func:`load_paddle_tpu_params` and :func:`export_paddle_tpu_params` carry
+the weights; :func:`load_paddle_tpu_adam_state` and
+:func:`export_paddle_tpu_adam_state` carry the port's
+:class:`~paddle_tpu_torch.optimizer.Adam` state under the names the
+reference's optimizer gives its accumulators, ``<param>_moment1_0`` and
+the like (``paddle_tpu/optimizer.py`` ``_add_accumulator``).
 """
 
 from __future__ import annotations
@@ -14,8 +21,9 @@ import torch
 
 
 def paddle_tpu_param_names(n_layer: int):
-    """[(reference parameter name, port parameter path)] in the reference's
-    draw order: the prefill program's, then the decode program's."""
+    """[(reference parameter name, port parameter path)] in the generation
+    programs' draw order: the prefill program's, then the decode
+    program's."""
     pairs = [("src_word_emb_table", "src_word_emb"),
              ("src_pos_enc_table", "src_pos_enc")]
 
@@ -75,3 +83,53 @@ def load_paddle_tpu_params(model, params):
                 f"{tuple(target.shape)}")
         target.copy_(value)
     return model
+
+
+def export_paddle_tpu_params(model):
+    """{reference parameter name: f32 numpy array} of ``model``'s weights,
+    which :func:`load_paddle_tpu_params` (or a reference scope) takes."""
+    return {name: model.get_parameter(path).detach().cpu().numpy().copy()
+            for name, path in paddle_tpu_param_names(model.n_layer)}
+
+
+#: the reference's Adam accumulators, in the order it creates them
+ADAM_ACCUMULATORS = ("moment1", "moment2", "beta1_pow_acc", "beta2_pow_acc")
+
+
+def _adam_pairs(optimizer, model):
+    """[(reference accumulator name, state tensor)] of every parameter
+    ``optimizer`` trains."""
+    pairs = []
+    for name, path in paddle_tpu_param_names(model.n_layer):
+        state = optimizer.state.get(model.get_parameter(path))
+        if state is not None:
+            pairs += [(f"{name}_{acc}_0", state[acc])
+                      for acc in ADAM_ACCUMULATORS]
+    return pairs
+
+
+@torch.no_grad()
+def load_paddle_tpu_adam_state(optimizer, model, state):
+    """Fill the Adam state of ``optimizer`` (training ``model``'s
+    parameters) from ``state``, a ``{name: array}`` mapping as the
+    reference's scope holds its accumulators.  Raises on a missing name or
+    a shape that differs; returns the optimizer."""
+    pairs = _adam_pairs(optimizer, model)
+    missing = [name for name, _ in pairs if name not in state]
+    if missing:
+        raise KeyError(f"load_paddle_tpu_adam_state: missing {missing}")
+    for name, target in pairs:
+        value = torch.from_numpy(np.array(state[name], np.float32))
+        if value.numel() != target.numel():
+            raise ValueError(
+                f"load_paddle_tpu_adam_state: {name} has shape "
+                f"{tuple(value.shape)}, the port's is {tuple(target.shape)}")
+        target.copy_(value.reshape(target.shape))
+    return optimizer
+
+
+def export_paddle_tpu_adam_state(optimizer, model):
+    """{reference accumulator name: f32 numpy array} of ``optimizer``'s
+    state, under the names :func:`load_paddle_tpu_adam_state` reads."""
+    return {name: t.detach().cpu().numpy().copy()
+            for name, t in _adam_pairs(optimizer, model)}

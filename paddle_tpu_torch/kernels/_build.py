@@ -126,6 +126,12 @@ _SIGNATURES = {
     "ptt_ffn_chunks": (_I, [_I]),
     "ptt_ffn_tiles": (_I, [_I]),
     "ptt_ffn": (_I, [_P] * 10 + [_I, _I, _I, _F, _P]),
+    "ptt_flash_fwd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 2 + [_I] * 4
+                      + [_F, _I, _P]),
+    "ptt_flash_bwd_dq": (_I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 4
+                         + [_F, _I, _P]),
+    "ptt_flash_bwd_dkv": (_I, [_P] * 4 + [_L] * 4 + [_P] * 5 + [_I] * 4
+                          + [_F, _I, _P]),
 }
 
 

@@ -1,13 +1,18 @@
-"""The encoder-decoder Transformer on the serving path, as nn.Modules.
+"""The encoder-decoder Transformer, as nn.Modules, for serving and training.
 
-Counterpart of ``paddle_tpu/models/transformer.py`` as the generation
-programs (``build_generation_programs``) run it with ``use_flash=True``
-and the default flags, at inference (dropout 0):
+Counterpart of ``paddle_tpu/models/transformer.py`` with ``use_flash=True``:
 
-* prefill: ``prepare_encoder`` (word + learned position tables), the
-  encoder layers on the fused-qkv route with the "dan" post-process chain
-  (add + layer norm at rate 0), ``_src_token_lengths`` and
-  ``_prefill_cross_cache``;
+* training: ``transformer(...)``'s forward, :meth:`Transformer.forward`
+  (word + learned position tables, the encoder and decoder layers, the
+  "dan" post-process chain at rate 0, the output projection and the
+  weighted ``softmax_with_cross_entropy`` mean), with the biases of
+  :func:`training_biases`.  Its attention sites take the reference's
+  flag-off route (``FLAGS_fused_qkv_attention`` off): the q/k/v ``mul``,
+  ``flash_attention(fmt="bthd")`` and the output ``mul``;
+* prefill, as the generation programs (``build_generation_programs``)
+  run it: ``prepare_encoder``, the encoder layers on the fused-qkv route
+  by default (``fused_qkv_attention=True``, the reference's default flag),
+  ``_src_token_lengths`` and ``_prefill_cross_cache``;
 * decode: ``cached_decoder_step``, then ``predict_w``/``predict_b``.  On
   the fused route (``fused_decode_step=True``, the reference's default
   ``FLAGS_fused_decode_step``) each layer is one ``fused_decode_step``
@@ -18,30 +23,39 @@ and the default flags, at inference (dropout 0):
   There only the two attentions are kernels; the matmuls and the FFN are
   plain PyTorch, as the reference leaves them to XLA.
 
-Weights keep the reference's [in, out] layout, and neither choice changes
+The fused-qkv route has no backward yet: in grad mode it raises, so train
+with ``fused_qkv_attention=False``.  Dropout is not ported: a model built
+with ``dropout_rate > 0`` raises in training and serves as the reference
+serves (dropout off at inference).
+
+Weights keep the reference's [in, out] layout, and no choice changes
 their names or shapes, so the JAX package's arrays load as they are
-(``interop.load_paddle_tpu_params``).
+(``interop.load_paddle_tpu_params``).  Every parameter is trainable except
+the position tables, which the reference declares ``trainable=False``.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..kernels.attention import flash_qkv_attention
+from ..kernels.attention import flash_attention, flash_qkv_attention
 from ..kernels.decode_step import fused_decode_step, fused_decode_step_paged
-from ..ops.nn_ops import layer_norm, lookup_table, mul
+from ..ops.nn_ops import (layer_norm, lookup_table, mul,
+                          softmax_with_cross_entropy)
 
-#: additive score bias of a padded source key (the reference's -1e9)
+#: additive score bias of a padded key and of a future one (the
+#: reference's -1e9)
 PAD_BIAS = -1e9
 
 
-def _param(*shape, device):
+def _param(*shape, device, trainable=True):
     return nn.Parameter(torch.empty(shape, device=device),
-                        requires_grad=False)
+                        requires_grad=trainable)
 
 
 def prepare_encoder(word_ids, pos_ids, word_table, pos_table):
@@ -54,6 +68,48 @@ def positionwise_feed_forward(x, w_in, b_in, w_out, b_out):
     return mul(torch.relu(mul(x, w_in) + b_in), w_out) + b_out
 
 
+def _attend(q, k, v, w_out, bias, n_head, d_key):
+    """The flag-off flash route's tail: q [b, tq, h*d], k/v [b, tk, h*d]
+    as [b, t, h, d] (a view), ``flash_attention(fmt="bthd")``, the heads
+    merged back and projected by w_out."""
+    b, tq, hd = q.shape
+    tk = k.shape[1]
+    ctx = flash_attention(q.reshape(b, tq, n_head, d_key),
+                          k.reshape(b, tk, n_head, d_key),
+                          v.reshape(b, tk, n_head, d_key), bias,
+                          scale=d_key ** -0.5, fmt="bthd")
+    return mul(ctx.reshape(b, tq, hd), w_out)
+
+
+def self_attention(x, w_qkv, w_out, bias, n_head, d_key, fused):
+    """Self-attention of x [b, t, d_model]: one ``flash_qkv_attention``
+    (#1) when ``fused``, else one ``mul`` by the packed w_qkv, split q|k|v,
+    and :func:`_attend` (#4, #6, #7)."""
+    if fused:
+        return flash_qkv_attention(x, w_qkv, w_out, bias, n_head=n_head,
+                                   scale=d_key ** -0.5)
+    q, k, v = torch.split(mul(x, w_qkv), n_head * d_key, dim=-1)
+    return _attend(q, k, v, w_out, bias, n_head, d_key)
+
+
+def pad_bias(word):
+    """[b, t] ids -> the key-padding bias [b, 1, 1, t]: -1e9 at pad id 0."""
+    b, t = word.shape
+    return (PAD_BIAS * (word == 0).float()).reshape(b, 1, 1, t)
+
+
+def training_biases(src_word, trg_word, trg_pos):
+    """The training step's additive biases from the fed [b, t] ids and
+    positions, made on the device as ``transformer(device_biases=True)``
+    makes them: (the source key-padding bias [b, 1, 1, ts] of the encoder
+    and of the cross-attention, the decoder's causal-plus-padding bias
+    [b, 1, tt, tt]), -1e9 where masked."""
+    b, tt = trg_word.shape
+    future = (trg_pos[:, :, None] < trg_pos[:, None, :]).float()
+    return (pad_bias(src_word),
+            (PAD_BIAS * future).reshape(b, 1, tt, tt) + pad_bias(trg_word))
+
+
 def src_token_lengths(src_word):
     """[b, Ts] ids -> [b] int32: 1 + the last non-pad position (pad id 0),
     0 for an all-pad row (the reference's ``_src_token_lengths``)."""
@@ -63,9 +119,15 @@ def src_token_lengths(src_word):
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model, n_head, d_key, d_inner_hid, device):
+    """One encoder layer.  ``fused_qkv_attention`` picks its attention
+    route (the reference's ``FLAGS_fused_qkv_attention``): #1, or the
+    flag-off projections around the bthd flash kernels."""
+
+    def __init__(self, d_model, n_head, d_key, d_inner_hid, device,
+                 fused_qkv_attention=True):
         super().__init__()
         self.n_head, self.d_key = n_head, d_key
+        self.fused_qkv_attention = bool(fused_qkv_attention)
         hd = n_head * d_key
         self.attn_qkv_w = _param(d_model, 3 * hd, device=device)
         self.attn_out_w = _param(hd, d_model, device=device)
@@ -79,9 +141,9 @@ class EncoderLayer(nn.Module):
         self.ln2_bias = _param(d_model, device=device)
 
     def forward(self, x, attn_bias):
-        attn = flash_qkv_attention(x, self.attn_qkv_w, self.attn_out_w,
-                                   attn_bias, n_head=self.n_head,
-                                   scale=self.d_key ** -0.5)
+        attn = self_attention(x, self.attn_qkv_w, self.attn_out_w, attn_bias,
+                              self.n_head, self.d_key,
+                              self.fused_qkv_attention)
         x = layer_norm(attn + x, self.ln1_scale, self.ln1_bias)
         ffd = positionwise_feed_forward(x, self.ffn_in_w, self.ffn_in_b,
                                         self.ffn_out_w, self.ffn_out_b)
@@ -89,12 +151,16 @@ class EncoderLayer(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """One decoder layer's weights; ``cross_k_w``/``cross_v_w`` project
-    the encoder output into this layer's cross cache at prefill."""
+    """One decoder layer: :meth:`forward` over a whole target sequence
+    (training), :meth:`step` over one cached token (serving).
+    ``cross_k_w``/``cross_v_w`` project the encoder output; at serving
+    they fill this layer's cross cache at prefill."""
 
-    def __init__(self, d_model, n_head, d_key, d_inner_hid, device):
+    def __init__(self, d_model, n_head, d_key, d_inner_hid, device,
+                 fused_qkv_attention=True):
         super().__init__()
         self.n_head, self.d_key = n_head, d_key
+        self.fused_qkv_attention = bool(fused_qkv_attention)
         hd = n_head * d_key
         self.attn_qkv_w = _param(d_model, 3 * hd, device=device)
         self.attn_out_w = _param(hd, d_model, device=device)
@@ -112,6 +178,23 @@ class DecoderLayer(nn.Module):
         self.ln3_bias = _param(d_model, device=device)
         self.cross_k_w = _param(d_model, hd, device=device)
         self.cross_v_w = _param(d_model, hd, device=device)
+
+    def forward(self, x, enc_out, slf_bias, cross_bias):
+        """The reference's ``decoder_layer`` over x [b, tt, d_model]:
+        self-attention under slf_bias [b, 1, tt, tt], cross-attention to
+        enc_out [b, ts, d_model] under cross_bias [b, 1, 1, ts], the
+        feed-forward, each followed by add + layer norm."""
+        attn = self_attention(x, self.attn_qkv_w, self.attn_out_w, slf_bias,
+                              self.n_head, self.d_key,
+                              self.fused_qkv_attention)
+        x = layer_norm(attn + x, self.ln1_scale, self.ln1_bias)
+        cross = _attend(mul(x, self.cross_q_w), mul(enc_out, self.cross_k_w),
+                        mul(enc_out, self.cross_v_w), self.cross_out_w,
+                        cross_bias, self.n_head, self.d_key)
+        x = layer_norm(cross + x, self.ln2_scale, self.ln2_bias)
+        ffd = positionwise_feed_forward(x, self.ffn_in_w, self.ffn_in_b,
+                                        self.ffn_out_w, self.ffn_out_b)
+        return layer_norm(ffd + x, self.ln3_scale, self.ln3_bias)
 
     def step(self, x, self_cache, cross_cache, pos, lengths, active,
              layer, fused=True):
@@ -162,34 +245,43 @@ class DecoderLayer(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Encoder-decoder Transformer for generation.  Runs on CUDA unless
-    ``device`` says otherwise; parameters are uninitialized until
-    :meth:`init_params` or ``interop.load_paddle_tpu_params``.
-    ``fused_decode_step`` picks the decoder step's route (the reference's
-    ``FLAGS_fused_decode_step``)."""
+    """Encoder-decoder Transformer for training and generation.  Runs on
+    CUDA unless ``device`` says otherwise; parameters are uninitialized
+    until :meth:`init_params` or ``interop.load_paddle_tpu_params``.
+    ``fused_qkv_attention`` picks the self-attention route (the
+    reference's ``FLAGS_fused_qkv_attention``; the fused route serves
+    only), ``fused_decode_step`` the decoder step's (its
+    ``FLAGS_fused_decode_step``).  ``dropout_rate`` is the reference's
+    training dropout: not ported, so training raises when it is set."""
 
     def __init__(self, src_vocab_size=10000, trg_vocab_size=10000,
                  max_length=256, n_layer=6, n_head=8, d_key=64, d_value=64,
                  d_model=512, d_inner_hid=2048, device=None,
-                 fused_decode_step=True):
+                 fused_decode_step=True, fused_qkv_attention=True,
+                 dropout_rate=0.0):
         super().__init__()
         if d_key != d_value:
             raise ValueError("Transformer: the cached decoder step needs "
                              f"d_key == d_value, got {d_key}, {d_value}")
         device = resolve_device(device)
         self.fused_decode_step = bool(fused_decode_step)
+        self.dropout_rate = float(dropout_rate)
         self.n_layer, self.n_head, self.d_key = n_layer, n_head, d_key
         self.d_model, self.max_length = d_model, max_length
         self.trg_vocab_size = trg_vocab_size
+        layer_kw = dict(device=device,
+                        fused_qkv_attention=fused_qkv_attention)
         self.src_word_emb = _param(src_vocab_size, d_model, device=device)
-        self.src_pos_enc = _param(max_length, d_model, device=device)
+        self.src_pos_enc = _param(max_length, d_model, device=device,
+                                  trainable=False)
         self.encoder = nn.ModuleList(
-            EncoderLayer(d_model, n_head, d_key, d_inner_hid, device)
+            EncoderLayer(d_model, n_head, d_key, d_inner_hid, **layer_kw)
             for _ in range(n_layer))
         self.trg_word_emb = _param(trg_vocab_size, d_model, device=device)
-        self.trg_pos_enc = _param(max_length, d_model, device=device)
+        self.trg_pos_enc = _param(max_length, d_model, device=device,
+                                  trainable=False)
         self.decoder = nn.ModuleList(
-            DecoderLayer(d_model, n_head, d_key, d_inner_hid, device)
+            DecoderLayer(d_model, n_head, d_key, d_inner_hid, **layer_kw)
             for _ in range(n_layer))
         self.predict_w = _param(d_model, trg_vocab_size, device=device)
         self.predict_b = _param(trg_vocab_size, device=device)
@@ -218,6 +310,33 @@ class Transformer(nn.Module):
                 w = (torch.rand(p.shape, generator=gen) * 2 - 1) * limit
             p.copy_(w)
         return self
+
+    def forward(self, src_word, src_pos, trg_word, trg_pos, lbl_word,
+                lbl_weight):
+        """The training step's forward: ids [b, t] or [b, t, 1] (pad id
+        0), lbl_weight [b, tt] or [b, tt, 1] f32.  Returns (avg_cost,
+        predict): the lbl_weight-weighted mean of the per-token
+        ``softmax_with_cross_entropy`` (weighted sum over weight sum, a
+        0-dim tensor) and the logits [b, tt, trg_vocab]."""
+        if self.dropout_rate and torch.is_grad_enabled():
+            raise NotImplementedError(
+                f"Transformer: dropout_rate={self.dropout_rate} needs the "
+                "dropout slice of the port (hash_rng and kernels #16, #17), "
+                "which is not done yet; train with dropout_rate=0")
+        b = src_word.shape[0]
+        src_word, src_pos, trg_word, trg_pos = (
+            a.reshape(b, -1) for a in (src_word, src_pos, trg_word, trg_pos))
+        src_bias, trg_bias = training_biases(src_word, trg_word, trg_pos)
+        enc_out = self.encode(src_word, src_pos, src_bias)
+        x = prepare_encoder(trg_word, trg_pos, self.trg_word_emb,
+                            self.trg_pos_enc)
+        for layer in self.decoder:
+            x = layer(x, enc_out, trg_bias, src_bias)
+        predict = mul(x, self.predict_w) + self.predict_b
+        cost = softmax_with_cross_entropy(
+            predict.reshape(-1, self.trg_vocab_size), lbl_word.reshape(-1, 1))
+        w = lbl_weight.reshape(-1, 1).float()
+        return (cost * w).sum() / w.sum(), predict
 
     def encode(self, src_word, src_pos, attn_bias):
         """src_word/src_pos [b, Ts] int64, attn_bias [b, 1, 1, Ts] ->
@@ -253,3 +372,29 @@ class Transformer(nn.Module):
             x = layer.step(x, self_cache, cross_cache, pos, lengths,
                            active, i, fused=self.fused_decode_step)
         return (mul(x, self.predict_w) + self.predict_b)[:, 0, :]
+
+
+def make_batch(batch_size, src_len, trg_len, n_head, src_vocab, trg_vocab,
+               rng=None):
+    """Synthetic padded batch as numpy arrays, a copy of the reference's
+    ``make_batch`` with ``device_biases=True``: ids [b, t, 1] int64 in
+    [1, vocab), positions 0..t-1, lbl_weight [b, tt, 1] of ones; the model
+    makes the attention biases on the device (``n_head`` is unused, as
+    there)."""
+    del n_head
+    rng = rng or np.random.RandomState(0)
+
+    def pos(n, t):
+        return np.tile(np.arange(t, dtype=np.int64)[None, :, None], (n, 1, 1))
+
+    return {
+        "src_word": rng.randint(1, src_vocab,
+                                (batch_size, src_len, 1)).astype("int64"),
+        "src_pos": pos(batch_size, src_len),
+        "trg_word": rng.randint(1, trg_vocab,
+                                (batch_size, trg_len, 1)).astype("int64"),
+        "trg_pos": pos(batch_size, trg_len),
+        "lbl_word": rng.randint(1, trg_vocab,
+                                (batch_size, trg_len, 1)).astype("int64"),
+        "lbl_weight": np.ones((batch_size, trg_len, 1), "float32"),
+    }

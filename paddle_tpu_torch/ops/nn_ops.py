@@ -1,5 +1,7 @@
-"""Counterparts of ``paddle_tpu/ops/nn_ops.py`` ``layer_norm`` and
-``lookup_table``, and of ``paddle_tpu/ops/math_ops.py`` ``mul``."""
+"""Counterparts of ``paddle_tpu/ops/nn_ops.py`` ``layer_norm``,
+``lookup_table`` and ``softmax_with_cross_entropy``, and of
+``paddle_tpu/ops/math_ops.py`` ``mul``.  Each differentiates through
+torch autograd as the reference's lowering does through ``jax.vjp``."""
 
 from __future__ import annotations
 
@@ -7,9 +9,10 @@ import torch
 
 
 def layer_norm(x, scale, bias, eps=1e-5):
-    """Normalize over the last axis: statistics in f32 (``layer_norm_core``
-    with ``begin_norm_axis`` = last), result in x's dtype."""
-    xs = x.float()
+    """Normalize over the last axis: statistics in f32 or wider
+    (``layer_norm_core`` with ``begin_norm_axis`` = last), result in x's
+    dtype."""
+    xs = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = xs.mean(dim=-1, keepdim=True)
     var = (xs - mean).square().mean(dim=-1, keepdim=True)
     y = (xs - mean) * torch.rsqrt(var + eps)
@@ -29,3 +32,15 @@ def mul(x, w):
     last axis): x [..., K] flattened to one [rows, K] product with
     w [K, N], leading axes restored."""
     return (x.reshape(-1, w.shape[0]) @ w).reshape(*x.shape[:-1], w.shape[1])
+
+
+def softmax_with_cross_entropy(logits, label):
+    """Hard-label cross entropy [N, 1] of logits [N, V] and integer label
+    [N, 1] (``softmax_with_cross_entropy_op``): ``log sum exp(shifted) -
+    shifted[label]`` with ``shifted = logits - max`` (the max a constant to
+    autograd, as the reference stops its gradient), summed in f32 or
+    wider."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    shifted = logits - logits.detach().amax(-1, keepdim=True)
+    log_z = torch.log(torch.exp(shifted).sum(-1, keepdim=True))
+    return log_z - torch.gather(shifted, -1, label.reshape(-1, 1).long())

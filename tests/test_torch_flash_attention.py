@@ -1,0 +1,257 @@
+"""paddle_tpu_torch flash_attention (fmt="bthd") against the JAX package,
+on the CPU.
+
+On CPU tensors the port's autograd.Function runs the plain twins of its
+three kernels (#4 forward, #6 dq, #7 dk/dv), so these tests hold that
+arithmetic and the Function's wiring against the reference's Pallas
+kernels in interpret mode (``_flash_forward``, ``_flash_backward`` and
+``jax.vjp`` of ``flash_attention``) and against autograd through a plain
+float64 softmax.  The CUDA kernels are held against the same twins on the
+card by chip_smoke.py.  Inputs are numpy arrays from seeds.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.kernels import attention as jax_attention
+from paddle_tpu_torch.kernels import attention as ka
+
+#: f32 on both sides; the packages sum in different orders
+TOL = 1e-5
+B, H, D = 2, 2, 64
+SCALE = D ** -0.5
+
+#: (name, tq, tk, bias kind, causal): the reference's bias shapes, causal
+#: with tq < tk and tq > tk (its first tq - tk rows see no key), and a row
+#: masked by a -1e30 bias
+CASES = [
+    ("no_bias", 32, 32, None, False),
+    ("key_padding", 32, 64, "pad", False),
+    ("full_q_bias", 32, 32, "full", False),
+    ("per_head", 32, 64, "head", False),
+    ("causal_tq_lt_tk", 32, 64, None, True),
+    ("causal_tq_gt_tk", 64, 32, "pad", True),
+    ("masked_row", 64, 64, "masked", False),
+]
+
+
+def _inputs(tq, tk, bias_kind, seed=0):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, tq, H, D).astype(np.float32)
+    k = rng.randn(B, tk, H, D).astype(np.float32)
+    v = rng.randn(B, tk, H, D).astype(np.float32)
+    g = rng.randn(B, tq, H, D).astype(np.float32)
+    if bias_kind == "pad":  # [b, 1, 1, tk], lane 1 with a padded tail
+        bias = np.zeros((B, 1, 1, tk), np.float32)
+        bias[1, ..., tk - 7:] = -1e9
+    elif bias_kind == "full":  # decoder-style [b, 1, tq, tk]
+        bias = (rng.randn(B, 1, tq, tk) * 0.5).astype(np.float32)
+        bias[:, :, :, -3:] = -1e9
+    elif bias_kind == "head":
+        bias = (rng.randn(1, H, tq, tk) * 0.5).astype(np.float32)
+    elif bias_kind == "masked":  # row 5 of lane 1 sees nothing
+        bias = np.zeros((B, 1, tq, tk), np.float32)
+        bias[1, 0, 5, :] = -1e30
+    else:
+        bias = None
+    return q, k, v, g, bias
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def _jax_kernels(q, k, v, g, bias, causal):
+    """(out, lse, dq, dk, dv) from the reference's interpret-mode
+    kernels."""
+    jq, jk, jv, jg, jb = (_j(a) for a in (q, k, v, g, bias))
+    ok, bq, bk, interp = jax_attention._plan(jq, jk, 512, 512, True, "bthd")
+    assert ok and interp  # d = 64: the kernels run, not the XLA fallback
+    seed = jnp.zeros((1,), jnp.uint32)
+    out, lse = jax_attention._flash_forward(jq, jk, jv, jb, seed, SCALE,
+                                            causal, bq, bk, True, "bthd")
+    dq, dk, dv = jax_attention._flash_backward(
+        jq, jk, jv, jb, seed, out, lse, jg, SCALE, causal, bq, bk, True,
+        "bthd")
+    return out, lse, dq, dk, dv
+
+
+@pytest.mark.parametrize("name,tq,tk,bias_kind,causal", CASES)
+def test_forward_matches_jax_kernel(name, tq, tk, bias_kind, causal):
+    """Output and lse of #4's twin against _fwd_kernel_bthd (interpret),
+    1e-5 abs and rel; masked rows give 0 and lse = +inf in both."""
+    q, k, v, g, bias = _inputs(tq, tk, bias_kind)
+    want_out, want_lse = _jax_kernels(q, k, v, g, bias, causal)[:2]
+    out, lse = ka.flash_fwd(*(_t(a) for a in (q, k, v, bias)), SCALE,
+                            causal)
+    assert out.shape == (B, tq, H, D) and lse.shape == (B, H, tq)
+    _close(out, want_out)
+    _close(lse, want_lse)
+    hidden = np.isinf(np.asarray(want_lse))
+    assert (hidden.any() == (name in ("causal_tq_gt_tk", "masked_row")))
+    assert torch.count_nonzero(out.transpose(1, 2)[torch.from_numpy(
+        hidden)]) == 0
+
+
+@pytest.mark.parametrize("name,tq,tk,bias_kind,causal", CASES)
+def test_backward_matches_jax_kernels(name, tq, tk, bias_kind, causal):
+    """dq (#6's twin) and dk, dv (#7's twin), from the same out, lse and
+    dO, against _bwd_dq_kernel_bthd and _bwd_dkv_kernel_bthd (interpret),
+    1e-5 abs and rel."""
+    q, k, v, g, bias = _inputs(tq, tk, bias_kind, seed=1)
+    out, lse, *want = _jax_kernels(q, k, v, g, bias, causal)
+    tq_, tk_, tv_, tg_, tb_ = (_t(a) for a in (q, k, v, g, bias))
+    o_, lse_ = (torch.from_numpy(np.array(a)) for a in (out, lse))
+    delta = (tg_ * o_).sum(-1).transpose(1, 2).contiguous()
+    dq = ka.flash_bwd_dq(tq_, tk_, tv_, tb_, tg_, lse_, delta, SCALE, causal)
+    dk, dv = ka.flash_bwd_dkv(tq_, tk_, tv_, tb_, tg_, lse_, delta, SCALE,
+                              causal)
+    for got, w in zip((dq, dk, dv), want):
+        _close(got, w)
+
+
+@pytest.mark.parametrize("name,tq,tk,bias_kind,causal", CASES)
+def test_autograd_matches_jax_vjp(name, tq, tk, bias_kind, causal):
+    """The port's differentiable flash_attention against jax.vjp of the
+    reference's flash_attention (kernels in interpret mode), output and
+    dq, dk, dv, 1e-5 abs and rel."""
+    q, k, v, g, bias = _inputs(tq, tk, bias_kind, seed=2)
+
+    def f(q_, k_, v_):
+        return jax_attention.flash_attention(
+            q_, k_, v_, _j(bias), scale=SCALE, causal=causal, fmt="bthd",
+            interpret=True)
+
+    want, vjp = jax.vjp(f, *(_j(a) for a in (q, k, v)))
+    want_grads = vjp(_j(g))
+    args = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = ka.flash_attention(*args, _t(bias), scale=SCALE, causal=causal)
+    out.backward(_t(g))
+    _close(out.detach(), want)
+    for a, w in zip(args, want_grads):
+        _close(a.grad, w)
+
+
+def _composed64(q, k, v, bias, causal):
+    """softmax(q k^T * scale + bias) v in float64 autograd; rows whose
+    max is <= -1e29 give 0, as the kernels do."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * SCALE
+    if bias is not None:
+        s = s + bias
+    if causal:
+        tq, tk = s.shape[-2:]
+        keep = torch.ones(tq, tk, dtype=torch.bool).tril(tk - tq)
+        s = s.masked_fill(~keep, -1e30)
+    w = torch.softmax(s, dim=-1).masked_fill(
+        s.amax(dim=-1, keepdim=True) <= -1e29, 0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+@pytest.mark.parametrize("name,tq,tk,bias_kind,causal", CASES)
+def test_autograd_matches_float64_composition(name, tq, tk, bias_kind,
+                                              causal):
+    """The Function's gradients against torch autograd through a plain
+    float64 softmax, 1e-5 abs and rel (the port runs f32).  A bias that
+    requires grad gets dbias reduced to its own shape; a mask that does
+    not gets none."""
+    q, k, v, g, bias = _inputs(tq, tk, bias_kind, seed=3)
+    trainable = bias_kind in ("full", "head")
+    x32 = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    x64 = [torch.from_numpy(a).double().requires_grad_() for a in (q, k, v)]
+    b32 = b64 = None
+    if bias is not None:
+        b32 = torch.from_numpy(bias).requires_grad_(trainable)
+        b64 = torch.from_numpy(bias).double().requires_grad_(trainable)
+    out = ka.flash_attention(*x32, b32, scale=SCALE, causal=causal)
+    out.backward(_t(g))
+    want = _composed64(*x64, b64, causal)
+    want.backward(_t(g).double())
+    _close(out.detach(), want.detach())
+    for a, w in zip(x32, x64):
+        _close(a.grad, w.grad)
+    if trainable:
+        assert b32.grad.shape == b32.shape
+        _close(b32.grad, b64.grad)
+    elif b32 is not None:
+        assert b32.grad is None
+
+
+def test_trainable_bias_grad_matches_jax():
+    """dbias of a per-head bias against the reference's _dbias_xla (through
+    jax.vjp), 1e-5 abs and rel."""
+    q, k, v, g, bias = _inputs(32, 64, "head", seed=4)
+    _, vjp = jax.vjp(lambda b_: jax_attention.flash_attention(
+        _j(q), _j(k), _j(v), b_, scale=SCALE, fmt="bthd", interpret=True),
+        _j(bias))
+    (want,) = vjp(_j(g))
+    b = torch.from_numpy(bias).requires_grad_()
+    ka.flash_attention(*(_t(a) for a in (q, k, v)), b,
+                       scale=SCALE).backward(_t(g))
+    _close(b.grad, want)
+
+
+def test_bias_broadcasts_without_a_copy():
+    """A [tk]-only bias gives what its [b, 1, 1, tk] broadcast gives."""
+    q, k, v, g, bias = _inputs(32, 64, "pad", seed=5)
+    args = [_t(a) for a in (q, k, v)]
+    row = torch.from_numpy(bias[1, 0, 0])
+    full = torch.from_numpy(bias[1:2]).expand(B, 1, 1, 64)
+    _close(ka.flash_attention(*args, row, scale=SCALE),
+           ka.flash_attention(*args, full, scale=SCALE), 0.0)
+    with pytest.raises(ValueError):
+        ka.flash_attention(*args, torch.zeros(3, 1, 1, 64))
+
+
+def test_bhtd_format_raises():
+    q, k, v, _, _ = _inputs(32, 32, None)
+    with pytest.raises(NotImplementedError, match="#5, #8 and #9"):
+        ka.flash_attention(*(_t(a) for a in (q, k, v)), fmt="bhtd")
+
+
+def test_dropout_raises():
+    q, k, v, _, _ = _inputs(32, 32, None)
+    with pytest.raises(NotImplementedError, match="dropout slice"):
+        ka.flash_attention(*(_t(a) for a in (q, k, v)), dropout_rate=0.1)
+
+
+def test_fused_qkv_attention_refuses_to_train():
+    """#1 has no backward yet: in grad mode with a trainable input it
+    raises, never returning a result without a gradient; under no_grad it
+    runs as the serving path does."""
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(2, 16, 128).astype(np.float32))
+    w_qkv = torch.from_numpy((rng.randn(128, 384) * 0.08).astype(np.float32))
+    w_out = torch.from_numpy((rng.randn(128, 128) * 0.08).astype(np.float32))
+    w_qkv.requires_grad_()
+    with pytest.raises(NotImplementedError, match="#2 and #3"):
+        ka.flash_qkv_attention(x, w_qkv, w_out, n_head=2)
+    with torch.no_grad():
+        assert ka.flash_qkv_attention(x, w_qkv, w_out,
+                                      n_head=2).shape == (2, 16, 128)
+
+
+def test_kernel_wrappers_refuse_non_cpu_tensors():
+    """No fallback off the CPU: a tensor the kernels cannot take raises."""
+    q, k, v, g, _ = _inputs(32, 32, None)
+    meta = [torch.from_numpy(a).to("meta") for a in (q, k, v, g)]
+    lse = torch.zeros(B, H, 32, device="meta")
+    with pytest.raises(ValueError):
+        ka.flash_fwd(*meta[:3])
+    with pytest.raises(ValueError):
+        ka.flash_bwd_dq(*meta[:3], None, meta[3], lse, lse)
+    with pytest.raises(ValueError):
+        ka.flash_bwd_dkv(*meta[:3], None, meta[3], lse, lse)

@@ -14,7 +14,13 @@ Phases, each fatal on failure:
    encoder self-attention (key-padding bias [32, 1, 1, 256]), the decoder
    self-attention ([32, 1, 256, 256]), a cross case with target 128 and
    source 256, a ``causal=True`` case, and a causal case with tq > tk and
-   a row masked to -1e30;
+   a row masked to -1e30.  The fused-projection training kernels (#1 with
+   its residuals ctx and lse, #2 and #3) are checked at batch 32, 8 heads,
+   d_model 512 on the encoder self-attention (t 256, bias [32, 1, 1,
+   256]), the decoder self-attention (t 256, [32, 1, 256, 256]), a
+   ``causal=True`` case and a ragged t = 200 with one row masked to -1e30
+   (ctx 0, lse +inf, zero dx_q); #2 and #3 are each called twice on the
+   same inputs and must give equal bits;
 3. the main paths on Transformer-base (6 layers, 8 heads, d_model 512,
    d_inner 2048, vocab 32000, source 256, 64 tokens) with seeded random
    weights.  The launch counters are zeroed just before each path and read
@@ -51,9 +57,16 @@ Phases, each fatal on failure:
    depth and length; see TOL_TRAIN_GRAD).  Then 10 timed steps on the card
    on one repeated batch (median step ms, target tokens/s, share of the
    f32 peak), whose loss must fall;
+   (e) training on the default route (``fused_qkv_attention=True``) from
+   (d)'s initial weights and on (d)'s batch: 12 ``qkv_attention_fwd``, 12
+   ``qkv_bwd_dq`` and 12 ``qkv_bwd_dkv`` launches per step (the self-
+   attention sites) and 6 each of the bthd kernels (the cross sites).
+   Step 1's loss and gradients are held against (d)'s float64 evaluation
+   under (d)'s criterion, step 2's loss against (d)'s CPU f32 step 2; then
+   10 timed steps as in (d), printed beside (d)'s;
 4. where the time goes: torch.profiler over one prefill and 16 decode
-   steps at each batch, and over one training step: device time by kernel
-   beside host wall time.
+   steps at each batch, and over one training step on each route: device
+   time by kernel beside host wall time.
 
 Prints the card and its power limit, the timings, one JSON line with a
 record per kernel, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -596,6 +609,167 @@ def check_flash_attention(gen):
     return out
 
 
+#: phase 2's fused-projection training cases (#1 with residuals, #2, #3)
+#: at the training path's shapes: (name, t, bias, causal).  "pad" is the
+#: key-padding bias [b, 1, 1, t], "decoder" the causal-plus-padding bias
+#: [b, 1, t, t] (both -1e9), "masked" the decoder bias with one row at
+#: -1e30 on every key
+QKV_CASES = (("encoder self", 256, "pad", False),
+             ("decoder self", 256, "decoder", False),
+             ("causal", 256, None, True),
+             ("ragged t 200, -1e30 row", 200, "masked", False))
+QKV_RECORD_CASE = "decoder self"
+
+
+def _qkv_inputs(gen, t, bias_kind):
+    """x, g = dL/dy [b, t, d_model], the packed weights and the case's
+    bias; padded key tails of ragged lengths (row 0 unpadded)."""
+    b, dm = TRAIN_BATCH, BASE["d_model"]
+    hd = BASE["n_head"] * BASE["d_key"]
+    x, g = randn(gen, b, t, dm), randn(gen, b, t, dm)
+    w_qkv = randn(gen, dm, 3 * hd, scale=dm ** -0.5)
+    w_out = randn(gen, hd, dm, scale=hd ** -0.5)
+    if bias_kind is None:
+        return x, w_qkv, w_out, g, None
+    lens = torch.randint(t // 2, t + 1, (b,), generator=gen)
+    lens[0] = t
+    bias = ((torch.arange(t)[None, :] >= lens[:, None]).float()
+            * -1e9).reshape(b, 1, 1, t)
+    if bias_kind in ("decoder", "masked"):
+        bias = bias + (torch.ones(t, t).triu(1) * -1e9).reshape(1, 1, t, t)
+    if bias_kind == "masked":
+        bias[-1, 0, t - 5, :] = -1e30
+    return x, w_qkv, w_out, g, bias.cuda()
+
+
+def _library_mha(x, w_qkv, w_out, bias, g, n_head, causal):
+    """One ``F.multi_head_attention_forward`` call on the same weights and
+    additive mask (a yardstick only): (its y [b, t, dm], the no-grad
+    forward, the backward giving dx, dW_in and dW_out together)."""
+    import torch.nn.functional as F
+
+    b, t, dm = x.shape
+    mask = torch.zeros(1, 1, t, t, device=x.device)
+    if bias is not None:
+        mask = mask + bias
+    if causal:
+        mask = mask.masked_fill(torch.ones(t, t, dtype=torch.bool,
+                                           device=x.device).triu(1), -1e30)
+    mask = mask.expand(b, n_head, t, t).reshape(b * n_head, t, t)
+    lx = x.transpose(0, 1).detach().requires_grad_()
+    w_in = w_qkv.t().contiguous().requires_grad_()
+    w_o = w_out.t().contiguous().requires_grad_()
+
+    def call():
+        return F.multi_head_attention_forward(
+            lx, lx, lx, dm, n_head, w_in, None, None, None, False, 0.0, w_o,
+            None, training=False, attn_mask=mask, need_weights=False)[0]
+
+    out = call()
+    lg = g.transpose(0, 1)
+
+    def fwd():
+        with torch.no_grad():
+            return call()
+
+    def bwd():
+        return torch.autograd.grad(out, (lx, w_in, w_o), lg,
+                                   retain_graph=True)
+
+    return out.detach().transpose(0, 1), fwd, bwd
+
+
+def check_qkv_training(gen):
+    """#1 in residual mode (y, ctx, lse), #2 and #3 against their plain
+    twins on QKV_CASES (the backward kernels from the forward kernel's
+    residuals), each called twice on the same inputs for equal bits; a
+    masked row must give ctx 0, lse +inf and zero dx_q.  Then each timed
+    beside its twin and the library yardstick: the no-grad forward of one
+    ``F.multi_head_attention_forward`` for #1, its backward (dx, dW_in,
+    dW_out together: the whole of #2 + #3's work) for #2 and #3.  Returns
+    {(kernel, case): record}."""
+    from paddle_tpu_torch.kernels import attention as ka
+
+    b, h, dh, dm = (TRAIN_BATCH, BASE["n_head"], BASE["d_key"],
+                    BASE["d_model"])
+    hd = h * dh
+    out = {}
+    for name, t, bias_kind, causal in QKV_CASES:
+        x, w_qkv, w_out, g, bias = _qkv_inputs(gen, t, bias_kind)
+        kw = dict(n_head=h, scale=dh ** -0.5, causal=causal)
+        fw = (x, w_qkv, w_out, bias)
+        y, ctx, lse = ka.qkv_attention_fwd(*fw, **kw)
+        want_y, want_ctx, want_lse = ka.reference_qkv_fwd(*fw, **kw)
+        torch.cuda.synchronize()
+        hidden = torch.isinf(want_lse)
+        require(torch.equal(hidden, torch.isinf(lse)),
+                f"qkv_attention_fwd {name}: masked rows differ")
+        require((bias_kind == "masked") == bool(hidden.any()),
+                f"qkv_attention_fwd {name}: {int(hidden.sum())} masked rows")
+        err_fwd = max(
+            compare(f"qkv_attention_fwd {name} y", y, want_y, TOL_KERNEL),
+            compare(f"qkv_attention_fwd {name} ctx", ctx, want_ctx,
+                    TOL_KERNEL),
+            compare(f"qkv_attention_fwd {name} lse", lse[~hidden],
+                    want_lse[~hidden], TOL_KERNEL))
+        rows = hidden.transpose(1, 2)  # [b, t, h]
+        require(not ctx[rows].any().item(),
+                f"qkv_attention_fwd {name}: a masked row's ctx is not 0")
+
+        bw = (x, w_qkv, w_out, bias, g, ctx, lse)
+        got_dq, got_dkv = ka.qkv_bwd_dq(*bw, **kw), ka.qkv_bwd_dkv(*bw, **kw)
+        want_dq = ka.reference_qkv_bwd_dq(*bw, **kw)
+        want_dkv = ka.reference_qkv_bwd_dkv(*bw, **kw)
+        again = ka.qkv_bwd_dq(*bw, **kw) + ka.qkv_bwd_dkv(*bw, **kw)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, c) for a, c in zip(got_dq + got_dkv,
+                                                      again)),
+                f"qkv_bwd {name}: two calls on the same inputs differ")
+        errs = []
+        for kernel, parts, got, want in (
+                ("qkv_bwd_dq", ("dx_q", "dW_q", "dW_out"), got_dq, want_dq),
+                ("qkv_bwd_dkv", ("dx_kv", "dW_k", "dW_v"), got_dkv,
+                 want_dkv)):
+            errs.append(max(compare(f"{kernel} {name} {part}", a, w,
+                                    TOL_KERNEL)
+                            for part, a, w in zip(parts, got, want)))
+        require(not got_dq[0][rows.any(-1)].any().item(),
+                f"qkv_bwd_dq {name}: a masked row's dx_q is not 0")
+
+        lib_y, lib_fwd, lib_bwd = _library_mha(x, w_qkv, w_out, bias, g, h,
+                                               causal)
+        live = ~rows.any(-1)
+        lib_err = (lib_y[live] - want_y[live]).abs().max().item()
+        pairs = _visible_pairs(t, t, causal)
+        proj = 2 * b * t * dm * hd  # one projection-sized product
+        attn = 2 * b * h * pairs * dh  # one t x t product of every head
+        io = F32 * (b * t * hd + b * h * t + dm * 3 * hd + hd * dm
+                    + (bias.numel() if bias is not None else 0))
+        act = F32 * b * t * dm  # one [b, t, d_model] tensor
+        src = "paddle_tpu_torch/csrc/qkv_attention_bwd.cu"
+        out[("qkv_attention_fwd", name)] = timed_record(
+            "qkv_attention_fwd", "paddle_tpu_torch/csrc/qkv_attention.cu",
+            "paddle_tpu/kernels/attention.py:1377", err_fwd,
+            lambda: ka.qkv_attention_fwd(*fw, **kw),
+            lambda: ka.reference_qkv_fwd(*fw, **kw), 4 * proj + 2 * attn,
+            2 * act + io, lib_fwd, b)
+        out[("qkv_attention_fwd", name)]["library_max_abs_err"] = lib_err
+        out[("qkv_bwd_dq", name)] = timed_record(
+            "qkv_bwd_dq", src, "paddle_tpu/kernels/attention.py:1454",
+            errs[0], lambda: ka.qkv_bwd_dq(*bw, **kw),
+            lambda: ka.reference_qkv_bwd_dq(*bw, **kw),
+            7 * proj + 3 * attn, 3 * act + io + F32 * 2 * dm * hd, lib_bwd,
+            b)
+        out[("qkv_bwd_dkv", name)] = timed_record(
+            "qkv_bwd_dkv", src, "paddle_tpu/kernels/attention.py:1546",
+            errs[1], lambda: ka.qkv_bwd_dkv(*bw, **kw),
+            lambda: ka.reference_qkv_bwd_dkv(*bw, **kw),
+            8 * proj + 4 * attn, 3 * act + io + F32 * 2 * dm * hd, lib_bwd,
+            b)
+        del lib_fwd, lib_bwd
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main paths
 # ---------------------------------------------------------------------------
@@ -982,8 +1156,10 @@ def run_training(model, cpu_model, cpu64):
     """Phase 3 (d).  The card's model and its f32 CPU copy (same weights)
     take TRAIN_PARITY_STEPS Adam steps on one batch, and a float64 CPU
     copy gives step 1's exact gradient; then the card times
-    TRAIN_TIMED_STEPS steps on another batch, repeated.  Returns the run's
-    record; every check is fatal."""
+    TRAIN_TIMED_STEPS steps on another batch, repeated.  Returns (the
+    run's record, what (e) is held against: the float64 loss and
+    gradients, the CPU's f32 gradient error per tensor and its losses);
+    every check is fatal."""
     from paddle_tpu_torch import Adam, kernels
 
     sites = TRAIN_SITES
@@ -1003,7 +1179,7 @@ def run_training(model, cpu_model, cpu64):
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    losses, worst_grad = [], []
+    losses, worst_grad, cpu_rel = [], [], {}
     for step in range(TRAIN_PARITY_STEPS):
         loss, _ = model(**feed)
         grads = {names[p]: g for p, g in opt.minimize(loss)}
@@ -1029,18 +1205,43 @@ def run_training(model, cpu_model, cpu64):
             require(grads.keys() == cpu_grads.keys() == exact.keys(),
                     "training: the card and the CPU trained other params")
             for n, g in grads.items():
-                card, f32 = (_grad_rel(g.cpu(), exact[n]),
-                             _grad_rel(cpu_grads[n], exact[n]))
-                require(card <= max(TOL_TRAIN_GRAD, 2 * f32),
+                card = _grad_rel(g.cpu(), exact[n])
+                cpu_rel[n] = _grad_rel(cpu_grads[n], exact[n])
+                require(card <= max(TOL_TRAIN_GRAD, 2 * cpu_rel[n]),
                         f"training step 0: gradient of {n} off float64 by "
-                        f"{card} on the card, {f32} on the CPU in f32")
-                worst_grad.append((card, f32, _grad_rel(g.cpu(),
-                                                        cpu_grads[n]), n))
+                        f"{card} on the card, {cpu_rel[n]} on the CPU in "
+                        f"f32")
+                worst_grad.append((card, cpu_rel[n], _grad_rel(
+                    g.cpu(), cpu_grads[n]), n))
         del grads, cpu_grads
     counts = dict(kernels.launches)
     del cpu_feed
 
-    # timed: one repeated batch, synchronized step by step (host clock)
+    timed = _timed_training(model, opt, dict(
+        flash_fwd=sites, flash_bwd_dq=sites, flash_bwd_dkv=sites))
+    for name, c in timed.pop("launches").items():
+        counts[name] += c
+    worst_grad.sort(reverse=True)
+    record = dict(route="training", batch=TRAIN_BATCH, launches=counts,
+                  parity_losses=losses, parity_loss_f64=loss64.item(),
+                  # (card vs f64, cpu f32 vs f64, card vs cpu f32, name)
+                  parity_grad_rel_worst=worst_grad[:4],
+                  parity_grad_rel_median=[float(np.median(
+                      [w[i] for w in worst_grad])) for i in range(3)],
+                  cpu_parity_s=cpu_s, **timed,
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    parity = dict(loss64=loss64.item(), exact=exact, cpu_rel=cpu_rel,
+                  cpu_losses=[want for _, want in losses])
+    return record, parity
+
+
+def _timed_training(model, opt, per_step):
+    """TRAIN_TIMED_STEPS steps of ``model`` on one repeated batch,
+    synchronized step by step (host clock); the launches must read
+    ``per_step`` times the steps and the loss must fall.  Returns the
+    step times, rates and losses, with the launches under "launches"."""
+    from paddle_tpu_torch import kernels
+
     feed = _to(training_batch(seed=2), "cuda")
     step_ms, timed_losses = [], []
     kernels.reset_launches()
@@ -1053,33 +1254,85 @@ def run_training(model, cpu_model, cpu64):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     n = TRAIN_TIMED_STEPS
     require(kernels.launches == expected(
-        flash_fwd=sites * n, flash_bwd_dq=sites * n,
-        flash_bwd_dkv=sites * n), f"timed training: launches "
-        f"{kernels.launches}")
+        **{name: c * n for name, c in per_step.items()}),
+        f"timed training: launches {kernels.launches}")
     require(all(np.isfinite(timed_losses))
             and timed_losses[-1] < timed_losses[0],
             f"training: loss did not fall on a repeated batch "
             f"{timed_losses}")
-    for name, c in kernels.launches.items():
-        counts[name] += c
     med_ms = float(np.median(step_ms))
     tokens = TRAIN_BATCH * TRAIN_LEN  # target tokens, as bench.py counts
     flops_tok = transformer_train_flops_per_token(
         BASE["n_layer"], BASE["d_model"], BASE["d_inner_hid"],
         BASE["n_head"], BASE["d_key"], TRAIN_LEN, BASE["trg_vocab_size"])
     tok_s = tokens / (med_ms / 1e3)
-    worst_grad.sort(reverse=True)
-    return dict(route="training", batch=TRAIN_BATCH, launches=counts,
-                parity_losses=losses, parity_loss_f64=loss64.item(),
-                # (card vs f64, cpu f32 vs f64, card vs cpu f32, name)
-                parity_grad_rel_worst=worst_grad[:4],
-                parity_grad_rel_median=[float(np.median(
-                    [w[i] for w in worst_grad])) for i in range(3)],
-                cpu_parity_s=cpu_s, step_ms_median=med_ms,
+    return dict(step_ms_median=med_ms,
                 step_ms_range=(min(step_ms), max(step_ms)),
                 tokens_per_s=tok_s, flops_per_token=flops_tok,
                 f32_peak_share=tok_s * flops_tok / PEAK_F32_FLOPS,
                 timed_losses=timed_losses,
+                launches=dict(kernels.launches))
+
+
+def run_training_fused(model, parity):
+    """Phase 3 (e): the default route (``fused_qkv_attention=True``) from
+    (d)'s initial weights on (d)'s parity batch: 12 launches each of #1,
+    #2 and #3 (the self-attention sites) and 6 each of #4, #6 and #7 (the
+    cross sites) per step.  Step 1's loss and gradients are held against
+    (d)'s float64 evaluation under (d)'s criterion, step 2's loss against
+    (d)'s CPU f32 step 2; then timed as (d).  Returns the run's record."""
+    from paddle_tpu_torch import Adam, kernels
+
+    L = BASE["n_layer"]
+    per_step = dict(qkv_attention_fwd=2 * L, qkv_bwd_dq=2 * L,
+                    qkv_bwd_dkv=2 * L, flash_fwd=L, flash_bwd_dq=L,
+                    flash_bwd_dkv=L)
+    opt = Adam(model.parameters(), learning_rate=TRAIN_LR)
+    names = {p: n for n, p in model.named_parameters()}
+    feed = _to(training_batch(seed=1), "cuda")
+    exact = parity["exact"]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses, worst_grad = [], []
+    for step in range(TRAIN_PARITY_STEPS):
+        loss, _ = model(**feed)
+        grads = {names[p]: g for p, g in opt.minimize(loss)}
+        torch.cuda.synchronize()
+        require(kernels.launches == expected(
+            **{k: c * (step + 1) for k, c in per_step.items()}),
+            f"fused training step {step}: launches {kernels.launches}")
+        got = loss.item()
+        want = parity["loss64"] if step == 0 else parity["cpu_losses"][step]
+        require(np.isfinite(got) and abs(got - want) <= TOL_TRAIN_LOSS
+                * abs(want), f"fused training step {step}: loss {got} on "
+                f"the card, {want} on the CPU")
+        losses.append((got, want))
+        if step == 0:
+            require(grads.keys() == exact.keys(),
+                    "fused training: other params trained than in (d)")
+            for n, g in grads.items():
+                card = _grad_rel(g.cpu(), exact[n])
+                f32 = parity["cpu_rel"][n]
+                require(card <= max(TOL_TRAIN_GRAD, 2 * f32),
+                        f"fused training step 0: gradient of {n} off "
+                        f"float64 by {card} on the card, {f32} on the CPU "
+                        f"in f32")
+                worst_grad.append((card, f32, n))
+        del grads
+    counts = dict(kernels.launches)
+    timed = _timed_training(model, opt, per_step)
+    for name, c in timed.pop("launches").items():
+        counts[name] += c
+    worst_grad.sort(reverse=True)
+    return dict(route="training fused", batch=TRAIN_BATCH, launches=counts,
+                # (card, reference): step 1 against float64, step 2
+                # against the CPU's f32
+                parity_losses=losses,
+                # (card vs f64, cpu f32 vs f64, name)
+                parity_grad_rel_worst=worst_grad[:4],
+                parity_grad_rel_median=[float(np.median(
+                    [w[i] for w in worst_grad])) for i in range(2)],
+                **timed,
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -1142,9 +1395,10 @@ def profile_serving(model, b, steps=16):
     return out
 
 
-def profile_training(model):
+def profile_training(model, tag):
     """Device time by kernel over one training step (forward, backward,
-    Adam) on the timed batch, beside host wall time."""
+    Adam) on the timed batch, beside host wall time; the table goes to
+    ``profile_training_step_<tag>.txt``."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch import Adam
@@ -1161,7 +1415,8 @@ def profile_training(model):
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = _device_kernels(prof)
     busy_us = sum(us for _, us in rows)
-    with open(os.path.join(OUT_DIR, "profile_training_step.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"profile_training_step_{tag}.txt"),
+              "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=60))
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
@@ -1173,6 +1428,10 @@ def profile_training(model):
 
 
 def print_record(r, label):
+    """Print a phase-2 record and append it to phase2_records.jsonl in
+    OUT_DIR (stdout's tail may not reach back to phase 2)."""
+    with open(os.path.join(OUT_DIR, "phase2_records.jsonl"), "a") as f:
+        f.write(json.dumps(dict(r, label=label)) + "\n")
     print(f"phase 2: {r['name']}{label}: max_abs_err "
           f"{r['max_abs_err']:.3e} ms {r['ms']} plain_ms {r['plain_ms']} "
           f"bound_ms {r['bound_ms']} ({r['bound_by']}) library_ms "
@@ -1209,6 +1468,7 @@ def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         f.write(_build.build_log())
+    open(os.path.join(OUT_DIR, "phase2_records.jsonl"), "w").close()
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "== " in line:
             print("  " + line.strip())
@@ -1232,6 +1492,12 @@ def main():
     for (name, case), r in check_flash_attention(gen).items():
         print_record(r, f" {case} b={r['batch']}")
         if case == FLASH_RECORD_CASE:
+            records[(name, max(BATCHES))] = r
+    for (name, case), r in check_qkv_training(gen).items():
+        residuals = " (residuals)" if name == "qkv_attention_fwd" else ""
+        print_record(r, f"{residuals} {case} b={r['batch']}")
+        # #1's record in the JSON line stays the serving one (b=64)
+        if case == QKV_RECORD_CASE and not residuals:
             records[(name, max(BATCHES))] = r
 
     model = paddle_tpu_torch.Transformer(**BASE).init_params(seed=0)
@@ -1280,14 +1546,28 @@ def main():
     del cpu_model, unfused
     train_model = paddle_tpu_torch.Transformer(
         **BASE, fused_qkv_attention=False).init_params(seed=1)
+    # (e)'s model: the default route, from (d)'s initial weights
+    fused_train = paddle_tpu_torch.Transformer(**BASE)
+    fused_train.load_state_dict(train_model.state_dict())
     cpu_copies = [paddle_tpu_torch.Transformer(
         **BASE, device="cpu", fused_qkv_attention=False).to(dtype)
         for dtype in (torch.float32, torch.float64)]
     for copy in cpu_copies:
         copy.load_state_dict(train_model.state_dict())
-    training = run_training(train_model, *cpu_copies)
+    training, parity = run_training(train_model, *cpu_copies)
     del cpu_copies
     print("phase 3: " + ", ".join(f"{k} {v}" for k, v in training.items()))
+    training_fused = run_training_fused(fused_train, parity)
+    del parity
+    print("phase 3: " + ", ".join(f"{k} {v}"
+                                  for k, v in training_fused.items()))
+    print(f"phase 3: training step, fused route against flag-off: "
+          f"{training_fused['step_ms_median']} ms against "
+          f"{training['step_ms_median']} ms, "
+          f"{training_fused['tokens_per_s']} against "
+          f"{training['tokens_per_s']} target tokens/s, f32 peak share "
+          f"{training_fused['f32_peak_share']} against "
+          f"{training['f32_peak_share']}")
 
     for b in BATCHES:
         prof = profile_serving(model, b)
@@ -1302,20 +1582,21 @@ def main():
                   f"ms, idle share {r['idle_share']}")
             for name, ms in r["top"]:
                 print(f"    {ms:.4f} ms  {name}")
-    r = profile_training(train_model)
-    if r["device_busy_ms"]:
-        print(f"phase 4: training step: wall {r['wall_ms']} ms, device "
-              f"busy {r['device_busy_ms']} ms, idle share "
+    for tag, m in (("flag_off", train_model), ("fused", fused_train)):
+        r = profile_training(m, tag)
+        if not r["device_busy_ms"]:
+            print(f"phase 4: training step {tag}: device time not measured "
+                  f"(the profiler saw no device events)")
+            continue
+        print(f"phase 4: training step {tag}: wall {r['wall_ms']} ms, "
+              f"device busy {r['device_busy_ms']} ms, idle share "
               f"{r['idle_share']}")
         for name, ms in r["top"]:
             print(f"    {ms:.4f} ms  {name}")
-    else:
-        print("phase 4: training step: device time not measured (the "
-              "profiler saw no device events)")
 
     # launches over every counted path; the FFN counter is split between
     # the ring paths (#11) and the paged ones (#13)
-    paths = runs + serving + [training]
+    paths = runs + serving + [training, training_fused]
     total = {name: sum(r["launches"][name] for r in paths)
              for name in paths[0]["launches"]}
     paged_ffn = sum(r["launches"]["ffn"] for r in paths
@@ -1323,9 +1604,10 @@ def main():
     total["ffn_paged"] = paged_ffn
     total["ffn"] -= paged_ffn
     kernels_line = []
-    for name in ("qkv_attention_fwd", "megastep", "ffn", "megastep_paged",
-                 "ffn_paged", "flash_decode", "flash_decode_paged",
-                 "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("qkv_attention_fwd", "qkv_bwd_dq", "qkv_bwd_dkv",
+                 "megastep", "ffn", "megastep_paged", "ffn_paged",
+                 "flash_decode", "flash_decode_paged", "flash_fwd",
+                 "flash_bwd_dq", "flash_bwd_dkv"):
         r = dict(records[(name, max(BATCHES))])
         r.pop("batch")
         r.pop("library_max_abs_err", None)
@@ -1333,7 +1615,8 @@ def main():
         require(r["launches"] > 0, f"{name}: no launch on the main paths")
         kernels_line.append(r)
     print(json.dumps({"main_path": runs, "serving": serving,
-                      "training": training, "power": smi}))
+                      "training": training, "training_fused": training_fused,
+                      "power": smi}))
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

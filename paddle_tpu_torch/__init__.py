@@ -1,10 +1,10 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
 
 It trains and serves the encoder-decoder Transformer.  Training takes the
-reference's f32 step with Paddle's Adam, on the attention route with the
-fused-qkv flag off:
+reference's f32 step with Paddle's Adam, on the fused-qkv attention route
+by default (``fused_qkv_attention=False`` takes the flag-off route):
 
-    model = Transformer(**widths, fused_qkv_attention=False).init_params(0)
+    model = Transformer(**widths).init_params(0)
     opt = Adam(model.parameters(), learning_rate=1e-4)
     avg_cost, _ = model(**{k: torch.from_numpy(v).cuda()
                            for k, v in make_batch(...).items()})
@@ -21,7 +21,7 @@ continuous batcher:
     batcher = ContinuousBatcher(served)
     batcher.start(); tokens, meta = batcher.submit(prompt)
 
-Nine hand-written CUDA kernels carry it (``kernels/``); every other
+Eleven hand-written CUDA kernels carry it (``kernels/``); every other
 operation is plain PyTorch.  Pass ``device="cpu"`` to run every kernel's
 plain twin instead.  The package imports neither JAX nor ``paddle_tpu``.
 """

@@ -24,6 +24,11 @@
 //
 // Masking follows the TPU kernel: causal and out-of-range keys score
 // -1e30; a query row with l == 0 or max <= -1e29 gets a zero context.
+//
+// Training asks for the residuals the backward kernels (#2, #3 in
+// qkv_attention_bwd.cu) read, as the TPU kernel always returns them: each
+// head's normalized context ctx [b, t, h, 64] and lse [b, h, t] (+inf on
+// a masked row).  Serving passes null for both and writes neither.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,8 +89,9 @@ qkv_attention_fwd_kernel(const float* __restrict__ x,
                          const float* __restrict__ w_out,
                          const float* __restrict__ bias,
                          int64_t bs_b, int64_t bs_h, int64_t bs_q,
-                         int64_t bs_k, float* y, int t, int dm, int n_head,
-                         float scale, int causal) {
+                         int64_t bs_k, float* y, float* ctx, float* lse,
+                         int t, int dm, int n_head, float scale,
+                         int causal) {
   extern __shared__ float smem[];
   float* a_s = smem + kAOff;
   float* b_s = smem + kBOff;
@@ -266,6 +272,16 @@ qkv_attention_fwd_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       p_s[(ty * 4 + i) * QS + tx * 4 + j] = o[i][j] * inv;
+    const int qpos = q0 + ty * 4 + i;
+    if (ctx && qpos < t) {
+      *reinterpret_cast<float4*>(ctx + ((size_t)bi * t + qpos) * hd +
+                                 head * DH + tx * 4) =
+          make_float4(o[i][0] * inv, o[i][1] * inv, o[i][2] * inv,
+                      o[i][3] * inv);
+      if (tx == 0)
+        lse[((size_t)bi * n_head + head) * t + qpos] =
+            masked ? INFINITY : m[i] + logf(l[i]);
+    }
   }
 
   // ---- output-projection epilogue: y[q0:q0+BQ] += ctx_h @ Wout_h ------
@@ -312,15 +328,16 @@ qkv_attention_fwd_kernel(const float* __restrict__ x,
 }  // namespace
 
 // y [b, t, dm] must be zero on entry.  bias may be null; otherwise its
-// element (b, h, q, k) lies at b*bs_b + h*bs_h + q*bs_q + k*bs_k.
+// element (b, h, q, k) lies at b*bs_b + h*bs_h + q*bs_q + k*bs_k.  ctx
+// [b, t, h, 64] and lse [b, h, t] are both null (serving) or both given.
 // Requires d_head == 64 and dm % 32 == 0 (checked by the caller).
 extern "C" int ptt_qkv_attention_fwd(const float* x, const float* w_qkv,
                                      const float* w_out, const float* bias,
                                      int64_t bs_b, int64_t bs_h,
                                      int64_t bs_q, int64_t bs_k, float* y,
-                                     int b, int t, int dm, int n_head,
-                                     float scale, int causal,
-                                     void* stream) {
+                                     float* ctx, float* lse, int b, int t,
+                                     int dm, int n_head, float scale,
+                                     int causal, void* stream) {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -332,8 +349,8 @@ extern "C" int ptt_qkv_attention_fwd(const float* x, const float* w_qkv,
   dim3 grid((t + BQ - 1) / BQ, n_head, b);
   qkv_attention_fwd_kernel<<<grid, NT, kSmemBytes,
                              static_cast<cudaStream_t>(stream)>>>(
-      x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, y, t, dm, n_head,
-      scale, causal);
+      x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, y, ctx, lse, t, dm,
+      n_head, scale, causal);
   return (int)cudaGetLastError();
 }
 

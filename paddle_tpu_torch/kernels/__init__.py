@@ -9,9 +9,10 @@ entry in :data:`launches`.
 from __future__ import annotations
 
 #: kernel name -> launches since the last reset_launches()
-launches = {"qkv_attention_fwd": 0, "megastep": 0, "megastep_paged": 0,
-            "ffn": 0, "flash_decode": 0, "flash_decode_paged": 0,
-            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+launches = {"qkv_attention_fwd": 0, "qkv_bwd_dq": 0, "qkv_bwd_dkv": 0,
+            "megastep": 0, "megastep_paged": 0, "ffn": 0, "flash_decode": 0,
+            "flash_decode_paged": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
 
 
 def reset_launches() -> None:

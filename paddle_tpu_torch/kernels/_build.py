@@ -115,8 +115,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ptt_error_string": (ctypes.c_char_p, [_I]),
     "ptt_qkv_attention_fwd": (
-        _I, [_P, _P, _P, _P, _L, _L, _L, _L, _P, _I, _I, _I, _I, _F, _I,
-             _P]),
+        _I, [_P] * 4 + [_L] * 4 + [_P] * 3 + [_I] * 4 + [_F, _I, _P]),
+    "ptt_qkv_bwd_scratch": (_L, [_I] * 5),
+    "ptt_qkv_bwd_dq": (_I, [_P] * 4 + [_L] * 4 + [_P] * 7 + [_I] * 4
+                       + [_F, _I, _P]),
+    "ptt_qkv_bwd_dkv": (_I, [_P] * 4 + [_L] * 4 + [_P] * 6 + [_I] * 4
+                        + [_F, _I, _P]),
     "ptt_megastep": (
         _I, [_P] * 18 + [_I] * 6 + [_F, _F, _P]),
     "ptt_megastep_paged": (

@@ -1,14 +1,17 @@
-"""Flash attention: the fused-projection forward and the bthd kernels.
+"""Flash attention: the fused-projection kernels and the bthd kernels.
 
 Counterparts of ``paddle_tpu/kernels/attention.py``:
 
-* :func:`flash_qkv_attention` (``csrc/qkv_attention.cu``, for
-  ``_qkv_fwd_kernel``, #1): the q/k/v projections, the online-softmax
-  attention and the output projection in one launch; q, k, v and the
-  per-head context stay in shared memory.  Forward only: its backward
-  kernels (#2, #3) are not ported, so it refuses to run where a gradient
-  is wanted.  :func:`reference_qkv_attention` is its plain version, the
-  math of the reference's ``_composed_qkv``.
+* :func:`flash_qkv_attention`: the q/k/v projections, the online-softmax
+  attention and the output projection fused, differentiable through a
+  ``torch.autograd.Function`` whose passes are the kernels of
+  ``csrc/qkv_attention.cu`` and ``csrc/qkv_attention_bwd.cu``:
+  :func:`qkv_attention_fwd` (``_qkv_fwd_kernel``, #1: y and the residuals
+  ctx, lse), :func:`qkv_bwd_dq` (``_qkv_bwd_dq_kernel``, #2: dx_q, dW_q,
+  dW_out) and :func:`qkv_bwd_dkv` (``_qkv_bwd_dkv_kernel``, #3: dx_kv,
+  dW_k, dW_v).  Their plain versions are :func:`reference_qkv_fwd`,
+  :func:`reference_qkv_bwd_dq` and :func:`reference_qkv_bwd_dkv`; under
+  ``torch.no_grad()`` (serving) #1 runs without residuals.
 * :func:`flash_attention` with ``fmt="bthd"``: q, k, v [b, t, h, d] with
   an additive bias, differentiable through a ``torch.autograd.Function``
   whose passes are three kernels of ``csrc/flash_attention.cu``:
@@ -31,34 +34,6 @@ from . import _build, launches
 MASK_VALUE = -1e30
 #: head width the CUDA kernel is compiled for
 KERNEL_D_HEAD = 64
-
-
-def _split_heads(a, b, t, n_head, dh):
-    return a.reshape(b, t, n_head, dh).transpose(1, 2)  # [b, h, t, dh]
-
-
-def reference_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1,
-                            scale=1.0, causal=False):
-    """Plain PyTorch: ``softmax((x Wq)(x Wk)^T * scale + bias) (x Wv)``
-    per head, concatenated, ``@ w_out``.  A row whose scores are all
-    masked (max <= -1e29) gets a zero context, as in the kernel."""
-    b, t, _ = x.shape
-    hd = w_qkv.shape[1] // 3
-    dh = hd // n_head
-    qkv = x @ w_qkv
-    q = _split_heads(qkv[..., :hd], b, t, n_head, dh)
-    k = _split_heads(qkv[..., hd:2 * hd], b, t, n_head, dh)
-    v = _split_heads(qkv[..., 2 * hd:], b, t, n_head, dh)
-    logits = (q @ k.transpose(-1, -2)).float() * scale
-    if bias is not None:
-        logits = logits + bias.float()
-    if causal:
-        keep = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
-        logits = logits.masked_fill(~keep, MASK_VALUE)
-    masked = logits.amax(dim=-1, keepdim=True) <= -1e29
-    weights = torch.softmax(logits, dim=-1).masked_fill(masked, 0.0)
-    ctx = (weights.to(v.dtype) @ v).transpose(1, 2).reshape(b, t, hd)
-    return (ctx @ w_out).to(x.dtype)
 
 
 def _bias_4d(bias, b, n_head, tq, tk, what):
@@ -92,65 +67,267 @@ def _bias_strides(bias, device, what):
     return bias.stride(), bias.data_ptr()
 
 
+# ---------------------------------------------------------------------------
+# flash_qkv_attention: kernels #1, #2, #3
+# ---------------------------------------------------------------------------
+
+
+def _project(x, w_qkv, n_head):
+    """q, k, v [b, t, h, dh] of x [b, t, dm] by the packed w_qkv."""
+    b, t, _ = x.shape
+    hd = w_qkv.shape[1] // 3
+    return (a.reshape(b, t, n_head, hd // n_head)
+            for a in torch.split(x @ w_qkv, hd, dim=-1))
+
+
+def reference_qkv_fwd(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
+                      causal=False):
+    """Plain twin of #1 with its residuals: (y [b, t, dm], ctx [b, t, h,
+    dh], lse [b, h, t]) where ctx is each head's normalized context,
+    ``softmax((x Wq)(x Wk)^T * scale + bias) (x Wv)``, and y = ctx @ w_out
+    over the merged heads.  A row whose scores are all masked (max <=
+    -1e29) gets a zero context and lse = +inf, as in the kernel."""
+    b, t, _ = x.shape
+    q, k, v = _project(x, w_qkv, n_head)
+    ctx, lse = reference_flash_fwd(q, k, v, bias, scale, causal)
+    return (ctx.reshape(b, t, -1) @ w_out).to(x.dtype), ctx, lse
+
+
+def reference_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1,
+                            scale=1.0, causal=False):
+    """y of :func:`reference_qkv_fwd`: the math of the reference's
+    ``_composed_qkv``."""
+    return reference_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale,
+                             causal)[0]
+
+
+def _qkv_recompute(x, w_qkv, w_out, g, ctx, n_head):
+    """What both backward kernels rebuild from their inputs: q, k, v,
+    dctx = g w_out^T (each [b, t, h, dh]) and delta = rowsum(dctx * ctx)
+    [b, h, t]."""
+    q, k, v = _project(x, w_qkv, n_head)
+    dctx = (g @ w_out.transpose(0, 1)).reshape(ctx.shape)
+    delta = (dctx * ctx).sum(-1).transpose(1, 2)
+    return q, k, v, dctx, delta
+
+
+def _rows(a):
+    """[b, t, h, dh] -> [b*t, h*dh]."""
+    return a.reshape(a.shape[0] * a.shape[1], -1)
+
+
+def reference_qkv_bwd_dq(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1,
+                         scale=1.0, causal=False):
+    """Plain twin of #2: (dx_q [b, t, dm], dW_q [dm, hd], dW_out [hd, dm])
+    from g = dL/dy and #1's residuals: dq = ds k as the bthd twin of #6
+    computes it over the recomputed q, k, v and dctx, then dx_q = dq
+    Wq^T, dW_q = x^T dq and dW_out = ctx^T g."""
+    hd = w_qkv.shape[1] // 3
+    q, k, v, dctx, delta = _qkv_recompute(x, w_qkv, w_out, g, ctx, n_head)
+    dq = _rows(reference_flash_bwd_dq(q, k, v, bias, dctx, lse, delta,
+                                      scale, causal))
+    dx = (dq @ w_qkv[:, :hd].transpose(0, 1)).reshape(x.shape)
+    return (dx, _rows(x).transpose(0, 1) @ dq,
+            _rows(ctx).transpose(0, 1) @ _rows(g))
+
+
+def reference_qkv_bwd_dkv(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1,
+                          scale=1.0, causal=False):
+    """Plain twin of #3: (dx_kv [b, t, dm], dW_k, dW_v [dm, hd]) with dk =
+    ds^T q and dv = p^T dctx as the twin of #7 computes them, dx_kv = dk
+    Wk^T + dv Wv^T, dW_k = x^T dk and dW_v = x^T dv."""
+    hd = w_qkv.shape[1] // 3
+    q, k, v, dctx, delta = _qkv_recompute(x, w_qkv, w_out, g, ctx, n_head)
+    dk, dv = (_rows(a) for a in reference_flash_bwd_dkv(
+        q, k, v, bias, dctx, lse, delta, scale, causal))
+    dx = (dk @ w_qkv[:, hd:2 * hd].transpose(0, 1)
+          + dv @ w_qkv[:, 2 * hd:].transpose(0, 1)).reshape(x.shape)
+    xt = _rows(x).transpose(0, 1)
+    return dx, xt @ dk, xt @ dv
+
+
+def _qkv_args(what, x, w_qkv, w_out, bias, n_head, **more):
+    """Check the operands of a fused-projection kernel and return (b, t,
+    dm, hd, bias strides, bias pointer).  x (and g) [b, t, dm], w_qkv
+    [dm, 3hd], w_out [hd, dm], ctx [b, t, h, 64] and lse [b, h, t] must be
+    contiguous f32 on x's CUDA device, with head width 64 and d_model %
+    32 == 0: the kernels index raw pointers."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for {x.device}")
+    b, t, dm = x.shape
+    hd = w_qkv.shape[1] // 3
+    dh = hd // n_head
+    if dh != KERNEL_D_HEAD or dm % 32:
+        raise ValueError(
+            f"{what}: the CUDA kernel takes d_head 64 and d_model % 32 == "
+            f"0, got d_head {dh}, d_model {dm}")
+    f32 = torch.float32
+    shapes = {"x": (b, t, dm), "w_qkv": (dm, 3 * hd), "w_out": (hd, dm),
+              "g": (b, t, dm), "ctx": (b, t, n_head, dh),
+              "lse": (b, n_head, t)}
+    _build.require({name: (a, f32, shapes[name]) for name, a in dict(
+        x=x, w_qkv=w_qkv, w_out=w_out, **more).items()}, x.device, what)
+    if bias is not None:
+        bias = _bias_view(bias, b, n_head, t, t, what)
+    return (b, t, dm, hd) + _bias_strides(bias, x.device, what)
+
+
+def _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
+                    residuals):
+    """Launch #1: y, or (y, ctx, lse) with ``residuals``."""
+    b, t, dm, hd, strides, bias_ptr = _qkv_args(
+        "qkv_attention_fwd", x, w_qkv, w_out, bias, n_head)
+    y = torch.zeros_like(x)  # the kernel accumulates heads into y
+    ctx = lse = None
+    if residuals:
+        ctx = torch.empty((b, t, n_head, hd // n_head), dtype=x.dtype,
+                          device=x.device)
+        lse = torch.empty((b, n_head, t), dtype=torch.float32,
+                          device=x.device)
+    err = _build.lib().ptt_qkv_attention_fwd(
+        x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), bias_ptr,
+        *strides, y.data_ptr(), ctx.data_ptr() if residuals else None,
+        lse.data_ptr() if residuals else None, b, t, dm, n_head,
+        float(scale), int(bool(causal)), _build.stream_of(x))
+    _build.check(err, "qkv_attention_fwd")
+    launches["qkv_attention_fwd"] += 1
+    return (y, ctx, lse) if residuals else y
+
+
+def qkv_attention_fwd(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
+                      causal=False):
+    """#1 with residuals: (y, ctx, lse) as :func:`reference_qkv_fwd`
+    computes them.  CPU tensors take the plain twin; CUDA tensors launch
+    the kernel or raise."""
+    if x.device.type == "cpu":
+        return reference_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale,
+                                 causal)
+    return _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
+                           residuals=True)
+
+
+def _launch_qkv_bwd(which, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
+                    scale, causal):
+    """Launch #2 (which 0), returning (dx_q, dW_q, dW_out), or #3 (which
+    1), returning (dx_kv, dW_k, dW_v) as views of the kernel's one
+    [dm, 2hd] dW_k | dW_v buffer."""
+    what = ("qkv_bwd_dq", "qkv_bwd_dkv")[which]
+    b, t, dm, hd, strides, bias_ptr = _qkv_args(
+        what, x, w_qkv, w_out, bias, n_head, g=g, ctx=ctx, lse=lse)
+    lib = _build.lib()
+    scratch = torch.empty(lib.ptt_qkv_bwd_scratch(which, b, t, dm, n_head),
+                          dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dw = torch.empty((dm, hd * (1 + which)), dtype=x.dtype, device=x.device)
+    outs = [dx.data_ptr(), dw.data_ptr()]
+    if not which:
+        dw_out = torch.empty((hd, dm), dtype=x.dtype, device=x.device)
+        outs.append(dw_out.data_ptr())
+    entry = (lib.ptt_qkv_bwd_dq, lib.ptt_qkv_bwd_dkv)[which]
+    err = entry(x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), bias_ptr,
+                *strides, g.data_ptr(), ctx.data_ptr(), lse.data_ptr(),
+                scratch.data_ptr(), *outs, b, t, dm, n_head, float(scale),
+                int(bool(causal)), _build.stream_of(x))
+    _build.check(err, what)
+    launches[what] += 1
+    return (dx, dw, dw_out) if not which else (dx, dw[:, :hd], dw[:, hd:])
+
+
+def qkv_bwd_dq(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1, scale=1.0,
+               causal=False):
+    """#2: (dx_q, dW_q, dW_out) as :func:`reference_qkv_bwd_dq` computes
+    them (CPU: the twin; CUDA: the kernel or an error)."""
+    if x.device.type == "cpu":
+        return reference_qkv_bwd_dq(x, w_qkv, w_out, bias, g, ctx, lse,
+                                    n_head, scale, causal)
+    return _launch_qkv_bwd(0, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
+                           scale, causal)
+
+
+def qkv_bwd_dkv(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1, scale=1.0,
+                causal=False):
+    """#3: (dx_kv, dW_k, dW_v) as :func:`reference_qkv_bwd_dkv` computes
+    them (CPU: the twin; CUDA: the kernel or an error)."""
+    if x.device.type == "cpu":
+        return reference_qkv_bwd_dkv(x, w_qkv, w_out, bias, g, ctx, lse,
+                                     n_head, scale, causal)
+    return _launch_qkv_bwd(1, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
+                           scale, causal)
+
+
+class _FlashQKVAttention(torch.autograd.Function):
+    """y = flash_qkv_attention(x, w_qkv, w_out, bias); saves x, the
+    weights, the bias and #1's residuals ctx and lse.  Its backward runs
+    #2 and #3, sums dx = dx_q + dx_kv and packs dW_qkv = [dW_q | dW_k |
+    dW_v] (the reference's ``_unpack_dw_qkv``, outside its kernels too).
+    A bias that requires grad gets a plain recompute of ds reduced to its
+    shape (the reference's ``_dbias_xla``); attention masks do not, and
+    get None."""
+
+    @staticmethod
+    def forward(fn, x, w_qkv, w_out, bias, n_head, scale, causal):
+        y, ctx, lse = qkv_attention_fwd(x, w_qkv, w_out, bias, n_head,
+                                        scale, causal)
+        fn.save_for_backward(x, w_qkv, w_out, bias, ctx, lse)
+        fn.n_head, fn.scale, fn.causal = n_head, scale, causal
+        return y
+
+    @staticmethod
+    def backward(fn, g):
+        x, w_qkv, w_out, bias, ctx, lse = fn.saved_tensors
+        kw = dict(n_head=fn.n_head, scale=fn.scale, causal=fn.causal)
+        args = (x, w_qkv, w_out, bias, g.contiguous(), ctx, lse)
+        dx_q, dw_q, dw_out = qkv_bwd_dq(*args, **kw)
+        dx_kv, dw_k, dw_v = qkv_bwd_dkv(*args, **kw)
+        dbias = None
+        if fn.needs_input_grad[3]:
+            q, k, v, dctx, delta = _qkv_recompute(
+                x, w_qkv, w_out, args[4], ctx, fn.n_head)
+            _, ds = _dscores(q, k, v, bias, dctx, lse, delta, fn.scale,
+                             fn.causal)
+            dbias = _reduce_to(ds, bias.shape).to(bias.dtype)
+        return (dx_q + dx_kv, torch.cat([dw_q, dw_k, dw_v], dim=1), dw_out,
+                dbias, None, None, None)
+
+
 def flash_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
                         causal=False, dropout_rate=0.0):
     """Self-attention with the q/k/v and output projections fused in.
 
     x [b, t, d_model] f32; w_qkv [d_model, 3*h*dh] packed q|k|v, head-major
     within each third (the ``layers.fc`` layout); w_out [h*dh, d_model];
-    bias broadcastable to [b, 1|h, 1|t, t] (the prefill's key-padding
-    bias is [b, 1, 1, t]).  Returns [b, t, d_model].
+    bias broadcastable to [b, 1|h, 1|t, t] (the key-padding bias is
+    [b, 1, 1, t], the decoder's [b, 1, t, t]).  Returns [b, t, d_model].
 
-    CPU tensors take :func:`reference_qkv_attention`; CUDA tensors launch
-    the kernel, which takes dh == 64 and d_model % 32 == 0 and raises on
-    anything else.  Forward only, on both devices: where autograd would
-    want a gradient of any input it raises, since the backward kernels
-    (#2, #3) are not ported; serving runs under ``torch.no_grad()``.
+    Where autograd wants a gradient of any input it runs #1 with residuals
+    and, in the backward, #2 and #3 (gradients of x, w_qkv, w_out, and of
+    the bias when it requires grad); otherwise #1 alone, as serving runs
+    it under ``torch.no_grad()``.  CPU tensors take the plain twins; CUDA
+    tensors launch the kernels, which take dh == 64 and d_model % 32 == 0
+    and raise on anything else.
     """
     if dropout_rate:
         raise NotImplementedError(
             "flash_qkv_attention: in-kernel dropout belongs to the dropout "
             "slice of the port, which is not done yet")
-    if torch.is_grad_enabled() and any(
-            a is not None and a.requires_grad
-            for a in (x, w_qkv, w_out, bias)):
-        raise NotImplementedError(
-            "flash_qkv_attention: no backward yet (kernels #2 and #3 are "
-            "the next slice); train with fused_qkv_attention=False, which "
-            "runs flash_attention(fmt='bthd'), or call under "
-            "torch.no_grad()")
-    b, t, dm = x.shape
+    b, t, _ = x.shape
     if w_qkv.shape[1] % (3 * n_head):
         raise ValueError(
             f"flash_qkv_attention: packed dim {w_qkv.shape[1]} not "
             f"divisible by 3*n_head={3 * n_head}")
-    hd = w_qkv.shape[1] // 3
     if bias is not None:
-        bias = _bias_view(bias, b, n_head, t, t, "flash_qkv_attention")
+        bias = _bias_4d(bias, b, n_head, t, t, "flash_qkv_attention")
+    if torch.is_grad_enabled() and any(
+            a is not None and a.requires_grad
+            for a in (x, w_qkv, w_out, bias)):
+        return _FlashQKVAttention.apply(
+            x.contiguous(), w_qkv.contiguous(), w_out.contiguous(), bias,
+            n_head, float(scale), bool(causal))
     if x.device.type == "cpu":
         return reference_qkv_attention(x, w_qkv, w_out, bias, n_head,
                                        scale, causal)
-    dh = hd // n_head
-    if x.device.type != "cuda":
-        raise ValueError(f"flash_qkv_attention: no kernel for {x.device}")
-    if dh != KERNEL_D_HEAD or dm % 32:
-        raise ValueError(
-            f"flash_qkv_attention: the CUDA kernel takes d_head 64 and "
-            f"d_model % 32 == 0, got d_head {dh}, d_model {dm}")
-    f32 = torch.float32
-    _build.require({"x": (x, f32, (b, t, dm)),
-                    "w_qkv": (w_qkv, f32, (dm, 3 * hd)),
-                    "w_out": (w_out, f32, (hd, dm))}, x.device,
-                   "flash_qkv_attention")
-    strides, bias_ptr = _bias_strides(bias, x.device, "flash_qkv_attention")
-    y = torch.zeros_like(x)  # the kernel accumulates heads into y
-    err = _build.lib().ptt_qkv_attention_fwd(
-        x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), bias_ptr,
-        *strides, y.data_ptr(), b, t, dm, n_head, float(scale),
-        int(bool(causal)), _build.stream_of(x))
-    _build.check(err, "qkv_attention_fwd")
-    launches["qkv_attention_fwd"] += 1
-    return y
+    return _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
+                           residuals=False)
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +354,7 @@ def reference_flash_fwd(q, k, v, bias=None, scale=1.0, causal=False):
     qh, kh, vh = _heads_first(q), _heads_first(k), _heads_first(v)
     s = (qh * scale) @ kh.transpose(-1, -2)
     if bias is not None:
-        s = s + bias.float()
+        s = s + bias.to(s.dtype)
     if causal:
         s = s.masked_fill(~_causal_keep(s.shape[-2], s.shape[-1], s.device),
                           MASK_VALUE)
@@ -195,7 +372,7 @@ def _probs(q, k, bias, lse, scale, causal):
     keys 0: the probabilities both backward kernels recompute."""
     s = (_heads_first(q) @ _heads_first(k).transpose(-1, -2)) * scale
     if bias is not None:
-        s = s + bias.float()
+        s = s + bias.to(s.dtype)
     p = torch.exp(s - lse[..., None])
     if causal:
         p = p.masked_fill(~_causal_keep(p.shape[-2], p.shape[-1], p.device),

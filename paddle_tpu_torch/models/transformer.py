@@ -6,9 +6,12 @@ Counterpart of ``paddle_tpu/models/transformer.py`` with ``use_flash=True``:
   (word + learned position tables, the encoder and decoder layers, the
   "dan" post-process chain at rate 0, the output projection and the
   weighted ``softmax_with_cross_entropy`` mean), with the biases of
-  :func:`training_biases`.  Its attention sites take the reference's
-  flag-off route (``FLAGS_fused_qkv_attention`` off): the q/k/v ``mul``,
-  ``flash_attention(fmt="bthd")`` and the output ``mul``;
+  :func:`training_biases`.  Its self-attention sites take the route of
+  the reference's ``FLAGS_fused_qkv_attention``: by default one
+  ``flash_qkv_attention`` (#1 forward, #2 and #3 backward), or with
+  ``fused_qkv_attention=False`` the q/k/v ``mul``,
+  ``flash_attention(fmt="bthd")`` (#4, #6, #7) and the output ``mul``.
+  Cross-attention takes the second form on both routes, as there;
 * prefill, as the generation programs (``build_generation_programs``)
   run it: ``prepare_encoder``, the encoder layers on the fused-qkv route
   by default (``fused_qkv_attention=True``, the reference's default flag),
@@ -23,10 +26,9 @@ Counterpart of ``paddle_tpu/models/transformer.py`` with ``use_flash=True``:
   There only the two attentions are kernels; the matmuls and the FFN are
   plain PyTorch, as the reference leaves them to XLA.
 
-The fused-qkv route has no backward yet: in grad mode it raises, so train
-with ``fused_qkv_attention=False``.  Dropout is not ported: a model built
-with ``dropout_rate > 0`` raises in training and serves as the reference
-serves (dropout off at inference).
+Both routes train and serve, with the same parameters.  Dropout is not
+ported: a model built with ``dropout_rate > 0`` raises in training and
+serves as the reference serves (dropout off at inference).
 
 Weights keep the reference's [in, out] layout, and no choice changes
 their names or shapes, so the JAX package's arrays load as they are
@@ -249,9 +251,8 @@ class Transformer(nn.Module):
     CUDA unless ``device`` says otherwise; parameters are uninitialized
     until :meth:`init_params` or ``interop.load_paddle_tpu_params``.
     ``fused_qkv_attention`` picks the self-attention route (the
-    reference's ``FLAGS_fused_qkv_attention``; the fused route serves
-    only), ``fused_decode_step`` the decoder step's (its
-    ``FLAGS_fused_decode_step``).  ``dropout_rate`` is the reference's
+    reference's ``FLAGS_fused_qkv_attention``), ``fused_decode_step`` the
+    decoder step's (its ``FLAGS_fused_decode_step``).  ``dropout_rate`` is the reference's
     training dropout: not ported, so training raises when it is set."""
 
     def __init__(self, src_vocab_size=10000, trg_vocab_size=10000,

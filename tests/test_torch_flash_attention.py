@@ -229,16 +229,21 @@ def test_dropout_raises():
 
 
 def test_fused_qkv_attention_refuses_to_train():
-    """#1 has no backward yet: in grad mode with a trainable input it
-    raises, never returning a result without a gradient; under no_grad it
-    runs as the serving path does."""
+    """#1 refuses to train only with dropout, which is not ported: in grad
+    mode with a trainable input and dropout_rate > 0 it raises, never
+    returning a result without its gradient.  Without dropout it trains
+    (the backward runs #2 and #3), and under no_grad it runs as the
+    serving path does."""
     rng = np.random.RandomState(6)
     x = torch.from_numpy(rng.randn(2, 16, 128).astype(np.float32))
     w_qkv = torch.from_numpy((rng.randn(128, 384) * 0.08).astype(np.float32))
     w_out = torch.from_numpy((rng.randn(128, 128) * 0.08).astype(np.float32))
     w_qkv.requires_grad_()
-    with pytest.raises(NotImplementedError, match="#2 and #3"):
-        ka.flash_qkv_attention(x, w_qkv, w_out, n_head=2)
+    with pytest.raises(NotImplementedError, match="dropout slice"):
+        ka.flash_qkv_attention(x, w_qkv, w_out, n_head=2, dropout_rate=0.1)
+    ka.flash_qkv_attention(x, w_qkv, w_out, n_head=2).sum().backward()
+    assert w_qkv.grad.shape == w_qkv.shape
+    assert torch.isfinite(w_qkv.grad).all() and w_qkv.grad.abs().sum() > 0
     with torch.no_grad():
         assert ka.flash_qkv_attention(x, w_qkv, w_out,
                                       n_head=2).shape == (2, 16, 128)

@@ -1,14 +1,17 @@
 """paddle_tpu_torch training against the JAX package, on the CPU.
 
-The reference's training program is built once: ``transformer(
-use_flash=True, dropout_rate=0.0)`` with ``FLAGS_fused_qkv_attention`` off
-(every attention site is the q/k/v ``mul``, ``fused_attention`` in the
-bthd layout and the output ``mul``) and ``Adam(1e-3).minimize``, at 2
-layers, 2 heads of 64, d_model 128, d_inner 256, vocab 64, source 32 and
-target 16, batch 2 with padded tails.  Its startup scope is carried into
-the port with ``load_paddle_tpu_params``, and both take the same steps on
-the same batch: losses, gradients, updated parameters and a resume from
-the reference's Adam state must agree.
+The reference's training program is built twice, once per attention route:
+``transformer(use_flash=True, dropout_rate=0.0)`` and
+``Adam(1e-3).minimize``, at 2 layers, 2 heads of 64, d_model 128, d_inner
+256, vocab 64, source 32 and target 16, batch 2 with padded tails; once
+with ``FLAGS_fused_qkv_attention`` off (every attention site is the q/k/v
+``mul``, ``fused_attention`` in the bthd layout and the output ``mul``)
+and once with the flag at its default, on (every self-attention site is
+one ``fused_qkv_attention``, the cross-attention stays ``fused_attention``).
+Its startup scope is carried into the port with
+``load_paddle_tpu_params``, and both take the same steps on the same
+batch: losses, gradients, updated parameters and a resume from the
+reference's Adam state must agree, on each route.
 """
 
 import numpy as np
@@ -59,10 +62,13 @@ def _batch():
 class _Reference:
     """The reference's training program, its startup parameters, and the
     state of each of its steps on the batch: the loss, the step-1
-    gradients, and the parameters and Adam state after steps 2 and 3."""
+    gradients, and the parameters and Adam state after steps 2 and 3.
+    ``fused`` leaves ``FLAGS_fused_qkv_attention`` at its default (on);
+    otherwise the flag is off while the program is built."""
 
-    def __init__(self):
-        FLAGS.set("fused_qkv_attention", False)
+    def __init__(self, fused=False):
+        if not fused:
+            FLAGS.set("fused_qkv_attention", False)
         try:
             self.prog, startup = pt.Program(), pt.Program()
             with pt.program_guard(self.prog, startup):
@@ -75,8 +81,9 @@ class _Reference:
         finally:
             FLAGS.reset("fused_qkv_attention")
         ops = [op.type for op in self.prog.global_block().ops]
-        assert ops.count("fused_attention") == 6
-        assert "fused_qkv_attention" not in ops
+        # 2 encoder and 2 decoder self sites, 2 cross sites
+        assert ops.count("fused_qkv_attention") == (4 if fused else 0)
+        assert ops.count("fused_attention") == (2 if fused else 6)
         self.trained = [p.name for p, g in params_grads if g is not None]
         self.scope = pt.Scope()
         exe = pt.Executor(pt.CPUPlace())
@@ -106,6 +113,11 @@ class _Reference:
 @pytest.fixture(scope="module")
 def ref():
     return _Reference()
+
+
+@pytest.fixture(scope="module")
+def ref_fused():
+    return _Reference(fused=True)
 
 
 def _port(params, fused_qkv_attention=False, **kw):
@@ -143,7 +155,18 @@ def test_three_adam_steps_match_reference(ref):
     """Loss of each step within 1e-5 relative; every trained parameter's
     step-1 gradient within 1e-4 relative (norm); the parameters after 3
     steps within TOL_PARAM; the position tables never move."""
-    model = _port(ref.start)
+    _three_adam_steps(ref, fused_qkv_attention=False)
+
+
+def test_fused_route_three_adam_steps_match_reference(ref_fused):
+    """The port's default route (fused_qkv_attention=True: #1 forward, #2
+    and #3 backward at every self-attention site) against the reference's
+    default-flag program, under the same tolerances."""
+    _three_adam_steps(ref_fused, fused_qkv_attention=True)
+
+
+def _three_adam_steps(ref, fused_qkv_attention):
+    model = _port(ref.start, fused_qkv_attention=fused_qkv_attention)
     opt = Adam(model.parameters(), learning_rate=LR)
     names = dict(paddle_tpu_param_names(2))
     assert sorted(names[n] for n in ref.trained) == sorted(
@@ -181,8 +204,19 @@ def test_resume_from_reference_adam_state(ref):
     give the reference's step 3: loss within 1e-5 relative, parameters
     within 1e-6 (one step from the same state: no eps-regime drift yet)
     and each accumulator within 1e-4 relative (norm)."""
+    _resume(ref, fused_qkv_attention=False)
+
+
+def test_fused_route_resume_from_reference_adam_state(ref_fused):
+    """The same resume on the default (fused) route, from the reference's
+    default-flag program: both routes have the same parameter names, so
+    the same interop carries them."""
+    _resume(ref_fused, fused_qkv_attention=True)
+
+
+def _resume(ref, fused_qkv_attention):
     state = ref.after[1]
-    model = _port(state)
+    model = _port(state, fused_qkv_attention=fused_qkv_attention)
     opt = Adam(model.parameters(), learning_rate=LR)
     load_paddle_tpu_adam_state(opt, model, state)
     exported = export_paddle_tpu_adam_state(opt, model)
@@ -202,12 +236,12 @@ def test_resume_from_reference_adam_state(ref):
 
 
 def test_training_guards_and_serving_on_the_same_model(ref):
-    """The fused-qkv route (#1, no backward yet) and dropout raise in
-    training; the same model objects still serve, under no_grad, the
+    """Dropout raises in training; the fused-qkv route trains (its loss has
+    a backward); the same model objects still serve, under no_grad, the
     tokens of the default model."""
     fused = _port(ref.start, fused_qkv_attention=True)
-    with pytest.raises(NotImplementedError, match="#2 and #3"):
-        fused(**_feed())
+    loss, _ = fused(**_feed())
+    assert loss.grad_fn is not None and torch.isfinite(loss)
     dropout = _port(ref.start, dropout_rate=0.1)
     with pytest.raises(NotImplementedError, match="dropout slice"):
         dropout(**_feed())
@@ -242,3 +276,23 @@ def test_plain_path_runs_float64(ref):
     assert exact.src_word_emb.grad.dtype == torch.float64
     for n, g in grads[0].items():
         assert _rel(g.double().numpy(), grads[1][n].numpy()) <= TOL_GRAD, n
+
+
+def test_fused_and_flag_off_routes_agree(ref):
+    """On the same weights and batch the port's two attention routes give
+    the same loss (1e-6 relative) and the same step-1 gradients (1e-5
+    relative, per tensor): #1-#3 compute the flag-off composition's
+    function."""
+    results = []
+    for fused in (True, False):
+        model = _port(ref.start, fused_qkv_attention=fused)
+        loss, _ = model(**_padded_feed())
+        loss.backward()
+        results.append((loss.item(), {n: p.grad.numpy() for n, p in
+                                      model.named_parameters()
+                                      if p.grad is not None}))
+    (loss_f, grads_f), (loss_u, grads_u) = results
+    assert abs(loss_f - loss_u) <= 1e-6 * abs(loss_u)
+    assert grads_f.keys() == grads_u.keys()
+    for n, g in grads_f.items():
+        assert _rel(g, grads_u[n]) <= 1e-5, n

@@ -19,8 +19,14 @@ Phases, each fatal on failure:
    d_model 512 on the encoder self-attention (t 256, bias [32, 1, 1,
    256]), the decoder self-attention (t 256, [32, 1, 256, 256]), a
    ``causal=True`` case and a ragged t = 200 with one row masked to -1e30
-   (ctx 0, lse +inf, zero dx_q); #2 and #3 are each called twice on the
-   same inputs and must give equal bits;
+   (ctx 0, lse +inf, zero dx_q); #1 (in both modes), #2 and #3 are each
+   called twice on the same inputs and must give equal bits.  Each of
+   #1-#4, #6 and #7 is checked again at weights-dropout rate 0.1 on every
+   case against its twin (same seed, the same hash mask), and timed at
+   rate 0.1 beside its rate-0 time.  The dropout-add kernels (#16, #17)
+   are checked at [32*256, 512] f32: with x = 1 and residual 0, #16 must
+   give the twin's keep pattern exactly, with a keep share within a
+   chi-square bound of 0.9; #17 must equal its twin bit for bit;
 3. the main paths on Transformer-base (6 layers, 8 heads, d_model 512,
    d_inner 2048, vocab 32000, source 256, 64 tokens) with seeded random
    weights.  The launch counters are zeroed just before each path and read
@@ -61,12 +67,24 @@ Phases, each fatal on failure:
    (d)'s initial weights and on (d)'s batch: 12 ``qkv_attention_fwd``, 12
    ``qkv_bwd_dq`` and 12 ``qkv_bwd_dkv`` launches per step (the self-
    attention sites) and 6 each of the bthd kernels (the cross sites).
-   Step 1's loss and gradients are held against (d)'s float64 evaluation
-   under (d)'s criterion, step 2's loss against (d)'s CPU f32 step 2; then
-   10 timed steps as in (d), printed beside (d)'s;
+   Step 1, run twice, must give equal gradient bits; its loss and
+   gradients are held against (d)'s float64 evaluation under (d)'s
+   criterion, step 2's loss against (d)'s CPU f32 step 2; then 10 timed
+   steps as in (d), printed beside (d)'s;
+   (f) dropout training: the default route at ``dropout_rate=0.1`` from
+   (d)'s initial weights on (d)'s batch: per step 32 ``dropout_add_fwd``
+   and 32 ``dropout_add_bwd`` launches (30 residual sites and 2 embedding
+   sites), 12 each of #1-#3 and 6 each of #4, #6, #7.  Step 1 runs under
+   fixed seeds, twice, for equal gradient bits; float64 and f32 CPU
+   copies take the same step under the same seeds, and the card is held
+   to (d)'s criterion against them.  The
+   flag-off route on the card under the same seeds must give step 1's
+   loss within 1e-5 relative (the same masks).  Then 10 timed steps, each
+   with fresh seeds, whose loss must fall, printed beside (e)'s rate-0
+   step of the same run;
 4. where the time goes: torch.profiler over one prefill and 16 decode
-   steps at each batch, and over one training step on each route: device
-   time by kernel beside host wall time.
+   steps at each batch, and over one training step on each route and on
+   the dropout route: device time by kernel beside host wall time.
 
 Prints the card and its power limit, the timings, one JSON line with a
 record per kernel, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -86,8 +104,7 @@ import numpy as np
 import torch
 
 #: kernel-vs-plain tolerance (abs and rel), f32 with TF32 off: the kernels
-#: sum in other orders than cuBLAS, and the attention kernel adds heads
-#: with atomics
+#: sum in other orders than cuBLAS
 TOL_KERNEL = 2e-4
 #: end-to-end logits tolerance (abs and rel): 12 layers deep, card against
 #: the CPU's plain path, 64 steps of cache built by each side
@@ -104,7 +121,22 @@ BLOCK_T = 16
 #: f32 FLOP/s outside the tensor cores (the kernels run f32 FMAs)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+#: int32 operations/s outside the tensor cores: half the f32 FMA lanes
+#: (64 of 128 per SM and clock on compute capability 9.0), one operation
+#: each, on 132 SMs at 1.98 GHz
+PEAK_INT32_OPS = 16.7e12
+#: thread-instruction slots per second (4 schedulers of 32 lanes per SM
+#: and clock, as many as the f32 FMA lanes): an f32 FMA (2 FLOPs) and an
+#: int32 operation take one slot each, the int32 units beside the f32 ones
+PEAK_SLOTS = 2 * PEAK_INT32_OPS
 F32 = 4
+#: the training dropout rate (the reference's ``transformer()`` default)
+DROPOUT = 0.1
+#: integer operations of one keep bit: the dropout-add hash (index times
+#: GOLDEN plus seed, lowbias32's 3 xor-shifts and 2 multiplies, compare)
+#: and the attention one (the plane index q * tk + k, times GOLDEN plus the
+#: head seed, mix32_fast's 2 xor-shifts and 1 multiply, compare)
+HASH_OPS, ATTN_HASH_OPS = 11, 9
 
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out")
@@ -141,11 +173,14 @@ def cuda_ms(fn, iters=20, warmup=3):
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): the larger of bytes over HBM rate and f32
-    FLOPs over the f32 peak."""
+def bound(flops, nbytes, int_ops=0):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and the
+    operations: the larger of their slot time (f32 FLOPs at the f32 peak
+    plus int32 operations at PEAK_SLOTS) and the int32 units' own time
+    (at PEAK_INT32_OPS)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = max(flops / PEAK_F32_FLOPS + int_ops / PEAK_SLOTS,
+                int_ops / PEAK_INT32_OPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -187,8 +222,11 @@ def check_qkv_attention(gen, b):
     bias = (-1e9 * pad.float()).reshape(b, 1, 1, t).cuda()
     kw = dict(n_head=h, scale=dh ** -0.5)
     got = ka.flash_qkv_attention(x, w_qkv, w_out, bias, **kw)
+    again = ka.flash_qkv_attention(x, w_qkv, w_out, bias, **kw)
     want = ka.reference_qkv_attention(x, w_qkv, w_out, bias, **kw)
     torch.cuda.synchronize()
+    require(torch.equal(got, again),
+            f"qkv_attention_fwd b={b}: two calls on the same inputs differ")
     err = compare(f"qkv_attention_fwd b={b}", got, want, TOL_KERNEL)
 
     # one PyTorch call computing the same function (a yardstick only)
@@ -315,10 +353,11 @@ def check_ffn(x, ffn, b, name, replaces):
 
 
 def timed_record(name, source, replaces, err, fn, plain, flops, nbytes,
-                 library, b):
+                 library, b, int_ops=0):
     """A kernel record: fn and plain timed alone after an L2 flush, the
-    bound from flops and nbytes, library timed where there is one."""
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound from flops, int_ops and nbytes, library timed where there is
+    one."""
+    bound_ms, bound_by = bound(flops, nbytes, int_ops)
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
                 bound_ms=bound_ms, bound_by=bound_by,
@@ -606,6 +645,49 @@ def check_flash_attention(gen):
             lambda: ka.reference_flash_bwd_dkv(*bw, **kw), 8 * flops,
             2 * rows + 4 * keys + bias_bytes + stats, lib_bwd, b)
         del lib_out
+
+        # weights dropout at DROPOUT under one seed: the same checks, the
+        # backward from the dropped output, then each kernel timed
+        dkw = dict(kw, dropout_rate=DROPOUT, dropout_seed=int(
+            torch.randint(0, 2 ** 32, (1,), generator=gen)))
+        o_d, lse_d = ka.flash_fwd(q, k, v, bias, **dkw)
+        want_od, want_lsed = ka.reference_flash_fwd(q, k, v, bias, **dkw)
+        torch.cuda.synchronize()
+        require(torch.equal(torch.isinf(lse_d), hidden),
+                f"flash_fwd {name} dropout: masked rows differ")
+        require(not torch.allclose(o_d, o, atol=1e-3),
+                f"flash_fwd {name}: dropout changed nothing")
+        errs = [max(compare(f"flash_fwd {name} dropout", o_d, want_od,
+                            TOL_KERNEL),
+                    compare(f"flash_fwd {name} dropout lse", lse_d[~hidden],
+                            want_lsed[~hidden], TOL_KERNEL))]
+        delta_d = (do * o_d).sum(-1).transpose(1, 2).contiguous()
+        bw_d = (q, k, v, bias, do, lse_d, delta_d)
+        dq_d = ka.flash_bwd_dq(*bw_d, **dkw)
+        dk_d, dv_d = ka.flash_bwd_dkv(*bw_d, **dkw)
+        want_dk, want_dv = ka.reference_flash_bwd_dkv(*bw_d, **dkw)
+        errs.append(compare(f"flash_bwd_dq {name} dropout", dq_d,
+                            ka.reference_flash_bwd_dq(*bw_d, **dkw),
+                            TOL_KERNEL))
+        errs.append(max(compare(f"flash_bwd_dkv {name} dropout dk", dk_d,
+                                want_dk, TOL_KERNEL),
+                        compare(f"flash_bwd_dkv {name} dropout dv", dv_d,
+                                want_dv, TOL_KERNEL)))
+        del want_dk, want_dv
+        hashes = ATTN_HASH_OPS * b * h * pairs
+        for kernel, err, fn, mult, nbytes in (
+                ("flash_fwd", errs[0],
+                 lambda: ka.flash_fwd(q, k, v, bias, **dkw), 4,
+                 2 * rows + 2 * keys + bias_bytes + stats // 2),
+                ("flash_bwd_dq", errs[1],
+                 lambda: ka.flash_bwd_dq(*bw_d, **dkw), 6,
+                 3 * rows + 2 * keys + bias_bytes + stats),
+                ("flash_bwd_dkv", errs[2],
+                 lambda: ka.flash_bwd_dkv(*bw_d, **dkw), 8,
+                 2 * rows + 4 * keys + bias_bytes + stats)):
+            out[(kernel, name)].update(
+                dropout_max_abs_err=err, dropout_ms=cuda_ms(fn),
+                dropout_bound_ms=bound(mult * flops, nbytes, hashes)[0])
     return out
 
 
@@ -699,8 +781,12 @@ def check_qkv_training(gen):
         kw = dict(n_head=h, scale=dh ** -0.5, causal=causal)
         fw = (x, w_qkv, w_out, bias)
         y, ctx, lse = ka.qkv_attention_fwd(*fw, **kw)
+        again = ka.qkv_attention_fwd(*fw, **kw)
         want_y, want_ctx, want_lse = ka.reference_qkv_fwd(*fw, **kw)
         torch.cuda.synchronize()
+        require(all(torch.equal(a, c) for a, c in zip((y, ctx, lse), again)),
+                f"qkv_attention_fwd {name}: two calls on the same inputs "
+                f"differ")
         hidden = torch.isinf(want_lse)
         require(torch.equal(hidden, torch.isinf(lse)),
                 f"qkv_attention_fwd {name}: masked rows differ")
@@ -767,7 +853,116 @@ def check_qkv_training(gen):
             8 * proj + 4 * attn, 3 * act + io + F32 * 2 * dm * hd, lib_bwd,
             b)
         del lib_fwd, lib_bwd
+
+        # weights dropout at DROPOUT under one seed: #1's residuals, then
+        # #2 and #3 from them (twice, for equal bits), each timed
+        dkw = dict(kw, dropout_rate=DROPOUT, dropout_seed=int(
+            torch.randint(0, 2 ** 32, (1,), generator=gen)))
+        y_d, ctx_d, lse_d = ka.qkv_attention_fwd(*fw, **dkw)
+        want_yd, want_ctxd, _ = ka.reference_qkv_fwd(*fw, **dkw)
+        torch.cuda.synchronize()
+        require(not torch.allclose(y_d, y, atol=1e-3),
+                f"qkv_attention_fwd {name}: dropout changed nothing")
+        errs = [max(compare(f"qkv_attention_fwd {name} dropout y", y_d,
+                            want_yd, TOL_KERNEL),
+                    compare(f"qkv_attention_fwd {name} dropout ctx", ctx_d,
+                            want_ctxd, TOL_KERNEL))]
+        errs[0] = max(errs[0], compare(
+            f"qkv_attention_fwd {name} dropout lse", lse_d[~hidden],
+            want_lse[~hidden], TOL_KERNEL))
+        bw_d = (x, w_qkv, w_out, bias, g, ctx_d, lse_d)
+        got_d = ka.qkv_bwd_dq(*bw_d, **dkw) + ka.qkv_bwd_dkv(*bw_d, **dkw)
+        again = ka.qkv_bwd_dq(*bw_d, **dkw) + ka.qkv_bwd_dkv(*bw_d, **dkw)
+        want_d = (ka.reference_qkv_bwd_dq(*bw_d, **dkw)
+                  + ka.reference_qkv_bwd_dkv(*bw_d, **dkw))
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, c) for a, c in zip(got_d, again)),
+                f"qkv_bwd {name} dropout: two calls differ")
+        parts = ("dx_q", "dW_q", "dW_out", "dx_kv", "dW_k", "dW_v")
+        cmp = [compare(f"qkv_bwd {name} dropout {part}", a, w, TOL_KERNEL)
+               for part, a, w in zip(parts, got_d, want_d)]
+        errs += [max(cmp[:3]), max(cmp[3:])]
+        del got_d, again, want_d
+        hashes = ATTN_HASH_OPS * b * h * pairs
+        for kernel, err, fn, flops, nbytes in (
+                ("qkv_attention_fwd", errs[0],
+                 lambda: ka.qkv_attention_fwd(*fw, **dkw),
+                 4 * proj + 2 * attn, 2 * act + io),
+                ("qkv_bwd_dq", errs[1], lambda: ka.qkv_bwd_dq(*bw_d, **dkw),
+                 7 * proj + 3 * attn, 3 * act + io + F32 * 2 * dm * hd),
+                ("qkv_bwd_dkv", errs[2],
+                 lambda: ka.qkv_bwd_dkv(*bw_d, **dkw), 8 * proj + 4 * attn,
+                 3 * act + io + F32 * 2 * dm * hd)):
+            out[(kernel, name)].update(
+                dropout_max_abs_err=err, dropout_ms=cuda_ms(fn),
+                dropout_bound_ms=bound(flops, nbytes, hashes)[0])
     return out
+
+
+#: phase 2's dropout-add shape: the training step's residual sites at
+#: batch 32, length 256, d_model 512
+DROPOUT_ROWS = 32 * 256
+#: chi-square (1 degree of freedom) bound on the keep count of #16's
+#: pattern check: exceeded with probability 0.001 by a fair coin of 0.9
+CHI2_BOUND = 10.83
+
+
+def check_dropout_add(gen):
+    """#16 and #17 at [32*256, 512] f32 against their plain twins: the
+    keep pattern of x = 1, residual = 0 exactly (and its keep share within
+    CHI2_BOUND of 0.9), #16 on random x and residual within TOL_KERNEL,
+    #16 without a residual (the embedding sites) and #17 bit for bit.
+    Returns (#16's record, #17's record)."""
+    from paddle_tpu_torch.kernels import dropout_epilogue as kde
+    from paddle_tpu_torch.kernels import hash_rng
+
+    shape = (DROPOUT_ROWS, BASE["d_model"])
+    n = DROPOUT_ROWS * BASE["d_model"]
+    seed = int(torch.randint(0, 2 ** 32, (1,), generator=gen))
+    ones, zeros = torch.ones(shape).cuda(), torch.zeros(shape).cuda()
+    pattern = kde.dropout_add_fwd(ones, zeros, DROPOUT, seed)
+    want = kde.reference_dropout_add(ones, zeros, DROPOUT, seed)
+    torch.cuda.synchronize()
+    require(torch.equal(pattern, want),
+            "dropout_add_fwd: keep pattern differs from the twin's")
+    kept = int((pattern != 0).sum().item())
+    p = 1 - DROPOUT
+    chi2 = (kept - n * p) ** 2 / (n * p * (1 - p))
+    require(chi2 <= CHI2_BOUND, f"dropout_add_fwd: kept {kept} of {n} "
+            f"(chi-square {chi2:.2f} over {CHI2_BOUND})")
+    require(torch.equal(pattern != 0, hash_rng.keep_mask(
+        seed, shape, DROPOUT, device=pattern.device)),
+            "dropout_add_fwd: keep pattern is not keep_mask's")
+
+    x, res, g = (randn(gen, *shape) for _ in range(3))
+    got = kde.dropout_add_fwd(x, res, DROPOUT, seed)
+    want = kde.reference_dropout_add(x, res, DROPOUT, seed)
+    plain_drop = kde.dropout_add_fwd(x, None, DROPOUT, seed)
+    dx = kde.dropout_add_bwd(g, DROPOUT, seed)
+    torch.cuda.synchronize()
+    err = max(compare("dropout_add_fwd", got, want, TOL_KERNEL),
+              compare("dropout_add_fwd no residual", plain_drop,
+                      kde.reference_dropout_add(x, None, DROPOUT, seed),
+                      TOL_KERNEL))
+    want_dx = kde.reference_dropout_add_bwd(g, DROPOUT, seed)
+    require(torch.equal(dx, want_dx), "dropout_add_bwd: differs from twin")
+    src = "paddle_tpu_torch/csrc/dropout_add.cu"
+    fwd = timed_record(
+        "dropout_add_fwd", src, "paddle_tpu/kernels/dropout_epilogue.py:62",
+        err, lambda: kde.dropout_add_fwd(x, res, DROPOUT, seed),
+        lambda: kde.reference_dropout_add(x, res, DROPOUT, seed), 0,
+        3 * F32 * n, None, TRAIN_BATCH, int_ops=HASH_OPS * n)
+    fwd.update(keep_share=kept / n, keep_chi2=chi2,
+               no_residual_ms=cuda_ms(
+                   lambda: kde.dropout_add_fwd(x, None, DROPOUT, seed)),
+               no_residual_bound_ms=bound(0, 2 * F32 * n,
+                                          HASH_OPS * n)[0])
+    bwd = timed_record(
+        "dropout_add_bwd", src, "paddle_tpu/kernels/dropout_epilogue.py:76",
+        0.0, lambda: kde.dropout_add_bwd(g, DROPOUT, seed),
+        lambda: kde.reference_dropout_add_bwd(g, DROPOUT, seed), 0,
+        2 * F32 * n, None, TRAIN_BATCH, int_ops=HASH_OPS * n)
+    return fwd, bwd
 
 
 # ---------------------------------------------------------------------------
@@ -1147,6 +1342,24 @@ def _to(batch, device):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+def _step_grads(model, feed, **kw):
+    """{name: gradient} of one forward and backward of ``model``, with no
+    update: step 1 repeated, which must give the counted step 1's bits."""
+    loss, _ = model(**feed, **kw)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if p.grad is not None}
+    for p in model.parameters():
+        p.grad = None
+    return grads
+
+
+def _require_repeat(grads, repeat, what):
+    require(grads.keys() == repeat.keys() and all(
+        torch.equal(g, repeat[n]) for n, g in grads.items()),
+        f"{what}: step 1's gradients differ from a repeat of the step")
+
+
 def _grad_rel(got, want):
     return ((got.double() - want.double()).norm()
             / want.double().norm().clamp_min(1e-300)).item()
@@ -1278,7 +1491,8 @@ def run_training_fused(model, parity):
     """Phase 3 (e): the default route (``fused_qkv_attention=True``) from
     (d)'s initial weights on (d)'s parity batch: 12 launches each of #1,
     #2 and #3 (the self-attention sites) and 6 each of #4, #6 and #7 (the
-    cross sites) per step.  Step 1's loss and gradients are held against
+    cross sites) per step.  Step 1's gradients must repeat their bits when
+    the step is run again; its loss and gradients are held against
     (d)'s float64 evaluation under (d)'s criterion, step 2's loss against
     (d)'s CPU f32 step 2; then timed as (d).  Returns the run's record."""
     from paddle_tpu_torch import Adam, kernels
@@ -1291,6 +1505,7 @@ def run_training_fused(model, parity):
     names = {p: n for n, p in model.named_parameters()}
     feed = _to(training_batch(seed=1), "cuda")
     exact = parity["exact"]
+    repeat = _step_grads(model, feed)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     losses, worst_grad = [], []
@@ -1308,6 +1523,8 @@ def run_training_fused(model, parity):
                 f"the card, {want} on the CPU")
         losses.append((got, want))
         if step == 0:
+            _require_repeat(grads, repeat, "fused training")
+            del repeat
             require(grads.keys() == exact.keys(),
                     "fused training: other params trained than in (d)")
             for n, g in grads.items():
@@ -1333,6 +1550,102 @@ def run_training_fused(model, parity):
                 parity_grad_rel_median=[float(np.median(
                     [w[i] for w in worst_grad])) for i in range(2)],
                 **timed,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+#: phase 3 (f): the generator seed of step 1's dropout seeds
+DROPOUT_STEP_SEED = 5
+#: (f): step 1's loss on the flag-off route against the fused route's,
+#: relative: the same masks, sums in other orders
+TOL_ROUTES_LOSS = 1e-5
+
+
+def run_training_dropout(model, unfused, cpu32, cpu64):
+    """Phase 3 (f): ``model`` (the default route at DROPOUT) takes step 1
+    under fixed seeds on (d)'s parity batch, repeating its gradients' bits
+    when run again, held against the float64 CPU
+    copy ``cpu64`` under (d)'s criterion (the f32 CPU copy ``cpu32``, same
+    seeds, gives the CPU's own f32 error); ``unfused`` (the flag-off route,
+    the same weights) must give step 1's loss within TOL_ROUTES_LOSS; then
+    the timed steps, each drawing fresh seeds.  Returns the run's
+    record."""
+    from paddle_tpu_torch import Adam, kernels
+
+    L = BASE["n_layer"]
+    n_sites = len(model.dropout_sites())
+    require(n_sites == 8 * L + 2, f"{n_sites} dropout sites")
+    # 2 embedding sites and 5L residual ones: #16 forward, #17 backward
+    residual_sites = 2 + 5 * L
+    per_step = dict(qkv_attention_fwd=2 * L, qkv_bwd_dq=2 * L,
+                    qkv_bwd_dkv=2 * L, flash_fwd=L, flash_bwd_dq=L,
+                    flash_bwd_dkv=L, dropout_add_fwd=residual_sites,
+                    dropout_add_bwd=residual_sites)
+    seeds = torch.randint(0, 2 ** 32, (n_sites,), generator=torch.Generator(
+        ).manual_seed(DROPOUT_STEP_SEED)).tolist()
+    batch = training_batch(seed=1)
+    cpu_feed = _to(batch, "cpu")
+
+    t0 = time.perf_counter()
+    exact, cpu_grads, cpu_losses = {}, {}, []
+    for copy, grads in ((cpu64, exact), (cpu32, cpu_grads)):
+        loss, _ = copy(**cpu_feed, dropout_seeds=seeds)
+        loss.backward()
+        cpu_losses.append(loss.item())
+        grads.update((n, p.grad) for n, p in copy.named_parameters()
+                     if p.grad is not None)
+    cpu_s = time.perf_counter() - t0
+    loss64 = cpu_losses[0]
+
+    opt = Adam(model.parameters(), learning_rate=TRAIN_LR)
+    names = {p: n for n, p in model.named_parameters()}
+    feed = _to(batch, "cuda")
+    repeat = _step_grads(model, feed, dropout_seeds=seeds)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    loss, _ = model(**feed, dropout_seeds=seeds)
+    grads = {names[p]: g for p, g in opt.minimize(loss)}
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    require(counts == expected(**per_step),
+            f"dropout training step 0: launches {counts}")
+    got = loss.item()
+    require(np.isfinite(got) and abs(got - loss64) <= TOL_TRAIN_LOSS
+            * abs(loss64), f"dropout training: loss {got} on the card, "
+            f"{loss64} in float64")
+    _require_repeat(grads, repeat, "dropout training")
+    del repeat
+    require(grads.keys() == exact.keys() == cpu_grads.keys(),
+            "dropout training: the card and the CPU trained other params")
+    worst_grad = []
+    for n, g in grads.items():
+        card = _grad_rel(g.cpu(), exact[n])
+        f32 = _grad_rel(cpu_grads[n], exact[n])
+        require(card <= max(TOL_TRAIN_GRAD, 2 * f32),
+                f"dropout training step 0: gradient of {n} off float64 by "
+                f"{card} on the card, {f32} on the CPU in f32")
+        worst_grad.append((card, f32, n))
+    del grads, exact, cpu_grads
+
+    with torch.no_grad():
+        unfused_loss = unfused(**feed, dropout_seeds=seeds)[0].item()
+    require(abs(unfused_loss - got) <= TOL_ROUTES_LOSS * abs(got),
+            f"dropout training: flag-off route loss {unfused_loss}, fused "
+            f"{got} under the same seeds")
+
+    timed = _timed_training(model, opt, per_step)
+    for name, c in timed.pop("launches").items():
+        counts[name] += c
+    worst_grad.sort(reverse=True)
+    return dict(route="training fused dropout", batch=TRAIN_BATCH,
+                dropout_rate=DROPOUT, launches=counts,
+                # (card, float64, CPU f32) step-1 losses under one seed set
+                parity_losses=(got, loss64, cpu_losses[1]),
+                flag_off_loss=unfused_loss,
+                # (card vs f64, cpu f32 vs f64, name)
+                parity_grad_rel_worst=worst_grad[:4],
+                parity_grad_rel_median=[float(np.median(
+                    [w[i] for w in worst_grad])) for i in range(2)],
+                cpu_parity_s=cpu_s, **timed,
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -1437,7 +1750,10 @@ def print_record(r, label):
           f"bound_ms {r['bound_ms']} ({r['bound_by']}) library_ms "
           f"{r['library_ms']}"
           + (f" (library max_abs_err {r['library_max_abs_err']:.3e})"
-             if "library_max_abs_err" in r else ""))
+             if "library_max_abs_err" in r else "")
+          + (f"; rate {DROPOUT}: ms {r['dropout_ms']} bound_ms "
+             f"{r['dropout_bound_ms']} max_abs_err "
+             f"{r['dropout_max_abs_err']:.3e}" if "dropout_ms" in r else ""))
 
 
 def main():
@@ -1496,9 +1812,20 @@ def main():
     for (name, case), r in check_qkv_training(gen).items():
         residuals = " (residuals)" if name == "qkv_attention_fwd" else ""
         print_record(r, f"{residuals} {case} b={r['batch']}")
-        # #1's record in the JSON line stays the serving one (b=64)
+        # #1's record in the JSON line stays the serving one (b=64), with
+        # the training step's residual mode (its own batch, rate 0 and
+        # rate 0.1) beside it
         if case == QKV_RECORD_CASE and not residuals:
             records[(name, max(BATCHES))] = r
+        if case == QKV_RECORD_CASE and residuals:
+            records[(name, max(BATCHES))]["residual"] = {
+                k: r[k] for k in ("batch", "ms", "plain_ms", "bound_ms",
+                                  "max_abs_err", "dropout_ms",
+                                  "dropout_bound_ms", "dropout_max_abs_err")}
+    for r in check_dropout_add(gen):
+        print_record(r, f" [{DROPOUT_ROWS}, {BASE['d_model']}] rate "
+                        f"{DROPOUT}")
+        records[(r["name"], max(BATCHES))] = r
 
     model = paddle_tpu_torch.Transformer(**BASE).init_params(seed=0)
     cpu_model = paddle_tpu_torch.Transformer(**BASE, device="cpu")
@@ -1546,6 +1873,9 @@ def main():
     del cpu_model, unfused
     train_model = paddle_tpu_torch.Transformer(
         **BASE, fused_qkv_attention=False).init_params(seed=1)
+    # (f)'s models start from the same initial weights
+    init_state = {k: v.detach().cpu().clone()
+                  for k, v in train_model.state_dict().items()}
     # (e)'s model: the default route, from (d)'s initial weights
     fused_train = paddle_tpu_torch.Transformer(**BASE)
     fused_train.load_state_dict(train_model.state_dict())
@@ -1569,6 +1899,29 @@ def main():
           f"{training_fused['f32_peak_share']} against "
           f"{training['f32_peak_share']}")
 
+    # (f): dropout on the default route, and its flag-off and CPU copies
+    drop_models = [paddle_tpu_torch.Transformer(
+        **BASE, dropout_rate=DROPOUT, fused_qkv_attention=fused)
+        for fused in (True, False)]
+    drop_cpu = [paddle_tpu_torch.Transformer(
+        **BASE, device="cpu", fused_qkv_attention=False,
+        dropout_rate=DROPOUT).to(dtype)
+        for dtype in (torch.float32, torch.float64)]
+    for m in drop_models + drop_cpu:
+        m.load_state_dict(init_state)
+    training_dropout = run_training_dropout(drop_models[0], drop_models[1],
+                                            *drop_cpu)
+    del drop_cpu, drop_models[1], init_state
+    print("phase 3: " + ", ".join(f"{k} {v}"
+                                  for k, v in training_dropout.items()))
+    print(f"phase 3: training step, dropout {DROPOUT} against rate 0 (fused "
+          f"route): {training_dropout['step_ms_median']} ms against "
+          f"{training_fused['step_ms_median']} ms, "
+          f"{training_dropout['tokens_per_s']} against "
+          f"{training_fused['tokens_per_s']} target tokens/s, f32 peak "
+          f"share {training_dropout['f32_peak_share']} against "
+          f"{training_fused['f32_peak_share']}")
+
     for b in BATCHES:
         prof = profile_serving(model, b)
         for phase, r in prof.items():
@@ -1582,7 +1935,8 @@ def main():
                   f"ms, idle share {r['idle_share']}")
             for name, ms in r["top"]:
                 print(f"    {ms:.4f} ms  {name}")
-    for tag, m in (("flag_off", train_model), ("fused", fused_train)):
+    for tag, m in (("flag_off", train_model), ("fused", fused_train),
+                   ("fused_dropout", drop_models[0])):
         r = profile_training(m, tag)
         if not r["device_busy_ms"]:
             print(f"phase 4: training step {tag}: device time not measured "
@@ -1596,7 +1950,7 @@ def main():
 
     # launches over every counted path; the FFN counter is split between
     # the ring paths (#11) and the paged ones (#13)
-    paths = runs + serving + [training, training_fused]
+    paths = runs + serving + [training, training_fused, training_dropout]
     total = {name: sum(r["launches"][name] for r in paths)
              for name in paths[0]["launches"]}
     paged_ffn = sum(r["launches"]["ffn"] for r in paths
@@ -1607,16 +1961,16 @@ def main():
     for name in ("qkv_attention_fwd", "qkv_bwd_dq", "qkv_bwd_dkv",
                  "megastep", "ffn", "megastep_paged", "ffn_paged",
                  "flash_decode", "flash_decode_paged", "flash_fwd",
-                 "flash_bwd_dq", "flash_bwd_dkv"):
+                 "flash_bwd_dq", "flash_bwd_dkv", "dropout_add_fwd",
+                 "dropout_add_bwd"):
         r = dict(records[(name, max(BATCHES))])
-        r.pop("batch")
         r.pop("library_max_abs_err", None)
         r["launches"] = total[name]
         require(r["launches"] > 0, f"{name}: no launch on the main paths")
         kernels_line.append(r)
     print(json.dumps({"main_path": runs, "serving": serving,
                       "training": training, "training_fused": training_fused,
-                      "power": smi}))
+                      "training_dropout": training_dropout, "power": smi}))
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,13 @@
 // thread loads.  No tensor cores (wgmma, TF32), no load pipelining: later
 // work.
 //
+// Weights dropout (the reference's dropout on the softmax, inside the
+// kernels): the normalizer l sums the undropped p, the p tile multiplying
+// v is dropped by hash_rng::keep_attn at (seed, b * h + head, q * tk + k),
+// and the output is scaled by 1 / (1 - rate) at the end; the backward
+// walks regenerate the same bits (flash_walk.cuh).  At rate 0 the entry
+// points launch the instantiations that never hash.
+//
 // Masking follows the TPU kernels: causal (bottom-right aligned, offset
 // tk - tq) and out-of-range keys score -1e30 in the forward; a row whose
 // max score is <= -1e29, or that sees no key, gets a zero output and
@@ -47,9 +54,11 @@ namespace {
 constexpr float kMaskValue = -1e30f;
 constexpr size_t kFwdSmem = (2 * kATile + 2 * kBTile) * sizeof(float);
 
+template <bool DROP>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(Rows q, Rows k, Rows v, Bias bias, float* o, float* lse,
-                 int tq, int tk, int h, float scale, int causal) {
+                 int tq, int tk, int h, float scale, int causal,
+                 Dropout drop) {
   extern __shared__ float smem[];
   float* q_s = smem;              // [BT][AS] q * scale
   float* p_s = q_s + kATile;      // [BT][AS] probabilities of one k tile
@@ -62,6 +71,7 @@ flash_fwd_kernel(Rows q, Rows k, Rows v, Bias bias, float* o, float* lse,
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
   const int offset = tk - tq;
+  const uint32_t hseed = block_head_seed<DROP>(drop, bi, h, head);
 
   load_rows(q_s, AS, q, bi, q0, tq, head, scale);
   float m[4], l[4], acc[4][4];
@@ -111,10 +121,16 @@ flash_fwd_kernel(Rows q, Rows k, Rows v, Bias bias, float* o, float* lse,
         rs += __shfl_xor_sync(0xffffffffu, rs, off);
       l[i] = l[i] * alpha + rs;
       m[i] = m_new;
+      const int qpos = q0 + ty * 4 + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         acc[i][j] *= alpha;
-        p_s[(ty * 4 + i) * AS + tx * 4 + j] = s[i][j];
+        float pv = s[i][j];
+        if (DROP && !hash_rng::keep_attn(
+                hseed, (uint32_t)qpos * tk + k0 + tx * 4 + j,
+                drop.threshold))
+          pv = 0.f;
+        p_s[(ty * 4 + i) * AS + tx * 4 + j] = pv;
       }
     }
     __syncthreads();
@@ -124,7 +140,8 @@ flash_fwd_kernel(Rows q, Rows k, Rows v, Bias bias, float* o, float* lse,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const bool masked = (l[i] == 0.f) || (m[i] <= -1e29f);
-    const float inv = masked ? 0.f : 1.f / l[i];
+    const float inv = masked ? 0.f
+                             : (DROP ? drop.inv_keep / l[i] : 1.f / l[i]);
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] *= inv;
     const int qpos = q0 + ty * 4 + i;
@@ -135,46 +152,62 @@ flash_fwd_kernel(Rows q, Rows k, Rows v, Bias bias, float* o, float* lse,
   store_rows(o, h * DH, acc, bi, q0, tq, head);
 }
 
+template <bool DROP>
+cudaError_t launch_fwd(Rows q, Rows k, Rows v, Bias bias, float* o,
+                       float* lse, int b, int tq, int tk, int h, float scale,
+                       int causal, Dropout drop, cudaStream_t stream) {
+  static bool configured = false;
+  cudaError_t err = allow_smem(flash_fwd_kernel<DROP>, kFwdSmem, configured);
+  if (err != cudaSuccess) return err;
+  dim3 grid((tq + BT - 1) / BT, h, b);
+  flash_fwd_kernel<DROP><<<grid, NT, kFwdSmem, stream>>>(
+      q, k, v, bias, o, lse, tq, tk, h, scale, causal, drop);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q [b, tq, h, 64], k and v [b, tk, h, 64], o like q, lse [b, h, tq]; all
 // contiguous f32.  bias may be null; otherwise its element (b, h, q, k)
 // lies at b*bs_b + h*bs_h + q*bs_q + k*bs_k.  Head width 64 only (checked
-// by the caller).
+// by the caller).  rate 0 runs without dropout; otherwise weights are kept
+// where the hash of (seed, b*h + head, q*tk + k) >= threshold (tq*tk <=
+// 2^32, checked by the caller).
 extern "C" int ptt_flash_fwd(const float* q, const float* k, const float* v,
                              const float* bias, int64_t bs_b, int64_t bs_h,
                              int64_t bs_q, int64_t bs_k, float* o,
                              float* lse, int b, int tq, int tk, int h,
-                             float scale, int causal, void* stream) {
-  static bool configured = false;
-  cudaError_t err = allow_smem(flash_fwd_kernel, kFwdSmem, configured);
-  if (err != cudaSuccess) return (int)err;
+                             float scale, int causal, double rate,
+                             unsigned seed, unsigned threshold,
+                             void* stream) {
   const int ld = h * DH;
-  dim3 grid((tq + BT - 1) / BT, h, b);
-  flash_fwd_kernel<<<grid, NT, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
-      Rows{q, ld}, Rows{k, ld}, Rows{v, ld}, Bias{bias, bs_b, bs_h, bs_q, bs_k},
-      o, lse, tq, tk, h, scale, causal);
-  return (int)cudaGetLastError();
+  const Rows rq{q, ld}, rk{k, ld}, rv{v, ld};
+  const Bias bs{bias, bs_b, bs_h, bs_q, bs_k};
+  const Dropout drop = hash_rng::make_dropout(rate, seed, threshold);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(drop.on ? launch_fwd<true>(rq, rk, rv, bs, o, lse, b, tq, tk,
+                                          h, scale, causal, drop, st)
+                       : launch_fwd<false>(rq, rk, rv, bs, o, lse, b, tq, tk,
+                                           h, scale, causal, drop, st));
 }
 
-// dout like q; lse and delta = rowsum(dout * o) [b, h, tq]; dq like q.
+// dout like q; lse and delta = rowsum(dout * o) [b, h, tq]; dq like q;
+// the forward's dropout arguments.
 extern "C" int ptt_flash_bwd_dq(const float* q, const float* k,
                                 const float* v, const float* bias,
                                 int64_t bs_b, int64_t bs_h, int64_t bs_q,
                                 int64_t bs_k, const float* dout,
                                 const float* lse, const float* delta,
                                 float* dq, int b, int tq, int tk, int h,
-                                float scale, int causal, void* stream) {
-  static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel, kDqSmem, configured);
-  if (err != cudaSuccess) return (int)err;
+                                float scale, int causal, double rate,
+                                unsigned seed, unsigned threshold,
+                                void* stream) {
   const int ld = h * DH;
-  dim3 grid((tq + BT - 1) / BT, h, b);
-  flash_bwd_dq_kernel<<<grid, NT, kDqSmem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      Rows{q, ld}, Rows{k, ld}, Rows{v, ld}, Bias{bias, bs_b, bs_h, bs_q, bs_k},
-      Rows{dout, ld}, lse, delta, dq, ld, tq, tk, h, scale, causal);
-  return (int)cudaGetLastError();
+  return (int)bwd_dq(Rows{q, ld}, Rows{k, ld}, Rows{v, ld},
+                     Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows{dout, ld}, lse,
+                     delta, dq, ld, b, tq, tk, h, scale, causal,
+                     hash_rng::make_dropout(rate, seed, threshold),
+                     static_cast<cudaStream_t>(stream));
 }
 
 // As ptt_flash_bwd_dq; dk and dv like k.
@@ -184,16 +217,13 @@ extern "C" int ptt_flash_bwd_dkv(const float* q, const float* k,
                                  int64_t bs_k, const float* dout,
                                  const float* lse, const float* delta,
                                  float* dk, float* dv, int b, int tq, int tk,
-                                 int h, float scale, int causal,
+                                 int h, float scale, int causal, double rate,
+                                 unsigned seed, unsigned threshold,
                                  void* stream) {
-  static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel, kDkvSmem, configured);
-  if (err != cudaSuccess) return (int)err;
   const int ld = h * DH;
-  dim3 grid((tk + BT - 1) / BT, h, b);
-  flash_bwd_dkv_kernel<<<grid, NT, kDkvSmem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      Rows{q, ld}, Rows{k, ld}, Rows{v, ld}, Bias{bias, bs_b, bs_h, bs_q, bs_k},
-      Rows{dout, ld}, lse, delta, dk, dv, ld, tq, tk, h, scale, causal);
-  return (int)cudaGetLastError();
+  return (int)bwd_dkv(Rows{q, ld}, Rows{k, ld}, Rows{v, ld},
+                      Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows{dout, ld}, lse,
+                      delta, dk, dv, ld, b, tq, tk, h, scale, causal,
+                      hash_rng::make_dropout(rate, seed, threshold),
+                      static_cast<cudaStream_t>(stream));
 }

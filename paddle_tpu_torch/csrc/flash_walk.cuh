@@ -11,6 +11,13 @@
 //         recomputed from lse, dp = dO v^T, delta = rowsum(dO * o)
 //   dkv   dv = sum_q p^T dO,  dk = sum_q (p (dp - delta) * scale)^T q
 //
+// Weights dropout (the DROP instantiations): with keep the forward's mask
+// (hash_rng::keep_attn of the block's head seed at q * tk + k), dp becomes
+// keep ? dp * inv_keep : 0 in both walks, and dv sums (keep ? p * inv_keep
+// : 0)^T dO, while ds keeps the undropped p; delta is then rowsum(dO * o)
+// of the dropped output.  At rate 0 the callers launch the instantiation
+// without the hash.
+//
 // Grid: dq takes one block per (64-row q tile, head, batch row) and walks
 // the k tiles; dkv one block per (64-row k tile, head, batch row) and walks
 // the q tiles.  Every output element belongs to one block, which sums in a
@@ -36,7 +43,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hash_rng.cuh"
+
 namespace {
+
+using hash_rng::Dropout;
 
 constexpr int BT = 64;      // rows of a q or k tile
 constexpr int DH = 64;      // head width
@@ -155,12 +166,23 @@ __device__ __forceinline__ int kv_tiles(int q0, int tq, int tk, int causal) {
   return n;
 }
 
+// Seed of this block's head under weights dropout (0 without).
+template <bool DROP>
+__device__ __forceinline__ uint32_t block_head_seed(const Dropout& drop,
+                                                    int bi, int h,
+                                                    int head) {
+  return DROP ? hash_rng::attn_head_seed(drop.seed, (uint32_t)(bi * h + head))
+              : 0u;
+}
+
 // dq of one (64-row q tile, head, batch row); lse and delta [b, h, tq].
+template <bool DROP>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(Rows q, Rows k, Rows v, Bias bias, Rows dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* dq, int ld_dq,
-                    int tq, int tk, int h, float scale, int causal) {
+                    int tq, int tk, int h, float scale, int causal,
+                    Dropout drop) {
   extern __shared__ float smem[];
   float* q_s = smem;              // [BT][AS] q
   float* do_s = q_s + kATile;     // [BT][AS] dO
@@ -175,6 +197,7 @@ flash_bwd_dq_kernel(Rows q, Rows k, Rows v, Bias bias, Rows dout,
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
   const int offset = tk - tq;
+  const uint32_t hseed = block_head_seed<DROP>(drop, bi, h, head);
 
   load_rows(q_s, AS, q, bi, q0, tq, head);
   load_rows(do_s, AS, dout, bi, q0, tq, head);
@@ -214,8 +237,13 @@ flash_bwd_dq_kernel(Rows q, Rows k, Rows v, Bias bias, Rows dout,
           if (bias.p) sv += bias.at(bi, head, qpos, kpos);
           p = expf(sv - lse_r[i]);
         }
+        float dpv = dp[i][j];
+        if (DROP)
+          dpv = hash_rng::keep_attn(hseed, (uint32_t)qpos * tk + kpos,
+                                    drop.threshold)
+                    ? dpv * drop.inv_keep : 0.f;
         ds_s[(ty * 4 + i) * AS + tx * 4 + j] =
-            p * (dp[i][j] - delta_r[i]) * scale;
+            p * (dpv - delta_r[i]) * scale;
       }
     }
     __syncthreads();
@@ -226,12 +254,13 @@ flash_bwd_dq_kernel(Rows q, Rows k, Rows v, Bias bias, Rows dout,
 
 // dk and dv of one (64-row k tile, head, batch row), each a [b * tk, ld]
 // matrix.
+template <bool DROP>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_kernel(Rows q, Rows k, Rows v, Bias bias, Rows dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* dk, float* dv,
                      int ld_dkv, int tq, int tk, int h, float scale,
-                     int causal) {
+                     int causal, Dropout drop) {
   extern __shared__ float smem[];
   float* k_s = smem;               // [BT][AS] k
   float* v_s = k_s + kATile;       // [BT][AS] v
@@ -250,6 +279,7 @@ flash_bwd_dkv_kernel(Rows q, Rows k, Rows v, Bias bias, Rows dout,
   const int ty = threadIdx.x / 16;  // key rows 4ty..
   const int tx = threadIdx.x % 16;  // query (or d) columns 4tx..
   const int offset = tk - tq;
+  const uint32_t hseed = block_head_seed<DROP>(drop, bi, h, head);
 
   load_rows(k_s, AS, k, bi, k0, tk, head);
   load_rows(v_s, AS, v, bi, k0, tk, head);
@@ -293,8 +323,17 @@ flash_bwd_dkv_kernel(Rows q, Rows k, Rows v, Bias bias, Rows dout,
           if (bias.p) sv += bias.at(bi, head, qpos, kpos);
           p = expf(sv - lse_s[qc]);
         }
-        pt_s[(ty * 4 + i) * AS + qc] = p;
-        dst_s[(ty * 4 + i) * AS + qc] = p * (dpt[i][j] - delta_s[qc]) * scale;
+        float pv = p, dpv = dpt[i][j];
+        if (DROP) {
+          // dv takes the kept, scaled p; ds the undropped p times the
+          // dropped dp
+          const bool kept = hash_rng::keep_attn(
+              hseed, (uint32_t)qpos * tk + kpos, drop.threshold);
+          pv = kept ? p * drop.inv_keep : 0.f;
+          dpv = kept ? dpv * drop.inv_keep : 0.f;
+        }
+        pt_s[(ty * 4 + i) * AS + qc] = pv;
+        dst_s[(ty * 4 + i) * AS + qc] = p * (dpv - delta_s[qc]) * scale;
       }
     }
     __syncthreads();
@@ -312,6 +351,68 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess) configured = true;
   return err;
+}
+
+template <bool DROP>
+cudaError_t launch_bwd_dq(Rows q, Rows k, Rows v, Bias bias, Rows dout,
+                          const float* lse, const float* delta, float* dq,
+                          int ld_dq, int b, int tq, int tk, int h,
+                          float scale, int causal, Dropout drop,
+                          cudaStream_t stream) {
+  static bool configured = false;
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<DROP>, kDqSmem,
+                               configured);
+  if (err != cudaSuccess) return err;
+  dim3 grid((tq + BT - 1) / BT, h, b);
+  flash_bwd_dq_kernel<DROP><<<grid, NT, kDqSmem, stream>>>(
+      q, k, v, bias, dout, lse, delta, dq, ld_dq, tq, tk, h, scale, causal,
+      drop);
+  return cudaGetLastError();
+}
+
+// The dq walk over a grid of (q tiles, heads, batch rows): the hashing
+// instantiation only when drop.on.
+inline cudaError_t bwd_dq(Rows q, Rows k, Rows v, Bias bias, Rows dout,
+                          const float* lse, const float* delta, float* dq,
+                          int ld_dq, int b, int tq, int tk, int h,
+                          float scale, int causal, Dropout drop,
+                          cudaStream_t stream) {
+  return drop.on
+      ? launch_bwd_dq<true>(q, k, v, bias, dout, lse, delta, dq, ld_dq, b,
+                            tq, tk, h, scale, causal, drop, stream)
+      : launch_bwd_dq<false>(q, k, v, bias, dout, lse, delta, dq, ld_dq, b,
+                             tq, tk, h, scale, causal, drop, stream);
+}
+
+template <bool DROP>
+cudaError_t launch_bwd_dkv(Rows q, Rows k, Rows v, Bias bias, Rows dout,
+                           const float* lse, const float* delta, float* dk,
+                           float* dv, int ld_dkv, int b, int tq, int tk,
+                           int h, float scale, int causal, Dropout drop,
+                           cudaStream_t stream) {
+  static bool configured = false;
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<DROP>, kDkvSmem,
+                               configured);
+  if (err != cudaSuccess) return err;
+  dim3 grid((tk + BT - 1) / BT, h, b);
+  flash_bwd_dkv_kernel<DROP><<<grid, NT, kDkvSmem, stream>>>(
+      q, k, v, bias, dout, lse, delta, dk, dv, ld_dkv, tq, tk, h, scale,
+      causal, drop);
+  return cudaGetLastError();
+}
+
+// The dkv walk over a grid of (k tiles, heads, batch rows).
+inline cudaError_t bwd_dkv(Rows q, Rows k, Rows v, Bias bias, Rows dout,
+                           const float* lse, const float* delta, float* dk,
+                           float* dv, int ld_dkv, int b, int tq, int tk,
+                           int h, float scale, int causal, Dropout drop,
+                           cudaStream_t stream) {
+  return drop.on
+      ? launch_bwd_dkv<true>(q, k, v, bias, dout, lse, delta, dk, dv, ld_dkv,
+                             b, tq, tk, h, scale, causal, drop, stream)
+      : launch_bwd_dkv<false>(q, k, v, bias, dout, lse, delta, dk, dv,
+                              ld_dkv, b, tq, tk, h, scale, causal, drop,
+                              stream);
 }
 
 }  // namespace

@@ -5,35 +5,46 @@
 //
 //   y = sum_h softmax((x Wq_h)(x Wk_h)^T * scale + bias) (x Wv_h) Wout_h
 //
-// without q, k, v or the per-head context ever reaching device memory:
-// each block projects its q tile and, for every key tile it walks, the
-// k and v tiles straight into shared memory, runs the online softmax,
-// and applies its head's slice of the output projection in the epilogue.
+// without q, k or v ever reaching device memory: each block projects its
+// q tile and, for every key tile it walks, the k and v tiles straight into
+// shared memory, runs the online softmax and writes its head's context.
+// One GEMM of gemm.cuh then gives y = ctx W_out.
 //
 // Grid: (ceil(t / 64) query tiles, n_head, batch); 256 threads; every
 // thread owns a 4x4 patch of each 64x64 tile.  The TPU kernel walks all
 // heads inside one grid step and sums y in VMEM; here the heads run in
-// parallel blocks, so their contributions meet in y through f32 atomic
-// adds (y must be zeroed by the caller).  The order of those adds is not
-// fixed, so y varies in its last bits from run to run.
+// parallel blocks, and the GEMM sums over them in a fixed order, so y is
+// the same bits on every run.  (Atomic adds of each head's share into y
+// would vary in the last bits; 12 layers deep, that moves the training
+// step's gradients by up to 2x their distance to float64.)
 //
 // Bound: f32 FMA work (no tensor cores: the run is f32 with TF32 off).
 // Cost accepted by this first kernel: the k/v tiles of a head are
 // projected again by every query tile of that head, t/64 times in all
 // (4 times at t = 256), which the TPU kernel's 512-row tiles avoid.
 //
+// Weights dropout, as in the bthd forward (flash_attention.cu): l sums
+// the undropped p, the p tile multiplying v is dropped by
+// hash_rng::keep_attn at (seed, b * n_head + head, q * t + k), the same
+// bits #4 draws for that element, and ctx is scaled by 1 / (1 - rate).
+// At rate 0 the entry point launches the instantiation that never hashes.
+//
 // Masking follows the TPU kernel: causal and out-of-range keys score
 // -1e30; a query row with l == 0 or max <= -1e29 gets a zero context.
 //
-// Training asks for the residuals the backward kernels (#2, #3 in
-// qkv_attention_bwd.cu) read, as the TPU kernel always returns them: each
-// head's normalized context ctx [b, t, h, 64] and lse [b, h, t] (+inf on
-// a masked row).  Serving passes null for both and writes neither.
+// The context ctx [b, t, h, 64] and lse [b, h, t] (+inf on a masked row)
+// are the residuals the backward kernels (#2, #3 in qkv_attention_bwd.cu)
+// read, as the TPU kernel always returns them; serving passes scratch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm.cuh"
+#include "hash_rng.cuh"
+
 namespace {
+
+using hash_rng::Dropout;
 
 constexpr int BQ = 64;       // query rows per block
 constexpr int BK = 64;       // key rows per walk step
@@ -41,7 +52,7 @@ constexpr int DH = 64;       // head width
 constexpr int KC = 32;       // reduction chunk of the projections
 constexpr int NT = 256;      // threads per block
 constexpr int AS = KC + 1;   // row stride of the activation tile
-constexpr int QS = DH + 1;   // row stride of q / p / ctx tiles
+constexpr int QS = DH + 1;   // row stride of q / p tiles
 constexpr int TS = DH + 4;   // row stride of k^T / v tiles (float4 rows)
 constexpr float kMaskValue = -1e30f;
 
@@ -51,7 +62,7 @@ constexpr int kBOff = kAOff + BQ * AS;         // two w tiles [2][KC][DH]
 constexpr int kQOff = kBOff + 2 * KC * DH;     // q           [BQ][QS]
 constexpr int kKOff = kQOff + BQ * QS;         // k^T         [DH][TS]
 constexpr int kVOff = kKOff + DH * TS;         // v           [BK][TS]
-constexpr int kPOff = kVOff + BK * TS;         // p, then ctx [BQ][QS]
+constexpr int kPOff = kVOff + BK * TS;         // p           [BQ][QS]
 constexpr int kSmemFloats = kPOff + BQ * QS;
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
@@ -83,15 +94,15 @@ __device__ __forceinline__ void load_w_tile(float* b_s, const float* w,
   }
 }
 
+template <bool DROP>
 __global__ void __launch_bounds__(NT)
 qkv_attention_fwd_kernel(const float* __restrict__ x,
                          const float* __restrict__ w_qkv,
-                         const float* __restrict__ w_out,
                          const float* __restrict__ bias,
                          int64_t bs_b, int64_t bs_h, int64_t bs_q,
-                         int64_t bs_k, float* y, float* ctx, float* lse,
+                         int64_t bs_k, float* ctx, float* lse,
                          int t, int dm, int n_head, float scale,
-                         int causal) {
+                         int causal, Dropout drop) {
   extern __shared__ float smem[];
   float* a_s = smem + kAOff;
   float* b_s = smem + kBOff;
@@ -110,6 +121,9 @@ qkv_attention_fwd_kernel(const float* __restrict__ x,
   const int ldw = 3 * hd;
   const int q0 = qt * BQ;
   const float* xb = x + (size_t)bi * t * dm;
+  const uint32_t hseed =
+      DROP ? hash_rng::attn_head_seed(drop.seed, (uint32_t)(bi * n_head + head))
+           : 0u;
 
   // ---- q tile: (x[q0:q0+BQ] @ Wq_h) * scale ---------------------------
   float acc[4][4];
@@ -243,10 +257,16 @@ qkv_attention_fwd_kernel(const float* __restrict__ x,
         rs += __shfl_xor_sync(0xffffffffu, rs, off);
       l[i] = l[i] * alpha + rs;
       m[i] = m_new;
+      const int qpos = q0 + ty * 4 + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         o[i][j] *= alpha;
-        p_s[(ty * 4 + i) * QS + tx * 4 + j] = s[i][j];
+        float pv = s[i][j];
+        if (DROP && !hash_rng::keep_attn(
+                hseed, (uint32_t)qpos * t + k0r + tx * 4 + j,
+                drop.threshold))
+          pv = 0.f;
+        p_s[(ty * 4 + i) * QS + tx * 4 + j] = pv;
       }
     }
     __syncthreads();
@@ -264,94 +284,83 @@ qkv_attention_fwd_kernel(const float* __restrict__ x,
     __syncthreads();
   }
 
-  // ---- context (masked rows give 0), kept in shared memory ------------
+  // ---- context (masked rows give 0) and lse ---------------------------
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const bool masked = (l[i] == 0.f) || (m[i] <= -1e29f);
-    const float inv = masked ? 0.f : 1.f / l[i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      p_s[(ty * 4 + i) * QS + tx * 4 + j] = o[i][j] * inv;
+    const float inv = masked ? 0.f
+                             : (DROP ? drop.inv_keep / l[i] : 1.f / l[i]);
     const int qpos = q0 + ty * 4 + i;
-    if (ctx && qpos < t) {
-      *reinterpret_cast<float4*>(ctx + ((size_t)bi * t + qpos) * hd +
-                                 head * DH + tx * 4) =
-          make_float4(o[i][0] * inv, o[i][1] * inv, o[i][2] * inv,
-                      o[i][3] * inv);
-      if (tx == 0)
-        lse[((size_t)bi * n_head + head) * t + qpos] =
-            masked ? INFINITY : m[i] + logf(l[i]);
-    }
+    if (qpos >= t) continue;
+    *reinterpret_cast<float4*>(ctx + ((size_t)bi * t + qpos) * hd +
+                               head * DH + tx * 4) =
+        make_float4(o[i][0] * inv, o[i][1] * inv, o[i][2] * inv,
+                    o[i][3] * inv);
+    if (tx == 0)
+      lse[((size_t)bi * n_head + head) * t + qpos] =
+          masked ? INFINITY : m[i] + logf(l[i]);
   }
+}
 
-  // ---- output-projection epilogue: y[q0:q0+BQ] += ctx_h @ Wout_h ------
-  float* wo_s = b_s;  // [DH][DH] tile of Wout_h (2*KC*DH == DH*DH floats)
-  for (int c0 = 0; c0 < dm; c0 += DH) {
-    __syncthreads();
-    for (int idx = tid; idx < DH * (DH / 4); idx += NT) {
-      int row = idx / (DH / 4);
-      int c4 = idx % (DH / 4);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (c0 + c4 * 4 < dm)
-        v = *reinterpret_cast<const float4*>(
-            w_out + (size_t)(head * DH + row) * dm + c0 + c4 * 4);
-      *reinterpret_cast<float4*>(wo_s + row * DH + c4 * 4) = v;
-    }
-    __syncthreads();
-    float ya[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ya[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float4 wv = *reinterpret_cast<const float4*>(wo_s + d * DH + tx * 4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float cv = p_s[(ty * 4 + i) * QS + d];
-        ya[i][0] += cv * wv.x; ya[i][1] += cv * wv.y;
-        ya[i][2] += cv * wv.z; ya[i][3] += cv * wv.w;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      if (qpos >= t) continue;
-      float* yrow = y + ((size_t)bi * t + qpos) * dm + c0 + tx * 4;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (c0 + tx * 4 + j < dm) atomicAdd(yrow + j, ya[i][j]);
-    }
+template <bool DROP>
+cudaError_t launch_fwd(const float* x, const float* w_qkv, const float* w_out,
+                       const float* bias, int64_t bs_b, int64_t bs_h,
+                       int64_t bs_q, int64_t bs_k, float* y, float* ctx,
+                       float* lse, float* partials, int b, int t, int dm,
+                       int n_head, float scale, int causal, Dropout drop,
+                       cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        qkv_attention_fwd_kernel<DROP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
   }
+  dim3 grid((t + BQ - 1) / BQ, n_head, b);
+  qkv_attention_fwd_kernel<DROP><<<grid, NT, kSmemBytes, stream>>>(
+      x, w_qkv, bias, bs_b, bs_h, bs_q, bs_k, ctx, lse, t, dm, n_head,
+      scale, causal, drop);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int hd = n_head * DH;  // y [b*t, dm] = ctx [b*t, hd] W_out [hd, dm]
+  return gemm({ctx, hd, false}, {w_out, dm, true}, y, dm, b * t, dm, hd,
+              true, partials, stream);
 }
 
 }  // namespace
 
-// y [b, t, dm] must be zero on entry.  bias may be null; otherwise its
-// element (b, h, q, k) lies at b*bs_b + h*bs_h + q*bs_q + k*bs_k.  ctx
-// [b, t, h, 64] and lse [b, h, t] are both null (serving) or both given.
-// Requires d_head == 64 and dm % 32 == 0 (checked by the caller).
+// Floats of the `partials` buffer ptt_qkv_attention_fwd needs at this
+// shape (0: pass null).
+extern "C" int64_t ptt_qkv_fwd_scratch(int b, int t, int dm, int n_head) {
+  return gemm_partials(b * t, dm, n_head * DH);
+}
+
+// bias may be null; otherwise its element (b, h, q, k) lies at
+// b*bs_b + h*bs_h + q*bs_q + k*bs_k.  Writes ctx [b, t, h, 64], lse
+// [b, h, t] and y [b, t, dm]; partials holds ptt_qkv_fwd_scratch floats.
+// Requires d_head == 64 and dm % 32 == 0 (checked by the caller).  rate 0
+// runs without dropout; otherwise weights are kept where the hash of
+// (seed, b*n_head + head, q*t + k) >= threshold (t*t <= 2^32, checked by
+// the caller).
 extern "C" int ptt_qkv_attention_fwd(const float* x, const float* w_qkv,
                                      const float* w_out, const float* bias,
                                      int64_t bs_b, int64_t bs_h,
                                      int64_t bs_q, int64_t bs_k, float* y,
-                                     float* ctx, float* lse, int b, int t,
-                                     int dm, int n_head, float scale,
-                                     int causal, void* stream) {
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        qkv_attention_fwd_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
-  dim3 grid((t + BQ - 1) / BQ, n_head, b);
-  qkv_attention_fwd_kernel<<<grid, NT, kSmemBytes,
-                             static_cast<cudaStream_t>(stream)>>>(
-      x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, y, ctx, lse, t, dm,
-      n_head, scale, causal);
-  return (int)cudaGetLastError();
+                                     float* ctx, float* lse, float* partials,
+                                     int b, int t, int dm, int n_head,
+                                     float scale, int causal, double rate,
+                                     unsigned seed, unsigned threshold,
+                                     void* stream) {
+  const Dropout drop = hash_rng::make_dropout(rate, seed, threshold);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(drop.on
+      ? launch_fwd<true>(x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, y,
+                         ctx, lse, partials, b, t, dm, n_head, scale, causal,
+                         drop, st)
+      : launch_fwd<false>(x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, y,
+                          ctx, lse, partials, b, t, dm, n_head, scale,
+                          causal, drop, st));
 }
 
 extern "C" const char* ptt_error_string(int err) {

@@ -17,7 +17,8 @@
 // walk over all heads and carry dW across grid steps in VMEM.  On the card
 // each is three stages, every one a kernel of this file, on PyTorch's
 // stream:
-//   1. gemm_kernel: q|k|v = x w_qkv and dctx = g w_out^T into scratch.
+//   1. gemm_kernel (gemm.cuh, shared with #1's residual mode): q|k|v =
+//      x w_qkv and dctx = g w_out^T into scratch.
 //      The projections run once per call on 128x128 tiles, where a walk
 //      that recomputed them would redo k/v (or q/dctx) for every 64-row
 //      tile of the other side: t/64 times the work (4x at t = 256).
@@ -38,6 +39,10 @@
 // for 4 loads); the walks are #6's and #7's.  No tensor cores, no TMA, no
 // load pipelining: later work.
 //
+// Weights dropout: the walks of flash_walk.cuh regenerate #1's mask (the
+// same hash of (seed, b * h + head, q * t + k)) from the seed, with delta
+// from #1's dropped ctx.
+//
 // Masking follows #1: causal and out-of-range keys score nothing; a row
 // whose lse is +inf (masked in the forward) gets p = 0, so zero gradients;
 // rows past t in a ragged tile load as zeros.
@@ -49,168 +54,9 @@
 #include <algorithm>
 
 #include "flash_walk.cuh"
+#include "gemm.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// stage 1 and 3: C = A B, f32, 128x128 block tiles
-// ---------------------------------------------------------------------------
-
-constexpr int GT = 128;      // rows and columns of a C tile
-constexpr int GK = 16;       // reduction depth staged per step
-constexpr int GS = GT + 4;   // row stride of the k-major shared tiles
-
-// dst[kk * GS + ii] = operand element (i0 + ii, k0 + kk), zero outside
-// [0, n_i) x [k0, k_end).  An operand is k-major when element (i, k) is
-// src[k * ld + i] (consecutive threads then read consecutive i), else
-// i-major, src[i * ld + k].
-template <bool KMAJOR>
-__device__ __forceinline__ void gemm_stage(float* dst, const float* src,
-                                           int ld, int i0, int n_i, int k0,
-                                           int k_end) {
-  for (int idx = threadIdx.x; idx < GK * GT; idx += NT) {
-    const int kk = KMAJOR ? idx / GT : idx % GK;
-    const int ii = KMAJOR ? idx % GT : idx / GK;
-    const int i = i0 + ii;
-    const int k = k0 + kk;
-    float v = 0.f;
-    if (i < n_i && k < k_end)
-      v = KMAJOR ? src[(size_t)k * ld + i] : src[(size_t)i * ld + k];
-    dst[kk * GS + ii] = v;
-  }
-}
-
-// C[m, n] = sum_k A(m, k) B(k, n) over k in split blockIdx.z's slab
-// [z * k_slab, (z + 1) * k_slab), written to c + z * split_stride.
-// A(m, k) is a[k * lda + m] when A_KM, else a[m * lda + k]; B(k, n) is
-// b[k * ldb + n] when B_KM, else b[n * ldb + k].  Each thread owns rows
-// {4ty.., 64 + 4ty..} and columns {4tx.., 64 + 4tx..} of the tile and
-// sums its slab in increasing k.
-template <bool A_KM, bool B_KM>
-__global__ void __launch_bounds__(NT, 2)
-gemm_kernel(const float* __restrict__ a, int lda,
-            const float* __restrict__ b, int ldb, float* c, int ldc,
-            size_t split_stride, int M, int N, int K, int k_slab) {
-  __shared__ __align__(16) float a_s[GK * GS];
-  __shared__ __align__(16) float b_s[GK * GS];
-  const int n0 = blockIdx.x * GT;
-  const int m0 = blockIdx.y * GT;
-  const int k_begin = blockIdx.z * k_slab;
-  const int k_end = min(K, k_begin + k_slab);
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += GK) {
-    __syncthreads();  // the last step's tiles are consumed
-    gemm_stage<A_KM>(a_s, a, lda, m0, M, k0, k_end);
-    gemm_stage<B_KM>(b_s, b, ldb, n0, N, k0, k_end);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(a_s + kk * GS +
-                                                         ty * 4);
-      const float4 a1 = *reinterpret_cast<const float4*>(a_s + kk * GS + 64 +
-                                                         ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(b_s + kk * GS +
-                                                         tx * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(b_s + kk * GS + 64 +
-                                                         tx * 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] += av[i] * bv[j];
-    }
-  }
-
-  c += blockIdx.z * split_stride;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (n < N) c[(size_t)m * ldc + n] = acc[i][j];
-    }
-  }
-}
-
-// c[m * ldc + n] = sum over s = 0, 1, ... of part[s][m][n], in that order.
-__global__ void __launch_bounds__(NT)
-sum_splits(const float* __restrict__ part, int splits, int M, int N,
-           float* c, int ldc) {
-  const size_t mn = (size_t)M * N;
-  for (size_t i = blockIdx.x * (size_t)NT + threadIdx.x; i < mn;
-       i += (size_t)gridDim.x * NT) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += part[z * mn + i];
-    c[(i / N) * ldc + i % N] = s;
-  }
-}
-
-// One GEMM operand: element (i, k) at p[k * ld + i] when kmajor, else at
-// p[i * ld + k].
-struct Operand {
-  const float* p;
-  int ld;
-  bool kmajor;
-};
-
-// Split-K only where the C tiles alone would not fill the card's 132 SMs:
-// then enough slabs for two blocks per SM, each at least 256 deep.
-int gemm_splits(int M, int N, int K, int* k_slab) {
-  const int tiles = ((M + GT - 1) / GT) * ((N + GT - 1) / GT);
-  int splits = tiles >= 132 ? 1 : (264 + tiles - 1) / tiles;
-  splits = std::max(1, std::min(splits, K / 256));
-  int slab = (K + splits - 1) / splits;
-  slab = (slab + GK - 1) / GK * GK;
-  *k_slab = slab;
-  return (K + slab - 1) / slab;
-}
-
-// Floats of partial sums a split GEMM of this shape needs (0 unsplit).
-int64_t gemm_partials(int M, int N, int K) {
-  int slab;
-  const int splits = gemm_splits(M, N, K, &slab);
-  return splits > 1 ? (int64_t)splits * M * N : 0;
-}
-
-// C [M, N] (row stride ldc) = A B.  With split, a K too deep for the C
-// tiles to fill the card is cut into slabs whose partial sums go to
-// `partials` (gemm_partials floats) and are added in order.
-cudaError_t gemm(Operand A, Operand B, float* c, int ldc, int M, int N,
-                 int K, bool split, float* partials, cudaStream_t stream) {
-  int slab = K;
-  const int splits = split ? gemm_splits(M, N, K, &slab) : 1;
-  float* out = splits > 1 ? partials : c;
-  const int ld_out = splits > 1 ? N : ldc;
-  const size_t stride = (size_t)M * N;
-  dim3 grid((N + GT - 1) / GT, (M + GT - 1) / GT, splits);
-  if (A.kmajor && B.kmajor)
-    gemm_kernel<true, true><<<grid, NT, 0, stream>>>(
-        A.p, A.ld, B.p, B.ld, out, ld_out, stride, M, N, K, slab);
-  else if (!A.kmajor && B.kmajor)
-    gemm_kernel<false, true><<<grid, NT, 0, stream>>>(
-        A.p, A.ld, B.p, B.ld, out, ld_out, stride, M, N, K, slab);
-  else if (!A.kmajor && !B.kmajor)
-    gemm_kernel<false, false><<<grid, NT, 0, stream>>>(
-        A.p, A.ld, B.p, B.ld, out, ld_out, stride, M, N, K, slab);
-  else
-    return cudaErrorInvalidValue;  // no caller takes A k-major, B not
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const int blocks = (int)std::min<size_t>((stride + NT - 1) / NT, 4 * 132);
-  sum_splits<<<blocks, NT, 0, stream>>>(partials, splits, M, N, c, ldc);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // stage 2: delta, then the walks of flash_walk.cuh
@@ -307,7 +153,8 @@ extern "C" int64_t ptt_qkv_bwd_scratch(int which, int b, int t, int dm,
 // [b, t, h, 64]; lse [b, h, t]; dw_q [dm, hd]; dw_out [hd, dm]; all
 // contiguous f32, hd = 64 * n_head.  bias may be null; otherwise its
 // element (b, h, q, k) lies at b*bs_b + h*bs_h + q*bs_q + k*bs_k.
-// scratch holds ptt_qkv_bwd_scratch(0, ...) floats.
+// scratch holds ptt_qkv_bwd_scratch(0, ...) floats.  rate, seed and
+// threshold are #1's.
 extern "C" int ptt_qkv_bwd_dq(const float* x, const float* w_qkv,
                               const float* w_out, const float* bias,
                               int64_t bs_b, int64_t bs_h, int64_t bs_q,
@@ -315,23 +162,20 @@ extern "C" int ptt_qkv_bwd_dq(const float* x, const float* w_qkv,
                               const float* lse, float* scratch, float* dx,
                               float* dw_q, float* dw_out, int b, int t,
                               int dm, int n_head, float scale, int causal,
-                              void* stream_ptr) {
-  static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel, kDqSmem, configured);
-  if (err != cudaSuccess) return (int)err;
+                              double rate, unsigned seed,
+                              unsigned threshold, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int hd = n_head * DH;
   const int bt = b * t;
   Scratch s;
   scratch_floats(0, b, t, dm, hd, &s, scratch);
-  err = project(x, w_qkv, w_out, g, ctx, s, b, t, dm, n_head, stream);
+  cudaError_t err =
+      project(x, w_qkv, w_out, g, ctx, s, b, t, dm, n_head, stream);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((t + BT - 1) / BT, n_head, b);
-  flash_bwd_dq_kernel<<<grid, NT, kDqSmem, stream>>>(
-      q_rows(s, hd), k_rows(s, hd), v_rows(s, hd),
-      Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows{s.dctx, hd}, lse, s.delta,
-      s.walk, hd, t, t, n_head, scale, causal);
-  err = cudaGetLastError();
+  err = bwd_dq(q_rows(s, hd), k_rows(s, hd), v_rows(s, hd),
+               Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows{s.dctx, hd}, lse,
+               s.delta, s.walk, hd, b, t, t, n_head, scale, causal,
+               hash_rng::make_dropout(rate, seed, threshold), stream);
   if (err != cudaSuccess) return (int)err;
   // dx_q = dq Wq^T; dW_q = x^T dq; dW_out = ctx^T g
   err = gemm({s.walk, hd, false}, {w_qkv, 3 * hd, false}, dx, dm, bt, dm,
@@ -353,23 +197,21 @@ extern "C" int ptt_qkv_bwd_dkv(const float* x, const float* w_qkv,
                                const float* ctx, const float* lse,
                                float* scratch, float* dx, float* dw_kv,
                                int b, int t, int dm, int n_head, float scale,
-                               int causal, void* stream_ptr) {
-  static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel, kDkvSmem, configured);
-  if (err != cudaSuccess) return (int)err;
+                               int causal, double rate, unsigned seed,
+                               unsigned threshold, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int hd = n_head * DH;
   const int bt = b * t;
   Scratch s;
   scratch_floats(1, b, t, dm, hd, &s, scratch);
-  err = project(x, w_qkv, w_out, g, ctx, s, b, t, dm, n_head, stream);
+  cudaError_t err =
+      project(x, w_qkv, w_out, g, ctx, s, b, t, dm, n_head, stream);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((t + BT - 1) / BT, n_head, b);
-  flash_bwd_dkv_kernel<<<grid, NT, kDkvSmem, stream>>>(
-      q_rows(s, hd), k_rows(s, hd), v_rows(s, hd),
-      Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows{s.dctx, hd}, lse, s.delta,
-      s.walk, s.walk + hd, 2 * hd, t, t, n_head, scale, causal);
-  err = cudaGetLastError();
+  err = bwd_dkv(q_rows(s, hd), k_rows(s, hd), v_rows(s, hd),
+                Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows{s.dctx, hd}, lse,
+                s.delta, s.walk, s.walk + hd, 2 * hd, b, t, t, n_head, scale,
+                causal, hash_rng::make_dropout(rate, seed, threshold),
+                stream);
   if (err != cudaSuccess) return (int)err;
   // dx_kv = [dk | dv] [Wk | Wv]^T; [dW_k | dW_v] = x^T [dk | dv]
   err = gemm({s.walk, 2 * hd, false}, {w_qkv + hd, 3 * hd, false}, dx, dm,

@@ -12,12 +12,16 @@ the weights; :func:`load_paddle_tpu_adam_state` and
 :class:`~paddle_tpu_torch.optimizer.Adam` state under the names the
 reference's optimizer gives its accumulators, ``<param>_moment1_0`` and
 the like (``paddle_tpu/optimizer.py`` ``_add_accumulator``).
+:func:`dropout_seeds` turns a reference step's key and its program's
+dropout ``rng_id``s into the seeds of ``Transformer.forward``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .kernels.hash_rng import seed_from_key_data
 
 
 def paddle_tpu_param_names(n_layer: int):
@@ -133,3 +137,18 @@ def export_paddle_tpu_adam_state(optimizer, model):
     state, under the names :func:`load_paddle_tpu_adam_state` reads."""
     return {name: t.detach().cpu().numpy().copy()
             for name, t in _adam_pairs(optimizer, model)}
+
+
+def dropout_seeds(key_data, rng_ids):
+    """The uint32 seeds of one training step of a reference program: one
+    per dropout site, ``seed_from_key(base_key, rng_id)`` as the reference
+    derives it (``ops/nn_ops.py`` ``_dropout_keep_mask``,
+    ``lower_dropout_add``; ``ops/fused_ops.py`` ``_attn_dropout_seed``).
+
+    key_data: the uint32 data of the step's base key
+    (``jax.random.key_data(fold_in(prng_key(program.random_seed),
+    run_id))``, as a numpy array).  rng_ids: the ``rng_id`` attributes of
+    the program's ``dropout``, ``dropout_add``, ``fused_attention`` and
+    ``fused_qkv_attention`` ops in op order, which for ``transformer()``
+    is the order of ``Transformer.dropout_sites()``.  Numpy only."""
+    return [seed_from_key_data(key_data, r or 1) for r in rng_ids]

@@ -110,17 +110,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
+_D = ctypes.c_double
+_U = ctypes.c_uint32
+#: a dropout site's (rate, seed, threshold) after the other arguments
+_DROP = [_D, _U, _U]
 
 #: C signature of every entry point: (restype, argtypes)
 _SIGNATURES = {
     "ptt_error_string": (ctypes.c_char_p, [_I]),
+    "ptt_qkv_fwd_scratch": (_L, [_I] * 4),
     "ptt_qkv_attention_fwd": (
-        _I, [_P] * 4 + [_L] * 4 + [_P] * 3 + [_I] * 4 + [_F, _I, _P]),
+        _I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 4 + [_F, _I] + _DROP
+        + [_P]),
     "ptt_qkv_bwd_scratch": (_L, [_I] * 5),
     "ptt_qkv_bwd_dq": (_I, [_P] * 4 + [_L] * 4 + [_P] * 7 + [_I] * 4
-                       + [_F, _I, _P]),
+                       + [_F, _I] + _DROP + [_P]),
     "ptt_qkv_bwd_dkv": (_I, [_P] * 4 + [_L] * 4 + [_P] * 6 + [_I] * 4
-                        + [_F, _I, _P]),
+                        + [_F, _I] + _DROP + [_P]),
     "ptt_megastep": (
         _I, [_P] * 18 + [_I] * 6 + [_F, _F, _P]),
     "ptt_megastep_paged": (
@@ -131,11 +137,13 @@ _SIGNATURES = {
     "ptt_ffn_tiles": (_I, [_I]),
     "ptt_ffn": (_I, [_P] * 10 + [_I, _I, _I, _F, _P]),
     "ptt_flash_fwd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 2 + [_I] * 4
-                      + [_F, _I, _P]),
+                      + [_F, _I] + _DROP + [_P]),
     "ptt_flash_bwd_dq": (_I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 4
-                         + [_F, _I, _P]),
+                         + [_F, _I] + _DROP + [_P]),
     "ptt_flash_bwd_dkv": (_I, [_P] * 4 + [_L] * 4 + [_P] * 5 + [_I] * 4
-                          + [_F, _I, _P]),
+                          + [_F, _I] + _DROP + [_P]),
+    "ptt_dropout_add": (_I, [_P] * 3 + [_L] + _DROP + [_P]),
+    "ptt_dropout_add_bwd": (_I, [_P] * 2 + [_L] + _DROP + [_P]),
 }
 
 

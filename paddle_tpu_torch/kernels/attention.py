@@ -11,7 +11,7 @@ Counterparts of ``paddle_tpu/kernels/attention.py``:
   dW_out) and :func:`qkv_bwd_dkv` (``_qkv_bwd_dkv_kernel``, #3: dx_kv,
   dW_k, dW_v).  Their plain versions are :func:`reference_qkv_fwd`,
   :func:`reference_qkv_bwd_dq` and :func:`reference_qkv_bwd_dkv`; under
-  ``torch.no_grad()`` (serving) #1 runs without residuals.
+  ``torch.no_grad()`` (serving) #1's residuals are dropped.
 * :func:`flash_attention` with ``fmt="bthd"``: q, k, v [b, t, h, d] with
   an additive bias, differentiable through a ``torch.autograd.Function``
   whose passes are three kernels of ``csrc/flash_attention.cu``:
@@ -21,14 +21,19 @@ Counterparts of ``paddle_tpu/kernels/attention.py``:
   :func:`reference_flash_fwd`, :func:`reference_flash_bwd_dq` and
   :func:`reference_flash_bwd_dkv`.
 
-Dropout inside the attention kernels belongs to a later slice.
+Both take the reference's weights dropout: with ``dropout_rate`` > 0 and a
+site's uint32 ``dropout_seed``, the kernels drop the softmax weights that
+multiply v (the normalizer sums the undropped ones) and scale the context
+by 1 / (1 - rate), keyed on (seed, b * h + head, q * tk + k) as
+``hash_rng.keep_mask_attn`` is, so both routes draw the reference's mask
+for the same seed.  The backward kernels regenerate it; no mask is stored.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build, launches
+from . import _build, hash_rng, launches
 
 #: score given to causally hidden keys (the reference kernel's value)
 MASK_VALUE = -1e30
@@ -56,6 +61,21 @@ def _bias_view(bias, b, n_head, tq, tk, what):
     return _bias_4d(bias, b, n_head, tq, tk, what).expand(b, n_head, tq, tk)
 
 
+def _dropout_args(rate, seed, tq, tk, what):
+    """(rate, seed, keep threshold) as the kernels take them, (0, 0, 0)
+    without dropout.  Raises where the in-plane index q * tk + k would
+    wrap its uint32 (tq * tk > 2^32), as the reference does."""
+    if not rate:
+        return 0.0, 0, 0
+    if seed is None:
+        raise ValueError(f"{what}: dropout_rate > 0 needs dropout_seed")
+    if tq * tk > 2 ** 32:
+        raise ValueError(
+            f"{what}: weights-dropout mask plane Tq*Tk = {tq}*{tk} > 2^32 "
+            "would wrap the uint32 hash index and correlate mask bits")
+    return float(rate), int(seed) & 0xFFFFFFFF, hash_rng.keep_threshold(rate)
+
+
 def _bias_strides(bias, device, what):
     """(the bias's four strides, its data pointer) for a kernel; zeros and
     None without a bias."""
@@ -81,24 +101,27 @@ def _project(x, w_qkv, n_head):
 
 
 def reference_qkv_fwd(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
-                      causal=False):
+                      causal=False, dropout_rate=0.0, dropout_seed=0):
     """Plain twin of #1 with its residuals: (y [b, t, dm], ctx [b, t, h,
     dh], lse [b, h, t]) where ctx is each head's normalized context,
-    ``softmax((x Wq)(x Wk)^T * scale + bias) (x Wv)``, and y = ctx @ w_out
-    over the merged heads.  A row whose scores are all masked (max <=
-    -1e29) gets a zero context and lse = +inf, as in the kernel."""
+    ``softmax((x Wq)(x Wk)^T * scale + bias) (x Wv)`` (its weights dropped
+    as :func:`reference_flash_fwd` drops them), and y = ctx @ w_out over
+    the merged heads.  A row whose scores are all masked (max <= -1e29)
+    gets a zero context and lse = +inf, as in the kernel."""
     b, t, _ = x.shape
     q, k, v = _project(x, w_qkv, n_head)
-    ctx, lse = reference_flash_fwd(q, k, v, bias, scale, causal)
+    ctx, lse = reference_flash_fwd(q, k, v, bias, scale, causal,
+                                   dropout_rate, dropout_seed)
     return (ctx.reshape(b, t, -1) @ w_out).to(x.dtype), ctx, lse
 
 
 def reference_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1,
-                            scale=1.0, causal=False):
+                            scale=1.0, causal=False, dropout_rate=0.0,
+                            dropout_seed=0):
     """y of :func:`reference_qkv_fwd`: the math of the reference's
     ``_composed_qkv``."""
-    return reference_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale,
-                             causal)[0]
+    return reference_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
+                             dropout_rate, dropout_seed)[0]
 
 
 def _qkv_recompute(x, w_qkv, w_out, g, ctx, n_head):
@@ -117,7 +140,8 @@ def _rows(a):
 
 
 def reference_qkv_bwd_dq(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1,
-                         scale=1.0, causal=False):
+                         scale=1.0, causal=False, dropout_rate=0.0,
+                         dropout_seed=0):
     """Plain twin of #2: (dx_q [b, t, dm], dW_q [dm, hd], dW_out [hd, dm])
     from g = dL/dy and #1's residuals: dq = ds k as the bthd twin of #6
     computes it over the recomputed q, k, v and dctx, then dx_q = dq
@@ -125,21 +149,24 @@ def reference_qkv_bwd_dq(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1,
     hd = w_qkv.shape[1] // 3
     q, k, v, dctx, delta = _qkv_recompute(x, w_qkv, w_out, g, ctx, n_head)
     dq = _rows(reference_flash_bwd_dq(q, k, v, bias, dctx, lse, delta,
-                                      scale, causal))
+                                      scale, causal, dropout_rate,
+                                      dropout_seed))
     dx = (dq @ w_qkv[:, :hd].transpose(0, 1)).reshape(x.shape)
     return (dx, _rows(x).transpose(0, 1) @ dq,
             _rows(ctx).transpose(0, 1) @ _rows(g))
 
 
 def reference_qkv_bwd_dkv(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1,
-                          scale=1.0, causal=False):
+                          scale=1.0, causal=False, dropout_rate=0.0,
+                          dropout_seed=0):
     """Plain twin of #3: (dx_kv [b, t, dm], dW_k, dW_v [dm, hd]) with dk =
     ds^T q and dv = p^T dctx as the twin of #7 computes them, dx_kv = dk
     Wk^T + dv Wv^T, dW_k = x^T dk and dW_v = x^T dv."""
     hd = w_qkv.shape[1] // 3
     q, k, v, dctx, delta = _qkv_recompute(x, w_qkv, w_out, g, ctx, n_head)
     dk, dv = (_rows(a) for a in reference_flash_bwd_dkv(
-        q, k, v, bias, dctx, lse, delta, scale, causal))
+        q, k, v, bias, dctx, lse, delta, scale, causal, dropout_rate,
+        dropout_seed))
     dx = (dk @ w_qkv[:, hd:2 * hd].transpose(0, 1)
           + dv @ w_qkv[:, 2 * hd:].transpose(0, 1)).reshape(x.shape)
     xt = _rows(x).transpose(0, 1)
@@ -173,47 +200,50 @@ def _qkv_args(what, x, w_qkv, w_out, bias, n_head, **more):
 
 
 def _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
-                    residuals):
-    """Launch #1: y, or (y, ctx, lse) with ``residuals``."""
+                    dropout_rate, dropout_seed):
+    """Launch #1: (y, ctx, lse)."""
     b, t, dm, hd, strides, bias_ptr = _qkv_args(
         "qkv_attention_fwd", x, w_qkv, w_out, bias, n_head)
-    y = torch.zeros_like(x)  # the kernel accumulates heads into y
-    ctx = lse = None
-    if residuals:
-        ctx = torch.empty((b, t, n_head, hd // n_head), dtype=x.dtype,
-                          device=x.device)
-        lse = torch.empty((b, n_head, t), dtype=torch.float32,
-                          device=x.device)
-    err = _build.lib().ptt_qkv_attention_fwd(
+    drop = _dropout_args(dropout_rate, dropout_seed, t, t,
+                         "qkv_attention_fwd")
+    lib = _build.lib()
+    y = torch.empty_like(x)
+    ctx = torch.empty((b, t, n_head, hd // n_head), dtype=x.dtype,
+                      device=x.device)
+    lse = torch.empty((b, n_head, t), dtype=torch.float32, device=x.device)
+    partials = torch.empty(lib.ptt_qkv_fwd_scratch(b, t, dm, n_head),
+                           dtype=torch.float32, device=x.device)
+    err = lib.ptt_qkv_attention_fwd(
         x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), bias_ptr,
-        *strides, y.data_ptr(), ctx.data_ptr() if residuals else None,
-        lse.data_ptr() if residuals else None, b, t, dm, n_head,
-        float(scale), int(bool(causal)), _build.stream_of(x))
+        *strides, y.data_ptr(), ctx.data_ptr(), lse.data_ptr(),
+        partials.data_ptr(), b, t, dm, n_head, float(scale),
+        int(bool(causal)), *drop, _build.stream_of(x))
     _build.check(err, "qkv_attention_fwd")
     launches["qkv_attention_fwd"] += 1
-    return (y, ctx, lse) if residuals else y
+    return y, ctx, lse
 
 
 def qkv_attention_fwd(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
-                      causal=False):
+                      causal=False, dropout_rate=0.0, dropout_seed=0):
     """#1 with residuals: (y, ctx, lse) as :func:`reference_qkv_fwd`
     computes them.  CPU tensors take the plain twin; CUDA tensors launch
     the kernel or raise."""
     if x.device.type == "cpu":
         return reference_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale,
-                                 causal)
+                                 causal, dropout_rate, dropout_seed)
     return _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
-                           residuals=True)
+                           dropout_rate, dropout_seed)
 
 
 def _launch_qkv_bwd(which, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
-                    scale, causal):
+                    scale, causal, dropout_rate, dropout_seed):
     """Launch #2 (which 0), returning (dx_q, dW_q, dW_out), or #3 (which
     1), returning (dx_kv, dW_k, dW_v) as views of the kernel's one
     [dm, 2hd] dW_k | dW_v buffer."""
     what = ("qkv_bwd_dq", "qkv_bwd_dkv")[which]
     b, t, dm, hd, strides, bias_ptr = _qkv_args(
         what, x, w_qkv, w_out, bias, n_head, g=g, ctx=ctx, lse=lse)
+    drop = _dropout_args(dropout_rate, dropout_seed, t, t, what)
     lib = _build.lib()
     scratch = torch.empty(lib.ptt_qkv_bwd_scratch(which, b, t, dm, n_head),
                           dtype=torch.float32, device=x.device)
@@ -227,32 +257,34 @@ def _launch_qkv_bwd(which, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
     err = entry(x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), bias_ptr,
                 *strides, g.data_ptr(), ctx.data_ptr(), lse.data_ptr(),
                 scratch.data_ptr(), *outs, b, t, dm, n_head, float(scale),
-                int(bool(causal)), _build.stream_of(x))
+                int(bool(causal)), *drop, _build.stream_of(x))
     _build.check(err, what)
     launches[what] += 1
     return (dx, dw, dw_out) if not which else (dx, dw[:, :hd], dw[:, hd:])
 
 
 def qkv_bwd_dq(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1, scale=1.0,
-               causal=False):
+               causal=False, dropout_rate=0.0, dropout_seed=0):
     """#2: (dx_q, dW_q, dW_out) as :func:`reference_qkv_bwd_dq` computes
     them (CPU: the twin; CUDA: the kernel or an error)."""
     if x.device.type == "cpu":
         return reference_qkv_bwd_dq(x, w_qkv, w_out, bias, g, ctx, lse,
-                                    n_head, scale, causal)
+                                    n_head, scale, causal, dropout_rate,
+                                    dropout_seed)
     return _launch_qkv_bwd(0, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
-                           scale, causal)
+                           scale, causal, dropout_rate, dropout_seed)
 
 
 def qkv_bwd_dkv(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1, scale=1.0,
-                causal=False):
+                causal=False, dropout_rate=0.0, dropout_seed=0):
     """#3: (dx_kv, dW_k, dW_v) as :func:`reference_qkv_bwd_dkv` computes
     them (CPU: the twin; CUDA: the kernel or an error)."""
     if x.device.type == "cpu":
         return reference_qkv_bwd_dkv(x, w_qkv, w_out, bias, g, ctx, lse,
-                                     n_head, scale, causal)
+                                     n_head, scale, causal, dropout_rate,
+                                     dropout_seed)
     return _launch_qkv_bwd(1, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
-                           scale, causal)
+                           scale, causal, dropout_rate, dropout_seed)
 
 
 class _FlashQKVAttention(torch.autograd.Function):
@@ -261,37 +293,42 @@ class _FlashQKVAttention(torch.autograd.Function):
     #2 and #3, sums dx = dx_q + dx_kv and packs dW_qkv = [dW_q | dW_k |
     dW_v] (the reference's ``_unpack_dw_qkv``, outside its kernels too).
     A bias that requires grad gets a plain recompute of ds reduced to its
-    shape (the reference's ``_dbias_xla``); attention masks do not, and
-    get None."""
+    shape (the reference's ``_dbias_xla``, under the same dropout mask);
+    attention masks do not, and get None.  Under dropout only the rate and
+    the seed are saved beside the tensors: the backward kernels regenerate
+    the mask."""
 
     @staticmethod
-    def forward(fn, x, w_qkv, w_out, bias, n_head, scale, causal):
+    def forward(fn, x, w_qkv, w_out, bias, n_head, scale, causal, rate,
+                seed):
         y, ctx, lse = qkv_attention_fwd(x, w_qkv, w_out, bias, n_head,
-                                        scale, causal)
+                                        scale, causal, rate, seed)
         fn.save_for_backward(x, w_qkv, w_out, bias, ctx, lse)
-        fn.n_head, fn.scale, fn.causal = n_head, scale, causal
+        fn.kw = dict(n_head=n_head, scale=scale, causal=causal,
+                     dropout_rate=rate, dropout_seed=seed)
         return y
 
     @staticmethod
     def backward(fn, g):
         x, w_qkv, w_out, bias, ctx, lse = fn.saved_tensors
-        kw = dict(n_head=fn.n_head, scale=fn.scale, causal=fn.causal)
+        kw = fn.kw
         args = (x, w_qkv, w_out, bias, g.contiguous(), ctx, lse)
         dx_q, dw_q, dw_out = qkv_bwd_dq(*args, **kw)
         dx_kv, dw_k, dw_v = qkv_bwd_dkv(*args, **kw)
         dbias = None
         if fn.needs_input_grad[3]:
             q, k, v, dctx, delta = _qkv_recompute(
-                x, w_qkv, w_out, args[4], ctx, fn.n_head)
-            _, ds = _dscores(q, k, v, bias, dctx, lse, delta, fn.scale,
-                             fn.causal)
+                x, w_qkv, w_out, args[4], ctx, kw["n_head"])
+            _, ds = _dscores(q, k, v, bias, dctx, lse, delta, kw["scale"],
+                             kw["causal"], kw["dropout_rate"],
+                             kw["dropout_seed"])
             dbias = _reduce_to(ds, bias.shape).to(bias.dtype)
         return (dx_q + dx_kv, torch.cat([dw_q, dw_k, dw_v], dim=1), dw_out,
-                dbias, None, None, None)
+                dbias, None, None, None, None, None)
 
 
 def flash_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
-                        causal=False, dropout_rate=0.0):
+                        causal=False, dropout_rate=0.0, dropout_seed=None):
     """Self-attention with the q/k/v and output projections fused in.
 
     x [b, t, d_model] f32; w_qkv [d_model, 3*h*dh] packed q|k|v, head-major
@@ -304,13 +341,14 @@ def flash_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
     the bias when it requires grad); otherwise #1 alone, as serving runs
     it under ``torch.no_grad()``.  CPU tensors take the plain twins; CUDA
     tensors launch the kernels, which take dh == 64 and d_model % 32 == 0
-    and raise on anything else.
+    and raise on anything else.  ``dropout_rate`` > 0 drops the attention
+    weights inside the kernels under the site's uint32 ``dropout_seed``
+    (the mask of :func:`flash_attention` for the same seed); the caller
+    passes 0 at inference.
     """
-    if dropout_rate:
-        raise NotImplementedError(
-            "flash_qkv_attention: in-kernel dropout belongs to the dropout "
-            "slice of the port, which is not done yet")
     b, t, _ = x.shape
+    rate, seed = _dropout_args(dropout_rate, dropout_seed, t, t,
+                               "flash_qkv_attention")[:2]
     if w_qkv.shape[1] % (3 * n_head):
         raise ValueError(
             f"flash_qkv_attention: packed dim {w_qkv.shape[1]} not "
@@ -322,12 +360,12 @@ def flash_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
             for a in (x, w_qkv, w_out, bias)):
         return _FlashQKVAttention.apply(
             x.contiguous(), w_qkv.contiguous(), w_out.contiguous(), bias,
-            n_head, float(scale), bool(causal))
+            n_head, float(scale), bool(causal), rate, seed)
     if x.device.type == "cpu":
         return reference_qkv_attention(x, w_qkv, w_out, bias, n_head,
-                                       scale, causal)
+                                       scale, causal, rate, seed)
     return _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
-                           residuals=False)
+                           rate, seed)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -346,11 +384,15 @@ def _heads_first(a):
     return a.transpose(1, 2).to(torch.promote_types(a.dtype, torch.float32))
 
 
-def reference_flash_fwd(q, k, v, bias=None, scale=1.0, causal=False):
+def reference_flash_fwd(q, k, v, bias=None, scale=1.0, causal=False,
+                        dropout_rate=0.0, dropout_seed=0):
     """Plain PyTorch twin of #4: q [b, tq, h, d], k/v [b, tk, h, d], bias
     broadcastable to [b, h, tq, tk].  Returns (out [b, tq, h, d], lse
     [b, h, tq] f32).  A row whose max score is <= -1e29 gets a zero
-    output and lse = +inf, as in the kernel."""
+    output and lse = +inf, as in the kernel.  Under dropout the weights
+    multiplying v are dropped by :func:`hash_rng.keep_mask_attn` and the
+    output scaled by 1 / (1 - rate); the normalizer and lse keep the
+    undropped weights."""
     qh, kh, vh = _heads_first(q), _heads_first(k), _heads_first(v)
     s = (qh * scale) @ kh.transpose(-1, -2)
     if bias is not None:
@@ -362,7 +404,13 @@ def reference_flash_fwd(q, k, v, bias=None, scale=1.0, causal=False):
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     masked = m <= -1e29
-    out = ((p @ vh) / l).masked_fill(masked, 0.0)
+    if dropout_rate:
+        keep = hash_rng.keep_mask_attn(dropout_seed, p.shape, dropout_rate,
+                                       device=p.device)
+        out = ((torch.where(keep, p, 0.0) @ vh) * (1.0 / (1.0 - dropout_rate))
+               / l).masked_fill(masked, 0.0)
+    else:
+        out = ((p @ vh) / l).masked_fill(masked, 0.0)
     lse = (m + torch.log(l)).masked_fill(masked, float("inf"))[..., 0]
     return out.transpose(1, 2).to(q.dtype), lse
 
@@ -380,26 +428,40 @@ def _probs(q, k, bias, lse, scale, causal):
     return p
 
 
-def _dscores(q, k, v, bias, dout, lse, delta, scale, causal):
-    """(p, p * (dO v^T - delta)), both [b, h, tq, tk]: the gradient of the
-    loss with respect to the biased scores is the second."""
+def _dscores(q, k, v, bias, dout, lse, delta, scale, causal,
+             dropout_rate=0.0, dropout_seed=0):
+    """(pv, p * (dp - delta)), both [b, h, tq, tk], with dp = dO v^T: the
+    gradient of the loss with respect to the biased scores is the second.
+    Under dropout dp is dropped and scaled (keep ? dp * inv_keep : 0) and
+    pv, the weights dv sums, is keep ? p * inv_keep : 0; otherwise pv is
+    p."""
     p = _probs(q, k, bias, lse, scale, causal)
     dp = _heads_first(dout) @ _heads_first(v).transpose(-1, -2)
-    return p, p * (dp - delta[..., None])
+    pv = p
+    if dropout_rate:
+        keep = hash_rng.keep_mask_attn(dropout_seed, p.shape, dropout_rate,
+                                       device=p.device)
+        inv_keep = 1.0 / (1.0 - dropout_rate)
+        dp = torch.where(keep, dp * inv_keep, 0.0)
+        pv = torch.where(keep, p * inv_keep, 0.0)
+    return pv, p * (dp - delta[..., None])
 
 
 def reference_flash_bwd_dq(q, k, v, bias, dout, lse, delta, scale=1.0,
-                           causal=False):
+                           causal=False, dropout_rate=0.0, dropout_seed=0):
     """Plain twin of #6: dq [b, tq, h, d] = ds k, with delta [b, h, tq] =
-    rowsum(dout * out)."""
-    _, ds = _dscores(q, k, v, bias, dout, lse, delta, scale, causal)
+    rowsum(dout * out) of the (dropped) output."""
+    _, ds = _dscores(q, k, v, bias, dout, lse, delta, scale, causal,
+                     dropout_rate, dropout_seed)
     return ((ds * scale) @ _heads_first(k)).transpose(1, 2).to(q.dtype)
 
 
 def reference_flash_bwd_dkv(q, k, v, bias, dout, lse, delta, scale=1.0,
-                            causal=False):
-    """Plain twin of #7: (dk = ds^T q, dv = p^T dout), each [b, tk, h, d]."""
-    p, ds = _dscores(q, k, v, bias, dout, lse, delta, scale, causal)
+                            causal=False, dropout_rate=0.0, dropout_seed=0):
+    """Plain twin of #7: (dk = ds^T q, dv = pv^T dout), each [b, tk, h,
+    d]."""
+    p, ds = _dscores(q, k, v, bias, dout, lse, delta, scale, causal,
+                     dropout_rate, dropout_seed)
     dk = (ds * scale).transpose(-1, -2) @ _heads_first(q)
     dv = p.transpose(-1, -2) @ _heads_first(dout)
     return dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
@@ -428,56 +490,66 @@ def _kernel_args(what, q, k, bias, **more):
     return (b, tq, tk, h) + _bias_strides(bias, q.device, what)
 
 
-def flash_fwd(q, k, v, bias=None, scale=1.0, causal=False):
+def flash_fwd(q, k, v, bias=None, scale=1.0, causal=False, dropout_rate=0.0,
+              dropout_seed=0):
     """#4: (out, lse) as :func:`reference_flash_fwd` computes them.  CPU
     tensors take the plain twin; CUDA tensors launch the kernel or raise."""
     if q.device.type == "cpu":
-        return reference_flash_fwd(q, k, v, bias, scale, causal)
+        return reference_flash_fwd(q, k, v, bias, scale, causal,
+                                   dropout_rate, dropout_seed)
     b, tq, tk, h, strides, bias_ptr = _kernel_args("flash_fwd", q, k, bias,
                                                    v=v)
+    drop = _dropout_args(dropout_rate, dropout_seed, tq, tk, "flash_fwd")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     err = _build.lib().ptt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, *strides,
         out.data_ptr(), lse.data_ptr(), b, tq, tk, h, float(scale),
-        int(bool(causal)), _build.stream_of(q))
+        int(bool(causal)), *drop, _build.stream_of(q))
     _build.check(err, "flash_fwd")
     launches["flash_fwd"] += 1
     return out, lse
 
 
-def flash_bwd_dq(q, k, v, bias, dout, lse, delta, scale=1.0, causal=False):
+def flash_bwd_dq(q, k, v, bias, dout, lse, delta, scale=1.0, causal=False,
+                 dropout_rate=0.0, dropout_seed=0):
     """#6: dq as :func:`reference_flash_bwd_dq` computes it (CPU: the
     twin; CUDA: the kernel or an error)."""
     if q.device.type == "cpu":
         return reference_flash_bwd_dq(q, k, v, bias, dout, lse, delta, scale,
-                                      causal)
+                                      causal, dropout_rate, dropout_seed)
     b, tq, tk, h, strides, bias_ptr = _kernel_args(
         "flash_bwd_dq", q, k, bias, v=v, dout=dout, lse=lse, delta=delta)
+    drop = _dropout_args(dropout_rate, dropout_seed, tq, tk, "flash_bwd_dq")
     dq = torch.empty_like(q)
     err = _build.lib().ptt_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, *strides,
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b,
-        tq, tk, h, float(scale), int(bool(causal)), _build.stream_of(q))
+        tq, tk, h, float(scale), int(bool(causal)), *drop,
+        _build.stream_of(q))
     _build.check(err, "flash_bwd_dq")
     launches["flash_bwd_dq"] += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, bias, dout, lse, delta, scale=1.0, causal=False):
+def flash_bwd_dkv(q, k, v, bias, dout, lse, delta, scale=1.0, causal=False,
+                  dropout_rate=0.0, dropout_seed=0):
     """#7: (dk, dv) as :func:`reference_flash_bwd_dkv` computes them (CPU:
     the twin; CUDA: the kernel or an error)."""
     if q.device.type == "cpu":
         return reference_flash_bwd_dkv(q, k, v, bias, dout, lse, delta,
-                                       scale, causal)
+                                       scale, causal, dropout_rate,
+                                       dropout_seed)
     b, tq, tk, h, strides, bias_ptr = _kernel_args(
         "flash_bwd_dkv", q, k, bias, v=v, dout=dout, lse=lse, delta=delta)
+    drop = _dropout_args(dropout_rate, dropout_seed, tq, tk,
+                         "flash_bwd_dkv")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     err = _build.lib().ptt_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, *strides,
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, tq, tk, h, float(scale), int(bool(causal)),
+        dv.data_ptr(), b, tq, tk, h, float(scale), int(bool(causal)), *drop,
         _build.stream_of(q))
     _build.check(err, "flash_bwd_dkv")
     launches["flash_bwd_dkv"] += 1
@@ -494,37 +566,38 @@ class _FlashAttention(torch.autograd.Function):
     """out = flash attention of (q, k, v, bias); saves (q, k, v, bias, out,
     lse).  Its backward takes delta = rowsum(dO * out) in f32, then the dq
     kernel and the dkv kernel.  A bias that requires grad gets a plain
-    recompute of ds reduced to its shape (the reference's ``_dbias_xla``);
-    attention masks do not, and get None."""
+    recompute of ds reduced to its shape (the reference's ``_dbias_xla``,
+    under the same dropout mask); attention masks do not, and get None.
+    Under dropout only the rate and the seed are saved beside the tensors:
+    the backward kernels regenerate the mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale, causal):
-        out, lse = flash_fwd(q, k, v, bias, scale, causal)
+    def forward(ctx, q, k, v, bias, scale, causal, rate, seed):
+        out, lse = flash_fwd(q, k, v, bias, scale, causal, rate, seed)
         ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.kw = dict(scale=scale, causal=causal, dropout_rate=rate,
+                      dropout_seed=seed)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias, out, lse = ctx.saved_tensors
-        scale, causal = ctx.scale, ctx.causal
         dout = dout.contiguous()
         wide = torch.promote_types(out.dtype, torch.float32)
         delta = (dout.to(wide) * out.to(wide)).sum(-1).transpose(1, 2)
         delta = delta.contiguous()
-        dq = flash_bwd_dq(q, k, v, bias, dout, lse, delta, scale, causal)
-        dk, dv = flash_bwd_dkv(q, k, v, bias, dout, lse, delta, scale,
-                               causal)
+        args = (q, k, v, bias, dout, lse, delta)
+        dq = flash_bwd_dq(*args, **ctx.kw)
+        dk, dv = flash_bwd_dkv(*args, **ctx.kw)
         dbias = None
         if ctx.needs_input_grad[3]:
-            _, ds = _dscores(q, k, v, bias, dout, lse, delta, scale,
-                             causal)
+            _, ds = _dscores(*args, **ctx.kw)
             dbias = _reduce_to(ds, bias.shape).to(bias.dtype)
-        return dq, dk, dv, dbias, None, None
+        return dq, dk, dv, dbias, None, None, None, None
 
 
 def flash_attention(q, k, v, bias=None, scale=1.0, causal=False,
-                    fmt="bthd", dropout_rate=0.0):
+                    fmt="bthd", dropout_rate=0.0, dropout_seed=None):
     """softmax(q k^T * scale + bias) v per head, differentiable in q, k, v
     (and in bias when it requires grad).
 
@@ -533,16 +606,15 @@ def flash_attention(q, k, v, bias=None, scale=1.0, causal=False,
     (the key-padding [b, 1, 1, tk] and decoder [b, 1, tq, tk] biases are
     read in place, never expanded); ``causal`` masks keys past
     query + tk - tq.  Returns [b, tq, h, d].  On the CPU every pass runs
-    its plain twin; on CUDA the kernels #4, #6 and #7 (head width 64)."""
+    its plain twin; on CUDA the kernels #4, #6 and #7 (head width 64).
+    ``dropout_rate`` > 0 drops the attention weights inside the kernels
+    under the site's uint32 ``dropout_seed``; the caller passes 0 at
+    inference."""
     if fmt != "bthd":
         raise NotImplementedError(
             f"flash_attention: fmt={fmt!r} needs the bhtd kernels #5, #8 "
             "and #9, which are not ported; pass [b, t, h, d] tensors with "
             "fmt='bthd'")
-    if dropout_rate:
-        raise NotImplementedError(
-            "flash_attention: in-kernel weights dropout belongs to the "
-            "dropout slice of the port, which is not done yet")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
             or (q.shape[0], q.shape[2], q.shape[3]) != (
                 k.shape[0], k.shape[2], k.shape[3]):
@@ -550,8 +622,10 @@ def flash_attention(q, k, v, bias=None, scale=1.0, causal=False,
             f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
             f"{tuple(v.shape)} are not [b, tq, h, d] and [b, tk, h, d]")
     b, tq, h, _ = q.shape
+    rate, seed = _dropout_args(dropout_rate, dropout_seed, tq, k.shape[1],
+                               "flash_attention")[:2]
     if bias is not None:
         bias = _bias_4d(bias, b, h, tq, k.shape[1], "flash_attention")
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), bias, float(scale),
-                                 bool(causal))
+                                 bool(causal), rate, seed)

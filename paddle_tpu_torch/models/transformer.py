@@ -3,8 +3,9 @@
 Counterpart of ``paddle_tpu/models/transformer.py`` with ``use_flash=True``:
 
 * training: ``transformer(...)``'s forward, :meth:`Transformer.forward`
-  (word + learned position tables, the encoder and decoder layers, the
-  "dan" post-process chain at rate 0, the output projection and the
+  (word + learned position tables and their dropout, the encoder and
+  decoder layers, the "dan" post-process chain as one fused
+  ``dropout_add`` then the layer norm, the output projection and the
   weighted ``softmax_with_cross_entropy`` mean), with the biases of
   :func:`training_biases`.  Its self-attention sites take the route of
   the reference's ``FLAGS_fused_qkv_attention``: by default one
@@ -26,9 +27,16 @@ Counterpart of ``paddle_tpu/models/transformer.py`` with ``use_flash=True``:
   There only the two attentions are kernels; the matmuls and the FFN are
   plain PyTorch, as the reference leaves them to XLA.
 
-Both routes train and serve, with the same parameters.  Dropout is not
-ported: a model built with ``dropout_rate > 0`` raises in training and
-serves as the reference serves (dropout off at inference).
+Both routes train and serve, with the same parameters.  Training
+applies the reference's dropout (``dropout_rate``, 0.1 in ``transformer()``)
+while the module is in training mode: at the two embedding sites
+(``dropout``, kernel #16 without a residual), at every "dan" residual
+(``dropout_add``, #16 and #17) and on the attention weights inside #1-#4,
+#6 and #7.  Each of the 50 sites of Transformer-base
+(:meth:`Transformer.dropout_sites`) takes one uint32 seed per step; the
+same seeds give the reference's masks bit for bit.  ``model.eval()`` (the
+reference's ``is_test``) and every serving entry point run without
+dropout.
 
 Weights keep the reference's [in, out] layout, and no choice changes
 their names or shapes, so the JAX package's arrays load as they are
@@ -47,8 +55,8 @@ from torch import nn
 from ..device import resolve_device
 from ..kernels.attention import flash_attention, flash_qkv_attention
 from ..kernels.decode_step import fused_decode_step, fused_decode_step_paged
-from ..ops.nn_ops import (layer_norm, lookup_table, mul,
-                          softmax_with_cross_entropy)
+from ..ops.nn_ops import (dropout, dropout_add, layer_norm, lookup_table,
+                          mul, softmax_with_cross_entropy)
 
 #: additive score bias of a padded key and of a future one (the
 #: reference's -1e9)
@@ -70,28 +78,33 @@ def positionwise_feed_forward(x, w_in, b_in, w_out, b_out):
     return mul(torch.relu(mul(x, w_in) + b_in), w_out) + b_out
 
 
-def _attend(q, k, v, w_out, bias, n_head, d_key):
+def _attend(q, k, v, w_out, bias, n_head, d_key, rate=0.0, seed=None):
     """The flag-off flash route's tail: q [b, tq, h*d], k/v [b, tk, h*d]
-    as [b, t, h, d] (a view), ``flash_attention(fmt="bthd")``, the heads
-    merged back and projected by w_out."""
+    as [b, t, h, d] (a view), ``flash_attention(fmt="bthd")`` (weights
+    dropout at ``rate`` under ``seed``), the heads merged back and
+    projected by w_out."""
     b, tq, hd = q.shape
     tk = k.shape[1]
     ctx = flash_attention(q.reshape(b, tq, n_head, d_key),
                           k.reshape(b, tk, n_head, d_key),
                           v.reshape(b, tk, n_head, d_key), bias,
-                          scale=d_key ** -0.5, fmt="bthd")
+                          scale=d_key ** -0.5, fmt="bthd",
+                          dropout_rate=rate, dropout_seed=seed)
     return mul(ctx.reshape(b, tq, hd), w_out)
 
 
-def self_attention(x, w_qkv, w_out, bias, n_head, d_key, fused):
+def self_attention(x, w_qkv, w_out, bias, n_head, d_key, fused, rate=0.0,
+                   seed=None):
     """Self-attention of x [b, t, d_model]: one ``flash_qkv_attention``
     (#1) when ``fused``, else one ``mul`` by the packed w_qkv, split q|k|v,
-    and :func:`_attend` (#4, #6, #7)."""
+    and :func:`_attend` (#4, #6, #7); weights dropout at ``rate`` under
+    ``seed`` on either route."""
     if fused:
         return flash_qkv_attention(x, w_qkv, w_out, bias, n_head=n_head,
-                                   scale=d_key ** -0.5)
+                                   scale=d_key ** -0.5, dropout_rate=rate,
+                                   dropout_seed=seed)
     q, k, v = torch.split(mul(x, w_qkv), n_head * d_key, dim=-1)
-    return _attend(q, k, v, w_out, bias, n_head, d_key)
+    return _attend(q, k, v, w_out, bias, n_head, d_key, rate, seed)
 
 
 def pad_bias(word):
@@ -125,6 +138,9 @@ class EncoderLayer(nn.Module):
     route (the reference's ``FLAGS_fused_qkv_attention``): #1, or the
     flag-off projections around the bthd flash kernels."""
 
+    #: its dropout sites, in the reference program's op order
+    SITES = ("attn", "attn_dropout_add", "ffn_dropout_add")
+
     def __init__(self, d_model, n_head, d_key, d_inner_hid, device,
                  fused_qkv_attention=True):
         super().__init__()
@@ -142,14 +158,19 @@ class EncoderLayer(nn.Module):
         self.ln2_scale = _param(d_model, device=device)
         self.ln2_bias = _param(d_model, device=device)
 
-    def forward(self, x, attn_bias):
+    def forward(self, x, attn_bias, rate=0.0, seeds=(None,) * 3):
+        """The reference's ``encoder_layer``: self-attention, then each
+        "dan" post-process as ``layer_norm(dropout_add(out, x))``; dropout
+        at ``rate`` with one seed per site of :attr:`SITES`."""
         attn = self_attention(x, self.attn_qkv_w, self.attn_out_w, attn_bias,
                               self.n_head, self.d_key,
-                              self.fused_qkv_attention)
-        x = layer_norm(attn + x, self.ln1_scale, self.ln1_bias)
+                              self.fused_qkv_attention, rate, seeds[0])
+        x = layer_norm(dropout_add(attn, x, rate, seeds[1]), self.ln1_scale,
+                       self.ln1_bias)
         ffd = positionwise_feed_forward(x, self.ffn_in_w, self.ffn_in_b,
                                         self.ffn_out_w, self.ffn_out_b)
-        return layer_norm(ffd + x, self.ln2_scale, self.ln2_bias)
+        return layer_norm(dropout_add(ffd, x, rate, seeds[2]),
+                          self.ln2_scale, self.ln2_bias)
 
 
 class DecoderLayer(nn.Module):
@@ -157,6 +178,10 @@ class DecoderLayer(nn.Module):
     (training), :meth:`step` over one cached token (serving).
     ``cross_k_w``/``cross_v_w`` project the encoder output; at serving
     they fill this layer's cross cache at prefill."""
+
+    #: its dropout sites, in the reference program's op order
+    SITES = ("self_attn", "self_dropout_add", "cross_attn",
+             "cross_dropout_add", "ffn_dropout_add")
 
     def __init__(self, d_model, n_head, d_key, d_inner_hid, device,
                  fused_qkv_attention=True):
@@ -181,22 +206,27 @@ class DecoderLayer(nn.Module):
         self.cross_k_w = _param(d_model, hd, device=device)
         self.cross_v_w = _param(d_model, hd, device=device)
 
-    def forward(self, x, enc_out, slf_bias, cross_bias):
+    def forward(self, x, enc_out, slf_bias, cross_bias, rate=0.0,
+                seeds=(None,) * 5):
         """The reference's ``decoder_layer`` over x [b, tt, d_model]:
         self-attention under slf_bias [b, 1, tt, tt], cross-attention to
         enc_out [b, ts, d_model] under cross_bias [b, 1, 1, ts], the
-        feed-forward, each followed by add + layer norm."""
+        feed-forward, each followed by ``layer_norm(dropout_add(out, x))``;
+        dropout at ``rate`` with one seed per site of :attr:`SITES`."""
         attn = self_attention(x, self.attn_qkv_w, self.attn_out_w, slf_bias,
                               self.n_head, self.d_key,
-                              self.fused_qkv_attention)
-        x = layer_norm(attn + x, self.ln1_scale, self.ln1_bias)
+                              self.fused_qkv_attention, rate, seeds[0])
+        x = layer_norm(dropout_add(attn, x, rate, seeds[1]), self.ln1_scale,
+                       self.ln1_bias)
         cross = _attend(mul(x, self.cross_q_w), mul(enc_out, self.cross_k_w),
                         mul(enc_out, self.cross_v_w), self.cross_out_w,
-                        cross_bias, self.n_head, self.d_key)
-        x = layer_norm(cross + x, self.ln2_scale, self.ln2_bias)
+                        cross_bias, self.n_head, self.d_key, rate, seeds[2])
+        x = layer_norm(dropout_add(cross, x, rate, seeds[3]),
+                       self.ln2_scale, self.ln2_bias)
         ffd = positionwise_feed_forward(x, self.ffn_in_w, self.ffn_in_b,
                                         self.ffn_out_w, self.ffn_out_b)
-        return layer_norm(ffd + x, self.ln3_scale, self.ln3_bias)
+        return layer_norm(dropout_add(ffd, x, rate, seeds[4]),
+                          self.ln3_scale, self.ln3_bias)
 
     def step(self, x, self_cache, cross_cache, pos, lengths, active,
              layer, fused=True):
@@ -252,8 +282,10 @@ class Transformer(nn.Module):
     until :meth:`init_params` or ``interop.load_paddle_tpu_params``.
     ``fused_qkv_attention`` picks the self-attention route (the
     reference's ``FLAGS_fused_qkv_attention``), ``fused_decode_step`` the
-    decoder step's (its ``FLAGS_fused_decode_step``).  ``dropout_rate`` is the reference's
-    training dropout: not ported, so training raises when it is set."""
+    decoder step's (its ``FLAGS_fused_decode_step``).  ``dropout_rate`` is
+    the reference's training dropout, applied by :meth:`forward` in
+    training mode (``model.train()``, the default) and never by
+    ``model.eval()`` or the serving entry points."""
 
     def __init__(self, src_vocab_size=10000, trg_vocab_size=10000,
                  max_length=256, n_layer=6, n_head=8, d_key=64, d_value=64,
@@ -312,40 +344,83 @@ class Transformer(nn.Module):
             p.copy_(w)
         return self
 
+    def dropout_sites(self):
+        """The names of the dropout sites, one seed each, in the reference
+        training program's op order (the order its ``rng_id``s are drawn):
+        the source embedding, each encoder layer's
+        :attr:`EncoderLayer.SITES`, the target embedding, each decoder
+        layer's :attr:`DecoderLayer.SITES`; 50 for 6 + 6 layers."""
+        sites = ["src_emb_dropout"]
+        for i in range(self.n_layer):
+            sites += [f"encoder.{i}.{s}" for s in EncoderLayer.SITES]
+        sites.append("trg_emb_dropout")
+        for i in range(self.n_layer):
+            sites += [f"decoder.{i}.{s}" for s in DecoderLayer.SITES]
+        return sites
+
+    def _seeds(self, dropout_seeds, generator):
+        """One host int per site: the given seeds, or uint32s drawn on the
+        CPU from ``generator`` (torch's default generator when None)."""
+        n = len(self.dropout_sites())
+        if dropout_seeds is None:
+            dropout_seeds = torch.randint(0, 2 ** 32, (n,), dtype=torch.int64,
+                                          generator=generator).tolist()
+        seeds = [int(s) & 0xFFFFFFFF for s in dropout_seeds]
+        if len(seeds) != n:
+            raise ValueError(f"Transformer: {len(seeds)} dropout seeds for "
+                             f"{n} dropout sites")
+        return seeds
+
     def forward(self, src_word, src_pos, trg_word, trg_pos, lbl_word,
-                lbl_weight):
+                lbl_weight, dropout_seeds=None, generator=None):
         """The training step's forward: ids [b, t] or [b, t, 1] (pad id
         0), lbl_weight [b, tt] or [b, tt, 1] f32.  Returns (avg_cost,
         predict): the lbl_weight-weighted mean of the per-token
         ``softmax_with_cross_entropy`` (weighted sum over weight sum, a
-        0-dim tensor) and the logits [b, tt, trg_vocab]."""
-        if self.dropout_rate and torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"Transformer: dropout_rate={self.dropout_rate} needs the "
-                "dropout slice of the port (hash_rng and kernels #16, #17), "
-                "which is not done yet; train with dropout_rate=0")
+        0-dim tensor) and the logits [b, tt, trg_vocab].
+
+        In training mode with ``dropout_rate`` > 0 every site of
+        :meth:`dropout_sites` drops with its uint32 seed from
+        ``dropout_seeds`` (a sequence in that order, e.g.
+        ``interop.dropout_seeds`` of the reference's step key), or, when
+        none are given, with seeds drawn on the host from ``generator``.
+        The seeds reach the kernels as host scalars."""
         b = src_word.shape[0]
         src_word, src_pos, trg_word, trg_pos = (
             a.reshape(b, -1) for a in (src_word, src_pos, trg_word, trg_pos))
         src_bias, trg_bias = training_biases(src_word, trg_word, trg_pos)
-        enc_out = self.encode(src_word, src_pos, src_bias)
-        x = prepare_encoder(trg_word, trg_pos, self.trg_word_emb,
-                            self.trg_pos_enc)
+        rate = self.dropout_rate if self.training else 0.0
+        seeds = iter(self._seeds(dropout_seeds, generator) if rate
+                     else [None] * len(self.dropout_sites()))
+
+        def take(n):
+            return tuple(next(seeds) for _ in range(n))
+
+        enc_out = self.encode(src_word, src_pos, src_bias, rate, take(
+            1 + self.n_layer * len(EncoderLayer.SITES)))
+        x = dropout(prepare_encoder(trg_word, trg_pos, self.trg_word_emb,
+                                    self.trg_pos_enc), rate, *take(1))
         for layer in self.decoder:
-            x = layer(x, enc_out, trg_bias, src_bias)
+            x = layer(x, enc_out, trg_bias, src_bias, rate,
+                      take(len(DecoderLayer.SITES)))
         predict = mul(x, self.predict_w) + self.predict_b
         cost = softmax_with_cross_entropy(
             predict.reshape(-1, self.trg_vocab_size), lbl_word.reshape(-1, 1))
         w = lbl_weight.reshape(-1, 1).float()
         return (cost * w).sum() / w.sum(), predict
 
-    def encode(self, src_word, src_pos, attn_bias):
+    def encode(self, src_word, src_pos, attn_bias, rate=0.0, seeds=None):
         """src_word/src_pos [b, Ts] int64, attn_bias [b, 1, 1, Ts] ->
-        encoder output [b, Ts, d_model]."""
-        x = prepare_encoder(src_word[..., None], src_pos[..., None],
-                            self.src_word_emb, self.src_pos_enc)
-        for layer in self.encoder:
-            x = layer(x, attn_bias)
+        encoder output [b, Ts, d_model].  Prefill runs it without dropout;
+        training passes ``rate`` and the seeds of the source embedding and
+        the encoder layers' sites, in :meth:`dropout_sites` order."""
+        n = len(EncoderLayer.SITES)
+        seeds = seeds or (None,) * (1 + self.n_layer * n)
+        x = dropout(prepare_encoder(src_word[..., None], src_pos[..., None],
+                                    self.src_word_emb, self.src_pos_enc),
+                    rate, seeds[0])
+        for i, layer in enumerate(self.encoder):
+            x = layer(x, attn_bias, rate, seeds[1 + i * n:1 + (i + 1) * n])
         return x
 
     def prefill_cross_cache(self, enc_out, cross_cache, active):

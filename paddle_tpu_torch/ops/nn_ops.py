@@ -1,11 +1,19 @@
 """Counterparts of ``paddle_tpu/ops/nn_ops.py`` ``layer_norm``,
-``lookup_table`` and ``softmax_with_cross_entropy``, and of
-``paddle_tpu/ops/math_ops.py`` ``mul``.  Each differentiates through
-torch autograd as the reference's lowering does through ``jax.vjp``."""
+``lookup_table``, ``softmax_with_cross_entropy``, ``dropout`` and
+``dropout_add``, and of ``paddle_tpu/ops/math_ops.py`` ``mul``.  Each
+differentiates through torch autograd as the reference's lowering does
+through ``jax.vjp``."""
 
 from __future__ import annotations
 
 import torch
+
+#: ``dropout`` (upscale_in_train, the only mode the models use: the
+#: reference's ``keep_mask`` bits of the site's uint32 seed) and the fused
+#: ``dropout_add`` (``lower_dropout_add``) are the kernels' own entry
+#: points, #16 forward and #17 backward; rate 0 is the identity and a
+#: plain add
+from ..kernels.dropout_epilogue import dropout, dropout_add  # noqa: F401
 
 
 def layer_norm(x, scale, bias, eps=1e-5):

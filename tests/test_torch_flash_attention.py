@@ -223,25 +223,40 @@ def test_bhtd_format_raises():
 
 
 def test_dropout_raises():
+    """Weights dropout raises without a seed (no mask can be drawn);
+    with one it drops: the output differs from the undropped one, and the
+    same seed gives the same bits."""
     q, k, v, _, _ = _inputs(32, 32, None)
-    with pytest.raises(NotImplementedError, match="dropout slice"):
-        ka.flash_attention(*(_t(a) for a in (q, k, v)), dropout_rate=0.1)
+    args = [_t(a) for a in (q, k, v)]
+    with pytest.raises(ValueError, match="needs dropout_seed"):
+        ka.flash_attention(*args, dropout_rate=0.1)
+    out = ka.flash_attention(*args, scale=SCALE, dropout_rate=0.1,
+                             dropout_seed=7)
+    assert not torch.equal(out, ka.flash_attention(*args, scale=SCALE))
+    assert torch.equal(out, ka.flash_attention(*args, scale=SCALE,
+                                               dropout_rate=0.1,
+                                               dropout_seed=7))
 
 
 def test_fused_qkv_attention_refuses_to_train():
-    """#1 refuses to train only with dropout, which is not ported: in grad
-    mode with a trainable input and dropout_rate > 0 it raises, never
-    returning a result without its gradient.  Without dropout it trains
-    (the backward runs #2 and #3), and under no_grad it runs as the
-    serving path does."""
+    """#1 refuses to train only with dropout and no seed: in grad mode
+    with a trainable input and dropout_rate > 0 but no dropout_seed it
+    raises, never returning a result without its gradient.  With a seed,
+    and without dropout, it trains (the backward runs #2 and #3), and
+    under no_grad it runs as the serving path does."""
     rng = np.random.RandomState(6)
     x = torch.from_numpy(rng.randn(2, 16, 128).astype(np.float32))
     w_qkv = torch.from_numpy((rng.randn(128, 384) * 0.08).astype(np.float32))
     w_out = torch.from_numpy((rng.randn(128, 128) * 0.08).astype(np.float32))
     w_qkv.requires_grad_()
-    with pytest.raises(NotImplementedError, match="dropout slice"):
+    with pytest.raises(ValueError, match="needs dropout_seed"):
         ka.flash_qkv_attention(x, w_qkv, w_out, n_head=2, dropout_rate=0.1)
+    ka.flash_qkv_attention(x, w_qkv, w_out, n_head=2, dropout_rate=0.1,
+                           dropout_seed=3).sum().backward()
+    dropped = w_qkv.grad.clone()
+    w_qkv.grad = None
     ka.flash_qkv_attention(x, w_qkv, w_out, n_head=2).sum().backward()
+    assert not torch.equal(dropped, w_qkv.grad)
     assert w_qkv.grad.shape == w_qkv.shape
     assert torch.isfinite(w_qkv.grad).all() and w_qkv.grad.abs().sum() > 0
     with torch.no_grad():

@@ -87,7 +87,7 @@ def test_flash_qkv_attention_broadcast_bias_and_masked_rows():
 def test_flash_qkv_attention_refuses_what_it_cannot_compute():
     x, w_qkv, w_out, bias = _qkv_inputs("pad")
     args = [torch.from_numpy(a) for a in (x, w_qkv, w_out)]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs dropout_seed"):
         ka.flash_qkv_attention(*args, n_head=2, dropout_rate=0.1)
     with pytest.raises(ValueError):
         ka.flash_qkv_attention(*args, torch.zeros(3, 1, 1, 16), n_head=2)

@@ -11,14 +11,22 @@ one ``fused_qkv_attention``, the cross-attention stays ``fused_attention``).
 Its startup scope is carried into the port with
 ``load_paddle_tpu_params``, and both take the same steps on the same
 batch: losses, gradients, updated parameters and a resume from the
-reference's Adam state must agree, on each route.
+reference's Adam state must agree, on each route.  Both routes are built
+once more at ``dropout_rate=0.1`` (the reference's default): each step's
+run id is forced, so its base key, and with the program's ``rng_id``s
+every site's seed, is known; the port takes those seeds
+(``interop.dropout_seeds``) and must follow the reference's 3 steps under
+the same tolerances, its masks being the reference's bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
+
 import paddle_tpu as pt
+from paddle_tpu.core.executor import prng_key
 from paddle_tpu.flags import FLAGS
 from paddle_tpu.models import transformer as T
 from paddle_tpu_torch import (Adam, GenerationSession, Transformer,
@@ -26,7 +34,7 @@ from paddle_tpu_torch import (Adam, GenerationSession, Transformer,
                               export_paddle_tpu_params,
                               load_paddle_tpu_adam_state,
                               load_paddle_tpu_params, make_batch)
-from paddle_tpu_torch.interop import paddle_tpu_param_names
+from paddle_tpu_torch.interop import dropout_seeds, paddle_tpu_param_names
 
 WIDTHS = dict(src_vocab_size=64, trg_vocab_size=64, max_length=32,
               n_layer=2, n_head=2, d_key=64, d_value=64, d_model=128,
@@ -46,6 +54,11 @@ TOL_GRAD = 1e-4
 #: lr, and all but 1e-4 of them within 1e-6.
 TOL_PARAM = 1e-4
 TOL_PARAM_MOST, SHARE_BEYOND = 1e-6, 1e-4
+#: the reference's default dropout rate (``transformer()``)
+DROPOUT = 0.1
+#: the op types that draw a dropout seed, as the reference lowers them
+DROPOUT_OPS = ("dropout", "dropout_add", "fused_attention",
+               "fused_qkv_attention")
 
 
 def _batch():
@@ -64,9 +77,11 @@ class _Reference:
     state of each of its steps on the batch: the loss, the step-1
     gradients, and the parameters and Adam state after steps 2 and 3.
     ``fused`` leaves ``FLAGS_fused_qkv_attention`` at its default (on);
-    otherwise the flag is off while the program is built."""
+    otherwise the flag is off while the program is built.  With
+    ``dropout_rate`` each step runs under a forced run id and ``seeds``
+    holds the port's dropout seeds of each step."""
 
-    def __init__(self, fused=False):
+    def __init__(self, fused=False, dropout_rate=0.0):
         if not fused:
             FLAGS.set("fused_qkv_attention", False)
         try:
@@ -74,8 +89,9 @@ class _Reference:
             with pt.program_guard(self.prog, startup):
                 with pt.core.framework.guard_unique_name():
                     avg_cost, _, _ = T.transformer(
-                        **WIDTHS, dropout_rate=0.0, src_seq_len=SRC_LEN,
-                        trg_seq_len=TRG_LEN, use_flash=True)
+                        **WIDTHS, dropout_rate=dropout_rate,
+                        src_seq_len=SRC_LEN, trg_seq_len=TRG_LEN,
+                        use_flash=True)
                     _, params_grads = pt.optimizer.Adam(
                         learning_rate=LR).minimize(avg_cost)
         finally:
@@ -84,6 +100,12 @@ class _Reference:
         # 2 encoder and 2 decoder self sites, 2 cross sites
         assert ops.count("fused_qkv_attention") == (4 if fused else 0)
         assert ops.count("fused_attention") == (2 if fused else 6)
+        rng_ids = [op.attrs["rng_id"] for op in self.prog.global_block().ops
+                   if op.type in DROPOUT_OPS and dropout_rate]
+        # 2 embedding sites, 3 per encoder and 5 per decoder layer
+        assert len(rng_ids) == (18 if dropout_rate else 0)
+        assert all(rng_ids) and len(set(rng_ids)) == len(rng_ids)
+        self.seeds = []
         self.trained = [p.name for p, g in params_grads if g is not None]
         self.scope = pt.Scope()
         exe = pt.Executor(pt.CPUPlace())
@@ -98,6 +120,15 @@ class _Reference:
             fetch = [avg_cost.name]
             if step == 0:
                 fetch += [f"{n}@GRAD" for n in self.trained]
+            if dropout_rate:
+                # the step's base key: fold_in(prng_key(random_seed), run
+                # id), as Executor.run derives it
+                run_id = 101 + step
+                exe._forced_run_id = run_id
+                key = jax.random.fold_in(
+                    prng_key(self.prog.random_seed or 0), run_id)
+                self.seeds.append(dropout_seeds(
+                    np.asarray(jax.random.key_data(key)), rng_ids))
             out = exe.run(self.prog, feed=_batch(), fetch_list=fetch,
                           scope=self.scope)
             self.losses.append(float(np.asarray(out[0])))
@@ -118,6 +149,16 @@ def ref():
 @pytest.fixture(scope="module")
 def ref_fused():
     return _Reference(fused=True)
+
+
+@pytest.fixture(scope="module")
+def ref_dropout():
+    return _Reference(dropout_rate=DROPOUT)
+
+
+@pytest.fixture(scope="module")
+def ref_fused_dropout():
+    return _Reference(fused=True, dropout_rate=DROPOUT)
 
 
 def _port(params, fused_qkv_attention=False, **kw):
@@ -165,14 +206,35 @@ def test_fused_route_three_adam_steps_match_reference(ref_fused):
     _three_adam_steps(ref_fused, fused_qkv_attention=True)
 
 
-def _three_adam_steps(ref, fused_qkv_attention):
-    model = _port(ref.start, fused_qkv_attention=fused_qkv_attention)
+def test_dropout_three_adam_steps_match_reference(ref_dropout):
+    """The flag-off route at dropout 0.1 against the reference's dropout
+    program, each step under the reference step's seeds: losses, step-1
+    gradients and the parameters after 3 steps under the same tolerances
+    (embedding dropout, 12 dropout-adds and the weights dropout of 6
+    attention sites, their masks bit for bit)."""
+    _three_adam_steps(ref_dropout, fused_qkv_attention=False,
+                      dropout_rate=DROPOUT)
+
+
+def test_fused_route_dropout_three_adam_steps_match_reference(
+        ref_fused_dropout):
+    """The default (fused) route at dropout 0.1 against the reference's
+    default-flag dropout program, as above: #1-#3's twins drop the
+    reference's fused kernels' mask."""
+    _three_adam_steps(ref_fused_dropout, fused_qkv_attention=True,
+                      dropout_rate=DROPOUT)
+
+
+def _three_adam_steps(ref, fused_qkv_attention, dropout_rate=0.0):
+    model = _port(ref.start, fused_qkv_attention=fused_qkv_attention,
+                  dropout_rate=dropout_rate)
     opt = Adam(model.parameters(), learning_rate=LR)
     names = dict(paddle_tpu_param_names(2))
     assert sorted(names[n] for n in ref.trained) == sorted(
         n for n, p in model.named_parameters() if p.requires_grad)
     for step in range(STEPS):
-        loss, predict = model(**_padded_feed())
+        seeds = ref.seeds[step] if dropout_rate else None
+        loss, predict = model(**_padded_feed(), dropout_seeds=seeds)
         assert predict.shape == (BATCH, TRG_LEN, 64)
         assert abs(loss.item() - ref.losses[step]) <= TOL_LOSS * abs(
             ref.losses[step]), (step, loss.item(), ref.losses[step])
@@ -236,18 +298,24 @@ def _resume(ref, fused_qkv_attention):
 
 
 def test_training_guards_and_serving_on_the_same_model(ref):
-    """Dropout raises in training; the fused-qkv route trains (its loss has
-    a backward); the same model objects still serve, under no_grad, the
-    tokens of the default model."""
+    """Dropout trains (in training mode the loss has a backward and moves
+    off the undropped loss) and is off in eval mode (the reference's
+    is_test: the undropped loss); a wrong number of seeds raises; the
+    fused-qkv route trains; the same model objects still serve, under
+    no_grad, the tokens of the default model."""
     fused = _port(ref.start, fused_qkv_attention=True)
     loss, _ = fused(**_feed())
     assert loss.grad_fn is not None and torch.isfinite(loss)
     dropout = _port(ref.start, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="dropout slice"):
-        dropout(**_feed())
-    with torch.no_grad():  # inference: dropout is off, as in the reference
-        loss, _ = dropout(**_feed())
-    assert torch.isfinite(loss)
+    dropped, _ = dropout(**_feed(), generator=torch.Generator().manual_seed(0))
+    assert dropped.grad_fn is not None and torch.isfinite(dropped)
+    assert abs(dropped.item() - loss.item()) > 1e-4
+    with pytest.raises(ValueError, match="dropout seeds"):
+        dropout(**_feed(), dropout_seeds=[1, 2, 3])
+    dropout.eval()  # inference: dropout is off, as in the reference
+    with torch.no_grad():
+        undropped, _ = dropout(**_feed())
+    assert abs(undropped.item() - loss.item()) <= 1e-6 * abs(loss.item())
     src = _feed()["src_word"][..., 0].numpy()
     tokens = []
     for model in (fused, dropout, _port(ref.start, fused_qkv_attention=True,

@@ -26,7 +26,13 @@ Phases, each fatal on failure:
    rate 0.1 beside its rate-0 time.  The dropout-add kernels (#16, #17)
    are checked at [32*256, 512] f32: with x = 1 and residual 0, #16 must
    give the twin's keep pattern exactly, with a keep share within a
-   chi-square bound of 0.9; #17 must equal its twin bit for bit;
+   chi-square bound of 0.9; #17 must equal its twin bit for bit.  The
+   conv + batch-norm kernels (#18-#21) are checked at ResNet-50's shapes
+   at batch 256 (CBN_*_CASES: the stem, stage-1 and stage-4 sites, #19 at
+   a strided shortcut too, #20/#21 with and without residual and ReLU),
+   each called twice for equal bits; their sums are held to TOL_SUM of
+   the summed magnitudes against the same sums in float64.  cuDNN's output of the NHWC convolution must
+   come back NHWC-contiguous;
 3. the main paths on Transformer-base (6 layers, 8 heads, d_model 512,
    d_inner 2048, vocab 32000, source 256, 64 tokens) with seeded random
    weights.  The launch counters are zeroed just before each path and read
@@ -82,9 +88,21 @@ Phases, each fatal on failure:
    loss within 1e-5 relative (the same masks).  Then 10 timed steps, each
    with fresh seeds, whose loss must fall, printed beside (e)'s rate-0
    step of the same run;
+   (g) ResNet-50 training as the reference's ``bench_resnet50`` (224,
+   1000 classes, NHWC, Momentum 0.1 / 0.9, f32 where the bench runs bf16)
+   from ``init_params(0)``: 17 ``channel_stats``, 36 ``dot_col_stats``,
+   53 ``ssa_fwd`` and 53 ``ssa_bwd`` launches per step.  Step 1 at batch
+   16 against float64 and f32 CPU copies under (d)'s criterion
+   (gradients, running statistics, updated parameters); step 1 at batch
+   256 run twice for equal bits (``cudnn.deterministic``) and held against
+   the card's plain route (the twins of #18-#21 on the card); then 10
+   timed steps at batch 256 on one repeated batch (median step ms,
+   images/s, f32 peak share, peak memory), whose first update must lower
+   the loss;
 4. where the time goes: torch.profiler over one prefill and 16 decode
-   steps at each batch, and over one training step on each route and on
-   the dropout route: device time by kernel beside host wall time.
+   steps at each batch, and over one training step on each route, on
+   the dropout route and of ResNet-50: device time by kernel beside host
+   wall time, and for ResNet-50 any layout-conversion kernel.
 
 Prints the card and its power limit, the timings, one JSON line with a
 record per kernel, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -94,6 +112,7 @@ beside it.  f32 throughout, TF32 off for matmuls and cuDNN.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -965,6 +984,214 @@ def check_dropout_add(gen):
     return fwd, bwd
 
 
+#: ResNet-50 training as the reference's ``bench_resnet50``
+#: (``bench.py:425-456``): batch 256 at 224, 1000 classes, NHWC, Momentum
+#: 0.1 / 0.9, ``rand`` images and ``randint(0, 1000)`` labels.  f32 with
+#: TF32 off: amp (bf16) is the one cut against the bench (ROADMAP A1)
+RESNET_DEPTH, RESNET_CLASSES, RESNET_SIZE = 50, 1000, 224
+RESNET_BATCH, RESNET_PARITY_BATCH = 256, 16
+RESNET_LR, RESNET_MOMENTUM, RESNET_TIMED_STEPS = 0.1, 0.9, 10
+#: training FLOPs per image, the reference's count
+#: (``bench.py`` RESNET50_TRAIN_FLOPS_PER_IMG)
+RESNET_FLOPS_PER_IMAGE = 3 * 2 * 4.089e9
+#: launches of one ResNet-50 step: #19 at the 32 1x1 sites of the 16
+#: bottlenecks and the 4 shortcuts, #18 at the stem and the 16 3x3 sites,
+#: #20 and #21 at all 53 conv + batch-norm sites
+RESNET_LAUNCHES = dict(dot_col_stats=36, channel_stats=17, ssa_fwd=53,
+                       ssa_bwd=53)
+#: phase 2's conv + BN sites at batch 256: (label, NHWC shape) of #18's
+#: input, (label, M, K, N, stride of the rows x[:, ::s, ::s, :]) of #19,
+#: and (label, rows, C, residual, relu) of #20 and #21; the first of each
+#: is the record in the JSON line
+CBN_STATS_CASES = (("stem 7x7", (256, 112, 112, 64)),
+                   ("stage-1 3x3", (256, 56, 56, 64)),
+                   ("stage-4 3x3", (256, 7, 7, 512)))
+CBN_DOT_CASES = (("stage-1 conv3", 256 * 56 * 56, 64, 256, 1),
+                 ("stage-4 conv3", 256 * 7 * 7, 512, 2048, 1),
+                 ("stage-2 shortcut (stride 2)", 256 * 28 * 28, 256, 512,
+                  2))
+CBN_SSA_CASES = (("stage-1 conv3 residual relu", 256 * 56 * 56, 256, True,
+                  True),
+                 ("stage-1 conv1 relu", 256 * 56 * 56, 64, False, True),
+                 ("stage-1 shortcut", 256 * 56 * 56, 256, False, False),
+                 ("stage-4 conv3 residual relu", 256 * 7 * 7, 2048, True,
+                  True))
+
+
+#: phase 2's per-channel sums of #18, #19 and #21 against the same sums in
+#: float64: |got - exact| <= TOL_SUM * sum of the |terms| behind each (a
+#: float sum's error scales with its terms, not with its value, which a
+#: zero-mean input brings near 0).  An f32 sum of k terms in a fixed order
+#: strays about u * sqrt(k) / 3 of its terms' magnitude (u = 2^-24),
+#: under 6e-7 for the longest serial runs here (784 partials a lane in
+#: #19's stage-1 reduction); dropping one chunk of rows moves a sum by
+#: about sqrt(rows in the chunk) terms (zero-mean) or by the chunk's share
+#: (positive terms).  On an H100 the sound kernels read at most 4.4e-7,
+#: and a dropped last chunk 2.3e-4 or more at every site
+#: (chip_conv_bn_faults.py)
+TOL_SUM = 2e-6
+
+
+def compare_sums(name, got, exact, terms, failures):
+    """Per-channel f32 sums against their float64 values: (max abs error,
+    worst error over TOL_SUM's measure).  A sum out of bounds or not
+    finite adds a line to ``failures``."""
+    err = (got.double() - exact).abs()
+    worst = (err / terms.clamp_min(1e-30)).max().item()
+    if not torch.isfinite(got).all().item():
+        failures.append(f"{name}: non-finite sums")
+    elif worst > TOL_SUM:
+        failures.append(f"{name}: error {worst} of the summed magnitudes "
+                        f"over {TOL_SUM}")
+    return err.max().item(), worst
+
+
+def _require_same_bits(name, first, again):
+    require(all(torch.equal(a, b) for a, b in zip(first, again)
+                if a is not None),
+            f"{name}: a repeated call gave other bits")
+
+
+def randn_card(gen, *shape, scale=1.0):
+    """Normal f32 numbers drawn on the card (``gen`` a CUDA generator):
+    phase 2's conv + BN inputs are too large to draw on the host."""
+    return torch.randn(shape, generator=gen, device="cuda") * scale
+
+
+def check_conv_bn(gen):
+    """#18-#21 at ResNet-50's shapes at batch 256 (CBN_*_CASES) against
+    their plain twins on the card: outputs within TOL_KERNEL of the f32
+    twin, per-channel sums within TOL_SUM of the twin in float64 (every
+    sum is read before a sum out of bounds fails the phase); each kernel
+    called twice for equal bits.  Also checks that ``conv2d_nhwc``'s
+    output at the stem is NHWC-contiguous with no copy.  Returns {(name,
+    case): record}; a record's ``sum_err_of_terms`` is its sums' worst
+    reading against TOL_SUM."""
+    from paddle_tpu_torch.kernels import conv_bn as kc
+
+    src = "paddle_tpu_torch/csrc/conv_bn.cu"
+    records, failures = {}, []
+    cgen = torch.Generator(device="cuda").manual_seed(
+        int(torch.randint(0, 2 ** 31, (1,), generator=gen)))
+    x = randn_card(cgen, 256, 224, 224, 3)
+    w = randn_card(cgen, 64, 3, 7, 7, scale=0.1)
+    y = kc.conv2d_nhwc(x, w, 2, 3)
+    require(tuple(y.shape) == (256, 112, 112, 64) and y.is_contiguous(),
+            f"conv2d_nhwc: {tuple(y.shape)} contiguous {y.is_contiguous()}"
+            " (cuDNN did not keep the channels-last layout)")
+    del x, w, y
+
+    for case, shape in CBN_STATS_CASES:
+        y = randn_card(cgen, *shape)
+        rows, c = y.numel() // shape[-1], shape[-1]
+        got = kc.channel_stats_fwd(y)
+        _require_same_bits("channel_stats", got, kc.channel_stats_fwd(y))
+        y64 = y.double()
+        exact = kc.reference_channel_stats(y64)
+        sums = [compare_sums(f"channel_stats s1 {case}", got[0], exact[0],
+                             y64.abs().sum((0, 1, 2)), failures),
+                compare_sums(f"channel_stats s2 {case}", got[1], exact[1],
+                             exact[1], failures)]
+        del y64, exact
+        rec = timed_record(
+            "channel_stats", src, "paddle_tpu/kernels/conv_bn.py:146",
+            max(e for e, _ in sums), lambda: kc.channel_stats_fwd(y),
+            lambda: kc.reference_channel_stats(y), 3 * rows * c,
+            F32 * (rows * c + 2 * c),
+            lambda: torch.var_mean(y, dim=(0, 1, 2)), RESNET_BATCH)
+        rec["sum_err_of_terms"] = max(w for _, w in sums)
+        records[("channel_stats", case)] = rec
+        del y
+
+    for case, m, k, n, stride in CBN_DOT_CASES:
+        if stride > 1:
+            side = int(round((m // RESNET_BATCH) ** 0.5))
+            full = randn_card(cgen, RESNET_BATCH, side * stride,
+                              side * stride, k)
+            x2 = full[:, ::stride, ::stride, :].reshape(m, k)
+            copy_ms = cuda_ms(lambda: full[:, ::stride, ::stride, :]
+                              .reshape(m, k))
+            del full
+        else:
+            x2, copy_ms = randn_card(cgen, m, k), None
+        w2 = randn_card(cgen, n, k, scale=k ** -0.5)
+        got = kc.dot_col_stats_fwd(x2, w2)
+        _require_same_bits("dot_col_stats", got, kc.dot_col_stats_fwd(x2, w2))
+        want = kc.reference_dot_col_stats(x2, w2)[0]
+        err = compare(f"dot_col_stats y {case}", got[0], want, TOL_KERNEL)
+        del want
+        # the statistics are of the stored y: the kernel's own, in float64
+        y64 = got[0].double()
+        exact = kc.reference_channel_stats(y64)
+        sums = [compare_sums(f"dot_col_stats s1 {case}", got[1], exact[0],
+                             y64.abs().sum(0), failures),
+                compare_sums(f"dot_col_stats s2 {case}", got[2], exact[1],
+                             exact[1], failures)]
+        del got, y64, exact
+        rec = timed_record(
+            "dot_col_stats", src, "paddle_tpu/kernels/conv_bn.py:225",
+            max([err] + [e for e, _ in sums]),
+            lambda: kc.dot_col_stats_fwd(x2, w2),
+            lambda: kc.reference_dot_col_stats(x2, w2),
+            2 * m * n * k + 3 * m * n, F32 * (m * k + n * k + m * n + 2 * n),
+            None, RESNET_BATCH)
+        rec["matmul_ms"] = cuda_ms(lambda: x2 @ w2.t())
+        rec["sum_err_of_terms"] = max(w for _, w in sums)
+        if copy_ms is not None:
+            rec["strided_copy_ms"] = copy_ms
+        records[("dot_col_stats", case)] = rec
+        del x2, w2
+
+    for case, rows, c, residual, relu in CBN_SSA_CASES:
+        x, g = randn_card(cgen, rows, c), randn_card(cgen, rows, c)
+        wv, bv = randn_card(cgen, c) + 1.0, randn_card(cgen, c)
+        res = randn_card(cgen, rows, c) if residual else None
+        out = kc.ssa_fwd(x, wv, bv, res, relu)
+        _require_same_bits("ssa_fwd", [out], [kc.ssa_fwd(x, wv, bv, res,
+                                                         relu)])
+        err_fwd = compare(f"ssa_fwd {case}", out,
+                          kc.reference_ssa_fwd(x, wv, bv, res, relu),
+                          TOL_KERNEL)
+        got = kc.ssa_bwd(g, x, out, wv, residual, relu)
+        _require_same_bits("ssa_bwd", got, kc.ssa_bwd(g, x, out, wv,
+                                                      residual, relu))
+        want = kc.reference_ssa_bwd(g, x, out, wv, residual, relu)
+        err_bwd = max(
+            compare(f"ssa_bwd dx {case}", got[0], want[0], TOL_KERNEL),
+            compare(f"ssa_bwd dres {case}", got[1], want[1], TOL_KERNEL)
+            if residual else 0.0)
+        del want
+        gm = (torch.where(out > 0, g, 0.0) if relu else g).double()  # g'
+        x64 = x.double()
+        sums = [compare_sums(f"ssa_bwd sg {case}", got[2], gm.sum(0),
+                             gm.abs().sum(0), failures)]
+        gm *= x64
+        sums.append(compare_sums(f"ssa_bwd sgx {case}", got[3], gm.sum(0),
+                                 gm.abs().sum(0), failures))
+        del got, gm, x64
+        err_bwd = max([err_bwd] + [e for e, _ in sums])
+        n = rows * c
+        streams = 2 + residual
+        records[("ssa_fwd", case)] = timed_record(
+            "ssa_fwd", src, "paddle_tpu/kernels/conv_bn.py:409", err_fwd,
+            lambda: kc.ssa_fwd(x, wv, bv, res, relu),
+            lambda: kc.reference_ssa_fwd(x, wv, bv, res, relu),
+            (2 + residual + relu) * n, F32 * (streams * n + 2 * c), None,
+            RESNET_BATCH)
+        records[("ssa_bwd", case)] = timed_record(
+            "ssa_bwd", src, "paddle_tpu/kernels/conv_bn.py:429", err_bwd,
+            lambda: kc.ssa_bwd(g, x, out, wv, residual, relu),
+            lambda: kc.reference_ssa_bwd(g, x, out, wv, residual, relu),
+            (4 + relu) * n, F32 * ((3 + relu + residual) * n + 3 * c), None,
+            RESNET_BATCH)
+        records[("ssa_bwd", case)]["sum_err_of_terms"] = max(
+            w for _, w in sums)
+        del x, g, res, out
+    require(not failures, "conv + BN sums out of bounds: "
+            + "; ".join(failures))
+    return records
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main paths
 # ---------------------------------------------------------------------------
@@ -1649,6 +1876,211 @@ def run_training_dropout(model, unfused, cpu32, cpu64):
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+#: (g) the kernel route against the card's plain route (the twins of
+#: #18-#21 on the card) at batch 256, from the same weights on the same
+#: batch.  The loss and the running statistics come from the forward and
+#: agree closely (relative; f32 against float64 on the CPU at 224, batch
+#: 4: 1.3e-6).  The gradients do not: at initialization ResNet-50's f32
+#: gradient sits 2-4% per tensor off float64 whatever the order of
+#: summation (on the CPU at 224, batch 4: medians 2.6% and 2.9%, worst
+#: 4.1%, by two convolution algorithms), so two f32 routes differ by as
+#: much, and TOL_RESNET_ROUTES_GRAD is twice that spread
+TOL_RESNET_ROUTES_LOSS, TOL_RESNET_ROUTES_STATS = 1e-4, 1e-4
+TOL_RESNET_ROUTES_GRAD = 0.1
+
+
+def resnet_batch(b, seed):
+    """``bench_resnet50``'s feed: ``rand`` NCHW images in [0, 1) and
+    ``randint(0, 1000)`` int64 labels [b, 1] (numpy, seeded)."""
+    rng = np.random.RandomState(seed)
+    image = rng.rand(b, 3, RESNET_SIZE, RESNET_SIZE).astype(np.float32)
+    label = rng.randint(0, RESNET_CLASSES, (b, 1)).astype(np.int64)
+    return {"image": image, "label": label}
+
+
+@contextlib.contextmanager
+def plain_conv_bn():
+    """The card's plain route: the wrappers of #18-#21 swapped for their
+    plain twins (on CUDA tensors) while the block runs."""
+    from paddle_tpu_torch.kernels import conv_bn as kc
+
+    swaps = {"channel_stats_fwd": kc.reference_channel_stats,
+             "dot_col_stats_fwd": kc.reference_dot_col_stats,
+             "ssa_fwd": kc.reference_ssa_fwd,
+             "ssa_bwd": kc.reference_ssa_bwd}
+    saved = {name: getattr(kc, name) for name in swaps}
+    for name, twin in swaps.items():
+        setattr(kc, name, twin)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(kc, name, fn)
+
+
+def _resnet_step(model, feed, opt=None):
+    """One forward and backward of ``model`` on ``feed`` and, with
+    ``opt``, its Momentum update: (loss, acc, {name: gradient})."""
+    names = {p: n for n, p in model.named_parameters()}
+    loss, acc, _ = model(**feed)
+    if opt is not None:
+        grads = {names[p]: g for p, g in opt.minimize(loss)}
+    else:
+        loss.backward()
+        grads = {names[p]: p.grad for p in model.parameters()}
+        for p in model.parameters():
+            p.grad = None
+    return loss.item(), acc.item(), grads
+
+
+def _state(model):
+    return {n: t.detach().clone() for n, t in model.state_dict().items()}
+
+
+def run_resnet(model):
+    """Phase 3 (g): ResNet-50 training, NHWC, f32, Momentum(0.1, 0.9),
+    from ``model``'s weights (kept as the initial state of every leg).
+    Step 1 at RESNET_PARITY_BATCH against float64 and f32 CPU copies under
+    (d)'s criterion (gradients, running statistics, updated parameters);
+    step 1 at RESNET_BATCH, repeated for equal bits and held against the
+    card's plain route; then RESNET_TIMED_STEPS timed steps on one
+    repeated batch.  Every counted step launches exactly RESNET_LAUNCHES.
+    The parity and repeated steps run with cudnn.deterministic; the timed
+    ones with PyTorch's defaults.  Returns the run's record."""
+    from paddle_tpu_torch import Momentum, ResNet, kernels
+
+    init = _state(model)
+    cpu_init = {n: t.cpu() for n, t in init.items()}
+    feed16 = resnet_batch(RESNET_PARITY_BATCH, seed=1)
+    t0 = time.perf_counter()
+    cpu = {}
+    for dtype in (torch.float64, torch.float32):
+        copy = ResNet(RESNET_DEPTH, RESNET_CLASSES, device="cpu").to(dtype)
+        copy.load_state_dict(cpu_init)
+        feed = {"image": torch.from_numpy(feed16["image"]).to(dtype),
+                "label": torch.from_numpy(feed16["label"])}
+        loss, _, grads = _resnet_step(copy, feed, Momentum(
+            copy.parameters(), RESNET_LR, RESNET_MOMENTUM))
+        cpu[dtype] = (loss, grads, _state(copy))
+        del copy
+    cpu_s = time.perf_counter() - t0
+    loss64, exact, exact_state = cpu[torch.float64]
+    _, cpu_grads, cpu_state = cpu[torch.float32]
+
+    torch.backends.cudnn.deterministic = True
+    counts = expected()
+    kernels.reset_launches()
+    loss16, _, grads = _resnet_step(model, _to(feed16, "cuda"), Momentum(
+        model.parameters(), RESNET_LR, RESNET_MOMENTUM))
+    torch.cuda.synchronize()
+    require(kernels.launches == expected(**RESNET_LAUNCHES),
+            f"resnet step 1 (batch {RESNET_PARITY_BATCH}): launches "
+            f"{kernels.launches}")
+    counts = {n: c + kernels.launches[n] for n, c in counts.items()}
+    require(np.isfinite(loss16) and abs(loss16 - loss64) <= TOL_TRAIN_LOSS
+            * abs(loss64), f"resnet: loss {loss16} on the card, {loss64} in "
+            f"float64")
+    worst = []
+    card_state = _state(model)
+    for kind, got, want, f32 in (("grad", grads, exact, cpu_grads),
+                                 ("state", card_state, exact_state,
+                                  cpu_state)):
+        require(got.keys() == want.keys() == f32.keys(),
+                f"resnet: the card and the CPU hold other {kind} tensors")
+        for n in got:
+            card = _grad_rel(got[n].cpu(), want[n])
+            cpu32 = _grad_rel(f32[n], want[n])
+            require(card <= max(TOL_TRAIN_GRAD, 2 * cpu32),
+                    f"resnet step 1: {kind} {n} off float64 by {card} on "
+                    f"the card, {cpu32} on the CPU in f32")
+            worst.append((card, cpu32, kind, n))
+    del grads, exact, cpu_grads, card_state, exact_state, cpu_state, cpu
+
+    feed = _to(resnet_batch(RESNET_BATCH, seed=2), "cuda")
+    model.load_state_dict(init)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    loss_k, _, grads_k = _resnet_step(model, feed)
+    torch.cuda.synchronize()
+    require(kernels.launches == expected(**RESNET_LAUNCHES),
+            f"resnet step 1 (batch {RESNET_BATCH}): launches "
+            f"{kernels.launches}")
+    counts = {n: c + kernels.launches[n] for n, c in counts.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats_k = {n: b.clone() for n, b in model.named_buffers()}
+    model.load_state_dict(init)
+    loss_r, _, grads_r = _resnet_step(model, feed)
+    require(loss_r == loss_k, f"resnet: a repeated step 1 gave loss "
+            f"{loss_r}, first {loss_k}")
+    _require_repeat(grads_k, grads_r, "resnet (batch 256)")
+    del grads_r
+    model.load_state_dict(init)
+    kernels.reset_launches()
+    with plain_conv_bn():
+        loss_p, _, grads_p = _resnet_step(model, feed)
+    torch.cuda.synchronize()
+    require(kernels.launches == expected(), "resnet plain route launched "
+            f"kernels: {kernels.launches}")
+    require(abs(loss_k - loss_p) <= TOL_RESNET_ROUTES_LOSS * abs(loss_p),
+            f"resnet: loss {loss_k} on the kernels, {loss_p} on the plain "
+            f"route")
+    route_rel = sorted((_grad_rel(grads_k[n], grads_p[n]), n)
+                       for n in grads_p)
+    require(route_rel[-1][0] <= TOL_RESNET_ROUTES_GRAD,
+            f"resnet: gradient of {route_rel[-1][1]} differs between the "
+            f"routes by {route_rel[-1][0]}")
+    stats_rel = max((_grad_rel(stats_k[n], b), n)
+                    for n, b in model.named_buffers())
+    require(stats_rel[0] <= TOL_RESNET_ROUTES_STATS,
+            f"resnet: running statistic {stats_rel[1]} differs between the "
+            f"routes by {stats_rel[0]}")
+    del grads_k, grads_p, stats_k
+
+    torch.backends.cudnn.deterministic = False
+    model.load_state_dict(init)
+    opt = Momentum(model.parameters(), RESNET_LR, RESNET_MOMENTUM)
+    step_ms, losses = [], []
+    kernels.reset_launches()
+    for _ in range(RESNET_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, _ = model(**feed)
+        opt.minimize(loss)
+        losses.append(loss.item())  # syncs: the step is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    require(kernels.launches == expected(**{
+        n: c * RESNET_TIMED_STEPS for n, c in RESNET_LAUNCHES.items()}),
+        f"resnet timed steps: launches {kernels.launches}")
+    counts = {n: c + kernels.launches[n] for n, c in counts.items()}
+    # the first update must lower the loss on the batch it was taken on;
+    # later steps may overshoot: Momentum 0.9 grows the effective step to
+    # 10x lr on one repeated batch
+    require(all(np.isfinite(losses)) and losses[1] < losses[0],
+            f"resnet: the loss did not fall on a repeated batch {losses}")
+    med = float(np.median(step_ms))
+    ips = RESNET_BATCH / (med / 1e3)
+    worst.sort(reverse=True)
+    return dict(route="resnet50 training", batch=RESNET_BATCH,
+                image=RESNET_SIZE, launches=counts,
+                parity_batch=RESNET_PARITY_BATCH,
+                parity_losses=(loss16, loss64),
+                # (card vs f64, cpu f32 vs f64, kind, name)
+                parity_rel_worst=worst[:4],
+                parity_grad_rel_median=[float(np.median(
+                    [w[i] for w in worst if w[2] == "grad"]))
+                    for i in range(2)],
+                cpu_parity_s=cpu_s, routes_loss=(loss_k, loss_p),
+                routes_grad_rel_worst=route_rel[-3:],
+                routes_grad_rel_median=float(np.median(
+                    [r for r, _ in route_rel])),
+                routes_stats_rel_worst=stats_rel,
+                step_ms_median=med, step_ms_range=(min(step_ms),
+                                                   max(step_ms)),
+                images_per_s=ips,
+                f32_peak_share=ips * RESNET_FLOPS_PER_IMAGE / PEAK_F32_FLOPS,
+                timed_losses=losses, peak_memory_gb=peak_gb)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: where the time goes (torch.profiler)
 # ---------------------------------------------------------------------------
@@ -1737,6 +2169,39 @@ def profile_training(model, tag):
                 top=[(name[:60], us / 1e3) for name, us in rows[:12]])
 
 
+def profile_resnet(model):
+    """Device time by kernel over one ResNet-50 step at RESNET_BATCH
+    (forward, backward, Momentum), beside host wall time; the table goes
+    to ``profile_resnet_step.txt``.  Also lists every device kernel whose
+    name says it converts layouts (NCHW/NHWC or a transpose)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import Momentum
+
+    opt = Momentum(model.parameters(), RESNET_LR, RESNET_MOMENTUM)
+    feed = _to(resnet_batch(RESNET_BATCH, seed=2), "cuda")
+    opt.minimize(model(**feed)[0])  # warm: the allocator and the state
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt.minimize(model(**feed)[0])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_kernels(prof)
+    busy_us = sum(us for _, us in rows)
+    with open(os.path.join(OUT_DIR, "profile_resnet_step.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=80))
+    layout = [(name[:80], us / 1e3) for name, us in rows
+              if any(k in name.lower() for k in ("nchw", "nhwc",
+                                                 "transpose"))]
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+                idle_share=1 - busy_us / wall_us if busy_us else None,
+                top=[(name[:60], us / 1e3) for name, us in rows[:16]],
+                layout_kernels=layout)
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1753,7 +2218,13 @@ def print_record(r, label):
              if "library_max_abs_err" in r else "")
           + (f"; rate {DROPOUT}: ms {r['dropout_ms']} bound_ms "
              f"{r['dropout_bound_ms']} max_abs_err "
-             f"{r['dropout_max_abs_err']:.3e}" if "dropout_ms" in r else ""))
+             f"{r['dropout_max_abs_err']:.3e}" if "dropout_ms" in r else "")
+          + (f"; bare product (torch.matmul) ms {r['matmul_ms']}"
+             if "matmul_ms" in r else "")
+          + (f"; strided rows copied in {r['strided_copy_ms']} ms"
+             if "strided_copy_ms" in r else "")
+          + (f"; sums {r['sum_err_of_terms']:.3e} of their terms (TOL_SUM "
+             f"{TOL_SUM})" if "sum_err_of_terms" in r else ""))
 
 
 def main():
@@ -1826,6 +2297,10 @@ def main():
         print_record(r, f" [{DROPOUT_ROWS}, {BASE['d_model']}] rate "
                         f"{DROPOUT}")
         records[(r["name"], max(BATCHES))] = r
+    # the JSON line carries each conv + BN kernel's first case
+    for (name, case), r in check_conv_bn(gen).items():
+        print_record(r, f" {case} b={r['batch']}")
+        records.setdefault((name, max(BATCHES)), r)
 
     model = paddle_tpu_torch.Transformer(**BASE).init_params(seed=0)
     cpu_model = paddle_tpu_torch.Transformer(**BASE, device="cpu")
@@ -1922,6 +2397,13 @@ def main():
           f"share {training_dropout['f32_peak_share']} against "
           f"{training_fused['f32_peak_share']}")
 
+    # (g): ResNet-50 training
+    resnet = paddle_tpu_torch.ResNet(RESNET_DEPTH,
+                                     RESNET_CLASSES).init_params(seed=0)
+    training_resnet = run_resnet(resnet)
+    print("phase 3: " + ", ".join(f"{k} {v}"
+                                  for k, v in training_resnet.items()))
+
     for b in BATCHES:
         prof = profile_serving(model, b)
         for phase, r in prof.items():
@@ -1947,10 +2429,24 @@ def main():
               f"{r['idle_share']}")
         for name, ms in r["top"]:
             print(f"    {ms:.4f} ms  {name}")
+    profile_rn = profile_resnet(resnet)
+    if not profile_rn["device_busy_ms"]:
+        print("phase 4: resnet50 training step: device time not measured "
+              "(the profiler saw no device events)")
+    else:
+        print(f"phase 4: resnet50 training step (batch {RESNET_BATCH}): "
+              f"wall {profile_rn['wall_ms']} ms, device busy "
+              f"{profile_rn['device_busy_ms']} ms, idle share "
+              f"{profile_rn['idle_share']}")
+        for name, ms in profile_rn["top"]:
+            print(f"    {ms:.4f} ms  {name}")
+        print("phase 4: resnet50 layout-conversion kernels (NCHW/NHWC, "
+              f"transpose): {profile_rn['layout_kernels'] or 'none'}")
 
     # launches over every counted path; the FFN counter is split between
     # the ring paths (#11) and the paged ones (#13)
-    paths = runs + serving + [training, training_fused, training_dropout]
+    paths = runs + serving + [training, training_fused, training_dropout,
+                              training_resnet]
     total = {name: sum(r["launches"][name] for r in paths)
              for name in paths[0]["launches"]}
     paged_ffn = sum(r["launches"]["ffn"] for r in paths
@@ -1962,7 +2458,8 @@ def main():
                  "megastep", "ffn", "megastep_paged", "ffn_paged",
                  "flash_decode", "flash_decode_paged", "flash_fwd",
                  "flash_bwd_dq", "flash_bwd_dkv", "dropout_add_fwd",
-                 "dropout_add_bwd"):
+                 "dropout_add_bwd", "channel_stats", "dot_col_stats",
+                 "ssa_fwd", "ssa_bwd"):
         r = dict(records[(name, max(BATCHES))])
         r.pop("library_max_abs_err", None)
         r["launches"] = total[name]
@@ -1970,7 +2467,10 @@ def main():
         kernels_line.append(r)
     print(json.dumps({"main_path": runs, "serving": serving,
                       "training": training, "training_fused": training_fused,
-                      "training_dropout": training_dropout, "power": smi}))
+                      "training_dropout": training_dropout,
+                      "training_resnet": training_resnet,
+                      "profile_resnet": {k: v for k, v in profile_rn.items()
+                                         if k != "top"}, "power": smi}))
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,19 +23,34 @@ continuous batcher:
     batcher = ContinuousBatcher(served)
     batcher.start(); tokens, meta = batcher.submit(prompt)
 
-Thirteen hand-written CUDA kernels carry it (``kernels/``); every other
-operation is plain PyTorch.  Pass ``device="cpu"`` to run every kernel's
-plain twin instead.  The package imports neither JAX nor ``paddle_tpu``.
+It also trains ResNet (18 to 152; ResNet-50 is the reference's headline
+workload) with Paddle's Momentum, on the reference's NHWC fused conv +
+batch-norm route, in f32:
+
+    model = ResNet(depth=50, class_dim=1000).init_params(0)
+    opt = Momentum(model.parameters(), learning_rate=0.1, momentum=0.9)
+    avg_cost, acc, predict = model(image, label)   # NCHW f32, int64 [N, 1]
+    opt.minimize(avg_cost)
+
+Seventeen hand-written CUDA kernels carry all of it (``kernels/``); every
+other operation is plain PyTorch, the convolutions that are not 1x1
+included (cuDNN on the card; turn its TF32 off for the f32 step).  Pass
+``device="cpu"`` to run every kernel's plain twin instead.  The package
+imports neither JAX nor ``paddle_tpu``.
 """
 
 from .device import resolve_device  # noqa: F401
 from .generation import (BlockAllocator, GenerationSession,  # noqa: F401
                          KVCache, PagedKVCache)
 from .interop import (export_paddle_tpu_adam_state,  # noqa: F401
-                      export_paddle_tpu_params, load_paddle_tpu_adam_state,
-                      load_paddle_tpu_params)
+                      export_paddle_tpu_params,
+                      export_paddle_tpu_resnet_params,
+                      load_paddle_tpu_adam_state,
+                      load_paddle_tpu_momentum_state, load_paddle_tpu_params,
+                      load_paddle_tpu_resnet_params)
+from .models.resnet import ResNet  # noqa: F401
 from .models.transformer import (Transformer, make_batch,  # noqa: F401
                                  training_biases)
-from .optimizer import Adam  # noqa: F401
+from .optimizer import Adam, Momentum  # noqa: F401
 from .serving import (ContinuousBatcher, GenerationConfig,  # noqa: F401
                       GenerationServingModel)

@@ -2,7 +2,8 @@
 //
 // Shared by the fused-projection kernels: the backward (#2, #3 in
 // qkv_attention_bwd.cu: the q|k|v and dctx projections, dx and dW) and
-// #1's output projection (qkv_attention.cu: y = ctx W_out).  256 threads, an
+// #1's output projection (qkv_attention.cu: y = ctx W_out); conv_bn.cu's
+// #19 runs gemm_tile with a statistics epilogue of its own.  256 threads, an
 // 8x8 patch of each C tile per thread, operands staged k-major in shared
 // memory and read as float4.  Every element of C is summed in one fixed
 // order (split-K partials are added in slab order by sum_splits): no
@@ -46,27 +47,25 @@ __device__ __forceinline__ void gemm_stage(float* dst, const float* src,
   }
 }
 
-// C[m, n] = sum_k A(m, k) B(k, n) over k in split blockIdx.z's slab
-// [z * k_slab, (z + 1) * k_slab), written to c + z * split_stride.
-// A(m, k) is a[k * lda + m] when A_KM, else a[m * lda + k]; B(k, n) is
-// b[k * ldb + n] when B_KM, else b[n * ldb + k].  Each thread owns rows
-// {4ty.., 64 + 4ty..} and columns {4tx.., 64 + 4tx..} of the tile and
-// sums its slab in increasing k.
+// Row (col) of a C tile held in acc row i (col j) by thread row ty (col
+// tx): {4ty.., 64 + 4ty..}.
+__device__ __forceinline__ int gemm_tile_row(int i, int t) {
+  return i < 4 ? t * 4 + i : 64 + t * 4 + i - 4;
+}
+
+// acc = sum over k in [k_begin, k_end) of A(m0 + row, k) B(k, n0 + col)
+// for this thread's 8x8 patch of the 128x128 C tile at (m0, n0), summed
+// in increasing k; rows >= M and columns >= N read zeros.  A(m, k) is
+// a[k * lda + m] when A_KM, else a[m * lda + k]; B(k, n) is b[k * ldb + n]
+// when B_KM, else b[n * ldb + k].  a_s and b_s are GK * GS floats of
+// shared memory each; every thread of the block calls this.
 template <bool A_KM, bool B_KM>
-__global__ void __launch_bounds__(GNT, 2)
-gemm_kernel(const float* __restrict__ a, int lda,
-            const float* __restrict__ b, int ldb, float* c, int ldc,
-            size_t split_stride, int M, int N, int K, int k_slab) {
-  __shared__ __align__(16) float a_s[GK * GS];
-  __shared__ __align__(16) float b_s[GK * GS];
-  const int n0 = blockIdx.x * GT;
-  const int m0 = blockIdx.y * GT;
-  const int k_begin = blockIdx.z * k_slab;
-  const int k_end = min(K, k_begin + k_slab);
+__device__ __forceinline__ void gemm_tile(
+    const float* __restrict__ a, int lda, const float* __restrict__ b,
+    int ldb, int M, int N, int m0, int n0, int k_begin, int k_end,
+    float* a_s, float* b_s, float (&acc)[8][8]) {
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-
-  float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -95,15 +94,37 @@ gemm_kernel(const float* __restrict__ a, int lda,
         for (int j = 0; j < 8; ++j) acc[i][j] += av[i] * bv[j];
     }
   }
+}
+
+// C[m, n] = sum_k A(m, k) B(k, n) over k in split blockIdx.z's slab
+// [z * k_slab, (z + 1) * k_slab), written to c + z * split_stride; A and
+// B as gemm_tile reads them.
+template <bool A_KM, bool B_KM>
+__global__ void __launch_bounds__(GNT, 2)
+gemm_kernel(const float* __restrict__ a, int lda,
+            const float* __restrict__ b, int ldb, float* c, int ldc,
+            size_t split_stride, int M, int N, int K, int k_slab) {
+  __shared__ __align__(16) float a_s[GK * GS];
+  __shared__ __align__(16) float b_s[GK * GS];
+  const int n0 = blockIdx.x * GT;
+  const int m0 = blockIdx.y * GT;
+  const int k_begin = blockIdx.z * k_slab;
+  const int k_end = min(K, k_begin + k_slab);
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+
+  float acc[8][8];
+  gemm_tile<A_KM, B_KM>(a, lda, b, ldb, M, N, m0, n0, k_begin, k_end, a_s,
+                        b_s, acc);
 
   c += blockIdx.z * split_stride;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    const int m = m0 + gemm_tile_row(i, ty);
     if (m >= M) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      const int n = n0 + gemm_tile_row(j, tx);
       if (n < N) c[(size_t)m * ldc + n] = acc[i][j];
     }
   }

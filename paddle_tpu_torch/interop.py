@@ -14,6 +14,17 @@ reference's optimizer gives its accumulators, ``<param>_moment1_0`` and
 the like (``paddle_tpu/optimizer.py`` ``_add_accumulator``).
 :func:`dropout_seeds` turns a reference step's key and its program's
 dropout ``rng_id``s into the seeds of ``Transformer.forward``.
+
+ResNet has maps of its own.  :func:`resnet_param_names` lists the
+persistable names ``build_train_net`` draws (``conv2d_<i>.w_0``,
+``batch_norm_<i>.{w_0,b_0,mean_0,var_0}``, ``fc_0.{w_0,b_0}``) with the
+parameter or running-statistic buffer of the port's
+:class:`~paddle_tpu_torch.models.resnet.ResNet` each fills;
+:func:`load_paddle_tpu_resnet_params` and
+:func:`export_paddle_tpu_resnet_params` carry the parameters and the
+running statistics, and :func:`load_paddle_tpu_momentum_state` the
+:class:`~paddle_tpu_torch.optimizer.Momentum` velocities,
+``<param>_velocity_0``.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import numpy as np
 import torch
 
 from .kernels.hash_rng import seed_from_key_data
+from .models.resnet import DEPTHS
 
 
 def paddle_tpu_param_names(n_layer: int):
@@ -152,3 +164,90 @@ def dropout_seeds(key_data, rng_ids):
     ``fused_qkv_attention`` ops in op order, which for ``transformer()``
     is the order of ``Transformer.dropout_sites()``.  Numpy only."""
     return [seed_from_key_data(key_data, r or 1) for r in rng_ids]
+
+
+def resnet_param_names(depth: int):
+    """[(reference name, port path)] of ResNet-``depth``'s parameters and
+    running statistics, in the order ``build_train_net`` draws them: per
+    ``conv_bn_layer`` its filter, the batch norm's scale and bias and its
+    running mean and variance; in the first block of a stage whose width
+    changes the shortcut's layer comes before conv1 (``basicblock``,
+    ``bottleneck``); the fc last."""
+    stages, kind = DEPTHS[depth]
+    expansion = 4 if kind == "bottleneck" else 1
+    convs = ["conv2", "conv3"] if kind == "bottleneck" else ["conv2"]
+    paths, ch_in = ["conv1"], 64
+    for i, (count, width) in enumerate(zip(stages, (64, 128, 256, 512))):
+        for j in range(count):
+            block = f"stages.{i}.{j}."
+            if j == 0 and ch_in != width * expansion:
+                paths.append(block + "shortcut")
+            paths += [block + c for c in ["conv1"] + convs]
+        ch_in = width * expansion
+    pairs = []
+    for i, path in enumerate(paths):
+        pairs += [(f"conv2d_{i}.w_0", f"{path}.weight"),
+                  (f"batch_norm_{i}.w_0", f"{path}.scale"),
+                  (f"batch_norm_{i}.b_0", f"{path}.bias"),
+                  (f"batch_norm_{i}.mean_0", f"{path}.mean"),
+                  (f"batch_norm_{i}.var_0", f"{path}.var")]
+    return pairs + [("fc_0.w_0", "fc_w"), ("fc_0.b_0", "fc_b")]
+
+
+def _resnet_tensor(model, path):
+    """The parameter or buffer of ``model`` at ``path``."""
+    params = dict(model.named_parameters())
+    return params[path] if path in params else model.get_buffer(path)
+
+
+@torch.no_grad()
+def load_paddle_tpu_resnet_params(model, params):
+    """Fill ``model`` (a ResNet) from ``params``, a ``{name: array}``
+    mapping as the reference's scope holds it: every parameter and running
+    statistic of :func:`resnet_param_names`.  Raises on a missing name or
+    a shape that differs; returns the model."""
+    pairs = resnet_param_names(model.depth)
+    missing = [name for name, _ in pairs if name not in params]
+    if missing:
+        raise KeyError(f"load_paddle_tpu_resnet_params: missing {missing}")
+    for name, path in pairs:
+        value = torch.from_numpy(np.array(params[name], np.float32))
+        target = _resnet_tensor(model, path)
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(
+                f"load_paddle_tpu_resnet_params: {name} has shape "
+                f"{tuple(value.shape)}, {path} wants {tuple(target.shape)}")
+        target.copy_(value)
+    return model
+
+
+def export_paddle_tpu_resnet_params(model):
+    """{reference name: f32 numpy array} of ``model``'s parameters and
+    running statistics, which :func:`load_paddle_tpu_resnet_params` (or
+    a reference scope) takes."""
+    return {name: _resnet_tensor(model, path).detach().cpu().numpy().copy()
+            for name, path in resnet_param_names(model.depth)}
+
+
+@torch.no_grad()
+def load_paddle_tpu_momentum_state(optimizer, model, state):
+    """Fill the velocities of ``optimizer`` (a Momentum training the
+    ResNet ``model``) from ``state``, ``{name: array}`` as the reference's
+    scope holds its ``<param>_velocity_0`` accumulators.  Raises on a
+    missing name or a shape that differs; returns the optimizer."""
+    pairs = []
+    for name, path in resnet_param_names(model.depth):
+        st = optimizer.state.get(_resnet_tensor(model, path))
+        if st is not None:
+            pairs.append((f"{name}_velocity_0", st["velocity"]))
+    missing = [name for name, _ in pairs if name not in state]
+    if missing:
+        raise KeyError(f"load_paddle_tpu_momentum_state: missing {missing}")
+    for name, target in pairs:
+        value = torch.from_numpy(np.array(state[name], np.float32))
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(
+                f"load_paddle_tpu_momentum_state: {name} has shape "
+                f"{tuple(value.shape)}, the port's is {tuple(target.shape)}")
+        target.copy_(value)
+    return optimizer

@@ -12,7 +12,9 @@ from __future__ import annotations
 launches = {"qkv_attention_fwd": 0, "qkv_bwd_dq": 0, "qkv_bwd_dkv": 0,
             "megastep": 0, "megastep_paged": 0, "ffn": 0, "flash_decode": 0,
             "flash_decode_paged": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "dropout_add_fwd": 0, "dropout_add_bwd": 0}
+            "flash_bwd_dkv": 0, "dropout_add_fwd": 0, "dropout_add_bwd": 0,
+            "channel_stats": 0, "dot_col_stats": 0, "ssa_fwd": 0,
+            "ssa_bwd": 0}
 
 
 def reset_launches() -> None:

@@ -144,6 +144,12 @@ _SIGNATURES = {
                           + [_F, _I] + _DROP + [_P]),
     "ptt_dropout_add": (_I, [_P] * 3 + [_L] + _DROP + [_P]),
     "ptt_dropout_add_bwd": (_I, [_P] * 2 + [_L] + _DROP + [_P]),
+    "ptt_stats_partials": (_L, [_L, _I]),
+    "ptt_dot_stats_partials": (_L, [_I, _I]),
+    "ptt_channel_stats": (_I, [_P] * 4 + [_L, _I, _P]),
+    "ptt_dot_col_stats": (_I, [_P] * 6 + [_I] * 3 + [_P]),
+    "ptt_ssa_fwd": (_I, [_P] * 5 + [_L, _I, _I, _P]),
+    "ptt_ssa_bwd": (_I, [_P] * 9 + [_L, _I, _I, _P]),
 }
 
 

@@ -597,11 +597,14 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, bias=None, scale=1.0, causal=False,
-                    fmt="bthd", dropout_rate=0.0, dropout_seed=None):
+                    fmt="bhtd", dropout_rate=0.0, dropout_seed=None):
     """softmax(q k^T * scale + bias) v per head, differentiable in q, k, v
     (and in bias when it requires grad).
 
-    q [b, tq, h, d], k/v [b, tk, h, d] f32 (``fmt="bthd"``, the layout the
+    ``fmt`` defaults to the reference's ``"bhtd"`` ([b, h, t, d]), whose
+    kernels (#5, #8, #9) are not ported: that layout raises, so a
+    reference-style call never attends over the wrong axis.  Callers pass
+    ``fmt="bthd"``: q [b, tq, h, d], k/v [b, tk, h, d] f32 (the layout the
     projections give for free); bias broadcastable to [b, 1|h, 1|tq, tk]
     (the key-padding [b, 1, 1, tk] and decoder [b, 1, tq, tk] biases are
     read in place, never expanded); ``causal`` masks keys past

@@ -1,0 +1,197 @@
+"""ResNet for image classification training, as nn.Modules.
+
+Counterpart of ``paddle_tpu/models/resnet.py`` (``resnet_imagenet`` and
+``build_train_net``) on the reference's NHWC training route: with
+``FLAGS_fused_bn`` on (its default), NHWC and a training graph, every
+``conv_bn_layer`` is one fused ``conv2d_bn`` (``ops/nn_ops.py``).  There a
+1x1 convolution runs #19 (the product with its output's statistics in the
+epilogue), every other convolution ``F.conv2d`` (cuDNN on the card, as
+the reference leaves its convolutions to XLA) and then #18, and the batch
+norm with its residual and ReLU runs #20 forward and #21 backward.
+``model.eval()`` (the reference's ``is_test``) takes the composition over
+the running statistics instead, with no kernel.
+
+The image enters as the reference feeds it, NCHW f32, and is permuted to
+NHWC once; every activation after that is a contiguous NHWC tensor.  The
+running mean and variance are buffers, moved in place by each training
+forward with momentum 0.9.  Parameters keep the reference's layouts
+(OIHW filters, the fc weight [in, out]), so
+``interop.load_paddle_tpu_resnet_params`` carries a JAX scope across.
+
+The card's f32 step needs TF32 off for cuDNN (``torch.backends.cudnn.
+allow_tf32 = False``), which PyTorch leaves on by default; the port does
+not change that global setting itself.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..ops.nn_ops import accuracy, conv2d_bn, cross_entropy, pool2d
+
+#: depth -> (blocks per stage, block kind), ``resnet_imagenet``'s table
+DEPTHS = {18: ([2, 2, 2, 1], "basic"), 34: ([3, 4, 6, 3], "basic"),
+          50: ([3, 4, 6, 3], "bottleneck"),
+          101: ([3, 4, 23, 3], "bottleneck"),
+          152: ([3, 8, 36, 3], "bottleneck")}
+MOMENTUM, EPSILON = 0.9, 1e-5
+
+
+class ConvBN(nn.Module):
+    """``conv_bn_layer``: a bias-free convolution, batch norm, and then an
+    optional residual and ReLU, as one ``conv2d_bn``.  ``weight`` is the
+    OIHW filter (``conv2d_<i>.w_0``), ``scale``/``bias`` the batch norm's
+    (``batch_norm_<i>.w_0``/``b_0``), ``mean``/``var`` its running
+    statistics (``.mean_0``/``.var_0``)."""
+
+    def __init__(self, ch_in, ch_out, filter_size, stride, padding,
+                 act="relu", device=None):
+        super().__init__()
+        self.stride, self.padding, self.act = stride, padding, act or ""
+        self.weight = nn.Parameter(torch.empty(
+            ch_out, ch_in, filter_size, filter_size, device=device))
+        self.scale = nn.Parameter(torch.empty(ch_out, device=device))
+        self.bias = nn.Parameter(torch.empty(ch_out, device=device))
+        self.register_buffer("mean", torch.zeros(ch_out, device=device))
+        self.register_buffer("var", torch.ones(ch_out, device=device))
+
+    def forward(self, x, residual=None):
+        out, mean, var = conv2d_bn(
+            x, self.weight, self.scale, self.bias, self.mean, self.var,
+            residual=residual, strides=self.stride, paddings=self.padding,
+            eps=EPSILON, momentum=MOMENTUM, act=self.act,
+            use_global_stats=not self.training)
+        if self.training:
+            with torch.no_grad():
+                self.mean.copy_(mean)
+                self.var.copy_(var)
+        return out
+
+
+def _shortcut(ch_in, ch_out, stride, device):
+    """``shortcut``: a 1x1 ConvBN without ReLU where the widths differ,
+    else None (the identity)."""
+    if ch_in == ch_out:
+        return None
+    return ConvBN(ch_in, ch_out, 1, stride, 0, act=None, device=device)
+
+
+class BasicBlock(nn.Module):
+    """``basicblock``: two 3x3 ConvBNs; the second adds the shortcut
+    before its ReLU.  Modules are made in the reference's draw order: the
+    shortcut first."""
+
+    expansion = 1
+
+    def __init__(self, ch_in, ch_out, stride, device=None):
+        super().__init__()
+        self.shortcut = _shortcut(ch_in, ch_out, stride, device)
+        self.conv1 = ConvBN(ch_in, ch_out, 3, stride, 1, device=device)
+        self.conv2 = ConvBN(ch_out, ch_out, 3, 1, 1, device=device)
+
+    def forward(self, x):
+        short = x if self.shortcut is None else self.shortcut(x)
+        return self.conv2(self.conv1(x), residual=short)
+
+
+class Bottleneck(nn.Module):
+    """``bottleneck``: 1x1 (stride here), 3x3, 1x1 to 4x the width, which
+    adds the shortcut before its ReLU; the shortcut drawn first."""
+
+    expansion = 4
+
+    def __init__(self, ch_in, ch_out, stride, device=None):
+        super().__init__()
+        self.shortcut = _shortcut(ch_in, ch_out * 4, stride, device)
+        self.conv1 = ConvBN(ch_in, ch_out, 1, stride, 0, device=device)
+        self.conv2 = ConvBN(ch_out, ch_out, 3, 1, 1, device=device)
+        self.conv3 = ConvBN(ch_out, ch_out * 4, 1, 1, 0, device=device)
+
+    def forward(self, x):
+        short = x if self.shortcut is None else self.shortcut(x)
+        return self.conv3(self.conv2(self.conv1(x)), residual=short)
+
+
+def layer_warp(block, ch_in, ch_out, count, stride, device=None):
+    """``layer_warp``: ``count`` blocks, the first with ``stride``."""
+    blocks = [block(ch_in, ch_out, stride, device=device)]
+    blocks += [block(ch_out * block.expansion, ch_out, 1, device=device)
+               for _ in range(count - 1)]
+    return nn.Sequential(*blocks)
+
+
+class ResNet(nn.Module):
+    """``resnet_imagenet`` with ``build_train_net``'s loss and metric:
+    the 7x7 stride-2 stem, 3x3 max pool, four stages of 64, 128, 256 and
+    512 (times the block's expansion), global average pool and a softmax
+    fc of ``class_dim``.  ``forward(image, label)`` takes the NCHW f32
+    image and the int64 label [N, 1] and returns (avg_cost, acc,
+    predict).  Runs on CUDA unless ``device`` says otherwise; parameters
+    are uninitialized until :meth:`init_params` or
+    ``interop.load_paddle_tpu_resnet_params``."""
+
+    def __init__(self, depth=50, class_dim=1000, data_format="NHWC",
+                 device=None):
+        super().__init__()
+        if depth not in DEPTHS:
+            raise ValueError(f"ResNet: depth {depth} not in "
+                             f"{sorted(DEPTHS)}")
+        if data_format != "NHWC":
+            raise NotImplementedError(
+                f"ResNet: data_format={data_format!r}; the port trains the "
+                "reference's fused NHWC route only")
+        device = resolve_device(device)
+        self.depth, self.class_dim = depth, class_dim
+        stages, kind = DEPTHS[depth]
+        block = Bottleneck if kind == "bottleneck" else BasicBlock
+        self.conv1 = ConvBN(3, 64, 7, 2, 3, device=device)
+        ch_in, stage_list = 64, []
+        for i, (count, width) in enumerate(zip(stages, (64, 128, 256, 512))):
+            stage_list.append(layer_warp(block, ch_in, width, count,
+                                         1 if i == 0 else 2, device=device))
+            ch_in = width * block.expansion
+        self.stages = nn.ModuleList(stage_list)
+        self.fc_w = nn.Parameter(torch.empty(ch_in, class_dim, device=device))
+        self.fc_b = nn.Parameter(torch.empty(class_dim, device=device))
+
+    def conv_bn_layers(self):
+        """The ConvBN modules in the reference's draw order (its
+        ``conv2d_<i>`` and ``batch_norm_<i>`` indices)."""
+        return [m for m in self.modules() if isinstance(m, ConvBN)]
+
+    @torch.no_grad()
+    def init_params(self, seed=0):
+        """Seeded random weights with the reference's initializers, drawn
+        on the CPU from a torch.Generator so every device gets the same
+        numbers: filters N(0, 2 / fan_in), batch-norm scale 1 and bias 0,
+        running mean 0 and variance 1, the fc weight Xavier-uniform and
+        its bias 0."""
+        gen = torch.Generator().manual_seed(seed)
+        for m in self.conv_bn_layers():
+            fan_in = m.weight[0].numel()
+            m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                           * math.sqrt(2.0 / fan_in))
+            m.scale.fill_(1.0)
+            m.bias.zero_()
+            m.mean.zero_()
+            m.var.fill_(1.0)
+        limit = math.sqrt(6.0 / sum(self.fc_w.shape))
+        self.fc_w.copy_((torch.rand(self.fc_w.shape, generator=gen) * 2 - 1)
+                        * limit)
+        self.fc_b.zero_()
+        return self
+
+    def forward(self, image, label):
+        x = self.conv1(image.permute(0, 2, 3, 1).contiguous())
+        x = pool2d(x, "max", 3, 2, 1)
+        for stage in self.stages:
+            x = stage(x)
+        x = pool2d(x, "avg", global_pooling=True)
+        predict = torch.softmax(x.reshape(x.shape[0], -1) @ self.fc_w
+                                + self.fc_b, dim=-1)
+        avg_cost = cross_entropy(predict, label).mean()
+        return avg_cost, accuracy(predict, label), predict

@@ -1,8 +1,9 @@
-"""Paddle's Adam, the optimizer of the port's training step.
+"""Paddle's Adam and Momentum, the optimizers of the port's training
+steps (the Transformer's and ResNet's).
 
-Counterpart of ``paddle_tpu/optimizer.py`` ``AdamOptimizer`` and its
-``adam`` op (``paddle_tpu/ops/optimizer_ops.py`` ``_adam_one``), dense
-gradients only.
+Counterparts of ``paddle_tpu/optimizer.py`` ``AdamOptimizer`` and
+``MomentumOptimizer`` and their ``adam`` and ``momentum`` ops
+(``paddle_tpu/ops/optimizer_ops.py``), dense gradients only.
 """
 
 from __future__ import annotations
@@ -80,3 +81,44 @@ class Adam:
                 params_grads.append((p, p.grad))
                 p.grad = None
         return params_grads
+
+
+class Momentum:
+    """Momentum as Paddle's dense ``momentum`` op updates, one step per
+    :meth:`minimize`:
+
+        v = mu * v + g
+        p -= lr * v                      (use_nesterov: p -= (g + mu * v) * lr)
+
+    Unlike ``torch.optim.SGD``'s momentum, the velocity of the first step
+    is mu * 0 + g with no dampening, and lr multiplies v in the update
+    rather than in the velocity.  ``params``: those with ``requires_grad``
+    False are left alone.  The state of parameter ``p`` is
+    ``state[p]["velocity"]`` (like p, zero at the start), the reference's
+    ``<param>_velocity_0``.
+    """
+
+    def __init__(self, params, learning_rate, momentum, use_nesterov=False):
+        self.params = [p for p in params if p.requires_grad]
+        self.learning_rate = float(learning_rate)
+        self.momentum = float(momentum)
+        self.use_nesterov = bool(use_nesterov)
+        self.state = {p: {"velocity": torch.zeros_like(
+            p, memory_format=torch.contiguous_format)} for p in self.params}
+
+    @torch.no_grad()
+    def step(self):
+        """Update every parameter that has a gradient, in place; each
+        product rounds on its own, as the reference's op does."""
+        lr, mu = self.learning_rate, self.momentum
+        for p in self.params:
+            g = p.grad
+            if g is None:
+                continue
+            v = self.state[p]["velocity"].mul_(mu).add_(g)
+            if self.use_nesterov:
+                p.sub_((g + mu * v) * lr)
+            else:
+                p.sub_(lr * v)
+
+    minimize = Adam.minimize

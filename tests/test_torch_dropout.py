@@ -292,7 +292,7 @@ def test_flash_attention_with_dropout_matches_jax_vjp(name, tq, tk,
     tb = _t(bias)
     if trainable:
         tb.requires_grad_()
-    out = ka.flash_attention(*args, tb, dropout_seed=seed, **kw)
+    out = ka.flash_attention(*args, tb, dropout_seed=seed, fmt="bthd", **kw)
     out.backward(_t(g))
     _close(out.detach(), want, TOL_ATTN, TOL_ATTN)
     grads = [a.grad for a in args] + ([tb.grad] if trainable else [])
@@ -381,7 +381,8 @@ def test_qkv_and_bthd_routes_draw_the_same_mask():
             q, k, v = (a.reshape(B, 64, 2, D) for a in torch.split(
                 args[0] @ args[1], 2 * D, dim=-1))
             ctx = ka.flash_attention(q, k, v, _t(bias), scale=SCALE,
-                                     dropout_rate=RATE, dropout_seed=seed)
+                                     dropout_rate=RATE, dropout_seed=seed,
+                                     fmt="bthd")
             y = ctx.reshape(B, 64, 2 * D) @ args[2]
         y.backward(_t(g))
         outs.append([y.detach()] + [a.grad for a in args])

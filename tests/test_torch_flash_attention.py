@@ -139,7 +139,8 @@ def test_autograd_matches_jax_vjp(name, tq, tk, bias_kind, causal):
     want, vjp = jax.vjp(f, *(_j(a) for a in (q, k, v)))
     want_grads = vjp(_j(g))
     args = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
-    out = ka.flash_attention(*args, _t(bias), scale=SCALE, causal=causal)
+    out = ka.flash_attention(*args, _t(bias), scale=SCALE, causal=causal,
+                             fmt="bthd")
     out.backward(_t(g))
     _close(out.detach(), want)
     for a, w in zip(args, want_grads):
@@ -176,7 +177,8 @@ def test_autograd_matches_float64_composition(name, tq, tk, bias_kind,
     if bias is not None:
         b32 = torch.from_numpy(bias).requires_grad_(trainable)
         b64 = torch.from_numpy(bias).double().requires_grad_(trainable)
-    out = ka.flash_attention(*x32, b32, scale=SCALE, causal=causal)
+    out = ka.flash_attention(*x32, b32, scale=SCALE, causal=causal,
+                             fmt="bthd")
     out.backward(_t(g))
     want = _composed64(*x64, b64, causal)
     want.backward(_t(g).double())
@@ -200,7 +202,7 @@ def test_trainable_bias_grad_matches_jax():
     (want,) = vjp(_j(g))
     b = torch.from_numpy(bias).requires_grad_()
     ka.flash_attention(*(_t(a) for a in (q, k, v)), b,
-                       scale=SCALE).backward(_t(g))
+                       scale=SCALE, fmt="bthd").backward(_t(g))
     _close(b.grad, want)
 
 
@@ -210,16 +212,29 @@ def test_bias_broadcasts_without_a_copy():
     args = [_t(a) for a in (q, k, v)]
     row = torch.from_numpy(bias[1, 0, 0])
     full = torch.from_numpy(bias[1:2]).expand(B, 1, 1, 64)
-    _close(ka.flash_attention(*args, row, scale=SCALE),
-           ka.flash_attention(*args, full, scale=SCALE), 0.0)
+    _close(ka.flash_attention(*args, row, scale=SCALE, fmt="bthd"),
+           ka.flash_attention(*args, full, scale=SCALE, fmt="bthd"), 0.0)
     with pytest.raises(ValueError):
-        ka.flash_attention(*args, torch.zeros(3, 1, 1, 64))
+        ka.flash_attention(*args, torch.zeros(3, 1, 1, 64), fmt="bthd")
 
 
 def test_bhtd_format_raises():
     q, k, v, _, _ = _inputs(32, 32, None)
     with pytest.raises(NotImplementedError, match="#5, #8 and #9"):
         ka.flash_attention(*(_t(a) for a in (q, k, v)), fmt="bhtd")
+
+
+def test_reference_style_call_raises():
+    """flash_attention(q, k, v) on [B, H, T, D] tensors, as the reference
+    is called (its default fmt is "bhtd"), raises and returns nothing:
+    the port's default is the reference's, and the bhtd kernels are not
+    ported, so the call can no longer attend over the head axis."""
+    q, k, v, _, _ = _inputs(32, 32, None)
+    bhtd = [_t(a).transpose(1, 2).contiguous() for a in (q, k, v)]
+    result = None
+    with pytest.raises(NotImplementedError, match="#5, #8 and #9"):
+        result = ka.flash_attention(*bhtd)
+    assert result is None
 
 
 def test_dropout_raises():
@@ -229,13 +244,14 @@ def test_dropout_raises():
     q, k, v, _, _ = _inputs(32, 32, None)
     args = [_t(a) for a in (q, k, v)]
     with pytest.raises(ValueError, match="needs dropout_seed"):
-        ka.flash_attention(*args, dropout_rate=0.1)
+        ka.flash_attention(*args, dropout_rate=0.1, fmt="bthd")
     out = ka.flash_attention(*args, scale=SCALE, dropout_rate=0.1,
-                             dropout_seed=7)
-    assert not torch.equal(out, ka.flash_attention(*args, scale=SCALE))
+                             dropout_seed=7, fmt="bthd")
+    assert not torch.equal(out, ka.flash_attention(*args, scale=SCALE,
+                                                   fmt="bthd"))
     assert torch.equal(out, ka.flash_attention(*args, scale=SCALE,
                                                dropout_rate=0.1,
-                                               dropout_seed=7))
+                                               dropout_seed=7, fmt="bthd"))
 
 
 def test_fused_qkv_attention_refuses_to_train():

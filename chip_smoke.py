@@ -32,7 +32,12 @@ Phases, each fatal on failure:
    a strided shortcut too, #20/#21 with and without residual and ReLU),
    each called twice for equal bits; their sums are held to TOL_SUM of
    the summed magnitudes against the same sums in float64.  cuDNN's output of the NHWC convolution must
-   come back NHWC-contiguous;
+   come back NHWC-contiguous.  The multi-table embedding kernels (#22,
+   #23) are checked at DeepFM's shapes (26 tables of 1000001 rows, widths
+   10 and 1, ids [26, 4096]): #22 on both groups for the twin's bits; #23
+   in Adam mode on both groups and in SGD and scatter-add modes on the
+   first, on ids with planted runs of 5 and 50 equal ids and a sentinel
+   tail, within 1e-6 relative of the twin and equal bits on a repeat;
 3. the main paths on Transformer-base (6 layers, 8 heads, d_model 512,
    d_inner 2048, vocab 32000, source 256, 64 tokens) with seeded random
    weights.  The launch counters are zeroed just before each path and read
@@ -52,9 +57,11 @@ Phases, each fatal on failure:
    (c) serving: ``GenerationServingModel`` + ``ContinuousBatcher`` with 64
    slots on the ring cache and on paged pools (256 blocks each side),
    160 requests from 16 client threads with staggered arrivals, 32 of them
-   on 4 shared prompts.  Every request must get exactly its max_tokens
-   tokens, the paged run must prefill once per prefix-registry leader,
-   and the pools and the registry must drain; 16 sampled requests are
+   on 4 shared prompts; a request the batcher sheds (``Overloaded``) is
+   resubmitted after its ``retry_after_s``, at most 3 times, and the shed
+   and retry counts are printed.  Every request must get exactly its
+   max_tokens tokens, the paged run must prefill once per prefix-registry
+   leader, and the pools and the registry must drain; 16 sampled requests are
    replayed on a batch-1 session on the card, teacher-forced;
    (d) training: ``Transformer(fused_qkv_attention=False)`` with Paddle's
    ``Adam(1e-4)`` at batch 32, source and target 256 with seeded padded
@@ -98,11 +105,29 @@ Phases, each fatal on failure:
    the card's plain route (the twins of #18-#21 on the card); then 10
    timed steps at batch 256 on one repeated batch (median step ms,
    images/s, f32 peak share, peak memory), whose first update must lower
-   the loss;
+   the loss.  The NCHW route (``data_format="NCHW"``: the reference's
+   unfused conv2d + batch_norm composition, no kernel) takes step 1 at
+   batch 16 from the same state, held to float64 under the same
+   criterion;
+   (h) DeepFM training as the reference's ``bench_deepfm`` (batch 4096,
+   26 slots, hash_dim 1000001, embedding 10, lazy Adam 1e-3,
+   FLAGS_fused_embedding on) from ``init_params(0)``: 2 ``multi_table_
+   gather`` and 2 ``multi_table_apply`` launches per step; step 1 twice
+   for equal bits; 3 steps against the per-table composition on the card
+   (losses, tables and moments within rtol 2e-4, atol 2e-5, and each
+   tensor within 2e-4 of its largest magnitude); 10 timed
+   steps after a warm-up, cycling 8 ``make_batch`` batches (median step
+   ms, examples/s, the analytic sparse-bytes share), whose loss must
+   fall; one step at hash_dim 10001 against float64 under (d)'s
+   criterion.  Then the reference demo's widths (head width 16), served
+   through the batcher on the card: no attention or decode kernel
+   launches, the composition counter counts, and the CPU plain path's
+   tokens;
 4. where the time goes: torch.profiler over one prefill and 16 decode
    steps at each batch, and over one training step on each route, on
-   the dropout route and of ResNet-50: device time by kernel beside host
-   wall time, and for ResNet-50 any layout-conversion kernel.
+   the dropout route, of ResNet-50 and of DeepFM: device time by kernel
+   beside host wall time, and for ResNet-50 any layout-conversion kernel.
+   Every phase prints its seconds.
 
 Prints the card and its power limit, the timings, one JSON line with a
 record per kernel, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -114,6 +139,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -170,18 +196,24 @@ def require(cond, msg):
         raise SmokeFailure(msg)
 
 
-def cuda_ms(fn, iters=20, warmup=3):
+def cuda_ms(fn, iters=20, warmup=3, hide_host=False):
     """Median device time of one fn() call, each timed alone with CUDA
     events after writing a 256 MB buffer: the main path finds the L2 cold
     (its 6 layers' weights, 88 MB in the decode step, exceed the 50 MB
     L2), so a kernel timed back to back on the same warm inputs would
-    read too fast."""
+    read too fast.  The events also count any wait of the device for the
+    host to enqueue fn's launches; ``hide_host`` puts a 1 ms device-side
+    spin before the start event, so that the host has enqueued all of fn
+    (a sync-free fn) before the device reaches it and only device time
+    is counted."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(iters):
         flush.zero_()
+        if hide_host:
+            torch.cuda._sleep(2_000_000)   # ~1 ms at the H100's clock
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1192,6 +1224,268 @@ def check_conv_bn(gen):
     return records
 
 
+# -- #22 and #23: the multi-table embedding kernels of DeepFM ---------------
+
+#: the device of phase 2's embedding checks and phase 3 (h) (a rehearsal
+#: on the CPU sets it to "cpu")
+DEV = "cuda"
+
+
+def _randn(gen, *shape, scale=1.0):
+    return torch.randn(shape, generator=gen, device=DEV) * scale
+
+#: DeepFM at ``bench_deepfm``'s defaults (``paddle_tpu/models/deepfm.py``,
+#: ``bench.py``): 26 slots, tables of 1000001 rows, embedding width 10
+#: (and the first-order width 1), batch 4096, lazy Adam at 1e-3
+DEEPFM_HASH, DEEPFM_BATCH, DEEPFM_EMB, DEEPFM_LR = 1000001, 4096, 10, 1e-3
+DEEPFM_SLOTS = 26
+#: the two table groups: (name, width)
+DEEPFM_GROUPS = (("emb", DEEPFM_EMB), ("w1", 1))
+#: #23 against its twin, relative per element: both sum each id's rows in
+#: the stable order and round every product and sum on its own, so they
+#: should agree to the bit; 1e-6 leaves room for one rounding apart
+TOL_APPLY = 1e-6
+#: ids of phase 2's apply checks: rows 100-104 repeat row 0's id (a run of
+#: 5), rows 200-249 row 1's (50), the last 64 rows hold the sentinel V
+APPLY_RUNS, APPLY_SENTINELS = ((0, 100, 5), (1, 200, 50)), 64
+
+
+def _deepfm_ids(b, hash_dim, seed):
+    """[26, b] int32 ids on the card, uniform in [0, hash_dim) as
+    ``make_batch`` draws them (numpy, seeded)."""
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randint(0, hash_dim, (DEEPFM_SLOTS, b))
+                            .astype(np.int32)).to(DEV)
+
+
+def _apply_ids(b, hash_dim, seed):
+    """:func:`_deepfm_ids` with APPLY_RUNS of equal ids planted in every
+    slot and the APPLY_SENTINELS last ids set to the sentinel hash_dim."""
+    ids = _deepfm_ids(b, hash_dim, seed)
+    for src, at, n in APPLY_RUNS:
+        ids[:, at:at + n] = ids[:, src:src + 1]
+    ids[:, b - APPLY_SENTINELS:] = hash_dim
+    return ids
+
+
+def touched_sectors(ids, d, height):
+    """32-byte sectors of the [height, d] f32 tables that the rows at ids
+    [S, K] span, counted once per table (a row two ids share is read
+    once); ids outside [0, height) touch none."""
+    s_n = ids.shape[0]
+    ok = (ids >= 0) & (ids < height)
+    first = ids.long() * d * F32 // 32
+    last = (ids.long() * d * F32 + d * F32 - 1) // 32
+    per_table = (height * d * F32) // 32 + 2
+    slot = torch.arange(s_n, device=ids.device)[:, None] * per_table
+    keys = torch.cat([(first + slot)[ok], (last + slot)[ok]])
+    return int(torch.unique(keys).numel())
+
+
+def unique_rows(ids, height):
+    """Distinct (slot, id) pairs of ids [S, K] inside [0, height)."""
+    ok = (ids >= 0) & (ids < height)
+    slot = torch.arange(ids.shape[0], device=ids.device)[:, None] * height
+    return int(torch.unique((ids.long() + slot)[ok]).numel())
+
+
+def _rel_close(name, got, want, tol):
+    """max |got - want| / |want| over the elements; raises above tol
+    (elements equal on both sides, zeros included, pass)."""
+    err = (got - want).abs()
+    worst = (err / want.abs().clamp_min(1e-30)).masked_fill(err == 0, 0.0)
+    worst = worst.max().item()
+    require(torch.isfinite(got).all().item() and worst <= tol,
+            f"{name}: relative error {worst} over {tol}")
+    return worst
+
+
+def _device_only(r, fn):
+    """A small kernel's record: ``ms`` becomes the device time of one
+    wrapper call (``cuda_ms(hide_host=True)``: the wrapper's stable sort
+    and the kernel, for #23), and ``call_ms`` keeps the time with the
+    device's wait for the host's enqueue in it, which at these sizes is
+    most of a call."""
+    r["call_ms"] = r["ms"]
+    r["ms"] = cuda_ms(fn, hide_host=True)
+
+
+#: torch.optim.SparseAdam (#23's library yardstick) against the twin, each
+#: tensor's largest difference over its largest magnitude: the same lazy
+#: Adam, with the rate on the host and duplicates summed by coalesce()
+TOL_LIBRARY_ADAM = 1e-5
+
+
+def library_sparse_adam(tables, ids, rows, consts):
+    """#23's library yardstick: one ``torch.optim.SparseAdam.step()`` over
+    copies of the group's tables, with each table's rows at its ids (those
+    inside [0, V)) as an uncoalesced sparse gradient.  Its first step from
+    zero moments is held against the twin's with lr_t = lr sqrt(1 - b2) /
+    (1 - b1): each tensor's difference beyond one rounding of its value
+    within TOL_LIBRARY_ADAM of its largest change.  Then one step() is
+    timed.  The port never calls it.  Returns (ms, the worst relative
+    difference)."""
+    from paddle_tpu_torch.kernels import embedding as ke
+
+    b1, b2, eps = consts
+    v, d = tables[0].shape
+    params = [torch.nn.Parameter(t.clone()) for t in tables]
+    for p, i, r in zip(params, ids, rows):
+        ok = (i >= 0) & (i < v)
+        p.grad = torch.sparse_coo_tensor(i[ok].long()[None], r[ok], (v, d),
+                                         check_invariants=True)
+    opt = torch.optim.SparseAdam(params, lr=DEEPFM_LR, betas=(b1, b2),
+                                 eps=eps)
+    opt.step()
+    twin = [[t.clone() for t in tables],
+            [torch.zeros_like(t) for t in tables],
+            [torch.zeros_like(t) for t in tables]]
+    lr_t = torch.tensor([DEEPFM_LR * (1 - b2) ** 0.5 / (1 - b1)], device=DEV)
+    ke.reference_sparse_adam(*twin, ids, rows, lr_t, *consts)
+    worst = (0.0, "")
+    with torch.no_grad():
+        for k, (p, t0) in enumerate(zip(params, tables)):
+            st = opt.state[p]
+            for kind, got, want, base in (
+                    ("param", p, twin[0][k], t0),
+                    ("m1", st["exp_avg"], twin[1][k], 0.0),
+                    ("m2", st["exp_avg_sq"], twin[2][k], 0.0)):
+                # beyond the one rounding of the sum base + change
+                mag = want.abs()
+                ulp = torch.nextafter(mag, torch.full_like(mag, math.inf))
+                ulp -= mag
+                off = ((got - want).abs() - ulp).clamp_min(0).max().item()
+                scale = (want - base).abs().max().item()
+                worst = max(worst, (off / max(scale, 1e-30), f"{kind} {k}"))
+    require(worst[0] <= TOL_LIBRARY_ADAM, f"torch.optim.SparseAdam: table "
+            f"{worst[1]} off the twin by {worst[0]} of its largest change")
+    del twin
+    return cuda_ms(opt.step), worst[0]
+
+
+def check_embedding():
+    """#22 and #23 at DeepFM's shapes against their twins on the card.
+    #22 on both groups: equal bits.  #23 in Adam mode on both groups and in
+    SGD and scatter-add modes on the first, on duplicate-heavy ids
+    (APPLY_RUNS, the sentinel tail): params and moments within TOL_APPLY
+    relative, and a repeat on the same inputs equal to the bit.  Each is
+    timed after an L2 flush beside its plain twin; #22 also beside 26
+    ``F.embedding`` calls (no one library call does a group), #23's Adam
+    on the width-10 group beside ``torch.optim.SparseAdam``
+    (:func:`library_sparse_adam`).  Returns [(record, label)]."""
+    import torch.nn.functional as Fn
+
+    from paddle_tpu_torch.kernels import embedding as ke
+
+    gen = torch.Generator(device=DEV).manual_seed(22)
+    out = []
+    v, s_n, b = DEEPFM_HASH, DEEPFM_SLOTS, DEEPFM_BATCH
+    for group, d in DEEPFM_GROUPS:
+        tables = [_randn(gen, v, d, scale=0.01) for _ in range(s_n)]
+        ids = _deepfm_ids(b, v, seed=len(out))
+        got = ke.multi_table_gather(tables, ids)
+        want = ke.reference_multi_table_gather(tables, ids)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"multi_table_gather {group}: not the twin's bits")
+        long_ids = [i.long() for i in ids]
+        nbytes = (F32 * s_n * b * (1 + d)
+                  + 32 * touched_sectors(ids, d, v))
+        r = timed_record(
+            "multi_table_gather", "paddle_tpu_torch/csrc/embedding.cu",
+            "paddle_tpu/kernels/embedding.py:229", 0.0,
+            lambda: ke.multi_table_gather(tables, ids),
+            lambda: ke.reference_multi_table_gather(tables, ids), 0, nbytes,
+            None, b)
+        r["embedding_x26_ms"] = cuda_ms(lambda: [
+            Fn.embedding(i, t) for i, t in zip(long_ids, tables)],
+            hide_host=True)
+        _device_only(r, lambda: ke.multi_table_gather(tables, ids))
+        r["group"] = f"{group} [{s_n} x {v} x {d}]"
+        out.append((r, f" {r['group']} b={b}"))
+
+        # #23, lazy Adam on this group
+        ids = _apply_ids(b, v, seed=10 + len(out))
+        rows = _randn(gen, s_n, b, d, scale=0.1)
+        m1s = [_randn(gen, v, d, scale=0.01) for _ in range(s_n)]
+        m2s = [_randn(gen, v, d, scale=0.01).square() for _ in range(s_n)]
+        lr_t = torch.tensor([DEEPFM_LR * 0.5], device=DEV)
+        consts = (0.9, 0.999, 1e-8)
+
+        def clones():
+            return [[t.clone() for t in kind] for kind in (tables, m1s, m2s)]
+
+        runs = []
+        for _ in range(2):
+            state = clones()
+            ke.multi_table_sparse_adam(*state, ids, rows, lr_t, *consts)
+            runs.append(state)
+        twin = clones()
+        ke.reference_sparse_adam(*twin, ids, rows, lr_t, *consts)
+        torch.cuda.synchronize()
+        err = max(_rel_close(f"multi_table_apply adam {group} {kind}", g, w,
+                             TOL_APPLY)
+                  for kind, gk, wk in zip(("param", "m1", "m2"), runs[0],
+                                          twin)
+                  for g, w in zip(gk, wk))
+        _require_same_bits(f"multi_table_apply adam {group}",
+                           [t for kind in runs[0] for t in kind],
+                           [t for kind in runs[1] for t in kind])
+        bit_equal = all(torch.equal(g, w) for gk, wk in zip(runs[0], twin)
+                        for g, w in zip(gk, wk))
+        del runs, twin
+        sectors = touched_sectors(ids, d, v)
+        nbytes = F32 * s_n * b * (1 + d) + 32 * sectors * 6
+        r = timed_record(
+            "multi_table_apply", "paddle_tpu_torch/csrc/embedding.cu",
+            "paddle_tpu/kernels/embedding.py:343", err,
+            lambda: ke.multi_table_sparse_adam(tables, m1s, m2s, ids, rows,
+                                               lr_t, *consts),
+            lambda: ke.reference_sparse_adam(tables, m1s, m2s, ids, rows,
+                                             lr_t, *consts),
+            12 * unique_rows(ids, v) * d, nbytes, None, b)
+        _device_only(r, lambda: ke.multi_table_sparse_adam(
+            tables, m1s, m2s, ids, rows, lr_t, *consts))
+        r.update(mode="adam", group=f"{group} [{s_n} x {v} x {d}]",
+                 twin_bit_equal=bit_equal)
+        if d > 1:
+            r["library_ms"], r["library_max_abs_err"] = library_sparse_adam(
+                tables, ids, rows, consts)
+        out.append((r, f" adam {r['group']} b={b}"))
+        if d == 1:
+            continue
+        for mode, scale in (("sgd", -DEEPFM_LR), ("scatter_add", 1.0)):
+            runs = []
+            for _ in range(2):
+                state = [t.clone() for t in tables]
+                ke.multi_table_scatter_add(state, ids, rows, scale)
+                runs.append(state)
+            twin = [t.clone() for t in tables]
+            ke.reference_scatter_add(twin, ids, rows, scale)
+            torch.cuda.synchronize()
+            err = max(_rel_close(f"multi_table_apply {mode}", g, w,
+                                 TOL_APPLY) for g, w in zip(runs[0], twin))
+            _require_same_bits(f"multi_table_apply {mode}", runs[0],
+                               runs[1])
+            bit_equal = all(torch.equal(g, w) for g, w in zip(runs[0], twin))
+            del runs, twin
+            r = timed_record(
+                "multi_table_apply", "paddle_tpu_torch/csrc/embedding.cu",
+                "paddle_tpu/kernels/embedding.py:343", err,
+                lambda: ke.multi_table_scatter_add(tables, ids, rows, scale),
+                lambda: ke.reference_scatter_add(tables, ids, rows, scale),
+                2 * unique_rows(ids, v) * d,
+                F32 * s_n * b * (1 + d) + 32 * sectors * 2,
+                None, b)
+            _device_only(r, lambda: ke.multi_table_scatter_add(
+                tables, ids, rows, scale))
+            r.update(mode=mode, group=f"{group} [{s_n} x {v} x {d}]",
+                     twin_bit_equal=bit_equal)
+            out.append((r, f" {mode} {r['group']} b={b}"))
+        del m1s, m2s
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main paths
 # ---------------------------------------------------------------------------
@@ -1355,6 +1649,8 @@ def run_route(model, b, src, ref_tokens, ref_logits, expect, route,
 #: cross pool's 1024, so the cross budget binds and holds requests back)
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_CLIENTS = 64, 160, 16
 SERVE_BLOCKS, ARRIVAL_GAP_S, SERVE_WAIT_S = 256, 0.005, 300.0
+#: resubmissions of a shed request (after its retry_after_s)
+SERVE_RETRIES = 3
 
 
 def serving_traffic(seed=0):
@@ -1384,7 +1680,8 @@ def run_serving(model, paged):
     from paddle_tpu_torch import GenerationSession, kernels
     from paddle_tpu_torch.serving import (ContinuousBatcher,
                                           GenerationConfig,
-                                          GenerationServingModel)
+                                          GenerationServingModel,
+                                          Overloaded)
 
     name = "paged" if paged else "ring"
     L = BASE["n_layer"]
@@ -1398,14 +1695,26 @@ def run_serving(model, paged):
     batcher = ContinuousBatcher(served)
     prompts, max_tokens = serving_traffic()
     results = [None] * SERVE_REQUESTS
-    errors = []
+    errors, shed = [], []
 
     def one(n):
-        try:
-            results[n] = batcher.submit(prompts[n], max_tokens=max_tokens[n],
-                                        timeout=SERVE_WAIT_S)
-        except Exception as exc:  # noqa: BLE001 - reported below
-            errors.append((n, repr(exc)))
+        # a shed request (Overloaded) waits its retry_after_s and is
+        # submitted again, at most SERVE_RETRIES times
+        for attempt in range(SERVE_RETRIES + 1):
+            try:
+                results[n] = batcher.submit(
+                    prompts[n], max_tokens=max_tokens[n],
+                    timeout=SERVE_WAIT_S)
+                return
+            except Overloaded as exc:
+                shed.append(n)
+                if attempt == SERVE_RETRIES:
+                    errors.append((n, repr(exc)))
+                    return
+                time.sleep(exc.retry_after_s)
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append((n, repr(exc)))
+                return
 
     def client(c, t0):
         # open-loop arrivals: request n is submitted at t0 + n * gap
@@ -1473,6 +1782,8 @@ def run_serving(model, paged):
     ttft = [res[1]["ttft_ms"] for res in results]
     stats = dict(
         route=f"serving {name}", launches=counts, wall_s=wall_s,
+        shed=len(shed), retries=len(shed) - sum(
+            1 for _, e in errors if "Overloaded" in e),
         requests_per_s=SERVE_REQUESTS / wall_s,
         generated_tokens_per_s=tokens / wall_s, tokens=tokens,
         ttft_ms_p50=float(np.percentile(ttft, 50)),
@@ -1980,21 +2291,40 @@ def run_resnet(model):
     require(np.isfinite(loss16) and abs(loss16 - loss64) <= TOL_TRAIN_LOSS
             * abs(loss64), f"resnet: loss {loss16} on the card, {loss64} in "
             f"float64")
-    worst = []
-    card_state = _state(model)
-    for kind, got, want, f32 in (("grad", grads, exact, cpu_grads),
-                                 ("state", card_state, exact_state,
-                                  cpu_state)):
-        require(got.keys() == want.keys() == f32.keys(),
-                f"resnet: the card and the CPU hold other {kind} tensors")
-        for n in got:
-            card = _grad_rel(got[n].cpu(), want[n])
-            cpu32 = _grad_rel(f32[n], want[n])
-            require(card <= max(TOL_TRAIN_GRAD, 2 * cpu32),
-                    f"resnet step 1: {kind} {n} off float64 by {card} on "
-                    f"the card, {cpu32} on the CPU in f32")
-            worst.append((card, cpu32, kind, n))
-    del grads, exact, cpu_grads, card_state, exact_state, cpu_state, cpu
+
+    def held(tag, grads, card_state):
+        worst = []
+        for kind, got, want, f32 in (("grad", grads, exact, cpu_grads),
+                                     ("state", card_state, exact_state,
+                                      cpu_state)):
+            require(got.keys() == want.keys() == f32.keys(),
+                    f"{tag}: the card and the CPU hold other {kind} tensors")
+            for n in got:
+                card = _grad_rel(got[n].cpu(), want[n])
+                cpu32 = _grad_rel(f32[n], want[n])
+                require(card <= max(TOL_TRAIN_GRAD, 2 * cpu32),
+                        f"{tag} step 1: {kind} {n} off float64 by {card} on "
+                        f"the card, {cpu32} on the CPU in f32")
+                worst.append((card, cpu32, kind, n))
+        return worst
+
+    worst = held("resnet", grads, _state(model))
+    # C9: the NCHW route (the reference's unfused composition, no kernel)
+    # from the same state on the same batch, under the same criterion
+    nchw = ResNet(RESNET_DEPTH, RESNET_CLASSES, data_format="NCHW")
+    nchw.load_state_dict(init)
+    kernels.reset_launches()
+    loss_n, _, grads_n = _resnet_step(nchw, _to(feed16, "cuda"), Momentum(
+        nchw.parameters(), RESNET_LR, RESNET_MOMENTUM))
+    torch.cuda.synchronize()
+    require(kernels.launches == expected(), "resnet NCHW launched kernels: "
+            f"{kernels.launches}")
+    require(np.isfinite(loss_n) and abs(loss_n - loss64) <= TOL_TRAIN_LOSS
+            * abs(loss64), f"resnet NCHW: loss {loss_n} on the card, "
+            f"{loss64} in float64")
+    worst_nchw = sorted(held("resnet NCHW", grads_n, _state(nchw)),
+                        reverse=True)
+    del grads, exact, cpu_grads, exact_state, cpu_state, cpu, nchw, grads_n
 
     feed = _to(resnet_batch(RESNET_BATCH, seed=2), "cuda")
     model.load_state_dict(init)
@@ -2069,7 +2399,9 @@ def run_resnet(model):
                 parity_grad_rel_median=[float(np.median(
                     [w[i] for w in worst if w[2] == "grad"]))
                     for i in range(2)],
-                cpu_parity_s=cpu_s, routes_loss=(loss_k, loss_p),
+                cpu_parity_s=cpu_s,
+                nchw_loss=loss_n, nchw_rel_worst=worst_nchw[:3],
+                routes_loss=(loss_k, loss_p),
                 routes_grad_rel_worst=route_rel[-3:],
                 routes_grad_rel_median=float(np.median(
                     [r for r, _ in route_rel])),
@@ -2079,6 +2411,295 @@ def run_resnet(model):
                 images_per_s=ips,
                 f32_peak_share=ips * RESNET_FLOPS_PER_IMAGE / PEAK_F32_FLOPS,
                 timed_losses=losses, peak_memory_gb=peak_gb)
+
+
+# -- (h): DeepFM -------------------------------------------------------------
+
+#: 8 batches of seeds 0-7 cycled, as ``bench_deepfm`` scans them
+DEEPFM_BATCHES, DEEPFM_TIMED_STEPS, DEEPFM_PARITY_STEPS = 8, 10, 3
+#: per step: one #22 launch and one #23 launch per table group
+DEEPFM_LAUNCHES = dict(multi_table_gather=2, multi_table_apply=2)
+#: bench.py's analytic sparse traffic per example (run_deepfm): 26 slots x
+#: (10 + 1) f32 x (the gather, the gradient's read and write, both
+#: moments' read and write)
+DEEPFM_SPARSE_BYTES = DEEPFM_SLOTS * (DEEPFM_EMB + 1) * F32 * 7
+#: kernel route against the per-table composition on the card: the
+#: reference's own fused-against-per-slot tolerances
+#: (tests/test_fused_embedding.py) per element, and TOL_DEEPFM_RTOL of each
+#: tensor's largest magnitude: a table's moments (m1 about 1e-6, m2 about
+#: 1e-13 at batch 4096) lie far inside the atol
+TOL_DEEPFM_RTOL, TOL_DEEPFM_ATOL = 2e-4, 2e-5
+#: the float64 check runs at the bench's smoke size
+DEEPFM_SMOKE_HASH = 10001
+
+
+def deepfm_batches(hash_dim, n=DEEPFM_BATCHES):
+    """``make_batch(4096, hash_dim, RandomState(s))`` for s < n, as
+    (dense, ids [26, b] int32, click) on the card."""
+    from paddle_tpu_torch.models.deepfm import batch_tensors, make_batch
+
+    return [batch_tensors(make_batch(DEEPFM_BATCH, hash_dim,
+                                     np.random.RandomState(s)), DEV)
+            for s in range(n)]
+
+
+def _deepfm_adam(model):
+    from paddle_tpu_torch import Adam
+
+    return Adam(model.parameters(), learning_rate=DEEPFM_LR, lazy_mode=True)
+
+
+@contextlib.contextmanager
+def plain_embedding():
+    """The card's plain route of the table updates: the #23 wrappers that
+    the optimizers call swapped for their plain twins (on CUDA tensors)
+    while the block runs (SGD's goes through the scatter-add one)."""
+    from paddle_tpu_torch.kernels import embedding as ke
+
+    swaps = {"multi_table_scatter_add": ke.reference_scatter_add,
+             "multi_table_sparse_adam": ke.reference_sparse_adam}
+    saved = {name: getattr(ke, name) for name in swaps}
+    for name, twin in swaps.items():
+        setattr(ke, name, twin)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ke, name, fn)
+
+
+def _deepfm_state(model, opt):
+    """Every parameter and moment of a DeepFM and its Adam, by name."""
+    out = {}
+    for n, p in model.named_parameters():
+        out[n] = p
+        st = opt.state[p]
+        out[n + "_moment1"], out[n + "_moment2"] = st["moment1"], st["moment2"]
+    return out
+
+
+def _deepfm_steps(model, opt, batches, steps, per_step=None):
+    """``steps`` steps cycling ``batches``: the losses; each step's launches
+    must equal ``per_step`` when given."""
+    from paddle_tpu_torch import kernels
+
+    losses = []
+    for i in range(steps):
+        kernels.reset_launches()
+        loss, _, _ = model(*batches[i % len(batches)])
+        opt.minimize(loss)
+        losses.append(loss.item())
+        if per_step is not None:
+            require(kernels.launches == per_step,
+                    f"deepfm step {i + 1}: launches {kernels.launches}")
+    return losses
+
+
+def deepfm_float64_check():
+    """One step at hash_dim DEEPFM_SMOKE_HASH on the card against float64
+    and f32 copies on the CPU from the same weights and batch: the loss
+    within TOL_TRAIN_LOSS of float64's, and each parameter's and moment's
+    update within TOL_TRAIN_GRAD of float64's or no further than twice the
+    CPU's f32 update is ((d)'s criterion).  Returns (the losses, the
+    worst three (card, cpu f32, name))."""
+    from paddle_tpu_torch import DeepFM
+    from paddle_tpu_torch.models.deepfm import batch_tensors, make_batch
+
+    card = DeepFM(hash_dim=DEEPFM_SMOKE_HASH, device=DEV).init_params(5)
+    feed = make_batch(DEEPFM_BATCH, DEEPFM_SMOKE_HASH,
+                      np.random.RandomState(9))
+    start = {k: v.cpu().clone() for k, v in card.state_dict().items()}
+    after, losses = {}, {}
+    for tag, model, dev in (
+            ("card", card, DEV),
+            ("f32", DeepFM(hash_dim=DEEPFM_SMOKE_HASH, device="cpu"), "cpu"),
+            ("f64", DeepFM(hash_dim=DEEPFM_SMOKE_HASH, device="cpu"),
+             "cpu")):
+        if tag != "card":
+            model.load_state_dict(start)
+        if tag == "f64":
+            model.double()
+        dense, ids, click = batch_tensors(feed, dev)
+        before = {n: p.detach().double().cpu().clone()
+                  for n, p in model.named_parameters()}
+        opt = _deepfm_adam(model)
+        loss, _, _ = model(dense.to(next(model.parameters()).dtype), ids,
+                           click)
+        opt.minimize(loss)
+        losses[tag] = loss.item()
+        # what the step moved: each parameter's update, each moment (zero
+        # before the step)
+        after[tag] = {n: t.detach().double().cpu() - before.get(n, 0.0)
+                      for n, t in _deepfm_state(model, opt).items()}
+    require(abs(losses["card"] - losses["f64"])
+            <= TOL_TRAIN_LOSS * abs(losses["f64"]),
+            f"deepfm float64 check: loss {losses}")
+    worst = []
+    for n, want in after["f64"].items():
+        card_rel = _grad_rel(after["card"][n], want)
+        cpu_rel = _grad_rel(after["f32"][n], want)
+        require(card_rel <= max(TOL_TRAIN_GRAD, 2 * cpu_rel),
+                f"deepfm float64 check: {n} off float64 by {card_rel} on the "
+                f"card, {cpu_rel} on the CPU in f32")
+        worst.append((card_rel, cpu_rel, n))
+    worst.sort(reverse=True)
+    return losses, worst[:3]
+
+
+def run_deepfm(model):
+    """Phase 3 (h): DeepFM training as ``bench_deepfm`` runs it (batch
+    4096, hash_dim 1000001, lazy Adam 1e-3, FLAGS_fused_embedding on) from
+    ``model``'s weights.  Step 1 twice from the same state: equal bits.
+    DEEPFM_PARITY_STEPS steps on the kernel route against the per-table
+    composition on the card (``fused_embedding=False`` for the model, the
+    #23 wrappers swapped for their twins by :func:`plain_embedding`: no
+    kernel launches): losses and every table, weight and moment within
+    TOL_DEEPFM_* per element and within TOL_DEEPFM_RTOL of the tensor's
+    largest magnitude.  DEEPFM_TIMED_STEPS timed steps
+    after one warm-up, cycling the 8 batches: exactly DEEPFM_LAUNCHES a
+    step, and the loss must fall below its first value.  One step at the
+    smoke size against float64 (:func:`deepfm_float64_check`).  Returns
+    the run's record."""
+    from paddle_tpu_torch import DeepFM, kernels
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    batches = deepfm_batches(DEEPFM_HASH)
+    init = _state(model)
+    per_step = expected(**DEEPFM_LAUNCHES)
+    counts = expected()
+
+    snaps = []
+    for _ in range(2):
+        model.load_state_dict(init)
+        opt = _deepfm_adam(model)
+        losses_k = _deepfm_steps(model, opt, batches, 1, per_step)
+        snaps.append({n: t.clone()
+                      for n, t in _deepfm_state(model, opt).items()})
+        counts = {n: c + kernels.launches[n] for n, c in counts.items()}
+    require(snaps[0].keys() == snaps[1].keys() and all(
+        torch.equal(t, snaps[1][n]) for n, t in snaps[0].items()),
+        "deepfm: a repeated step 1 gave other bits")
+    del snaps
+    losses_k += _deepfm_steps(model, opt, batches[1:],
+                              DEEPFM_PARITY_STEPS - 1, per_step)
+    counts = {n: c + (DEEPFM_PARITY_STEPS - 1) * per_step[n]
+              for n, c in counts.items()}
+    composed = DeepFM(hash_dim=DEEPFM_HASH, fused_embedding=False,
+                      device=DEV)
+    composed.load_state_dict(init)
+    opt_c = _deepfm_adam(composed)
+    with plain_embedding():
+        losses_c = _deepfm_steps(composed, opt_c, batches,
+                                 DEEPFM_PARITY_STEPS, expected())
+    require(np.allclose(losses_k, losses_c, rtol=TOL_DEEPFM_RTOL,
+                        atol=TOL_DEEPFM_ATOL),
+            f"deepfm: losses {losses_k} on the kernels, {losses_c} on the "
+            f"per-table composition")
+    mine = _deepfm_state(model, opt)
+    worst, worst_scaled = (-1.0, ""), (0.0, "")
+    with torch.no_grad():
+        for n, want in _deepfm_state(composed, opt_c).items():
+            diff = (mine[n] - want).abs()
+            err = diff - TOL_DEEPFM_RTOL * want.abs()
+            worst = max(worst, (err.max().item(), n))
+            scaled = diff.max().item() / max(want.abs().max().item(), 1e-30)
+            worst_scaled = max(worst_scaled, (scaled, n))
+    require(worst[0] <= TOL_DEEPFM_ATOL, f"deepfm: {worst[1]} differs "
+            f"between the kernel route and the composition by {worst[0]} "
+            f"over rtol {TOL_DEEPFM_RTOL}")
+    require(worst_scaled[0] <= TOL_DEEPFM_RTOL, f"deepfm: {worst_scaled[1]} "
+            f"differs between the kernel route and the composition by "
+            f"{worst_scaled[0]} of its largest magnitude")
+    del composed, opt_c, mine
+    parity_s = time.perf_counter() - t0
+
+    model.load_state_dict(init)
+    opt = _deepfm_adam(model)
+    losses = _deepfm_steps(model, opt, batches, 1, per_step)   # warm-up
+    step_ms = []
+    kernels.reset_launches()
+    for i in range(1, DEEPFM_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, auc, _ = model(*batches[i % DEEPFM_BATCHES])
+        opt.minimize(loss)
+        losses.append(loss.item())  # syncs: the step is done
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    require(kernels.launches == expected(**{
+        n: c * DEEPFM_TIMED_STEPS for n, c in DEEPFM_LAUNCHES.items()}),
+        f"deepfm timed steps: launches {kernels.launches}")
+    counts = {n: c + kernels.launches[n] + per_step[n]
+              for n, c in counts.items()}
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"deepfm: the loss did not fall over the run {losses}")
+    med = float(np.median(step_ms))
+    eps = DEEPFM_BATCH / (med / 1e3)
+    f64_losses, f64_worst = deepfm_float64_check()
+    return dict(route="deepfm training", batch=DEEPFM_BATCH,
+                hash_dim=DEEPFM_HASH, launches=counts,
+                step_ms_median=med, step_ms_range=(min(step_ms),
+                                                   max(step_ms)),
+                examples_per_s=eps,
+                sparse_bytes_share=eps * DEEPFM_SPARSE_BYTES
+                / PEAK_BYTES_PER_S,
+                timed_losses=losses, auc=auc.item(),
+                routes_losses=(losses_k, losses_c),
+                routes_worst_over_rtol=worst,
+                routes_worst_of_largest=worst_scaled, parity_s=parity_s,
+                float64_losses=f64_losses, float64_rel_worst=f64_worst,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def run_demo_head16():
+    """Phase 3, C2: the reference demo's widths (head width 16) served on
+    the card through the batcher, driven synchronously: no attention or
+    decode kernel launches, the composition counter counts the routed
+    calls, and every request gets the CPU plain path's tokens."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import (ContinuousBatcher,
+                                          build_demo_generation_model)
+    from paddle_tpu_torch.serving.generation import _GenRequest
+
+    prompts = [[5, 9, 3], [5, 9, 3], [7, 2], [11, 4, 8, 1, 6], [3] * 8]
+    tokens = {}
+    for side, dev in (("card", DEV), ("cpu", "cpu")):
+        served = build_demo_generation_model(device=dev)
+        if side == "cpu":
+            served.session.model.load_state_dict(
+                {k: v.cpu() for k, v in card_state.items()})
+        else:
+            card_state = served.session.model.state_dict()
+        served.warmup()
+        batcher = ContinuousBatcher(served)
+        reqs = [_GenRequest(list(p), 12) for p in prompts]
+        kernels.reset_launches()
+        for r in reqs:
+            batcher._pending_join.append(r)
+        for _ in range(300):
+            if all(r.event.is_set() for r in reqs):
+                break
+            batcher._admit()
+            batcher._step()
+        require(all(r.event.is_set() and r.error is None for r in reqs),
+                f"demo ({side}): requests did not finish")
+        tokens[side] = [list(r.tokens) for r in reqs]
+        if side == "card":
+            torch.cuda.synchronize()
+            launches, composed = dict(kernels.launches), dict(
+                kernels.composed)
+    require(launches == expected(), f"demo at head width 16 launched "
+            f"kernels: {launches}")
+    require(composed["qkv_attention_fwd"] > 0 and composed["megastep"] > 0
+            and composed["ffn"] > 0,
+            f"demo at head width 16: composition counts {composed}")
+    require(tokens["card"] == tokens["cpu"],
+            f"demo at head width 16: tokens {tokens['card']} on the card, "
+            f"{tokens['cpu']} on the CPU")
+    return dict(route="demo head width 16", launches=launches,
+                composed={k: v for k, v in composed.items() if v},
+                requests=len(prompts),
+                tokens=sum(len(t) for t in tokens["card"]))
 
 
 # ---------------------------------------------------------------------------
@@ -2202,6 +2823,33 @@ def profile_resnet(model):
                 layout_kernels=layout)
 
 
+def profile_deepfm(model):
+    """Device time by kernel over one DeepFM step (forward, backward, lazy
+    Adam) at DEEPFM_BATCH, beside host wall time; the table goes to
+    ``profile_deepfm_step.txt``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    opt = _deepfm_adam(model)
+    feed = deepfm_batches(DEEPFM_HASH, 1)[0]
+    opt.minimize(model(*feed)[0])  # warm: the allocator and the state
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt.minimize(model(*feed)[0])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_kernels(prof)
+    busy_us = sum(us for _, us in rows)
+    with open(os.path.join(OUT_DIR, "profile_deepfm_step.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=60))
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+                idle_share=1 - busy_us / wall_us if busy_us else None,
+                top=[(name[:60], us / 1e3) for name, us in rows[:12]],
+                device_kernels=len(rows))
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -2224,7 +2872,36 @@ def print_record(r, label):
           + (f"; strided rows copied in {r['strided_copy_ms']} ms"
              if "strided_copy_ms" in r else "")
           + (f"; sums {r['sum_err_of_terms']:.3e} of their terms (TOL_SUM "
-             f"{TOL_SUM})" if "sum_err_of_terms" in r else ""))
+             f"{TOL_SUM})" if "sum_err_of_terms" in r else "")
+          + (f"; with the host's enqueue {r['call_ms']} ms"
+             if "call_ms" in r else "")
+          + (f"; 26 F.embedding calls {r['embedding_x26_ms']} ms"
+             if "embedding_x26_ms" in r else "")
+          + (f"; twin's bits: {r['twin_bit_equal']}"
+             if "twin_bit_equal" in r else ""))
+
+
+class _Tee:
+    """stdout copied into a file of OUT_DIR: the command's tail that the
+    caller sees may not reach back to phases 2 and 3."""
+
+    def __init__(self, stream, path):
+        self.stream, self.file = stream, open(path, "w")
+
+    def write(self, text):
+        self.file.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.file.flush()
+        self.stream.flush()
+
+
+def _phase_seconds(label, t0):
+    """Print a phase's seconds; returns the time it ended."""
+    now = time.perf_counter()
+    print(f"{label}: {now - t0:.1f} s")
+    return now
 
 
 def main():
@@ -2238,6 +2915,9 @@ def main():
         print(f"chip_smoke: paddle_tpu_torch not found beside the script "
               f"({exc})", file=sys.stderr)
         return 2
+    os.makedirs(OUT_DIR, exist_ok=True)
+    sys.stdout = _Tee(sys.stdout, os.path.join(OUT_DIR,
+                                               "chip_smoke_stdout.log"))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2252,7 +2932,6 @@ def main():
     _build.lib()
     print(f"phase 1: kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
-    os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         f.write(_build.build_log())
     open(os.path.join(OUT_DIR, "phase2_records.jsonl"), "w").close()
@@ -2262,6 +2941,7 @@ def main():
 
     gen = torch.Generator().manual_seed(0)
     records = {}
+    t_phase = time.perf_counter()
     for b in BATCHES:
         rec = check_qkv_attention(gen, b)
         mega, ffn = check_decode_kernels(gen, b)
@@ -2301,6 +2981,12 @@ def main():
     for (name, case), r in check_conv_bn(gen).items():
         print_record(r, f" {case} b={r['batch']}")
         records.setdefault((name, max(BATCHES)), r)
+    # ... and each embedding kernel's first: #22 on the emb group, #23 in
+    # Adam mode on it
+    for r, label in check_embedding():
+        print_record(r, label)
+        records.setdefault((r["name"], max(BATCHES)), r)
+    t_phase = _phase_seconds("phase 2", t_phase)
 
     model = paddle_tpu_torch.Transformer(**BASE).init_params(seed=0)
     cpu_model = paddle_tpu_torch.Transformer(**BASE, device="cpu")
@@ -2403,6 +3089,18 @@ def main():
     training_resnet = run_resnet(resnet)
     print("phase 3: " + ", ".join(f"{k} {v}"
                                   for k, v in training_resnet.items()))
+    t_phase = _phase_seconds("phase 3 (a)-(g)", t_phase)
+
+    # (h): DeepFM training; and the reference demo's head width 16 served
+    deepfm = paddle_tpu_torch.DeepFM(hash_dim=DEEPFM_HASH,
+                                     device=DEV).init_params(0)
+    training_deepfm = run_deepfm(deepfm)
+    print("phase 3: " + ", ".join(f"{k} {v}"
+                                  for k, v in training_deepfm.items()))
+    demo = run_demo_head16()
+    print("phase 3: " + ", ".join(f"{k} {v}" for k, v in demo.items()))
+    t_phase = _phase_seconds("phase 3 (h) and the head-width-16 demo",
+                             t_phase)
 
     for b in BATCHES:
         prof = profile_serving(model, b)
@@ -2442,11 +3140,24 @@ def main():
             print(f"    {ms:.4f} ms  {name}")
         print("phase 4: resnet50 layout-conversion kernels (NCHW/NHWC, "
               f"transpose): {profile_rn['layout_kernels'] or 'none'}")
+    profile_fm = profile_deepfm(deepfm)
+    if not profile_fm["device_busy_ms"]:
+        print("phase 4: deepfm training step: device time not measured "
+              "(the profiler saw no device events)")
+    else:
+        print(f"phase 4: deepfm training step (batch {DEEPFM_BATCH}): wall "
+              f"{profile_fm['wall_ms']} ms, device busy "
+              f"{profile_fm['device_busy_ms']} ms, idle share "
+              f"{profile_fm['idle_share']}, "
+              f"{profile_fm['device_kernels']} kernel names")
+        for name, ms in profile_fm["top"]:
+            print(f"    {ms:.4f} ms  {name}")
+    t_phase = _phase_seconds("phase 4", t_phase)
 
     # launches over every counted path; the FFN counter is split between
     # the ring paths (#11) and the paged ones (#13)
     paths = runs + serving + [training, training_fused, training_dropout,
-                              training_resnet]
+                              training_resnet, training_deepfm, demo]
     total = {name: sum(r["launches"][name] for r in paths)
              for name in paths[0]["launches"]}
     paged_ffn = sum(r["launches"]["ffn"] for r in paths
@@ -2459,7 +3170,8 @@ def main():
                  "flash_decode", "flash_decode_paged", "flash_fwd",
                  "flash_bwd_dq", "flash_bwd_dkv", "dropout_add_fwd",
                  "dropout_add_bwd", "channel_stats", "dot_col_stats",
-                 "ssa_fwd", "ssa_bwd"):
+                 "ssa_fwd", "ssa_bwd", "multi_table_gather",
+                 "multi_table_apply"):
         r = dict(records[(name, max(BATCHES))])
         r.pop("library_max_abs_err", None)
         r["launches"] = total[name]
@@ -2469,8 +3181,10 @@ def main():
                       "training": training, "training_fused": training_fused,
                       "training_dropout": training_dropout,
                       "training_resnet": training_resnet,
+                      "training_deepfm": training_deepfm, "demo": demo,
                       "profile_resnet": {k: v for k, v in profile_rn.items()
-                                         if k != "top"}, "power": smi}))
+                                         if k != "top"},
+                      "profile_deepfm": profile_fm, "power": smi}))
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,25 +32,46 @@ batch-norm route, in f32:
     avg_cost, acc, predict = model(image, label)   # NCHW f32, int64 [N, 1]
     opt.minimize(avg_cost)
 
-Seventeen hand-written CUDA kernels carry all of it (``kernels/``); every
+``data_format="NCHW"`` or ``fused_bn=False`` trains through the
+reference's unfused composition (``F.conv2d``, ``batch_norm_composed``)
+instead, with no kernel.
+
+It trains DeepFM, the reference's sparse CTR workload, with lazy Adam (or
+SGD) on row-sparse table gradients; with ``fused_embedding`` (the
+default) the 52 lookups are two #22 launches and the table updates two #23
+launches a step:
+
+    model = DeepFM(hash_dim=1000001).init_params(0)
+    opt = Adam(model.parameters(), learning_rate=1e-3, lazy_mode=True)
+    feed = make_deepfm_batch(4096, hash_dim=1000001)
+    avg_cost, auc, predict = model(*batch_tensors(feed))   # models.deepfm
+    opt.minimize(avg_cost)
+
+Nineteen hand-written CUDA kernels carry all of it (``kernels/``); every
 other operation is plain PyTorch, the convolutions that are not 1x1
-included (cuDNN on the card; turn its TF32 off for the f32 step).  Pass
-``device="cpu"`` to run every kernel's plain twin instead.  The package
-imports neither JAX nor ``paddle_tpu``.
+included (cuDNN on the card; turn its TF32 off for the f32 step).  At a
+head width % 64 != 0 the attention and decode kernels give way to their
+plain composition by shape, as the reference's plans do, and count it in
+``kernels.composed``.  Pass ``device="cpu"`` to run every kernel's plain
+twin instead.  The package imports neither JAX nor ``paddle_tpu``.
 """
 
 from .device import resolve_device  # noqa: F401
 from .generation import (BlockAllocator, GenerationSession,  # noqa: F401
                          KVCache, PagedKVCache)
 from .interop import (export_paddle_tpu_adam_state,  # noqa: F401
+                      export_paddle_tpu_deepfm_params,
                       export_paddle_tpu_params,
                       export_paddle_tpu_resnet_params,
                       load_paddle_tpu_adam_state,
+                      load_paddle_tpu_deepfm_params,
                       load_paddle_tpu_momentum_state, load_paddle_tpu_params,
                       load_paddle_tpu_resnet_params)
+from .models.deepfm import DeepFM  # noqa: F401
+from .models.deepfm import make_batch as make_deepfm_batch  # noqa: F401
 from .models.resnet import ResNet  # noqa: F401
 from .models.transformer import (Transformer, make_batch,  # noqa: F401
                                  training_biases)
-from .optimizer import Adam, Momentum  # noqa: F401
+from .optimizer import SGD, Adam, Momentum  # noqa: F401
 from .serving import (ContinuousBatcher, GenerationConfig,  # noqa: F401
                       GenerationServingModel)

@@ -3,7 +3,8 @@
 The reference names its parameters through ``unique_name`` draws.  The
 generation programs (``build_generation_programs``) and the training
 program (``transformer(...)`` + ``Adam.minimize``) draw the same names in
-different orders, so one map serves both: :func:`paddle_tpu_param_names`
+different orders, so one map serves both:
+:func:`~paddle_tpu_torch.models.transformer.paddle_tpu_param_names`
 lists each name with the attribute of the port's
 :class:`~paddle_tpu_torch.models.transformer.Transformer` it fills.
 :func:`load_paddle_tpu_params` and :func:`export_paddle_tpu_params` carry
@@ -25,6 +26,15 @@ parameter or running-statistic buffer of the port's
 running statistics, and :func:`load_paddle_tpu_momentum_state` the
 :class:`~paddle_tpu_torch.optimizer.Momentum` velocities,
 ``<param>_velocity_0``.
+
+DeepFM's parameters carry the reference's names as they are
+(``deepfm_emb_<i>``, ``deepfm_w1_<i>``, ``deepfm_fc<i>_w`` ...):
+:func:`load_paddle_tpu_deepfm_params` and
+:func:`export_paddle_tpu_deepfm_params` carry them, and the Adam state
+functions above its lazy-Adam state, per table ``<table>_moment1_0``,
+``<table>_moment2_0``, ``<table>_beta1_pow_acc_0`` and
+``<table>_beta2_pow_acc_0``.  The Adam state functions read the names from
+the model's ``paddle_tpu_named_parameters()``.
 """
 
 from __future__ import annotations
@@ -34,50 +44,7 @@ import torch
 
 from .kernels.hash_rng import seed_from_key_data
 from .models.resnet import DEPTHS
-
-
-def paddle_tpu_param_names(n_layer: int):
-    """[(reference parameter name, port parameter path)] in the generation
-    programs' draw order: the prefill program's, then the decode
-    program's."""
-    pairs = [("src_word_emb_table", "src_word_emb"),
-             ("src_pos_enc_table", "src_pos_enc")]
-
-    def ln(index, path):
-        return [(f"layer_norm_{index}.w_0", f"{path}_scale"),
-                (f"layer_norm_{index}.b_0", f"{path}_bias")]
-
-    for i in range(n_layer):
-        enc = f"encoder.{i}."
-        pairs += [(f"attn_qkv_w_{i}", enc + "attn_qkv_w"),
-                  (f"attn_out_w_{i}", enc + "attn_out_w"),
-                  *ln(2 * i, enc + "ln1"),
-                  (f"ffn_in_w_{i}", enc + "ffn_in_w"),
-                  (f"ffn_in_b_{i}", enc + "ffn_in_b"),
-                  (f"ffn_out_w_{i}", enc + "ffn_out_w"),
-                  (f"ffn_out_b_{i}", enc + "ffn_out_b"),
-                  *ln(2 * i + 1, enc + "ln2")]
-    for i in range(n_layer):
-        pairs += [(f"attn_k_w_{i}", f"decoder.{i}.cross_k_w"),
-                  (f"attn_v_w_{i}", f"decoder.{i}.cross_v_w")]
-    pairs += [("trg_word_emb_table", "trg_word_emb"),
-              ("trg_pos_enc_table", "trg_pos_enc")]
-    L = n_layer
-    for i in range(n_layer):
-        dec = f"decoder.{i}."
-        pairs += [(f"attn_qkv_w_{L + i}", dec + "attn_qkv_w"),
-                  (f"attn_out_w_{L + 2 * i}", dec + "attn_out_w"),
-                  *ln(2 * L + 3 * i, dec + "ln1"),
-                  (f"attn_q_w_{i}", dec + "cross_q_w"),
-                  (f"attn_out_w_{L + 2 * i + 1}", dec + "cross_out_w"),
-                  *ln(2 * L + 3 * i + 1, dec + "ln2"),
-                  (f"ffn_in_w_{L + i}", dec + "ffn_in_w"),
-                  (f"ffn_in_b_{L + i}", dec + "ffn_in_b"),
-                  (f"ffn_out_w_{L + i}", dec + "ffn_out_w"),
-                  (f"ffn_out_b_{L + i}", dec + "ffn_out_b"),
-                  *ln(2 * L + 3 * i + 2, dec + "ln3")]
-    pairs += [("predict_w", "predict_w"), ("predict_b", "predict_b")]
-    return pairs
+from .models.transformer import paddle_tpu_param_names  # noqa: F401
 
 
 @torch.no_grad()
@@ -114,10 +81,11 @@ ADAM_ACCUMULATORS = ("moment1", "moment2", "beta1_pow_acc", "beta2_pow_acc")
 
 def _adam_pairs(optimizer, model):
     """[(reference accumulator name, state tensor)] of every parameter
-    ``optimizer`` trains."""
+    ``optimizer`` trains, by the names of ``model.paddle_tpu_named_
+    parameters()``."""
     pairs = []
-    for name, path in paddle_tpu_param_names(model.n_layer):
-        state = optimizer.state.get(model.get_parameter(path))
+    for name, param in model.paddle_tpu_named_parameters():
+        state = optimizer.state.get(param)
         if state is not None:
             pairs += [(f"{name}_{acc}_0", state[acc])
                       for acc in ADAM_ACCUMULATORS]
@@ -126,10 +94,11 @@ def _adam_pairs(optimizer, model):
 
 @torch.no_grad()
 def load_paddle_tpu_adam_state(optimizer, model, state):
-    """Fill the Adam state of ``optimizer`` (training ``model``'s
-    parameters) from ``state``, a ``{name: array}`` mapping as the
-    reference's scope holds its accumulators.  Raises on a missing name or
-    a shape that differs; returns the optimizer."""
+    """Fill the Adam state of ``optimizer`` (training the parameters of
+    ``model``, a Transformer or a DeepFM) from ``state``, a ``{name:
+    array}`` mapping as the reference's scope holds its accumulators.
+    Raises on a missing name or a shape that differs; returns the
+    optimizer."""
     pairs = _adam_pairs(optimizer, model)
     missing = [name for name, _ in pairs if name not in state]
     if missing:
@@ -251,3 +220,30 @@ def load_paddle_tpu_momentum_state(optimizer, model, state):
                 f"{tuple(value.shape)}, the port's is {tuple(target.shape)}")
         target.copy_(value)
     return optimizer
+
+
+@torch.no_grad()
+def load_paddle_tpu_deepfm_params(model, params):
+    """Fill ``model`` (a DeepFM) from ``params``, ``{name: array}`` as the
+    reference's scope holds ``build_train_net``'s parameters (the port's
+    parameter names are the reference's).  Raises on a missing name or a
+    shape that differs; returns the model."""
+    named = list(model.named_parameters())
+    missing = [name for name, _ in named if name not in params]
+    if missing:
+        raise KeyError(f"load_paddle_tpu_deepfm_params: missing {missing}")
+    for name, target in named:
+        value = torch.from_numpy(np.array(params[name], np.float32))
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(
+                f"load_paddle_tpu_deepfm_params: {name} has shape "
+                f"{tuple(value.shape)}, the port's is {tuple(target.shape)}")
+        target.copy_(value)
+    return model
+
+
+def export_paddle_tpu_deepfm_params(model):
+    """{reference name: f32 numpy array} of a DeepFM's parameters, which
+    :func:`load_paddle_tpu_deepfm_params` (or a reference scope) takes."""
+    return {name: p.detach().cpu().numpy().copy()
+            for name, p in model.named_parameters()}

@@ -150,6 +150,9 @@ _SIGNATURES = {
     "ptt_dot_col_stats": (_I, [_P] * 6 + [_I] * 3 + [_P]),
     "ptt_ssa_fwd": (_I, [_P] * 5 + [_L, _I, _I, _P]),
     "ptt_ssa_bwd": (_I, [_P] * 9 + [_L, _I, _I, _P]),
+    "ptt_table_gather": (_I, [_P, _I, _L, _I, _P, _I, _P, _P]),
+    "ptt_table_apply": (_I, [_I] + [_P] * 3 + [_I, _L, _I] + [_P] * 3
+                        + [_I, _F, _P] + [_F] * 5 + [_P]),
 }
 
 

@@ -33,12 +33,10 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, hash_rng, launches
+from . import KERNEL_D_HEAD, _build, composes, hash_rng, launches
 
 #: score given to causally hidden keys (the reference kernel's value)
 MASK_VALUE = -1e30
-#: head width the CUDA kernel is compiled for
-KERNEL_D_HEAD = 64
 
 
 def _bias_4d(bias, b, n_head, tq, tk, what):
@@ -173,6 +171,10 @@ def reference_qkv_bwd_dkv(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1,
     return dx, xt @ dk, xt @ dv
 
 
+def _d_head(w_qkv, n_head):
+    return w_qkv.shape[1] // 3 // n_head
+
+
 def _qkv_args(what, x, w_qkv, w_out, bias, n_head, **more):
     """Check the operands of a fused-projection kernel and return (b, t,
     dm, hd, bias strides, bias pointer).  x (and g) [b, t, dm], w_qkv
@@ -227,8 +229,10 @@ def qkv_attention_fwd(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
                       causal=False, dropout_rate=0.0, dropout_seed=0):
     """#1 with residuals: (y, ctx, lse) as :func:`reference_qkv_fwd`
     computes them.  CPU tensors take the plain twin; CUDA tensors launch
-    the kernel or raise."""
-    if x.device.type == "cpu":
+    the kernel or raise; at a head width the kernel does not take
+    (``composes``) they take the twin too, as the reference's plan does."""
+    if x.device.type == "cpu" or composes("qkv_attention_fwd",
+                                          _d_head(w_qkv, n_head)):
         return reference_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale,
                                  causal, dropout_rate, dropout_seed)
     return _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
@@ -266,8 +270,10 @@ def _launch_qkv_bwd(which, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
 def qkv_bwd_dq(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1, scale=1.0,
                causal=False, dropout_rate=0.0, dropout_seed=0):
     """#2: (dx_q, dW_q, dW_out) as :func:`reference_qkv_bwd_dq` computes
-    them (CPU: the twin; CUDA: the kernel or an error)."""
-    if x.device.type == "cpu":
+    them (CPU: the twin; CUDA: the kernel, the twin at a composed head
+    width, or an error)."""
+    if x.device.type == "cpu" or composes("qkv_bwd_dq",
+                                          _d_head(w_qkv, n_head)):
         return reference_qkv_bwd_dq(x, w_qkv, w_out, bias, g, ctx, lse,
                                     n_head, scale, causal, dropout_rate,
                                     dropout_seed)
@@ -278,8 +284,10 @@ def qkv_bwd_dq(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1, scale=1.0,
 def qkv_bwd_dkv(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1, scale=1.0,
                 causal=False, dropout_rate=0.0, dropout_seed=0):
     """#3: (dx_kv, dW_k, dW_v) as :func:`reference_qkv_bwd_dkv` computes
-    them (CPU: the twin; CUDA: the kernel or an error)."""
-    if x.device.type == "cpu":
+    them (CPU: the twin; CUDA: the kernel, the twin at a composed head
+    width, or an error)."""
+    if x.device.type == "cpu" or composes("qkv_bwd_dkv",
+                                          _d_head(w_qkv, n_head)):
         return reference_qkv_bwd_dkv(x, w_qkv, w_out, bias, g, ctx, lse,
                                      n_head, scale, causal, dropout_rate,
                                      dropout_seed)
@@ -341,8 +349,11 @@ def flash_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
     the bias when it requires grad); otherwise #1 alone, as serving runs
     it under ``torch.no_grad()``.  CPU tensors take the plain twins; CUDA
     tensors launch the kernels, which take dh == 64 and d_model % 32 == 0
-    and raise on anything else.  ``dropout_rate`` > 0 drops the attention
-    weights inside the kernels under the site's uint32 ``dropout_seed``
+    and raise on anything else, except at dh % 64 != 0, where the
+    reference's plan runs its composition and so does the port (the
+    twins, counted in ``kernels.composed``).  ``dropout_rate`` > 0 drops
+    the attention weights inside the kernels under the site's uint32
+    ``dropout_seed``
     (the mask of :func:`flash_attention` for the same seed); the caller
     passes 0 at inference.
     """
@@ -361,7 +372,8 @@ def flash_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
         return _FlashQKVAttention.apply(
             x.contiguous(), w_qkv.contiguous(), w_out.contiguous(), bias,
             n_head, float(scale), bool(causal), rate, seed)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or composes("qkv_attention_fwd",
+                                          _d_head(w_qkv, n_head)):
         return reference_qkv_attention(x, w_qkv, w_out, bias, n_head,
                                        scale, causal, rate, seed)
     return _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
@@ -494,7 +506,7 @@ def flash_fwd(q, k, v, bias=None, scale=1.0, causal=False, dropout_rate=0.0,
               dropout_seed=0):
     """#4: (out, lse) as :func:`reference_flash_fwd` computes them.  CPU
     tensors take the plain twin; CUDA tensors launch the kernel or raise."""
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or composes("flash_fwd", q.shape[-1]):
         return reference_flash_fwd(q, k, v, bias, scale, causal,
                                    dropout_rate, dropout_seed)
     b, tq, tk, h, strides, bias_ptr = _kernel_args("flash_fwd", q, k, bias,
@@ -515,7 +527,7 @@ def flash_bwd_dq(q, k, v, bias, dout, lse, delta, scale=1.0, causal=False,
                  dropout_rate=0.0, dropout_seed=0):
     """#6: dq as :func:`reference_flash_bwd_dq` computes it (CPU: the
     twin; CUDA: the kernel or an error)."""
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or composes("flash_bwd_dq", q.shape[-1]):
         return reference_flash_bwd_dq(q, k, v, bias, dout, lse, delta, scale,
                                       causal, dropout_rate, dropout_seed)
     b, tq, tk, h, strides, bias_ptr = _kernel_args(
@@ -536,7 +548,7 @@ def flash_bwd_dkv(q, k, v, bias, dout, lse, delta, scale=1.0, causal=False,
                   dropout_rate=0.0, dropout_seed=0):
     """#7: (dk, dv) as :func:`reference_flash_bwd_dkv` computes them (CPU:
     the twin; CUDA: the kernel or an error)."""
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or composes("flash_bwd_dkv", q.shape[-1]):
         return reference_flash_bwd_dkv(q, k, v, bias, dout, lse, delta,
                                        scale, causal, dropout_rate,
                                        dropout_seed)
@@ -609,7 +621,8 @@ def flash_attention(q, k, v, bias=None, scale=1.0, causal=False,
     (the key-padding [b, 1, 1, tk] and decoder [b, 1, tq, tk] biases are
     read in place, never expanded); ``causal`` masks keys past
     query + tk - tq.  Returns [b, tq, h, d].  On the CPU every pass runs
-    its plain twin; on CUDA the kernels #4, #6 and #7 (head width 64).
+    its plain twin; on CUDA the kernels #4, #6 and #7 (head width 64; at
+    a width % 64 != 0 the twins, as the reference's plan composes there).
     ``dropout_rate`` > 0 drops the attention weights inside the kernels
     under the site's uint32 ``dropout_seed``; the caller passes 0 at
     inference."""

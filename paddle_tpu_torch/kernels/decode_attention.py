@@ -22,10 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, launches
-
-#: head width the CUDA kernels are compiled for
-KERNEL_D_HEAD = 64
+from . import KERNEL_D_HEAD, _build, composes, launches
 
 
 def reference_decode(q, k, v, lengths, scale=1.0):
@@ -97,8 +94,9 @@ def _check_query(q, lengths, what):
 def flash_decode(q, k, v, lengths, scale=1.0):
     """Single-query attention against a length-masked ring cache slice.
     q [b, h, dh]; k/v [b, max_t, h, dh]; lengths [b] int32.  Returns
-    [b, h, dh]."""
-    if q.device.type == "cpu":
+    [b, h, dh].  On CUDA at a head width % 64 != 0 the plain walk (the
+    reference's plan declines the kernel there)."""
+    if q.device.type == "cpu" or composes("flash_decode", q.shape[-1]):
         return reference_decode(q, k, v, lengths, scale)
     b, h, dh = q.shape
     max_t = k.shape[1]
@@ -119,8 +117,10 @@ def flash_decode_paged(q, k_pool, v_pool, table, lengths, scale=1.0):
     """Single-query attention over one layer's paged pools.  q [b, h, dh];
     k_pool/v_pool [num_blocks, block_t, h, dh]; table [b, max_blocks]
     int32 pool block ids (trusted: the host allocator owns them); lengths
-    [b] int32.  Returns [b, h, dh]."""
-    if q.device.type == "cpu":
+    [b] int32.  Returns [b, h, dh].  On CUDA at a head width % 64 != 0
+    the plain walk, as :func:`flash_decode`."""
+    if q.device.type == "cpu" or composes("flash_decode_paged",
+                                          q.shape[-1]):
         return reference_decode_paged(q, k_pool, v_pool, table, lengths,
                                       scale)
     b, h, dh = q.shape

@@ -27,9 +27,9 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, launches
-from .decode_attention import (KERNEL_D_HEAD, reference_decode,
-                               reference_decode_paged)
+from . import (KERNEL_D_HEAD, _build, composed, composes, head_route,
+               launches)
+from .decode_attention import reference_decode, reference_decode_paged
 from ..ops.generation_ops import kv_cache_update, paged_kv_cache_update
 from ..ops.nn_ops import layer_norm
 
@@ -130,7 +130,7 @@ def megastep(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout, ln2_scale,
     args = (x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout, ln2_scale,
             ln2_bias, cache_k, cache_v, cross_k, cross_v, pos, lengths,
             cross_lengths, active)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or composes("megastep", cache_k.shape[-1]):
         return reference_megastep(*args, layer=layer, n_head=n_head,
                                   scale=scale, eps=eps)
     spec = _megastep_spec("megastep", *args[:11], *args[13:], n_head,
@@ -193,7 +193,8 @@ def megastep_paged(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
     args = (x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout, ln2_scale,
             ln2_bias, cache_k, cache_v, cross_k, cross_v, pos, lengths,
             cross_lengths, self_table, cross_table, active)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or composes("megastep_paged",
+                                          cache_k.shape[-1]):
         return reference_megastep_paged(*args, layer=layer, n_head=n_head,
                                         scale=scale, eps=eps)
     spec = _megastep_spec("megastep_paged", *args[:11], *args[13:16],
@@ -268,6 +269,16 @@ def ffn_epilogue(x, ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b, ln3_scale,
     return out
 
 
+def _ffn_route(x, d_head):
+    """The FFN half of a decoder step: :func:`ffn_epilogue`, or on CUDA at
+    a head width % 64 != 0 its plain version (counted), since there the
+    reference's megastep plan declines the whole step, FFN included."""
+    if x.device.type == "cuda" and head_route(d_head) == "composed":
+        composed["ffn"] += 1
+        return reference_ffn
+    return ffn_epilogue
+
+
 def fused_decode_step(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
                       ln2_scale, ln2_bias, ffn_in_w, ffn_in_b, ffn_out_w,
                       ffn_out_b, ln3_scale, ln3_bias, cache_k, cache_v,
@@ -285,8 +296,9 @@ def fused_decode_step(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
                  ln2_bias, cache_k, cache_v, cross_k, cross_v, pos, lengths,
                  cross_lengths, active, layer=layer, n_head=n_head,
                  scale=scale, eps=eps)
-    out = ffn_epilogue(x, ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b,
-                       ln3_scale, ln3_bias, eps)
+    out = _ffn_route(x, cache_k.shape[-1])(
+        x, ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b, ln3_scale, ln3_bias,
+        eps)
     return out, cache_k, cache_v
 
 
@@ -331,6 +343,7 @@ def fused_decode_step_paged(x, wqkv, wout, ln1_scale, ln1_bias, wcq,
                        cross_v, pos, lengths, cross_lengths, self_table,
                        cross_table, active, layer=layer, n_head=n_head,
                        scale=scale, eps=eps)
-    out = ffn_epilogue(x, ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b,
-                       ln3_scale, ln3_bias, eps)
+    out = _ffn_route(x, cache_k.shape[-1])(
+        x, ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b, ln3_scale, ln3_bias,
+        eps)
     return out, cache_k, cache_v

@@ -1,18 +1,22 @@
 """ResNet for image classification training, as nn.Modules.
 
 Counterpart of ``paddle_tpu/models/resnet.py`` (``resnet_imagenet`` and
-``build_train_net``) on the reference's NHWC training route: with
-``FLAGS_fused_bn`` on (its default), NHWC and a training graph, every
+``build_train_net``).  On the reference's NHWC training route, with
+``FLAGS_fused_bn`` on (its default, the port's ``fused_bn=True``), every
 ``conv_bn_layer`` is one fused ``conv2d_bn`` (``ops/nn_ops.py``).  There a
 1x1 convolution runs #19 (the product with its output's statistics in the
 epilogue), every other convolution ``F.conv2d`` (cuDNN on the card, as
 the reference leaves its convolutions to XLA) and then #18, and the batch
 norm with its residual and ReLU runs #20 forward and #21 backward.
-``model.eval()`` (the reference's ``is_test``) takes the composition over
-the running statistics instead, with no kernel.
+``data_format="NCHW"``, ``fused_bn=False`` and ``model.eval()`` (the
+reference's ``is_test``) take the reference's unfused composition
+instead, with no kernel: ``F.conv2d``, ``batch_norm_composed`` (batch
+statistics in training, the running ones in eval), the residual add and
+the ReLU.
 
-The image enters as the reference feeds it, NCHW f32, and is permuted to
-NHWC once; every activation after that is a contiguous NHWC tensor.  The
+The image enters as the reference feeds it, NCHW f32.  On the NHWC route
+it is permuted to NHWC once, and every activation after that is a
+contiguous NHWC tensor.  The
 running mean and variance are buffers, moved in place by each training
 forward with momentum 0.9.  Parameters keep the reference's layouts
 (OIHW filters, the fc weight [in, out]), so
@@ -28,10 +32,13 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.nn_ops import accuracy, conv2d_bn, cross_entropy, pool2d
+from ..kernels.conv_bn import conv2d_nhwc
+from ..ops.nn_ops import (accuracy, batch_norm_composed, conv2d_bn,
+                          cross_entropy, pool2d)
 
 #: depth -> (blocks per stage, block kind), ``resnet_imagenet``'s table
 DEPTHS = {18: ([2, 2, 2, 1], "basic"), 34: ([3, 4, 6, 3], "basic"),
@@ -43,15 +50,18 @@ MOMENTUM, EPSILON = 0.9, 1e-5
 
 class ConvBN(nn.Module):
     """``conv_bn_layer``: a bias-free convolution, batch norm, and then an
-    optional residual and ReLU, as one ``conv2d_bn``.  ``weight`` is the
-    OIHW filter (``conv2d_<i>.w_0``), ``scale``/``bias`` the batch norm's
-    (``batch_norm_<i>.w_0``/``b_0``), ``mean``/``var`` its running
-    statistics (``.mean_0``/``.var_0``)."""
+    optional residual and ReLU, as one fused ``conv2d_bn`` in NHWC
+    training under ``fused_bn``, else as the reference's separate ops.
+    ``weight`` is the OIHW filter (``conv2d_<i>.w_0``), ``scale``/``bias``
+    the batch norm's (``batch_norm_<i>.w_0``/``b_0``), ``mean``/``var``
+    its running statistics (``.mean_0``/``.var_0``)."""
 
     def __init__(self, ch_in, ch_out, filter_size, stride, padding,
-                 act="relu", device=None):
+                 act="relu", device=None, data_format="NHWC",
+                 fused_bn=True):
         super().__init__()
         self.stride, self.padding, self.act = stride, padding, act or ""
+        self.data_format, self.fused_bn = data_format, fused_bn
         self.weight = nn.Parameter(torch.empty(
             ch_out, ch_in, filter_size, filter_size, device=device))
         self.scale = nn.Parameter(torch.empty(ch_out, device=device))
@@ -60,11 +70,14 @@ class ConvBN(nn.Module):
         self.register_buffer("var", torch.ones(ch_out, device=device))
 
     def forward(self, x, residual=None):
-        out, mean, var = conv2d_bn(
-            x, self.weight, self.scale, self.bias, self.mean, self.var,
-            residual=residual, strides=self.stride, paddings=self.padding,
-            eps=EPSILON, momentum=MOMENTUM, act=self.act,
-            use_global_stats=not self.training)
+        if self.data_format == "NHWC" and self.fused_bn:
+            out, mean, var = conv2d_bn(
+                x, self.weight, self.scale, self.bias, self.mean, self.var,
+                residual=residual, strides=self.stride,
+                paddings=self.padding, eps=EPSILON, momentum=MOMENTUM,
+                act=self.act, use_global_stats=not self.training)
+        else:
+            out, mean, var = self._composed(x, residual)
         if self.training:
             with torch.no_grad():
                 self.mean.copy_(mean)
@@ -72,12 +85,29 @@ class ConvBN(nn.Module):
         return out
 
 
-def _shortcut(ch_in, ch_out, stride, device):
+    def _composed(self, x, residual):
+        """The reference's ``conv2d``, ``batch_norm`` and
+        ``elementwise_add(residual, bn, act)``: (out, mean_out,
+        var_out)."""
+        if self.data_format == "NCHW":
+            y = F.conv2d(x, self.weight, stride=self.stride,
+                         padding=self.padding)
+        else:
+            y = conv2d_nhwc(x, self.weight, self.stride, self.padding)
+        out, mean, var = batch_norm_composed(
+            y, self.scale, self.bias, self.mean, self.var, EPSILON, MOMENTUM,
+            not self.training, self.data_format)
+        if residual is not None:
+            out = residual + out
+        return (torch.relu(out) if self.act == "relu" else out), mean, var
+
+
+def _shortcut(ch_in, ch_out, stride, **kw):
     """``shortcut``: a 1x1 ConvBN without ReLU where the widths differ,
     else None (the identity)."""
     if ch_in == ch_out:
         return None
-    return ConvBN(ch_in, ch_out, 1, stride, 0, act=None, device=device)
+    return ConvBN(ch_in, ch_out, 1, stride, 0, act=None, **kw)
 
 
 class BasicBlock(nn.Module):
@@ -87,11 +117,11 @@ class BasicBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, ch_in, ch_out, stride, device=None):
+    def __init__(self, ch_in, ch_out, stride, **kw):
         super().__init__()
-        self.shortcut = _shortcut(ch_in, ch_out, stride, device)
-        self.conv1 = ConvBN(ch_in, ch_out, 3, stride, 1, device=device)
-        self.conv2 = ConvBN(ch_out, ch_out, 3, 1, 1, device=device)
+        self.shortcut = _shortcut(ch_in, ch_out, stride, **kw)
+        self.conv1 = ConvBN(ch_in, ch_out, 3, stride, 1, **kw)
+        self.conv2 = ConvBN(ch_out, ch_out, 3, 1, 1, **kw)
 
     def forward(self, x):
         short = x if self.shortcut is None else self.shortcut(x)
@@ -104,22 +134,22 @@ class Bottleneck(nn.Module):
 
     expansion = 4
 
-    def __init__(self, ch_in, ch_out, stride, device=None):
+    def __init__(self, ch_in, ch_out, stride, **kw):
         super().__init__()
-        self.shortcut = _shortcut(ch_in, ch_out * 4, stride, device)
-        self.conv1 = ConvBN(ch_in, ch_out, 1, stride, 0, device=device)
-        self.conv2 = ConvBN(ch_out, ch_out, 3, 1, 1, device=device)
-        self.conv3 = ConvBN(ch_out, ch_out * 4, 1, 1, 0, device=device)
+        self.shortcut = _shortcut(ch_in, ch_out * 4, stride, **kw)
+        self.conv1 = ConvBN(ch_in, ch_out, 1, stride, 0, **kw)
+        self.conv2 = ConvBN(ch_out, ch_out, 3, 1, 1, **kw)
+        self.conv3 = ConvBN(ch_out, ch_out * 4, 1, 1, 0, **kw)
 
     def forward(self, x):
         short = x if self.shortcut is None else self.shortcut(x)
         return self.conv3(self.conv2(self.conv1(x)), residual=short)
 
 
-def layer_warp(block, ch_in, ch_out, count, stride, device=None):
+def layer_warp(block, ch_in, ch_out, count, stride, **kw):
     """``layer_warp``: ``count`` blocks, the first with ``stride``."""
-    blocks = [block(ch_in, ch_out, stride, device=device)]
-    blocks += [block(ch_out * block.expansion, ch_out, 1, device=device)
+    blocks = [block(ch_in, ch_out, stride, **kw)]
+    blocks += [block(ch_out * block.expansion, ch_out, 1, **kw)
                for _ in range(count - 1)]
     return nn.Sequential(*blocks)
 
@@ -130,29 +160,34 @@ class ResNet(nn.Module):
     512 (times the block's expansion), global average pool and a softmax
     fc of ``class_dim``.  ``forward(image, label)`` takes the NCHW f32
     image and the int64 label [N, 1] and returns (avg_cost, acc,
-    predict).  Runs on CUDA unless ``device`` says otherwise; parameters
-    are uninitialized until :meth:`init_params` or
-    ``interop.load_paddle_tpu_resnet_params``."""
+    predict).  ``data_format`` is the layout of the activations ("NHWC",
+    the default, or "NCHW"); ``fused_bn`` the reference's
+    FLAGS_fused_bn, which arms the fused route in NHWC training.  Runs on
+    CUDA unless ``device`` says otherwise; parameters are uninitialized
+    until :meth:`init_params` or ``interop.load_paddle_tpu_resnet_params``.
+    """
 
     def __init__(self, depth=50, class_dim=1000, data_format="NHWC",
-                 device=None):
+                 device=None, fused_bn=True):
         super().__init__()
         if depth not in DEPTHS:
             raise ValueError(f"ResNet: depth {depth} not in "
                              f"{sorted(DEPTHS)}")
-        if data_format != "NHWC":
-            raise NotImplementedError(
-                f"ResNet: data_format={data_format!r}; the port trains the "
-                "reference's fused NHWC route only")
+        if data_format not in ("NHWC", "NCHW"):
+            raise ValueError(f"ResNet: data_format {data_format!r} is "
+                             "neither NHWC nor NCHW")
         device = resolve_device(device)
         self.depth, self.class_dim = depth, class_dim
+        self.data_format = data_format
+        kw = dict(device=device, data_format=data_format,
+                  fused_bn=bool(fused_bn))
         stages, kind = DEPTHS[depth]
         block = Bottleneck if kind == "bottleneck" else BasicBlock
-        self.conv1 = ConvBN(3, 64, 7, 2, 3, device=device)
+        self.conv1 = ConvBN(3, 64, 7, 2, 3, **kw)
         ch_in, stage_list = 64, []
         for i, (count, width) in enumerate(zip(stages, (64, 128, 256, 512))):
             stage_list.append(layer_warp(block, ch_in, width, count,
-                                         1 if i == 0 else 2, device=device))
+                                         1 if i == 0 else 2, **kw))
             ch_in = width * block.expansion
         self.stages = nn.ModuleList(stage_list)
         self.fc_w = nn.Parameter(torch.empty(ch_in, class_dim, device=device))
@@ -186,11 +221,12 @@ class ResNet(nn.Module):
         return self
 
     def forward(self, image, label):
-        x = self.conv1(image.permute(0, 2, 3, 1).contiguous())
-        x = pool2d(x, "max", 3, 2, 1)
+        fmt = self.data_format
+        x = image if fmt == "NCHW" else image.permute(0, 2, 3, 1).contiguous()
+        x = pool2d(self.conv1(x), "max", 3, 2, 1, data_format=fmt)
         for stage in self.stages:
             x = stage(x)
-        x = pool2d(x, "avg", global_pooling=True)
+        x = pool2d(x, "avg", global_pooling=True, data_format=fmt)
         predict = torch.softmax(x.reshape(x.shape[0], -1) @ self.fc_w
                                 + self.fc_b, dim=-1)
         avg_cost = cross_entropy(predict, label).mean()

@@ -276,6 +276,50 @@ class DecoderLayer(nn.Module):
         return layer_norm(x + ffd, self.ln3_scale, self.ln3_bias)
 
 
+def paddle_tpu_param_names(n_layer: int):
+    """[(reference parameter name, port parameter path)] of a Transformer of
+    ``n_layer`` layers, in the generation programs' draw order: the
+    prefill program's, then the decode program's."""
+    pairs = [("src_word_emb_table", "src_word_emb"),
+             ("src_pos_enc_table", "src_pos_enc")]
+
+    def ln(index, path):
+        return [(f"layer_norm_{index}.w_0", f"{path}_scale"),
+                (f"layer_norm_{index}.b_0", f"{path}_bias")]
+
+    for i in range(n_layer):
+        enc = f"encoder.{i}."
+        pairs += [(f"attn_qkv_w_{i}", enc + "attn_qkv_w"),
+                  (f"attn_out_w_{i}", enc + "attn_out_w"),
+                  *ln(2 * i, enc + "ln1"),
+                  (f"ffn_in_w_{i}", enc + "ffn_in_w"),
+                  (f"ffn_in_b_{i}", enc + "ffn_in_b"),
+                  (f"ffn_out_w_{i}", enc + "ffn_out_w"),
+                  (f"ffn_out_b_{i}", enc + "ffn_out_b"),
+                  *ln(2 * i + 1, enc + "ln2")]
+    for i in range(n_layer):
+        pairs += [(f"attn_k_w_{i}", f"decoder.{i}.cross_k_w"),
+                  (f"attn_v_w_{i}", f"decoder.{i}.cross_v_w")]
+    pairs += [("trg_word_emb_table", "trg_word_emb"),
+              ("trg_pos_enc_table", "trg_pos_enc")]
+    L = n_layer
+    for i in range(n_layer):
+        dec = f"decoder.{i}."
+        pairs += [(f"attn_qkv_w_{L + i}", dec + "attn_qkv_w"),
+                  (f"attn_out_w_{L + 2 * i}", dec + "attn_out_w"),
+                  *ln(2 * L + 3 * i, dec + "ln1"),
+                  (f"attn_q_w_{i}", dec + "cross_q_w"),
+                  (f"attn_out_w_{L + 2 * i + 1}", dec + "cross_out_w"),
+                  *ln(2 * L + 3 * i + 1, dec + "ln2"),
+                  (f"ffn_in_w_{L + i}", dec + "ffn_in_w"),
+                  (f"ffn_in_b_{L + i}", dec + "ffn_in_b"),
+                  (f"ffn_out_w_{L + i}", dec + "ffn_out_w"),
+                  (f"ffn_out_b_{L + i}", dec + "ffn_out_b"),
+                  *ln(2 * L + 3 * i + 2, dec + "ln3")]
+    pairs += [("predict_w", "predict_w"), ("predict_b", "predict_b")]
+    return pairs
+
+
 class Transformer(nn.Module):
     """Encoder-decoder Transformer for training and generation.  Runs on
     CUDA unless ``device`` says otherwise; parameters are uninitialized
@@ -322,6 +366,12 @@ class Transformer(nn.Module):
     @property
     def device(self):
         return self.predict_w.device
+
+    def paddle_tpu_named_parameters(self):
+        """[(reference name, parameter)] in :func:`paddle_tpu_param_names`'s
+        order: the names the reference's scope gives these weights."""
+        return [(name, self.get_parameter(path))
+                for name, path in paddle_tpu_param_names(self.n_layer)]
 
     @torch.no_grad()
     def init_params(self, seed=0):

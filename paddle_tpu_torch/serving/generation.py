@@ -629,16 +629,17 @@ def build_demo_generation_model(name: str = "gendemo",
                                 slots: int = 4, seed: int = 11,
                                 device=None,
                                 **kw) -> GenerationServingModel:
-    """A small deterministic generation model with seeded random weights.
-    The reference's demo widths, except d_key = d_value = 64 and d_model
-    128 (the port's CUDA kernels are compiled for head width 64, where the
-    reference's demo has 16).  ``kw`` adds GenerationConfig keywords
+    """A small deterministic generation model with seeded random weights,
+    at the reference demo's widths: 2 layers of 2 heads of 16, d_model 32,
+    d_inner 64.  At head width 16 the attention and decode wrappers take
+    their plain composition on the card, as the reference's plans do
+    (``kernels.composes``).  ``kw`` adds GenerationConfig keywords
     (``paged``, ``num_blocks``, ``fused_decode_step``, ...)."""
     cfg = GenerationConfig(
         name, slots=slots,
         src_vocab_size=32, trg_vocab_size=32, max_length=72,
-        n_layer=2, n_head=2, d_key=64, d_value=64, d_model=128,
-        d_inner_hid=256, src_seq_len=8, max_out_len=64,
+        n_layer=2, n_head=2, d_key=16, d_value=16, d_model=32,
+        d_inner_hid=64, src_seq_len=8, max_out_len=64,
         bos_id=0, eos_id=1, device=device, **kw)
     model = GenerationServingModel(cfg)
     model.init_params(seed)

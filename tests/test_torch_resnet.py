@@ -182,8 +182,8 @@ def _feed(seed=0):
     return {k: torch.from_numpy(v) for k, v in _batch(seed).items()}
 
 
-def _port(state):
-    model = ResNet(DEPTH, CLASSES, device="cpu")
+def _port(state, **kw):
+    model = ResNet(DEPTH, CLASSES, device="cpu", **kw)
     return load_paddle_tpu_resnet_params(model, state)
 
 
@@ -199,11 +199,12 @@ def _velocities(opt, model):
             for ref_name, path in resnet_param_names(DEPTH) if path in named}
 
 
-def _step(state, dtype, velocities=None, lr=LR):
-    """One Momentum step of the port from the reference's ``state`` (and
-    its velocities, when given) in ``dtype``: (loss, {reference name:
-    value after the step}), velocities included."""
-    model = _port(state).to(dtype)
+def _step(state, dtype, velocities=None, lr=LR, **kw):
+    """One Momentum step of the port (``ResNet(**kw)``) from the
+    reference's ``state`` (and its velocities, when given) in ``dtype``:
+    (loss, {reference name: value after the step}), velocities
+    included."""
+    model = _port(state, **kw).to(dtype)
     opt = Momentum(model.parameters(), learning_rate=lr, momentum=0.9)
     if velocities is not None:
         load_paddle_tpu_momentum_state(opt, model, velocities)
@@ -284,6 +285,36 @@ def test_two_momentum_steps_match_reference(ref):
     either side, the reference's included.)"""
     _held(ref, 0, ref.start)
     _held(ref, 1, ref.after[0], velocities=ref.after[0])
+
+
+@pytest.mark.parametrize("kw", [dict(data_format="NCHW"),
+                                dict(fused_bn=False)],
+                         ids=["nchw", "nhwc_unfused"])
+def test_unfused_routes_match_reference_float64_program(ref, kw):
+    """``data_format="NCHW"`` and ``fused_bn=False`` train through the
+    reference's unfused composition (conv2d, batch_norm, elementwise_add):
+    step 1 in float64 within TOL_F64 of the reference's unfused program
+    under ``jax.enable_x64`` from the same state (loss, every update and
+    velocity), and the f32 step's updates and velocities under TOL_F32 and
+    TOL_F32_MEDIAN against it, as the fused route is held; no kernel
+    launched, and the f32 loss within TOL_LOSS of the reference's."""
+    kernels.reset_launches()
+    loss, _, got = _step(ref.start, torch.float32, **kw)
+    assert not any(kernels.launches.values())
+    assert abs(loss - ref.losses[0]) <= TOL_LOSS * abs(ref.losses[0])
+    exact, exact_loss = ref.exact[0], ref.exact_losses[0]
+    loss64, _, port64 = _step(ref.start, torch.float64, lr=ref.lr, **kw)
+    assert abs(loss64 - exact_loss) <= TOL_F64 * abs(exact_loss)
+    worst = max((_rel(_moved(port64, ref.start, n),
+                      _moved(exact, ref.start, n)), n)
+                for n in ref.names + ref.velocities)
+    assert worst[0] <= TOL_F64, worst
+    stats = {n for n in ref.names if n.endswith((".mean_0", ".var_0"))}
+    errs = [(_rel(_moved(got, ref.start, n), _moved(exact, ref.start, n)), n)
+            for n in [n for n in ref.names if n not in stats]
+            + ref.velocities]
+    assert max(errs)[0] <= TOL_F32, max(errs)
+    assert np.median([e for e, _ in errs]) <= TOL_F32_MEDIAN
 
 
 def test_resume_from_reference_momentum_state(ref):

@@ -18,7 +18,7 @@ import pytest
 from paddle_tpu import monitor
 from paddle_tpu.flags import FLAGS
 from paddle_tpu.serving import generation as jax_generation
-from paddle_tpu_torch import GenerationSession, Transformer
+from paddle_tpu_torch import GenerationSession, Transformer, kernels
 from paddle_tpu_torch.interop import (load_paddle_tpu_params,
                                       paddle_tpu_param_names)
 from paddle_tpu_torch.serving import (ContinuousBatcher, GenerationConfig,
@@ -106,6 +106,50 @@ def test_batcher_matches_reference_tokens_and_prefix_reuse(paged):
         assert sess.cross_cache.allocator.used_count == 0
         assert c[f"generation.{name}.blocks_used_peak"] > 0
     assert not batcher._prefix_map
+
+
+def test_demo_at_reference_widths_matches_reference_tokens():
+    """The demo model has the reference demo's widths (head width 16):
+    with the reference demo's weights carried across, the port's batcher
+    gives PROMPTS the reference demo batcher's tokens."""
+    ref = jax_generation.build_demo_generation_model("gendemo_ref", slots=4)
+    ref.warmup()
+    reqs = [jax_generation._GenRequest(list(p), 12) for p in PROMPTS]
+    _drive(jax_generation.ContinuousBatcher(ref), reqs)
+    want = [list(r.tokens) for r in reqs]
+    scope = ref.session.scope
+    params = {n: scope.find_var(n) for n, _ in paddle_tpu_param_names(2)}
+
+    served = build_demo_generation_model(device="cpu")
+    model = served.session.model
+    assert (model.n_head, model.d_key, model.d_model) == (2, 16, 32)
+    load_paddle_tpu_params(model, params)
+    served.warmup()
+    reqs = [_GenRequest(list(p), 12) for p in PROMPTS]
+    _drive(ContinuousBatcher(served), reqs)
+    assert [list(r.tokens) for r in reqs] == want
+
+
+@pytest.mark.parametrize("d_head,route", [(16, "composed"),
+                                          (32, "composed"), (64, "kernel"),
+                                          (128, None)])
+def test_head_width_route_mirrors_reference_plans(d_head, route):
+    """The route the CUDA wrappers take by head width, as the reference's
+    plans decide: the composition below a multiple of 64, the kernel at
+    64, and an error at 128 (the kernels are compiled for 64 only).  A
+    composed call is counted; a kernel route counts nothing here."""
+    kernels.reset_launches()
+    if route is None:
+        with pytest.raises(ValueError, match="head width 128"):
+            kernels.head_route(d_head)
+        with pytest.raises(ValueError, match="head width 128"):
+            kernels.composes("flash_fwd", d_head)
+        return
+    assert kernels.head_route(d_head) == route
+    assert kernels.composes("flash_fwd", d_head) == (route == "composed")
+    assert kernels.composed["flash_fwd"] == (route == "composed")
+    kernels.reset_launches()
+    assert not any(kernels.composed.values())
 
 
 def _demo(**kw):

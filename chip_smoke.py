@@ -14,7 +14,16 @@ Phases, each fatal on failure:
    encoder self-attention (key-padding bias [32, 1, 1, 256]), the decoder
    self-attention ([32, 1, 256, 256]), a cross case with target 128 and
    source 256, a ``causal=True`` case, and a causal case with tq > tk and
-   a row masked to -1e30.  The fused-projection training kernels (#1 with
+   a row masked to -1e30.  The bhtd flash kernels (#5, #8, #9) are
+   checked at BERT-base's self-attention (q, k, v [128, 12, 128, 64],
+   key-padding bias [128, 1, 1, 128] with -1e9 tails), with a per-head
+   bias [128, 12, 128, 128] that requires grad (also through
+   ``flash_attention(fmt="bhtd")``'s autograd: dq, dk, dv and dbias
+   against autograd through the forward twin), ``causal=True``, causal
+   with tq 128 > tk 64 and a row masked to -1e30, and a cross case tq 64,
+   tk 128, each at rate 0 and 0.1 and each call repeated for equal bits,
+   and timed beside masked ``F.scaled_dot_product_attention`` and its
+   backward.  The fused-projection training kernels (#1 with
    its residuals ctx and lse, #2 and #3) are checked at batch 32, 8 heads,
    d_model 512 on the encoder self-attention (t 256, bias [32, 1, 1,
    256]), the decoder self-attention (t 256, [32, 1, 256, 256]), a
@@ -123,10 +132,27 @@ Phases, each fatal on failure:
    through the batcher on the card: no attention or decode kernel
    launches, the composition counter counts, and the CPU plain path's
    tokens;
+   (i) BERT-base pretraining as the reference's ``bench_bert`` (12
+   layers, 12 heads of 64, d_model 768, d_ff 3072, vocab 30522, seq 128,
+   batch 128, dropout 0.1, Adam 1e-4; f32 where the bench runs amp) from
+   ``init_params(0)`` on ``make_batch`` batches with padded tails: the
+   reference's default build after ``attention_fuse`` (every site
+   ``fused_attention(fmt="bhtd")``) launches 12 each of #5, #8, #9 and 25
+   each of #16, #17 (24 residual sites and the embedding's) per step and
+   nothing else.  Step 1 under fixed per-site seeds runs twice for equal
+   gradient bits; at batch 4 it is held against float64 and f32 CPU
+   copies under the same seeds by (d)'s criterion.  The ``use_flash=True``
+   route (12 each of #1-#3) gives step 1's loss within 1e-5 under the
+   same seeds (the same masks), and the unfused composition (no pass, no
+   kernel) the fused route's rate-0 loss within 1e-5.  Then 10 timed
+   steps with fresh seeds on each kernel route (median step ms, tokens/s,
+   f32 peak share by ``bench.py``'s ``bert_train_flops_per_token``, peak
+   memory), whose loss must fall;
 4. where the time goes: torch.profiler over one prefill and 16 decode
    steps at each batch, and over one training step on each route, on
-   the dropout route, of ResNet-50 and of DeepFM: device time by kernel
-   beside host wall time, and for ResNet-50 any layout-conversion kernel.
+   the dropout route, of ResNet-50, of DeepFM and of BERT-base on both
+   kernel routes: device time by kernel beside host wall time, and for
+   ResNet-50 any layout-conversion kernel.
    Every phase prints its seconds.
 
 Prints the card and its power limit, the timings, one JSON line with a
@@ -739,6 +765,200 @@ def check_flash_attention(gen):
             out[(kernel, name)].update(
                 dropout_max_abs_err=err, dropout_ms=cuda_ms(fn),
                 dropout_bound_ms=bound(mult * flops, nbytes, hashes)[0])
+    return out
+
+
+#: BERT-base as the reference's ``bench_bert`` runs it (``run_bert``):
+#: 12 layers, 12 heads of 64, d_model 768, d_ff 3072, vocab 30522, seq 128,
+#: batch 128, dropout 0.1, Adam 1e-4; f32 where the bench runs amp
+BERT = dict(vocab_size=30522, seq_len=128, n_layer=12, n_head=12,
+            d_model=768, d_ff=3072)
+BERT_BATCH, BERT_LR, BERT_TIMED_STEPS = 128, 1e-4, 10
+#: (i): the batch of step 1's CPU copies (float64 and f32)
+BERT_PARITY_BATCH = 4
+#: phase 2's bhtd flash-attention cases (#5, #8, #9) at BERT-base's
+#: self-attention shapes, q, k, v [128, 12, t, 64]: (name, tq, tk, bias,
+#: causal).  "pad" is BERT's key-padding bias [b, 1, 1, tk] (-1e9 on
+#: ragged tails), "head" that plus a per-head bias [b, h, tq, tk] that
+#: requires grad (the dbias path), "masked" the padding bias as [b, 1, tq,
+#: tk] with one row at -1e30
+BHTD_CASES = (("bert self", 128, 128, "pad", False),
+              ("per-head trainable bias", 128, 128, "head", False),
+              ("causal", 128, 128, "pad", True),
+              ("causal tq>tk, -1e30 row", 128, 64, "masked", True),
+              ("cross tq 64 tk 128", 64, 128, "pad", False))
+#: the case whose records go into the JSON line (the main path's)
+BHTD_RECORD_CASE = "bert self"
+
+
+def _bhtd_inputs(gen, tq, tk, bias_kind):
+    """q, dO [b, h, tq, 64], k, v [b, h, tk, 64] and the case's bias; padded
+    key tails of ragged lengths (row 0 unpadded)."""
+    b, h, dh = BERT_BATCH, BERT["n_head"], 64
+    q, do = randn(gen, b, h, tq, dh), randn(gen, b, h, tq, dh)
+    k, v = randn(gen, b, h, tk, dh), randn(gen, b, h, tk, dh)
+    lens = torch.randint(tk // 2, tk + 1, (b,), generator=gen)
+    lens[0] = tk
+    pad = (torch.arange(tk)[None, :] >= lens[:, None]).float() * -1e9
+    bias = pad.reshape(b, 1, 1, tk)
+    if bias_kind == "head":
+        bias = bias + torch.randn(b, h, tq, tk, generator=gen) * 0.5
+    if bias_kind == "masked":
+        bias = bias.expand(b, 1, tq, tk).clone()
+        bias[-1, 0, tq - 5, :] = -1e30
+    return q, k, v, do, bias.cuda()
+
+
+def check_flash_attention_bhtd(gen):
+    """#5, #8 and #9 against their plain twins on BHTD_CASES, at rate 0 and
+    at DROPOUT under one seed, each kernel called twice for equal bits
+    (the backward kernels from the forward kernel's out and lse); the
+    trainable per-head bias also through ``flash_attention(fmt="bhtd")``'s
+    autograd against autograd through the forward twin (dq, dk, dv and
+    dbias).  Each kernel is then timed beside its twin and the library
+    yardstick: ``F.scaled_dot_product_attention`` on the same [b, h, t, d]
+    tensors with the bias (and the causal mask) as a float ``attn_mask``
+    for #5, its backward (dq, dk and dv together) for #8 and #9.  Returns
+    {(kernel, case): record}."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import attention as ka
+
+    b, h, dh = BERT_BATCH, BERT["n_head"], 64
+    scale = dh ** -0.5
+    src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    replaces = {"flash_fwd_bhtd": "paddle_tpu/kernels/attention.py:176",
+                "flash_bwd_dq_bhtd": "paddle_tpu/kernels/attention.py:247",
+                "flash_bwd_dkv_bhtd": "paddle_tpu/kernels/attention.py:303"}
+    out = {}
+    for name, tq, tk, bias_kind, causal in BHTD_CASES:
+        q, k, v, do, bias = _bhtd_inputs(gen, tq, tk, bias_kind)
+        kw = dict(scale=scale, causal=causal)
+        seed = int(torch.randint(0, 2 ** 32, (1,), generator=gen))
+        errs, calls, o_rate0 = {}, {}, None
+        for rate in (0.0, DROPOUT):
+            rkw = dict(kw, dropout_rate=rate, dropout_seed=seed if rate else 0)
+            tag = f"{name} rate {rate}"
+            o, lse = ka.flash_fwd_bhtd(q, k, v, bias, **rkw)
+            _require_same_bits(f"flash_fwd_bhtd {tag}", (o, lse),
+                               ka.flash_fwd_bhtd(q, k, v, bias, **rkw))
+            want_o, want_lse = ka.reference_flash_fwd_bhtd(q, k, v, bias,
+                                                           **rkw)
+            torch.cuda.synchronize()
+            hidden = torch.isinf(want_lse)
+            require(torch.equal(hidden, torch.isinf(lse)),
+                    f"flash_fwd_bhtd {tag}: masked rows differ")
+            require(bool(hidden.any()) == (causal and tq > tk),
+                    f"flash_fwd_bhtd {tag}: {int(hidden.sum())} masked rows")
+            err_fwd = max(compare(f"flash_fwd_bhtd {tag}", o, want_o,
+                                  TOL_KERNEL),
+                          compare(f"flash_fwd_bhtd {tag} lse", lse[~hidden],
+                                  want_lse[~hidden], TOL_KERNEL))
+            if rate:
+                require(not torch.allclose(o, o_rate0, atol=1e-3),
+                        f"flash_fwd_bhtd {name}: dropout changed nothing")
+            o_rate0 = o
+            delta = (do * o).sum(-1).contiguous()
+            bw = (q, k, v, bias, do, lse, delta)
+            dq = ka.flash_bwd_dq_bhtd(*bw, **rkw)
+            _require_same_bits(f"flash_bwd_dq_bhtd {tag}", (dq,),
+                               (ka.flash_bwd_dq_bhtd(*bw, **rkw),))
+            dk, dv = ka.flash_bwd_dkv_bhtd(*bw, **rkw)
+            _require_same_bits(f"flash_bwd_dkv_bhtd {tag}", (dk, dv),
+                               ka.flash_bwd_dkv_bhtd(*bw, **rkw))
+            err_dq = compare(f"flash_bwd_dq_bhtd {tag}", dq,
+                             ka.reference_flash_bwd_dq_bhtd(*bw, **rkw),
+                             TOL_KERNEL)
+            want_dk, want_dv = ka.reference_flash_bwd_dkv_bhtd(*bw, **rkw)
+            err_dkv = max(compare(f"flash_bwd_dkv_bhtd {tag} dk", dk,
+                                  want_dk, TOL_KERNEL),
+                          compare(f"flash_bwd_dkv_bhtd {tag} dv", dv,
+                                  want_dv, TOL_KERNEL))
+            del want_o, want_dk, want_dv
+            errs[rate] = dict(flash_fwd_bhtd=err_fwd, flash_bwd_dq_bhtd=err_dq,
+                              flash_bwd_dkv_bhtd=err_dkv)
+            calls[rate] = dict(
+                flash_fwd_bhtd=lambda rkw=rkw: ka.flash_fwd_bhtd(
+                    q, k, v, bias, **rkw),
+                flash_bwd_dq_bhtd=lambda bw=bw, rkw=rkw: ka.flash_bwd_dq_bhtd(
+                    *bw, **rkw),
+                flash_bwd_dkv_bhtd=lambda bw=bw, rkw=rkw: ka.
+                flash_bwd_dkv_bhtd(*bw, **rkw))
+            if bias_kind == "head":
+                # the Function: dbias by the plain recompute, the rest by
+                # the kernels, against autograd through the forward twin
+                grads = []
+                for fn in (lambda *a: ka.flash_attention(*a, fmt="bhtd",
+                                                         **rkw),
+                           lambda *a: ka.reference_flash_fwd_bhtd(
+                               *a, **rkw)[0]):
+                    args = [a.detach().clone().requires_grad_()
+                            for a in (q, k, v, bias)]
+                    fn(*args).backward(do)
+                    grads.append([a.grad for a in args])
+                for what, got, want in zip(("dq", "dk", "dv", "dbias"),
+                                           *grads):
+                    compare(f"flash_attention bhtd {tag} autograd {what}",
+                            got, want, TOL_KERNEL)
+                del grads
+
+        # the library yardstick: SDPA on the same tensors and mask
+        mask = bias
+        if causal:
+            keep = torch.ones(tq, tk, dtype=torch.bool,
+                              device=q.device).tril(tk - tq)
+            mask = bias.masked_fill(~keep, -1e30)
+        lq, lk, lv = (a.detach().requires_grad_() for a in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
+                                                 scale=scale)
+        want_o0, want_lse0 = ka.reference_flash_fwd_bhtd(q, k, v, bias, **kw)
+        lib_err = (lib_out.detach() - want_o0)[
+            ~torch.isinf(want_lse0)].abs().max().item()
+        del want_o0, want_lse0
+
+        def lib_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(
+                    lq, lk, lv, attn_mask=mask, scale=scale)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (lq, lk, lv), do,
+                                       retain_graph=True)
+
+        pairs = _visible_pairs(tq, tk, causal)
+        rows = F32 * b * h * tq * dh  # one [b, h, tq, dh] tensor
+        keys = F32 * b * h * tk * dh
+        bias_bytes = F32 * bias.numel()
+        stats = F32 * 2 * b * h * tq  # lse and delta
+        flops = b * h * pairs * dh
+        hashes = ATTN_HASH_OPS * b * h * pairs
+        o0, lse0 = ka.flash_fwd_bhtd(q, k, v, bias, **kw)
+        bw0 = (q, k, v, bias, do, lse0, (do * o0).sum(-1).contiguous())
+        plain = dict(
+            flash_fwd_bhtd=lambda: ka.reference_flash_fwd_bhtd(q, k, v, bias,
+                                                               **kw),
+            flash_bwd_dq_bhtd=lambda: ka.reference_flash_bwd_dq_bhtd(
+                *bw0, **kw),
+            flash_bwd_dkv_bhtd=lambda: ka.reference_flash_bwd_dkv_bhtd(
+                *bw0, **kw))
+        for kernel, mult, nbytes, lib in (
+                ("flash_fwd_bhtd", 4,
+                 2 * rows + 2 * keys + bias_bytes + stats // 2, lib_fwd),
+                ("flash_bwd_dq_bhtd", 6,
+                 3 * rows + 2 * keys + bias_bytes + stats, lib_bwd),
+                ("flash_bwd_dkv_bhtd", 8,
+                 2 * rows + 4 * keys + bias_bytes + stats, lib_bwd)):
+            r = timed_record(kernel, src, replaces[kernel], errs[0.0][kernel],
+                             calls[0.0][kernel], plain[kernel], mult * flops,
+                             nbytes, lib, b)
+            r.update(dropout_max_abs_err=errs[DROPOUT][kernel],
+                     dropout_ms=cuda_ms(calls[DROPOUT][kernel]),
+                     dropout_bound_ms=bound(mult * flops, nbytes,
+                                            hashes)[0])
+            if kernel == "flash_fwd_bhtd":
+                r["library_max_abs_err"] = lib_err
+            out[(kernel, name)] = r
+        del lib_out, calls, bw0
     return out
 
 
@@ -2702,6 +2922,222 @@ def run_demo_head16():
                 tokens=sum(len(t) for t in tokens["card"]))
 
 
+def bert_train_flops_per_token(n_layer, d_model, d_ff, seq_len, vocab):
+    """Analytic matmul FLOPs per token, encoder-only + MLM head (2 FLOPs
+    per MAC, train = 3x fwd).  Copied from the reference's ``bench.py``."""
+    attn = 4 * d_model * d_model + 2 * seq_len * d_model
+    fwd_macs = n_layer * (attn + 2 * d_model * d_ff) + d_model * vocab
+    return 3 * 2 * fwd_macs
+
+
+def bert_batch(b, seed):
+    """The reference's make_batch at batch b and BERT's widths, with padded
+    tails (input mask and label weights 0) of lengths uniform in 64-128
+    (row 0 unpadded), so the attention bias matters (numpy)."""
+    from paddle_tpu_torch import make_bert_batch
+
+    t = BERT["seq_len"]
+    rng = np.random.RandomState(seed)
+    batch = make_bert_batch(b, t, BERT["vocab_size"], rng)
+    lens = rng.randint(t // 2, t + 1, b)
+    lens[0] = t
+    pad = np.arange(t)[None, :] >= lens[:, None]
+    batch["input_mask"][pad] = 0.0
+    batch["mask_weights"][pad] = 0.0
+    return batch
+
+
+def _bert_models():
+    """BERT-base at DROPOUT from ``init_params(0)`` on the card: the
+    default build after ``attention_fuse`` (the bhtd kernels), the same
+    weights on the ``use_flash=True`` route (#1-#3), and on the unfused
+    composition (no pass)."""
+    from paddle_tpu_torch import BertPretrain, attention_fuse
+
+    fused = BertPretrain(**BERT, dropout_rate=DROPOUT,
+                         device=DEV).init_params(0)
+    require(attention_fuse(fused) == BERT["n_layer"],
+            "attention_fuse did not switch every BERT layer")
+    flash = BertPretrain(**BERT, dropout_rate=DROPOUT, use_flash=True,
+                         device=DEV)
+    composed = BertPretrain(**BERT, dropout_rate=DROPOUT, device=DEV)
+    for m in (flash, composed):
+        m.load_state_dict(fused.state_dict())
+    return fused, flash, composed
+
+
+def _bert_timed(model, opt, per_step, seed):
+    """BERT_TIMED_STEPS steps of ``model`` on one repeated batch, each with
+    fresh dropout seeds, synchronized step by step (host clock); the
+    launches must read ``per_step`` times the steps and the loss must
+    fall.  Returns the step times, rates, losses and peak memory."""
+    from paddle_tpu_torch import kernels
+
+    feed = _to(bert_batch(BERT_BATCH, seed=2), DEV)
+    gen = torch.Generator().manual_seed(seed)
+    step_ms, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    for _ in range(BERT_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model(**feed, generator=gen)
+        opt.minimize(loss)
+        losses.append(loss.item())  # syncs: the step is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    n = BERT_TIMED_STEPS
+    require(kernels.launches == expected(
+        **{name: c * n for name, c in per_step.items()}),
+        f"timed BERT steps: launches {kernels.launches}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"BERT: loss did not fall on a repeated batch {losses}")
+    med_ms = float(np.median(step_ms))
+    tok_s = BERT_BATCH * BERT["seq_len"] / (med_ms / 1e3)
+    flops_tok = bert_train_flops_per_token(
+        BERT["n_layer"], BERT["d_model"], BERT["d_ff"], BERT["seq_len"],
+        BERT["vocab_size"])
+    return dict(step_ms_median=med_ms, step_ms_range=(min(step_ms),
+                                                      max(step_ms)),
+                tokens_per_s=tok_s, flops_per_token=flops_tok,
+                f32_peak_share=tok_s * flops_tok / PEAK_F32_FLOPS,
+                timed_losses=losses, launches=dict(kernels.launches),
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def run_bert(fused, flash, composed):
+    """Phase 3 (i): BERT-base pretraining at DROPOUT.  ``fused`` (the
+    default build after ``attention_fuse``) takes step 1 under fixed
+    per-site seeds at BERT_BATCH, twice for equal gradient bits, with 12
+    launches each of #5, #8 and #9 and 25 each of #16 and #17 (24
+    residual sites and the embedding's) and no other; at
+    BERT_PARITY_BATCH the same step is held against float64 and f32 CPU
+    copies under the same seeds by (d)'s criterion.  ``flash``
+    (``use_flash=True``: 12 each of #1-#3) must give step 1's loss within
+    TOL_ROUTES_LOSS under the same seeds (the same masks), and
+    ``composed`` (no pass) the fused route's rate-0 loss.  Then both
+    kernel routes are timed.  Returns the (fused, flash) records."""
+    from paddle_tpu_torch import Adam, BertPretrain, attention_fuse, kernels
+
+    L = BERT["n_layer"]
+    drops = dict(dropout_add_fwd=2 * L + 1, dropout_add_bwd=2 * L + 1)
+    per_fused = dict(flash_fwd_bhtd=L, flash_bwd_dq_bhtd=L,
+                     flash_bwd_dkv_bhtd=L, **drops)
+    per_flash = dict(qkv_attention_fwd=L, qkv_bwd_dq=L, qkv_bwd_dkv=L,
+                     **drops)
+    sites = fused.dropout_sites()
+    require(len(sites) == 3 * L + 1, f"{len(sites)} BERT dropout sites")
+    # one seed per site name, whichever order a route lists its sites in
+    by_site = dict(zip(sites, torch.randint(
+        0, 2 ** 32, (len(sites),), generator=torch.Generator().manual_seed(
+            DROPOUT_STEP_SEED)).tolist()))
+
+    def seeds(model):
+        return [by_site[name] for name in model.dropout_sites()]
+
+    # step 1 at the parity batch against float64 and f32 CPU copies
+    small = bert_batch(BERT_PARITY_BATCH, seed=3)
+    t0 = time.perf_counter()
+    exact, cpu_grads, cpu_losses = {}, {}, []
+    for dtype, grads in ((torch.float64, exact), (torch.float32, cpu_grads)):
+        copy = BertPretrain(**BERT, dropout_rate=DROPOUT,
+                            device="cpu").to(dtype)
+        attention_fuse(copy)
+        copy.load_state_dict({k: v.cpu() for k, v in
+                              fused.state_dict().items()})
+        loss, _ = copy(**_to(small, "cpu"), dropout_seeds=seeds(copy))
+        loss.backward()
+        cpu_losses.append(loss.item())
+        grads.update((n, p.grad) for n, p in copy.named_parameters())
+        del copy
+    cpu_s = time.perf_counter() - t0
+    small_loss, _ = fused(**_to(small, DEV), dropout_seeds=seeds(fused))
+    small_loss.backward()
+    card_small = {n: p.grad for n, p in fused.named_parameters()}
+    fused.zero_grad(set_to_none=True)
+    small_loss = small_loss.item()
+    require(abs(small_loss - cpu_losses[0]) <= TOL_TRAIN_LOSS
+            * abs(cpu_losses[0]), f"BERT batch {BERT_PARITY_BATCH}: loss "
+            f"{small_loss} on the card, {cpu_losses[0]} in float64")
+    worst_grad = []
+    for n, g in card_small.items():
+        card = _grad_rel(g.cpu(), exact[n])
+        f32 = _grad_rel(cpu_grads[n], exact[n])
+        require(card <= max(TOL_TRAIN_GRAD, 2 * f32),
+                f"BERT step 1: gradient of {n} off float64 by {card} on "
+                f"the card, {f32} on the CPU in f32")
+        worst_grad.append((card, f32, n))
+    worst_grad.sort(reverse=True)
+    del card_small, exact, cpu_grads
+
+    # step 1 at BERT_BATCH: repeated for equal bits, then counted
+    feed = _to(bert_batch(BERT_BATCH, seed=1), DEV)
+    repeat = _step_grads(fused, feed, dropout_seeds=seeds(fused))
+    opt = Adam(fused.parameters(), learning_rate=BERT_LR)
+    names = {p: n for n, p in fused.named_parameters()}
+    kernels.reset_launches()
+    loss, _ = fused(**feed, dropout_seeds=seeds(fused))
+    grads = {names[p]: g for p, g in opt.minimize(loss)}
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    require(counts == expected(**per_fused),
+            f"BERT fused step 1: launches {counts}")
+    _require_repeat(grads, repeat, "BERT fused route")
+    fused_loss = loss.item()
+    del grads, repeat
+
+    flash_opt = Adam(flash.parameters(), learning_rate=BERT_LR)
+    kernels.reset_launches()
+    loss, _ = flash(**feed, dropout_seeds=seeds(flash))
+    flash_opt.minimize(loss)
+    torch.cuda.synchronize()
+    flash_counts = dict(kernels.launches)
+    require(flash_counts == expected(**per_flash),
+            f"BERT use_flash step 1: launches {flash_counts}")
+    flash_loss = loss.item()
+    require(abs(flash_loss - fused_loss) <= TOL_ROUTES_LOSS * abs(fused_loss),
+            f"BERT step 1: use_flash loss {flash_loss}, fused {fused_loss} "
+            f"under the same seeds")
+
+    # rate 0 (eval mode): the unfused composition against the fused route
+    # at its initial weights, no kernel on the composition
+    fused_0 = BertPretrain(**BERT, device=DEV)
+    attention_fuse(fused_0)
+    fused_0.load_state_dict(composed.state_dict())
+    with torch.no_grad():
+        kernels.reset_launches()
+        composed_loss = composed.eval()(**feed)[0].item()
+        require(kernels.launches == expected(),
+                f"BERT composition launched {kernels.launches}")
+        rate0_loss = fused_0.eval()(**feed)[0].item()
+    del fused_0
+    require(abs(composed_loss - rate0_loss) <= TOL_ROUTES_LOSS
+            * abs(rate0_loss), f"BERT rate 0: composed loss "
+            f"{composed_loss}, fused {rate0_loss}")
+
+    records = []
+    for route, model, o, c, per in (
+            ("bert fused (attention_fuse, bhtd)", fused, opt, counts,
+             per_fused),
+            ("bert use_flash (fused qkv)", flash, flash_opt, flash_counts,
+             per_flash)):
+        timed = _bert_timed(model, o, per, seed=len(records) + 7)
+        for name, n in timed.pop("launches").items():
+            c[name] += n
+        records.append(dict(route=route, batch=BERT_BATCH,
+                            dropout_rate=DROPOUT, launches=c, **timed))
+    records[0].update(
+        # (card, float64, CPU f32) step-1 losses at the parity batch
+        parity_losses=(small_loss, *cpu_losses),
+        # (card vs f64, cpu f32 vs f64, name)
+        parity_grad_rel_worst=worst_grad[:4],
+        parity_grad_rel_median=[float(np.median([w[i] for w in worst_grad]))
+                                for i in range(2)],
+        cpu_parity_s=cpu_s, step1_loss=fused_loss,
+        use_flash_step1_loss=flash_loss, rate0_loss=rate0_loss,
+        composed_rate0_loss=composed_loss)
+    return records
+
+
 # ---------------------------------------------------------------------------
 # phase 4: where the time goes (torch.profiler)
 # ---------------------------------------------------------------------------
@@ -2761,16 +3197,18 @@ def profile_serving(model, b, steps=16):
     return out
 
 
-def profile_training(model, tag):
+def profile_training(model, tag, feed=None, lr=TRAIN_LR):
     """Device time by kernel over one training step (forward, backward,
-    Adam) on the timed batch, beside host wall time; the table goes to
+    Adam) on ``feed`` (the Transformer's timed batch by default), beside
+    host wall time; the table goes to
     ``profile_training_step_<tag>.txt``."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch import Adam
 
-    opt = Adam(model.parameters(), learning_rate=TRAIN_LR)
-    feed = _to(training_batch(seed=2), "cuda")
+    opt = Adam(model.parameters(), learning_rate=lr)
+    if feed is None:
+        feed = _to(training_batch(seed=2), "cuda")
     opt.minimize(model(**feed)[0])  # warm: the allocator and the state
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2960,6 +3398,10 @@ def main():
         print_record(r, f" {case} b={r['batch']}")
         if case == FLASH_RECORD_CASE:
             records[(name, max(BATCHES))] = r
+    for (name, case), r in check_flash_attention_bhtd(gen).items():
+        print_record(r, f" {case} b={r['batch']}")
+        if case == BHTD_RECORD_CASE:
+            records[(name, max(BATCHES))] = r
     for (name, case), r in check_qkv_training(gen).items():
         residuals = " (residuals)" if name == "qkv_attention_fwd" else ""
         print_record(r, f"{residuals} {case} b={r['batch']}")
@@ -3102,6 +3544,23 @@ def main():
     t_phase = _phase_seconds("phase 3 (h) and the head-width-16 demo",
                              t_phase)
 
+    # (i): BERT-base pretraining on the attention_fuse route (#5, #8, #9);
+    # the earlier phases' cached blocks go back first
+    torch.cuda.empty_cache()
+    bert_fused, bert_flash, bert_composed = _bert_models()
+    training_bert = run_bert(bert_fused, bert_flash, bert_composed)
+    del bert_composed
+    for r in training_bert:
+        print("phase 3: " + ", ".join(f"{k} {v}" for k, v in r.items()))
+    print(f"phase 3: BERT-base step, attention_fuse (bhtd) route against "
+          f"use_flash: {training_bert[0]['step_ms_median']} ms against "
+          f"{training_bert[1]['step_ms_median']} ms, "
+          f"{training_bert[0]['tokens_per_s']} against "
+          f"{training_bert[1]['tokens_per_s']} tokens/s, f32 peak share "
+          f"{training_bert[0]['f32_peak_share']} against "
+          f"{training_bert[1]['f32_peak_share']}")
+    t_phase = _phase_seconds("phase 3 (i)", t_phase)
+
     for b in BATCHES:
         prof = profile_serving(model, b)
         for phase, r in prof.items():
@@ -3115,9 +3574,15 @@ def main():
                   f"ms, idle share {r['idle_share']}")
             for name, ms in r["top"]:
                 print(f"    {ms:.4f} ms  {name}")
-    for tag, m in (("flag_off", train_model), ("fused", fused_train),
-                   ("fused_dropout", drop_models[0])):
-        r = profile_training(m, tag)
+    bert_feed = _to(bert_batch(BERT_BATCH, seed=2), DEV)
+    for tag, m, kw in (("flag_off", train_model, {}),
+                       ("fused", fused_train, {}),
+                       ("fused_dropout", drop_models[0], {}),
+                       ("bert_bhtd", bert_fused,
+                        dict(feed=bert_feed, lr=BERT_LR)),
+                       ("bert_use_flash", bert_flash,
+                        dict(feed=bert_feed, lr=BERT_LR))):
+        r = profile_training(m, tag, **kw)
         if not r["device_busy_ms"]:
             print(f"phase 4: training step {tag}: device time not measured "
                   f"(the profiler saw no device events)")
@@ -3157,7 +3622,8 @@ def main():
     # launches over every counted path; the FFN counter is split between
     # the ring paths (#11) and the paged ones (#13)
     paths = runs + serving + [training, training_fused, training_dropout,
-                              training_resnet, training_deepfm, demo]
+                              training_resnet, training_deepfm, demo,
+                              *training_bert]
     total = {name: sum(r["launches"][name] for r in paths)
              for name in paths[0]["launches"]}
     paged_ffn = sum(r["launches"]["ffn"] for r in paths
@@ -3168,7 +3634,8 @@ def main():
     for name in ("qkv_attention_fwd", "qkv_bwd_dq", "qkv_bwd_dkv",
                  "megastep", "ffn", "megastep_paged", "ffn_paged",
                  "flash_decode", "flash_decode_paged", "flash_fwd",
-                 "flash_bwd_dq", "flash_bwd_dkv", "dropout_add_fwd",
+                 "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_bhtd",
+                 "flash_bwd_dq_bhtd", "flash_bwd_dkv_bhtd", "dropout_add_fwd",
                  "dropout_add_bwd", "channel_stats", "dot_col_stats",
                  "ssa_fwd", "ssa_bwd", "multi_table_gather",
                  "multi_table_apply"):
@@ -3182,6 +3649,7 @@ def main():
                       "training_dropout": training_dropout,
                       "training_resnet": training_resnet,
                       "training_deepfm": training_deepfm, "demo": demo,
+                      "training_bert": training_bert,
                       "profile_resnet": {k: v for k, v in profile_rn.items()
                                          if k != "top"},
                       "profile_deepfm": profile_fm, "power": smi}))

@@ -47,7 +47,21 @@ launches a step:
     avg_cost, auc, predict = model(*batch_tensors(feed))   # models.deepfm
     opt.minimize(avg_cost)
 
-Nineteen hand-written CUDA kernels carry all of it (``kernels/``); every
+It pretrains BERT (masked LM, Paddle's Adam, f32) on the reference's
+routes: its default build spells attention out by hand, and
+``attention_fuse`` switches those sites to
+``layers.contrib.fused_attention`` in the bhtd layout (#5, #8, #9);
+``use_flash=True`` takes the fused-qkv kernels (#1-#3):
+
+    model = BertPretrain(30522, 128, 12, 12, 768, 3072, 0.1).init_params(0)
+    attention_fuse(model)           # returns the 12 sites it switched
+    opt = Adam(model.parameters(), learning_rate=1e-4)
+    avg_loss, enc = model(**{k: torch.from_numpy(v).cuda()
+                             for k, v in make_bert_batch(128, 128,
+                                                         30522).items()})
+    opt.minimize(avg_loss)
+
+Twenty-two hand-written CUDA kernels carry all of it (``kernels/``); every
 other operation is plain PyTorch, the convolutions that are not 1x1
 included (cuDNN on the card; turn its TF32 off for the f32 step).  At a
 head width % 64 != 0 the attention and decode kernels give way to their
@@ -60,18 +74,24 @@ from .device import resolve_device  # noqa: F401
 from .generation import (BlockAllocator, GenerationSession,  # noqa: F401
                          KVCache, PagedKVCache)
 from .interop import (export_paddle_tpu_adam_state,  # noqa: F401
+                      export_paddle_tpu_bert_params,
                       export_paddle_tpu_deepfm_params,
                       export_paddle_tpu_params,
                       export_paddle_tpu_resnet_params,
                       load_paddle_tpu_adam_state,
+                      load_paddle_tpu_bert_params,
                       load_paddle_tpu_deepfm_params,
                       load_paddle_tpu_momentum_state, load_paddle_tpu_params,
                       load_paddle_tpu_resnet_params)
+from .layers import contrib  # noqa: F401
+from .models.bert import BertPretrain  # noqa: F401
+from .models.bert import make_batch as make_bert_batch  # noqa: F401
 from .models.deepfm import DeepFM  # noqa: F401
 from .models.deepfm import make_batch as make_deepfm_batch  # noqa: F401
 from .models.resnet import ResNet  # noqa: F401
 from .models.transformer import (Transformer, make_batch,  # noqa: F401
                                  training_biases)
 from .optimizer import SGD, Adam, Momentum  # noqa: F401
+from .passes import attention_fuse  # noqa: F401
 from .serving import (ContinuousBatcher, GenerationConfig,  # noqa: F401
                       GenerationServingModel)

@@ -1,22 +1,34 @@
-// Flash attention over [b, t, h, 64] tensors (the "bthd" layout), forward
-// and both backward passes, f32, for sm_90a.
+// Flash attention over [b, t, h, 64] tensors (the "bthd" layout) and over
+// [b, h, t, 64] tensors (the "bhtd" layout), forward and both backward
+// passes, f32, for sm_90a.
 //
 // Replaces paddle_tpu/kernels/attention.py _fwd_kernel_bthd (#4),
 // _bwd_dq_kernel_bthd (#6) and _bwd_dkv_kernel_bthd (#7), the Pallas
-// kernels behind flash_attention(fmt="bthd") and its VJP:
+// kernels behind flash_attention(fmt="bthd") and its VJP, and _fwd_kernel
+// (#5), _bwd_dq_kernel (#8) and _bwd_dkv_kernel (#9), those behind
+// flash_attention(fmt="bhtd"), the layout of layers.contrib.fused_attention
+// and of every site the attention_fuse pass rewrites:
 //
 //   forward  o = softmax(q k^T * scale + bias) v,  lse = m + log(l) per row
 //   dq       dq = sum_k p (dp - delta) * scale * k,  p = exp(s - lse)
 //            recomputed from lse, dp = dO v^T, delta = rowsum(dO * o)
 //   dkv      dv = sum_q p^T dO,  dk = sum_q (p (dp - delta) * scale)^T q
 //
+// The two layouts are instantiations of the same kernels on a row layout
+// (flash_walk.cuh Bthd, Bhtd), so each layout has its own kernels and
+// entry points and both compute in the same order.  In bhtd a head's
+// [t, 64] slab is contiguous, so a k or v tile is one contiguous 16 KB
+// block (a single bulk copy for a later TMA design); the staging here reads
+// it as the bthd kernels read their strided rows.
+//
 // Grid: the forward and dq take one block per (64-row q tile, head, batch
 // row) and walk the k tiles; dkv takes one block per (64-row k tile,
 // head, batch row) and walks the q tiles.  The TPU kernels walk all heads
-// of a batch row in one grid step (whole-head tiles suit Mosaic's (8, 128)
-// layout); here a head is a block, so b * h * t / 64 blocks fill the card.
-// Every output element belongs to one block, which sums in a fixed order:
-// no atomics, and the results are the same from run to run.
+// of a batch row in one grid step in bthd (whole-head tiles suit Mosaic's
+// (8, 128) layout) and one (batch row, head) per grid row in bhtd; here a
+// head is a block in both, so b * h * t / 64 blocks fill the card.  Every
+// output element belongs to one block, which sums in a fixed order: no
+// atomics, and the results are the same from run to run.
 //
 // The tiles, the tile product and both backward walks live in
 // flash_walk.cuh, which the fused-projection backward (#2, #3) shares: 256
@@ -34,8 +46,9 @@
 // kernels): the normalizer l sums the undropped p, the p tile multiplying
 // v is dropped by hash_rng::keep_attn at (seed, b * h + head, q * tk + k),
 // and the output is scaled by 1 / (1 - rate) at the end; the backward
-// walks regenerate the same bits (flash_walk.cuh).  At rate 0 the entry
-// points launch the instantiations that never hash.
+// walks regenerate the same bits (flash_walk.cuh).  The mask is the same
+// in both layouts.  At rate 0 the entry points launch the instantiations
+// that never hash.
 //
 // Masking follows the TPU kernels: causal (bottom-right aligned, offset
 // tk - tq) and out-of-range keys score -1e30 in the forward; a row whose
@@ -54,11 +67,11 @@ namespace {
 constexpr float kMaskValue = -1e30f;
 constexpr size_t kFwdSmem = (2 * kATile + 2 * kBTile) * sizeof(float);
 
-template <bool DROP>
+template <class L, bool DROP>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(Rows q, Rows k, Rows v, Bias bias, float* o, float* lse,
-                 int tq, int tk, int h, float scale, int causal,
-                 Dropout drop) {
+flash_fwd_kernel(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias, float* o,
+                 L o_l, float* lse, int tq, int tk, int h, float scale,
+                 int causal, Dropout drop) {
   extern __shared__ float smem[];
   float* q_s = smem;              // [BT][AS] q * scale
   float* p_s = q_s + kATile;      // [BT][AS] probabilities of one k tile
@@ -149,26 +162,75 @@ flash_fwd_kernel(Rows q, Rows k, Rows v, Bias bias, float* o, float* lse,
       lse[((size_t)bi * h + head) * tq + qpos] =
           masked ? INFINITY : m[i] + logf(l[i]);
   }
-  store_rows(o, h * DH, acc, bi, q0, tq, head);
+  store_rows(o, o_l, acc, bi, q0, tq, head);
 }
 
-template <bool DROP>
-cudaError_t launch_fwd(Rows q, Rows k, Rows v, Bias bias, float* o,
-                       float* lse, int b, int tq, int tk, int h, float scale,
-                       int causal, Dropout drop, cudaStream_t stream) {
+template <class L, bool DROP>
+cudaError_t launch_fwd(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias, float* o,
+                       L o_l, float* lse, int b, int tq, int tk, int h,
+                       float scale, int causal, Dropout drop,
+                       cudaStream_t stream) {
   static bool configured = false;
-  cudaError_t err = allow_smem(flash_fwd_kernel<DROP>, kFwdSmem, configured);
+  cudaError_t err = allow_smem(flash_fwd_kernel<L, DROP>, kFwdSmem,
+                               configured);
   if (err != cudaSuccess) return err;
   dim3 grid((tq + BT - 1) / BT, h, b);
-  flash_fwd_kernel<DROP><<<grid, NT, kFwdSmem, stream>>>(
-      q, k, v, bias, o, lse, tq, tk, h, scale, causal, drop);
+  flash_fwd_kernel<L, DROP><<<grid, NT, kFwdSmem, stream>>>(
+      q, k, v, bias, o, o_l, lse, tq, tk, h, scale, causal, drop);
   return cudaGetLastError();
+}
+
+// The three passes on operands of layout L (every tensor of a call shares
+// it: q, dout, o and dq have tq rows, k, v, dk and dv tk rows).
+template <class L>
+int run_fwd(L l, const float* q, const float* k, const float* v,
+            const float* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
+            int64_t bs_k, float* o, float* lse, int b, int tq, int tk, int h,
+            float scale, int causal, double rate, unsigned seed,
+            unsigned threshold, void* stream) {
+  const Rows<L> rq{q, l}, rk{k, l}, rv{v, l};
+  const Bias bs{bias, bs_b, bs_h, bs_q, bs_k};
+  const Dropout drop = hash_rng::make_dropout(rate, seed, threshold);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(drop.on
+      ? launch_fwd<L, true>(rq, rk, rv, bs, o, l, lse, b, tq, tk, h, scale,
+                            causal, drop, st)
+      : launch_fwd<L, false>(rq, rk, rv, bs, o, l, lse, b, tq, tk, h, scale,
+                             causal, drop, st));
+}
+
+template <class L>
+int run_dq(L l, const float* q, const float* k, const float* v,
+           const float* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
+           int64_t bs_k, const float* dout, const float* lse,
+           const float* delta, float* dq, int b, int tq, int tk, int h,
+           float scale, int causal, double rate, unsigned seed,
+           unsigned threshold, void* stream) {
+  return (int)bwd_dq(Rows<L>{q, l}, Rows<L>{k, l}, Rows<L>{v, l},
+                     Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows<L>{dout, l},
+                     lse, delta, dq, l, b, tq, tk, h, scale, causal,
+                     hash_rng::make_dropout(rate, seed, threshold),
+                     static_cast<cudaStream_t>(stream));
+}
+
+template <class L>
+int run_dkv(L l, const float* q, const float* k, const float* v,
+            const float* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
+            int64_t bs_k, const float* dout, const float* lse,
+            const float* delta, float* dk, float* dv, int b, int tq, int tk,
+            int h, float scale, int causal, double rate, unsigned seed,
+            unsigned threshold, void* stream) {
+  return (int)bwd_dkv(Rows<L>{q, l}, Rows<L>{k, l}, Rows<L>{v, l},
+                      Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows<L>{dout, l},
+                      lse, delta, dk, dv, l, b, tq, tk, h, scale, causal,
+                      hash_rng::make_dropout(rate, seed, threshold),
+                      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// q [b, tq, h, 64], k and v [b, tk, h, 64], o like q, lse [b, h, tq]; all
-// contiguous f32.  bias may be null; otherwise its element (b, h, q, k)
+// #4.  q [b, tq, h, 64], k and v [b, tk, h, 64], o like q, lse [b, h, tq];
+// all contiguous f32.  bias may be null; otherwise its element (b, h, q, k)
 // lies at b*bs_b + h*bs_h + q*bs_q + k*bs_k.  Head width 64 only (checked
 // by the caller).  rate 0 runs without dropout; otherwise weights are kept
 // where the hash of (seed, b*h + head, q*tk + k) >= threshold (tq*tk <=
@@ -180,19 +242,13 @@ extern "C" int ptt_flash_fwd(const float* q, const float* k, const float* v,
                              float scale, int causal, double rate,
                              unsigned seed, unsigned threshold,
                              void* stream) {
-  const int ld = h * DH;
-  const Rows rq{q, ld}, rk{k, ld}, rv{v, ld};
-  const Bias bs{bias, bs_b, bs_h, bs_q, bs_k};
-  const Dropout drop = hash_rng::make_dropout(rate, seed, threshold);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(drop.on ? launch_fwd<true>(rq, rk, rv, bs, o, lse, b, tq, tk,
-                                          h, scale, causal, drop, st)
-                       : launch_fwd<false>(rq, rk, rv, bs, o, lse, b, tq, tk,
-                                           h, scale, causal, drop, st));
+  return run_fwd(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o,
+                 lse, b, tq, tk, h, scale, causal, rate, seed, threshold,
+                 stream);
 }
 
-// dout like q; lse and delta = rowsum(dout * o) [b, h, tq]; dq like q;
-// the forward's dropout arguments.
+// #6.  dout like q; lse and delta = rowsum(dout * o) [b, h, tq]; dq like
+// q; the forward's dropout arguments.
 extern "C" int ptt_flash_bwd_dq(const float* q, const float* k,
                                 const float* v, const float* bias,
                                 int64_t bs_b, int64_t bs_h, int64_t bs_q,
@@ -202,15 +258,12 @@ extern "C" int ptt_flash_bwd_dq(const float* q, const float* k,
                                 float scale, int causal, double rate,
                                 unsigned seed, unsigned threshold,
                                 void* stream) {
-  const int ld = h * DH;
-  return (int)bwd_dq(Rows{q, ld}, Rows{k, ld}, Rows{v, ld},
-                     Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows{dout, ld}, lse,
-                     delta, dq, ld, b, tq, tk, h, scale, causal,
-                     hash_rng::make_dropout(rate, seed, threshold),
-                     static_cast<cudaStream_t>(stream));
+  return run_dq(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
+                lse, delta, dq, b, tq, tk, h, scale, causal, rate, seed,
+                threshold, stream);
 }
 
-// As ptt_flash_bwd_dq; dk and dv like k.
+// #7.  As ptt_flash_bwd_dq; dk and dv like k.
 extern "C" int ptt_flash_bwd_dkv(const float* q, const float* k,
                                  const float* v, const float* bias,
                                  int64_t bs_b, int64_t bs_h, int64_t bs_q,
@@ -220,10 +273,52 @@ extern "C" int ptt_flash_bwd_dkv(const float* q, const float* k,
                                  int h, float scale, int causal, double rate,
                                  unsigned seed, unsigned threshold,
                                  void* stream) {
-  const int ld = h * DH;
-  return (int)bwd_dkv(Rows{q, ld}, Rows{k, ld}, Rows{v, ld},
-                      Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows{dout, ld}, lse,
-                      delta, dk, dv, ld, b, tq, tk, h, scale, causal,
-                      hash_rng::make_dropout(rate, seed, threshold),
-                      static_cast<cudaStream_t>(stream));
+  return run_dkv(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
+                 lse, delta, dk, dv, b, tq, tk, h, scale, causal, rate, seed,
+                 threshold, stream);
+}
+
+// #5.  As ptt_flash_fwd over [b, h, t, 64] tensors: q and o [b, h, tq, 64],
+// k and v [b, h, tk, 64]; lse [b, h, tq].
+extern "C" int ptt_flash_fwd_bhtd(const float* q, const float* k,
+                                  const float* v, const float* bias,
+                                  int64_t bs_b, int64_t bs_h, int64_t bs_q,
+                                  int64_t bs_k, float* o, float* lse, int b,
+                                  int tq, int tk, int h, float scale,
+                                  int causal, double rate, unsigned seed,
+                                  unsigned threshold, void* stream) {
+  return run_fwd(Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o, lse, b,
+                 tq, tk, h, scale, causal, rate, seed, threshold, stream);
+}
+
+// #8.  As ptt_flash_bwd_dq over [b, h, t, 64] tensors.
+extern "C" int ptt_flash_bwd_dq_bhtd(const float* q, const float* k,
+                                     const float* v, const float* bias,
+                                     int64_t bs_b, int64_t bs_h,
+                                     int64_t bs_q, int64_t bs_k,
+                                     const float* dout, const float* lse,
+                                     const float* delta, float* dq,
+                                     int b, int tq, int tk, int h,
+                                     float scale, int causal, double rate,
+                                     unsigned seed, unsigned threshold,
+                                     void* stream) {
+  return run_dq(Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout, lse,
+                delta, dq, b, tq, tk, h, scale, causal, rate, seed,
+                threshold, stream);
+}
+
+// #9.  As ptt_flash_bwd_dkv over [b, h, t, 64] tensors.
+extern "C" int ptt_flash_bwd_dkv_bhtd(const float* q, const float* k,
+                                      const float* v, const float* bias,
+                                      int64_t bs_b, int64_t bs_h,
+                                      int64_t bs_q, int64_t bs_k,
+                                      const float* dout, const float* lse,
+                                      const float* delta, float* dk,
+                                      float* dv, int b, int tq, int tk,
+                                      int h, float scale, int causal,
+                                      double rate, unsigned seed,
+                                      unsigned threshold, void* stream) {
+  return run_dkv(Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout, lse,
+                 delta, dk, dv, b, tq, tk, h, scale, causal, rate, seed,
+                 threshold, stream);
 }

@@ -1,11 +1,13 @@
 // Flash-attention tiles and the two backward walks, f32, for sm_90a.
 //
-// Shared by the bthd kernels (flash_attention.cu: the forward #4 and the
-// backward #6, #7) and the fused-projection backward (qkv_attention_bwd.cu:
-// #2 and #3 walk the rows their projection GEMM wrote).  Rows are
-// addressed through a row stride, so one walk reads q, k, v from [b, t, h,
-// 64] tensors (stride h * 64) or from the q|k|v columns of a [b * t, 3hd]
-// projection (stride 3hd):
+// Shared by the flash kernels (flash_attention.cu: the forward #4 / #5 and
+// the backward #6, #7 / #8, #9) and the fused-projection backward
+// (qkv_attention_bwd.cu: #2 and #3 walk the rows their projection GEMM
+// wrote).  Rows are addressed through a layout, a template parameter: Bthd
+// reads q, k, v from [b, t, h, 64] tensors (row stride h * 64) or from the
+// q|k|v columns of a [b * t, 3hd] projection (row stride 3hd); Bhtd from
+// [b, h, t, 64] tensors, whose heads are contiguous [t, 64] slabs.  The
+// layout changes the addresses only, never the arithmetic or its order:
 //
 //   dq    dq = sum_k p (dp - delta) * scale * k,  p = exp(s - lse)
 //         recomputed from lse, dp = dO v^T, delta = rowsum(dO * o)
@@ -71,19 +73,40 @@ struct Bias {
   }
 };
 
-// Rows of a [b * t, ld] matrix: head `head` of row r of batch row bi
-// starts at p + (bi * t + r) * ld + head * 64.
+// Layout of a [b * t, ld] matrix: head `head` of row r of batch row bi
+// starts at (bi * t + r) * ld + head * 64.
+struct Bthd {
+  int ld;
+  __device__ __forceinline__ size_t at(int bi, int t, int r,
+                                       int head) const {
+    return ((size_t)bi * t + r) * ld + head * DH;
+  }
+};
+
+// Layout of a [b, h, t, 64] tensor of h heads: row r of head `head` of
+// batch row bi starts at ((bi * h + head) * t + r) * 64.
+struct Bhtd {
+  int h;
+  __device__ __forceinline__ size_t at(int bi, int t, int r,
+                                       int head) const {
+    return (((size_t)bi * h + head) * t + r) * DH;
+  }
+};
+
+// The rows of one operand: its base pointer and its layout.
+template <class L>
 struct Rows {
   const float* p;
-  int ld;
+  L l;
   __device__ __forceinline__ const float* at(int bi, int t, int r,
                                              int head) const {
-    return p + ((size_t)bi * t + r) * ld + head * DH;
+    return p + l.at(bi, t, r, head);
   }
 };
 
 // dst[row * lds + col] = mul * row r0 + row of head `head` (0 past t).
-__device__ __forceinline__ void load_rows(float* dst, int lds, Rows src,
+template <class L>
+__device__ __forceinline__ void load_rows(float* dst, int lds, Rows<L> src,
                                           int bi, int r0, int t, int head,
                                           float mul = 1.f) {
   for (int idx = threadIdx.x; idx < BT * (DH / 4); idx += NT) {
@@ -100,7 +123,8 @@ __device__ __forceinline__ void load_rows(float* dst, int lds, Rows src,
 
 // The same rows transposed: dst[col * BS + row].  Consecutive threads take
 // consecutive rows, so the shared-memory writes do not conflict.
-__device__ __forceinline__ void load_rows_t(float* dst, Rows src, int bi,
+template <class L>
+__device__ __forceinline__ void load_rows_t(float* dst, Rows<L> src, int bi,
                                             int r0, int t, int head) {
   for (int idx = threadIdx.x; idx < BT * (DH / 4); idx += NT) {
     const int row = idx % BT;
@@ -139,8 +163,9 @@ __device__ __forceinline__ void tile_mma(const float* A, const float* B,
 }
 
 // Store a thread's 4x4 patch of a [BT, DH] tile into rows r0 + 4ty + i
-// (below t) of head `head` of a [b * t, ld] matrix.
-__device__ __forceinline__ void store_rows(float* dst, int ld,
+// (below t) of head `head` of dst, laid out by l.
+template <class L>
+__device__ __forceinline__ void store_rows(float* dst, L l,
                                            const float c[4][4], int bi,
                                            int r0, int t, int head) {
   const int ty = threadIdx.x / 16;
@@ -149,8 +174,7 @@ __device__ __forceinline__ void store_rows(float* dst, int ld,
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + ty * 4 + i;
     if (r < t)
-      *reinterpret_cast<float4*>(dst + ((size_t)bi * t + r) * ld +
-                                 head * DH + tx * 4) =
+      *reinterpret_cast<float4*>(dst + l.at(bi, t, r, head) + tx * 4) =
           make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
   }
 }
@@ -175,12 +199,13 @@ __device__ __forceinline__ uint32_t block_head_seed(const Dropout& drop,
               : 0u;
 }
 
-// dq of one (64-row q tile, head, batch row); lse and delta [b, h, tq].
-template <bool DROP>
+// dq of one (64-row q tile, head, batch row); lse and delta [b, h, tq];
+// dq laid out by dq_l.
+template <class L, bool DROP>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(Rows q, Rows k, Rows v, Bias bias, Rows dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* dq, int ld_dq,
+flash_bwd_dq_kernel(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
+                    Rows<L> dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* dq, L dq_l,
                     int tq, int tk, int h, float scale, int causal,
                     Dropout drop) {
   extern __shared__ float smem[];
@@ -249,17 +274,17 @@ flash_bwd_dq_kernel(Rows q, Rows k, Rows v, Bias bias, Rows dout,
     __syncthreads();
     tile_mma(ds_s, k_s, acc);
   }
-  store_rows(dq, ld_dq, acc, bi, q0, tq, head);
+  store_rows(dq, dq_l, acc, bi, q0, tq, head);
 }
 
-// dk and dv of one (64-row k tile, head, batch row), each a [b * tk, ld]
-// matrix.
-template <bool DROP>
+// dk and dv of one (64-row k tile, head, batch row), both laid out by
+// dkv_l.
+template <class L, bool DROP>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(Rows q, Rows k, Rows v, Bias bias, Rows dout,
-                     const float* __restrict__ lse,
+flash_bwd_dkv_kernel(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
+                     Rows<L> dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, float* dk, float* dv,
-                     int ld_dkv, int tq, int tk, int h, float scale,
+                     L dkv_l, int tq, int tk, int h, float scale,
                      int causal, Dropout drop) {
   extern __shared__ float smem[];
   float* k_s = smem;               // [BT][AS] k
@@ -340,8 +365,8 @@ flash_bwd_dkv_kernel(Rows q, Rows k, Rows v, Bias bias, Rows dout,
     tile_mma(pt_s, do_s, dv_acc);
     tile_mma(dst_s, q_s, dk_acc);
   }
-  store_rows(dk, ld_dkv, dk_acc, bi, k0, tk, head);
-  store_rows(dv, ld_dkv, dv_acc, bi, k0, tk, head);
+  store_rows(dk, dkv_l, dk_acc, bi, k0, tk, head);
+  store_rows(dv, dkv_l, dv_acc, bi, k0, tk, head);
 }
 
 template <class Kernel>
@@ -353,66 +378,68 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
   return err;
 }
 
-template <bool DROP>
-cudaError_t launch_bwd_dq(Rows q, Rows k, Rows v, Bias bias, Rows dout,
-                          const float* lse, const float* delta, float* dq,
-                          int ld_dq, int b, int tq, int tk, int h,
+template <class L, bool DROP>
+cudaError_t launch_bwd_dq(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
+                          Rows<L> dout, const float* lse, const float* delta,
+                          float* dq, L dq_l, int b, int tq, int tk, int h,
                           float scale, int causal, Dropout drop,
                           cudaStream_t stream) {
   static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<DROP>, kDqSmem,
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<L, DROP>, kDqSmem,
                                configured);
   if (err != cudaSuccess) return err;
   dim3 grid((tq + BT - 1) / BT, h, b);
-  flash_bwd_dq_kernel<DROP><<<grid, NT, kDqSmem, stream>>>(
-      q, k, v, bias, dout, lse, delta, dq, ld_dq, tq, tk, h, scale, causal,
+  flash_bwd_dq_kernel<L, DROP><<<grid, NT, kDqSmem, stream>>>(
+      q, k, v, bias, dout, lse, delta, dq, dq_l, tq, tk, h, scale, causal,
       drop);
   return cudaGetLastError();
 }
 
 // The dq walk over a grid of (q tiles, heads, batch rows): the hashing
 // instantiation only when drop.on.
-inline cudaError_t bwd_dq(Rows q, Rows k, Rows v, Bias bias, Rows dout,
-                          const float* lse, const float* delta, float* dq,
-                          int ld_dq, int b, int tq, int tk, int h,
-                          float scale, int causal, Dropout drop,
-                          cudaStream_t stream) {
+template <class L>
+cudaError_t bwd_dq(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias, Rows<L> dout,
+                   const float* lse, const float* delta, float* dq, L dq_l,
+                   int b, int tq, int tk, int h, float scale, int causal,
+                   Dropout drop, cudaStream_t stream) {
   return drop.on
-      ? launch_bwd_dq<true>(q, k, v, bias, dout, lse, delta, dq, ld_dq, b,
-                            tq, tk, h, scale, causal, drop, stream)
-      : launch_bwd_dq<false>(q, k, v, bias, dout, lse, delta, dq, ld_dq, b,
-                             tq, tk, h, scale, causal, drop, stream);
+      ? launch_bwd_dq<L, true>(q, k, v, bias, dout, lse, delta, dq, dq_l, b,
+                               tq, tk, h, scale, causal, drop, stream)
+      : launch_bwd_dq<L, false>(q, k, v, bias, dout, lse, delta, dq, dq_l,
+                                b, tq, tk, h, scale, causal, drop, stream);
 }
 
-template <bool DROP>
-cudaError_t launch_bwd_dkv(Rows q, Rows k, Rows v, Bias bias, Rows dout,
-                           const float* lse, const float* delta, float* dk,
-                           float* dv, int ld_dkv, int b, int tq, int tk,
-                           int h, float scale, int causal, Dropout drop,
-                           cudaStream_t stream) {
+template <class L, bool DROP>
+cudaError_t launch_bwd_dkv(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
+                           Rows<L> dout, const float* lse, const float* delta,
+                           float* dk, float* dv, L dkv_l, int b, int tq,
+                           int tk, int h, float scale, int causal,
+                           Dropout drop, cudaStream_t stream) {
   static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<DROP>, kDkvSmem,
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<L, DROP>, kDkvSmem,
                                configured);
   if (err != cudaSuccess) return err;
   dim3 grid((tk + BT - 1) / BT, h, b);
-  flash_bwd_dkv_kernel<DROP><<<grid, NT, kDkvSmem, stream>>>(
-      q, k, v, bias, dout, lse, delta, dk, dv, ld_dkv, tq, tk, h, scale,
+  flash_bwd_dkv_kernel<L, DROP><<<grid, NT, kDkvSmem, stream>>>(
+      q, k, v, bias, dout, lse, delta, dk, dv, dkv_l, tq, tk, h, scale,
       causal, drop);
   return cudaGetLastError();
 }
 
 // The dkv walk over a grid of (k tiles, heads, batch rows).
-inline cudaError_t bwd_dkv(Rows q, Rows k, Rows v, Bias bias, Rows dout,
-                           const float* lse, const float* delta, float* dk,
-                           float* dv, int ld_dkv, int b, int tq, int tk,
-                           int h, float scale, int causal, Dropout drop,
-                           cudaStream_t stream) {
+template <class L>
+cudaError_t bwd_dkv(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
+                    Rows<L> dout, const float* lse, const float* delta,
+                    float* dk, float* dv, L dkv_l, int b, int tq, int tk,
+                    int h, float scale, int causal, Dropout drop,
+                    cudaStream_t stream) {
   return drop.on
-      ? launch_bwd_dkv<true>(q, k, v, bias, dout, lse, delta, dk, dv, ld_dkv,
-                             b, tq, tk, h, scale, causal, drop, stream)
-      : launch_bwd_dkv<false>(q, k, v, bias, dout, lse, delta, dk, dv,
-                              ld_dkv, b, tq, tk, h, scale, causal, drop,
-                              stream);
+      ? launch_bwd_dkv<L, true>(q, k, v, bias, dout, lse, delta, dk, dv,
+                                dkv_l, b, tq, tk, h, scale, causal, drop,
+                                stream)
+      : launch_bwd_dkv<L, false>(q, k, v, bias, dout, lse, delta, dk, dv,
+                                 dkv_l, b, tq, tk, h, scale, causal, drop,
+                                 stream);
 }
 
 }  // namespace

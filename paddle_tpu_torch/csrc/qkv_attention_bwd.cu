@@ -134,10 +134,14 @@ cudaError_t project(const float* x, const float* w_qkv, const float* w_out,
 }
 
 // The projected q, k, v of one call as the walks read them.
-Rows q_rows(const Scratch& s, int hd) { return Rows{s.qkv, 3 * hd}; }
-Rows k_rows(const Scratch& s, int hd) { return Rows{s.qkv + hd, 3 * hd}; }
-Rows v_rows(const Scratch& s, int hd) {
-  return Rows{s.qkv + 2 * hd, 3 * hd};
+Rows<Bthd> q_rows(const Scratch& s, int hd) {
+  return Rows<Bthd>{s.qkv, Bthd{3 * hd}};
+}
+Rows<Bthd> k_rows(const Scratch& s, int hd) {
+  return Rows<Bthd>{s.qkv + hd, Bthd{3 * hd}};
+}
+Rows<Bthd> v_rows(const Scratch& s, int hd) {
+  return Rows<Bthd>{s.qkv + 2 * hd, Bthd{3 * hd}};
 }
 
 }  // namespace
@@ -173,8 +177,9 @@ extern "C" int ptt_qkv_bwd_dq(const float* x, const float* w_qkv,
       project(x, w_qkv, w_out, g, ctx, s, b, t, dm, n_head, stream);
   if (err != cudaSuccess) return (int)err;
   err = bwd_dq(q_rows(s, hd), k_rows(s, hd), v_rows(s, hd),
-               Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows{s.dctx, hd}, lse,
-               s.delta, s.walk, hd, b, t, t, n_head, scale, causal,
+               Bias{bias, bs_b, bs_h, bs_q, bs_k},
+               Rows<Bthd>{s.dctx, Bthd{hd}}, lse, s.delta, s.walk, Bthd{hd},
+               b, t, t, n_head, scale, causal,
                hash_rng::make_dropout(rate, seed, threshold), stream);
   if (err != cudaSuccess) return (int)err;
   // dx_q = dq Wq^T; dW_q = x^T dq; dW_out = ctx^T g
@@ -208,10 +213,10 @@ extern "C" int ptt_qkv_bwd_dkv(const float* x, const float* w_qkv,
       project(x, w_qkv, w_out, g, ctx, s, b, t, dm, n_head, stream);
   if (err != cudaSuccess) return (int)err;
   err = bwd_dkv(q_rows(s, hd), k_rows(s, hd), v_rows(s, hd),
-                Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows{s.dctx, hd}, lse,
-                s.delta, s.walk, s.walk + hd, 2 * hd, b, t, t, n_head, scale,
-                causal, hash_rng::make_dropout(rate, seed, threshold),
-                stream);
+                Bias{bias, bs_b, bs_h, bs_q, bs_k},
+                Rows<Bthd>{s.dctx, Bthd{hd}}, lse, s.delta, s.walk,
+                s.walk + hd, Bthd{2 * hd}, b, t, t, n_head, scale, causal,
+                hash_rng::make_dropout(rate, seed, threshold), stream);
   if (err != cudaSuccess) return (int)err;
   // dx_kv = [dk | dv] [Wk | Wv]^T; [dW_k | dW_v] = x^T [dk | dv]
   err = gemm({s.walk, 2 * hd, false}, {w_qkv + hd, 3 * hd, false}, dx, dm,

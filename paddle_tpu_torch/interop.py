@@ -27,6 +27,12 @@ running statistics, and :func:`load_paddle_tpu_momentum_state` the
 :class:`~paddle_tpu_torch.optimizer.Momentum` velocities,
 ``<param>_velocity_0``.
 
+BERT's names come from :func:`~paddle_tpu_torch.models.bert.
+bert_param_names` (the same on every attention route):
+:func:`load_paddle_tpu_bert_params` and
+:func:`export_paddle_tpu_bert_params` carry them, and the Adam state
+functions the optimizer's state.
+
 DeepFM's parameters carry the reference's names as they are
 (``deepfm_emb_<i>``, ``deepfm_w1_<i>``, ``deepfm_fc<i>_w`` ...):
 :func:`load_paddle_tpu_deepfm_params` and
@@ -43,36 +49,63 @@ import numpy as np
 import torch
 
 from .kernels.hash_rng import seed_from_key_data
+from .models.bert import bert_param_names  # noqa: F401
 from .models.resnet import DEPTHS
 from .models.transformer import paddle_tpu_param_names  # noqa: F401
 
 
 @torch.no_grad()
-def load_paddle_tpu_params(model, params):
-    """Fill ``model`` from ``params``, a ``{name: array}`` mapping as a
-    JAX scope of the reference holds it.  Raises on a missing name or a
-    shape that differs; returns the model."""
-    pairs = paddle_tpu_param_names(model.n_layer)
+def _load_pairs(model, pairs, params, what):
+    """Copy ``params[name]`` into ``model``'s parameter at ``path`` for
+    every (name, path) of ``pairs``; raises on a missing name or a shape
+    that differs."""
     missing = [name for name, _ in pairs if name not in params]
     if missing:
-        raise KeyError(f"load_paddle_tpu_params: missing {missing}")
+        raise KeyError(f"{what}: missing {missing}")
     for name, path in pairs:
         value = torch.from_numpy(np.array(params[name], np.float32))
         target = model.get_parameter(path)
         if tuple(value.shape) != tuple(target.shape):
             raise ValueError(
-                f"load_paddle_tpu_params: {name} has shape "
-                f"{tuple(value.shape)}, {path} wants "
-                f"{tuple(target.shape)}")
+                f"{what}: {name} has shape {tuple(value.shape)}, {path} "
+                f"wants {tuple(target.shape)}")
         target.copy_(value)
     return model
+
+
+def _export_pairs(model, pairs):
+    return {name: model.get_parameter(path).detach().cpu().numpy().copy()
+            for name, path in pairs}
+
+
+def load_paddle_tpu_params(model, params):
+    """Fill ``model`` from ``params``, a ``{name: array}`` mapping as a
+    JAX scope of the reference holds it.  Raises on a missing name or a
+    shape that differs; returns the model."""
+    return _load_pairs(model, paddle_tpu_param_names(model.n_layer), params,
+                       "load_paddle_tpu_params")
 
 
 def export_paddle_tpu_params(model):
     """{reference parameter name: f32 numpy array} of ``model``'s weights,
     which :func:`load_paddle_tpu_params` (or a reference scope) takes."""
-    return {name: model.get_parameter(path).detach().cpu().numpy().copy()
-            for name, path in paddle_tpu_param_names(model.n_layer)}
+    return _export_pairs(model, paddle_tpu_param_names(model.n_layer))
+
+
+def load_paddle_tpu_bert_params(model, params):
+    """Fill ``model`` (a BertPretrain) from ``params``, ``{name: array}``
+    as the reference's scope holds ``build_pretrain_net``'s parameters
+    (:func:`bert_param_names`).  Raises on a missing name or a shape that
+    differs; returns the model."""
+    return _load_pairs(model, bert_param_names(model.n_layer), params,
+                       "load_paddle_tpu_bert_params")
+
+
+def export_paddle_tpu_bert_params(model):
+    """{reference parameter name: f32 numpy array} of a BertPretrain's
+    weights, which :func:`load_paddle_tpu_bert_params` (or a reference
+    scope) takes."""
+    return _export_pairs(model, bert_param_names(model.n_layer))
 
 
 #: the reference's Adam accumulators, in the order it creates them
@@ -95,10 +128,10 @@ def _adam_pairs(optimizer, model):
 @torch.no_grad()
 def load_paddle_tpu_adam_state(optimizer, model, state):
     """Fill the Adam state of ``optimizer`` (training the parameters of
-    ``model``, a Transformer or a DeepFM) from ``state``, a ``{name:
-    array}`` mapping as the reference's scope holds its accumulators.
-    Raises on a missing name or a shape that differs; returns the
-    optimizer."""
+    ``model``, a Transformer, a BertPretrain or a DeepFM) from ``state``,
+    a ``{name: array}`` mapping as the reference's scope holds its
+    accumulators.  Raises on a missing name or a shape that differs;
+    returns the optimizer."""
     pairs = _adam_pairs(optimizer, model)
     missing = [name for name, _ in pairs if name not in state]
     if missing:
@@ -131,7 +164,10 @@ def dropout_seeds(key_data, rng_ids):
     run_id))``, as a numpy array).  rng_ids: the ``rng_id`` attributes of
     the program's ``dropout``, ``dropout_add``, ``fused_attention`` and
     ``fused_qkv_attention`` ops in op order, which for ``transformer()``
-    is the order of ``Transformer.dropout_sites()``.  Numpy only."""
+    is the order of ``Transformer.dropout_sites()``; for
+    ``build_pretrain_net`` ``BertPretrain.dropout_sites()`` follows the
+    ids' order (``sorted(rng_ids)``), which differs from the op order
+    after ``attention_fuse``.  Numpy only."""
     return [seed_from_key_data(key_data, r or 1) for r in rng_ids]
 
 
@@ -222,28 +258,17 @@ def load_paddle_tpu_momentum_state(optimizer, model, state):
     return optimizer
 
 
-@torch.no_grad()
 def load_paddle_tpu_deepfm_params(model, params):
     """Fill ``model`` (a DeepFM) from ``params``, ``{name: array}`` as the
     reference's scope holds ``build_train_net``'s parameters (the port's
     parameter names are the reference's).  Raises on a missing name or a
     shape that differs; returns the model."""
-    named = list(model.named_parameters())
-    missing = [name for name, _ in named if name not in params]
-    if missing:
-        raise KeyError(f"load_paddle_tpu_deepfm_params: missing {missing}")
-    for name, target in named:
-        value = torch.from_numpy(np.array(params[name], np.float32))
-        if tuple(value.shape) != tuple(target.shape):
-            raise ValueError(
-                f"load_paddle_tpu_deepfm_params: {name} has shape "
-                f"{tuple(value.shape)}, the port's is {tuple(target.shape)}")
-        target.copy_(value)
-    return model
+    return _load_pairs(model, [(n, n) for n, _ in model.named_parameters()],
+                       params, "load_paddle_tpu_deepfm_params")
 
 
 def export_paddle_tpu_deepfm_params(model):
     """{reference name: f32 numpy array} of a DeepFM's parameters, which
     :func:`load_paddle_tpu_deepfm_params` (or a reference scope) takes."""
-    return {name: p.detach().cpu().numpy().copy()
-            for name, p in model.named_parameters()}
+    return _export_pairs(model, [(n, n) for n, _ in
+                                 model.named_parameters()])

@@ -19,7 +19,9 @@ from __future__ import annotations
 launches = {"qkv_attention_fwd": 0, "qkv_bwd_dq": 0, "qkv_bwd_dkv": 0,
             "megastep": 0, "megastep_paged": 0, "ffn": 0, "flash_decode": 0,
             "flash_decode_paged": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "dropout_add_fwd": 0, "dropout_add_bwd": 0,
+            "flash_bwd_dkv": 0, "flash_fwd_bhtd": 0, "flash_bwd_dq_bhtd": 0,
+            "flash_bwd_dkv_bhtd": 0, "dropout_add_fwd": 0,
+            "dropout_add_bwd": 0,
             "channel_stats": 0, "dot_col_stats": 0, "ssa_fwd": 0,
             "ssa_bwd": 0, "multi_table_gather": 0, "multi_table_apply": 0}
 
@@ -29,7 +31,9 @@ composed = {name: 0 for name in ("qkv_attention_fwd", "qkv_bwd_dq",
                                  "qkv_bwd_dkv", "megastep",
                                  "megastep_paged", "ffn", "flash_decode",
                                  "flash_decode_paged", "flash_fwd",
-                                 "flash_bwd_dq", "flash_bwd_dkv")}
+                                 "flash_bwd_dq", "flash_bwd_dkv",
+                                 "flash_fwd_bhtd", "flash_bwd_dq_bhtd",
+                                 "flash_bwd_dkv_bhtd")}
 
 #: head width the attention and decode kernels are compiled for
 KERNEL_D_HEAD = 64

@@ -142,6 +142,12 @@ _SIGNATURES = {
                          + [_F, _I] + _DROP + [_P]),
     "ptt_flash_bwd_dkv": (_I, [_P] * 4 + [_L] * 4 + [_P] * 5 + [_I] * 4
                           + [_F, _I] + _DROP + [_P]),
+    "ptt_flash_fwd_bhtd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 2 + [_I] * 4
+                           + [_F, _I] + _DROP + [_P]),
+    "ptt_flash_bwd_dq_bhtd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 4
+                              + [_F, _I] + _DROP + [_P]),
+    "ptt_flash_bwd_dkv_bhtd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 5
+                               + [_I] * 4 + [_F, _I] + _DROP + [_P]),
     "ptt_dropout_add": (_I, [_P] * 3 + [_L] + _DROP + [_P]),
     "ptt_dropout_add_bwd": (_I, [_P] * 2 + [_L] + _DROP + [_P]),
     "ptt_stats_partials": (_L, [_L, _I]),

@@ -20,6 +20,14 @@ Counterparts of ``paddle_tpu/kernels/attention.py``:
   (``_bwd_dkv_kernel_bthd``, #7).  Their plain versions are
   :func:`reference_flash_fwd`, :func:`reference_flash_bwd_dq` and
   :func:`reference_flash_bwd_dkv`.
+* :func:`flash_attention` with ``fmt="bhtd"`` (the reference's default):
+  q, k, v [b, h, t, d], through the same Function and three more kernels
+  of that file, the same walks on the other layout: :func:`flash_fwd_bhtd`
+  (``_fwd_kernel``, #5), :func:`flash_bwd_dq_bhtd` (``_bwd_dq_kernel``,
+  #8) and :func:`flash_bwd_dkv_bhtd` (``_bwd_dkv_kernel``, #9), with the
+  plain versions :func:`reference_flash_fwd_bhtd`,
+  :func:`reference_flash_bwd_dq_bhtd` and
+  :func:`reference_flash_bwd_dkv_bhtd`.
 
 Both take the reference's weights dropout: with ``dropout_rate`` > 0 and a
 site's uint32 ``dropout_seed``, the kernels drop the softmax weights that
@@ -381,7 +389,7 @@ def flash_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
 
 
 # ---------------------------------------------------------------------------
-# flash_attention, fmt="bthd": kernels #4, #6, #7
+# flash_attention: kernels #4, #6, #7 (bthd) and #5, #8, #9 (bhtd)
 # ---------------------------------------------------------------------------
 
 
@@ -479,21 +487,68 @@ def reference_flash_bwd_dkv(q, k, v, bias, dout, lse, delta, scale=1.0,
     return dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
 
 
-def _kernel_args(what, q, k, bias, **more):
-    """Check the operands of a bthd kernel and return (b, tq, tk, h, bias
-    strides, bias pointer).  Each tensor must be a contiguous f32 [b, t,
-    h, 64] (or, for the [b, h, tq] rows in ``more``, that shape) on q's
-    CUDA device; the kernels index raw pointers."""
+def _bthd(a):
+    """[b, h, t, d] <-> [b, t, h, d] (a view)."""
+    return a.transpose(1, 2)
+
+
+def reference_flash_fwd_bhtd(q, k, v, bias=None, scale=1.0, causal=False,
+                             dropout_rate=0.0, dropout_seed=0):
+    """Plain twin of #5: :func:`reference_flash_fwd` over q [b, h, tq, d],
+    k/v [b, h, tk, d].  Returns (out [b, h, tq, d], lse [b, h, tq])."""
+    out, lse = reference_flash_fwd(_bthd(q), _bthd(k), _bthd(v), bias, scale,
+                                   causal, dropout_rate, dropout_seed)
+    return _bthd(out).contiguous(), lse
+
+
+def reference_flash_bwd_dq_bhtd(q, k, v, bias, dout, lse, delta, scale=1.0,
+                                causal=False, dropout_rate=0.0,
+                                dropout_seed=0):
+    """Plain twin of #8: :func:`reference_flash_bwd_dq` in [b, h, t, d]."""
+    return _bthd(reference_flash_bwd_dq(
+        _bthd(q), _bthd(k), _bthd(v), bias, _bthd(dout), lse, delta, scale,
+        causal, dropout_rate, dropout_seed)).contiguous()
+
+
+def reference_flash_bwd_dkv_bhtd(q, k, v, bias, dout, lse, delta, scale=1.0,
+                                 causal=False, dropout_rate=0.0,
+                                 dropout_seed=0):
+    """Plain twin of #9: :func:`reference_flash_bwd_dkv` in [b, h, t, d]."""
+    dk, dv = reference_flash_bwd_dkv(
+        _bthd(q), _bthd(k), _bthd(v), bias, _bthd(dout), lse, delta, scale,
+        causal, dropout_rate, dropout_seed)
+    return _bthd(dk).contiguous(), _bthd(dv).contiguous()
+
+
+def _dims(a, fmt):
+    """(b, h, t, d) of a q/k/v tensor in ``fmt``."""
+    if fmt == "bthd":
+        b, t, h, d = a.shape
+    else:
+        b, h, t, d = a.shape
+    return b, h, t, d
+
+
+def _kernel_args(what, fmt, q, k, bias, **more):
+    """Check the operands of a flash kernel and return (b, tq, tk, h, bias
+    strides, bias pointer).  Each tensor must be a contiguous f32 [b, t, h,
+    64] (``fmt`` "bthd") or [b, h, t, 64] ("bhtd"), or, for the [b, h, tq]
+    rows in ``more``, that shape, on q's CUDA device; the kernels index
+    raw pointers."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for {q.device}")
-    b, tq, h, d = q.shape
-    tk = k.shape[1]
+    b, h, tq, d = _dims(q, fmt)
+    tk = _dims(k, fmt)[2]
     if d != KERNEL_D_HEAD:
         raise ValueError(f"{what}: the CUDA kernel takes head width 64, "
                          f"got {d}")
+
+    def rows(t):
+        return (b, t, h, d) if fmt == "bthd" else (b, h, t, d)
+
     f32 = torch.float32
-    shapes = {"q": (b, tq, h, d), "k": (b, tk, h, d), "v": (b, tk, h, d),
-              "dout": (b, tq, h, d), "lse": (b, h, tq), "delta": (b, h, tq)}
+    shapes = {"q": rows(tq), "k": rows(tk), "v": rows(tk), "dout": rows(tq),
+              "lse": (b, h, tq), "delta": (b, h, tq)}
     _build.require({name: (a, f32, shapes[name])
                     for name, a in dict(q=q, k=k, **more).items()},
                    q.device, what)
@@ -502,70 +557,126 @@ def _kernel_args(what, q, k, bias, **more):
     return (b, tq, tk, h) + _bias_strides(bias, q.device, what)
 
 
+#: fmt -> (suffix of the kernels' names and entry points, the plain twins
+#: of the forward, dq and dkv kernels)
+_LAYOUTS = {
+    "bthd": ("", (reference_flash_fwd, reference_flash_bwd_dq,
+                  reference_flash_bwd_dkv)),
+    "bhtd": ("_bhtd", (reference_flash_fwd_bhtd, reference_flash_bwd_dq_bhtd,
+                       reference_flash_bwd_dkv_bhtd)),
+}
+
+
+def _fwd(fmt, q, k, v, bias, scale, causal, dropout_rate, dropout_seed):
+    suffix, (twin, _, _) = _LAYOUTS[fmt]
+    what = "flash_fwd" + suffix
+    if q.device.type == "cpu" or composes(what, q.shape[-1]):
+        return twin(q, k, v, bias, scale, causal, dropout_rate, dropout_seed)
+    b, tq, tk, h, strides, bias_ptr = _kernel_args(what, fmt, q, k, bias,
+                                                   v=v)
+    drop = _dropout_args(dropout_rate, dropout_seed, tq, tk, what)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    err = getattr(_build.lib(), "ptt_" + what)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, *strides,
+        out.data_ptr(), lse.data_ptr(), b, tq, tk, h, float(scale),
+        int(bool(causal)), *drop, _build.stream_of(q))
+    _build.check(err, what)
+    launches[what] += 1
+    return out, lse
+
+
+def _bwd_dq(fmt, q, k, v, bias, dout, lse, delta, scale, causal,
+            dropout_rate, dropout_seed):
+    suffix, (_, twin, _) = _LAYOUTS[fmt]
+    what = "flash_bwd_dq" + suffix
+    if q.device.type == "cpu" or composes(what, q.shape[-1]):
+        return twin(q, k, v, bias, dout, lse, delta, scale, causal,
+                    dropout_rate, dropout_seed)
+    b, tq, tk, h, strides, bias_ptr = _kernel_args(
+        what, fmt, q, k, bias, v=v, dout=dout, lse=lse, delta=delta)
+    drop = _dropout_args(dropout_rate, dropout_seed, tq, tk, what)
+    dq = torch.empty_like(q)
+    err = getattr(_build.lib(), "ptt_" + what)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, *strides,
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b,
+        tq, tk, h, float(scale), int(bool(causal)), *drop,
+        _build.stream_of(q))
+    _build.check(err, what)
+    launches[what] += 1
+    return dq
+
+
+def _bwd_dkv(fmt, q, k, v, bias, dout, lse, delta, scale, causal,
+             dropout_rate, dropout_seed):
+    suffix, (_, _, twin) = _LAYOUTS[fmt]
+    what = "flash_bwd_dkv" + suffix
+    if q.device.type == "cpu" or composes(what, q.shape[-1]):
+        return twin(q, k, v, bias, dout, lse, delta, scale, causal,
+                    dropout_rate, dropout_seed)
+    b, tq, tk, h, strides, bias_ptr = _kernel_args(
+        what, fmt, q, k, bias, v=v, dout=dout, lse=lse, delta=delta)
+    drop = _dropout_args(dropout_rate, dropout_seed, tq, tk, what)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    err = getattr(_build.lib(), "ptt_" + what)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, *strides,
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, tq, tk, h, float(scale), int(bool(causal)), *drop,
+        _build.stream_of(q))
+    _build.check(err, what)
+    launches[what] += 1
+    return dk, dv
+
+
 def flash_fwd(q, k, v, bias=None, scale=1.0, causal=False, dropout_rate=0.0,
               dropout_seed=0):
     """#4: (out, lse) as :func:`reference_flash_fwd` computes them.  CPU
     tensors take the plain twin; CUDA tensors launch the kernel or raise."""
-    if q.device.type == "cpu" or composes("flash_fwd", q.shape[-1]):
-        return reference_flash_fwd(q, k, v, bias, scale, causal,
-                                   dropout_rate, dropout_seed)
-    b, tq, tk, h, strides, bias_ptr = _kernel_args("flash_fwd", q, k, bias,
-                                                   v=v)
-    drop = _dropout_args(dropout_rate, dropout_seed, tq, tk, "flash_fwd")
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    err = _build.lib().ptt_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, *strides,
-        out.data_ptr(), lse.data_ptr(), b, tq, tk, h, float(scale),
-        int(bool(causal)), *drop, _build.stream_of(q))
-    _build.check(err, "flash_fwd")
-    launches["flash_fwd"] += 1
-    return out, lse
+    return _fwd("bthd", q, k, v, bias, scale, causal, dropout_rate,
+                dropout_seed)
 
 
 def flash_bwd_dq(q, k, v, bias, dout, lse, delta, scale=1.0, causal=False,
                  dropout_rate=0.0, dropout_seed=0):
     """#6: dq as :func:`reference_flash_bwd_dq` computes it (CPU: the
     twin; CUDA: the kernel or an error)."""
-    if q.device.type == "cpu" or composes("flash_bwd_dq", q.shape[-1]):
-        return reference_flash_bwd_dq(q, k, v, bias, dout, lse, delta, scale,
-                                      causal, dropout_rate, dropout_seed)
-    b, tq, tk, h, strides, bias_ptr = _kernel_args(
-        "flash_bwd_dq", q, k, bias, v=v, dout=dout, lse=lse, delta=delta)
-    drop = _dropout_args(dropout_rate, dropout_seed, tq, tk, "flash_bwd_dq")
-    dq = torch.empty_like(q)
-    err = _build.lib().ptt_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, *strides,
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b,
-        tq, tk, h, float(scale), int(bool(causal)), *drop,
-        _build.stream_of(q))
-    _build.check(err, "flash_bwd_dq")
-    launches["flash_bwd_dq"] += 1
-    return dq
+    return _bwd_dq("bthd", q, k, v, bias, dout, lse, delta, scale, causal,
+                   dropout_rate, dropout_seed)
 
 
 def flash_bwd_dkv(q, k, v, bias, dout, lse, delta, scale=1.0, causal=False,
                   dropout_rate=0.0, dropout_seed=0):
     """#7: (dk, dv) as :func:`reference_flash_bwd_dkv` computes them (CPU:
     the twin; CUDA: the kernel or an error)."""
-    if q.device.type == "cpu" or composes("flash_bwd_dkv", q.shape[-1]):
-        return reference_flash_bwd_dkv(q, k, v, bias, dout, lse, delta,
-                                       scale, causal, dropout_rate,
-                                       dropout_seed)
-    b, tq, tk, h, strides, bias_ptr = _kernel_args(
-        "flash_bwd_dkv", q, k, bias, v=v, dout=dout, lse=lse, delta=delta)
-    drop = _dropout_args(dropout_rate, dropout_seed, tq, tk,
-                         "flash_bwd_dkv")
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    err = _build.lib().ptt_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, *strides,
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, tq, tk, h, float(scale), int(bool(causal)), *drop,
-        _build.stream_of(q))
-    _build.check(err, "flash_bwd_dkv")
-    launches["flash_bwd_dkv"] += 1
-    return dk, dv
+    return _bwd_dkv("bthd", q, k, v, bias, dout, lse, delta, scale, causal,
+                    dropout_rate, dropout_seed)
+
+
+def flash_fwd_bhtd(q, k, v, bias=None, scale=1.0, causal=False,
+                   dropout_rate=0.0, dropout_seed=0):
+    """#5: (out [b, h, tq, d], lse [b, h, tq]) of q [b, h, tq, d], k/v
+    [b, h, tk, d] as :func:`reference_flash_fwd_bhtd` computes them.  CPU
+    tensors take the plain twin; CUDA tensors launch the kernel or
+    raise."""
+    return _fwd("bhtd", q, k, v, bias, scale, causal, dropout_rate,
+                dropout_seed)
+
+
+def flash_bwd_dq_bhtd(q, k, v, bias, dout, lse, delta, scale=1.0,
+                      causal=False, dropout_rate=0.0, dropout_seed=0):
+    """#8: dq as :func:`reference_flash_bwd_dq_bhtd` computes it (CPU: the
+    twin; CUDA: the kernel or an error)."""
+    return _bwd_dq("bhtd", q, k, v, bias, dout, lse, delta, scale, causal,
+                   dropout_rate, dropout_seed)
+
+
+def flash_bwd_dkv_bhtd(q, k, v, bias, dout, lse, delta, scale=1.0,
+                       causal=False, dropout_rate=0.0, dropout_seed=0):
+    """#9: (dk, dv) as :func:`reference_flash_bwd_dkv_bhtd` computes them
+    (CPU: the twin; CUDA: the kernel or an error)."""
+    return _bwd_dkv("bhtd", q, k, v, bias, dout, lse, delta, scale, causal,
+                    dropout_rate, dropout_seed)
 
 
 def _reduce_to(ds, shape):
@@ -575,18 +686,20 @@ def _reduce_to(ds, shape):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """out = flash attention of (q, k, v, bias); saves (q, k, v, bias, out,
-    lse).  Its backward takes delta = rowsum(dO * out) in f32, then the dq
-    kernel and the dkv kernel.  A bias that requires grad gets a plain
-    recompute of ds reduced to its shape (the reference's ``_dbias_xla``,
-    under the same dropout mask); attention masks do not, and get None.
-    Under dropout only the rate and the seed are saved beside the tensors:
-    the backward kernels regenerate the mask."""
+    """out = flash attention of (q, k, v, bias) in layout ``fmt``; saves (q,
+    k, v, bias, out, lse).  Its backward takes delta = rowsum(dO * out) in
+    f32, then the layout's dq kernel and dkv kernel (#6 and #7 in bthd, #8
+    and #9 in bhtd).  A bias that requires grad gets a plain recompute of
+    ds reduced to its shape (the reference's ``_dbias_xla``, under the
+    same dropout mask); attention masks do not, and get None.  Under
+    dropout only the rate and the seed are saved beside the tensors: the
+    backward kernels regenerate the mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale, causal, rate, seed):
-        out, lse = flash_fwd(q, k, v, bias, scale, causal, rate, seed)
+    def forward(ctx, q, k, v, bias, scale, causal, rate, seed, fmt):
+        out, lse = _fwd(fmt, q, k, v, bias, scale, causal, rate, seed)
         ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.fmt = fmt
         ctx.kw = dict(scale=scale, causal=causal, dropout_rate=rate,
                       dropout_seed=seed)
         return out
@@ -594,18 +707,25 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias, out, lse = ctx.saved_tensors
+        fmt = ctx.fmt
         dout = dout.contiguous()
         wide = torch.promote_types(out.dtype, torch.float32)
-        delta = (dout.to(wide) * out.to(wide)).sum(-1).transpose(1, 2)
+        delta = (dout.to(wide) * out.to(wide)).sum(-1)
+        if fmt == "bthd":
+            delta = delta.transpose(1, 2)
         delta = delta.contiguous()
         args = (q, k, v, bias, dout, lse, delta)
-        dq = flash_bwd_dq(*args, **ctx.kw)
-        dk, dv = flash_bwd_dkv(*args, **ctx.kw)
+        kw = ctx.kw
+        dq = _bwd_dq(fmt, *args, **kw)
+        dk, dv = _bwd_dkv(fmt, *args, **kw)
         dbias = None
         if ctx.needs_input_grad[3]:
-            _, ds = _dscores(*args, **ctx.kw)
+            if fmt == "bhtd":
+                args = (_bthd(q), _bthd(k), _bthd(v), bias, _bthd(dout), lse,
+                        delta)
+            _, ds = _dscores(*args, **kw)
             dbias = _reduce_to(ds, bias.shape).to(bias.dtype)
-        return dq, dk, dv, dbias, None, None, None, None
+        return dq, dk, dv, dbias, None, None, None, None, None
 
 
 def flash_attention(q, k, v, bias=None, scale=1.0, causal=False,
@@ -613,35 +733,38 @@ def flash_attention(q, k, v, bias=None, scale=1.0, causal=False,
     """softmax(q k^T * scale + bias) v per head, differentiable in q, k, v
     (and in bias when it requires grad).
 
-    ``fmt`` defaults to the reference's ``"bhtd"`` ([b, h, t, d]), whose
-    kernels (#5, #8, #9) are not ported: that layout raises, so a
-    reference-style call never attends over the wrong axis.  Callers pass
-    ``fmt="bthd"``: q [b, tq, h, d], k/v [b, tk, h, d] f32 (the layout the
-    projections give for free); bias broadcastable to [b, 1|h, 1|tq, tk]
-    (the key-padding [b, 1, 1, tk] and decoder [b, 1, tq, tk] biases are
-    read in place, never expanded); ``causal`` masks keys past
-    query + tk - tq.  Returns [b, tq, h, d].  On the CPU every pass runs
-    its plain twin; on CUDA the kernels #4, #6 and #7 (head width 64; at
-    a width % 64 != 0 the twins, as the reference's plan composes there).
-    ``dropout_rate`` > 0 drops the attention weights inside the kernels
-    under the site's uint32 ``dropout_seed``; the caller passes 0 at
-    inference."""
-    if fmt != "bthd":
-        raise NotImplementedError(
-            f"flash_attention: fmt={fmt!r} needs the bhtd kernels #5, #8 "
-            "and #9, which are not ported; pass [b, t, h, d] tensors with "
-            "fmt='bthd'")
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
-            or (q.shape[0], q.shape[2], q.shape[3]) != (
-                k.shape[0], k.shape[2], k.shape[3]):
+    ``fmt`` is the reference's: ``"bhtd"`` (its default) takes q
+    [b, h, tq, d] and k/v [b, h, tk, d] and returns [b, h, tq, d], through
+    the kernels #5, #8 and #9; ``"bthd"`` takes q [b, tq, h, d] and k/v
+    [b, tk, h, d] (the layout the projections give for free) and returns
+    [b, tq, h, d], through #4, #6 and #7.  A caller's transposed view
+    (split heads) is copied to a contiguous tensor first, as the
+    reference's ``transpose2`` copies it.  The bias broadcasts to
+    [b, 1|h, 1|tq, tk] in both layouts (the key-padding [b, 1, 1, tk] and
+    decoder [b, 1, tq, tk] biases are read in place, never expanded);
+    ``causal`` masks keys past query + tk - tq.  f32.  On the CPU every
+    pass runs its plain twin; on CUDA the kernels (head width 64; at a
+    width % 64 != 0 the twins, as the reference's plan composes there,
+    counted in ``kernels.composed``).  ``dropout_rate`` > 0 drops the
+    attention weights inside the kernels under the site's uint32
+    ``dropout_seed`` (the same mask in both layouts); the caller passes 0
+    at inference."""
+    if fmt not in _LAYOUTS:
+        raise ValueError(f"flash_attention: unknown fmt {fmt!r}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or (
+            _dims(q, fmt)[:2], q.shape[-1]) != (_dims(k, fmt)[:2],
+                                                k.shape[-1]):
+        want = ("[b, tq, h, d] and [b, tk, h, d]" if fmt == "bthd"
+                else "[b, h, tq, d] and [b, h, tk, d]")
         raise ValueError(
             f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-            f"{tuple(v.shape)} are not [b, tq, h, d] and [b, tk, h, d]")
-    b, tq, h, _ = q.shape
-    rate, seed = _dropout_args(dropout_rate, dropout_seed, tq, k.shape[1],
+            f"{tuple(v.shape)} are not {want} (fmt={fmt!r})")
+    b, h, tq, _ = _dims(q, fmt)
+    tk = _dims(k, fmt)[2]
+    rate, seed = _dropout_args(dropout_rate, dropout_seed, tq, tk,
                                "flash_attention")[:2]
     if bias is not None:
-        bias = _bias_4d(bias, b, h, tq, k.shape[1], "flash_attention")
+        bias = _bias_4d(bias, b, h, tq, tk, "flash_attention")
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), bias, float(scale),
-                                 bool(causal), rate, seed)
+                                 bool(causal), rate, seed, fmt)

@@ -17,6 +17,10 @@ Counterpart of ``paddle_tpu/models/transformer.py`` with ``use_flash=True``:
   run it: ``prepare_encoder``, the encoder layers on the fused-qkv route
   by default (``fused_qkv_attention=True``, the reference's default flag),
   ``_src_token_lengths`` and ``_prefill_cross_cache``;
+* the hand-written self-attention of ``multi_head_attention`` with
+  ``use_flash=False``, which BERT's default build spells out and the
+  ``attention_fuse`` pass turns into ``fused_attention(fmt="bhtd")``:
+  :class:`MultiHeadAttention`, which takes every route of that function;
 * decode: ``cached_decoder_step``, then ``predict_w``/``predict_b``.  On
   the fused route (``fused_decode_step=True``, the reference's default
   ``FLAGS_fused_decode_step``) each layer is one ``fused_decode_step``
@@ -55,6 +59,7 @@ from torch import nn
 from ..device import resolve_device
 from ..kernels.attention import flash_attention, flash_qkv_attention
 from ..kernels.decode_step import fused_decode_step, fused_decode_step_paged
+from ..layers.contrib import fused_attention
 from ..ops.nn_ops import (dropout, dropout_add, layer_norm, lookup_table,
                           mul, softmax_with_cross_entropy)
 
@@ -105,6 +110,70 @@ def self_attention(x, w_qkv, w_out, bias, n_head, d_key, fused, rate=0.0,
                                    dropout_seed=seed)
     q, k, v = torch.split(mul(x, w_qkv), n_head * d_key, dim=-1)
     return _attend(q, k, v, w_out, bias, n_head, d_key, rate, seed)
+
+
+class MultiHeadAttention(nn.Module):
+    """A self-attention site of the reference's ``multi_head_attention``
+    (queries = keys = values, d_key == d_value): the packed ``attn_qkv_w``
+    [d_model, 3hd] and ``attn_out_w`` [hd, d_model], on the route the
+    reference's build takes.
+
+    * ``use_flash`` with ``fused_qkv_attention`` (the reference's default
+      flag): one ``flash_qkv_attention`` (#1, #2, #3);
+    * ``use_flash`` with the flag off: :func:`self_attention`'s projections
+      around ``flash_attention(fmt="bthd")`` (#4, #6, #7);
+    * without ``use_flash``, the reference's hand-written attention: the
+      qkv ``mul``, split, the split-head transpose to [b, h, t, d],
+      ``matmul(q, k^T) * d_key^-0.5``, the bias added, ``softmax``, the
+      weights ``dropout`` (upscale_in_train over the flat [b, h, t, t]
+      index: ``keep_mask``, kernel #16 without a residual), ``matmul``
+      with v, the head merge and the output ``mul``;
+    * the same once :func:`paddle_tpu_torch.passes.attention_fuse` has set
+      :attr:`attention_fused`: the matmul-to-matmul chain becomes one
+      ``layers.contrib.fused_attention(fmt="bhtd")`` (#5, #8, #9) with the
+      dropout in the kernels (``keep_mask_attn``), as the reference's
+      ``attention_fuse`` pass rewrites it.
+
+    Every route takes one dropout seed per step (:meth:`forward`)."""
+
+    def __init__(self, d_model, n_head, d_key, device, use_flash=False,
+                 fused_qkv_attention=True):
+        super().__init__()
+        self.n_head, self.d_key = n_head, d_key
+        self.use_flash = bool(use_flash)
+        self.fused_qkv_attention = bool(fused_qkv_attention)
+        #: set by ``passes.attention_fuse`` on a hand-written site
+        self.attention_fused = False
+        hd = n_head * d_key
+        self.attn_qkv_w = _param(d_model, 3 * hd, device=device)
+        self.attn_out_w = _param(hd, d_model, device=device)
+
+    def forward(self, x, bias, rate=0.0, seed=None):
+        """Self-attention of x [b, t, d_model] under the additive bias
+        (broadcast to [b, 1|h, 1|t, t]); the attention weights dropped at
+        ``rate`` under ``seed`` on every route."""
+        if self.use_flash:
+            return self_attention(x, self.attn_qkv_w, self.attn_out_w, bias,
+                                  self.n_head, self.d_key,
+                                  self.fused_qkv_attention, rate, seed)
+        b, t, _ = x.shape
+        h, d = self.n_head, self.d_key
+
+        def split_heads(a):
+            return a.reshape(b, t, h, d).transpose(1, 2)
+
+        q, k, v = (split_heads(a) for a in torch.split(
+            mul(x, self.attn_qkv_w), h * d, dim=-1))
+        if self.attention_fused:
+            ctx = fused_attention(q, k, v, bias, scale=d ** -0.5,
+                                  dropout_rate=rate, dropout_seed=seed)
+        else:
+            product = (q @ k.transpose(-1, -2)) * d ** -0.5
+            if bias is not None:
+                product = product + bias
+            weights = dropout(torch.softmax(product, dim=-1), rate, seed)
+            ctx = weights @ v
+        return mul(ctx.transpose(1, 2).reshape(b, t, h * d), self.attn_out_w)
 
 
 def pad_bias(word):

@@ -1,8 +1,9 @@
 """Counterparts of ``paddle_tpu/ops/nn_ops.py`` ``layer_norm``,
 ``lookup_table``, ``fused_lookup_table``, ``softmax_with_cross_entropy``,
 ``dropout``, ``dropout_add``, ``conv2d_bn``, ``batch_norm``, ``pool2d``
-and ``cross_entropy``, of ``paddle_tpu/ops/math_ops.py`` ``mul`` and of
-``paddle_tpu/ops/metric_ops.py`` ``accuracy``.  Each differentiates
+and ``cross_entropy``, of ``paddle_tpu/ops/math_ops.py`` ``mul`` and
+``gelu`` (with the ``fc`` layer around them and BERT's masked-LM loss) and
+of ``paddle_tpu/ops/metric_ops.py`` ``accuracy``.  Each differentiates
 through torch autograd as the reference's lowering does through
 ``jax.vjp``."""
 
@@ -145,6 +146,28 @@ def mul(x, w):
     return (x.reshape(-1, w.shape[0]) @ w).reshape(*x.shape[:-1], w.shape[1])
 
 
+def gelu(x):
+    """The reference's ``gelu`` with ``approximate=False``: the exact erf
+    form x * (1 + erf(x / sqrt(2))) / 2."""
+    return F.gelu(x, approximate="none")
+
+
+#: fc activations the models use
+_ACTS = {None: None, "": None, "relu": torch.relu, "gelu": gelu}
+
+
+def fc(x, w, b=None, act=None):
+    """The reference's ``fc`` over the last axis: ``mul`` by w [K, N], the
+    bias [N] added (``elementwise_add``), then the activation op (None,
+    "relu" or "gelu")."""
+    if act not in _ACTS:
+        raise ValueError(f"fc: unsupported act {act!r}")
+    out = mul(x, w)
+    if b is not None:
+        out = out + b
+    return _ACTS[act](out) if _ACTS[act] else out
+
+
 def softmax_with_cross_entropy(logits, label):
     """Hard-label cross entropy [N, 1] of logits [N, V] and integer label
     [N, 1] (``softmax_with_cross_entropy_op``): ``log sum exp(shifted) -
@@ -155,6 +178,16 @@ def softmax_with_cross_entropy(logits, label):
     shifted = logits - logits.detach().amax(-1, keepdim=True)
     log_z = torch.log(torch.exp(shifted).sum(-1, keepdim=True))
     return log_z - torch.gather(shifted, -1, label.reshape(-1, 1).long())
+
+
+def masked_lm_loss(logits, label, weight):
+    """BERT's masked-LM objective (``build_pretrain_net``): the per-token
+    ``softmax_with_cross_entropy`` of logits [N, vocab] and label [N, 1],
+    weighted by weight [N, 1] and summed (``reduce_sum``), over the
+    weights' sum; a 0-dim tensor."""
+    loss = softmax_with_cross_entropy(logits, label)
+    w = weight.reshape(-1, 1).to(loss.dtype)
+    return (loss * w).sum() / w.sum()
 
 
 def _batch_stats(n, s1, s2, mean_in, var_in, momentum):

@@ -219,22 +219,33 @@ def test_bias_broadcasts_without_a_copy():
 
 
 def test_bhtd_format_raises():
-    q, k, v, _, _ = _inputs(32, 32, None)
-    with pytest.raises(NotImplementedError, match="#5, #8 and #9"):
+    """fmt="bhtd" reads [b, h, t, d]: a bthd-shaped cross call (tq 32, tk
+    64 on axis 1) passed as bhtd gives q and k different head counts and
+    raises, as does an unknown layout; nothing attends over the wrong
+    axis."""
+    q, k, v, _, _ = _inputs(32, 64, None)
+    with pytest.raises(ValueError, match="are not"):
         ka.flash_attention(*(_t(a) for a in (q, k, v)), fmt="bhtd")
+    with pytest.raises(ValueError, match="unknown fmt"):
+        ka.flash_attention(*(_t(a) for a in (q, k, v)), fmt="bt")
 
 
 def test_reference_style_call_raises():
-    """flash_attention(q, k, v) on [B, H, T, D] tensors, as the reference
-    is called (its default fmt is "bhtd"), raises and returns nothing:
-    the port's default is the reference's, and the bhtd kernels are not
-    ported, so the call can no longer attend over the head axis."""
-    q, k, v, _, _ = _inputs(32, 32, None)
-    bhtd = [_t(a).transpose(1, 2).contiguous() for a in (q, k, v)]
-    result = None
-    with pytest.raises(NotImplementedError, match="#5, #8 and #9"):
-        result = ka.flash_attention(*bhtd)
-    assert result is None
+    """flash_attention(q, k, v, bias) on [B, H, T, D] tensors, as the
+    reference is called (its default fmt is "bhtd"), gives the reference's
+    bhtd result (its interpret-mode #5), 1e-5, and the [B, T, H, D]
+    result transposed; only a bias that does not broadcast raises."""
+    q, k, v, _, bias = _inputs(32, 32, "full")
+    bhtd = [np.ascontiguousarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v)]
+    want = jax_attention.flash_attention(
+        *(_j(a) for a in bhtd), _j(bias), scale=SCALE, interpret=True)
+    got = ka.flash_attention(*(_t(a) for a in bhtd), _t(bias), scale=SCALE)
+    assert got.shape == (B, H, 32, D)
+    _close(got, want)
+    _close(got, ka.flash_attention(*(_t(a) for a in (q, k, v)), _t(bias),
+                                   scale=SCALE, fmt="bthd").transpose(1, 2))
+    with pytest.raises(ValueError, match="does not broadcast"):
+        ka.flash_attention(*(_t(a) for a in bhtd), torch.zeros(3, 1, 1, 32))
 
 
 def test_dropout_raises():

@@ -32,11 +32,19 @@ Phases, each fatal on failure:
    called twice on the same inputs and must give equal bits.  Each of
    #1-#4, #6 and #7 is checked again at weights-dropout rate 0.1 on every
    case against its twin (same seed, the same hash mask), and timed at
-   rate 0.1 beside its rate-0 time.  The dropout-add kernels (#16, #17)
-   are checked at [32*256, 512] f32: with x = 1 and residual 0, #16 must
-   give the twin's keep pattern exactly, with a keep share within a
-   chi-square bound of 0.9; #17 must equal its twin bit for bit.  The
-   conv + batch-norm kernels (#18-#21) are checked at ResNet-50's shapes
+   rate 0.1 beside its rate-0 time.  #1 is checked on every route of its
+   plan (``qkv_fwd_plan``: clusters of 1 to 8 blocks of 32 or 64 rows,
+   and the tiles route at t > 512) on QKV_PLAN_CASES (t 8, BERT-base's
+   self-attention, a ragged t 200, the b=1 prefill at t 256, the b=64
+   decoder, t 512 and t 640; causal and not, each bias kind, rates 0 and
+   0.1), each call repeated for equal bits, masked rows with ctx 0 and
+   lse +inf, and the cluster occupancy of 8-block clusters printed;
+   ``flash_qkv_attention`` and ``flash_attention(fmt="bthd")`` at head
+   width 128 must raise before any launch (no kernel at that width).
+   The dropout-add kernels (#16, #17) are checked at [32*256, 512] f32:
+   with x = 1 and residual 0, #16 must give the twin's keep pattern
+   exactly, with a keep share within a chi-square bound of 0.9; #17 must
+   equal its twin bit for bit.  The conv + batch-norm kernels (#18-#21) are checked at ResNet-50's shapes
    at batch 256 (CBN_*_CASES: the stem, stage-1 and stage-4 sites, #19 at
    a strided shortcut too, #20/#21 with and without residual and ReLU),
    each called twice for equal bits; their sums are held to TOL_SUM of
@@ -326,6 +334,7 @@ def check_qkv_attention(gen, b):
         lambda: ka.reference_qkv_attention(x, w_qkv, w_out, bias, **kw),
         flops, nbytes, library, b)
     rec["library_max_abs_err"] = lib_err
+    rec["plan"] = list(ka.qkv_fwd_plan(b, t, h, ka.sm_count(x.device)))
     return rec
 
 
@@ -974,11 +983,13 @@ QKV_CASES = (("encoder self", 256, "pad", False),
 QKV_RECORD_CASE = "decoder self"
 
 
-def _qkv_inputs(gen, t, bias_kind):
+def _qkv_inputs(gen, t, bias_kind, b=None, dm=None):
     """x, g = dL/dy [b, t, d_model], the packed weights and the case's
-    bias; padded key tails of ragged lengths (row 0 unpadded)."""
-    b, dm = TRAIN_BATCH, BASE["d_model"]
-    hd = BASE["n_head"] * BASE["d_key"]
+    bias; padded key tails of ragged lengths (row 0 unpadded).  b and
+    d_model default to the training step's (TRAIN_BATCH, BASE), the heads
+    to d_model / 64 of width 64."""
+    b, dm = b or TRAIN_BATCH, dm or BASE["d_model"]
+    hd = dm
     x, g = randn(gen, b, t, dm), randn(gen, b, t, dm)
     w_qkv = randn(gen, dm, 3 * hd, scale=dm ** -0.5)
     w_out = randn(gen, hd, dm, scale=hd ** -0.5)
@@ -1032,6 +1043,35 @@ def _library_mha(x, w_qkv, w_out, bias, g, n_head, causal):
     return out.detach().transpose(0, 1), fwd, bwd
 
 
+def _held_qkv_fwd(what, fw, kw, masked):
+    """#1 in residual mode on ``fw`` under ``kw``, called twice: equal
+    bits, the twin's masked rows (some exactly when ``masked``) with ctx 0
+    and lse +inf, and y, ctx and the other rows' lse within TOL_KERNEL of
+    the twin.  Returns ((y, ctx, lse), the twin's, the masked rows [b, h,
+    t], the max abs error)."""
+    from paddle_tpu_torch.kernels import attention as ka
+
+    got = ka.qkv_attention_fwd(*fw, **kw)
+    again = ka.qkv_attention_fwd(*fw, **kw)
+    want = ka.reference_qkv_fwd(*fw, **kw)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, c) for a, c in zip(got, again)),
+            f"{what}: two calls on the same inputs differ")
+    (y, ctx, lse), (want_y, want_ctx, want_lse) = got, want
+    hidden = torch.isinf(want_lse)
+    require(torch.equal(hidden, torch.isinf(lse)),
+            f"{what}: masked rows differ")
+    require(masked == bool(hidden.any()),
+            f"{what}: {int(hidden.sum())} masked rows")
+    require(not ctx[hidden.transpose(1, 2)].any().item(),
+            f"{what}: a masked row's ctx is not 0")
+    err = max(compare(f"{what} y", y, want_y, TOL_KERNEL),
+              compare(f"{what} ctx", ctx, want_ctx, TOL_KERNEL),
+              compare(f"{what} lse", lse[~hidden], want_lse[~hidden],
+                      TOL_KERNEL))
+    return got, want, hidden, err
+
+
 def check_qkv_training(gen):
     """#1 in residual mode (y, ctx, lse), #2 and #3 against their plain
     twins on QKV_CASES (the backward kernels from the forward kernel's
@@ -1051,27 +1091,10 @@ def check_qkv_training(gen):
         x, w_qkv, w_out, g, bias = _qkv_inputs(gen, t, bias_kind)
         kw = dict(n_head=h, scale=dh ** -0.5, causal=causal)
         fw = (x, w_qkv, w_out, bias)
-        y, ctx, lse = ka.qkv_attention_fwd(*fw, **kw)
-        again = ka.qkv_attention_fwd(*fw, **kw)
-        want_y, want_ctx, want_lse = ka.reference_qkv_fwd(*fw, **kw)
-        torch.cuda.synchronize()
-        require(all(torch.equal(a, c) for a, c in zip((y, ctx, lse), again)),
-                f"qkv_attention_fwd {name}: two calls on the same inputs "
-                f"differ")
-        hidden = torch.isinf(want_lse)
-        require(torch.equal(hidden, torch.isinf(lse)),
-                f"qkv_attention_fwd {name}: masked rows differ")
-        require((bias_kind == "masked") == bool(hidden.any()),
-                f"qkv_attention_fwd {name}: {int(hidden.sum())} masked rows")
-        err_fwd = max(
-            compare(f"qkv_attention_fwd {name} y", y, want_y, TOL_KERNEL),
-            compare(f"qkv_attention_fwd {name} ctx", ctx, want_ctx,
-                    TOL_KERNEL),
-            compare(f"qkv_attention_fwd {name} lse", lse[~hidden],
-                    want_lse[~hidden], TOL_KERNEL))
+        (y, ctx, lse), (want_y, _, want_lse), hidden, err_fwd = \
+            _held_qkv_fwd(f"qkv_attention_fwd {name}", fw, kw,
+                          bias_kind == "masked")
         rows = hidden.transpose(1, 2)  # [b, t, h]
-        require(not ctx[rows].any().item(),
-                f"qkv_attention_fwd {name}: a masked row's ctx is not 0")
 
         bw = (x, w_qkv, w_out, bias, g, ctx, lse)
         got_dq, got_dkv = ka.qkv_bwd_dq(*bw, **kw), ka.qkv_bwd_dkv(*bw, **kw)
@@ -1110,7 +1133,9 @@ def check_qkv_training(gen):
             lambda: ka.qkv_attention_fwd(*fw, **kw),
             lambda: ka.reference_qkv_fwd(*fw, **kw), 4 * proj + 2 * attn,
             2 * act + io, lib_fwd, b)
-        out[("qkv_attention_fwd", name)]["library_max_abs_err"] = lib_err
+        out[("qkv_attention_fwd", name)].update(
+            library_max_abs_err=lib_err,
+            plan=list(ka.qkv_fwd_plan(b, t, h, ka.sm_count(x.device))))
         out[("qkv_bwd_dq", name)] = timed_record(
             "qkv_bwd_dq", src, "paddle_tpu/kernels/attention.py:1454",
             errs[0], lambda: ka.qkv_bwd_dq(*bw, **kw),
@@ -1167,6 +1192,123 @@ def check_qkv_training(gen):
             out[(kernel, name)].update(
                 dropout_max_abs_err=err, dropout_ms=cuda_ms(fn),
                 dropout_bound_ms=bound(flops, nbytes, hashes)[0])
+    return out
+
+
+#: phase 2's cases of #1's routes (``kernels.attention.qkv_fwd_plan``):
+#: (name, b, t, d_model, bias, causal), heads of 64, each run at rates 0
+#: and DROPOUT.  Between them they reach a one-block cluster (t 8), BERT-
+#: base's self-attention (C 2), a ragged last block of 8 rows in 32 (t
+#: 200, R 32, C 7), the b=1 prefill's 32-row blocks (C 8), the b=64
+#: decoder (C 4, R 64), the largest cluster (t 512: C 8, R 64) and the
+#: long-sequence "tiles" route (t 640); b stays small at t 512 and 640.
+QKV_PLAN_CASES = (("t 8", 4, 8, 512, "pad", False),
+                  ("bert self", 128, 128, 768, "pad", False),
+                  ("ragged t 200, -1e30 row", 4, 200, 512, "masked", False),
+                  ("b 1 t 256 causal", 1, 256, 512, None, True),
+                  ("b 64 decoder", 64, 256, 512, "decoder", False),
+                  ("t 512 causal, -1e30 row", 2, 512, 512, "masked", True),
+                  ("tiles t 640", 2, 640, 512, "pad", False))
+
+
+def check_qkv_plans(gen):
+    """#1 in residual mode on every route of ``qkv_fwd_plan``
+    (QKV_PLAN_CASES): y, ctx and lse against the twin within TOL_KERNEL at
+    rates 0 and DROPOUT, each call repeated for equal bits, masked rows
+    with ctx 0 and lse +inf; each case timed beside its twin and one
+    ``F.multi_head_attention_forward``.  Returns {case: record}, each with
+    its plan; the cluster occupancy (``cudaOccupancyMaxActiveClusters``)
+    of 8-block clusters at R = 32 and 64 is printed."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import attention as ka
+
+    lib = _build.lib()
+    for rows in (32, 64):
+        n = lib.ptt_qkv_cluster_occupancy(rows, ka.CLUSTER_MAX)
+        require(n > 0, f"qkv cluster occupancy R={rows}: {n}")
+        print(f"phase 2: qkv_attention_fwd clusters of {ka.CLUSTER_MAX} "
+              f"blocks of {rows} rows resident at once: {n}")
+    out = {}
+    for name, b, t, dm, bias_kind, causal in QKV_PLAN_CASES:
+        h, dh = dm // 64, 64
+        x, w_qkv, w_out, g, bias = _qkv_inputs(gen, t, bias_kind, b, dm)
+        plan = ka.qkv_fwd_plan(b, t, h, ka.sm_count(x.device))
+        fw = (x, w_qkv, w_out, bias)
+        errs = {}
+        for rate in (0.0, DROPOUT):
+            kw = dict(n_head=h, scale=dh ** -0.5, causal=causal,
+                      dropout_rate=rate, dropout_seed=int(torch.randint(
+                          0, 2 ** 32, (1,), generator=gen)))
+            errs[rate] = _held_qkv_fwd(
+                f"qkv_attention_fwd {name} rate {rate}", fw, kw,
+                bias_kind == "masked")[3]
+        _, lib_fwd, _ = _library_mha(x, w_qkv, w_out, bias, g, h, causal)
+        pairs = _visible_pairs(t, t, causal)
+        proj = 2 * b * t * dm * dm
+        attn = 2 * b * h * pairs * dh
+        io = F32 * (b * t * dm + b * h * t + dm * 3 * dm + dm * dm
+                    + (bias.numel() if bias is not None else 0))
+        kw = dict(n_head=h, scale=dh ** -0.5, causal=causal)
+        rec = timed_record(
+            "qkv_attention_fwd", "paddle_tpu_torch/csrc/qkv_attention.cu",
+            "paddle_tpu/kernels/attention.py:1377", errs[0.0],
+            lambda: ka.qkv_attention_fwd(*fw, **kw),
+            lambda: ka.reference_qkv_fwd(*fw, **kw), 4 * proj + 2 * attn,
+            2 * F32 * b * t * dm + io, lib_fwd, b)
+        dkw = dict(kw, dropout_rate=DROPOUT, dropout_seed=1)
+        rec.update(plan=list(plan), t=t, d_model=dm, causal=causal,
+                   bias=bias_kind, dropout_max_abs_err=errs[DROPOUT],
+                   dropout_ms=cuda_ms(
+                       lambda: ka.qkv_attention_fwd(*fw, **dkw)),
+                   dropout_bound_ms=bound(
+                       4 * proj + 2 * attn, 2 * F32 * b * t * dm + io,
+                       ATTN_HASH_OPS * b * h * pairs)[0])
+        out[name] = rec
+        del lib_fwd, x, w_qkv, w_out, g, bias
+    return out
+
+
+#: phase 2's head-width-128 shape (C2): b, t, heads, head width
+HEAD128 = (2, 64, 2, 128)
+
+
+def check_head_width_128(gen):
+    """C2 on the card: ``flash_qkv_attention`` and ``flash_attention(
+    fmt="bthd")`` at head width 128, where the reference launches its
+    kernels and the port's are compiled for 64 only, raise before any
+    launch: no kernel launched, nothing composed.  Returns the error
+    messages."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import attention as ka
+
+    b, t, h, dh = HEAD128
+    dm = h * dh
+    x = randn(gen, b, t, dm)
+    w_qkv = randn(gen, dm, 3 * dm, scale=dm ** -0.5)
+    w_out = randn(gen, dm, dm, scale=dm ** -0.5)
+    q, k, v = (randn(gen, b, t, h, dh) for _ in range(3))
+    out = {}
+    for what, call in (
+            ("qkv_attention_fwd",
+             lambda: ka.flash_qkv_attention(x, w_qkv, w_out, n_head=h,
+                                            scale=dh ** -0.5)),
+            ("flash_fwd",
+             lambda: ka.flash_attention(q, k, v, scale=dh ** -0.5,
+                                        fmt="bthd"))):
+        kernels.reset_launches()
+        try:
+            call()
+        except ValueError as exc:
+            out[what] = str(exc)
+        torch.cuda.synchronize()
+        require(what in out and "head width 128" in out[what],
+                f"head width 128 {what}: no error ({out.get(what)})")
+        launches, composed = dict(kernels.launches), dict(kernels.composed)
+        require(launches == expected(),
+                f"head width 128 {what}: launched {launches}")
+        require(not any(composed.values()),
+                f"head width 128 {what}: composition counts {composed}")
+    kernels.reset_launches()
     return out
 
 
@@ -3413,8 +3555,20 @@ def main():
         if case == QKV_RECORD_CASE and residuals:
             records[(name, max(BATCHES))]["residual"] = {
                 k: r[k] for k in ("batch", "ms", "plain_ms", "bound_ms",
-                                  "max_abs_err", "dropout_ms",
+                                  "library_ms", "max_abs_err", "dropout_ms",
                                   "dropout_bound_ms", "dropout_max_abs_err")}
+    plans = check_qkv_plans(gen)
+    for case, r in plans.items():
+        print_record(r, f" (residuals) {case} b={r['batch']} plan "
+                        f"{tuple(r['plan'])}")
+    # #1's record in the JSON line carries every plan's case beside it
+    records[("qkv_attention_fwd", max(BATCHES))]["plans"] = {
+        case: {k: r[k] for k in ("plan", "batch", "t", "ms", "plain_ms",
+                                 "bound_ms", "library_ms", "max_abs_err",
+                                 "dropout_ms", "dropout_max_abs_err")}
+        for case, r in plans.items()}
+    print(f"phase 2: head width 128 raises on the card: "
+          f"{check_head_width_128(gen)}")
     for r in check_dropout_add(gen):
         print_record(r, f" [{DROPOUT_ROWS}, {BASE['d_model']}] rate "
                         f"{DROPOUT}")

@@ -120,8 +120,9 @@ _SIGNATURES = {
     "ptt_error_string": (ctypes.c_char_p, [_I]),
     "ptt_qkv_fwd_scratch": (_L, [_I] * 4),
     "ptt_qkv_attention_fwd": (
-        _I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 4 + [_F, _I] + _DROP
+        _I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 5 + [_F, _I] + _DROP
         + [_P]),
+    "ptt_qkv_cluster_occupancy": (_I, [_I, _I]),
     "ptt_qkv_bwd_scratch": (_L, [_I] * 5),
     "ptt_qkv_bwd_dq": (_I, [_P] * 4 + [_L] * 4 + [_P] * 7 + [_I] * 4
                        + [_F, _I] + _DROP + [_P]),

@@ -209,11 +209,46 @@ def _qkv_args(what, x, w_qkv, w_out, bias, n_head, **more):
     return (b, t, dm, hd) + _bias_strides(bias, x.device, what)
 
 
+#: the most blocks a thread-block cluster may hold on every Hopper card
+#: (the portable cluster size)
+CLUSTER_MAX = 8
+
+
+def qkv_fwd_plan(b, t, n_head, sms):
+    """The route of #1 for x [b, t, d_model] with ``n_head`` heads on a
+    card of ``sms`` streaming multiprocessors, chosen from the shape
+    before any launch:
+
+    * ``("cluster", C, R)`` for t <= 512: one thread-block cluster of C =
+      ceil(t / R) blocks per (sequence, head), block r projecting rows
+      [r R, r R + R) of q, k and v once and reading its peers' k and v
+      from their shared memory.  R = 32 where the 64-row grid,
+      b * n_head * ceil(t / 64) blocks, would leave SMs idle and ceil(t /
+      32) still fits a cluster; otherwise R = 64.
+    * ``("tiles",)`` for t > 512, where one cluster cannot hold a whole
+      sequence: 64-row query tiles that each project the k and v tiles
+      they walk.
+    """
+    if t > CLUSTER_MAX * 64:
+        return ("tiles",)
+    rows = 64
+    if b * n_head * -(-t // 64) < sms and -(-t // 32) <= CLUSTER_MAX:
+        rows = 32
+    return ("cluster", -(-t // rows), rows)
+
+
+def sm_count(device):
+    """Streaming multiprocessors of the CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
                     dropout_rate, dropout_seed):
-    """Launch #1: (y, ctx, lse)."""
+    """Launch #1 on the route of :func:`qkv_fwd_plan`: (y, ctx, lse)."""
     b, t, dm, hd, strides, bias_ptr = _qkv_args(
         "qkv_attention_fwd", x, w_qkv, w_out, bias, n_head)
+    plan = qkv_fwd_plan(b, t, n_head, sm_count(x.device))
+    rows = plan[2] if plan[0] == "cluster" else 0
     drop = _dropout_args(dropout_rate, dropout_seed, t, t,
                          "qkv_attention_fwd")
     lib = _build.lib()
@@ -226,7 +261,7 @@ def _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
     err = lib.ptt_qkv_attention_fwd(
         x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), bias_ptr,
         *strides, y.data_ptr(), ctx.data_ptr(), lse.data_ptr(),
-        partials.data_ptr(), b, t, dm, n_head, float(scale),
+        partials.data_ptr(), b, t, dm, n_head, rows, float(scale),
         int(bool(causal)), *drop, _build.stream_of(x))
     _build.check(err, "qkv_attention_fwd")
     launches["qkv_attention_fwd"] += 1

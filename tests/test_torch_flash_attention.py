@@ -39,12 +39,12 @@ CASES = [
 ]
 
 
-def _inputs(tq, tk, bias_kind, seed=0):
+def _inputs(tq, tk, bias_kind, seed=0, d=D):
     rng = np.random.RandomState(seed)
-    q = rng.randn(B, tq, H, D).astype(np.float32)
-    k = rng.randn(B, tk, H, D).astype(np.float32)
-    v = rng.randn(B, tk, H, D).astype(np.float32)
-    g = rng.randn(B, tq, H, D).astype(np.float32)
+    q = rng.randn(B, tq, H, d).astype(np.float32)
+    k = rng.randn(B, tk, H, d).astype(np.float32)
+    v = rng.randn(B, tk, H, d).astype(np.float32)
+    g = rng.randn(B, tq, H, d).astype(np.float32)
     if bias_kind == "pad":  # [b, 1, 1, tk], lane 1 with a padded tail
         bias = np.zeros((B, 1, 1, tk), np.float32)
         bias[1, ..., tk - 7:] = -1e9
@@ -302,3 +302,42 @@ def test_kernel_wrappers_refuse_non_cpu_tensors():
         ka.flash_bwd_dq(*meta[:3], None, meta[3], lse, lse)
     with pytest.raises(ValueError):
         ka.flash_bwd_dkv(*meta[:3], None, meta[3], lse, lse)
+
+
+@pytest.mark.parametrize("name,tq,tk,bias_kind,causal", [
+    ("key_padding", 32, 64, "pad", False),
+    ("causal_tq_gt_tk", 64, 32, "pad", True)])
+def test_head_width_128_matches_jax_kernels(name, tq, tk, bias_kind, causal):
+    """At head width 128 the reference's plan launches its bthd kernels
+    (interpret mode here), and the port's twins, which its wrappers run on
+    CPU tensors, give their result: out and lse against _flash_forward,
+    and the output and dq, dk, dv against jax.vjp of the reference's
+    flash_attention, 1e-5 abs and rel.  (On the card the wrappers raise
+    at this width: no kernel is compiled for it.)"""
+    d = 128
+    scale = d ** -0.5
+    q, k, v, g, bias = _inputs(tq, tk, bias_kind, seed=6, d=d)
+    jq, jk, jv = (_j(a) for a in (q, k, v))
+    ok, bq, bk, _ = jax_attention._plan(jq, jk, 512, 512, True, "bthd")
+    assert ok  # the reference's kernels run, not its XLA fallback
+    want_out, want_lse = jax_attention._flash_forward(
+        jq, jk, jv, _j(bias), jnp.zeros((1,), jnp.uint32), scale, causal, bq,
+        bk, True, "bthd")
+    out, lse = ka.flash_fwd(*(_t(a) for a in (q, k, v, bias)), scale, causal)
+    _close(out, want_out)
+    _close(lse, want_lse)
+
+    def f(q_, k_, v_):
+        return jax_attention.flash_attention(
+            q_, k_, v_, _j(bias), scale=scale, causal=causal, fmt="bthd",
+            interpret=True)
+
+    want, vjp = jax.vjp(f, jq, jk, jv)
+    want_grads = vjp(_j(g))
+    args = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = ka.flash_attention(*args, _t(bias), scale=scale, causal=causal,
+                             fmt="bthd")
+    got.backward(_t(g))
+    _close(got.detach(), want)
+    for a, w in zip(args, want_grads):
+        _close(a.grad, w)

@@ -42,12 +42,12 @@ CASES = [
 ]
 
 
-def _inputs(n_head, t, bias_kind, seed=0):
+def _inputs(n_head, t, bias_kind, seed=0, dh=DH):
     """x, w_qkv, w_out, g = dL/dy and the case's bias, as numpy f32, at the
     reference test's scales (x 0.3, weights 0.08), for which its atol was
-    chosen."""
+    chosen; heads of width dh."""
     rng = np.random.RandomState(seed)
-    hd = n_head * DH
+    hd = n_head * dh
     x = (rng.randn(B, t, DM) * 0.3).astype(np.float32)
     w_qkv = (rng.randn(DM, 3 * hd) * 0.08).astype(np.float32)
     w_out = (rng.randn(hd, DM) * 0.08).astype(np.float32)
@@ -252,3 +252,96 @@ def test_qkv_kernel_wrappers_refuse_non_cpu_tensors():
     for fn in (ka.qkv_bwd_dq, ka.qkv_bwd_dkv):
         with pytest.raises(ValueError):
             fn(*meta[:3], None, meta[3], ctx, lse, n_head=2)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n_head", [8, 12])
+@pytest.mark.parametrize("b", [1, 64])
+def test_qkv_fwd_plan_covers_every_length(b, n_head, sms):
+    """#1's plan for every t in 1..1024 on a card of ``sms`` SMs (the
+    H100 SXM's 132, the PCIe's 114): a cluster of C <= 8 blocks of R in
+    {32, 64} rows that covers t with a last block holding at least one row
+    up to t = 512, R = 32 exactly where the 64-row grid would fill fewer
+    than the card's SMs and 32-row blocks still fit a cluster, and the
+    tiles route beyond."""
+    for t in range(1, 1025):
+        plan = ka.qkv_fwd_plan(b, t, n_head, sms)
+        if t > 512:
+            assert plan == ("tiles",), (t, plan)
+            continue
+        route, c, r = plan
+        assert route == "cluster" and r in (32, 64), (t, plan)
+        assert 1 <= c <= ka.CLUSTER_MAX, (t, plan)
+        assert c * r >= t and c * r - t < r, (t, plan)
+        small = (b * n_head * -(-t // 64) < sms
+                 and -(-t // 32) <= ka.CLUSTER_MAX)
+        assert (r == 32) == small, (t, plan)
+    assert ka.qkv_fwd_plan(1, 256, 8, sms) == ("cluster", 8, 32)
+    assert ka.qkv_fwd_plan(64, 256, 8, sms) == ("cluster", 4, 64)
+
+
+@pytest.mark.parametrize("b,t,rows", [(1, 256, 32), (64, 256, 64),
+                                      (2, 512, 64), (2, 640, 0)])
+def test_launch_passes_the_plan_to_the_entry_point(monkeypatch, b, t, rows):
+    """#1's wrapper chooses the route from the shape and the device's SM
+    count before the launch and hands it to the C entry point (the
+    cluster's rows; 0 for the tiles route): a recording stand-in for the
+    library sees the plan."""
+    from paddle_tpu_torch.kernels import _build
+
+    n_head, dm = 8, 512
+    seen = []
+
+    class Lib:
+        def ptt_qkv_fwd_scratch(self, *args):
+            return 1
+
+        def ptt_qkv_attention_fwd(self, *args):
+            seen.append(args)
+            return 0
+
+    monkeypatch.setattr(_build, "lib", Lib)
+    monkeypatch.setattr(_build, "stream_of", lambda x: 0)
+    monkeypatch.setattr(ka, "sm_count", lambda device: 132)
+    monkeypatch.setattr(ka, "_qkv_args", lambda what, x, w_qkv, w_out,
+                        bias, n_head: (b, t, dm, n_head * DH, (0,) * 4,
+                                       None))
+    x = torch.zeros(b, t, dm)
+    ka._launch_qkv_fwd(x, torch.zeros(dm, 3 * dm), torch.zeros(dm, dm),
+                       None, n_head, SCALE, False, 0.0, 0)
+    assert len(seen) == 1
+    assert seen[0][12:17] == (b, t, dm, n_head, rows)
+
+
+#: head width 128 (C2): (name, t, bias kind, causal) at 2 heads
+W128_CASES = [("pad", 32, "pad", False), ("causal_decoder", 32, "decoder",
+                                          True)]
+
+
+@pytest.mark.parametrize("name,t,bias_kind,causal", W128_CASES)
+def test_head_width_128_matches_jax_kernels(name, t, bias_kind, causal):
+    """At head width 128 the reference's plan launches its fused kernels
+    (interpret mode here), and the port's twins, which its wrappers run on
+    CPU tensors, give their result: the output and the gradients of x,
+    w_qkv and w_out against jax.vjp of the reference's
+    flash_qkv_attention, at the reference's tolerance.  (On the card the
+    wrappers raise at this width: no kernel is compiled for it.)"""
+    dh, n_head = 128, 2
+    x, w_qkv, w_out, g, bias = _inputs(n_head, t, bias_kind, seed=5, dh=dh)
+    kw = dict(n_head=n_head, scale=dh ** -0.5, causal=causal)
+    ok = jax_attention._qkv_plan(_j(x), n_head, dh, 512, 512, True,
+                                 bias=_j(bias))[0]
+    assert ok  # the reference's fused kernels run, not its composition
+
+    def f(*p):
+        return jax_attention.flash_qkv_attention(*p, _j(bias),
+                                                 interpret=True, **kw)
+
+    want, vjp = jax.vjp(f, *(_j(a) for a in (x, w_qkv, w_out)))
+    want_grads = vjp(_j(g))
+    args = [torch.from_numpy(a).requires_grad_() for a in (x, w_qkv, w_out)]
+    out = ka.flash_qkv_attention(*args, _t(bias), **kw)
+    out.backward(_t(g))
+    _close(out.detach(), want)
+    for a, w in zip(args, want_grads):
+        _close(a.grad, w)

@@ -29,7 +29,16 @@ Phases, each fatal on failure:
    256]), the decoder self-attention (t 256, [32, 1, 256, 256]), a
    ``causal=True`` case and a ragged t = 200 with one row masked to -1e30
    (ctx 0, lse +inf, zero dx_q); #1 (in both modes), #2 and #3 are each
-   called twice on the same inputs and must give equal bits.  Each of
+   called twice on the same inputs and must give equal bits.  So is the
+   pair #2 + #3 (``qkv_bwd``: one ``ptt_qkv_bwd`` call with both walks,
+   as the autograd backward makes it), held against its twin on the same
+   cases and at BERT-base's self-attention (b 128, t 128, d_model 768),
+   at rates 0 and 0.1; on a masked row its dx must equal #3's dx_kv bit
+   for bit.  At BERT-base's case it is held against float64, and the f32
+   twin's own error against float64 is printed beside its.
+   ``gemm.cuh``'s tile alone (``kernels.gemm``) is held against
+   ``torch.matmul`` and timed beside it at the pair's three product
+   shapes (GEMM_CASES).  Each of
    #1-#4, #6 and #7 is checked again at weights-dropout rate 0.1 on every
    case against its twin (same seed, the same hash mask), and timed at
    rate 0.1 beside its rate-0 time.  #1 is checked on every route of its
@@ -38,7 +47,8 @@ Phases, each fatal on failure:
    self-attention, a ragged t 200, the b=1 prefill at t 256, the b=64
    decoder, t 512 and t 640; causal and not, each bias kind, rates 0 and
    0.1), each call repeated for equal bits, masked rows with ctx 0 and
-   lse +inf, and the cluster occupancy of 8-block clusters printed;
+   lse +inf, each timed with and without the host's enqueue, and the
+   cluster occupancy of 8-block clusters printed;
    ``flash_qkv_attention`` and ``flash_attention(fmt="bthd")`` at head
    width 128 must raise before any launch (no kernel at that width).
    The dropout-add kernels (#16, #17) are checked at [32*256, 512] f32:
@@ -1072,15 +1082,192 @@ def _held_qkv_fwd(what, fw, kw, masked):
     return got, want, hidden, err
 
 
+def _qkv_bwd_bytes(b, t, dm, h, bias):
+    """Bytes the pair #2 + #3 must move: x, g and dx [b, t, dm], ctx [b,
+    t, hd], lse, the bias, w_qkv and w_out in, dW_qkv and dW_out out."""
+    hd = h * 64
+    return F32 * (3 * b * t * dm + b * t * hd + b * h * t
+                  + 2 * (dm * 3 * hd + hd * dm)
+                  + (bias.numel() if bias is not None else 0))
+
+
+def _qkv_pair_flops(proj, attn):
+    """f32 FLOPs the pair #2 + #3 must do, from one projection-sized
+    product ``proj`` and one t x t product of every head ``attn``: 11 of
+    the first (q|k|v, dctx, dx over 3hd, dW_qkv, dW_out) and 5 of the
+    second (s and dp once, dq, dk, dv).  The kernel's dkv walk computes s
+    and dp again: that is its layout's overhead, not the function's
+    work."""
+    return 11 * proj + 5 * attn
+
+
+def _held_qkv_pair(what, bw, kw, rows, dx_kv=None):
+    """The pair #2 + #3 (``qkv_bwd``) on ``bw`` under ``kw``, called twice:
+    equal bits, and dx, dW_qkv and dW_out within TOL_KERNEL of
+    ``reference_qkv_bwd``.  On the masked rows ``rows`` [b, t] (query rows
+    the forward masked) the dq walk contributes exact zeros, so dx there
+    must equal #3's ``dx_kv`` bit for bit where it is given.  Returns the
+    max abs error."""
+    from paddle_tpu_torch.kernels import attention as ka
+
+    got = ka.qkv_bwd(*bw, **kw)
+    again = ka.qkv_bwd(*bw, **kw)
+    want = ka.reference_qkv_bwd(*bw, **kw)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, c) for a, c in zip(got, again)),
+            f"{what}: two calls on the same inputs differ")
+    err = max(compare(f"{what} {part}", a, w, TOL_KERNEL)
+              for part, a, w in zip(("dx", "dW_qkv", "dW_out"), got, want))
+    if dx_kv is not None and rows.any():
+        require(torch.equal(got[0][rows], dx_kv[rows]),
+                f"{what}: a masked row's dx is not #3's dx_kv (the dq walk "
+                f"gave it a nonzero part)")
+    return err
+
+
+#: the pair's BERT-base case: (name, b, t, d_model, bias, causal), the
+#: self-attention of phase 3 (i)'s ``use_flash`` route
+QKV_PAIR_BERT = ("bert self", 128, 128, 768, "pad", False)
+
+
+def _normwise(name, got, exact, tol):
+    """Max abs error of ``got`` against the float64 ``exact``; raises
+    unless it is within ``tol`` of exact's largest magnitude."""
+    require(torch.isfinite(got).all().item(), f"{name}: non-finite output")
+    err = (got.double() - exact).abs().max().item()
+    scale = exact.abs().max().item()
+    require(err <= tol * scale, f"{name}: max abs err {err} over {tol} of "
+                                f"its largest magnitude {scale}")
+    return err
+
+
+def _held_qkv_pair_f64(what, bw, kw):
+    """The pair on ``bw`` under ``kw``, twice for equal bits, against the
+    twin in float64 on the same inputs (#1's f32 residuals included): dx
+    within TOL_KERNEL elementwise, dW_qkv and dW_out (sums over all b*t
+    rows) within TOL_KERNEL of their largest magnitude.  At BERT-base's
+    16384 rows of unit-size terms any two f32 summation orders differ by
+    more than TOL_KERNEL's absolute floor on the near-zero elements of a
+    dW, so the dW's are held normwise.  Returns the max abs error and
+    {part: (the kernel's max abs error, the f32 twin's on the card)}, both
+    against float64: the twin's is the library's own at this shape."""
+    from paddle_tpu_torch.kernels import attention as ka
+
+    got = ka.qkv_bwd(*bw, **kw)
+    again = ka.qkv_bwd(*bw, **kw)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, c) for a, c in zip(got, again)),
+            f"{what}: two calls on the same inputs differ")
+    del again
+    exact = ka.reference_qkv_bwd(
+        *(None if a is None else a.double() for a in bw), **kw)
+    twin = ka.reference_qkv_bwd(*bw, **kw)
+    parts = {}
+    for part, a, w, f in zip(("dx", "dW_qkv", "dW_out"), got, exact, twin):
+        err = (compare(f"{what} dx", a, w, TOL_KERNEL) if part == "dx"
+               else _normwise(f"{what} {part}", a, w, TOL_KERNEL))
+        parts[part] = (err, (f.double() - w).abs().max().item())
+    return max(e for e, _ in parts.values()), parts
+
+
+def check_qkv_pair_bert(gen):
+    """The pair #2 + #3 at BERT-base's self-attention (QKV_PAIR_BERT)
+    against its float64 twin at rates 0 and DROPOUT
+    (``_held_qkv_pair_f64``), each called twice for equal bits, and timed
+    beside its f32 twin, its bound and the library backward.  Returns the
+    record."""
+    from paddle_tpu_torch.kernels import attention as ka
+
+    name, b, t, dm, bias_kind, causal = QKV_PAIR_BERT
+    h, dh = dm // 64, 64
+    x, w_qkv, w_out, g, bias = _qkv_inputs(gen, t, bias_kind, b, dm)
+    kw = dict(n_head=h, scale=dh ** -0.5, causal=causal)
+    fw = (x, w_qkv, w_out, bias)
+    errs, bws, vs_f64 = {}, {}, {}
+    for rate in (0.0, DROPOUT):
+        rkw = dict(kw, dropout_rate=rate, dropout_seed=int(torch.randint(
+            0, 2 ** 32, (1,), generator=gen)))
+        _, ctx, lse = ka.qkv_attention_fwd(*fw, **rkw)
+        bws[rate] = ((x, w_qkv, w_out, bias, g, ctx, lse), rkw)
+        errs[rate], vs_f64[rate] = _held_qkv_pair_f64(
+            f"qkv_bwd {name} rate {rate}", bws[rate][0], rkw)
+    _, _, lib_bwd = _library_mha(x, w_qkv, w_out, bias, g, h, causal)
+    pairs = _visible_pairs(t, t, causal)
+    flops = _qkv_pair_flops(2 * b * t * dm * dm, 2 * b * h * pairs * dh)
+    nbytes = _qkv_bwd_bytes(b, t, dm, h, bias)
+    bw, rkw = bws[0.0]
+    rec = timed_record(
+        "qkv_bwd", "paddle_tpu_torch/csrc/qkv_attention_bwd.cu",
+        "paddle_tpu/kernels/attention.py:1454 + :1546", errs[0.0],
+        lambda: ka.qkv_bwd(*bw, **rkw),
+        lambda: ka.reference_qkv_bwd(*bw, **rkw), flops, nbytes, lib_bwd, b)
+    bw_d, dkw = bws[DROPOUT]
+    rec.update(case=name, t=t, d_model=dm, dropout_max_abs_err=errs[DROPOUT],
+               # {rate: {part: (kernel, f32 twin)}}: max abs against
+               # float64
+               vs_float64=vs_f64,
+               dropout_ms=cuda_ms(lambda: ka.qkv_bwd(*bw_d, **dkw)),
+               dropout_bound_ms=bound(flops, nbytes,
+                                      ATTN_HASH_OPS * b * h * pairs)[0])
+    return rec
+
+
+def check_gemm(gen):
+    """``gemm.cuh``'s tile alone (``kernels.gemm.gemm``, ``csrc/gemm.cu``)
+    at the pair's record-case products (GEMM_CASES, in the layouts the
+    pair gives them): within TOL_KERNEL of ``torch.matmul`` (TF32 off),
+    equal bits on a repeat, timed beside it.  Returns the records, each
+    with its TFLOP/s and share of the f32 peak beside ``torch.matmul``'s."""
+    from paddle_tpu_torch.kernels import gemm as kg
+
+    out = []
+    for name, m, n, k, a_t, b_t in GEMM_CASES:
+        # a scaled by K^-1/2, as the weights are: c of unit size
+        a = (randn(gen, k, m, scale=k ** -0.5).t() if a_t
+             else randn(gen, m, k, scale=k ** -0.5))
+        b = randn(gen, n, k).t() if b_t else randn(gen, k, n)
+        got, again = kg.gemm(a, b), kg.gemm(a, b)
+        want = torch.matmul(a, b)
+        torch.cuda.synchronize()
+        require(torch.equal(got, again), f"gemm {name}: two calls differ")
+        err = compare(f"gemm {name}", got, want, TOL_KERNEL)
+        flops = 2 * m * n * k
+        rec = timed_record(
+            "gemm", "paddle_tpu_torch/csrc/gemm.cuh",
+            "none: the f32 tile inside #1's y, #2 + #3 and #19", err,
+            lambda: kg.gemm(a, b), lambda: kg.reference_gemm(a, b), flops,
+            F32 * (m * k + k * n + m * n), lambda: torch.matmul(a, b), m)
+        rec.update(case=name, m=m, n=n, k=k,
+                   tflops=flops / rec["ms"] / 1e9,
+                   peak_share=flops / rec["ms"] / 1e9 / PEAK_F32_FLOPS
+                   * 1e12,
+                   matmul_tflops=flops / rec["library_ms"] / 1e9)
+        out.append(rec)
+        del a, b, got, again, want
+    return out
+
+
+#: gemm.cuh at the pair's record case (b 32, t 256, d_model 512, 8 heads):
+#: (name, M, N, K, a given transposed, b given transposed), the operand
+#: layouts of qkv_attention_bwd.cu's products
+GEMM_CASES = (("dx = dqkv w_qkv^T", 8192, 512, 1536, False, True),
+              ("dW_qkv = x^T dqkv", 512, 1536, 8192, True, False),
+              ("q|k|v = x w_qkv", 8192, 1536, 512, False, False))
+
+
 def check_qkv_training(gen):
-    """#1 in residual mode (y, ctx, lse), #2 and #3 against their plain
-    twins on QKV_CASES (the backward kernels from the forward kernel's
-    residuals), each called twice on the same inputs for equal bits; a
-    masked row must give ctx 0, lse +inf and zero dx_q.  Then each timed
+    """#1 in residual mode (y, ctx, lse), #2 and #3 alone and the pair #2
+    + #3 (``qkv_bwd``, the autograd backward's one call) against their
+    plain twins on QKV_CASES (the backward kernels from the forward
+    kernel's residuals), at rates 0 and DROPOUT, each called twice on the
+    same inputs for equal bits; a masked row must give ctx 0, lse +inf,
+    zero dx_q, and in the pair #3's dx_kv bit for bit.  Then each timed
     beside its twin and the library yardstick: the no-grad forward of one
     ``F.multi_head_attention_forward`` for #1, its backward (dx, dW_in,
-    dW_out together: the whole of #2 + #3's work) for #2 and #3.  Returns
-    {(kernel, case): record}."""
+    dW_out together: the whole of #2 + #3's work) for #2, #3 and the pair.
+    Returns {(kernel, case): record}; the pair's record at BERT-base's
+    self-attention (``check_qkv_pair_bert``) under ("qkv_bwd", its
+    case)."""
     from paddle_tpu_torch.kernels import attention as ka
 
     b, h, dh, dm = (TRAIN_BATCH, BASE["n_head"], BASE["d_key"],
@@ -1115,6 +1302,9 @@ def check_qkv_training(gen):
                             for part, a, w in zip(parts, got, want)))
         require(not got_dq[0][rows.any(-1)].any().item(),
                 f"qkv_bwd_dq {name}: a masked row's dx_q is not 0")
+        err_pair = _held_qkv_pair(f"qkv_bwd {name}", bw, kw, rows.any(-1),
+                                  got_dkv[0])
+        del got_dq, got_dkv, again
 
         lib_y, lib_fwd, lib_bwd = _library_mha(x, w_qkv, w_out, bias, g, h,
                                                causal)
@@ -1148,6 +1338,12 @@ def check_qkv_training(gen):
             lambda: ka.reference_qkv_bwd_dkv(*bw, **kw),
             8 * proj + 4 * attn, 3 * act + io + F32 * 2 * dm * hd, lib_bwd,
             b)
+        out[("qkv_bwd", name)] = timed_record(
+            "qkv_bwd", src, "paddle_tpu/kernels/attention.py:1454 + :1546",
+            err_pair, lambda: ka.qkv_bwd(*bw, **kw),
+            lambda: ka.reference_qkv_bwd(*bw, **kw),
+            _qkv_pair_flops(proj, attn),
+            _qkv_bwd_bytes(b, t, dm, h, bias), lib_bwd, b)
         del lib_fwd, lib_bwd
 
         # weights dropout at DROPOUT under one seed: #1's residuals, then
@@ -1178,6 +1374,8 @@ def check_qkv_training(gen):
         cmp = [compare(f"qkv_bwd {name} dropout {part}", a, w, TOL_KERNEL)
                for part, a, w in zip(parts, got_d, want_d)]
         errs += [max(cmp[:3]), max(cmp[3:])]
+        errs.append(_held_qkv_pair(f"qkv_bwd {name} dropout", bw_d, dkw,
+                                   rows.any(-1), got_d[3]))
         del got_d, again, want_d
         hashes = ATTN_HASH_OPS * b * h * pairs
         for kernel, err, fn, flops, nbytes in (
@@ -1188,10 +1386,14 @@ def check_qkv_training(gen):
                  7 * proj + 3 * attn, 3 * act + io + F32 * 2 * dm * hd),
                 ("qkv_bwd_dkv", errs[2],
                  lambda: ka.qkv_bwd_dkv(*bw_d, **dkw), 8 * proj + 4 * attn,
-                 3 * act + io + F32 * 2 * dm * hd)):
+                 3 * act + io + F32 * 2 * dm * hd),
+                ("qkv_bwd", errs[3], lambda: ka.qkv_bwd(*bw_d, **dkw),
+                 _qkv_pair_flops(proj, attn),
+                 _qkv_bwd_bytes(b, t, dm, h, bias))):
             out[(kernel, name)].update(
                 dropout_max_abs_err=err, dropout_ms=cuda_ms(fn),
                 dropout_bound_ms=bound(flops, nbytes, hashes)[0])
+    out[("qkv_bwd", QKV_PAIR_BERT[0])] = check_qkv_pair_bert(gen)
     return out
 
 
@@ -1256,8 +1458,12 @@ def check_qkv_plans(gen):
             lambda: ka.reference_qkv_fwd(*fw, **kw), 4 * proj + 2 * attn,
             2 * F32 * b * t * dm + io, lib_fwd, b)
         dkw = dict(kw, dropout_rate=DROPOUT, dropout_seed=1)
+        # at t 8 the call is shorter than the host's enqueue of it: ms
+        # counts the host, device_ms hides it
         rec.update(plan=list(plan), t=t, d_model=dm, causal=causal,
                    bias=bias_kind, dropout_max_abs_err=errs[DROPOUT],
+                   device_ms=cuda_ms(lambda: ka.qkv_attention_fwd(*fw, **kw),
+                                     hide_host=True),
                    dropout_ms=cuda_ms(
                        lambda: ka.qkv_attention_fwd(*fw, **dkw)),
                    dropout_bound_ms=bound(
@@ -3367,7 +3573,15 @@ def profile_training(model, tag, feed=None, lr=TRAIN_LR):
                                           row_limit=60))
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 idle_share=1 - busy_us / wall_us if busy_us else None,
+                gemm_cuh_ms=_gemm_cuh_us(rows) / 1e3,
                 top=[(name[:60], us / 1e3) for name, us in rows[:12]])
+
+
+def _gemm_cuh_us(rows):
+    """Device us of ``csrc/gemm.cuh``'s kernels (its GEMM tile and the
+    split-K sums) among the profiler's rows."""
+    return sum(us for name, us in rows
+               if "::gemm_kernel<" in name or "::sum_splits(" in name)
 
 
 def profile_resnet(model):
@@ -3449,12 +3663,17 @@ def print_record(r, label):
              f"{r['dropout_max_abs_err']:.3e}" if "dropout_ms" in r else "")
           + (f"; bare product (torch.matmul) ms {r['matmul_ms']}"
              if "matmul_ms" in r else "")
+          + (f"; {r['tflops']:.2f} TFLOP/s, {r['peak_share']:.1%} of the "
+             f"f32 peak (torch.matmul {r['matmul_tflops']:.2f})"
+             if "tflops" in r else "")
           + (f"; strided rows copied in {r['strided_copy_ms']} ms"
              if "strided_copy_ms" in r else "")
           + (f"; sums {r['sum_err_of_terms']:.3e} of their terms (TOL_SUM "
              f"{TOL_SUM})" if "sum_err_of_terms" in r else "")
           + (f"; with the host's enqueue {r['call_ms']} ms"
              if "call_ms" in r else "")
+          + (f"; device only {r['device_ms']} ms"
+             if "device_ms" in r else "")
           + (f"; 26 F.embedding calls {r['embedding_x26_ms']} ms"
              if "embedding_x26_ms" in r else "")
           + (f"; twin's bits: {r['twin_bit_equal']}"
@@ -3544,9 +3763,16 @@ def main():
         print_record(r, f" {case} b={r['batch']}")
         if case == BHTD_RECORD_CASE:
             records[(name, max(BATCHES))] = r
+    pair = {}
     for (name, case), r in check_qkv_training(gen).items():
         residuals = " (residuals)" if name == "qkv_attention_fwd" else ""
         print_record(r, f"{residuals} {case} b={r['batch']}")
+        if name == "qkv_bwd":
+            pair[case] = r
+            for rate, parts in r.get("vs_float64", {}).items():
+                print(f"phase 2: qkv_bwd {case} rate {rate}: max abs err "
+                      f"against float64 (kernel, f32 twin): {parts}")
+            continue
         # #1's record in the JSON line stays the serving one (b=64), with
         # the training step's residual mode (its own batch, rate 0 and
         # rate 0.1) beside it
@@ -3557,6 +3783,19 @@ def main():
                 k: r[k] for k in ("batch", "ms", "plain_ms", "bound_ms",
                                   "library_ms", "max_abs_err", "dropout_ms",
                                   "dropout_bound_ms", "dropout_max_abs_err")}
+    # #2's and #3's records in the JSON line carry the pair's (the
+    # autograd backward's one call) at the record case and at BERT-base's
+    pair_keys = ("batch", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "max_abs_err", "dropout_ms",
+                 "dropout_bound_ms", "dropout_max_abs_err", "vs_float64")
+    for name in ("qkv_bwd_dq", "qkv_bwd_dkv"):
+        records[(name, max(BATCHES))]["pair"] = {
+            case: {k: pair[case][k] for k in pair_keys if k in pair[case]}
+            for case in (QKV_RECORD_CASE, QKV_PAIR_BERT[0])}
+    gemm_records = check_gemm(gen)
+    for r in gemm_records:
+        print_record(r, f" {r['case']} (M {r['m']}, N {r['n']}, K "
+                        f"{r['k']})")
     plans = check_qkv_plans(gen)
     for case, r in plans.items():
         print_record(r, f" (residuals) {case} b={r['batch']} plan "
@@ -3565,7 +3804,8 @@ def main():
     records[("qkv_attention_fwd", max(BATCHES))]["plans"] = {
         case: {k: r[k] for k in ("plan", "batch", "t", "ms", "plain_ms",
                                  "bound_ms", "library_ms", "max_abs_err",
-                                 "dropout_ms", "dropout_max_abs_err")}
+                                 "dropout_ms", "dropout_max_abs_err",
+                                 "device_ms")}
         for case, r in plans.items()}
     print(f"phase 2: head width 128 raises on the card: "
           f"{check_head_width_128(gen)}")
@@ -3743,7 +3983,8 @@ def main():
             continue
         print(f"phase 4: training step {tag}: wall {r['wall_ms']} ms, "
               f"device busy {r['device_busy_ms']} ms, idle share "
-              f"{r['idle_share']}")
+              f"{r['idle_share']}, gemm.cuh's kernels {r['gemm_cuh_ms']} "
+              f"ms")
         for name, ms in r["top"]:
             print(f"    {ms:.4f} ms  {name}")
     profile_rn = profile_resnet(resnet)
@@ -3806,7 +4047,8 @@ def main():
                       "training_bert": training_bert,
                       "profile_resnet": {k: v for k, v in profile_rn.items()
                                          if k != "top"},
-                      "profile_deepfm": profile_fm, "power": smi}))
+                      "profile_deepfm": profile_fm, "gemm": gemm_records,
+                      "power": smi}))
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

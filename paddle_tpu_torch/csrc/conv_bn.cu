@@ -207,15 +207,17 @@ __global__ void __launch_bounds__(GNT, 2)
 dot_stats_kernel(const float* __restrict__ x2, const float* __restrict__ w2,
                  float* __restrict__ y, float* __restrict__ part, int M,
                  int N, int K) {
-  __shared__ __align__(16) float a_s[GK * GS];
-  __shared__ __align__(16) float b_s[GK * GS];
+  static_assert(GEMM_SMEM >= 2 * 16 * GT, "the epilogue's two sums");
+  __shared__ __align__(16) float smem[GEMM_SMEM];
+  float* a_s = smem;
+  float* b_s = smem + 16 * GT;
   const int n0 = blockIdx.x * GT;
   const int m0 = blockIdx.y * GT;
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
 
   float acc[8][8];
-  gemm_tile<false, false>(x2, K, w2, K, M, N, m0, n0, 0, K, a_s, b_s, acc);
+  gemm_tile<false, false>(x2, K, w2, K, M, N, m0, n0, 0, K, smem, acc);
 
   float c1[8], c2[8];
 #pragma unroll
@@ -234,7 +236,7 @@ dot_stats_kernel(const float* __restrict__ x2, const float* __restrict__ w2,
     }
   }
   // a_s holds the 16 thread rows' s1 of the tile's 128 columns, b_s their
-  // s2 (GK * GS >= 16 * 128)
+  // s2
   __syncthreads();
 #pragma unroll
   for (int j = 0; j < 8; ++j) {

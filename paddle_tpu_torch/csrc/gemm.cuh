@@ -1,17 +1,23 @@
 // f32 GEMM for sm_90a: C = A B on 128x128 block tiles, with split-K.
 //
-// Shared by the fused-projection kernels: the backward (#2, #3 in
+// Shared by the fused-projection kernels: the backward pair (#2 + #3 in
 // qkv_attention_bwd.cu: the q|k|v and dctx projections, dx and dW) and
 // #1's output projection (qkv_attention.cu: y = ctx W_out); conv_bn.cu's
-// #19 runs gemm_tile with a statistics epilogue of its own.  256 threads, an
-// 8x8 patch of each C tile per thread, operands staged k-major in shared
-// memory and read as float4.  Every element of C is summed in one fixed
-// order (split-K partials are added in slab order by sum_splits): no
-// atomics, so two calls on the same inputs give the same bits.
+// #19 runs gemm_tile with a statistics epilogue of its own, and gemm.cu
+// exports the GEMM alone.  256 threads, an 8x8 patch of each C tile per
+// thread, operands staged k-major in shared memory and read as float4.
+// Every element of C is summed in increasing k (split-K partials are added
+// in slab order by sum_splits): no atomics, so two calls on the same
+// inputs give the same bits.
 //
-// Bound: f32 FMA work on the CUDA cores (TF32 off); ~44% of the f32 peak
-// at the training step's shapes.  No tensor cores, no TMA, no load
-// pipelining: later work.
+// Bound: f32 FMA work on the CUDA cores (TF32 off): 64 FMAs for every 4
+// float4 reads of shared memory.  The loads run one stage ahead of the
+// math in a ring of two shared-memory stages: an operand whose staged
+// dimension is contiguous comes in by 16-byte cp.async, an i-major one as
+// float4 loads along k into registers, stored transposed after the
+// stage's math.  Only tiles at the operands' edges (or not 16-byte
+// aligned) check bounds, element by element.  No tensor cores, no TMA:
+// later work.
 
 #pragma once
 
@@ -24,28 +30,117 @@ namespace {
 
 constexpr int GNT = 256;     // threads of a GEMM block
 constexpr int GT = 128;      // rows and columns of a C tile
-constexpr int GK = 16;       // reduction depth staged per step
+constexpr int GK = 16;       // reduction depth of one stage
 constexpr int GS = GT + 4;   // row stride of the k-major shared tiles
+constexpr int GSTAGE = GK * GS;  // floats of one operand's stage
+//: floats of shared memory gemm_tile takes: two stages of both operands
+constexpr int GEMM_SMEM = 4 * GSTAGE;
+//: float4s a thread stages of one operand per stage
+constexpr int G4 = GK * GT / 4 / GNT;
+static_assert(G4 >= 1 && GK % 4 == 0, "a stage is whole float4s a thread");
 
-// dst[kk * GS + ii] = operand element (i0 + ii, k0 + kk), zero outside
-// [0, n_i) x [k0, k_end).  An operand is k-major when element (i, k) is
-// src[k * ld + i] (consecutive threads then read consecutive i), else
-// i-major, src[i * ld + k].
-template <bool KMAJOR>
-__device__ __forceinline__ void gemm_stage(float* dst, const float* src,
-                                           int ld, int i0, int n_i, int k0,
-                                           int k_end) {
-  for (int idx = threadIdx.x; idx < GK * GT; idx += GNT) {
-    const int kk = KMAJOR ? idx / GT : idx % GK;
-    const int ii = KMAJOR ? idx % GT : idx / GK;
-    const int i = i0 + ii;
-    const int k = k0 + kk;
-    float v = 0.f;
-    if (i < n_i && k < k_end)
-      v = KMAJOR ? src[(size_t)k * ld + i] : src[(size_t)i * ld + k];
-    dst[kk * GS + ii] = v;
-  }
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
 }
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One operand of gemm_tile on its way through shared memory.  Element (i0
+// + ii, k0 + kk) of a stage lands at kk * GS + ii.  The operand is
+// k-major when element (i, k) is src[k * ld + i], else i-major, src[i *
+// ld + k].  Thread `tid`'s r-th float4 of a stage is four consecutive
+// elements in memory: i = 4 (f % (GT / 4)).. of k row f / (GT / 4) when
+// k-major, k = 4 (f % (GK / 4)).. of i row f / (GK / 4) when i-major,
+// with f = tid + r * GNT (consecutive threads on consecutive addresses).
+template <bool KMAJOR>
+struct GemmStager {
+  static constexpr int kPerRow = KMAJOR ? GT / 4 : GK / 4;
+  static constexpr int kRows = GNT / kPerRow;  // rows one pass covers
+
+  const float* p;  // this thread's first element at the next stage
+  int64_t row_step;  // floats from one pass's row to the next's
+  int64_t k_step;    // floats from one stage to the next
+  int ii, kk;        // where the first float4 lands in a stage
+  int n_i, k;        // rows of the operand; this thread's first k
+  bool inside;       // the tile's rows all < n_i and 16-byte aligned
+  float4 held[G4];   // i-major: the stage loaded, not yet stored
+
+  __device__ __forceinline__ GemmStager(const float* src, int ld, int i0,
+                                        int n_i_, int k_begin) {
+    const int f = threadIdx.x;
+    const int row = f / kPerRow;
+    const int col = (f % kPerRow) * 4;
+    ii = KMAJOR ? col : row;
+    kk = KMAJOR ? row : col;
+    n_i = n_i_;
+    k = k_begin + kk;
+    p = KMAJOR ? src + (int64_t)k * ld + i0 + ii
+               : src + (int64_t)(i0 + ii) * ld + k;
+    row_step = (int64_t)kRows * ld;
+    k_step = KMAJOR ? (int64_t)GK * ld : GK;
+    inside = i0 + GT <= n_i && ld % 4 == 0 &&
+             reinterpret_cast<uintptr_t>(src) % 16 == 0;
+    n_i -= i0;
+  }
+
+  // Element c of this thread's r-th float4 at the current stage, 0 outside
+  // [0, n_i) x [0, k_end): the checked path of edge tiles.
+  __device__ __forceinline__ float at(int r, int c, int k_end) const {
+    const int i = KMAJOR ? ii + c : ii + r * kRows;
+    const int kc = KMAJOR ? k + r * kRows : k + c;
+    return i < n_i && kc < k_end ? p[r * row_step + c] : 0.f;
+  }
+
+  __device__ __forceinline__ float4 at4(int r, int k_end) const {
+    return make_float4(at(r, 0, k_end), at(r, 1, k_end), at(r, 2, k_end),
+                       at(r, 3, k_end));
+  }
+
+  // Start the current stage's loads into `stage`: by cp.async (k-major)
+  // or into registers (i-major).  `full`: no element is outside.
+  __device__ __forceinline__ void load(float* stage, bool full, int k_end) {
+#pragma unroll
+    for (int r = 0; r < G4; ++r) {
+      if (KMAJOR) {
+        float* dst = stage + (kk + r * kRows) * GS + ii;
+        if (full)
+          cp_async16(dst, p + r * row_step);
+        else
+          *reinterpret_cast<float4*>(dst) = at4(r, k_end);
+      } else {
+        held[r] = full ? __ldg(reinterpret_cast<const float4*>(
+                             p + r * row_step))
+                       : at4(r, k_end);
+      }
+    }
+  }
+
+  // i-major: store the held stage transposed into `stage`.
+  __device__ __forceinline__ void store(float* stage) const {
+    if (KMAJOR) return;
+#pragma unroll
+    for (int r = 0; r < G4; ++r) {
+      float* dst = stage + kk * GS + ii + r * kRows;
+      dst[0] = held[r].x;
+      dst[GS] = held[r].y;
+      dst[2 * GS] = held[r].z;
+      dst[3 * GS] = held[r].w;
+    }
+  }
+
+  __device__ __forceinline__ void next() {
+    p += k_step;
+    k += GK;
+  }
+};
 
 // Row (col) of a C tile held in acc row i (col j) by thread row ty (col
 // tx): {4ty.., 64 + 4ty..}.
@@ -57,25 +152,51 @@ __device__ __forceinline__ int gemm_tile_row(int i, int t) {
 // for this thread's 8x8 patch of the 128x128 C tile at (m0, n0), summed
 // in increasing k; rows >= M and columns >= N read zeros.  A(m, k) is
 // a[k * lda + m] when A_KM, else a[m * lda + k]; B(k, n) is b[k * ldb + n]
-// when B_KM, else b[n * ldb + k].  a_s and b_s are GK * GS floats of
-// shared memory each; every thread of the block calls this.
+// when B_KM, else b[n * ldb + k].  k_begin is a multiple of GK.  smem is
+// GEMM_SMEM floats of 16-byte aligned shared memory, free again when this
+// returns; every thread of the block calls this.
 template <bool A_KM, bool B_KM>
 __device__ __forceinline__ void gemm_tile(
     const float* __restrict__ a, int lda, const float* __restrict__ b,
     int ldb, int M, int N, int m0, int n0, int k_begin, int k_end,
-    float* a_s, float* b_s, float (&acc)[8][8]) {
+    float* smem, float (&acc)[8][8]) {
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int steps = (k_end - k_begin + GK - 1) / GK;
+  if (steps <= 0) return;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += GK) {
-    __syncthreads();  // the last step's tiles are consumed
-    gemm_stage<A_KM>(a_s, a, lda, m0, M, k0, k_end);
-    gemm_stage<B_KM>(b_s, b, ldb, n0, N, k0, k_end);
-    __syncthreads();
+  GemmStager<A_KM> sa(a, lda, m0, M, k_begin);
+  GemmStager<B_KM> sb(b, ldb, n0, N, k_begin);
+  // Stage s sits in ring slot s % 2: A at slot * 2 GSTAGE, B after it.
+  // Only an edge tile, or the last stage of a K that is no multiple of
+  // GK, takes the checked loads.
+  const bool k_whole = (k_end - k_begin) % GK == 0;
+  sa.load(smem, sa.inside && (steps > 1 || k_whole), k_end);
+  sb.load(smem + GSTAGE, sb.inside && (steps > 1 || k_whole), k_end);
+  cp_async_commit();
+  sa.store(smem);
+  sb.store(smem + GSTAGE);
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int s = 0; s < steps; ++s) {
+    const float* a_s = smem + (s & 1) * 2 * GSTAGE;
+    const float* b_s = a_s + GSTAGE;
+    float* a_next = smem + ((s + 1) & 1) * 2 * GSTAGE;
+    float* b_next = a_next + GSTAGE;
+    const bool more = s + 1 < steps;
+    if (more) {  // stage s + 1 into the slot stage s - 1 left
+      const bool last_whole = s + 2 < steps || k_whole;
+      sa.next();
+      sb.next();
+      sa.load(a_next, sa.inside && last_whole, k_end);
+      sb.load(b_next, sb.inside && last_whole, k_end);
+      cp_async_commit();
+    }
 #pragma unroll
     for (int kk = 0; kk < GK; ++kk) {
       const float4 a0 = *reinterpret_cast<const float4*>(a_s + kk * GS +
@@ -93,6 +214,12 @@ __device__ __forceinline__ void gemm_tile(
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] += av[i] * bv[j];
     }
+    if (more) {
+      sa.store(a_next);
+      sb.store(b_next);
+    }
+    cp_async_wait_all();
+    __syncthreads();  // stage s + 1 has landed; stage s is consumed
   }
 }
 
@@ -104,8 +231,7 @@ __global__ void __launch_bounds__(GNT, 2)
 gemm_kernel(const float* __restrict__ a, int lda,
             const float* __restrict__ b, int ldb, float* c, int ldc,
             size_t split_stride, int M, int N, int K, int k_slab) {
-  __shared__ __align__(16) float a_s[GK * GS];
-  __shared__ __align__(16) float b_s[GK * GS];
+  __shared__ __align__(16) float smem[GEMM_SMEM];
   const int n0 = blockIdx.x * GT;
   const int m0 = blockIdx.y * GT;
   const int k_begin = blockIdx.z * k_slab;
@@ -114,8 +240,8 @@ gemm_kernel(const float* __restrict__ a, int lda,
   const int tx = threadIdx.x % 16;
 
   float acc[8][8];
-  gemm_tile<A_KM, B_KM>(a, lda, b, ldb, M, N, m0, n0, k_begin, k_end, a_s,
-                        b_s, acc);
+  gemm_tile<A_KM, B_KM>(a, lda, b, ldb, M, N, m0, n0, k_begin, k_end, smem,
+                        acc);
 
   c += blockIdx.z * split_stride;
 #pragma unroll
@@ -151,12 +277,14 @@ struct Operand {
   bool kmajor;
 };
 
-// Split-K only where the C tiles alone would not fill the card's 132 SMs:
-// then enough slabs for two blocks per SM, each at least 32 deep (so a
-// b = 1 prefill's y = ctx W_out, 256 x 512 x 512, runs as 128 blocks).
-int gemm_splits(int M, int N, int K, int* k_slab) {
+// Split-K only where the C tiles alone would not fill the card's `sms`
+// SMs: then as many slabs as two blocks per SM hold in one wave (a second
+// wave of a few blocks would cost a whole block's time), each at least
+// 32 deep (so a b = 1 prefill's y = ctx W_out, 256 x 512 x 512, runs as
+// 128 blocks on 132 SMs).
+int gemm_splits(int M, int N, int K, int sms, int* k_slab) {
   const int tiles = ((M + GT - 1) / GT) * ((N + GT - 1) / GT);
-  int splits = tiles >= 132 ? 1 : (264 + tiles - 1) / tiles;
+  int splits = tiles >= sms ? 1 : 2 * sms / tiles;
   splits = std::max(1, std::min(splits, K / 32));
   int slab = (K + splits - 1) / splits;
   slab = (slab + GK - 1) / GK * GK;
@@ -165,19 +293,21 @@ int gemm_splits(int M, int N, int K, int* k_slab) {
 }
 
 // Floats of partial sums a split GEMM of this shape needs (0 unsplit).
-int64_t gemm_partials(int M, int N, int K) {
+int64_t gemm_partials(int M, int N, int K, int sms) {
   int slab;
-  const int splits = gemm_splits(M, N, K, &slab);
+  const int splits = gemm_splits(M, N, K, sms, &slab);
   return splits > 1 ? (int64_t)splits * M * N : 0;
 }
 
-// C [M, N] (row stride ldc) = A B.  With split, a K too deep for the C
-// tiles to fill the card is cut into slabs whose partial sums go to
-// `partials` (gemm_partials floats) and are added in order.
+// C [M, N] (row stride ldc) = A B on a card of `sms` SMs.  With split, a
+// K too deep for the C tiles to fill the card is cut into slabs whose
+// partial sums go to `partials` (gemm_partials floats) and are added in
+// order.
 cudaError_t gemm(Operand A, Operand B, float* c, int ldc, int M, int N,
-                 int K, bool split, float* partials, cudaStream_t stream) {
+                 int K, bool split, float* partials, int sms,
+                 cudaStream_t stream) {
   int slab = K;
-  const int splits = split ? gemm_splits(M, N, K, &slab) : 1;
+  const int splits = split ? gemm_splits(M, N, K, sms, &slab) : 1;
   float* out = splits > 1 ? partials : c;
   const int ld_out = splits > 1 ? N : ldc;
   const size_t stride = (size_t)M * N;
@@ -195,7 +325,8 @@ cudaError_t gemm(Operand A, Operand B, float* c, int ldc, int M, int N,
     return cudaErrorInvalidValue;  // no caller takes A k-major, B not
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const int blocks = (int)std::min<size_t>((stride + GNT - 1) / GNT, 4 * 132);
+  const int blocks =
+      (int)std::min<size_t>((stride + GNT - 1) / GNT, 4 * (size_t)sms);
   sum_splits<<<blocks, GNT, 0, stream>>>(partials, splits, M, N, c, ldc);
   return cudaGetLastError();
 }

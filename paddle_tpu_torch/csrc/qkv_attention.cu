@@ -377,15 +377,7 @@ struct Cluster {
   static constexpr int kCopy = 2 * kCopyK;
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+// cp_async16 and cp_async_commit are gemm.cuh's.
 
 // Wait until at most one committed group is still in flight.
 __device__ __forceinline__ void cp_async_wait_all_but_last() {
@@ -825,9 +817,10 @@ cudaError_t launch_attention(const FwdArgs& a, int c, int r,
 }  // namespace
 
 // Floats of the `partials` buffer ptt_qkv_attention_fwd needs at this
-// shape (0: pass null).
-extern "C" int64_t ptt_qkv_fwd_scratch(int b, int t, int dm, int n_head) {
-  return gemm_partials(b * t, dm, n_head * DH);
+// shape on a card of `sms` SMs (0: pass null).
+extern "C" int64_t ptt_qkv_fwd_scratch(int b, int t, int dm, int n_head,
+                                       int sms) {
+  return gemm_partials(b * t, dm, n_head * DH, sms);
 }
 
 // How many clusters of `c` blocks of the R-row cluster kernel the card
@@ -858,19 +851,21 @@ extern "C" int ptt_qkv_cluster_occupancy(int r, int c) {
 // The route is the caller's plan (`qkv_fwd_plan`): cluster_rows R (32 or
 // 64) runs the cluster kernel in clusters of C = ceil(t / R) blocks,
 // which must be <= 8; R == 0 runs the tiles kernel; anything else returns
-// cudaErrorInvalidValue.  Requires d_head == 64 and dm % 32 == 0
-// (checked by the caller).  rate 0 runs without dropout; otherwise
-// weights are kept where the hash of (seed, b*n_head + head, q*t + k) >=
-// threshold (t*t <= 2^32, checked by the caller).
+// cudaErrorInvalidValue.  sms is the card's SM count (y's split-K).
+// Requires d_head == 64 and dm % 32 == 0 (checked by the caller).  rate 0
+// runs without dropout; otherwise weights are kept where the hash of
+// (seed, b*n_head + head, q*t + k) >= threshold (t*t <= 2^32, checked by
+// the caller).
 extern "C" int ptt_qkv_attention_fwd(const float* x, const float* w_qkv,
                                      const float* w_out, const float* bias,
                                      int64_t bs_b, int64_t bs_h,
                                      int64_t bs_q, int64_t bs_k, float* y,
                                      float* ctx, float* lse, float* partials,
                                      int b, int t, int dm, int n_head,
-                                     int cluster_rows, float scale,
-                                     int causal, double rate, unsigned seed,
-                                     unsigned threshold, void* stream) {
+                                     int cluster_rows, int sms,
+                                     float scale, int causal, double rate,
+                                     unsigned seed, unsigned threshold,
+                                     void* stream) {
   const int cluster_size =
       cluster_rows > 0 ? (t + cluster_rows - 1) / cluster_rows : 0;
   if (cluster_rows != 0 &&
@@ -887,7 +882,7 @@ extern "C" int ptt_qkv_attention_fwd(const float* x, const float* w_qkv,
   if (err != cudaSuccess) return (int)err;
   const int hd = n_head * DH;  // y [b*t, dm] = ctx [b*t, hd] W_out [hd, dm]
   return (int)gemm({ctx, hd, false}, {w_out, dm, true}, y, dm, b * t, dm,
-                   hd, true, partials, st);
+                   hd, true, partials, sms, st);
 }
 
 extern "C" const char* ptt_error_string(int err) {

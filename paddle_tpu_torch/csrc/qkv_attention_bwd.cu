@@ -2,42 +2,44 @@
 //
 // Replaces paddle_tpu/kernels/attention.py _qkv_bwd_dq_kernel (#2) and
 // _qkv_bwd_dkv_kernel (#3), the Pallas kernels of flash_qkv_attention's
-// VJP.  Inputs: x [b, t, dm], the packed w_qkv [dm, 3hd] (q|k|v, heads in
-// order within each third), w_out [hd, dm], the bias, g = dL/dy
-// [b, t, dm] and #1's residuals ctx [b, t, h, 64] and lse [b, h, t].
+// VJP, as one pair.  Inputs: x [b, t, dm], the packed w_qkv [dm, 3hd]
+// (q|k|v, heads in order within each third), w_out [hd, dm], the bias, g =
+// dL/dy [b, t, dm] and #1's residuals ctx [b, t, h, 64] and lse [b, h, t].
 // With q|k|v = x w_qkv, dctx = g w_out^T, delta = rowsum(dctx * ctx),
 // p = exp(q k^T * scale + bias - lse), ds = p (dctx v^T - delta) * scale:
 //
-//   #2  dq = ds k;                dx_q  = dq Wq^T
-//       dW_q = x^T dq,            dW_out = ctx^T g
-//   #3  dk = ds^T q, dv = p^T dctx;  dx_kv = dk Wk^T + dv Wv^T
-//       dW_k = x^T dk,               dW_v  = x^T dv
+//   #2  dq = ds k                         (the dq walk)
+//   #3  dk = ds^T q, dv = p^T dctx        (the dkv walk)
+//       dx = [dq | dk | dv] w_qkv^T,  dW_qkv = x^T [dq | dk | dv]
+//       dW_out = ctx^T g
 //
 // Design.  The TPU kernels recompute q/k/v tile by tile inside one grid
 // walk over all heads and carry dW across grid steps in VMEM.  On the card
-// each is three stages, every one a kernel of this file, on PyTorch's
-// stream:
-//   1. gemm_kernel (gemm.cuh, shared with #1's residual mode): q|k|v =
-//      x w_qkv and dctx = g w_out^T into scratch.
-//      The projections run once per call on 128x128 tiles, where a walk
-//      that recomputed them would redo k/v (or q/dctx) for every 64-row
-//      tile of the other side: t/64 times the work (4x at t = 256).
-//   2. row_delta (delta = rowsum(dctx * ctx)), then the flash backward
-//      walk of flash_walk.cuh over the projected rows: dq for #2 (keys
-//      walked), dk and dv for #3 (queries walked), one block per (64-row
-//      tile, head, batch row), as #6 and #7 walk theirs.
-//   3. gemm_kernel: dx and the dW from the walk's output.  A dW product
+// one entry, ptt_qkv_bwd, runs the walks a mask selects in three stages,
+// every one a kernel of this file, on PyTorch's stream:
+//   1. gemm_kernel (gemm.cuh, shared with #1's y): q|k|v = x w_qkv and
+//      dctx = g w_out^T into scratch, then row_delta, once per call for
+//      both walks.  On 128x128 tiles, where a walk that recomputed them
+//      would redo k/v (or q/dctx) for every 64-row tile of the other side:
+//      t/64 times the work (4x at t = 256).
+//   2. the flash backward walks of flash_walk.cuh over the projected rows:
+//      dq (#2, keys walked), dk and dv (#3, queries walked), one block per
+//      (64-row tile, head, batch row), as #6 and #7 walk theirs.  They
+//      write the columns of one [b*t, 3hd] buffer dq|dk|dv in w_qkv's
+//      q|k|v order.
+//   3. gemm_kernel: dx as one product over the selected walks' columns (K
+//      = 3hd for the pair), dW_qkv as one split-K product into the packed
+//      [dm, 3hd] layout, and dW_out when the dq walk runs.  A dW product
 //      reduces over all b*t rows: split-K blocks write partial sums and
 //      sum_splits adds them in split order.
 // No atomics: each output element is summed in one fixed order, so two
 // calls on the same inputs give the same bits.
 //
-// Bound: f32 FMA work (TF32 off).  The least work of #2 is 7 products of
-// b*t*dm*hd MACs (3 projections, dctx, dx_q, dW_q, dW_out) and three
-// t x t ones per head; #3 has 8 and four.  Stage 1 and 3 read their
-// operands from shared memory as float4 (an 8x8 patch per thread: 64 FMAs
-// for 4 loads); the walks are #6's and #7's.  No tensor cores, no TMA, no
-// load pipelining: later work.
+// Bound: f32 FMA work (TF32 off).  The pair's least work is 11 products of
+// b*t*dm*hd MACs (3 projections, dctx, 3 for dx, 3 for dW_qkv, dW_out) and
+// seven t x t ones per head (three in the dq walk, four in the dkv walk).
+// Stages 1 and 3 run on gemm.cuh's pipelined tile; the walks are #6's and
+// #7's.  No tensor cores, no TMA: later work.
 //
 // Weights dropout: the walks of flash_walk.cuh regenerate #1's mask (the
 // same hash of (seed, b * h + head, q * t + k)) from the seed, with delta
@@ -58,9 +60,9 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// stage 2: delta, then the walks of flash_walk.cuh
-// ---------------------------------------------------------------------------
+// The walks of ptt_qkv_bwd's mask.
+constexpr int kWalkDq = 1;   // #2
+constexpr int kWalkDkv = 2;  // #3
 
 // delta[(bi * h + head) * t + r] = sum_d dctx(row, head, d) * ctx(row,
 // head, d) over two [b * t, h * 64] matrices, row = bi * t + r: one thread
@@ -84,144 +86,128 @@ row_delta(const float* __restrict__ dctx, const float* __restrict__ ctx,
   delta[((row / t) * h + head) * t + row % t] = s;
 }
 
-// Scratch of one call, in floats: q|k|v [b*t, 3hd], dctx [b*t, hd], the
-// walk's output (dq [b*t, hd] or dk|dv [b*t, 2hd]), delta [b, h, t] and
-// the dW partials.
+// The columns [c0, c0 + w) of the packed q|k|v that the selected walks
+// produce: dq [0, hd), dk|dv [hd, 3hd).
+struct Cols {
+  int c0, w;
+};
+
+Cols walk_cols(int walks, int hd) {
+  return {walks & kWalkDq ? 0 : hd,
+          (walks & kWalkDq ? hd : 0) + (walks & kWalkDkv ? 2 * hd : 0)};
+}
+
+// Scratch of one call, in floats: q|k|v [b*t, 3hd], dctx [b*t, hd],
+// dq|dk|dv [b*t, 3hd], the dW partials, delta [b, h, t].
 struct Scratch {
   float* qkv;
   float* dctx;
-  float* walk;
-  float* delta;
+  float* dqkv;
   float* partials;
+  float* delta;
 };
 
-int64_t scratch_floats(int which, int b, int t, int dm, int hd,
+int64_t scratch_floats(int walks, int b, int t, int dm, int hd, int sms,
                        Scratch* s, float* base) {
   const int64_t bt = (int64_t)b * t;
-  const int walk_cols = which == 0 ? hd : 2 * hd;
-  const int64_t part = which == 0
-      ? std::max(gemm_partials(dm, hd, (int)bt),
-               gemm_partials(hd, dm, (int)bt))
-      : gemm_partials(dm, 2 * hd, (int)bt);
-  const int64_t delta = bt * (hd / DH);
+  const Cols cols = walk_cols(walks, hd);
+  const int64_t part = std::max(
+      gemm_partials(dm, cols.w, (int)bt, sms),
+      walks & kWalkDq ? gemm_partials(hd, dm, (int)bt, sms) : 0);
   if (s) {
     s->qkv = base;
     s->dctx = s->qkv + bt * 3 * hd;
-    s->walk = s->dctx + bt * hd;
-    s->delta = s->walk + bt * walk_cols;
-    s->partials = s->delta + delta;
+    s->dqkv = s->dctx + bt * hd;
+    s->partials = s->dqkv + bt * 3 * hd;
+    s->delta = s->partials + part;
   }
-  return bt * (4 * hd + walk_cols) + delta + part;
+  return bt * 7 * hd + part + bt * (hd / DH);
 }
 
-// Stages 1 and 2's delta, shared by both kernels: q|k|v = x w_qkv, dctx =
-// g w_out^T, delta = rowsum(dctx * ctx).
-cudaError_t project(const float* x, const float* w_qkv, const float* w_out,
-                    const float* g, const float* ctx, const Scratch& s,
-                    int b, int t, int dm, int n_head, cudaStream_t stream) {
-  const int hd = n_head * DH;
-  const int bt = b * t;
-  cudaError_t err = gemm({x, dm, false}, {w_qkv, 3 * hd, true}, s.qkv,
-                         3 * hd, bt, 3 * hd, dm, false, nullptr, stream);
-  if (err != cudaSuccess) return err;
-  err = gemm({g, dm, false}, {w_out, dm, false}, s.dctx, hd, bt, hd, dm,
-             false, nullptr, stream);
-  if (err != cudaSuccess) return err;
-  const int64_t rows = (int64_t)bt * n_head;
-  row_delta<<<(unsigned)((rows + NT - 1) / NT), NT, 0, stream>>>(
-      s.dctx, ctx, s.delta, b, t, n_head);
-  return cudaGetLastError();
-}
-
-// The projected q, k, v of one call as the walks read them.
-Rows<Bthd> q_rows(const Scratch& s, int hd) {
-  return Rows<Bthd>{s.qkv, Bthd{3 * hd}};
-}
-Rows<Bthd> k_rows(const Scratch& s, int hd) {
-  return Rows<Bthd>{s.qkv + hd, Bthd{3 * hd}};
-}
-Rows<Bthd> v_rows(const Scratch& s, int hd) {
-  return Rows<Bthd>{s.qkv + 2 * hd, Bthd{3 * hd}};
+// The projected q, k, v of one call as the walks read them, and where they
+// write dq, dk, dv: column offsets 0, hd, 2hd of a [b*t, 3hd] matrix.
+Rows<Bthd> qkv_rows(const float* m, int hd, int third) {
+  return Rows<Bthd>{m + third * hd, Bthd{3 * hd}};
 }
 
 }  // namespace
 
-// Floats of scratch the wrapper allocates for one call of
-// ptt_qkv_bwd_dq (which == 0) or ptt_qkv_bwd_dkv (which == 1).
-extern "C" int64_t ptt_qkv_bwd_scratch(int which, int b, int t, int dm,
-                                       int n_head) {
-  return scratch_floats(which, b, t, dm, n_head * DH, nullptr, nullptr);
+// Floats of scratch the wrapper allocates for one ptt_qkv_bwd call with
+// these walks on a card of `sms` SMs.
+extern "C" int64_t ptt_qkv_bwd_scratch(int walks, int b, int t, int dm,
+                                       int n_head, int sms) {
+  return scratch_floats(walks, b, t, dm, n_head * DH, sms, nullptr, nullptr);
 }
 
-// #2.  x, g, dx [b, t, dm]; w_qkv [dm, 3hd]; w_out [hd, dm]; ctx
-// [b, t, h, 64]; lse [b, h, t]; dw_q [dm, hd]; dw_out [hd, dm]; all
-// contiguous f32, hd = 64 * n_head.  bias may be null; otherwise its
-// element (b, h, q, k) lies at b*bs_b + h*bs_h + q*bs_q + k*bs_k.
-// scratch holds ptt_qkv_bwd_scratch(0, ...) floats.  rate, seed and
-// threshold are #1's.
-extern "C" int ptt_qkv_bwd_dq(const float* x, const float* w_qkv,
-                              const float* w_out, const float* bias,
-                              int64_t bs_b, int64_t bs_h, int64_t bs_q,
-                              int64_t bs_k, const float* g, const float* ctx,
-                              const float* lse, float* scratch, float* dx,
-                              float* dw_q, float* dw_out, int b, int t,
-                              int dm, int n_head, float scale, int causal,
-                              double rate, unsigned seed,
-                              unsigned threshold, void* stream_ptr) {
+// #2 + #3.  walks: bit 0 runs the dq walk (#2), bit 1 the dkv walk (#3);
+// with both the pair shares one projection stage and one set of output
+// GEMMs.  x, g, dx [b, t, dm]; w_qkv [dm, 3hd]; w_out [hd, dm]; ctx
+// [b, t, h, 64]; lse [b, h, t]; all contiguous f32, hd = 64 * n_head.
+// dx is the selected walks' part of dL/dx; dw [dm, w] holds dW_qkv's
+// columns [c0, c0 + w) of the selected walks (dW_q for bit 0 alone, dW_k
+// | dW_v for bit 1 alone, the packed [dm, 3hd] for both); dw_out [hd, dm]
+// is written when bit 0 is set (null otherwise).  bias may be null;
+// otherwise its element (b, h, q, k) lies at b*bs_b + h*bs_h + q*bs_q +
+// k*bs_k.  scratch holds ptt_qkv_bwd_scratch floats; sms is the card's SM
+// count (the dW products' split-K).  rate, seed and threshold are #1's.
+extern "C" int ptt_qkv_bwd(int walks, const float* x, const float* w_qkv,
+                           const float* w_out, const float* bias,
+                           int64_t bs_b, int64_t bs_h, int64_t bs_q,
+                           int64_t bs_k, const float* g, const float* ctx,
+                           const float* lse, float* scratch, float* dx,
+                           float* dw, float* dw_out, int b, int t, int dm,
+                           int n_head, int sms, float scale, int causal,
+                           double rate, unsigned seed, unsigned threshold,
+                           void* stream_ptr) {
+  if (walks < 1 || walks > 3) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int hd = n_head * DH;
   const int bt = b * t;
+  const Cols cols = walk_cols(walks, hd);
   Scratch s;
-  scratch_floats(0, b, t, dm, hd, &s, scratch);
-  cudaError_t err =
-      project(x, w_qkv, w_out, g, ctx, s, b, t, dm, n_head, stream);
+  scratch_floats(walks, b, t, dm, hd, sms, &s, scratch);
+
+  // 1. q|k|v = x w_qkv, dctx = g w_out^T, delta = rowsum(dctx * ctx)
+  cudaError_t err = gemm({x, dm, false}, {w_qkv, 3 * hd, true}, s.qkv,
+                         3 * hd, bt, 3 * hd, dm, false, nullptr, sms,
+                         stream);
   if (err != cudaSuccess) return (int)err;
-  err = bwd_dq(q_rows(s, hd), k_rows(s, hd), v_rows(s, hd),
-               Bias{bias, bs_b, bs_h, bs_q, bs_k},
-               Rows<Bthd>{s.dctx, Bthd{hd}}, lse, s.delta, s.walk, Bthd{hd},
-               b, t, t, n_head, scale, causal,
-               hash_rng::make_dropout(rate, seed, threshold), stream);
+  err = gemm({g, dm, false}, {w_out, dm, false}, s.dctx, hd, bt, hd, dm,
+             false, nullptr, sms, stream);
   if (err != cudaSuccess) return (int)err;
-  // dx_q = dq Wq^T; dW_q = x^T dq; dW_out = ctx^T g
-  err = gemm({s.walk, hd, false}, {w_qkv, 3 * hd, false}, dx, dm, bt, dm,
-             hd, false, nullptr, stream);
+  const int64_t rows = (int64_t)bt * n_head;
+  row_delta<<<(unsigned)((rows + NT - 1) / NT), NT, 0, stream>>>(
+      s.dctx, ctx, s.delta, b, t, n_head);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = gemm({x, dm, true}, {s.walk, hd, true}, dw_q, hd, dm, hd, bt, true,
-             s.partials, stream);
+
+  // 2. the walks, into the q|k|v columns of dqkv
+  const Bias bs{bias, bs_b, bs_h, bs_q, bs_k};
+  const Rows<Bthd> dctx{s.dctx, Bthd{hd}};
+  const Dropout drop = hash_rng::make_dropout(rate, seed, threshold);
+  if (walks & kWalkDq) {
+    err = bwd_dq(qkv_rows(s.qkv, hd, 0), qkv_rows(s.qkv, hd, 1),
+                 qkv_rows(s.qkv, hd, 2), bs, dctx, lse, s.delta, s.dqkv,
+                 Bthd{3 * hd}, b, t, t, n_head, scale, causal, drop, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (walks & kWalkDkv) {
+    err = bwd_dkv(qkv_rows(s.qkv, hd, 0), qkv_rows(s.qkv, hd, 1),
+                  qkv_rows(s.qkv, hd, 2), bs, dctx, lse, s.delta,
+                  s.dqkv + hd, s.dqkv + 2 * hd, Bthd{3 * hd}, b, t, t,
+                  n_head, scale, causal, drop, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  // 3. dx = dqkv[:, cols] w_qkv[:, cols]^T; dW = x^T dqkv[:, cols];
+  //    dW_out = ctx^T g
+  const float* dqkv = s.dqkv + cols.c0;
+  err = gemm({dqkv, 3 * hd, false}, {w_qkv + cols.c0, 3 * hd, false}, dx,
+             dm, bt, dm, cols.w, false, nullptr, sms, stream);
   if (err != cudaSuccess) return (int)err;
+  err = gemm({x, dm, true}, {dqkv, 3 * hd, true}, dw, cols.w, dm, cols.w,
+             bt, true, s.partials, sms, stream);
+  if (err != cudaSuccess || !(walks & kWalkDq)) return (int)err;
   return (int)gemm({ctx, hd, true}, {g, dm, true}, dw_out, dm, hd, dm, bt,
-                   true, s.partials, stream);
-}
-
-// #3.  As ptt_qkv_bwd_dq; dw_kv [dm, 2hd] holds dW_k | dW_v.  scratch
-// holds ptt_qkv_bwd_scratch(1, ...) floats.
-extern "C" int ptt_qkv_bwd_dkv(const float* x, const float* w_qkv,
-                               const float* w_out, const float* bias,
-                               int64_t bs_b, int64_t bs_h, int64_t bs_q,
-                               int64_t bs_k, const float* g,
-                               const float* ctx, const float* lse,
-                               float* scratch, float* dx, float* dw_kv,
-                               int b, int t, int dm, int n_head, float scale,
-                               int causal, double rate, unsigned seed,
-                               unsigned threshold, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int hd = n_head * DH;
-  const int bt = b * t;
-  Scratch s;
-  scratch_floats(1, b, t, dm, hd, &s, scratch);
-  cudaError_t err =
-      project(x, w_qkv, w_out, g, ctx, s, b, t, dm, n_head, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = bwd_dkv(q_rows(s, hd), k_rows(s, hd), v_rows(s, hd),
-                Bias{bias, bs_b, bs_h, bs_q, bs_k},
-                Rows<Bthd>{s.dctx, Bthd{hd}}, lse, s.delta, s.walk,
-                s.walk + hd, Bthd{2 * hd}, b, t, t, n_head, scale, causal,
-                hash_rng::make_dropout(rate, seed, threshold), stream);
-  if (err != cudaSuccess) return (int)err;
-  // dx_kv = [dk | dv] [Wk | Wv]^T; [dW_k | dW_v] = x^T [dk | dv]
-  err = gemm({s.walk, 2 * hd, false}, {w_qkv + hd, 3 * hd, false}, dx, dm,
-             bt, dm, 2 * hd, false, nullptr, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)gemm({x, dm, true}, {s.walk, 2 * hd, true}, dw_kv, 2 * hd, dm,
-                   2 * hd, bt, true, s.partials, stream);
+                   true, s.partials, sms, stream);
 }

@@ -23,7 +23,8 @@ launches = {"qkv_attention_fwd": 0, "qkv_bwd_dq": 0, "qkv_bwd_dkv": 0,
             "flash_bwd_dkv_bhtd": 0, "dropout_add_fwd": 0,
             "dropout_add_bwd": 0,
             "channel_stats": 0, "dot_col_stats": 0, "ssa_fwd": 0,
-            "ssa_bwd": 0, "multi_table_gather": 0, "multi_table_apply": 0}
+            "ssa_bwd": 0, "multi_table_gather": 0, "multi_table_apply": 0,
+            "gemm": 0}
 
 #: kernel name -> calls on the card that took the plain composition by
 #: shape (head width % 64 != 0), since the last reset_launches()

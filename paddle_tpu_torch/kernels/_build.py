@@ -118,16 +118,17 @@ _DROP = [_D, _U, _U]
 #: C signature of every entry point: (restype, argtypes)
 _SIGNATURES = {
     "ptt_error_string": (ctypes.c_char_p, [_I]),
-    "ptt_qkv_fwd_scratch": (_L, [_I] * 4),
+    "ptt_gemm_partials": (_L, [_I] * 4),
+    "ptt_gemm": (_I, [_P, _I, _I, _P, _I, _I, _P] + [_I] * 4
+                 + [_P, _I, _P]),
+    "ptt_qkv_fwd_scratch": (_L, [_I] * 5),
     "ptt_qkv_attention_fwd": (
-        _I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 5 + [_F, _I] + _DROP
+        _I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 6 + [_F, _I] + _DROP
         + [_P]),
     "ptt_qkv_cluster_occupancy": (_I, [_I, _I]),
-    "ptt_qkv_bwd_scratch": (_L, [_I] * 5),
-    "ptt_qkv_bwd_dq": (_I, [_P] * 4 + [_L] * 4 + [_P] * 7 + [_I] * 4
-                       + [_F, _I] + _DROP + [_P]),
-    "ptt_qkv_bwd_dkv": (_I, [_P] * 4 + [_L] * 4 + [_P] * 6 + [_I] * 4
-                        + [_F, _I] + _DROP + [_P]),
+    "ptt_qkv_bwd_scratch": (_L, [_I] * 6),
+    "ptt_qkv_bwd": (_I, [_I] + [_P] * 4 + [_L] * 4 + [_P] * 7 + [_I] * 5
+                    + [_F, _I] + _DROP + [_P]),
     "ptt_megastep": (
         _I, [_P] * 18 + [_I] * 6 + [_F, _F, _P]),
     "ptt_megastep_paged": (

@@ -7,11 +7,14 @@ Counterparts of ``paddle_tpu/kernels/attention.py``:
   ``torch.autograd.Function`` whose passes are the kernels of
   ``csrc/qkv_attention.cu`` and ``csrc/qkv_attention_bwd.cu``:
   :func:`qkv_attention_fwd` (``_qkv_fwd_kernel``, #1: y and the residuals
-  ctx, lse), :func:`qkv_bwd_dq` (``_qkv_bwd_dq_kernel``, #2: dx_q, dW_q,
-  dW_out) and :func:`qkv_bwd_dkv` (``_qkv_bwd_dkv_kernel``, #3: dx_kv,
-  dW_k, dW_v).  Their plain versions are :func:`reference_qkv_fwd`,
-  :func:`reference_qkv_bwd_dq` and :func:`reference_qkv_bwd_dkv`; under
-  ``torch.no_grad()`` (serving) #1's residuals are dropped.
+  ctx, lse) and :func:`qkv_bwd` (``_qkv_bwd_dq_kernel`` and
+  ``_qkv_bwd_dkv_kernel``, the pair #2 + #3 in one entry: dx, the packed
+  dW_qkv, dW_out).  :func:`qkv_bwd_dq` (#2: dx_q, dW_q, dW_out) and
+  :func:`qkv_bwd_dkv` (#3: dx_kv, dW_k, dW_v) run one walk of the same
+  entry each.  Their plain versions are :func:`reference_qkv_fwd`,
+  :func:`reference_qkv_bwd`, :func:`reference_qkv_bwd_dq` and
+  :func:`reference_qkv_bwd_dkv`; under ``torch.no_grad()`` (serving) #1's
+  residuals are dropped.
 * :func:`flash_attention` with ``fmt="bthd"``: q, k, v [b, t, h, d] with
   an additive bias, differentiable through a ``torch.autograd.Function``
   whose passes are three kernels of ``csrc/flash_attention.cu``:
@@ -247,7 +250,8 @@ def _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
     """Launch #1 on the route of :func:`qkv_fwd_plan`: (y, ctx, lse)."""
     b, t, dm, hd, strides, bias_ptr = _qkv_args(
         "qkv_attention_fwd", x, w_qkv, w_out, bias, n_head)
-    plan = qkv_fwd_plan(b, t, n_head, sm_count(x.device))
+    sms = sm_count(x.device)
+    plan = qkv_fwd_plan(b, t, n_head, sms)
     rows = plan[2] if plan[0] == "cluster" else 0
     drop = _dropout_args(dropout_rate, dropout_seed, t, t,
                          "qkv_attention_fwd")
@@ -256,12 +260,12 @@ def _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
     ctx = torch.empty((b, t, n_head, hd // n_head), dtype=x.dtype,
                       device=x.device)
     lse = torch.empty((b, n_head, t), dtype=torch.float32, device=x.device)
-    partials = torch.empty(lib.ptt_qkv_fwd_scratch(b, t, dm, n_head),
+    partials = torch.empty(lib.ptt_qkv_fwd_scratch(b, t, dm, n_head, sms),
                            dtype=torch.float32, device=x.device)
     err = lib.ptt_qkv_attention_fwd(
         x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), bias_ptr,
         *strides, y.data_ptr(), ctx.data_ptr(), lse.data_ptr(),
-        partials.data_ptr(), b, t, dm, n_head, rows, float(scale),
+        partials.data_ptr(), b, t, dm, n_head, rows, sms, float(scale),
         int(bool(causal)), *drop, _build.stream_of(x))
     _build.check(err, "qkv_attention_fwd")
     launches["qkv_attention_fwd"] += 1
@@ -282,67 +286,122 @@ def qkv_attention_fwd(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
                            dropout_rate, dropout_seed)
 
 
-def _launch_qkv_bwd(which, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
+#: the walks of ``ptt_qkv_bwd``'s mask: bit 0 the dq walk (#2), bit 1 the
+#: dkv walk (#3); the pair runs both
+WALK_DQ, WALK_DKV = 1, 2
+
+
+def _launch_qkv_bwd(walks, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
                     scale, causal, dropout_rate, dropout_seed):
-    """Launch #2 (which 0), returning (dx_q, dW_q, dW_out), or #3 (which
-    1), returning (dx_kv, dW_k, dW_v) as views of the kernel's one
-    [dm, 2hd] dW_k | dW_v buffer."""
-    what = ("qkv_bwd_dq", "qkv_bwd_dkv")[which]
+    """Launch ``ptt_qkv_bwd`` with the ``walks`` mask: one projection
+    stage, the selected walks and one set of output GEMMs.  Returns (dx,
+    dW [dm, w] over the selected walks' columns of the packed q|k|v, dW_out
+    or None without the dq walk); one more launch of each selected walk's
+    kernel (``qkv_bwd_dq``, ``qkv_bwd_dkv``)."""
+    what = {WALK_DQ: "qkv_bwd_dq", WALK_DKV: "qkv_bwd_dkv",
+            WALK_DQ | WALK_DKV: "qkv_bwd"}[walks]
     b, t, dm, hd, strides, bias_ptr = _qkv_args(
         what, x, w_qkv, w_out, bias, n_head, g=g, ctx=ctx, lse=lse)
     drop = _dropout_args(dropout_rate, dropout_seed, t, t, what)
+    sms = sm_count(x.device)
     lib = _build.lib()
-    scratch = torch.empty(lib.ptt_qkv_bwd_scratch(which, b, t, dm, n_head),
-                          dtype=torch.float32, device=x.device)
+    scratch = torch.empty(
+        lib.ptt_qkv_bwd_scratch(walks, b, t, dm, n_head, sms),
+        dtype=torch.float32, device=x.device)
+    cols = hd * ((1 if walks & WALK_DQ else 0) + (2 if walks & WALK_DKV
+                                                  else 0))
     dx = torch.empty_like(x)
-    dw = torch.empty((dm, hd * (1 + which)), dtype=x.dtype, device=x.device)
-    outs = [dx.data_ptr(), dw.data_ptr()]
-    if not which:
-        dw_out = torch.empty((hd, dm), dtype=x.dtype, device=x.device)
-        outs.append(dw_out.data_ptr())
-    entry = (lib.ptt_qkv_bwd_dq, lib.ptt_qkv_bwd_dkv)[which]
-    err = entry(x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), bias_ptr,
-                *strides, g.data_ptr(), ctx.data_ptr(), lse.data_ptr(),
-                scratch.data_ptr(), *outs, b, t, dm, n_head, float(scale),
-                int(bool(causal)), *drop, _build.stream_of(x))
+    dw = torch.empty((dm, cols), dtype=x.dtype, device=x.device)
+    dw_out = (torch.empty((hd, dm), dtype=x.dtype, device=x.device)
+              if walks & WALK_DQ else None)
+    err = lib.ptt_qkv_bwd(
+        walks, x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), bias_ptr,
+        *strides, g.data_ptr(), ctx.data_ptr(), lse.data_ptr(),
+        scratch.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+        None if dw_out is None else dw_out.data_ptr(), b, t, dm, n_head, sms,
+        float(scale), int(bool(causal)), *drop, _build.stream_of(x))
     _build.check(err, what)
-    launches[what] += 1
-    return (dx, dw, dw_out) if not which else (dx, dw[:, :hd], dw[:, hd:])
+    for bit, name in ((WALK_DQ, "qkv_bwd_dq"), (WALK_DKV, "qkv_bwd_dkv")):
+        if walks & bit:
+            launches[name] += 1
+    return dx, dw, dw_out
+
+
+def reference_qkv_bwd(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1,
+                      scale=1.0, causal=False, dropout_rate=0.0,
+                      dropout_seed=0):
+    """Plain twin of the pair #2 + #3: (dx [b, t, dm], dW_qkv [dm, 3hd]
+    packed q|k|v, dW_out [hd, dm]) from g = dL/dy and #1's residuals: dq,
+    dk and dv as the twins of #6 and #7 compute them over the recomputed
+    q, k, v and dctx, then dx = [dq | dk | dv] w_qkv^T as one product,
+    dW_qkv = x^T [dq | dk | dv] and dW_out = ctx^T g."""
+    q, k, v, dctx, delta = _qkv_recompute(x, w_qkv, w_out, g, ctx, n_head)
+    dq = reference_flash_bwd_dq(q, k, v, bias, dctx, lse, delta, scale,
+                                causal, dropout_rate, dropout_seed)
+    dk, dv = reference_flash_bwd_dkv(q, k, v, bias, dctx, lse, delta, scale,
+                                     causal, dropout_rate, dropout_seed)
+    dqkv = torch.cat([_rows(dq), _rows(dk), _rows(dv)], dim=1)
+    dx = (dqkv @ w_qkv.transpose(0, 1)).reshape(x.shape)
+    return (dx, _rows(x).transpose(0, 1) @ dqkv,
+            _rows(ctx).transpose(0, 1) @ _rows(g))
+
+
+def qkv_bwd(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1, scale=1.0,
+            causal=False, dropout_rate=0.0, dropout_seed=0):
+    """The pair #2 + #3: (dx, dW_qkv packed [dm, 3hd], dW_out) as
+    :func:`reference_qkv_bwd` computes them, through one ``ptt_qkv_bwd``
+    call with both walks (CPU: the twin; CUDA: the kernels, the twin at a
+    composed head width, or an error).  Counts one launch, or one composed
+    call, of each of ``qkv_bwd_dq`` and ``qkv_bwd_dkv``."""
+    d_head = _d_head(w_qkv, n_head)
+    # on the card both names are counted as composed, or neither is
+    if x.device.type == "cpu" or (composes("qkv_bwd_dq", d_head)
+                                  and composes("qkv_bwd_dkv", d_head)):
+        return reference_qkv_bwd(x, w_qkv, w_out, bias, g, ctx, lse, n_head,
+                                 scale, causal, dropout_rate, dropout_seed)
+    return _launch_qkv_bwd(WALK_DQ | WALK_DKV, x, w_qkv, w_out, bias, g,
+                           ctx, lse, n_head, scale, causal, dropout_rate,
+                           dropout_seed)
 
 
 def qkv_bwd_dq(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1, scale=1.0,
                causal=False, dropout_rate=0.0, dropout_seed=0):
     """#2: (dx_q, dW_q, dW_out) as :func:`reference_qkv_bwd_dq` computes
-    them (CPU: the twin; CUDA: the kernel, the twin at a composed head
-    width, or an error)."""
+    them (CPU: the twin; CUDA: ``ptt_qkv_bwd`` with the dq walk alone, the
+    twin at a composed head width, or an error)."""
     if x.device.type == "cpu" or composes("qkv_bwd_dq",
                                           _d_head(w_qkv, n_head)):
         return reference_qkv_bwd_dq(x, w_qkv, w_out, bias, g, ctx, lse,
                                     n_head, scale, causal, dropout_rate,
                                     dropout_seed)
-    return _launch_qkv_bwd(0, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
-                           scale, causal, dropout_rate, dropout_seed)
+    return _launch_qkv_bwd(WALK_DQ, x, w_qkv, w_out, bias, g, ctx, lse,
+                           n_head, scale, causal, dropout_rate, dropout_seed)
 
 
 def qkv_bwd_dkv(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1, scale=1.0,
                 causal=False, dropout_rate=0.0, dropout_seed=0):
     """#3: (dx_kv, dW_k, dW_v) as :func:`reference_qkv_bwd_dkv` computes
-    them (CPU: the twin; CUDA: the kernel, the twin at a composed head
-    width, or an error)."""
+    them (CPU: the twin; CUDA: ``ptt_qkv_bwd`` with the dkv walk alone,
+    dW_k and dW_v as views of its [dm, 2hd] output, the twin at a composed
+    head width, or an error)."""
     if x.device.type == "cpu" or composes("qkv_bwd_dkv",
                                           _d_head(w_qkv, n_head)):
         return reference_qkv_bwd_dkv(x, w_qkv, w_out, bias, g, ctx, lse,
                                      n_head, scale, causal, dropout_rate,
                                      dropout_seed)
-    return _launch_qkv_bwd(1, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
-                           scale, causal, dropout_rate, dropout_seed)
+    dx, dw, _ = _launch_qkv_bwd(WALK_DKV, x, w_qkv, w_out, bias, g, ctx,
+                                lse, n_head, scale, causal, dropout_rate,
+                                dropout_seed)
+    hd = dw.shape[1] // 2
+    return dx, dw[:, :hd], dw[:, hd:]
 
 
 class _FlashQKVAttention(torch.autograd.Function):
     """y = flash_qkv_attention(x, w_qkv, w_out, bias); saves x, the
     weights, the bias and #1's residuals ctx and lse.  Its backward runs
-    #2 and #3, sums dx = dx_q + dx_kv and packs dW_qkv = [dW_q | dW_k |
-    dW_v] (the reference's ``_unpack_dw_qkv``, outside its kernels too).
+    the pair #2 + #3 once (:func:`qkv_bwd`), which returns dx whole and
+    dW_qkv packed as [dW_q | dW_k | dW_v] (the reference sums dx and
+    packs dW outside its kernels, ``_unpack_dw_qkv``).
     A bias that requires grad gets a plain recompute of ds reduced to its
     shape (the reference's ``_dbias_xla``, under the same dropout mask);
     attention masks do not, and get None.  Under dropout only the rate and
@@ -364,8 +423,7 @@ class _FlashQKVAttention(torch.autograd.Function):
         x, w_qkv, w_out, bias, ctx, lse = fn.saved_tensors
         kw = fn.kw
         args = (x, w_qkv, w_out, bias, g.contiguous(), ctx, lse)
-        dx_q, dw_q, dw_out = qkv_bwd_dq(*args, **kw)
-        dx_kv, dw_k, dw_v = qkv_bwd_dkv(*args, **kw)
+        dx, dw_qkv, dw_out = qkv_bwd(*args, **kw)
         dbias = None
         if fn.needs_input_grad[3]:
             q, k, v, dctx, delta = _qkv_recompute(
@@ -374,8 +432,7 @@ class _FlashQKVAttention(torch.autograd.Function):
                              kw["causal"], kw["dropout_rate"],
                              kw["dropout_seed"])
             dbias = _reduce_to(ds, bias.shape).to(bias.dtype)
-        return (dx_q + dx_kv, torch.cat([dw_q, dw_k, dw_v], dim=1), dw_out,
-                dbias, None, None, None, None, None)
+        return (dx, dw_qkv, dw_out, dbias, None, None, None, None, None)
 
 
 def flash_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
@@ -388,7 +445,7 @@ def flash_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
     [b, 1, 1, t], the decoder's [b, 1, t, t]).  Returns [b, t, d_model].
 
     Where autograd wants a gradient of any input it runs #1 with residuals
-    and, in the backward, #2 and #3 (gradients of x, w_qkv, w_out, and of
+    and, in the backward, the pair #2 + #3 in one call (gradients of x, w_qkv, w_out, and of
     the bias when it requires grad); otherwise #1 alone, as serving runs
     it under ``torch.no_grad()``.  CPU tensors take the plain twins; CUDA
     tensors launch the kernels, which take dh == 64 and d_model % 32 == 0

@@ -82,22 +82,24 @@ def _close(got, want, rtol=RTOL, atol=ATOL):
                                atol=atol)
 
 
-def _jax_kernels(x, w_qkv, w_out, g, bias, n_head, causal):
+def _jax_kernels(x, w_qkv, w_out, g, bias, n_head, causal, rate=0.0,
+                 seed=0):
     """(y, ctx [b, h, t, dh], lse, dx_q, dx_kv, dW_qkv, dW_out) from the
-    reference's interpret-mode kernels, dW packed as its VJP packs it."""
+    reference's interpret-mode kernels, dW packed as its VJP packs it; at
+    weights-dropout ``rate`` under the uint32 ``seed`` (hash masks)."""
     jx, jw, jo, jg, jb = (_j(a) for a in (x, w_qkv, w_out, g, bias))
     ok, bq, bk, interp = jax_attention._qkv_plan(jx, n_head, DH, 512, 512,
                                                  True, bias=jb)
     assert ok and interp  # the fused kernels run, not the composed path
     w3 = jax_attention._prep_w_qkv(jw, n_head, DH)
     wo = jax_attention._prep_w_out(jo, n_head, DH)
-    seed = jnp.zeros((1,), jnp.uint32)
+    jseed = jnp.asarray([seed], jnp.uint32)
     y, ctx, lse = jax_attention._qkv_forward(
-        jx, w3, wo, jb, seed, SCALE, causal, n_head, DH, bq, bk, True, 0.0,
-        False)
+        jx, w3, wo, jb, jseed, SCALE, causal, n_head, DH, bq, bk, True,
+        rate, False)
     dx_q, dx_kv, dwq, dwk, dwv, dwo = jax_attention._qkv_backward(
-        jx, w3, wo, jb, seed, ctx, lse, jg, SCALE, causal, n_head, DH, bq,
-        bk, True, 0.0, False)
+        jx, w3, wo, jb, jseed, ctx, lse, jg, SCALE, causal, n_head, DH, bq,
+        bk, True, rate, False)
     dw_qkv = jax_attention._unpack_dw_qkv(dwq, dwk, dwv, jnp.float32)
     return (y, ctx, lse, dx_q, dx_kv, dw_qkv,
             dwo.reshape(n_head * DH, DM))
@@ -148,6 +150,192 @@ def test_backward_twins_match_jax_kernels(name, n_head, t, bias_kind,
     got = (dx_q, dx_kv, torch.cat([dw_q, dw_k, dw_v], dim=1), dw_out)
     for a, w in zip(got, want):
         _close(a, w)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("name,n_head,t,bias_kind,causal", CASES)
+def test_pair_twin_matches_jax_kernels(name, n_head, t, bias_kind, causal,
+                                       rate):
+    """The pair's twin (dx, the packed dW_qkv, dW_out), from the
+    reference's own ctx and lse, against _qkv_bwd_dq_kernel and
+    _qkv_bwd_dkv_kernel together (interpret): dx against dx_q + dx_kv,
+    dW_qkv against the reference's _unpack_dw_qkv of dW_q, dW_k, dW_v, at
+    rate 0 and at rate 0.1 under one seed (the same hash mask)."""
+    x, w_qkv, w_out, g, bias = _inputs(n_head, t, bias_kind, seed=6)
+    seed = 0x9E3779B9 + n_head * t
+    _, ctx, lse, dx_q, dx_kv, dw_qkv, dw_out = _jax_kernels(
+        x, w_qkv, w_out, g, bias, n_head, causal, rate, seed)
+    args = [_t(a) for a in (x, w_qkv, w_out, bias, g)]
+    args += [torch.from_numpy(np.array(ctx).transpose(0, 2, 1, 3)),
+             torch.from_numpy(np.array(lse))]
+    dx, dw, dwo = ka.qkv_bwd(*args, n_head=n_head, scale=SCALE,
+                             causal=causal, dropout_rate=rate,
+                             dropout_seed=seed)
+    hd = n_head * DH
+    assert dx.shape == (B, t, DM) and dw.shape == (DM, 3 * hd)
+    assert dwo.shape == (hd, DM)
+    _close(dx, np.asarray(dx_q) + np.asarray(dx_kv))
+    _close(dw, dw_qkv)
+    _close(dwo, dw_out)
+
+
+@pytest.mark.parametrize("name,n_head,t,bias_kind,causal", CASES)
+def test_pair_twin_runs_float64(name, n_head, t, bias_kind, causal):
+    """In float64, from the float64 twin's ctx and lse, the pair's twin
+    gives the gradients of x, w_qkv and w_out that autograd gives through
+    a plain float64 softmax, to 1e-10."""
+    x, w_qkv, w_out, g, bias = _inputs(n_head, t, bias_kind, seed=7)
+    xd, wd, od, gd = (torch.from_numpy(a).double()
+                      for a in (x, w_qkv, w_out, g))
+    bd = None if bias is None else torch.from_numpy(bias).double()
+    kw = dict(n_head=n_head, scale=SCALE, causal=causal)
+    _, ctx, lse = ka.reference_qkv_fwd(xd, wd, od, bd, **kw)
+    got = ka.qkv_bwd(xd, wd, od, bd, gd, ctx, lse, **kw)
+    params = [a.clone().requires_grad_() for a in (xd, wd, od)]
+    want = torch.autograd.grad(
+        _composed64(*params, bd, n_head=n_head, causal=causal), params, gd)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float64
+        _close(a, w, rtol=1e-10, atol=1e-12)
+
+
+def _stand_in_library(monkeypatch, b, t, dm, n_head):
+    """A recording stand-in for the kernel library, with the operand
+    checks stubbed for meta tensors (whose data pointers are 0): returns
+    the list of (entry, args) calls it sees."""
+    from paddle_tpu_torch.kernels import _build
+
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls.append((name, args))
+                return 1 if name.endswith("scratch") else 0
+            return entry
+
+    monkeypatch.setattr(_build, "lib", Lib)
+    monkeypatch.setattr(_build, "stream_of", lambda x: 0)
+    monkeypatch.setattr(ka, "sm_count", lambda device: 132)
+    monkeypatch.setattr(ka, "_qkv_args", lambda what, x, w_qkv, w_out,
+                        bias, n_head, **more: (b, t, dm, n_head * DH,
+                                               (0,) * 4, None))
+    return calls
+
+
+def test_backward_makes_one_pair_call(monkeypatch):
+    """Off the CPU the autograd backward makes exactly one ptt_qkv_bwd call,
+    with both walks, and counts one launch of each of #2 and #3;
+    qkv_bwd_dq and qkv_bwd_dkv each call the same entry with their own
+    walk and count their own kernel.  A recording stand-in for the
+    library sees the calls (meta tensors stand in for the card's)."""
+    from paddle_tpu_torch import kernels
+
+    b, t, dm, n_head = 2, 64, 128, 2
+    hd = n_head * DH
+    calls = _stand_in_library(monkeypatch, b, t, dm, n_head)
+    kernels.reset_launches()
+    meta = dict(device="meta")
+    x = torch.zeros(b, t, dm, **meta, requires_grad=True)
+    w_qkv = torch.zeros(dm, 3 * hd, **meta, requires_grad=True)
+    w_out = torch.zeros(hd, dm, **meta, requires_grad=True)
+    g = torch.zeros(b, t, dm, **meta)
+    ka.flash_qkv_attention(x, w_qkv, w_out, None, n_head=n_head,
+                           scale=SCALE).backward(g)
+    pair = [args for name, args in calls if name == "ptt_qkv_bwd"]
+    assert len(pair) == 1
+    assert pair[0][0] == ka.WALK_DQ | ka.WALK_DKV == 3
+    assert pair[0][16:21] == (b, t, dm, n_head, 132)
+    assert ("ptt_qkv_bwd_scratch", (3, b, t, dm, n_head, 132)) in calls
+    assert kernels.launches == dict(kernels.launches, qkv_attention_fwd=1,
+                                    qkv_bwd_dq=1, qkv_bwd_dkv=1)
+    assert not any(n for k, n in kernels.launches.items()
+                   if k not in ("qkv_attention_fwd", "qkv_bwd_dq",
+                                "qkv_bwd_dkv"))
+    assert x.grad.shape == x.shape and w_qkv.grad.shape == w_qkv.shape
+    assert w_out.grad.shape == w_out.shape
+
+    ctx = torch.zeros(b, t, n_head, DH, **meta)
+    lse = torch.zeros(b, n_head, t, **meta)
+    args = (x.detach(), w_qkv.detach(), w_out.detach(), None, g, ctx, lse)
+    for fn, walk, name, shapes in (
+            (ka.qkv_bwd_dq, ka.WALK_DQ, "qkv_bwd_dq",
+             [(b, t, dm), (dm, hd), (hd, dm)]),
+            (ka.qkv_bwd_dkv, ka.WALK_DKV, "qkv_bwd_dkv",
+             [(b, t, dm), (dm, hd), (dm, hd)])):
+        calls.clear()
+        kernels.reset_launches()
+        out = fn(*args, n_head=n_head, scale=SCALE)
+        assert [a[0] for n, a in calls if n == "ptt_qkv_bwd"] == [walk]
+        assert {k: n for k, n in kernels.launches.items() if n} == {name: 1}
+        assert [tuple(a.shape) for a in out] == shapes
+    kernels.reset_launches()
+
+
+def test_pair_refuses_non_cpu_tensors():
+    """No fallback off the CPU: the pair's wrapper raises on tensors the
+    kernels cannot take, as #2's and #3's do."""
+    x, w_qkv, w_out, g, _ = _inputs(2, 64, None)
+    meta = [torch.from_numpy(a).to("meta") for a in (x, w_qkv, w_out, g)]
+    ctx = torch.zeros(B, 64, 2, DH, device="meta")
+    lse = torch.zeros(B, 2, 64, device="meta")
+    with pytest.raises(ValueError):
+        ka.qkv_bwd(*meta[:3], None, meta[3], ctx, lse, n_head=2)
+
+
+#: the pair's three GEMM layouts at a small size: (name, a [M, K] given
+#: row-major or as a transposed view, b likewise, a k-major, b k-major)
+GEMM_LAYOUTS = [("dx = dqkv w_qkv^T", False, True, False, False),
+                ("dW = x^T dqkv", True, False, True, True),
+                ("qkv = x w_qkv", False, False, False, True)]
+
+
+@pytest.mark.parametrize("name,a_t,b_t,a_km,b_km", GEMM_LAYOUTS)
+def test_gemm_passes_layouts_to_the_entry_point(monkeypatch, name, a_t, b_t,
+                                                a_km, b_km):
+    """The exported GEMM's wrapper reads each operand's layout from its
+    strides and hands ptt_gemm the operand's row stride and whether it is
+    k-major, the shape and the card's SM count, and counts one launch; on
+    CPU tensors it is a @ b."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import gemm as kg
+
+    m, n, k = 96, 80, 48
+    rng = np.random.RandomState(8)
+    a_np = rng.randn(m, k).astype(np.float32)
+    b_np = rng.randn(k, n).astype(np.float32)
+    a = torch.from_numpy(a_np.T.copy()).t() if a_t else _t(a_np)
+    b = torch.from_numpy(b_np.T.copy()).t() if b_t else _t(b_np)
+    _close(kg.gemm(a, b), a_np.astype(np.float64) @ b_np, atol=1e-5)
+    assert kg.operands(a, b)[3:] == ((m if a_km else k, a_km),
+                                     (n if b_km else k, b_km))
+    calls = _stand_in_library(monkeypatch, 1, 1, 1, 1)
+    monkeypatch.setattr(ka, "sm_count", lambda device: 114)
+    monkeypatch.setattr(kg, "_require_card", lambda a, b: None)
+    kernels.reset_launches()
+    c = kg.gemm(a.to("meta"), b.to("meta"))
+    assert c.shape == (m, n) and c.device.type == "meta"
+    (entry, args), = [c for c in calls if c[0] == "ptt_gemm"]
+    assert args[1:3] == ((m if a_km else k), int(a_km))
+    assert args[4:6] == ((n if b_km else k), int(b_km))
+    assert args[7:11] == (n, m, n, k) and args[12] == 114
+    assert {k_: v for k_, v in kernels.launches.items() if v} == {"gemm": 1}
+    kernels.reset_launches()
+
+
+def test_gemm_refuses_what_is_not_compiled():
+    """Both operands transposed (A k-major with B not) has no kernel, a
+    shape mismatch none either, and a device other than the CPU or a
+    card raises: no fallback."""
+    from paddle_tpu_torch.kernels import gemm as kg
+
+    with pytest.raises(ValueError, match="not compiled"):
+        kg.operands(torch.zeros(48, 96).t(), torch.zeros(80, 48).t())
+    with pytest.raises(ValueError, match="shapes"):
+        kg.operands(torch.zeros(4, 5), torch.zeros(4, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        kg.gemm(torch.zeros(4, 4, device="meta"),
+                torch.zeros(4, 4, device="meta"))
 
 
 @pytest.mark.parametrize("name,n_head,t,bias_kind,causal", CASES)

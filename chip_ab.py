@@ -1,5 +1,6 @@
-"""Alternate two checkouts of the port on one card: the fused Transformer
-training step and #1 at its smallest plan case, each checkout in
+"""Alternate two checkouts of the port on one card: the Transformer
+training step on the flag-off and the fused route, the BERT-base step on
+the bhtd route and #1 at its smallest plan case, each checkout in
 processes of its own.
 
     python3 chip_ab.py OTHER_CHECKOUT [--rounds 4]
@@ -16,7 +17,13 @@ reusing them) and runs this checkout's measuring code from
   base on the default route, batch 32, source and target 256, Adam; 3
   untimed steps, then ``TRAIN_TIMED_STEPS`` steps by the host clock
   (the launch counts and the falling loss checked as there), then one
-  step under ``torch.profiler`` for its device-busy time;
+  step under ``torch.profiler`` for its device-busy time and the
+  backward walks' share of it (``flash_walk.cuh``'s dq and dkv kernels);
+* the flag-off training step, phase 3 (d) (``fused_qkv_attention=False``:
+  #4, #6, #7 at all 18 sites), measured the same way;
+* the BERT-base step on the bhtd route, phase 3 (i) (``attention_fuse``:
+  #5, #8, #9 at 12 sites, dropout 0.1), batch 128, seq 128, Adam 1e-4,
+  measured the same way;
 * #1 (``qkv_attention_fwd`` with residuals) at t 8, b 4, d_model 512:
   CUDA events after an L2 flush with the host's enqueue counted
   (``cuda_ms``, as phase 2 times it) and hidden (``hide_host``), and
@@ -77,21 +84,58 @@ def measure(root):
     _build.lib()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
+    def profiled(model, opt, feed, **kw):
+        """(device busy ms, the backward walks' ms) of one step."""
+        with profile(activities=acts) as prof:
+            opt.minimize(model(**feed, **kw)[0])
+            torch.cuda.synchronize()
+        rows = cs._device_kernels(prof)
+        return sum(us for _, us in rows) / 1e3, cs._walks_us(rows) / 1e3
+
     L = cs.BASE["n_layer"]
-    model = paddle_tpu_torch.Transformer(**cs.BASE).init_params(seed=1)
-    opt = Adam(model.parameters(), learning_rate=cs.TRAIN_LR)
-    feed = cs._to(cs.training_batch(seed=2), "cuda")
-    for _ in range(WARM_STEPS):
-        opt.minimize(model(**feed)[0])
-    torch.cuda.synchronize()
-    step = cs._timed_training(model, opt, dict(
-        qkv_attention_fwd=2 * L, qkv_bwd_dq=2 * L, qkv_bwd_dkv=2 * L,
-        flash_fwd=L, flash_bwd_dq=L, flash_bwd_dkv=L))
-    with profile(activities=acts) as prof:
-        opt.minimize(model(**feed)[0])
+    steps = {}
+    for route, fused, per_step in (
+            ("fused", True, dict(
+                qkv_attention_fwd=2 * L, qkv_bwd_dq=2 * L,
+                qkv_bwd_dkv=2 * L, flash_fwd=L, flash_bwd_dq=L,
+                flash_bwd_dkv=L)),
+            ("flag_off", False, dict(flash_fwd=3 * L, flash_bwd_dq=3 * L,
+                                     flash_bwd_dkv=3 * L))):
+        model = paddle_tpu_torch.Transformer(
+            **cs.BASE, fused_qkv_attention=fused).init_params(seed=1)
+        opt = Adam(model.parameters(), learning_rate=cs.TRAIN_LR)
+        feed = cs._to(cs.training_batch(seed=2), "cuda")
+        for _ in range(WARM_STEPS):
+            opt.minimize(model(**feed)[0])
         torch.cuda.synchronize()
-    busy_ms = sum(us for _, us in cs._device_kernels(prof)) / 1e3
-    del model, opt, feed
+        step = cs._timed_training(model, opt, per_step)
+        busy_ms, walks_ms = profiled(model, opt, feed)
+        steps[route] = dict(step_ms=step["step_ms_median"],
+                            step_ms_range=step["step_ms_range"],
+                            busy_ms=busy_ms, walks_ms=walks_ms)
+        del model, opt, feed
+
+    from paddle_tpu_torch import BertPretrain, attention_fuse
+
+    Lb = cs.BERT["n_layer"]
+    bert = BertPretrain(**cs.BERT, dropout_rate=cs.DROPOUT,
+                        device="cuda").init_params(0)
+    attention_fuse(bert)
+    opt = Adam(bert.parameters(), learning_rate=cs.BERT_LR)
+    feed = cs._to(cs.bert_batch(cs.BERT_BATCH, seed=2), "cuda")
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(WARM_STEPS):
+        opt.minimize(bert(**feed, generator=gen)[0])
+    torch.cuda.synchronize()
+    step = cs._bert_timed(bert, opt, dict(
+        flash_fwd_bhtd=Lb, flash_bwd_dq_bhtd=Lb, flash_bwd_dkv_bhtd=Lb,
+        dropout_add_fwd=2 * Lb + 1, dropout_add_bwd=2 * Lb + 1), seed=4)
+    busy_ms, walks_ms = profiled(bert, opt, feed, generator=gen)
+    steps["bert_bhtd"] = dict(step_ms=step["step_ms_median"],
+                              step_ms_range=step["step_ms_range"],
+                              busy_ms=busy_ms, walks_ms=walks_ms)
+    del bert, opt, feed
+    torch.cuda.empty_cache()
 
     b, t, dm, bias_kind = QKV_T8
     gen = torch.Generator().manual_seed(0)
@@ -110,9 +154,8 @@ def measure(root):
         for _ in range(calls):
             fwd()
         torch.cuda.synchronize()
-    return dict(root=root, step_ms=step["step_ms_median"],
-                step_ms_range=step["step_ms_range"], step_busy_ms=busy_ms,
-                t8_ms=t8_ms, t8_device_ms=t8_device_ms,
+    return dict(root=root, steps=steps, t8_ms=t8_ms,
+                t8_device_ms=t8_device_ms,
                 t8_kernels_us=_per_call_us(cs, prof, calls))
 
 
@@ -166,7 +209,11 @@ def main():
     for label in ("other", "this"):
         mine = [r for r in runs if r["checkout"] == label]
         summary = {}
-        for key in ("step_ms", "step_busy_ms", "t8_ms", "t8_device_ms"):
+        for route in mine[0]["steps"]:
+            for key in ("step_ms", "busy_ms", "walks_ms"):
+                xs = [r["steps"][route][key] for r in mine]
+                summary[f"{route} {key}"] = (_median(xs), min(xs), max(xs))
+        for key in ("t8_ms", "t8_device_ms"):
             xs = [r[key] for r in mine]
             summary[key] = (_median(xs), min(xs), max(xs))
         names = sorted({n for r in mine for n in r["t8_kernels_us"]})

@@ -13,17 +13,23 @@ Phases, each fatal on failure:
    function.  The bthd flash kernels (#4, #6, #7) are checked on the
    encoder self-attention (key-padding bias [32, 1, 1, 256]), the decoder
    self-attention ([32, 1, 256, 256]), a cross case with target 128 and
-   source 256, a ``causal=True`` case, and a causal case with tq > tk and
-   a row masked to -1e30.  The bhtd flash kernels (#5, #8, #9) are
+   source 256, a ``causal=True`` case, a causal case with tq > tk and
+   a row masked to -1e30, and two ragged cases (tq = tk = 200 under the
+   decoder bias; causal tq 136 > tk 72 with a masked row), #6 and #7
+   each called twice for equal bits.  The bhtd flash kernels (#5, #8, #9) are
    checked at BERT-base's self-attention (q, k, v [128, 12, 128, 64],
    key-padding bias [128, 1, 1, 128] with -1e9 tails), with a per-head
    bias [128, 12, 128, 128] that requires grad (also through
    ``flash_attention(fmt="bhtd")``'s autograd: dq, dk, dv and dbias
    against autograd through the forward twin), ``causal=True``, causal
-   with tq 128 > tk 64 and a row masked to -1e30, and a cross case tq 64,
-   tk 128, each at rate 0 and 0.1 and each call repeated for equal bits,
-   and timed beside masked ``F.scaled_dot_product_attention`` and its
-   backward.  The fused-projection training kernels (#1 with
+   with tq 128 > tk 64 and a row masked to -1e30, a cross case tq 64,
+   tk 128, and two ragged cases (tq 72, tk 200; causal tq 200 > tk 136),
+   each at rate 0 and 0.1 and each call repeated for equal bits, and
+   timed beside masked ``F.scaled_dot_product_attention`` and its
+   backward.  Each layout's two backward walks are also timed in one
+   call sequence beside that backward (``flash_bwd``), and phase 1
+   prints each walk instantiation's registers, spills and shared memory
+   (``walk_builds``).  The fused-projection training kernels (#1 with
    its residuals ctx and lse, #2 and #3) are checked at batch 32, 8 heads,
    d_model 512 on the encoder self-attention (t 256, bias [32, 1, 1,
    256]), the decoder self-attention (t 256, [32, 1, 256, 256]), a
@@ -454,10 +460,27 @@ def timed_record(name, source, replaces, err, fn, plain, flops, nbytes,
     bound from flops, int_ops and nbytes, library timed where there is
     one."""
     bound_ms, bound_by = bound(flops, nbytes, int_ops)
+    ms = cuda_ms(fn)
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                max_abs_err=err, ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+                max_abs_err=err, ms=ms, plain_ms=cuda_ms(plain),
                 bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms,
                 library_ms=cuda_ms(library) if library else None, batch=b)
+
+
+def flash_bwd_record(replaces, err, fn, plain, flops, nbytes, library, b):
+    """A layout's two backward walks as the autograd backward calls them:
+    dq, then dk and dv, in one timed call sequence beside the library's
+    backward (dq, dk, dv) in the same run.  ``flops`` is b * h * 64 per
+    visible (q, k) pair, the MACs of one t x t product: the bound counts
+    the function's least work, five such products (s, dp, dq, dk, dv);
+    the two walks compute seven (s and dp in both), ``walks_bound_ms``."""
+    r = timed_record("flash_bwd", "paddle_tpu_torch/csrc/flash_walk.cuh",
+                     replaces, err, fn, plain, 10 * flops, nbytes, library,
+                     b)
+    r.update(walks_bound_ms=bound(14 * flops, nbytes)[0],
+             library_factor=r["ms"] / r["library_ms"])
+    return r
 
 
 def _spread_lengths(gen, b, lo, hi):
@@ -616,12 +639,16 @@ def check_paged_decode_kernels(gen, b):
 #: phase 2's bthd flash-attention cases at the training path's shapes:
 #: (name, tq, tk, bias, causal).  "pad" is the key-padding bias [b, 1, 1,
 #: tk], "decoder" the causal-plus-padding bias [b, 1, tq, tk] (both -1e9),
-#: "masked" the decoder bias with one row at -1e30
+#: "masked" the decoder bias with one row at -1e30; the two ragged cases
+#: take lengths that are multiples of neither 64 nor 128
 FLASH_CASES = (("encoder self", 256, 256, "pad", False),
                ("decoder self", 256, 256, "decoder", False),
                ("cross trg 128 src 256", 128, 256, "pad", False),
                ("causal", 256, 256, "pad", True),
-               ("causal tq>tk, -1e30 row", 256, 128, "masked", True))
+               ("causal tq>tk, -1e30 row", 256, 128, "masked", True),
+               ("ragged decoder tq 200 tk 200", 200, 200, "decoder", False),
+               ("ragged causal tq 136 tk 72, -1e30 row", 136, 72, "masked",
+                True))
 #: the case whose records go into the JSON line (the heaviest bias)
 FLASH_RECORD_CASE = "decoder self"
 TRAIN_BATCH, TRAIN_LEN = 32, 256
@@ -654,10 +681,12 @@ def _visible_pairs(tq, tk, causal):
 
 def check_flash_attention(gen):
     """#4, #6 and #7 against their plain twins on FLASH_CASES (the
-    backward kernels from the forward kernel's out and lse), then each
+    backward kernels from the forward kernel's out and lse), #6 and #7
+    called twice for equal bits, at rate 0 and at DROPOUT; then each
     timed beside its twin and the library yardstick: masked
     ``F.scaled_dot_product_attention`` for #4, its backward (dq, dk and
-    dv together) for #6 and #7.  Returns {(kernel, case): record}."""
+    dv together) for #6 and #7, and for both walks in one call sequence
+    (``flash_bwd``).  Returns {(kernel, case): record}."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import attention as ka
@@ -683,7 +712,11 @@ def check_flash_attention(gen):
         delta = (do * o).sum(-1).transpose(1, 2).contiguous()
         bw = (q, k, v, bias, do, lse, delta)
         dq = ka.flash_bwd_dq(*bw, **kw)
+        _require_same_bits(f"flash_bwd_dq {name}", (dq,),
+                           (ka.flash_bwd_dq(*bw, **kw),))
         dk, dv = ka.flash_bwd_dkv(*bw, **kw)
+        _require_same_bits(f"flash_bwd_dkv {name}", (dk, dv),
+                           ka.flash_bwd_dkv(*bw, **kw))
         want_dq = ka.reference_flash_bwd_dq(*bw, **kw)
         want_dk, want_dv = ka.reference_flash_bwd_dkv(*bw, **kw)
         torch.cuda.synchronize()
@@ -740,6 +773,13 @@ def check_flash_attention(gen):
             err_dkv, lambda: ka.flash_bwd_dkv(*bw, **kw),
             lambda: ka.reference_flash_bwd_dkv(*bw, **kw), 8 * flops,
             2 * rows + 4 * keys + bias_bytes + stats, lib_bwd, b)
+        out[("flash_bwd", name)] = flash_bwd_record(
+            "paddle_tpu/kernels/attention.py:618, :678",
+            max(err_dq, err_dkv), lambda: (ka.flash_bwd_dq(*bw, **kw),
+                                           ka.flash_bwd_dkv(*bw, **kw)),
+            lambda: (ka.reference_flash_bwd_dq(*bw, **kw),
+                     ka.reference_flash_bwd_dkv(*bw, **kw)), flops,
+            3 * rows + 4 * keys + bias_bytes + stats, lib_bwd, b)
         del lib_out
 
         # weights dropout at DROPOUT under one seed: the same checks, the
@@ -760,7 +800,11 @@ def check_flash_attention(gen):
         delta_d = (do * o_d).sum(-1).transpose(1, 2).contiguous()
         bw_d = (q, k, v, bias, do, lse_d, delta_d)
         dq_d = ka.flash_bwd_dq(*bw_d, **dkw)
+        _require_same_bits(f"flash_bwd_dq {name} dropout", (dq_d,),
+                           (ka.flash_bwd_dq(*bw_d, **dkw),))
         dk_d, dv_d = ka.flash_bwd_dkv(*bw_d, **dkw)
+        _require_same_bits(f"flash_bwd_dkv {name} dropout", (dk_d, dv_d),
+                           ka.flash_bwd_dkv(*bw_d, **dkw))
         want_dk, want_dv = ka.reference_flash_bwd_dkv(*bw_d, **dkw)
         errs.append(compare(f"flash_bwd_dq {name} dropout", dq_d,
                             ka.reference_flash_bwd_dq(*bw_d, **dkw),
@@ -800,12 +844,15 @@ BERT_PARITY_BATCH = 4
 #: causal).  "pad" is BERT's key-padding bias [b, 1, 1, tk] (-1e9 on
 #: ragged tails), "head" that plus a per-head bias [b, h, tq, tk] that
 #: requires grad (the dbias path), "masked" the padding bias as [b, 1, tq,
-#: tk] with one row at -1e30
+#: tk] with one row at -1e30; the two ragged cases take lengths that are
+#: multiples of neither 64 nor 128
 BHTD_CASES = (("bert self", 128, 128, "pad", False),
               ("per-head trainable bias", 128, 128, "head", False),
               ("causal", 128, 128, "pad", True),
               ("causal tq>tk, -1e30 row", 128, 64, "masked", True),
-              ("cross tq 64 tk 128", 64, 128, "pad", False))
+              ("cross tq 64 tk 128", 64, 128, "pad", False),
+              ("ragged tq 72 tk 200", 72, 200, "pad", False),
+              ("ragged causal tq 200 tk 136", 200, 136, "pad", True))
 #: the case whose records go into the JSON line (the main path's)
 BHTD_RECORD_CASE = "bert self"
 
@@ -837,7 +884,8 @@ def check_flash_attention_bhtd(gen):
     dbias).  Each kernel is then timed beside its twin and the library
     yardstick: ``F.scaled_dot_product_attention`` on the same [b, h, t, d]
     tensors with the bias (and the causal mask) as a float ``attn_mask``
-    for #5, its backward (dq, dk and dv together) for #8 and #9.  Returns
+    for #5, its backward (dq, dk and dv together) for #8 and #9, and for
+    both walks in one call sequence (``flash_bwd_bhtd``).  Returns
     {(kernel, case): record}."""
     import torch.nn.functional as F
 
@@ -977,6 +1025,15 @@ def check_flash_attention_bhtd(gen):
             if kernel == "flash_fwd_bhtd":
                 r["library_max_abs_err"] = lib_err
             out[(kernel, name)] = r
+        out[("flash_bwd_bhtd", name)] = flash_bwd_record(
+            "paddle_tpu/kernels/attention.py:247, :303",
+            max(errs[0.0]["flash_bwd_dq_bhtd"],
+                errs[0.0]["flash_bwd_dkv_bhtd"]),
+            lambda: (calls[0.0]["flash_bwd_dq_bhtd"](),
+                     calls[0.0]["flash_bwd_dkv_bhtd"]()),
+            lambda: (plain["flash_bwd_dq_bhtd"](),
+                     plain["flash_bwd_dkv_bhtd"]()), flops,
+            3 * rows + 4 * keys + bias_bytes + stats, lib_bwd, b)
         del lib_out, calls, bw0
     return out
 
@@ -3574,6 +3631,7 @@ def profile_training(model, tag, feed=None, lr=TRAIN_LR):
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 idle_share=1 - busy_us / wall_us if busy_us else None,
                 gemm_cuh_ms=_gemm_cuh_us(rows) / 1e3,
+                walks_ms=_walks_us(rows) / 1e3,
                 top=[(name[:60], us / 1e3) for name, us in rows[:12]])
 
 
@@ -3582,6 +3640,15 @@ def _gemm_cuh_us(rows):
     split-K sums) among the profiler's rows."""
     return sum(us for name, us in rows
                if "::gemm_kernel<" in name or "::sum_splits(" in name)
+
+
+def _walks_us(rows):
+    """Device us of the backward walks (``csrc/flash_walk.cuh``'s dq and
+    dkv kernels, in every layout and inside the pair) among the
+    profiler's rows."""
+    return sum(us for name, us in rows
+               if "flash_bwd_dq_kernel<" in name
+               or "flash_bwd_dkv_kernel<" in name)
 
 
 def profile_resnet(model):
@@ -3647,6 +3714,39 @@ def profile_deepfm(model):
 # ---------------------------------------------------------------------------
 
 
+def walk_builds(log, lib):
+    """Each instantiation of the backward walks in the build: its source,
+    registers, spills and stack (``-Xptxas -v``'s lines of ``log``) and
+    its block's dynamic shared memory (``ptt_flash_walk_smem``)."""
+    import re
+
+    out, src, cur = [], None, None
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].split()[0]
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = None
+            for kernel in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+                if kernel in m.group(1):
+                    cur = dict(kernel=kernel, source=src,
+                               layout="bhtd" if "Bhtd" in m.group(1)
+                               else "bthd", dropout="Lb1E" in m.group(1),
+                               smem_bytes=lib.ptt_flash_walk_smem(
+                                   int("dkv" in kernel)))
+                    out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if cur is not None and m:
+            cur.update(stack_bytes=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if cur is not None and m:
+            cur["registers"] = int(m[1])
+    return out
+
+
 def print_record(r, label):
     """Print a phase-2 record and append it to phase2_records.jsonl in
     OUT_DIR (stdout's tail may not reach back to phase 2)."""
@@ -3677,7 +3777,12 @@ def print_record(r, label):
           + (f"; 26 F.embedding calls {r['embedding_x26_ms']} ms"
              if "embedding_x26_ms" in r else "")
           + (f"; twin's bits: {r['twin_bit_equal']}"
-             if "twin_bit_equal" in r else ""))
+             if "twin_bit_equal" in r else "")
+          + (f"; {r['bound_share']:.1%} of the bound"
+             if "bound_share" in r else "")
+          + (f"; the walks' own bound (s, dp twice) {r['walks_bound_ms']} "
+             f"ms; {r['library_factor']:.3f}x the library"
+             if "library_factor" in r else ""))
 
 
 class _Tee:
@@ -3737,6 +3842,9 @@ def main():
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "== " in line:
             print("  " + line.strip())
+    builds = walk_builds(_build.build_log(), _build.lib())
+    for r in builds:
+        print(f"phase 1: {r}")
 
     gen = torch.Generator().manual_seed(0)
     records = {}
@@ -3763,6 +3871,18 @@ def main():
         print_record(r, f" {case} b={r['batch']}")
         if case == BHTD_RECORD_CASE:
             records[(name, max(BATCHES))] = r
+    # both walks of a layout in one call sequence, at the record case
+    flash_bwd = {"bthd": records.pop(("flash_bwd", max(BATCHES))),
+                 "bhtd": records.pop(("flash_bwd_bhtd", max(BATCHES)))}
+    # the walks' records in the JSON line carry their builds
+    for name, layout in (("flash_bwd_dq", "bthd"), ("flash_bwd_dkv", "bthd"),
+                         ("flash_bwd_dq_bhtd", "bhtd"),
+                         ("flash_bwd_dkv_bhtd", "bhtd")):
+        kernel = name.replace("_bhtd", "") + "_kernel"
+        records[(name, max(BATCHES))]["build"] = [
+            {k: v for k, v in r.items() if k not in ("kernel", "layout")}
+            for r in builds if r["kernel"] == kernel
+            and r["layout"] == layout and r["source"] == "flash_attention.cu"]
     pair = {}
     for (name, case), r in check_qkv_training(gen).items():
         residuals = " (residuals)" if name == "qkv_attention_fwd" else ""
@@ -3969,6 +4089,7 @@ def main():
             for name, ms in r["top"]:
                 print(f"    {ms:.4f} ms  {name}")
     bert_feed = _to(bert_batch(BERT_BATCH, seed=2), DEV)
+    profiles = {}
     for tag, m, kw in (("flag_off", train_model, {}),
                        ("fused", fused_train, {}),
                        ("fused_dropout", drop_models[0], {}),
@@ -3977,6 +4098,7 @@ def main():
                        ("bert_use_flash", bert_flash,
                         dict(feed=bert_feed, lr=BERT_LR))):
         r = profile_training(m, tag, **kw)
+        profiles[tag] = {k: v for k, v in r.items() if k != "top"}
         if not r["device_busy_ms"]:
             print(f"phase 4: training step {tag}: device time not measured "
                   f"(the profiler saw no device events)")
@@ -3984,7 +4106,7 @@ def main():
         print(f"phase 4: training step {tag}: wall {r['wall_ms']} ms, "
               f"device busy {r['device_busy_ms']} ms, idle share "
               f"{r['idle_share']}, gemm.cuh's kernels {r['gemm_cuh_ms']} "
-              f"ms")
+              f"ms, the backward walks {r['walks_ms']} ms")
         for name, ms in r["top"]:
             print(f"    {ms:.4f} ms  {name}")
     profile_rn = profile_resnet(resnet)
@@ -4048,6 +4170,8 @@ def main():
                       "profile_resnet": {k: v for k, v in profile_rn.items()
                                          if k != "top"},
                       "profile_deepfm": profile_fm, "gemm": gemm_records,
+                      "flash_bwd": flash_bwd, "walk_builds": builds,
+                      "profile_training": profiles,
                       "power": smi}))
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {

@@ -21,26 +21,31 @@
 // block (a single bulk copy for a later TMA design); the staging here reads
 // it as the bthd kernels read their strided rows.
 //
-// Grid: the forward and dq take one block per (64-row q tile, head, batch
-// row) and walk the k tiles; dkv takes one block per (64-row k tile,
-// head, batch row) and walks the q tiles.  The TPU kernels walk all heads
-// of a batch row in one grid step in bthd (whole-head tiles suit Mosaic's
-// (8, 128) layout) and one (batch row, head) per grid row in bhtd; here a
-// head is a block in both, so b * h * t / 64 blocks fill the card.  Every
-// output element belongs to one block, which sums in a fixed order: no
-// atomics, and the results are the same from run to run.
+// Grid: the forward takes one block per (64-row q tile, head, batch row)
+// and walks the 64-row k tiles; dq one block per (128-row q tile, head,
+// batch row) walking the k tiles, dkv one per (128-row k tile, head,
+// batch row) walking the q tiles, 64 rows a step.  The TPU kernels walk
+// all heads of a batch row in one grid step in bthd (whole-head tiles
+// suit Mosaic's (8, 128) layout) and one (batch row, head) per grid row in
+// bhtd; here a head is a block in both, so b * h * t / 64 (forward) or
+// / 128 (backward) blocks fill the card.  Every output element belongs to
+// one block, which sums in a fixed order: no atomics, and the results are
+// the same from run to run.
 //
-// The tiles, the tile product and both backward walks live in
-// flash_walk.cuh, which the fused-projection backward (#2, #3) shares: 256
-// threads, a 4x4 patch of every 64x64x64 tile product per thread.
+// The tiles, the tile products and both backward walks live in
+// flash_walk.cuh, which the fused-projection backward (#2, #3) shares.
+// The forward: 256 threads, a 4x4 patch of every 64x64x64 tile product per
+// thread, its tiles loaded synchronously.  The backward walks: 256
+// threads, one block an SM, an 8x4 patch of every [128, 64] product, each
+// operand tile staged once as it lies in memory through a two-stage
+// cp.async ring, the bias staged row by row.
 //
 // Bound: f32 FMA work on the CUDA cores (the run is f32 with TF32 off):
 // 4, 6 and 8 * b*h*tq*tk*64 FLOPs for forward, dq and dkv against 67
 // TFLOP/s.  Each reads 3 to 6 [b, t, h, 64] tensors once per tile walk,
-// about a third of the FLOP time at t = 256.  The design stages each tile
-// in shared memory once per block and does 16 FMAs per pair of operands a
-// thread loads.  No tensor cores (wgmma, TF32), no load pipelining: later
-// work.
+// about a third of the FLOP time at t = 256.  The forward does 16 FMAs per
+// pair of operands a thread loads, the walks 128 per 12 float4 reads.  No
+// tensor cores (wgmma, TF32), no TMA: later work.
 //
 // Weights dropout (the reference's dropout on the softmax, inside the
 // kernels): the normalizer l sums the undropped p, the p tile multiplying
@@ -228,6 +233,12 @@ int run_dkv(L l, const float* q, const float* k, const float* v,
 }
 
 }  // namespace
+
+// Dynamic shared memory of a backward walk's block in bytes: the dq walk
+// (dkv 0) or the dkv walk (dkv 1).
+extern "C" int64_t ptt_flash_walk_smem(int dkv) {
+  return (int64_t)(dkv ? kDkvSmem : kDqSmem);
+}
 
 // #4.  q [b, tq, h, 64], k and v [b, tk, h, 64], o like q, lse [b, h, tq];
 // all contiguous f32.  bias may be null; otherwise its element (b, h, q, k)

@@ -20,20 +20,44 @@
 // of the dropped output.  At rate 0 the callers launch the instantiation
 // without the hash.
 //
-// Grid: dq takes one block per (64-row q tile, head, batch row) and walks
-// the k tiles; dkv one block per (64-row k tile, head, batch row) and walks
-// the q tiles.  Every output element belongs to one block, which sums in a
-// fixed order: no atomics, and the results are the same from run to run.
+// Grid: dq takes one block per (128-row q tile, head, batch row) and walks
+// the k tiles, 64 rows a step; dkv one block per (128-row k tile, head,
+// batch row) and walks the q tiles, 64 rows a step.  Every output element
+// belongs to one block, which sums in a fixed order: no atomics, and the
+// results are the same from run to run.
 //
-// 256 threads; in every 64x64x64 tile product each thread owns a 4x4 patch
-// (rows 4*ty.., cols 4*tx..), reads its A rows from a tile of row stride
-// 65 (one address per half warp) and its B columns as float4 from a tile
-// of row stride 68.
+// Tiles: 256 threads, one block an SM.  Every tile product of a walk is a
+// [128, 64] tile over a 64-deep sum (walk_mma): each thread owns an 8x4
+// patch, rows ty + 16i, and reads its A rows as float4 along the sum; B is
+// read either along the sum too (s = q k^T, dp = dO v^T and their
+// transposes: columns tx + 16j) or along its rows (dq += ds k, dv += p^T
+// dO, dk += ds^T q: columns 4tx..).  So every operand tile is staged once,
+// as it lies in memory.  Per 4-deep slice a thread makes 12 conflict-free
+// float4 reads (row strides 68 and 72) for 128 FMAs: 2.67 FMAs per word
+// read, against the 4x4 patch's 2.  An SM's shared memory returns 32
+// words a clock to 128 FMA lanes, so this holds a product to two thirds
+// of the FMA rate.  An 8x8 patch (4 FMAs a word) needs 64 more
+// accumulators a thread than the 246-254 registers these walks take, past
+// the 255 a thread can have (its trials ran slower: PERF.md).
+//
+// Loads: 16-byte cp.async into a ring of two stages, the next step's k
+// and v (dq) or q, dO, lse and delta (dkv) in flight while this step
+// computes; rows past t come in as zeros through cp.async's source size.
+// A block's first loads come in two groups: s's (or s^T's) operands
+// first, the rest while that product runs.  An additive bias is staged per
+// step by cp.async, row by row as it lies in memory (16 bytes a copy where
+// its rows allow, a bias broadcast along q stages one row), after this
+// step's scores have consumed the last one.
+//
+// Shared memory: kDqSmem (q, dO, two k/v stages, ds, bias) and kDkvSmem
+// (k, v, two q/dO stages, p^T, one buffer for the bias and then ds^T,
+// lse and delta): 208 and 209 KB (KB = 1024 bytes).  At DH 128 the same
+// dkv tile would take 337 KB, above a block's 227: it would need 64-row k
+// tiles and one stage (169 KB).
 //
 // Bound: f32 FMA work on the CUDA cores (TF32 off): 6 and 8 * b*h*tq*tk*64
-// FLOPs for dq and dkv against 67 TFLOP/s.  Each step stages its tiles in
-// shared memory once per block and does 16 FMAs per pair of operands a
-// thread loads.  No tensor cores, no load pipelining: later work.
+// FLOPs for dq and dkv against 67 TFLOP/s.  No tensor cores, no TMA:
+// later work.
 //
 // Masking: causal keys (bottom-right aligned, offset tk - tq) and keys past
 // tk give p = 0; a row masked in the forward has lse = +inf, so p = 0 and
@@ -54,14 +78,28 @@ using hash_rng::Dropout;
 constexpr int BT = 64;      // rows of a q or k tile
 constexpr int DH = 64;      // head width
 constexpr int NT = 256;     // threads per block
+
+// The forward's tiles (flash_attention.cu): 64x64x64 products, a 4x4
+// patch a thread.
 constexpr int AS = BT + 1;  // row stride of A-operand tiles
 constexpr int BS = BT + 4;  // row stride of B-operand tiles (float4 rows)
-
 constexpr int kATile = BT * AS;  // floats
 constexpr int kBTile = BT * BS;
-constexpr size_t kDqSmem = (3 * kATile + 3 * kBTile) * sizeof(float);
-constexpr size_t kDkvSmem = (4 * kATile + 4 * kBTile + 2 * BT) *
-                            sizeof(float);
+
+// The backward walks' tiles.
+constexpr int WM = 128;       // rows a walk block owns
+constexpr int WN = BT;        // rows of a tile it walks
+constexpr int TS = DH + 4;    // row stride of q, k, v, dO tiles
+constexpr int PS = WN + 8;    // row stride of p, ds and the dq bias tile
+constexpr int QBS = WM + 4;   // row stride of the dkv bias tile [WN][WM]
+constexpr int kOwnTile = WM * TS;  // floats
+constexpr int kWalkTile = WN * TS;
+constexpr int kPTile = WM * PS;
+static_assert(WN * QBS <= kPTile, "the dkv bias tile fits its buffer");
+constexpr size_t kDqSmem =
+    (2 * kOwnTile + 4 * kWalkTile + 2 * kPTile) * sizeof(float);
+constexpr size_t kDkvSmem =
+    (2 * kOwnTile + 4 * kWalkTile + 2 * kPTile + 4 * WN) * sizeof(float);
 
 // Additive bias broadcast to [b, h, tq, tk] through its four strides (a
 // broadcast dim has stride 0); p == nullptr means no bias.
@@ -179,12 +217,14 @@ __device__ __forceinline__ void store_rows(float* dst, L l,
   }
 }
 
-// k tiles a q tile starting at q0 walks: all, or under the causal mask
-// only those with a key at or before the tile's last query + offset.
-__device__ __forceinline__ int kv_tiles(int q0, int tq, int tk, int causal) {
+// 64-row k tiles a q tile of `rows` rows starting at q0 walks: all, or
+// under the causal mask only those with a key at or before the tile's
+// last query + offset.
+__device__ __forceinline__ int kv_tiles(int q0, int tq, int tk, int causal,
+                                        int rows = BT) {
   int n = (tk + BT - 1) / BT;
   if (causal) {
-    const int hi = min(q0 + BT, tq) - 1 + (tk - tq);
+    const int hi = min(q0 + rows, tq) - 1 + (tk - tq);
     n = hi < 0 ? 0 : min(n, hi / BT + 1);
   }
   return n;
@@ -199,67 +239,257 @@ __device__ __forceinline__ uint32_t block_head_seed(const Dropout& drop,
               : 0u;
 }
 
-// dq of one (64-row q tile, head, batch row); lse and delta [b, h, tq];
+// ---------------------------------------------------------------------------
+// The backward walks
+// ---------------------------------------------------------------------------
+
+// 16-byte cp.async into shared memory: `bytes` (16 or 0) of them read from
+// src, the rest zero-filled.
+__device__ __forceinline__ void async_copy16(float* dst, const float* src,
+                                             int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+// 4-byte cp.async: `bytes` (4 or 0) read from src, the rest zero-filled.
+__device__ __forceinline__ void async_copy4(float* dst, const float* src,
+                                            int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A walk thread's place in every [WM, 64] tile product: rows ty + 16i
+// (i < 8), columns tx + 16j or 4tx + j (j < 4).  A warp holds 4
+// consecutive ty and 8 consecutive tx.
+__device__ __forceinline__ int walk_ty() {
+  return 4 * (threadIdx.x >> 6) + ((threadIdx.x >> 3) & 3);
+}
+
+__device__ __forceinline__ int walk_tx() {
+  return 8 * ((threadIdx.x >> 5) & 1) + (threadIdx.x & 7);
+}
+
+// Start the copy of rows [r0, r0 + R) of head `head` of src into dst (row
+// stride TS); rows at or past t come in as zeros.
+template <int R, class L>
+__device__ __forceinline__ void stage_rows(float* dst, Rows<L> src, int bi,
+                                           int r0, int t, int head) {
+#pragma unroll
+  for (int u = 0; u < R * (DH / 4) / NT; ++u) {
+    const int idx = threadIdx.x + u * NT;
+    const int row = idx / (DH / 4);
+    const int c4 = idx % (DH / 4);
+    const bool in = r0 + row < t;
+    async_copy16(dst + row * TS + c4 * 4,
+                 src.at(bi, t, in ? r0 + row : r0, head) + c4 * 4,
+                 in ? 16 : 0);
+  }
+}
+
+// Start the copy of [tq] rows (lse or delta of one head) q0.. into dst
+// (WN floats); rows past tq come in as zeros.  Threads [first, first + WN).
+__device__ __forceinline__ void stage_stats(float* dst, const float* src,
+                                            int q0, int tq, int first) {
+  const int r = threadIdx.x - first;
+  if (r >= 0 && r < WN) {
+    const bool in = q0 + r < tq;
+    async_copy4(dst + r, src + (in ? q0 + r : q0), in ? 4 : 0);
+  }
+}
+
+// Start the copy of the bias of queries [q0, q0 + NQ) x keys [k0, k0 +
+// NK) of one head into dst[(q - q0) * ld + k - k0], consecutive threads on
+// consecutive keys (the bias's rows as they lie in memory); a bias
+// broadcast along q (sq == 0) stages its one row.  Zero outside [tq] x
+// [tk].  Rows of contiguous keys, 16-byte aligned, come in 16 bytes a
+// copy, any other bias element by element.
+template <int NQ, int NK>
+__device__ __forceinline__ void stage_bias(float* dst, int ld,
+                                           const Bias& bias, int bi,
+                                           int head, int q0, int tq, int k0,
+                                           int tk) {
+  const float* base = bias.p + bi * bias.sb + head * bias.sh;
+  const int rows = bias.sq ? NQ : 1;
+  if (bias.sk == 1 && bias.sq % 4 == 0 && tk % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(base) % 16 == 0) {
+    for (int idx = threadIdx.x; idx < rows * (NK / 4); idx += NT) {
+      const int r = idx / (NK / 4);
+      const int c = idx % (NK / 4) * 4;
+      const bool in = q0 + r < tq && k0 + c < tk;
+      async_copy16(dst + r * ld + c,
+                   base + (in ? (q0 + r) * bias.sq + k0 + c : 0),
+                   in ? 16 : 0);
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < rows * NK; idx += NT) {
+    const int q = q0 + idx / NK;
+    const int k = k0 + idx % NK;
+    const bool in = q < tq && k < tk;
+    async_copy4(dst + (idx / NK) * ld + idx % NK,
+                base + (in ? q * bias.sq + k * bias.sk : 0), in ? 4 : 0);
+  }
+}
+
+// c[i][j] += sum over kk < 64 of A(ty + 16i, kk) B(kk, col j), summed in
+// increasing kk.  A is row-major (row stride lda), read as float4 along
+// kk.  With BT_ (B read along the sum) B(kk, n) = B[n * ldb + kk] and col
+// j = tx + 16j; else B(kk, n) = B[kk * ldb + n] and col j = 4tx + j.
+template <bool BT_>
+__device__ __forceinline__ void walk_mma(const float* A, int lda,
+                                         const float* B, int ldb,
+                                         float (&c)[8][4]) {
+  const int ty = walk_ty();
+  const int tx = walk_tx();
+  // 4 slices an iteration: the fastest of 1, 2, 4 and 16 on an H100 (16
+  // overflow the instruction cache)
+#pragma unroll 4
+  for (int k0 = 0; k0 < DH; k0 += 4) {
+    float a[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 t =
+          *reinterpret_cast<const float4*>(A + (ty + 16 * i) * lda + k0);
+      a[i][0] = t.x; a[i][1] = t.y; a[i][2] = t.z; a[i][3] = t.w;
+    }
+    float b[4][4];  // b[kk][j]
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 t = *reinterpret_cast<const float4*>(
+          BT_ ? B + (tx + 16 * j) * ldb + k0 : B + (k0 + j) * ldb + 4 * tx);
+      if (BT_) {
+        b[0][j] = t.x; b[1][j] = t.y; b[2][j] = t.z; b[3][j] = t.w;
+      } else {
+        b[j][0] = t.x; b[j][1] = t.y; b[j][2] = t.z; b[j][3] = t.w;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) c[i][j] += a[i][kk] * b[kk][j];
+  }
+}
+
+__device__ __forceinline__ void zero_patch(float (&c)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+}
+
+// Store a walk thread's patch of a [WM, 64] tile (rows ty + 16i, columns
+// 4tx..) into rows r0 + ty + 16i (below t) of head `head` of dst.
+template <class L>
+__device__ __forceinline__ void store_walk_rows(float* dst, L l,
+                                                const float (&c)[8][4],
+                                                int bi, int r0, int t,
+                                                int head) {
+  const int ty = walk_ty();
+  const int tx = walk_tx();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = r0 + ty + 16 * i;
+    if (r < t)
+      *reinterpret_cast<float4*>(dst + l.at(bi, t, r, head) + tx * 4) =
+          make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
+  }
+}
+
+// dq of one (128-row q tile, head, batch row); lse and delta [b, h, tq];
 // dq laid out by dq_l.
 template <class L, bool DROP>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 flash_bwd_dq_kernel(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
                     Rows<L> dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, float* dq, L dq_l,
                     int tq, int tk, int h, float scale, int causal,
                     Dropout drop) {
   extern __shared__ float smem[];
-  float* q_s = smem;              // [BT][AS] q
-  float* do_s = q_s + kATile;     // [BT][AS] dO
-  float* ds_s = do_s + kATile;    // [BT][AS] ds of one k tile
-  float* kt_s = ds_s + kATile;    // [DH][BS] k^T
-  float* vt_s = kt_s + kBTile;    // [DH][BS] v^T
-  float* k_s = vt_s + kBTile;     // [BT][BS] k
+  float* q_s = smem;                   // [WM][TS] q
+  float* do_s = q_s + kOwnTile;        // [WM][TS] dO
+  float* kv_s = do_s + kOwnTile;       // two stages of [WN][TS] k, v
+  float* ds_s = kv_s + 4 * kWalkTile;  // [WM][PS] ds of one k tile
+  float* bias_s = ds_s + kPTile;       // [WM][PS] bias of one k tile
 
-  const int q0 = blockIdx.x * BT;
+  const int q0 = blockIdx.x * WM;
   const int head = blockIdx.y;
   const int bi = blockIdx.z;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
+  const int ty = walk_ty();
+  const int tx = walk_tx();
   const int offset = tk - tq;
   const uint32_t hseed = block_head_seed<DROP>(drop, bi, h, head);
+  const int brow = bias.sq ? PS : 0;  // a broadcast bias has one row
+  const int n_kv = kv_tiles(q0, tq, tk, causal, WM);
 
-  load_rows(q_s, AS, q, bi, q0, tq, head);
-  load_rows(do_s, AS, dout, bi, q0, tq, head);
-  float lse_r[4], delta_r[4];
+  float lse_r[8], delta_r[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int qpos = q0 + ty + 16 * i;
     const size_t at = ((size_t)bi * h + head) * tq + qpos;
     lse_r[i] = qpos < tq ? lse[at] : INFINITY;
     delta_r[i] = qpos < tq ? delta[at] : 0.f;
   }
-  float acc[4][4];
-  zero(acc);
-
-  const int n_kv = kv_tiles(q0, tq, tk, causal);
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // the last tile's operands and ds_s are consumed
-    load_rows_t(kt_s, k, bi, k0, tk, head);
-    load_rows_t(vt_s, v, bi, k0, tk, head);
-    load_rows(k_s, BS, k, bi, k0, tk, head);
+  float acc[8][4];
+  zero_patch(acc);
+  if (n_kv > 0) {  // s's operands first, the rest while s is computed
+    stage_rows<WM>(q_s, q, bi, q0, tq, head);
+    stage_rows<WN>(kv_s, k, bi, 0, tk, head);
+    async_commit();
+    stage_rows<WM>(do_s, dout, bi, q0, tq, head);
+    stage_rows<WN>(kv_s + kWalkTile, v, bi, 0, tk, head);
+    if (bias.p) stage_bias<WM, WN>(bias_s, PS, bias, bi, head, q0, tq, 0, tk);
+    async_commit();
+    async_wait<1>();
     __syncthreads();
-    float s[4][4], dp[4][4];
-    zero(s);
-    zero(dp);
-    tile_mma(q_s, kt_s, s);
-    tile_mma(do_s, vt_s, dp);
+  }
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int k0 = kt * WN;
+    const float* k_s = kv_s + (kt & 1) * 2 * kWalkTile;
+    const float* v_s = k_s + kWalkTile;
+    const bool more = kt + 1 < n_kv;
+    if (more) {  // the next k, v into the stage the last step left
+      float* next = kv_s + ((kt + 1) & 1) * 2 * kWalkTile;
+      stage_rows<WN>(next, k, bi, k0 + WN, tk, head);
+      stage_rows<WN>(next + kWalkTile, v, bi, k0 + WN, tk, head);
+      async_commit();
+    }
+    float s[8][4], dp[8][4];
+    zero_patch(s);
+    zero_patch(dp);
+    walk_mma<true>(q_s, TS, k_s, TS, s);
+    if (kt == 0) {  // dO, v and the bias of the first step
+      if (more)
+        async_wait<1>();
+      else
+        async_wait<0>();
+      __syncthreads();
+    }
+    walk_mma<true>(do_s, TS, v_s, TS, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+    for (int i = 0; i < 8; ++i) {
+      const int qpos = q0 + ty + 16 * i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx * 4 + j;
+        const int kpos = k0 + tx + 16 * j;
         float p = 0.f;
         if (qpos < tq && kpos < tk && !(causal && qpos + offset < kpos)) {
           float sv = s[i][j] * scale;
-          if (bias.p) sv += bias.at(bi, head, qpos, kpos);
+          if (bias.p) sv += bias_s[(ty + 16 * i) * brow + tx + 16 * j];
           p = expf(sv - lse_r[i]);
         }
         float dpv = dp[i][j];
@@ -267,86 +497,120 @@ flash_bwd_dq_kernel(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
           dpv = hash_rng::keep_attn(hseed, (uint32_t)qpos * tk + kpos,
                                     drop.threshold)
                     ? dpv * drop.inv_keep : 0.f;
-        ds_s[(ty * 4 + i) * AS + tx * 4 + j] =
+        ds_s[(ty + 16 * i) * PS + tx + 16 * j] =
             p * (dpv - delta_r[i]) * scale;
       }
     }
-    __syncthreads();
-    tile_mma(ds_s, k_s, acc);
+    __syncthreads();  // ds_s is whole; bias_s is consumed
+    if (more && bias.p) {
+      stage_bias<WM, WN>(bias_s, PS, bias, bi, head, q0, tq, k0 + WN, tk);
+      async_commit();
+    }
+    walk_mma<false>(ds_s, PS, k_s, TS, acc);
+    async_wait<0>();
+    __syncthreads();  // the next stage has landed; this one is consumed
   }
-  store_rows(dq, dq_l, acc, bi, q0, tq, head);
+  store_walk_rows(dq, dq_l, acc, bi, q0, tq, head);
 }
 
-// dk and dv of one (64-row k tile, head, batch row), both laid out by
+// dk and dv of one (128-row k tile, head, batch row), both laid out by
 // dkv_l.
 template <class L, bool DROP>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 flash_bwd_dkv_kernel(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
                      Rows<L> dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, float* dk, float* dv,
                      L dkv_l, int tq, int tk, int h, float scale,
                      int causal, Dropout drop) {
   extern __shared__ float smem[];
-  float* k_s = smem;               // [BT][AS] k
-  float* v_s = k_s + kATile;       // [BT][AS] v
-  float* pt_s = v_s + kATile;      // [BT][AS] p^T of one q tile
-  float* dst_s = pt_s + kATile;    // [BT][AS] ds^T of one q tile
-  float* qt_s = dst_s + kATile;    // [DH][BS] q^T
-  float* dot_s = qt_s + kBTile;    // [DH][BS] dO^T
-  float* q_s = dot_s + kBTile;     // [BT][BS] q
-  float* do_s = q_s + kBTile;      // [BT][BS] dO
-  float* lse_s = do_s + kBTile;    // [BT]
-  float* delta_s = lse_s + BT;     // [BT]
+  float* k_s = smem;                   // [WM][TS] k
+  float* v_s = k_s + kOwnTile;         // [WM][TS] v
+  float* qd_s = v_s + kOwnTile;        // two stages of [WN][TS] q, dO
+  float* p_s = qd_s + 4 * kWalkTile;   // [WM][PS] p^T of one q tile
+  float* bd_s = p_s + kPTile;          // [WN][QBS] bias, then [WM][PS] ds^T
+  float* st_s = bd_s + kPTile;         // two stages of [WN] lse, delta
 
-  const int k0 = blockIdx.x * BT;
+  const int k0 = blockIdx.x * WM;
   const int head = blockIdx.y;
   const int bi = blockIdx.z;
-  const int ty = threadIdx.x / 16;  // key rows 4ty..
-  const int tx = threadIdx.x % 16;  // query (or d) columns 4tx..
+  const int ty = walk_ty();  // key rows ty + 16i
+  const int tx = walk_tx();  // query columns tx + 16j (d columns 4tx..)
   const int offset = tk - tq;
   const uint32_t hseed = block_head_seed<DROP>(drop, bi, h, head);
+  const int brow = bias.sq ? QBS : 0;  // a broadcast bias has one row
+  const float* lse_h = lse + ((size_t)bi * h + head) * tq;
+  const float* delta_h = delta + ((size_t)bi * h + head) * tq;
 
-  load_rows(k_s, AS, k, bi, k0, tk, head);
-  load_rows(v_s, AS, v, bi, k0, tk, head);
-  float dk_acc[4][4], dv_acc[4][4];
-  zero(dk_acc);
-  zero(dv_acc);
-
-  const int n_q = (tq + BT - 1) / BT;
+  const int n_q = (tq + WN - 1) / WN;
   // under the causal mask, q tiles wholly before this tile's first key
   // (shifted by the offset) see none of its keys
-  const int lo = causal ? max(k0 - offset, 0) / BT : 0;
-  for (int qt = lo; qt < n_q; ++qt) {
-    const int q0 = qt * BT;
-    __syncthreads();  // the last tile's operands are consumed
-    load_rows_t(qt_s, q, bi, q0, tq, head);
-    load_rows_t(dot_s, dout, bi, q0, tq, head);
-    load_rows(q_s, BS, q, bi, q0, tq, head);
-    load_rows(do_s, BS, dout, bi, q0, tq, head);
-    if (threadIdx.x < BT) {
-      const int qpos = q0 + threadIdx.x;
-      const size_t at = ((size_t)bi * h + head) * tq + qpos;
-      lse_s[threadIdx.x] = qpos < tq ? lse[at] : INFINITY;
-      delta_s[threadIdx.x] = qpos < tq ? delta[at] : 0.f;
-    }
+  const int lo = causal ? max(k0 - offset, 0) / WN : 0;
+  float dk_acc[8][4], dv_acc[8][4];
+  zero_patch(dk_acc);
+  zero_patch(dv_acc);
+  if (lo < n_q) {  // s^T's operands first, the rest while it is computed
+    const int q0 = lo * WN;
+    stage_rows<WM>(k_s, k, bi, k0, tk, head);
+    stage_rows<WN>(qd_s, q, bi, q0, tq, head);
+    async_commit();
+    stage_rows<WM>(v_s, v, bi, k0, tk, head);
+    stage_rows<WN>(qd_s + kWalkTile, dout, bi, q0, tq, head);
+    stage_stats(st_s, lse_h, q0, tq, 0);
+    stage_stats(st_s + WN, delta_h, q0, tq, WN);
+    if (bias.p) stage_bias<WN, WM>(bd_s, QBS, bias, bi, head, q0, tq, k0, tk);
+    async_commit();
+    async_wait<1>();
     __syncthreads();
-    float st[4][4], dpt[4][4];
-    zero(st);
-    zero(dpt);
-    tile_mma(k_s, qt_s, st);
-    tile_mma(v_s, dot_s, dpt);
+  }
+
+  for (int qt = lo; qt < n_q; ++qt) {
+    const int q0 = qt * WN;
+    const int slot = (qt - lo) & 1;
+    const float* q_t = qd_s + slot * 2 * kWalkTile;
+    const float* do_t = q_t + kWalkTile;
+    const float* lse_t = st_s + slot * 2 * WN;
+    const float* delta_t = lse_t + WN;
+    const bool more = qt + 1 < n_q;
+    if (more) {  // the next q, dO, lse, delta into the stage the last left
+      float* next = qd_s + (slot ^ 1) * 2 * kWalkTile;
+      float* next_st = st_s + (slot ^ 1) * 2 * WN;
+      stage_rows<WN>(next, q, bi, q0 + WN, tq, head);
+      stage_rows<WN>(next + kWalkTile, dout, bi, q0 + WN, tq, head);
+      stage_stats(next_st, lse_h, q0 + WN, tq, 0);
+      stage_stats(next_st + WN, delta_h, q0 + WN, tq, WN);
+      async_commit();
+    }
+    float st[8][4], dpt[8][4];
+    zero_patch(st);
+    zero_patch(dpt);
+    walk_mma<true>(k_s, TS, q_t, TS, st);
+    if (qt == lo) {  // v, dO, lse, delta and the bias of the first step
+      if (more)
+        async_wait<1>();
+      else
+        async_wait<0>();
+      __syncthreads();
+    }
+    walk_mma<true>(v_s, TS, do_t, TS, dpt);
+    if (bias.p) {  // this tile's bias, started after the last step
+      if (more)
+        async_wait<1>();
+      else
+        async_wait<0>();
+      __syncthreads();
+    }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kpos = k0 + ty * 4 + i;
+    for (int i = 0; i < 8; ++i) {
+      const int kpos = k0 + ty + 16 * i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int qc = tx * 4 + j;
+        const int qc = tx + 16 * j;
         const int qpos = q0 + qc;
         float p = 0.f;
         if (qpos < tq && kpos < tk && !(causal && qpos + offset < kpos)) {
           float sv = st[i][j] * scale;
-          if (bias.p) sv += bias.at(bi, head, qpos, kpos);
-          p = expf(sv - lse_s[qc]);
+          if (bias.p) sv += bd_s[qc * brow + ty + 16 * i];
+          p = expf(sv - lse_t[qc]);
         }
         float pv = p, dpv = dpt[i][j];
         if (DROP) {
@@ -357,16 +621,28 @@ flash_bwd_dkv_kernel(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
           pv = kept ? p * drop.inv_keep : 0.f;
           dpv = kept ? dpv * drop.inv_keep : 0.f;
         }
-        pt_s[(ty * 4 + i) * AS + qc] = pv;
-        dst_s[(ty * 4 + i) * AS + qc] = p * (dpv - delta_s[qc]) * scale;
+        p_s[(ty + 16 * i) * PS + qc] = pv;
+        st[i][j] = p * (dpv - delta_t[qc]) * scale;  // ds
       }
     }
-    __syncthreads();
-    tile_mma(pt_s, do_s, dv_acc);
-    tile_mma(dst_s, q_s, dk_acc);
+    __syncthreads();  // p_s is whole; the bias tile is consumed
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        bd_s[(ty + 16 * i) * PS + tx + 16 * j] = st[i][j];
+    walk_mma<false>(p_s, PS, do_t, TS, dv_acc);
+    __syncthreads();  // ds^T is whole
+    walk_mma<false>(bd_s, PS, q_t, TS, dk_acc);
+    async_wait<0>();
+    __syncthreads();  // the next stage has landed; this one is consumed
+    if (more && bias.p) {
+      stage_bias<WN, WM>(bd_s, QBS, bias, bi, head, q0 + WN, tq, k0, tk);
+      async_commit();
+    }
   }
-  store_rows(dk, dkv_l, dk_acc, bi, k0, tk, head);
-  store_rows(dv, dkv_l, dv_acc, bi, k0, tk, head);
+  store_walk_rows(dk, dkv_l, dk_acc, bi, k0, tk, head);
+  store_walk_rows(dv, dkv_l, dv_acc, bi, k0, tk, head);
 }
 
 template <class Kernel>
@@ -388,15 +664,15 @@ cudaError_t launch_bwd_dq(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
   cudaError_t err = allow_smem(flash_bwd_dq_kernel<L, DROP>, kDqSmem,
                                configured);
   if (err != cudaSuccess) return err;
-  dim3 grid((tq + BT - 1) / BT, h, b);
+  dim3 grid((tq + WM - 1) / WM, h, b);
   flash_bwd_dq_kernel<L, DROP><<<grid, NT, kDqSmem, stream>>>(
       q, k, v, bias, dout, lse, delta, dq, dq_l, tq, tk, h, scale, causal,
       drop);
   return cudaGetLastError();
 }
 
-// The dq walk over a grid of (q tiles, heads, batch rows): the hashing
-// instantiation only when drop.on.
+// The dq walk over a grid of (128-row q tiles, heads, batch rows): the
+// hashing instantiation only when drop.on.
 template <class L>
 cudaError_t bwd_dq(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias, Rows<L> dout,
                    const float* lse, const float* delta, float* dq, L dq_l,
@@ -419,14 +695,14 @@ cudaError_t launch_bwd_dkv(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
   cudaError_t err = allow_smem(flash_bwd_dkv_kernel<L, DROP>, kDkvSmem,
                                configured);
   if (err != cudaSuccess) return err;
-  dim3 grid((tk + BT - 1) / BT, h, b);
+  dim3 grid((tk + WM - 1) / WM, h, b);
   flash_bwd_dkv_kernel<L, DROP><<<grid, NT, kDkvSmem, stream>>>(
       q, k, v, bias, dout, lse, delta, dk, dv, dkv_l, tq, tk, h, scale,
       causal, drop);
   return cudaGetLastError();
 }
 
-// The dkv walk over a grid of (k tiles, heads, batch rows).
+// The dkv walk over a grid of (128-row k tiles, heads, batch rows).
 template <class L>
 cudaError_t bwd_dkv(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
                     Rows<L> dout, const float* lse, const float* delta,

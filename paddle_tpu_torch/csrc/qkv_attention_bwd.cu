@@ -24,7 +24,7 @@
 //      t/64 times the work (4x at t = 256).
 //   2. the flash backward walks of flash_walk.cuh over the projected rows:
 //      dq (#2, keys walked), dk and dv (#3, queries walked), one block per
-//      (64-row tile, head, batch row), as #6 and #7 walk theirs.  They
+//      (128-row tile, head, batch row), as #6 and #7 walk theirs.  They
 //      write the columns of one [b*t, 3hd] buffer dq|dk|dv in w_qkv's
 //      q|k|v order.
 //   3. gemm_kernel: dx as one product over the selected walks' columns (K
@@ -39,7 +39,8 @@
 // b*t*dm*hd MACs (3 projections, dctx, 3 for dx, 3 for dW_qkv, dW_out) and
 // seven t x t ones per head (three in the dq walk, four in the dkv walk).
 // Stages 1 and 3 run on gemm.cuh's pipelined tile; the walks are #6's and
-// #7's.  No tensor cores, no TMA: later work.
+// #7's (flash_walk.cuh: 128-row blocks, an 8x4 patch a thread, a two-stage
+// cp.async ring).  No tensor cores, no TMA: later work.
 //
 // Weights dropout: the walks of flash_walk.cuh regenerate #1's mask (the
 // same hash of (seed, b * h + head, q * t + k)) from the seed, with delta

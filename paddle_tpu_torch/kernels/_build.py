@@ -146,6 +146,7 @@ _SIGNATURES = {
                           + [_F, _I] + _DROP + [_P]),
     "ptt_flash_fwd_bhtd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 2 + [_I] * 4
                            + [_F, _I] + _DROP + [_P]),
+    "ptt_flash_walk_smem": (_L, [_I]),
     "ptt_flash_bwd_dq_bhtd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 4
                               + [_F, _I] + _DROP + [_P]),
     "ptt_flash_bwd_dkv_bhtd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 5

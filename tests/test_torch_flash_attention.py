@@ -26,8 +26,9 @@ B, H, D = 2, 2, 64
 SCALE = D ** -0.5
 
 #: (name, tq, tk, bias kind, causal): the reference's bias shapes, causal
-#: with tq < tk and tq > tk (its first tq - tk rows see no key), and a row
-#: masked by a -1e30 bias
+#: with tq < tk and tq > tk (its first tq - tk rows see no key), a row
+#: masked by a -1e30 bias, and two ragged cases (lengths that are
+#: multiples of neither 64 nor 128, as the card's walks tile them)
 CASES = [
     ("no_bias", 32, 32, None, False),
     ("key_padding", 32, 64, "pad", False),
@@ -36,6 +37,8 @@ CASES = [
     ("causal_tq_lt_tk", 32, 64, None, True),
     ("causal_tq_gt_tk", 64, 32, "pad", True),
     ("masked_row", 64, 64, "masked", False),
+    ("ragged_pad", 40, 72, "pad", False),
+    ("ragged_causal_masked_row", 72, 40, "masked", True),
 ]
 
 
@@ -102,7 +105,8 @@ def test_forward_matches_jax_kernel(name, tq, tk, bias_kind, causal):
     _close(out, want_out)
     _close(lse, want_lse)
     hidden = np.isinf(np.asarray(want_lse))
-    assert (hidden.any() == (name in ("causal_tq_gt_tk", "masked_row")))
+    assert (hidden.any() == (name in ("causal_tq_gt_tk", "masked_row",
+                                      "ragged_causal_masked_row")))
     assert torch.count_nonzero(out.transpose(1, 2)[torch.from_numpy(
         hidden)]) == 0
 

@@ -38,7 +38,9 @@ RATE, SEED = 0.1, 0x2545F491
 #: (name, tq, tk, bias kind, causal): every bias shape the reference
 #: broadcasts ([b,1,1,tk] key padding, [b,1,tq,tk], [b,h,tq,tk],
 #: [1,1,tq,tk]), tq != tk both ways, causal, and causal with tq > tk (its
-#: first tq - tk rows see no key) beside a row masked to -1e30
+#: first tq - tk rows see no key) beside a row masked to -1e30; the two
+#: ragged cases take lengths that are multiples of neither 64 nor 128, as
+#: the card's walks tile them
 CASES = [
     ("no_bias", 32, 32, None, False),
     ("key_padding", 32, 64, "pad", False),
@@ -47,6 +49,8 @@ CASES = [
     ("shared", 32, 64, "shared", False),
     ("causal", 64, 64, "pad", True),
     ("causal_tq_gt_tk_masked_row", 64, 32, "masked", True),
+    ("ragged_pad", 40, 72, "pad", False),
+    ("ragged_causal_masked_row", 72, 40, "masked", True),
 ]
 RATES = [0.0, RATE]
 

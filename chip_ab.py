@@ -1,7 +1,7 @@
 """Alternate two checkouts of the port on one card: the Transformer
 training step on the flag-off and the fused route, the BERT-base step on
-the bhtd route and #1 at its smallest plan case, each checkout in
-processes of its own.
+the bhtd route, the ResNet-50 step and #1 at its smallest plan case, each
+checkout in processes of its own.
 
     python3 chip_ab.py OTHER_CHECKOUT [--rounds 4]
 
@@ -24,6 +24,9 @@ reusing them) and runs this checkout's measuring code from
 * the BERT-base step on the bhtd route, phase 3 (i) (``attention_fuse``:
   #5, #8, #9 at 12 sites, dropout 0.1), batch 128, seq 128, Adam 1e-4,
   measured the same way;
+* the ResNet-50 step, phase 3 (g) (#18-#21 at their 17, 36, 53 and 53
+  sites), batch 256 at 224, Momentum 0.1 / 0.9, measured the same way,
+  with #19's device time in the profiled step (``dot_stats_ms``);
 * #1 (``qkv_attention_fwd`` with residuals) at t 8, b 4, d_model 512:
   CUDA events after an L2 flush with the host's enqueue counted
   (``cuda_ms``, as phase 2 times it) and hidden (``hide_host``), and
@@ -85,12 +88,14 @@ def measure(root):
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     def profiled(model, opt, feed, **kw):
-        """(device busy ms, the backward walks' ms) of one step."""
+        """(device busy ms, the backward walks' ms, #19's ms) of one
+        step."""
         with profile(activities=acts) as prof:
             opt.minimize(model(**feed, **kw)[0])
             torch.cuda.synchronize()
         rows = cs._device_kernels(prof)
-        return sum(us for _, us in rows) / 1e3, cs._walks_us(rows) / 1e3
+        return (sum(us for _, us in rows) / 1e3, cs._walks_us(rows) / 1e3,
+                sum(us for n, us in rows if "dot_stats_kernel" in n) / 1e3)
 
     L = cs.BASE["n_layer"]
     steps = {}
@@ -109,7 +114,7 @@ def measure(root):
             opt.minimize(model(**feed)[0])
         torch.cuda.synchronize()
         step = cs._timed_training(model, opt, per_step)
-        busy_ms, walks_ms = profiled(model, opt, feed)
+        busy_ms, walks_ms, _ = profiled(model, opt, feed)
         steps[route] = dict(step_ms=step["step_ms_median"],
                             step_ms_range=step["step_ms_range"],
                             busy_ms=busy_ms, walks_ms=walks_ms)
@@ -130,11 +135,26 @@ def measure(root):
     step = cs._bert_timed(bert, opt, dict(
         flash_fwd_bhtd=Lb, flash_bwd_dq_bhtd=Lb, flash_bwd_dkv_bhtd=Lb,
         dropout_add_fwd=2 * Lb + 1, dropout_add_bwd=2 * Lb + 1), seed=4)
-    busy_ms, walks_ms = profiled(bert, opt, feed, generator=gen)
+    busy_ms, walks_ms, _ = profiled(bert, opt, feed, generator=gen)
     steps["bert_bhtd"] = dict(step_ms=step["step_ms_median"],
                               step_ms_range=step["step_ms_range"],
                               busy_ms=busy_ms, walks_ms=walks_ms)
     del bert, opt, feed
+    torch.cuda.empty_cache()
+
+    from paddle_tpu_torch import Momentum, ResNet
+
+    resnet = ResNet(cs.RESNET_DEPTH, cs.RESNET_CLASSES).init_params(seed=0)
+    opt = Momentum(resnet.parameters(), cs.RESNET_LR, cs.RESNET_MOMENTUM)
+    feed = cs._to(cs.resnet_batch(cs.RESNET_BATCH, seed=2), "cuda")
+    for _ in range(WARM_STEPS):
+        opt.minimize(resnet(**feed)[0])
+    step_ms, _ = cs._resnet_timed(resnet, opt, feed)
+    busy_ms, _, dot_ms = profiled(resnet, opt, feed)
+    steps["resnet50"] = dict(step_ms=_median(step_ms),
+                             step_ms_range=(min(step_ms), max(step_ms)),
+                             busy_ms=busy_ms, dot_stats_ms=dot_ms)
+    del resnet, opt, feed
     torch.cuda.empty_cache()
 
     b, t, dm, bias_kind = QKV_T8
@@ -210,7 +230,9 @@ def main():
         mine = [r for r in runs if r["checkout"] == label]
         summary = {}
         for route in mine[0]["steps"]:
-            for key in ("step_ms", "busy_ms", "walks_ms"):
+            for key in mine[0]["steps"][route]:
+                if key == "step_ms_range":
+                    continue
                 xs = [r["steps"][route][key] for r in mine]
                 summary[f"{route} {key}"] = (_median(xs), min(xs), max(xs))
         for key in ("t8_ms", "t8_device_ms"):

@@ -14,22 +14,25 @@ Phases, each fatal on failure:
    encoder self-attention (key-padding bias [32, 1, 1, 256]), the decoder
    self-attention ([32, 1, 256, 256]), a cross case with target 128 and
    source 256, a ``causal=True`` case, a causal case with tq > tk and
-   a row masked to -1e30, and two ragged cases (tq = tk = 200 under the
-   decoder bias; causal tq 136 > tk 72 with a masked row), #6 and #7
-   each called twice for equal bits.  The bhtd flash kernels (#5, #8, #9) are
+   a row masked to -1e30, and three ragged cases (tq = tk = 200 under the
+   decoder bias; causal tq 136 > tk 72 with a masked row; causal tq = tk
+   = 129, one row past the forward's 128-row block), each kernel called
+   twice for equal bits.  The bhtd flash kernels (#5, #8, #9) are
    checked at BERT-base's self-attention (q, k, v [128, 12, 128, 64],
    key-padding bias [128, 1, 1, 128] with -1e9 tails), with a per-head
    bias [128, 12, 128, 128] that requires grad (also through
    ``flash_attention(fmt="bhtd")``'s autograd: dq, dk, dv and dbias
    against autograd through the forward twin), ``causal=True``, causal
    with tq 128 > tk 64 and a row masked to -1e30, a cross case tq 64,
-   tk 128, and two ragged cases (tq 72, tk 200; causal tq 200 > tk 136),
+   tk 128, and three ragged cases (tq 72, tk 200; causal tq 200 > tk 136;
+   tq 129, tk 72),
    each at rate 0 and 0.1 and each call repeated for equal bits, and
    timed beside masked ``F.scaled_dot_product_attention`` and its
    backward.  Each layout's two backward walks are also timed in one
    call sequence beside that backward (``flash_bwd``), and phase 1
    prints each walk instantiation's registers, spills and shared memory
-   (``walk_builds``).  The fused-projection training kernels (#1 with
+   (``walk_builds``), and those of #19, ``gemm.cuh``'s GEMM and the flash
+   forward (``tile_builds``).  The fused-projection training kernels (#1 with
    its residuals ctx and lse, #2 and #3) are checked at batch 32, 8 heads,
    d_model 512 on the encoder self-attention (t 256, bias [32, 1, 1,
    256]), the decoder self-attention (t 256, [32, 1, 256, 256]), a
@@ -40,11 +43,14 @@ Phases, each fatal on failure:
    as the autograd backward makes it), held against its twin on the same
    cases and at BERT-base's self-attention (b 128, t 128, d_model 768),
    at rates 0 and 0.1; on a masked row its dx must equal #3's dx_kv bit
-   for bit.  At BERT-base's case it is held against float64, and the f32
-   twin's own error against float64 is printed beside its.
+   for bit.  At BERT-base's case it is held against float64 (dW normwise)
+   and elementwise against the f32 twin, and the f32 twin's own error
+   against float64 is printed beside its.
    ``gemm.cuh``'s tile alone (``kernels.gemm``) is held against
    ``torch.matmul`` and timed beside it at the pair's three product
-   shapes (GEMM_CASES).  Each of
+   shapes (GEMM_CASES) and at BERT-base's dW_qkv (M 768, N 2304, K 16384),
+   where both products are also held against float64 and the depth of the
+   slab it sums in one f32 sum is printed.  Each of
    #1-#4, #6 and #7 is checked again at weights-dropout rate 0.1 on every
    case against its twin (same seed, the same hash mask), and timed at
    rate 0.1 beside its rate-0 time.  #1 is checked on every route of its
@@ -62,7 +68,8 @@ Phases, each fatal on failure:
    exactly, with a keep share within a chi-square bound of 0.9; #17 must
    equal its twin bit for bit.  The conv + batch-norm kernels (#18-#21) are checked at ResNet-50's shapes
    at batch 256 (CBN_*_CASES: the stem, stage-1 and stage-4 sites, #19 at
-   a strided shortcut too, #20/#21 with and without residual and ReLU),
+   a strided shortcut, the stage-1 conv1 and a ragged M 1000, K 72, N 100
+   too, #20/#21 with and without residual and ReLU),
    each called twice for equal bits; their sums are held to TOL_SUM of
    the summed magnitudes against the same sums in float64.  cuDNN's output of the NHWC convolution must
    come back NHWC-contiguous.  The multi-table embedding kernels (#22,
@@ -176,7 +183,8 @@ Phases, each fatal on failure:
    steps at each batch, and over one training step on each route, on
    the dropout route, of ResNet-50, of DeepFM and of BERT-base on both
    kernel routes: device time by kernel beside host wall time, and for
-   ResNet-50 any layout-conversion kernel.
+   ResNet-50 any layout-conversion kernel and #19's time a step beside the
+   summed bound of its 36 sites.
    Every phase prints its seconds.
 
 Prints the card and its power limit, the timings, one JSON line with a
@@ -639,8 +647,9 @@ def check_paged_decode_kernels(gen, b):
 #: phase 2's bthd flash-attention cases at the training path's shapes:
 #: (name, tq, tk, bias, causal).  "pad" is the key-padding bias [b, 1, 1,
 #: tk], "decoder" the causal-plus-padding bias [b, 1, tq, tk] (both -1e9),
-#: "masked" the decoder bias with one row at -1e30; the two ragged cases
-#: take lengths that are multiples of neither 64 nor 128
+#: "masked" the decoder bias with one row at -1e30; the ragged cases take
+#: lengths that are multiples of neither 64 nor 128 (129 crosses the
+#: forward's 128-row block by one)
 FLASH_CASES = (("encoder self", 256, 256, "pad", False),
                ("decoder self", 256, 256, "decoder", False),
                ("cross trg 128 src 256", 128, 256, "pad", False),
@@ -648,7 +657,8 @@ FLASH_CASES = (("encoder self", 256, 256, "pad", False),
                ("causal tq>tk, -1e30 row", 256, 128, "masked", True),
                ("ragged decoder tq 200 tk 200", 200, 200, "decoder", False),
                ("ragged causal tq 136 tk 72, -1e30 row", 136, 72, "masked",
-                True))
+                True),
+               ("ragged causal tq 129 tk 129", 129, 129, "decoder", True))
 #: the case whose records go into the JSON line (the heaviest bias)
 FLASH_RECORD_CASE = "decoder self"
 TRAIN_BATCH, TRAIN_LEN = 32, 256
@@ -681,8 +691,8 @@ def _visible_pairs(tq, tk, causal):
 
 def check_flash_attention(gen):
     """#4, #6 and #7 against their plain twins on FLASH_CASES (the
-    backward kernels from the forward kernel's out and lse), #6 and #7
-    called twice for equal bits, at rate 0 and at DROPOUT; then each
+    backward kernels from the forward kernel's out and lse), each called
+    twice for equal bits, at rate 0 and at DROPOUT; then each
     timed beside its twin and the library yardstick: masked
     ``F.scaled_dot_product_attention`` for #4, its backward (dq, dk and
     dv together) for #6 and #7, and for both walks in one call sequence
@@ -698,6 +708,8 @@ def check_flash_attention(gen):
         q, k, v, do, bias = _flash_inputs(gen, tq, tk, bias_kind, causal)
         kw = dict(scale=scale, causal=causal)
         o, lse = ka.flash_fwd(q, k, v, bias, **kw)
+        _require_same_bits(f"flash_fwd {name}", (o, lse),
+                           ka.flash_fwd(q, k, v, bias, **kw))
         want_o, want_lse = ka.reference_flash_fwd(q, k, v, bias, **kw)
         torch.cuda.synchronize()
         err_fwd = compare(f"flash_fwd {name}", o, want_o, TOL_KERNEL)
@@ -787,6 +799,8 @@ def check_flash_attention(gen):
         dkw = dict(kw, dropout_rate=DROPOUT, dropout_seed=int(
             torch.randint(0, 2 ** 32, (1,), generator=gen)))
         o_d, lse_d = ka.flash_fwd(q, k, v, bias, **dkw)
+        _require_same_bits(f"flash_fwd {name} dropout", (o_d, lse_d),
+                           ka.flash_fwd(q, k, v, bias, **dkw))
         want_od, want_lsed = ka.reference_flash_fwd(q, k, v, bias, **dkw)
         torch.cuda.synchronize()
         require(torch.equal(torch.isinf(lse_d), hidden),
@@ -844,15 +858,17 @@ BERT_PARITY_BATCH = 4
 #: causal).  "pad" is BERT's key-padding bias [b, 1, 1, tk] (-1e9 on
 #: ragged tails), "head" that plus a per-head bias [b, h, tq, tk] that
 #: requires grad (the dbias path), "masked" the padding bias as [b, 1, tq,
-#: tk] with one row at -1e30; the two ragged cases take lengths that are
-#: multiples of neither 64 nor 128
+#: tk] with one row at -1e30; the ragged cases take lengths that are
+#: multiples of neither 64 nor 128 (129 crosses the forward's 128-row block
+#: by one)
 BHTD_CASES = (("bert self", 128, 128, "pad", False),
               ("per-head trainable bias", 128, 128, "head", False),
               ("causal", 128, 128, "pad", True),
               ("causal tq>tk, -1e30 row", 128, 64, "masked", True),
               ("cross tq 64 tk 128", 64, 128, "pad", False),
               ("ragged tq 72 tk 200", 72, 200, "pad", False),
-              ("ragged causal tq 200 tk 136", 200, 136, "pad", True))
+              ("ragged causal tq 200 tk 136", 200, 136, "pad", True),
+              ("ragged tq 129 tk 72", 129, 72, "pad", False))
 #: the case whose records go into the JSON line (the main path's)
 BHTD_RECORD_CASE = "bert self"
 
@@ -1202,12 +1218,15 @@ def _held_qkv_pair_f64(what, bw, kw):
     """The pair on ``bw`` under ``kw``, twice for equal bits, against the
     twin in float64 on the same inputs (#1's f32 residuals included): dx
     within TOL_KERNEL elementwise, dW_qkv and dW_out (sums over all b*t
-    rows) within TOL_KERNEL of their largest magnitude.  At BERT-base's
-    16384 rows of unit-size terms any two f32 summation orders differ by
-    more than TOL_KERNEL's absolute floor on the near-zero elements of a
-    dW, so the dW's are held normwise.  Returns the max abs error and
-    {part: (the kernel's max abs error, the f32 twin's on the card)}, both
-    against float64: the twin's is the library's own at this shape."""
+    rows) within TOL_KERNEL of their largest magnitude, and each part
+    within TOL_KERNEL elementwise of the f32 twin on the card.  The dW's
+    hold elementwise against the twin because ``gemm.cuh`` sums BERT-base's
+    16384 rows in slabs of at most 1024 (C13); in one f32 sum per 8192 rows
+    their near-zero elements would not.  Returns the max abs error and
+    {part: (the kernel's max abs error, the f32 twin's on the card, the
+    kernel's largest excess over TOL_KERNEL against the twin
+    elementwise)}, the first two against float64: the twin's is the
+    library's own at this shape."""
     from paddle_tpu_torch.kernels import attention as ka
 
     got = ka.qkv_bwd(*bw, **kw)
@@ -1223,8 +1242,12 @@ def _held_qkv_pair_f64(what, bw, kw):
     for part, a, w, f in zip(("dx", "dW_qkv", "dW_out"), got, exact, twin):
         err = (compare(f"{what} dx", a, w, TOL_KERNEL) if part == "dx"
                else _normwise(f"{what} {part}", a, w, TOL_KERNEL))
-        parts[part] = (err, (f.double() - w).abs().max().item())
-    return max(e for e, _ in parts.values()), parts
+        # the kernel against the f32 twin elementwise: the largest of
+        # |got - twin| - TOL_KERNEL * |twin|, within TOL_KERNEL
+        off = ((a - f).abs() - TOL_KERNEL * f.abs()).max().item()
+        compare(f"{what} {part} against the f32 twin", a, f, TOL_KERNEL)
+        parts[part] = (err, (f.double() - w).abs().max().item(), off)
+    return max(p[0] for p in parts.values()), parts
 
 
 def check_qkv_pair_bert(gen):
@@ -1260,8 +1283,8 @@ def check_qkv_pair_bert(gen):
         lambda: ka.reference_qkv_bwd(*bw, **rkw), flops, nbytes, lib_bwd, b)
     bw_d, dkw = bws[DROPOUT]
     rec.update(case=name, t=t, d_model=dm, dropout_max_abs_err=errs[DROPOUT],
-               # {rate: {part: (kernel, f32 twin)}}: max abs against
-               # float64
+               # {rate: {part: (kernel, f32 twin, kernel - twin excess)}}:
+               # max abs against float64, then the elementwise excess
                vs_float64=vs_f64,
                dropout_ms=cuda_ms(lambda: ka.qkv_bwd(*bw_d, **dkw)),
                dropout_bound_ms=bound(flops, nbytes,
@@ -1272,44 +1295,65 @@ def check_qkv_pair_bert(gen):
 def check_gemm(gen):
     """``gemm.cuh``'s tile alone (``kernels.gemm.gemm``, ``csrc/gemm.cu``)
     at the pair's record-case products (GEMM_CASES, in the layouts the
-    pair gives them): within TOL_KERNEL of ``torch.matmul`` (TF32 off),
-    equal bits on a repeat, timed beside it.  Returns the records, each
-    with its TFLOP/s and share of the f32 peak beside ``torch.matmul``'s."""
+    pair gives them) and at BERT-base's dW_qkv (GEMM_BERT_DW): within
+    TOL_KERNEL of ``torch.matmul`` (TF32 off), equal bits on a repeat,
+    timed beside it.  Returns the records, each with its TFLOP/s and share
+    of the f32 peak beside ``torch.matmul``'s and the depth of the slab it
+    sums in one running f32 sum (C13's bound); the BERT case also with
+    both products' max abs error against the product in float64."""
+    from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import gemm as kg
+    from paddle_tpu_torch.kernels.attention import sm_count
 
     out = []
-    for name, m, n, k, a_t, b_t in GEMM_CASES:
+    for name, m, n, k, a_t, b_t, split in GEMM_CASES + (GEMM_BERT_DW,):
         # a scaled by K^-1/2, as the weights are: c of unit size
         a = (randn(gen, k, m, scale=k ** -0.5).t() if a_t
              else randn(gen, m, k, scale=k ** -0.5))
         b = randn(gen, n, k).t() if b_t else randn(gen, k, n)
-        got, again = kg.gemm(a, b), kg.gemm(a, b)
+        got, again = kg.gemm(a, b, split), kg.gemm(a, b, split)
         want = torch.matmul(a, b)
         torch.cuda.synchronize()
         require(torch.equal(got, again), f"gemm {name}: two calls differ")
         err = compare(f"gemm {name}", got, want, TOL_KERNEL)
+        f64 = None
+        if (name, m, n, k, a_t, b_t, split) == GEMM_BERT_DW:
+            exact = torch.matmul(a.double(), b.double())
+            f64 = dict(kernel=(got.double() - exact).abs().max().item(),
+                       matmul=(want.double() - exact).abs().max().item())
+            del exact
         flops = 2 * m * n * k
         rec = timed_record(
             "gemm", "paddle_tpu_torch/csrc/gemm.cuh",
             "none: the f32 tile inside #1's y, #2 + #3 and #19", err,
-            lambda: kg.gemm(a, b), lambda: kg.reference_gemm(a, b), flops,
-            F32 * (m * k + k * n + m * n), lambda: torch.matmul(a, b), m)
-        rec.update(case=name, m=m, n=n, k=k,
+            lambda: kg.gemm(a, b, split), lambda: kg.reference_gemm(a, b),
+            flops, F32 * (m * k + k * n + m * n), lambda: torch.matmul(a, b),
+            m)
+        rec.update(case=name, m=m, n=n, k=k, a_kmajor=a_t, b_kmajor=not b_t,
+                   slab=_build.lib().ptt_gemm_slab(m, n, k, sm_count(
+                       a.device)) if split else k,
                    tflops=flops / rec["ms"] / 1e9,
                    peak_share=flops / rec["ms"] / 1e9 / PEAK_F32_FLOPS
                    * 1e12,
                    matmul_tflops=flops / rec["library_ms"] / 1e9)
+        if f64 is not None:
+            rec["vs_float64"] = f64
         out.append(rec)
         del a, b, got, again, want
     return out
 
 
 #: gemm.cuh at the pair's record case (b 32, t 256, d_model 512, 8 heads):
-#: (name, M, N, K, a given transposed, b given transposed), the operand
-#: layouts of qkv_attention_bwd.cu's products
-GEMM_CASES = (("dx = dqkv w_qkv^T", 8192, 512, 1536, False, True),
-              ("dW_qkv = x^T dqkv", 512, 1536, 8192, True, False),
-              ("q|k|v = x w_qkv", 8192, 1536, 512, False, False))
+#: (name, M, N, K, a given transposed, b given transposed, split), the
+#: operand layouts of qkv_attention_bwd.cu's products and whether it splits
+#: them over K (its dW products only)
+GEMM_CASES = (("dx = dqkv w_qkv^T", 8192, 512, 1536, False, True, False),
+              ("dW_qkv = x^T dqkv", 512, 1536, 8192, True, False, True),
+              ("q|k|v = x w_qkv", 8192, 1536, 512, False, False, False))
+#: the pair's dW_qkv at BERT-base (b 128, t 128, d_model 768, 12 heads),
+#: where C13's slab depth decides the sum's error
+GEMM_BERT_DW = ("BERT dW_qkv = x^T dqkv", 768, 2304, 16384, True, False,
+                True)
 
 
 def check_qkv_training(gen):
@@ -1660,13 +1704,43 @@ RESNET_LAUNCHES = dict(dot_col_stats=36, channel_stats=17, ssa_fwd=53,
 #: input, (label, M, K, N, stride of the rows x[:, ::s, ::s, :]) of #19,
 #: and (label, rows, C, residual, relu) of #20 and #21; the first of each
 #: is the record in the JSON line
+#: ResNet-50's bottleneck stages: (blocks, mid width, output width,
+#: stride of the first block's conv1 and shortcut)
+RESNET50_STAGES = ((3, 64, 256, 1), (4, 128, 512, 2), (6, 256, 1024, 2),
+                   (3, 512, 2048, 2))
+
+
+def resnet_dot_sites(batch):
+    """(M, K, N) of the 36 sites #19 runs in one ResNet-50 forward at
+    ``batch`` images of RESNET_SIZE: each stage's first shortcut and every
+    bottleneck's conv1 (both 1x1 at the stage's stride) and conv3 (1x1)."""
+    sites, side, ch = [], RESNET_SIZE // 4, 64
+    for blocks, mid, out, stride in RESNET50_STAGES:
+        for blk in range(blocks):
+            side_out = side // (stride if blk == 0 else 1)
+            m = batch * side_out ** 2
+            if blk == 0:
+                sites.append((m, ch, out))
+            sites += [(m, ch, mid), (m, mid, out)]
+            ch, side = out, side_out
+    return sites
+
+
+def dot_stats_bound_ms(m, k, n):
+    """#19's bound at one site, as phase 2's records count it."""
+    return bound(2 * m * n * k + 3 * m * n,
+                 F32 * (m * k + n * k + m * n + 2 * n))[0]
+
+
 CBN_STATS_CASES = (("stem 7x7", (256, 112, 112, 64)),
                    ("stage-1 3x3", (256, 56, 56, 64)),
                    ("stage-4 3x3", (256, 7, 7, 512)))
 CBN_DOT_CASES = (("stage-1 conv3", 256 * 56 * 56, 64, 256, 1),
                  ("stage-4 conv3", 256 * 7 * 7, 512, 2048, 1),
                  ("stage-2 shortcut (stride 2)", 256 * 28 * 28, 256, 512,
-                  2))
+                  2),
+                 ("stage-1 conv1", 256 * 56 * 56, 64, 64, 1),
+                 ("ragged M 1000 K 72 N 100", 1000, 72, 100, 1))
 CBN_SSA_CASES = (("stage-1 conv3 residual relu", 256 * 56 * 56, 256, True,
                   True),
                  ("stage-1 conv1 relu", 256 * 56 * 56, 64, False, True),
@@ -2869,6 +2943,28 @@ def _resnet_step(model, feed, opt=None):
     return loss.item(), acc.item(), grads
 
 
+def _resnet_timed(model, opt, feed):
+    """RESNET_TIMED_STEPS Momentum steps of ``model`` on ``feed`` by the host
+    clock, each ended by its loss's ``.item()``: (step ms, losses).  The
+    launches of #18-#21 must be RESNET_LAUNCHES a step (they stay counted
+    for the caller)."""
+    from paddle_tpu_torch import kernels
+
+    step_ms, losses = [], []
+    kernels.reset_launches()
+    for _ in range(RESNET_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, _ = model(**feed)
+        opt.minimize(loss)
+        losses.append(loss.item())  # syncs: the step is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    require(kernels.launches == expected(**{
+        n: c * RESNET_TIMED_STEPS for n, c in RESNET_LAUNCHES.items()}),
+        f"resnet timed steps: launches {kernels.launches}")
+    return step_ms, losses
+
+
 def _state(model):
     return {n: t.detach().clone() for n, t in model.state_dict().items()}
 
@@ -2994,18 +3090,7 @@ def run_resnet(model):
     torch.backends.cudnn.deterministic = False
     model.load_state_dict(init)
     opt = Momentum(model.parameters(), RESNET_LR, RESNET_MOMENTUM)
-    step_ms, losses = [], []
-    kernels.reset_launches()
-    for _ in range(RESNET_TIMED_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, _, _ = model(**feed)
-        opt.minimize(loss)
-        losses.append(loss.item())  # syncs: the step is done
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    require(kernels.launches == expected(**{
-        n: c * RESNET_TIMED_STEPS for n, c in RESNET_LAUNCHES.items()}),
-        f"resnet timed steps: launches {kernels.launches}")
+    step_ms, losses = _resnet_timed(model, opt, feed)
     counts = {n: c + kernels.launches[n] for n, c in counts.items()}
     # the first update must lower the loss on the batch it was taken on;
     # later steps may overshoot: Momentum 0.9 grows the effective step to
@@ -3678,8 +3763,15 @@ def profile_resnet(model):
     layout = [(name[:80], us / 1e3) for name, us in rows
               if any(k in name.lower() for k in ("nchw", "nhwc",
                                                  "transpose"))]
+    # #19 in the step: its 36 launches' device time beside the summed
+    # bound of the 36 sites
+    dot_ms = sum(us for name, us in rows if "dot_stats_kernel" in name) / 1e3
+    dot_bound = sum(dot_stats_bound_ms(*site)
+                    for site in resnet_dot_sites(RESNET_BATCH))
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 idle_share=1 - busy_us / wall_us if busy_us else None,
+                dot_stats_ms=dot_ms, dot_stats_bound_ms=dot_bound,
+                dot_stats_bound_share=dot_bound / dot_ms if dot_ms else None,
                 top=[(name[:60], us / 1e3) for name, us in rows[:16]],
                 layout_kernels=layout)
 
@@ -3714,10 +3806,12 @@ def profile_deepfm(model):
 # ---------------------------------------------------------------------------
 
 
-def walk_builds(log, lib):
-    """Each instantiation of the backward walks in the build: its source,
-    registers, spills and stack (``-Xptxas -v``'s lines of ``log``) and
-    its block's dynamic shared memory (``ptt_flash_walk_smem``)."""
+def _builds(log, want):
+    """Each entry function of the build whose name holds a key of ``want``
+    ({kernel: (source or None for any, dynamic shared memory bytes)}): its
+    source, template arguments (the mangled name after the kernel's),
+    registers, spills and stack (``-Xptxas -v``'s lines of ``log``) and its
+    block's dynamic shared memory."""
     import re
 
     out, src, cur = [], None, None
@@ -3727,13 +3821,16 @@ def walk_builds(log, lib):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = None
-            for kernel in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
-                if kernel in m.group(1):
+            for kernel, (source, smem) in want.items():
+                if kernel in m.group(1) and source in (None, src):
+                    args = m.group(1).split(kernel, 1)[1]
                     cur = dict(kernel=kernel, source=src,
-                               layout="bhtd" if "Bhtd" in m.group(1)
-                               else "bthd", dropout="Lb1E" in m.group(1),
-                               smem_bytes=lib.ptt_flash_walk_smem(
-                                   int("dkv" in kernel)))
+                               template=args[:args.find("EE") + 2]
+                               if args.startswith("I") else "",
+                               layout=("bhtd" if "Bhtd" in args else "bthd")
+                               if "flash" in kernel else None,
+                               dropout="Lb1E" in args and "flash" in kernel,
+                               smem_bytes=smem)
                     out.append(cur)
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -3745,6 +3842,25 @@ def walk_builds(log, lib):
         if cur is not None and m:
             cur["registers"] = int(m[1])
     return out
+
+
+def walk_builds(log, lib):
+    """Each instantiation of the backward walks in the build (every source
+    that compiles them): see ``_builds``."""
+    return _builds(log, {
+        "flash_bwd_dq_kernel": (None, lib.ptt_flash_walk_smem(0)),
+        "flash_bwd_dkv_kernel": (None, lib.ptt_flash_walk_smem(1))})
+
+
+def tile_builds(log, lib):
+    """The instantiations of #19's kernel, ``gemm.cuh``'s GEMM (as
+    ``gemm.cu`` compiles it) and the flash forward (#4, #5): see
+    ``_builds``."""
+    return _builds(log, {
+        "dot_stats_kernel": ("conv_bn.cu", lib.ptt_dot_stats_smem()),
+        "gemm_kernel": ("gemm.cu", lib.ptt_gemm_smem()),
+        "flash_fwd_kernel": ("flash_attention.cu",
+                             lib.ptt_flash_walk_smem(2))})
 
 
 def print_record(r, label):
@@ -3843,7 +3959,8 @@ def main():
         if "registers" in line or "spill" in line or "== " in line:
             print("  " + line.strip())
     builds = walk_builds(_build.build_log(), _build.lib())
-    for r in builds:
+    tiles = tile_builds(_build.build_log(), _build.lib())
+    for r in builds + tiles:
         print(f"phase 1: {r}")
 
     gen = torch.Generator().manual_seed(0)
@@ -3883,6 +4000,11 @@ def main():
             {k: v for k, v in r.items() if k not in ("kernel", "layout")}
             for r in builds if r["kernel"] == kernel
             and r["layout"] == layout and r["source"] == "flash_attention.cu"]
+    for name, layout in (("flash_fwd", "bthd"), ("flash_fwd_bhtd", "bhtd")):
+        records[(name, max(BATCHES))]["build"] = [
+            {k: v for k, v in r.items() if k not in ("kernel", "layout")}
+            for r in tiles if r["kernel"] == "flash_fwd_kernel"
+            and r["layout"] == layout]
     pair = {}
     for (name, case), r in check_qkv_training(gen).items():
         residuals = " (residuals)" if name == "qkv_attention_fwd" else ""
@@ -3891,7 +4013,9 @@ def main():
             pair[case] = r
             for rate, parts in r.get("vs_float64", {}).items():
                 print(f"phase 2: qkv_bwd {case} rate {rate}: max abs err "
-                      f"against float64 (kernel, f32 twin): {parts}")
+                      f"against float64 (kernel, f32 twin) and the "
+                      f"kernel's excess over TOL_KERNEL against the twin: "
+                      f"{parts}")
             continue
         # #1's record in the JSON line stays the serving one (b=64), with
         # the training step's residual mode (its own batch, rate 0 and
@@ -3914,6 +4038,11 @@ def main():
             for case in (QKV_RECORD_CASE, QKV_PAIR_BERT[0])}
     gemm_records = check_gemm(gen)
     for r in gemm_records:
+        # the instantiation of its operand layouts
+        r["build"] = [{k: v for k, v in t.items() if k != "kernel"}
+                      for t in tiles if t["kernel"] == "gemm_kernel"
+                      and t["template"] == f"ILb{int(r['a_kmajor'])}"
+                                           f"ELb{int(r['b_kmajor'])}EE"]
         print_record(r, f" {r['case']} (M {r['m']}, N {r['n']}, K "
                         f"{r['k']})")
     plans = check_qkv_plans(gen)
@@ -3937,6 +4066,9 @@ def main():
     for (name, case), r in check_conv_bn(gen).items():
         print_record(r, f" {case} b={r['batch']}")
         records.setdefault((name, max(BATCHES)), r)
+    records[("dot_col_stats", max(BATCHES))]["build"] = [
+        {k: v for k, v in t.items() if k != "kernel"}
+        for t in tiles if t["kernel"] == "dot_stats_kernel"]
     # ... and each embedding kernel's first: #22 on the emb group, #23 in
     # Adam mode on it
     for r, label in check_embedding():
@@ -4110,6 +4242,10 @@ def main():
         for name, ms in r["top"]:
             print(f"    {ms:.4f} ms  {name}")
     profile_rn = profile_resnet(resnet)
+    if profile_rn["dot_stats_ms"]:
+        records[("dot_col_stats", max(BATCHES))]["per_step"] = {
+            k: profile_rn[k] for k in ("dot_stats_ms", "dot_stats_bound_ms",
+                                       "dot_stats_bound_share")}
     if not profile_rn["device_busy_ms"]:
         print("phase 4: resnet50 training step: device time not measured "
               "(the profiler saw no device events)")
@@ -4117,7 +4253,10 @@ def main():
         print(f"phase 4: resnet50 training step (batch {RESNET_BATCH}): "
               f"wall {profile_rn['wall_ms']} ms, device busy "
               f"{profile_rn['device_busy_ms']} ms, idle share "
-              f"{profile_rn['idle_share']}")
+              f"{profile_rn['idle_share']}; #19 {profile_rn['dot_stats_ms']} "
+              f"ms a step against its 36 sites' summed bound "
+              f"{profile_rn['dot_stats_bound_ms']} ms (share "
+              f"{profile_rn['dot_stats_bound_share']})")
         for name, ms in profile_rn["top"]:
             print(f"    {ms:.4f} ms  {name}")
         print("phase 4: resnet50 layout-conversion kernels (NCHW/NHWC, "
@@ -4171,6 +4310,7 @@ def main():
                                          if k != "top"},
                       "profile_deepfm": profile_fm, "gemm": gemm_records,
                       "flash_bwd": flash_bwd, "walk_builds": builds,
+                      "tile_builds": tiles,
                       "profile_training": profiles,
                       "power": smi}))
     print(json.dumps({"kernels": kernels_line}))

@@ -28,10 +28,15 @@
 //
 // Bounds: #18, #20 and #21 move each byte once and are bound by device
 // memory (#21 reads g, x and out and writes dx and dres).  #19 is bound by
-// its f32 FMAs at ResNet-50's 1x1 shapes; it runs csrc/gemm.cuh's 128x128
-// f32 tile (no tensor cores: TF32 is off, as in the reference's f32 step)
-// and folds the column statistics into that tile's epilogue, so y is never
-// read back for them.
+// its f32 FMAs at ResNet-50's 1x1 shapes (at K 64, 2MNK FLOPs take 0.40 ms
+// against 0.25 ms for the 4MN bytes of y at stage 1); it runs
+// csrc/gemm.cuh's 128x128 f32 tile (no tensor cores: TF32 is off, as in
+// the reference's f32 step) and folds the column statistics into that
+// tile's epilogue, so y is never read back for them.  At K 512 the tile
+// reaches 43 TFLOP/s; at K 64 a block is 4 stages deep, so its exposed
+// first load and its epilogue (64 scalar stores a thread, two barriers)
+// hold it to 31.  Persistent blocks and float4 stores of y, which would
+// hide or shorten them, cost the tile registers it does not have (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -303,6 +308,11 @@ bool bad_shape(int64_t rows, int c) {
 extern "C" int64_t ptt_stats_partials(int64_t rows, int c) {
   if (bad_shape(rows, c)) return 0;
   return 2 * (int64_t)make_walk(rows, c).chunks * c;
+}
+
+// Shared memory of a #19 block in bytes.
+extern "C" int64_t ptt_dot_stats_smem() {
+  return (int64_t)(GEMM_SMEM * sizeof(float));
 }
 
 // Floats of partial sums #19 needs for y [M, N]: 2 * ceil(M / 128) * N.

@@ -1,4 +1,5 @@
-// Flash-attention tiles and the two backward walks, f32, for sm_90a.
+// Flash-attention walks: the forward and the two backward passes, f32, for
+// sm_90a.
 //
 // Shared by the flash kernels (flash_attention.cu: the forward #4 / #5 and
 // the backward #6, #7 / #8, #9) and the fused-projection backward
@@ -9,22 +10,24 @@
 // [b, h, t, 64] tensors, whose heads are contiguous [t, 64] slabs.  The
 // layout changes the addresses only, never the arithmetic or its order:
 //
+//   fwd   o = softmax(q k^T * scale + bias) v,  lse = m + log(l) per row
 //   dq    dq = sum_k p (dp - delta) * scale * k,  p = exp(s - lse)
 //         recomputed from lse, dp = dO v^T, delta = rowsum(dO * o)
 //   dkv   dv = sum_q p^T dO,  dk = sum_q (p (dp - delta) * scale)^T q
 //
-// Weights dropout (the DROP instantiations): with keep the forward's mask
-// (hash_rng::keep_attn of the block's head seed at q * tk + k), dp becomes
-// keep ? dp * inv_keep : 0 in both walks, and dv sums (keep ? p * inv_keep
-// : 0)^T dO, while ds keeps the undropped p; delta is then rowsum(dO * o)
-// of the dropped output.  At rate 0 the callers launch the instantiation
-// without the hash.
+// Weights dropout (the DROP instantiations): the forward keeps p where
+// hash_rng::keep_attn of the block's head seed at q * tk + k says so (l
+// sums the undropped p, o is scaled by 1 / (1 - rate)); with that mask dp
+// becomes keep ? dp * inv_keep : 0 in both backward walks, and dv sums
+// (keep ? p * inv_keep : 0)^T dO, while ds keeps the undropped p; delta is
+// then rowsum(dO * o) of the dropped output.  At rate 0 the callers launch
+// the instantiation without the hash.
 //
-// Grid: dq takes one block per (128-row q tile, head, batch row) and walks
-// the k tiles, 64 rows a step; dkv one block per (128-row k tile, head,
-// batch row) and walks the q tiles, 64 rows a step.  Every output element
-// belongs to one block, which sums in a fixed order: no atomics, and the
-// results are the same from run to run.
+// Grid: the forward and dq take one block per (128-row q tile, head, batch
+// row) and walk the k tiles, 64 rows a step; dkv one block per (128-row k
+// tile, head, batch row) and walks the q tiles, 64 rows a step.  Every
+// output element belongs to one block, which sums in a fixed order: no
+// atomics, and the results are the same from run to run.
 //
 // Tiles: 256 threads, one block an SM.  Every tile product of a walk is a
 // [128, 64] tile over a 64-deep sum (walk_mma): each thread owns an 8x4
@@ -34,30 +37,38 @@
 // dO, dk += ds^T q: columns 4tx..).  So every operand tile is staged once,
 // as it lies in memory.  Per 4-deep slice a thread makes 12 conflict-free
 // float4 reads (row strides 68 and 72) for 128 FMAs: 2.67 FMAs per word
-// read, against the 4x4 patch's 2.  An SM's shared memory returns 32
+// read, against a 4x4 patch's 2.  An SM's shared memory returns 32
 // words a clock to 128 FMA lanes, so this holds a product to two thirds
 // of the FMA rate.  An 8x8 patch (4 FMAs a word) needs 64 more
 // accumulators a thread than the 246-254 registers these walks take, past
 // the 255 a thread can have (its trials ran slower: PERF.md).
 //
 // Loads: 16-byte cp.async into a ring of two stages, the next step's k
-// and v (dq) or q, dO, lse and delta (dkv) in flight while this step
-// computes; rows past t come in as zeros through cp.async's source size.
+// and v (the forward's with its bias, and dq's) or q, dO, lse and delta
+// (dkv) in flight while this step computes; rows past t come in as zeros
+// through cp.async's source size.
 // A block's first loads come in two groups: s's (or s^T's) operands
 // first, the rest while that product runs.  An additive bias is staged per
 // step by cp.async, row by row as it lies in memory (16 bytes a copy where
 // its rows allow, a bias broadcast along q stages one row), after this
 // step's scores have consumed the last one.
 //
-// Shared memory: kDqSmem (q, dO, two k/v stages, ds, bias) and kDkvSmem
-// (k, v, two q/dO stages, p^T, one buffer for the bias and then ds^T,
-// lse and delta): 208 and 209 KB (KB = 1024 bytes).  At DH 128 the same
-// dkv tile would take 337 KB, above a block's 227: it would need 64-row k
-// tiles and one stage (169 KB).
+// The forward's online softmax: a row's 16 threads are 8 lanes of each of
+// two warps (a warp pair, threads 64p..), which exchange the row's
+// maximum and sum of a k tile through shared memory under their own named
+// barrier; p goes to its shared tile once a tile, which p v reads.
 //
-// Bound: f32 FMA work on the CUDA cores (TF32 off): 6 and 8 * b*h*tq*tk*64
-// FLOPs for dq and dkv against 67 TFLOP/s.  No tensor cores, no TMA:
-// later work.
+// Shared memory: kFwdSmem (q, two k/v and two bias stages, p, the pair's
+// row maxima), kDqSmem (q, dO, two k/v stages, ds, bias) and kDkvSmem
+// (k, v, two q/dO stages, p^T, one buffer for the bias and then ds^T,
+// lse and delta): 211, 208 and 209 KB (KB = 1024 bytes).  At DH 128 the
+// forward would take 307 KB and the dkv tile 337 KB, above a block's 227:
+// the forward would fit in 205 KB with one k/v stage and one bias buffer,
+// dkv with 64-row k tiles and one stage (169 KB).
+//
+// Bound: f32 FMA work on the CUDA cores (TF32 off): 4, 6 and 8 *
+// b*h*tq*tk*64 FLOPs for the forward, dq and dkv against 67 TFLOP/s.  No
+// tensor cores, no TMA: later work.
 //
 // Masking: causal keys (bottom-right aligned, offset tk - tq) and keys past
 // tk give p = 0; a row masked in the forward has lse = +inf, so p = 0 and
@@ -79,14 +90,7 @@ constexpr int BT = 64;      // rows of a q or k tile
 constexpr int DH = 64;      // head width
 constexpr int NT = 256;     // threads per block
 
-// The forward's tiles (flash_attention.cu): 64x64x64 products, a 4x4
-// patch a thread.
-constexpr int AS = BT + 1;  // row stride of A-operand tiles
-constexpr int BS = BT + 4;  // row stride of B-operand tiles (float4 rows)
-constexpr int kATile = BT * AS;  // floats
-constexpr int kBTile = BT * BS;
-
-// The backward walks' tiles.
+// The walks' tiles (the forward's and both backward ones).
 constexpr int WM = 128;       // rows a walk block owns
 constexpr int WN = BT;        // rows of a tile it walks
 constexpr int TS = DH + 4;    // row stride of q, k, v, dO tiles
@@ -100,6 +104,14 @@ constexpr size_t kDqSmem =
     (2 * kOwnTile + 4 * kWalkTile + 2 * kPTile) * sizeof(float);
 constexpr size_t kDkvSmem =
     (2 * kOwnTile + 4 * kWalkTile + 2 * kPTile + 4 * WN) * sizeof(float);
+//: the forward: q, two stages of k, v and the bias, p, and the half-row
+//: maxima a warp pair exchanges ([2][16][8])
+constexpr int kFwdMax = 2 * 16 * 8;
+constexpr size_t kFwdSmem =
+    (kOwnTile + 4 * kWalkTile + 3 * kPTile + kFwdMax) * sizeof(float);
+
+//: the forward's score of a masked or out-of-range key
+constexpr float kMaskValue = -1e30f;
 
 // Additive bias broadcast to [b, h, tq, tk] through its four strides (a
 // broadcast dim has stride 0); p == nullptr means no bias.
@@ -142,86 +154,11 @@ struct Rows {
   }
 };
 
-// dst[row * lds + col] = mul * row r0 + row of head `head` (0 past t).
-template <class L>
-__device__ __forceinline__ void load_rows(float* dst, int lds, Rows<L> src,
-                                          int bi, int r0, int t, int head,
-                                          float mul = 1.f) {
-  for (int idx = threadIdx.x; idx < BT * (DH / 4); idx += NT) {
-    const int row = idx / (DH / 4);
-    const int c4 = idx % (DH / 4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + row < t)
-      v = *reinterpret_cast<const float4*>(src.at(bi, t, r0 + row, head) +
-                                           c4 * 4);
-    float* d = dst + row * lds + c4 * 4;
-    d[0] = v.x * mul; d[1] = v.y * mul; d[2] = v.z * mul; d[3] = v.w * mul;
-  }
-}
-
-// The same rows transposed: dst[col * BS + row].  Consecutive threads take
-// consecutive rows, so the shared-memory writes do not conflict.
-template <class L>
-__device__ __forceinline__ void load_rows_t(float* dst, Rows<L> src, int bi,
-                                            int r0, int t, int head) {
-  for (int idx = threadIdx.x; idx < BT * (DH / 4); idx += NT) {
-    const int row = idx % BT;
-    const int c4 = idx / BT;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + row < t)
-      v = *reinterpret_cast<const float4*>(src.at(bi, t, r0 + row, head) +
-                                           c4 * 4);
-    float* d = dst + c4 * 4 * BS + row;
-    d[0] = v.x; d[BS] = v.y; d[2 * BS] = v.z; d[3 * BS] = v.w;
-  }
-}
-
-__device__ __forceinline__ void zero(float c[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
-}
-
-// c[i][j] += sum_kk A[(4ty + i) * AS + kk] * B[kk * BS + 4tx + j].
-__device__ __forceinline__ void tile_mma(const float* A, const float* B,
-                                         float c[4][4]) {
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-#pragma unroll 8
-  for (int kk = 0; kk < BT; ++kk) {
-    const float4 bv = *reinterpret_cast<const float4*>(B + kk * BS + tx * 4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float av = A[(ty * 4 + i) * AS + kk];
-      c[i][0] += av * bv.x; c[i][1] += av * bv.y;
-      c[i][2] += av * bv.z; c[i][3] += av * bv.w;
-    }
-  }
-}
-
-// Store a thread's 4x4 patch of a [BT, DH] tile into rows r0 + 4ty + i
-// (below t) of head `head` of dst, laid out by l.
-template <class L>
-__device__ __forceinline__ void store_rows(float* dst, L l,
-                                           const float c[4][4], int bi,
-                                           int r0, int t, int head) {
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r < t)
-      *reinterpret_cast<float4*>(dst + l.at(bi, t, r, head) + tx * 4) =
-          make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
-  }
-}
-
 // 64-row k tiles a q tile of `rows` rows starting at q0 walks: all, or
 // under the causal mask only those with a key at or before the tile's
 // last query + offset.
 __device__ __forceinline__ int kv_tiles(int q0, int tq, int tk, int causal,
-                                        int rows = BT) {
+                                        int rows) {
   int n = (tk + BT - 1) / BT;
   if (causal) {
     const int hi = min(q0 + rows, tq) - 1 + (tk - tq);
@@ -240,7 +177,7 @@ __device__ __forceinline__ uint32_t block_head_seed(const Dropout& drop,
 }
 
 // ---------------------------------------------------------------------------
-// The backward walks
+// The walks
 // ---------------------------------------------------------------------------
 
 // 16-byte cp.async into shared memory: `bytes` (16 or 0) of them read from
@@ -343,14 +280,21 @@ __device__ __forceinline__ void stage_bias(float* dst, int ld,
   }
 }
 
+// Which rows of a [WM, 64] tile product a walk_mma computes: all, or
+// only the first or the last 64 (rows ty + 16i for i < 4 or i >= 4).
+enum WalkRows { kAllRows, kLowRows, kHighRows };
+
 // c[i][j] += sum over kk < 64 of A(ty + 16i, kk) B(kk, col j), summed in
-// increasing kk.  A is row-major (row stride lda), read as float4 along
-// kk.  With BT_ (B read along the sum) B(kk, n) = B[n * ldb + kk] and col
-// j = tx + 16j; else B(kk, n) = B[kk * ldb + n] and col j = 4tx + j.
-template <bool BT_>
+// increasing kk, for the rows ROWS selects.  A is row-major (row stride
+// lda), read as float4 along kk.  With BT_ (B read along the sum) B(kk,
+// n) = B[n * ldb + kk] and col j = tx + 16j; else B(kk, n) = B[kk * ldb +
+// n] and col j = 4tx + j.
+template <bool BT_, WalkRows ROWS = kAllRows>
 __device__ __forceinline__ void walk_mma(const float* A, int lda,
                                          const float* B, int ldb,
                                          float (&c)[8][4]) {
+  constexpr int i0 = ROWS == kHighRows ? 4 : 0;
+  constexpr int i1 = ROWS == kLowRows ? 4 : 8;
   const int ty = walk_ty();
   const int tx = walk_tx();
   // 4 slices an iteration: the fastest of 1, 2, 4 and 16 on an H100 (16
@@ -359,7 +303,7 @@ __device__ __forceinline__ void walk_mma(const float* A, int lda,
   for (int k0 = 0; k0 < DH; k0 += 4) {
     float a[8][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = i0; i < i1; ++i) {
       const float4 t =
           *reinterpret_cast<const float4*>(A + (ty + 16 * i) * lda + k0);
       a[i][0] = t.x; a[i][1] = t.y; a[i][2] = t.z; a[i][3] = t.w;
@@ -378,7 +322,7 @@ __device__ __forceinline__ void walk_mma(const float* A, int lda,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = i0; i < i1; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) c[i][j] += a[i][kk] * b[kk][j];
   }
@@ -407,6 +351,213 @@ __device__ __forceinline__ void store_walk_rows(float* dst, L l,
       *reinterpret_cast<float4*>(dst + l.at(bi, t, r, head) + tx * 4) =
           make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
   }
+}
+
+// Barrier of the two warps that own rows ty of every walk tile (threads
+// 64p .. 64p + 63 share ty = 4p.., one warp each half of the columns):
+// named barrier 1 + p.
+__device__ __forceinline__ void pair_sync() {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + (threadIdx.x >> 6))
+               : "memory");
+}
+
+// The forward of one (128-row q tile, head, batch row): o = softmax(q k^T
+// * scale + bias) v and lse, walking the 64-row k tiles with an online
+// softmax; o laid out by o_l, lse [b, h, tq].  Each thread owns rows ty +
+// 16i of the tile: keys tx + 16j of s = q k^T (walk_mma<true>: both
+// operands read along the head) and head columns 4tx.. of acc += p v
+// (walk_mma<false>, p from p_s).  A row's 16 threads are two warps' 8
+// lanes: the row maximum of a k tile is taken over the 8 lanes by
+// shuffles and over the two halves through mx_s under the pair's barrier.
+// A tile's row sum rs of p is added in a fixed order, that of a 16-lane
+// sweep in which lane T holds keys 4T.. (summed in order) and lanes are
+// added at distance 8, 4, 2, 1: thread tx reads lane T's keys from p_s,
+// with T = tx with bits 0 and 3 swapped, so that the first three steps
+// are shuffles within its warp and the last goes through mx_s.  That order
+// is the one a row held by one half warp (4 keys a thread) gives, so with
+// the head width's scale a power of two (1/8) o and lse do not depend on
+// how many rows a block owns: the f32 training steps, held to float64 at
+// twice the CPU's own error, see the same rounding as with 64-row blocks.
+template <class L, bool DROP>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_kernel(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias, float* o,
+                 L o_l, float* __restrict__ lse, int tq, int tk, int h,
+                 float scale, int causal, Dropout drop) {
+  extern __shared__ float smem[];
+  float* q_s = smem;                   // [WM][TS] q
+  float* kv_s = q_s + kOwnTile;        // two stages of [WN][TS] k, v
+  float* p_s = kv_s + 4 * kWalkTile;   // [WM][PS] p of one k tile
+  float* bias_s = p_s + kPTile;        // two stages of [WM][PS] bias
+  float* mx_s = bias_s + 2 * kPTile;   // [2 halves][16 ty][8 i] maxima,
+                                       // then sums
+
+  const int q0 = blockIdx.x * WM;
+  const int head = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int ty = walk_ty();
+  const int tx = walk_tx();
+  const int half = (threadIdx.x >> 5) & 1;
+  const int offset = tk - tq;
+  const uint32_t hseed = block_head_seed<DROP>(drop, bi, h, head);
+  const int brow = bias.sq ? PS : 0;  // a broadcast bias has one row
+  const int n_kv = kv_tiles(q0, tq, tk, causal, WM);
+
+  float m[8], l[8], acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  zero_patch(acc);
+  if (n_kv > 0) {  // s's operands and the bias first, v while s is computed
+    stage_rows<WM>(q_s, q, bi, q0, tq, head);
+    stage_rows<WN>(kv_s, k, bi, 0, tk, head);
+    if (bias.p) stage_bias<WM, WN>(bias_s, PS, bias, bi, head, q0, tq, 0, tk);
+    async_commit();
+    stage_rows<WN>(kv_s + kWalkTile, v, bi, 0, tk, head);
+    async_commit();
+  }
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int k0 = kt * WN;
+    const int slot = kt & 1;
+    const float* k_s = kv_s + slot * 2 * kWalkTile;
+    const float* v_s = k_s + kWalkTile;
+    const float* b_s = bias_s + slot * kPTile;
+    const bool more = kt + 1 < n_kv;
+    if (kt == 0)
+      async_wait<1>();
+    else
+      async_wait<0>();
+    __syncthreads();  // this step's k and bias have landed; the last
+                      // step's stage, p_s and mx_s are consumed
+    if (more) {  // the next k, v and bias into the stage the last step left
+      float* next = kv_s + (slot ^ 1) * 2 * kWalkTile;
+      stage_rows<WN>(next, k, bi, k0 + WN, tk, head);
+      stage_rows<WN>(next + kWalkTile, v, bi, k0 + WN, tk, head);
+      if (bias.p)
+        stage_bias<WM, WN>(bias_s + (slot ^ 1) * kPTile, PS, bias, bi, head,
+                           q0, tq, k0 + WN, tk);
+      async_commit();
+    }
+    // a half of the block whose rows see none of this tile's keys skips
+    // both products: the last 64 rows when they lie past tq, the first
+    // 64 when the causal mask hides the whole tile from them (their
+    // scores are masked below, so their p is 0 or, in a row that has seen
+    // no key yet, leaves it masked)
+    const WalkRows rows = q0 + WN >= tq ? kLowRows
+                          : causal && q0 + WN - 1 + offset < k0 ? kHighRows
+                                                                 : kAllRows;
+    float s[8][4];
+    zero_patch(s);
+    if (rows == kAllRows)
+      walk_mma<true>(q_s, TS, k_s, TS, s);
+    else if (rows == kLowRows)
+      walk_mma<true, kLowRows>(q_s, TS, k_s, TS, s);
+    else
+      walk_mma<true, kHighRows>(q_s, TS, k_s, TS, s);
+    float mx[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int qpos = q0 + ty + 16 * i;
+      mx[i] = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        float sv = s[i][j] * scale;
+        if (kpos >= tk || (causal && qpos + offset < kpos))
+          sv = kMaskValue;
+        else if (bias.p)
+          sv += b_s[(ty + 16 * i) * brow + tx + 16 * j];
+        s[i][j] = sv;
+        mx[i] = fmaxf(mx[i], sv);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1)
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+    }
+    if ((threadIdx.x & 7) == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mx_s[(half * 16 + ty) * 8 + i] = mx[i];
+    }
+    pair_sync();  // both halves' maxima of the pair's rows are in mx_s
+    float alpha[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float m_new = fmaxf(
+          m[i], fmaxf(mx[i], mx_s[((half ^ 1) * 16 + ty) * 8 + i]));
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] *= alpha[i];
+        p_s[(ty + 16 * i) * PS + tx + 16 * j] = expf(s[i][j] - m_new);
+      }
+    }
+    pair_sync();  // the pair's rows of p (undropped) are whole
+    // rs of each row: lane T = tx with bits 0 and 3 swapped sums its keys
+    // 4T.. in order; lanes T ^ 8, ^ 4, ^ 2 are lanes tx ^ 1, ^ 4, ^ 2 of
+    // this warp, T ^ 1 the other half's (through mx_s, free again: its
+    // maxima were read before the barrier)
+    const int lane_t = (tx & 6) | (tx & 1) << 3 | tx >> 3;
+    float rs[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 p4 = *reinterpret_cast<const float4*>(
+          p_s + (ty + 16 * i) * PS + 4 * lane_t);
+      rs[i] = ((p4.x + p4.y) + p4.z) + p4.w;
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 4);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+    }
+    if ((threadIdx.x & 7) == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mx_s[(half * 16 + ty) * 8 + i] = rs[i];
+    }
+    if (DROP) {  // p v takes the dropped p, once every rs has read p_s
+      pair_sync();
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const uint32_t plane = (uint32_t)(q0 + ty + 16 * i) * tk + k0 + tx;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (!hash_rng::keep_attn(hseed, plane + 16 * j, drop.threshold))
+            p_s[(ty + 16 * i) * PS + tx + 16 * j] = 0.f;
+      }
+    }
+    if (kt == 0) {  // v of the first step, for the whole block
+      if (more)
+        async_wait<1>();
+      else
+        async_wait<0>();
+      __syncthreads();
+    } else {
+      pair_sync();  // the pair's rows of p_s and their rs halves are whole
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      l[i] = l[i] * alpha[i] +
+             (rs[i] + mx_s[((half ^ 1) * 16 + ty) * 8 + i]);
+    if (rows == kAllRows)
+      walk_mma<false>(p_s, PS, v_s, TS, acc);
+    else if (rows == kLowRows)
+      walk_mma<false, kLowRows>(p_s, PS, v_s, TS, acc);
+    else
+      walk_mma<false, kHighRows>(p_s, PS, v_s, TS, acc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const bool masked = (l[i] == 0.f) || (m[i] <= -1e29f);
+    const float inv = DROP ? drop.inv_keep / l[i] : 1.f / l[i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = masked ? 0.f : acc[i][j] * inv;
+    const int qpos = q0 + ty + 16 * i;
+    if (tx == 0 && qpos < tq)
+      lse[((size_t)bi * h + head) * tq + qpos] =
+          masked ? INFINITY : m[i] + logf(l[i]);
+  }
+  store_walk_rows(o, o_l, acc, bi, q0, tq, head);
 }
 
 // dq of one (128-row q tile, head, batch row); lse and delta [b, h, tq];
@@ -652,6 +803,34 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess) configured = true;
   return err;
+}
+
+template <class L, bool DROP>
+cudaError_t launch_fwd(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias, float* o,
+                       L o_l, float* lse, int b, int tq, int tk, int h,
+                       float scale, int causal, Dropout drop,
+                       cudaStream_t stream) {
+  static bool configured = false;
+  cudaError_t err = allow_smem(flash_fwd_kernel<L, DROP>, kFwdSmem,
+                               configured);
+  if (err != cudaSuccess) return err;
+  dim3 grid((tq + WM - 1) / WM, h, b);
+  flash_fwd_kernel<L, DROP><<<grid, NT, kFwdSmem, stream>>>(
+      q, k, v, bias, o, o_l, lse, tq, tk, h, scale, causal, drop);
+  return cudaGetLastError();
+}
+
+// The forward over a grid of (128-row q tiles, heads, batch rows): the
+// hashing instantiation only when drop.on.
+template <class L>
+cudaError_t fwd(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias, float* o, L o_l,
+                float* lse, int b, int tq, int tk, int h, float scale,
+                int causal, Dropout drop, cudaStream_t stream) {
+  return drop.on
+      ? launch_fwd<L, true>(q, k, v, bias, o, o_l, lse, b, tq, tk, h, scale,
+                            causal, drop, stream)
+      : launch_fwd<L, false>(q, k, v, bias, o, o_l, lse, b, tq, tk, h,
+                             scale, causal, drop, stream);
 }
 
 template <class L, bool DROP>

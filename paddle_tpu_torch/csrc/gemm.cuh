@@ -16,8 +16,20 @@
 // dimension is contiguous comes in by 16-byte cp.async, an i-major one as
 // float4 loads along k into registers, stored transposed after the
 // stage's math.  Only tiles at the operands' edges (or not 16-byte
-// aligned) check bounds, element by element.  No tensor cores, no TMA:
-// later work.
+// aligned) check bounds, element by element.  The tile keeps 64
+// accumulators and both operands' staging in the 128 registers two blocks
+// an SM allow, with none to spare.  On an H100 every change to it measured
+// slower at the pair's or #19's shapes: i-major operands staged as they lie
+// by cp.async and read as float4 along k, a third ring stage, an XOR
+// swizzle or a thread mapping that frees the transposed stores of their
+// 2-way bank conflicts, float4 stores of C, persistent #19 blocks, and one
+// block an SM with the registers that frees (PERF.md).
+// No tensor cores, no TMA: later work.
+//
+// Summation depth (C13): a split product (the pair's dW sums, K = b * t)
+// is cut into slabs of at most kMaxSlab = 1024 k, so no element of it is
+// one running f32 sum over more than 1024 terms; unsplit products (the
+// projections, dx, #19) sum their K <= 3hd in one.
 
 #pragma once
 
@@ -38,6 +50,7 @@ constexpr int GEMM_SMEM = 4 * GSTAGE;
 //: float4s a thread stages of one operand per stage
 constexpr int G4 = GK * GT / 4 / GNT;
 static_assert(G4 >= 1 && GK % 4 == 0, "a stage is whole float4s a thread");
+constexpr int kMaxSlab = 1024;
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -277,14 +290,22 @@ struct Operand {
   bool kmajor;
 };
 
-// Split-K only where the C tiles alone would not fill the card's `sms`
-// SMs: then as many slabs as two blocks per SM hold in one wave (a second
-// wave of a few blocks would cost a whole block's time), each at least
-// 32 deep (so a b = 1 prefill's y = ctx W_out, 256 x 512 x 512, runs as
-// 128 blocks on 132 SMs).
+// Split-K of a product on a card of `sms` SMs (two blocks an SM hold
+// `slots` tiles in one wave).  Where the C tiles alone would not fill the
+// card, as many slabs as one wave holds; in any case slabs at most
+// kMaxSlab deep (C13), and when that bound asks for more slabs than one
+// wave holds, as many as fill the waves it needs.  Each slab at least 32
+// deep (so a b = 1 prefill's y = ctx W_out, 256 x 512 x 512, runs as 128
+// blocks on 132 SMs).
 int gemm_splits(int M, int N, int K, int sms, int* k_slab) {
   const int tiles = ((M + GT - 1) / GT) * ((N + GT - 1) / GT);
-  int splits = tiles >= sms ? 1 : 2 * sms / tiles;
+  const int slots = 2 * sms;
+  int splits = tiles >= sms ? 1 : slots / tiles;
+  const int deep = (K + kMaxSlab - 1) / kMaxSlab;
+  if (deep > splits) {
+    const int waves = (tiles * deep + slots - 1) / slots;
+    splits = std::max(deep, waves * slots / tiles);
+  }
   splits = std::max(1, std::min(splits, K / 32));
   int slab = (K + splits - 1) / splits;
   slab = (slab + GK - 1) / GK * GK;

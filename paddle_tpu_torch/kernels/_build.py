@@ -119,8 +119,10 @@ _DROP = [_D, _U, _U]
 _SIGNATURES = {
     "ptt_error_string": (ctypes.c_char_p, [_I]),
     "ptt_gemm_partials": (_L, [_I] * 4),
+    "ptt_gemm_slab": (_I, [_I] * 4),
+    "ptt_gemm_smem": (_L, []),
     "ptt_gemm": (_I, [_P, _I, _I, _P, _I, _I, _P] + [_I] * 4
-                 + [_P, _I, _P]),
+                 + [_P, _I, _I, _P]),
     "ptt_qkv_fwd_scratch": (_L, [_I] * 5),
     "ptt_qkv_attention_fwd": (
         _I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 6 + [_F, _I] + _DROP
@@ -155,6 +157,7 @@ _SIGNATURES = {
     "ptt_dropout_add_bwd": (_I, [_P] * 2 + [_L] + _DROP + [_P]),
     "ptt_stats_partials": (_L, [_L, _I]),
     "ptt_dot_stats_partials": (_L, [_I, _I]),
+    "ptt_dot_stats_smem": (_L, []),
     "ptt_channel_stats": (_I, [_P] * 4 + [_L, _I, _P]),
     "ptt_dot_col_stats": (_I, [_P] * 6 + [_I] * 3 + [_P]),
     "ptt_ssa_fwd": (_I, [_P] * 5 + [_L, _I, _I, _P]),

@@ -61,10 +61,12 @@ def _require_card(a, b):
                              f"{a.device}, got {t.dtype} on {t.device}")
 
 
-def gemm(a, b):
+def gemm(a, b, split=True):
     """c [M, N] = a [M, K] @ b [K, N] in f32 on ``gemm.cuh``'s tile, each
-    element summed in increasing k (split-K partials added in slab order).
-    Each operand is row-major or a transposed view of one (see
+    element summed in increasing k; with ``split`` over K in slabs of at
+    most 1024 (partials added in slab order), as the pair sums its dW
+    products, else in one sum, as it does its projections and dx.  Each
+    operand is row-major or a transposed view of one (see
     :func:`operands`)."""
     if a.device.type == "cpu":
         return reference_gemm(a, b)
@@ -75,11 +77,12 @@ def gemm(a, b):
     sms = sm_count(a.device)
     lib = _build.lib()
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    partials = torch.empty(lib.ptt_gemm_partials(m, n, k, sms),
-                           dtype=torch.float32, device=a.device)
+    partials = torch.empty(lib.ptt_gemm_partials(m, n, k, sms) if split
+                           else 0, dtype=torch.float32, device=a.device)
     err = lib.ptt_gemm(a.data_ptr(), lda, int(a_kmajor), b.data_ptr(), ldb,
                        int(b_kmajor), c.data_ptr(), n, m, n, k,
-                       partials.data_ptr(), sms, _build.stream_of(a))
+                       partials.data_ptr(), sms, int(split),
+                       _build.stream_of(a))
     _build.check(err, "gemm")
     launches["gemm"] += 1
     return c

@@ -78,7 +78,8 @@ def test_channel_stats_matches_reference(c):
 
 
 @pytest.mark.parametrize("m,k,n", [(256, 64, 256), (128, 256, 64),
-                                   (64, 128, 128)])
+                                   (64, 128, 128), (200, 72, 100),
+                                   (130, 64, 68)])
 def test_dot_col_stats_matches_reference(m, k, n):
     """#19: y = x2 w2^T with its column sums, and dx, dw from cotangents
     of y, s1 and s2 together, against ``jax.vjp``."""

@@ -27,8 +27,9 @@ SCALE = D ** -0.5
 
 #: (name, tq, tk, bias kind, causal): the reference's bias shapes, causal
 #: with tq < tk and tq > tk (its first tq - tk rows see no key), a row
-#: masked by a -1e30 bias, and two ragged cases (lengths that are
-#: multiples of neither 64 nor 128, as the card's walks tile them)
+#: masked by a -1e30 bias, and three ragged cases (lengths that are
+#: multiples of neither 64 nor 128, as the card's walks tile them; 129
+#: crosses the forward's 128-row block by one)
 CASES = [
     ("no_bias", 32, 32, None, False),
     ("key_padding", 32, 64, "pad", False),
@@ -39,6 +40,7 @@ CASES = [
     ("masked_row", 64, 64, "masked", False),
     ("ragged_pad", 40, 72, "pad", False),
     ("ragged_causal_masked_row", 72, 40, "masked", True),
+    ("ragged_causal_129", 129, 129, "full", True),
 ]
 
 

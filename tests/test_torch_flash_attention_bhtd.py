@@ -38,9 +38,10 @@ RATE, SEED = 0.1, 0x2545F491
 #: (name, tq, tk, bias kind, causal): every bias shape the reference
 #: broadcasts ([b,1,1,tk] key padding, [b,1,tq,tk], [b,h,tq,tk],
 #: [1,1,tq,tk]), tq != tk both ways, causal, and causal with tq > tk (its
-#: first tq - tk rows see no key) beside a row masked to -1e30; the two
+#: first tq - tk rows see no key) beside a row masked to -1e30; the three
 #: ragged cases take lengths that are multiples of neither 64 nor 128, as
-#: the card's walks tile them
+#: the card's walks tile them (129 crosses the forward's 128-row block by
+#: one)
 CASES = [
     ("no_bias", 32, 32, None, False),
     ("key_padding", 32, 64, "pad", False),
@@ -51,6 +52,7 @@ CASES = [
     ("causal_tq_gt_tk_masked_row", 64, 32, "masked", True),
     ("ragged_pad", 40, 72, "pad", False),
     ("ragged_causal_masked_row", 72, 40, "masked", True),
+    ("ragged_129_72", 129, 72, "pad", False),
 ]
 RATES = [0.0, RATE]
 

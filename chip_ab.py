@@ -3,7 +3,7 @@ training step on the flag-off and the fused route, the BERT-base step on
 the bhtd route, the ResNet-50 step and #1 at its smallest plan case, each
 checkout in processes of its own.
 
-    python3 chip_ab.py OTHER_CHECKOUT [--rounds 4]
+    python3 chip_ab.py OTHER_CHECKOUT [--rounds 4] [--what all]
 
 OTHER_CHECKOUT is the root of another checkout of this repository (for
 example the parent commit, unpacked by ``git archive``).  Each round runs
@@ -30,7 +30,16 @@ reusing them) and runs this checkout's measuring code from
 * #1 (``qkv_attention_fwd`` with residuals) at t 8, b 4, d_model 512:
   CUDA events after an L2 flush with the host's enqueue counted
   (``cuda_ms``, as phase 2 times it) and hidden (``hide_host``), and
-  each of its kernels' device time per call under ``torch.profiler``.
+  each of its kernels' device time per call under ``torch.profiler``;
+* the fused decode step, phase 3's main path and (b): Transformer-base
+  greedy generation on ring caches and on paged pools at b=1 and b=64
+  (source 256, 64 tokens): the median and 80th percentile of the 64
+  steps of ``time_session`` by the host clock, then 16 steps under
+  ``torch.profiler`` (``profile_serving``) for the device-busy time a
+  step, the megastep's share of it and the idle share.
+
+``--what decode`` (or ``training``) measures only the decode steps (or
+only the rest).
 
 Prints, per checkout, the median and range of each number over its
 processes; every process's record goes to ``chiprun_out/chip_ab.json``.
@@ -67,7 +76,31 @@ def _per_call_us(cs, prof, calls):
     return {name[:80]: us / calls for name, us in cs._device_kernels(prof)}
 
 
-def measure(root):
+def measure_decode(cs):
+    """The fused decode steps on ring caches and on paged pools at b=1
+    and b=64: {route: record}."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import GenerationSession
+
+    model = paddle_tpu_torch.Transformer(**cs.BASE).init_params(seed=0)
+    steps = {}
+    for paged in (False, True):
+        for b in cs.BATCHES:
+            sess = GenerationSession(model, b, cs.SRC_LEN, cs.MAX_OUT,
+                                     bos_id=0, eos_id=-1, paged=paged)
+            timed = cs.time_session(sess, cs.source_batch(b, seed=b))
+            prof = cs.profile_serving(model, b, paged=paged)["decode"]
+            steps[f"decode_{'paged' if paged else 'ring'}_b{b}"] = dict(
+                step_ms=timed["step_ms_p50"],
+                step_ms_p80=timed["step_ms_p80"],
+                busy_ms=prof["device_busy_ms"],
+                megastep_ms=prof["megastep_ms"],
+                idle_share=prof["idle_share"])
+            del sess
+    return steps
+
+
+def measure(root, what="all"):
     """One process's measurements of the checkout at ``root``."""
     sys.path.insert(0, root)
     import torch
@@ -97,6 +130,8 @@ def measure(root):
         return (sum(us for _, us in rows) / 1e3, cs._walks_us(rows) / 1e3,
                 sum(us for n, us in rows if "dot_stats_kernel" in n) / 1e3)
 
+    if what == "decode":
+        return dict(root=root, steps=measure_decode(cs))
     L = cs.BASE["n_layer"]
     steps = {}
     for route, fused, per_step in (
@@ -174,6 +209,8 @@ def measure(root):
         for _ in range(calls):
             fwd()
         torch.cuda.synchronize()
+    if what == "all":
+        steps.update(measure_decode(cs))
     return dict(root=root, steps=steps, t8_ms=t8_ms,
                 t8_device_ms=t8_device_ms,
                 t8_kernels_us=_per_call_us(cs, prof, calls))
@@ -189,11 +226,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--what", choices=("all", "decode", "training"),
+                    default="all")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     other = os.path.abspath(args.other)
     if args.child:
-        print(json.dumps(measure(other)))
+        print(json.dumps(measure(other, args.what)))
         return 0
     import torch
 
@@ -211,7 +250,8 @@ def main():
             t0 = time.perf_counter()
             out = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), root,
-                 "--child"], cwd=root, capture_output=True, text=True)
+                 "--child", "--what", args.what], cwd=root,
+                capture_output=True, text=True)
             if out.returncode:
                 print(out.stdout[-4000:], out.stderr[-4000:],
                       file=sys.stderr)
@@ -235,13 +275,14 @@ def main():
                     continue
                 xs = [r["steps"][route][key] for r in mine]
                 summary[f"{route} {key}"] = (_median(xs), min(xs), max(xs))
-        for key in ("t8_ms", "t8_device_ms"):
-            xs = [r[key] for r in mine]
-            summary[key] = (_median(xs), min(xs), max(xs))
-        names = sorted({n for r in mine for n in r["t8_kernels_us"]})
-        summary["t8_kernels_us"] = {
-            n: _median([r["t8_kernels_us"].get(n, 0.0) for r in mine])
-            for n in names}
+        if args.what != "decode":
+            for key in ("t8_ms", "t8_device_ms"):
+                xs = [r[key] for r in mine]
+                summary[key] = (_median(xs), min(xs), max(xs))
+            names = sorted({n for r in mine for n in r["t8_kernels_us"]})
+            summary["t8_kernels_us"] = {
+                n: _median([r["t8_kernels_us"].get(n, 0.0) for r in mine])
+                for n in names}
         print(f"{label} ({len(mine)} processes; median, min, max): "
               f"{json.dumps(summary)}")
     return 0

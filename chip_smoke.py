@@ -77,7 +77,14 @@ Phases, each fatal on failure:
    10 and 1, ids [26, 4096]): #22 on both groups for the twin's bits; #23
    in Adam mode on both groups and in SGD and scatter-add modes on the
    first, on ids with planted runs of 5 and 50 equal ids and a sentinel
-   tail, within 1e-6 relative of the twin and equal bits on a repeat;
+   tail, within 1e-6 relative of the twin and equal bits on a repeat.
+   The decode megastep (#10 ring, #12 paged) is checked at b=1 and b=64
+   and, on a generator of its own, at a ragged b=33 and at b=64 with every
+   lane's self cache (128 rows) and cross cache (256 rows) full: each call
+   twice on fresh copies of the caches for equal bits of the output and
+   of the rows written in place, and against its twin within TOL_KERNEL,
+   caches included; each record carries its plan (``megastep_plan``),
+   the co-resident grid and its share of the bound;
 3. the main paths on Transformer-base (6 layers, 8 heads, d_model 512,
    d_inner 2048, vocab 32000, source 256, 64 tokens) with seeded random
    weights.  The launch counters are zeroed just before each path and read
@@ -180,7 +187,9 @@ Phases, each fatal on failure:
    f32 peak share by ``bench.py``'s ``bert_train_flops_per_token``, peak
    memory), whose loss must fall;
 4. where the time goes: torch.profiler over one prefill and 16 decode
-   steps at each batch, and over one training step on each route, on
+   steps at each batch on the ring cache and at b=64 on paged pools (the
+   megastep's device ms a step beside the idle share), and over one
+   training step on each route, on
    the dropout route, of ResNet-50, of DeepFM and of BERT-base on both
    kernel routes: device time by kernel beside host wall time, and for
    ResNet-50 any layout-conversion kernel and #19's time a step beside the
@@ -385,7 +394,12 @@ def _decode_weights(gen):
     return w, ffn
 
 
-def _decode_inputs(gen, b):
+def _decode_inputs(gen, b, full=False):
+    """The ring megastep's inputs at Transformer-base widths: self caches
+    of 128 rows and cross caches of SRC_LEN.  Ragged positions
+    mid-generation, the last lane inactive and lane 0 of a batch > 1 with
+    an empty cross cache; ``full``: every lane active at row 127 and
+    every cross cache full."""
     h, dh, L = BASE["n_head"], BASE["d_key"], BASE["n_layer"]
     w, ffn = _decode_weights(gen)
     self_rows, cross_rows = 128, SRC_LEN
@@ -394,12 +408,12 @@ def _decode_inputs(gen, b):
         cache_v=randn(gen, L, b, self_rows, h, dh),
         cross_k=randn(gen, L, b, cross_rows, h, dh),
         cross_v=randn(gen, L, b, cross_rows, h, dh))
-    # ragged positions mid-generation; the last lane inactive, lane 0 of a
-    # batch > 1 with an empty cross cache
     pos = torch.randint(0, MAX_OUT, (b,), generator=gen)
     active = torch.ones(b, dtype=torch.int64)
     cross_len = torch.randint(1, cross_rows + 1, (b,), generator=gen)
-    if b > 1:
+    if full:
+        pos[:], cross_len[:] = self_rows - 1, cross_rows
+    elif b > 1:
         active[-1] = 0
         cross_len[0] = 0
     ints = dict(pos=pos, lengths=pos + active, cross_lengths=cross_len,
@@ -409,38 +423,84 @@ def _decode_inputs(gen, b):
     return x, w, ffn, caches, ints
 
 
-def check_decode_kernels(gen, b):
+def _megastep_bytes_flops(b, ints, extra_bytes=0):
+    """(bytes, flops) of one megastep call: the weights once, x and out,
+    the k/v row written, the rows the walks read (their valid rows), the
+    int32 vectors; 2 FLOPs a weight a row and 4 a head dim a row walked."""
+    dm, hd = BASE["d_model"], BASE["n_head"] * BASE["d_key"]
+    act = ints["active"].long()
+    self_rows = ints["lengths"].long().clamp(min=0).sum().item()
+    cross_rows = ints["cross_lengths"].long().clamp(min=0).sum().item()
+    n_act = act.sum().item()
+    self_rows -= n_act  # the fresh rows are written, not read
+    weights = 6 * dm * hd + 4 * dm
+    nbytes = (F32 * (weights + 2 * b * dm
+                     + 2 * hd * (self_rows + cross_rows + n_act))
+              + 16 * b + extra_bytes)
+    flops = 2 * b * weights + 4 * hd * (self_rows + n_act + cross_rows)
+    return nbytes, flops
+
+
+def _held_megastep(what, call, plain, caches, b):
+    """Call the kernel twice on two fresh copies of ``caches`` (equal bits
+    of out and of both self caches, the rows written in place included)
+    and its twin on a third; hold out and the caches to TOL_KERNEL.
+    Returns (max abs err, the twin's out, the kernel's copy, the twin's)."""
+    copies = [{k: v.clone() for k, v in caches.items()} for _ in range(3)]
+    got = call(copies[0])
+    again = call(copies[1])
+    want = plain(copies[2])
+    torch.cuda.synchronize()
+    require(torch.equal(got, again)
+            and all(torch.equal(copies[0][n], copies[1][n])
+                    for n in ("cache_k", "cache_v")),
+            f"{what}: two calls on the same inputs differ")
+    err = compare(what, got, want, TOL_KERNEL)
+    for name in ("cache_k", "cache_v"):
+        err = max(err, compare(f"{what} {name}", copies[0][name],
+                               copies[2][name], TOL_KERNEL))
+    return err, want, copies[0], copies[2]
+
+
+def _plan_fields(x, paged, self_rows, cross_rows):
+    """The megastep's plan on this card and its co-resident grid."""
+    from paddle_tpu_torch.kernels import decode_step as kds
+    from paddle_tpu_torch.kernels.attention import sm_count
+
+    plan = kds.device_megastep_plan(x.device, paged, x.shape[0],
+                                    BASE["n_head"], BASE["d_model"],
+                                    self_rows, cross_rows)
+    return dict(plan=plan._asdict(), co_resident_grid=plan.grid,
+                blocks_per_sm=plan.grid // sm_count(x.device))
+
+
+def check_megastep(x, w, caches, ints, b, label=""):
+    """#10 at these inputs: twice for equal bits, against its twin, timed
+    beside it; the record carries the plan."""
     from paddle_tpu_torch.kernels import decode_step as kds
 
-    x, w, ffn, caches, ints = _decode_inputs(gen, b)
-    dm, h, dh = BASE["d_model"], BASE["n_head"], BASE["d_key"]
-    hd = h * dh
+    h, dh = BASE["n_head"], BASE["d_key"]
     kw = dict(layer=BASE["n_layer"] // 2, n_head=h, scale=dh ** -0.5)
-    plain_caches = {k: v.clone() for k, v in caches.items()}
-    got = kds.megastep(x, **w, **caches, **ints, **kw)
-    want = kds.reference_megastep(x, **w, **plain_caches, **ints, **kw)
-    torch.cuda.synchronize()
-    err = compare(f"megastep b={b}", got, want, TOL_KERNEL)
-    for name in ("cache_k", "cache_v"):
-        err = max(err, compare(f"megastep {name} b={b}", caches[name],
-                               plain_caches[name], TOL_KERNEL))
-    # rows read by the walks, the k/v row written, the weights once
-    act = ints["active"].long()
-    self_rows = (ints["lengths"].long() - act).sum().item()
-    cross_rows = ints["cross_lengths"].long().sum().item()
-    n_act = act.sum().item()
-    weights = 6 * dm * hd + 4 * dm
-    mega_bytes = F32 * (weights + 2 * b * dm
-                        + 2 * hd * (self_rows + cross_rows + n_act)) + 16 * b
-    mega_flops = (2 * b * weights
-                  + 4 * hd * (self_rows + n_act + cross_rows))
-    mega = timed_record(
+    err, want, mine, plain = _held_megastep(
+        f"megastep{label} b={b}",
+        lambda c: kds.megastep(x, **w, **c, **ints, **kw),
+        lambda c: kds.reference_megastep(x, **w, **c, **ints, **kw),
+        caches, b)
+    nbytes, flops = _megastep_bytes_flops(b, ints)
+    rec = timed_record(
         "megastep", "paddle_tpu_torch/csrc/megastep.cu",
         "paddle_tpu/kernels/decode_step.py:229", err,
-        lambda: kds.megastep(x, **w, **caches, **ints, **kw),
-        lambda: kds.reference_megastep(x, **w, **plain_caches, **ints,
-                                       **kw), mega_flops, mega_bytes, None,
-        b)
+        lambda: kds.megastep(x, **w, **mine, **ints, **kw),
+        lambda: kds.reference_megastep(x, **w, **plain, **ints, **kw),
+        flops, nbytes, None, b)
+    rec.update(_plan_fields(x, False, caches["cache_k"].shape[2],
+                            caches["cross_k"].shape[2]))
+    return rec, want
+
+
+def check_decode_kernels(gen, b):
+    x, w, ffn, caches, ints = _decode_inputs(gen, b)
+    mega, want = check_megastep(x, w, caches, ints, b)
     return mega, check_ffn(want, ffn, b, "ffn",
                            "paddle_tpu/kernels/decode_step.py:383")
 
@@ -589,15 +649,13 @@ def check_flash_decode(gen, b):
     return out
 
 
-def check_paged_decode_kernels(gen, b):
-    """#12 and #13 at the paged main path's shapes: pools of 16-row blocks
-    behind shuffled tables with holes, self lengths 1-128 and cross
-    lengths 8-256, the last lane inactive at row 0 (self length 0) and
-    lane 0 with an empty cross cache when b > 1."""
-    from paddle_tpu_torch.kernels import decode_step as kds
-
+def _paged_inputs(gen, b, full=False):
+    """The paged megastep's inputs: pools of 16-row blocks behind
+    shuffled tables with holes, self lengths 1-128 and cross lengths
+    8-256, the last lane inactive at row 0 (self length 0) and lane 0
+    with an empty cross cache when b > 1; ``full``: every lane active at
+    row 127 and every cross cache full (256 rows)."""
     h, dh, L, bt = BASE["n_head"], BASE["d_key"], BASE["n_layer"], BLOCK_T
-    dm, hd = BASE["d_model"], h * dh
     w, ffn = _decode_weights(gen)
     stab, snb = _shuffled_table(gen, b, 128 // bt)
     ctab, cnb = _shuffled_table(gen, b, SRC_LEN // bt)
@@ -607,41 +665,79 @@ def check_paged_decode_kernels(gen, b):
                  cross_v=randn(gen, L, cnb, bt, h, dh))
     pos = torch.randint(0, 128, (b,), generator=gen)
     active = torch.ones(b, dtype=torch.int64)
-    if b > 1:
+    if full:
+        pos[:] = 127
+    elif b > 1:
         active[-1], pos[-1] = 0, 0
     ints = dict(pos=pos, lengths=pos + active)
     ints = {k: v.to(torch.int32).cuda() for k, v in ints.items()}
     ints.update(cross_lengths=_spread_lengths(gen, b, 8, SRC_LEN),
                 self_table=stab, cross_table=ctab,
                 active=active.to(torch.int32).cuda())
-    x = randn(gen, b, 1, dm)
-    kw = dict(layer=L // 2, n_head=h, scale=dh ** -0.5)
-    plain_pools = {k: v.clone() for k, v in pools.items()}
-    got = kds.megastep_paged(x, **w, **pools, **ints, **kw)
-    want = kds.reference_megastep_paged(x, **w, **plain_pools, **ints, **kw)
-    torch.cuda.synchronize()
-    err = compare(f"megastep_paged b={b}", got, want, TOL_KERNEL)
-    for name in ("cache_k", "cache_v"):
-        err = max(err, compare(f"megastep_paged {name} b={b}", pools[name],
-                               plain_pools[name], TOL_KERNEL))
-    act = ints["active"].long()
-    self_rows = (ints["lengths"].long() - act).sum().item()
-    cross_rows = ints["cross_lengths"].long().sum().item()
-    n_act = act.sum().item()
-    weights = 6 * dm * hd + 4 * dm
-    nbytes = (F32 * (weights + 2 * b * dm
-                     + 2 * hd * (self_rows + cross_rows + n_act))
-              + 16 * b + 4 * b * (stab.shape[1] + ctab.shape[1]))
-    flops = 2 * b * weights + 4 * hd * (self_rows + n_act + cross_rows)
-    mega = timed_record(
+    if full:
+        ints["cross_lengths"].fill_(SRC_LEN)
+    x = randn(gen, b, 1, BASE["d_model"])
+    return x, w, ffn, pools, ints
+
+
+def check_megastep_paged(x, w, pools, ints, b, label=""):
+    """#12 at these inputs, as :func:`check_megastep`."""
+    from paddle_tpu_torch.kernels import decode_step as kds
+
+    h, dh = BASE["n_head"], BASE["d_key"]
+    kw = dict(layer=BASE["n_layer"] // 2, n_head=h, scale=dh ** -0.5)
+    err, want, mine, plain = _held_megastep(
+        f"megastep_paged{label} b={b}",
+        lambda c: kds.megastep_paged(x, **w, **c, **ints, **kw),
+        lambda c: kds.reference_megastep_paged(x, **w, **c, **ints, **kw),
+        pools, b)
+    tables = 4 * b * (ints["self_table"].shape[1]
+                      + ints["cross_table"].shape[1])
+    nbytes, flops = _megastep_bytes_flops(b, ints, tables)
+    rec = timed_record(
         "megastep_paged", "paddle_tpu_torch/csrc/megastep.cu",
         "paddle_tpu/kernels/decode_step.py:642", err,
-        lambda: kds.megastep_paged(x, **w, **pools, **ints, **kw),
-        lambda: kds.reference_megastep_paged(x, **w, **plain_pools, **ints,
-                                             **kw), flops, nbytes, None, b)
+        lambda: kds.megastep_paged(x, **w, **mine, **ints, **kw),
+        lambda: kds.reference_megastep_paged(x, **w, **plain, **ints, **kw),
+        flops, nbytes, None, b)
+    bt = pools["cache_k"].shape[2]
+    rec.update(_plan_fields(x, True, ints["self_table"].shape[1] * bt,
+                            ints["cross_table"].shape[1]
+                            * pools["cross_k"].shape[2]))
+    return rec, want
+
+
+def check_paged_decode_kernels(gen, b):
+    """#12 and #13 at the paged main path's shapes (:func:`_paged_inputs`)."""
+    x, w, ffn, pools, ints = _paged_inputs(gen, b)
+    mega, want = check_megastep_paged(x, w, pools, ints, b)
     return mega, check_ffn(
         want, ffn, b, "ffn_paged",
         "paddle_tpu/kernels/decode_step.py:383 (launch :889)")
+
+
+#: the fields of a megastep case kept in the JSON line
+MEGASTEP_CASE_KEYS = ("batch", "ms", "plain_ms", "bound_ms", "bound_share",
+                      "max_abs_err", "plan", "co_resident_grid")
+
+
+def check_megastep_cases():
+    """#10 and #12 beyond the serving batches: the ragged b=33 (across the
+    plan's tile edges) and every lane with a full self (128 rows) and
+    cross (256 rows) cache at b=64, on a generator of their own so that
+    the other checks' inputs stay the parent's.  Returns {(name, case):
+    record}."""
+    gen = torch.Generator().manual_seed(33)
+    out = {}
+    for case, b, full in (("b=33", 33, False), ("full b=64", 64, True)):
+        x, w, _, caches, ints = _decode_inputs(gen, b, full)
+        out[("megastep", case)] = check_megastep(x, w, caches, ints, b,
+                                                 f" {case}")[0]
+        x, w, _, pools, ints = _paged_inputs(gen, b, full)
+        out[("megastep_paged", case)] = check_megastep_paged(
+            x, w, pools, ints, b, f" {case}")[0]
+        del caches, pools
+    return out
 
 
 #: phase 2's bthd flash-attention cases at the training path's shapes:
@@ -3643,21 +3739,21 @@ def _device_kernels(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def profile_serving(model, b, steps=16):
+def profile_serving(model, b, steps=16, paged=False):
     """Device time by kernel over one prefill and `steps` decode steps,
-    beside host wall time: the device's idle share of each phase."""
+    beside host wall time: the device's idle share of each phase (on
+    paged caches with ``paged``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch import GenerationSession
 
-    sess = GenerationSession(model, b, SRC_LEN, MAX_OUT, bos_id=0,
-                             eos_id=-1)
+    kw = dict(bos_id=0, eos_id=-1, paged=paged)
+    sess = GenerationSession(model, b, SRC_LEN, MAX_OUT, **kw)
     src = source_batch(b, seed=b)
     sess.prefill(src)  # warm
     for _ in range(4):
         sess.decode_step()
-    sess = GenerationSession(model, b, SRC_LEN, MAX_OUT, bos_id=0,
-                             eos_id=-1)
+    sess = GenerationSession(model, b, SRC_LEN, MAX_OUT, **kw)
     out = {}
     for phase in ("prefill", "decode"):
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -3676,11 +3772,15 @@ def profile_serving(model, b, steps=16):
         busy_us = sum(us for _, us in rows)
         out[phase] = dict(wall_ms=wall_us / per / 1e3,
                           device_busy_ms=busy_us / per / 1e3,
+                          megastep_ms=sum(
+                              us for name, us in rows
+                              if "megastep_kernel" in name) / per / 1e3,
                           idle_share=(1 - busy_us / wall_us
                                       if busy_us else None),
                           top=[(name[:60], us / per / 1e3)
                                for name, us in rows[:8]])
-        with open(os.path.join(OUT_DIR, f"profile_b{b}_{phase}.txt"),
+        tag = "_paged" if paged else ""
+        with open(os.path.join(OUT_DIR, f"profile_b{b}{tag}_{phase}.txt"),
                   "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=40))
@@ -3896,6 +3996,9 @@ def print_record(r, label):
              if "twin_bit_equal" in r else "")
           + (f"; {r['bound_share']:.1%} of the bound"
              if "bound_share" in r else "")
+          + (f"; plan {r['plan']}, co-resident grid "
+             f"{r['co_resident_grid']} ({r['blocks_per_sm']} an SM)"
+             if "co_resident_grid" in r else "")
           + (f"; the walks' own bound (s, dp twice) {r['walks_bound_ms']} "
              f"ms; {r['library_factor']:.3f}x the library"
              if "library_factor" in r else ""))
@@ -3980,6 +4083,15 @@ def main():
             # the JSON line carries the cross side of the flash-decode pair
             if side in (None, "cross"):
                 records[(r["name"], b)] = r
+    # the megastep records in the JSON line carry b=1's, the ragged b=33's
+    # and the full caches'
+    for name in ("megastep", "megastep_paged"):
+        records[(name, max(BATCHES))]["cases"] = {
+            "b=1": {k: records[(name, 1)][k] for k in MEGASTEP_CASE_KEYS}}
+    for (name, case), r in check_megastep_cases().items():
+        print_record(r, f" {case}")
+        records[(name, max(BATCHES))]["cases"][case] = {
+            k: r[k] for k in MEGASTEP_CASE_KEYS}
     for (name, case), r in check_flash_attention(gen).items():
         print_record(r, f" {case} b={r['batch']}")
         if case == FLASH_RECORD_CASE:
@@ -4207,17 +4319,19 @@ def main():
           f"{training_bert[1]['f32_peak_share']}")
     t_phase = _phase_seconds("phase 3 (i)", t_phase)
 
-    for b in BATCHES:
-        prof = profile_serving(model, b)
+    for b, paged in [(b, False) for b in BATCHES] + [(max(BATCHES), True)]:
+        prof = profile_serving(model, b, paged=paged)
+        label = f"b={b}{' paged' if paged else ''}"
         for phase, r in prof.items():
             if not r["device_busy_ms"]:
-                print(f"phase 4: b={b} {phase}: device time not measured "
+                print(f"phase 4: {label} {phase}: device time not measured "
                       f"(the profiler saw no device events)")
                 continue
-            print(f"phase 4: b={b} {phase} per "
+            print(f"phase 4: {label} {phase} per "
                   f"{'prefill' if phase == 'prefill' else 'step'}: wall "
                   f"{r['wall_ms']} ms, device busy {r['device_busy_ms']} "
-                  f"ms, idle share {r['idle_share']}")
+                  f"ms, idle share {r['idle_share']}, the megastep "
+                  f"{r['megastep_ms']} ms")
             for name, ms in r["top"]:
                 print(f"    {ms:.4f} ms  {name}")
     bert_feed = _to(bert_batch(BERT_BATCH, seed=2), DEV)

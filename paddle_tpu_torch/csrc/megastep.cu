@@ -3,8 +3,7 @@
 //
 // Replaces paddle_tpu/kernels/decode_step.py _megastep_kernel (ring) and
 // _paged_megastep_kernel (paged), each in its split-FFN mode; the
-// feed-forward runs next, in ffn.cu.  One block per sequence, as one grid
-// step per sequence on the TPU:
+// feed-forward runs next, in ffn.cu.  For every sequence of the batch:
 //
 //   1. q, k, v = x @ Wqkv (packed q|k|v columns), q pre-scaled;
 //   2. the k/v row is written IN PLACE into the self cache at row pos, for
@@ -16,263 +15,920 @@
 //      cross cache;
 //   6. out = LN2(x1 + cctx @ Wcout).
 //
-// The two layouts differ only in where a row lives (common.cuh RingRows,
-// PagedRows) and in the row write of step 2: the ring clamps pos into
-// [0, max_t) as a 1-row dynamic_update_slice does; the paged write drops a
-// row at or past max_blocks * block_t, as the reference's composition
-// (paged_scatter_rows) does.  A paged block first copies its two table
-// rows into shared memory.
+// The two layouts differ only in where a row lives (Side::offset) and in
+// the row write of step 2: the ring clamps pos into [0, max_t) as a 1-row
+// dynamic_update_slice does; the paged write drops a row at or past
+// max_blocks * block_t, as the reference's composition
+// (paged_scatter_rows) does.
 //
-// The fresh row reaches the walk through device memory: the threads that
-// computed it store it, then __syncthreads() makes every global store of
-// the block visible to every thread of the block, and the walk reads the
-// cache with ordinary (coherent) loads, never the read-only path.
+// Bound: bytes.  The layer's six h*dh x d_model weight matrices (6.3 MB at
+// Transformer-base widths) and the cache rows the walks read (42 MB at
+// batch 64 with half-full caches).  The TPU kernel takes one grid step a
+// sequence with the weights resident in VMEM; one block a sequence here
+// (this kernel's first version) streamed the weights through one SM per
+// sequence, 400 MB of L2 traffic at batch 64 and one SM of 132 at batch 1,
+// its time one block's serial latency.  So one launch now spreads each
+// step of the layer over the whole card: a cooperative grid of one block
+// an SM, all co-resident, with cooperative_groups grid barriers between
+// the phases, each block taking work items in a grid-stride loop (a block
+// with none still reaches every barrier):
 //
-// Bound: bytes.  Each block streams the 6 h*dh x d_model weight matrices
-// (6.3 MB at Transformer-base widths) and its cache prefix; q, k, v, the
-// contexts and the normalized activations stay in shared memory.  One block
-// per sequence reads the weights once per sequence and fills 1 of 132 SMs
-// at batch 1, where a decode step's 6 layers do not fit the L2 and that one
-// SM streams them from HBM: accepted for this first kernel.
+//   P1  qkv = x Wqkv: (column tile, row group) items; each block stages
+//       its W tile by 16-byte cp.async and its x rows transposed, and sums
+//       each output over k in a fixed order (k groups, then a fixed
+//       reduction); q goes to scratch, k and v straight into the cache
+//       row of each active lane.
+//   P2  self walk: items of 16 cache rows of a (head group of up to 8
+//       heads, sequence), numbered over the rows that exist (a prefix sum
+//       of the lengths) so that every block gets as many as any other;
+//       k and v rows (2 KB a row a group) and q staged through a
+//       two-stage cp.async ring that runs on across the block's items; a
+//       warp a head, two lanes a row.  Each item leaves its (m, l, acc)
+//       per head in scratch; then the contexts, one warp a (sequence,
+//       head), the items merged in order.
+//   P3  y = ctx Wout: as P1.  Each projection's first W tile is copied a
+//       phase ahead (P3's during P1 and P2, P4's during P3, P6's during
+//       P4 and P5), so that after a barrier only the rows that phase
+//       depends on are waited for.
+//   P4  x1 = LN1(x + y), cq = x1 Wcq: as P1; each block recomputes LN1
+//       for the rows it uses (one warp a row, one fixed order, so every
+//       block holds the same bits); the first column tile stores x1.
+//   P5  cross walk and its contexts, as P2.
+//   P6  y2 = cctx Wcout, as P3.
+//   P7  out = LN2(x1 + y2), a warp a row.
+//
+// The phases are functions called once each (not inlined), one copy of
+// the projection and of the walk: code fetch after an L2 flush costs a
+// large kernel several microseconds a phase on the H100.
+//
+// Every output element and every partial is summed by one block in one
+// fixed order: no atomics, and a repeated call gives the same bits.  The
+// work split is the caller's plan (kernels/decode_step.py megastep_plan);
+// the entry points check it and return cudaErrorInvalidValue for a plan
+// they cannot run, and a refused cooperative launch returns its error.
+//
+// Rows written in P1 are read after a grid barrier through cp.async.cg
+// (L2, coherent), and the scratch written by one phase is read by the next
+// through ld.global.cg; nothing that this launch writes is read through
+// the read-only path or L1.
+//
+// Shared memory: P3's and P6's W tile, K (ct + 4) floats, then the larger
+// of a walk, 2 (2*16 (gw + 8) + gw) floats with gw = 64 * min(h, 8) (134
+// KB at 8 heads of 64), and P1's or P4's W tile with the largest A^T and
+// the reduction buffer, K (max(rg, 4) + 4) + 4224 floats: 200.5 KB at
+// batch 64 (tiles (32, 32), (16, 16), (32, 8)), 150 KB at batch 1.  At
+// head width 128 (C2's later slice) a group of 8 heads is 1024 floats a
+// row and the walk would need 266 KB, over a block's 227 KB: groups of
+// 4 heads (134 KB) keep it.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 using ptt::DH;
+using ptt::kMaskValue;
 
 constexpr int NT = 256;
+constexpr int NW = NT / 32;
+// cache rows a walk stages at once (NT / 16 threads a row)
+constexpr int CR = 16;
+// walk chunks in the copy ring (STAGES - 1 in flight while one computes;
+// three ran no faster on the H100)
+constexpr int STAGES = 2;
+// floats of one walk partial: acc[DH], m, l, padding
+constexpr int PART = DH + 4;
+// floats of a projection's reduction buffer
+constexpr int RED = NT * 16;
+// floats after it: P1's row-write offsets (64 int64s)
+constexpr int AUX = 128;
+// walk splits a sequence at most (a merge lane each)
+constexpr int MAX_SPLITS = 32;
+// features a lane holds in a layer norm's fast path (d_model <= 512)
+constexpr int LNV = 16;
 
-// out_s[n] = mul * sum_k x_s[k] * W[k * ldw + n] for n < N (N % 4 == 0).
-// Threads split the columns in float4s and, where there are threads to
-// spare, K into `groups` slices summed in a fixed order afterwards.
-__device__ void block_matvec(const float* x_s, const float* __restrict__ W,
-                             int ldw, int K, int N, float* out_s,
-                             float* part_s, float mul) {
-  const int n4 = N >> 2;
-  const int groups = n4 >= NT ? 1 : NT / n4;
-  const int kspan = (K + groups - 1) / groups;
-  for (int u = threadIdx.x; u < n4 * groups; u += NT) {
-    const int c4 = u % n4;
-    const int g = u / n4;
-    const int k_lo = g * kspan;
-    const int k_hi = min(K, k_lo + kspan);
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* wp = W + (size_t)k_lo * ldw + c4 * 4;
-#pragma unroll 8
-    for (int k = k_lo; k < k_hi; ++k, wp += ldw) {
-      const float4 w = __ldg(reinterpret_cast<const float4*>(wp));
-      const float xv = x_s[k];
-      acc.x += xv * w.x; acc.y += xv * w.y;
-      acc.z += xv * w.z; acc.w += xv * w.w;
-    }
-    *reinterpret_cast<float4*>(part_s + g * N + c4 * 4) = acc;
-  }
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += NT) {
-    float s = 0.f;
-    for (int g = 0; g < groups; ++g) s += part_s[g * N + n];
-    out_s[n] = s * mul;
-  }
-  __syncthreads();
+// 16-byte cp.async into shared memory through L2 (.cg): `bytes` (16 or 0)
+// of them read from src, the rest zero-filled.
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
 }
 
-// dst = LN(a + r) * scale + bias over n features, statistics in f32.
-__device__ void residual_layer_norm(const float* a_s, const float* r_s,
-                                    const float* __restrict__ scale,
-                                    const float* __restrict__ bias, int n,
-                                    float eps, float* dst, float* red_s) {
-  float local = 0.f;
-  for (int j = threadIdx.x; j < n; j += NT) local += a_s[j] + r_s[j];
-  const float mean = ptt::block_sum<NT>(local, red_s) / n;
-  local = 0.f;
-  for (int j = threadIdx.x; j < n; j += NT) {
-    const float d = a_s[j] + r_s[j] - mean;
-    local += d * d;
-  }
-  const float var = ptt::block_sum<NT>(local, red_s) / n;
-  const float rstd = rsqrtf(var + eps);
-  for (int j = threadIdx.x; j < n; j += NT)
-    dst[j] = (a_s[j] + r_s[j] - mean) * rstd * scale[j] + bias[j];
-  __syncthreads();
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// The self and cross caches of one launch.  Ring: [L, b, rows, h, DH] with
-// rows = max_t (self) and cross_t (cross); the tables are unused.  Paged:
-// pools [L, nb, bt, h, DH] and tables [b, rows] with rows = max_blocks.
-struct Caches {
-  float* self_k;
-  float* self_v;
-  const float* cross_k;
-  const float* cross_v;
-  const int* self_tab;
-  const int* cross_tab;
-  int self_rows, cross_rows;
-  int self_nb, cross_nb;
-  int self_bt, cross_bt;
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The caller's work split (megastep_plan).
+struct Plan {
+  int grid;            // blocks, all co-resident
+  int ct_qkv, rg_qkv;  // P1's column tile and row group
+  int ct_out, rg_out;  // P3's and P6's
+  int ct_cq, rg_cq;    // P4's
+  int split_self;      // rows of a self-walk split, a multiple of CR
+  int split_cross;     // rows of a cross-walk split
+  int smem;            // dynamic shared memory, bytes
+};
+
+// One cache side.  Ring: k, v [L, b, rows, h, DH].  Paged: pools [L, nb,
+// bt, h, DH] and the table [b, rows] of pool block ids.
+struct Side {
+  const float* k;
+  const float* v;
+  const int* tab;
+  int rows;
+  int nb, bt;
 };
 
 template <bool PAGED>
-__global__ void __launch_bounds__(NT)
-megastep_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
-                const float* __restrict__ wout,
-                const float* __restrict__ ln1s,
-                const float* __restrict__ ln1b,
-                const float* __restrict__ wcq,
-                const float* __restrict__ wcout,
-                const float* __restrict__ ln2s,
-                const float* __restrict__ ln2b, Caches c,
-                const int* __restrict__ pos, const int* __restrict__ lengths,
-                const int* __restrict__ cross_lengths,
-                const int* __restrict__ active, float* out, int layer,
-                int batch, int dm, int n_head, int part_len, float scale,
-                float eps) {
-  extern __shared__ float smem[];
-  const int hd = n_head * DH;
-  const int wide = max(dm, hd);
-  float* x0_s = smem;                 // [dm]
-  float* x1_s = x0_s + dm;            // [dm]
-  float* q_s = x1_s + dm;             // [hd]
-  float* k_s = q_s + hd;              // [hd]
-  float* v_s = k_s + hd;              // [hd]
-  float* ctx_s = v_s + hd;            // [hd]
-  float* y_s = ctx_s + hd;            // [wide]
-  float* red_s = y_s + wide;          // [32]
-  float* part_s = red_s + 32;         // [part_len]
-  int* stab_s = reinterpret_cast<int*>(part_s + part_len);  // paged only
-  int* ctab_s = stab_s + c.self_rows;
-
-  const int i = blockIdx.x;
-  for (int j = threadIdx.x; j < dm; j += NT) x0_s[j] = x[(size_t)i * dm + j];
-  if constexpr (PAGED) {
-    for (int j = threadIdx.x; j < c.self_rows; j += NT)
-      stab_s[j] = c.self_tab[(size_t)i * c.self_rows + j];
-    for (int j = threadIdx.x; j < c.cross_rows; j += NT)
-      ctab_s[j] = c.cross_tab[(size_t)i * c.cross_rows + j];
-  }
-  __syncthreads();
-
-  // 1. fused qkv projection (columns [0, hd) are q, then k, then v)
-  block_matvec(x0_s, wqkv, 3 * hd, dm, hd, q_s, part_s, scale);
-  block_matvec(x0_s, wqkv + hd, 3 * hd, dm, hd, k_s, part_s, 1.f);
-  block_matvec(x0_s, wqkv + 2 * hd, 3 * hd, dm, hd, v_s, part_s, 1.f);
-
-  // 2. in-place row write
-  const int p = pos[i];
-  int n_self;
-  size_t row = 0;
-  bool write = active[i] != 0;
-  if constexpr (PAGED) {
-    const int logical = c.self_rows * c.self_bt;
-    write = write && p >= 0 && p < logical;
-    if (write)
-      row = (((size_t)layer * c.self_nb + stab_s[p / c.self_bt]) * c.self_bt +
-             p % c.self_bt) * hd;
-    n_self = min(max(lengths[i], 0), logical);
-  } else {
-    const size_t base = ((size_t)layer * batch + i) * c.self_rows * hd;
-    row = base + (size_t)min(max(p, 0), c.self_rows - 1) * hd;
-    n_self = min(max(lengths[i], 0), c.self_rows);
-  }
-  if (write) {
-    for (int n = threadIdx.x; n < hd; n += NT) {
-      c.self_k[row + n] = k_s[n];
-      c.self_v[row + n] = v_s[n];
-    }
-  }
-  __syncthreads();  // the row is visible to the whole block from here on
-
-  // 3. self-attention walk, 4. output projection + residual + LN1
-  if constexpr (PAGED) {
-    ptt::walk<NT>(ptt::PagedRows{c.self_k, c.self_v, stab_s,
-                                 (size_t)layer * c.self_nb, c.self_bt, hd},
-                  n_self, n_head, q_s, ctx_s);
-  } else {
-    const size_t base = ((size_t)layer * batch + i) * c.self_rows * hd;
-    ptt::walk<NT>(ptt::RingRows{c.self_k + base, c.self_v + base, hd},
-                  n_self, n_head, q_s, ctx_s);
-  }
-  block_matvec(ctx_s, wout, dm, hd, dm, y_s, part_s, 1.f);
-  residual_layer_norm(x0_s, y_s, ln1s, ln1b, dm, eps, x1_s, red_s);
-
-  // 5. cross-attention walk over the prefilled cache
-  block_matvec(x1_s, wcq, hd, dm, hd, q_s, part_s, scale);
-  if constexpr (PAGED) {
-    const int n_cross =
-        min(max(cross_lengths[i], 0), c.cross_rows * c.cross_bt);
-    ptt::walk<NT>(ptt::PagedRows{c.cross_k, c.cross_v, ctab_s,
-                                 (size_t)layer * c.cross_nb, c.cross_bt, hd},
-                  n_cross, n_head, q_s, ctx_s);
-  } else {
-    const size_t base = ((size_t)layer * batch + i) * c.cross_rows * hd;
-    const int n_cross = min(max(cross_lengths[i], 0), c.cross_rows);
-    ptt::walk<NT>(ptt::RingRows{c.cross_k + base, c.cross_v + base, hd},
-                  n_cross, n_head, q_s, ctx_s);
-  }
-
-  // 6. output projection + residual + LN2, straight to device memory
-  block_matvec(ctx_s, wcout, dm, hd, dm, y_s, part_s, 1.f);
-  residual_layer_norm(x1_s, y_s, ln2s, ln2b, dm, eps, out + (size_t)i * dm,
-                      red_s);
+__device__ __forceinline__ int capacity(const Side& s) {
+  return PAGED ? s.rows * s.bt : s.rows;
 }
 
-// Launch megastep_kernel<PAGED>: shared memory for these widths (and, when
-// paged, the two table rows), raised past 48 KB where needed.
+// Where row r of sequence seq starts, in floats from k (and v).  A paged
+// row costs one table read and one division, once a row a chunk.
 template <bool PAGED>
-int launch(const float* x, const float* wqkv, const float* wout,
-           const float* ln1s, const float* ln1b, const float* wcq,
-           const float* wcout, const float* ln2s, const float* ln2b,
-           const Caches& c, const int* pos, const int* lengths,
-           const int* cross_lengths, const int* active, float* out,
-           int layer, int batch, int dm, int n_head, float scale, float eps,
-           void* stream) {
+__device__ __forceinline__ size_t offset(const Side& s, int layer, int batch,
+                                         int seq, int r, int hd) {
+  if constexpr (PAGED) {
+    const int blk = __ldg(s.tab + (size_t)seq * s.rows + r / s.bt);
+    return (((size_t)layer * s.nb + blk) * s.bt + r % s.bt) * hd;
+  } else {
+    return (((size_t)layer * batch + seq) * s.rows + r) * hd;
+  }
+}
+
+template <bool PAGED>
+__device__ __forceinline__ int valid_rows(const Side& s, const int* lengths,
+                                          int seq) {
+  return min(max(__ldg(lengths + seq), 0), capacity<PAGED>(s));
+}
+
+struct Params {
+  const float* x;
+  const float* wqkv;
+  const float* wout;
+  const float* ln1s;
+  const float* ln1b;
+  const float* wcq;
+  const float* wcout;
+  const float* ln2s;
+  const float* ln2b;
+  float* self_k;  // the self cache (or pools), written in place
+  float* self_v;
+  Side self_side, cross_side;
+  const int* pos;
+  const int* lengths;
+  const int* cross_lengths;
+  const int* active;
+  float* out;
+  // scratch: q [b, hd], cq [b, hd], ctx and cctx [b, hd], y [b, dm],
+  // y2 [b, dm], x1 [b, dm], the walks' partials [b, splits, h, PART]
+  float* q1;
+  float* q2;
+  float* c1;
+  float* c2;
+  float* y1;
+  float* y2;
+  float* x1;
+  float* p1;
+  float* p2;
+  int layer, batch, dm, n_head, hd;
+  int ns_self, ns_cross;  // splits a sequence
+  float scale, eps;
+  Plan plan;
+};
+
+// LN(a + r) * s + b over n features by one warp, statistics in f32:
+// every caller sums in the same order and gets the same bits.  Feature j
+// goes to col[j * stride] (a column of a transposed tile) and row[j],
+// where given.  a and r may be this launch's scratch (read through L2).
+// Up to 32 * LNV features a lane loads its shares of a, r, s and b at
+// once and keeps them; beyond, each pass reads them again.
+__device__ __forceinline__ void ln_row(const float* a, const float* r,
+                                       const float* __restrict__ s,
+                                       const float* __restrict__ b, int n,
+                                       float eps, float* col, int stride,
+                                       float* row) {
+  const int lane = threadIdx.x & 31;
+  auto put = [&](int j, float v) {
+    if (col) col[j * stride] = v;
+    if (row) row[j] = v;
+  };
+  if (n <= 32 * LNV) {
+    float v[LNV], sv[LNV], bv[LNV];
+#pragma unroll
+    for (int i = 0; i < LNV; ++i) {
+      const int j = lane + 32 * i;
+      const bool in = j < n;
+      v[i] = in ? __ldcg(a + j) + __ldcg(r + j) : 0.f;
+      sv[i] = in ? s[j] : 0.f;
+      bv[i] = in ? b[j] : 0.f;
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < LNV; ++i) sum += v[i];
+    const float mean = ptt::warp_sum(sum) / n;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < LNV; ++i) {
+      const float d = lane + 32 * i < n ? v[i] - mean : 0.f;
+      sq += d * d;
+    }
+    const float rstd = rsqrtf(ptt::warp_sum(sq) / n + eps);
+#pragma unroll
+    for (int i = 0; i < LNV; ++i)
+      if (lane + 32 * i < n)
+        put(lane + 32 * i, (v[i] - mean) * rstd * sv[i] + bv[i]);
+    return;
+  }
+  float sum = 0.f;
+  for (int j = lane; j < n; j += 32) sum += __ldcg(a + j) + __ldcg(r + j);
+  const float mean = ptt::warp_sum(sum) / n;
+  float sq = 0.f;
+  for (int j = lane; j < n; j += 32) {
+    const float d = __ldcg(a + j) + __ldcg(r + j) - mean;
+    sq += d * d;
+  }
+  const float rstd = rsqrtf(ptt::warp_sum(sq) / n + eps);
+  for (int j = lane; j < n; j += 32)
+    put(j, (__ldcg(a + j) + __ldcg(r + j) - mean) * rstd * s[j] + b[j]);
+}
+
+// Shared memory floats of a projection item past its W tile: A^T for at
+// least 4 rows, the reduction buffer and AUX.
+__host__ __device__ __forceinline__ int rows_floats(int k, int rg) {
+  return k * ((rg > 4 ? rg : 4) + 4) + RED + AUX;
+}
+
+// Shared memory floats of a W tile of ct columns over k.
+__host__ __device__ __forceinline__ int tile_floats(int k, int ct) {
+  return k * (ct + 4);
+}
+
+// Shared memory floats of a walk: STAGES chunks of k and v rows of a head
+// group (at most NW heads; 8 floats of padding a row), a q row each, and
+// the batch's prefix sum of splits.
+__host__ __device__ __forceinline__ int walk_floats(int n_head, int batch) {
+  const int gw = (n_head < NW ? n_head : NW) * DH;
+  return STAGES * (2 * CR * (gw + 8) + gw) + batch + 1;
+}
+
+// Start copying the W tile of ct columns from c0 (zeros past n) into w_s.
+__device__ void load_tile(const float* __restrict__ W, int ldw, int K, int N,
+                          int ct, int c0, float* w_s) {
+  const int nq = ct / 4, wst = ct + 4;
+  for (int u = threadIdx.x; u < K * nq; u += NT) {
+    const int k = u / nq, c = c0 + 4 * (u % nq);
+    copy16(w_s + k * wst + (c - c0), W + (size_t)k * ldw + (c < N ? c : 0),
+           c < N ? 16 : 0);
+  }
+}
+
+// Rows [r0, r0 + nr) of a [*, k] matrix (the input x, or scratch this
+// launch wrote) into a_s transposed, a_s[j * lda + r - r0]: a thread a
+// float4 at a time, up to eight in flight, consecutive threads on
+// consecutive rows.
+__device__ __noinline__ void stage_rows_t(const float* src, int k, int r0,
+                                          int nr, float* a_s, int lda) {
+  const int q4 = k / 4;
+#pragma unroll 8
+  for (int u = threadIdx.x; u < nr * q4; u += NT) {
+    const int r = u % nr, j = 4 * (u / nr);
+    const float4 v = __ldcg(
+        reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * k + j));
+    a_s[j * lda + r] = v.x;
+    a_s[(j + 1) * lda + r] = v.y;
+    a_s[(j + 2) * lda + r] = v.z;
+    a_s[(j + 3) * lda + r] = v.w;
+  }
+}
+
+// The four projections of a launch.
+enum Proj { QKV, OUT, CQ, COUT };
+
+// One projection's shape: out = A W over the batch, W [K, N] (row stride
+// ldw), in items of (ct columns, rg rows).
+struct Shape {
+  const float* W;
+  int ldw, K, N, ct, rg;
+};
+
+__device__ Shape shape(const Params& P, int which) {
+  const Plan& pl = P.plan;
+  switch (which) {
+    case QKV:
+      return Shape{P.wqkv, 3 * P.hd, P.dm, 3 * P.hd, pl.ct_qkv, pl.rg_qkv};
+    case OUT:
+      return Shape{P.wout, P.dm, P.hd, P.dm, pl.ct_out, pl.rg_out};
+    case CQ:
+      return Shape{P.wcq, P.hd, P.dm, P.hd, pl.ct_cq, pl.rg_cq};
+    default:
+      return Shape{P.wcout, P.dm, P.hd, P.dm, pl.ct_out, pl.rg_out};
+  }
+}
+
+// Start copying this block's first W tile of a projection (its item
+// blockIdx.x, if it has one) into w_s, ahead of the phase.
+__device__ void prefetch_tile(const Params& P, int which, float* w_s) {
+  const Shape sh = shape(P, which);
+  const int tiles = (sh.N + sh.ct - 1) / sh.ct;
+  if ((int)blockIdx.x < tiles * ((P.batch + sh.rg - 1) / sh.rg))
+    load_tile(sh.W, sh.ldw, sh.K, sh.N, sh.ct, (blockIdx.x % tiles) * sh.ct,
+              w_s);
+}
+
+// One projection phase: out[r, c] = sum_k A[r, k] W[k, c] for r < batch,
+// c < N, W tiles in w_s and A^T, the reduction and P1's row offsets in
+// a_s.  `prefetched`: the block's first tile is in w_s already (or in
+// flight, committed); `ahead` >= 0 starts that projection's first tile
+// into ahead_s once this one's is under way.  A is x (QKV), ctx (OUT),
+// LN1(x + y) (CQ, which also stores x1) or cctx (COUT), staged
+// transposed, a_s[k * lda + r - r0].
+//
+// A thread sums a patch of 4 rows by 4 columns over the k of its group
+// (k = g, g + kg, ...), a float4 of A^T and one of W a k (rows past nr are
+// never stored); the groups' sums are added by a butterfly within a warp
+// where a warp holds several groups, then over at most 8 slots in order.
+// Fixed order throughout.
+template <bool PAGED>
+__device__ __noinline__ void project(const Params& P, int which, float* w_s,
+                                     float* a_s, bool prefetched, int ahead,
+                                     float* ahead_s) {
+  const Shape sh = shape(P, which);
+  const int K = sh.K, N = sh.N, ct = sh.ct, rg = sh.rg;
+  const int b = P.batch, hd = P.hd, dm = P.dm;
+  const int wst = ct + 4;
+  const int rgp = max(rg, 4);
+  const int lda = rgp + 4;
+  float* red_s = a_s + K * lda;  // [RED]
+  long long* woff = reinterpret_cast<long long*>(red_s + RED);  // QKV
+  const int nq = ct / 4;
+  const int tiles = (N + ct - 1) / ct;
+  const int items = tiles * ((b + rg - 1) / rg);
+  const int patches = (rgp / 4) * nq;
+  const int kg = NT / patches;
+  const int live = min(rg, 4);  // rows of a patch that can hold outputs
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int p = t % patches;
+  const int g = t / patches;
+  const int rq = p / nq, cq = p % nq;
+  const int slots = patches >= 32 ? kg : NW;
+  const int slot = patches >= 32 ? g : t >> 5;
+  if (!prefetched) prefetch_tile(P, which, w_s);
+  copies_commit();
+  if (ahead >= 0) prefetch_tile(P, ahead, ahead_s);
+  copies_commit();
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int c0 = (item % tiles) * ct;
+    const int r0 = (item / tiles) * rg;
+    const int nr = min(rg, b - r0);
+    const bool first = item == (int)blockIdx.x;
+    if (!first) {
+      load_tile(sh.W, sh.ldw, K, N, ct, c0, w_s);
+      copies_commit();
+    }
+    if (which == QKV) {
+      stage_rows_t(P.x, dm, r0, nr, a_s, lda);
+      // where each lane's k and v row goes (-1: not written)
+      const int r = t;
+      if (r < nr) {
+        const int pr = __ldg(P.pos + r0 + r);
+        long long off = -1;
+        if (__ldg(P.active + r0 + r)) {
+          if constexpr (PAGED) {
+            if (pr >= 0 && pr < capacity<true>(P.self_side))
+              off = (long long)offset<true>(P.self_side, P.layer, b, r0 + r,
+                                            pr, hd);
+          } else {
+            off = (long long)offset<false>(
+                P.self_side, P.layer, b, r0 + r,
+                min(max(pr, 0), P.self_side.rows - 1), hd);
+          }
+        }
+        woff[r] = off;
+      }
+    } else if (which == CQ) {
+      for (int r = t >> 5; r < nr; r += NW) {
+        const size_t row = (size_t)(r0 + r) * dm;
+        ln_row(P.x + row, P.y1 + row, P.ln1s, P.ln1b, dm, P.eps, a_s + r,
+               lda, c0 == 0 ? P.x1 + row : nullptr);
+      }
+    } else {
+      stage_rows_t(which == OUT ? P.c1 : P.c2, hd, r0, nr, a_s, lda);
+    }
+    if (first)
+      copies_wait<1>();  // the ahead copies may stay in flight
+    else
+      copies_wait<0>();
+    __syncthreads();
+
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+    for (int k = g; k < K; k += kg) {
+      const float4 w = *reinterpret_cast<const float4*>(w_s + k * wst + 4 * cq);
+      const float4 a = *reinterpret_cast<const float4*>(a_s + k * lda + 4 * rq);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][0] += av[i] * w.x;
+        acc[i][1] += av[i] * w.y;
+        acc[i][2] += av[i] * w.z;
+        acc[i][3] += av[i] * w.w;
+      }
+    }
+    if (patches < 32) {
+      // lanes l, l + patches, ... of a warp hold one patch's groups
+      for (int off = patches; off < 32; off <<= 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (i < live) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], off);
+          }
+        }
+      }
+    }
+    if (patches >= 32 || lane < patches) {
+      float* dst = red_s + (slot * patches + p) * 16;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(dst + 4 * i) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+    __syncthreads();
+    for (int o = t; o < rg * ct; o += NT) {
+      const int r = o / ct, c = o % ct;
+      if (r >= nr || c0 + c >= N) continue;
+      const int po = (r / 4) * nq + c / 4;
+      const int e = (r % 4) * 4 + c % 4;
+      float v = 0.f;
+      for (int s = 0; s < slots; ++s) v += red_s[(s * patches + po) * 16 + e];
+      const int row = r0 + r, col = c0 + c;
+      if (which == QKV) {
+        if (col < hd) {
+          P.q1[(size_t)row * hd + col] = v * P.scale;
+        } else if (woff[r] >= 0) {
+          if (col < 2 * hd)
+            P.self_k[woff[r] + col - hd] = v;
+          else
+            P.self_v[woff[r] + col - 2 * hd] = v;
+        }
+      } else if (which == CQ) {
+        P.q2[(size_t)row * hd + col] = v * P.scale;
+      } else {
+        (which == OUT ? P.y1 : P.y2)[(size_t)row * dm + col] = v;
+      }
+    }
+    __syncthreads();  // the tiles are free for the next item
+  }
+}
+
+// A walk's contexts from its partials: ctx [b, hd], one warp a (sequence,
+// head) over the grid's warps.  Lane s < the splits holding rows reads
+// split s's (m, l); the context dims sum the splits in split order
+// (ctx 0 where no split holds a row).
+template <bool PAGED>
+__device__ __noinline__ void merge_phase(const Side& side, const int* lengths,
+                            const float* part, int ns, int split, int batch,
+                            int h, float* ctx) {
+  const int lane = threadIdx.x & 31;
+  const size_t step = (size_t)h * PART;
+  for (int pair = blockIdx.x * NW + (threadIdx.x >> 5); pair < batch * h;
+       pair += gridDim.x * NW) {
+    const int seq = pair / h, head = pair % h;
+    const int nvs =
+        (valid_rows<PAGED>(side, lengths, seq) + split - 1) / split;
+    const float* pp = part + ((size_t)seq * ns * h + head) * PART;
+    const float m = lane < nvs ? __ldcg(pp + lane * step + DH) : -INFINITY;
+    const float l = lane < nvs ? __ldcg(pp + lane * step + DH + 1) : 0.f;
+    const float mx = ptt::warp_max(m);
+    const float e = lane < nvs ? expf(m - mx) : 0.f;
+    const float total = ptt::warp_sum(l * e);
+    float ax = 0.f, ay = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < nvs; ++s) {
+      const float es = __shfl_sync(0xffffffffu, e, s);
+      const float2 a =
+          __ldcg(reinterpret_cast<const float2*>(pp + s * step) + lane);
+      ax += a.x * es;
+      ay += a.y * es;
+    }
+    const float inv = nvs ? 1.f / total : 0.f;
+    *reinterpret_cast<float2*>(ctx + (size_t)seq * h * DH + head * DH +
+                               2 * lane) = make_float2(ax * inv, ay * inv);
+  }
+}
+
+// The online-softmax state of one warp for one head: the lane's two
+// context dims 2 lane, 2 lane + 1.
+struct Walk {
+  float m, l;
+  float2 acc;
+};
+
+// Where a walk is in a block's items: item `it` (of the phase's list of
+// nonempty (head group, sequence, split) triples) and what it stands for,
+// its chunk `ch`, `ord`, the block's count of items before it, and `off`,
+// where this thread's row of the chunk starts (resolved one chunk ahead of
+// its copy, so that a paged table read is not waited on).
+struct Cursor {
+  int it, seq, grp, sp, ch, ord;
+  size_t off;
+};
+
+// One walk phase.  Its items are the (head group, sequence, split)
+// triples whose split holds rows, numbered in that order from a prefix
+// sum of the sequences' splits, and block i takes items i, i + G, ...:
+// every block gets as many as any other, give or take one, whatever the
+// lengths.  Each item's valid rows go in chunks of CR, each chunk's k and
+// v rows (the group's heads, at most NW of them) and, with an item's
+// first chunk, its q row staged by cp.async STAGES - 1 chunks ahead,
+// across items too; warp w walks head w of the group; lanes 2r and 2r + 1
+// score row r of the chunk, each over half of the head's 64 dims.  Leaves
+// each (sequence, split, head)'s (acc, m, l) in part.
+template <bool PAGED>
+__device__ __noinline__ void walk_phase(const Params& P, const Side& side,
+                           const int* lengths, const float* q, int split,
+                           int ns, float* part, float* smem) {
+  const int h = P.n_head, hd = P.hd, b = P.batch;
+  const int ng = (h + NW - 1) / NW;
+  const int gw = min(h, NW) * DH;
+  const int rs = gw + 8;  // conflict-free float4 scores: rs / 4 = 2 mod 8
+  const int stage_f = 2 * CR * rs;
+  float* q_s = smem + STAGES * stage_f;  // [STAGES][gw]
+  int* pre_s = reinterpret_cast<int*>(q_s + STAGES * gw);  // [b + 1]
+  const int G = gridDim.x;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int crow = lane >> 1, half = lane & 1;
+  const int row = t >> 4;  // the chunk row this thread copies
+
+  // pre_s[seq]: the splits holding rows of the sequences before seq
+  if (warp == 0) {
+    int carry = 0;
+    for (int base = 0; base < b; base += 32) {
+      const int seq = base + lane;
+      const int n =
+          seq < b ? (valid_rows<PAGED>(side, lengths, seq) + split - 1) / split
+                  : 0;
+      int incl = n;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += up;
+      }
+      if (seq < b) pre_s[seq] = carry + incl - n;
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) pre_s[b] = carry;
+  }
+  __syncthreads();
+  const int per_group = pre_s[b];
+  const int items = per_group * ng;
+
+  auto rows_of = [&](const Cursor& c) {
+    return min(split, valid_rows<PAGED>(side, lengths, c.seq) - c.sp * split);
+  };
+  auto locate = [&](Cursor c) {
+    if (c.it < items && row < min(CR, rows_of(c) - c.ch * CR))
+      c.off = offset<PAGED>(side, P.layer, b, c.seq,
+                            c.sp * split + c.ch * CR + row, hd) +
+              c.grp * gw;
+    return c;
+  };
+  auto item_at = [&](int it, int ord) {
+    Cursor c{it, 0, 0, 0, 0, ord, 0};
+    if (it < items) {
+      const int k = it % per_group;
+      int lo = 0, hi = b;  // the last seq with pre_s[seq] <= k
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (pre_s[mid] <= k)
+          lo = mid;
+        else
+          hi = mid;
+      }
+      c.seq = lo;
+      c.grp = it / per_group;
+      c.sp = k - pre_s[lo];
+    }
+    return locate(c);
+  };
+  auto next = [&](const Cursor& c) {
+    if ((c.ch + 1) * CR < rows_of(c)) {
+      Cursor n = c;
+      ++n.ch;
+      return locate(n);
+    }
+    return item_at(c.it + G, c.ord + 1);
+  };
+  auto issue = [&](const Cursor& c, int st) {
+    const int nr = min(CR, rows_of(c) - c.ch * CR);
+    const int width = min(NW, h - c.grp * NW) * DH;
+    float* ks = smem + st * stage_f;
+    float* vs = ks + CR * rs;
+    if (row < nr) {
+      for (int u = t & 15; u < width / 4; u += 16) {
+        copy16(ks + row * rs + 4 * u, side.k + c.off + 4 * u, 16);
+        copy16(vs + row * rs + 4 * u, side.v + c.off + 4 * u, 16);
+      }
+    }
+    if (c.ch == 0 && t < width / 4)
+      copy16(q_s + (c.ord % STAGES) * gw + 4 * t,
+             q + (size_t)c.seq * hd + c.grp * gw + 4 * t, 16);
+  };
+
+  Walk st{-INFINITY, 0.f, make_float2(0.f, 0.f)};
+  Cursor comp = item_at(blockIdx.x, 0);
+  Cursor fill = comp;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (fill.it < items) {
+      issue(fill, s);
+      fill = next(fill);
+    }
+    copies_commit();
+  }
+  int stage = 0;
+  while (comp.it < items) {
+    if (fill.it < items) {
+      issue(fill, (stage + STAGES - 1) % STAGES);
+      fill = next(fill);
+    }
+    copies_commit();
+    copies_wait<STAGES - 1>();
+    __syncthreads();
+
+    const int head = comp.grp * NW + warp;
+    const int nr = min(CR, rows_of(comp) - comp.ch * CR);
+    const bool last = (comp.ch + 1) * CR >= rows_of(comp);
+    if (head < h) {
+      const float* ks = smem + stage * stage_f;
+      const float* vs = ks + CR * rs;
+      const float* qh = q_s + (comp.ord % STAGES) * gw + warp * DH;
+      float d = 0.f;
+      if (crow < nr) {
+        const float* kr = ks + crow * rs + warp * DH;
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j) {
+          const int u = 4 * (2 * j + half);
+          const float4 kv = *reinterpret_cast<const float4*>(kr + u);
+          const float4 qv = *reinterpret_cast<const float4*>(qh + u);
+          d += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
+        }
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      const float s = crow < nr ? d : kMaskValue;
+      const float m_new = fmaxf(st.m, ptt::warp_max(s));
+      const float pe = expf(s - m_new);
+      const float alpha = expf(st.m - m_new);
+      st.l = st.l * alpha + ptt::warp_sum(half ? 0.f : pe);
+      st.acc.x *= alpha;
+      st.acc.y *= alpha;
+      const float* vp = vs + warp * DH + 2 * lane;
+#pragma unroll 4
+      for (int r = 0; r < nr; ++r) {
+        const float pj = __shfl_sync(0xffffffffu, pe, 2 * r);
+        const float2 vv = *reinterpret_cast<const float2*>(vp + r * rs);
+        st.acc.x += pj * vv.x;
+        st.acc.y += pj * vv.y;
+      }
+      st.m = m_new;
+      if (last) {
+        // the item's last chunk: its partial, then a fresh state
+        float* dst =
+            part + (((size_t)comp.seq * ns + comp.sp) * h + head) * PART;
+        *reinterpret_cast<float2*>(dst + 2 * lane) = st.acc;
+        if (lane == 0) {
+          dst[DH] = st.m;
+          dst[DH + 1] = st.l;
+        }
+        st = Walk{-INFINITY, 0.f, make_float2(0.f, 0.f)};
+      }
+    }
+    __syncthreads();  // this stage and q row are free for the next issue
+    if (last) {
+      comp = item_at(comp.it + G, comp.ord + 1);
+    } else {
+      ++comp.ch;
+    }
+    stage = (stage + 1) % STAGES;
+  }
+  copies_wait<0>();
+}
+
+template <bool PAGED>
+__global__ void __launch_bounds__(NT, 1)
+    megastep_kernel(const __grid_constant__ Params P) {
+  extern __shared__ __align__(16) float smem[];
+  cg::grid_group grid = cg::this_grid();
+  const Plan& pl = P.plan;
+  const int hd = P.hd, dm = P.dm, b = P.batch;
+  // P3's and P6's W tiles, then the walks' space, or P1's and P4's W tile
+  // (wa) and the projections' A^T (at)
+  float* wb = smem;
+  float* rest = wb + tile_floats(hd, pl.ct_out);
+  float* wa = rest;
+  float* at = wa + tile_floats(dm, max(pl.ct_qkv, pl.ct_cq));
+
+  // P1: qkv; q scaled into scratch, k and v into the self cache row of
+  // each active lane; P3's first tile on its way
+  project<PAGED>(P, QKV, wa, at, false, OUT, wb);
+  grid.sync();
+
+  // P2: the self walk, then its contexts
+  walk_phase<PAGED>(P, P.self_side, P.lengths, P.q1, pl.split_self,
+                    P.ns_self, P.p1, rest);
+  grid.sync();
+  merge_phase<PAGED>(P.self_side, P.lengths, P.p1, P.ns_self, pl.split_self,
+                     b, P.n_head, P.c1);
+  grid.sync();
+
+  // P3: y = ctx Wout; P4's first tile on its way
+  project<PAGED>(P, OUT, wb, at, true, CQ, wa);
+  grid.sync();
+
+  // P4: x1 = LN1(x + y); cq = x1 Wcq, scaled; P6's first tile on its way
+  project<PAGED>(P, CQ, wa, at, true, COUT, wb);
+  grid.sync();
+
+  // P5: the cross walk, then its contexts
+  walk_phase<PAGED>(P, P.cross_side, P.cross_lengths, P.q2, pl.split_cross,
+                    P.ns_cross, P.p2, rest);
+  grid.sync();
+  merge_phase<PAGED>(P.cross_side, P.cross_lengths, P.p2, P.ns_cross,
+                     pl.split_cross, b, P.n_head, P.c2);
+  grid.sync();
+
+  // P6: y2 = cctx Wcout
+  project<PAGED>(P, COUT, wb, at, true, -1, nullptr);
+  grid.sync();
+
+  // P7: out = LN2(x1 + y2)
+  for (int r = blockIdx.x * NW + (threadIdx.x >> 5); r < b;
+       r += gridDim.x * NW) {
+    const size_t row = (size_t)r * dm;
+    ln_row(P.x1 + row, P.y2 + row, P.ln2s, P.ln2b, dm, P.eps, nullptr, 0,
+           P.out + row);
+  }
+}
+
+bool tile_ok(int ct, int rg) {
+  if (ct != 4 && ct != 8 && ct != 16 && ct != 32 && ct != 64) return false;
+  if (rg < 1 || rg > 64 || (rg & (rg - 1))) return false;
+  return ((rg > 4 ? rg : 4) / 4) * (ct / 4) <= NT;
+}
+
+// Shared memory floats the kernel lays out for this plan: P3's and P6's W
+// tile, then the larger of a walk and P1's or P4's W tile with the
+// largest A^T.
+int plan_floats(const Plan& pl, int batch, int dm, int n_head) {
   const int hd = n_head * DH;
-  const int wide = dm > hd ? dm : hd;
-  const int part = 4 * NT > wide ? 4 * NT : wide;
-  const int tables = PAGED ? c.self_rows + c.cross_rows : 0;
-  const int smem =
-      (int)(sizeof(float) * (2 * dm + 4 * hd + wide + 32 + part) +
-            sizeof(int) * tables);
+  const int at =
+      max(max(rows_floats(dm, pl.rg_qkv), rows_floats(hd, pl.rg_out)),
+          rows_floats(dm, pl.rg_cq));
+  return tile_floats(hd, pl.ct_out) +
+         max(walk_floats(n_head, batch),
+             tile_floats(dm, max(pl.ct_qkv, pl.ct_cq)) + at);
+}
+
+// cudaSuccess if the kernel can run `pl` at these widths.
+cudaError_t check_plan(const Plan& pl, int batch, int dm, int n_head) {
+  const bool ok = batch >= 1 && dm >= 4 && dm % 4 == 0 && n_head >= 1 &&
+                  pl.grid >= 1 && tile_ok(pl.ct_qkv, pl.rg_qkv) &&
+                  tile_ok(pl.ct_out, pl.rg_out) &&
+                  tile_ok(pl.ct_cq, pl.rg_cq) && pl.split_self >= CR &&
+                  pl.split_self % CR == 0 && pl.split_cross >= CR &&
+                  pl.split_cross % CR == 0 &&
+                  plan_floats(pl, batch, dm, n_head) <= pl.smem / 4;
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Raise the kernel's dynamic shared memory to `smem` bytes (once a size).
+template <bool PAGED>
+cudaError_t configure(int smem) {
   static int configured = 0;
   if (smem > configured) {
-    cudaError_t err = cudaFuncSetAttribute(
+    const cudaError_t err = cudaFuncSetAttribute(
         megastep_kernel<PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
     configured = smem;
   }
-  megastep_kernel<PAGED>
-      <<<batch, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-          x, wqkv, wout, ln1s, ln1b, wcq, wcout, ln2s, ln2b, c, pos, lengths,
-          cross_lengths, active, out, layer, batch, dm, n_head, part, scale,
-          eps);
+  return cudaSuccess;
+}
+
+int64_t splits(int rows, int split) { return (rows + split - 1) / split; }
+
+template <bool PAGED>
+int launch(Params& P, void* stream) {
+  if (P.ns_self > MAX_SPLITS || P.ns_cross > MAX_SPLITS)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = check_plan(P.plan, P.batch, P.dm, P.n_head);
+  if (err != cudaSuccess) return (int)err;
+  err = configure<PAGED>(P.plan.smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&P};
+  err = cudaLaunchCooperativeKernel((const void*)megastep_kernel<PAGED>,
+                                    dim3(P.plan.grid), dim3(NT), args,
+                                    (size_t)P.plan.smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Carve the scratch into Params.
+void carve(Params& P, float* scratch) {
+  const size_t b = P.batch, hd = P.hd, dm = P.dm, h = P.n_head;
+  P.q1 = scratch;
+  P.q2 = P.q1 + b * hd;
+  P.c1 = P.q2 + b * hd;
+  P.c2 = P.c1 + b * hd;
+  P.y1 = P.c2 + b * hd;
+  P.y2 = P.y1 + b * dm;
+  P.x1 = P.y2 + b * dm;
+  P.p1 = P.x1 + b * dm;
+  P.p2 = P.p1 + b * P.ns_self * h * PART;
 }
 
 }  // namespace
 
+// Floats of the scratch a launch at these widths needs, with ns_self and
+// ns_cross splits a sequence (ceil(rows / split) of each walk).
+extern "C" int64_t ptt_megastep_scratch(int batch, int dm, int n_head,
+                                        int ns_self, int ns_cross) {
+  const int64_t b = batch, hd = (int64_t)n_head * DH;
+  return 4 * b * hd + 3 * b * dm +
+         b * (int64_t)(ns_self + ns_cross) * n_head * PART;
+}
+
+// Blocks of the (paged) kernel an SM holds at once with `smem` bytes of
+// dynamic shared memory, or minus a CUDA error.
+extern "C" int ptt_megastep_occupancy(int paged, int smem) {
+  cudaError_t err = paged ? configure<true>(smem) : configure<false>(smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = paged ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, megastep_kernel<true>, NT, smem)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, megastep_kernel<false>, NT, smem);
+  return err != cudaSuccess ? -(int)err : blocks;
+}
+
 // x/out [b, dm]; caches [L, b, max_t|cross_t, n_head, 64]; the int32
-// vectors are [b].  cache_k/cache_v are updated in place.
-extern "C" int ptt_megastep(const float* x, const float* wqkv,
-                            const float* wout, const float* ln1s,
-                            const float* ln1b, const float* wcq,
-                            const float* wcout, const float* ln2s,
-                            const float* ln2b, float* cache_k,
-                            float* cache_v, const float* cross_k,
-                            const float* cross_v, const int* pos,
-                            const int* lengths, const int* cross_lengths,
-                            const int* active, float* out, int layer,
-                            int batch, int dm, int n_head, int max_t,
-                            int cross_t, float scale, float eps,
-                            void* stream) {
-  const Caches c{cache_k, cache_v, cross_k, cross_v, nullptr, nullptr,
-                 max_t,   cross_t, 0,       0,       0,       0};
-  return launch<false>(x, wqkv, wout, ln1s, ln1b, wcq, wcout, ln2s, ln2b, c,
-                       pos, lengths, cross_lengths, active, out, layer,
-                       batch, dm, n_head, scale, eps, stream);
+// vectors are [b].  cache_k/cache_v are updated in place.  scratch holds
+// ptt_megastep_scratch floats; the plan's integers follow the widths.
+extern "C" int ptt_megastep(
+    const float* x, const float* wqkv, const float* wout, const float* ln1s,
+    const float* ln1b, const float* wcq, const float* wcout,
+    const float* ln2s, const float* ln2b, float* cache_k, float* cache_v,
+    const float* cross_k, const float* cross_v, const int* pos,
+    const int* lengths, const int* cross_lengths, const int* active,
+    float* out, float* scratch, int layer, int batch, int dm, int n_head,
+    int max_t, int cross_t, int grid, int ct_qkv, int rg_qkv, int ct_out,
+    int rg_out, int ct_cq, int rg_cq, int split_self, int split_cross,
+    int smem, float scale, float eps, void* stream) {
+  Params P{x, wqkv, wout, ln1s, ln1b, wcq, wcout, ln2s, ln2b, cache_k,
+           cache_v};
+  P.self_side = Side{cache_k, cache_v, nullptr, max_t, 0, 0};
+  P.cross_side = Side{cross_k, cross_v, nullptr, cross_t, 0, 0};
+  P.pos = pos;
+  P.lengths = lengths;
+  P.cross_lengths = cross_lengths;
+  P.active = active;
+  P.out = out;
+  P.layer = layer;
+  P.batch = batch;
+  P.dm = dm;
+  P.n_head = n_head;
+  P.hd = n_head * DH;
+  P.scale = scale;
+  P.eps = eps;
+  P.plan = Plan{grid,   ct_qkv, rg_qkv,     ct_out,      rg_out,
+                ct_cq,  rg_cq,  split_self, split_cross, smem};
+  if (max_t < 1 || cross_t < 1 || split_self < 1 || split_cross < 1)
+    return (int)cudaErrorInvalidValue;
+  P.ns_self = (int)splits(max_t, split_self);
+  P.ns_cross = (int)splits(cross_t, split_cross);
+  carve(P, scratch);
+  return launch<false>(P, stream);
 }
 
 // x/out [b, dm]; pools [L, num_blocks, block_t, n_head, 64] (self) and
@@ -285,14 +941,37 @@ extern "C" int ptt_megastep_paged(
     const float* ln2s, const float* ln2b, float* pool_k, float* pool_v,
     const float* cross_k, const float* cross_v, const int* pos,
     const int* lengths, const int* cross_lengths, const int* self_table,
-    const int* cross_table, const int* active, float* out, int layer,
-    int batch, int dm, int n_head, int num_blocks, int block_t,
+    const int* cross_table, const int* active, float* out, float* scratch,
+    int layer, int batch, int dm, int n_head, int num_blocks, int block_t,
     int max_blocks, int cross_num_blocks, int cross_block_t,
-    int cross_max_blocks, float scale, float eps, void* stream) {
-  const Caches c{pool_k,     pool_v,           cross_k,    cross_v,
-                 self_table, cross_table,      max_blocks, cross_max_blocks,
-                 num_blocks, cross_num_blocks, block_t,    cross_block_t};
-  return launch<true>(x, wqkv, wout, ln1s, ln1b, wcq, wcout, ln2s, ln2b, c,
-                      pos, lengths, cross_lengths, active, out, layer, batch,
-                      dm, n_head, scale, eps, stream);
+    int cross_max_blocks, int grid, int ct_qkv, int rg_qkv, int ct_out,
+    int rg_out, int ct_cq, int rg_cq, int split_self, int split_cross,
+    int smem, float scale, float eps, void* stream) {
+  Params P{x, wqkv, wout, ln1s, ln1b, wcq, wcout, ln2s, ln2b, pool_k,
+           pool_v};
+  P.self_side =
+      Side{pool_k, pool_v, self_table, max_blocks, num_blocks, block_t};
+  P.cross_side = Side{cross_k,          cross_v,          cross_table,
+                      cross_max_blocks, cross_num_blocks, cross_block_t};
+  P.pos = pos;
+  P.lengths = lengths;
+  P.cross_lengths = cross_lengths;
+  P.active = active;
+  P.out = out;
+  P.layer = layer;
+  P.batch = batch;
+  P.dm = dm;
+  P.n_head = n_head;
+  P.hd = n_head * DH;
+  P.scale = scale;
+  P.eps = eps;
+  P.plan = Plan{grid,   ct_qkv, rg_qkv,     ct_out,      rg_out,
+                ct_cq,  rg_cq,  split_self, split_cross, smem};
+  if (max_blocks < 1 || block_t < 1 || cross_max_blocks < 1 ||
+      cross_block_t < 1 || split_self < 1 || split_cross < 1)
+    return (int)cudaErrorInvalidValue;
+  P.ns_self = (int)splits(max_blocks * block_t, split_self);
+  P.ns_cross = (int)splits(cross_max_blocks * cross_block_t, split_cross);
+  carve(P, scratch);
+  return launch<true>(P, stream);
 }

@@ -131,10 +131,12 @@ _SIGNATURES = {
     "ptt_qkv_bwd_scratch": (_L, [_I] * 6),
     "ptt_qkv_bwd": (_I, [_I] + [_P] * 4 + [_L] * 4 + [_P] * 7 + [_I] * 5
                     + [_F, _I] + _DROP + [_P]),
+    "ptt_megastep_scratch": (_L, [_I] * 5),
+    "ptt_megastep_occupancy": (_I, [_I, _I]),
     "ptt_megastep": (
-        _I, [_P] * 18 + [_I] * 6 + [_F, _F, _P]),
+        _I, [_P] * 19 + [_I] * 16 + [_F, _F, _P]),
     "ptt_megastep_paged": (
-        _I, [_P] * 20 + [_I] * 10 + [_F, _F, _P]),
+        _I, [_P] * 21 + [_I] * 20 + [_F, _F, _P]),
     "ptt_flash_decode": (_I, [_P] * 5 + [_I] * 3 + [_F, _P]),
     "ptt_flash_decode_paged": (_I, [_P] * 6 + [_I] * 4 + [_F, _P]),
     "ptt_ffn_chunks": (_I, [_I]),

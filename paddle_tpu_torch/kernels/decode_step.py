@@ -13,6 +13,12 @@ reference's plans take at Transformer-base widths in f32:
 * :func:`ffn_epilogue` (``csrc/ffn.cu``, for ``_ffn_kernel``): the
   feed-forward, its residual and the last layer norm, after either.
 
+The megastep is one cooperative launch of one block on each SM of the
+card, its work split by :func:`megastep_plan` (column tiles and row
+groups of the four projections, row splits of the two walks), chosen
+from the shape and the card before the launch and passed to the entry
+point, which rejects a plan it cannot run.
+
 The self cache is updated in place: the port's counterpart of the JAX
 package's donated cache buffers.  The returned caches are the tensors
 passed in.
@@ -25,10 +31,14 @@ attention.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from . import (KERNEL_D_HEAD, _build, composed, composes, head_route,
                launches)
+from .attention import sm_count
 from .decode_attention import reference_decode, reference_decode_paged
 from ..ops.generation_ops import kv_cache_update, paged_kv_cache_update
 from ..ops.nn_ops import layer_norm
@@ -120,6 +130,185 @@ def _megastep_spec(what, x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
         "active": (active, i32, (b,))}
 
 
+#: threads of a megastep block (csrc/megastep.cu NT)
+MEGASTEP_THREADS = 256
+#: cache rows a walk stages at once (CR); a walk split is a multiple of it
+MEGASTEP_CHUNK = 16
+#: heads a walk item stages (a block's warps)
+MEGASTEP_GROUP = 8
+#: walk chunks in a block's copy ring (STAGES)
+MEGASTEP_STAGES = 2
+#: shared memory a block may opt into on the H100 (227 KB)
+MEGASTEP_SMEM_CAP = 232448
+#: walk splits a sequence at most (a merge lane each)
+MEGASTEP_MAX_SPLITS = 32
+#: rows a block's warps stage layer norms for at once (one a warp)
+MEGASTEP_LN_ROWS = 8
+#: a projection item's reduction buffer and P1's row-write offsets
+_RED = MEGASTEP_THREADS * 16 + 128
+_COLUMN_TILES = (4, 8, 16, 32, 64)
+_ROW_GROUPS = (1, 2, 4, 8, 16, 32, 64)
+
+
+class MegastepPlan(NamedTuple):
+    """The work split of one megastep launch (``csrc/megastep.cu``).
+
+    ``grid`` blocks, all co-resident; each projection ``(ct, rg)``: items
+    of ct output columns by rg batch rows, every output summed over the
+    whole of k by one block (``qkv``: x Wqkv; ``out``: ctx Wout and cctx
+    Wcout; ``cq``: x1 Wcq); each walk: items of (sequence, group of up to
+    MEGASTEP_GROUP heads, split of ``*_split`` cache rows, a multiple of
+    MEGASTEP_CHUNK), ``*_splits`` splits a sequence; ``smem`` bytes of
+    dynamic shared memory a block."""
+    grid: int
+    qkv: tuple
+    out: tuple
+    cq: tuple
+    self_split: int
+    self_splits: int
+    cross_split: int
+    cross_splits: int
+    smem: int
+
+    def ints(self):
+        """The plan's integers in the entry points' order."""
+        return (self.grid, *self.qkv, *self.out, *self.cq, self.self_split,
+                self.cross_split, self.smem)
+
+
+def _rows_floats(k, rg):
+    """Shared memory floats of a projection item past its W tile: A^T for
+    at least 4 rows, the reduction buffer and the row-write offsets."""
+    return k * (max(rg, 4) + 4) + _RED
+
+
+def _walk_floats(n_head, b):
+    """Shared memory floats of a walk: MEGASTEP_STAGES chunks of k and v
+    rows of a head group (8 floats of padding a row), a q row each and
+    the batch's prefix sum of splits (b + 1 ints)."""
+    gw = min(n_head, MEGASTEP_GROUP) * KERNEL_D_HEAD
+    return MEGASTEP_STAGES * (2 * MEGASTEP_CHUNK * (gw + 8) + gw) + b + 1
+
+
+def _plan_floats(b, d_model, n_head, qkv, out, cq):
+    """Shared memory floats of a block under these tiles, as
+    ``csrc/megastep.cu`` lays them out: P3's and P6's W tile (prefetched
+    a phase ahead), then the larger of a walk and P1's or P4's W tile
+    with the largest A^T."""
+    hd = n_head * KERNEL_D_HEAD
+    rows = max(_rows_floats(d_model, qkv[1]), _rows_floats(hd, out[1]),
+               _rows_floats(d_model, cq[1]))
+    return hd * (out[0] + 4) + max(
+        _walk_floats(n_head, b), d_model * (max(qkv[0], cq[0]) + 4) + rows)
+
+
+def _proj_tile(n, k, b, grid, cap, max_rows=64):
+    """(ct, rg) of a projection of n columns over k for b rows, ct and rg
+    at most ``cap`` and rg at most ``max_rows`` (x1 Wcq: a row a warp for
+    its layer norm): the tile of least modelled time, ceil(items / grid)
+    rounds of an item's 1.5 us of latency and barriers, its W tile and
+    rows at 20 GB/s an SM (the share of each when every SM loads) and its
+    FMAs at 100 a clock (1.9 GHz); ties to fewer items."""
+    best = None
+    for ct in _COLUMN_TILES:
+        if ct > cap or (ct > 4 and ct // 2 >= n):
+            continue
+        for rg in _ROW_GROUPS:
+            if rg > min(cap, max_rows) or (rg > 1 and rg // 2 >= b):
+                continue
+            if (max(rg, 4) // 4) * (ct // 4) > MEGASTEP_THREADS:
+                continue
+            items = -(-n // ct) * -(-b // rg)
+            us = (1.5 + 4 * k * (ct + rg) / 2e4
+                  + rg * ct * k / (100 * 1900))
+            key = (-(-items // grid) * us, items)
+            if best is None or key < best[0]:
+                best = (key, (ct, rg))
+    return best[1]
+
+
+def _walk_split(rows):
+    """(split, splits) of a walk over a cache of ``rows`` rows a sequence:
+    one chunk an item, so that the blocks' shares even out over many
+    small items; longer where a sequence would need more than
+    MEGASTEP_MAX_SPLITS."""
+    chunks = -(-rows // MEGASTEP_CHUNK)
+    split = -(-chunks // MEGASTEP_MAX_SPLITS) * MEGASTEP_CHUNK
+    return split, -(-rows // split)
+
+
+def megastep_plan(b, n_head, d_model, sms, blocks_per_sm, self_rows,
+                  cross_rows):
+    """The megastep's work split for a batch of ``b`` at these widths, on
+    a card of ``sms`` SMs with a grid of ``blocks_per_sm`` blocks an SM
+    (all co-resident: the launch is cooperative), over self and cross
+    caches of ``self_rows`` and ``cross_rows`` rows a sequence (ring:
+    max_t and cross_t; paged: max_blocks * block_t of each side): the
+    largest tiles (up to 32 columns and rows, then 16, 8, 4) whose shared
+    memory fits a block.  Pure: the wrapper passes its integers to the
+    entry point."""
+    if min(b, n_head, d_model, sms, blocks_per_sm, self_rows,
+           cross_rows) < 1:
+        raise ValueError(f"megastep_plan: no plan for b {b}, {n_head} "
+                         f"heads, d_model {d_model}, {sms} SMs x "
+                         f"{blocks_per_sm}, rows {self_rows}/{cross_rows}")
+    hd = n_head * KERNEL_D_HEAD
+    grid = sms * blocks_per_sm
+    for cap in (32, 16, 8, 4):
+        qkv = _proj_tile(3 * hd, d_model, b, grid, cap)
+        out = _proj_tile(d_model, hd, b, grid, cap)
+        cq = _proj_tile(hd, d_model, b, grid, cap, MEGASTEP_LN_ROWS)
+        smem = 4 * _plan_floats(b, d_model, n_head, qkv, out, cq)
+        if smem <= MEGASTEP_SMEM_CAP:
+            return MegastepPlan(grid, qkv, out, cq, *_walk_split(self_rows),
+                                *_walk_split(cross_rows), smem)
+    raise ValueError(f"megastep: no plan fits b {b}, {n_head} heads, "
+                     f"d_model {d_model} in {MEGASTEP_SMEM_CAP} bytes of "
+                     f"shared memory a block")
+
+
+def device_megastep_plan(device, paged, b, n_head, d_model, self_rows,
+                         cross_rows):
+    """:func:`megastep_plan` as :func:`megastep` and
+    :func:`megastep_paged` launch it on ``device``."""
+    return _device_launch(device, paged, b, n_head, d_model, self_rows,
+                          cross_rows)[0]
+
+
+@functools.lru_cache(maxsize=256)
+def _device_launch(device, paged, b, n_head, d_model, self_rows,
+                   cross_rows):
+    """(plan, its integers, the scratch floats) of a launch on ``device``:
+    one block an SM of its SM count, the entry point's occupancy at the
+    plan's shared memory checked; made once a shape."""
+    plan = megastep_plan(b, n_head, d_model, sm_count(device), 1, self_rows,
+                         cross_rows)
+    lib = _build.lib()
+    per_sm = lib.ptt_megastep_occupancy(int(paged), plan.smem)
+    if per_sm < 1:
+        _build.check(-per_sm if per_sm < 0 else 1, "megastep occupancy")
+    return plan, plan.ints(), lib.ptt_megastep_scratch(
+        b, d_model, n_head, plan.self_splits, plan.cross_splits)
+
+
+def _launch_megastep(what, paged, x, args, geometry, rows, layer, n_head,
+                     scale, eps):
+    """Launch #10 (ring) or #12 (paged) on checked tensors: ``args`` the
+    entry point's tensors in order, ``geometry`` its cache integers,
+    ``rows`` the (self, cross) rows a sequence the walks cover.  The
+    output and the scratch are one allocation."""
+    b, _, dm = x.shape
+    _, ints, scratch = _device_launch(x.device, paged, b, n_head, dm, *rows)
+    buf = torch.empty(b * dm + scratch, dtype=torch.float32, device=x.device)
+    lib = _build.lib()
+    entry = lib.ptt_megastep_paged if paged else lib.ptt_megastep
+    err = entry(*(a.data_ptr() for a in args), buf.data_ptr(),
+                buf.data_ptr() + 4 * b * dm, layer, b, dm, n_head, *geometry,
+                *ints, float(scale), float(eps), _build.stream_of(x))
+    _build.check(err, what)
+    launches[what] += 1
+    return buf[:b * dm].view(b, 1, dm)
+
 def megastep(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout, ln2_scale,
              ln2_bias, cache_k, cache_v, cross_k, cross_v, pos, lengths,
              cross_lengths, active, *, layer, n_head, scale, eps=1e-5):
@@ -135,20 +324,15 @@ def megastep(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout, ln2_scale,
                                   scale=scale, eps=eps)
     spec = _megastep_spec("megastep", *args[:11], *args[13:], n_head,
                           layer)
-    b, _, dm = x.shape
+    b = x.shape[0]
     n_layer, _, max_t, h, dh = cache_k.shape
     cross_t = cross_k.shape[2]
     cross = (n_layer, b, cross_t, h, dh)
     spec.update(cross_k=(cross_k, torch.float32, cross),
                 cross_v=(cross_v, torch.float32, cross))
     _build.require(spec, x.device, "megastep")
-    out = torch.empty_like(x)
-    err = _build.lib().ptt_megastep(
-        *(a.data_ptr() for a in args), out.data_ptr(), layer, b, dm, h,
-        max_t, cross_t, float(scale), float(eps), _build.stream_of(x))
-    _build.check(err, "megastep")
-    launches["megastep"] += 1
-    return out
+    return _launch_megastep("megastep", False, x, args, (max_t, cross_t),
+                            (max_t, cross_t), layer, h, scale, eps)
 
 
 def reference_megastep_paged(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
@@ -199,7 +383,7 @@ def megastep_paged(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
                                         scale=scale, eps=eps)
     spec = _megastep_spec("megastep_paged", *args[:11], *args[13:16],
                           active, n_head, layer)
-    b, _, dm = x.shape
+    b = x.shape[0]
     n_layer, nb, bt, h, dh = cache_k.shape
     cnb, cbt = cross_k.shape[1:3]
     mb, cmb = self_table.shape[1], cross_table.shape[1]
@@ -209,14 +393,9 @@ def megastep_paged(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
                 self_table=(self_table, i32, (b, mb)),
                 cross_table=(cross_table, i32, (b, cmb)))
     _build.require(spec, x.device, "megastep_paged")
-    out = torch.empty_like(x)
-    err = _build.lib().ptt_megastep_paged(
-        *(a.data_ptr() for a in args), out.data_ptr(), layer, b, dm, h, nb,
-        bt, mb, cnb, cbt, cmb, float(scale), float(eps),
-        _build.stream_of(x))
-    _build.check(err, "megastep_paged")
-    launches["megastep_paged"] += 1
-    return out
+    return _launch_megastep("megastep_paged", True, x, args,
+                            (nb, bt, mb, cnb, cbt, cmb),
+                            (mb * bt, cmb * cbt), layer, h, scale, eps)
 
 
 #: (device, stream handle) -> int32 tickets of the FFN kernel's last-block

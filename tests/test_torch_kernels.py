@@ -271,6 +271,49 @@ def test_decode_wrappers_refuse_non_cpu_tensors():
         kds.ffn_epilogue(t[0], *t[9:15])
 
 
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n_head", [8, 12])
+def test_megastep_plan_covers_every_item(n_head, sms):
+    """The megastep's plan for b in 1..64 on a card of ``sms`` SMs (the
+    H100 SXM's 132, the PCIe's 114), one block an SM: every output of
+    x Wqkv (3hd columns), ctx Wout (d_model) and x1 Wcq (hd) is owned by
+    exactly one (column tile, row group) item, each tile within the
+    block's threads, the whole layout within a block's shared memory;
+    every (sequence, head) walk's rows are covered exactly once by its
+    splits, whole 16-row chunks each."""
+    dm, hd = 512, n_head * 64
+    for b in range(1, 65):
+        for self_rows, cross_rows in ((128, 256), (65, 258)):
+            plan = kds.megastep_plan(b, n_head, dm, sms, 1, self_rows,
+                                     cross_rows)
+            assert plan.grid == sms
+            assert plan.smem == 4 * kds._plan_floats(b, dm, n_head, plan.qkv,
+                                                     plan.out, plan.cq)
+            assert plan.smem <= kds.MEGASTEP_SMEM_CAP
+            assert plan.cq[1] <= kds.MEGASTEP_LN_ROWS
+            for (ct, rg), n in ((plan.qkv, 3 * hd), (plan.out, dm),
+                                (plan.cq, hd)):
+                patches = (max(rg, 4) // 4) * (ct // 4)
+                assert ct in (4, 8, 16, 32, 64) and rg in (1, 2, 4, 8, 16,
+                                                           32, 64)
+                assert kds.MEGASTEP_THREADS % patches == 0
+                owned = np.zeros((b, n), np.int32)
+                tiles = -(-n // ct)
+                for item in range(tiles * -(-b // rg)):
+                    c0, r0 = (item % tiles) * ct, (item // tiles) * rg
+                    owned[r0:r0 + rg, c0:c0 + ct] += 1
+                assert (owned == 1).all(), (b, ct, rg, n)
+            for rows, split, splits in (
+                    (self_rows, plan.self_split, plan.self_splits),
+                    (cross_rows, plan.cross_split, plan.cross_splits)):
+                assert split % kds.MEGASTEP_CHUNK == 0
+                seen = np.zeros(rows, np.int32)
+                for s in range(splits):
+                    seen[s * split:(s + 1) * split] += 1
+                assert (seen == 1).all() and (splits - 1) * split < rows
+                assert splits <= kds.MEGASTEP_MAX_SPLITS
+
+
 def test_sample_token_first_max_like_jax():
     logits = np.array([[0.1, 3.0, 3.0, -1.0], [2.0, 2.0, 2.0, 2.0],
                        [-5.0, -4.0, -4.5, -4.0]], np.float32)

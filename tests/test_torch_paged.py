@@ -238,6 +238,59 @@ def test_megastep_paged_refuses_non_cpu_tensors():
         kds.fused_decode_step_paged(*t, layer=1, n_head=_H, scale=0.125)
 
 
+@pytest.mark.parametrize("b", [1, 33, 64])
+def test_launch_passes_the_plan_to_the_entry_point(monkeypatch, b):
+    """#12's wrapper makes the plan from the shape, the card's SM count
+    and the kernel's occupancy before the launch, sizes the scratch by
+    the plan's splits and hands the plan's integers to the C entry point
+    after the pools' geometry: a recording stand-in for the library sees
+    them, and the launch is counted once."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import _build
+
+    n_head, dm, nb, bt, mb, cnb, cmb = 8, 512, 70, 16, 8, 140, 16
+    seen = {}
+
+    class Lib:
+        def ptt_megastep_occupancy(self, paged, smem):
+            seen["occupancy"] = (paged, smem)
+            return 1
+
+        def ptt_megastep_scratch(self, *args):
+            seen["scratch"] = args
+            return 40
+
+        def ptt_megastep_paged(self, *args):
+            seen["entry"] = args
+            return 0
+
+    monkeypatch.setattr(_build, "lib", Lib)
+    monkeypatch.setattr(_build, "stream_of", lambda x: 7)
+    monkeypatch.setattr(kds, "sm_count", lambda device: 132)
+    kds._device_launch.cache_clear()
+    kernels.reset_launches()
+    x = torch.zeros(b, 1, dm)
+    args = [x] + [torch.zeros(1)] * 18
+    try:
+        out = kds._launch_megastep("megastep_paged", True, x, args,
+                                   (nb, bt, mb, cnb, bt, cmb),
+                                   (mb * bt, cmb * bt), 3, n_head, 0.125,
+                                   1e-5)
+    finally:
+        kds._device_launch.cache_clear()
+    plan = kds.megastep_plan(b, n_head, dm, 132, 1, mb * bt, cmb * bt)
+    assert seen["occupancy"] == (1, plan.smem)
+    assert seen["scratch"] == (b, dm, n_head, plan.self_splits,
+                               plan.cross_splits)
+    entry = seen["entry"]
+    assert len(entry) == 21 + 20 + 3
+    assert entry[20] - entry[19] == 4 * b * dm  # out, then the scratch
+    assert entry[21:31] == (3, b, dm, n_head, nb, bt, mb, cnb, bt, cmb)
+    assert entry[31:41] == plan.ints() and plan.grid == 132
+    assert entry[41:] == (0.125, 1e-5, 7)
+    assert out.shape == x.shape and kernels.launches["megastep_paged"] == 1
+
+
 # ---------------------------------------------------------------------------
 # whole paths against the reference's programs
 # ---------------------------------------------------------------------------

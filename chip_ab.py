@@ -36,7 +36,7 @@ reusing them) and runs this checkout's measuring code from
   (source 256, 64 tokens): the median and 80th percentile of the 64
   steps of ``time_session`` by the host clock, then 16 steps under
   ``torch.profiler`` (``profile_serving``) for the device-busy time a
-  step, the megastep's share of it and the idle share.
+  step, the megastep's and the FFN's shares of it and the idle share.
 
 ``--what decode`` (or ``training``) measures only the decode steps (or
 only the rest).
@@ -95,6 +95,7 @@ def measure_decode(cs):
                 step_ms_p80=timed["step_ms_p80"],
                 busy_ms=prof["device_busy_ms"],
                 megastep_ms=prof["megastep_ms"],
+                ffn_ms=prof["ffn_ms"],
                 idle_share=prof["idle_share"])
             del sess
     return steps

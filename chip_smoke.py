@@ -84,7 +84,12 @@ Phases, each fatal on failure:
    twice on fresh copies of the caches for equal bits of the output and
    of the rows written in place, and against its twin within TOL_KERNEL,
    caches included; each record carries its plan (``megastep_plan``),
-   the co-resident grid and its share of the bound;
+   the co-resident grid and its share of the bound.  The decode FFN (#11
+   after the ring megastep, #13 after the paged one: one kernel) is
+   checked on each megastep's plain output at b=1, b=64 and the ragged
+   b=33: twice for equal bits and against ``reference_ffn`` within
+   TOL_KERNEL; its records carry the plan (``ffn_plan``), the
+   co-resident grid and the share of the bound;
 3. the main paths on Transformer-base (6 layers, 8 heads, d_model 512,
    d_inner 2048, vocab 32000, source 256, 64 tokens) with seeded random
    weights.  The launch counters are zeroed just before each path and read
@@ -188,10 +193,10 @@ Phases, each fatal on failure:
    memory), whose loss must fall;
 4. where the time goes: torch.profiler over one prefill and 16 decode
    steps at each batch on the ring cache and at b=64 on paged pools (the
-   megastep's device ms a step beside the idle share), and over one
-   training step on each route, on
-   the dropout route, of ResNet-50, of DeepFM and of BERT-base on both
-   kernel routes: device time by kernel beside host wall time, and for
+   megastep's and the FFN's device ms a step beside the idle share), and
+   over one training step on each route, on the dropout route, of
+   ResNet-50, of DeepFM and of BERT-base on both kernel routes: device
+   time by kernel beside host wall time, and for
    ResNet-50 any layout-conversion kernel and #19's time a step beside the
    summed bound of its 36 sites.
    Every phase prints its seconds.
@@ -501,25 +506,34 @@ def check_megastep(x, w, caches, ints, b, label=""):
 def check_decode_kernels(gen, b):
     x, w, ffn, caches, ints = _decode_inputs(gen, b)
     mega, want = check_megastep(x, w, caches, ints, b)
-    return mega, check_ffn(want, ffn, b, "ffn",
-                           "paddle_tpu/kernels/decode_step.py:383")
+    return mega, check_ffn(want, ffn, b, "ffn", FFN_REPLACES["ffn"])
 
 
-def check_ffn(x, ffn, b, name, replaces):
+def check_ffn(x, ffn, b, name, replaces, label=""):
     """#11 (and #13, the same kernel after the paged megastep) on the
-    megastep's plain output x."""
+    megastep's plain output x: twice for equal bits, against its twin,
+    timed beside it; the record carries the plan (``ffn_plan``) and the
+    co-resident grid."""
     from paddle_tpu_torch.kernels import decode_step as kds
+    from paddle_tpu_torch.kernels.attention import sm_count
 
     dm, di = BASE["d_model"], BASE["d_inner_hid"]
     got = kds.ffn_epilogue(x, **ffn)
+    again = kds.ffn_epilogue(x, **ffn)
     want = kds.reference_ffn(x, **ffn)
     torch.cuda.synchronize()
-    err = compare(f"{name} b={b}", got, want, TOL_KERNEL)
-    return timed_record(
+    require(torch.equal(got, again),
+            f"{name}{label} b={b}: two calls on the same inputs differ")
+    err = compare(f"{name}{label} b={b}", got, want, TOL_KERNEL)
+    rec = timed_record(
         name, "paddle_tpu_torch/csrc/ffn.cu", replaces, err,
         lambda: kds.ffn_epilogue(x, **ffn),
         lambda: kds.reference_ffn(x, **ffn), 4 * b * dm * di,
         F32 * (2 * dm * di + di + 3 * dm + 2 * b * dm), None, b)
+    plan = kds.device_ffn_plan(x.device, b, dm, di)
+    rec.update(plan=plan._asdict(), co_resident_grid=plan.grid,
+               blocks_per_sm=plan.grid // sm_count(x.device))
+    return rec
 
 
 def timed_record(name, source, replaces, err, fn, plain, flops, nbytes,
@@ -711,31 +725,43 @@ def check_paged_decode_kernels(gen, b):
     """#12 and #13 at the paged main path's shapes (:func:`_paged_inputs`)."""
     x, w, ffn, pools, ints = _paged_inputs(gen, b)
     mega, want = check_megastep_paged(x, w, pools, ints, b)
-    return mega, check_ffn(
-        want, ffn, b, "ffn_paged",
-        "paddle_tpu/kernels/decode_step.py:383 (launch :889)")
+    return mega, check_ffn(want, ffn, b, "ffn_paged",
+                           FFN_REPLACES["ffn_paged"])
 
 
-#: the fields of a megastep case kept in the JSON line
+#: the fields of a megastep or FFN case kept in the JSON line
 MEGASTEP_CASE_KEYS = ("batch", "ms", "plain_ms", "bound_ms", "bound_share",
                       "max_abs_err", "plan", "co_resident_grid")
+#: where the FFN records say the TPU kernel is (#11: the ring launch site,
+#: #13: the paged one)
+FFN_REPLACES = {
+    "ffn": "paddle_tpu/kernels/decode_step.py:383",
+    "ffn_paged": "paddle_tpu/kernels/decode_step.py:383 (launch :889)"}
 
 
 def check_megastep_cases():
     """#10 and #12 beyond the serving batches: the ragged b=33 (across the
     plan's tile edges) and every lane with a full self (128 rows) and
     cross (256 rows) cache at b=64, on a generator of their own so that
-    the other checks' inputs stay the parent's.  Returns {(name, case):
-    record}."""
+    the other checks' inputs stay the parent's; #11 and #13 on the b=33
+    megastep outputs and FFN weights of the same draws.  Returns
+    {(name, case): record}."""
     gen = torch.Generator().manual_seed(33)
     out = {}
     for case, b, full in (("b=33", 33, False), ("full b=64", 64, True)):
-        x, w, _, caches, ints = _decode_inputs(gen, b, full)
-        out[("megastep", case)] = check_megastep(x, w, caches, ints, b,
-                                                 f" {case}")[0]
-        x, w, _, pools, ints = _paged_inputs(gen, b, full)
-        out[("megastep_paged", case)] = check_megastep_paged(
-            x, w, pools, ints, b, f" {case}")[0]
+        x, w, ffn, caches, ints = _decode_inputs(gen, b, full)
+        out[("megastep", case)], y = check_megastep(x, w, caches, ints, b,
+                                                    f" {case}")
+        if not full:
+            out[("ffn", case)] = check_ffn(y, ffn, b, "ffn",
+                                           FFN_REPLACES["ffn"], " " + case)
+        x, w, ffn, pools, ints = _paged_inputs(gen, b, full)
+        out[("megastep_paged", case)], y = check_megastep_paged(
+            x, w, pools, ints, b, f" {case}")
+        if not full:
+            out[("ffn_paged", case)] = check_ffn(
+                y, ffn, b, "ffn_paged", FFN_REPLACES["ffn_paged"],
+                " " + case)
         del caches, pools
     return out
 
@@ -3775,6 +3801,9 @@ def profile_serving(model, b, steps=16, paged=False):
                           megastep_ms=sum(
                               us for name, us in rows
                               if "megastep_kernel" in name) / per / 1e3,
+                          ffn_ms=sum(
+                              us for name, us in rows
+                              if "ffn_kernel" in name) / per / 1e3,
                           idle_share=(1 - busy_us / wall_us
                                       if busy_us else None),
                           top=[(name[:60], us / per / 1e3)
@@ -4083,9 +4112,9 @@ def main():
             # the JSON line carries the cross side of the flash-decode pair
             if side in (None, "cross"):
                 records[(r["name"], b)] = r
-    # the megastep records in the JSON line carry b=1's, the ragged b=33's
-    # and the full caches'
-    for name in ("megastep", "megastep_paged"):
+    # the megastep and FFN records in the JSON line carry b=1's, the
+    # ragged b=33's and (the megastep's) the full caches'
+    for name in ("megastep", "megastep_paged", "ffn", "ffn_paged"):
         records[(name, max(BATCHES))]["cases"] = {
             "b=1": {k: records[(name, 1)][k] for k in MEGASTEP_CASE_KEYS}}
     for (name, case), r in check_megastep_cases().items():
@@ -4331,7 +4360,7 @@ def main():
                   f"{'prefill' if phase == 'prefill' else 'step'}: wall "
                   f"{r['wall_ms']} ms, device busy {r['device_busy_ms']} "
                   f"ms, idle share {r['idle_share']}, the megastep "
-                  f"{r['megastep_ms']} ms")
+                  f"{r['megastep_ms']} ms, the FFN {r['ffn_ms']} ms")
             for name, ms in r["top"]:
                 print(f"    {ms:.4f} ms  {name}")
     bert_feed = _to(bert_batch(BERT_BATCH, seed=2), DEV)

@@ -17,7 +17,9 @@ The megastep is one cooperative launch of one block on each SM of the
 card, its work split by :func:`megastep_plan` (column tiles and row
 groups of the four projections, row splits of the two walks), chosen
 from the shape and the card before the launch and passed to the entry
-point, which rejects a plan it cannot run.
+point, which rejects a plan it cannot run.  So is the FFN, split by
+:func:`ffn_plan` (column tiles of d_inner, then split-K slabs of W_out
+whose partials are summed in slab order).
 
 The self cache is updated in place: the port's counterpart of the JAX
 package's donated cache buffers.  The returned caches are the tensors
@@ -398,32 +400,173 @@ def megastep_paged(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
                             (mb * bt, cmb * cbt), layer, h, scale, eps)
 
 
-#: (device, stream handle) -> int32 tickets of the FFN kernel's last-block
-#: reduction.  The kernel needs them zero on entry and leaves them zero, so
-#: one buffer serves every launch that is ordered after the last one: the
-#: launches of one stream.  Launches on two streams never share a buffer.
-_tickets = {}
+#: threads of an FFN block (csrc/ffn.cu NT)
+FFN_THREADS = 256
+#: floats of an FFN block's group reduction (csrc/ffn.cu RED)
+_FFN_RED = FFN_THREADS * 16
+#: rows of W_out a split-mode P2 slab may take
+_FFN_SLABS = (16, 32, 64, 128, 256, 512)
+#: the FFN's cost model: weight bytes a us an SM from HBM when every SM
+#: loads (2.6 TB/s over 132 SMs), bytes a us an SM from L2, f32 FMAs a us
+#: an SM (100 a clock at 1.9 GHz), a round of items' latency and a grid
+#: barrier, us
+_FFN_HBM, _FFN_L2, _FFN_FMA, _FFN_ROUND, _FFN_BARRIER = (2e4, 5e4, 1.9e5,
+                                                        1.0, 0.75)
 
 
-def _ticket_buffer(device, stream, n):
-    buf = _tickets.get((device, stream))
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
-        _tickets[(device, stream)] = buf
-    return buf
+class FfnPlan(NamedTuple):
+    """The work split of one FFN launch (``csrc/ffn.cu``).
+
+    ``grid`` blocks, all co-resident.  P1, h = relu(x W_in + b_in):
+    items of ``ct1`` columns of d_inner by ``rg`` batch rows.  ``fused``:
+    each item then multiplies its own h columns by the matching ``ct1``
+    rows of W_out (``slabs`` = ceil(d_inner / ct1) partials); else, after
+    a barrier, P2 items of ``ks`` rows of W_out by ``ct2`` columns of
+    d_model by ``rg`` rows (``slabs`` = ceil(d_inner / ks)).  P3 sums each
+    output's partials over ``lanes`` lanes.  ``scratch`` floats (h in
+    split mode, then the partials); ``smem`` bytes of dynamic shared
+    memory a block."""
+    grid: int
+    fused: int
+    ct1: int
+    rg: int
+    ks: int
+    ct2: int
+    slabs: int
+    lanes: int
+    scratch: int
+    smem: int
+
+    def ints(self):
+        """The plan's integers in the entry point's order."""
+        return (self.grid, self.fused, self.ct1, self.rg, self.ks, self.ct2,
+                self.lanes, self.smem)
+
+
+def _ld(n):
+    """Row stride of a shared tile of n columns (csrc/ffn.cu ld_of)."""
+    return n + 4 + n % 8
+
+
+def ffn_floats(d_model, fused, ct1, rg, ks, ct2):
+    """Shared memory floats of an FFN block, as ``csrc/ffn.cu`` lays them
+    out: the W_in tile, the W_out tile, the item's rows (x, or split P2's
+    h slab), fused mode's h, the group reduction, and LN3's scale and
+    bias, b_out and the item's b_in."""
+    rgp = max(rg, 4)
+    w1 = d_model * _ld(ct1) + _FFN_RED + 3 * d_model + ct1
+    if fused:
+        return (w1 + ct1 * _ld(d_model) + rgp * _ld(d_model)
+                + rgp * _ld(ct1))
+    return w1 + ks * _ld(ct2) + rgp * max(_ld(d_model), _ld(ks))
+
+
+def _ffn_us(b, dm, di, grid, fused, ct1, rg, ks, ct2):
+    """Modelled us of a plan: each phase's rounds of items (latency, weight
+    bytes from HBM, rows and partials through L2, FMAs over all rgp rows
+    a patch computes), P3's partial reads spread over the grid, and the
+    barriers."""
+    nr, rows = min(rg, b), max(rg, 4)
+    groups, t1 = -(-b // rg), -(-di // ct1)
+
+    def rounds(items):
+        return -(-items // grid)
+
+    if fused:
+        us = rounds(t1 * groups) * (
+            _FFN_ROUND + 8 * dm * ct1 / _FFN_HBM + 8 * nr * dm / _FFN_L2
+            + 2 * rows * ct1 * dm / _FFN_FMA)
+        slabs, barriers = t1, 2
+    else:
+        slabs = -(-di // ks)
+        items2 = slabs * -(-dm // ct2) * groups
+        us = (rounds(t1 * groups) * (
+            _FFN_ROUND + 4 * dm * ct1 / _FFN_HBM
+            + 4 * nr * (dm + ct1) / _FFN_L2 + rows * ct1 * dm / _FFN_FMA)
+            + rounds(items2) * (
+                _FFN_ROUND + 4 * ks * ct2 / _FFN_HBM
+                + 4 * nr * (ks + ct2) / _FFN_L2 + rows * ks * ct2 / _FFN_FMA))
+        barriers = 3
+    return (us + _FFN_ROUND + 4 * slabs * b * dm / (grid * _FFN_L2)
+            + barriers * _FFN_BARRIER)
+
+
+def ffn_plan(b, d_model, d_inner, sms, blocks_per_sm):
+    """The FFN's work split for a batch of ``b`` at these widths, on a card
+    of ``sms`` SMs with a grid of ``blocks_per_sm`` blocks an SM (all
+    co-resident: the launch is cooperative): of the fused and split
+    layouts, the tiles of least modelled time (:func:`_ffn_us`) whose
+    shared memory fits a block.  Pure: the wrapper passes its integers to
+    the entry point."""
+    if (min(b, d_model, d_inner, sms, blocks_per_sm) < 1 or d_model % 4
+            or d_inner % 4):
+        raise ValueError(f"ffn_plan: no plan for b {b}, d_model {d_model}, "
+                         f"d_inner {d_inner}, {sms} SMs x {blocks_per_sm}")
+    grid = sms * blocks_per_sm
+    top = min(64, 1 << (b - 1).bit_length())
+    best = None
+    for rg in (r for r in _ROW_GROUPS if r <= top):
+        for ct1 in _COLUMN_TILES:
+            if ct1 > 4 and ct1 // 2 >= d_inner:
+                continue
+            options = [(1, 0, 0)] + [(0, ks, ct2) for ks in _FFN_SLABS
+                                     for ct2 in _COLUMN_TILES
+                                     if (ks == 16 or ks // 2 < d_inner)
+                                     and (ct2 == 4 or ct2 // 2 < d_model)]
+            for fused, ks, ct2 in options:
+                smem = 4 * ffn_floats(d_model, fused, ct1, rg, ks, ct2)
+                if smem > MEGASTEP_SMEM_CAP:
+                    continue
+                key = (_ffn_us(b, d_model, d_inner, grid, fused, ct1, rg,
+                               ks, ct2), smem)
+                if best is None or key < best[0]:
+                    best = (key, (fused, ct1, rg, ks, ct2, smem))
+    if best is None:
+        raise ValueError(f"ffn: no plan fits b {b}, d_model {d_model} in "
+                         f"{MEGASTEP_SMEM_CAP} bytes of shared memory a "
+                         f"block")
+    fused, ct1, rg, ks, ct2, smem = best[1]
+    slabs = -(-d_inner // (ct1 if fused else ks))
+    lanes = 1
+    while (lanes < 32 and lanes < slabs
+           and 2 * lanes * b * (d_model // 4) <= grid * FFN_THREADS):
+        lanes *= 2
+    scratch = (0 if fused else b * d_inner) + slabs * b * d_model
+    return FfnPlan(grid, fused, ct1, rg, ks, ct2, slabs, lanes, scratch,
+                   smem)
+
+
+def device_ffn_plan(device, b, d_model, d_inner):
+    """:func:`ffn_plan` as :func:`ffn_epilogue` launches it on
+    ``device``."""
+    return _device_ffn(device, b, d_model, d_inner)[0]
+
+
+@functools.lru_cache(maxsize=256)
+def _device_ffn(device, b, d_model, d_inner):
+    """(plan, its integers) of an FFN launch on ``device``: one block an SM
+    of its SM count, the entry point's occupancy at the plan's shared
+    memory checked; made once a shape."""
+    plan = ffn_plan(b, d_model, d_inner, sm_count(device), 1)
+    per_sm = _build.lib().ptt_ffn_occupancy(plan.smem)
+    if per_sm < 1:
+        _build.check(-per_sm if per_sm < 0 else 1, "ffn occupancy")
+    return plan, plan.ints()
 
 
 def ffn_epilogue(x, ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b, ln3_scale,
                  ln3_bias, eps=1e-5):
-    """LN3(x + relu(x W_in + b_in) W_out + b_out) over x [b, 1, d_model]."""
+    """LN3(x + relu(x W_in + b_in) W_out + b_out) over x [b, 1, d_model]:
+    one cooperative launch of ``csrc/ffn.cu`` split by :func:`ffn_plan`."""
     if x.device.type == "cpu":
         return reference_ffn(x, ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b,
                              ln3_scale, ln3_bias, eps)
     b, _, dm = x.shape
     di = ffn_in_w.shape[1]
-    if x.device.type != "cuda" or dm % 4:
-        raise ValueError(f"ffn_epilogue: no kernel for x {tuple(x.shape)} "
-                         f"on {x.device}")
+    if x.device.type != "cuda" or dm % 4 or di % 4:
+        raise ValueError(f"ffn_epilogue: no kernel for x {tuple(x.shape)}, "
+                         f"d_inner {di} on {x.device} (needs CUDA and "
+                         f"widths % 4 == 0)")
     f32, vec = torch.float32, (dm,)
     _build.require({
         "x": (x, f32, (b, 1, dm)), "ffn_in_w": (ffn_in_w, f32, (dm, di)),
@@ -432,20 +575,25 @@ def ffn_epilogue(x, ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b, ln3_scale,
         "ffn_out_b": (ffn_out_b, f32, vec),
         "ln3_scale": (ln3_scale, f32, vec), "ln3_bias": (ln3_bias, f32, vec)},
         x.device, "ffn_epilogue")
-    lib = _build.lib()
-    chunks, tiles = lib.ptt_ffn_chunks(di), lib.ptt_ffn_tiles(b)
-    partial = torch.empty((chunks, b, dm), dtype=f32, device=x.device)
-    stream = _build.stream_of(x)
-    tickets = _ticket_buffer(x.device, stream, tiles)
-    out = torch.empty_like(x)
-    err = lib.ptt_ffn(
-        x.data_ptr(), ffn_in_w.data_ptr(), ffn_in_b.data_ptr(),
-        ffn_out_w.data_ptr(), ffn_out_b.data_ptr(), ln3_scale.data_ptr(),
-        ln3_bias.data_ptr(), out.data_ptr(), partial.data_ptr(),
-        tickets.data_ptr(), b, dm, di, float(eps), stream)
+    return _launch_ffn(x, (ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b,
+                           ln3_scale, ln3_bias), di, eps)
+
+
+def _launch_ffn(x, weights, d_inner, eps):
+    """Launch #11/#13 on checked tensors, ``weights`` the entry point's
+    six in order: the plan of :func:`_device_ffn`, the output and the
+    scratch in one allocation."""
+    b, _, dm = x.shape
+    plan, ints = _device_ffn(x.device, b, dm, d_inner)
+    buf = torch.empty(b * dm + plan.scratch, dtype=torch.float32,
+                      device=x.device)
+    err = _build.lib().ptt_ffn(
+        x.data_ptr(), *(w.data_ptr() for w in weights), buf.data_ptr(),
+        buf.data_ptr() + 4 * b * dm, b, dm, d_inner, *ints, float(eps),
+        _build.stream_of(x))
     _build.check(err, "ffn")
     launches["ffn"] += 1
-    return out
+    return buf[:b * dm].view(b, 1, dm)
 
 
 def _ffn_route(x, d_head):

@@ -314,6 +314,114 @@ def test_megastep_plan_covers_every_item(n_head, sms):
                 assert splits <= kds.MEGASTEP_MAX_SPLITS
 
 
+def _ffn_plan_sum(plan, x, w_in, b_in, w_out, b_out, ln_s, ln_b):
+    """The FFN as ``csrc/ffn.cu`` splits it under ``plan``, in numpy f32:
+    P1's items write h, P2's items write their slabs' partials, every
+    element once (asserted), then x + (the partials summed in slab order
+    + b_out) and LN3.  Returns (out, floats of scratch written)."""
+    b, dm = x.shape
+    di = w_in.shape[1]
+    h = np.full((b, di), np.nan, np.float32)
+    part = np.full((plan.slabs, b, dm), np.nan, np.float32)
+    groups, t1 = -(-b // plan.rg), -(-di // plan.ct1)
+    for item in range(t1 * groups):
+        c0, r0 = (item % t1) * plan.ct1, (item // t1) * plan.rg
+        rows, cols = slice(r0, r0 + plan.rg), slice(c0, c0 + plan.ct1)
+        assert np.isnan(h[rows, cols]).all()
+        h[rows, cols] = np.maximum(x[rows] @ w_in[:, cols] + b_in[cols], 0)
+        if plan.fused:
+            part[item % t1, rows] = h[rows, cols] @ w_out[cols]
+    if not plan.fused:
+        c2 = -(-dm // plan.ct2)
+        for item in range(plan.slabs * c2 * groups):
+            slab, rest = item % plan.slabs, item // plan.slabs
+            c0, r0 = (rest % c2) * plan.ct2, (rest // c2) * plan.rg
+            ks = slice(slab * plan.ks, (slab + 1) * plan.ks)
+            rows, cols = slice(r0, r0 + plan.rg), slice(c0, c0 + plan.ct2)
+            assert np.isnan(part[slab, rows, cols]).all()
+            part[slab, rows, cols] = h[rows, ks] @ w_out[ks, cols]
+    assert not np.isnan(h).any() and not np.isnan(part).any()
+    f = part[0].copy()
+    for s in range(1, plan.slabs):
+        f += part[s]
+    y = x + (f + b_out)
+    mean = y.mean(-1, keepdims=True)
+    var = np.square(y - mean).mean(-1, keepdims=True)
+    out = (y - mean) / np.sqrt(var + 1e-5) * ln_s + ln_b
+    written = (0 if plan.fused else h.size) + part.size
+    return out, written
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("d_inner", [2048, 9216])
+def test_ffn_plan_covers_every_item(d_inner, sms):
+    """The FFN's plan for b in 1..64 at d_model 512 on a card of ``sms``
+    SMs, one block an SM: every h column of every row is owned by exactly
+    one P1 item; every (k, column) of W_out is covered exactly once by
+    P2's items of each row group (fused: the item's own columns of
+    d_inner by every column); the layout fits a block's shared memory;
+    the scratch holds what the phases write; P3's lanes fit the grid.
+    At small widths a sum that follows the plan's items and order (the
+    partials added in slab order) equals ``reference_ffn``."""
+    dm, di = 512, d_inner
+    for b in range(1, 65):
+        plan = kds.ffn_plan(b, dm, di, sms, 1)
+        assert plan.grid == sms
+        assert plan.smem == 4 * kds.ffn_floats(dm, plan.fused, plan.ct1,
+                                               plan.rg, plan.ks, plan.ct2)
+        assert plan.smem <= kds.MEGASTEP_SMEM_CAP
+        assert plan.ct1 in (4, 8, 16, 32, 64)
+        assert plan.rg in (1, 2, 4, 8, 16, 32, 64) and plan.rg // 2 < b
+        groups, t1 = -(-b // plan.rg), -(-di // plan.ct1)
+        h = np.zeros((b, di), np.int32)
+        for item in range(t1 * groups):
+            c0, r0 = (item % t1) * plan.ct1, (item // t1) * plan.rg
+            h[r0:r0 + plan.rg, c0:c0 + plan.ct1] += 1
+        assert (h == 1).all(), (b, plan)
+        w_out = np.zeros((groups, di, dm), np.int32)
+        if plan.fused:
+            assert plan.slabs == t1 and plan.ks == plan.ct2 == 0
+            for item in range(t1 * groups):
+                c0 = (item % t1) * plan.ct1
+                w_out[item // t1, c0:c0 + plan.ct1] += 1
+        else:
+            assert plan.ks % 4 == 0 and plan.ct2 in (4, 8, 16, 32, 64)
+            assert plan.slabs == -(-di // plan.ks)
+            c2 = -(-dm // plan.ct2)
+            for item in range(plan.slabs * c2 * groups):
+                slab, rest = item % plan.slabs, item // plan.slabs
+                k0, c0 = slab * plan.ks, (rest % c2) * plan.ct2
+                w_out[rest // c2, k0:k0 + plan.ks, c0:c0 + plan.ct2] += 1
+        assert (w_out == 1).all(), (b, plan)
+        assert plan.scratch == ((0 if plan.fused else b * di)
+                                + plan.slabs * b * dm)
+        assert plan.lanes in (1, 2, 4, 8, 16, 32)
+        assert (plan.lanes == 1
+                or plan.lanes * b * dm // 4 <= plan.grid * kds.FFN_THREADS)
+
+    rng = np.random.RandomState(sms + d_inner)
+    for b, dm, di, sms_small in ((1, 64, 128, 2), (5, 32, 96, 3),
+                                 (33, 64, 200, 2), (9, 96, 64, 3)):
+        def f(*shape, scale=1.0):
+            return (rng.randn(*shape) * scale).astype(np.float32)
+
+        args = [f(b, dm), f(dm, di, scale=dm ** -0.5), f(di, scale=0.1),
+                f(di, dm, scale=di ** -0.5), f(dm, scale=0.1),
+                1 + f(dm, scale=0.1), f(dm, scale=0.1)]
+        want = kds.reference_ffn(*(torch.from_numpy(a) for a in args))
+        plans = [kds.ffn_plan(b, dm, di, sms_small, 1)]
+        plans += [kds.FfnPlan(sms_small, fused, ct1, rg, ks, ct2,
+                              -(-di // (ks or ct1)), 1, 0, 0)
+                  for fused, ct1, rg, ks, ct2 in ((1, 16, 4, 0, 0),
+                                                  (0, 8, 2, 32, 16))]
+        for plan in plans:
+            got, written = _ffn_plan_sum(plan, *args)
+            np.testing.assert_allclose(got, want.numpy(), rtol=1e-5,
+                                       atol=1e-5)
+            if plan is plans[0]:
+                assert written == plan.scratch
+
+
 def test_sample_token_first_max_like_jax():
     logits = np.array([[0.1, 3.0, 3.0, -1.0], [2.0, 2.0, 2.0, 2.0],
                        [-5.0, -4.0, -4.5, -4.0]], np.float32)

@@ -291,6 +291,55 @@ def test_launch_passes_the_plan_to_the_entry_point(monkeypatch, b):
     assert out.shape == x.shape and kernels.launches["megastep_paged"] == 1
 
 
+@pytest.mark.parametrize("b", [1, 33, 64])
+def test_ffn_launch_passes_the_plan_to_the_entry_point(monkeypatch, b):
+    """#11/#13's wrapper makes the FFN plan from the shape, the card's SM
+    count and the kernel's occupancy before the launch, sizes the scratch
+    by the plan and hands the output, the scratch behind it and the
+    plan's integers to the C entry point after the widths: a recording
+    stand-in for the library sees them, and the launch is counted once."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import _build
+
+    dm, di = 512, 2048
+    seen = {}
+
+    class Lib:
+        def ptt_ffn_occupancy(self, smem):
+            seen["occupancy"] = smem
+            return 1
+
+        def ptt_ffn(self, *args):
+            seen["entry"] = args
+            return 0
+
+    monkeypatch.setattr(_build, "lib", Lib)
+    monkeypatch.setattr(_build, "stream_of", lambda x: 7)
+    monkeypatch.setattr(kds, "sm_count", lambda device: 132)
+    kds._device_ffn.cache_clear()
+    kernels.reset_launches()
+    x = torch.zeros(b, 1, dm)
+    weights = [torch.zeros(1) for _ in range(6)]
+    try:
+        out = kds._launch_ffn(x, weights, di, 1e-5)
+    finally:
+        kds._device_ffn.cache_clear()
+    plan = kds.ffn_plan(b, dm, di, 132, 1)
+    assert seen["occupancy"] == plan.smem
+    entry = seen["entry"]
+    assert len(entry) == 9 + 3 + 8 + 2
+    assert entry[0] == x.data_ptr()
+    assert entry[1:7] == tuple(w.data_ptr() for w in weights)
+    assert entry[8] - entry[7] == 4 * b * dm  # out, then the scratch
+    assert out.data_ptr() == entry[7]
+    assert out.untyped_storage().nbytes() == 4 * (b * dm + plan.scratch)
+    assert entry[9:12] == (b, dm, di)
+    assert entry[12:20] == plan.ints() and plan.grid == 132
+    assert entry[20:] == (1e-5, 7)
+    assert plan.fused == (b == 1)
+    assert out.shape == x.shape and kernels.launches["ffn"] == 1
+
+
 # ---------------------------------------------------------------------------
 # whole paths against the reference's programs
 # ---------------------------------------------------------------------------

@@ -36,13 +36,23 @@ reusing them) and runs this checkout's measuring code from
   (source 256, 64 tokens): the median and 80th percentile of the 64
   steps of ``time_session`` by the host clock, then 16 steps under
   ``torch.profiler`` (``profile_serving``) for the device-busy time a
-  step, the megastep's and the FFN's shares of it and the idle share.
+  step, the megastep's and the FFN's shares of it and the idle share;
+* the unfused decode step (``fused_decode_step=False``: #14/#15, 12
+  launches a token) on ring caches at b=1 and b=64 and on paged pools at
+  b=64, measured the same way, with flash-decode's device time a step;
+* the decode kernels alone, on phase 2's draws at b=64, 1, 33 and full
+  caches at b=64 (``measure_decode_kernels``): the megastep's (#10, #12)
+  outputs and updated caches as a digest, compared across the checkouts,
+  and its device time; flash-decode's (#14, #15) device time after the
+  L2 flush and with its inputs warm in the L2.
 
 ``--what decode`` (or ``training``) measures only the decode steps (or
 only the rest).
 
 Prints, per checkout, the median and range of each number over its
-processes; every process's record goes to ``chiprun_out/chip_ab.json``.
+processes, and whether every process of both checkouts gave the
+megastep the same digest in each case; every process's record goes to
+``chiprun_out/chip_ab.json``.
 Needs one card; exits 2 without one.
 """
 
@@ -60,6 +70,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: #1's case: (b, t, d_model, bias), chip_smoke.py's QKV_PLAN_CASES "t 8"
 QKV_T8 = (4, 8, 512, "pad")
 WARM_STEPS = 3
+#: the decode kernels' cases alone: (case, b, full caches)
+KERNEL_CASES = (("b=64", 64, False), ("b=1", 1, False),
+                ("b=33", 33, False), ("full b=64", 64, True))
 
 
 def _chip_smoke():
@@ -76,28 +89,109 @@ def _per_call_us(cs, prof, calls):
     return {name[:80]: us / calls for name, us in cs._device_kernels(prof)}
 
 
+def _warm_ms(fn, iters=20):
+    """Median device time of one fn() call with its inputs warm in the
+    L2: each timed call follows an untimed one on the same inputs, both
+    behind a 1 ms device-side spin that hides the host's enqueue."""
+    import torch
+
+    fn()
+    events = []
+    for _ in range(iters):
+        torch.cuda._sleep(2_000_000)
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return _median([s.elapsed_time(e) for s, e in events])
+
+
+def measure_decode_kernels(cs):
+    """The megastep (#10, #12) and flash-decode (#14, #15) alone, on
+    phase 2's draws (``_decode_inputs``, ``_paged_inputs``,
+    ``_flash_decode_inputs``) in each of KERNEL_CASES, every case on a
+    generator of its own: {kernel and case: record}.  The megastep's
+    output and updated self cache as a sha256 digest, and its device time
+    (``cuda_ms`` with ``hide_host``); flash-decode's device time on both
+    sides after the L2 flush (``device_ms``) and warm (:func:`_warm_ms`).
+    """
+    import hashlib
+
+    import torch
+
+    from paddle_tpu_torch.kernels import decode_attention as kda
+    from paddle_tpu_torch.kernels import decode_step as kds
+
+    h, dh = cs.BASE["n_head"], cs.BASE["d_key"]
+    scale = dh ** -0.5
+    kw = dict(layer=cs.BASE["n_layer"] // 2, n_head=h, scale=scale)
+    out = {}
+    for case, b, full in KERNEL_CASES:
+        for name, draw, fn in (
+                ("megastep", cs._decode_inputs, kds.megastep),
+                ("megastep_paged", cs._paged_inputs, kds.megastep_paged)):
+            gen = torch.Generator().manual_seed(b + full)
+            x, w, _, caches, ints = draw(gen, b, full)
+
+            def step():
+                return fn(x, **w, **caches, **ints, **kw)
+
+            digest = hashlib.sha256()
+            for t in (step(), caches["cache_k"], caches["cache_v"]):
+                digest.update(t.cpu().numpy().tobytes())
+            out[f"{name} {case}"] = dict(
+                digest=digest.hexdigest(),
+                device_ms=cs.cuda_ms(step, hide_host=True))
+            del x, w, caches, ints
+        for side in ("self", "cross"):
+            gen = torch.Generator().manual_seed(b + full)
+            q, k, v, lens, table, k_pool, v_pool = cs._flash_decode_inputs(
+                gen, b, side, full)
+            for name, fn in (
+                    ("flash_decode",
+                     lambda: kda.flash_decode(q, k, v, lens, scale)),
+                    ("flash_decode_paged",
+                     lambda: kda.flash_decode_paged(q, k_pool, v_pool,
+                                                    table, lens, scale))):
+                out[f"{name} {side} {case}"] = dict(
+                    device_ms=cs.cuda_ms(fn, hide_host=True),
+                    warm_ms=_warm_ms(fn))
+            del q, k, v, k_pool, v_pool
+    torch.cuda.empty_cache()
+    return out
+
+
 def measure_decode(cs):
     """The fused decode steps on ring caches and on paged pools at b=1
-    and b=64: {route: record}."""
+    and b=64, and the unfused ones (#14/#15) on ring caches at b=1 and
+    b=64 and on paged pools at b=64: {route: record}."""
     import paddle_tpu_torch
     from paddle_tpu_torch import GenerationSession
 
     model = paddle_tpu_torch.Transformer(**cs.BASE).init_params(seed=0)
+    unfused = paddle_tpu_torch.Transformer(**cs.BASE,
+                                           fused_decode_step=False)
+    unfused.load_state_dict(model.state_dict())
+    routes = [(model, paged, b, "") for paged in (False, True)
+              for b in cs.BATCHES]
+    routes += [(unfused, False, b, "_unfused") for b in cs.BATCHES]
+    routes += [(unfused, True, max(cs.BATCHES), "_unfused")]
     steps = {}
-    for paged in (False, True):
-        for b in cs.BATCHES:
-            sess = GenerationSession(model, b, cs.SRC_LEN, cs.MAX_OUT,
-                                     bos_id=0, eos_id=-1, paged=paged)
-            timed = cs.time_session(sess, cs.source_batch(b, seed=b))
-            prof = cs.profile_serving(model, b, paged=paged)["decode"]
-            steps[f"decode_{'paged' if paged else 'ring'}_b{b}"] = dict(
-                step_ms=timed["step_ms_p50"],
-                step_ms_p80=timed["step_ms_p80"],
-                busy_ms=prof["device_busy_ms"],
-                megastep_ms=prof["megastep_ms"],
-                ffn_ms=prof["ffn_ms"],
-                idle_share=prof["idle_share"])
-            del sess
+    for m, paged, b, tag in routes:
+        sess = GenerationSession(m, b, cs.SRC_LEN, cs.MAX_OUT, bos_id=0,
+                                 eos_id=-1, paged=paged)
+        timed = cs.time_session(sess, cs.source_batch(b, seed=b))
+        prof = cs.profile_serving(m, b, paged=paged, tag=tag)["decode"]
+        steps[f"decode_{'paged' if paged else 'ring'}{tag}_b{b}"] = dict(
+            step_ms=timed["step_ms_p50"], step_ms_p80=timed["step_ms_p80"],
+            busy_ms=prof["device_busy_ms"], megastep_ms=prof["megastep_ms"],
+            ffn_ms=prof["ffn_ms"], flash_decode_ms=prof["flash_decode_ms"],
+            idle_share=prof["idle_share"])
+        del sess
     return steps
 
 
@@ -132,7 +226,8 @@ def measure(root, what="all"):
                 sum(us for n, us in rows if "dot_stats_kernel" in n) / 1e3)
 
     if what == "decode":
-        return dict(root=root, steps=measure_decode(cs))
+        return dict(root=root, steps=measure_decode(cs),
+                    kernels=measure_decode_kernels(cs))
     L = cs.BASE["n_layer"]
     steps = {}
     for route, fused, per_step in (
@@ -210,11 +305,13 @@ def measure(root, what="all"):
         for _ in range(calls):
             fwd()
         torch.cuda.synchronize()
+    rec = dict(root=root, steps=steps, t8_ms=t8_ms,
+               t8_device_ms=t8_device_ms,
+               t8_kernels_us=_per_call_us(cs, prof, calls))
     if what == "all":
         steps.update(measure_decode(cs))
-    return dict(root=root, steps=steps, t8_ms=t8_ms,
-                t8_device_ms=t8_device_ms,
-                t8_kernels_us=_per_call_us(cs, prof, calls))
+        rec["kernels"] = measure_decode_kernels(cs)
+    return rec
 
 
 def _median(xs):
@@ -262,7 +359,8 @@ def main():
                        process_s=time.perf_counter() - t0)
             runs.append(rec)
             print(json.dumps({k: v for k, v in rec.items()
-                              if k != "t8_kernels_us"}), flush=True)
+                              if k not in ("t8_kernels_us", "kernels")}),
+                  flush=True)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_ab.json"), "w") as f:
@@ -284,8 +382,20 @@ def main():
             summary["t8_kernels_us"] = {
                 n: _median([r["t8_kernels_us"].get(n, 0.0) for r in mine])
                 for n in names}
+        for key in mine[0].get("kernels", {}):
+            for field in ("device_ms", "warm_ms"):
+                if field in mine[0]["kernels"][key]:
+                    xs = [r["kernels"][key][field] for r in mine]
+                    summary[f"{key} {field}"] = (_median(xs), min(xs),
+                                                 max(xs))
         print(f"{label} ({len(mine)} processes; median, min, max): "
               f"{json.dumps(summary)}")
+    if "kernels" in runs[0]:
+        same = {key: len({r["kernels"][key]["digest"] for r in runs}) == 1
+                for key in runs[0]["kernels"]
+                if "digest" in runs[0]["kernels"][key]}
+        print(f"the megastep's bits equal in every process of both "
+              f"checkouts: {json.dumps(same)}")
     return 0
 
 

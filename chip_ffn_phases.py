@@ -5,7 +5,8 @@ on one CUDA card, at Transformer-base's widths (d_model 512, d_inner
 
     python3 chip_ffn_phases.py
 
-Builds temporary copies of ``csrc/ffn.cu`` (the tree is not changed):
+Builds temporary copies of ``csrc/ffn.cu`` by ``chip_kernel_copies`` (the
+tree is not changed):
 
 * ``stamped``: thread 0 of every block reads ``%globaltimer`` after a
   barrier at each phase end (P1 and fused P2, the split barrier, split
@@ -26,17 +27,19 @@ measurement, and last ``{"ok": true}``.  Exits 2 without a card.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
-import subprocess
 import sys
 import tempfile
 
-import numpy as np
 import torch
 
+import chip_kernel_copies as ck
+
 HERE = os.path.dirname(os.path.abspath(__file__))
+WHAT = "chip_ffn_phases: csrc/ffn.cu"
+#: the kernel's first line, before which the stamps are defined
+ANCHOR = "__global__ void __launch_bounds__(NT, 1)"
 DM, DI = 512, 2048
 BATCHES = (1, 33, 64)
 #: phase ends of the stamped copy, in stamp order
@@ -44,49 +47,24 @@ PHASES = ("start spread", "P1 (and fused P2)", "split barrier", "split P2",
           "P3 barrier", "P3 sums", "LN barrier", "LN3")
 
 
-def _edit(src, old, new):
-    if src.count(old) != 1:
-        raise RuntimeError(f"chip_ffn_phases: csrc/ffn.cu no longer has "
-                           f"{old!r} once")
-    return src.replace(old, new)
-
-
 def stamped(src):
-    """csrc/ffn.cu with %globaltimer stamps at its phase ends and an
-    entry point that copies them out (``ptt_ffn_stamps``)."""
-    src = _edit(src, "__global__ void __launch_bounds__(NT, 1)", """\
-__device__ unsigned long long g_stamps[1024 * 8];
-__device__ __forceinline__ void stamp(int i) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    g_stamps[blockIdx.x * 8 + i] = t;
-  }
-}
-
-__global__ void __launch_bounds__(NT, 1)""")
-    for old, new in (
-            ("  cg::grid_group grid = cg::this_grid();\n",
-             "  cg::grid_group grid = cg::this_grid();\n  stamp(0);\n"),
-            ("  if (!pl.fused) {\n    // split P2",
-             "  stamp(1);\n  if (!pl.fused) {\n    // split P2"),
-            ("W_out[slab, tile]\n    grid.sync();\n",
-             "W_out[slab, tile]\n    grid.sync();\n    stamp(2);\n"),
-            ("  copies_wait<0>();\n  grid.sync();\n",
-             "  stamp(3);\n  copies_wait<0>();\n  grid.sync();\n"
-             "  stamp(4);\n"),
-            ("  sum_partials(P, vec + 2 * dm);\n  grid.sync();\n",
-             "  sum_partials(P, vec + 2 * dm);\n  stamp(5);\n"
-             "  grid.sync();\n  stamp(6);\n"),
-            ("  layer_norm_rows(P, vec, vec + dm);\n",
-             "  layer_norm_rows(P, vec, vec + dm);\n  stamp(7);\n")):
-        src = _edit(src, old, new)
-    return src + """
-extern "C" int ptt_ffn_stamps(unsigned long long* host, int n) {
-  return (int)cudaMemcpyFromSymbol(host, g_stamps, (size_t)n * 8);
-}
-"""
+    """csrc/ffn.cu with %globaltimer stamps at its phase ends
+    (``chip_kernel_copies.stamped``)."""
+    return ck.stamped(src, WHAT, ANCHOR, (
+        ("  cg::grid_group grid = cg::this_grid();\n",
+         "  cg::grid_group grid = cg::this_grid();\n  stamp(0);\n"),
+        ("  if (!pl.fused) {\n    // split P2",
+         "  stamp(1);\n  if (!pl.fused) {\n    // split P2"),
+        ("W_out[slab, tile]\n    grid.sync();\n",
+         "W_out[slab, tile]\n    grid.sync();\n    stamp(2);\n"),
+        ("  copies_wait<0>();\n  grid.sync();\n",
+         "  stamp(3);\n  copies_wait<0>();\n  grid.sync();\n"
+         "  stamp(4);\n"),
+        ("  sum_partials(P, vec + 2 * dm);\n  grid.sync();\n",
+         "  sum_partials(P, vec + 2 * dm);\n  stamp(5);\n"
+         "  grid.sync();\n  stamp(6);\n"),
+        ("  layer_norm_rows(P, vec, vec + dm);\n",
+         "  layer_norm_rows(P, vec, vec + dm);\n  stamp(7);\n")))
 
 
 K_LOOP = "    for (int k = 4 * g; k < K; k += 4 * kg) {"
@@ -95,40 +73,13 @@ X_COPY = ("  copy_tile(P.x, P.dm, r0, nr, P.batch, 0, P.dm, P.dm, rows, "
 
 VARIANTS = {
     "stamped": stamped,
-    "no_k_loop": lambda s: _edit(s, K_LOOP, K_LOOP.replace("k < K", "k < 0")),
-    "k_loop_twice": lambda s: _edit(
-        s, K_LOOP, "    for (int rep = 0; rep < 2; ++rep)\n" + K_LOOP),
-    "no_x_copy": lambda s: _edit(s, X_COPY, ""),
+    "no_k_loop": lambda s: ck.edit(s, K_LOOP,
+                                   K_LOOP.replace("k < K", "k < 0"), WHAT),
+    "k_loop_twice": lambda s: ck.edit(
+        s, K_LOOP, "    for (int rep = 0; rep < 2; ++rep)\n" + K_LOOP,
+        WHAT),
+    "no_x_copy": lambda s: ck.edit(s, X_COPY, "", WHAT),
 }
-
-
-def build_variants(build, out_dir):
-    """{name: ctypes library} of every variant, each built by its own
-    nvcc beside the others."""
-    with open(os.path.join(build.CSRC_DIR, "ffn.cu")) as f:
-        src = f.read()
-    jobs = []
-    for name, edit in VARIANTS.items():
-        path = os.path.join(out_dir, f"ffn_{name}.cu")
-        with open(path, "w") as f:
-            f.write(edit(src))
-        so = os.path.join(out_dir, f"libffn_{name}.so")
-        jobs.append((name, so, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", "-I",
-             build.CSRC_DIR, "-o", so, path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = {}
-    for name, so, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on the {name} copy:\n{log}")
-        lib = ctypes.CDLL(so)
-        lib.ptt_ffn.restype, lib.ptt_ffn.argtypes = build._SIGNATURES[
-            "ptt_ffn"]
-        libs[name] = lib
-    libs["stamped"].ptt_ffn_stamps.argtypes = [ctypes.c_void_p,
-                                               ctypes.c_int]
-    return libs
 
 
 def forced_plan(kds, b, fused, ct1, rg, ks=0, ct2=0, grid=132):
@@ -153,10 +104,7 @@ def main():
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import decode_step as kds
 
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip())
+    print(ck.card())
     torch.backends.cuda.matmul.allow_tf32 = False
     tree = _build.lib()
     gen = torch.Generator().manual_seed(0)
@@ -175,7 +123,11 @@ def main():
         return buf[:b * DM].view(b, 1, DM)
 
     with tempfile.TemporaryDirectory() as out_dir:
-        libs = build_variants(_build, out_dir)
+        with open(os.path.join(_build.CSRC_DIR, "ffn.cu")) as f:
+            src = f.read()
+        libs = ck.build(_build, out_dir,
+                        {name: make(src) for name, make in VARIANTS.items()},
+                        ["ptt_ffn"])
         libs["tree"] = tree
         for b in BATCHES:
             x = cs.randn(gen, b, 1, DM)
@@ -207,23 +159,8 @@ def main():
                     device_us=1e3 * cs.cuda_ms(lambda: call(tree, x, other),
                                                hide_host=True))))
 
-            n = plan.grid * 8
-            host = (ctypes.c_ulonglong * n)()
-            flush = torch.empty(64 * 2 ** 20, device="cuda")
-            ends = []
-            for _ in range(9):
-                flush.zero_()
-                torch.cuda._sleep(2_000_000)
-                call(libs["stamped"], x, plan)
-                torch.cuda.synchronize()
-                _build.check(libs["stamped"].ptt_ffn_stamps(
-                    ctypes.cast(host, ctypes.c_void_p), n), "stamps")
-                st = np.array(host[:], dtype=np.float64).reshape(
-                    plan.grid, 8)
-                t0 = st[:, 0].min()
-                ends.append([st[:, 0].max() - t0]
-                            + [st[:, i].max() - t0 for i in range(1, 8)])
-            med = np.median(np.array(ends), axis=0) / 1e3
+            med = ck.phase_ends(libs["stamped"], plan.grid, len(PHASES),
+                                lambda: call(libs["stamped"], x, plan))
             split = {p: round(float(v), 3) for p, v in zip(PHASES, med)
                      if plan.fused == 0 or "split" not in p}
             print(json.dumps(dict(batch=b, phase_end_us=split)))

@@ -595,71 +595,144 @@ def _library_decode(q, k, v, lens, scale):
         attn_mask=mask, scale=scale)[:, :, 0, :]
 
 
-def check_flash_decode(gen, b):
-    """#14 and #15 at the unfused route's shapes: the self side (128 rows,
-    lengths 1-128) and the cross side (256 rows, lengths 8-256), lane 0
-    empty; the paged walk over a shuffled table with holes.  Returns
-    {(kernel, side): record}."""
+def _decode_plan_fields(q, paged, rows):
+    """Flash-decode's plan on this card (``decode_plan``) and its grid."""
+    from paddle_tpu_torch.kernels import decode_attention as kda
+    from paddle_tpu_torch.kernels.attention import sm_count
+
+    plan = kda.device_decode_plan(q.device, paged, q.shape[0], q.shape[1],
+                                  rows)
+    return dict(plan=plan._asdict(), co_resident_grid=plan.grid,
+                blocks_per_sm=-(-plan.grid // sm_count(q.device)))
+
+
+def _flash_decode_inputs(gen, b, side, full=False):
+    """One side's flash-decode draws: the self side (128 rows, lengths
+    1-128) or the cross side (SRC_LEN rows, lengths 8-256), lane 0 empty
+    (``full``: every lane at its capacity), and the same rows scattered
+    over pools of BLOCK_T-row blocks through a shuffled table with holes.
+    Returns (q, k, v, lengths, table, k_pool, v_pool)."""
+    h, dh, bt = BASE["n_head"], BASE["d_key"], BLOCK_T
+    rows, lo = (128, 1) if side == "self" else (SRC_LEN, 8)
+    q = randn(gen, b, h, dh)
+    k, v = randn(gen, b, rows, h, dh), randn(gen, b, rows, h, dh)
+    lens = _spread_lengths(gen, b, lo, rows)
+    if full:
+        lens.fill_(rows)
+    mb = rows // bt
+    table, nb = _shuffled_table(gen, b, mb)
+    k_pool = torch.empty((nb, bt, h, dh), device=k.device)
+    v_pool = torch.empty_like(k_pool)
+    k_pool[table.long()] = k.reshape(b, mb, bt, h, dh)
+    v_pool[table.long()] = v.reshape(b, mb, bt, h, dh)
+    return q, k, v, lens, table, k_pool, v_pool
+
+
+def _held_flash_decode(gen, b, side, full=False):
+    """#14 and #15 on one side's draws (:func:`_flash_decode_inputs`), the
+    paged walk over the same rows as the ring's.  Each kernel is called
+    twice for equal bits and held against its twin, the paged one against
+    the ring's twin too, and timed with the host's enqueue (``ms``) and
+    without it (``device_ms``).  Returns (ring record, paged record)."""
     from paddle_tpu_torch.kernels import decode_attention as kda
 
-    h, dh, bt = BASE["n_head"], BASE["d_key"], BLOCK_T
+    h, dh = BASE["n_head"], BASE["d_key"]
+    label = f"{side} b={b}{' full' if full else ''}"
     scale = dh ** -0.5
-    out = {}
-    for side, rows, lo in (("self", 128, 1), ("cross", SRC_LEN, 8)):
-        q = randn(gen, b, h, dh)
-        k, v = randn(gen, b, rows, h, dh), randn(gen, b, rows, h, dh)
-        lens = _spread_lengths(gen, b, lo, rows)
-        n_rows = lens.long().sum().item()
-        flops = 4 * h * dh * n_rows
-        io = F32 * (2 * b * h * dh + 2 * h * dh * n_rows) + 4 * b
-        got = kda.flash_decode(q, k, v, lens, scale)
-        want = kda.reference_decode(q, k, v, lens, scale)
-        torch.cuda.synchronize()
-        err = compare(f"flash_decode {side} b={b}", got, want, TOL_KERNEL)
-        live = lens > 0
-        lib_err = (_library_decode(q, k, v, lens, scale)[live]
-                   - want[live]).abs().max().item()
-        rec = timed_record(
-            "flash_decode", "paddle_tpu_torch/csrc/decode_attention.cu",
-            "paddle_tpu/kernels/decode_attention.py:61", err,
-            lambda: kda.flash_decode(q, k, v, lens, scale),
-            lambda: kda.reference_decode(q, k, v, lens, scale), flops, io,
-            lambda: _library_decode(q, k, v, lens, scale), b)
-        rec["library_max_abs_err"] = lib_err
-        out[("flash_decode", side)] = rec
+    q, k, v, lens, table, k_pool, v_pool = _flash_decode_inputs(
+        gen, b, side, full)
+    rows, mb = k.shape[1], table.shape[1]
+    n_rows = lens.long().sum().item()
+    flops = 4 * h * dh * n_rows
+    io = F32 * (2 * b * h * dh + 2 * h * dh * n_rows) + 4 * b
+    got = kda.flash_decode(q, k, v, lens, scale)
+    again = kda.flash_decode(q, k, v, lens, scale)
+    want = kda.reference_decode(q, k, v, lens, scale)
+    torch.cuda.synchronize()
+    require(torch.equal(got, again),
+            f"flash_decode {label}: two calls on the same inputs differ")
+    err = compare(f"flash_decode {label}", got, want, TOL_KERNEL)
+    live = lens > 0
+    lib_err = (_library_decode(q, k, v, lens, scale)[live]
+               - want[live]).abs().max().item()
+    ring = timed_record(
+        "flash_decode", "paddle_tpu_torch/csrc/decode_attention.cu",
+        "paddle_tpu/kernels/decode_attention.py:61", err,
+        lambda: kda.flash_decode(q, k, v, lens, scale),
+        lambda: kda.reference_decode(q, k, v, lens, scale), flops, io,
+        lambda: _library_decode(q, k, v, lens, scale), b)
+    ring["library_max_abs_err"] = lib_err
+    ring["device_ms"] = cuda_ms(lambda: kda.flash_decode(q, k, v, lens,
+                                                         scale),
+                                hide_host=True)
+    ring.update(_decode_plan_fields(q, False, rows))
 
-        # the same rows scattered over a pool through a shuffled table
-        mb = rows // bt
-        table, nb = _shuffled_table(gen, b, mb)
-        k_pool = torch.empty((nb, bt, h, dh), device=k.device)
-        v_pool = torch.empty_like(k_pool)
-        k_pool[table.long()] = k.reshape(b, mb, bt, h, dh)
-        v_pool[table.long()] = v.reshape(b, mb, bt, h, dh)
-        got = kda.flash_decode_paged(q, k_pool, v_pool, table, lens, scale)
-        want_p = kda.reference_decode_paged(q, k_pool, v_pool, table, lens,
-                                            scale)
-        torch.cuda.synchronize()
-        err = max(compare(f"flash_decode_paged {side} b={b}", got, want_p,
-                          TOL_KERNEL),
-                  compare(f"flash_decode_paged {side} b={b} vs ring", got,
-                          want, TOL_KERNEL))
+    # the same rows scattered over a pool through a shuffled table
+    got = kda.flash_decode_paged(q, k_pool, v_pool, table, lens, scale)
+    again = kda.flash_decode_paged(q, k_pool, v_pool, table, lens, scale)
+    want_p = kda.reference_decode_paged(q, k_pool, v_pool, table, lens,
+                                        scale)
+    torch.cuda.synchronize()
+    require(torch.equal(got, again),
+            f"flash_decode_paged {label}: two calls on the same inputs "
+            f"differ")
+    err = max(compare(f"flash_decode_paged {label}", got, want_p,
+                      TOL_KERNEL),
+              compare(f"flash_decode_paged {label} vs ring", got, want,
+                      TOL_KERNEL))
 
-        def library():
-            gk = k_pool[table.long()].reshape(b, rows, h, dh)
-            gv = v_pool[table.long()].reshape(b, rows, h, dh)
-            return _library_decode(q, gk, gv, lens, scale)
+    def library():
+        gk = k_pool[table.long()].reshape(b, rows, h, dh)
+        gv = v_pool[table.long()].reshape(b, rows, h, dh)
+        return _library_decode(q, gk, gv, lens, scale)
 
-        rec = timed_record(
-            "flash_decode_paged", "paddle_tpu_torch/csrc/decode_attention.cu",
-            "paddle_tpu/kernels/decode_attention.py:282", err,
-            lambda: kda.flash_decode_paged(q, k_pool, v_pool, table, lens,
+    paged = timed_record(
+        "flash_decode_paged", "paddle_tpu_torch/csrc/decode_attention.cu",
+        "paddle_tpu/kernels/decode_attention.py:282", err,
+        lambda: kda.flash_decode_paged(q, k_pool, v_pool, table, lens,
+                                       scale),
+        lambda: kda.reference_decode_paged(q, k_pool, v_pool, table, lens,
                                            scale),
-            lambda: kda.reference_decode_paged(q, k_pool, v_pool, table,
-                                               lens, scale),
-            flops, io + 4 * b * mb, library, b)
-        rec["library_max_abs_err"] = (library()[live]
-                                      - want[live]).abs().max().item()
-        out[("flash_decode_paged", side)] = rec
+        flops, io + 4 * b * mb, library, b)
+    paged["library_max_abs_err"] = (library()[live]
+                                    - want[live]).abs().max().item()
+    paged["device_ms"] = cuda_ms(
+        lambda: kda.flash_decode_paged(q, k_pool, v_pool, table, lens,
+                                       scale), hide_host=True)
+    paged.update(_decode_plan_fields(q, True, rows))
+    return ring, paged
+
+
+def check_flash_decode(gen, b):
+    """#14 and #15 at the unfused route's shapes, the self and the cross
+    side (:func:`_held_flash_decode`).  Returns {(kernel, side): record}."""
+    out = {}
+    for side in ("self", "cross"):
+        ring, paged = _held_flash_decode(gen, b, side)
+        out[("flash_decode", side)] = ring
+        out[("flash_decode_paged", side)] = paged
+    return out
+
+
+#: the fields of a flash-decode case kept in the JSON line
+FLASH_DECODE_CASE_KEYS = ("batch", "ms", "device_ms", "plain_ms",
+                          "bound_ms", "bound_share", "library_ms",
+                          "max_abs_err", "plan", "co_resident_grid")
+
+
+def check_flash_decode_cases():
+    """#14 and #15 beyond the serving batches: both sides at the ragged
+    b=33 (across the plan's groups) and every lane with a full cross cache
+    (256 rows) at b=64, on a generator of their own so that the other
+    checks' inputs stay the parent's.  Returns {(kernel, case): record}."""
+    gen = torch.Generator().manual_seed(14)
+    out = {}
+    for case, b, side, full in (("self b=33", 33, "self", False),
+                                ("cross b=33", 33, "cross", False),
+                                ("full cross b=64", 64, "cross", True)):
+        ring, paged = _held_flash_decode(gen, b, side, full)
+        out[("flash_decode", case)] = ring
+        out[("flash_decode_paged", case)] = paged
     return out
 
 
@@ -3765,10 +3838,13 @@ def _device_kernels(prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def profile_serving(model, b, steps=16, paged=False):
+def profile_serving(model, b, steps=16, paged=False, tag=""):
     """Device time by kernel over one prefill and `steps` decode steps,
     beside host wall time: the device's idle share of each phase (on
-    paged caches with ``paged``)."""
+    paged caches with ``paged``), on the model's route (fused or
+    unfused decode step); the megastep's, the FFN's and flash-decode's
+    (#14/#15: a kernel named ``*decode*kernel*``) device time a step.
+    ``tag`` names the profile files."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch import GenerationSession
@@ -3804,12 +3880,16 @@ def profile_serving(model, b, steps=16, paged=False):
                           ffn_ms=sum(
                               us for name, us in rows
                               if "ffn_kernel" in name) / per / 1e3,
+                          flash_decode_ms=sum(
+                              us for name, us in rows
+                              if "decode" in name and "kernel" in name)
+                          / per / 1e3,
                           idle_share=(1 - busy_us / wall_us
                                       if busy_us else None),
                           top=[(name[:60], us / per / 1e3)
                                for name, us in rows[:8]])
-        tag = "_paged" if paged else ""
-        with open(os.path.join(OUT_DIR, f"profile_b{b}{tag}_{phase}.txt"),
+        name = f"profile_b{b}{'_paged' if paged else ''}{tag}_{phase}.txt"
+        with open(os.path.join(OUT_DIR, name),
                   "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=40))
@@ -4097,6 +4177,7 @@ def main():
 
     gen = torch.Generator().manual_seed(0)
     records = {}
+    flash_decode_sides = {"flash_decode": {}, "flash_decode_paged": {}}
     t_phase = time.perf_counter()
     for b in BATCHES:
         rec = check_qkv_attention(gen, b)
@@ -4107,6 +4188,8 @@ def main():
         checked = [(None, r) for r in (rec, mega, ffn, mega_paged,
                                         ffn_paged)]
         checked += [(side, r) for (_, side), r in decode.items()]
+        for (name, side), r in decode.items():
+            flash_decode_sides[name].setdefault(b, []).append((side, r))
         for side, r in checked:
             print_record(r, f"{' ' + side if side else ''} b={b}")
             # the JSON line carries the cross side of the flash-decode pair
@@ -4121,6 +4204,17 @@ def main():
         print_record(r, f" {case}")
         records[(name, max(BATCHES))]["cases"][case] = {
             k: r[k] for k in MEGASTEP_CASE_KEYS}
+    # the flash-decode records in the JSON line carry b=1's cross side,
+    # the self sides, the ragged b=33's and the full caches'
+    for name in ("flash_decode", "flash_decode_paged"):
+        records[(name, max(BATCHES))]["cases"] = {
+            f"{side} b={b}": {k: r[k] for k in FLASH_DECODE_CASE_KEYS}
+            for b in BATCHES for side, r in flash_decode_sides[name][b]
+            if (side, b) != ("cross", max(BATCHES))}
+    for (name, case), r in check_flash_decode_cases().items():
+        print_record(r, f" {case}")
+        records[(name, max(BATCHES))]["cases"][case] = {
+            k: r[k] for k in FLASH_DECODE_CASE_KEYS}
     for (name, case), r in check_flash_attention(gen).items():
         print_record(r, f" {case} b={r['batch']}")
         if case == FLASH_RECORD_CASE:
@@ -4348,9 +4442,21 @@ def main():
           f"{training_bert[1]['f32_peak_share']}")
     t_phase = _phase_seconds("phase 3 (i)", t_phase)
 
-    for b, paged in [(b, False) for b in BATCHES] + [(max(BATCHES), True)]:
-        prof = profile_serving(model, b, paged=paged)
-        label = f"b={b}{' paged' if paged else ''}"
+    # the fused route's steps, then the unfused route's (#14/#15 at 12
+    # launches a token) on ring caches at both batches and paged at b=64
+    unfused = paddle_tpu_torch.Transformer(**BASE, fused_decode_step=False)
+    unfused.load_state_dict(model.state_dict())
+    profiled = [(model, b, False, "") for b in BATCHES]
+    profiled += [(model, max(BATCHES), True, "")]
+    profiled += [(unfused, b, False, "_unfused") for b in BATCHES]
+    profiled += [(unfused, max(BATCHES), True, "_unfused")]
+    for m, b, paged, tag in profiled:
+        prof = profile_serving(m, b, paged=paged, tag=tag)
+        label = (f"b={b}{' paged' if paged else ''}"
+                 f"{' unfused' if tag else ''}")
+        if tag:
+            # prefill is the fused route's: only the decode step differs
+            prof.pop("prefill")
         for phase, r in prof.items():
             if not r["device_busy_ms"]:
                 print(f"phase 4: {label} {phase}: device time not measured "
@@ -4360,7 +4466,8 @@ def main():
                   f"{'prefill' if phase == 'prefill' else 'step'}: wall "
                   f"{r['wall_ms']} ms, device busy {r['device_busy_ms']} "
                   f"ms, idle share {r['idle_share']}, the megastep "
-                  f"{r['megastep_ms']} ms, the FFN {r['ffn_ms']} ms")
+                  f"{r['megastep_ms']} ms, the FFN {r['ffn_ms']} ms, "
+                  f"flash-decode {r['flash_decode_ms']} ms")
             for name, ms in r["top"]:
                 print(f"    {ms:.4f} ms  {name}")
     bert_feed = _to(bert_batch(BERT_BATCH, seed=2), DEV)

@@ -5,131 +5,174 @@
 // and _paged_decode_kernel (paged): q [b, h, 64] against the first
 // lengths[b] rows of one layer's cache, k/v [b, max_t, h, 64] or pools
 // [num_blocks, block_t, h, 64] addressed through table [b, max_blocks].
-// The walk is the megastep's (common.cuh); only the grid differs.
+// A sequence with length 0 gets a zero context, as the TPU kernels give
+// (their l_safe); lengths clamp to [0, capacity].
 //
-// Grid: one block per (head, sequence).  The TPU kernel takes one grid
-// step per sequence and all heads at once; here that would fill one SM per
-// sequence (8 of 132 at b = 1 even with one block per head).  Inside the
-// block the 4 warps split the rows: warp w takes the 32-row steps
-// w, w + 4, w + 8, ... and the four online-softmax states are merged in
-// shared memory at the end.  A paged block first copies its sequence's
-// table row into shared memory.  A sequence with length 0 gets a zero
-// context, as the TPU kernels give (their l_safe).
+// Bound: bytes.  Each valid row of k and v read once (512 B a head), q,
+// the output and the (acc, m, l) partials; a few FLOPs a byte.
 //
-// Bound: bytes.  Each block reads its head's slice of the valid rows
-// once; q and the output are one row each.
+// The TPU kernel takes one grid step a sequence, all heads at once.  One
+// block a (head, sequence) here (this kernel's first version) put 8
+// blocks on 132 SMs at b = 1, its time one block's serial latency, and
+// streamed at about 0.9 TB/s at b = 64 with nothing staged ahead.  So one
+// cooperative launch now spreads the rows that exist over the whole card,
+// with the megastep's walk (decode_walk.cuh):
+//
+//   walk   items of (group of `group` heads, sequence, split of rows),
+//          numbered over the rows that exist, block i taking items i,
+//          i + grid, ...; each chunk of 16 rows of k and v, and q, staged
+//          by 16-byte cp.async a chunk ahead across items; a
+//          warp a head, two lanes a row; (acc, m, l) partials to scratch;
+//   grid barrier (cooperative_groups);
+//   merge  one warp a (sequence, head): the partials in split order.
+//
+// A paged chunk row reads its table entry a chunk ahead of its copy; the
+// table row is not staged.  Blocks have `group` warps (8, 4, 2 or 1), so
+// that a small batch, whose items are few, still spreads over many SMs:
+// the caller's plan (kernels/decode_attention.py decode_plan) picks the
+// group, the split and the co-resident grid, and lays out its shared
+// memory for a ring of STAGES chunks.  The entry points return
+// cudaErrorInvalidValue for a plan they cannot run, and a refused
+// cooperative launch returns its error.  No atomics: a repeated
+// call gives the same bits.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "common.cuh"
+#include "decode_walk.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
+using ptt::CR;
 using ptt::DH;
+using ptt::Side;
 
-constexpr int NT = 128;
-constexpr int NW = NT / 32;
+struct Params {
+  const float* q;  // [b, h, DH]
+  Side side;
+  const int* lengths;
+  float* out;   // [b, h, DH]
+  float* part;  // [b, ns, h, PART]
+  int batch, n_head, split, ns;
+  float scale;
+};
 
-// The block's head h of sequence i: walk, merge the warps' states, write
-// out [DH].  q is pre-scaled in q_s.
-template <class Rows>
-__device__ void decode_head(const Rows& rows, int n_valid, int h,
-                            const float* q_s, float* out) {
-  __shared__ float m_s[NW];
-  __shared__ float l_s[NW];
-  __shared__ float acc_s[NW * DH];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  ptt::WalkState st = ptt::walk_start();
-  ptt::walk_rows(rows, h, q_s, n_valid, 32 * warp, 32 * NW, st);
-  if (lane == 0) {
-    m_s[warp] = st.m;
-    l_s[warp] = st.l;
-  }
-  acc_s[warp * DH + 2 * lane] = st.acc.x;
-  acc_s[warp * DH + 2 * lane + 1] = st.acc.y;
-  __syncthreads();
-  if (threadIdx.x < DH) {
-    float o = 0.f;
-    if (n_valid > 0) {
-      // a warp that walked no rows has m = -inf and weight exp(-inf) = 0
-      float m = -INFINITY;
-      for (int w = 0; w < NW; ++w) m = fmaxf(m, m_s[w]);
-      float l = 0.f;
-      for (int w = 0; w < NW; ++w) {
-        const float a = expf(m_s[w] - m);
-        l += l_s[w] * a;
-        o += acc_s[w * DH + threadIdx.x] * a;
-      }
-      o /= l;
-    }
-    out[threadIdx.x] = o;
+// chunks in the copy ring (kernels/decode_attention.py DECODE_STAGES; a
+// third stage ran no faster on the H100)
+constexpr int STAGES = 2;
+
+template <bool PAGED, int NW>
+__global__ void __launch_bounds__(32 * NW)
+    decode_kernel(const __grid_constant__ Params P) {
+  extern __shared__ __align__(16) float smem[];
+  const ptt::WalkDims D{P.n_head, P.n_head * DH, P.batch, 0};
+  const int* pre_s = ptt::walk_phase<PAGED, NW, STAGES>(
+      D, P.side, P.lengths, P.q, P.split, P.ns, P.part, smem, P.scale);
+  cg::this_grid().sync();
+  ptt::merge_phase<NW, 16>(pre_s, P.part, P.ns, P.batch, P.n_head, P.out);
+}
+
+constexpr int kGroups[] = {1, 2, 4, 8};
+
+template <bool PAGED>
+const void* by_group(int group) {
+  switch (group) {
+    case 1: return (const void*)decode_kernel<PAGED, 1>;
+    case 2: return (const void*)decode_kernel<PAGED, 2>;
+    case 4: return (const void*)decode_kernel<PAGED, 4>;
+    case 8: return (const void*)decode_kernel<PAGED, 8>;
+    default: return nullptr;
   }
 }
 
-__global__ void __launch_bounds__(NT)
-flash_decode_kernel(const float* __restrict__ q, const float* k,
-                    const float* v, const int* __restrict__ lengths,
-                    float* __restrict__ out, int max_t, int n_head,
-                    float scale) {
-  __shared__ float q_s[DH];
-  const int h = blockIdx.x;
-  const int i = blockIdx.y;
-  const int hd = n_head * DH;
-  const size_t head = ((size_t)i * n_head + h) * DH;
-  if (threadIdx.x < DH) q_s[threadIdx.x] = q[head + threadIdx.x] * scale;
-  __syncthreads();
-  const size_t base = (size_t)i * max_t * hd;
-  decode_head(ptt::RingRows{k + base, v + base, hd},
-              min(max(lengths[i], 0), max_t), h, q_s, out + head);
+// The instantiation for a plan's group, or nullptr.
+const void* kernel_for(bool paged, int group) {
+  return paged ? by_group<true>(group) : by_group<false>(group);
 }
 
-__global__ void __launch_bounds__(NT)
-flash_decode_paged_kernel(const float* __restrict__ q, const float* k_pool,
-                          const float* v_pool, const int* __restrict__ table,
-                          const int* __restrict__ lengths,
-                          float* __restrict__ out, int n_head, int block_t,
-                          int max_blocks, float scale) {
-  extern __shared__ int tab_s[];  // [max_blocks]
-  __shared__ float q_s[DH];
-  const int h = blockIdx.x;
-  const int i = blockIdx.y;
-  const int hd = n_head * DH;
-  const size_t head = ((size_t)i * n_head + h) * DH;
-  if (threadIdx.x < DH) q_s[threadIdx.x] = q[head + threadIdx.x] * scale;
-  for (int j = threadIdx.x; j < max_blocks; j += NT)
-    tab_s[j] = table[(size_t)i * max_blocks + j];
-  __syncthreads();
-  decode_head(ptt::PagedRows{k_pool, v_pool, tab_s, 0, block_t, hd},
-              min(max(lengths[i], 0), max_blocks * block_t), h, q_s,
-              out + head);
+// Raise an instantiation's dynamic shared memory to `smem` bytes (once a
+// size).
+cudaError_t configure(bool paged, int group, int smem) {
+  static int configured[2][4] = {};
+  int g = 0;
+  while (kGroups[g] != group) ++g;
+  int& done = configured[paged][g];
+  if (smem > done) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel_for(paged, group),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    done = smem;
+  }
+  return cudaSuccess;
+}
+
+bool plan_ok(const Params& P, int capacity, int group, int grid, int smem) {
+  return P.batch >= 1 && P.n_head >= 1 && capacity >= 1 && grid >= 1 &&
+         kernel_for(false, group) != nullptr && P.split >= CR &&
+         P.split % CR == 0 && P.ns <= ptt::MAX_SPLITS &&
+         ptt::walk_floats(group, STAGES, P.n_head, P.batch) <= smem / 4;
+}
+
+int launch(Params& P, bool paged, int capacity, int group, int grid,
+           int smem, void* stream) {
+  if (P.split < 1) return (int)cudaErrorInvalidValue;
+  P.ns = (capacity + P.split - 1) / P.split;
+  if (!plan_ok(P, capacity, group, grid, smem))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = configure(paged, group, smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&P};
+  err = cudaLaunchCooperativeKernel(kernel_for(paged, group),
+                                    dim3(grid), dim3(32 * group), args,
+                                    (size_t)smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q/out [b, n_head, 64]; k/v [b, max_t, n_head, 64]; lengths [b] int32.
+// Blocks of the (paged) kernel of `group` warps an SM holds at once with
+// `smem` bytes of dynamic shared memory, or minus a CUDA error.
+extern "C" int ptt_flash_decode_occupancy(int paged, int group, int smem) {
+  const void* fn = kernel_for(paged, group);
+  if (!fn) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = configure(paged, group, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                      32 * group, smem);
+  return err != cudaSuccess ? -(int)err : blocks;
+}
+
+// q/out [b, n_head, 64]; k/v [b, max_t, n_head, 64]; lengths [b] int32;
+// scratch [b, ceil(max_t / split), n_head, 68] floats.  The plan's
+// integers follow the widths.
 extern "C" int ptt_flash_decode(const float* q, const float* k,
                                 const float* v, const int* lengths,
-                                float* out, int batch, int max_t, int n_head,
-                                float scale, void* stream) {
-  flash_decode_kernel<<<dim3(n_head, batch), NT, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, lengths, out, max_t, n_head, scale);
-  return (int)cudaGetLastError();
+                                float* out, float* scratch, int batch,
+                                int max_t, int n_head, int group, int grid,
+                                int split, int smem, float scale,
+                                void* stream) {
+  Params P{q, Side{k, v, nullptr, max_t, 0, 0}, lengths, out, scratch,
+           batch, n_head, split, 0, scale};
+  return launch(P, false, max_t, group, grid, smem, stream);
 }
 
 // q/out [b, n_head, 64]; pools [num_blocks, block_t, n_head, 64] (one
-// layer's slice); table [b, max_blocks] int32 pool block ids; lengths [b].
-extern "C" int ptt_flash_decode_paged(const float* q, const float* k_pool,
-                                      const float* v_pool, const int* table,
-                                      const int* lengths, float* out,
-                                      int batch, int n_head, int block_t,
-                                      int max_blocks, float scale,
-                                      void* stream) {
-  flash_decode_paged_kernel<<<dim3(n_head, batch), NT,
-                              sizeof(int) * max_blocks,
-                              static_cast<cudaStream_t>(stream)>>>(
-      q, k_pool, v_pool, table, lengths, out, n_head, block_t, max_blocks,
-      scale);
-  return (int)cudaGetLastError();
+// layer's slice); table [b, max_blocks] int32 pool block ids; lengths [b];
+// scratch [b, ceil(max_blocks * block_t / split), n_head, 68] floats.
+extern "C" int ptt_flash_decode_paged(
+    const float* q, const float* k_pool, const float* v_pool,
+    const int* table, const int* lengths, float* out, float* scratch,
+    int batch, int n_head, int num_blocks, int block_t, int max_blocks,
+    int group, int grid, int split, int smem, float scale, void* stream) {
+  if (block_t < 1 || max_blocks < 1) return (int)cudaErrorInvalidValue;
+  const Side side{k_pool, v_pool, table, max_blocks, num_blocks, block_t};
+  Params P{q, side, lengths, out, scratch, batch, n_head, split, 0, scale};
+  return launch(P, true, max_blocks * block_t, group, grid, smem, stream);
 }

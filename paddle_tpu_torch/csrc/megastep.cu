@@ -45,7 +45,8 @@
 //       two-stage cp.async ring that runs on across the block's items; a
 //       warp a head, two lanes a row.  Each item leaves its (m, l, acc)
 //       per head in scratch; then the contexts, one warp a (sequence,
-//       head), the items merged in order.
+//       head), the items merged in order.  The walk and its merge are
+//       decode_walk.cuh's, shared with flash-decode (decode_attention.cu).
 //   P3  y = ctx Wout: as P1.  Each projection's first W tile is copied a
 //       phase ahead (P3's during P1 and P2, P4's during P3, P6's during
 //       P4 and P5), so that after a barrier only the rows that phase
@@ -85,51 +86,36 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "decode_walk.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using ptt::CR;
 using ptt::DH;
-using ptt::kMaskValue;
+using ptt::MAX_SPLITS;
+using ptt::PART;
+using ptt::Side;
+using ptt::capacity;
+using ptt::copies_commit;
+using ptt::copies_wait;
+using ptt::copy16;
+using ptt::merge_phase;
+using ptt::offset;
+using ptt::walk_phase;
 
 constexpr int NT = 256;
 constexpr int NW = NT / 32;
-// cache rows a walk stages at once (NT / 16 threads a row)
-constexpr int CR = 16;
 // walk chunks in the copy ring (STAGES - 1 in flight while one computes;
 // three ran no faster on the H100)
 constexpr int STAGES = 2;
-// floats of one walk partial: acc[DH], m, l, padding
-constexpr int PART = DH + 4;
 // floats of a projection's reduction buffer
 constexpr int RED = NT * 16;
 // floats after it: P1's row-write offsets (64 int64s)
 constexpr int AUX = 128;
-// walk splits a sequence at most (a merge lane each)
-constexpr int MAX_SPLITS = 32;
 // features a lane holds in a layer norm's fast path (d_model <= 512)
 constexpr int LNV = 16;
-
-// 16-byte cp.async into shared memory through L2 (.cg): `bytes` (16 or 0)
-// of them read from src, the rest zero-filled.
-__device__ __forceinline__ void copy16(float* dst, const float* src,
-                                       int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void copies_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void copies_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // The caller's work split (megastep_plan).
 struct Plan {
@@ -141,40 +127,6 @@ struct Plan {
   int split_cross;     // rows of a cross-walk split
   int smem;            // dynamic shared memory, bytes
 };
-
-// One cache side.  Ring: k, v [L, b, rows, h, DH].  Paged: pools [L, nb,
-// bt, h, DH] and the table [b, rows] of pool block ids.
-struct Side {
-  const float* k;
-  const float* v;
-  const int* tab;
-  int rows;
-  int nb, bt;
-};
-
-template <bool PAGED>
-__device__ __forceinline__ int capacity(const Side& s) {
-  return PAGED ? s.rows * s.bt : s.rows;
-}
-
-// Where row r of sequence seq starts, in floats from k (and v).  A paged
-// row costs one table read and one division, once a row a chunk.
-template <bool PAGED>
-__device__ __forceinline__ size_t offset(const Side& s, int layer, int batch,
-                                         int seq, int r, int hd) {
-  if constexpr (PAGED) {
-    const int blk = __ldg(s.tab + (size_t)seq * s.rows + r / s.bt);
-    return (((size_t)layer * s.nb + blk) * s.bt + r % s.bt) * hd;
-  } else {
-    return (((size_t)layer * batch + seq) * s.rows + r) * hd;
-  }
-}
-
-template <bool PAGED>
-__device__ __forceinline__ int valid_rows(const Side& s, const int* lengths,
-                                          int seq) {
-  return min(max(__ldg(lengths + seq), 0), capacity<PAGED>(s));
-}
 
 struct Params {
   const float* x;
@@ -276,14 +228,6 @@ __host__ __device__ __forceinline__ int rows_floats(int k, int rg) {
 // Shared memory floats of a W tile of ct columns over k.
 __host__ __device__ __forceinline__ int tile_floats(int k, int ct) {
   return k * (ct + 4);
-}
-
-// Shared memory floats of a walk: STAGES chunks of k and v rows of a head
-// group (at most NW heads; 8 floats of padding a row), a q row each, and
-// the batch's prefix sum of splits.
-__host__ __device__ __forceinline__ int walk_floats(int n_head, int batch) {
-  const int gw = (n_head < NW ? n_head : NW) * DH;
-  return STAGES * (2 * CR * (gw + 8) + gw) + batch + 1;
 }
 
 // Start copying the W tile of ct columns from c0 (zeros past n) into w_s.
@@ -502,238 +446,6 @@ __device__ __noinline__ void project(const Params& P, int which, float* w_s,
   }
 }
 
-// A walk's contexts from its partials: ctx [b, hd], one warp a (sequence,
-// head) over the grid's warps.  Lane s < the splits holding rows reads
-// split s's (m, l); the context dims sum the splits in split order
-// (ctx 0 where no split holds a row).
-template <bool PAGED>
-__device__ __noinline__ void merge_phase(const Side& side, const int* lengths,
-                            const float* part, int ns, int split, int batch,
-                            int h, float* ctx) {
-  const int lane = threadIdx.x & 31;
-  const size_t step = (size_t)h * PART;
-  for (int pair = blockIdx.x * NW + (threadIdx.x >> 5); pair < batch * h;
-       pair += gridDim.x * NW) {
-    const int seq = pair / h, head = pair % h;
-    const int nvs =
-        (valid_rows<PAGED>(side, lengths, seq) + split - 1) / split;
-    const float* pp = part + ((size_t)seq * ns * h + head) * PART;
-    const float m = lane < nvs ? __ldcg(pp + lane * step + DH) : -INFINITY;
-    const float l = lane < nvs ? __ldcg(pp + lane * step + DH + 1) : 0.f;
-    const float mx = ptt::warp_max(m);
-    const float e = lane < nvs ? expf(m - mx) : 0.f;
-    const float total = ptt::warp_sum(l * e);
-    float ax = 0.f, ay = 0.f;
-#pragma unroll 8
-    for (int s = 0; s < nvs; ++s) {
-      const float es = __shfl_sync(0xffffffffu, e, s);
-      const float2 a =
-          __ldcg(reinterpret_cast<const float2*>(pp + s * step) + lane);
-      ax += a.x * es;
-      ay += a.y * es;
-    }
-    const float inv = nvs ? 1.f / total : 0.f;
-    *reinterpret_cast<float2*>(ctx + (size_t)seq * h * DH + head * DH +
-                               2 * lane) = make_float2(ax * inv, ay * inv);
-  }
-}
-
-// The online-softmax state of one warp for one head: the lane's two
-// context dims 2 lane, 2 lane + 1.
-struct Walk {
-  float m, l;
-  float2 acc;
-};
-
-// Where a walk is in a block's items: item `it` (of the phase's list of
-// nonempty (head group, sequence, split) triples) and what it stands for,
-// its chunk `ch`, `ord`, the block's count of items before it, and `off`,
-// where this thread's row of the chunk starts (resolved one chunk ahead of
-// its copy, so that a paged table read is not waited on).
-struct Cursor {
-  int it, seq, grp, sp, ch, ord;
-  size_t off;
-};
-
-// One walk phase.  Its items are the (head group, sequence, split)
-// triples whose split holds rows, numbered in that order from a prefix
-// sum of the sequences' splits, and block i takes items i, i + G, ...:
-// every block gets as many as any other, give or take one, whatever the
-// lengths.  Each item's valid rows go in chunks of CR, each chunk's k and
-// v rows (the group's heads, at most NW of them) and, with an item's
-// first chunk, its q row staged by cp.async STAGES - 1 chunks ahead,
-// across items too; warp w walks head w of the group; lanes 2r and 2r + 1
-// score row r of the chunk, each over half of the head's 64 dims.  Leaves
-// each (sequence, split, head)'s (acc, m, l) in part.
-template <bool PAGED>
-__device__ __noinline__ void walk_phase(const Params& P, const Side& side,
-                           const int* lengths, const float* q, int split,
-                           int ns, float* part, float* smem) {
-  const int h = P.n_head, hd = P.hd, b = P.batch;
-  const int ng = (h + NW - 1) / NW;
-  const int gw = min(h, NW) * DH;
-  const int rs = gw + 8;  // conflict-free float4 scores: rs / 4 = 2 mod 8
-  const int stage_f = 2 * CR * rs;
-  float* q_s = smem + STAGES * stage_f;  // [STAGES][gw]
-  int* pre_s = reinterpret_cast<int*>(q_s + STAGES * gw);  // [b + 1]
-  const int G = gridDim.x;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int crow = lane >> 1, half = lane & 1;
-  const int row = t >> 4;  // the chunk row this thread copies
-
-  // pre_s[seq]: the splits holding rows of the sequences before seq
-  if (warp == 0) {
-    int carry = 0;
-    for (int base = 0; base < b; base += 32) {
-      const int seq = base + lane;
-      const int n =
-          seq < b ? (valid_rows<PAGED>(side, lengths, seq) + split - 1) / split
-                  : 0;
-      int incl = n;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int up = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += up;
-      }
-      if (seq < b) pre_s[seq] = carry + incl - n;
-      carry += __shfl_sync(0xffffffffu, incl, 31);
-    }
-    if (lane == 0) pre_s[b] = carry;
-  }
-  __syncthreads();
-  const int per_group = pre_s[b];
-  const int items = per_group * ng;
-
-  auto rows_of = [&](const Cursor& c) {
-    return min(split, valid_rows<PAGED>(side, lengths, c.seq) - c.sp * split);
-  };
-  auto locate = [&](Cursor c) {
-    if (c.it < items && row < min(CR, rows_of(c) - c.ch * CR))
-      c.off = offset<PAGED>(side, P.layer, b, c.seq,
-                            c.sp * split + c.ch * CR + row, hd) +
-              c.grp * gw;
-    return c;
-  };
-  auto item_at = [&](int it, int ord) {
-    Cursor c{it, 0, 0, 0, 0, ord, 0};
-    if (it < items) {
-      const int k = it % per_group;
-      int lo = 0, hi = b;  // the last seq with pre_s[seq] <= k
-      while (hi - lo > 1) {
-        const int mid = (lo + hi) >> 1;
-        if (pre_s[mid] <= k)
-          lo = mid;
-        else
-          hi = mid;
-      }
-      c.seq = lo;
-      c.grp = it / per_group;
-      c.sp = k - pre_s[lo];
-    }
-    return locate(c);
-  };
-  auto next = [&](const Cursor& c) {
-    if ((c.ch + 1) * CR < rows_of(c)) {
-      Cursor n = c;
-      ++n.ch;
-      return locate(n);
-    }
-    return item_at(c.it + G, c.ord + 1);
-  };
-  auto issue = [&](const Cursor& c, int st) {
-    const int nr = min(CR, rows_of(c) - c.ch * CR);
-    const int width = min(NW, h - c.grp * NW) * DH;
-    float* ks = smem + st * stage_f;
-    float* vs = ks + CR * rs;
-    if (row < nr) {
-      for (int u = t & 15; u < width / 4; u += 16) {
-        copy16(ks + row * rs + 4 * u, side.k + c.off + 4 * u, 16);
-        copy16(vs + row * rs + 4 * u, side.v + c.off + 4 * u, 16);
-      }
-    }
-    if (c.ch == 0 && t < width / 4)
-      copy16(q_s + (c.ord % STAGES) * gw + 4 * t,
-             q + (size_t)c.seq * hd + c.grp * gw + 4 * t, 16);
-  };
-
-  Walk st{-INFINITY, 0.f, make_float2(0.f, 0.f)};
-  Cursor comp = item_at(blockIdx.x, 0);
-  Cursor fill = comp;
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (fill.it < items) {
-      issue(fill, s);
-      fill = next(fill);
-    }
-    copies_commit();
-  }
-  int stage = 0;
-  while (comp.it < items) {
-    if (fill.it < items) {
-      issue(fill, (stage + STAGES - 1) % STAGES);
-      fill = next(fill);
-    }
-    copies_commit();
-    copies_wait<STAGES - 1>();
-    __syncthreads();
-
-    const int head = comp.grp * NW + warp;
-    const int nr = min(CR, rows_of(comp) - comp.ch * CR);
-    const bool last = (comp.ch + 1) * CR >= rows_of(comp);
-    if (head < h) {
-      const float* ks = smem + stage * stage_f;
-      const float* vs = ks + CR * rs;
-      const float* qh = q_s + (comp.ord % STAGES) * gw + warp * DH;
-      float d = 0.f;
-      if (crow < nr) {
-        const float* kr = ks + crow * rs + warp * DH;
-#pragma unroll
-        for (int j = 0; j < DH / 8; ++j) {
-          const int u = 4 * (2 * j + half);
-          const float4 kv = *reinterpret_cast<const float4*>(kr + u);
-          const float4 qv = *reinterpret_cast<const float4*>(qh + u);
-          d += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
-        }
-      }
-      d += __shfl_xor_sync(0xffffffffu, d, 1);
-      const float s = crow < nr ? d : kMaskValue;
-      const float m_new = fmaxf(st.m, ptt::warp_max(s));
-      const float pe = expf(s - m_new);
-      const float alpha = expf(st.m - m_new);
-      st.l = st.l * alpha + ptt::warp_sum(half ? 0.f : pe);
-      st.acc.x *= alpha;
-      st.acc.y *= alpha;
-      const float* vp = vs + warp * DH + 2 * lane;
-#pragma unroll 4
-      for (int r = 0; r < nr; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, pe, 2 * r);
-        const float2 vv = *reinterpret_cast<const float2*>(vp + r * rs);
-        st.acc.x += pj * vv.x;
-        st.acc.y += pj * vv.y;
-      }
-      st.m = m_new;
-      if (last) {
-        // the item's last chunk: its partial, then a fresh state
-        float* dst =
-            part + (((size_t)comp.seq * ns + comp.sp) * h + head) * PART;
-        *reinterpret_cast<float2*>(dst + 2 * lane) = st.acc;
-        if (lane == 0) {
-          dst[DH] = st.m;
-          dst[DH + 1] = st.l;
-        }
-        st = Walk{-INFINITY, 0.f, make_float2(0.f, 0.f)};
-      }
-    }
-    __syncthreads();  // this stage and q row are free for the next issue
-    if (last) {
-      comp = item_at(comp.it + G, comp.ord + 1);
-    } else {
-      ++comp.ch;
-    }
-    stage = (stage + 1) % STAGES;
-  }
-  copies_wait<0>();
-}
-
 template <bool PAGED>
 __global__ void __launch_bounds__(NT, 1)
     megastep_kernel(const __grid_constant__ Params P) {
@@ -741,6 +453,8 @@ __global__ void __launch_bounds__(NT, 1)
   cg::grid_group grid = cg::this_grid();
   const Plan& pl = P.plan;
   const int hd = P.hd, dm = P.dm, b = P.batch;
+  // the walks' view of the launch (q is scaled by the projections)
+  const ptt::WalkDims D{P.n_head, hd, b, P.layer};
   // P3's and P6's W tiles, then the walks' space, or P1's and P4's W tile
   // (wa) and the projections' A^T (at)
   float* wb = smem;
@@ -754,11 +468,12 @@ __global__ void __launch_bounds__(NT, 1)
   grid.sync();
 
   // P2: the self walk, then its contexts
-  walk_phase<PAGED>(P, P.self_side, P.lengths, P.q1, pl.split_self,
-                    P.ns_self, P.p1, rest);
+  const int* pre_s =
+      walk_phase<PAGED, NW, STAGES>(D, P.self_side, P.lengths, P.q1,
+                                    pl.split_self, P.ns_self, P.p1, rest,
+                                    1.f);
   grid.sync();
-  merge_phase<PAGED>(P.self_side, P.lengths, P.p1, P.ns_self, pl.split_self,
-                     b, P.n_head, P.c1);
+  merge_phase<NW, 0>(pre_s, P.p1, P.ns_self, b, P.n_head, P.c1);
   grid.sync();
 
   // P3: y = ctx Wout; P4's first tile on its way
@@ -770,11 +485,11 @@ __global__ void __launch_bounds__(NT, 1)
   grid.sync();
 
   // P5: the cross walk, then its contexts
-  walk_phase<PAGED>(P, P.cross_side, P.cross_lengths, P.q2, pl.split_cross,
-                    P.ns_cross, P.p2, rest);
+  pre_s = walk_phase<PAGED, NW, STAGES>(D, P.cross_side, P.cross_lengths,
+                                        P.q2, pl.split_cross, P.ns_cross,
+                                        P.p2, rest, 1.f);
   grid.sync();
-  merge_phase<PAGED>(P.cross_side, P.cross_lengths, P.p2, P.ns_cross,
-                     pl.split_cross, b, P.n_head, P.c2);
+  merge_phase<NW, 0>(pre_s, P.p2, P.ns_cross, b, P.n_head, P.c2);
   grid.sync();
 
   // P6: y2 = cctx Wcout
@@ -805,7 +520,7 @@ int plan_floats(const Plan& pl, int batch, int dm, int n_head) {
       max(max(rows_floats(dm, pl.rg_qkv), rows_floats(hd, pl.rg_out)),
           rows_floats(dm, pl.rg_cq));
   return tile_floats(hd, pl.ct_out) +
-         max(walk_floats(n_head, batch),
+         max(ptt::walk_floats(NW, STAGES, n_head, batch),
              tile_floats(dm, max(pl.ct_qkv, pl.ct_cq)) + at);
 }
 

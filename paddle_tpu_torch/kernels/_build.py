@@ -137,8 +137,9 @@ _SIGNATURES = {
         _I, [_P] * 19 + [_I] * 16 + [_F, _F, _P]),
     "ptt_megastep_paged": (
         _I, [_P] * 21 + [_I] * 20 + [_F, _F, _P]),
-    "ptt_flash_decode": (_I, [_P] * 5 + [_I] * 3 + [_F, _P]),
-    "ptt_flash_decode_paged": (_I, [_P] * 6 + [_I] * 4 + [_F, _P]),
+    "ptt_flash_decode_occupancy": (_I, [_I] * 3),
+    "ptt_flash_decode": (_I, [_P] * 6 + [_I] * 7 + [_F, _P]),
+    "ptt_flash_decode_paged": (_I, [_P] * 7 + [_I] * 9 + [_F, _P]),
     "ptt_ffn_occupancy": (_I, [_I]),
     "ptt_ffn": (_I, [_P] * 9 + [_I] * 11 + [_F, _P]),
     "ptt_flash_fwd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 2 + [_I] * 4

@@ -12,6 +12,13 @@ Counterpart of ``paddle_tpu/kernels/decode_attention.py``:
 * :func:`paged_scatter_rows`: the paged cache write, the core of
   ``paged_kv_cache_update`` and of the composed paged decoder step.
 
+Both kernels are one cooperative launch of the megastep's walk
+(``csrc/decode_walk.cuh``) over the whole card: items of (group of heads,
+sequence, split of rows) over the rows that exist, then, after a grid
+barrier, the partials merged in split order.  :func:`decode_plan` picks
+the group, the split and the grid from the shape and the card before the
+launch; the entry points reject a plan they cannot run.
+
 The plain versions are :func:`reference_decode` and
 :func:`reference_decode_paged`.  A lane with length 0 gets a zero context
 in both, as in the TPU kernels (the reference's XLA twin spreads its
@@ -20,9 +27,138 @@ weight uniformly instead).
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from . import KERNEL_D_HEAD, _build, composes, launches
+from .attention import sm_count
+
+#: cache rows a walk stages at once (``csrc/decode_walk.cuh`` CR); a walk
+#: split is a multiple of it
+WALK_CHUNK = 16
+#: walk splits a sequence at most (MAX_SPLITS: a merge lane each)
+WALK_MAX_SPLITS = 32
+#: floats of one walk partial (PART: acc[64], m, l, padding)
+WALK_PART = KERNEL_D_HEAD + 4
+#: shared memory a block may opt into on the H100 (227 KB)
+SMEM_CAP = 232448
+#: shared memory of an SM (228 KB), and what each resident block reserves
+SM_SMEM, BLOCK_RESERVED_SMEM = 233472, 1024
+#: heads a flash-decode item may take (a block's warps), largest first
+DECODE_GROUPS = (8, 4, 2, 1)
+#: chunks in a flash-decode block's copy ring (``csrc/decode_attention.cu``
+#: STAGES), which its shared memory holds
+DECODE_STAGES = 2
+#: warps an SM of the flash-decode grid, in eight-warp blocks' worth
+DECODE_BLOCKS_PER_SM = 1
+
+
+def walk_split(rows):
+    """(split, splits) of a walk over a cache of ``rows`` rows a sequence:
+    one chunk an item, so that the blocks' shares even out over many
+    small items; longer where a sequence would need more than
+    WALK_MAX_SPLITS."""
+    chunks = -(-rows // WALK_CHUNK)
+    split = -(-chunks // WALK_MAX_SPLITS) * WALK_CHUNK
+    return split, -(-rows // split)
+
+
+def walk_floats(group, stages, n_head, b):
+    """Shared memory floats of a walk of ``group``-warp blocks (as
+    ``csrc/decode_walk.cuh`` lays them out): ``stages`` chunks of k and v
+    rows of a head group (8 floats of padding a row), a q row each and the
+    batch's prefix sum of splits (b + 1 ints)."""
+    gw = min(n_head, group) * KERNEL_D_HEAD
+    return stages * (2 * WALK_CHUNK * (gw + 8) + gw) + b + 1
+
+
+class DecodePlan(NamedTuple):
+    """The work split of one flash-decode launch
+    (``csrc/decode_attention.cu``).
+
+    ``grid`` blocks of ``group`` warps, all co-resident; walk items of
+    (``group`` heads, sequence, ``split`` rows, a multiple of
+    WALK_CHUNK), ``splits`` splits a sequence; ``smem`` bytes of dynamic
+    shared memory a block (a ring of DECODE_STAGES chunks); ``scratch``
+    floats of partials [b, splits, h, WALK_PART] behind the output."""
+    group: int
+    grid: int
+    split: int
+    splits: int
+    smem: int
+    scratch: int
+
+    def ints(self):
+        """The plan's integers in the entry points' order."""
+        return (self.group, self.grid, self.split, self.smem)
+
+
+def group_plan(group, b, n_head, rows, sms, blocks_per_sm):
+    """(plan with items of ``group`` heads, its items), or None where
+    such a block does not fit an SM: the grid as many blocks as the SMs
+    hold (``blocks_per_sm`` eight-warp blocks' worth of warps an SM, and
+    what their shared memory allows), cut to what the walk's items and
+    the merge's (sequence, head) pairs can use."""
+    split, splits = walk_split(rows)
+    smem = 4 * walk_floats(group, DECODE_STAGES, n_head, b)
+    per_sm = min(blocks_per_sm * 8 // group,
+                 SM_SMEM // (smem + BLOCK_RESERVED_SMEM))
+    if smem > SMEM_CAP or per_sm < 1:
+        return None
+    items = -(-n_head // group) * b * splits
+    grid = min(sms * per_sm, max(items, -(-b * n_head // group)))
+    return DecodePlan(group, grid, split, splits, smem,
+                      b * splits * n_head * WALK_PART), items
+
+
+def decode_plan(b, n_head, rows, sms, blocks_per_sm):
+    """Flash-decode's work split for a batch of ``b`` sequences of
+    ``n_head`` heads over caches of ``rows`` rows a sequence (ring:
+    max_t; paged: max_blocks * block_t), on a card of ``sms`` SMs whose
+    grid holds ``blocks_per_sm`` eight-warp blocks' worth of warps an SM
+    (the launch is cooperative): the largest group of heads an item (8,
+    4, 2, 1) whose items at full caches give every block of its grid at
+    least two, else 1, so that a small batch still spreads over the card
+    (:func:`group_plan`).  The lengths are not known on the host, so the
+    group follows the caches' capacity.  Pure: the wrapper passes its
+    integers to the entry point."""
+    if min(b, n_head, rows, sms, blocks_per_sm) < 1:
+        raise ValueError(f"decode_plan: no plan for b {b}, {n_head} heads, "
+                         f"{rows} rows, {sms} SMs x {blocks_per_sm}")
+    for g in DECODE_GROUPS:
+        fits = group_plan(g, b, n_head, rows, sms, blocks_per_sm)
+        if fits is None:
+            continue
+        plan, items = fits
+        if items >= 2 * plan.grid or g == DECODE_GROUPS[-1]:
+            return plan
+    raise ValueError(f"flash_decode: no plan fits b {b}, {n_head} heads in "
+                     f"{SMEM_CAP} bytes of shared memory a block")
+
+
+def device_decode_plan(device, paged, b, n_head, rows):
+    """:func:`decode_plan` as :func:`flash_decode` and
+    :func:`flash_decode_paged` launch it on ``device``: its SM count,
+    DECODE_BLOCKS_PER_SM, the kernel's occupancy at the plan's shared
+    memory checked; made once a shape."""
+    return _device_plan(device, paged, b, n_head, rows)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_plan(device, paged, b, n_head, rows):
+    sms = sm_count(device)
+    plan = decode_plan(b, n_head, rows, sms, DECODE_BLOCKS_PER_SM)
+    per_sm = _build.lib().ptt_flash_decode_occupancy(
+        int(paged), plan.group, plan.smem)
+    if per_sm < 0:
+        _build.check(-per_sm, "flash_decode occupancy")
+    if per_sm * sms < plan.grid:
+        raise RuntimeError(
+            f"flash_decode: {plan.grid} blocks of {plan.group} warps do not "
+            f"fit the card at once ({per_sm} an SM on {sms} SMs)")
+    return plan
 
 
 def reference_decode(q, k, v, lengths, scale=1.0):
@@ -91,6 +227,25 @@ def _check_query(q, lengths, what):
             "lengths": (lengths, torch.int32, (b,))}
 
 
+def _launch_decode(what, paged, q, args, geometry, rows, scale):
+    """Launch #14 (ring) or #15 (paged) on checked tensors: ``args`` the
+    entry point's tensors in order, ``geometry`` its cache integers after
+    the batch, ``rows`` the rows a sequence the walk covers.  The output
+    and the scratch are one allocation."""
+    b, h, dh = q.shape
+    plan = device_decode_plan(q.device, paged, b, h, rows)
+    buf = torch.empty(b * h * dh + plan.scratch, dtype=torch.float32,
+                      device=q.device)
+    lib = _build.lib()
+    entry = lib.ptt_flash_decode_paged if paged else lib.ptt_flash_decode
+    err = entry(*(a.data_ptr() for a in args), buf.data_ptr(),
+                buf.data_ptr() + 4 * b * h * dh, b, *geometry, *plan.ints(),
+                float(scale), _build.stream_of(q))
+    _build.check(err, what)
+    launches[what] += 1
+    return buf[:b * h * dh].view(b, h, dh)
+
+
 def flash_decode(q, k, v, lengths, scale=1.0):
     """Single-query attention against a length-masked ring cache slice.
     q [b, h, dh]; k/v [b, max_t, h, dh]; lengths [b] int32.  Returns
@@ -104,13 +259,8 @@ def flash_decode(q, k, v, lengths, scale=1.0):
     spec.update(k=(k, torch.float32, (b, max_t, h, dh)),
                 v=(v, torch.float32, (b, max_t, h, dh)))
     _build.require(spec, q.device, "flash_decode")
-    out = torch.empty_like(q)
-    err = _build.lib().ptt_flash_decode(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, max_t, h, float(scale), _build.stream_of(q))
-    _build.check(err, "flash_decode")
-    launches["flash_decode"] += 1
-    return out
+    return _launch_decode("flash_decode", False, q, (q, k, v, lengths),
+                          (max_t, h), max_t, scale)
 
 
 def flash_decode_paged(q, k_pool, v_pool, table, lengths, scale=1.0):
@@ -131,11 +281,6 @@ def flash_decode_paged(q, k_pool, v_pool, table, lengths, scale=1.0):
                 v_pool=(v_pool, torch.float32, (nb, bt, h, dh)),
                 table=(table, torch.int32, (b, mb)))
     _build.require(spec, q.device, "flash_decode_paged")
-    out = torch.empty_like(q)
-    err = _build.lib().ptt_flash_decode_paged(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, bt, mb,
-        float(scale), _build.stream_of(q))
-    _build.check(err, "flash_decode_paged")
-    launches["flash_decode_paged"] += 1
-    return out
+    return _launch_decode("flash_decode_paged", True, q,
+                          (q, k_pool, v_pool, table, lengths),
+                          (h, nb, bt, mb), mb * bt, scale)

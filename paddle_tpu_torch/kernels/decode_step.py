@@ -41,7 +41,9 @@ import torch
 from . import (KERNEL_D_HEAD, _build, composed, composes, head_route,
                launches)
 from .attention import sm_count
-from .decode_attention import reference_decode, reference_decode_paged
+from .decode_attention import (SMEM_CAP, WALK_CHUNK, WALK_MAX_SPLITS,
+                               reference_decode, reference_decode_paged,
+                               walk_floats, walk_split)
 from ..ops.generation_ops import kv_cache_update, paged_kv_cache_update
 from ..ops.nn_ops import layer_norm
 
@@ -135,15 +137,15 @@ def _megastep_spec(what, x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
 #: threads of a megastep block (csrc/megastep.cu NT)
 MEGASTEP_THREADS = 256
 #: cache rows a walk stages at once (CR); a walk split is a multiple of it
-MEGASTEP_CHUNK = 16
+MEGASTEP_CHUNK = WALK_CHUNK
 #: heads a walk item stages (a block's warps)
 MEGASTEP_GROUP = 8
 #: walk chunks in a block's copy ring (STAGES)
 MEGASTEP_STAGES = 2
 #: shared memory a block may opt into on the H100 (227 KB)
-MEGASTEP_SMEM_CAP = 232448
+MEGASTEP_SMEM_CAP = SMEM_CAP
 #: walk splits a sequence at most (a merge lane each)
-MEGASTEP_MAX_SPLITS = 32
+MEGASTEP_MAX_SPLITS = WALK_MAX_SPLITS
 #: rows a block's warps stage layer norms for at once (one a warp)
 MEGASTEP_LN_ROWS = 8
 #: a projection item's reduction buffer and P1's row-write offsets
@@ -184,14 +186,6 @@ def _rows_floats(k, rg):
     return k * (max(rg, 4) + 4) + _RED
 
 
-def _walk_floats(n_head, b):
-    """Shared memory floats of a walk: MEGASTEP_STAGES chunks of k and v
-    rows of a head group (8 floats of padding a row), a q row each and
-    the batch's prefix sum of splits (b + 1 ints)."""
-    gw = min(n_head, MEGASTEP_GROUP) * KERNEL_D_HEAD
-    return MEGASTEP_STAGES * (2 * MEGASTEP_CHUNK * (gw + 8) + gw) + b + 1
-
-
 def _plan_floats(b, d_model, n_head, qkv, out, cq):
     """Shared memory floats of a block under these tiles, as
     ``csrc/megastep.cu`` lays them out: P3's and P6's W tile (prefetched
@@ -201,7 +195,8 @@ def _plan_floats(b, d_model, n_head, qkv, out, cq):
     rows = max(_rows_floats(d_model, qkv[1]), _rows_floats(hd, out[1]),
                _rows_floats(d_model, cq[1]))
     return hd * (out[0] + 4) + max(
-        _walk_floats(n_head, b), d_model * (max(qkv[0], cq[0]) + 4) + rows)
+        walk_floats(MEGASTEP_GROUP, MEGASTEP_STAGES, n_head, b),
+        d_model * (max(qkv[0], cq[0]) + 4) + rows)
 
 
 def _proj_tile(n, k, b, grid, cap, max_rows=64):
@@ -229,16 +224,6 @@ def _proj_tile(n, k, b, grid, cap, max_rows=64):
     return best[1]
 
 
-def _walk_split(rows):
-    """(split, splits) of a walk over a cache of ``rows`` rows a sequence:
-    one chunk an item, so that the blocks' shares even out over many
-    small items; longer where a sequence would need more than
-    MEGASTEP_MAX_SPLITS."""
-    chunks = -(-rows // MEGASTEP_CHUNK)
-    split = -(-chunks // MEGASTEP_MAX_SPLITS) * MEGASTEP_CHUNK
-    return split, -(-rows // split)
-
-
 def megastep_plan(b, n_head, d_model, sms, blocks_per_sm, self_rows,
                   cross_rows):
     """The megastep's work split for a batch of ``b`` at these widths, on
@@ -262,8 +247,8 @@ def megastep_plan(b, n_head, d_model, sms, blocks_per_sm, self_rows,
         cq = _proj_tile(hd, d_model, b, grid, cap, MEGASTEP_LN_ROWS)
         smem = 4 * _plan_floats(b, d_model, n_head, qkv, out, cq)
         if smem <= MEGASTEP_SMEM_CAP:
-            return MegastepPlan(grid, qkv, out, cq, *_walk_split(self_rows),
-                                *_walk_split(cross_rows), smem)
+            return MegastepPlan(grid, qkv, out, cq, *walk_split(self_rows),
+                                *walk_split(cross_rows), smem)
     raise ValueError(f"megastep: no plan fits b {b}, {n_head} heads, "
                      f"d_model {d_model} in {MEGASTEP_SMEM_CAP} bytes of "
                      f"shared memory a block")

@@ -8,6 +8,11 @@ are held against the same plain versions on the card by chip_smoke.py.
 Inputs are drawn from numpy seeds and handed to both packages.
 """
 
+import ctypes
+import glob
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +22,7 @@ import jax.numpy as jnp
 from paddle_tpu.kernels import attention as jax_attention
 from paddle_tpu.kernels import decode_attention as jax_decode_attention
 from paddle_tpu.kernels import decode_step as jax_decode_step
+from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import attention as ka
 from paddle_tpu_torch.kernels import decode_attention as kda
 from paddle_tpu_torch.kernels import decode_step as kds
@@ -189,6 +195,100 @@ def test_decode_attention_wrappers_refuse_non_cpu_tensors():
         kda.flash_decode_paged(meta[0], meta[1].reshape(16, 16, 8, 64),
                                meta[2].reshape(16, 16, 8, 64), table,
                                meta[3])
+
+
+def _decode_plan_sum(plan, q, k, v, lengths, scale):
+    """Flash-decode as ``csrc/decode_attention.cu`` splits it under
+    ``plan``, in numpy f32: each split holding rows walks its 16-row
+    chunks in order (an online softmax), then each (sequence, head)'s
+    partials are merged in split order; a lane with no rows gets 0."""
+    b, h, dh = q.shape
+    rows = k.shape[1]
+    n = np.clip(lengths, 0, rows)
+    out = np.zeros((b, h, dh), np.float32)
+    for i in range(b):
+        parts = []
+        for s in range(-(-int(n[i]) // plan.split)):
+            m = np.full(h, -np.inf, np.float32)
+            l = np.zeros(h, np.float32)
+            acc = np.zeros((h, dh), np.float32)
+            end = min((s + 1) * plan.split, int(n[i]))
+            for c0 in range(s * plan.split, end, kda.WALK_CHUNK):
+                rs = slice(c0, min(c0 + kda.WALK_CHUNK, end))
+                sc = np.einsum("hd,rhd->hr", q[i], k[i, rs]) * np.float32(
+                    scale)
+                m_new = np.maximum(m, sc.max(-1))
+                p = np.exp(sc - m_new[:, None])
+                alpha = np.exp(m - m_new)
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[:, None] + np.einsum("hr,rhd->hd", p,
+                                                       v[i, rs])
+                m = m_new
+            parts.append((m, l, acc))
+        if parts:
+            mx = np.max([m for m, _, _ in parts], axis=0)
+            e = [np.exp(m - mx) for m, _, _ in parts]
+            total = sum(l * es for (_, l, _), es in zip(parts, e))
+            ctx = sum(a * es[:, None] for (_, _, a), es in zip(parts, e))
+            out[i] = ctx / total[:, None]
+    return out
+
+
+@pytest.mark.parametrize("sms", [2, 132])
+@pytest.mark.parametrize("rows", [16, 128, 256])
+@pytest.mark.parametrize("b", [1, 3, 33, 64])
+def test_decode_plan_covers_every_item(b, rows, sms):
+    """Flash-decode's plan for 8 heads of 64 on a card of ``sms`` SMs: the
+    walk's items (the (head group, sequence, split) triples whose split
+    holds rows, item i on block i % grid) cover every valid row of every
+    (sequence, head) exactly once, lengths 0 and full included; the
+    blocks' shared memory fits a block and the SMs that hold them; the
+    scratch holds every split's partial; and a sum that follows the
+    plan's splits and merge order equals ``reference_decode``."""
+    h = 8
+    plan = kda.decode_plan(b, h, rows, sms, 1)
+    assert plan.group in kda.DECODE_GROUPS
+    assert plan.smem == 4 * kda.walk_floats(plan.group, kda.DECODE_STAGES,
+                                            h, b)
+    assert plan.smem <= kda.SMEM_CAP
+    per_sm = -(-plan.grid // sms)
+    assert per_sm * (plan.smem + kda.BLOCK_RESERVED_SMEM) <= kda.SM_SMEM
+    assert per_sm * plan.group <= 8
+    assert plan.split % kda.WALK_CHUNK == 0
+    assert plan.splits <= kda.WALK_MAX_SPLITS
+    assert (plan.splits - 1) * plan.split < rows <= plan.splits * plan.split
+    assert plan.scratch == b * plan.splits * h * kda.WALK_PART
+    assert plan.ints() == (plan.group, plan.grid, plan.split, plan.smem)
+
+    rng = np.random.RandomState(b * 1000 + rows + sms)
+    lengths = rng.randint(0, rows + 1, b).astype(np.int32)
+    if b > 1:
+        lengths[0], lengths[-1] = 0, rows
+    groups = -(-h // plan.group)
+    per_seq = -(-lengths // plan.split)
+    items = [(g, i, s) for g in range(groups) for i in range(b)
+             for s in range(per_seq[i])]
+    assert len(items) <= groups * b * plan.splits
+    seen = np.zeros((b, h, rows), np.int32)
+    blocks = np.zeros(plan.grid, np.int32)
+    for it, (g, i, s) in enumerate(items):
+        heads = slice(g * plan.group, (g + 1) * plan.group)
+        seen[i, heads, s * plan.split:min((s + 1) * plan.split,
+                                          lengths[i])] += 1
+        blocks[it % plan.grid] += 1
+    valid = np.arange(rows)[None, None, :] < lengths[:, None, None]
+    assert (seen[np.broadcast_to(valid, seen.shape)] == 1).all()
+    assert (seen[~np.broadcast_to(valid, seen.shape)] == 0).all()
+    assert blocks.max() - blocks.min() <= 1
+
+    q = rng.randn(b, h, 64).astype(np.float32)
+    k = rng.randn(b, rows, h, 64).astype(np.float32)
+    v = rng.randn(b, rows, h, 64).astype(np.float32)
+    want = kda.reference_decode(*(torch.from_numpy(a)
+                                  for a in (q, k, v, lengths)), 0.125)
+    got = _decode_plan_sum(plan, q, k, v, lengths, 0.125)
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-6, atol=1e-6)
+    assert not got[lengths == 0].any()
 
 
 # ---------------------------------------------------------------------------
@@ -428,3 +528,56 @@ def test_sample_token_first_max_like_jax():
     got = sample_token(torch.from_numpy(logits)).numpy()
     np.testing.assert_array_equal(got, np.asarray(jnp.argmax(logits, -1)))
     assert got.tolist() == [1, 0, 1]
+
+
+# ---------------------------------------------------------------------------
+# the C entry points
+# ---------------------------------------------------------------------------
+
+
+def _c_entry_points():
+    """{name: (return type, [parameter types])} of every ``extern "C"``
+    function of ``csrc/*.cu``, as written there."""
+    src = "\n".join(open(f).read() for f in sorted(
+        glob.glob(os.path.join(_build.CSRC_DIR, "*.cu"))))
+    found = {}
+    for m in re.finditer(r'extern "C"\s+([\w\s*]+?)\s*\b(ptt_\w+)\s*'
+                         r'\(([^)]*)\)', src):
+        params = [p.strip() for p in m.group(3).split(",")]
+        found[m.group(2)] = (m.group(1), [
+            re.sub(r"\w+$", "", p) for p in params
+            if p and p != "void"])
+    return found
+
+
+_C_TYPES = {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
+            "float": ctypes.c_float, "double": ctypes.c_double,
+            "uint32_t": ctypes.c_uint32, "unsigned": ctypes.c_uint32}
+
+
+def _c_type(decl):
+    words = decl.replace("const", " ").replace("*", " * ").split()
+    if "*" in words:
+        return ctypes.c_char_p if words[0] == "char" else ctypes.c_void_p
+    return _C_TYPES[" ".join(words)]
+
+
+_ENTRY_POINTS = _c_entry_points()
+
+
+def test_every_entry_point_has_a_signature():
+    """The ctypes table binds exactly the sources' ``extern "C"``
+    functions."""
+    assert set(_ENTRY_POINTS) == set(_build._SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_entry_point_signature_matches_its_source(name):
+    """Each entry point's ctypes return and argument types are the ones
+    its C definition declares, in order: a plan integer added to or taken
+    from a C entry point without its ``_SIGNATURES`` line would shift
+    every argument after it."""
+    ret, params = _ENTRY_POINTS[name]
+    restype, argtypes = _build._SIGNATURES[name]
+    assert _c_type(ret) == restype
+    assert [_c_type(p) for p in params] == list(argtypes)

@@ -291,6 +291,65 @@ def test_launch_passes_the_plan_to_the_entry_point(monkeypatch, b):
     assert out.shape == x.shape and kernels.launches["megastep_paged"] == 1
 
 
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_launch_passes_the_plan_to_the_entry_point(monkeypatch, b,
+                                                          paged):
+    """#14's and #15's wrappers make the flash-decode plan from the shape,
+    the card's SM count and the kernel's occupancy before the launch,
+    size the scratch by the plan and hand the output, the scratch behind
+    it, the cache geometry and the plan's integers to the C entry point:
+    a recording stand-in for the library sees them, and the launch is
+    counted once."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import decode_attention as kda
+
+    h, dh, nb, bt, mb = 8, 64, 70, 16, 16
+    seen = {}
+
+    class Lib:
+        def ptt_flash_decode_occupancy(self, *args):
+            seen["occupancy"] = args
+            return 8
+
+        def ptt_flash_decode(self, *args):
+            seen["entry"] = args
+            return 0
+
+        ptt_flash_decode_paged = ptt_flash_decode
+
+    monkeypatch.setattr(_build, "lib", Lib)
+    monkeypatch.setattr(_build, "stream_of", lambda x: 7)
+    monkeypatch.setattr(kda, "sm_count", lambda device: 132)
+    kda._device_plan.cache_clear()
+    kernels.reset_launches()
+    q = torch.zeros(b, h, dh)
+    what = "flash_decode_paged" if paged else "flash_decode"
+    n_args = 5 if paged else 4
+    args = [q] + [torch.zeros(1) for _ in range(n_args - 1)]
+    geometry = (h, nb, bt, mb) if paged else (mb * bt, h)
+    try:
+        out = kda._launch_decode(what, paged, q, args, geometry, mb * bt,
+                                 0.125)
+    finally:
+        kda._device_plan.cache_clear()
+    plan = kda.decode_plan(b, h, mb * bt, 132, kda.DECODE_BLOCKS_PER_SM)
+    assert seen["occupancy"] == (int(paged), plan.group, plan.smem)
+    entry = seen["entry"]
+    assert len(entry) == n_args + 3 + len(geometry) + 4 + 2
+    assert entry[:n_args] == tuple(a.data_ptr() for a in args)
+    assert out.data_ptr() == entry[n_args]
+    assert entry[n_args + 1] - entry[n_args] == 4 * b * h * dh
+    assert out.untyped_storage().nbytes() == 4 * (b * h * dh + plan.scratch)
+    rest = entry[n_args + 2:]
+    assert rest[:1 + len(geometry)] == (b, *geometry)
+    assert rest[1 + len(geometry):-2] == plan.ints()
+    assert rest[-2:] == (0.125, 7)
+    assert plan.group == (1 if b == 1 else 8)
+    assert out.shape == q.shape and kernels.launches[what] == 1
+
+
 @pytest.mark.parametrize("b", [1, 33, 64])
 def test_ffn_launch_passes_the_plan_to_the_entry_point(monkeypatch, b):
     """#11/#13's wrapper makes the FFN plan from the shape, the card's SM

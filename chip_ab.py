@@ -46,8 +46,27 @@ reusing them) and runs this checkout's measuring code from
   and its device time; flash-decode's (#14, #15) device time after the
   L2 flush and with its inputs warm in the L2.
 
+``--what deepfm`` measures, instead of all of those:
+
+* the DeepFM step, phase 3 (h): batch 4096, 26 slots of 1000001 rows,
+  lazy Adam; 3 untimed steps, then ``DEEPFM_TIMED_STEPS`` steps by the
+  host clock, then one step under ``torch.profiler``: its device-busy
+  time, #22's and #23's device time (and any sort kernel's) in it;
+* #22 and #23 alone at DeepFM's shapes (``measure_table_kernels``): #23
+  in Adam mode on both groups and in SGD and scatter-add modes on the
+  width-10 group, at each of ``chip_smoke.APPLY_MIXES``; device time of
+  a call (``device_ms``), the call with the host's enqueue
+  (``call_ms``), a stable ``torch.sort`` of the same ids alone
+  (``sort_ms``), and the updated rows as a digest compared across the
+  checkouts; #22 on both groups at hash_dim 1000001 and on the same
+  tables with the ids mod 10001;
+* where the checkout's #23 sorts in its launch, that launch's phase ends
+  at each mix (``apply_phase_ends``: a copy stamped by
+  ``chip_kernel_copies``), which split its time into the sort and the
+  apply.
+
 ``--what decode`` (or ``training``) measures only the decode steps (or
-only the rest).
+only the rest of the list above).
 
 Prints, per checkout, the median and range of each number over its
 processes, and whether every process of both checkouts gave the
@@ -165,6 +184,182 @@ def measure_decode_kernels(cs):
     return out
 
 
+def _digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def measure_table_kernels(cs):
+    """#22 and #23 alone at DeepFM's shapes: {kernel, group, mode and
+    mix: record} (see the module's note)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import embedding as ke
+
+    gen = torch.Generator(device=cs.DEV).manual_seed(22)
+    v, s_n, b = cs.DEEPFM_HASH, cs.DEEPFM_SLOTS, cs.DEEPFM_BATCH
+    consts = (0.9, 0.999, 1e-8)
+    lr_t = torch.tensor([cs.DEEPFM_LR * 0.5], device=cs.DEV)
+    out = {}
+    for group, d in cs.DEEPFM_GROUPS:
+        tables = [cs._randn(gen, v, d, scale=0.01) for _ in range(s_n)]
+        m1s = [cs._randn(gen, v, d, scale=0.01) for _ in range(s_n)]
+        m2s = [cs._randn(gen, v, d, scale=0.01).square()
+               for _ in range(s_n)]
+        rows = cs._randn(gen, s_n, b, d, scale=0.1)
+        ids = cs._deepfm_ids(b, v, seed=0)
+        for span, gids in (("1000001", ids), ("10001", ids % 10001)):
+            def gather():
+                return ke.multi_table_gather(tables, gids)
+
+            out[f"gather {group} hash {span}"] = dict(
+                digest=_digest([gather()]),
+                device_ms=cs.cuda_ms(gather, hide_host=True),
+                call_ms=cs.cuda_ms(gather))
+        for mix, draw in cs.APPLY_MIXES.items():
+            ids = draw(b, v, seed=10)
+            run_max = max(int(torch.unique(i[(i >= 0) & (i < v)],
+                                           return_counts=True)[1].max())
+                          for i in ids)
+            modes = [("adam", None)]
+            if d > 1:
+                modes += [("sgd", -cs.DEEPFM_LR), ("scatter_add", 1.0)]
+            for mode, scale in modes:
+                if mode == "adam":
+                    def call(state=(tables, m1s, m2s)):
+                        ke.multi_table_sparse_adam(*state, ids, rows, lr_t,
+                                                   *consts)
+                    kinds = (tables, m1s, m2s)
+                else:
+                    def call(state=(tables,), scale=scale):
+                        ke.multi_table_scatter_add(*state, ids, rows, scale)
+                    kinds = (tables,)
+                state = tuple([t.clone() for t in kind] for kind in kinds)
+                call(state)
+                touched = [t[torch.where((i >= 0) & (i < v), i, 0).long()]
+                           for kind in state for t, i in zip(kind, ids)]
+                digest = _digest(touched)
+                del state, touched
+                out[f"apply {group} {mode} {mix}"] = dict(
+                    digest=digest, run_max=run_max,
+                    device_ms=cs.cuda_ms(call, hide_host=True),
+                    call_ms=cs.cuda_ms(call),
+                    sort_ms=cs.cuda_ms(lambda: torch.sort(
+                        ids, dim=1, stable=True), hide_host=True))
+        del tables, m1s, m2s, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+#: #23's phase ends: the blocks' starts, phase A (the sort blocks' runs
+#: listed, the others' prefetch), the grid barrier's release, the end
+APPLY_PHASES = ("start spread", "phase A", "barrier", "end")
+
+
+def apply_phase_ends(cs, root):
+    """{mix: phase ends in us} of #23 in Adam mode on the width-10 group,
+    from a copy of the checkout's ``csrc/embedding.cu`` whose blocks stamp
+    ``%globaltimer`` at APPLY_PHASES (``chip_kernel_copies``); None for a
+    checkout whose kernel has no such phases."""
+    import tempfile
+
+    import torch
+
+    import chip_kernel_copies as ck
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import embedding as ke
+
+    path = os.path.join(root, "paddle_tpu_torch", "csrc", "embedding.cu")
+    with open(path) as f:
+        src = f.read()
+    if "plan_slot" not in src:
+        return None
+    src = ck.stamped(src, "csrc/embedding.cu",
+                     "template <int MODE, int DT>\n"
+                     "__global__ void __launch_bounds__(NT)\n"
+                     "    apply_kernel(", (
+        ("  const int t = threadIdx.x;\n\n  // phase A",
+         "  const int t = threadIdx.x;\n  stamp(0);\n\n  // phase A"),
+        ("  cg::this_grid().sync();\n",
+         "  stamp(1);\n  cg::this_grid().sync();\n  stamp(2);\n"),
+        ("      lane_runs<MODE, DT>(P, runs, x0);\n  }\n",
+         "      lane_runs<MODE, DT>(P, runs, x0);\n  }\n  stamp(3);\n")))
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    v, s_n, b, d = cs.DEEPFM_HASH, cs.DEEPFM_SLOTS, cs.DEEPFM_BATCH, 10
+    tables, m1s, m2s = ([cs._randn(gen, v, d, scale=0.01)
+                         for _ in range(s_n)] for _ in range(3))
+    rows = cs._randn(gen, s_n, b, d, scale=0.1)
+    lr_t = torch.tensor([cs.DEEPFM_LR * 0.5], device="cuda")
+    out = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        lib = ck.build(_build, out_dir, {"apply_stamped": src},
+                       ["ptt_table_apply", "ptt_table_apply_occupancy"])[
+                           "apply_stamped"]
+        saved = _build._lib
+        ke._device_apply_plan.cache_clear()
+        _build._lib = lib
+        try:
+            grid = ke.device_apply_plan(tables[0].device, 1, s_n, b, d,
+                                        v).grid
+            for mix, draw in cs.APPLY_MIXES.items():
+                ids = draw(b, v, seed=10)
+                ends = ck.phase_ends(lib, grid, len(APPLY_PHASES),
+                                     lambda: ke.multi_table_sparse_adam(
+                                         tables, m1s, m2s, ids, rows, lr_t,
+                                         0.9, 0.999, 1e-8))
+                out[mix] = dict(zip(APPLY_PHASES, ends.tolist()))
+        finally:
+            _build._lib = saved
+            ke._device_apply_plan.cache_clear()
+    del tables, m1s, m2s, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def measure_deepfm(cs):
+    """The DeepFM step (see the module's note): {"deepfm": record}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch
+
+    model = paddle_tpu_torch.DeepFM(hash_dim=cs.DEEPFM_HASH,
+                                    device=cs.DEV).init_params(0)
+    opt = cs._deepfm_adam(model)
+    batches = cs.deepfm_batches(cs.DEEPFM_HASH)
+    cs._deepfm_steps(model, opt, batches, WARM_STEPS)
+    step_ms = []
+    for i in range(1, cs.DEEPFM_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, _ = model(*batches[i % len(batches)])
+        opt.minimize(loss)
+        loss.item()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        opt.minimize(model(*batches[0])[0])
+        torch.cuda.synchronize()
+    rows = cs._device_kernels(prof)
+
+    def ms(word):
+        return sum(us for n, us in rows if word in n.lower()) / 1e3
+
+    rec = dict(step_ms=_median(step_ms),
+               step_ms_range=(min(step_ms), max(step_ms)),
+               busy_ms=sum(us for _, us in rows) / 1e3,
+               gather_ms=ms("gather_kernel"), apply_ms=ms("apply_kernel"),
+               sort_ms=ms("sort"))
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    return {"deepfm": rec}
+
+
 def measure_decode(cs):
     """The fused decode steps on ring caches and on paged pools at b=1
     and b=64, and the unfused ones (#14/#15) on ring caches at b=1 and
@@ -228,6 +423,10 @@ def measure(root, what="all"):
     if what == "decode":
         return dict(root=root, steps=measure_decode(cs),
                     kernels=measure_decode_kernels(cs))
+    if what == "deepfm":
+        return dict(root=root, steps=measure_deepfm(cs),
+                    kernels=measure_table_kernels(cs),
+                    apply_phases_us=apply_phase_ends(cs, root))
     L = cs.BASE["n_layer"]
     steps = {}
     for route, fused, per_step in (
@@ -324,7 +523,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=4)
-    ap.add_argument("--what", choices=("all", "decode", "training"),
+    ap.add_argument("--what", choices=("all", "decode", "training",
+                                       "deepfm"),
                     default="all")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -374,7 +574,7 @@ def main():
                     continue
                 xs = [r["steps"][route][key] for r in mine]
                 summary[f"{route} {key}"] = (_median(xs), min(xs), max(xs))
-        if args.what != "decode":
+        if args.what in ("all", "training"):
             for key in ("t8_ms", "t8_device_ms"):
                 xs = [r[key] for r in mine]
                 summary[key] = (_median(xs), min(xs), max(xs))
@@ -383,7 +583,7 @@ def main():
                 n: _median([r["t8_kernels_us"].get(n, 0.0) for r in mine])
                 for n in names}
         for key in mine[0].get("kernels", {}):
-            for field in ("device_ms", "warm_ms"):
+            for field in ("device_ms", "warm_ms", "call_ms", "sort_ms"):
                 if field in mine[0]["kernels"][key]:
                     xs = [r["kernels"][key][field] for r in mine]
                     summary[f"{key} {field}"] = (_median(xs), min(xs),
@@ -394,8 +594,8 @@ def main():
         same = {key: len({r["kernels"][key]["digest"] for r in runs}) == 1
                 for key in runs[0]["kernels"]
                 if "digest" in runs[0]["kernels"][key]}
-        print(f"the megastep's bits equal in every process of both "
-              f"checkouts: {json.dumps(same)}")
+        print(f"bits equal in every process of both checkouts: "
+              f"{json.dumps(same)}")
     return 0
 
 

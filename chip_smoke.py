@@ -69,15 +69,18 @@ Phases, each fatal on failure:
    equal its twin bit for bit.  The conv + batch-norm kernels (#18-#21) are checked at ResNet-50's shapes
    at batch 256 (CBN_*_CASES: the stem, stage-1 and stage-4 sites, #19 at
    a strided shortcut, the stage-1 conv1 and a ragged M 1000, K 72, N 100
-   too, #20/#21 with and without residual and ReLU),
+   too, #20/#21 with and without residual and ReLU; #18, #20 and #21 also
+   at C = 2 and 6, whose channels they read one by one),
    each called twice for equal bits; their sums are held to TOL_SUM of
    the summed magnitudes against the same sums in float64.  cuDNN's output of the NHWC convolution must
    come back NHWC-contiguous.  The multi-table embedding kernels (#22,
    #23) are checked at DeepFM's shapes (26 tables of 1000001 rows, widths
-   10 and 1, ids [26, 4096]): #22 on both groups for the twin's bits; #23
-   in Adam mode on both groups and in SGD and scatter-add modes on the
-   first, on ids with planted runs of 5 and 50 equal ids and a sentinel
-   tail, within 1e-6 relative of the twin and equal bits on a repeat.
+   10 and 1, ids [26, 4096]): #22 on both groups, and with the ids mod
+   10001, for the twin's bits; #23 in Adam mode on both groups and in SGD
+   and scatter-add modes on the first, on three id mixes (planted runs of
+   6 and 51 equal ids and a sentinel tail, the main path's uniform ids,
+   zipf(1.1) draws), for the twin's bits and equal bits on a repeat, each
+   timed beside a stable ``torch.sort`` of its ids.
    The decode megastep (#10 ring, #12 paged) is checked at b=1 and b=64
    and, on a generator of its own, at a ragged b=33 and at b=64 with every
    lane's self cache (128 rows) and cross cache (256 rows) full: each call
@@ -195,8 +198,9 @@ Phases, each fatal on failure:
    steps at each batch on the ring cache and at b=64 on paged pools (the
    megastep's and the FFN's device ms a step beside the idle share), and
    over one training step on each route, on the dropout route, of
-   ResNet-50, of DeepFM and of BERT-base on both kernel routes: device
-   time by kernel beside host wall time, and for
+   ResNet-50, of DeepFM (with #22's and #23's device ms a step) and of
+   BERT-base on both kernel routes: device time by kernel beside host
+   wall time, and for
    ResNet-50 any layout-conversion kernel and #19's time a step beside the
    summed bound of its 36 sites.
    Every phase prints its seconds.
@@ -1929,7 +1933,9 @@ def dot_stats_bound_ms(m, k, n):
 
 CBN_STATS_CASES = (("stem 7x7", (256, 112, 112, 64)),
                    ("stage-1 3x3", (256, 56, 56, 64)),
-                   ("stage-4 3x3", (256, 7, 7, 512)))
+                   ("stage-4 3x3", (256, 7, 7, 512)),
+                   ("C 2 (scalar channels)", (256, 56, 56, 2)),
+                   ("C 6 (scalar channels)", (256, 56, 56, 6)))
 CBN_DOT_CASES = (("stage-1 conv3", 256 * 56 * 56, 64, 256, 1),
                  ("stage-4 conv3", 256 * 7 * 7, 512, 2048, 1),
                  ("stage-2 shortcut (stride 2)", 256 * 28 * 28, 256, 512,
@@ -1941,7 +1947,11 @@ CBN_SSA_CASES = (("stage-1 conv3 residual relu", 256 * 56 * 56, 256, True,
                  ("stage-1 conv1 relu", 256 * 56 * 56, 64, False, True),
                  ("stage-1 shortcut", 256 * 56 * 56, 256, False, False),
                  ("stage-4 conv3 residual relu", 256 * 7 * 7, 2048, True,
-                  True))
+                  True),
+                 ("C 2 residual relu (scalar channels)", 256 * 56 * 56, 2,
+                  True, True),
+                 ("C 6 (scalar channels)", 256 * 56 * 56, 6, False,
+                  False))
 
 
 #: phase 2's per-channel sums of #18, #19 and #21 against the same sums in
@@ -2142,6 +2152,9 @@ TOL_APPLY = 1e-6
 #: ids of phase 2's apply checks: rows 100-104 repeat row 0's id (a run of
 #: 5), rows 200-249 row 1's (50), the last 64 rows hold the sentinel V
 APPLY_RUNS, APPLY_SENTINELS = ((0, 100, 5), (1, 200, 50)), 64
+#: the skewed id mix: numpy zipf draws of this exponent, less 1, mod V (the
+#: longest run of a slot of 4096 is a few hundred ids)
+ZIPF_A = 1.1
 
 
 def _deepfm_ids(b, hash_dim, seed):
@@ -2160,6 +2173,20 @@ def _apply_ids(b, hash_dim, seed):
         ids[:, at:at + n] = ids[:, src:src + 1]
     ids[:, b - APPLY_SENTINELS:] = hash_dim
     return ids
+
+
+def _zipf_ids(b, hash_dim, seed):
+    """[26, b] int32 ids on the card, skewed as CTR ids are: numpy
+    ``zipf(ZIPF_A)`` draws less 1, mod hash_dim (seeded)."""
+    rng = np.random.RandomState(seed)
+    ids = (rng.zipf(ZIPF_A, (DEEPFM_SLOTS, b)) - 1) % hash_dim
+    return torch.from_numpy(ids.astype(np.int32)).to(DEV)
+
+
+#: #23's id mixes: (i) the main path's uniform ids, (ii) phase 2's planted
+#: runs and sentinels (the check's own mix), (iii) the skewed draw
+APPLY_MIXES = {"uniform": _deepfm_ids, "planted": _apply_ids,
+               "zipf": _zipf_ids}
 
 
 def touched_sectors(ids, d, height):
@@ -2195,13 +2222,13 @@ def _rel_close(name, got, want, tol):
 
 
 def _device_only(r, fn):
-    """A small kernel's record: ``ms`` becomes the device time of one
-    wrapper call (``cuda_ms(hide_host=True)``: the wrapper's stable sort
-    and the kernel, for #23), and ``call_ms`` keeps the time with the
-    device's wait for the host's enqueue in it, which at these sizes is
-    most of a call."""
+    """A small kernel's record: ``ms`` (and the bound share) becomes the
+    device time of one wrapper call (``cuda_ms(hide_host=True)``), and
+    ``call_ms`` keeps the time with the device's wait for the host's
+    enqueue in it, which at these sizes is most of a call."""
     r["call_ms"] = r["ms"]
     r["ms"] = cuda_ms(fn, hide_host=True)
+    r["bound_share"] = r["bound_ms"] / r["ms"]
 
 
 #: torch.optim.SparseAdam (#23's library yardstick) against the twin, each
@@ -2257,16 +2284,73 @@ def library_sparse_adam(tables, ids, rows, consts):
     return cuda_ms(opt.step), worst[0]
 
 
+#: the keys of a #22 or #23 case carried in its kernel's JSON record
+TABLE_CASE_KEYS = ("batch", "ms", "call_ms", "plain_ms", "bound_ms",
+                   "bound_share", "sort_ms", "run_max", "twin_bit_equal")
+
+
+def _apply_record(mode, group, d, mix, ids, tables, state, call, twin,
+                  flops, nbytes, b):
+    """One #23 case: ``call(kinds)`` (the kernel) on two copies of the
+    group's ``state`` (the tables, and the moments in Adam mode) against
+    ``twin(kinds)`` on a third: equal bits to the twin (TOL_APPLY's
+    relative error reported) and to each other; then timed after the L2
+    flush beside the twin, device only and with the host's enqueue, and
+    beside a stable ``torch.sort`` of the same ids (what the launch's
+    sort phase replaced)."""
+    def clones():
+        return [[t.clone() for t in kind] for kind in state]
+
+    runs = []
+    for _ in range(2):
+        kinds = clones()
+        call(kinds)
+        runs.append(kinds)
+    want = clones()
+    twin(want)
+    torch.cuda.synchronize()
+    label = f"multi_table_apply {mode} {group} {mix}"
+    err = max(_rel_close(f"{label} {i}", g, w, TOL_APPLY)
+              for gk, wk in zip(runs[0], want) for i, (g, w) in
+              enumerate(zip(gk, wk)))
+    _require_same_bits(label, [t for kind in runs[0] for t in kind],
+                       [t for kind in runs[1] for t in kind])
+    bit_equal = all(torch.equal(g, w) for gk, wk in zip(runs[0], want)
+                    for g, w in zip(gk, wk))
+    require(bit_equal, f"{label}: not the twin's bits")
+    del runs, want
+    v = tables[0].shape[0]
+    r = timed_record(
+        "multi_table_apply", "paddle_tpu_torch/csrc/embedding.cu",
+        "paddle_tpu/kernels/embedding.py:343", err, lambda: call(state),
+        lambda: twin(state), flops, nbytes, None, b)
+    _device_only(r, lambda: call(state))
+    ok = (ids >= 0) & (ids < v)
+    r.update(mode=mode, group=f"{group} [{len(tables)} x {v} x {d}]",
+             mix=mix, twin_bit_equal=bit_equal,
+             sort_ms=cuda_ms(lambda: torch.sort(ids, dim=1, stable=True),
+                             hide_host=True),
+             run_max=max(int(torch.unique(i[k], return_counts=True)[1]
+                             .max()) if k.any() else 0
+                         for i, k in zip(ids, ok)))
+    return r
+
+
 def check_embedding():
     """#22 and #23 at DeepFM's shapes against their twins on the card.
-    #22 on both groups: equal bits.  #23 in Adam mode on both groups and in
-    SGD and scatter-add modes on the first, on duplicate-heavy ids
-    (APPLY_RUNS, the sentinel tail): params and moments within TOL_APPLY
-    relative, and a repeat on the same inputs equal to the bit.  Each is
-    timed after an L2 flush beside its plain twin; #22 also beside 26
-    ``F.embedding`` calls (no one library call does a group), #23's Adam
-    on the width-10 group beside ``torch.optim.SparseAdam``
-    (:func:`library_sparse_adam`).  Returns [(record, label)]."""
+    #22 on both groups, and on the width-10 tables with the ids mod
+    DEEPFM_SMOKE_HASH (the same rows over a 100x smaller span): equal
+    bits.  #23 in Adam mode on both groups and in SGD and scatter-add
+    modes on the first, at each of APPLY_MIXES (the check's own planted
+    runs first, then the main path's uniform ids and the skewed draw):
+    params and moments equal to the twin's bits, and a repeat on the same
+    inputs equal to the bit.  Each is timed after an L2 flush beside its
+    plain twin, device only and with the host's enqueue; #22 also beside
+    26 ``F.embedding`` calls (no one library call does a group), #23
+    beside a stable ``torch.sort`` of its ids and, in Adam mode on the
+    width-10 group's planted mix, beside ``torch.optim.SparseAdam``
+    (:func:`library_sparse_adam`).  Returns [(record, label)]; the first
+    record of each kernel carries the others' numbers under ``cases``."""
     import torch.nn.functional as Fn
 
     from paddle_tpu_torch.kernels import embedding as ke
@@ -2277,106 +2361,71 @@ def check_embedding():
     for group, d in DEEPFM_GROUPS:
         tables = [_randn(gen, v, d, scale=0.01) for _ in range(s_n)]
         ids = _deepfm_ids(b, v, seed=len(out))
-        got = ke.multi_table_gather(tables, ids)
-        want = ke.reference_multi_table_gather(tables, ids)
-        torch.cuda.synchronize()
-        require(torch.equal(got, want),
-                f"multi_table_gather {group}: not the twin's bits")
-        long_ids = [i.long() for i in ids]
-        nbytes = (F32 * s_n * b * (1 + d)
-                  + 32 * touched_sectors(ids, d, v))
-        r = timed_record(
-            "multi_table_gather", "paddle_tpu_torch/csrc/embedding.cu",
-            "paddle_tpu/kernels/embedding.py:229", 0.0,
-            lambda: ke.multi_table_gather(tables, ids),
-            lambda: ke.reference_multi_table_gather(tables, ids), 0, nbytes,
-            None, b)
-        r["embedding_x26_ms"] = cuda_ms(lambda: [
-            Fn.embedding(i, t) for i, t in zip(long_ids, tables)],
-            hide_host=True)
-        _device_only(r, lambda: ke.multi_table_gather(tables, ids))
-        r["group"] = f"{group} [{s_n} x {v} x {d}]"
-        out.append((r, f" {r['group']} b={b}"))
+        for span, gids in (("", ids), (f" hash {DEEPFM_SMOKE_HASH}",
+                                       ids % DEEPFM_SMOKE_HASH)):
+            got = ke.multi_table_gather(tables, gids)
+            want = ke.reference_multi_table_gather(tables, gids)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    f"multi_table_gather {group}{span}: not the twin's bits")
+            _require_same_bits(f"multi_table_gather {group}{span}", [got],
+                               [ke.multi_table_gather(tables, gids)])
+            long_ids = [i.long() for i in gids]
+            nbytes = (F32 * s_n * b * (1 + d)
+                      + 32 * touched_sectors(gids, d, v))
+            r = timed_record(
+                "multi_table_gather", "paddle_tpu_torch/csrc/embedding.cu",
+                "paddle_tpu/kernels/embedding.py:229", 0.0,
+                lambda: ke.multi_table_gather(tables, gids),
+                lambda: ke.reference_multi_table_gather(tables, gids), 0,
+                nbytes, None, b)
+            r["embedding_x26_ms"] = cuda_ms(lambda: [
+                Fn.embedding(i, t) for i, t in zip(long_ids, tables)],
+                hide_host=True)
+            _device_only(r, lambda: ke.multi_table_gather(tables, gids))
+            r["group"] = f"{group} [{s_n} x {v} x {d}]{span}"
+            out.append((r, f" {r['group']} b={b}"))
 
-        # #23, lazy Adam on this group
-        ids = _apply_ids(b, v, seed=10 + len(out))
+        # #23 on this group, at each id mix
         rows = _randn(gen, s_n, b, d, scale=0.1)
         m1s = [_randn(gen, v, d, scale=0.01) for _ in range(s_n)]
         m2s = [_randn(gen, v, d, scale=0.01).square() for _ in range(s_n)]
         lr_t = torch.tensor([DEEPFM_LR * 0.5], device=DEV)
         consts = (0.9, 0.999, 1e-8)
-
-        def clones():
-            return [[t.clone() for t in kind] for kind in (tables, m1s, m2s)]
-
-        runs = []
-        for _ in range(2):
-            state = clones()
-            ke.multi_table_sparse_adam(*state, ids, rows, lr_t, *consts)
-            runs.append(state)
-        twin = clones()
-        ke.reference_sparse_adam(*twin, ids, rows, lr_t, *consts)
-        torch.cuda.synchronize()
-        err = max(_rel_close(f"multi_table_apply adam {group} {kind}", g, w,
-                             TOL_APPLY)
-                  for kind, gk, wk in zip(("param", "m1", "m2"), runs[0],
-                                          twin)
-                  for g, w in zip(gk, wk))
-        _require_same_bits(f"multi_table_apply adam {group}",
-                           [t for kind in runs[0] for t in kind],
-                           [t for kind in runs[1] for t in kind])
-        bit_equal = all(torch.equal(g, w) for gk, wk in zip(runs[0], twin)
-                        for g, w in zip(gk, wk))
-        del runs, twin
-        sectors = touched_sectors(ids, d, v)
-        nbytes = F32 * s_n * b * (1 + d) + 32 * sectors * 6
-        r = timed_record(
-            "multi_table_apply", "paddle_tpu_torch/csrc/embedding.cu",
-            "paddle_tpu/kernels/embedding.py:343", err,
-            lambda: ke.multi_table_sparse_adam(tables, m1s, m2s, ids, rows,
-                                               lr_t, *consts),
-            lambda: ke.reference_sparse_adam(tables, m1s, m2s, ids, rows,
-                                             lr_t, *consts),
-            12 * unique_rows(ids, v) * d, nbytes, None, b)
-        _device_only(r, lambda: ke.multi_table_sparse_adam(
-            tables, m1s, m2s, ids, rows, lr_t, *consts))
-        r.update(mode="adam", group=f"{group} [{s_n} x {v} x {d}]",
-                 twin_bit_equal=bit_equal)
-        if d > 1:
-            r["library_ms"], r["library_max_abs_err"] = library_sparse_adam(
-                tables, ids, rows, consts)
-        out.append((r, f" adam {r['group']} b={b}"))
-        if d == 1:
-            continue
-        for mode, scale in (("sgd", -DEEPFM_LR), ("scatter_add", 1.0)):
-            runs = []
-            for _ in range(2):
-                state = [t.clone() for t in tables]
-                ke.multi_table_scatter_add(state, ids, rows, scale)
-                runs.append(state)
-            twin = [t.clone() for t in tables]
-            ke.reference_scatter_add(twin, ids, rows, scale)
-            torch.cuda.synchronize()
-            err = max(_rel_close(f"multi_table_apply {mode}", g, w,
-                                 TOL_APPLY) for g, w in zip(runs[0], twin))
-            _require_same_bits(f"multi_table_apply {mode}", runs[0],
-                               runs[1])
-            bit_equal = all(torch.equal(g, w) for g, w in zip(runs[0], twin))
-            del runs, twin
-            r = timed_record(
-                "multi_table_apply", "paddle_tpu_torch/csrc/embedding.cu",
-                "paddle_tpu/kernels/embedding.py:343", err,
-                lambda: ke.multi_table_scatter_add(tables, ids, rows, scale),
-                lambda: ke.reference_scatter_add(tables, ids, rows, scale),
-                2 * unique_rows(ids, v) * d,
-                F32 * s_n * b * (1 + d) + 32 * sectors * 2,
-                None, b)
-            _device_only(r, lambda: ke.multi_table_scatter_add(
-                tables, ids, rows, scale))
-            r.update(mode=mode, group=f"{group} [{s_n} x {v} x {d}]",
-                     twin_bit_equal=bit_equal)
-            out.append((r, f" {mode} {r['group']} b={b}"))
-        del m1s, m2s
+        seed = 10 + len(out) - 1
+        for mix in ("planted", "uniform", "zipf"):
+            ids = APPLY_MIXES[mix](b, v, seed=seed)
+            sectors = touched_sectors(ids, d, v)
+            uniq = unique_rows(ids, v)
+            r = _apply_record(
+                "adam", group, d, mix, ids, tables, [tables, m1s, m2s],
+                lambda k: ke.multi_table_sparse_adam(*k, ids, rows, lr_t,
+                                                     *consts),
+                lambda k: ke.reference_sparse_adam(*k, ids, rows, lr_t,
+                                                   *consts),
+                12 * uniq * d, F32 * s_n * b * (1 + d) + 32 * sectors * 6, b)
+            if d > 1 and mix == "planted":
+                r["library_ms"], r["library_max_abs_err"] = \
+                    library_sparse_adam(tables, ids, rows, consts)
+            out.append((r, f" adam {r['group']} b={b} {mix} ids"))
+            if d == 1:
+                continue
+            for mode, scale in (("sgd", -DEEPFM_LR), ("scatter_add", 1.0)):
+                r = _apply_record(
+                    mode, group, d, mix, ids, tables, [tables],
+                    lambda k: ke.multi_table_scatter_add(k[0], ids, rows,
+                                                         scale),
+                    lambda k: ke.reference_scatter_add(k[0], ids, rows,
+                                                       scale),
+                    2 * uniq * d,
+                    F32 * s_n * b * (1 + d) + 32 * sectors * 2, b)
+                out.append((r, f" {mode} {r['group']} b={b} {mix} ids"))
+        del m1s, m2s, rows
+    for name in ("multi_table_gather", "multi_table_apply"):
+        mine = [r for r, _ in out if r["name"] == name]
+        mine[0]["cases"] = {
+            " ".join(str(r[k]) for k in ("mode", "group", "mix") if k in r):
+            {k: r[k] for k in TABLE_CASE_KEYS if k in r} for r in mine[1:]}
     return out
 
 
@@ -4006,10 +4055,15 @@ def profile_deepfm(model):
     with open(os.path.join(OUT_DIR, "profile_deepfm_step.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=60))
+
+    def ms(word):
+        return sum(us for n, us in rows if word in n.lower()) / 1e3
+
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 idle_share=1 - busy_us / wall_us if busy_us else None,
                 top=[(name[:60], us / 1e3) for name, us in rows[:12]],
-                device_kernels=len(rows))
+                device_kernels=len(rows), gather_ms=ms("gather_kernel"),
+                apply_ms=ms("apply_kernel"), sort_ms=ms("sort"))
 
 
 # ---------------------------------------------------------------------------
@@ -4103,6 +4157,8 @@ def print_record(r, label):
              if "embedding_x26_ms" in r else "")
           + (f"; twin's bits: {r['twin_bit_equal']}"
              if "twin_bit_equal" in r else "")
+          + (f"; a stable torch.sort of its ids {r['sort_ms']} ms, longest "
+             f"run {r['run_max']}" if "sort_ms" in r else "")
           + (f"; {r['bound_share']:.1%} of the bound"
              if "bound_share" in r else "")
           + (f"; plan {r['plan']}, co-resident grid "
@@ -4520,7 +4576,9 @@ def main():
               f"{profile_fm['wall_ms']} ms, device busy "
               f"{profile_fm['device_busy_ms']} ms, idle share "
               f"{profile_fm['idle_share']}, "
-              f"{profile_fm['device_kernels']} kernel names")
+              f"{profile_fm['device_kernels']} kernel names; #22 "
+              f"{profile_fm['gather_ms']} ms, #23 {profile_fm['apply_ms']} "
+              f"ms, sort kernels {profile_fm['sort_ms']} ms a step")
         for name, ms in profile_fm["top"]:
             print(f"    {ms:.4f} ms  {name}")
     t_phase = _phase_seconds("phase 4", t_phase)

@@ -12,8 +12,11 @@
 //                               sg = sum g', sgx = sum g' * x
 //
 // Every tensor is a contiguous NHWC activation viewed as [rows, C]
-// (channels fastest) and 16-byte aligned, with C % 4 == 0, so a thread
-// moves four channels as one float4.  The TPU kernel's lane fold for
+// (channels fastest).  Where C % 4 == 0 and every tensor is 16-byte
+// aligned, a thread moves four channels as one float4; at any other C
+// (the stem's 3, a classifier's 1 or 2, ...) the same walk reads each of
+// its four channels with a scalar load, the channels past C masked, so
+// each sum keeps the float4 form's order.  The TPU kernel's lane fold for
 // C < 128 is layout plumbing for the TPU's 128-lane tiles and has no
 // counterpart here.
 //
@@ -42,6 +45,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <initializer_list>
 
 #include "gemm.cuh"
 
@@ -60,7 +64,7 @@ struct Walk {
 
 Walk make_walk(int64_t rows, int c) {
   Walk w;
-  const int quads = c / 4;
+  const int quads = (c + 3) / 4;
   w.tx_n = std::min(quads, 32);
   w.ty_n = NT / w.tx_n;
   w.col_tiles = (quads + w.tx_n - 1) / w.tx_n;
@@ -103,7 +107,21 @@ __device__ __forceinline__ void block_partials(const float (&s1)[4],
   }
 }
 
+// Channels 4q .. 4q + 3 of row r of a [rows, C] tensor: one float4 under
+// VEC (C % 4 == 0, 16-byte aligned), else four scalar loads with the
+// channels past C read as 0.
+template <bool VEC>
+__device__ __forceinline__ float4 load_quad(const float* __restrict__ a,
+                                            int64_t r, int c, int q) {
+  if (VEC) return reinterpret_cast<const float4*>(a)[r * (c / 4) + q];
+  const float* p = a + r * c + 4 * q;
+  const int n = c - 4 * q;
+  return make_float4(p[0], n > 1 ? p[1] : 0.f, n > 2 ? p[2] : 0.f,
+                     n > 3 ? p[3] : 0.f);
+}
+
 // #18.  One read of y [rows, C].
+template <bool VEC>
 __global__ void __launch_bounds__(NT)
 channel_stats_kernel(const float* __restrict__ y, int64_t rows, int c,
                      Walk w, float* __restrict__ part) {
@@ -115,11 +133,9 @@ channel_stats_kernel(const float* __restrict__ y, int64_t rows, int c,
   if (ty < w.ty_n && 4 * q < c) {
     const int64_t r0 = (int64_t)blockIdx.y * w.chunk_rows;
     const int64_t r1 = r0 + w.chunk_rows < rows ? r0 + w.chunk_rows : rows;
-    const float4* y4 = reinterpret_cast<const float4*>(y);
-    const int qn = c / 4;
 #pragma unroll 4
     for (int64_t r = r0 + ty; r < r1; r += w.ty_n) {
-      const float4 v = y4[r * qn + q];
+      const float4 v = load_quad<VEC>(y, r, c, q);
       s1[0] += v.x; s1[1] += v.y; s1[2] += v.z; s1[3] += v.w;
       s2[0] += v.x * v.x; s2[1] += v.y * v.y;
       s2[2] += v.z * v.z; s2[3] += v.w * v.w;
@@ -128,9 +144,25 @@ channel_stats_kernel(const float* __restrict__ y, int64_t rows, int c,
   block_partials(s1, s2, red, w, c, part);
 }
 
+// Stores channels 4q .. 4q + 3 of row r, as load_quad reads them.
+template <bool VEC>
+__device__ __forceinline__ void store_quad(float* __restrict__ a, int64_t r,
+                                           int c, int q, float4 v) {
+  if (VEC) {
+    reinterpret_cast<float4*>(a)[r * (c / 4) + q] = v;
+    return;
+  }
+  float* p = a + r * c + 4 * q;
+  const int n = c - 4 * q;
+  p[0] = v.x;
+  if (n > 1) p[1] = v.y;
+  if (n > 2) p[2] = v.z;
+  if (n > 3) p[3] = v.w;
+}
+
 // #21.  One read of g, x (and out under RELU); dx (and dres under RES)
 // written as they are formed.
-template <bool RELU, bool RES>
+template <bool RELU, bool RES, bool VEC>
 __global__ void __launch_bounds__(NT)
 ssa_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x,
                const float* __restrict__ out, const float* __restrict__ wv,
@@ -144,27 +176,24 @@ ssa_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   if (ty < w.ty_n && 4 * q < c) {
     const int64_t r0 = (int64_t)blockIdx.y * w.chunk_rows;
     const int64_t r1 = r0 + w.chunk_rows < rows ? r0 + w.chunk_rows : rows;
-    const int qn = c / 4;
-    const float4 wq = reinterpret_cast<const float4*>(wv)[q];
-    const float4* g4 = reinterpret_cast<const float4*>(g);
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    const float4* o4 = reinterpret_cast<const float4*>(out);
+    const float4 wq = load_quad<VEC>(wv, 0, c, q);
 #pragma unroll 2
     for (int64_t r = r0 + ty; r < r1; r += w.ty_n) {
-      const int64_t i = r * qn + q;
-      float4 gv = g4[i];
-      const float4 xv = x4[i];
+      float4 gv = load_quad<VEC>(g, r, c, q);
+      const float4 xv = load_quad<VEC>(x, r, c, q);
       if (RELU) {
-        const float4 ov = o4[i];
+        const float4 ov = load_quad<VEC>(out, r, c, q);
         gv.x = ov.x > 0.f ? gv.x : 0.f;
         gv.y = ov.y > 0.f ? gv.y : 0.f;
         gv.z = ov.z > 0.f ? gv.z : 0.f;
         gv.w = ov.w > 0.f ? gv.w : 0.f;
       }
-      reinterpret_cast<float4*>(dx)[i] = make_float4(
-          __fmul_rn(gv.x, wq.x), __fmul_rn(gv.y, wq.y),
-          __fmul_rn(gv.z, wq.z), __fmul_rn(gv.w, wq.w));
-      if (RES) reinterpret_cast<float4*>(dres)[i] = gv;
+      store_quad<VEC>(dx, r, c, q,
+                      make_float4(__fmul_rn(gv.x, wq.x),
+                                  __fmul_rn(gv.y, wq.y),
+                                  __fmul_rn(gv.z, wq.z),
+                                  __fmul_rn(gv.w, wq.w)));
+      if (RES) store_quad<VEC>(dres, r, c, q, gv);
       sg[0] += gv.x; sg[1] += gv.y; sg[2] += gv.z; sg[3] += gv.w;
       sgx[0] += gv.x * xv.x; sgx[1] += gv.y * xv.y;
       sgx[2] += gv.z * xv.z; sgx[3] += gv.w * xv.w;
@@ -298,8 +327,85 @@ ssa_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wv,
   }
 }
 
-bool bad_shape(int64_t rows, int c) {
-  return rows <= 0 || c <= 0 || c % 4 != 0;
+// #20 at any C: elementwise over [rows, C], one channel a step, with the
+// float4 form's roundings.
+template <bool RELU, bool RES>
+__global__ void __launch_bounds__(NT)
+ssa_fwd_scalar_kernel(const float* __restrict__ x,
+                      const float* __restrict__ wv,
+                      const float* __restrict__ bv,
+                      const float* __restrict__ res, float* __restrict__ out,
+                      int64_t n, int c) {
+  const int64_t stride = (int64_t)gridDim.x * NT;
+  const int ch_step = (int)(stride % c);
+  int64_t i = blockIdx.x * (int64_t)NT + threadIdx.x;
+  // ch = i % c, carried from step to step without a 64-bit division
+  for (int ch = (int)(i % c); i < n; i += stride) {
+    float o = __fadd_rn(__fmul_rn(x[i], wv[ch]), bv[ch]);
+    if (RES) o = __fadd_rn(o, res[i]);
+    if (RELU) o = fmaxf(o, 0.f);
+    out[i] = o;
+    ch += ch_step;
+    if (ch >= c) ch -= c;
+  }
+}
+
+bool bad_shape(int64_t rows, int c) { return rows <= 0 || c <= 0; }
+
+// The float4 forms take C % 4 == 0 and 16-byte aligned tensors (nulls
+// aside).
+bool quads_ok(int c, std::initializer_list<const void*> tensors) {
+  if (c % 4 != 0) return false;
+  for (const void* t : tensors)
+    if (reinterpret_cast<uintptr_t>(t) % 16 != 0) return false;
+  return true;
+}
+
+template <bool VEC>
+cudaError_t channel_stats(const float* y, float* part, int64_t rows, int c,
+                          const Walk& w, cudaStream_t s) {
+  channel_stats_kernel<VEC><<<dim3(w.col_tiles, w.chunks), NT, 0, s>>>(
+      y, rows, c, w, part);
+  return cudaGetLastError();
+}
+
+template <bool RELU, bool RES, bool VEC>
+cudaError_t ssa_bwd(const float* g, const float* x, const float* out,
+                    const float* wv, float* dx, float* dres, int64_t rows,
+                    int c, const Walk& w, float* part, cudaStream_t s) {
+  ssa_bwd_kernel<RELU, RES, VEC><<<dim3(w.col_tiles, w.chunks), NT, 0, s>>>(
+      g, x, out, wv, dx, dres, rows, c, w, part);
+  return cudaGetLastError();
+}
+
+template <bool RELU, bool RES>
+cudaError_t ssa_bwd_any(bool vec, const float* g, const float* x,
+                        const float* out, const float* wv, float* dx,
+                        float* dres, int64_t rows, int c, const Walk& w,
+                        float* part, cudaStream_t s) {
+  return vec ? ssa_bwd<RELU, RES, true>(g, x, out, wv, dx, dres, rows, c, w,
+                                        part, s)
+             : ssa_bwd<RELU, RES, false>(g, x, out, wv, dx, dres, rows, c,
+                                         w, part, s);
+}
+
+template <bool RELU, bool RES>
+void ssa_fwd(bool vec, const float* x, const float* wv, const float* bv,
+             const float* res, float* out, int64_t rows, int c,
+             cudaStream_t s) {
+  if (vec) {
+    const int64_t quads = rows * (c / 4);
+    const int blocks = (int)std::min<int64_t>((quads + NT - 1) / NT,
+                                              4 * kTargetBlocks);
+    ssa_fwd_kernel<RELU, RES><<<blocks, NT, 0, s>>>(x, wv, bv, res, out,
+                                                    quads, c / 4);
+  } else {
+    const int64_t n = rows * c;
+    const int blocks = (int)std::min<int64_t>((n + NT - 1) / NT,
+                                              4 * kTargetBlocks);
+    ssa_fwd_scalar_kernel<RELU, RES><<<blocks, NT, 0, s>>>(x, wv, bv, res,
+                                                           out, n, c);
+  }
 }
 
 }  // namespace
@@ -327,9 +433,9 @@ extern "C" int ptt_channel_stats(const float* y, float* part, float* s1,
   if (bad_shape(rows, c)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Walk w = make_walk(rows, c);
-  channel_stats_kernel<<<dim3(w.col_tiles, w.chunks), NT, 0, s>>>(
-      y, rows, c, w, part);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = quads_ok(c, {y})
+                        ? channel_stats<true>(y, part, rows, c, w, s)
+                        : channel_stats<false>(y, part, rows, c, w, s);
   if (err != cudaSuccess) return (int)err;
   return (int)reduce(part, w.chunks, c, s1, s2, s);
 }
@@ -356,22 +462,15 @@ extern "C" int ptt_ssa_fwd(const float* x, const float* wv, const float* bv,
                            int relu, void* stream) {
   if (bad_shape(rows, c)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t quads = rows * (c / 4);
-  const int blocks = (int)std::min<int64_t>((quads + NT - 1) / NT,
-                                            4 * kTargetBlocks);
-  const int qn = c / 4;
+  const bool vec = quads_ok(c, {x, wv, bv, res, out});
   if (relu && res)
-    ssa_fwd_kernel<true, true><<<blocks, NT, 0, s>>>(x, wv, bv, res, out,
-                                                     quads, qn);
+    ssa_fwd<true, true>(vec, x, wv, bv, res, out, rows, c, s);
   else if (relu)
-    ssa_fwd_kernel<true, false><<<blocks, NT, 0, s>>>(x, wv, bv, nullptr,
-                                                      out, quads, qn);
+    ssa_fwd<true, false>(vec, x, wv, bv, nullptr, out, rows, c, s);
   else if (res)
-    ssa_fwd_kernel<false, true><<<blocks, NT, 0, s>>>(x, wv, bv, res, out,
-                                                      quads, qn);
+    ssa_fwd<false, true>(vec, x, wv, bv, res, out, rows, c, s);
   else
-    ssa_fwd_kernel<false, false><<<blocks, NT, 0, s>>>(x, wv, bv, nullptr,
-                                                       out, quads, qn);
+    ssa_fwd<false, false>(vec, x, wv, bv, nullptr, out, rows, c, s);
   return (int)cudaGetLastError();
 }
 
@@ -385,22 +484,20 @@ extern "C" int ptt_ssa_bwd(const float* g, const float* x, const float* out,
   if (bad_shape(rows, c) || (relu && !out)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Walk w = make_walk(rows, c);
-  const dim3 grid(w.col_tiles, w.chunks);
+  const bool vec = quads_ok(c, {g, x, out, wv, dx, dres});
+  cudaError_t err;
   if (relu && dres)
-    ssa_bwd_kernel<true, true><<<grid, NT, 0, s>>>(g, x, out, wv, dx, dres,
-                                                   rows, c, w, part);
+    err = ssa_bwd_any<true, true>(vec, g, x, out, wv, dx, dres, rows, c, w,
+                                  part, s);
   else if (relu)
-    ssa_bwd_kernel<true, false><<<grid, NT, 0, s>>>(g, x, out, wv, dx,
-                                                    nullptr, rows, c, w,
-                                                    part);
+    err = ssa_bwd_any<true, false>(vec, g, x, out, wv, dx, nullptr, rows, c,
+                                   w, part, s);
   else if (dres)
-    ssa_bwd_kernel<false, true><<<grid, NT, 0, s>>>(g, x, nullptr, wv, dx,
-                                                    dres, rows, c, w, part);
+    err = ssa_bwd_any<false, true>(vec, g, x, nullptr, wv, dx, dres, rows,
+                                   c, w, part, s);
   else
-    ssa_bwd_kernel<false, false><<<grid, NT, 0, s>>>(g, x, nullptr, wv, dx,
-                                                     nullptr, rows, c, w,
-                                                     part);
-  cudaError_t err = cudaGetLastError();
+    err = ssa_bwd_any<false, false>(vec, g, x, nullptr, wv, dx, nullptr,
+                                    rows, c, w, part, s);
   if (err != cudaSuccess) return (int)err;
   return (int)reduce(part, w.chunks, c, sg, sgx, s);
 }

@@ -165,8 +165,10 @@ _SIGNATURES = {
     "ptt_ssa_fwd": (_I, [_P] * 5 + [_L, _I, _I, _P]),
     "ptt_ssa_bwd": (_I, [_P] * 9 + [_L, _I, _I, _P]),
     "ptt_table_gather": (_I, [_P, _I, _L, _I, _P, _I, _P, _P]),
-    "ptt_table_apply": (_I, [_I] + [_P] * 3 + [_I, _L, _I] + [_P] * 3
-                        + [_I, _F, _P] + [_F] * 5 + [_P]),
+    "ptt_table_apply_occupancy": (_I, [_I, _I]),
+    "ptt_table_apply": (_I, [_I] + [_P] * 3 + [_I] * 3 + [_P] * 3
+                        + [_I, _P] + [_I] * 3 + [_F, _P] + [_F] * 5
+                        + [_P]),
 }
 
 

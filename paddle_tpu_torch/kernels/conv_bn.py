@@ -26,8 +26,11 @@ contiguous NHWC tensor, viewed as [rows, C] (channels fastest):
 Each kernel's wrapper (``channel_stats_fwd``, ``dot_col_stats_fwd``,
 ``ssa_fwd``, ``ssa_bwd``) runs its plain twin (``reference_*``) for CPU
 tensors; for CUDA tensors it launches ``csrc/conv_bn.cu`` or raises.  The
-kernels take contiguous f32 tensors; #18, #20 and #21 also C % 4 == 0
-and 16-byte aligned pointers.
+kernels take contiguous f32 tensors at any channel count: #18, #20 and
+#21 move four channels as one float4 where C % 4 == 0 and the tensors
+are 16-byte aligned, and read them one by one otherwise (the reference
+launches its kernels at C = 1 and 2 and composes at 3, 5, 6, ...; the
+port launches at every C, computing the same function).
 """
 
 from __future__ import annotations
@@ -62,14 +65,6 @@ def _on_card(what, tensors):
     return True
 
 
-def _require_quads(what, tensors):
-    """#18, #20 and #21 move four channels as one float4."""
-    c = next(iter(tensors.values()))[0].shape[-1]
-    if c % 4 or any(t.data_ptr() % 16 for t, _ in tensors.values()):
-        raise ValueError(f"{what}: the kernel takes C % 4 == 0 (C = {c}) "
-                         "and 16-byte aligned tensors")
-
-
 def _launch(what, entry, *args, like):
     _build.check(entry(*args, _build.stream_of(like)), what)
     launches[what] += 1
@@ -91,7 +86,6 @@ def channel_stats_fwd(y):
     tensors = {"y": (y, y.shape)}
     if not _on_card("channel_stats", tensors):
         return reference_channel_stats(y)
-    _require_quads("channel_stats", tensors)
     c = y.shape[-1]
     s1, s2 = (torch.empty(c, device=y.device) for _ in range(2))
     lib = _build.lib()
@@ -205,7 +199,6 @@ def ssa_fwd(x, wv, bv, residual=None, relu=False):
         tensors["residual"] = (residual, x.shape)
     if not _on_card("ssa_fwd", tensors):
         return reference_ssa_fwd(x, wv, bv, residual, relu)
-    _require_quads("ssa_fwd", tensors)
     out = torch.empty_like(x)
     _launch("ssa_fwd", _build.lib().ptt_ssa_fwd, x.data_ptr(), wv.data_ptr(),
             bv.data_ptr(), None if residual is None else residual.data_ptr(),
@@ -222,7 +215,6 @@ def ssa_bwd(g, x, out, wv, has_residual, relu):
         tensors["out"] = (out, x.shape)
     if not _on_card("ssa_bwd", tensors):
         return reference_ssa_bwd(g, x, out, wv, has_residual, relu)
-    _require_quads("ssa_bwd", tensors)
     dx = torch.empty_like(x)
     dres = torch.empty_like(x) if has_residual else None
     sg, sgx = (torch.empty(c, device=x.device) for _ in range(2))

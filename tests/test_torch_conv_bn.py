@@ -5,7 +5,11 @@ Each wrapper of ``paddle_tpu_torch.kernels.conv_bn`` runs its plain twin
 for CPU tensors; the reference side is ``paddle_tpu.kernels.conv_bn`` with
 its Pallas kernels in interpret mode (``interpret=True``), from the same
 seeded numpy inputs.  Forward values and gradients (against ``jax.vjp``)
-must agree at C = 64 (the reference folds it into 128 lanes) and C = 256.
+must agree at C = 64 (the reference folds it into 128 lanes) and C = 256,
+and at the channel counts that are not a multiple of 4: C = 1 and 2,
+where the reference folds the channels into 128 lanes and launches
+(:func:`_small_shape` gives it whole folded tiles), and C = 3 and 6,
+where its plan declines and it composes in XLA.
 The ops ``batch_norm``, ``conv2d_bn``, ``pool2d``, ``cross_entropy`` and
 ``accuracy`` are held against the reference's lowerings through small
 programs.
@@ -60,12 +64,32 @@ def _no_launches():
     assert not any(kernels.launches.values()), kernels.launches
 
 
-@pytest.mark.parametrize("c", [64, 256])
+#: channel counts that are not a multiple of 4, and the reference's route
+#: at each: its Pallas kernels (folded into 128 lanes) or its composition
+SMALL_C = {1: "kernel", 2: "kernel", 3: "composed", 6: "composed"}
+
+
+def _small_shape(shape, c):
+    """``shape`` (NHWC, ending in C) at the channel counts the port's
+    kernels take as float4s; at SMALL_C, a shape of 1024 rows, so that
+    the reference's folded view at C = 1 and 2 is whole 8-row tiles and
+    its plan launches.  Checks the reference's route at SMALL_C."""
+    if c not in SMALL_C:
+        return shape
+    rows = 1024
+    route = "kernel" if CB._plan(rows, c, np.float32, True) else "composed"
+    assert route == SMALL_C[c]
+    return (4, 16, 16, c)
+
+
+@pytest.mark.parametrize("c", [64, 256, *SMALL_C])
 def test_channel_stats_matches_reference(c):
-    """#18: s1 and s2 of y [4, 6, 8, C], and the gradient into y of
-    random cotangents of both, against ``jax.vjp``."""
+    """#18: s1 and s2 of y [4, 6, 8, C] (:func:`_small_shape` at SMALL_C),
+    and the gradient into y of random cotangents of both, against
+    ``jax.vjp``."""
     rng = np.random.RandomState(c)
-    y, gs1, gs2 = _rand(rng, 4, 6, 8, c), _rand(rng, c), _rand(rng, c)
+    y = _rand(rng, *_small_shape((4, 6, 8, c), c))
+    gs1, gs2 = _rand(rng, c), _rand(rng, c)
     want, vjp = jax.vjp(lambda a: CB.channel_stats(a, interpret=True),
                         jnp.asarray(y))
     (want_gy,) = vjp((jnp.asarray(gs1), jnp.asarray(gs2)))
@@ -126,16 +150,18 @@ def test_conv_bn_stats_matches_reference(kernel, stride, padding):
     _close(tw.grad, want_dw, TOL_DOT)
 
 
-@pytest.mark.parametrize("c", [64, 256])
+@pytest.mark.parametrize("c", [64, 256, *SMALL_C])
 @pytest.mark.parametrize("residual", [False, True])
 @pytest.mark.parametrize("relu", [False, True])
 def test_scale_shift_act_matches_reference(c, residual, relu):
     """#20 forward and #21 backward in each residual and ReLU mode:
-    out, and dx, dwv, dbv (and dresidual), against ``jax.vjp``."""
+    out, and dx, dwv, dbv (and dresidual), against ``jax.vjp``; x [2, 4,
+    8, C] (:func:`_small_shape` at SMALL_C)."""
     rng = np.random.RandomState(c + 2 * residual + relu)
-    x, g = _rand(rng, 2, 4, 8, c), _rand(rng, 2, 4, 8, c)
+    shape = _small_shape((2, 4, 8, c), c)
+    x, g = _rand(rng, *shape), _rand(rng, *shape)
     wv, bv = _rand(rng, c) + 1.0, _rand(rng, c)
-    res = _rand(rng, 2, 4, 8, c) if residual else None
+    res = _rand(rng, *shape) if residual else None
     primals = [x, wv, bv] + ([res] if residual else [])
 
     def f(*a):
@@ -248,41 +274,49 @@ def test_batch_norm_matches_reference_program(is_test):
                    scope.find_var("batch_norm_0.b_0"))
 
 
-def _conv_bn_program(residual, act, is_test):
+def _conv_bn_program(residual, act, is_test, c=32, side=8):
     prog, startup = pt.Program(), pt.Program()
     with fw.guard_unique_name():
         with pt.program_guard(prog, startup):
-            x = layers.data(name="x", shape=[8, 8, 16], dtype="float32")
-            r = (layers.data(name="r", shape=[4, 4, 32], dtype="float32")
-                 if residual else None)
-            y = layers.conv2d_bn(x, 32, 3, stride=2, padding=1,
+            x = layers.data(name="x", shape=[side, side, 16],
+                            dtype="float32")
+            r = (layers.data(name="r", shape=[side // 2, side // 2, c],
+                             dtype="float32") if residual else None)
+            y = layers.conv2d_bn(x, c, 3, stride=2, padding=1,
                                  act=act or None, residual=r,
                                  is_test=is_test, data_format="NHWC")
     return prog, startup, y
 
 
-@pytest.mark.parametrize("residual,act,is_test", [
-    (False, "relu", False), (True, "relu", False), (False, "", False),
-    (True, "relu", True)])
-def test_conv2d_bn_matches_reference_program(residual, act, is_test):
+@pytest.mark.parametrize("residual,act,is_test,c", [
+    pytest.param(False, "relu", False, 32, id="False-relu-False"),
+    pytest.param(True, "relu", False, 32, id="True-relu-False"),
+    pytest.param(False, "", False, 32, id="False--False"),
+    pytest.param(True, "relu", True, 32, id="True-relu-True"),
+    *(pytest.param(c % 2 == 0, "relu", False, c, id=f"c{c}")
+      for c in SMALL_C)])
+def test_conv2d_bn_matches_reference_program(residual, act, is_test, c):
     """The ``conv2d_bn`` op (3x3 stride 2: ``F.conv2d`` and #18, then
     #20): the output and the running statistics against the reference's
     op, in training and at is_test (the composition over the running
-    statistics)."""
-    prog, startup, y = _conv_bn_program(residual, act, is_test)
+    statistics); with C output channels, at SMALL_C on 4 images of 32 x
+    32 (1024 output rows: the reference launches at C = 1 and 2)."""
+    side = 32 if c in SMALL_C else 8
+    prog, startup, y = _conv_bn_program(residual, act, is_test, c, side)
     exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
     exe.run(startup, scope=scope)
     rng = np.random.RandomState(3 + residual)
     names = ("conv2d_0.w_0", "batch_norm_0.w_0", "batch_norm_0.b_0",
              "batch_norm_0.mean_0", "batch_norm_0.var_0")
     state = {n: np.asarray(scope.find_var(n)) for n in names}
-    state["batch_norm_0.mean_0"] = _rand(rng, 32, scale=0.1)
-    state["batch_norm_0.var_0"] = rng.rand(32).astype(np.float32) + 0.5
+    state["batch_norm_0.mean_0"] = _rand(rng, c, scale=0.1)
+    state["batch_norm_0.var_0"] = rng.rand(c).astype(np.float32) + 0.5
     for name, value in state.items():
         scope.set_var(name, value)
-    feed = {"x": _rand(rng, 2, 8, 8, 16)}
+    n = 4 if c in SMALL_C else 2
+    feed = {"x": _rand(rng, n, side, side, 16)}
     if residual:
-        feed["r"] = _rand(rng, 2, 4, 4, 32)
+        feed["r"] = _rand(rng, n, side // 2, side // 2, c)
     (want,) = exe.run(prog, feed=feed, fetch_list=[y], scope=scope)
     got, mean_out, var_out = nn_ops.conv2d_bn(
         _t(feed["x"]), *(_t(state[n]) for n in names),

@@ -269,3 +269,240 @@ def test_auc_matches_reference_op():
         for mine, var in zip((stat_pos, stat_neg), states):
             np.testing.assert_array_equal(
                 mine.numpy(), np.asarray(scope.find_var(var.name)))
+
+
+# -- #23's plan and the launches, without a card ------------------------------
+
+PLAN_S, PLAN_K, PLAN_V = 3, 600, 1000
+PLAN_MIXES = ("uniform", "planted", "zipf", "equal", "sentinel", "empty")
+
+
+def _plan_ids(mix, seed=0, s=PLAN_S, k=PLAN_K, v=PLAN_V):
+    """[S, K] int32 ids of one of PLAN_MIXES: uniform; planted runs of 6
+    and 51 (a warp's and a block's at D = 10) with sentinels and a negative
+    id; zipf(1.1) draws (a few runs of tens of rows); one id everywhere;
+    the sentinel everywhere; no ids at all."""
+    rng = np.random.RandomState(seed)
+    if mix == "empty":
+        return np.zeros((s, 0), np.int32)
+    if mix == "uniform":
+        ids = rng.randint(0, v, (s, k))
+    elif mix == "planted":
+        ids = rng.randint(0, v, (s, k))
+        ids[:, 100:105] = ids[:, 0:1]
+        ids[:, 200:250] = ids[:, 1:2]
+        ids[:, -16:] = v
+        ids[:, 7] = -4
+    elif mix == "zipf":
+        ids = (rng.zipf(1.1, (s, k)) - 1) % v
+    elif mix == "equal":
+        ids = np.full((s, k), 17)
+    else:
+        ids = np.full((s, k), v)
+    return ids.astype(np.int32)
+
+
+def _stable_sorted(ids, v):
+    """Each slot's ids stably sorted with those outside [0, v) as v (the
+    kernel's keys), and the positions they came from."""
+    keys = np.where((ids >= 0) & (ids < v), ids, v)
+    order = np.argsort(keys, axis=1, kind="stable")
+    return np.take_along_axis(keys, order, 1), order
+
+
+@pytest.mark.parametrize("sms", [2, 132])
+@pytest.mark.parametrize("d", [1, 10])
+@pytest.mark.parametrize("mix", PLAN_MIXES)
+def test_apply_plan_covers_every_run(mix, d, sms):
+    """apply_items (the kernel's split of #23's runs over lanes, warps
+    and blocks) puts every run of a valid (slot, id) in exactly one item,
+    of the kind its length calls for, on a unit of the plan's grid; and a
+    float32 sum of each run's rows in the plan's order, left to right,
+    is bit-equal to merge_slot_rows' sums."""
+    ids = _plan_ids(mix)
+    s_n, k = ids.shape
+    rows = np.random.RandomState(1).randn(s_n, k, d).astype(np.float32)
+    plan = K.apply_plan(s_n, k, d, PLAN_V, sms, 4)
+    assert plan.sort and plan.grid == 4 * sms
+    assert plan.scratch == s_n * (12 * k + 4)
+    sids, order = _stable_sorted(ids, PLAN_V)
+    items = K.apply_items(plan, d, sids, PLAN_V)
+    seen = {}
+    for kind, unit, s, st, n in items:
+        assert (s, int(sids[s, st])) not in seen
+        seen[(s, int(sids[s, st]))] = (kind, st, n)
+        limit = plan.grid * (1 if kind == "block" else K.THREADS // 32)
+        assert 0 <= unit < limit
+        want_kind = ("block" if n > K.WARP_MAX else
+                     "warp" if n > K.SHORT_MAX[d] else "lanes")
+        assert kind == want_kind
+    for s in range(s_n):
+        ok = (ids[s] >= 0) & (ids[s] < PLAN_V)
+        uniq, counts = np.unique(ids[s][ok], return_counts=True)
+        assert {i for (t, i) in seen if t == s} == set(uniq.tolist())
+        for i, c in zip(uniq, counts):
+            assert seen[(s, int(i))][2] == c
+    uids, mrows = K.merge_slot_rows(_t(ids), _t(rows), PLAN_V)
+    uids, mrows = uids.numpy(), mrows.numpy()
+    for (s, i), (kind, st, n) in seen.items():
+        g = rows[s, order[s, st]].copy()
+        for j in range(1, n):
+            g = g + rows[s, order[s, st + j]]
+        at = int(np.nonzero(uids[s] == i)[0][0])
+        np.testing.assert_array_equal(g, mrows[s, at])
+
+
+def _radix_model(keys, widths, threads=K.THREADS, items=K.SORT_MAX // K.THREADS):
+    """The kernel's block sort in numpy: thread t holds items [16 t, 16 t +
+    16); a pass ranks each thread's items by digit, scans the (digit,
+    thread) counts digit-major and scatters.  Returns the positions in
+    sorted order."""
+    n = threads * items
+    k = np.full(n, keys.max(initial=0) + 1, np.int64)
+    k[:len(keys)] = keys
+    v = np.arange(n)
+    shift = 0
+    for w in widths:
+        dig = ((k >> shift) & ((1 << w) - 1)).reshape(threads, items)
+        onehot = dig[..., None] == np.arange(1 << w)
+        rank = (np.cumsum(onehot, 1) - onehot)[
+            np.arange(threads)[:, None], np.arange(items), dig]
+        counts = onehot.sum(1)                        # [threads, digits]
+        flat = counts.T.reshape(-1)                   # digit-major
+        offset = (np.cumsum(flat) - flat).reshape(1 << w, threads).T
+        dst = offset[np.arange(threads)[:, None], dig] + rank
+        nk, nv = np.empty_like(k), np.empty_like(v)
+        nk[dst.reshape(-1)] = k
+        nv[dst.reshape(-1)] = v
+        k, v = nk, nv
+        shift += w
+    return v[:len(keys)]
+
+
+@pytest.mark.parametrize("mix", PLAN_MIXES)
+@pytest.mark.parametrize("k", [600, K.SORT_MAX])
+def test_radix_sort_model_matches_stable_argsort(mix, k):
+    """A numpy model of the launch's sort (a block's LSD radix passes at the
+    plan's digit widths) gives np.argsort(kind="stable") of the keys."""
+    ids = _plan_ids(mix, seed=2, k=k, v=1000001)
+    plan = K.apply_plan(ids.shape[0], k, 10, 1000001, 132, 4)
+    assert plan.digit_widths() == (5,) * 4
+    keys, _ = _stable_sorted(ids, 1000001)
+    raw = np.where((ids >= 0) & (ids < 1000001), ids, 1000001)
+    for s in range(ids.shape[0]):
+        got = _radix_model(raw[s], plan.digit_widths())
+        np.testing.assert_array_equal(got, np.argsort(raw[s],
+                                                      kind="stable"))
+
+
+class _Recorder:
+    """A stand-in for the kernel library that records each entry point's
+    arguments (and, for #23, the keys and order it was handed)."""
+
+    def __init__(self, per_sm=4):
+        self.calls, self.per_sm = [], per_sm
+
+    def ptt_table_apply_occupancy(self, mode, d):
+        self.calls.append(("occupancy", mode, d))
+        return self.per_sm
+
+    def ptt_table_apply(self, *args):
+        import ctypes
+
+        s_n, k = args[4], args[10]
+        keys = np.ctypeslib.as_array(
+            (ctypes.c_int32 * (s_n * k)).from_address(args[7])).copy()
+        order = None if args[8] is None else np.ctypeslib.as_array(
+            (ctypes.c_int64 * (s_n * k)).from_address(args[8])).copy()
+        self.calls.append(("apply", args, keys.reshape(s_n, k), order))
+        return 0
+
+    def ptt_table_gather(self, *args):
+        self.calls.append(("gather", args))
+        return 0
+
+
+@pytest.fixture
+def recorder(monkeypatch):
+    from paddle_tpu_torch.kernels import _build
+
+    lib = _Recorder()
+    monkeypatch.setattr(_build, "lib", lambda: lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 7)
+    monkeypatch.setattr(K, "sm_count", lambda device: 132)
+    K._device_apply_plan.cache_clear()
+    K._GROUPS.clear()
+    kernels.reset_launches()
+    yield lib
+    K._device_apply_plan.cache_clear()
+    K._GROUPS.clear()
+
+
+@pytest.mark.parametrize("k", [600, K.SORT_MAX + 4])
+@pytest.mark.parametrize("adam", [True, False])
+def test_apply_launch_passes_the_plan_to_the_entry_point(recorder, adam, k):
+    """#23's wrapper makes the plan from the shape, the card's SM count
+    and the kernel's occupancy, and hands the entry point the group's
+    pointers, the ids (K <= SORT_MAX: as given, the launch sorts them;
+    beyond: stably sorted by torch.sort with those outside [0, V) as V,
+    with their positions), the rows, the scratch and the plan's integers;
+    one launch is counted."""
+    d, v = 10, PLAN_V
+    ids = _t(_plan_ids("planted", k=k))
+    s_n = ids.shape[0]
+    rows = torch.zeros(s_n, k, d)
+    params = [torch.zeros(v, d) for _ in range(s_n)]
+    m1s = [torch.zeros(v, d) for _ in range(s_n)]
+    m2s = [torch.zeros(v, d) for _ in range(s_n)]
+    lr = torch.tensor([0.5])
+    consts = (0.9, 0.1, 0.999, 0.001, 1e-8)
+    if adam:
+        K._launch_apply(1, params, m1s, m2s, ids, rows, 0.0, lr, consts)
+    else:
+        K._launch_apply(0, params, [], [], ids, rows, -0.25, None,
+                        (0.0,) * 5)
+    (occ, mode, od), (what, args, keys, order) = recorder.calls
+    assert (occ, mode, od) == ("occupancy", int(adam), d)
+    plan = K.apply_plan(s_n, k, d, v, 132, recorder.per_sm)
+    assert what == "apply" and args[0] == int(adam)
+    assert list(args[1]) == [t.data_ptr() for t in params]
+    if adam:
+        assert list(args[2]) == [t.data_ptr() for t in m1s]
+        assert list(args[3]) == [t.data_ptr() for t in m2s]
+    else:
+        assert args[2] is None and args[3] is None
+    assert args[4:7] == (s_n, v, d)
+    if plan.sort:
+        assert args[7] == ids.data_ptr() and order is None
+    else:
+        want_keys, want_order = _stable_sorted(ids.numpy(), v)
+        np.testing.assert_array_equal(keys, want_keys)
+        np.testing.assert_array_equal(order.reshape(s_n, k), want_order)
+    assert args[9] == rows.data_ptr() and args[10] == k
+    assert args[12:15] == plan.ints()
+    assert args[15] == (0.0 if adam else -0.25)
+    assert args[16] == (lr.data_ptr() if adam else None)
+    assert args[17:22] == (consts if adam else (0.0,) * 5)
+    assert args[22] == 7
+    assert kernels.launches["multi_table_apply"] == 1
+
+
+def test_gather_launch_passes_the_group_to_the_entry_point(recorder):
+    """#22's wrapper hands the entry point the group's pointers (checked
+    and built once for the group's addresses: a second call reuses them),
+    its shape, the ids and the output; each launch is counted."""
+    d, v = 10, PLAN_V
+    ids = _t(_plan_ids("uniform"))
+    s_n, b = ids.shape
+    tables = [torch.zeros(v, d) for _ in range(s_n)]
+    out = K._launch_gather(tables, ids)
+    again = K._launch_gather(tables, ids)
+    (w1, args), (w2, args2) = recorder.calls
+    assert w1 == w2 == "gather"
+    assert list(args[0]) == [t.data_ptr() for t in tables]
+    assert args2[0] is args[0]
+    assert args[1:4] == (s_n, v, d)
+    assert args[4] == ids.data_ptr() and args[5] == b
+    assert args[6] == out.data_ptr() and args2[6] == again.data_ptr()
+    assert args[7] == 7 and out.shape == (s_n, b, d)
+    assert kernels.launches["multi_table_gather"] == 2

@@ -66,7 +66,19 @@ Phases, each fatal on failure:
    The dropout-add kernels (#16, #17) are checked at [32*256, 512] f32:
    with x = 1 and residual 0, #16 must give the twin's keep pattern
    exactly, with a keep share within a chi-square bound of 0.9; #17 must
-   equal its twin bit for bit.  The conv + batch-norm kernels (#18-#21) are checked at ResNet-50's shapes
+   equal its twin bit for bit.  The bf16 instantiations (amp) are held
+   against their bf16 twins on the card at the amp step's shapes: #16
+   (with and without a residual) and #17 at [32*256, 512] bit for bit;
+   #1 and the pair #2 + #3 (and #2, #3 alone) on QKV_CASES, #4, #6, #7 on
+   AMP_FLASH_CASES (the cross-attention, the decoder bias, causal with a
+   masked row, a ragged causal t 129), at rates 0 and 0.1, within one
+   bf16 step (``compare_bf16``), each call repeated for equal bits, and
+   timed beside masked ``F.scaled_dot_product_attention`` or
+   ``F.multi_head_attention_forward`` in bf16; their bounds count 2
+   bytes an element and the dense bf16 tensor-core rate (989 TFLOP/s).
+   ``check_gemm`` also holds ``gemm.cuh`` at the amp step's element
+   types (bf16 x bf16 -> f32 and -> bf16, f32 x bf16 and bf16 x f32 ->
+   bf16) beside ``torch.matmul`` in bf16.  The conv + batch-norm kernels (#18-#21) are checked at ResNet-50's shapes
    at batch 256 (CBN_*_CASES: the stem, stage-1 and stage-4 sites, #19 at
    a strided shortcut, the stage-1 conv1 and a ragged M 1000, K 72, N 100
    too, #20/#21 with and without residual and ReLU; #18, #20 and #21 also
@@ -194,10 +206,21 @@ Phases, each fatal on failure:
    steps with fresh seeds on each kernel route (median step ms, tokens/s,
    f32 peak share by ``bench.py``'s ``bert_train_flops_per_token``, peak
    memory), whose loss must fall;
+   (j) bf16 amp training as ``bench_transformer`` runs it by default
+   (``amp.enable``: the reference's cast policy; the default route at
+   dropout 0.1, batch 32, length 256, Adam 1e-4) from (d)'s initial
+   weights: per step 12 each of #1-#3 and 6 each of #4, #6, #7 in bf16,
+   30 each of #16 and #17 in bf16 (the residual sites) and 2 each in f32
+   (the embedding sites), no f32 attention launch.  Step 1 under (f)'s
+   seeds runs twice for equal gradient bits, every gradient f32, and is
+   held against (f)'s float64 step (TOL_AMP_LOSS, TOL_AMP_GRAD); then 10
+   timed steps with fresh seeds (median step ms, target tokens/s, the
+   bf16 peak share, peak memory) beside (f)'s f32 step;
 4. where the time goes: torch.profiler over one prefill and 16 decode
    steps at each batch on the ring cache and at b=64 on paged pools (the
    megastep's and the FFN's device ms a step beside the idle share), and
-   over one training step on each route, on the dropout route, of
+   over one training step on each route, on the dropout route, under
+   amp (j), of
    ResNet-50, of DeepFM (with #22's and #23's device ms a step) and of
    BERT-base on both kernel routes: device time by kernel beside host
    wall time, and for
@@ -208,7 +231,8 @@ Phases, each fatal on failure:
 Prints the card and its power limit, the timings, one JSON line with a
 record per kernel, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, without a CUDA card or without the package
-beside it.  f32 throughout, TF32 off for matmuls and cuDNN.
+beside it.  f32 with TF32 off for matmuls and cuDNN, but for the bf16
+checks of phase 2 and the amp step (j).
 """
 
 from __future__ import annotations
@@ -541,11 +565,11 @@ def check_ffn(x, ffn, b, name, replaces, label=""):
 
 
 def timed_record(name, source, replaces, err, fn, plain, flops, nbytes,
-                 library, b, int_ops=0):
+                 library, b, int_ops=0, bound_fn=None):
     """A kernel record: fn and plain timed alone after an L2 flush, the
-    bound from flops, int_ops and nbytes, library timed where there is
-    one."""
-    bound_ms, bound_by = bound(flops, nbytes, int_ops)
+    bound from flops, int_ops and nbytes (by ``bound_fn``, default
+    :func:`bound`), library timed where there is one."""
+    bound_ms, bound_by = (bound_fn or bound)(flops, nbytes, int_ops)
     ms = cuda_ms(fn)
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=err, ms=ms, plain_ms=cuda_ms(plain),
@@ -1295,7 +1319,7 @@ def _library_mha(x, w_qkv, w_out, bias, g, n_head, causal):
     import torch.nn.functional as F
 
     b, t, dm = x.shape
-    mask = torch.zeros(1, 1, t, t, device=x.device)
+    mask = torch.zeros(1, 1, t, t, device=x.device, dtype=x.dtype)
     if bias is not None:
         mask = mask + bias
     if causal:
@@ -1539,6 +1563,43 @@ def check_gemm(gen):
             rec["vs_float64"] = f64
         out.append(rec)
         del a, b, got, again, want
+    for name, m, n, k, a_t, b_t, split, a_bf, b_bf, c_bf in GEMM_AMP_CASES:
+        a = (randn(gen, k, m, scale=k ** -0.5).t() if a_t
+             else randn(gen, m, k, scale=k ** -0.5))
+        b = randn(gen, n, k).t() if b_t else randn(gen, k, n)
+        a = a.bfloat16() if a_bf else a
+        b = b.bfloat16() if b_bf else b
+        a, b = (a.t().contiguous().t() if t_ else a.contiguous()
+                for a, t_ in ((a, a_t), (b, b_t)))
+        c_dtype = torch.bfloat16 if c_bf else torch.float32
+        got = kg.gemm(a, b, split, c_dtype)
+        again = kg.gemm(a, b, split, c_dtype)
+        want = kg.reference_gemm(a, b, c_dtype)
+        torch.cuda.synchronize()
+        require(got.dtype == c_dtype and torch.equal(got, again),
+                f"gemm {name}: dtype or repeat differs")
+        err = (compare_bf16(f"gemm {name}", got, want) if c_bf
+               else compare(f"gemm {name}", got, want, TOL_KERNEL))
+        la, lb = a.bfloat16(), b.bfloat16()
+        flops = 2 * m * n * k
+        nbytes = (a.element_size() * m * k + b.element_size() * k * n
+                  + got.element_size() * m * n)
+        rec = timed_record(
+            "gemm", "paddle_tpu_torch/csrc/gemm.cuh",
+            "none: the tile inside #1's y and #2 + #3 in bf16 (amp)", err,
+            lambda: kg.gemm(a, b, split, c_dtype),
+            lambda: kg.reference_gemm(a, b, c_dtype), flops, nbytes,
+            lambda: torch.matmul(la, lb), m, bound_fn=bound_bf16)
+        rec.update(case=name, m=m, n=n, k=k, a_kmajor=a_t, b_kmajor=not b_t,
+                   dtypes=[str(t.dtype)[6:] for t in (a, b, got)],
+                   tflops=flops / rec["ms"] / 1e9,
+                   bf16_peak_share=flops / rec["ms"] / 1e9
+                   / PEAK_BF16_FLOPS * 1e12,
+                   peak_share=flops / rec["ms"] / 1e9 / PEAK_F32_FLOPS
+                   * 1e12,
+                   matmul_tflops=flops / rec["library_ms"] / 1e9)
+        out.append(rec)
+        del a, b, la, lb, got, again, want
     return out
 
 
@@ -1549,6 +1610,20 @@ def check_gemm(gen):
 GEMM_CASES = (("dx = dqkv w_qkv^T", 8192, 512, 1536, False, True, False),
               ("dW_qkv = x^T dqkv", 512, 1536, 8192, True, False, True),
               ("q|k|v = x w_qkv", 8192, 1536, 512, False, False, False))
+#: the amp step's products on gemm.cuh's tile in the element types of the
+#: bf16 kernels (amp): (name, M, N, K, a transposed, b transposed, split,
+#: a bf16, b bf16, c bf16), each held against ``reference_gemm`` (f32
+#: arithmetic on the same operands) and timed beside ``torch.matmul`` of
+#: the operands in bf16
+GEMM_AMP_CASES = (
+    ("bf16 q|k|v = x w_qkv (bf16 x bf16 -> f32)", 8192, 1536, 512, False,
+     False, False, True, True, False),
+    ("bf16 dx = dqkv w_qkv^T (f32 x bf16 -> bf16)", 8192, 512, 1536, False,
+     True, False, False, True, True),
+    ("bf16 dW_qkv = x^T dqkv (bf16 x f32 -> bf16)", 512, 1536, 8192, True,
+     False, True, True, False, True),
+    ("bf16 y = ctx W_out (bf16 x bf16 -> bf16)", 8192, 512, 512, False,
+     False, True, True, True, True))
 #: the pair's dW_qkv at BERT-base (b 128, t 128, d_model 768, 12 heads),
 #: where C13's slab depth decides the sum's error
 GEMM_BERT_DW = ("BERT dW_qkv = x^T dqkv", 768, 2304, 16384, True, False,
@@ -1881,6 +1956,326 @@ def check_dropout_add(gen):
         0.0, lambda: kde.dropout_add_bwd(g, DROPOUT, seed),
         lambda: kde.reference_dropout_add_bwd(g, DROPOUT, seed), 0,
         2 * F32 * n, None, TRAIN_BATCH, int_ops=HASH_OPS * n)
+    return fwd, bwd
+
+
+#: bf16 (amp) kernels against their bf16 twins on the card: the same bf16
+#: operands, f32 arithmetic in other orders, each output rounded to bf16
+#: (8 significant bits), so one bf16 step apart at most, TOL_BF16 = 2^-7 of
+#: the value, plus, where a sum cancels after an intermediate rounding
+#: (#1's ctx before y), one step (2^-8) of the tensor's largest element;
+#: lse and delta are f32 and held to TOL_KERNEL.  #16 and #17 in bf16 must
+#: equal their twins bit for bit.
+TOL_BF16 = 2.0 ** -7
+#: H100 SXM dense bf16 tensor-core FLOP/s: the least time the card could
+#: take for a bf16 function's products (the bound of every bf16 record)
+PEAK_BF16_FLOPS = 989e12
+BF16 = 2
+
+
+def compare_bf16(name, got, want, steps=1):
+    """Max abs error; raises unless |got - want| <= steps * (TOL_BF16 *
+    |want| + 2^-8 * max |want|)."""
+    got, want = got.float(), want.float()
+    require(torch.isfinite(got).all().item(), f"{name}: non-finite output")
+    err = (got - want).abs()
+    scale = want.abs().max().item()
+    worst = (err - steps * (TOL_BF16 * want.abs() + 2.0 ** -8 * scale)
+             ).max().item()
+    max_abs = err.max().item()
+    require(worst <= 0, f"{name}: max abs err {max_abs} over {steps} bf16 "
+            f"step(s) (largest magnitude {scale})")
+    return max_abs
+
+
+def bound_bf16(flops, nbytes, int_ops=0):
+    """(bound_ms, bound_by) of a bf16 function: bytes over the HBM rate
+    against its FLOPs at the dense bf16 tensor-core rate (the int32 hash
+    operations run on the CUDA cores beside them)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(flops / PEAK_BF16_FLOPS, int_ops / PEAK_INT32_OPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bf16(*tensors):
+    return [None if a is None else a.bfloat16().contiguous()
+            for a in tensors]
+
+
+#: the bthd kernels' bf16 cases: (name, tq, tk, bias, causal); the record
+#: case is the amp step's cross-attention (decoder queries over the
+#: encoder's keys under the source padding bias)
+AMP_FLASH_CASES = (("cross tq 256 tk 256", 256, 256, "pad", False),
+                   ("decoder self", 256, 256, "decoder", False),
+                   ("causal tq>tk, -1e30 row", 256, 128, "masked", True),
+                   ("ragged causal tq 129 tk 129", 129, 129, "decoder",
+                    True))
+
+
+def check_flash_attention_bf16(gen):
+    """#4, #6 and #7 in bf16 (amp) against their bf16 twins on
+    AMP_FLASH_CASES at rates 0 and DROPOUT, each called twice for equal
+    bits, by ``compare_bf16``; at the record case each timed beside its
+    twin and masked ``F.scaled_dot_product_attention`` in bf16 (its
+    backward for #6 and #7), bounds at 2 bytes an element and the bf16
+    tensor-core rate.  Returns {kernel name: record}."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import attention as ka
+
+    b, h, dh = TRAIN_BATCH, BASE["n_head"], BASE["d_key"]
+    scale = dh ** -0.5
+    out = {}
+    for case, tq, tk, bias_kind, causal in AMP_FLASH_CASES:
+        q, k, v, do, bias = _bf16(*_flash_inputs(gen, tq, tk, bias_kind,
+                                                 causal))
+        errs = {}
+        for rate in (0.0, DROPOUT):
+            kw = dict(scale=scale, causal=causal, dropout_rate=rate,
+                      dropout_seed=int(torch.randint(0, 2 ** 32, (1,),
+                                                     generator=gen)))
+            what = f"bf16 {case} rate {rate}"
+            o, lse = ka.flash_fwd(q, k, v, bias, **kw)
+            _require_same_bits(f"flash_fwd {what}", (o, lse),
+                               ka.flash_fwd(q, k, v, bias, **kw))
+            want_o, want_lse = ka.reference_flash_fwd(q, k, v, bias, **kw)
+            hidden = torch.isinf(want_lse)
+            require(o.dtype == torch.bfloat16 and torch.equal(
+                hidden, torch.isinf(lse)), f"flash_fwd {what}: masked rows "
+                "or dtype differ")
+            err_f = max(compare_bf16(f"flash_fwd {what}", o, want_o),
+                        compare(f"flash_fwd {what} lse", lse[~hidden],
+                                want_lse[~hidden], TOL_KERNEL))
+            delta = (do.float() * o.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            bw = (q, k, v, bias, do, lse, delta)
+            dq = ka.flash_bwd_dq(*bw, **kw)
+            _require_same_bits(f"flash_bwd_dq {what}", (dq,),
+                               (ka.flash_bwd_dq(*bw, **kw),))
+            dk, dv = ka.flash_bwd_dkv(*bw, **kw)
+            _require_same_bits(f"flash_bwd_dkv {what}", (dk, dv),
+                               ka.flash_bwd_dkv(*bw, **kw))
+            want_dk, want_dv = ka.reference_flash_bwd_dkv(*bw, **kw)
+            errs[rate] = (err_f, compare_bf16(
+                f"flash_bwd_dq {what}", dq,
+                ka.reference_flash_bwd_dq(*bw, **kw)),
+                max(compare_bf16(f"flash_bwd_dkv {what} dk", dk, want_dk),
+                    compare_bf16(f"flash_bwd_dkv {what} dv", dv, want_dv)))
+            del want_dk, want_dv
+            if rate == 0.0:
+                bw0, kw0 = bw, kw
+            else:
+                bw_d, kw_d = bw, kw
+        if case != AMP_FLASH_CASES[0][0]:
+            continue
+        mask = bias
+        lq, lk, lv = (a.transpose(1, 2).detach().requires_grad_()
+                      for a in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
+                                                 scale=scale)
+        lib_do = do.transpose(1, 2)
+
+        def lib_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(
+                    lq, lk, lv, attn_mask=mask, scale=scale)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (lq, lk, lv), lib_do,
+                                       retain_graph=True)
+
+        flops = b * h * _visible_pairs(tq, tk, causal) * dh
+        rows, keys = BF16 * b * h * tq * dh, BF16 * b * h * tk * dh
+        bias_bytes = BF16 * bias.numel()
+        stats = F32 * 2 * b * h * tq
+        hashes = ATTN_HASH_OPS * b * h * _visible_pairs(tq, tk, causal)
+        src = "paddle_tpu_torch/csrc/flash_attention.cu"
+        for i, (kernel, line, fn, twin, mult, nbytes) in enumerate((
+                ("flash_fwd", 550, ka.flash_fwd, ka.reference_flash_fwd, 4,
+                 2 * rows + 2 * keys + bias_bytes + stats // 2),
+                ("flash_bwd_dq", 618, ka.flash_bwd_dq,
+                 ka.reference_flash_bwd_dq, 6,
+                 3 * rows + 2 * keys + bias_bytes + stats),
+                ("flash_bwd_dkv", 678, ka.flash_bwd_dkv,
+                 ka.reference_flash_bwd_dkv, 8,
+                 2 * rows + 4 * keys + bias_bytes + stats))):
+            args, args_d = ((q, k, v, bias), (q, k, v, bias)) if i == 0 \
+                else (bw0, bw_d)
+            rec = timed_record(
+                kernel + "_bf16", src,
+                f"paddle_tpu/kernels/attention.py:{line}", errs[0.0][i],
+                lambda: fn(*args, **kw0), lambda: twin(*args, **kw0),
+                mult * flops, nbytes, lib_fwd if i == 0 else lib_bwd, b,
+                bound_fn=bound_bf16)
+            rec.update(case=case, dtype="bf16",
+                       dropout_max_abs_err=errs[DROPOUT][i],
+                       dropout_ms=cuda_ms(lambda: fn(*args_d, **kw_d)),
+                       dropout_bound_ms=bound_bf16(mult * flops, nbytes,
+                                                   hashes)[0])
+            out[kernel + "_bf16"] = rec
+        del lib_out
+    return out
+
+
+def check_qkv_bf16(gen):
+    """#1 and the pair #2 + #3 in bf16 (amp) against their bf16 twins on
+    QKV_CASES at rates 0 and DROPOUT, each called twice for equal bits, by
+    ``compare_bf16`` (y, ctx, dx, dW_qkv, dW_out bf16; lse f32); a masked
+    row's ctx must be 0.  At the record case #1, the pair, and #2 and #3
+    alone are timed beside their twins and ``F.multi_head_attention_
+    forward`` in bf16 (its backward for the pair), bounds at 2 bytes an
+    element and the bf16 tensor-core rate.  Returns {kernel name: record}
+    (#2's and #3's carry the pair's under "pair")."""
+    from paddle_tpu_torch.kernels import attention as ka
+
+    b, h, dh, dm = (TRAIN_BATCH, BASE["n_head"], BASE["d_key"],
+                    BASE["d_model"])
+    hd = h * dh
+    out = {}
+    for case, t, bias_kind, causal in QKV_CASES:
+        x, w_qkv, w_out, g, bias = _bf16(*_qkv_inputs(gen, t, bias_kind))
+        fw = (x, w_qkv, w_out, bias)
+        errs, bws = {}, {}
+        for rate in (0.0, DROPOUT):
+            kw = dict(n_head=h, scale=dh ** -0.5, causal=causal,
+                      dropout_rate=rate, dropout_seed=int(torch.randint(
+                          0, 2 ** 32, (1,), generator=gen)))
+            what = f"bf16 {case} rate {rate}"
+            got = ka.qkv_attention_fwd(*fw, **kw)
+            again = ka.qkv_attention_fwd(*fw, **kw)
+            want = ka.reference_qkv_fwd(*fw, **kw)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, c) for a, c in zip(got, again)),
+                    f"qkv_attention_fwd {what}: two calls differ")
+            (y, ctx, lse), (want_y, want_ctx, want_lse) = got, want
+            hidden = torch.isinf(want_lse)
+            require(y.dtype == ctx.dtype == torch.bfloat16 and torch.equal(
+                hidden, torch.isinf(lse)) and not ctx[hidden.transpose(
+                    1, 2)].any().item(), f"qkv_attention_fwd {what}: dtype "
+                "or masked rows differ")
+            err_f = max(compare_bf16(f"qkv_attention_fwd {what} ctx", ctx,
+                                     want_ctx),
+                        compare_bf16(f"qkv_attention_fwd {what} y", y,
+                                     want_y),
+                        compare(f"qkv_attention_fwd {what} lse",
+                                lse[~hidden], want_lse[~hidden],
+                                TOL_KERNEL))
+            bw = (x, w_qkv, w_out, bias, g, ctx, lse)
+            errs[rate] = [err_f]
+            for kernel, fn, twin in (
+                    ("qkv_bwd", ka.qkv_bwd, ka.reference_qkv_bwd),
+                    ("qkv_bwd_dq", ka.qkv_bwd_dq, ka.reference_qkv_bwd_dq),
+                    ("qkv_bwd_dkv", ka.qkv_bwd_dkv,
+                     ka.reference_qkv_bwd_dkv)):
+                got_b = fn(*bw, **kw)
+                require(all(torch.equal(a, c) for a, c in zip(
+                    got_b, fn(*bw, **kw))),
+                    f"{kernel} {what}: two calls differ")
+                errs[rate].append(max(
+                    compare_bf16(f"{kernel} {what} part {i}", a, w)
+                    for i, (a, w) in enumerate(zip(got_b,
+                                                   twin(*bw, **kw)))))
+                del got_b
+            bws[rate] = (bw, kw)
+        if case != QKV_RECORD_CASE:
+            continue
+        (bw, kw), (bw_d, kw_d) = bws[0.0], bws[DROPOUT]
+        _, lib_fwd, lib_bwd = _library_mha(x, w_qkv, w_out, bias, g, h,
+                                           causal)
+        pairs = _visible_pairs(t, t, causal)
+        proj = 2 * b * t * dm * hd
+        attn = 2 * b * h * pairs * dh
+        hashes = ATTN_HASH_OPS * b * h * pairs
+        io = (BF16 * (b * t * hd + dm * 3 * hd + hd * dm + bias.numel())
+              + F32 * b * h * t)
+        act = BF16 * b * t * dm
+        pair_bytes = BF16 * (3 * b * t * dm + b * t * hd + bias.numel()
+                             + 2 * (dm * 3 * hd + hd * dm)) + F32 * b * h * t
+        src = "paddle_tpu_torch/csrc/qkv_attention_bwd.cu"
+        for name, source, line, err_i, fn, twin, flops, nbytes, lib in (
+                ("qkv_attention_fwd", "paddle_tpu_torch/csrc/"
+                 "qkv_attention.cu", "1377", 0, ka.qkv_attention_fwd,
+                 ka.reference_qkv_fwd, 4 * proj + 2 * attn, 2 * act + io,
+                 lib_fwd),
+                ("qkv_bwd", src, "1454 + :1546", 1, ka.qkv_bwd,
+                 ka.reference_qkv_bwd, _qkv_pair_flops(proj, attn),
+                 pair_bytes, lib_bwd),
+                ("qkv_bwd_dq", src, "1454", 2, ka.qkv_bwd_dq,
+                 ka.reference_qkv_bwd_dq, 7 * proj + 3 * attn,
+                 3 * act + io + BF16 * 2 * dm * hd, lib_bwd),
+                ("qkv_bwd_dkv", src, "1546", 3, ka.qkv_bwd_dkv,
+                 ka.reference_qkv_bwd_dkv, 8 * proj + 4 * attn,
+                 3 * act + io + BF16 * 2 * dm * hd, lib_bwd)):
+            args, args_d = (fw, fw) if err_i == 0 else (bw, bw_d)
+            rec = timed_record(
+                name + "_bf16", source,
+                f"paddle_tpu/kernels/attention.py:{line}", errs[0.0][err_i],
+                lambda: fn(*args, **kw), lambda: twin(*args, **kw), flops,
+                nbytes, lib, b, bound_fn=bound_bf16)
+            rec.update(case=case, dtype="bf16",
+                       dropout_max_abs_err=errs[DROPOUT][err_i],
+                       dropout_ms=cuda_ms(lambda: fn(*args_d, **kw_d)),
+                       dropout_bound_ms=bound_bf16(flops, nbytes,
+                                                   hashes)[0])
+            if name == "qkv_attention_fwd":
+                rec["plan"] = list(ka.qkv_fwd_plan(b, t, h,
+                                                   ka.sm_count(x.device)))
+            out[name + "_bf16"] = rec
+        for name in ("qkv_bwd_dq_bf16", "qkv_bwd_dkv_bf16"):
+            out[name]["pair"] = {k: out["qkv_bwd_bf16"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err", "dropout_ms", "dropout_bound_ms")}
+        del lib_fwd, lib_bwd
+    out.pop("qkv_bwd_bf16")
+    return out
+
+
+def check_dropout_add_bf16(gen):
+    """#16 (with and without a residual) and #17 in bf16 (amp) at
+    [32*256, 512], the amp step's residual sites: equal to their bf16
+    twins bit for bit (the reference's bf16 arithmetic) and to themselves
+    on a repeat; timed beside the twins, bounds at 2 bytes an element.
+    Returns (#16's record, #17's record)."""
+    from paddle_tpu_torch.kernels import dropout_epilogue as kde
+
+    shape = (DROPOUT_ROWS, BASE["d_model"])
+    n = DROPOUT_ROWS * BASE["d_model"]
+    seed = int(torch.randint(0, 2 ** 32, (1,), generator=gen))
+    x, res, g = _bf16(*(randn(gen, *shape) for _ in range(3)))
+    for what, fn, twin in (
+            ("dropout_add_fwd", lambda: kde.dropout_add_fwd(
+                x, res, DROPOUT, seed), lambda: kde.reference_dropout_add(
+                x, res, DROPOUT, seed)),
+            ("dropout_add_fwd no residual", lambda: kde.dropout_add_fwd(
+                x, None, DROPOUT, seed), lambda: kde.reference_dropout_add(
+                x, None, DROPOUT, seed)),
+            ("dropout_add_bwd", lambda: kde.dropout_add_bwd(
+                g, DROPOUT, seed), lambda: kde.reference_dropout_add_bwd(
+                g, DROPOUT, seed))):
+        got, again, want = fn(), fn(), twin()
+        torch.cuda.synchronize()
+        require(got.dtype == torch.bfloat16 and torch.equal(got, again)
+                and torch.equal(got, want),
+                f"{what} bf16: not the twin's bits or not repeated")
+    src = "paddle_tpu_torch/csrc/dropout_add.cu"
+    fwd = timed_record(
+        "dropout_add_fwd_bf16", src,
+        "paddle_tpu/kernels/dropout_epilogue.py:62", 0.0,
+        lambda: kde.dropout_add_fwd(x, res, DROPOUT, seed),
+        lambda: kde.reference_dropout_add(x, res, DROPOUT, seed), 0,
+        3 * BF16 * n, None, TRAIN_BATCH, int_ops=HASH_OPS * n,
+        bound_fn=bound_bf16)
+    fwd.update(dtype="bf16", twin_bit_equal=True, no_residual_ms=cuda_ms(
+        lambda: kde.dropout_add_fwd(x, None, DROPOUT, seed)),
+        no_residual_bound_ms=bound_bf16(0, 2 * BF16 * n, HASH_OPS * n)[0])
+    bwd = timed_record(
+        "dropout_add_bwd_bf16", src,
+        "paddle_tpu/kernels/dropout_epilogue.py:76", 0.0,
+        lambda: kde.dropout_add_bwd(g, DROPOUT, seed),
+        lambda: kde.reference_dropout_add_bwd(g, DROPOUT, seed), 0,
+        2 * BF16 * n, None, TRAIN_BATCH, int_ops=HASH_OPS * n,
+        bound_fn=bound_bf16)
+    bwd.update(dtype="bf16", twin_bit_equal=True)
     return fwd, bwd
 
 
@@ -3048,8 +3443,8 @@ def run_training_dropout(model, unfused, cpu32, cpu64):
     copy ``cpu64`` under (d)'s criterion (the f32 CPU copy ``cpu32``, same
     seeds, gives the CPU's own f32 error); ``unfused`` (the flag-off route,
     the same weights) must give step 1's loss within TOL_ROUTES_LOSS; then
-    the timed steps, each drawing fresh seeds.  Returns the run's
-    record."""
+    the timed steps, each drawing fresh seeds.  Returns (step 1's seeds,
+    float64 loss and gradients, for (j); the run's record)."""
     from paddle_tpu_torch import Adam, kernels
 
     L = BASE["n_layer"]
@@ -3105,7 +3500,7 @@ def run_training_dropout(model, unfused, cpu32, cpu64):
                 f"dropout training step 0: gradient of {n} off float64 by "
                 f"{card} on the card, {f32} on the CPU in f32")
         worst_grad.append((card, f32, n))
-    del grads, exact, cpu_grads
+    del grads, cpu_grads
 
     with torch.no_grad():
         unfused_loss = unfused(**feed, dropout_seeds=seeds)[0].item()
@@ -3117,7 +3512,9 @@ def run_training_dropout(model, unfused, cpu32, cpu64):
     for name, c in timed.pop("launches").items():
         counts[name] += c
     worst_grad.sort(reverse=True)
-    return dict(route="training fused dropout", batch=TRAIN_BATCH,
+    # (j) holds the amp step to the same float64 step
+    parity = dict(seeds=seeds, loss64=loss64, exact=exact)
+    return parity, dict(route="training fused dropout", batch=TRAIN_BATCH,
                 dropout_rate=DROPOUT, launches=counts,
                 # (card, float64, CPU f32) step-1 losses under one seed set
                 parity_losses=(got, loss64, cpu_losses[1]),
@@ -3127,6 +3524,92 @@ def run_training_dropout(model, unfused, cpu32, cpu64):
                 parity_grad_rel_median=[float(np.median(
                     [w[i] for w in worst_grad])) for i in range(2)],
                 cpu_parity_s=cpu_s, **timed,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+#: (j) bf16 amp against (f)'s float64 step under the same seeds.  bf16
+#: keeps 8 significant bits (a relative step of 2^-8 = 3.9e-3): every
+#: matmul output, residual sum and layer-norm output of the step is
+#: rounded to it, so no gradient of the bf16 step is closer to float64
+#: than a few such steps, and 12 + 12 layers compound them (on the CPU at 2
+#: + 2 layers, tests/test_torch_training.py: 4-7% per tensor from the same
+#: model's f32 step).  The loss, a mean over 8192 target tokens of
+#: 32000-way cross entropies of bf16 logits, within a quarter of a bf16
+#: step (1e-3) relative; each gradient tensor within 25% (norm) of
+#: float64 (measured on the H100: the loss 4e-6 off, the gradients 4.3%
+#: at the median and 8.8% at worst, the first decoder layer's)
+TOL_AMP_LOSS, TOL_AMP_GRAD = 1e-3, 0.25
+
+
+def run_training_amp(model, parity):
+    """Phase 3 (j): bf16 amp (``amp.enable``) on the default route at
+    DROPOUT from (d)'s initial weights, Transformer-base at
+    ``bench_transformer``'s config: step 1 under (f)'s seeds on (d)'s
+    parity batch, its gradients repeated to the bit by a second run and
+    f32 on every parameter, held against (f)'s float64 step by TOL_AMP_*;
+    the exact bf16 launches a step (12 each of #1-#3, 6 each of #4, #6,
+    #7, 30 of #16 and #17 at the residual sites) and the f32 #16/#17 at
+    the 2 embedding sites, no f32 attention kernel; then the timed steps
+    with fresh seeds, their bf16 peak share beside the f32 one.  Returns
+    the run's record."""
+    from paddle_tpu_torch import Adam, amp, kernels
+
+    L = BASE["n_layer"]
+    require(amp.is_enabled(model), "amp training: the model is not enabled")
+    per_step = dict(qkv_attention_fwd_bf16=2 * L, qkv_bwd_dq_bf16=2 * L,
+                    qkv_bwd_dkv_bf16=2 * L, flash_fwd_bf16=L,
+                    flash_bwd_dq_bf16=L, flash_bwd_dkv_bf16=L,
+                    dropout_add_fwd_bf16=5 * L, dropout_add_bwd_bf16=5 * L,
+                    dropout_add_fwd=2, dropout_add_bwd=2)
+    seeds, exact = parity["seeds"], parity["exact"]
+    opt = Adam(model.parameters(), learning_rate=TRAIN_LR)
+    names = {p: n for n, p in model.named_parameters()}
+    feed = _to(training_batch(seed=1), "cuda")
+    repeat = _step_grads(model, feed, dropout_seeds=seeds)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    loss, predict = model(**feed, dropout_seeds=seeds)
+    require(predict.dtype == torch.bfloat16 and loss.dtype == torch.float32,
+            f"amp training: logits {predict.dtype}, loss {loss.dtype}")
+    del predict
+    grads = {names[p]: g for p, g in opt.minimize(loss)}
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    require(counts == expected(**per_step),
+            f"amp training step 0: launches {counts}")
+    got, loss64 = loss.item(), parity["loss64"]
+    require(np.isfinite(got) and abs(got - loss64) <= TOL_AMP_LOSS
+            * abs(loss64), f"amp training: loss {got} on the card, {loss64} "
+            f"in float64")
+    _require_repeat(grads, repeat, "amp training")
+    del repeat
+    require(grads.keys() == exact.keys(),
+            "amp training: other params trained than in (f)")
+    worst_grad = []
+    for n, g in grads.items():
+        require(g.dtype == torch.float32,
+                f"amp training: the gradient of {n} reaches Adam in "
+                f"{g.dtype}")
+        card = _grad_rel(g.cpu(), exact[n])
+        require(card <= TOL_AMP_GRAD, f"amp training step 0: gradient of "
+                f"{n} off float64 by {card}")
+        worst_grad.append((card, n))
+    del grads
+    timed = _timed_training(model, opt, per_step)
+    for name, c in timed.pop("launches").items():
+        counts[name] += c
+    timed["bf16_peak_share"] = (timed["tokens_per_s"]
+                                * timed["flops_per_token"] / PEAK_BF16_FLOPS)
+    worst_grad.sort(reverse=True)
+    return dict(route="training amp bf16", batch=TRAIN_BATCH,
+                dropout_rate=DROPOUT, launches=counts,
+                # (card, float64) step-1 losses under (f)'s seeds
+                parity_losses=(got, loss64),
+                # (card vs f64, name)
+                parity_grad_rel_worst=worst_grad[:4],
+                parity_grad_rel_median=float(np.median(
+                    [w[0] for w in worst_grad])),
+                **timed,
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -3975,6 +4458,12 @@ def profile_training(model, tag, feed=None, lr=TRAIN_LR):
                 idle_share=1 - busy_us / wall_us if busy_us else None,
                 gemm_cuh_ms=_gemm_cuh_us(rows) / 1e3,
                 walks_ms=_walks_us(rows) / 1e3,
+                # cuBLAS's kernels (Hopper's bf16 ones are "nvjet_*")
+                library_gemm_ms=sum(
+                    us for name, us in rows
+                    if ("gemm" in name.lower() or "cutlass" in name
+                        or name.startswith("nvjet"))
+                    and "(anonymous namespace)" not in name) / 1e3,
                 top=[(name[:60], us / 1e3) for name, us in rows[:12]])
 
 
@@ -3982,7 +4471,7 @@ def _gemm_cuh_us(rows):
     """Device us of ``csrc/gemm.cuh``'s kernels (its GEMM tile and the
     split-K sums) among the profiler's rows."""
     return sum(us for name, us in rows
-               if "::gemm_kernel<" in name or "::sum_splits(" in name)
+               if "::gemm_kernel<" in name or "::sum_splits" in name)
 
 
 def _walks_us(rows):
@@ -4092,6 +4581,8 @@ def _builds(log, want):
                                if args.startswith("I") else "",
                                layout=("bhtd" if "Bhtd" in args else "bthd")
                                if "flash" in kernel else None,
+                               dtype="bf16" if "bfloat16" in args
+                               else "f32",
                                dropout="Lb1E" in args and "flash" in kernel,
                                smem_bytes=smem)
                     out.append(cur)
@@ -4289,13 +4780,13 @@ def main():
         kernel = name.replace("_bhtd", "") + "_kernel"
         records[(name, max(BATCHES))]["build"] = [
             {k: v for k, v in r.items() if k not in ("kernel", "layout")}
-            for r in builds if r["kernel"] == kernel
+            for r in builds if r["kernel"] == kernel and r["dtype"] == "f32"
             and r["layout"] == layout and r["source"] == "flash_attention.cu"]
     for name, layout in (("flash_fwd", "bthd"), ("flash_fwd_bhtd", "bhtd")):
         records[(name, max(BATCHES))]["build"] = [
             {k: v for k, v in r.items() if k not in ("kernel", "layout")}
             for r in tiles if r["kernel"] == "flash_fwd_kernel"
-            and r["layout"] == layout]
+            and r["layout"] == layout and r["dtype"] == "f32"]
     pair = {}
     for (name, case), r in check_qkv_training(gen).items():
         residuals = " (residuals)" if name == "qkv_attention_fwd" else ""
@@ -4332,8 +4823,9 @@ def main():
         # the instantiation of its operand layouts
         r["build"] = [{k: v for k, v in t.items() if k != "kernel"}
                       for t in tiles if t["kernel"] == "gemm_kernel"
-                      and t["template"] == f"ILb{int(r['a_kmajor'])}"
-                                           f"ELb{int(r['b_kmajor'])}EE"]
+                      and t["template"].startswith(
+                          f"ILb{int(r['a_kmajor'])}ELb{int(r['b_kmajor'])}E")
+                      and (t["dtype"] == "bf16") == ("dtypes" in r)]
         print_record(r, f" {r['case']} (M {r['m']}, N {r['n']}, K "
                         f"{r['k']})")
     plans = check_qkv_plans(gen)
@@ -4353,6 +4845,13 @@ def main():
         print_record(r, f" [{DROPOUT_ROWS}, {BASE['d_model']}] rate "
                         f"{DROPOUT}")
         records[(r["name"], max(BATCHES))] = r
+    # the bf16 instantiations (amp) at the amp step's shapes
+    amp_records = {**check_qkv_bf16(gen), **check_flash_attention_bf16(gen)}
+    for r in check_dropout_add_bf16(gen):
+        amp_records[r["name"]] = r
+    for name, r in amp_records.items():
+        print_record(r, f" {r.get('case', '')} b={r['batch']}")
+        records[(name, max(BATCHES))] = r
     # the JSON line carries each conv + BN kernel's first case
     for (name, case), r in check_conv_bn(gen).items():
         print_record(r, f" {case} b={r['batch']}")
@@ -4449,11 +4948,31 @@ def main():
         for dtype in (torch.float32, torch.float64)]
     for m in drop_models + drop_cpu:
         m.load_state_dict(init_state)
-    training_dropout = run_training_dropout(drop_models[0], drop_models[1],
-                                            *drop_cpu)
-    del drop_cpu, drop_models[1], init_state
+    amp_parity, training_dropout = run_training_dropout(
+        drop_models[0], drop_models[1], *drop_cpu)
+    del drop_cpu, drop_models[1]
     print("phase 3: " + ", ".join(f"{k} {v}"
                                   for k, v in training_dropout.items()))
+
+    # (j): bf16 amp on the default route at dropout 0.1, from the same
+    # initial weights, held against (f)'s float64 step
+    amp_model = paddle_tpu_torch.Transformer(**BASE, dropout_rate=DROPOUT)
+    amp_model.load_state_dict(init_state)
+    del init_state
+    paddle_tpu_torch.amp.enable(amp_model)
+    training_amp = run_training_amp(amp_model, amp_parity)
+    del amp_parity
+    print("phase 3: " + ", ".join(f"{k} {v}"
+                                  for k, v in training_amp.items()))
+    print(f"phase 3: training step, amp bf16 against f32 (dropout "
+          f"{DROPOUT}, fused route): {training_amp['step_ms_median']} ms "
+          f"against {training_dropout['step_ms_median']} ms, "
+          f"{training_amp['tokens_per_s']} against "
+          f"{training_dropout['tokens_per_s']} target tokens/s, bf16 peak "
+          f"share {training_amp['bf16_peak_share']} (f32 peak share "
+          f"{training_dropout['f32_peak_share']} in f32), peak memory "
+          f"{training_amp['peak_memory_gb']} against "
+          f"{training_dropout['peak_memory_gb']} GB")
     print(f"phase 3: training step, dropout {DROPOUT} against rate 0 (fused "
           f"route): {training_dropout['step_ms_median']} ms against "
           f"{training_fused['step_ms_median']} ms, "
@@ -4468,7 +4987,7 @@ def main():
     training_resnet = run_resnet(resnet)
     print("phase 3: " + ", ".join(f"{k} {v}"
                                   for k, v in training_resnet.items()))
-    t_phase = _phase_seconds("phase 3 (a)-(g)", t_phase)
+    t_phase = _phase_seconds("phase 3 (a)-(g) and (j)", t_phase)
 
     # (h): DeepFM training; and the reference demo's head width 16 served
     deepfm = paddle_tpu_torch.DeepFM(hash_dim=DEEPFM_HASH,
@@ -4531,6 +5050,7 @@ def main():
     for tag, m, kw in (("flag_off", train_model, {}),
                        ("fused", fused_train, {}),
                        ("fused_dropout", drop_models[0], {}),
+                       ("amp_bf16", amp_model, {}),
                        ("bert_bhtd", bert_fused,
                         dict(feed=bert_feed, lr=BERT_LR)),
                        ("bert_use_flash", bert_flash,
@@ -4544,7 +5064,8 @@ def main():
         print(f"phase 4: training step {tag}: wall {r['wall_ms']} ms, "
               f"device busy {r['device_busy_ms']} ms, idle share "
               f"{r['idle_share']}, gemm.cuh's kernels {r['gemm_cuh_ms']} "
-              f"ms, the backward walks {r['walks_ms']} ms")
+              f"ms, the backward walks {r['walks_ms']} ms, cuBLAS GEMMs "
+              f"{r['library_gemm_ms']} ms")
         for name, ms in r["top"]:
             print(f"    {ms:.4f} ms  {name}")
     profile_rn = profile_resnet(resnet)
@@ -4586,8 +5107,8 @@ def main():
     # launches over every counted path; the FFN counter is split between
     # the ring paths (#11) and the paged ones (#13)
     paths = runs + serving + [training, training_fused, training_dropout,
-                              training_resnet, training_deepfm, demo,
-                              *training_bert]
+                              training_amp, training_resnet, training_deepfm,
+                              demo, *training_bert]
     total = {name: sum(r["launches"][name] for r in paths)
              for name in paths[0]["launches"]}
     paged_ffn = sum(r["launches"]["ffn"] for r in paths
@@ -4602,7 +5123,9 @@ def main():
                  "flash_bwd_dq_bhtd", "flash_bwd_dkv_bhtd", "dropout_add_fwd",
                  "dropout_add_bwd", "channel_stats", "dot_col_stats",
                  "ssa_fwd", "ssa_bwd", "multi_table_gather",
-                 "multi_table_apply"):
+                 "multi_table_apply",
+                 *(name + "_bf16"
+                   for name in paddle_tpu_torch.kernels.BF16_KERNELS)):
         r = dict(records[(name, max(BATCHES))])
         r.pop("library_max_abs_err", None)
         r["launches"] = total[name]
@@ -4611,6 +5134,7 @@ def main():
     print(json.dumps({"main_path": runs, "serving": serving,
                       "training": training, "training_fused": training_fused,
                       "training_dropout": training_dropout,
+                      "training_amp": training_amp,
                       "training_resnet": training_resnet,
                       "training_deepfm": training_deepfm, "demo": demo,
                       "training_bert": training_bert,

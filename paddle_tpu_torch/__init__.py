@@ -12,6 +12,10 @@ one uint32 seed per site and step, from ``dropout_seeds=`` or drawn from
                            for k, v in make_batch(...).items()})
     opt.minimize(avg_cost)          # backward, update, gradients reset
 
+``amp.enable(model)`` trains it under the reference's bf16 cast policy
+(``paddle_tpu_torch.amp``: products and attention in bf16 through the
+kernels' bf16 instantiations, master weights, Adam and the loss in f32).
+
 Serving is greedy generation on ring or paged KV caches, one session or a
 continuous batcher:
 
@@ -70,6 +74,7 @@ plain composition by shape, as the reference's plans do, and count it in
 twin instead.  The package imports neither JAX nor ``paddle_tpu``.
 """
 
+from . import amp  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from .generation import (BlockAllocator, GenerationSession,  # noqa: F401
                          KVCache, PagedKVCache)

@@ -1,6 +1,6 @@
 // Flash attention over [b, t, h, 64] tensors (the "bthd" layout) and over
 // [b, h, t, 64] tensors (the "bhtd" layout), forward and both backward
-// passes, f32, for sm_90a.
+// passes, f32, for sm_90a; the bthd passes also in bf16 (amp).
 //
 // Replaces paddle_tpu/kernels/attention.py _fwd_kernel_bthd (#4),
 // _bwd_dq_kernel_bthd (#6) and _bwd_dkv_kernel_bthd (#7), the Pallas
@@ -52,6 +52,12 @@
 // in both layouts.  At rate 0 the entry points launch the instantiations
 // that never hash.
 //
+// bf16 (amp, bthd only: ptt_flash_*_bf16): q, k, v, the bias, o, dO, dq,
+// dk and dv are bf16, lse and delta f32, and all arithmetic f32, as the
+// reference's bthd kernels compute on bf16 operands; the walks convert
+// each tile to f32 as it lands in shared memory (flash_walk.cuh).  The
+// bhtd layout (#5, #8, #9) is compiled in f32 only.
+//
 // Masking follows the TPU kernels: causal (bottom-right aligned, offset
 // tk - tq) and out-of-range keys score -1e30 in the forward; a row whose
 // max score is <= -1e29, or that sees no key, gets a zero output and
@@ -68,42 +74,44 @@ namespace {
 
 // The three passes on operands of layout L (every tensor of a call shares
 // it: q, dout, o and dq have tq rows, k, v, dk and dv tk rows).
-template <class L>
-int run_fwd(L l, const float* q, const float* k, const float* v,
-            const float* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
-            int64_t bs_k, float* o, float* lse, int b, int tq, int tk, int h,
-            float scale, int causal, double rate, unsigned seed,
-            unsigned threshold, void* stream) {
-  return (int)fwd(Rows<L>{q, l}, Rows<L>{k, l}, Rows<L>{v, l},
-                   Bias{bias, bs_b, bs_h, bs_q, bs_k}, o, l, lse, b, tq, tk,
+// T is the element type of every tensor but lse and delta (f32).
+template <class L, class T>
+int run_fwd(L l, const T* q, const T* k, const T* v, const T* bias,
+            int64_t bs_b, int64_t bs_h, int64_t bs_q, int64_t bs_k, T* o,
+            float* lse, int b, int tq, int tk, int h, float scale,
+            int causal, double rate, unsigned seed, unsigned threshold,
+            void* stream) {
+  return (int)fwd(Rows<L, T>{q, l}, Rows<L, T>{k, l}, Rows<L, T>{v, l},
+                   BiasOf<T>{bias, bs_b, bs_h, bs_q, bs_k}, o, l, lse, b, tq,
+                   tk,
                    h, scale, causal,
                    hash_rng::make_dropout(rate, seed, threshold),
                    static_cast<cudaStream_t>(stream));
 }
 
-template <class L>
-int run_dq(L l, const float* q, const float* k, const float* v,
-           const float* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
-           int64_t bs_k, const float* dout, const float* lse,
-           const float* delta, float* dq, int b, int tq, int tk, int h,
-           float scale, int causal, double rate, unsigned seed,
-           unsigned threshold, void* stream) {
-  return (int)bwd_dq(Rows<L>{q, l}, Rows<L>{k, l}, Rows<L>{v, l},
-                     Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows<L>{dout, l},
+template <class L, class T>
+int run_dq(L l, const T* q, const T* k, const T* v, const T* bias,
+           int64_t bs_b, int64_t bs_h, int64_t bs_q, int64_t bs_k,
+           const T* dout, const float* lse, const float* delta, T* dq,
+           int b, int tq, int tk, int h, float scale, int causal,
+           double rate, unsigned seed, unsigned threshold, void* stream) {
+  return (int)bwd_dq(Rows<L, T>{q, l}, Rows<L, T>{k, l}, Rows<L, T>{v, l},
+                     BiasOf<T>{bias, bs_b, bs_h, bs_q, bs_k},
+                     Rows<L, T>{dout, l},
                      lse, delta, dq, l, b, tq, tk, h, scale, causal,
                      hash_rng::make_dropout(rate, seed, threshold),
                      static_cast<cudaStream_t>(stream));
 }
 
-template <class L>
-int run_dkv(L l, const float* q, const float* k, const float* v,
-            const float* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
-            int64_t bs_k, const float* dout, const float* lse,
-            const float* delta, float* dk, float* dv, int b, int tq, int tk,
-            int h, float scale, int causal, double rate, unsigned seed,
-            unsigned threshold, void* stream) {
-  return (int)bwd_dkv(Rows<L>{q, l}, Rows<L>{k, l}, Rows<L>{v, l},
-                      Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows<L>{dout, l},
+template <class L, class T>
+int run_dkv(L l, const T* q, const T* k, const T* v, const T* bias,
+            int64_t bs_b, int64_t bs_h, int64_t bs_q, int64_t bs_k,
+            const T* dout, const float* lse, const float* delta, T* dk,
+            T* dv, int b, int tq, int tk, int h, float scale, int causal,
+            double rate, unsigned seed, unsigned threshold, void* stream) {
+  return (int)bwd_dkv(Rows<L, T>{q, l}, Rows<L, T>{k, l}, Rows<L, T>{v, l},
+                      BiasOf<T>{bias, bs_b, bs_h, bs_q, bs_k},
+                      Rows<L, T>{dout, l},
                       lse, delta, dk, dv, l, b, tq, tk, h, scale, causal,
                       hash_rng::make_dropout(rate, seed, threshold),
                       static_cast<cudaStream_t>(stream));
@@ -208,5 +216,51 @@ extern "C" int ptt_flash_bwd_dkv_bhtd(const float* q, const float* k,
                                       unsigned threshold, void* stream) {
   return run_dkv(Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout, lse,
                  delta, dk, dv, b, tq, tk, h, scale, causal, rate, seed,
+                 threshold, stream);
+}
+
+// #4 in bf16 (amp): as ptt_flash_fwd with q, k, v, the bias and o bf16,
+// lse f32.
+extern "C" int ptt_flash_fwd_bf16(const bf16* q, const bf16* k,
+                                  const bf16* v, const bf16* bias,
+                                  int64_t bs_b, int64_t bs_h, int64_t bs_q,
+                                  int64_t bs_k, bf16* o, float* lse, int b,
+                                  int tq, int tk, int h, float scale,
+                                  int causal, double rate, unsigned seed,
+                                  unsigned threshold, void* stream) {
+  return run_fwd(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o,
+                 lse, b, tq, tk, h, scale, causal, rate, seed, threshold,
+                 stream);
+}
+
+// #6 in bf16: as ptt_flash_bwd_dq with dout and dq bf16, lse and delta
+// f32.
+extern "C" int ptt_flash_bwd_dq_bf16(const bf16* q, const bf16* k,
+                                     const bf16* v, const bf16* bias,
+                                     int64_t bs_b, int64_t bs_h,
+                                     int64_t bs_q, int64_t bs_k,
+                                     const bf16* dout, const float* lse,
+                                     const float* delta, bf16* dq, int b,
+                                     int tq, int tk, int h, float scale,
+                                     int causal, double rate, unsigned seed,
+                                     unsigned threshold, void* stream) {
+  return run_dq(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
+                lse, delta, dq, b, tq, tk, h, scale, causal, rate, seed,
+                threshold, stream);
+}
+
+// #7 in bf16: as ptt_flash_bwd_dkv with dout, dk and dv bf16.
+extern "C" int ptt_flash_bwd_dkv_bf16(const bf16* q, const bf16* k,
+                                      const bf16* v, const bf16* bias,
+                                      int64_t bs_b, int64_t bs_h,
+                                      int64_t bs_q, int64_t bs_k,
+                                      const bf16* dout, const float* lse,
+                                      const float* delta, bf16* dk,
+                                      bf16* dv, int b, int tq, int tk, int h,
+                                      float scale, int causal, double rate,
+                                      unsigned seed, unsigned threshold,
+                                      void* stream) {
+  return run_dkv(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
+                 lse, delta, dk, dv, b, tq, tk, h, scale, causal, rate, seed,
                  threshold, stream);
 }

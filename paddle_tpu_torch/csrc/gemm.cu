@@ -2,7 +2,8 @@
 // operand layouts the fused-projection kernels use, so that its rate can
 // be measured at their shapes beside cuBLAS (kernels/gemm.py).  The same
 // tile, split-K choice and summation order as inside #1 and #2 + #3 (which
-// split their dW products only: `split`).
+// split their dW products only: `split`); ptt_gemm_typed takes the
+// element types of amp's instantiations (bf16 operands or C).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,4 +43,54 @@ extern "C" int ptt_gemm(const float* a, int lda, int a_kmajor,
   return (int)gemm({a, lda, a_kmajor != 0}, {b, ldb, b_kmajor != 0}, c, ldc,
                    m, n, k, split != 0, partials, sms,
                    static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+template <class TA, class TB, class TC>
+int typed(const void* a, int lda, int a_kmajor, const void* b, int ldb,
+          int b_kmajor, void* c, int ldc, int m, int n, int k,
+          float* partials, int sms, int split, void* stream) {
+  return (int)gemm<TA, TB, TC>(
+      {static_cast<const TA*>(a), lda, a_kmajor != 0},
+      {static_cast<const TB*>(b), ldb, b_kmajor != 0}, static_cast<TC*>(c),
+      ldc, m, n, k, split != 0, partials, sms,
+      static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// ptt_gemm with element types: bit 0 of `dtypes` makes A bf16, bit 1 B,
+// bit 2 C (f32 otherwise).  Compiled for the element types of amp's
+// products: bf16 x bf16 -> f32 (3: the pair's projections) or -> bf16 (7:
+// #1's y, dW_out), f32 x bf16 -> bf16 (6: the pair's dx) and bf16 x f32 ->
+// bf16 (5: dW_qkv); any other returns cudaErrorInvalidValue (f32
+// throughout is ptt_gemm).
+extern "C" int ptt_gemm_typed(int dtypes, const void* a, int lda,
+                              int a_kmajor, const void* b, int ldb,
+                              int b_kmajor, void* c, int ldc, int m, int n,
+                              int k, float* partials, int sms, int split,
+                              void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || (m + GT - 1) / GT > 65535)
+    return (int)cudaErrorInvalidValue;
+  switch (dtypes) {
+    case 3:
+      return typed<bf16, bf16, float>(a, lda, a_kmajor, b, ldb, b_kmajor, c,
+                                      ldc, m, n, k, partials, sms, split,
+                                      stream);
+    case 5:
+      return typed<bf16, float, bf16>(a, lda, a_kmajor, b, ldb, b_kmajor, c,
+                                      ldc, m, n, k, partials, sms, split,
+                                      stream);
+    case 6:
+      return typed<float, bf16, bf16>(a, lda, a_kmajor, b, ldb, b_kmajor, c,
+                                      ldc, m, n, k, partials, sms, split,
+                                      stream);
+    case 7:
+      return typed<bf16, bf16, bf16>(a, lda, a_kmajor, b, ldb, b_kmajor, c,
+                                     ldc, m, n, k, partials, sms, split,
+                                     stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

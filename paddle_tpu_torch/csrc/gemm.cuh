@@ -1,4 +1,5 @@
-// f32 GEMM for sm_90a: C = A B on 128x128 block tiles, with split-K.
+// f32 GEMM for sm_90a: C = A B on 128x128 block tiles, with split-K; each
+// operand f32 or bf16 (amp), C f32 or bf16, the arithmetic f32.
 //
 // Shared by the fused-projection kernels: the backward pair (#2 + #3 in
 // qkv_attention_bwd.cu: the q|k|v and dctx projections, dx and dW) and
@@ -26,6 +27,14 @@
 // block an SM with the registers that frees (PERF.md).
 // No tensor cores, no TMA: later work.
 //
+// bf16 operands (amp): each operand's element type is its own template
+// parameter (the backward pair multiplies its f32 dq|dk|dv scratch by bf16
+// x or W).  A bf16 operand comes in through registers, 4 elements (8
+// bytes) a load, and is converted to f32 as it is stored into the stage,
+// so every shared-memory layout and read is the f32 tile's; C is
+// accumulated in f32 and rounded to its type when stored.  The f32
+// instantiations are the f32 tile unchanged.
+//
 // Summation depth (C13): a split product (the pair's dW sums, K = b * t)
 // is cut into slabs of at most kMaxSlab = 1024 k, so no element of it is
 // one running f32 sum over more than 1024 terms; unsplit products (the
@@ -37,6 +46,9 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -69,24 +81,31 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // One operand of gemm_tile on its way through shared memory.  Element (i0
 // + ii, k0 + kk) of a stage lands at kk * GS + ii.  The operand is
 // k-major when element (i, k) is src[k * ld + i], else i-major, src[i *
-// ld + k].  Thread `tid`'s r-th float4 of a stage is four consecutive
+// ld + k].  Thread `tid`'s r-th quad of a stage is four consecutive
 // elements in memory: i = 4 (f % (GT / 4)).. of k row f / (GT / 4) when
 // k-major, k = 4 (f % (GK / 4)).. of i row f / (GK / 4) when i-major,
 // with f = tid + r * GNT (consecutive threads on consecutive addresses).
-template <bool KMAJOR>
+// An f32 k-major operand is copied by cp.async; every other one is loaded
+// into registers (`held`: a float4 of f32, the raw 8 bytes of bf16) and
+// stored, converted to f32, after the stage's math.
+template <bool KMAJOR, class T = float>
 struct GemmStager {
   static constexpr int kPerRow = KMAJOR ? GT / 4 : GK / 4;
   static constexpr int kRows = GNT / kPerRow;  // rows one pass covers
+  static constexpr bool kF32 = sizeof(T) == 4;
+  //: the f32 k-major operand lands by cp.async, not through registers
+  static constexpr bool kAsync = KMAJOR && kF32;
+  using Held = typename std::conditional<kF32, float4, uint2>::type;
 
-  const float* p;  // this thread's first element at the next stage
-  int64_t row_step;  // floats from one pass's row to the next's
-  int64_t k_step;    // floats from one stage to the next
-  int ii, kk;        // where the first float4 lands in a stage
+  const T* p;  // this thread's first element at the next stage
+  int64_t row_step;  // elements from one pass's row to the next's
+  int64_t k_step;    // elements from one stage to the next
+  int ii, kk;        // where the first quad lands in a stage
   int n_i, k;        // rows of the operand; this thread's first k
-  bool inside;       // the tile's rows all < n_i and 16-byte aligned
-  float4 held[G4];   // i-major: the stage loaded, not yet stored
+  bool inside;       // the tile's rows all < n_i and the quads aligned
+  Held held[G4];     // the stage loaded, not yet stored
 
-  __device__ __forceinline__ GemmStager(const float* src, int ld, int i0,
+  __device__ __forceinline__ GemmStager(const T* src, int ld, int i0,
                                         int n_i_, int k_begin) {
     const int f = threadIdx.x;
     const int row = f / kPerRow;
@@ -100,16 +119,16 @@ struct GemmStager {
     row_step = (int64_t)kRows * ld;
     k_step = KMAJOR ? (int64_t)GK * ld : GK;
     inside = i0 + GT <= n_i && ld % 4 == 0 &&
-             reinterpret_cast<uintptr_t>(src) % 16 == 0;
+             reinterpret_cast<uintptr_t>(src) % (4 * sizeof(T)) == 0;
     n_i -= i0;
   }
 
-  // Element c of this thread's r-th float4 at the current stage, 0 outside
+  // Element c of this thread's r-th quad at the current stage, 0 outside
   // [0, n_i) x [0, k_end): the checked path of edge tiles.
   __device__ __forceinline__ float at(int r, int c, int k_end) const {
     const int i = KMAJOR ? ii + c : ii + r * kRows;
     const int kc = KMAJOR ? k + r * kRows : k + c;
-    return i < n_i && kc < k_end ? p[r * row_step + c] : 0.f;
+    return i < n_i && kc < k_end ? to_f32(p[r * row_step + c]) : 0.f;
   }
 
   __device__ __forceinline__ float4 at4(int r, int k_end) const {
@@ -117,35 +136,56 @@ struct GemmStager {
                        at(r, 3, k_end));
   }
 
-  // Start the current stage's loads into `stage`: by cp.async (k-major)
-  // or into registers (i-major).  `full`: no element is outside.
+  // f32 values of a held quad
+  __device__ __forceinline__ static float4 unpack(const Held& h) {
+    if constexpr (kF32) {
+      return h;
+    } else {
+      return load4(reinterpret_cast<const T*>(&h));
+    }
+  }
+
+  // Start the current stage's loads into `stage`: by cp.async (f32
+  // k-major) or into registers.  `full`: no element is outside.
   __device__ __forceinline__ void load(float* stage, bool full, int k_end) {
 #pragma unroll
     for (int r = 0; r < G4; ++r) {
-      if (KMAJOR) {
+      if constexpr (kAsync) {
         float* dst = stage + (kk + r * kRows) * GS + ii;
         if (full)
-          cp_async16(dst, p + r * row_step);
+          cp_async16(dst, reinterpret_cast<const float*>(p + r * row_step));
         else
           *reinterpret_cast<float4*>(dst) = at4(r, k_end);
-      } else {
+      } else if constexpr (kF32) {
         held[r] = full ? __ldg(reinterpret_cast<const float4*>(
                              p + r * row_step))
                        : at4(r, k_end);
+      } else if (full) {
+        held[r] = __ldg(reinterpret_cast<const uint2*>(p + r * row_step));
+      } else {  // values of bf16 elements: packing them back is exact
+        const float4 v = at4(r, k_end);
+        store4(reinterpret_cast<T*>(&held[r]), v);
       }
     }
   }
 
-  // i-major: store the held stage transposed into `stage`.
+  // Store the held stage into `stage` (i-major: transposed).
   __device__ __forceinline__ void store(float* stage) const {
-    if (KMAJOR) return;
+    if constexpr (!kAsync) {
 #pragma unroll
-    for (int r = 0; r < G4; ++r) {
-      float* dst = stage + kk * GS + ii + r * kRows;
-      dst[0] = held[r].x;
-      dst[GS] = held[r].y;
-      dst[2 * GS] = held[r].z;
-      dst[3 * GS] = held[r].w;
+      for (int r = 0; r < G4; ++r) {
+        const float4 v = unpack(held[r]);
+        if (KMAJOR) {
+          *reinterpret_cast<float4*>(stage + (kk + r * kRows) * GS + ii) =
+              v;
+        } else {
+          float* dst = stage + kk * GS + ii + r * kRows;
+          dst[0] = v.x;
+          dst[GS] = v.y;
+          dst[2 * GS] = v.z;
+          dst[3 * GS] = v.w;
+        }
+      }
     }
   }
 
@@ -163,14 +203,15 @@ __device__ __forceinline__ int gemm_tile_row(int i, int t) {
 
 // acc = sum over k in [k_begin, k_end) of A(m0 + row, k) B(k, n0 + col)
 // for this thread's 8x8 patch of the 128x128 C tile at (m0, n0), summed
-// in increasing k; rows >= M and columns >= N read zeros.  A(m, k) is
+// in increasing k; rows >= M and columns >= N read zeros.  A and B hold
+// TA and TB elements (f32 or bf16), read as f32.  A(m, k) is
 // a[k * lda + m] when A_KM, else a[m * lda + k]; B(k, n) is b[k * ldb + n]
 // when B_KM, else b[n * ldb + k].  k_begin is a multiple of GK.  smem is
 // GEMM_SMEM floats of 16-byte aligned shared memory, free again when this
 // returns; every thread of the block calls this.
-template <bool A_KM, bool B_KM>
+template <bool A_KM, bool B_KM, class TA = float, class TB = float>
 __device__ __forceinline__ void gemm_tile(
-    const float* __restrict__ a, int lda, const float* __restrict__ b,
+    const TA* __restrict__ a, int lda, const TB* __restrict__ b,
     int ldb, int M, int N, int m0, int n0, int k_begin, int k_end,
     float* smem, float (&acc)[8][8]) {
   const int ty = threadIdx.x / 16;
@@ -182,8 +223,8 @@ __device__ __forceinline__ void gemm_tile(
   const int steps = (k_end - k_begin + GK - 1) / GK;
   if (steps <= 0) return;
 
-  GemmStager<A_KM> sa(a, lda, m0, M, k_begin);
-  GemmStager<B_KM> sb(b, ldb, n0, N, k_begin);
+  GemmStager<A_KM, TA> sa(a, lda, m0, M, k_begin);
+  GemmStager<B_KM, TB> sb(b, ldb, n0, N, k_begin);
   // Stage s sits in ring slot s % 2: A at slot * 2 GSTAGE, B after it.
   // Only an edge tile, or the last stage of a K that is no multiple of
   // GK, takes the checked loads.
@@ -237,12 +278,13 @@ __device__ __forceinline__ void gemm_tile(
 }
 
 // C[m, n] = sum_k A(m, k) B(k, n) over k in split blockIdx.z's slab
-// [z * k_slab, (z + 1) * k_slab), written to c + z * split_stride; A and
-// B as gemm_tile reads them.
-template <bool A_KM, bool B_KM>
+// [z * k_slab, (z + 1) * k_slab), written to c + z * split_stride as TC;
+// A and B as gemm_tile reads them.
+template <bool A_KM, bool B_KM, class TA = float, class TB = float,
+          class TC = float>
 __global__ void __launch_bounds__(GNT, 2)
-gemm_kernel(const float* __restrict__ a, int lda,
-            const float* __restrict__ b, int ldb, float* c, int ldc,
+gemm_kernel(const TA* __restrict__ a, int lda,
+            const TB* __restrict__ b, int ldb, TC* c, int ldc,
             size_t split_stride, int M, int N, int K, int k_slab) {
   __shared__ __align__(16) float smem[GEMM_SMEM];
   const int n0 = blockIdx.x * GT;
@@ -253,8 +295,8 @@ gemm_kernel(const float* __restrict__ a, int lda,
   const int tx = threadIdx.x % 16;
 
   float acc[8][8];
-  gemm_tile<A_KM, B_KM>(a, lda, b, ldb, M, N, m0, n0, k_begin, k_end, smem,
-                        acc);
+  gemm_tile<A_KM, B_KM, TA, TB>(a, lda, b, ldb, M, N, m0, n0, k_begin,
+                                k_end, smem, acc);
 
   c += blockIdx.z * split_stride;
 #pragma unroll
@@ -264,31 +306,35 @@ gemm_kernel(const float* __restrict__ a, int lda,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + gemm_tile_row(j, tx);
-      if (n < N) c[(size_t)m * ldc + n] = acc[i][j];
+      if (n < N) c[(size_t)m * ldc + n] = from_f32<TC>(acc[i][j]);
     }
   }
 }
 
-// c[m * ldc + n] = sum over s = 0, 1, ... of part[s][m][n], in that order.
+// c[m * ldc + n] = sum over s = 0, 1, ... of part[s][m][n], in that
+// order, rounded to TC.
+template <class TC = float>
 __global__ void __launch_bounds__(GNT)
 sum_splits(const float* __restrict__ part, int splits, int M, int N,
-           float* c, int ldc) {
+           TC* c, int ldc) {
   const size_t mn = (size_t)M * N;
   for (size_t i = blockIdx.x * (size_t)GNT + threadIdx.x; i < mn;
        i += (size_t)gridDim.x * GNT) {
     float s = 0.f;
     for (int z = 0; z < splits; ++z) s += part[z * mn + i];
-    c[(i / N) * ldc + i % N] = s;
+    c[(i / N) * ldc + i % N] = from_f32<TC>(s);
   }
 }
 
-// One GEMM operand: element (i, k) at p[k * ld + i] when kmajor, else at
-// p[i * ld + k].
-struct Operand {
-  const float* p;
+// One GEMM operand of T elements: element (i, k) at p[k * ld + i] when
+// kmajor, else at p[i * ld + k].
+template <class T = float>
+struct OperandOf {
+  const T* p;
   int ld;
   bool kmajor;
 };
+using Operand = OperandOf<float>;
 
 // Split-K of a product on a card of `sms` SMs (two blocks an SM hold
 // `slots` tiles in one wave).  Where the C tiles alone would not fill the
@@ -320,35 +366,53 @@ int64_t gemm_partials(int M, int N, int K, int sms) {
   return splits > 1 ? (int64_t)splits * M * N : 0;
 }
 
-// C [M, N] (row stride ldc) = A B on a card of `sms` SMs.  With split, a
-// K too deep for the C tiles to fill the card is cut into slabs whose
-// partial sums go to `partials` (gemm_partials floats) and are added in
-// order.
-cudaError_t gemm(Operand A, Operand B, float* c, int ldc, int M, int N,
-                 int K, bool split, float* partials, int sms,
+template <bool A_KM, bool B_KM, class TA, class TB, class TC>
+void launch_gemm_kernel(dim3 grid, cudaStream_t stream, const TA* a, int lda,
+                        const TB* b, int ldb, TC* c, int ldc, size_t stride,
+                        int M, int N, int K, int slab) {
+  gemm_kernel<A_KM, B_KM, TA, TB, TC><<<grid, GNT, 0, stream>>>(
+      a, lda, b, ldb, c, ldc, stride, M, N, K, slab);
+}
+
+// C [M, N] (row stride ldc) = A B on a card of `sms` SMs, C of TC
+// elements.  With split, a K too deep for the C tiles to fill the card is
+// cut into slabs whose f32 partial sums go to `partials` (gemm_partials
+// floats) and are added in order.
+template <class TA = float, class TB = float, class TC = float>
+cudaError_t gemm(OperandOf<TA> A, OperandOf<TB> B, TC* c, int ldc, int M,
+                 int N, int K, bool split, float* partials, int sms,
                  cudaStream_t stream) {
   int slab = K;
   const int splits = split ? gemm_splits(M, N, K, sms, &slab) : 1;
-  float* out = splits > 1 ? partials : c;
-  const int ld_out = splits > 1 ? N : ldc;
   const size_t stride = (size_t)M * N;
   dim3 grid((N + GT - 1) / GT, (M + GT - 1) / GT, splits);
-  if (A.kmajor && B.kmajor)
-    gemm_kernel<true, true><<<grid, GNT, 0, stream>>>(
-        A.p, A.ld, B.p, B.ld, out, ld_out, stride, M, N, K, slab);
-  else if (!A.kmajor && B.kmajor)
-    gemm_kernel<false, true><<<grid, GNT, 0, stream>>>(
-        A.p, A.ld, B.p, B.ld, out, ld_out, stride, M, N, K, slab);
-  else if (!A.kmajor && !B.kmajor)
-    gemm_kernel<false, false><<<grid, GNT, 0, stream>>>(
-        A.p, A.ld, B.p, B.ld, out, ld_out, stride, M, N, K, slab);
-  else
+  if (A.kmajor && !B.kmajor)
     return cudaErrorInvalidValue;  // no caller takes A k-major, B not
+  if (splits > 1) {  // f32 partial sums, then added in order into c
+    if (A.kmajor)
+      launch_gemm_kernel<true, true>(grid, stream, A.p, A.ld, B.p, B.ld,
+                                     partials, N, stride, M, N, K, slab);
+    else if (B.kmajor)
+      launch_gemm_kernel<false, true>(grid, stream, A.p, A.ld, B.p, B.ld,
+                                      partials, N, stride, M, N, K, slab);
+    else
+      launch_gemm_kernel<false, false>(grid, stream, A.p, A.ld, B.p, B.ld,
+                                       partials, N, stride, M, N, K, slab);
+  } else if (A.kmajor) {
+    launch_gemm_kernel<true, true>(grid, stream, A.p, A.ld, B.p, B.ld, c,
+                                   ldc, stride, M, N, K, slab);
+  } else if (B.kmajor) {
+    launch_gemm_kernel<false, true>(grid, stream, A.p, A.ld, B.p, B.ld, c,
+                                    ldc, stride, M, N, K, slab);
+  } else {
+    launch_gemm_kernel<false, false>(grid, stream, A.p, A.ld, B.p, B.ld, c,
+                                     ldc, stride, M, N, K, slab);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const int blocks =
       (int)std::min<size_t>((stride + GNT - 1) / GNT, 4 * (size_t)sms);
-  sum_splits<<<blocks, GNT, 0, stream>>>(partials, splits, M, N, c, ldc);
+  sum_splits<TC><<<blocks, GNT, 0, stream>>>(partials, splits, M, N, c, ldc);
   return cudaGetLastError();
 }
 

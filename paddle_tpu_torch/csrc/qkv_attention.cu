@@ -1,4 +1,4 @@
-// Fused-projection flash attention, forward only, f32, for sm_90a.
+// Fused-projection flash attention, forward only, f32 and bf16, for sm_90a.
 //
 // Replaces paddle_tpu/kernels/attention.py _qkv_fwd_kernel (the Pallas
 // kernel behind flash_qkv_attention).  Computes, for one sequence,
@@ -56,6 +56,13 @@
 // Both routes sum every projection in increasing k and walk keys in
 // increasing order, so two calls give the same bits.
 //
+// bf16 (amp, ptt_qkv_attention_fwd_bf16; both routes): x, w_qkv, w_out
+// and the bias are bf16, converted to f32 as they are loaded; q, k, v, p
+// and every accumulator are f32, as the reference's kernel computes them.
+// ctx is rounded to bf16 when it is stored, and the y GEMM reads that
+// bf16 ctx (the reference rounds each head's context to y's dtype before
+// its output product); y and ctx are bf16, lse f32.
+//
 // The context ctx [b, t, h, 64] and lse [b, h, t] (+inf on a masked row)
 // are the residuals the backward kernels (#2, #3 in qkv_attention_bwd.cu)
 // read, as the TPU kernel always returns them; serving passes scratch.
@@ -64,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dtype.cuh"
 #include "gemm.cuh"
 #include "hash_rng.cuh"
 
@@ -97,7 +105,8 @@ constexpr int kSmemFloats = kPOff + BQ * QS;
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
 // Load the activation tile x[rows r0.., cols k0..k0+KC) (zero past t).
-__device__ __forceinline__ void load_x_tile(float* a_s, const float* xb,
+template <class T>
+__device__ __forceinline__ void load_x_tile(float* a_s, const T* xb,
                                             int r0, int t, int dm,
                                             int k0) {
   for (int idx = threadIdx.x; idx < BQ * (KC / 4); idx += NT) {
@@ -105,32 +114,31 @@ __device__ __forceinline__ void load_x_tile(float* a_s, const float* xb,
     int c4 = idx % (KC / 4);
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + row < t)
-      v = *reinterpret_cast<const float4*>(xb + (size_t)(r0 + row) * dm +
-                                           k0 + c4 * 4);
+      v = load4(xb + (size_t)(r0 + row) * dm + k0 + c4 * 4);
     float* dst = a_s + row * AS + c4 * 4;
     dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
   }
 }
 
 // Load the weight tile w[k0..k0+KC, col0..col0+DH) with row stride ldw.
-__device__ __forceinline__ void load_w_tile(float* b_s, const float* w,
+template <class T>
+__device__ __forceinline__ void load_w_tile(float* b_s, const T* w,
                                             int ldw, int k0, int col0) {
   for (int idx = threadIdx.x; idx < KC * (DH / 4); idx += NT) {
     int row = idx / (DH / 4);
     int c4 = idx % (DH / 4);
     *reinterpret_cast<float4*>(b_s + row * DH + c4 * 4) =
-        *reinterpret_cast<const float4*>(w + (size_t)(k0 + row) * ldw +
-                                         col0 + c4 * 4);
+        load4(w + (size_t)(k0 + row) * ldw + col0 + c4 * 4);
   }
 }
 
-template <bool DROP>
+template <bool DROP, class T = float>
 __global__ void __launch_bounds__(NT)
-qkv_tiles_fwd_kernel(const float* __restrict__ x,
-                         const float* __restrict__ w_qkv,
-                         const float* __restrict__ bias,
+qkv_tiles_fwd_kernel(const T* __restrict__ x,
+                         const T* __restrict__ w_qkv,
+                         const T* __restrict__ bias,
                          int64_t bs_b, int64_t bs_h, int64_t bs_q,
-                         int64_t bs_k, float* ctx, float* lse,
+                         int64_t bs_k, T* ctx, float* lse,
                          int t, int dm, int n_head, float scale,
                          int causal, Dropout drop) {
   extern __shared__ float smem[];
@@ -150,7 +158,7 @@ qkv_tiles_fwd_kernel(const float* __restrict__ x,
   const int hd = n_head * DH;
   const int ldw = 3 * hd;
   const int q0 = qt * BQ;
-  const float* xb = x + (size_t)bi * t * dm;
+  const T* xb = x + (size_t)bi * t * dm;
   const uint32_t hseed =
       DROP ? hash_rng::attn_head_seed(drop.seed, (uint32_t)(bi * n_head + head))
            : 0u;
@@ -197,7 +205,7 @@ qkv_tiles_fwd_kernel(const float* __restrict__ x,
     int last = min(q0 + BQ, t) - 1;
     n_kv = min(n_kv, last / BK + 1);
   }
-  const float* bias_row = bias ? bias + bi * bs_b + head * bs_h : nullptr;
+  const T* bias_row = bias ? bias + bi * bs_b + head * bs_h : nullptr;
 
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0r = kt * BK;
@@ -263,7 +271,7 @@ qkv_tiles_fwd_kernel(const float* __restrict__ x,
         if (kpos >= t || (causal && kpos > qpos)) {
           s[i][j] = kMaskValue;
         } else if (bias_row) {
-          s[i][j] += bias_row[min(qpos, t - 1) * bs_q + kpos * bs_k];
+          s[i][j] += to_f32(bias_row[min(qpos, t - 1) * bs_q + kpos * bs_k]);
         }
       }
     }
@@ -322,10 +330,9 @@ qkv_tiles_fwd_kernel(const float* __restrict__ x,
                              : (DROP ? drop.inv_keep / l[i] : 1.f / l[i]);
     const int qpos = q0 + ty * 4 + i;
     if (qpos >= t) continue;
-    *reinterpret_cast<float4*>(ctx + ((size_t)bi * t + qpos) * hd +
-                               head * DH + tx * 4) =
-        make_float4(o[i][0] * inv, o[i][1] * inv, o[i][2] * inv,
-                    o[i][3] * inv);
+    store4(ctx + ((size_t)bi * t + qpos) * hd + head * DH + tx * 4,
+           make_float4(o[i][0] * inv, o[i][1] * inv, o[i][2] * inv,
+                       o[i][3] * inv));
     if (tx == 0)
       lse[((size_t)bi * n_head + head) * t + qpos] =
           masked ? INFINITY : m[i] + logf(l[i]);
@@ -386,9 +393,9 @@ __device__ __forceinline__ void cp_async_wait_all_but_last() {
 
 // Load this thread's float4s of x[r0.., k0..k0 + CK) (zeros past t) into
 // registers: consecutive threads read consecutive float4s of a row.
-template <int R>
+template <int R, class T>
 __device__ __forceinline__ void load_x(float4 (&xr)[Cluster<R>::kXLoads],
-                                       const float* xb, int r0, int t,
+                                       const T* xb, int r0, int t,
                                        int dm, int k0) {
   using L = Cluster<R>;
 #pragma unroll
@@ -396,8 +403,7 @@ __device__ __forceinline__ void load_x(float4 (&xr)[Cluster<R>::kXLoads],
     const int idx = threadIdx.x + u * L::NT;
     const int row = idx / (L::CK / 4);
     const int c4 = idx % (L::CK / 4);
-    xr[u] = r0 + row < t ? *reinterpret_cast<const float4*>(
-                               xb + (size_t)(r0 + row) * dm + k0 + c4 * 4)
+    xr[u] = r0 + row < t ? load4(xb + (size_t)(r0 + row) * dm + k0 + c4 * 4)
                          : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
@@ -419,9 +425,10 @@ __device__ __forceinline__ void store_x(
 }
 
 // Start copying rows [k0, k0 + CK) of the head's three W slabs into a
-// chunk's W [CK][WS].
-template <int R>
-__device__ __forceinline__ void stage_w(float* ws, const float* w_qkv,
+// chunk's W [CK][WS]: f32 by cp.async; bf16 loaded and stored as f32 now
+// (the chunk's barriers order both before the chunk is read).
+template <int R, class T>
+__device__ __forceinline__ void stage_w(float* ws, const T* w_qkv,
                                         int ldw, int hd, int head, int k0) {
   using L = Cluster<R>;
   for (int idx = threadIdx.x; idx < L::CK * 3 * (DH / 4); idx += L::NT) {
@@ -429,8 +436,13 @@ __device__ __forceinline__ void stage_w(float* ws, const float* w_qkv,
     const int c4 = idx % (3 * (DH / 4));
     const int slab = c4 / (DH / 4);
     const int col = (c4 % (DH / 4)) * 4;
-    cp_async16(ws + kk * L::WS + slab * DH + col,
-               w_qkv + (size_t)(k0 + kk) * ldw + slab * hd + head * DH + col);
+    const T* src =
+        w_qkv + (size_t)(k0 + kk) * ldw + slab * hd + head * DH + col;
+    if constexpr (sizeof(T) == 4)
+      cp_async16(ws + kk * L::WS + slab * DH + col, src);
+    else
+      *reinterpret_cast<float4*>(ws + kk * L::WS + slab * DH + col) =
+          load4(src);
   }
 }
 
@@ -502,12 +514,12 @@ __device__ __forceinline__ void store_peer(
 }
 
 // Grid (C, n_head, b), cluster (C, 1, 1), C = ceil(t / R) <= 8.
-template <int R, bool DROP>
+template <int R, bool DROP, class T = float>
 __global__ void __launch_bounds__(Cluster<R>::NT, 2)
-qkv_cluster_fwd_kernel(const float* __restrict__ x,
-                       const float* __restrict__ w_qkv,
-                       const float* __restrict__ bias, int64_t bs_b,
-                       int64_t bs_h, int64_t bs_q, int64_t bs_k, float* ctx,
+qkv_cluster_fwd_kernel(const T* __restrict__ x,
+                       const T* __restrict__ w_qkv,
+                       const T* __restrict__ bias, int64_t bs_b,
+                       int64_t bs_h, int64_t bs_q, int64_t bs_k, T* ctx,
                        float* lse, int t, int dm, int n_head, float scale,
                        int causal, Dropout drop) {
   using L = Cluster<R>;
@@ -531,7 +543,7 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
   const int hd = n_head * DH;
   const int r0 = rank * R;
   const int row0 = r0 + ty * TR;  // this thread's first row
-  const float* xb = x + (size_t)bi * t * dm;
+  const T* xb = x + (size_t)bi * t * dm;
 
   // ---- project rows r0.. of q, k, v: each row of the sequence once ----
   float aq[TR][4], ak[TR][4], av[TR][4];
@@ -544,13 +556,13 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
   const int n_chunk = dm / L::CK;
   const int ldw = 3 * hd;
   float4 xr[L::kXLoads];
-  load_x<R>(xr, xb, r0, t, dm, 0);
-  stage_w<R>(stage + L::CK * L::RS, w_qkv, ldw, hd, head, 0);
+  load_x<R, T>(xr, xb, r0, t, dm, 0);
+  stage_w<R, T>(stage + L::CK * L::RS, w_qkv, ldw, hd, head, 0);
   cp_async_commit();
   store_x<R>(stage, xr);
   if (n_chunk > 1) {
-    load_x<R>(xr, xb, r0, t, dm, L::CK);
-    stage_w<R>(stage + L::kChunk + L::CK * L::RS, w_qkv, ldw, hd, head,
+    load_x<R, T>(xr, xb, r0, t, dm, L::CK);
+    stage_w<R, T>(stage + L::kChunk + L::CK * L::RS, w_qkv, ldw, hd, head,
                L::CK);
   }
   cp_async_commit();
@@ -560,8 +572,8 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
     if (c + 1 < n_chunk) store_x<R>(stage + (c + 1) % 3 * L::kChunk, xr);
     if (c + 2 < n_chunk) {
       float* next = stage + (c + 2) % 3 * L::kChunk;
-      load_x<R>(xr, xb, r0, t, dm, (c + 2) * L::CK);
-      stage_w<R>(next + L::CK * L::RS, w_qkv, ldw, hd, head,
+      load_x<R, T>(xr, xb, r0, t, dm, (c + 2) * L::CK);
+      stage_w<R, T>(next + L::CK * L::RS, w_qkv, ldw, hd, head,
                  (c + 2) * L::CK);
     }
     cp_async_commit();
@@ -593,7 +605,7 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
   const uint32_t hseed =
       DROP ? hash_rng::attn_head_seed(drop.seed, (uint32_t)(bi * n_head + head))
            : 0u;
-  const float* bias_row = bias ? bias + bi * bs_b + head * bs_h : nullptr;
+  const T* bias_row = bias ? bias + bi * bs_b + head * bs_h : nullptr;
   float m[TR], l[TR], o[TR][4];
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
@@ -622,7 +634,8 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
         const int kpos = k0r + tx * KW + j;
         const bool hidden = kpos >= t || (causal && kpos > qpos);
         sb[i][j] = hidden ? kMaskValue
-                   : bias_row ? bias_row[min(qpos, t - 1) * bs_q + kpos * bs_k]
+                   : bias_row ? to_f32(bias_row[min(qpos, t - 1) * bs_q +
+                                                kpos * bs_k])
                               : 0.f;
       }
     }
@@ -711,10 +724,9 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
                              : (DROP ? drop.inv_keep / l[i] : 1.f / l[i]);
     const int qpos = row0 + i;
     if (qpos >= t) continue;
-    *reinterpret_cast<float4*>(ctx + ((size_t)bi * t + qpos) * hd +
-                               head * DH + tx * 4) =
-        make_float4(o[i][0] * inv, o[i][1] * inv, o[i][2] * inv,
-                    o[i][3] * inv);
+    store4(ctx + ((size_t)bi * t + qpos) * hd + head * DH + tx * 4,
+           make_float4(o[i][0] * inv, o[i][1] * inv, o[i][2] * inv,
+                       o[i][3] * inv));
     if (tx == 0)
       lse[((size_t)bi * n_head + head) * t + qpos] =
           masked ? INFINITY : m[i] + logf(l[i]);
@@ -726,13 +738,14 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
 // launches
 // ---------------------------------------------------------------------------
 
-// The arguments both attention kernels take.
+// The arguments both attention kernels take, their tensors of T.
+template <class T>
 struct FwdArgs {
-  const float* x;
-  const float* w_qkv;
-  const float* bias;
+  const T* x;
+  const T* w_qkv;
+  const T* bias;
   int64_t bs_b, bs_h, bs_q, bs_k;
-  float* ctx;
+  T* ctx;
   float* lse;
   int b, t, dm, n_head;
   float scale;
@@ -740,18 +753,18 @@ struct FwdArgs {
   Dropout drop;
 };
 
-template <bool DROP>
-cudaError_t launch_tiles(const FwdArgs& a, cudaStream_t stream) {
+template <bool DROP, class T>
+cudaError_t launch_tiles(const FwdArgs<T>& a, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        qkv_tiles_fwd_kernel<DROP>,
+        qkv_tiles_fwd_kernel<DROP, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   dim3 grid((a.t + BQ - 1) / BQ, a.n_head, a.b);
-  qkv_tiles_fwd_kernel<DROP><<<grid, NT, kSmemBytes, stream>>>(
+  qkv_tiles_fwd_kernel<DROP, T><<<grid, NT, kSmemBytes, stream>>>(
       a.x, a.w_qkv, a.bias, a.bs_b, a.bs_h, a.bs_q, a.bs_k, a.ctx, a.lse,
       a.t, a.dm, a.n_head, a.scale, a.causal, a.drop);
   return cudaGetLastError();
@@ -777,12 +790,12 @@ cudaLaunchConfig_t cluster_config(int c, int n_head, int b,
   return cfg;
 }
 
-template <int R, bool DROP>
+template <int R, bool DROP, class T = float>
 cudaError_t configure_cluster() {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        qkv_cluster_fwd_kernel<R, DROP>,
+        qkv_cluster_fwd_kernel<R, DROP, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)Cluster<R>::kBytes);
     if (err != cudaSuccess) return err;
@@ -791,14 +804,14 @@ cudaError_t configure_cluster() {
   return cudaSuccess;
 }
 
-template <int R, bool DROP>
-cudaError_t launch_cluster(const FwdArgs& a, int c, cudaStream_t stream) {
-  cudaError_t err = configure_cluster<R, DROP>();
+template <int R, bool DROP, class T>
+cudaError_t launch_cluster(const FwdArgs<T>& a, int c, cudaStream_t stream) {
+  cudaError_t err = configure_cluster<R, DROP, T>();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       cluster_config<R>(c, a.n_head, a.b, attr, stream);
-  err = cudaLaunchKernelEx(&cfg, qkv_cluster_fwd_kernel<R, DROP>, a.x,
+  err = cudaLaunchKernelEx(&cfg, qkv_cluster_fwd_kernel<R, DROP, T>, a.x,
                            a.w_qkv, a.bias, a.bs_b, a.bs_h, a.bs_q, a.bs_k,
                            a.ctx, a.lse, a.t, a.dm, a.n_head, a.scale,
                            a.causal, a.drop);
@@ -806,12 +819,40 @@ cudaError_t launch_cluster(const FwdArgs& a, int c, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool DROP>
-cudaError_t launch_attention(const FwdArgs& a, int c, int r,
+template <bool DROP, class T>
+cudaError_t launch_attention(const FwdArgs<T>& a, int c, int r,
                              cudaStream_t stream) {
   if (r == 0) return launch_tiles<DROP>(a, stream);
   return r == 32 ? launch_cluster<32, DROP>(a, c, stream)
                  : launch_cluster<64, DROP>(a, c, stream);
+}
+
+// #1 on tensors of T: ptt_qkv_attention_fwd's arguments.
+template <class T>
+int qkv_attention_fwd(const T* x, const T* w_qkv, const T* w_out,
+                      const T* bias, int64_t bs_b, int64_t bs_h,
+                      int64_t bs_q, int64_t bs_k, T* y, T* ctx, float* lse,
+                      float* partials, int b, int t, int dm, int n_head,
+                      int cluster_rows, int sms, float scale, int causal,
+                      double rate, unsigned seed, unsigned threshold,
+                      void* stream) {
+  const int cluster_size =
+      cluster_rows > 0 ? (t + cluster_rows - 1) / cluster_rows : 0;
+  if (cluster_rows != 0 &&
+      !((cluster_rows == 32 || cluster_rows == 64) &&
+        cluster_size <= kMaxCluster))
+    return (int)cudaErrorInvalidValue;
+  const FwdArgs<T> a{x, w_qkv, bias, bs_b, bs_h, bs_q, bs_k, ctx, lse, b, t,
+                     dm, n_head, scale, causal,
+                     hash_rng::make_dropout(rate, seed, threshold)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      a.drop.on ? launch_attention<true>(a, cluster_size, cluster_rows, st)
+                : launch_attention<false>(a, cluster_size, cluster_rows, st);
+  if (err != cudaSuccess) return (int)err;
+  const int hd = n_head * DH;  // y [b*t, dm] = ctx [b*t, hd] W_out [hd, dm]
+  return (int)gemm<T, T, T>({ctx, hd, false}, {w_out, dm, true}, y, dm,
+                            b * t, dm, hd, true, partials, sms, st);
 }
 
 }  // namespace
@@ -866,23 +907,24 @@ extern "C" int ptt_qkv_attention_fwd(const float* x, const float* w_qkv,
                                      float scale, int causal, double rate,
                                      unsigned seed, unsigned threshold,
                                      void* stream) {
-  const int cluster_size =
-      cluster_rows > 0 ? (t + cluster_rows - 1) / cluster_rows : 0;
-  if (cluster_rows != 0 &&
-      !((cluster_rows == 32 || cluster_rows == 64) &&
-        cluster_size <= kMaxCluster))
-    return (int)cudaErrorInvalidValue;
-  const FwdArgs a{x, w_qkv, bias, bs_b, bs_h, bs_q, bs_k, ctx, lse, b, t,
-                  dm, n_head, scale, causal,
-                  hash_rng::make_dropout(rate, seed, threshold)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      a.drop.on ? launch_attention<true>(a, cluster_size, cluster_rows, st)
-                : launch_attention<false>(a, cluster_size, cluster_rows, st);
-  if (err != cudaSuccess) return (int)err;
-  const int hd = n_head * DH;  // y [b*t, dm] = ctx [b*t, hd] W_out [hd, dm]
-  return (int)gemm({ctx, hd, false}, {w_out, dm, true}, y, dm, b * t, dm,
-                   hd, true, partials, sms, st);
+  return qkv_attention_fwd(x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, y,
+                           ctx, lse, partials, b, t, dm, n_head,
+                           cluster_rows, sms, scale, causal, rate, seed,
+                           threshold, stream);
+}
+
+// #1 in bf16 (amp): as ptt_qkv_attention_fwd with x, the weights, the
+// bias, y and ctx bf16; lse and partials f32.
+extern "C" int ptt_qkv_attention_fwd_bf16(
+    const bf16* x, const bf16* w_qkv, const bf16* w_out, const bf16* bias,
+    int64_t bs_b, int64_t bs_h, int64_t bs_q, int64_t bs_k, bf16* y,
+    bf16* ctx, float* lse, float* partials, int b, int t, int dm,
+    int n_head, int cluster_rows, int sms, float scale, int causal,
+    double rate, unsigned seed, unsigned threshold, void* stream) {
+  return qkv_attention_fwd(x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, y,
+                           ctx, lse, partials, b, t, dm, n_head,
+                           cluster_rows, sms, scale, causal, rate, seed,
+                           threshold, stream);
 }
 
 extern "C" const char* ptt_error_string(int err) {

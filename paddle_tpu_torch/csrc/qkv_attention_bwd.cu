@@ -1,4 +1,4 @@
-// Fused-projection flash attention, backward, f32, for sm_90a.
+// Fused-projection flash attention, backward, f32 and bf16, for sm_90a.
 //
 // Replaces paddle_tpu/kernels/attention.py _qkv_bwd_dq_kernel (#2) and
 // _qkv_bwd_dkv_kernel (#3), the Pallas kernels of flash_qkv_attention's
@@ -46,6 +46,13 @@
 // same hash of (seed, b * h + head, q * t + k)) from the seed, with delta
 // from #1's dropped ctx.
 //
+// bf16 (amp, ptt_qkv_bwd_bf16): x, g, the weights, the bias and ctx are
+// bf16; the q|k|v, dctx and dq|dk|dv scratch and all arithmetic stay f32
+// (gemm.cuh converts each bf16 operand as it lands in shared memory, and
+// the walks read f32 rows under a bf16 bias); dx is stored in x's dtype
+// and dW_qkv, dW_out in the weights', as the reference's custom VJP
+// returns them.
+//
 // Masking follows #1: causal and out-of-range keys score nothing; a row
 // whose lse is +inf (masked in the forward) gets p = 0, so zero gradients;
 // rows past t in a ragged tile load as zeros.
@@ -66,22 +73,23 @@ constexpr int kWalkDq = 1;   // #2
 constexpr int kWalkDkv = 2;  // #3
 
 // delta[(bi * h + head) * t + r] = sum_d dctx(row, head, d) * ctx(row,
-// head, d) over two [b * t, h * 64] matrices, row = bi * t + r: one thread
-// per (row, head), summed in d order.
+// head, d) over two [b * t, h * 64] matrices (dctx f32, ctx of T), row =
+// bi * t + r: one thread per (row, head), summed in d order.
+template <class T>
 __global__ void __launch_bounds__(NT)
-row_delta(const float* __restrict__ dctx, const float* __restrict__ ctx,
+row_delta(const float* __restrict__ dctx, const T* __restrict__ ctx,
           float* delta, int b, int t, int h) {
   const int64_t i = blockIdx.x * (int64_t)NT + threadIdx.x;
   if (i >= (int64_t)b * t * h) return;
   const int head = (int)(i % h);
   const int64_t row = i / h;
   const float4* a = reinterpret_cast<const float4*>(dctx + i * DH);
-  const float4* c = reinterpret_cast<const float4*>(ctx + i * DH);
+  const T* c = ctx + i * DH;
   float s = 0.f;
 #pragma unroll
   for (int d = 0; d < DH / 4; ++d) {
     const float4 x = a[d];
-    const float4 y = c[d];
+    const float4 y = load4(c + 4 * d);
     s += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
   }
   delta[((row / t) * h + head) * t + row % t] = s;
@@ -140,6 +148,72 @@ extern "C" int64_t ptt_qkv_bwd_scratch(int walks, int b, int t, int dm,
   return scratch_floats(walks, b, t, dm, n_head * DH, sms, nullptr, nullptr);
 }
 
+namespace {
+
+// The pair on operands of T (f32 or bf16): ptt_qkv_bwd's arguments.
+template <class T>
+int qkv_bwd(int walks, const T* x, const T* w_qkv, const T* w_out,
+            const T* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
+            int64_t bs_k, const T* g, const T* ctx, const float* lse,
+            float* scratch, T* dx, T* dw, T* dw_out, int b, int t, int dm,
+            int n_head, int sms, float scale, int causal, double rate,
+            unsigned seed, unsigned threshold, void* stream_ptr) {
+  if (walks < 1 || walks > 3) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int hd = n_head * DH;
+  const int bt = b * t;
+  const Cols cols = walk_cols(walks, hd);
+  Scratch s;
+  scratch_floats(walks, b, t, dm, hd, sms, &s, scratch);
+
+  // 1. q|k|v = x w_qkv, dctx = g w_out^T, delta = rowsum(dctx * ctx)
+  cudaError_t err = gemm<T, T, float>({x, dm, false}, {w_qkv, 3 * hd, true},
+                                      s.qkv, 3 * hd, bt, 3 * hd, dm, false,
+                                      nullptr, sms, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = gemm<T, T, float>({g, dm, false}, {w_out, dm, false}, s.dctx, hd,
+                          bt, hd, dm, false, nullptr, sms, stream);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t rows = (int64_t)bt * n_head;
+  row_delta<T><<<(unsigned)((rows + NT - 1) / NT), NT, 0, stream>>>(
+      s.dctx, ctx, s.delta, b, t, n_head);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // 2. the walks, into the q|k|v columns of dqkv
+  const BiasOf<T> bs{bias, bs_b, bs_h, bs_q, bs_k};
+  const Rows<Bthd> dctx{s.dctx, Bthd{hd}};
+  const Dropout drop = hash_rng::make_dropout(rate, seed, threshold);
+  if (walks & kWalkDq) {
+    err = bwd_dq(qkv_rows(s.qkv, hd, 0), qkv_rows(s.qkv, hd, 1),
+                 qkv_rows(s.qkv, hd, 2), bs, dctx, lse, s.delta, s.dqkv,
+                 Bthd{3 * hd}, b, t, t, n_head, scale, causal, drop, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (walks & kWalkDkv) {
+    err = bwd_dkv(qkv_rows(s.qkv, hd, 0), qkv_rows(s.qkv, hd, 1),
+                  qkv_rows(s.qkv, hd, 2), bs, dctx, lse, s.delta,
+                  s.dqkv + hd, s.dqkv + 2 * hd, Bthd{3 * hd}, b, t, t,
+                  n_head, scale, causal, drop, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  // 3. dx = dqkv[:, cols] w_qkv[:, cols]^T; dW = x^T dqkv[:, cols];
+  //    dW_out = ctx^T g
+  const float* dqkv = s.dqkv + cols.c0;
+  err = gemm<float, T, T>({dqkv, 3 * hd, false},
+                          {w_qkv + cols.c0, 3 * hd, false}, dx, dm, bt, dm,
+                          cols.w, false, nullptr, sms, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = gemm<T, float, T>({x, dm, true}, {dqkv, 3 * hd, true}, dw, cols.w,
+                          dm, cols.w, bt, true, s.partials, sms, stream);
+  if (err != cudaSuccess || !(walks & kWalkDq)) return (int)err;
+  return (int)gemm<T, T, T>({ctx, hd, true}, {g, dm, true}, dw_out, dm, hd,
+                            dm, bt, true, s.partials, sms, stream);
+}
+
+}  // namespace
+
 // #2 + #3.  walks: bit 0 runs the dq walk (#2), bit 1 the dkv walk (#3);
 // with both the pair shares one projection stage and one set of output
 // GEMMs.  x, g, dx [b, t, dm]; w_qkv [dm, 3hd]; w_out [hd, dm]; ctx
@@ -160,55 +234,23 @@ extern "C" int ptt_qkv_bwd(int walks, const float* x, const float* w_qkv,
                            int n_head, int sms, float scale, int causal,
                            double rate, unsigned seed, unsigned threshold,
                            void* stream_ptr) {
-  if (walks < 1 || walks > 3) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int hd = n_head * DH;
-  const int bt = b * t;
-  const Cols cols = walk_cols(walks, hd);
-  Scratch s;
-  scratch_floats(walks, b, t, dm, hd, sms, &s, scratch);
+  return qkv_bwd(walks, x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, g,
+                 ctx, lse, scratch, dx, dw, dw_out, b, t, dm, n_head, sms,
+                 scale, causal, rate, seed, threshold, stream_ptr);
+}
 
-  // 1. q|k|v = x w_qkv, dctx = g w_out^T, delta = rowsum(dctx * ctx)
-  cudaError_t err = gemm({x, dm, false}, {w_qkv, 3 * hd, true}, s.qkv,
-                         3 * hd, bt, 3 * hd, dm, false, nullptr, sms,
-                         stream);
-  if (err != cudaSuccess) return (int)err;
-  err = gemm({g, dm, false}, {w_out, dm, false}, s.dctx, hd, bt, hd, dm,
-             false, nullptr, sms, stream);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t rows = (int64_t)bt * n_head;
-  row_delta<<<(unsigned)((rows + NT - 1) / NT), NT, 0, stream>>>(
-      s.dctx, ctx, s.delta, b, t, n_head);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  // 2. the walks, into the q|k|v columns of dqkv
-  const Bias bs{bias, bs_b, bs_h, bs_q, bs_k};
-  const Rows<Bthd> dctx{s.dctx, Bthd{hd}};
-  const Dropout drop = hash_rng::make_dropout(rate, seed, threshold);
-  if (walks & kWalkDq) {
-    err = bwd_dq(qkv_rows(s.qkv, hd, 0), qkv_rows(s.qkv, hd, 1),
-                 qkv_rows(s.qkv, hd, 2), bs, dctx, lse, s.delta, s.dqkv,
-                 Bthd{3 * hd}, b, t, t, n_head, scale, causal, drop, stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (walks & kWalkDkv) {
-    err = bwd_dkv(qkv_rows(s.qkv, hd, 0), qkv_rows(s.qkv, hd, 1),
-                  qkv_rows(s.qkv, hd, 2), bs, dctx, lse, s.delta,
-                  s.dqkv + hd, s.dqkv + 2 * hd, Bthd{3 * hd}, b, t, t,
-                  n_head, scale, causal, drop, stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-
-  // 3. dx = dqkv[:, cols] w_qkv[:, cols]^T; dW = x^T dqkv[:, cols];
-  //    dW_out = ctx^T g
-  const float* dqkv = s.dqkv + cols.c0;
-  err = gemm({dqkv, 3 * hd, false}, {w_qkv + cols.c0, 3 * hd, false}, dx,
-             dm, bt, dm, cols.w, false, nullptr, sms, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = gemm({x, dm, true}, {dqkv, 3 * hd, true}, dw, cols.w, dm, cols.w,
-             bt, true, s.partials, sms, stream);
-  if (err != cudaSuccess || !(walks & kWalkDq)) return (int)err;
-  return (int)gemm({ctx, hd, true}, {g, dm, true}, dw_out, dm, hd, dm, bt,
-                   true, s.partials, sms, stream);
+// #2 + #3 in bf16 (amp): as ptt_qkv_bwd with x, the weights, the bias, g,
+// ctx, dx, dw and dw_out bf16; lse and the scratch f32.
+extern "C" int ptt_qkv_bwd_bf16(int walks, const bf16* x, const bf16* w_qkv,
+                                const bf16* w_out, const bf16* bias,
+                                int64_t bs_b, int64_t bs_h, int64_t bs_q,
+                                int64_t bs_k, const bf16* g, const bf16* ctx,
+                                const float* lse, float* scratch, bf16* dx,
+                                bf16* dw, bf16* dw_out, int b, int t, int dm,
+                                int n_head, int sms, float scale, int causal,
+                                double rate, unsigned seed,
+                                unsigned threshold, void* stream_ptr) {
+  return qkv_bwd(walks, x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, g,
+                 ctx, lse, scratch, dx, dw, dw_out, b, t, dm, n_head, sms,
+                 scale, causal, rate, seed, threshold, stream_ptr);
 }

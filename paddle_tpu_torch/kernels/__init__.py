@@ -3,7 +3,8 @@
 Each wrapper runs its plain version only for tensors on the CPU.  For a
 CUDA tensor it launches its kernel (built from ``csrc/`` at first use) or
 raises; there is no fallback.  Every launch adds one to the wrapper's
-entry in :data:`launches`.
+entry in :data:`launches`; a kernel with a bf16 instantiation (amp,
+:data:`BF16_KERNELS`) counts its bf16 launches under its name + "_bf16".
 
 The attention and decode kernels are compiled for head width 64.  Below
 that the reference's own plans decline their Pallas kernels by shape and
@@ -15,6 +16,8 @@ counts every composed call in :data:`composed`.
 
 from __future__ import annotations
 
+import torch
+
 #: kernel name -> launches since the last reset_launches()
 launches = {"qkv_attention_fwd": 0, "qkv_bwd_dq": 0, "qkv_bwd_dkv": 0,
             "megastep": 0, "megastep_paged": 0, "ffn": 0, "flash_decode": 0,
@@ -25,6 +28,14 @@ launches = {"qkv_attention_fwd": 0, "qkv_bwd_dq": 0, "qkv_bwd_dkv": 0,
             "channel_stats": 0, "dot_col_stats": 0, "ssa_fwd": 0,
             "ssa_bwd": 0, "multi_table_gather": 0, "multi_table_apply": 0,
             "gemm": 0}
+#: the bf16 instantiations (amp), counted apart from the f32 kernels
+BF16_KERNELS = ("qkv_attention_fwd", "qkv_bwd_dq", "qkv_bwd_dkv",
+                "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                "dropout_add_fwd", "dropout_add_bwd")
+launches.update({name + "_bf16": 0 for name in BF16_KERNELS})
+#: element types those kernels are compiled for -> the suffix of their
+#: entry points and launch counters
+KERNEL_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 #: kernel name -> calls on the card that took the plain composition by
 #: shape (head width % 64 != 0), since the last reset_launches()

@@ -157,6 +157,7 @@ _SIGNATURES = {
                                + [_I] * 4 + [_F, _I] + _DROP + [_P]),
     "ptt_dropout_add": (_I, [_P] * 3 + [_L] + _DROP + [_P]),
     "ptt_dropout_add_bwd": (_I, [_P] * 2 + [_L] + _DROP + [_P]),
+
     "ptt_stats_partials": (_L, [_L, _I]),
     "ptt_dot_stats_partials": (_L, [_I, _I]),
     "ptt_dot_stats_smem": (_L, []),
@@ -170,6 +171,13 @@ _SIGNATURES = {
                         + [_I, _P] + [_I] * 3 + [_F, _P] + [_F] * 5
                         + [_P]),
 }
+#: the bf16 instantiations (amp) take their f32 twin's arguments
+_SIGNATURES.update({
+    name + "_bf16": _SIGNATURES[name]
+    for name in ("ptt_qkv_attention_fwd", "ptt_qkv_bwd", "ptt_flash_fwd",
+                 "ptt_flash_bwd_dq", "ptt_flash_bwd_dkv", "ptt_dropout_add",
+                 "ptt_dropout_add_bwd")})
+_SIGNATURES["ptt_gemm_typed"] = (_I, [_I] + _SIGNATURES["ptt_gemm"][1])
 
 
 def lib() -> ctypes.CDLL:

@@ -38,16 +38,48 @@ multiply v (the normalizer sums the undropped ones) and scale the context
 by 1 / (1 - rate), keyed on (seed, b * h + head, q * tk + k) as
 ``hash_rng.keep_mask_attn`` is, so both routes draw the reference's mask
 for the same seed.  The backward kernels regenerate it; no mask is stored.
+
+bf16 (amp): #1, the pair #2 + #3 and the bthd kernels #4, #6, #7 have bf16
+instantiations (entry points ``ptt_*_bf16``, counted under the kernel's
+name + "_bf16").  Their tensors are bf16 (x, the weights, the bias, y,
+ctx, dx, the dW in the fused kernels; q, k, v, the bias, o, dO, dq, dk, dv
+in the bthd ones), lse and delta f32, and all arithmetic f32, as the
+reference's kernels compute on bf16 operands; the twins do the same (the
+projections of bf16 operands in f32, #1's ctx rounded to bf16 before the
+y product).  The bhtd kernels (#5, #8, #9) are f32 only.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import KERNEL_D_HEAD, _build, composes, hash_rng, launches
+from . import (KERNEL_D_HEAD, KERNEL_DTYPES, _build, composes, hash_rng,
+               launches)
 
 #: score given to causally hidden keys (the reference kernel's value)
 MASK_VALUE = -1e30
+
+
+def _wide(a):
+    """a in f32 or wider (bf16 -> f32; f32 and f64 as they are)."""
+    return a.to(torch.promote_types(a.dtype, torch.float32))
+
+
+def _kernel_dtype(a, what, dtypes=KERNEL_DTYPES):
+    """(a's dtype, its entry-point suffix) where a kernel takes it; raises
+    otherwise."""
+    if a.dtype not in dtypes:
+        raise ValueError(f"{what}: no kernel for {a.dtype} (compiled for "
+                         f"{', '.join(str(d) for d in dtypes)})")
+    return a.dtype, dtypes[a.dtype]
+
+
+def _require_aligned(what, **tensors):
+    """The kernels load 16 bytes at a time from each row: every tensor's
+    data must start 16-byte aligned."""
+    for name, a in tensors.items():
+        if a is not None and a.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
 
 
 def _bias_4d(bias, b, n_head, tq, tk, what):
@@ -85,13 +117,13 @@ def _dropout_args(rate, seed, tq, tk, what):
     return float(rate), int(seed) & 0xFFFFFFFF, hash_rng.keep_threshold(rate)
 
 
-def _bias_strides(bias, device, what):
+def _bias_strides(bias, device, what, dtype=torch.float32):
     """(the bias's four strides, its data pointer) for a kernel; zeros and
-    None without a bias."""
+    None without a bias.  The bias must be of the kernel's dtype."""
     if bias is None:
         return (0, 0, 0, 0), None
-    if bias.device != device or bias.dtype != torch.float32:
-        raise ValueError(f"{what}: bias must be f32 on {device}, got "
+    if bias.device != device or bias.dtype != dtype:
+        raise ValueError(f"{what}: bias must be {dtype} on {device}, got "
                          f"{bias.dtype} on {bias.device}")
     return bias.stride(), bias.data_ptr()
 
@@ -102,11 +134,13 @@ def _bias_strides(bias, device, what):
 
 
 def _project(x, w_qkv, n_head):
-    """q, k, v [b, t, h, dh] of x [b, t, dm] by the packed w_qkv."""
+    """q, k, v [b, t, h, dh] of x [b, t, dm] by the packed w_qkv, in f32
+    or wider (bf16 operands multiplied in f32, as the reference's kernels
+    do)."""
     b, t, _ = x.shape
     hd = w_qkv.shape[1] // 3
     return (a.reshape(b, t, n_head, hd // n_head)
-            for a in torch.split(x @ w_qkv, hd, dim=-1))
+            for a in torch.split(_wide(x) @ _wide(w_qkv), hd, dim=-1))
 
 
 def reference_qkv_fwd(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
@@ -116,12 +150,16 @@ def reference_qkv_fwd(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
     ``softmax((x Wq)(x Wk)^T * scale + bias) (x Wv)`` (its weights dropped
     as :func:`reference_flash_fwd` drops them), and y = ctx @ w_out over
     the merged heads.  A row whose scores are all masked (max <= -1e29)
-    gets a zero context and lse = +inf, as in the kernel."""
+    gets a zero context and lse = +inf, as in the kernel.  ctx and y are
+    in x's dtype; under bf16 ctx is rounded before the y product, which
+    runs in f32."""
     b, t, _ = x.shape
     q, k, v = _project(x, w_qkv, n_head)
     ctx, lse = reference_flash_fwd(q, k, v, bias, scale, causal,
                                    dropout_rate, dropout_seed)
-    return (ctx.reshape(b, t, -1) @ w_out).to(x.dtype), ctx, lse
+    ctx = ctx.to(x.dtype)
+    y = _wide(ctx).reshape(b, t, -1) @ _wide(w_out)
+    return y.to(x.dtype), ctx, lse
 
 
 def reference_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1,
@@ -138,8 +176,8 @@ def _qkv_recompute(x, w_qkv, w_out, g, ctx, n_head):
     dctx = g w_out^T (each [b, t, h, dh]) and delta = rowsum(dctx * ctx)
     [b, h, t]."""
     q, k, v = _project(x, w_qkv, n_head)
-    dctx = (g @ w_out.transpose(0, 1)).reshape(ctx.shape)
-    delta = (dctx * ctx).sum(-1).transpose(1, 2)
+    dctx = (_wide(g) @ _wide(w_out).transpose(0, 1)).reshape(ctx.shape)
+    delta = (dctx * _wide(ctx)).sum(-1).transpose(1, 2)
     return q, k, v, dctx, delta
 
 
@@ -154,15 +192,18 @@ def reference_qkv_bwd_dq(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1,
     """Plain twin of #2: (dx_q [b, t, dm], dW_q [dm, hd], dW_out [hd, dm])
     from g = dL/dy and #1's residuals: dq = ds k as the bthd twin of #6
     computes it over the recomputed q, k, v and dctx, then dx_q = dq
-    Wq^T, dW_q = x^T dq and dW_out = ctx^T g."""
+    Wq^T, dW_q = x^T dq and dW_out = ctx^T g (each in its operand's
+    dtype, the products in f32 or wider)."""
     hd = w_qkv.shape[1] // 3
     q, k, v, dctx, delta = _qkv_recompute(x, w_qkv, w_out, g, ctx, n_head)
     dq = _rows(reference_flash_bwd_dq(q, k, v, bias, dctx, lse, delta,
                                       scale, causal, dropout_rate,
                                       dropout_seed))
-    dx = (dq @ w_qkv[:, :hd].transpose(0, 1)).reshape(x.shape)
-    return (dx, _rows(x).transpose(0, 1) @ dq,
-            _rows(ctx).transpose(0, 1) @ _rows(g))
+    dx = (dq @ _wide(w_qkv)[:, :hd].transpose(0, 1)).reshape(x.shape)
+    return (dx.to(x.dtype),
+            (_rows(_wide(x)).transpose(0, 1) @ dq).to(w_qkv.dtype),
+            (_rows(_wide(ctx)).transpose(0, 1) @ _rows(_wide(g))).to(
+                w_out.dtype))
 
 
 def reference_qkv_bwd_dkv(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1,
@@ -176,10 +217,12 @@ def reference_qkv_bwd_dkv(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1,
     dk, dv = (_rows(a) for a in reference_flash_bwd_dkv(
         q, k, v, bias, dctx, lse, delta, scale, causal, dropout_rate,
         dropout_seed))
-    dx = (dk @ w_qkv[:, hd:2 * hd].transpose(0, 1)
-          + dv @ w_qkv[:, 2 * hd:].transpose(0, 1)).reshape(x.shape)
-    xt = _rows(x).transpose(0, 1)
-    return dx, xt @ dk, xt @ dv
+    w = _wide(w_qkv)
+    dx = (dk @ w[:, hd:2 * hd].transpose(0, 1)
+          + dv @ w[:, 2 * hd:].transpose(0, 1)).reshape(x.shape)
+    xt = _rows(_wide(x)).transpose(0, 1)
+    return (dx.to(x.dtype), (xt @ dk).to(w_qkv.dtype),
+            (xt @ dv).to(w_qkv.dtype))
 
 
 def _d_head(w_qkv, n_head):
@@ -188,12 +231,15 @@ def _d_head(w_qkv, n_head):
 
 def _qkv_args(what, x, w_qkv, w_out, bias, n_head, **more):
     """Check the operands of a fused-projection kernel and return (b, t,
-    dm, hd, bias strides, bias pointer).  x (and g) [b, t, dm], w_qkv
-    [dm, 3hd], w_out [hd, dm], ctx [b, t, h, 64] and lse [b, h, t] must be
-    contiguous f32 on x's CUDA device, with head width 64 and d_model %
-    32 == 0: the kernels index raw pointers."""
+    dm, hd, bias strides, bias pointer).  x (and g)
+    [b, t, dm], w_qkv [dm, 3hd], w_out [hd, dm], ctx [b, t, h, 64] and the
+    bias must be contiguous (the bias a broadcast view) tensors of x's
+    dtype, f32 or bf16, and lse [b, h, t] f32, on x's CUDA device, 16-byte
+    aligned, with head width 64 and d_model % 32 == 0: the kernels index
+    raw pointers."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for {x.device}")
+    dtype, _ = _kernel_dtype(x, what)
     b, t, dm = x.shape
     hd = w_qkv.shape[1] // 3
     dh = hd // n_head
@@ -201,15 +247,17 @@ def _qkv_args(what, x, w_qkv, w_out, bias, n_head, **more):
         raise ValueError(
             f"{what}: the CUDA kernel takes d_head 64 and d_model % 32 == "
             f"0, got d_head {dh}, d_model {dm}")
-    f32 = torch.float32
     shapes = {"x": (b, t, dm), "w_qkv": (dm, 3 * hd), "w_out": (hd, dm),
               "g": (b, t, dm), "ctx": (b, t, n_head, dh),
               "lse": (b, n_head, t)}
-    _build.require({name: (a, f32, shapes[name]) for name, a in dict(
-        x=x, w_qkv=w_qkv, w_out=w_out, **more).items()}, x.device, what)
+    tensors = dict(x=x, w_qkv=w_qkv, w_out=w_out, **more)
+    _build.require({name: (a, torch.float32 if name == "lse" else dtype,
+                           shapes[name]) for name, a in tensors.items()},
+                   x.device, what)
+    _require_aligned(what, **tensors)
     if bias is not None:
         bias = _bias_view(bias, b, n_head, t, t, what)
-    return (b, t, dm, hd) + _bias_strides(bias, x.device, what)
+    return (b, t, dm, hd) + _bias_strides(bias, x.device, what, dtype)
 
 
 #: the most blocks a thread-block cluster may hold on every Hopper card
@@ -250,6 +298,7 @@ def _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
     """Launch #1 on the route of :func:`qkv_fwd_plan`: (y, ctx, lse)."""
     b, t, dm, hd, strides, bias_ptr = _qkv_args(
         "qkv_attention_fwd", x, w_qkv, w_out, bias, n_head)
+    suffix = KERNEL_DTYPES[x.dtype]
     sms = sm_count(x.device)
     plan = qkv_fwd_plan(b, t, n_head, sms)
     rows = plan[2] if plan[0] == "cluster" else 0
@@ -262,13 +311,13 @@ def _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
     lse = torch.empty((b, n_head, t), dtype=torch.float32, device=x.device)
     partials = torch.empty(lib.ptt_qkv_fwd_scratch(b, t, dm, n_head, sms),
                            dtype=torch.float32, device=x.device)
-    err = lib.ptt_qkv_attention_fwd(
+    err = getattr(lib, "ptt_qkv_attention_fwd" + suffix)(
         x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), bias_ptr,
         *strides, y.data_ptr(), ctx.data_ptr(), lse.data_ptr(),
         partials.data_ptr(), b, t, dm, n_head, rows, sms, float(scale),
         int(bool(causal)), *drop, _build.stream_of(x))
-    _build.check(err, "qkv_attention_fwd")
-    launches["qkv_attention_fwd"] += 1
+    _build.check(err, "qkv_attention_fwd" + suffix)
+    launches["qkv_attention_fwd" + suffix] += 1
     return y, ctx, lse
 
 
@@ -302,6 +351,7 @@ def _launch_qkv_bwd(walks, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
             WALK_DQ | WALK_DKV: "qkv_bwd"}[walks]
     b, t, dm, hd, strides, bias_ptr = _qkv_args(
         what, x, w_qkv, w_out, bias, n_head, g=g, ctx=ctx, lse=lse)
+    suffix = KERNEL_DTYPES[x.dtype]
     drop = _dropout_args(dropout_rate, dropout_seed, t, t, what)
     sms = sm_count(x.device)
     lib = _build.lib()
@@ -314,16 +364,16 @@ def _launch_qkv_bwd(walks, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
     dw = torch.empty((dm, cols), dtype=x.dtype, device=x.device)
     dw_out = (torch.empty((hd, dm), dtype=x.dtype, device=x.device)
               if walks & WALK_DQ else None)
-    err = lib.ptt_qkv_bwd(
+    err = getattr(lib, "ptt_qkv_bwd" + suffix)(
         walks, x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), bias_ptr,
         *strides, g.data_ptr(), ctx.data_ptr(), lse.data_ptr(),
         scratch.data_ptr(), dx.data_ptr(), dw.data_ptr(),
         None if dw_out is None else dw_out.data_ptr(), b, t, dm, n_head, sms,
         float(scale), int(bool(causal)), *drop, _build.stream_of(x))
-    _build.check(err, what)
+    _build.check(err, what + suffix)
     for bit, name in ((WALK_DQ, "qkv_bwd_dq"), (WALK_DKV, "qkv_bwd_dkv")):
         if walks & bit:
-            launches[name] += 1
+            launches[name + suffix] += 1
     return dx, dw, dw_out
 
 
@@ -341,9 +391,11 @@ def reference_qkv_bwd(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1,
     dk, dv = reference_flash_bwd_dkv(q, k, v, bias, dctx, lse, delta, scale,
                                      causal, dropout_rate, dropout_seed)
     dqkv = torch.cat([_rows(dq), _rows(dk), _rows(dv)], dim=1)
-    dx = (dqkv @ w_qkv.transpose(0, 1)).reshape(x.shape)
-    return (dx, _rows(x).transpose(0, 1) @ dqkv,
-            _rows(ctx).transpose(0, 1) @ _rows(g))
+    dx = (dqkv @ _wide(w_qkv).transpose(0, 1)).reshape(x.shape)
+    return (dx.to(x.dtype),
+            (_rows(_wide(x)).transpose(0, 1) @ dqkv).to(w_qkv.dtype),
+            (_rows(_wide(ctx)).transpose(0, 1) @ _rows(_wide(g))).to(
+                w_out.dtype))
 
 
 def qkv_bwd(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1, scale=1.0,
@@ -623,12 +675,15 @@ def _dims(a, fmt):
 
 def _kernel_args(what, fmt, q, k, bias, **more):
     """Check the operands of a flash kernel and return (b, tq, tk, h, bias
-    strides, bias pointer).  Each tensor must be a contiguous f32 [b, t, h,
-    64] (``fmt`` "bthd") or [b, h, t, 64] ("bhtd"), or, for the [b, h, tq]
-    rows in ``more``, that shape, on q's CUDA device; the kernels index
-    raw pointers."""
+    strides, bias pointer, entry-point suffix).  Each tensor must be a
+    contiguous [b, t, h, 64] (``fmt`` "bthd") or [b, h, t, 64] ("bhtd")
+    tensor of q's dtype (f32, or bf16 in bthd), the bias of that dtype
+    too, or, for lse and delta, an f32 [b, h, tq], on q's CUDA device and
+    16-byte aligned; the kernels index raw pointers."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for {q.device}")
+    dtype, suffix = _kernel_dtype(
+        q, what, KERNEL_DTYPES if fmt == "bthd" else {torch.float32: ""})
     b, h, tq, d = _dims(q, fmt)
     tk = _dims(k, fmt)[2]
     if d != KERNEL_D_HEAD:
@@ -638,15 +693,17 @@ def _kernel_args(what, fmt, q, k, bias, **more):
     def rows(t):
         return (b, t, h, d) if fmt == "bthd" else (b, h, t, d)
 
-    f32 = torch.float32
     shapes = {"q": rows(tq), "k": rows(tk), "v": rows(tk), "dout": rows(tq),
               "lse": (b, h, tq), "delta": (b, h, tq)}
-    _build.require({name: (a, f32, shapes[name])
-                    for name, a in dict(q=q, k=k, **more).items()},
-                   q.device, what)
+    tensors = dict(q=q, k=k, **more)
+    _build.require({name: (a, torch.float32 if name in ("lse", "delta")
+                           else dtype, shapes[name])
+                    for name, a in tensors.items()}, q.device, what)
+    _require_aligned(what, **tensors)
     if bias is not None:
         bias = _bias_view(bias, b, h, tq, tk, what)
-    return (b, tq, tk, h) + _bias_strides(bias, q.device, what)
+    return ((b, tq, tk, h) + _bias_strides(bias, q.device, what, dtype)
+            + (suffix,))
 
 
 #: fmt -> (suffix of the kernels' names and entry points, the plain twins
@@ -664,8 +721,9 @@ def _fwd(fmt, q, k, v, bias, scale, causal, dropout_rate, dropout_seed):
     what = "flash_fwd" + suffix
     if q.device.type == "cpu" or composes(what, q.shape[-1]):
         return twin(q, k, v, bias, scale, causal, dropout_rate, dropout_seed)
-    b, tq, tk, h, strides, bias_ptr = _kernel_args(what, fmt, q, k, bias,
-                                                   v=v)
+    b, tq, tk, h, strides, bias_ptr, suffix = _kernel_args(
+        what, fmt, q, k, bias, v=v)
+    what += suffix
     drop = _dropout_args(dropout_rate, dropout_seed, tq, tk, what)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -685,8 +743,9 @@ def _bwd_dq(fmt, q, k, v, bias, dout, lse, delta, scale, causal,
     if q.device.type == "cpu" or composes(what, q.shape[-1]):
         return twin(q, k, v, bias, dout, lse, delta, scale, causal,
                     dropout_rate, dropout_seed)
-    b, tq, tk, h, strides, bias_ptr = _kernel_args(
+    b, tq, tk, h, strides, bias_ptr, suffix = _kernel_args(
         what, fmt, q, k, bias, v=v, dout=dout, lse=lse, delta=delta)
+    what += suffix
     drop = _dropout_args(dropout_rate, dropout_seed, tq, tk, what)
     dq = torch.empty_like(q)
     err = getattr(_build.lib(), "ptt_" + what)(
@@ -706,8 +765,9 @@ def _bwd_dkv(fmt, q, k, v, bias, dout, lse, delta, scale, causal,
     if q.device.type == "cpu" or composes(what, q.shape[-1]):
         return twin(q, k, v, bias, dout, lse, delta, scale, causal,
                     dropout_rate, dropout_seed)
-    b, tq, tk, h, strides, bias_ptr = _kernel_args(
+    b, tq, tk, h, strides, bias_ptr, suffix = _kernel_args(
         what, fmt, q, k, bias, v=v, dout=dout, lse=lse, delta=delta)
+    what += suffix
     drop = _dropout_args(dropout_rate, dropout_seed, tq, tk, what)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

@@ -13,14 +13,17 @@ sites' ``dropout(upscale_in_train)``.
 
 The plain twins are :func:`reference_dropout_add` and
 :func:`reference_dropout_add_bwd`.  CPU tensors take them; CUDA tensors
-launch ``csrc/dropout_add.cu`` or raise.
+launch ``csrc/dropout_add.cu`` or raise.  f32 and bf16 (amp) tensors each
+have their kernel; in bf16 the arithmetic is the reference's in x's dtype
+(inv_keep, each product and each sum rounded to bf16), counted under
+``dropout_add_fwd_bf16`` and ``dropout_add_bwd_bf16``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build, hash_rng, launches
+from . import KERNEL_DTYPES, _build, hash_rng, launches
 
 
 def _check(x, rate):
@@ -37,12 +40,20 @@ def _inv_keep(rate):
     return 1.0 / (1.0 - float(rate))
 
 
+def _scale(rate, dtype):
+    """inv_keep as the reference multiplies by it: in x's dtype (a bf16
+    0-dim tensor for bf16, 1.109375 at rate 0.1), else the Python float."""
+    if dtype == torch.bfloat16:
+        return torch.tensor(_inv_keep(rate), dtype=dtype)
+    return _inv_keep(rate)
+
+
 def reference_dropout_add(x, residual, rate, seed):
     """Plain twin of #16: ``keep ? x * inv_keep : 0`` plus the residual
-    (cast to x's dtype) when one is given."""
+    (cast to x's dtype) when one is given, each operation in x's dtype."""
     keep = hash_rng.keep_mask(seed, x.shape, rate, device=x.device)
-    out = torch.where(keep, x * _inv_keep(rate), torch.zeros((), dtype=x.dtype,
-                                                              device=x.device))
+    out = torch.where(keep, x * _scale(rate, x.dtype),
+                      torch.zeros((), dtype=x.dtype, device=x.device))
     return out if residual is None else out + residual.to(x.dtype)
 
 
@@ -52,26 +63,37 @@ def reference_dropout_add_bwd(g, rate, seed):
 
 
 def _launch(entry, what, *ptrs, n, rate, seed, like):
-    err = entry(*ptrs, n, float(rate), int(seed) & 0xFFFFFFFF,
-                hash_rng.keep_threshold(rate), _build.stream_of(like))
-    _build.check(err, what)
-    launches[what] += 1
+    suffix = KERNEL_DTYPES[like.dtype]
+    err = getattr(_build.lib(), entry + suffix)(
+        *ptrs, n, float(rate), int(seed) & 0xFFFFFFFF,
+        hash_rng.keep_threshold(rate), _build.stream_of(like))
+    _build.check(err, what + suffix)
+    launches[what + suffix] += 1
+
+
+def _kernel_dtype(x, what):
+    """x's dtype where a kernel takes it (f32, bf16); raises otherwise."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for {x.device}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{what}: no kernel for {x.dtype}")
+    return x.dtype
 
 
 def dropout_add_fwd(x, residual, rate, seed):
     """#16: :func:`reference_dropout_add`'s result (CPU: the twin; CUDA:
-    the kernel, on contiguous f32 tensors, or an error)."""
+    the kernel of x's dtype, f32 or bf16, on contiguous tensors of that
+    dtype, or an error)."""
     _check(x, rate)
     if x.device.type == "cpu":
         return reference_dropout_add(x, residual, rate, seed)
-    if x.device.type != "cuda":
-        raise ValueError(f"dropout_add_fwd: no kernel for {x.device}")
-    tensors = {"x": (x, torch.float32, x.shape)}
+    dtype = _kernel_dtype(x, "dropout_add_fwd")
+    tensors = {"x": (x, dtype, x.shape)}
     if residual is not None:
-        tensors["residual"] = (residual, torch.float32, x.shape)
+        tensors["residual"] = (residual, dtype, x.shape)
     _build.require(tensors, x.device, "dropout_add_fwd")
     out = torch.empty_like(x)
-    _launch(_build.lib().ptt_dropout_add, "dropout_add_fwd", x.data_ptr(),
+    _launch("ptt_dropout_add", "dropout_add_fwd", x.data_ptr(),
             None if residual is None else residual.data_ptr(), out.data_ptr(),
             n=x.numel(), rate=rate, seed=seed, like=x)
     return out
@@ -79,18 +101,15 @@ def dropout_add_fwd(x, residual, rate, seed):
 
 def dropout_add_bwd(g, rate, seed):
     """#17: dx as :func:`reference_dropout_add_bwd` computes it (CPU: the
-    twin; CUDA: the kernel or an error)."""
+    twin; CUDA: the kernel of g's dtype or an error)."""
     _check(g, rate)
     if g.device.type == "cpu":
         return reference_dropout_add_bwd(g, rate, seed)
-    if g.device.type != "cuda":
-        raise ValueError(f"dropout_add_bwd: no kernel for {g.device}")
-    _build.require({"g": (g, torch.float32, g.shape)}, g.device,
-                   "dropout_add_bwd")
+    dtype = _kernel_dtype(g, "dropout_add_bwd")
+    _build.require({"g": (g, dtype, g.shape)}, g.device, "dropout_add_bwd")
     dx = torch.empty_like(g)
-    _launch(_build.lib().ptt_dropout_add_bwd, "dropout_add_bwd",
-            g.data_ptr(), dx.data_ptr(), n=g.numel(), rate=rate, seed=seed,
-            like=g)
+    _launch("ptt_dropout_add_bwd", "dropout_add_bwd", g.data_ptr(),
+            dx.data_ptr(), n=g.numel(), rate=rate, seed=seed, like=g)
     return dx
 
 
@@ -123,8 +142,9 @@ def dropout_add(x, residual, rate, seed):
         raise ValueError(
             f"dropout_add: x {tuple(x.shape)} vs residual "
             f"{tuple(residual.shape)} must match")
-    return _DropoutAdd.apply(x.contiguous(), residual.contiguous(),
-                             float(rate), int(seed))
+    return _DropoutAdd.apply(x.contiguous(),
+                             residual.to(x.dtype).contiguous(), float(rate),
+                             int(seed))
 
 
 def dropout(x, rate, seed):

@@ -56,12 +56,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import amp
 from ..device import resolve_device
 from ..kernels.attention import flash_attention, flash_qkv_attention
 from ..kernels.decode_step import fused_decode_step, fused_decode_step_paged
 from ..layers.contrib import fused_attention
-from ..ops.nn_ops import (dropout, dropout_add, layer_norm, lookup_table,
-                          mul, softmax_with_cross_entropy)
+from ..ops.nn_ops import (dropout, dropout_add, elementwise_add, layer_norm,
+                          lookup_table, mul, softmax_with_cross_entropy)
 
 #: additive score bias of a padded key and of a future one (the
 #: reference's -1e9)
@@ -80,7 +81,8 @@ def prepare_encoder(word_ids, pos_ids, word_table, pos_table):
 
 
 def positionwise_feed_forward(x, w_in, b_in, w_out, b_out):
-    return mul(torch.relu(mul(x, w_in) + b_in), w_out) + b_out
+    return elementwise_add(
+        mul(torch.relu(elementwise_add(mul(x, w_in), b_in)), w_out), b_out)
 
 
 def _attend(q, k, v, w_out, bias, n_head, d_key, rate=0.0, seed=None):
@@ -90,6 +92,7 @@ def _attend(q, k, v, w_out, bias, n_head, d_key, rate=0.0, seed=None):
     projected by w_out."""
     b, tq, hd = q.shape
     tk = k.shape[1]
+    q, k, v, bias = amp.cast("fused_attention", q, k, v, bias)
     ctx = flash_attention(q.reshape(b, tq, n_head, d_key),
                           k.reshape(b, tk, n_head, d_key),
                           v.reshape(b, tk, n_head, d_key), bias,
@@ -105,6 +108,8 @@ def self_attention(x, w_qkv, w_out, bias, n_head, d_key, fused, rate=0.0,
     and :func:`_attend` (#4, #6, #7); weights dropout at ``rate`` under
     ``seed`` on either route."""
     if fused:
+        x, w_qkv, w_out, bias = amp.cast("fused_qkv_attention", x, w_qkv,
+                                         w_out, bias)
         return flash_qkv_attention(x, w_qkv, w_out, bias, n_head=n_head,
                                    scale=d_key ** -0.5, dropout_rate=rate,
                                    dropout_seed=seed)
@@ -503,7 +508,19 @@ class Transformer(nn.Module):
         ``dropout_seeds`` (a sequence in that order, e.g.
         ``interop.dropout_seeds`` of the reference's step key), or, when
         none are given, with seeds drawn on the host from ``generator``.
-        The seeds reach the kernels as host scalars."""
+        The seeds reach the kernels as host scalars.
+
+        With ``amp.enable(model)`` the step runs under the reference's bf16
+        cast policy (``paddle_tpu_torch.amp``): matrix products and
+        attention in bf16, the residual stream and the logits bf16, the
+        embeddings, the loss and every parameter's gradient f32."""
+        with amp.policy_scope(self):
+            return self._forward(src_word, src_pos, trg_word, trg_pos,
+                                 lbl_word, lbl_weight, dropout_seeds,
+                                 generator)
+
+    def _forward(self, src_word, src_pos, trg_word, trg_pos, lbl_word,
+                 lbl_weight, dropout_seeds, generator):
         b = src_word.shape[0]
         src_word, src_pos, trg_word, trg_pos = (
             a.reshape(b, -1) for a in (src_word, src_pos, trg_word, trg_pos))
@@ -522,7 +539,7 @@ class Transformer(nn.Module):
         for layer in self.decoder:
             x = layer(x, enc_out, trg_bias, src_bias, rate,
                       take(len(DecoderLayer.SITES)))
-        predict = mul(x, self.predict_w) + self.predict_b
+        predict = elementwise_add(mul(x, self.predict_w), self.predict_b)
         cost = softmax_with_cross_entropy(
             predict.reshape(-1, self.trg_vocab_size), lbl_word.reshape(-1, 1))
         w = lbl_weight.reshape(-1, 1).float()

@@ -5,25 +5,44 @@ and ``cross_entropy``, of ``paddle_tpu/ops/math_ops.py`` ``mul`` and
 ``gelu`` (with the ``fc`` layer around them and BERT's masked-LM loss) and
 of ``paddle_tpu/ops/metric_ops.py`` ``accuracy``.  Each differentiates
 through torch autograd as the reference's lowering does through
-``jax.vjp``."""
+``jax.vjp``.  While an amp-enabled model runs (``paddle_tpu_torch.amp``),
+``mul``, ``elementwise_add`` and ``dropout_add`` cast their inputs by the
+reference's policy; the other ops take their inputs' dtypes."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .. import amp
+from ..kernels import dropout_epilogue
 from ..kernels.conv_bn import (_wide, bn_apply, bn_fold, channel_stats,
                                conv2d_nhwc, conv_bn_stats,
                                reference_ssa_fwd)
 
 #: ``dropout`` (upscale_in_train, the only mode the models use: the
-#: reference's ``keep_mask`` bits of the site's uint32 seed) and the fused
-#: ``dropout_add`` (``lower_dropout_add``) are the kernels' own entry
-#: points, #16 forward and #17 backward; rate 0 is the identity and a
-#: plain add
-from ..kernels.dropout_epilogue import dropout, dropout_add  # noqa: F401
+#: reference's ``keep_mask`` bits of the site's uint32 seed) is the
+#: kernel's own entry point, #16 forward and #17 backward; rate 0 is the
+#: identity
+from ..kernels.dropout_epilogue import dropout  # noqa: F401
 from ..kernels.embedding import multi_table_gather, multi_table_scatter_add
 from ..selected_rows import SelectedRows
+
+
+def dropout_add(x, residual, rate, seed):
+    """The fused ``dropout(x) + residual`` (``lower_dropout_add``) through
+    #16 and #17; rate 0 is a plain add.  Under amp a GRAY_FOLLOW op: with
+    either input in bf16 both are cast to bf16."""
+    x, residual = amp.cast("dropout_add", x, residual)
+    return dropout_epilogue.dropout_add(x, residual, rate, seed)
+
+
+def elementwise_add(x, y):
+    """``x + y`` (``elementwise_add``, a bias broadcast along the last
+    axis); under amp a GRAY_FOLLOW op, so an f32 bias added to a bf16
+    activation is cast down rather than promoting it."""
+    x, y = amp.cast("elementwise_add", x, y)
+    return x + y
 
 
 def layer_norm(x, scale, bias, eps=1e-5):
@@ -142,7 +161,9 @@ def fused_lookup_table(tables, ids, padding_idx=None, is_sparse=True):
 def mul(x, w):
     """The reference's reshape-matmul (``x_num_col_dims`` = all but the
     last axis): x [..., K] flattened to one [rows, K] product with
-    w [K, N], leading axes restored."""
+    w [K, N], leading axes restored.  Under amp both operands are cast to
+    bf16 (a WHITE op)."""
+    x, w = amp.cast("mul", x, w)
     return (x.reshape(-1, w.shape[0]) @ w).reshape(*x.shape[:-1], w.shape[1])
 
 
@@ -164,7 +185,7 @@ def fc(x, w, b=None, act=None):
         raise ValueError(f"fc: unsupported act {act!r}")
     out = mul(x, w)
     if b is not None:
-        out = out + b
+        out = elementwise_add(out, b)
     return _ACTS[act](out) if _ACTS[act] else out
 
 
@@ -173,11 +194,14 @@ def softmax_with_cross_entropy(logits, label):
     [N, 1] (``softmax_with_cross_entropy_op``): ``log sum exp(shifted) -
     shifted[label]`` with ``shifted = logits - max`` (the max a constant to
     autograd, as the reference stops its gradient), summed in f32 or
-    wider."""
-    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    wider.  bf16 logits (amp) are shifted in bf16 and cast to f32 before
+    the exp, as the reference's lowering does, so no f32 copy of the
+    logits is kept for the backward; the loss is f32."""
     shifted = logits - logits.detach().amax(-1, keepdim=True)
-    log_z = torch.log(torch.exp(shifted).sum(-1, keepdim=True))
-    return log_z - torch.gather(shifted, -1, label.reshape(-1, 1).long())
+    wide = shifted.to(torch.promote_types(shifted.dtype, torch.float32))
+    log_z = torch.log(torch.exp(wide).sum(-1, keepdim=True))
+    return log_z - torch.gather(shifted, -1, label.reshape(-1, 1).long()).to(
+        wide.dtype)
 
 
 def masked_lm_loss(logits, label, weight):

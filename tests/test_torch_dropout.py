@@ -200,6 +200,45 @@ def test_dropout_add_plain_at_rate_zero_and_guards():
     _close(out64, kde.dropout_add(tx, tr, RATE, seed), 1e-6, 1e-6)
 
 
+@pytest.mark.parametrize("rate", [RATE, 0.0])
+@pytest.mark.parametrize("residual", [True, False])
+def test_dropout_add_bf16_bit_equal_to_pallas(residual, rate):
+    """bf16 (amp): the port's #16 twin (with a residual, and without one,
+    the embedding sites' dropout) and #17's twin (its backward) against
+    the reference's dropout_add in interpret mode on the same bf16 inputs,
+    bit for bit: inv_keep, each product and each sum rounded to bf16 as
+    the Pallas bodies compute them in x's dtype.  Without a residual the
+    reference is given a zero one (adding +0 changes no value).  At rate
+    0 it is a bf16 add, and dropout the identity."""
+    x, res, g, seed = _dropout_inputs(128, seed=5)
+    xb, rb, gb = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, res, g))
+    if not residual:
+        rb = jnp.zeros_like(rb)
+    assert jax_dropout._plan(xb.shape, xb.dtype, True)[0]
+    want, vjp = jax.vjp(lambda a: jax_dropout.dropout_add(
+        a, rb, rate, _jseed(seed), interpret=True), xb)
+    (want_dx,) = vjp(gb)
+    tx = torch.from_numpy(x).bfloat16().requires_grad_()
+    if residual:
+        out = kde.dropout_add(tx, torch.from_numpy(res).bfloat16(), rate,
+                              seed)
+    else:
+        out = kde.dropout(tx, rate, seed)
+    out.backward(torch.from_numpy(g).bfloat16())
+    assert out.dtype == tx.grad.dtype == torch.bfloat16
+
+    def bits(a):
+        return np.asarray(a.astype(jnp.float32))
+
+    np.testing.assert_array_equal(out.detach().float().numpy(), bits(want))
+    np.testing.assert_array_equal(tx.grad.float().numpy(), bits(want_dx))
+    if rate:
+        np.testing.assert_array_equal(
+            kde.reference_dropout_add_bwd(
+                torch.from_numpy(g).bfloat16(), rate, seed).float().numpy(),
+            bits(want_dx))
+
+
 # ---------------------------------------------------------------------------
 # weights dropout in the attention kernels' twins
 # ---------------------------------------------------------------------------

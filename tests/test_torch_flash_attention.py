@@ -347,3 +347,62 @@ def test_head_width_128_matches_jax_kernels(name, tq, tk, bias_kind, causal):
     _close(got.detach(), want)
     for a, w in zip(args, want_grads):
         _close(a.grad, w)
+
+
+#: bf16 (amp): the same bf16 q, k, v, bias and dO on both sides, f32
+#: arithmetic in other orders, each output rounded once to bf16 (8
+#: significant bits): within 2^-7 of its value, plus, where a sum cancels,
+#: one bf16 step (2^-8) of the tensor's largest element; lse f32 on both
+RTOL_BF16 = 2.0 ** -7
+BF16_CASES = [("key_padding", 32, 64, "pad", False),
+              ("causal_tq_gt_tk", 64, 32, "pad", True),
+              ("masked_row", 64, 64, "masked", False)]
+
+
+def _close_bf16(got, want):
+    want = np.asarray(want, np.float64)
+    np.testing.assert_allclose(np.asarray(got, np.float64), want,
+                               rtol=RTOL_BF16,
+                               atol=2.0 ** -8 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("name,tq,tk,bias_kind,causal", BF16_CASES)
+def test_bf16_matches_jax_kernels(name, tq, tk, bias_kind, causal):
+    """#4's, #6's and #7's twins on bf16 operands (the bias too, as amp
+    casts it) through the Function's autograd against _flash_forward and
+    _flash_backward in interpret mode on the same bf16 operands: out, dq,
+    dk, dv bf16 within _close_bf16, lse f32 within 1e-5."""
+    arrays = _inputs(tq, tk, bias_kind, seed=6)
+    tq_, tk_, tv, tg, tb = (None if a is None else
+                            torch.from_numpy(a).bfloat16() for a in arrays)
+    jq, jk, jv, jg, jb = (None if a is None else
+                          jnp.asarray(a).astype(jnp.bfloat16)
+                          for a in arrays)
+    ok, bq, bk, _ = jax_attention._plan(jq, jk, 512, 512, True, "bthd")
+    assert ok
+    seed = jnp.zeros((1,), jnp.uint32)
+    out, lse = jax_attention._flash_forward(jq, jk, jv, jb, seed, SCALE,
+                                            causal, bq, bk, True, "bthd")
+    dq, dk, dv = jax_attention._flash_backward(
+        jq, jk, jv, jb, seed, out, lse, jg, SCALE, causal, bq, bk, True,
+        "bthd")
+    assert out.dtype == dq.dtype == jnp.bfloat16
+
+    def f32(a):
+        return np.asarray(a.astype(jnp.float32))
+
+    got_out, got_lse = ka.flash_fwd(tq_, tk_, tv, tb, SCALE, causal)
+    assert got_out.dtype == torch.bfloat16
+    assert got_lse.dtype == torch.float32
+    live = ~np.isinf(f32(lse))
+    np.testing.assert_allclose(got_lse.numpy()[live], f32(lse)[live],
+                               rtol=1e-5, atol=1e-5)
+    leaves = [a.clone().requires_grad_() for a in (tq_, tk_, tv)]
+    o = ka.flash_attention(*leaves, tb, scale=SCALE, causal=causal,
+                           fmt="bthd")
+    assert torch.equal(o, got_out)
+    o.backward(tg)
+    _close_bf16(o.detach().float(), f32(out))
+    for leaf, want in zip(leaves, (dq, dk, dv)):
+        assert leaf.grad.dtype == torch.bfloat16
+        _close_bf16(leaf.grad.float(), f32(want))

@@ -533,3 +533,103 @@ def test_head_width_128_matches_jax_kernels(name, t, bias_kind, causal):
     _close(out.detach(), want)
     for a, w in zip(args, want_grads):
         _close(a.grad, w)
+
+
+#: bf16 (amp): the same bf16 operands on both sides, f32 arithmetic in
+#: other orders, each output rounded to bf16 (8 significant bits): one
+#: bf16 step apart at most, 2^-7 of the value.  Intermediates are rounded
+#: too (the ctx y reads; the reference's dx in two halves dx_q, dx_kv
+#: before their sum), and where a sum cancels such a step stays at the
+#: scale of the terms: so each element is held within RTOL_BF16 of its
+#: value plus one bf16 step (2^-8) of the tensor's largest element; dx
+#: (rounded twice in the reference) within two.  lse is f32 on both sides.
+RTOL_BF16 = 2.0 ** -7
+
+
+def _close_bf16(got, want, steps=1):
+    want = np.asarray(want, np.float64)
+    _close(got, want, steps * RTOL_BF16,
+           steps * 2.0 ** -8 * np.abs(want).max())
+
+
+BF16_CASES = [("pad", 2, 128, "pad", False), ("causal", 3, 64, None, True),
+              ("masked_row", 2, 64, "masked", False)]
+
+
+def _bf16(*arrays):
+    """numpy f32 -> (torch bf16, jax bf16) pairs of the same values."""
+    return [(None, None) if a is None else
+            (torch.from_numpy(a).bfloat16(),
+             jnp.asarray(a).astype(jnp.bfloat16)) for a in arrays]
+
+
+@pytest.mark.parametrize("name,n_head,t,bias_kind,causal", BF16_CASES)
+def test_bf16_twins_match_jax_kernels(name, n_head, t, bias_kind, causal):
+    """#1's twin (y, ctx, lse) and the pair's (dx, dW_qkv, dW_out) on bf16
+    operands (the bias too, as amp casts it) against _qkv_forward and
+    _qkv_backward in interpret mode on the same bf16 operands: y, ctx, dx,
+    dW in bf16 by _close_bf16 (dx two steps), lse f32 within 1e-5."""
+    x, w_qkv, w_out, g, bias = _inputs(n_head, t, bias_kind, seed=3)
+    (tx, jx), (tw, jw), (to, jo), (tg, jg), (tb, jb) = _bf16(
+        x, w_qkv, w_out, g, bias)
+    ok, bq, bk, _ = jax_attention._qkv_plan(jx, n_head, DH, 512, 512, True,
+                                            bias=jb)
+    assert ok
+    w3 = jax_attention._prep_w_qkv(jw, n_head, DH)
+    wo = jax_attention._prep_w_out(jo, n_head, DH)
+    zero = jnp.zeros((1,), jnp.uint32)
+    y, ctx, lse = jax_attention._qkv_forward(
+        jx, w3, wo, jb, zero, SCALE, causal, n_head, DH, bq, bk, True, 0.0,
+        False)
+    dx_q, dx_kv, dwq, dwk, dwv, dwo = jax_attention._qkv_backward(
+        jx, w3, wo, jb, zero, ctx, lse, jg, SCALE, causal, n_head, DH, bq,
+        bk, True, 0.0, False)
+    assert y.dtype == ctx.dtype == dx_q.dtype == jnp.bfloat16
+    kw = dict(n_head=n_head, scale=SCALE, causal=causal)
+    got_y, got_ctx, got_lse = ka.qkv_attention_fwd(tx, tw, to, tb, **kw)
+    assert got_y.dtype == got_ctx.dtype == torch.bfloat16
+    assert got_lse.dtype == torch.float32
+
+    def f32(a):
+        return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+    _close_bf16(got_y.float(), f32(y))
+    _close_bf16(got_ctx.float().transpose(1, 2), f32(ctx))
+    live = ~np.isinf(f32(lse))
+    _close(got_lse.numpy()[live], f32(lse)[live], 1e-5, 1e-5)
+    dx, dw_qkv, dw_out = ka.qkv_bwd(tx, tw, to, tb, tg, got_ctx, got_lse,
+                                    **kw)
+    assert dx.dtype == dw_qkv.dtype == dw_out.dtype == torch.bfloat16
+    want_dx = (dx_q.astype(jnp.float32) + dx_kv.astype(jnp.float32)).astype(
+        jnp.bfloat16)
+    _close_bf16(dx.float(), f32(want_dx), 2)
+    _close_bf16(dw_qkv.float(), f32(jax_attention._unpack_dw_qkv(
+        dwq, dwk, dwv, jnp.float32)))
+    _close_bf16(dw_out.float(), f32(dwo.reshape(n_head * DH, DM)))
+
+
+def test_bf16_autograd_matches_jax_vjp():
+    """The Function on bf16 leaves (causal, padding bias) against jax.vjp
+    of the reference's flash_qkv_attention in interpret mode: y and the
+    gradients of x, w_qkv and w_out in bf16, within the tolerances
+    above."""
+    x, w_qkv, w_out, g, bias = _inputs(2, 64, "pad", seed=4)
+    (tx, jx), (tw, jw), (to, jo), (tg, jg), (tb, jb) = _bf16(
+        x, w_qkv, w_out, g, bias)
+    want, vjp = jax.vjp(lambda a, w, o: jax_attention.flash_qkv_attention(
+        a, w, o, jb, n_head=2, scale=SCALE, causal=True, interpret=True),
+        jx, jw, jo)
+    want_grads = vjp(jg)
+    leaves = [a.clone().requires_grad_() for a in (tx, tw, to)]
+    y = ka.flash_qkv_attention(*leaves, tb, n_head=2, scale=SCALE,
+                               causal=True)
+    y.backward(tg)
+    assert y.dtype == torch.bfloat16
+
+    def f32(a):
+        return np.asarray(a.astype(jnp.float32))
+
+    _close_bf16(y.detach().float(), f32(want))
+    for leaf, w, steps in zip(leaves, want_grads, (2, 1, 1)):
+        assert leaf.grad.dtype == torch.bfloat16
+        _close_bf16(leaf.grad.float(), f32(w), steps)

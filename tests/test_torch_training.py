@@ -16,7 +16,11 @@ once more at ``dropout_rate=0.1`` (the reference's default): each step's
 run id is forced, so its base key, and with the program's ``rng_id``s
 every site's seed, is known; the port takes those seeds
 (``interop.dropout_seeds``) and must follow the reference's 3 steps under
-the same tolerances, its masks being the reference's bit for bit.
+the same tolerances, its masks being the reference's bit for bit.  The
+fused route at dropout 0.1 is built once more under ``pt.amp.enable`` (bf16
+amp): the port, ``amp.enable``d, follows its 3 steps at bf16 tolerances,
+every gradient reaching Adam f32; and ``softmax_with_cross_entropy`` on
+bf16 logits is held against the reference's lowering.
 """
 
 import numpy as np
@@ -24,17 +28,19 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 import paddle_tpu as pt
 from paddle_tpu.core.executor import prng_key
 from paddle_tpu.flags import FLAGS
 from paddle_tpu.models import transformer as T
-from paddle_tpu_torch import (Adam, GenerationSession, Transformer,
+from paddle_tpu_torch import (Adam, GenerationSession, Transformer, amp,
                               export_paddle_tpu_adam_state,
                               export_paddle_tpu_params,
                               load_paddle_tpu_adam_state,
                               load_paddle_tpu_params, make_batch)
 from paddle_tpu_torch.interop import dropout_seeds, paddle_tpu_param_names
+from paddle_tpu_torch.ops.nn_ops import softmax_with_cross_entropy
 
 WIDTHS = dict(src_vocab_size=64, trg_vocab_size=64, max_length=32,
               n_layer=2, n_head=2, d_key=64, d_value=64, d_model=128,
@@ -56,6 +62,27 @@ TOL_PARAM = 1e-4
 TOL_PARAM_MOST, SHARE_BEYOND = 1e-6, 1e-4
 #: the reference's default dropout rate (``transformer()``)
 DROPOUT = 0.1
+#: bf16 amp against the reference's bf16 program on XLA's CPU.  Both round
+#: every matmul output, residual sum and layer-norm output to bf16 (8
+#: significant bits, a relative step of 2^-8 = 3.9e-3), in other orders
+#: and not always at the same points (XLA may keep a fused chain in f32,
+#: the reference rounds the fused attention's dx in two halves), so
+#: single roundings differ by a bf16 step.  For scale: on the same
+#: weights the port's bf16 step-1 gradients are 4-7% (norm) from its own
+#: f32 ones.  Measured against the reference: the loss within 1.1e-4 at
+#: step 1 and 1.05e-3 at step 3 (after two updates from bf16 gradients);
+#: gradients within 3.7% per tensor (the FFN input weights of the second
+#: decoder layer, the far end of the backward); the parameters after 3
+#: steps within 5.1e-3, 1.4% of the elements beyond lr / 2.
+TOL_AMP_LOSS = 3e-3
+TOL_AMP_GRAD = 0.06
+#: Adam moves an element by about lr times sign(g) a step wherever |g| >>
+#: eps, so where the two sides' bf16 gradients differ in sign (|g| within
+#: a few bf16 steps of 0) an element can end up to 2 lr apart a step: 3
+#: steps bound it by 6 lr.  All but 5% of the elements stay within half of
+#: one step's lr.
+TOL_AMP_PARAM = 2 * STEPS * LR
+TOL_AMP_PARAM_MOST, AMP_SHARE_BEYOND = 0.5 * LR, 5e-2
 #: the op types that draw a dropout seed, as the reference lowers them
 DROPOUT_OPS = ("dropout", "dropout_add", "fused_attention",
                "fused_qkv_attention")
@@ -79,9 +106,10 @@ class _Reference:
     ``fused`` leaves ``FLAGS_fused_qkv_attention`` at its default (on);
     otherwise the flag is off while the program is built.  With
     ``dropout_rate`` each step runs under a forced run id and ``seeds``
-    holds the port's dropout seeds of each step."""
+    holds the port's dropout seeds of each step; with ``amp`` the program
+    runs under ``pt.amp.enable`` (bf16)."""
 
-    def __init__(self, fused=False, dropout_rate=0.0):
+    def __init__(self, fused=False, dropout_rate=0.0, amp=False):
         if not fused:
             FLAGS.set("fused_qkv_attention", False)
         try:
@@ -96,6 +124,8 @@ class _Reference:
                         learning_rate=LR).minimize(avg_cost)
         finally:
             FLAGS.reset("fused_qkv_attention")
+        if amp:
+            pt.amp.enable(self.prog)
         ops = [op.type for op in self.prog.global_block().ops]
         # 2 encoder and 2 decoder self sites, 2 cross sites
         assert ops.count("fused_qkv_attention") == (4 if fused else 0)
@@ -133,7 +163,7 @@ class _Reference:
                           scope=self.scope)
             self.losses.append(float(np.asarray(out[0])))
             if step == 0:
-                self.grads = {n: np.asarray(g)
+                self.grads = {n: np.asarray(g, np.float64)
                               for n, g in zip(self.trained, out[1:])}
             self.after.append(self.snapshot(names + self.accumulators))
 
@@ -159,6 +189,12 @@ def ref_dropout():
 @pytest.fixture(scope="module")
 def ref_fused_dropout():
     return _Reference(fused=True, dropout_rate=DROPOUT)
+
+
+@pytest.fixture(scope="module")
+def ref_amp():
+    """The default-flag dropout program under ``pt.amp.enable`` (bf16)."""
+    return _Reference(fused=True, dropout_rate=DROPOUT, amp=True)
 
 
 def _port(params, fused_qkv_attention=False, **kw):
@@ -364,3 +400,102 @@ def test_fused_and_flag_off_routes_agree(ref):
     assert grads_f.keys() == grads_u.keys()
     for n, g in grads_f.items():
         assert _rel(g, grads_u[n]) <= 1e-5, n
+
+
+def test_amp_three_adam_steps_match_reference(ref_amp):
+    """The default (fused) route at dropout 0.1 under ``amp.enable`` against
+    the reference's program under ``pt.amp.enable``, each step under the
+    reference step's seeds: losses within TOL_AMP_LOSS, every trained
+    parameter's step-1 gradient f32 and within TOL_AMP_GRAD (norm), the
+    parameters after 3 steps within TOL_AMP_PARAM (all but
+    AMP_SHARE_BEYOND of them within TOL_AMP_PARAM_MOST); the bf16 step is
+    not the f32 one (the policy took effect) and the position tables
+    never move."""
+    model = _port(ref_amp.start, fused_qkv_attention=True,
+                  dropout_rate=DROPOUT)
+    amp.enable(model)
+    f32 = _port(ref_amp.start, fused_qkv_attention=True,
+                dropout_rate=DROPOUT)
+    opt = Adam(model.parameters(), learning_rate=LR)
+    names = dict(paddle_tpu_param_names(2))
+    for step in range(STEPS):
+        seeds = ref_amp.seeds[step]
+        loss, predict = model(**_padded_feed(), dropout_seeds=seeds)
+        assert predict.dtype == torch.bfloat16 and loss.dtype == torch.float32
+        want = ref_amp.losses[step]
+        assert abs(loss.item() - want) <= TOL_AMP_LOSS * abs(want), (
+            step, loss.item(), want)
+        if step == 0:
+            loss32, _ = f32(**_padded_feed(), dropout_seeds=seeds)
+            assert loss32.item() != loss.item()
+        params_grads = opt.minimize(loss)
+        if step == 0:
+            got = {p: g for p, g in params_grads}
+            assert len(got) == len(ref_amp.trained)
+            for n in ref_amp.trained:
+                p = model.get_parameter(names[n])
+                assert p.dtype == got[p].dtype == torch.float32, n
+                assert _rel(got[p].numpy(), ref_amp.grads[n]) <= (
+                    TOL_AMP_GRAD), n
+    exported = export_paddle_tpu_params(model)
+    beyond = total = 0
+    for n, got in exported.items():
+        want = ref_amp.after[-1][n]
+        np.testing.assert_allclose(got, want, atol=TOL_AMP_PARAM, rtol=0,
+                                   err_msg=n)
+        beyond += int((np.abs(got - want) > TOL_AMP_PARAM_MOST).sum())
+        total += got.size
+    assert beyond <= AMP_SHARE_BEYOND * total, (beyond, total)
+    for n in ("src_pos_enc_table", "trg_pos_enc_table"):
+        np.testing.assert_array_equal(exported[n], ref_amp.start[n])
+
+
+class _Attrs:
+    """The lowering context's attributes at their defaults."""
+
+    def attr(self, name, default=None):
+        return default
+
+
+def _ref_softmax_ce(logits, label):
+    from paddle_tpu.ops.nn_ops import lower_softmax_with_ce
+
+    return lower_softmax_with_ce(_Attrs(), {"Logits": [logits],
+                                            "Label": [label]})["Loss"][0]
+
+
+def test_softmax_with_cross_entropy_bf16_matches_reference_lowering():
+    """bf16 logits [N, V]: the loss is f32 and within 1e-6 relative of the
+    reference's lowering (the shift in bf16, both exact here, the f32 sums
+    in other orders); its gradient is bf16 and within one bf16 step of
+    jax.vjp's, which rounds the same two parts."""
+    rng = np.random.RandomState(3)
+    x = (rng.randn(48, 64) * 4).astype(np.float32)
+    label = rng.randint(0, 64, (48, 1)).astype(np.int64)
+    g = rng.rand(48, 1).astype(np.float32)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    want, vjp = jax.vjp(lambda a: _ref_softmax_ce(a, jnp.asarray(label)), xj)
+    (want_dx,) = vjp(jnp.asarray(g))
+    xt = torch.from_numpy(x).bfloat16().requires_grad_()
+    got = softmax_with_cross_entropy(xt, torch.from_numpy(label))
+    got.backward(torch.from_numpy(g))
+    assert got.dtype == torch.float32 and xt.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(xt.grad.float().numpy(),
+                               np.asarray(want_dx.astype(jnp.float32)),
+                               rtol=2.0 ** -8, atol=1e-6)
+
+
+def test_softmax_with_cross_entropy_f32_bits_unchanged():
+    """f32 logits keep the f32 formula's bits: log sum exp(shifted) -
+    shifted[label] with the shift and every sum in f32."""
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy((rng.randn(40, 64) * 3).astype(np.float32))
+    label = torch.from_numpy(rng.randint(0, 64, (40, 1)))
+    shifted = x - x.amax(-1, keepdim=True)
+    want = (torch.log(torch.exp(shifted).sum(-1, keepdim=True))
+            - torch.gather(shifted, -1, label))
+    got = softmax_with_cross_entropy(x, label)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)

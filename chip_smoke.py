@@ -2,7 +2,7 @@
 """Smoke run of paddle_tpu_torch on one CUDA card (an H100 is assumed for
 the bounds).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent ROOT]
 
 Phases, each fatal on failure:
 
@@ -78,7 +78,24 @@ Phases, each fatal on failure:
    bytes an element and the dense bf16 tensor-core rate (989 TFLOP/s).
    ``check_gemm`` also holds ``gemm.cuh`` at the amp step's element
    types (bf16 x bf16 -> f32 and -> bf16, f32 x bf16 and bf16 x f32 ->
-   bf16) beside ``torch.matmul`` in bf16.  The conv + batch-norm kernels (#18-#21) are checked at ResNet-50's shapes
+   bf16) beside ``torch.matmul`` in bf16.  #4 and #1 in bf16 (with #1's
+   y tile) run on tensor cores: phase 1 requires HMMA/HGMMA instructions
+   in each of their kernels' SASS (``sass_mma``, ``cuobjdump -sass``) and
+   records their registers, spills and shared memory (``walk_builds``);
+   their records carry their device-only times and the library call's.
+   At the record case at most TOL_OFF_ROUNDING of #4's o and #1's ctx may
+   differ from the float64 twin's value rounded to bf16 (a kernel that
+   rounded p to one bf16 would pass ``compare_bf16`` and fail this), and
+   a bias copy at an odd element (not 4-byte aligned) must give the
+   aligned bias's bits.  With ``--parent ROOT``
+   (another checkout, e.g. the parent commit unpacked by ``git
+   archive``), its attention, GEMM and dropout kernels are built beside
+   this tree's: phase 1 compares the registers of every f32
+   instantiation, phase 2 times the parent's #4, #1 and y on the same
+   inputs beside the redesigned ones and holds every kernel this tree
+   keeps to the parent's bits (``check_parent_bits``), and phase 4
+   profiles the amp step on the parent's kernels too.  The conv +
+   batch-norm kernels (#18-#21) are checked at ResNet-50's shapes
    at batch 256 (CBN_*_CASES: the stem, stage-1 and stage-4 sites, #19 at
    a strided shortcut, the stage-1 conv1 and a ragged M 1000, K 72, N 100
    too, #20/#21 with and without residual and ReLU; #18, #20 and #21 also
@@ -237,7 +254,9 @@ checks of phase 2 and the amp step (j).
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -1352,9 +1371,10 @@ def _library_mha(x, w_qkv, w_out, bias, g, n_head, causal):
 def _held_qkv_fwd(what, fw, kw, masked):
     """#1 in residual mode on ``fw`` under ``kw``, called twice: equal
     bits, the twin's masked rows (some exactly when ``masked``) with ctx 0
-    and lse +inf, and y, ctx and the other rows' lse within TOL_KERNEL of
-    the twin.  Returns ((y, ctx, lse), the twin's, the masked rows [b, h,
-    t], the max abs error)."""
+    and lse +inf, and y and ctx within TOL_KERNEL of the twin (bf16: by
+    ``compare_bf16``), the other rows' lse within TOL_KERNEL.  Returns
+    ((y, ctx, lse), the twin's, the masked rows [b, h, t], the max abs
+    error)."""
     from paddle_tpu_torch.kernels import attention as ka
 
     got = ka.qkv_attention_fwd(*fw, **kw)
@@ -1371,10 +1391,14 @@ def _held_qkv_fwd(what, fw, kw, masked):
             f"{what}: {int(hidden.sum())} masked rows")
     require(not ctx[hidden.transpose(1, 2)].any().item(),
             f"{what}: a masked row's ctx is not 0")
-    err = max(compare(f"{what} y", y, want_y, TOL_KERNEL),
-              compare(f"{what} ctx", ctx, want_ctx, TOL_KERNEL),
-              compare(f"{what} lse", lse[~hidden], want_lse[~hidden],
-                      TOL_KERNEL))
+    if y.dtype == torch.bfloat16:
+        err = max(compare_bf16(f"{what} y", y, want_y),
+                  compare_bf16(f"{what} ctx", ctx, want_ctx))
+    else:
+        err = max(compare(f"{what} y", y, want_y, TOL_KERNEL),
+                  compare(f"{what} ctx", ctx, want_ctx, TOL_KERNEL))
+    err = max(err, compare(f"{what} lse", lse[~hidden], want_lse[~hidden],
+                           TOL_KERNEL))
     return got, want, hidden, err
 
 
@@ -1586,10 +1610,19 @@ def check_gemm(gen):
                   + got.element_size() * m * n)
         rec = timed_record(
             "gemm", "paddle_tpu_torch/csrc/gemm.cuh",
-            "none: the tile inside #1's y and #2 + #3 in bf16 (amp)", err,
+            "none: #1's y (the tensor-core tile, bf16 x bf16 -> bf16) and "
+            "#2 + #3's products in bf16 (amp)", err,
             lambda: kg.gemm(a, b, split, c_dtype),
             lambda: kg.reference_gemm(a, b, c_dtype), flops, nbytes,
             lambda: torch.matmul(la, lb), m, bound_fn=bound_bf16)
+        if c_bf and a_bf and b_bf and not a_t and not b_t:
+            # #1's y on the tensor-core tile: the parent's f32-arithmetic
+            # tile on the same operands
+            tensor_core_times(rec, lambda: kg.gemm(a, b, split, c_dtype))
+            rec["device_tflops"] = flops / rec["device_ms"] / 1e9
+            if rec["parent_ms"] is not None:
+                rec["parent_device_tflops"] = (
+                    flops / rec["parent_device_ms"] / 1e9)
         rec.update(case=name, m=m, n=n, k=k, a_kmajor=a_t, b_kmajor=not b_t,
                    dtypes=[str(t.dtype)[6:] for t in (a, b, got)],
                    tflops=flops / rec["ms"] / 1e9,
@@ -1967,6 +2000,13 @@ def check_dropout_add(gen):
 #: lse and delta are f32 and held to TOL_KERNEL.  #16 and #17 in bf16 must
 #: equal their twins bit for bit.
 TOL_BF16 = 2.0 ** -7
+#: the largest share of a tensor-core kernel's bf16 output (#4's o, #1's
+#: ctx) that may differ from its float64 twin's value rounded to bf16.
+#: compare_bf16 cannot tell whether p (and #1's q, k, v) keep their hi/lo
+#: split: p rounded to one bf16 moves o by about 2^-9 a term, within its
+#: bound.  That moves 36-38% of o and ctx off the rounded value, the split
+#: 0.2-0.5% (H100, the amp step's shapes)
+TOL_OFF_ROUNDING = 0.02
 #: H100 SXM dense bf16 tensor-core FLOP/s: the least time the card could
 #: take for a bf16 function's products (the bound of every bf16 record)
 PEAK_BF16_FLOPS = 989e12
@@ -1988,6 +2028,16 @@ def compare_bf16(name, got, want, steps=1):
     return max_abs
 
 
+def off_rounding(name, got, exact):
+    """The share of the bf16 ``got`` that is not the float64 ``exact``
+    rounded to bf16; raises above TOL_OFF_ROUNDING."""
+    share = (got != exact.to(got.dtype)).double().mean().item()
+    require(share <= TOL_OFF_ROUNDING, f"{name}: {share:.2%} of the output "
+            f"is off the float64 value rounded to bf16 (at most "
+            f"{TOL_OFF_ROUNDING:.0%})")
+    return share
+
+
 def bound_bf16(flops, nbytes, int_ops=0):
     """(bound_ms, bound_by) of a bf16 function: bytes over the HBM rate
     against its FLOPs at the dense bf16 tensor-core rate (the int32 hash
@@ -2000,6 +2050,26 @@ def bound_bf16(flops, nbytes, int_ops=0):
 def _bf16(*tensors):
     return [None if a is None else a.bfloat16().contiguous()
             for a in tensors]
+
+
+def _require_odd_bias_bits(what, fn, bias, kw):
+    """fn(bias, kw) at rates 0 and DROPOUT gives the same bits on a copy of
+    the bf16 ``bias`` (random values, so that a shifted read would show)
+    whose data starts at an odd element (2 bytes past a 4-byte boundary,
+    the strides unchanged): the tensor-core kernels load a bias pair as
+    one 4-byte word only from a 4-byte aligned base, and read such a view
+    element by element."""
+    odd = torch.empty(bias.numel() + 1, dtype=bias.dtype,
+                      device=bias.device)[1:].view(bias.shape)
+    odd.copy_(bias)
+    require(odd.data_ptr() % 4 == 2, f"{what}: the copy is not at an odd "
+            "element")
+    for rate in (0.0, DROPOUT):
+        kw_ = dict(kw, dropout_rate=rate, dropout_seed=1234)
+        _require_same_bits(f"{what} bias at an odd element rate {rate}",
+                           fn(odd, kw_), fn(bias, kw_))
+    print(f"phase 2: {what}: a bias at an odd element gives the aligned "
+          f"bias's bits at rates 0 and {DROPOUT}")
 
 
 #: the bthd kernels' bf16 cases: (name, tq, tk, bias, causal); the record
@@ -2068,6 +2138,10 @@ def check_flash_attention_bf16(gen):
                 bw_d, kw_d = bw, kw
         if case != AMP_FLASH_CASES[0][0]:
             continue
+        off = off_rounding(f"flash_fwd bf16 {case}",
+                           ka.flash_fwd(q, k, v, bias, **kw0)[0],
+                           ka.reference_flash_fwd(*(a.double() for a in (
+                               q, k, v, bias)), **kw0)[0])
         mask = bias
         lq, lk, lv = (a.transpose(1, 2).detach().requires_grad_()
                       for a in (q, k, v))
@@ -2102,7 +2176,8 @@ def check_flash_attention_bf16(gen):
             args, args_d = ((q, k, v, bias), (q, k, v, bias)) if i == 0 \
                 else (bw0, bw_d)
             rec = timed_record(
-                kernel + "_bf16", src,
+                kernel + "_bf16",
+                "paddle_tpu_torch/csrc/flash_tc.cuh" if i == 0 else src,
                 f"paddle_tpu/kernels/attention.py:{line}", errs[0.0][i],
                 lambda: fn(*args, **kw0), lambda: twin(*args, **kw0),
                 mult * flops, nbytes, lib_fwd if i == 0 else lib_bwd, b,
@@ -2112,8 +2187,19 @@ def check_flash_attention_bf16(gen):
                        dropout_ms=cuda_ms(lambda: fn(*args_d, **kw_d)),
                        dropout_bound_ms=bound_bf16(mult * flops, nbytes,
                                                    hashes)[0])
+            if i == 0:  # the parent's kernel (CUDA cores), same inputs
+                tensor_core_times(rec, lambda: fn(*args, **kw0),
+                                  lambda: fn(*args_d, **kw_d), lib_fwd)
+                rec["off_rounding_share"] = off
             out[kernel + "_bf16"] = rec
         del lib_out
+    odd_gen = torch.Generator().manual_seed(4)
+    q, k, v, _, bias = _flash_inputs(odd_gen, 256, 256, "decoder", False)
+    q, k, v, bias = _bf16(q, k, v, bias + randn(odd_gen, *bias.shape))
+    _require_odd_bias_bits("flash_fwd bf16 decoder self",
+                           lambda bias_, kw: ka.flash_fwd(q, k, v, bias_,
+                                                          **kw),
+                           bias, dict(scale=scale, causal=False))
     return out
 
 
@@ -2141,25 +2227,10 @@ def check_qkv_bf16(gen):
                       dropout_rate=rate, dropout_seed=int(torch.randint(
                           0, 2 ** 32, (1,), generator=gen)))
             what = f"bf16 {case} rate {rate}"
-            got = ka.qkv_attention_fwd(*fw, **kw)
-            again = ka.qkv_attention_fwd(*fw, **kw)
-            want = ka.reference_qkv_fwd(*fw, **kw)
-            torch.cuda.synchronize()
-            require(all(torch.equal(a, c) for a, c in zip(got, again)),
-                    f"qkv_attention_fwd {what}: two calls differ")
-            (y, ctx, lse), (want_y, want_ctx, want_lse) = got, want
-            hidden = torch.isinf(want_lse)
-            require(y.dtype == ctx.dtype == torch.bfloat16 and torch.equal(
-                hidden, torch.isinf(lse)) and not ctx[hidden.transpose(
-                    1, 2)].any().item(), f"qkv_attention_fwd {what}: dtype "
-                "or masked rows differ")
-            err_f = max(compare_bf16(f"qkv_attention_fwd {what} ctx", ctx,
-                                     want_ctx),
-                        compare_bf16(f"qkv_attention_fwd {what} y", y,
-                                     want_y),
-                        compare(f"qkv_attention_fwd {what} lse",
-                                lse[~hidden], want_lse[~hidden],
-                                TOL_KERNEL))
+            (y, ctx, lse), _, _, err_f = _held_qkv_fwd(
+                f"qkv_attention_fwd {what}", fw, kw, bias_kind == "masked")
+            require(y.dtype == ctx.dtype == torch.bfloat16,
+                    f"qkv_attention_fwd {what}: y {y.dtype}, ctx {ctx.dtype}")
             bw = (x, w_qkv, w_out, bias, g, ctx, lse)
             errs[rate] = [err_f]
             for kernel, fn, twin in (
@@ -2180,6 +2251,10 @@ def check_qkv_bf16(gen):
         if case != QKV_RECORD_CASE:
             continue
         (bw, kw), (bw_d, kw_d) = bws[0.0], bws[DROPOUT]
+        off = off_rounding(f"qkv_attention_fwd bf16 {case} ctx",
+                           ka.qkv_attention_fwd(*fw, **kw)[1],
+                           ka.reference_qkv_fwd(*(a.double() for a in fw),
+                                                **kw)[1])
         _, lib_fwd, lib_bwd = _library_mha(x, w_qkv, w_out, bias, g, h,
                                            causal)
         pairs = _visible_pairs(t, t, causal)
@@ -2220,6 +2295,10 @@ def check_qkv_bf16(gen):
             if name == "qkv_attention_fwd":
                 rec["plan"] = list(ka.qkv_fwd_plan(b, t, h,
                                                    ka.sm_count(x.device)))
+                # the parent's kernels (CUDA cores), same inputs
+                tensor_core_times(rec, lambda: fn(*args, **kw),
+                                  lambda: fn(*args_d, **kw_d), lib)
+                rec["off_rounding_share"] = off
             out[name + "_bf16"] = rec
         for name in ("qkv_bwd_dq_bf16", "qkv_bwd_dkv_bf16"):
             out[name]["pair"] = {k: out["qkv_bwd_bf16"][k] for k in (
@@ -2227,6 +2306,39 @@ def check_qkv_bf16(gen):
                 "max_abs_err", "dropout_ms", "dropout_bound_ms")}
         del lib_fwd, lib_bwd
     out.pop("qkv_bwd_bf16")
+    # #1 in bf16 on every route of the plan (QKV_PLAN_CASES: clusters of
+    # 1 to 8 blocks of R 32 and 64, the tiles route, y split over K at
+    # small b * t), on a generator of its own so that the later checks
+    # draw the inputs they drew before
+    plan_gen = torch.Generator().manual_seed(1)
+    plans = {}
+    for name, b_, t, dm, bias_kind, causal in QKV_PLAN_CASES:
+        fw = _bf16(*_qkv_inputs(plan_gen, t, bias_kind, b_, dm))
+        del fw[3]  # g
+        errs = []
+        for rate in (0.0, DROPOUT):
+            kw = dict(n_head=dm // 64, scale=dh ** -0.5, causal=causal,
+                      dropout_rate=rate, dropout_seed=int(torch.randint(
+                          0, 2 ** 32, (1,), generator=plan_gen)))
+            errs.append(_held_qkv_fwd(
+                f"qkv_attention_fwd bf16 {name} rate {rate}", fw, kw,
+                bias_kind == "masked")[3])
+        plans[name] = dict(plan=list(ka.qkv_fwd_plan(
+            b_, t, dm // 64, ka.sm_count(fw[0].device))), max_abs_err=errs[0],
+            dropout_max_abs_err=errs[1])
+        del fw
+    out["qkv_attention_fwd_bf16"]["plans"] = plans
+    odd_gen = torch.Generator().manual_seed(4)
+    for b_ in (None, 1):  # clusters of R 64 and of R 32
+        x, w_qkv, w_out, _, bias = _qkv_inputs(odd_gen, 256, "decoder", b_)
+        x, w_qkv, w_out, bias = _bf16(x, w_qkv, w_out,
+                                      bias + randn(odd_gen, *bias.shape))
+        plan = ka.qkv_fwd_plan(x.shape[0], 256, h, ka.sm_count(x.device))
+        _require_odd_bias_bits(
+            f"qkv_attention_fwd bf16 decoder self {plan}",
+            lambda bias_, kw: ka.qkv_attention_fwd(x, w_qkv, w_out, bias_,
+                                                   **kw),
+            bias, dict(n_head=h, scale=dh ** -0.5, causal=False))
     return out
 
 
@@ -2277,6 +2389,319 @@ def check_dropout_add_bf16(gen):
         bound_fn=bound_bf16)
     bwd.update(dtype="bf16", twin_bit_equal=True)
     return fwd, bwd
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernels on tensor cores (#4, #1's cluster route and its y tile):
+# their SASS; and the parent checkout's kernels beside them (--parent)
+# ---------------------------------------------------------------------------
+
+#: the tensor-core kernels (fragments of their mangled names) and the
+#: source whose object ``sass_mma`` reads for each
+TC_KERNELS = {"flash_fwd_tc_kernel": "flash_attention.cu",
+              "qkv_cluster_tc_kernel": "qkv_attention.cu",
+              "gemm_tc_kernel": "qkv_attention.cu"}
+
+
+def sass_mma(build):
+    """{function: MMA instructions} of every instantiation of TC_KERNELS in
+    the built object of its source (``cuobjdump -sass``): lines of HMMA
+    (mma.sync) or HGMMA (wgmma).  ``build`` is the ``_build`` module.
+    Raises if a kernel has no instantiation, or one without an MMA
+    instruction: a "tensor-core" kernel that compiled to FMAs fails the
+    run."""
+    import re
+
+    obj_dir = os.path.join(build.BUILD_DIR, f"obj-{build._digest()}")
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    counts = {}
+    for src in sorted(set(TC_KERNELS.values())):
+        sass = subprocess.run(
+            [tool, "-sass", os.path.join(obj_dir, src[:-3] + ".o")],
+            capture_output=True, text=True, check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1) if any(k in m.group(1)
+                                       for k in TC_KERNELS) else None
+                if fn:
+                    counts[fn] = 0
+            elif fn and re.search(r"\sHG?MMA\.", line):
+                counts[fn] += 1
+    for kernel in TC_KERNELS:
+        found = {f: n for f, n in counts.items() if kernel in f}
+        require(found, f"{kernel}: no instantiation in the SASS")
+        require(all(found.values()), f"{kernel}: no HMMA/HGMMA in "
+                f"{[f for f, n in found.items() if not n]}")
+    return counts
+
+
+#: the parent checkout's sources built for the A/B: every entry point the
+#: redesigned kernels' wrappers, the bit check and the amp step reach
+PARENT_SOURCES = ("flash_attention.cu", "qkv_attention.cu",
+                  "qkv_attention_bwd.cu", "gemm.cu", "dropout_add.cu",
+                  "conv_bn.cu")
+_PARENT = {}
+
+
+def start_parent_build(root):
+    """Start compiling the PARENT_SOURCES of the checkout at ``root`` (one
+    nvcc each, all at once, with this tree's flags) into this tree's
+    ``paddle_tpu_torch/_build/parent_ab``; :func:`parent_lib` waits for
+    them."""
+    from paddle_tpu_torch.kernels import _build
+
+    csrc = os.path.join(os.path.abspath(root), "paddle_tpu_torch", "csrc")
+    out = os.path.join(_build.BUILD_DIR, "parent_ab")
+    os.makedirs(out, exist_ok=True)
+    jobs = [(src, os.path.join(out, src[:-3] + ".o")) for src in
+            PARENT_SOURCES]
+    _PARENT.update(out=out, jobs=[(src, obj, subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-c",
+         os.path.join(csrc, src), "-o", obj], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for src, obj in jobs])
+
+
+def parent_lib():
+    """The parent checkout's library, its entry points bound with this
+    tree's signatures; None without ``--parent``.  Its ptxas lines are in
+    ``_PARENT["log"]``."""
+    if "jobs" not in _PARENT:
+        return None
+    if "lib" not in _PARENT:
+        from paddle_tpu_torch.kernels import _build
+
+        log = []
+        for src, _, proc in _PARENT["jobs"]:
+            out, _ = proc.communicate()
+            require(proc.returncode == 0, f"parent's {src}: nvcc failed\n"
+                    f"{out}")
+            log.append(f"== {src} (rc 0)\n{out}")
+        so = os.path.join(_PARENT["out"], "libparent.so")
+        link = subprocess.run(
+            [_build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-shared", "-o", so, *(obj for _, obj, _ in _PARENT["jobs"])],
+            capture_output=True, text=True)
+        require(link.returncode == 0, f"parent's link failed: {link.stdout}"
+                f"{link.stderr}")
+        lib = ctypes.CDLL(so)
+        for name, (restype, argtypes) in _build._SIGNATURES.items():
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = restype, argtypes
+        _PARENT.update(lib=lib, log="\n".join(log))
+    return _PARENT["lib"]
+
+
+@contextlib.contextmanager
+def kernel_library(lib):
+    """The wrappers launch ``lib``'s kernels (the parent's) meanwhile."""
+    from paddle_tpu_torch.kernels import _build
+
+    saved, _build._lib = _build._lib, lib
+    try:
+        yield
+    finally:
+        _build._lib = saved
+
+
+def parent_ms(fn, **kw):
+    """fn's ``cuda_ms`` (its keywords ``kw``) with the parent's kernels;
+    None without them."""
+    lib = parent_lib()
+    if lib is None:
+        return None
+    with kernel_library(lib):
+        return cuda_ms(fn, **kw)
+
+
+def tensor_core_times(rec, fn, fn_d=None, lib=None):
+    """Add to the record of a redesigned kernel its device-only time
+    (``cuda_ms(hide_host=True)``: the host's enqueue hidden) and the
+    parent's kernel's times on the same inputs (with and without the
+    enqueue); ``fn_d``'s (at DROPOUT) and the library call ``lib``'s
+    device-only time, where given."""
+    rec.update(device_ms=cuda_ms(fn, hide_host=True),
+               parent_ms=parent_ms(fn),
+               parent_device_ms=parent_ms(fn, hide_host=True))
+    if fn_d is not None:
+        rec.update(dropout_device_ms=cuda_ms(fn_d, hide_host=True),
+                   parent_dropout_ms=parent_ms(fn_d))
+    if lib is not None:
+        rec["library_device_ms"] = cuda_ms(lib, hide_host=True)
+
+
+def check_parent_bits(gen):
+    """With ``--parent``: the kernels this tree keeps as they were, each
+    called on the same inputs with this tree's library and with the
+    parent's, must give the same bits: #4-#9 in f32 and #6, #7 in bf16 on
+    the decoder self-attention (BERT-base's for the bhtd ones), #1 in f32
+    on the cluster route (R 64 and 32) and the tiles route, #1's tiles
+    route in bf16, the pair #2 + #3 in f32 and bf16, ``gemm.cuh`` at the
+    pair's products in f32 and in amp's types but #1's y, #19 (its tile)
+    at ResNet-50's stage-1 conv3, and #16, #17 in f32 and bf16, each at
+    rates 0 and DROPOUT where it drops.  ``gen`` is a generator of its
+    own, so that the later checks draw the parent's inputs.  Returns the
+    names held, or None without a parent."""
+    lib = parent_lib()
+    if lib is None:
+        return None
+    from paddle_tpu_torch.kernels import attention as ka
+    from paddle_tpu_torch.kernels import conv_bn as kc
+    from paddle_tpu_torch.kernels import dropout_epilogue as kde
+    from paddle_tpu_torch.kernels import gemm as kg
+
+    held = []
+
+    def same(name, fn):
+        mine = fn()
+        with kernel_library(lib):
+            theirs = fn()
+        torch.cuda.synchronize()
+        mine, theirs = ((a,) if torch.is_tensor(a) else tuple(a)
+                        for a in (mine, theirs))
+        require(all((a is None and c is None) or torch.equal(a, c)
+                    for a, c in zip(mine, theirs)),
+                f"{name}: not the parent's bits")
+        held.append(name)
+
+    h, dh = BASE["n_head"], BASE["d_key"]
+    for rate in (0.0, DROPOUT):
+        seed = int(torch.randint(0, 2 ** 32, (1,), generator=gen))
+        for dtype in ("f32", "bf16"):
+            q, k, v, do, bias = _flash_inputs(gen, 256, 256, "decoder",
+                                              False)
+            if dtype == "bf16":
+                q, k, v, do, bias = _bf16(q, k, v, do, bias)
+            kw = dict(scale=dh ** -0.5, causal=False, dropout_rate=rate,
+                      dropout_seed=seed)
+            if dtype == "f32":
+                same(f"flash_fwd f32 rate {rate}",
+                     lambda: ka.flash_fwd(q, k, v, bias, **kw))
+            o, lse = ka.flash_fwd(q, k, v, bias, **kw)
+            delta = (do.float() * o.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            bw = (q, k, v, bias, do, lse, delta)
+            same(f"flash_bwd_dq {dtype} rate {rate}",
+                 lambda: ka.flash_bwd_dq(*bw, **kw))
+            same(f"flash_bwd_dkv {dtype} rate {rate}",
+                 lambda: ka.flash_bwd_dkv(*bw, **kw))
+        q, k, v, do, bias = _bhtd_inputs(gen, 128, 128, "pad")
+        kw = dict(scale=0.125, causal=False, dropout_rate=rate,
+                  dropout_seed=seed)
+        same(f"flash_fwd_bhtd rate {rate}",
+             lambda: ka.flash_fwd_bhtd(q, k, v, bias, **kw))
+        o, lse = ka.flash_fwd_bhtd(q, k, v, bias, **kw)
+        delta = (do * o).sum(-1).contiguous()
+        bw = (q, k, v, bias, do, lse, delta)
+        same(f"flash_bwd_dq_bhtd rate {rate}",
+             lambda: ka.flash_bwd_dq_bhtd(*bw, **kw))
+        same(f"flash_bwd_dkv_bhtd rate {rate}",
+             lambda: ka.flash_bwd_dkv_bhtd(*bw, **kw))
+        del q, k, v, do, bias, o, lse, delta, bw
+        for dtype, t, b in (("f32", 256, None), ("f32", 256, 1),
+                            ("f32", 640, 2), ("bf16", 640, 2),
+                            ("bf16", 256, None)):
+            x, w_qkv, w_out, g, bias = _qkv_inputs(gen, t, "pad", b=b)
+            if dtype == "bf16":
+                x, w_qkv, w_out, g, bias = _bf16(x, w_qkv, w_out, g, bias)
+            kw = dict(n_head=h, scale=dh ** -0.5, causal=False,
+                      dropout_rate=rate, dropout_seed=seed)
+            plan = ka.qkv_fwd_plan(x.shape[0], t, h, ka.sm_count(x.device))
+            if dtype == "f32":
+                same(f"qkv_attention_fwd f32 {plan} rate {rate}",
+                     lambda: ka.qkv_attention_fwd(x, w_qkv, w_out, bias,
+                                                  **kw))
+            elif plan[0] == "tiles":  # its ctx and lse; y is the new tile's
+                same(f"qkv_attention_fwd bf16 {plan} ctx, lse rate {rate}",
+                     lambda: ka.qkv_attention_fwd(x, w_qkv, w_out, bias,
+                                                  **kw)[1:])
+            if t == 256 and b is None:
+                _, ctx, lse = ka.qkv_attention_fwd(x, w_qkv, w_out, bias,
+                                                   **kw)
+                same(f"qkv_bwd {dtype} rate {rate}",
+                     lambda: ka.qkv_bwd(x, w_qkv, w_out, bias, g, ctx, lse,
+                                        **kw))
+        for dtype in (torch.float32, torch.bfloat16):
+            x, res = (randn(gen, DROPOUT_ROWS, BASE["d_model"]).to(dtype)
+                      for _ in range(2))
+            if rate:
+                same(f"dropout_add_fwd {dtype}",
+                     lambda: kde.dropout_add_fwd(x, res, rate, seed))
+                same(f"dropout_add_bwd {dtype}",
+                     lambda: kde.dropout_add_bwd(x, rate, seed))
+    for case in GEMM_CASES + GEMM_AMP_CASES:
+        name, m, n, k, a_t, b_t, split = case[:7]
+        if case == GEMM_AMP_CASES[-1]:
+            continue  # #1's y: the tensor-core tile
+        a_bf, b_bf, c_bf = case[7:] if len(case) > 7 else (False,) * 3
+        a = (randn(gen, k, m).t() if a_t else randn(gen, m, k))
+        b = randn(gen, n, k).t() if b_t else randn(gen, k, n)
+        a, b = (x.bfloat16() if bf else x for x, bf in ((a, a_bf),
+                                                         (b, b_bf)))
+        a, b = (x.t().contiguous().t() if t_ else x.contiguous()
+                for x, t_ in ((a, a_t), (b, b_t)))
+        c_dtype = torch.bfloat16 if c_bf else torch.float32
+        same(f"gemm {name}", lambda: kg.gemm(a, b, split, c_dtype))
+    # the pair's dW_out = ctx^T g, bf16 x bf16 -> bf16 with A k-major
+    a = randn(gen, 8192, 512).bfloat16().t()
+    b = randn(gen, 8192, 512).bfloat16()
+    same("gemm dW_out = ctx^T g (bf16 x bf16 -> bf16)",
+         lambda: kg.gemm(a, b, True, torch.bfloat16))
+    x2, w2 = randn(gen, 256 * 56 * 56, 64), randn(gen, 256, 64)
+    same("dot_col_stats stage-1 conv3", lambda: kc.dot_col_stats_fwd(x2, w2))
+    return held
+
+
+def build_registers(log):
+    """{mangled entry function: registers} from ``-Xptxas -v`` lines."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if cur and m:
+            out[cur] = int(m[1])
+            cur = None
+    return out
+
+
+def parent_registers(log):
+    """The f32 instantiations of the parent's PARENT_SOURCES against this
+    tree's build: {"equal": n, "differ": [...], "unmatched": [...]}, by
+    mangled name without the anonymous namespace's per-source hash (a
+    kernel whose template lost its element type, f32 being the only one
+    left, is matched by its name and other template arguments)."""
+    import re
+
+    def key(name):
+        return re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN_",
+                      name)
+
+    def template(name):  # kernel and template arguments, f32 type dropped
+        head = name.split("EEv", 1)[0]
+        return head[:-1] if head.endswith("Ef") else head
+
+    mine = {key(n): r for n, r in build_registers(log).items()}
+    by_template = {template(n): r for n, r in mine.items()}
+    out = {"equal": 0, "differ": [], "unmatched": []}
+    for name, regs in build_registers(_PARENT.get("log", "")).items():
+        name = key(name)
+        if "bfloat16" in name:
+            continue
+        got = mine.get(name, by_template.get(template(name)))
+        if got is None:
+            out["unmatched"].append(name)
+        elif got == regs:
+            out["equal"] += 1
+        else:
+            out["differ"].append((name, regs, got))
+    return out
 
 
 #: ResNet-50 training as the reference's ``bench_resnet50``
@@ -4458,6 +4883,12 @@ def profile_training(model, tag, feed=None, lr=TRAIN_LR):
                 idle_share=1 - busy_us / wall_us if busy_us else None,
                 gemm_cuh_ms=_gemm_cuh_us(rows) / 1e3,
                 walks_ms=_walks_us(rows) / 1e3,
+                qkv_fwd_ms=_attention_fwd_us(rows)[0] / 1e3,
+                flash_fwd_ms=_attention_fwd_us(rows)[1] / 1e3,
+                # the bf16 kernels on tensor cores: #4's, #1's attention
+                # and its y tile
+                tensor_core_ms=sum(us for name, us in rows if any(
+                    k in name for k in TC_KERNELS)) / 1e3,
                 # cuBLAS's kernels (Hopper's bf16 ones are "nvjet_*")
                 library_gemm_ms=sum(
                     us for name, us in rows
@@ -4471,7 +4902,18 @@ def _gemm_cuh_us(rows):
     """Device us of ``csrc/gemm.cuh``'s kernels (its GEMM tile and the
     split-K sums) among the profiler's rows."""
     return sum(us for name, us in rows
-               if "::gemm_kernel<" in name or "::sum_splits" in name)
+               if "::gemm_kernel<" in name or "::gemm_tc_kernel<" in name
+               or "::sum_splits" in name)
+
+
+def _attention_fwd_us(rows):
+    """Device us of #1's attention kernels (both routes, f32 and bf16)
+    and of the flash forward (#4, #5; f32 and bf16) among the profiler's
+    rows: (#1, the flash forward)."""
+    return (sum(us for name, us in rows if "::qkv_cluster_" in name
+                or "::qkv_tiles_fwd_kernel<" in name),
+            sum(us for name, us in rows if "::flash_fwd_kernel<" in name
+                or "::flash_fwd_tc_kernel<" in name))
 
 
 def _walks_us(rows):
@@ -4583,8 +5025,10 @@ def _builds(log, want):
                                if "flash" in kernel else None,
                                dtype="bf16" if "bfloat16" in args
                                else "f32",
-                               dropout="Lb1E" in args and "flash" in kernel,
-                               smem_bytes=smem)
+                               dropout="Lb1E" in args and (
+                                   "flash" in kernel or "qkv" in kernel),
+                               smem_bytes=smem(args) if callable(smem)
+                               else smem)
                     out.append(cur)
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -4600,10 +5044,19 @@ def _builds(log, want):
 
 def walk_builds(log, lib):
     """Each instantiation of the backward walks in the build (every source
-    that compiles them): see ``_builds``."""
+    that compiles them) and of the bf16 tensor-core kernels (#4's
+    forward, #1's cluster route at R 64 and 32, its y tile): see
+    ``_builds``."""
     return _builds(log, {
         "flash_bwd_dq_kernel": (None, lib.ptt_flash_walk_smem(0)),
-        "flash_bwd_dkv_kernel": (None, lib.ptt_flash_walk_smem(1))})
+        "flash_bwd_dkv_kernel": (None, lib.ptt_flash_walk_smem(1)),
+        "flash_fwd_tc_kernel": ("flash_attention.cu",
+                                lib.ptt_flash_walk_smem(3)),
+        "qkv_cluster_tc_kernel": ("qkv_attention.cu", lambda args:
+                                  lib.ptt_qkv_cluster_smem(
+                                      64 if args.startswith("ILi64") else 32,
+                                      1)),
+        "gemm_tc_kernel": ("qkv_attention.cu", lib.ptt_gemm_tc_smem())})
 
 
 def tile_builds(log, lib):
@@ -4644,10 +5097,18 @@ def print_record(r, label):
              if "call_ms" in r else "")
           + (f"; device only {r['device_ms']} ms"
              if "device_ms" in r else "")
+          + (f" (the library call {r['library_device_ms']} ms)"
+             if "library_device_ms" in r else "")
+          + (f"; {r['off_rounding_share']:.3%} off the float64 value "
+             "rounded to bf16" if "off_rounding_share" in r else "")
           + (f"; 26 F.embedding calls {r['embedding_x26_ms']} ms"
              if "embedding_x26_ms" in r else "")
           + (f"; twin's bits: {r['twin_bit_equal']}"
              if "twin_bit_equal" in r else "")
+          + (f"; the parent's kernel {r['parent_ms']} ms"
+             + (f", rate {DROPOUT} {r['parent_dropout_ms']} ms"
+                if r.get("parent_dropout_ms") is not None else "")
+             if r.get("parent_ms") is not None else "")
           + (f"; a stable torch.sort of its ids {r['sort_ms']} ms, longest "
              f"run {r['run_max']}" if "sort_ms" in r else "")
           + (f"; {r['bound_share']:.1%} of the bound"
@@ -4684,6 +5145,15 @@ def _phase_seconds(label, t0):
 
 
 def main():
+    parser = argparse.ArgumentParser(description="Smoke run of "
+                                     "paddle_tpu_torch on one CUDA card.")
+    parser.add_argument(
+        "--parent", metavar="ROOT", help="another checkout of this "
+        "repository (the parent commit, unpacked by git archive): its "
+        "kernels are built beside this tree's, timed beside the redesigned "
+        "bf16 kernels, held bit for bit against the kernels this tree "
+        "keeps, and profiled in the amp step")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4708,6 +5178,8 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    if args.parent:
+        start_parent_build(args.parent)
     _build.lib()
     print(f"phase 1: kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -4721,6 +5193,16 @@ def main():
     tiles = tile_builds(_build.build_log(), _build.lib())
     for r in builds + tiles:
         print(f"phase 1: {r}")
+    mma = sass_mma(_build)
+    for fn, n in mma.items():
+        print(f"phase 1: SASS of {fn}: {n} HMMA/HGMMA instructions")
+    registers = None
+    if args.parent:
+        parent_lib()
+        print(f"phase 1: the parent's kernels ({args.parent}) built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        registers = parent_registers(_build.build_log())
+        print(f"phase 1: f32 registers against the parent's: {registers}")
 
     gen = torch.Generator().manual_seed(0)
     records = {}
@@ -4820,12 +5302,16 @@ def main():
             for case in (QKV_RECORD_CASE, QKV_PAIR_BERT[0])}
     gemm_records = check_gemm(gen)
     for r in gemm_records:
-        # the instantiation of its operand layouts
+        # the instantiation of its operand layouts; #1's y, the tensor-core
+        # tile's
         r["build"] = [{k: v for k, v in t.items() if k != "kernel"}
                       for t in tiles if t["kernel"] == "gemm_kernel"
                       and t["template"].startswith(
                           f"ILb{int(r['a_kmajor'])}ELb{int(r['b_kmajor'])}E")
                       and (t["dtype"] == "bf16") == ("dtypes" in r)]
+        if r.get("dtypes") == ["bfloat16"] * 3 and not r["a_kmajor"]:
+            r["build"] = [{k: v for k, v in t.items() if k != "kernel"}
+                          for t in builds if t["kernel"] == "gemm_tc_kernel"]
         print_record(r, f" {r['case']} (M {r['m']}, N {r['n']}, K "
                         f"{r['k']})")
     plans = check_qkv_plans(gen)
@@ -4852,6 +5338,19 @@ def main():
     for name, r in amp_records.items():
         print_record(r, f" {r.get('case', '')} b={r['batch']}")
         records[(name, max(BATCHES))] = r
+    # the tensor-core kernels' records carry their builds and SASS
+    for name, kernels in (("flash_fwd_bf16", ("flash_fwd_tc_kernel",)),
+                          ("qkv_attention_fwd_bf16", ("qkv_cluster_tc_kernel",
+                                                      "gemm_tc_kernel"))):
+        records[(name, max(BATCHES))]["build"] = [
+            dict({k: v for k, v in t.items() if k != "source"},
+                 sass_mma=sum(n for fn, n in mma.items()
+                              if t["kernel"] in fn and t["template"] in fn))
+            for t in builds if t["kernel"] in kernels]
+    parent_bits = check_parent_bits(torch.Generator().manual_seed(18))
+    if parent_bits is not None:
+        print(f"phase 2: {len(parent_bits)} calls give the parent's bits: "
+              f"{parent_bits}")
     # the JSON line carries each conv + BN kernel's first case
     for (name, case), r in check_conv_bn(gen).items():
         print_record(r, f" {case} b={r['batch']}")
@@ -5047,15 +5546,20 @@ def main():
                 print(f"    {ms:.4f} ms  {name}")
     bert_feed = _to(bert_batch(BERT_BATCH, seed=2), DEV)
     profiles = {}
+    amp_parent = [("amp_bf16_parent", amp_model, {})] if args.parent else []
     for tag, m, kw in (("flag_off", train_model, {}),
                        ("fused", fused_train, {}),
                        ("fused_dropout", drop_models[0], {}),
-                       ("amp_bf16", amp_model, {}),
+                       ("amp_bf16", amp_model, {}), *amp_parent,
                        ("bert_bhtd", bert_fused,
                         dict(feed=bert_feed, lr=BERT_LR)),
                        ("bert_use_flash", bert_flash,
                         dict(feed=bert_feed, lr=BERT_LR))):
-        r = profile_training(m, tag, **kw)
+        if tag.endswith("_parent"):  # the same step on the parent's kernels
+            with kernel_library(parent_lib()):
+                r = profile_training(m, tag, **kw)
+        else:
+            r = profile_training(m, tag, **kw)
         profiles[tag] = {k: v for k, v in r.items() if k != "top"}
         if not r["device_busy_ms"]:
             print(f"phase 4: training step {tag}: device time not measured "
@@ -5064,8 +5568,10 @@ def main():
         print(f"phase 4: training step {tag}: wall {r['wall_ms']} ms, "
               f"device busy {r['device_busy_ms']} ms, idle share "
               f"{r['idle_share']}, gemm.cuh's kernels {r['gemm_cuh_ms']} "
-              f"ms, the backward walks {r['walks_ms']} ms, cuBLAS GEMMs "
-              f"{r['library_gemm_ms']} ms")
+              f"ms, the backward walks {r['walks_ms']} ms, #1's attention "
+              f"{r['qkv_fwd_ms']} ms, the flash forward {r['flash_fwd_ms']} "
+              f"ms, the tensor-core kernels {r['tensor_core_ms']} ms, "
+              f"cuBLAS GEMMs {r['library_gemm_ms']} ms")
         for name, ms in r["top"]:
             print(f"    {ms:.4f} ms  {name}")
     profile_rn = profile_resnet(resnet)
@@ -5142,7 +5648,10 @@ def main():
                                          if k != "top"},
                       "profile_deepfm": profile_fm, "gemm": gemm_records,
                       "flash_bwd": flash_bwd, "walk_builds": builds,
-                      "tile_builds": tiles,
+                      "tile_builds": tiles, "sass_mma": mma,
+                      "parent": args.parent,
+                      "parent_registers": registers,
+                      "parent_bits": parent_bits,
                       "profile_training": profiles,
                       "power": smi}))
     print(json.dumps({"kernels": kernels_line}))

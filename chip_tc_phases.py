@@ -1,0 +1,338 @@
+#!/usr/bin/env python3
+"""Where the bf16 tensor-core kernels spend their time, on one CUDA card,
+at the amp step's shapes (b 32, 8 heads of 64, t 256, d_model 512): #4's
+forward (``csrc/flash_tc.cuh``), #1's cluster route
+(``qkv_cluster_tc_kernel`` in ``csrc/qkv_attention.cu``) and #1's y tile
+(``gemm_tc`` in ``csrc/gemm.cuh``).
+
+    python3 chip_tc_phases.py
+
+Builds temporary copies of the sources by ``chip_kernel_copies`` (the
+tree is not changed):
+
+* ``clocks``: thread 0 of every block sums ``clock64()`` over each phase
+  of its walk (#4: the ring's wait and barrier, the loads issued with the
+  bias and s, the softmax, p v, the epilogue; #1: the projection's waits,
+  its MMAs, the split and the cluster barrier, the peer copies and their
+  barriers, s, the softmax, p v, the epilogue); printed as each phase's
+  share of a block's clock, the mean over the blocks.  A phase's clock
+  ends when its last instruction issues, so an MMA's latency falls to the
+  phase that reads its result;
+* #4 with other tiles: 128-row blocks (2 an SM), a third ring stage,
+  170 registers (3 blocks an SM); and, for timing only (wrong outputs),
+  without s's MMAs, without the exponentials; and without p_lo's MMAs
+  (p rounded to one bf16 in p v);
+* #1 without p_lo's MMA, and without all three low-half products (q, k,
+  v and p each rounded to one bf16);
+* y with other rings: 4 and 5 stages of 32 k, 3 and 2 stages of 64 k.
+
+#4's copies are timed on the cross-attention (pad bias) and the decoder
+self-attention (decoder bias) beside the tree's kernel and masked
+``F.scaled_dot_product_attention``; #1's on the decoder self-attention
+beside the tree's kernel; y's beside the tree's tile and
+``torch.matmul``, all device time only (``chip_smoke.cuda_ms`` with
+``hide_host``).  What the hi/lo split buys: the tree's o (#4) and ctx
+(#1), and the copies' without the low halves, against the float64 twin
+on the same bf16 operands (``error64``: the max abs error and the share
+of elements that are not the float64 value rounded to bf16).  Prints the
+card and its power limit, one JSON line per measurement, and last
+``{"ok": true}``.  Exits 2 without a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import re
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+import chip_kernel_copies as ck
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+#: a per-block sum of clock64() for each of up to 8 phases, and the
+#: block's whole clock in slot 9
+CLOCKS = """
+__device__ long long g_clk[4096 * 10];
+#define CLK(i) { const long long c_now = clock64(); \\
+  ck_sum[i] += c_now - c_mark; c_mark = c_now; }
+"""
+CLOCKS_ENTRY = """
+extern "C" int ptt_clocks(long long* host, int n) {
+  return (int)cudaMemcpyFromSymbol(host, g_clk, sizeof(long long) * n);
+}
+"""
+CLOCKS_START = ("  long long ck_sum[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+                "  const long long c_start = clock64();\n"
+                "  long long c_mark = c_start;\n")
+CLOCKS_END = ("  if (threadIdx.x == 0) {\n"
+              "    const int blk = (blockIdx.z * gridDim.y + blockIdx.y) *"
+              " gridDim.x + blockIdx.x;\n"
+              "    for (int i = 0; i < 8; ++i) g_clk[blk * 10 + i] ="
+              " ck_sum[i];\n"
+              "    g_clk[blk * 10 + 9] = clock64() - c_start;\n  }\n")
+FLASH_PHASES = ("ring wait", "loads, bias and s", "softmax", "p v",
+                "epilogue")
+QKV_PHASES = ("projection waits", "projection MMAs", "split and cluster "
+              "barrier", "peer copies", "s", "softmax", "p v", "epilogue")
+
+
+def read(name):
+    from paddle_tpu_torch.kernels import _build
+
+    with open(os.path.join(_build.CSRC_DIR, name)) as f:
+        return f.read()
+
+
+def const(src, name, value, what):
+    """``src`` with ``constexpr int name`` set to ``value``."""
+    new, n = re.subn(rf"constexpr int {name} = \d+;",
+                     f"constexpr int {name} = {value};", src)
+    if n != 1:
+        raise RuntimeError(f"{what} has no one constexpr {name}")
+    return new
+
+
+def inline(src, header, text, what):
+    """``src`` with ``#include "header"`` replaced by ``text``."""
+    return ck.edit(src, f'#include "{header}"\n', text + "\n", what)
+
+
+def flash_clocks(h):
+    w = "flash_tc.cuh (clocks)"
+    h = ck.edit(h, "template <class L, bool DROP>\n__global__",
+                CLOCKS + "template <class L, bool DROP>\n__global__", w)
+    for old, new in (
+            ("  // this lane's two rows: r = 0 the warp's row g, r = 1 row g"
+             " + 8\n", CLOCKS_START),
+            ("                      // slot the next load takes was "
+             "consumed last step\n", "    CLK(0)\n"),
+            ("        tc::mma(acc[2 * dg + 1], pl, vf[2], vf[3]);\n      }\n"
+             "    }\n", "    CLK(3)\n"),
+            ("          masked ? INFINITY : m[r] * tc::kLn2 + logf(l[r]);\n"
+             "  }\n", "  CLK(4)\n" + CLOCKS_END)):
+        h = ck.edit(h, old, old + new, w)
+    for old, i in (("    // scale and bias, in base 2", 1),
+                   ("    // acc += p_hi v + p_lo v", 2)):
+        h = ck.edit(h, old, f"    CLK({i})\n" + old, w)
+    return h
+
+
+def qkv_clocks(src):
+    w = "qkv_attention.cu (clocks)"
+    src = ck.edit(src, "template <int R, bool DROP>\n__global__ void "
+                  "__launch_bounds__(ClusterTc<R>::NT, 2)",
+                  CLOCKS + "template <int R, bool DROP>\n__global__ void "
+                  "__launch_bounds__(ClusterTc<R>::NT, 2)", w)
+    for old, new in (
+            ("  const bf16* xb = x + (size_t)bi * t * dm;\n\n  // ---- "
+             "project", None),
+            ("      __syncthreads();  // chunk c has landed; slot (c + 2) % 3"
+             " is consumed\n", "      CLK(0)\n"),
+            ("          tc::mma(pa[2 * jp + 1], af, bf[2], bf[3]);\n"
+             "        }\n      }\n", "      CLK(1)\n"),
+            ("  cluster.sync();  // every block's k and v are ready; the ring"
+             " is read\n", "  CLK(2)\n")):
+        if new is None:  # the clocks start before the projection
+            src = ck.edit(src, old, old.replace(
+                "\n\n  // ---- project", "\n" + CLOCKS_START
+                + "\n  // ---- project"), w)
+        else:
+            src = ck.edit(src, old, old + new, w)
+    for old, i in (("    // this lane's bias pairs of the tile", 3),
+                   ("    // the bias (in base 2) and, where the tile", 4),
+                   ("    if (more) {  // the next tile's k replaces", 5),
+                   ("    if (more) {  // ... and its v this one's", 6)):
+        src = ck.edit(src, old, f"    CLK({i})\n" + old, w)
+    old = ("  cluster.sync();  // no block leaves while a peer may still "
+           "read its tiles\n}\n\n// -----------------------------------------"
+           "----------------------------------\n// launches")
+    src = ck.edit(src, old, old.replace("\n}\n", "\n  CLK(7)\n" + CLOCKS_END
+                                        + "}\n"), w)
+    return src + CLOCKS_ENTRY
+
+
+def flash_variants():
+    """{name: flash_attention.cu with an edited flash_tc.cuh inlined}."""
+    src, h = read("flash_attention.cu"), read("flash_tc.cuh")
+    w = "flash_tc.cuh"
+    edits = {
+        "rows_128": lambda t: const(const(t, "FT_ROWS", 128, w),
+                                    "FT_MIN_BLOCKS", 2, w),
+        "stages_3": lambda t: const(t, "FT_STAGES", 3, w),
+        "registers_170": lambda t: const(t, "FT_MIN_BLOCKS", 3, w),
+        "no_s_mma": lambda t: ck.edit(
+            t, "        tc::mma(s[2 * kg], qf, kf[0], kf[1]);\n"
+            "        tc::mma(s[2 * kg + 1], qf, kf[2], kf[3]);\n",
+            "        s[2 * kg][0] += __uint_as_float(kf[0] & 0x80008000u);\n",
+            w),
+        "no_p_lo_mma": lambda t: ck.edit(ck.edit(
+            t, "        tc::mma(acc[2 * dg], pl, vf[0], vf[1]);\n", "", w),
+            "        tc::mma(acc[2 * dg + 1], pl, vf[2], vf[3]);\n", "", w),
+        "no_exp": lambda t: ck.edit(
+            t, "        s[n][e] = tc::ex2(s[n][e] - m[r]);",
+            "        s[n][e] = s[n][e] - m[r];", w),
+    }
+    out = {name: inline(src, "flash_tc.cuh", e(h), name)
+           for name, e in edits.items()}
+    out["flash_clocks"] = inline(src, "flash_tc.cuh", flash_clocks(h),
+                                 "clocks") + CLOCKS_ENTRY
+    return out
+
+
+def gemm_variants():
+    """{name: gemm.cu with an edited gemm.cuh inlined}."""
+    src, h = read("gemm.cu"), read("gemm.cuh")
+    return {f"y_{k}x{stages}": inline(src, "gemm.cuh", const(const(
+        h, "TC_K", k, "gemm.cuh"), "TC_STAGES", stages, "gemm.cuh"), name)
+        for name, (k, stages) in (("4", (32, 4)), ("5", (32, 5)),
+                                  ("64", (64, 3)), ("64_2", (64, 2)))}
+
+
+#: #1's products of the low halves: p_lo v_hi in p v, and all three
+#: low-half products (q_lo k_hi and q_hi k_lo in s, p_hi v_lo in p v)
+QKV_LO = {"p_lo": "          tc::mma(o[2 * dg + h2], pl, vh[2 * h2], "
+          "vh[2 * h2 + 1]);\n",
+          "v_lo": "          tc::mma(o[2 * dg + h2], ph, vl[2 * h2], "
+          "vl[2 * h2 + 1]);\n",
+          "q_lo": "          tc::mma(s[2 * kg + h2], ql, kh[2 * h2], "
+          "kh[2 * h2 + 1]);\n",
+          "k_lo": "          tc::mma(s[2 * kg + h2], qh, kl[2 * h2], "
+          "kl[2 * h2 + 1]);\n"}
+
+
+def qkv_variants():
+    """{name: qkv_attention.cu without some of #1's low-half products}:
+    no_p_lo (p rounded to one bf16 in p v) and no_lo (q, k, v and p each
+    rounded to one bf16: one MMA a product)."""
+    src, w = read("qkv_attention.cu"), "qkv_attention.cu"
+    no_p_lo = ck.edit(src, QKV_LO["p_lo"], "", w)
+    no_lo = no_p_lo
+    for part in ("v_lo", "q_lo", "k_lo"):
+        no_lo = ck.edit(no_lo, QKV_LO[part], "", w)
+    return {"qkv_no_p_lo": no_p_lo, "qkv_no_lo": no_lo}
+
+
+def error64(got, exact):
+    """(max abs error of the bf16 ``got`` against the float64 ``exact``,
+    the share of its elements that are not ``exact`` rounded to bf16)."""
+    return ((got.double() - exact).abs().max().item(),
+            (got != exact.to(got.dtype)).double().mean().item())
+
+
+def phase_shares(lib, n_blocks, phases):
+    """The clocked copy's phases as shares of a block's clock (mean over
+    the last launch's blocks) and the mean block clock."""
+    host = (ctypes.c_longlong * (n_blocks * 10))()
+    torch.cuda.synchronize()
+    lib.ptt_clocks(ctypes.cast(host, ctypes.c_void_p), n_blocks * 10)
+    a = np.array(host[:], dtype=np.float64).reshape(n_blocks, 10)
+    total = a[:, 9].mean()
+    return dict(zip(phases, (a[:, :len(phases)].mean(0) / total).round(4)
+                    .tolist()), block_clock=total)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_tc_phases: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import attention as ka
+    from paddle_tpu_torch.kernels import gemm as kg
+
+    print(ck.card())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.lib()
+    with tempfile.TemporaryDirectory() as out_dir:
+        flash, gemm, qkv = flash_variants(), gemm_variants(), qkv_variants()
+        libs = ck.build(_build, out_dir, {
+            **flash, **gemm, **qkv, "qkv_clocks": qkv_clocks(
+                read("qkv_attention.cu"))}, [])
+    for name, lib in libs.items():
+        entries = (["ptt_flash_fwd_bf16"] if name in flash
+                   else ["ptt_gemm_typed", "ptt_gemm_partials"]
+                   if name in gemm else ["ptt_qkv_attention_fwd_bf16",
+                                         "ptt_qkv_fwd_scratch"])
+        for e in entries + ["ptt_error_string"] * hasattr(
+                lib, "ptt_error_string"):
+            fn = getattr(lib, e)
+            fn.restype, fn.argtypes = _build._SIGNATURES[e]
+        if hasattr(lib, "ptt_clocks"):
+            lib.ptt_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    gen = torch.Generator().manual_seed(0)
+    b, h = cs.TRAIN_BATCH, cs.BASE["n_head"]
+    for case, bias_kind in (("cross", "pad"), ("decoder self", "decoder")):
+        q, k, v, _, bias = cs._bf16(*cs._flash_inputs(gen, 256, 256,
+                                                      bias_kind, False))
+        kw = dict(scale=0.125, causal=False)
+        want = ka.reference_flash_fwd(q, k, v, bias, **kw)[0]
+        exact = ka.reference_flash_fwd(
+            *(a.double() for a in (q, k, v, bias)), **kw)[0]
+        fn = lambda: ka.flash_fwd(q, k, v, bias, **kw)  # noqa: E731
+        rec = dict(kernel="flash_fwd_bf16", case=case,
+                   tree_ms=cs.cuda_ms(fn, hide_host=True),
+                   tree_err=error64(fn()[0], exact),
+                   sdpa_ms=cs.cuda_ms(
+                       lambda: torch.nn.functional.scaled_dot_product_attention(
+                           q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), attn_mask=bias, scale=0.125),
+                       hide_host=True))
+        for name in flash:
+            if name == "flash_clocks":
+                continue
+            with cs.kernel_library(libs[name]):
+                o = fn()[0]
+                rec[name + "_ms"] = cs.cuda_ms(fn, hide_host=True)
+            if name == "no_p_lo_mma":  # p rounded to one bf16 in p v
+                rec[name + "_err"] = error64(o, exact)
+            elif not name.startswith("no_"):  # the others compute wrong
+                cs.compare_bf16(f"{name} {case}", o, want)
+        with cs.kernel_library(libs["flash_clocks"]):
+            fn()
+        rec["phases"] = phase_shares(libs["flash_clocks"], 4 * h * b,
+                                     FLASH_PHASES)
+        print(json.dumps(rec))
+    x, w_qkv, w_out, _, bias = cs._bf16(*cs._qkv_inputs(gen, 256, "decoder"))
+    kw = dict(n_head=h, scale=0.125, causal=False)
+    fn = lambda: ka.qkv_attention_fwd(  # noqa: E731
+        x, w_qkv, w_out, bias, **kw)
+    with cs.kernel_library(libs["qkv_clocks"]):
+        ctx = fn()[1]
+    cs.compare_bf16("qkv clocks ctx", ctx, ka.reference_qkv_fwd(
+        x, w_qkv, w_out, bias, **kw)[1])
+    exact = ka.reference_qkv_fwd(
+        *(a.double() for a in (x, w_qkv, w_out, bias)), **kw)[1]
+    rec = dict(kernel="qkv_attention_fwd_bf16", case="decoder self",
+               phases=phase_shares(libs["qkv_clocks"], 4 * h * b,
+                                   QKV_PHASES),
+               tree_ms=cs.cuda_ms(fn, hide_host=True),
+               tree_err=error64(fn()[1], exact))
+    for name in qkv:
+        with cs.kernel_library(libs[name]):
+            rec[name + "_err"] = error64(fn()[1], exact)
+            rec[name + "_ms"] = cs.cuda_ms(fn, hide_host=True)
+    print(json.dumps(rec))
+    a = cs.randn(gen, 8192, 512, scale=512 ** -0.5).bfloat16()
+    w = cs.randn(gen, 512, 512).bfloat16()
+    want = kg.reference_gemm(a, w, torch.bfloat16)
+    fn = lambda: kg.gemm(a, w, True, torch.bfloat16)  # noqa: E731
+    rec = dict(kernel="gemm_tc", case="y 8192 x 512 x 512",
+               tree_ms=cs.cuda_ms(fn, hide_host=True),
+               matmul_ms=cs.cuda_ms(lambda: a @ w, hide_host=True))
+    for name in gemm:
+        with cs.kernel_library(libs[name]):
+            cs.compare_bf16(name, fn(), want)
+            rec[name + "_ms"] = cs.cuda_ms(fn, hide_host=True)
+    print(json.dumps(rec))
+    print(json.dumps({"ok": True}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

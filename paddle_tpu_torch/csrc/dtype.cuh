@@ -1,8 +1,9 @@
-// Element types of the kernels with a bf16 instantiation (amp): f32 and
-// bf16 operands are loaded and converted to f32 on their way into shared
-// memory or registers, all arithmetic is f32, and a result is rounded to
-// its tensor's type (round to nearest even, as PyTorch's .to(bfloat16)
-// rounds) when it is stored.
+// Element types of the kernels with a bf16 instantiation (amp) that
+// compute in f32: f32 and bf16 operands are loaded and converted to f32 on
+// their way into shared memory or registers, all arithmetic is f32, and a
+// result is rounded to its tensor's type (round to nearest even, as
+// PyTorch's .to(bfloat16) rounds) when it is stored.  The tensor-core
+// kernels keep bf16 operands as they are (mma.cuh).
 
 #pragma once
 
@@ -55,6 +56,17 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
   u.x = *reinterpret_cast<const unsigned*>(&a);
   u.y = *reinterpret_cast<const unsigned*>(&b);
   *reinterpret_cast<uint2*>(p) = u;
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory, once (`configured`
+// is the launch's own flag).
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
+  if (configured) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) configured = true;
+  return err;
 }
 
 }  // namespace

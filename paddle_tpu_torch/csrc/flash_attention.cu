@@ -53,10 +53,12 @@
 // that never hash.
 //
 // bf16 (amp, bthd only: ptt_flash_*_bf16): q, k, v, the bias, o, dO, dq,
-// dk and dv are bf16, lse and delta f32, and all arithmetic f32, as the
-// reference's bthd kernels compute on bf16 operands; the walks convert
-// each tile to f32 as it lands in shared memory (flash_walk.cuh).  The
-// bhtd layout (#5, #8, #9) is compiled in f32 only.
+// dk and dv are bf16, lse and delta f32.  The forward runs on tensor
+// cores (flash_tc.cuh: exact bf16 products for s, p split into hi/lo
+// bf16s for p v); the backward walks compute f32 arithmetic, as the
+// reference's bthd kernels compute on bf16 operands, converting each tile
+// to f32 as it lands in shared memory (flash_walk.cuh).  The bhtd layout
+// (#5, #8, #9) is compiled in f32 only.
 //
 // Masking follows the TPU kernels: causal (bottom-right aligned, offset
 // tk - tq) and out-of-range keys score -1e30 in the forward; a row whose
@@ -68,6 +70,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_tc.cuh"
 #include "flash_walk.cuh"
 
 namespace {
@@ -120,9 +123,13 @@ int run_dkv(L l, const T* q, const T* k, const T* v, const T* bias,
 }  // namespace
 
 // Dynamic shared memory of a walk's block in bytes: the dq walk (0), the
-// dkv walk (1) or the forward (2).
+// dkv walk (1), the f32 forward (2) or the bf16 forward on tensor cores
+// (3).
 extern "C" int64_t ptt_flash_walk_smem(int which) {
-  return (int64_t)(which == 2 ? kFwdSmem : which ? kDkvSmem : kDqSmem);
+  return (int64_t)(which == 3   ? kFwdTcSmem
+                   : which == 2 ? kFwdSmem
+                   : which      ? kDkvSmem
+                                : kDqSmem);
 }
 
 // #4.  q [b, tq, h, 64], k and v [b, tk, h, 64], o like q, lse [b, h, tq];
@@ -220,7 +227,7 @@ extern "C" int ptt_flash_bwd_dkv_bhtd(const float* q, const float* k,
 }
 
 // #4 in bf16 (amp): as ptt_flash_fwd with q, k, v, the bias and o bf16,
-// lse f32.
+// lse f32, on tensor cores (flash_tc.cuh).
 extern "C" int ptt_flash_fwd_bf16(const bf16* q, const bf16* k,
                                   const bf16* v, const bf16* bias,
                                   int64_t bs_b, int64_t bs_h, int64_t bs_q,
@@ -228,9 +235,13 @@ extern "C" int ptt_flash_fwd_bf16(const bf16* q, const bf16* k,
                                   int tq, int tk, int h, float scale,
                                   int causal, double rate, unsigned seed,
                                   unsigned threshold, void* stream) {
-  return run_fwd(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o,
-                 lse, b, tq, tk, h, scale, causal, rate, seed, threshold,
-                 stream);
+  const Bthd l{h * DH};
+  return (int)fwd_tc(Rows<Bthd, bf16>{q, l}, Rows<Bthd, bf16>{k, l},
+                     Rows<Bthd, bf16>{v, l},
+                     BiasOf<bf16>{bias, bs_b, bs_h, bs_q, bs_k}, o, l, lse,
+                     b, tq, tk, h, scale, causal,
+                     hash_rng::make_dropout(rate, seed, threshold),
+                     static_cast<cudaStream_t>(stream));
 }
 
 // #6 in bf16: as ptt_flash_bwd_dq with dout and dq bf16, lse and delta

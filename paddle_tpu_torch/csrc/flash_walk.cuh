@@ -74,15 +74,16 @@
 // tk give p = 0; a row masked in the forward has lse = +inf, so p = 0 and
 // its gradients are zero.  Rows past t in a ragged tile load as zeros.
 //
-// bf16 (amp): the rows (q, k, v, dO) and the outputs (o, dq, dk, dv) are
-// of one element type T, the bias of its own BT (the pair walks f32
-// scratch under a bf16 bias); lse and delta stay f32 and all arithmetic
-// is f32, as the reference's kernels compute on bf16 operands.  A bf16
-// tile or bias comes in through registers, 16 (bias: 8) bytes a load,
-// converted to f32 as it is stored into the stage, so every shared-memory
-// layout, budget and read is the f32 walk's; these loads are synchronous
-// (no cp.async ring: later work).  An output is rounded to T as it is
-// stored.  The f32 instantiations are the f32 walks unchanged.
+// bf16 (amp, the backward walks): the rows (q, k, v, dO) and the outputs
+// (dq, dk, dv) are of one element type T, the bias of its own BT (the
+// pair walks f32 scratch under a bf16 bias); lse and delta stay f32 and
+// all arithmetic is f32, as the reference's kernels compute on bf16
+// operands.  A bf16 tile or bias comes in through registers, 16 (bias: 8)
+// bytes a load, converted to f32 as it is stored into the stage, so every
+// shared-memory layout, budget and read is the f32 walk's; these loads
+// are synchronous (no cp.async ring: later work).  An output is rounded
+// to T as it is stored.  The f32 instantiations are the f32 walks
+// unchanged.  The forward in bf16 is flash_tc.cuh's, on tensor cores.
 
 #pragma once
 
@@ -845,15 +846,6 @@ flash_bwd_dkv_kernel(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v,
   }
   store_walk_rows(dk, dkv_l, dk_acc, bi, k0, tk, head);
   store_walk_rows(dv, dkv_l, dv_acc, bi, k0, tk, head);
-}
-
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
-  if (configured) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) configured = true;
-  return err;
 }
 
 template <class L, bool DROP, class T, class BT>

@@ -28,6 +28,10 @@ extern "C" int64_t ptt_gemm_smem() {
   return (int64_t)(GEMM_SMEM * sizeof(float));
 }
 
+// Dynamic shared memory of a block of the tensor-core tile (bf16 x bf16
+// -> bf16, #1's y) in bytes.
+extern "C" int64_t ptt_gemm_tc_smem() { return (int64_t)kGemmTcSmem; }
+
 // c [m, n] (row stride ldc) = A B; with split, over K in slabs as
 // gemm_splits cuts them (partials: ptt_gemm_partials floats), else in one
 // sum (partials unused).  A(i, k) is a[k * lda + i] when a_kmajor, else
@@ -65,7 +69,9 @@ int typed(const void* a, int lda, int a_kmajor, const void* b, int ldb,
 // products: bf16 x bf16 -> f32 (3: the pair's projections) or -> bf16 (7:
 // #1's y, dW_out), f32 x bf16 -> bf16 (6: the pair's dx) and bf16 x f32 ->
 // bf16 (5: dW_qkv); any other returns cudaErrorInvalidValue (f32
-// throughout is ptt_gemm).
+// throughout is ptt_gemm).  7 with A i-major and B k-major (#1's y) runs
+// the tensor-core tile, which takes N, K, lda and ldb multiples of 8 and
+// 16-byte aligned operands (cudaErrorInvalidValue otherwise).
 extern "C" int ptt_gemm_typed(int dtypes, const void* a, int lda,
                               int a_kmajor, const void* b, int ldb,
                               int b_kmajor, void* c, int ldc, int m, int n,

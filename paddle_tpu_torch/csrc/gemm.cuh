@@ -1,5 +1,7 @@
-// f32 GEMM for sm_90a: C = A B on 128x128 block tiles, with split-K; each
-// operand f32 or bf16 (amp), C f32 or bf16, the arithmetic f32.
+// GEMM for sm_90a: C = A B on 128x128 block tiles, with split-K; each
+// operand f32 or bf16 (amp), C f32 or bf16, the arithmetic f32 on the
+// CUDA cores, but for bf16 x bf16 -> bf16 with A i-major and B k-major
+// (#1's y = ctx W_out), which runs on tensor cores (gemm_tc, below).
 //
 // Shared by the fused-projection kernels: the backward pair (#2 + #3 in
 // qkv_attention_bwd.cu: the q|k|v and dctx projections, dx and dW) and
@@ -24,8 +26,8 @@
 // by cp.async and read as float4 along k, a third ring stage, an XOR
 // swizzle or a thread mapping that frees the transposed stores of their
 // 2-way bank conflicts, float4 stores of C, persistent #19 blocks, and one
-// block an SM with the registers that frees (PERF.md).
-// No tensor cores, no TMA: later work.
+// block an SM with the registers that frees (PERF.md).  No TMA: later
+// work.
 //
 // bf16 operands (amp): each operand's element type is its own template
 // parameter (the backward pair multiplies its f32 dq|dk|dv scratch by bf16
@@ -49,6 +51,7 @@
 #include <type_traits>
 
 #include "dtype.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -366,6 +369,197 @@ int64_t gemm_partials(int M, int N, int K, int sms) {
   return splits > 1 ? (int64_t)splits * M * N : 0;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 x bf16 -> bf16 on tensor cores: #1's y = ctx W_out in amp
+// ---------------------------------------------------------------------------
+//
+// C [M, N] = A B with A i-major (ctx [b t, hd]) and B k-major (W_out [hd,
+// dm]), both bf16: mma.sync m16n8k16, exact products summed in f32 (the
+// reference's y product, f32 on the widened bf16 operands), C rounded to
+// bf16 once, or f32 partial sums of a split product added in slab order
+// by sum_splits.  The same 128 x 128 C tiles, split-K choice
+// (gemm_splits) and partials as the f32 tile, so #1's scratch contract
+// (ptt_qkv_fwd_scratch) holds; every element is summed in increasing k
+// stages (two k16 steps a stage), no atomics: y repeats its bits.
+//
+// 256 threads, 8 warps of 64 rows x 32 columns (4 x 4 m16n8 tiles, 64 f32
+// accumulators); a stage is 32 k of A ([128][32], rows padded to 40
+// elements) and B ([32][128], rows padded to 136), copied by 16-byte
+// cp.async into a ring of three stages (two in flight while one
+// multiplies); A's fragments by ldmatrix, B's by ldmatrix.trans, both
+// padded so that the 8 rows of a matrix fall in distinct bank groups.
+// Rows past M, columns past N and k past the slab come in as zeros (N
+// and K multiples of 8).  55.5 KB of shared memory (kGemmTcSmem) and 127
+// registers: two blocks an SM.  MMA work is the function's (no split).
+// Bound at the amp step's y (8192 x 512 x 512): bytes (16.8 MB: 0.0050
+// ms) over the MMAs (4.3 GFLOP: 0.0043 ms at 989 TFLOP/s).
+constexpr int TC_K = 32;                  // reduction depth of a stage
+constexpr int TC_ALD = TC_K + 8;          // row stride of an A stage
+constexpr int TC_BLD = GT + 8;            // row stride of a B stage
+constexpr int TC_STAGE = GT * TC_ALD + TC_K * TC_BLD;  // bf16 elements
+constexpr int TC_STAGES = 3;
+constexpr size_t kGemmTcSmem = TC_STAGES * TC_STAGE * sizeof(bf16);
+
+// Start the copy of stage k0.. (A rows m0.., B columns n0..) into st.
+__device__ __forceinline__ void gemm_tc_stage(bf16* st, const bf16* a,
+                                              int lda, const bf16* b,
+                                              int ldb, int M, int N, int m0,
+                                              int n0, int k0, int k_end) {
+#pragma unroll
+  for (int u = 0; u < GT * TC_K / 8 / GNT; ++u) {  // A: 4 copies a row
+    const int idx = threadIdx.x + u * GNT;
+    const int row = idx / (TC_K / 8);
+    const int c8 = idx % (TC_K / 8) * 8;
+    const bool in = m0 + row < M && k0 + c8 < k_end;
+    tc::copy16(st + row * TC_ALD + c8,
+               in ? a + (int64_t)(m0 + row) * lda + k0 + c8 : a,
+               in ? 16 : 0);
+  }
+  bf16* bs = st + GT * TC_ALD;
+#pragma unroll
+  for (int u = 0; u < TC_K * GT / 8 / GNT; ++u) {  // B: 16 copies a row
+    const int idx = threadIdx.x + u * GNT;
+    const int row = idx / (GT / 8);
+    const int c8 = idx % (GT / 8) * 8;
+    const bool in = k0 + row < k_end && n0 + c8 < N;
+    tc::copy16(bs + row * TC_BLD + c8,
+               in ? b + (int64_t)(k0 + row) * ldb + n0 + c8 : b,
+               in ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store_pair(bf16* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) = tc::pack(x, y);
+}
+
+// C[m, n] = sum_k A(m, k) B(k, n) over split blockIdx.z's slab, written
+// to c + z * split_stride as TC (bf16 unsplit, f32 partials when split).
+template <class TC>
+__global__ void __launch_bounds__(GNT, 2)
+gemm_tc_kernel(const bf16* __restrict__ a, int lda,
+               const bf16* __restrict__ b, int ldb, TC* c, int ldc,
+               size_t split_stride, int M, int N, int K, int k_slab) {
+  extern __shared__ float smem[];
+  bf16* sm = reinterpret_cast<bf16*>(smem);
+  const int n0 = blockIdx.x * GT;
+  const int m0 = blockIdx.y * GT;
+  const int k_begin = blockIdx.z * k_slab;
+  const int k_end = min(K, k_begin + k_slab);
+  const int steps = (k_end - k_begin + TC_K - 1) / TC_K;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wm = (warp >> 2) * 64;  // the warp's rows and columns
+  const int wn = (warp & 3) * 32;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  // stage s in ring slot s % 3; a group is committed every step, empty
+  // past the last stage, so that wait<1> always means "stage s landed"
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < steps)
+      gemm_tc_stage(sm + s * TC_STAGE, a, lda, b, ldb, M, N, m0, n0,
+                    k_begin + s * TC_K, k_end);
+    tc::commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    tc::wait<TC_STAGES - 2>();
+    __syncthreads();  // stage s has landed; slot (s + 2) % 3 is consumed
+    if (s + TC_STAGES - 1 < steps)
+      gemm_tc_stage(sm + (s + TC_STAGES - 1) % TC_STAGES * TC_STAGE, a, lda,
+                    b, ldb, M, N, m0, n0, k_begin + (s + TC_STAGES - 1) *
+                    TC_K, k_end);
+    tc::commit();
+    const bf16* as = sm + s % TC_STAGES * TC_STAGE;
+    const bf16* bs = as + GT * TC_ALD;
+#pragma unroll
+    for (int ks = 0; ks < TC_K / 16; ++ks) {
+      uint32_t af[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        tc::ldsm4(af[i], as + tc::frag_offset(TC_ALD, wm + 16 * i, 16 * ks));
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t bf[4];
+        tc::ldsm4_t(bf, bs + tc::frag_offset(TC_BLD, 16 * ks, wn + 16 * jp));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          tc::mma(acc[i][2 * jp], af[i], bf[0], bf[1]);
+          tc::mma(acc[i][2 * jp + 1], af[i], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  c += blockIdx.z * split_stride;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = m0 + wm + 16 * i + (lane >> 2) + 8 * r;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn + 8 * j + 2 * (lane & 3);
+        if (n < N)
+          store_pair(c + (size_t)m * ldc + n, acc[i][j][2 * r],
+                     acc[i][j][2 * r + 1]);
+      }
+    }
+}
+
+template <class TC>
+cudaError_t launch_gemm_tc(dim3 grid, cudaStream_t stream, const bf16* a,
+                           int lda, const bf16* b, int ldb, TC* c, int ldc,
+                           size_t stride, int M, int N, int K, int slab) {
+  static bool configured = false;
+  cudaError_t err = allow_smem(gemm_tc_kernel<TC>, kGemmTcSmem, configured);
+  if (err != cudaSuccess) return err;
+  gemm_tc_kernel<TC><<<grid, GNT, kGemmTcSmem, stream>>>(
+      a, lda, b, ldb, c, ldc, stride, M, N, K, slab);
+  return cudaGetLastError();
+}
+
+// gemm() of bf16 A (i-major) and B (k-major) into bf16 C on tensor cores
+// (T = bf16; a template, so that only the sources that call it compile
+// its kernels); cudaErrorInvalidValue unless N, K, the leading dimensions
+// and ldc allow the tile's 16-byte copies and pair stores.
+template <class T>
+cudaError_t gemm_tc(OperandOf<T> A, OperandOf<T> B, T* c, int ldc, int M,
+                    int N, int K, bool split, float* partials, int sms,
+                    cudaStream_t stream) {
+  static_assert(std::is_same<T, bf16>::value, "the tile is bf16");
+  if (N % 8 || K % 8 || A.ld % 8 || B.ld % 8 || ldc % 2 ||
+      reinterpret_cast<uintptr_t>(A.p) % 16 ||
+      reinterpret_cast<uintptr_t>(B.p) % 16 ||
+      reinterpret_cast<uintptr_t>(c) % 4)
+    return cudaErrorInvalidValue;
+  int slab = K;
+  const int splits = split ? gemm_splits(M, N, K, sms, &slab) : 1;
+  const size_t stride = (size_t)M * N;
+  dim3 grid((N + GT - 1) / GT, (M + GT - 1) / GT, splits);
+  if (splits == 1)
+    return launch_gemm_tc<bf16>(grid, stream, A.p, A.ld, B.p, B.ld, c, ldc,
+                                stride, M, N, K, slab);
+  cudaError_t err = launch_gemm_tc<float>(grid, stream, A.p, A.ld, B.p,
+                                          B.ld, partials, N, stride, M, N,
+                                          K, slab);
+  if (err != cudaSuccess) return err;
+  const int blocks =
+      (int)std::min<size_t>((stride + GNT - 1) / GNT, 4 * (size_t)sms);
+  sum_splits<bf16><<<blocks, GNT, 0, stream>>>(partials, splits, M, N, c,
+                                               ldc);
+  return cudaGetLastError();
+}
+
 template <bool A_KM, bool B_KM, class TA, class TB, class TC>
 void launch_gemm_kernel(dim3 grid, cudaStream_t stream, const TA* a, int lda,
                         const TB* b, int ldb, TC* c, int ldc, size_t stride,
@@ -382,6 +576,12 @@ template <class TA = float, class TB = float, class TC = float>
 cudaError_t gemm(OperandOf<TA> A, OperandOf<TB> B, TC* c, int ldc, int M,
                  int N, int K, bool split, float* partials, int sms,
                  cudaStream_t stream) {
+  if constexpr (std::is_same<TA, bf16>::value &&
+                std::is_same<TB, bf16>::value &&
+                std::is_same<TC, bf16>::value) {
+    if (!A.kmajor && B.kmajor)  // #1's y layout: the tensor-core tile
+      return gemm_tc(A, B, c, ldc, M, N, K, split, partials, sms, stream);
+  }
   int slab = K;
   const int splits = split ? gemm_splits(M, N, K, sms, &slab) : 1;
   const size_t stride = (size_t)M * N;

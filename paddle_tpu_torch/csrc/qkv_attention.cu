@@ -56,12 +56,23 @@
 // Both routes sum every projection in increasing k and walk keys in
 // increasing order, so two calls give the same bits.
 //
-// bf16 (amp, ptt_qkv_attention_fwd_bf16; both routes): x, w_qkv, w_out
-// and the bias are bf16, converted to f32 as they are loaded; q, k, v, p
-// and every accumulator are f32, as the reference's kernel computes them.
-// ctx is rounded to bf16 when it is stored, and the y GEMM reads that
-// bf16 ctx (the reference rounds each head's context to y's dtype before
-// its output product); y and ctx are bf16, lse f32.
+// bf16 (amp, ptt_qkv_attention_fwd_bf16): x, w_qkv, w_out and the bias
+// are bf16, y and ctx bf16, lse f32.  The reference projects in f32 from
+// the bf16 x and W (so q, k and v are f32 values), computes p v in f32,
+// rounds each head's context to bf16 before its output product and y
+// once.  The cluster route runs on tensor cores (qkv_cluster_tc_kernel,
+// mma.sync m16n8k16 with ldmatrix fragments): x and the head's W slabs
+// are staged as bf16 by a three-stage cp.async ring and projected with
+// exact bf16 products summed in f32; q, k and v (and p) are then split
+// into hi/lo bf16 pairs (mma.cuh), so s = q k^T and p v each take three
+// products (hi hi + hi lo + lo hi) and keep their f32 operands to about
+// 16 significant bits.  y = ctx W_out, ctx bf16 as the reference rounds
+// it, is gemm.cuh's tensor-core tile (gemm_tc), summed over the heads in
+// a fixed order as the f32 GEMM sums it.  MMA work at the amp step's b
+// 32, t 256, d_model 512, 8 heads: the projections' 12.9 GFLOP once, s
+// and p v 3x their 4.3 (the split), y 4.3: 30 GFLOP of MMAs for the
+// function's 21.5.  The tiles route (t > 512) stays f32 arithmetic on
+// bf16 operands converted as they load.
 //
 // The context ctx [b, t, h, 64] and lse [b, h, t] (+inf on a masked row)
 // are the residuals the backward kernels (#2, #3 in qkv_attention_bwd.cu)
@@ -74,6 +85,7 @@
 #include "dtype.cuh"
 #include "gemm.cuh"
 #include "hash_rng.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -393,9 +405,9 @@ __device__ __forceinline__ void cp_async_wait_all_but_last() {
 
 // Load this thread's float4s of x[r0.., k0..k0 + CK) (zeros past t) into
 // registers: consecutive threads read consecutive float4s of a row.
-template <int R, class T>
+template <int R>
 __device__ __forceinline__ void load_x(float4 (&xr)[Cluster<R>::kXLoads],
-                                       const T* xb, int r0, int t,
+                                       const float* xb, int r0, int t,
                                        int dm, int k0) {
   using L = Cluster<R>;
 #pragma unroll
@@ -425,10 +437,9 @@ __device__ __forceinline__ void store_x(
 }
 
 // Start copying rows [k0, k0 + CK) of the head's three W slabs into a
-// chunk's W [CK][WS]: f32 by cp.async; bf16 loaded and stored as f32 now
-// (the chunk's barriers order both before the chunk is read).
-template <int R, class T>
-__device__ __forceinline__ void stage_w(float* ws, const T* w_qkv,
+// chunk's W [CK][WS] by cp.async.
+template <int R>
+__device__ __forceinline__ void stage_w(float* ws, const float* w_qkv,
                                         int ldw, int hd, int head, int k0) {
   using L = Cluster<R>;
   for (int idx = threadIdx.x; idx < L::CK * 3 * (DH / 4); idx += L::NT) {
@@ -436,13 +447,9 @@ __device__ __forceinline__ void stage_w(float* ws, const T* w_qkv,
     const int c4 = idx % (3 * (DH / 4));
     const int slab = c4 / (DH / 4);
     const int col = (c4 % (DH / 4)) * 4;
-    const T* src =
-        w_qkv + (size_t)(k0 + kk) * ldw + slab * hd + head * DH + col;
-    if constexpr (sizeof(T) == 4)
-      cp_async16(ws + kk * L::WS + slab * DH + col, src);
-    else
-      *reinterpret_cast<float4*>(ws + kk * L::WS + slab * DH + col) =
-          load4(src);
+    cp_async16(ws + kk * L::WS + slab * DH + col,
+               w_qkv + (size_t)(k0 + kk) * ldw + slab * hd + head * DH +
+                   col);
   }
 }
 
@@ -513,13 +520,13 @@ __device__ __forceinline__ void store_peer(
   }
 }
 
-// Grid (C, n_head, b), cluster (C, 1, 1), C = ceil(t / R) <= 8.
-template <int R, bool DROP, class T = float>
+// Grid (C, n_head, b), cluster (C, 1, 1), C = ceil(t / R) <= 8; f32.
+template <int R, bool DROP>
 __global__ void __launch_bounds__(Cluster<R>::NT, 2)
-qkv_cluster_fwd_kernel(const T* __restrict__ x,
-                       const T* __restrict__ w_qkv,
-                       const T* __restrict__ bias, int64_t bs_b,
-                       int64_t bs_h, int64_t bs_q, int64_t bs_k, T* ctx,
+qkv_cluster_fwd_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w_qkv,
+                       const float* __restrict__ bias, int64_t bs_b,
+                       int64_t bs_h, int64_t bs_q, int64_t bs_k, float* ctx,
                        float* lse, int t, int dm, int n_head, float scale,
                        int causal, Dropout drop) {
   using L = Cluster<R>;
@@ -543,7 +550,7 @@ qkv_cluster_fwd_kernel(const T* __restrict__ x,
   const int hd = n_head * DH;
   const int r0 = rank * R;
   const int row0 = r0 + ty * TR;  // this thread's first row
-  const T* xb = x + (size_t)bi * t * dm;
+  const float* xb = x + (size_t)bi * t * dm;
 
   // ---- project rows r0.. of q, k, v: each row of the sequence once ----
   float aq[TR][4], ak[TR][4], av[TR][4];
@@ -556,13 +563,13 @@ qkv_cluster_fwd_kernel(const T* __restrict__ x,
   const int n_chunk = dm / L::CK;
   const int ldw = 3 * hd;
   float4 xr[L::kXLoads];
-  load_x<R, T>(xr, xb, r0, t, dm, 0);
-  stage_w<R, T>(stage + L::CK * L::RS, w_qkv, ldw, hd, head, 0);
+  load_x<R>(xr, xb, r0, t, dm, 0);
+  stage_w<R>(stage + L::CK * L::RS, w_qkv, ldw, hd, head, 0);
   cp_async_commit();
   store_x<R>(stage, xr);
   if (n_chunk > 1) {
-    load_x<R, T>(xr, xb, r0, t, dm, L::CK);
-    stage_w<R, T>(stage + L::kChunk + L::CK * L::RS, w_qkv, ldw, hd, head,
+    load_x<R>(xr, xb, r0, t, dm, L::CK);
+    stage_w<R>(stage + L::kChunk + L::CK * L::RS, w_qkv, ldw, hd, head,
                L::CK);
   }
   cp_async_commit();
@@ -572,8 +579,8 @@ qkv_cluster_fwd_kernel(const T* __restrict__ x,
     if (c + 1 < n_chunk) store_x<R>(stage + (c + 1) % 3 * L::kChunk, xr);
     if (c + 2 < n_chunk) {
       float* next = stage + (c + 2) % 3 * L::kChunk;
-      load_x<R, T>(xr, xb, r0, t, dm, (c + 2) * L::CK);
-      stage_w<R, T>(next + L::CK * L::RS, w_qkv, ldw, hd, head,
+      load_x<R>(xr, xb, r0, t, dm, (c + 2) * L::CK);
+      stage_w<R>(next + L::CK * L::RS, w_qkv, ldw, hd, head,
                  (c + 2) * L::CK);
     }
     cp_async_commit();
@@ -605,7 +612,7 @@ qkv_cluster_fwd_kernel(const T* __restrict__ x,
   const uint32_t hseed =
       DROP ? hash_rng::attn_head_seed(drop.seed, (uint32_t)(bi * n_head + head))
            : 0u;
-  const T* bias_row = bias ? bias + bi * bs_b + head * bs_h : nullptr;
+  const float* bias_row = bias ? bias + bi * bs_b + head * bs_h : nullptr;
   float m[TR], l[TR], o[TR][4];
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
@@ -633,9 +640,9 @@ qkv_cluster_fwd_kernel(const T* __restrict__ x,
       for (int j = 0; j < KW; ++j) {
         const int kpos = k0r + tx * KW + j;
         const bool hidden = kpos >= t || (causal && kpos > qpos);
-        sb[i][j] = hidden ? kMaskValue
-                   : bias_row ? to_f32(bias_row[min(qpos, t - 1) * bs_q +
-                                                kpos * bs_k])
+        sb[i][j] = hidden     ? kMaskValue
+                   : bias_row ? bias_row[min(qpos, t - 1) * bs_q +
+                                         kpos * bs_k]
                               : 0.f;
       }
     }
@@ -735,6 +742,418 @@ qkv_cluster_fwd_kernel(const T* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
+// cluster route in bf16 (amp), on tensor cores
+// ---------------------------------------------------------------------------
+
+// Shared-memory layout of qkv_cluster_tc_kernel<R>, in bf16 elements.  R /
+// 16 warps own 16 of the block's R rows each.  Kept from the projection
+// to the end: the block's k and v as hi/lo bf16 tiles (k_hi, k_lo, v_hi,
+// v_lo, [R][LD] each, stacked), which its peers read, and its q as hi/lo
+// tiles (each warp reads only its own rows).  The staging area holds the
+// projection's ring of three x / W chunks, then the copy of the key tile
+// being walked (its four tiles, as laid out above).  Rows are padded to
+// 72 (x: 40, W: 200) elements, so the 8 rows an ldmatrix reads fall in
+// distinct 16-byte bank groups.
+template <int R>
+struct ClusterTc {
+  static constexpr int NW = R / 16;          // warps
+  static constexpr int NT = 32 * NW;         // threads per block
+  static constexpr int LD = DH + 8;          // row stride of a q, k, v tile
+  static constexpr int CK = 32;              // depth of a projection chunk
+  static constexpr int XLD = CK + 8;         // row stride of x [R][CK]
+  static constexpr int WLD = 3 * DH + 8;     // row stride of W [CK][q|k|v]
+  static constexpr int kTile = R * LD;
+  static constexpr int kKV = 4 * kTile;      // k_hi, k_lo, v_hi, v_lo
+  static constexpr int kQ = kKV;             // then q_hi, q_lo
+  static constexpr int kStage = kQ + 2 * kTile;
+  static constexpr int kChunk = R * XLD + CK * WLD;
+  static constexpr int kStages = 3;
+  static constexpr int kStageElems =
+      kStages * kChunk > kKV ? kStages * kChunk : kKV;
+  static constexpr size_t kBytes =
+      (size_t)(kStage + kStageElems) * sizeof(bf16);
+  // 16-byte pieces of two of a key tile's four tiles a thread copies
+  static constexpr int kCopy = 2 * R * (DH / 8) / NT;
+};
+
+// Start the copy of projection chunk k0.. into st: x rows r0.. (zeros
+// past t) [R][CK] and rows k0.. of the head's three W slabs [CK][192].
+template <int R>
+__device__ __forceinline__ void stage_chunk_tc(bf16* st, const bf16* xb,
+                                               const bf16* w_qkv, int r0,
+                                               int t, int dm, int ldw,
+                                               int hd, int head, int k0) {
+  using L = ClusterTc<R>;
+#pragma unroll
+  for (int u = 0; u < R * (L::CK / 8) / L::NT; ++u) {
+    const int idx = threadIdx.x + u * L::NT;
+    const int row = idx / (L::CK / 8);
+    const int c8 = idx % (L::CK / 8) * 8;
+    const bool in = r0 + row < t;
+    tc::copy16(st + row * L::XLD + c8,
+               xb + (size_t)(in ? r0 + row : r0) * dm + k0 + c8,
+               in ? 16 : 0);
+  }
+  bf16* ws = st + R * L::XLD;
+#pragma unroll
+  for (int u = 0; u < L::CK * 3 * (DH / 8) / L::NT; ++u) {
+    const int idx = threadIdx.x + u * L::NT;
+    const int kk = idx / (3 * (DH / 8));
+    const int c = idx % (3 * (DH / 8));
+    const int slab = c / (DH / 8);
+    const int c8 = c % (DH / 8) * 8;
+    tc::copy16(ws + kk * L::WLD + slab * DH + c8,
+               w_qkv + (size_t)(k0 + kk) * ldw + slab * hd + head * DH + c8,
+               16);
+  }
+}
+
+// Issue this thread's loads of half `half` (0: k_hi, k_lo; 1: v_hi, v_lo)
+// of peer `rank`'s key tile.
+template <int R>
+__device__ __forceinline__ void load_peer_tc(
+    uint4 (&reg)[ClusterTc<R>::kCopy], cg::cluster_group& cluster,
+    bf16* kv_s, int rank, int half) {
+  using L = ClusterTc<R>;
+  const bf16* peer =
+      cluster.map_shared_rank(kv_s, rank) + half * 2 * L::kTile;
+#pragma unroll
+  for (int u = 0; u < L::kCopy; ++u) {
+    const int idx = threadIdx.x + u * L::NT;
+    reg[u] = *reinterpret_cast<const uint4*>(
+        peer + (idx / (DH / 8)) * L::LD + idx % (DH / 8) * 8);
+  }
+}
+
+// Store a loaded half into `buf`, laid out as the peer's tiles.
+template <int R>
+__device__ __forceinline__ void store_peer_tc(
+    bf16* buf, const uint4 (&reg)[ClusterTc<R>::kCopy], int half) {
+  using L = ClusterTc<R>;
+  buf += half * 2 * L::kTile;
+#pragma unroll
+  for (int u = 0; u < L::kCopy; ++u) {
+    const int idx = threadIdx.x + u * L::NT;
+    *reinterpret_cast<uint4*>(buf + (idx / (DH / 8)) * L::LD +
+                              idx % (DH / 8) * 8) = reg[u];
+  }
+}
+
+// Store an f32 D fragment pair (rows g, g + 8 of tile n) of a 16-row
+// block at rows wr.. as hi/lo bf16 tiles hi_s, lo_s (row stride ld).
+__device__ __forceinline__ void store_split(bf16* hi_s, bf16* lo_s, int ld,
+                                            int wr, int n,
+                                            const float (&d)[4], float mul) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int at = (wr + (lane >> 2) + 8 * r) * ld + 8 * n + 2 * (lane & 3);
+    uint32_t hi, lo;
+    tc::split(d[2 * r] * mul, d[2 * r + 1] * mul, hi, lo);
+    *reinterpret_cast<uint32_t*>(hi_s + at) = hi;
+    *reinterpret_cast<uint32_t*>(lo_s + at) = lo;
+  }
+}
+
+// #1's cluster route on bf16 tensors: grid (C, n_head, b), cluster (C, 1,
+// 1), C = ceil(t / R) <= 8, R / 16 warps.  The projection x W of the
+// block's rows, on tensor cores with exact bf16 products and f32 sums
+// (the reference's f32 projection of bf16 operands), leaves q (scaled),
+// k and v in f32 accumulator fragments; each is split into hi/lo bf16
+// tiles in shared memory (mma.cuh).  The walk is the f32 route's (the
+// cluster's key tiles in rank order, each copied from its block through
+// distributed shared memory into the staging area, in two halves: a
+// tile's v while its scores' k is still read, the next tile's k and v
+// while this one's products run), with s = q_lo k_hi + q_hi k_lo + q_hi
+// k_hi and p v = p_lo v_hi + p_hi v_lo + p_hi v_hi (p split on its
+// fragments, never in shared memory), each summed in f32; the softmax in
+// base 2 (scores times log2 e, ex2).
+//
+// Registers: q's fragments come from shared memory per step, and the
+// peer copy holds half a tile (kCopy uint4s), so that the walk, with o,
+// s and the bias pairs in registers, fits two blocks an SM without
+// spills: 240 registers and 106.5 KB of shared memory at R = 64 (a whole
+// tile's copy in registers and q's fragments kept spilled at 255).  MMA
+// work a block at R = 64: the projection 48 mma.sync a 32-deep chunk a
+// warp, the walk 96 + 96 a key tile a warp (3 each for s and p v).
+// Per-phase clocks on an H100 (chip_tc_phases.py, PERF.md): the
+// projection's MMAs take a third of a block, s a sixth, the peer copies
+// and their barriers an eighth.
+template <int R, bool DROP>
+__global__ void __launch_bounds__(ClusterTc<R>::NT, 2)
+qkv_cluster_tc_kernel(const bf16* __restrict__ x,
+                      const bf16* __restrict__ w_qkv,
+                      const bf16* __restrict__ bias, int64_t bs_b,
+                      int64_t bs_h, int64_t bs_q, int64_t bs_k, bf16* ctx,
+                      float* lse, int t, int dm, int n_head, float scale,
+                      int causal, Dropout drop) {
+  using L = ClusterTc<R>;
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  bf16* kv_s = reinterpret_cast<bf16*>(smem);  // k_hi, k_lo, v_hi, v_lo
+  bf16* q_s = kv_s + L::kQ;                    // q_hi, q_lo
+  bf16* stage = kv_s + L::kStage;
+
+  const int rank = (int)cluster.block_rank();
+  const int n_rank = (int)gridDim.x;
+  const int head = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first row
+  const int col = 2 * (lane & 3);         // the lane's first column
+  const int hd = n_head * DH;
+  const int ldw = 3 * hd;
+  const int r0 = rank * R;
+  const bf16* xb = x + (size_t)bi * t * dm;
+
+  // ---- project rows r0 + wr.. of q | k | v: 24 tiles of 8 columns ------
+  {
+    float pa[24][4];
+#pragma unroll
+    for (int n = 0; n < 24; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pa[n][e] = 0.f;
+    // chunk c in ring slot c % 3; a group is committed every chunk (empty
+    // past the last), so that wait<1> always means "chunk c landed"
+    const int n_chunk = dm / L::CK;
+#pragma unroll
+    for (int c = 0; c < L::kStages - 1; ++c) {
+      if (c < n_chunk)
+        stage_chunk_tc<R>(stage + c * L::kChunk, xb, w_qkv, r0, t, dm, ldw,
+                          hd, head, c * L::CK);
+      tc::commit();
+    }
+    for (int c = 0; c < n_chunk; ++c) {
+      tc::wait<L::kStages - 2>();
+      __syncthreads();  // chunk c has landed; slot (c + 2) % 3 is consumed
+      if (c + L::kStages - 1 < n_chunk)
+        stage_chunk_tc<R>(stage + (c + L::kStages - 1) % L::kStages *
+                                      L::kChunk,
+                          xb, w_qkv, r0, t, dm, ldw, hd, head,
+                          (c + L::kStages - 1) * L::CK);
+      tc::commit();
+      const bf16* xs = stage + c % L::kStages * L::kChunk;
+      const bf16* ws = xs + R * L::XLD;
+#pragma unroll
+      for (int ks = 0; ks < L::CK / 16; ++ks) {
+        uint32_t af[4];
+        tc::ldsm4(af, xs + tc::frag_offset(L::XLD, wr, 16 * ks));
+#pragma unroll
+        for (int jp = 0; jp < 12; ++jp) {
+          uint32_t bf[4];
+          tc::ldsm4_t(bf, ws + tc::frag_offset(L::WLD, 16 * ks, 16 * jp));
+          tc::mma(pa[2 * jp], af, bf[0], bf[1]);
+          tc::mma(pa[2 * jp + 1], af, bf[2], bf[3]);
+        }
+      }
+    }
+    // q (scaled, in base 2: the scores come out times log2 e), k and v as
+    // hi/lo tiles
+    const float q_mul = scale * tc::kLog2e;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      store_split(q_s, q_s + L::kTile, L::LD, wr, n, pa[n], q_mul);
+      store_split(kv_s, kv_s + L::kTile, L::LD, wr, n, pa[8 + n], 1.f);
+      store_split(kv_s + 2 * L::kTile, kv_s + 3 * L::kTile, L::LD, wr, n,
+                  pa[16 + n], 1.f);
+    }
+  }
+  cluster.sync();  // every block's k and v are ready; the ring is read
+
+  // ---- online-softmax walk over the cluster's key tiles ---------------
+  const uint32_t hseed =
+      DROP ? hash_rng::attn_head_seed(drop.seed, (uint32_t)(bi * n_head + head))
+           : 0u;
+  int qpos[2];  // the lane's rows: the warp's row g and g + 8
+  qpos[0] = r0 + wr + (lane >> 2);
+  qpos[1] = qpos[0] + 8;
+  const bf16* brow[2] = {nullptr, nullptr};
+  if (bias) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      brow[r] = bias + bi * bs_b + head * bs_h + min(qpos[r], t - 1) * bs_q;
+  }
+  // a bias pair (keys k, k + 1) is one 4-byte load where the base is
+  // 4-byte aligned, every offset of it is even and its rows are
+  // contiguous in k (a view may start at an odd element)
+  const bool bias_pairs = reinterpret_cast<uintptr_t>(bias) % 4 == 0 &&
+                          bs_k == 1 && t % 2 == 0 && bs_b % 2 == 0 &&
+                          bs_h % 2 == 0 && bs_q % 2 == 0;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float o[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  const int n_kv = causal ? rank + 1 : n_rank;
+  const bf16* kh_s = stage;  // the walked tile's copy
+  const bf16* kl_s = stage + L::kTile;
+  const bf16* vh_s = stage + 2 * L::kTile;
+  const bf16* vl_s = stage + 3 * L::kTile;
+  uint4 peer[L::kCopy];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    load_peer_tc<R>(peer, cluster, kv_s, 0, half);
+    store_peer_tc<R>(stage, peer, half);
+  }
+  __syncthreads();
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int k0r = kt * R;
+    const bool more = kt + 1 < n_kv;
+    if (more) load_peer_tc<R>(peer, cluster, kv_s, kt + 1, 0);
+    // this lane's bias pairs of the tile (keys 8n + col, + 1), loaded
+    // before the products
+    uint32_t sb[R / 8][2];
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int kpos = k0r + 8 * n + col;
+        sb[n][r] = 0u;
+        if (brow[r] && bias_pairs) {
+          if (kpos < t)
+            sb[n][r] = *reinterpret_cast<const uint32_t*>(brow[r] + kpos);
+        } else if (brow[r]) {
+          const uint16_t* b16 = reinterpret_cast<const uint16_t*>(brow[r]);
+          const uint32_t lo = kpos < t ? b16[kpos * bs_k] : 0u;
+          const uint32_t hi = kpos + 1 < t ? b16[(kpos + 1) * bs_k] : 0u;
+          sb[n][r] = lo | hi << 16;
+        }
+      }
+    // s = q k^T in base 2, over the head's 4 chunks of 16 columns
+    float s[R / 8][4];
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t qh[4], ql[4];
+      const int qa = tc::frag_offset(L::LD, wr, 16 * kc);
+      tc::ldsm4(qh, q_s + qa);
+      tc::ldsm4(ql, q_s + L::kTile + qa);
+#pragma unroll
+      for (int kg = 0; kg < R / 16; ++kg) {
+        uint32_t kh[4], kl[4];
+        const int at = tc::frag_offset_nk(L::LD, 16 * kg, 16 * kc);
+        tc::ldsm4(kh, kh_s + at);
+        tc::ldsm4(kl, kl_s + at);
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          tc::mma(s[2 * kg + h2], ql, kh[2 * h2], kh[2 * h2 + 1]);
+          tc::mma(s[2 * kg + h2], qh, kl[2 * h2], kl[2 * h2 + 1]);
+          tc::mma(s[2 * kg + h2], qh, kh[2 * h2], kh[2 * h2 + 1]);
+        }
+      }
+    }
+    // the bias (in base 2) and, where the tile holds an out-of-range or a
+    // causally hidden key, the masks; the rows' maxima over the quad
+    const bool edge = k0r + R > t || (causal && k0r + R - 1 > r0);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kpos = k0r + 8 * n + col + (e & 1);
+        const uint32_t b = sb[n][r] >> (16 * (e & 1)) << 16;
+        s[n][e] = fmaf(*reinterpret_cast<const float*>(&b), tc::kLog2e,
+                       s[n][e]);
+        if (edge && (kpos >= t || (causal && kpos > qpos[r])))
+          s[n][e] = kMaskValue;
+        mx[r] = fmaxf(mx[r], s[n][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = tc::ex2(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = tc::ex2(s[n][e] - m[e >> 1]);
+        rs[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      l[r] = l[r] * alpha[r] + rs[r];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+    if (DROP) {  // p v takes the dropped p; l summed the undropped
+#pragma unroll
+      for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!hash_rng::keep_attn(
+                  hseed,
+                  (uint32_t)qpos[e >> 1] * t + k0r + 8 * n + col + (e & 1),
+                  drop.threshold))
+            s[n][e] = 0.f;
+    }
+    if (more) {  // the next tile's k replaces this one's, read by now
+      __syncthreads();
+      store_peer_tc<R>(stage, peer, 0);
+      load_peer_tc<R>(peer, cluster, kv_s, kt + 1, 1);
+    }
+    // o += p v over the tile's k16 chunks
+#pragma unroll
+    for (int kk = 0; kk < R / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      tc::split_a(s[2 * kk], s[2 * kk + 1], ph, pl);
+#pragma unroll
+      for (int dg = 0; dg < 4; ++dg) {
+        uint32_t vh[4], vl[4];
+        const int at = tc::frag_offset(L::LD, 16 * kk, 16 * dg);
+        tc::ldsm4_t(vh, vh_s + at);
+        tc::ldsm4_t(vl, vl_s + at);
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          tc::mma(o[2 * dg + h2], pl, vh[2 * h2], vh[2 * h2 + 1]);
+          tc::mma(o[2 * dg + h2], ph, vl[2 * h2], vl[2 * h2 + 1]);
+          tc::mma(o[2 * dg + h2], ph, vh[2 * h2], vh[2 * h2 + 1]);
+        }
+      }
+    }
+    if (more) {  // ... and its v this one's
+      __syncthreads();
+      store_peer_tc<R>(stage, peer, 1);
+      __syncthreads();  // the next tile is whole
+    }
+  }
+
+  // ---- context (masked rows give 0) and lse ---------------------------
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // m is base 2: m * ln 2 the row's maximum score
+    const bool masked = (l[r] == 0.f) || (m[r] * tc::kLn2 <= -1e29f);
+    const float inv = masked ? 0.f
+                             : (DROP ? drop.inv_keep / l[r] : 1.f / l[r]);
+    if (qpos[r] >= t) continue;
+    bf16* dst = ctx + ((size_t)bi * t + qpos[r]) * hd + head * DH + col;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+          tc::pack(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    if ((lane & 3) == 0)
+      lse[((size_t)bi * n_head + head) * t + qpos[r]] =
+          masked ? INFINITY : m[r] * tc::kLn2 + logf(l[r]);
+  }
+  cluster.sync();  // no block leaves while a peer may still read its tiles
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -770,16 +1189,17 @@ cudaError_t launch_tiles(const FwdArgs<T>& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Launch configuration of the cluster kernel: grid (C, n_head, b), one
-// cluster of C blocks along x.  `attr` must outlive the returned config.
-template <int R>
+// Launch configuration of a cluster kernel of layout L (Cluster<R> or
+// ClusterTc<R>): grid (C, n_head, b), one cluster of C blocks along x.
+// `attr` must outlive the returned config.
+template <class L>
 cudaLaunchConfig_t cluster_config(int c, int n_head, int b,
                                   cudaLaunchAttribute* attr,
                                   cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(c, n_head, b);
-  cfg.blockDim = dim3(Cluster<R>::NT);
-  cfg.dynamicSmemBytes = Cluster<R>::kBytes;
+  cfg.blockDim = dim3(L::NT);
+  cfg.dynamicSmemBytes = L::kBytes;
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = c;
@@ -790,12 +1210,12 @@ cudaLaunchConfig_t cluster_config(int c, int n_head, int b,
   return cfg;
 }
 
-template <int R, bool DROP, class T = float>
+template <int R, bool DROP>
 cudaError_t configure_cluster() {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        qkv_cluster_fwd_kernel<R, DROP, T>,
+        qkv_cluster_fwd_kernel<R, DROP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)Cluster<R>::kBytes);
     if (err != cudaSuccess) return err;
@@ -804,17 +1224,33 @@ cudaError_t configure_cluster() {
   return cudaSuccess;
 }
 
+// The cluster route in f32 (qkv_cluster_fwd_kernel) or, on bf16 tensors,
+// on tensor cores (qkv_cluster_tc_kernel).
 template <int R, bool DROP, class T>
 cudaError_t launch_cluster(const FwdArgs<T>& a, int c, cudaStream_t stream) {
-  cudaError_t err = configure_cluster<R, DROP, T>();
-  if (err != cudaSuccess) return err;
+  cudaError_t err;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      cluster_config<R>(c, a.n_head, a.b, attr, stream);
-  err = cudaLaunchKernelEx(&cfg, qkv_cluster_fwd_kernel<R, DROP, T>, a.x,
-                           a.w_qkv, a.bias, a.bs_b, a.bs_h, a.bs_q, a.bs_k,
-                           a.ctx, a.lse, a.t, a.dm, a.n_head, a.scale,
-                           a.causal, a.drop);
+  if constexpr (std::is_same<T, bf16>::value) {
+    static bool configured = false;
+    err = allow_smem(qkv_cluster_tc_kernel<R, DROP>, ClusterTc<R>::kBytes,
+                     configured);
+    if (err != cudaSuccess) return err;
+    const cudaLaunchConfig_t cfg =
+        cluster_config<ClusterTc<R>>(c, a.n_head, a.b, attr, stream);
+    err = cudaLaunchKernelEx(&cfg, qkv_cluster_tc_kernel<R, DROP>, a.x,
+                             a.w_qkv, a.bias, a.bs_b, a.bs_h, a.bs_q,
+                             a.bs_k, a.ctx, a.lse, a.t, a.dm, a.n_head,
+                             a.scale, a.causal, a.drop);
+  } else {
+    err = configure_cluster<R, DROP>();
+    if (err != cudaSuccess) return err;
+    const cudaLaunchConfig_t cfg =
+        cluster_config<Cluster<R>>(c, a.n_head, a.b, attr, stream);
+    err = cudaLaunchKernelEx(&cfg, qkv_cluster_fwd_kernel<R, DROP>, a.x,
+                             a.w_qkv, a.bias, a.bs_b, a.bs_h, a.bs_q,
+                             a.bs_k, a.ctx, a.lse, a.t, a.dm, a.n_head,
+                             a.scale, a.causal, a.drop);
+  }
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -875,15 +1311,27 @@ extern "C" int ptt_qkv_cluster_occupancy(int r, int c) {
   cudaLaunchAttribute attr[1];
   int clusters = 0;
   if (r == 32) {
-    const cudaLaunchConfig_t cfg = cluster_config<32>(c, 1, 1, attr, 0);
+    const cudaLaunchConfig_t cfg =
+        cluster_config<Cluster<32>>(c, 1, 1, attr, 0);
     err = cudaOccupancyMaxActiveClusters(
         &clusters, qkv_cluster_fwd_kernel<32, false>, &cfg);
   } else {
-    const cudaLaunchConfig_t cfg = cluster_config<64>(c, 1, 1, attr, 0);
+    const cudaLaunchConfig_t cfg =
+        cluster_config<Cluster<64>>(c, 1, 1, attr, 0);
     err = cudaOccupancyMaxActiveClusters(
         &clusters, qkv_cluster_fwd_kernel<64, false>, &cfg);
   }
   return err != cudaSuccess ? -(int)err : clusters;
+}
+
+// Dynamic shared memory of a cluster-route block in bytes: R rows (32 or
+// 64), f32 (qkv_cluster_fwd_kernel) or bf16 (qkv_cluster_tc_kernel); 0
+// for another R.
+extern "C" int64_t ptt_qkv_cluster_smem(int r, int bf16_tc) {
+  if (r != 32 && r != 64) return 0;
+  if (bf16_tc)
+    return (int64_t)(r == 32 ? ClusterTc<32>::kBytes : ClusterTc<64>::kBytes);
+  return (int64_t)(r == 32 ? Cluster<32>::kBytes : Cluster<64>::kBytes);
 }
 
 // bias may be null; otherwise its element (b, h, q, k) lies at

@@ -121,6 +121,7 @@ _SIGNATURES = {
     "ptt_gemm_partials": (_L, [_I] * 4),
     "ptt_gemm_slab": (_I, [_I] * 4),
     "ptt_gemm_smem": (_L, []),
+    "ptt_gemm_tc_smem": (_L, []),
     "ptt_gemm": (_I, [_P, _I, _I, _P, _I, _I, _P] + [_I] * 4
                  + [_P, _I, _I, _P]),
     "ptt_qkv_fwd_scratch": (_L, [_I] * 5),
@@ -128,6 +129,7 @@ _SIGNATURES = {
         _I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 6 + [_F, _I] + _DROP
         + [_P]),
     "ptt_qkv_cluster_occupancy": (_I, [_I, _I]),
+    "ptt_qkv_cluster_smem": (_L, [_I, _I]),
     "ptt_qkv_bwd_scratch": (_L, [_I] * 6),
     "ptt_qkv_bwd": (_I, [_I] + [_P] * 4 + [_L] * 4 + [_P] * 7 + [_I] * 5
                     + [_F, _I] + _DROP + [_P]),

@@ -43,10 +43,13 @@ bf16 (amp): #1, the pair #2 + #3 and the bthd kernels #4, #6, #7 have bf16
 instantiations (entry points ``ptt_*_bf16``, counted under the kernel's
 name + "_bf16").  Their tensors are bf16 (x, the weights, the bias, y,
 ctx, dx, the dW in the fused kernels; q, k, v, the bias, o, dO, dq, dk, dv
-in the bthd ones), lse and delta f32, and all arithmetic f32, as the
-reference's kernels compute on bf16 operands; the twins do the same (the
-projections of bf16 operands in f32, #1's ctx rounded to bf16 before the
-y product).  The bhtd kernels (#5, #8, #9) are f32 only.
+in the bthd ones), lse and delta f32.  The reference computes on the
+bf16 operands in f32, and so do the twins (the projections of bf16
+operands in f32, #1's ctx rounded to bf16 before the y product) and the
+pair's and #6's, #7's kernels.  #4 and #1 (its y too) run on tensor
+cores: exact bf16 products summed in f32, the f32 intermediates (p; #1's
+q, k, v and p) split into hi/lo bf16 pairs (``csrc/mma.cuh``).  The bhtd
+kernels (#5, #8, #9) are f32 only.
 """
 
 from __future__ import annotations

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.kernels import attention as jax_attention
 from paddle_tpu_torch.kernels import attention as ka
+from paddle_tpu_torch.kernels import hash_rng
 
 #: f32 on both sides; the packages sum in different orders
 TOL = 1e-5
@@ -406,3 +407,96 @@ def test_bf16_matches_jax_kernels(name, tq, tk, bias_kind, causal):
     for leaf, want in zip(leaves, (dq, dk, dv)):
         assert leaf.grad.dtype == torch.bfloat16
         _close_bf16(leaf.grad.float(), f32(want))
+
+
+# ---------------------------------------------------------------------------
+# #4 in bf16 on tensor cores (csrc/flash_tc.cuh): its numerics, emulated
+# ---------------------------------------------------------------------------
+
+
+def _split(a):
+    """(hi, lo) = (bf16(a), bf16(a - hi)) of an f32 tensor, as f32 values:
+    the tensor-core kernels' split of an f32 operand (csrc/mma.cuh)."""
+    hi = a.bfloat16().float()
+    return hi, (a - hi).bfloat16().float()
+
+
+def _tc_flash_forward(q, k, v, bias, scale, causal, rate=0.0, seed=0,
+                      tile=64):
+    """#4's arithmetic on the card, in PyTorch: s = q k^T of the bf16
+    operands (exact products, f32 sums), scaled and biased in f32; the
+    online softmax over 64-key tiles in f32 (l over the undropped p); each
+    tile's p, dropped, split into hi/lo bf16s and p v = p_hi v + p_lo v
+    summed in f32; o = acc / l rounded to bf16 once.  q, k, v [b, t, h,
+    d] bf16; returns (o bf16, lse f32 [b, h, tq])."""
+    qh, kh, vh = (a.float().transpose(1, 2) for a in (q, k, v))
+    s = (qh @ kh.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    tq, tk = s.shape[-2:]
+    if causal:
+        s = s.masked_fill(~ka._causal_keep(tq, tk, s.device), ka.MASK_VALUE)
+    keep = hash_rng.keep_mask_attn(seed, s.shape, rate) if rate else None
+    m = torch.full(s.shape[:-1] + (1,), -np.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (vh.shape[-1],))
+    for k0 in range(0, tk, tile):
+        st = s[..., k0:k0 + tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if keep is not None:
+            p = torch.where(keep[..., k0:k0 + tile], p, 0.0)
+        p_hi, p_lo = _split(p)
+        vt = vh[..., k0:k0 + tile, :]
+        acc = acc * alpha + p_hi @ vt + p_lo @ vt
+        m = m_new
+    masked = (l == 0) | (m <= -1e29)
+    o = (acc * ((1.0 / (1.0 - rate) if rate else 1.0) / l)).masked_fill(
+        masked, 0.0)
+    lse = (m + torch.log(l)).masked_fill(masked, np.inf)[..., 0]
+    return o.transpose(1, 2).bfloat16(), lse
+
+
+def test_hi_lo_split_rebuilds_f32_to_2_pow_minus_16():
+    """hi + lo is the f32 value to 2^-16 of its magnitude, over values of
+    magnitudes 2^-60..2^60 (|lo| <= 2^-8 |a|, itself rounded to 8
+    significant bits); a bf16 value splits into itself and 0."""
+    rng = np.random.RandomState(0)
+    a = torch.from_numpy((rng.randn(1 << 16) * 2.0 ** rng.randint(
+        -60, 60, 1 << 16)).astype(np.float32))
+    hi, lo = _split(a)
+    assert ((hi + lo - a).abs() <= 2.0 ** -16 * a.abs()).all()
+    assert ((hi - a).abs() > 2.0 ** -16 * a.abs()).any()
+    b = a.bfloat16().float()
+    assert torch.equal(_split(b)[0], b) and not _split(b)[1].any()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("name,tq,tk,bias_kind,causal", BF16_CASES)
+def test_tensor_core_numerics_match_jax_kernel(name, tq, tk, bias_kind,
+                                               causal, rate):
+    """The emulated arithmetic of #4's tensor-core kernel (exact bf16
+    products for s, p split into hi/lo for p v) against _flash_forward in
+    interpret mode on the same bf16 operands and hash mask: o within
+    _close_bf16, lse within 1e-5, the same masked rows."""
+    arrays = _inputs(tq, tk, bias_kind, seed=6)
+    tq_, tk_, tv, _, tb = (None if a is None else
+                           torch.from_numpy(a).bfloat16() for a in arrays)
+    jq, jk, jv, _, jb = (None if a is None else
+                         jnp.asarray(a).astype(jnp.bfloat16) for a in arrays)
+    seed = 0x2545F491
+    ok, bq, bk, _ = jax_attention._plan(jq, jk, 512, 512, True, "bthd")
+    assert ok
+    out, lse = jax_attention._flash_forward(
+        jq, jk, jv, jb, jnp.asarray([seed], jnp.uint32), SCALE, causal, bq,
+        bk, True, "bthd", dropout_rate=rate)
+    got_o, got_lse = _tc_flash_forward(tq_, tk_, tv, tb, SCALE, causal,
+                                       rate, seed)
+    want_lse = np.asarray(lse)
+    live = ~np.isinf(want_lse)
+    assert np.array_equal(np.isinf(got_lse.numpy()), ~live)
+    np.testing.assert_allclose(got_lse.numpy()[live], want_lse[live],
+                               rtol=1e-5, atol=1e-5)
+    _close_bf16(got_o.float(), np.asarray(out.astype(jnp.float32)))

@@ -20,6 +20,8 @@ import jax.numpy as jnp
 
 from paddle_tpu.kernels import attention as jax_attention
 from paddle_tpu_torch.kernels import attention as ka
+from paddle_tpu_torch.kernels import hash_rng
+from test_torch_flash_attention import _split
 
 #: the reference's own tolerance for its fused kernels against the
 #: composed path (tests/test_fused_qkv_attention.py): f32, other orders
@@ -633,3 +635,95 @@ def test_bf16_autograd_matches_jax_vjp():
     for leaf, w, steps in zip(leaves, want_grads, (2, 1, 1)):
         assert leaf.grad.dtype == torch.bfloat16
         _close_bf16(leaf.grad.float(), f32(w), steps)
+
+
+# ---------------------------------------------------------------------------
+# #1 in bf16 on tensor cores (csrc/qkv_attention.cu qkv_cluster_tc_kernel,
+# csrc/gemm.cuh gemm_tc): its numerics, emulated
+# ---------------------------------------------------------------------------
+
+
+def _tc_qkv_forward(x, w_qkv, w_out, bias, n_head, scale, causal, rate,
+                    seed, rows):
+    """#1's arithmetic on the card, in PyTorch: the projections of the
+    bf16 x and W (exact products, f32 sums); q * scale, k and v split
+    into hi/lo bf16s; s = q_lo k_hi + q_hi k_lo + q_hi k_hi, plus the
+    bias; the online softmax over key tiles of ``rows`` (the plan's R) in
+    f32 (l over the undropped p); each tile's p, dropped, split, and p v =
+    p_lo v_hi + p_hi v_lo + p_hi v_hi; ctx = acc / l rounded to bf16; y =
+    ctx W_out (exact products, f32 sums) rounded to bf16.  Returns (y, ctx
+    [b, t, h, dh], lse [b, h, t])."""
+    b, t, _ = x.shape
+    hd = w_qkv.shape[1] // 3
+    q, k, v = (a.reshape(b, t, n_head, hd // n_head).transpose(1, 2)
+               for a in (x.float() @ w_qkv.float()).split(hd, -1))
+    (qh, ql), (kh, kl), (vh, vl) = _split(q * scale), _split(k), _split(v)
+    s = (ql @ kh.transpose(-1, -2) + qh @ kl.transpose(-1, -2)
+         + qh @ kh.transpose(-1, -2))
+    if bias is not None:
+        s = s + bias.float()
+    if causal:
+        s = s.masked_fill(~ka._causal_keep(t, t, s.device), ka.MASK_VALUE)
+    keep = hash_rng.keep_mask_attn(seed, s.shape, rate) if rate else None
+    m = torch.full(s.shape[:-1] + (1,), -np.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (vh.shape[-1],))
+    for k0 in range(0, t, rows):
+        st = s[..., k0:k0 + rows]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if keep is not None:
+            p = torch.where(keep[..., k0:k0 + rows], p, 0.0)
+        p_hi, p_lo = _split(p)
+        tile = slice(k0, k0 + rows)
+        acc = (acc * alpha + p_lo @ vh[..., tile, :] + p_hi @ vl[..., tile, :]
+               + p_hi @ vh[..., tile, :])
+        m = m_new
+    masked = (l == 0) | (m <= -1e29)
+    ctx = (acc * ((1.0 / (1.0 - rate) if rate else 1.0) / l)).masked_fill(
+        masked, 0.0).transpose(1, 2).bfloat16()
+    lse = (m + torch.log(l)).masked_fill(masked, np.inf)[..., 0]
+    y = ctx.float().reshape(b, t, hd) @ w_out.float()
+    return y.bfloat16(), ctx, lse
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("name,n_head,t,bias_kind,causal", BF16_CASES)
+def test_tensor_core_numerics_match_jax_kernel(name, n_head, t, bias_kind,
+                                               causal, rate):
+    """The emulated arithmetic of #1's tensor-core kernels (exact bf16
+    products for the projections and y; q, k, v and p split into hi/lo
+    for the three-term s and p v), key tiles of the plan's R, against
+    _qkv_forward in interpret mode on the same bf16 operands and hash
+    mask: y and ctx within _close_bf16, lse within 1e-5, the same masked
+    rows."""
+    x, w_qkv, w_out, _, bias = _inputs(n_head, t, bias_kind, seed=3)
+    (tx, jx), (tw, jw), (to, jo), (tb, jb) = _bf16(x, w_qkv, w_out, bias)
+    seed = 0x2545F491
+    ok, bq, bk, _ = jax_attention._qkv_plan(jx, n_head, DH, 512, 512, True,
+                                            bias=jb)
+    assert ok
+    y, ctx, lse = jax_attention._qkv_forward(
+        jx, jax_attention._prep_w_qkv(jw, n_head, DH),
+        jax_attention._prep_w_out(jo, n_head, DH), jb,
+        jnp.asarray([seed], jnp.uint32), SCALE, causal, n_head, DH, bq, bk,
+        True, rate, False)
+    plan = ka.qkv_fwd_plan(B, t, n_head, 132)
+    assert plan[0] == "cluster"
+    qkv = tx.float() @ tw.float()  # the f32 projections the kernel splits
+    hi, lo = _split(qkv)
+    assert ((hi + lo - qkv).abs() <= 2.0 ** -16 * qkv.abs()).all()
+    got_y, got_ctx, got_lse = _tc_qkv_forward(
+        tx, tw, to, tb, n_head, SCALE, causal, rate, seed, plan[2])
+
+    def f32(a):
+        return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+    want_lse = f32(lse)
+    live = ~np.isinf(want_lse)
+    assert np.array_equal(np.isinf(got_lse.numpy()), ~live)
+    _close(got_lse.numpy()[live], want_lse[live], 1e-5, 1e-5)
+    _close_bf16(got_ctx.float().transpose(1, 2), f32(ctx))
+    _close_bf16(got_y.float(), f32(y))

@@ -76,23 +76,28 @@ Phases, each fatal on failure:
    timed beside masked ``F.scaled_dot_product_attention`` or
    ``F.multi_head_attention_forward`` in bf16; their bounds count 2
    bytes an element and the dense bf16 tensor-core rate (989 TFLOP/s).
-   ``check_gemm`` also holds ``gemm.cuh`` at the amp step's element
-   types (bf16 x bf16 -> f32 and -> bf16, f32 x bf16 and bf16 x f32 ->
-   bf16) beside ``torch.matmul`` in bf16.  #4 and #1 in bf16 (with #1's
-   y tile) run on tensor cores: phase 1 requires HMMA/HGMMA instructions
-   in each of their kernels' SASS (``sass_mma``, ``cuobjdump -sass``) and
+   ``check_gemm`` also holds ``gemm.cuh``'s tensor-core tile at the amp
+   step's six products (the pair's five and #1's y; an f32 operand as
+   hi/lo bf16 planes) beside ``torch.matmul`` in bf16.  #4, #1 (with its
+   y tile) and the pair #2 + #3 (its two walks and its five GEMMs) run
+   on tensor cores in bf16: phase 1 requires HMMA/HGMMA instructions in
+   each of their kernels' SASS (``sass_mma``, ``cuobjdump -sass``) and
    records their registers, spills and shared memory (``walk_builds``);
-   their records carry their device-only times and the library call's.
-   At the record case at most TOL_OFF_ROUNDING of #4's o and #1's ctx may
-   differ from the float64 twin's value rounded to bf16 (a kernel that
-   rounded p to one bf16 would pass ``compare_bf16`` and fail this), and
+   their records carry their device-only times and the library call's,
+   the pair's also its profile split between GEMM stages and walks
+   beside ``torch.matmul`` on its five products.  At the record case at
+   most TOL_OFF_ROUNDING of #4's o, #1's ctx and the pair's dx, dW_qkv
+   and dW_out may differ from the float64 twin's value rounded to bf16
+   (a kernel that rounded p to one bf16 would pass ``compare_bf16`` and
+   fail this); the row masked in the forward gets dx_q = 0 from #2; and
    a bias copy at an odd element (not 4-byte aligned) must give the
    aligned bias's bits.  With ``--parent ROOT``
    (another checkout, e.g. the parent commit unpacked by ``git
    archive``), its attention, GEMM and dropout kernels are built beside
    this tree's: phase 1 compares the registers of every f32
-   instantiation, phase 2 times the parent's #4, #1 and y on the same
-   inputs beside the redesigned ones and holds every kernel this tree
+   instantiation, phase 2 times the parent's #4, #1 and the pair on the
+   same inputs beside the redesigned ones (the pair's outputs' share off
+   the rounded float64 value too) and holds every kernel this tree
    keeps to the parent's bits (``check_parent_bits``), and phase 4
    profiles the amp step on the parent's kernels too.  The conv +
    batch-norm kernels (#18-#21) are checked at ResNet-50's shapes
@@ -1591,10 +1596,11 @@ def check_gemm(gen):
         a = (randn(gen, k, m, scale=k ** -0.5).t() if a_t
              else randn(gen, m, k, scale=k ** -0.5))
         b = randn(gen, n, k).t() if b_t else randn(gen, k, n)
-        a = a.bfloat16() if a_bf else a
-        b = b.bfloat16() if b_bf else b
         a, b = (a.t().contiguous().t() if t_ else a.contiguous()
                 for a, t_ in ((a, a_t), (b, b_t)))
+        # bf16, or an f32 operand as the hi/lo planes the pair holds
+        a = a.bfloat16() if a_bf else kg.hi_lo(a)
+        b = b.bfloat16() if b_bf else kg.hi_lo(b)
         c_dtype = torch.bfloat16 if c_bf else torch.float32
         got = kg.gemm(a, b, split, c_dtype)
         again = kg.gemm(a, b, split, c_dtype)
@@ -1604,27 +1610,29 @@ def check_gemm(gen):
                 f"gemm {name}: dtype or repeat differs")
         err = (compare_bf16(f"gemm {name}", got, want) if c_bf
                else compare(f"gemm {name}", got, want, TOL_KERNEL))
-        la, lb = a.bfloat16(), b.bfloat16()
+        la, lb = (x.hi if isinstance(x, kg.HiLo) else x for x in (a, b))
         flops = 2 * m * n * k
-        nbytes = (a.element_size() * m * k + b.element_size() * k * n
+        # an operand's bytes as the product reads them (hi/lo planes: 4)
+        nbytes = ((2 if a_bf else 4) * m * k + (2 if b_bf else 4) * k * n
                   + got.element_size() * m * n)
         rec = timed_record(
             "gemm", "paddle_tpu_torch/csrc/gemm.cuh",
-            "none: #1's y (the tensor-core tile, bf16 x bf16 -> bf16) and "
-            "#2 + #3's products in bf16 (amp)", err,
+            "none: the tensor-core tile of #1's y and #2 + #3's five "
+            "products in bf16 (amp)", err,
             lambda: kg.gemm(a, b, split, c_dtype),
             lambda: kg.reference_gemm(a, b, c_dtype), flops, nbytes,
             lambda: torch.matmul(la, lb), m, bound_fn=bound_bf16)
-        if c_bf and a_bf and b_bf and not a_t and not b_t:
-            # #1's y on the tensor-core tile: the parent's f32-arithmetic
-            # tile on the same operands
-            tensor_core_times(rec, lambda: kg.gemm(a, b, split, c_dtype))
-            rec["device_tflops"] = flops / rec["device_ms"] / 1e9
-            if rec["parent_ms"] is not None:
-                rec["parent_device_tflops"] = (
-                    flops / rec["parent_device_ms"] / 1e9)
+        rec["device_ms"] = cuda_ms(lambda: kg.gemm(a, b, split, c_dtype),
+                                   hide_host=True)
+        rec["library_device_ms"] = cuda_ms(lambda: torch.matmul(la, lb),
+                                           hide_host=True)
         rec.update(case=name, m=m, n=n, k=k, a_kmajor=a_t, b_kmajor=not b_t,
-                   dtypes=[str(t.dtype)[6:] for t in (a, b, got)],
+                   dtypes=["bf16" if bf else "f32 (hi/lo bf16 planes)"
+                           for bf in (a_bf, b_bf)] + [str(got.dtype)[6:]],
+                   mma_flops=flops * (1 if a_bf and b_bf else 2),
+                   device_tflops=flops / rec["device_ms"] / 1e9,
+                   matmul_device_tflops=flops / rec["library_device_ms"]
+                   / 1e9,
                    tflops=flops / rec["ms"] / 1e9,
                    bf16_peak_share=flops / rec["ms"] / 1e9
                    / PEAK_BF16_FLOPS * 1e12,
@@ -1643,18 +1651,23 @@ def check_gemm(gen):
 GEMM_CASES = (("dx = dqkv w_qkv^T", 8192, 512, 1536, False, True, False),
               ("dW_qkv = x^T dqkv", 512, 1536, 8192, True, False, True),
               ("q|k|v = x w_qkv", 8192, 1536, 512, False, False, False))
-#: the amp step's products on gemm.cuh's tile in the element types of the
-#: bf16 kernels (amp): (name, M, N, K, a transposed, b transposed, split,
-#: a bf16, b bf16, c bf16), each held against ``reference_gemm`` (f32
-#: arithmetic on the same operands) and timed beside ``torch.matmul`` of
-#: the operands in bf16
+#: the amp step's products on gemm.cuh's tensor-core tile in the element
+#: types of the bf16 kernels (amp), the pair's five and #1's y: (name, M,
+#: N, K, a transposed, b transposed, split, a bf16, b bf16, c bf16), an
+#: f32 operand as hi/lo bf16 planes (``kernels.gemm.hi_lo``), each held
+#: against ``reference_gemm`` (f32 arithmetic on the same operands) and
+#: timed beside ``torch.matmul`` of the operands in bf16 (the planes' hi)
 GEMM_AMP_CASES = (
     ("bf16 q|k|v = x w_qkv (bf16 x bf16 -> f32)", 8192, 1536, 512, False,
      False, False, True, True, False),
+    ("bf16 dctx = g w_out^T (bf16 x bf16 -> f32)", 8192, 512, 512, False,
+     True, False, True, True, False),
     ("bf16 dx = dqkv w_qkv^T (f32 x bf16 -> bf16)", 8192, 512, 1536, False,
      True, False, False, True, True),
     ("bf16 dW_qkv = x^T dqkv (bf16 x f32 -> bf16)", 512, 1536, 8192, True,
      False, True, True, False, True),
+    ("bf16 dW_out = ctx^T g (bf16 x bf16 -> bf16)", 512, 512, 8192, True,
+     False, True, True, True, True),
     ("bf16 y = ctx W_out (bf16 x bf16 -> bf16)", 8192, 512, 512, False,
      False, True, True, True, True))
 #: the pair's dW_qkv at BERT-base (b 128, t 128, d_model 768, 12 heads),
@@ -2246,6 +2259,13 @@ def check_qkv_bf16(gen):
                     compare_bf16(f"{kernel} {what} part {i}", a, w)
                     for i, (a, w) in enumerate(zip(got_b,
                                                    twin(*bw, **kw)))))
+                if kernel == "qkv_bwd_dq" and bias_kind == "masked":
+                    # the row masked in the forward (lse = +inf) gets dq
+                    # = 0, so its dx_q = dq W_q^T is exactly 0
+                    require(torch.isinf(lse[-1, :, t - 5]).all().item()
+                            and not got_b[0][-1, t - 5].any().item(),
+                            f"{kernel} {what}: the masked row's dx_q is "
+                            "not 0")
                 del got_b
             bws[rate] = (bw, kw)
         if case != QKV_RECORD_CASE:
@@ -2255,6 +2275,7 @@ def check_qkv_bf16(gen):
                            ka.qkv_attention_fwd(*fw, **kw)[1],
                            ka.reference_qkv_fwd(*(a.double() for a in fw),
                                                 **kw)[1])
+        pair_off = _pair_off_rounding(bw, kw)
         _, lib_fwd, lib_bwd = _library_mha(x, w_qkv, w_out, bias, g, h,
                                            causal)
         pairs = _visible_pairs(t, t, causal)
@@ -2292,18 +2313,27 @@ def check_qkv_bf16(gen):
                        dropout_ms=cuda_ms(lambda: fn(*args_d, **kw_d)),
                        dropout_bound_ms=bound_bf16(flops, nbytes,
                                                    hashes)[0])
+            if name in ("qkv_attention_fwd", "qkv_bwd"):
+                # the parent's kernels (#1: tensor cores; the pair: the
+                # CUDA cores), same inputs
+                tensor_core_times(rec, lambda: fn(*args, **kw),
+                                  lambda: fn(*args_d, **kw_d), lib)
             if name == "qkv_attention_fwd":
                 rec["plan"] = list(ka.qkv_fwd_plan(b, t, h,
                                                    ka.sm_count(x.device)))
-                # the parent's kernels (CUDA cores), same inputs
-                tensor_core_times(rec, lambda: fn(*args, **kw),
-                                  lambda: fn(*args_d, **kw_d), lib)
                 rec["off_rounding_share"] = off
+            elif name == "qkv_bwd":
+                rec["off_rounding_share"] = pair_off
+                rec["stages"] = _pair_stages(lambda: fn(*args, **kw), b, t,
+                                             dm, hd)
             out[name + "_bf16"] = rec
         for name in ("qkv_bwd_dq_bf16", "qkv_bwd_dkv_bf16"):
             out[name]["pair"] = {k: out["qkv_bwd_bf16"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "max_abs_err", "dropout_ms", "dropout_bound_ms")}
+                "max_abs_err", "dropout_ms", "dropout_bound_ms",
+                "device_ms", "parent_ms", "parent_device_ms",
+                "dropout_device_ms", "parent_dropout_ms",
+                "library_device_ms", "off_rounding_share", "stages")}
         del lib_fwd, lib_bwd
     out.pop("qkv_bwd_bf16")
     # #1 in bf16 on every route of the plan (QKV_PLAN_CASES: clusters of
@@ -2340,6 +2370,71 @@ def check_qkv_bf16(gen):
                                                    **kw),
             bias, dict(n_head=h, scale=dh ** -0.5, causal=False))
     return out
+
+
+def _pair_off_rounding(bw, kw):
+    """The share of the bf16 pair's dx, dW_qkv and dW_out (walks 3) off
+    the float64 twin's value rounded to bf16, for this tree's kernels and
+    (with ``--parent``) the parent's: {"tree": [3], "parent": [3] or
+    None}; each of the tree's at most TOL_OFF_ROUNDING (compare_bf16
+    cannot tell whether an f32 intermediate keeps its hi/lo split)."""
+    from paddle_tpu_torch.kernels import attention as ka
+
+    exact = ka.reference_qkv_bwd(*(None if a is None else a.double()
+                                   for a in bw), **kw)
+    names = ("dx", "dW_qkv", "dW_out")
+    tree = [off_rounding(f"qkv_bwd bf16 {n}", a, e) for n, a, e in zip(
+        names, ka.qkv_bwd(*bw, **kw), exact)]
+    parent = None
+    if parent_lib() is not None:
+        with kernel_library(parent_lib()):
+            got = ka.qkv_bwd(*bw, **kw)
+            torch.cuda.synchronize()
+        parent = [(a != e.to(a.dtype)).double().mean().item()
+                  for a, e in zip(got, exact)]
+    return dict(tree=tree, parent=parent)
+
+
+#: the pair's five products at a shape (b t rows, d_model dm, h 64 = hd):
+#: (name, M, N, K, a transposed, b transposed), as ``torch.matmul`` takes
+#: them in bf16
+def _pair_products(bt, dm, hd):
+    return (("q|k|v = x W_qkv", bt, 3 * hd, dm, False, False),
+            ("dctx = g W_out^T", bt, hd, dm, False, True),
+            ("dx = dqkv W_qkv^T", bt, dm, 3 * hd, False, True),
+            ("dW_qkv = x^T dqkv", dm, 3 * hd, bt, True, False),
+            ("dW_out = ctx^T g", hd, dm, bt, True, False))
+
+
+def _pair_stages(fn, b, t, dm, hd):
+    """Where one bf16 pair call's device time goes (``torch.profiler``,
+    the median of 5 calls): its GEMM stages (the tile, split-K sums
+    included) and its two walks, beside ``torch.matmul`` in bf16 on the
+    pair's five products (device time, each timed alone after an L2
+    flush)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    gemm, walks, other = [], [], []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = _device_kernels(prof)
+        gemm.append(_gemm_cuh_us(rows) / 1e3)
+        walks.append(_walks_us(rows) / 1e3)
+        other.append(sum(us for _, us in rows) / 1e3 - gemm[-1] - walks[-1])
+    gen = torch.Generator().manual_seed(5)
+    matmul = {}
+    for name, m, n, k, a_t, b_t in _pair_products(b * t, dm, hd):
+        a = (randn(gen, k, m).t() if a_t else randn(gen, m, k)).bfloat16()
+        w = (randn(gen, n, k).t() if b_t else randn(gen, k, n)).bfloat16()
+        matmul[name] = cuda_ms(lambda: torch.matmul(a, w), hide_host=True)
+    return dict(gemm_ms=float(np.median(gemm)),
+                walks_ms=float(np.median(walks)),
+                other_ms=float(np.median(other)),
+                matmul_ms=matmul, matmul_sum_ms=sum(matmul.values()))
 
 
 def check_dropout_add_bf16(gen):
@@ -2397,25 +2492,32 @@ def check_dropout_add_bf16(gen):
 # ---------------------------------------------------------------------------
 
 #: the tensor-core kernels (fragments of their mangled names) and the
-#: source whose object ``sass_mma`` reads for each
-TC_KERNELS = {"flash_fwd_tc_kernel": "flash_attention.cu",
-              "qkv_cluster_tc_kernel": "qkv_attention.cu",
-              "gemm_tc_kernel": "qkv_attention.cu"}
+#: source whose object ``sass_mma`` reads for each: #4, #1's cluster route
+#: and its y tile, the pair's walks and its GEMM stages (the tile in the
+#: pair's five layouts), and the tile as gemm.cu exports it
+TC_KERNELS = (("flash_fwd_tc_kernel", "flash_attention.cu"),
+              ("qkv_cluster_tc_kernel", "qkv_attention.cu"),
+              ("gemm_tc_kernel", "qkv_attention.cu"),
+              ("bwd_dq_tc_kernel", "qkv_attention_bwd.cu"),
+              ("bwd_dkv_tc_kernel", "qkv_attention_bwd.cu"),
+              ("gemm_tc_kernel", "qkv_attention_bwd.cu"),
+              ("gemm_tc_kernel", "gemm.cu"))
 
 
 def sass_mma(build):
-    """{function: MMA instructions} of every instantiation of TC_KERNELS in
-    the built object of its source (``cuobjdump -sass``): lines of HMMA
-    (mma.sync) or HGMMA (wgmma).  ``build`` is the ``_build`` module.
-    Raises if a kernel has no instantiation, or one without an MMA
-    instruction: a "tensor-core" kernel that compiled to FMAs fails the
-    run."""
+    """{"source: function": MMA instructions} of every instantiation of
+    TC_KERNELS in the built object of its source (``cuobjdump -sass``):
+    lines of HMMA (mma.sync) or HGMMA (wgmma).  ``build`` is the
+    ``_build`` module.  Raises if a kernel has no instantiation in its
+    source, or one without an MMA instruction: a "tensor-core" kernel that
+    compiled to FMAs fails the run."""
     import re
 
     obj_dir = os.path.join(build.BUILD_DIR, f"obj-{build._digest()}")
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     counts = {}
-    for src in sorted(set(TC_KERNELS.values())):
+    for src in sorted({s for _, s in TC_KERNELS}):
+        kernels = [k for k, s in TC_KERNELS if s == src]
         sass = subprocess.run(
             [tool, "-sass", os.path.join(obj_dir, src[:-3] + ".o")],
             capture_output=True, text=True, check=True).stdout
@@ -2423,15 +2525,17 @@ def sass_mma(build):
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
-                fn = m.group(1) if any(k in m.group(1)
-                                       for k in TC_KERNELS) else None
+                fn = (f"{src}: {m.group(1)}" if any(k in m.group(1)
+                                                    for k in kernels)
+                      else None)
                 if fn:
                     counts[fn] = 0
             elif fn and re.search(r"\sHG?MMA\.", line):
                 counts[fn] += 1
-    for kernel in TC_KERNELS:
-        found = {f: n for f, n in counts.items() if kernel in f}
-        require(found, f"{kernel}: no instantiation in the SASS")
+    for kernel, src in TC_KERNELS:
+        found = {f: n for f, n in counts.items()
+                 if f.startswith(src + ":") and kernel in f}
+        require(found, f"{kernel}: no instantiation in {src}'s SASS")
         require(all(found.values()), f"{kernel}: no HMMA/HGMMA in "
                 f"{[f for f, n in found.items() if not n]}")
     return counts
@@ -2538,8 +2642,8 @@ def check_parent_bits(gen):
     parent's, must give the same bits: #4-#9 in f32 and #6, #7 in bf16 on
     the decoder self-attention (BERT-base's for the bhtd ones), #1 in f32
     on the cluster route (R 64 and 32) and the tiles route, #1's tiles
-    route in bf16, the pair #2 + #3 in f32 and bf16, ``gemm.cuh`` at the
-    pair's products in f32 and in amp's types but #1's y, #19 (its tile)
+    route in bf16, the pair #2 + #3 in f32, ``gemm.cuh``'s f32 tile at the
+    pair's products, #19 (its tile)
     at ResNet-50's stage-1 conv3, and #16, #17 in f32 and bf16, each at
     rates 0 and DROPOUT where it drops.  ``gen`` is a generator of its
     own, so that the later checks draw the parent's inputs.  Returns the
@@ -2617,7 +2721,7 @@ def check_parent_bits(gen):
                 same(f"qkv_attention_fwd bf16 {plan} ctx, lse rate {rate}",
                      lambda: ka.qkv_attention_fwd(x, w_qkv, w_out, bias,
                                                   **kw)[1:])
-            if t == 256 and b is None:
+            if t == 256 and b is None and dtype == "f32":
                 _, ctx, lse = ka.qkv_attention_fwd(x, w_qkv, w_out, bias,
                                                    **kw)
                 same(f"qkv_bwd {dtype} rate {rate}",
@@ -2631,24 +2735,12 @@ def check_parent_bits(gen):
                      lambda: kde.dropout_add_fwd(x, res, rate, seed))
                 same(f"dropout_add_bwd {dtype}",
                      lambda: kde.dropout_add_bwd(x, rate, seed))
-    for case in GEMM_CASES + GEMM_AMP_CASES:
-        name, m, n, k, a_t, b_t, split = case[:7]
-        if case == GEMM_AMP_CASES[-1]:
-            continue  # #1's y: the tensor-core tile
-        a_bf, b_bf, c_bf = case[7:] if len(case) > 7 else (False,) * 3
+    for name, m, n, k, a_t, b_t, split in GEMM_CASES:
         a = (randn(gen, k, m).t() if a_t else randn(gen, m, k))
         b = randn(gen, n, k).t() if b_t else randn(gen, k, n)
-        a, b = (x.bfloat16() if bf else x for x, bf in ((a, a_bf),
-                                                         (b, b_bf)))
         a, b = (x.t().contiguous().t() if t_ else x.contiguous()
                 for x, t_ in ((a, a_t), (b, b_t)))
-        c_dtype = torch.bfloat16 if c_bf else torch.float32
-        same(f"gemm {name}", lambda: kg.gemm(a, b, split, c_dtype))
-    # the pair's dW_out = ctx^T g, bf16 x bf16 -> bf16 with A k-major
-    a = randn(gen, 8192, 512).bfloat16().t()
-    b = randn(gen, 8192, 512).bfloat16()
-    same("gemm dW_out = ctx^T g (bf16 x bf16 -> bf16)",
-         lambda: kg.gemm(a, b, True, torch.bfloat16))
+        same(f"gemm {name}", lambda: kg.gemm(a, b, split))
     x2, w2 = randn(gen, 256 * 56 * 56, 64), randn(gen, 256, 64)
     same("dot_col_stats stage-1 conv3", lambda: kc.dot_col_stats_fwd(x2, w2))
     return held
@@ -4885,10 +4977,11 @@ def profile_training(model, tag, feed=None, lr=TRAIN_LR):
                 walks_ms=_walks_us(rows) / 1e3,
                 qkv_fwd_ms=_attention_fwd_us(rows)[0] / 1e3,
                 flash_fwd_ms=_attention_fwd_us(rows)[1] / 1e3,
-                # the bf16 kernels on tensor cores: #4's, #1's attention
-                # and its y tile
+                # the bf16 kernels on tensor cores: #4's, #1's attention,
+                # the tile (#1's y, the pair's GEMM stages), the pair's
+                # walks
                 tensor_core_ms=sum(us for name, us in rows if any(
-                    k in name for k in TC_KERNELS)) / 1e3,
+                    k in name for k, _ in TC_KERNELS)) / 1e3,
                 # cuBLAS's kernels (Hopper's bf16 ones are "nvjet_*")
                 library_gemm_ms=sum(
                     us for name, us in rows
@@ -4918,11 +5011,13 @@ def _attention_fwd_us(rows):
 
 def _walks_us(rows):
     """Device us of the backward walks (``csrc/flash_walk.cuh``'s dq and
-    dkv kernels, in every layout and inside the pair) among the
-    profiler's rows."""
+    dkv kernels, in every layout and inside the f32 pair; the bf16 pair's,
+    ``csrc/flash_bwd_tc.cuh``) among the profiler's rows."""
     return sum(us for name, us in rows
                if "flash_bwd_dq_kernel<" in name
-               or "flash_bwd_dkv_kernel<" in name)
+               or "flash_bwd_dkv_kernel<" in name
+               or "::bwd_dq_tc_kernel<" in name
+               or "::bwd_dkv_tc_kernel<" in name)
 
 
 def profile_resnet(model):
@@ -5045,8 +5140,14 @@ def _builds(log, want):
 def walk_builds(log, lib):
     """Each instantiation of the backward walks in the build (every source
     that compiles them) and of the bf16 tensor-core kernels (#4's
-    forward, #1's cluster route at R 64 and 32, its y tile): see
-    ``_builds``."""
+    forward, #1's cluster route at R 64 and 32, the tile in every source
+    that compiles it, the pair's walks): see ``_builds``."""
+    import re
+
+    def tc_smem(args):  # the tile's template: A, B k-major; A, B split
+        return lib.ptt_gemm_tc_smem(*(int(f) for f in re.findall(
+            r"Lb([01])E", args)[:4]))
+
     return _builds(log, {
         "flash_bwd_dq_kernel": (None, lib.ptt_flash_walk_smem(0)),
         "flash_bwd_dkv_kernel": (None, lib.ptt_flash_walk_smem(1)),
@@ -5056,7 +5157,11 @@ def walk_builds(log, lib):
                                   lib.ptt_qkv_cluster_smem(
                                       64 if args.startswith("ILi64") else 32,
                                       1)),
-        "gemm_tc_kernel": ("qkv_attention.cu", lib.ptt_gemm_tc_smem())})
+        "gemm_tc_kernel": (None, tc_smem),
+        "bwd_dq_tc_kernel": ("qkv_attention_bwd.cu",
+                             lib.ptt_qkv_bwd_walk_smem(0)),
+        "bwd_dkv_tc_kernel": ("qkv_attention_bwd.cu",
+                              lib.ptt_qkv_bwd_walk_smem(1))})
 
 
 def tile_builds(log, lib):
@@ -5338,15 +5443,23 @@ def main():
     for name, r in amp_records.items():
         print_record(r, f" {r.get('case', '')} b={r['batch']}")
         records[(name, max(BATCHES))] = r
-    # the tensor-core kernels' records carry their builds and SASS
-    for name, kernels in (("flash_fwd_bf16", ("flash_fwd_tc_kernel",)),
-                          ("qkv_attention_fwd_bf16", ("qkv_cluster_tc_kernel",
-                                                      "gemm_tc_kernel"))):
+    # the tensor-core kernels' records carry their builds and SASS (the
+    # pair's, with its GEMM stages, on #2's and #3's records)
+    for name, source, kernels in (
+            ("flash_fwd_bf16", "flash_attention.cu", ("flash_fwd_tc_kernel",)),
+            ("qkv_attention_fwd_bf16", "qkv_attention.cu",
+             ("qkv_cluster_tc_kernel", "gemm_tc_kernel")),
+            ("qkv_bwd_dq_bf16", "qkv_attention_bwd.cu",
+             ("bwd_dq_tc_kernel", "gemm_tc_kernel")),
+            ("qkv_bwd_dkv_bf16", "qkv_attention_bwd.cu",
+             ("bwd_dkv_tc_kernel", "gemm_tc_kernel"))):
         records[(name, max(BATCHES))]["build"] = [
             dict({k: v for k, v in t.items() if k != "source"},
                  sass_mma=sum(n for fn, n in mma.items()
-                              if t["kernel"] in fn and t["template"] in fn))
-            for t in builds if t["kernel"] in kernels]
+                              if fn.startswith(source + ":")
+                              and t["kernel"] in fn and t["template"] in fn))
+            for t in builds if t["kernel"] in kernels
+            and t["source"] == source]
     parent_bits = check_parent_bits(torch.Generator().manual_seed(18))
     if parent_bits is not None:
         print(f"phase 2: {len(parent_bits)} calls give the parent's bits: "

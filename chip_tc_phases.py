@@ -2,8 +2,9 @@
 """Where the bf16 tensor-core kernels spend their time, on one CUDA card,
 at the amp step's shapes (b 32, 8 heads of 64, t 256, d_model 512): #4's
 forward (``csrc/flash_tc.cuh``), #1's cluster route
-(``qkv_cluster_tc_kernel`` in ``csrc/qkv_attention.cu``) and #1's y tile
-(``gemm_tc`` in ``csrc/gemm.cuh``).
+(``qkv_cluster_tc_kernel`` in ``csrc/qkv_attention.cu``), #1's y tile
+(``gemm_tc`` in ``csrc/gemm.cuh``) and the pair #2 + #3 (its walks in
+``csrc/flash_bwd_tc.cuh``, its GEMM stages on ``gemm_tc``).
 
     python3 chip_tc_phases.py
 
@@ -24,17 +25,25 @@ tree is not changed):
   (p rounded to one bf16 in p v);
 * #1 without p_lo's MMA, and without all three low-half products (q, k,
   v and p each rounded to one bf16);
-* y with other rings: 4 and 5 stages of 32 k, 3 and 2 stages of 64 k.
+* y with other rings: 4 and 5 stages of 32 k, 3 and 2 stages of 64 k;
+* the pair: its walks' clocks (the ring's wait and barrier, the next
+  tile's copies and the bias loads, s and dp, p and ds, the accumulating
+  products, the epilogue), and copies without each low half in turn
+  (q and k; dctx and v; p; ds; dq | dk | dv, in the dx and dW products),
+  and without all of them.
 
 #4's copies are timed on the cross-attention (pad bias) and the decoder
 self-attention (decoder bias) beside the tree's kernel and masked
 ``F.scaled_dot_product_attention``; #1's on the decoder self-attention
 beside the tree's kernel; y's beside the tree's tile and
-``torch.matmul``, all device time only (``chip_smoke.cuda_ms`` with
-``hide_host``).  What the hi/lo split buys: the tree's o (#4) and ctx
-(#1), and the copies' without the low halves, against the float64 twin
-on the same bf16 operands (``error64``: the max abs error and the share
-of elements that are not the float64 value rounded to bf16).  Prints the
+``torch.matmul``; the pair's on the decoder self-attention beside the
+tree's pair, with the profile's split of the tree's pair between its
+GEMM stages and its walks (``chip_smoke._pair_stages``), all device time
+only (``chip_smoke.cuda_ms`` with ``hide_host``).  What the hi/lo split
+buys: the tree's o (#4), ctx (#1) and dx, dW_qkv, dW_out (the pair), and
+the copies' without the low halves, against the float64 twin on the
+same bf16 operands (``error64``: the max abs error and the share of
+elements that are not the float64 value rounded to bf16).  Prints the
 card and its power limit, one JSON line per measurement, and last
 ``{"ok": true}``.  Exits 2 without a card.
 """
@@ -217,6 +226,115 @@ def qkv_variants():
     return {"qkv_no_p_lo": no_p_lo, "qkv_no_lo": no_lo}
 
 
+#: the pair's products in flash_bwd_tc.cuh, by call site
+PAIR_SITES = {"s_dq": "    bw_scores(s, q_s, k_s, warp);\n",
+              "dp_dq": "    bw_scores(dp, dc_s, v_s, warp);\n",
+              "acc_dq": "    bw_accumulate(acc, s, k_s);  // dq += ds k\n",
+              "s_dkv": "    bw_scores(s, k_s, q_t, warp);  // s^T = k q^T\n",
+              "dp_dkv": "    bw_scores(dp, v_s, dc_t, warp);  // dp^T = v "
+                        "dctx^T\n",
+              "acc_dv": "    bw_accumulate(dv, s, dc_t);  // dv += p^T "
+                        "dctx\n",
+              "acc_dk": "    bw_accumulate(dk, dp, q_t);  // dk += ds^T q\n"}
+#: each copy's products without a low half: {site: "na" (no lo of the A
+#: operand), "nb" (no lo of B) or "hh" (hi hi only)}, and whether the dx
+#: and dW products drop dq | dk | dv's lo plane
+PAIR_LO = {"no_qk_lo": ({"s_dq": "hh", "s_dkv": "hh", "acc_dq": "nb",
+                         "acc_dk": "nb"}, False),
+           "no_dctx_v_lo": ({"dp_dq": "hh", "dp_dkv": "hh",
+                             "acc_dv": "nb"}, False),
+           "no_p_lo": ({"acc_dv": "na"}, False),
+           "no_ds_lo": ({"acc_dq": "na", "acc_dk": "na"}, False),
+           "no_dqkv_lo": ({}, True),
+           "no_lo": ({site: "hh" for site in PAIR_SITES}, True)}
+WALK_PHASES = ("ring wait", "next copies and bias", "s", "p", "dp and ds",
+               "accumulating products", "epilogue")
+
+
+def _hi_only(h, w):
+    """flash_bwd_tc.cuh with mma3, bw_scores and bw_accumulate copies that
+    drop A's lo (_na), B's lo (_nb) or both (_hh)."""
+    fns = {name: re.search(r"__device__ __forceinline__ void " + name
+                           + r"\(.*?\n}\n", h, re.S).group(0)
+           for name in ("mma3", "bw_scores", "bw_accumulate")}
+    text = ""
+    for suffix, drop in (("na", ("al,",)), ("nb", ("bl[",)),
+                         ("hh", ("al,", "bl["))):
+        text += "".join(line + "\n" for line in fns["mma3"].replace(
+            "void mma3(", f"void mma3_{suffix}(").splitlines()
+            if not any(d in line for d in drop))
+        for name in ("bw_scores", "bw_accumulate"):
+            text += fns[name].replace(f"void {name}(",
+                                      f"void {name}_{suffix}(").replace(
+                "mma3(", f"mma3_{suffix}(")
+    anchor = "__device__ __forceinline__ float bf16_bits"
+    return ck.edit(h, anchor, text + anchor, w)
+
+
+def pair_variants():
+    """{name: qkv_attention_bwd.cu with an edited flash_bwd_tc.cuh (and,
+    for dq | dk | dv's lo, gemm.cuh) inlined}: PAIR_LO's copies (timing
+    and the split's worth), and the walks' clocks (dq_clocks,
+    dkv_clocks)."""
+    src, h, g = (read("qkv_attention_bwd.cu"), read("flash_bwd_tc.cuh"),
+                 read("gemm.cuh"))
+    w = "flash_bwd_tc.cuh"
+    out = {}
+    for name, (sites, dqkv) in PAIR_LO.items():
+        v = _hi_only(h, w)
+        for site, suffix in sites.items():
+            old = PAIR_SITES[site]
+            call = old.split("(", 1)[0]
+            v = ck.edit(v, old, old.replace(call + "(",
+                                            f"{call}_{suffix}("), w)
+        copy = inline(src, "flash_bwd_tc.cuh", v, name)
+        if dqkv:  # dx and dW_qkv: hi only of the split operand
+            gv = ck.edit(ck.edit(
+                g, "          for (int plane = 0; plane < 2; ++plane) {",
+                "          for (int plane = 0; plane < 1; ++plane) {",
+                "gemm.cuh"),
+                "          for (int plane = 0; plane < (B_LO ? 2 : 1); "
+                "++plane) {", "          for (int plane = 0; plane < 1; "
+                "++plane) {", "gemm.cuh")
+            copy = inline(copy, "gemm.cuh", gv, name)
+        out[name] = copy
+    for walk, kernel, start, edits, end in (
+            ("dq", "bwd_dq_tc_kernel", "  int qpos[2];\n", (
+                ("(and q, dctx) have landed; the\n                      "
+                 "// slot the next load takes was consumed last step\n",
+                 "    CLK(0)\n", 0),
+                ("    // p = exp(s * scale + bias", "    CLK(1)\n", 1),
+                ("    const bool edge = k0 + BW_ROWS", "    CLK(2)\n", 1),
+                ("    // ds = p (dp - delta)", "    CLK(3)\n", 1),
+                (PAIR_SITES["acc_dq"], "    CLK(4)\n", 1),
+                (PAIR_SITES["acc_dq"], "    CLK(5)\n", 0)),
+             "  bw_store(dq, acc, bi, q0, t, head);\n"),
+            ("dkv", "bwd_dkv_tc_kernel", "  int kpos[2];\n", (
+                ("the next load takes was consumed last step\n",
+                 "    CLK(0)\n", 0),
+                ("    // p^T = exp(s^T * scale", "    CLK(1)\n", 1),
+                ("    const bool edge = q0 + BW_ROWS", "    CLK(2)\n", 1),
+                ("    // ds^T into dp, then p^T", "    CLK(3)\n", 1),
+                (PAIR_SITES["acc_dv"], "    CLK(4)\n", 1),
+                (PAIR_SITES["acc_dk"], "    CLK(5)\n", 0)),
+             "  bw_store(dv_p, dv, bi, k0, t, head);\n")):
+        what = f"flash_bwd_tc.cuh ({walk} clocks)"
+        anchor = ("template <bool DROP>\n__global__ void __launch_bounds__("
+                  f"BW_NT, 2)\n{kernel}(")
+        v = ck.edit(h, anchor, CLOCKS + anchor, what)
+        # the kernel's own text from here on: its start is unique there
+        head, body = v.split(CLOCKS + anchor, 1)
+        body = ck.edit(body, start, CLOCKS_START + start, what)
+        for old, new, before in edits:
+            body = ck.edit(body, old, new + old if before else old + new,
+                           what)
+        body = ck.edit(body, end, end + "  CLK(6)\n" + CLOCKS_END, what)
+        out[f"{walk}_clocks"] = inline(src, "flash_bwd_tc.cuh",
+                                       head + CLOCKS + anchor + body,
+                                       walk) + CLOCKS_ENTRY
+    return out
+
+
 def error64(got, exact):
     """(max abs error of the bf16 ``got`` against the float64 ``exact``,
     the share of its elements that are not ``exact`` rounded to bf16)."""
@@ -251,13 +369,16 @@ def main():
     _build.lib()
     with tempfile.TemporaryDirectory() as out_dir:
         flash, gemm, qkv = flash_variants(), gemm_variants(), qkv_variants()
+        pair = pair_variants()
         libs = ck.build(_build, out_dir, {
-            **flash, **gemm, **qkv, "qkv_clocks": qkv_clocks(
+            **flash, **gemm, **qkv, **pair, "qkv_clocks": qkv_clocks(
                 read("qkv_attention.cu"))}, [])
     for name, lib in libs.items():
         entries = (["ptt_flash_fwd_bf16"] if name in flash
                    else ["ptt_gemm_typed", "ptt_gemm_partials"]
-                   if name in gemm else ["ptt_qkv_attention_fwd_bf16",
+                   if name in gemm else ["ptt_qkv_bwd_bf16",
+                                         "ptt_qkv_bwd_scratch"]
+                   if name in pair else ["ptt_qkv_attention_fwd_bf16",
                                          "ptt_qkv_fwd_scratch"])
         for e in entries + ["ptt_error_string"] * hasattr(
                 lib, "ptt_error_string"):
@@ -330,8 +451,46 @@ def main():
             cs.compare_bf16(name, fn(), want)
             rec[name + "_ms"] = cs.cuda_ms(fn, hide_host=True)
     print(json.dumps(rec))
+    pair_times(gen, pair, libs)
     print(json.dumps({"ok": True}))
     return 0
+
+
+def pair_times(gen, pair, libs):
+    """The pair's records at the decoder self-attention: the tree's time,
+    its profile split and its outputs' error against the float64 twin,
+    each timing copy's time and error, and each walk's clocks."""
+    import chip_smoke as cs
+    from paddle_tpu_torch.kernels import attention as ka
+
+    b, h, dm = cs.TRAIN_BATCH, cs.BASE["n_head"], cs.BASE["d_model"]
+    x, w_qkv, w_out, g, bias = cs._bf16(*cs._qkv_inputs(gen, 256,
+                                                        "decoder"))
+    kw = dict(n_head=h, scale=0.125, causal=False)
+    _, ctx, lse = ka.qkv_attention_fwd(x, w_qkv, w_out, bias, **kw)
+    bw = (x, w_qkv, w_out, bias, g, ctx, lse)
+    exact = ka.reference_qkv_bwd(*(a.double() for a in bw), **kw)
+    fn = lambda: ka.qkv_bwd(*bw, **kw)  # noqa: E731
+    names = ("dx", "dW_qkv", "dW_out")
+
+    def errors(got):
+        return {n: error64(a, e) for n, a, e in zip(names, got, exact)}
+
+    rec = dict(kernel="qkv_bwd_bf16", case="decoder self",
+               tree_ms=cs.cuda_ms(fn, hide_host=True), tree_err=errors(fn()),
+               stages=cs._pair_stages(fn, b, 256, dm, h * 64))
+    for name in pair:
+        if name.endswith("_clocks"):
+            continue
+        with cs.kernel_library(libs[name]):
+            rec[name + "_err"] = errors(fn())
+            rec[name + "_ms"] = cs.cuda_ms(fn, hide_host=True)
+    for walk, call in (("dq", ka.qkv_bwd_dq), ("dkv", ka.qkv_bwd_dkv)):
+        lib = libs[f"{walk}_clocks"]
+        with cs.kernel_library(lib):
+            call(*bw, **kw)
+        rec[f"{walk}_phases"] = phase_shares(lib, 4 * h * b, WALK_PHASES)
+    print(json.dumps(rec))
 
 
 if __name__ == "__main__":

@@ -2,9 +2,9 @@
 // arithmetic on f32 or bf16 operands, for sm_90a.
 //
 // Shared by the flash kernels (flash_attention.cu: the forward #4 / #5 and
-// the backward #6, #7 / #8, #9) and the fused-projection backward
+// the backward #6, #7 / #8, #9) and the fused-projection backward in f32
 // (qkv_attention_bwd.cu: #2 and #3 walk the rows their projection GEMM
-// wrote).  Rows are addressed through a layout, a template parameter: Bthd
+// wrote; in bf16 they walk flash_bwd_tc.cuh's tensor-core walks).  Rows are addressed through a layout, a template parameter: Bthd
 // reads q, k, v from [b, t, h, 64] tensors (row stride h * 64) or from the
 // q|k|v columns of a [b * t, 3hd] projection (row stride 3hd); Bhtd from
 // [b, h, t, 64] tensors, whose heads are contiguous [t, 64] slabs.  The
@@ -74,9 +74,9 @@
 // tk give p = 0; a row masked in the forward has lse = +inf, so p = 0 and
 // its gradients are zero.  Rows past t in a ragged tile load as zeros.
 //
-// bf16 (amp, the backward walks): the rows (q, k, v, dO) and the outputs
-// (dq, dk, dv) are of one element type T, the bias of its own BT (the
-// pair walks f32 scratch under a bf16 bias); lse and delta stay f32 and
+// bf16 (amp, the backward walks of #6 and #7): the rows (q, k, v, dO) and
+// the outputs (dq, dk, dv) are of one element type T, the bias of its own
+// type BT; lse and delta stay f32 and
 // all arithmetic is f32, as the reference's kernels compute on bf16
 // operands.  A bf16 tile or bias comes in through registers, 16 (bias: 8)
 // bytes a load, converted to f32 as it is stored into the stage, so every

@@ -1,14 +1,14 @@
-// GEMM for sm_90a: C = A B on 128x128 block tiles, with split-K; each
-// operand f32 or bf16 (amp), C f32 or bf16, the arithmetic f32 on the
-// CUDA cores, but for bf16 x bf16 -> bf16 with A i-major and B k-major
-// (#1's y = ctx W_out), which runs on tensor cores (gemm_tc, below).
+// GEMM for sm_90a: C = A B on 128x128 block tiles, with split-K: f32 on
+// the CUDA cores (the f32 tile, gemm_tile), bf16 (amp) on tensor cores
+// (gemm_tc, below).
 //
 // Shared by the fused-projection kernels: the backward pair (#2 + #3 in
 // qkv_attention_bwd.cu: the q|k|v and dctx projections, dx and dW) and
 // #1's output projection (qkv_attention.cu: y = ctx W_out); conv_bn.cu's
 // #19 runs gemm_tile with a statistics epilogue of its own, and gemm.cu
-// exports the GEMM alone.  256 threads, an 8x8 patch of each C tile per
-// thread, operands staged k-major in shared memory and read as float4.
+// exports both tiles alone.  The f32 tile: 256 threads, an 8x8 patch of
+// each C tile per thread, operands staged k-major in shared memory and
+// read as float4.
 // Every element of C is summed in increasing k (split-K partials are added
 // in slab order by sum_splits): no atomics, so two calls on the same
 // inputs give the same bits.
@@ -28,14 +28,6 @@
 // 2-way bank conflicts, float4 stores of C, persistent #19 blocks, and one
 // block an SM with the registers that frees (PERF.md).  No TMA: later
 // work.
-//
-// bf16 operands (amp): each operand's element type is its own template
-// parameter (the backward pair multiplies its f32 dq|dk|dv scratch by bf16
-// x or W).  A bf16 operand comes in through registers, 4 elements (8
-// bytes) a load, and is converted to f32 as it is stored into the stage,
-// so every shared-memory layout and read is the f32 tile's; C is
-// accumulated in f32 and rounded to its type when stored.  The f32
-// instantiations are the f32 tile unchanged.
 //
 // Summation depth (C13): a split product (the pair's dW sums, K = b * t)
 // is cut into slabs of at most kMaxSlab = 1024 k, so no element of it is
@@ -88,27 +80,22 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // elements in memory: i = 4 (f % (GT / 4)).. of k row f / (GT / 4) when
 // k-major, k = 4 (f % (GK / 4)).. of i row f / (GK / 4) when i-major,
 // with f = tid + r * GNT (consecutive threads on consecutive addresses).
-// An f32 k-major operand is copied by cp.async; every other one is loaded
-// into registers (`held`: a float4 of f32, the raw 8 bytes of bf16) and
-// stored, converted to f32, after the stage's math.
-template <bool KMAJOR, class T = float>
+// A k-major operand is copied by cp.async; an i-major one is loaded into
+// registers (`held`) and stored transposed after the stage's math.
+template <bool KMAJOR>
 struct GemmStager {
   static constexpr int kPerRow = KMAJOR ? GT / 4 : GK / 4;
   static constexpr int kRows = GNT / kPerRow;  // rows one pass covers
-  static constexpr bool kF32 = sizeof(T) == 4;
-  //: the f32 k-major operand lands by cp.async, not through registers
-  static constexpr bool kAsync = KMAJOR && kF32;
-  using Held = typename std::conditional<kF32, float4, uint2>::type;
 
-  const T* p;  // this thread's first element at the next stage
+  const float* p;  // this thread's first element at the next stage
   int64_t row_step;  // elements from one pass's row to the next's
   int64_t k_step;    // elements from one stage to the next
   int ii, kk;        // where the first quad lands in a stage
   int n_i, k;        // rows of the operand; this thread's first k
   bool inside;       // the tile's rows all < n_i and the quads aligned
-  Held held[G4];     // the stage loaded, not yet stored
+  float4 held[G4];   // the stage loaded, not yet stored
 
-  __device__ __forceinline__ GemmStager(const T* src, int ld, int i0,
+  __device__ __forceinline__ GemmStager(const float* src, int ld, int i0,
                                         int n_i_, int k_begin) {
     const int f = threadIdx.x;
     const int row = f / kPerRow;
@@ -122,7 +109,7 @@ struct GemmStager {
     row_step = (int64_t)kRows * ld;
     k_step = KMAJOR ? (int64_t)GK * ld : GK;
     inside = i0 + GT <= n_i && ld % 4 == 0 &&
-             reinterpret_cast<uintptr_t>(src) % (4 * sizeof(T)) == 0;
+             reinterpret_cast<uintptr_t>(src) % 16 == 0;
     n_i -= i0;
   }
 
@@ -131,7 +118,7 @@ struct GemmStager {
   __device__ __forceinline__ float at(int r, int c, int k_end) const {
     const int i = KMAJOR ? ii + c : ii + r * kRows;
     const int kc = KMAJOR ? k + r * kRows : k + c;
-    return i < n_i && kc < k_end ? to_f32(p[r * row_step + c]) : 0.f;
+    return i < n_i && kc < k_end ? p[r * row_step + c] : 0.f;
   }
 
   __device__ __forceinline__ float4 at4(int r, int k_end) const {
@@ -139,55 +126,36 @@ struct GemmStager {
                        at(r, 3, k_end));
   }
 
-  // f32 values of a held quad
-  __device__ __forceinline__ static float4 unpack(const Held& h) {
-    if constexpr (kF32) {
-      return h;
-    } else {
-      return load4(reinterpret_cast<const T*>(&h));
-    }
-  }
-
-  // Start the current stage's loads into `stage`: by cp.async (f32
-  // k-major) or into registers.  `full`: no element is outside.
+  // Start the current stage's loads into `stage`: by cp.async (k-major)
+  // or into registers.  `full`: no element is outside.
   __device__ __forceinline__ void load(float* stage, bool full, int k_end) {
 #pragma unroll
     for (int r = 0; r < G4; ++r) {
-      if constexpr (kAsync) {
+      if constexpr (KMAJOR) {
         float* dst = stage + (kk + r * kRows) * GS + ii;
         if (full)
-          cp_async16(dst, reinterpret_cast<const float*>(p + r * row_step));
+          cp_async16(dst, p + r * row_step);
         else
           *reinterpret_cast<float4*>(dst) = at4(r, k_end);
-      } else if constexpr (kF32) {
+      } else {
         held[r] = full ? __ldg(reinterpret_cast<const float4*>(
                              p + r * row_step))
                        : at4(r, k_end);
-      } else if (full) {
-        held[r] = __ldg(reinterpret_cast<const uint2*>(p + r * row_step));
-      } else {  // values of bf16 elements: packing them back is exact
-        const float4 v = at4(r, k_end);
-        store4(reinterpret_cast<T*>(&held[r]), v);
       }
     }
   }
 
   // Store the held stage into `stage` (i-major: transposed).
   __device__ __forceinline__ void store(float* stage) const {
-    if constexpr (!kAsync) {
+    if constexpr (!KMAJOR) {
 #pragma unroll
       for (int r = 0; r < G4; ++r) {
-        const float4 v = unpack(held[r]);
-        if (KMAJOR) {
-          *reinterpret_cast<float4*>(stage + (kk + r * kRows) * GS + ii) =
-              v;
-        } else {
-          float* dst = stage + kk * GS + ii + r * kRows;
-          dst[0] = v.x;
-          dst[GS] = v.y;
-          dst[2 * GS] = v.z;
-          dst[3 * GS] = v.w;
-        }
+        const float4 v = held[r];
+        float* dst = stage + kk * GS + ii + r * kRows;
+        dst[0] = v.x;
+        dst[GS] = v.y;
+        dst[2 * GS] = v.z;
+        dst[3 * GS] = v.w;
       }
     }
   }
@@ -206,15 +174,14 @@ __device__ __forceinline__ int gemm_tile_row(int i, int t) {
 
 // acc = sum over k in [k_begin, k_end) of A(m0 + row, k) B(k, n0 + col)
 // for this thread's 8x8 patch of the 128x128 C tile at (m0, n0), summed
-// in increasing k; rows >= M and columns >= N read zeros.  A and B hold
-// TA and TB elements (f32 or bf16), read as f32.  A(m, k) is
+// in increasing k; rows >= M and columns >= N read zeros.  A(m, k) is
 // a[k * lda + m] when A_KM, else a[m * lda + k]; B(k, n) is b[k * ldb + n]
 // when B_KM, else b[n * ldb + k].  k_begin is a multiple of GK.  smem is
 // GEMM_SMEM floats of 16-byte aligned shared memory, free again when this
 // returns; every thread of the block calls this.
-template <bool A_KM, bool B_KM, class TA = float, class TB = float>
+template <bool A_KM, bool B_KM>
 __device__ __forceinline__ void gemm_tile(
-    const TA* __restrict__ a, int lda, const TB* __restrict__ b,
+    const float* __restrict__ a, int lda, const float* __restrict__ b,
     int ldb, int M, int N, int m0, int n0, int k_begin, int k_end,
     float* smem, float (&acc)[8][8]) {
   const int ty = threadIdx.x / 16;
@@ -226,8 +193,8 @@ __device__ __forceinline__ void gemm_tile(
   const int steps = (k_end - k_begin + GK - 1) / GK;
   if (steps <= 0) return;
 
-  GemmStager<A_KM, TA> sa(a, lda, m0, M, k_begin);
-  GemmStager<B_KM, TB> sb(b, ldb, n0, N, k_begin);
+  GemmStager<A_KM> sa(a, lda, m0, M, k_begin);
+  GemmStager<B_KM> sb(b, ldb, n0, N, k_begin);
   // Stage s sits in ring slot s % 2: A at slot * 2 GSTAGE, B after it.
   // Only an edge tile, or the last stage of a K that is no multiple of
   // GK, takes the checked loads.
@@ -281,8 +248,9 @@ __device__ __forceinline__ void gemm_tile(
 }
 
 // C[m, n] = sum_k A(m, k) B(k, n) over k in split blockIdx.z's slab
-// [z * k_slab, (z + 1) * k_slab), written to c + z * split_stride as TC;
-// A and B as gemm_tile reads them.
+// [z * k_slab, (z + 1) * k_slab), written to c + z * split_stride; A and
+// B as gemm_tile reads them.  TA, TB and TC are f32 (bf16 products run on
+// gemm_tc_kernel).
 template <bool A_KM, bool B_KM, class TA = float, class TB = float,
           class TC = float>
 __global__ void __launch_bounds__(GNT, 2)
@@ -298,8 +266,8 @@ gemm_kernel(const TA* __restrict__ a, int lda,
   const int tx = threadIdx.x % 16;
 
   float acc[8][8];
-  gemm_tile<A_KM, B_KM, TA, TB>(a, lda, b, ldb, M, N, m0, n0, k_begin,
-                                k_end, smem, acc);
+  gemm_tile<A_KM, B_KM>(a, lda, b, ldb, M, N, m0, n0, k_begin, k_end, smem,
+                        acc);
 
   c += blockIdx.z * split_stride;
 #pragma unroll
@@ -370,62 +338,128 @@ int64_t gemm_partials(int M, int N, int K, int sms) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 x bf16 -> bf16 on tensor cores: #1's y = ctx W_out in amp
+// bf16 products on tensor cores: #1's y and the pair's five (amp)
 // ---------------------------------------------------------------------------
 //
-// C [M, N] = A B with A i-major (ctx [b t, hd]) and B k-major (W_out [hd,
-// dm]), both bf16: mma.sync m16n8k16, exact products summed in f32 (the
-// reference's y product, f32 on the widened bf16 operands), C rounded to
-// bf16 once, or f32 partial sums of a split product added in slab order
-// by sum_splits.  The same 128 x 128 C tiles, split-K choice
-// (gemm_splits) and partials as the f32 tile, so #1's scratch contract
-// (ptt_qkv_fwd_scratch) holds; every element is summed in increasing k
-// stages (two k16 steps a stage), no atomics: y repeats its bits.
+// C [M, N] = A B on mma.sync m16n8k16 with f32 accumulators: #1's y = ctx
+// W_out, and the pair #2 + #3's q|k|v = x W_qkv, dctx = g W_out^T, dx =
+// [dq | dk | dv] W_qkv^T, dW_qkv = x^T [dq | dk | dv] and dW_out = ctx^T g
+// (qkv_attention_bwd.cu).  An operand (TcOperand) is bf16, or an f32 value
+// held as two bf16 planes hi + lo (mma.cuh's split; lo != 0 is the lo
+// plane's offset from the hi plane, in elements).  A bf16 x bf16 product
+// is one MMA a tile and k16 chunk, exact products summed in f32 (the
+// reference's products of widened bf16 operands); a split operand times
+// a bf16 one is two, hi and lo (the value to 2^-16 of itself; the other
+// operand is exact).  Element (i, k) of an operand is p[k * ld + i] when
+// it is k-major, else p[i * ld + k]: A i-major (x, g, ctx of y, the
+// pair's dq|dk|dv) or k-major (x^T, ctx^T of the dW products), B k-major
+// (W_qkv, W_out, g, dq|dk|dv) or i-major (W_out^T, W_qkv^T).  C is bf16
+// (rounded once), f32 (an f32 C, or the partial sums of a split product,
+// added in slab order by sum_splits), or hi/lo planes of its f32 value
+// (the pair's projections, which the walks read); the dctx product also
+// forms delta = rowsum(dctx * ctx) per head from its f32 accumulators.
+// The same 128 x 128 C tiles, split-K choice (gemm_splits: no dW sum
+// runs over more than kMaxSlab k) and partials as the f32 tile: every
+// element is summed in increasing k stages (two k16 steps a stage), no
+// atomics, so two calls give the same bits.
 //
 // 256 threads, 8 warps of 64 rows x 32 columns (4 x 4 m16n8 tiles, 64 f32
-// accumulators); a stage is 32 k of A ([128][32], rows padded to 40
-// elements) and B ([32][128], rows padded to 136), copied by 16-byte
-// cp.async into a ring of three stages (two in flight while one
-// multiplies); A's fragments by ldmatrix, B's by ldmatrix.trans, both
-// padded so that the 8 rows of a matrix fall in distinct bank groups.
-// Rows past M, columns past N and k past the slab come in as zeros (N
-// and K multiples of 8).  55.5 KB of shared memory (kGemmTcSmem) and 127
-// registers: two blocks an SM.  MMA work is the function's (no split).
-// Bound at the amp step's y (8192 x 512 x 512): bytes (16.8 MB: 0.0050
-// ms) over the MMAs (4.3 GFLOP: 0.0043 ms at 989 TFLOP/s).
-constexpr int TC_K = 32;                  // reduction depth of a stage
-constexpr int TC_ALD = TC_K + 8;          // row stride of an A stage
-constexpr int TC_BLD = GT + 8;            // row stride of a B stage
-constexpr int TC_STAGE = GT * TC_ALD + TC_K * TC_BLD;  // bf16 elements
+// accumulators); a stage is 32 k of each plane of A and B, copied as it
+// lies in memory by 16-byte cp.async into a ring of three stages (two in
+// flight while one multiplies): a tile whose rows run along k ([128][32],
+// rows padded to 40 elements) or along i ([32][128], padded to 136), so
+// that the 8 rows ldmatrix reads at once fall in distinct bank groups.
+// A's fragments by ldmatrix (i-major) or ldmatrix.trans (k-major), B's by
+// ldmatrix.trans (k-major) or ldmatrix (i-major).  Rows past M, columns
+// past N and k past the slab come in as zeros.  Shared memory
+// TcTile::kSmem: 55.5 KB (bf16 operands) to 88.5 KB (dx, A split), two
+// blocks an SM; registers and spills in the build log (-Xptxas -v).
+// Bound at the amp step's shapes (b 32, t 256, d_model 512, 8 heads):
+// the MMAs, 73.0 GFLOP issued for the pair's 47.2 (dx and dW_qkv twice)
+// at 989 TFLOP/s; y's bytes (16.8 MB: 0.0050 ms) over its MMAs (4.3
+// GFLOP: 0.0043 ms).
+constexpr int TC_K = 32;          // reduction depth of a stage
+constexpr int TC_ALD = TC_K + 8;  // row stride of a [128][32] tile
+constexpr int TC_BLD = GT + 8;    // row stride of a [32][128] tile
 constexpr int TC_STAGES = 3;
-constexpr size_t kGemmTcSmem = TC_STAGES * TC_STAGE * sizeof(bf16);
 
-// Start the copy of stage k0.. (A rows m0.., B columns n0..) into st.
-__device__ __forceinline__ void gemm_tc_stage(bf16* st, const bf16* a,
-                                              int lda, const bf16* b,
-                                              int ldb, int M, int N, int m0,
-                                              int n0, int k0, int k_end) {
+// One operand of the tensor-core tile: bf16 elements, (i, k) at p[k * ld
+// + i] when kmajor, else p[i * ld + k]; lo != 0: the lo plane of a split
+// f32 operand starts lo elements after p (the hi plane).
+struct TcOperand {
+  const bf16* p;
+  int ld;
+  bool kmajor;
+  int64_t lo;
+};
+
+// Shared memory of one ring stage: each plane's tile of A, then of B.
+template <bool A_KM, bool B_KM, bool A_LO, bool B_LO>
+struct TcTile {
+  static constexpr int kA = A_KM ? TC_K * TC_BLD : GT * TC_ALD;
+  static constexpr int kB = B_KM ? TC_K * TC_BLD : GT * TC_ALD;
+  static constexpr int kStage = kA * (A_LO ? 2 : 1) + kB * (B_LO ? 2 : 1);
+  static constexpr size_t kSmem = TC_STAGES * kStage * sizeof(bf16);
+};
+
+// Start the copy of one plane's tile of the stage at k0 into dst: rows
+// i0.. of an operand of n_i rows (A's M or B's N) laid out as KM says
+// (tile [TC_K][TC_BLD] when k-major, [GT][TC_ALD] else); elements outside
+// [n_i) x [k_end) come in as zeros.
+template <bool KM>
+__device__ __forceinline__ void gemm_tc_copy(bf16* dst, const bf16* src,
+                                             int ld, int n_i, int i0,
+                                             int k0, int k_end) {
+  constexpr int kPerRow = (KM ? GT : TC_K) / 8;  // 16-byte copies a row
 #pragma unroll
-  for (int u = 0; u < GT * TC_K / 8 / GNT; ++u) {  // A: 4 copies a row
+  for (int u = 0; u < GT * TC_K / 8 / GNT; ++u) {
     const int idx = threadIdx.x + u * GNT;
-    const int row = idx / (TC_K / 8);
-    const int c8 = idx % (TC_K / 8) * 8;
-    const bool in = m0 + row < M && k0 + c8 < k_end;
-    tc::copy16(st + row * TC_ALD + c8,
-               in ? a + (int64_t)(m0 + row) * lda + k0 + c8 : a,
+    const int row = idx / kPerRow;
+    const int c8 = idx % kPerRow * 8;
+    const int i = KM ? i0 + c8 : i0 + row;
+    const int k = KM ? k0 + row : k0 + c8;
+    const bool in = i < n_i && k < k_end;
+    tc::copy16(dst + row * (KM ? TC_BLD : TC_ALD) + c8,
+               in ? src + (KM ? (int64_t)k * ld + i : (int64_t)i * ld + k)
+                  : src,
                in ? 16 : 0);
   }
-  bf16* bs = st + GT * TC_ALD;
-#pragma unroll
-  for (int u = 0; u < TC_K * GT / 8 / GNT; ++u) {  // B: 16 copies a row
-    const int idx = threadIdx.x + u * GNT;
-    const int row = idx / (GT / 8);
-    const int c8 = idx % (GT / 8) * 8;
-    const bool in = k0 + row < k_end && n0 + c8 < N;
-    tc::copy16(bs + row * TC_BLD + c8,
-               in ? b + (int64_t)(k0 + row) * ldb + n0 + c8 : b,
-               in ? 16 : 0);
-  }
+}
+
+template <bool A_KM, bool B_KM, bool A_LO, bool B_LO>
+__device__ __forceinline__ void gemm_tc_stage(bf16* st, const TcOperand& a,
+                                              const TcOperand& b, int M,
+                                              int N, int m0, int n0, int k0,
+                                              int k_end) {
+  using Tile = TcTile<A_KM, B_KM, A_LO, B_LO>;
+  gemm_tc_copy<A_KM>(st, a.p, a.ld, M, m0, k0, k_end);
+  if (A_LO) gemm_tc_copy<A_KM>(st + Tile::kA, a.p + a.lo, a.ld, M, m0, k0,
+                               k_end);
+  bf16* bs = st + Tile::kA * (A_LO ? 2 : 1);
+  gemm_tc_copy<B_KM>(bs, b.p, b.ld, N, n0, k0, k_end);
+  if (B_LO) gemm_tc_copy<B_KM>(bs + Tile::kB, b.p + b.lo, b.ld, N, n0, k0,
+                               k_end);
+}
+
+// The A fragment of rows r0.. at k0.. of an A plane's tile.
+template <bool KM>
+__device__ __forceinline__ void tc_frag_a(uint32_t (&f)[4], const bf16* tile,
+                                          int r0, int k0) {
+  if (KM)
+    tc::ldsm4_t(f, tile + tc::frag_offset_nk(TC_BLD, k0, r0));
+  else
+    tc::ldsm4(f, tile + tc::frag_offset(TC_ALD, r0, k0));
+}
+
+// The B fragments of n tiles n0.. (f[0], f[1]) and n0 + 8.. (f[2], f[3])
+// at k0.. of a B plane's tile.
+template <bool KM>
+__device__ __forceinline__ void tc_frag_b(uint32_t (&f)[4], const bf16* tile,
+                                          int n0, int k0) {
+  if (KM)
+    tc::ldsm4_t(f, tile + tc::frag_offset(TC_BLD, k0, n0));
+  else
+    tc::ldsm4(f, tile + tc::frag_offset_nk(TC_ALD, n0, k0));
 }
 
 __device__ __forceinline__ void store_pair(float* p, float x, float y) {
@@ -435,13 +469,29 @@ __device__ __forceinline__ void store_pair(bf16* p, float x, float y) {
   *reinterpret_cast<uint32_t*>(p) = tc::pack(x, y);
 }
 
-// C[m, n] = sum_k A(m, k) B(k, n) over split blockIdx.z's slab, written
-// to c + z * split_stride as TC (bf16 unsplit, f32 partials when split).
+// Where a tensor-core product's C goes: c [M, N] of row stride ldc, split
+// z's partial sums at c + z * split; with C_LO the hi plane of an f32 C,
+// its lo plane lo elements after c; with DELTA also delta[(bi * h + head)
+// * t + r] = sum over head's 64 columns of C(m, .) * ctx(m, .) for row m
+// = bi * t + r (ctx [M, N] of row stride ldc).
 template <class TC>
+struct TcOut {
+  TC* c;
+  int ldc;
+  size_t split;
+  int64_t lo;
+  const bf16* ctx;
+  float* delta;
+  int t, h;
+};
+
+template <bool A_KM, bool B_KM, bool A_LO, bool B_LO, class TC,
+          bool C_LO = false, bool DELTA = false>
 __global__ void __launch_bounds__(GNT, 2)
-gemm_tc_kernel(const bf16* __restrict__ a, int lda,
-               const bf16* __restrict__ b, int ldb, TC* c, int ldc,
-               size_t split_stride, int M, int N, int K, int k_slab) {
+gemm_tc_kernel(TcOperand a, TcOperand b, TcOut<TC> out, int M, int N,
+               int K, int k_slab) {
+  static_assert(!(A_LO && B_LO), "one split operand");
+  using Tile = TcTile<A_KM, B_KM, A_LO, B_LO>;
   extern __shared__ float smem[];
   bf16* sm = reinterpret_cast<bf16*>(smem);
   const int n0 = blockIdx.x * GT;
@@ -466,40 +516,63 @@ gemm_tc_kernel(const bf16* __restrict__ a, int lda,
 #pragma unroll
   for (int s = 0; s < TC_STAGES - 1; ++s) {
     if (s < steps)
-      gemm_tc_stage(sm + s * TC_STAGE, a, lda, b, ldb, M, N, m0, n0,
-                    k_begin + s * TC_K, k_end);
+      gemm_tc_stage<A_KM, B_KM, A_LO, B_LO>(sm + s * Tile::kStage, a, b, M,
+                                            N, m0, n0, k_begin + s * TC_K,
+                                            k_end);
     tc::commit();
   }
   for (int s = 0; s < steps; ++s) {
     tc::wait<TC_STAGES - 2>();
     __syncthreads();  // stage s has landed; slot (s + 2) % 3 is consumed
     if (s + TC_STAGES - 1 < steps)
-      gemm_tc_stage(sm + (s + TC_STAGES - 1) % TC_STAGES * TC_STAGE, a, lda,
-                    b, ldb, M, N, m0, n0, k_begin + (s + TC_STAGES - 1) *
-                    TC_K, k_end);
+      gemm_tc_stage<A_KM, B_KM, A_LO, B_LO>(
+          sm + (s + TC_STAGES - 1) % TC_STAGES * Tile::kStage, a, b, M, N,
+          m0, n0, k_begin + (s + TC_STAGES - 1) * TC_K, k_end);
     tc::commit();
-    const bf16* as = sm + s % TC_STAGES * TC_STAGE;
-    const bf16* bs = as + GT * TC_ALD;
+    const bf16* as = sm + s % TC_STAGES * Tile::kStage;
+    const bf16* bs = as + Tile::kA * (A_LO ? 2 : 1);
 #pragma unroll
     for (int ks = 0; ks < TC_K / 16; ++ks) {
-      uint32_t af[4][4];
+      if constexpr (A_LO) {  // B's fragments held, A's hi then lo a row
+        uint32_t bf[2][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        tc::ldsm4(af[i], as + tc::frag_offset(TC_ALD, wm + 16 * i, 16 * ks));
+        for (int jp = 0; jp < 2; ++jp)
+          tc_frag_b<B_KM>(bf[jp], bs, wn + 16 * jp, 16 * ks);
 #pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        uint32_t bf[4];
-        tc::ldsm4_t(bf, bs + tc::frag_offset(TC_BLD, 16 * ks, wn + 16 * jp));
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          tc::mma(acc[i][2 * jp], af[i], bf[0], bf[1]);
-          tc::mma(acc[i][2 * jp + 1], af[i], bf[2], bf[3]);
-        }
+          for (int plane = 0; plane < 2; ++plane) {
+            uint32_t af[4];
+            tc_frag_a<A_KM>(af, as + plane * Tile::kA, wm + 16 * i, 16 * ks);
+#pragma unroll
+            for (int jp = 0; jp < 2; ++jp) {
+              tc::mma(acc[i][2 * jp], af, bf[jp][0], bf[jp][1]);
+              tc::mma(acc[i][2 * jp + 1], af, bf[jp][2], bf[jp][3]);
+            }
+          }
+      } else {
+        uint32_t af[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          tc_frag_a<A_KM>(af[i], as, wm + 16 * i, 16 * ks);
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp)
+#pragma unroll
+          for (int plane = 0; plane < (B_LO ? 2 : 1); ++plane) {
+            uint32_t bf[4];
+            tc_frag_b<B_KM>(bf, bs + plane * Tile::kB, wn + 16 * jp,
+                            16 * ks);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              tc::mma(acc[i][2 * jp], af[i], bf[0], bf[1]);
+              tc::mma(acc[i][2 * jp + 1], af[i], bf[2], bf[3]);
+            }
+          }
       }
     }
   }
 
-  c += blockIdx.z * split_stride;
+  TC* c = out.c + blockIdx.z * out.split;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -509,55 +582,133 @@ gemm_tc_kernel(const bf16* __restrict__ a, int lda,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int n = n0 + wn + 8 * j + 2 * (lane & 3);
-        if (n < N)
-          store_pair(c + (size_t)m * ldc + n, acc[i][j][2 * r],
-                     acc[i][j][2 * r + 1]);
+        if (n >= N) continue;
+        const float x = acc[i][j][2 * r], y = acc[i][j][2 * r + 1];
+        if constexpr (C_LO) {
+          uint32_t hi, lo;
+          tc::split(x, y, hi, lo);
+          *reinterpret_cast<uint32_t*>(c + (size_t)m * out.ldc + n) = hi;
+          *reinterpret_cast<uint32_t*>(c + out.lo + (size_t)m * out.ldc +
+                                       n) = lo;
+        } else {
+          store_pair(c + (size_t)m * out.ldc + n, x, y);
+        }
       }
     }
+  if constexpr (DELTA) {
+    // each warp's sum over its 32 columns of C * ctx for its rows (the
+    // quad's lanes summed by shuffles), then the two warps of a head's 64
+    // columns added in order
+    __syncthreads();  // the ring is read: its first 2 KB hold the sums
+    float* red = smem;  // [GT][4]
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wm + 16 * i + (lane >> 2) + 8 * r;
+        const int m = m0 + row;
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + wn + 8 * j + 2 * (lane & 3);
+          if (m < M && n < N) {
+            const float2 cv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(
+                    out.ctx + (size_t)m * out.ldc + n));
+            s += acc[i][j][2 * r] * cv.x + acc[i][j][2 * r + 1] * cv.y;
+          }
+        }
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        if ((lane & 3) == 0) red[row * 4 + (warp & 3)] = s;
+      }
+    __syncthreads();
+    const int row = threadIdx.x >> 1;
+    const int half = threadIdx.x & 1;
+    const int m = m0 + row;
+    const int col = n0 + 64 * half;
+    if (m < M && col < N)
+      out.delta[((size_t)(m / out.t) * out.h + col / 64) * out.t +
+                m % out.t] = red[row * 4 + 2 * half] +
+                             red[row * 4 + 2 * half + 1];
+  }
 }
 
-template <class TC>
-cudaError_t launch_gemm_tc(dim3 grid, cudaStream_t stream, const bf16* a,
-                           int lda, const bf16* b, int ldb, TC* c, int ldc,
-                           size_t stride, int M, int N, int K, int slab) {
+template <bool A_KM, bool B_KM, bool A_LO, bool B_LO, class TC,
+          bool C_LO = false, bool DELTA = false>
+cudaError_t launch_gemm_tc(dim3 grid, cudaStream_t stream, TcOperand a,
+                           TcOperand b, TcOut<TC> out, int M, int N, int K,
+                           int slab) {
+  constexpr size_t kSmem = TcTile<A_KM, B_KM, A_LO, B_LO>::kSmem;
   static bool configured = false;
-  cudaError_t err = allow_smem(gemm_tc_kernel<TC>, kGemmTcSmem, configured);
+  cudaError_t err = allow_smem(
+      gemm_tc_kernel<A_KM, B_KM, A_LO, B_LO, TC, C_LO, DELTA>, kSmem,
+      configured);
   if (err != cudaSuccess) return err;
-  gemm_tc_kernel<TC><<<grid, GNT, kGemmTcSmem, stream>>>(
-      a, lda, b, ldb, c, ldc, stride, M, N, K, slab);
+  gemm_tc_kernel<A_KM, B_KM, A_LO, B_LO, TC, C_LO, DELTA>
+      <<<grid, GNT, kSmem, stream>>>(a, b, out, M, N, K, slab);
   return cudaGetLastError();
 }
 
-// gemm() of bf16 A (i-major) and B (k-major) into bf16 C on tensor cores
-// (T = bf16; a template, so that only the sources that call it compile
-// its kernels); cudaErrorInvalidValue unless N, K, the leading dimensions
-// and ldc allow the tile's 16-byte copies and pair stores.
-template <class T>
-cudaError_t gemm_tc(OperandOf<T> A, OperandOf<T> B, T* c, int ldc, int M,
-                    int N, int K, bool split, float* partials, int sms,
+// Whether an operand of n_i rows (A's M, B's N) and depth K takes the
+// tile's 16-byte copies: its planes 16-byte aligned, ld a multiple of 8,
+// and the dimension the copies run along (i when k-major, else k) a
+// multiple of 8.
+inline bool tc_fits(const TcOperand& o, int n_i, int K) {
+  return o.ld % 8 == 0 && o.lo % 8 == 0 && (o.kmajor ? n_i : K) % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(o.p) % 16 == 0;
+}
+
+// C [M, N] (row stride ldc) of TC (bf16 or f32) = A B on tensor cores, A
+// and B in the layouts and splits of the template (checked against the
+// operands); with split, a K too deep for the C tiles to fill the card is
+// cut into slabs whose f32 partial sums go to `partials`
+// (gemm_partials floats) and are added in order.  cudaErrorInvalidValue
+// unless the operands take the tile's copies (tc_fits) and C its pair
+// stores (N and ldc even, c 4-byte aligned).
+template <bool A_KM, bool B_KM, bool A_LO, bool B_LO, class TC>
+cudaError_t gemm_tc(TcOperand A, TcOperand B, TC* c, int ldc, int M, int N,
+                    int K, bool split, float* partials, int sms,
                     cudaStream_t stream) {
-  static_assert(std::is_same<T, bf16>::value, "the tile is bf16");
-  if (N % 8 || K % 8 || A.ld % 8 || B.ld % 8 || ldc % 2 ||
-      reinterpret_cast<uintptr_t>(A.p) % 16 ||
-      reinterpret_cast<uintptr_t>(B.p) % 16 ||
-      reinterpret_cast<uintptr_t>(c) % 4)
+  if (A.kmajor != A_KM || B.kmajor != B_KM || (A.lo != 0) != A_LO ||
+      (B.lo != 0) != B_LO || !tc_fits(A, M, K) || !tc_fits(B, N, K) ||
+      N % 2 || ldc % 2 || reinterpret_cast<uintptr_t>(c) % 4)
     return cudaErrorInvalidValue;
   int slab = K;
   const int splits = split ? gemm_splits(M, N, K, sms, &slab) : 1;
   const size_t stride = (size_t)M * N;
   dim3 grid((N + GT - 1) / GT, (M + GT - 1) / GT, splits);
   if (splits == 1)
-    return launch_gemm_tc<bf16>(grid, stream, A.p, A.ld, B.p, B.ld, c, ldc,
-                                stride, M, N, K, slab);
-  cudaError_t err = launch_gemm_tc<float>(grid, stream, A.p, A.ld, B.p,
-                                          B.ld, partials, N, stride, M, N,
-                                          K, slab);
+    return launch_gemm_tc<A_KM, B_KM, A_LO, B_LO, TC>(
+        grid, stream, A, B, TcOut<TC>{c, ldc, stride}, M, N, K, slab);
+  cudaError_t err = launch_gemm_tc<A_KM, B_KM, A_LO, B_LO, float>(
+      grid, stream, A, B, TcOut<float>{partials, N, stride}, M, N, K, slab);
   if (err != cudaSuccess) return err;
   const int blocks =
       (int)std::min<size_t>((stride + GNT - 1) / GNT, 4 * (size_t)sms);
-  sum_splits<bf16><<<blocks, GNT, 0, stream>>>(partials, splits, M, N, c,
-                                               ldc);
+  sum_splits<TC><<<blocks, GNT, 0, stream>>>(partials, splits, M, N, c,
+                                             ldc);
   return cudaGetLastError();
+}
+
+// The pair's projections on tensor cores: C [M, N] = A B (A bf16 i-major,
+// B bf16 k-major or, B_KM false, i-major) unsplit, stored as the hi/lo
+// planes of its f32 value (c, c + lo, row stride ldc); with delta (the
+// dctx product, C = dctx [b t, h 64]) also delta [b, h, t] = rowsum(C *
+// ctx) per head, from the f32 accumulators.
+template <bool B_KM, bool DELTA>
+cudaError_t gemm_tc_planes(TcOperand A, TcOperand B, bf16* c, int ldc,
+                           int64_t lo, const bf16* ctx, float* delta, int t,
+                           int h, int M, int N, int K, cudaStream_t stream) {
+  if (A.kmajor || A.lo || B.lo || B.kmajor != B_KM || !tc_fits(A, M, K) ||
+      !tc_fits(B, N, K) || N % 2 || ldc % 2 || lo % 2 ||
+      reinterpret_cast<uintptr_t>(c) % 4 ||
+      (DELTA && (N % 64 || reinterpret_cast<uintptr_t>(ctx) % 4)))
+    return cudaErrorInvalidValue;
+  dim3 grid((N + GT - 1) / GT, (M + GT - 1) / GT, 1);
+  return launch_gemm_tc<false, B_KM, false, false, bf16, true, DELTA>(
+      grid, stream, A, B, TcOut<bf16>{c, ldc, 0, lo, ctx, delta, t, h}, M,
+      N, K, K);
 }
 
 template <bool A_KM, bool B_KM, class TA, class TB, class TC>
@@ -568,52 +719,60 @@ void launch_gemm_kernel(dim3 grid, cudaStream_t stream, const TA* a, int lda,
       a, lda, b, ldb, c, ldc, stride, M, N, K, slab);
 }
 
-// C [M, N] (row stride ldc) = A B on a card of `sms` SMs, C of TC
-// elements.  With split, a K too deep for the C tiles to fill the card is
-// cut into slabs whose f32 partial sums go to `partials` (gemm_partials
-// floats) and are added in order.
+// C [M, N] (row stride ldc) = A B on a card of `sms` SMs: f32 on the
+// f32 tile; bf16 (#1's y: A i-major, B k-major, the only bf16 caller) on
+// the tensor-core tile.  With split, a K too deep for the C tiles to fill
+// the card is cut into slabs whose f32 partial sums go to `partials`
+// (gemm_partials floats) and are added in order.
 template <class TA = float, class TB = float, class TC = float>
 cudaError_t gemm(OperandOf<TA> A, OperandOf<TB> B, TC* c, int ldc, int M,
                  int N, int K, bool split, float* partials, int sms,
                  cudaStream_t stream) {
-  if constexpr (std::is_same<TA, bf16>::value &&
-                std::is_same<TB, bf16>::value &&
-                std::is_same<TC, bf16>::value) {
-    if (!A.kmajor && B.kmajor)  // #1's y layout: the tensor-core tile
-      return gemm_tc(A, B, c, ldc, M, N, K, split, partials, sms, stream);
-  }
-  int slab = K;
-  const int splits = split ? gemm_splits(M, N, K, sms, &slab) : 1;
-  const size_t stride = (size_t)M * N;
-  dim3 grid((N + GT - 1) / GT, (M + GT - 1) / GT, splits);
-  if (A.kmajor && !B.kmajor)
-    return cudaErrorInvalidValue;  // no caller takes A k-major, B not
-  if (splits > 1) {  // f32 partial sums, then added in order into c
-    if (A.kmajor)
-      launch_gemm_kernel<true, true>(grid, stream, A.p, A.ld, B.p, B.ld,
-                                     partials, N, stride, M, N, K, slab);
-    else if (B.kmajor)
-      launch_gemm_kernel<false, true>(grid, stream, A.p, A.ld, B.p, B.ld,
-                                      partials, N, stride, M, N, K, slab);
-    else
-      launch_gemm_kernel<false, false>(grid, stream, A.p, A.ld, B.p, B.ld,
-                                       partials, N, stride, M, N, K, slab);
-  } else if (A.kmajor) {
-    launch_gemm_kernel<true, true>(grid, stream, A.p, A.ld, B.p, B.ld, c,
-                                   ldc, stride, M, N, K, slab);
-  } else if (B.kmajor) {
-    launch_gemm_kernel<false, true>(grid, stream, A.p, A.ld, B.p, B.ld, c,
-                                    ldc, stride, M, N, K, slab);
+  if constexpr (!std::is_same<TA, float>::value ||
+                !std::is_same<TB, float>::value ||
+                !std::is_same<TC, float>::value) {
+    static_assert(std::is_same<TA, bf16>::value &&
+                      std::is_same<TB, bf16>::value &&
+                      std::is_same<TC, bf16>::value,
+                  "f32 or bf16 throughout");
+    return gemm_tc<false, true, false, false, bf16>(
+        {A.p, A.ld, A.kmajor, 0}, {B.p, B.ld, B.kmajor, 0}, c, ldc, M, N, K,
+        split, partials, sms, stream);
   } else {
-    launch_gemm_kernel<false, false>(grid, stream, A.p, A.ld, B.p, B.ld, c,
+    int slab = K;
+    const int splits = split ? gemm_splits(M, N, K, sms, &slab) : 1;
+    const size_t stride = (size_t)M * N;
+    dim3 grid((N + GT - 1) / GT, (M + GT - 1) / GT, splits);
+    if (A.kmajor && !B.kmajor)
+      return cudaErrorInvalidValue;  // no caller takes A k-major, B not
+    if (splits > 1) {  // f32 partial sums, then added in order into c
+      if (A.kmajor)
+        launch_gemm_kernel<true, true>(grid, stream, A.p, A.ld, B.p, B.ld,
+                                       partials, N, stride, M, N, K, slab);
+      else if (B.kmajor)
+        launch_gemm_kernel<false, true>(grid, stream, A.p, A.ld, B.p, B.ld,
+                                        partials, N, stride, M, N, K, slab);
+      else
+        launch_gemm_kernel<false, false>(grid, stream, A.p, A.ld, B.p, B.ld,
+                                         partials, N, stride, M, N, K, slab);
+    } else if (A.kmajor) {
+      launch_gemm_kernel<true, true>(grid, stream, A.p, A.ld, B.p, B.ld, c,
                                      ldc, stride, M, N, K, slab);
+    } else if (B.kmajor) {
+      launch_gemm_kernel<false, true>(grid, stream, A.p, A.ld, B.p, B.ld, c,
+                                      ldc, stride, M, N, K, slab);
+    } else {
+      launch_gemm_kernel<false, false>(grid, stream, A.p, A.ld, B.p, B.ld, c,
+                                       ldc, stride, M, N, K, slab);
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || splits == 1) return err;
+    const int blocks =
+        (int)std::min<size_t>((stride + GNT - 1) / GNT, 4 * (size_t)sms);
+    sum_splits<TC><<<blocks, GNT, 0, stream>>>(partials, splits, M, N, c,
+                                               ldc);
+    return cudaGetLastError();
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const int blocks =
-      (int)std::min<size_t>((stride + GNT - 1) / GNT, 4 * (size_t)sms);
-  sum_splits<TC><<<blocks, GNT, 0, stream>>>(partials, splits, M, N, c, ldc);
-  return cudaGetLastError();
 }
 
 }  // namespace

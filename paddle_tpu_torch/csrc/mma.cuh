@@ -4,8 +4,9 @@
 // f32 value into two bf16s.
 //
 // Used by the flash forward on tensor cores (flash_tc.cuh, #4 in bf16),
-// the cluster route of #1 in bf16 (qkv_attention.cu) and gemm.cuh's
-// bf16 x bf16 -> bf16 tile (#1's y = ctx W_out).
+// the cluster route of #1 in bf16 (qkv_attention.cu), gemm.cuh's
+// tensor-core tile (#1's y = ctx W_out and the pair's five products) and
+// the pair #2 + #3's walks (flash_bwd_tc.cuh).
 //
 // Fragments of one warp, g = lane / 4, c = lane % 4 (PTX ISA, "Matrix
 // fragments for mma.m16n8k16"):

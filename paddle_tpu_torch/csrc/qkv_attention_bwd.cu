@@ -35,23 +35,34 @@
 // No atomics: each output element is summed in one fixed order, so two
 // calls on the same inputs give the same bits.
 //
-// Bound: f32 FMA work (TF32 off).  The pair's least work is 11 products of
-// b*t*dm*hd MACs (3 projections, dctx, 3 for dx, 3 for dW_qkv, dW_out) and
-// seven t x t ones per head (three in the dq walk, four in the dkv walk).
-// Stages 1 and 3 run on gemm.cuh's pipelined tile; the walks are #6's and
-// #7's (flash_walk.cuh: 128-row blocks, an 8x4 patch a thread, a two-stage
-// cp.async ring).  No tensor cores, no TMA: later work.
+// Bound in f32: FMA work (TF32 off).  The pair's least work is 11
+// products of b*t*dm*hd MACs (3 projections, dctx, 3 for dx, 3 for
+// dW_qkv, dW_out) and seven t x t ones per head (three in the dq walk,
+// four in the dkv walk).  Stages 1 and 3 run on gemm.cuh's pipelined f32
+// tile; the walks are #6's and #7's (flash_walk.cuh: 128-row blocks, an
+// 8x4 patch a thread, a two-stage cp.async ring).
 //
 // Weights dropout: the walks of flash_walk.cuh regenerate #1's mask (the
 // same hash of (seed, b * h + head, q * t + k)) from the seed, with delta
 // from #1's dropped ctx.
 //
-// bf16 (amp, ptt_qkv_bwd_bf16): x, g, the weights, the bias and ctx are
-// bf16; the q|k|v, dctx and dq|dk|dv scratch and all arithmetic stay f32
-// (gemm.cuh converts each bf16 operand as it lands in shared memory, and
-// the walks read f32 rows under a bf16 bias); dx is stored in x's dtype
-// and dW_qkv, dW_out in the weights', as the reference's custom VJP
-// returns them.
+// bf16 (amp, ptt_qkv_bwd_bf16), on tensor cores: x, g, the weights, the
+// bias and ctx are bf16.  The same three stages, every product an
+// mma.sync kernel: 1. gemm.cuh's tensor-core tile projects q|k|v and dctx
+// (exact bf16 products summed in f32) and stores them as hi/lo bf16
+// planes in the scratch the f32 values would take (gemm_tc_planes; the
+// dctx product also forms delta from its f32 accumulators, so no
+// row_delta); 2. flash_bwd_tc.cuh's walks read the planes by cp.async and
+// write dq|dk|dv as planes; 3. the tile takes dx = [dq|dk|dv] W_qkv^T (A
+// split: two MMAs), dW_qkv = x^T [dq|dk|dv] (B split, split-K) and dW_out
+// = ctx^T g (split-K).  The reference holds q, k, v, dctx, p, ds and
+// dq|dk|dv in f32; each is split v = hi + lo (v to 2^-16 of itself), a
+// product of two split operands is three MMAs (hi hi + hi lo + lo hi), of
+// a split and a bf16 operand two.  dx is rounded to x's dtype once and
+// dW_qkv, dW_out to the weights', as the reference's custom VJP returns
+// them.  MMA work at the amp step's shapes (b 32, t 256, d_model 512, 8
+// heads): 73.0 GFLOP in the GEMM stages and 45.1 in the walks, for the
+// function's 47.2 + 15.0.
 //
 // Masking follows #1: causal and out-of-range keys score nothing; a row
 // whose lse is +inf (masked in the forward) gets p = 0, so zero gradients;
@@ -63,6 +74,7 @@
 
 #include <algorithm>
 
+#include "flash_bwd_tc.cuh"
 #include "flash_walk.cuh"
 #include "gemm.cuh"
 
@@ -148,16 +160,23 @@ extern "C" int64_t ptt_qkv_bwd_scratch(int walks, int b, int t, int dm,
   return scratch_floats(walks, b, t, dm, n_head * DH, sms, nullptr, nullptr);
 }
 
+// Dynamic shared memory of a block of the bf16 pair's walks (walk 0: dq,
+// 1: dkv) in bytes.
+extern "C" int64_t ptt_qkv_bwd_walk_smem(int walk) {
+  return (int64_t)(walk ? kBwdDkvTcSmem : kBwdDqTcSmem);
+}
+
 namespace {
 
-// The pair on operands of T (f32 or bf16): ptt_qkv_bwd's arguments.
-template <class T>
-int qkv_bwd(int walks, const T* x, const T* w_qkv, const T* w_out,
-            const T* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
-            int64_t bs_k, const T* g, const T* ctx, const float* lse,
-            float* scratch, T* dx, T* dw, T* dw_out, int b, int t, int dm,
-            int n_head, int sms, float scale, int causal, double rate,
-            unsigned seed, unsigned threshold, void* stream_ptr) {
+// The pair in f32: ptt_qkv_bwd's arguments.
+int qkv_bwd(int walks, const float* x, const float* w_qkv,
+            const float* w_out, const float* bias, int64_t bs_b,
+            int64_t bs_h, int64_t bs_q, int64_t bs_k, const float* g,
+            const float* ctx, const float* lse, float* scratch, float* dx,
+            float* dw, float* dw_out, int b, int t, int dm, int n_head,
+            int sms, float scale, int causal, double rate, unsigned seed,
+            unsigned threshold, void* stream_ptr) {
+  using T = float;
   if (walks < 1 || walks > 3) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int hd = n_head * DH;
@@ -212,6 +231,68 @@ int qkv_bwd(int walks, const T* x, const T* w_qkv, const T* w_out,
                             dm, bt, true, s.partials, sms, stream);
 }
 
+// The pair in bf16 on tensor cores: ptt_qkv_bwd_bf16's arguments.  The
+// scratch's q|k|v, dctx and dq|dk|dv regions hold hi/lo bf16 planes.
+int qkv_bwd_tc(int walks, const bf16* x, const bf16* w_qkv,
+               const bf16* w_out, const bf16* bias, int64_t bs_b,
+               int64_t bs_h, int64_t bs_q, int64_t bs_k, const bf16* g,
+               const bf16* ctx, const float* lse, float* scratch, bf16* dx,
+               bf16* dw, bf16* dw_out, int b, int t, int dm, int n_head,
+               int sms, float scale, int causal, double rate, unsigned seed,
+               unsigned threshold, void* stream_ptr) {
+  if (walks < 1 || walks > 3) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int hd = n_head * DH;
+  const int bt = b * t;
+  const Cols cols = walk_cols(walks, hd);
+  Scratch s;
+  scratch_floats(walks, b, t, dm, hd, sms, &s, scratch);
+  // each region's hi plane, its lo plane after it
+  bf16* qkv = reinterpret_cast<bf16*>(s.qkv);
+  bf16* dctx = reinterpret_cast<bf16*>(s.dctx);
+  bf16* dqkv = reinterpret_cast<bf16*>(s.dqkv);
+  const int64_t qkv_lo = (int64_t)bt * 3 * hd;
+  const int64_t dctx_lo = (int64_t)bt * hd;
+
+  // 1. q|k|v = x w_qkv; dctx = g w_out^T with delta = rowsum(dctx * ctx)
+  cudaError_t err = gemm_tc_planes<true, false>(
+      {x, dm, false, 0}, {w_qkv, 3 * hd, true, 0}, qkv, 3 * hd, qkv_lo,
+      nullptr, nullptr, t, n_head, bt, 3 * hd, dm, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = gemm_tc_planes<false, true>(
+      {g, dm, false, 0}, {w_out, dm, false, 0}, dctx, hd, dctx_lo, ctx,
+      s.delta, t, n_head, bt, hd, dm, stream);
+  if (err != cudaSuccess) return (int)err;
+
+  // 2. the walks, into the q|k|v columns of dqkv
+  const BiasOf<bf16> bs{bias, bs_b, bs_h, bs_q, bs_k};
+  const Planes qkv_p{qkv, qkv_lo, 3 * hd};
+  const Planes dctx_p{dctx, dctx_lo, hd};
+  const PlanesOf<bf16> dqkv_p{dqkv, qkv_lo, 3 * hd};
+  const Dropout drop = hash_rng::make_dropout(rate, seed, threshold);
+  for (int walk = 0; walk < 2; ++walk) {
+    if (!(walks & (walk ? kWalkDkv : kWalkDq))) continue;
+    err = bwd_tc(walk, qkv_p, dctx_p, bs, lse, s.delta, dqkv_p, b, t,
+                 n_head, scale, causal, drop, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  // 3. dx = dqkv[:, cols] w_qkv[:, cols]^T; dW = x^T dqkv[:, cols];
+  //    dW_out = ctx^T g
+  err = gemm_tc<false, false, true, false, bf16>(
+      {dqkv + cols.c0, 3 * hd, false, qkv_lo},
+      {w_qkv + cols.c0, 3 * hd, false, 0}, dx, dm, bt, dm, cols.w, false,
+      nullptr, sms, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = gemm_tc<true, true, false, true, bf16>(
+      {x, dm, true, 0}, {dqkv + cols.c0, 3 * hd, true, qkv_lo}, dw, cols.w,
+      dm, cols.w, bt, true, s.partials, sms, stream);
+  if (err != cudaSuccess || !(walks & kWalkDq)) return (int)err;
+  return (int)gemm_tc<true, true, false, false, bf16>(
+      {ctx, hd, true, 0}, {g, dm, true, 0}, dw_out, dm, hd, dm, bt, true,
+      s.partials, sms, stream);
+}
+
 }  // namespace
 
 // #2 + #3.  walks: bit 0 runs the dq walk (#2), bit 1 the dkv walk (#3);
@@ -239,8 +320,9 @@ extern "C" int ptt_qkv_bwd(int walks, const float* x, const float* w_qkv,
                  scale, causal, rate, seed, threshold, stream_ptr);
 }
 
-// #2 + #3 in bf16 (amp): as ptt_qkv_bwd with x, the weights, the bias, g,
-// ctx, dx, dw and dw_out bf16; lse and the scratch f32.
+// #2 + #3 in bf16 (amp), on tensor cores: as ptt_qkv_bwd with x, the
+// weights, the bias, g, ctx, dx, dw and dw_out bf16, lse f32, and the
+// scratch of ptt_qkv_bwd_scratch floats (its regions hold bf16 planes).
 extern "C" int ptt_qkv_bwd_bf16(int walks, const bf16* x, const bf16* w_qkv,
                                 const bf16* w_out, const bf16* bias,
                                 int64_t bs_b, int64_t bs_h, int64_t bs_q,
@@ -250,7 +332,7 @@ extern "C" int ptt_qkv_bwd_bf16(int walks, const bf16* x, const bf16* w_qkv,
                                 int n_head, int sms, float scale, int causal,
                                 double rate, unsigned seed,
                                 unsigned threshold, void* stream_ptr) {
-  return qkv_bwd(walks, x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, g,
-                 ctx, lse, scratch, dx, dw, dw_out, b, t, dm, n_head, sms,
-                 scale, causal, rate, seed, threshold, stream_ptr);
+  return qkv_bwd_tc(walks, x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, g,
+                    ctx, lse, scratch, dx, dw, dw_out, b, t, dm, n_head, sms,
+                    scale, causal, rate, seed, threshold, stream_ptr);
 }

@@ -121,7 +121,7 @@ _SIGNATURES = {
     "ptt_gemm_partials": (_L, [_I] * 4),
     "ptt_gemm_slab": (_I, [_I] * 4),
     "ptt_gemm_smem": (_L, []),
-    "ptt_gemm_tc_smem": (_L, []),
+    "ptt_gemm_tc_smem": (_L, [_I] * 4),
     "ptt_gemm": (_I, [_P, _I, _I, _P, _I, _I, _P] + [_I] * 4
                  + [_P, _I, _I, _P]),
     "ptt_qkv_fwd_scratch": (_L, [_I] * 5),
@@ -131,6 +131,7 @@ _SIGNATURES = {
     "ptt_qkv_cluster_occupancy": (_I, [_I, _I]),
     "ptt_qkv_cluster_smem": (_L, [_I, _I]),
     "ptt_qkv_bwd_scratch": (_L, [_I] * 6),
+    "ptt_qkv_bwd_walk_smem": (_L, [_I]),
     "ptt_qkv_bwd": (_I, [_I] + [_P] * 4 + [_L] * 4 + [_P] * 7 + [_I] * 5
                     + [_F, _I] + _DROP + [_P]),
     "ptt_megastep_scratch": (_L, [_I] * 5),
@@ -179,7 +180,8 @@ _SIGNATURES.update({
     for name in ("ptt_qkv_attention_fwd", "ptt_qkv_bwd", "ptt_flash_fwd",
                  "ptt_flash_bwd_dq", "ptt_flash_bwd_dkv", "ptt_dropout_add",
                  "ptt_dropout_add_bwd")})
-_SIGNATURES["ptt_gemm_typed"] = (_I, [_I] + _SIGNATURES["ptt_gemm"][1])
+_SIGNATURES["ptt_gemm_typed"] = (
+    _I, [_I, _P, _I, _I, _L, _P, _I, _I, _L, _P] + [_I] * 4 + [_P, _I, _I, _P])
 
 
 def lib() -> ctypes.CDLL:

@@ -45,11 +45,12 @@ name + "_bf16").  Their tensors are bf16 (x, the weights, the bias, y,
 ctx, dx, the dW in the fused kernels; q, k, v, the bias, o, dO, dq, dk, dv
 in the bthd ones), lse and delta f32.  The reference computes on the
 bf16 operands in f32, and so do the twins (the projections of bf16
-operands in f32, #1's ctx rounded to bf16 before the y product) and the
-pair's and #6's, #7's kernels.  #4 and #1 (its y too) run on tensor
+operands in f32, #1's ctx rounded to bf16 before the y product) and
+#6's and #7's kernels.  #4, #1 (its y too) and the pair run on tensor
 cores: exact bf16 products summed in f32, the f32 intermediates (p; #1's
-q, k, v and p) split into hi/lo bf16 pairs (``csrc/mma.cuh``).  The bhtd
-kernels (#5, #8, #9) are f32 only.
+q, k, v and p; the pair's q, k, v, dctx, p, ds and dq | dk | dv) split
+into hi/lo bf16 pairs (``csrc/mma.cuh``).  The bhtd kernels (#5, #8,
+#9) are f32 only.
 """
 
 from __future__ import annotations

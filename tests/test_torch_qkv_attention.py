@@ -727,3 +727,113 @@ def test_tensor_core_numerics_match_jax_kernel(name, n_head, t, bias_kind,
     _close(got_lse.numpy()[live], want_lse[live], 1e-5, 1e-5)
     _close_bf16(got_ctx.float().transpose(1, 2), f32(ctx))
     _close_bf16(got_y.float(), f32(y))
+
+
+# ---------------------------------------------------------------------------
+# the pair #2 + #3 in bf16 on tensor cores (csrc/qkv_attention_bwd.cu with
+# csrc/flash_bwd_tc.cuh and gemm.cuh's gemm_tc): its numerics, emulated
+# ---------------------------------------------------------------------------
+
+
+def _mma3(a, b):
+    """A product of two f32 operands as the walks take it: a and b split
+    into hi/lo bf16s, hi hi + hi lo + lo hi summed in f32."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _tc_qkv_backward(x, w_qkv, w_out, bias, g, ctx, lse, n_head, scale,
+                     causal, rate, seed):
+    """The pair's arithmetic on the card, in PyTorch: the projections q |
+    k | v = x W_qkv and dctx = g W_out^T of the bf16 operands (exact
+    products, f32 sums), delta = rowsum(dctx * ctx) from the f32 dctx;
+    q, k, v and dctx split into hi/lo bf16s; s = q k^T and dp = dctx v^T
+    as three-term products; p = exp(s * scale + bias - lse) (0 at causally
+    hidden keys), dp dropped and scaled, ds = p (dp - delta) * scale; dq =
+    ds k, dk = ds^T q and dv = p_d^T dctx (p_d: p dropped and scaled) as
+    three-term products; dq | dk | dv split, and dx = [dq | dk | dv]
+    W_qkv^T and dW_qkv = x^T [dq | dk | dv] as two-term products (hi and
+    lo times the bf16 operand); dW_out = ctx^T g.  dx, dW_qkv and dW_out
+    rounded to bf16 once.  ctx [b, t, h, dh] bf16, lse [b, h, t] f32."""
+    b, t, dm = x.shape
+    hd = w_qkv.shape[1] // 3
+    dh = hd // n_head
+
+    def heads(a):  # [b, t, hd] -> [b, h, t, dh]
+        return a.reshape(b, t, n_head, dh).transpose(1, 2)
+
+    q, k, v = (heads(a) for a in (x.float() @ w_qkv.float()).split(hd, -1))
+    dctx = heads(g.float() @ w_out.float().t())
+    delta = (dctx * ctx.float().transpose(1, 2)).sum(-1, keepdim=True)
+    s = _mma3(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = p.masked_fill(~ka._causal_keep(t, t, p.device), 0.0)
+    dp = _mma3(dctx, v.transpose(-1, -2))
+    p_d = p
+    if rate:
+        keep = hash_rng.keep_mask_attn(seed, p.shape, rate)
+        inv_keep = float(np.float32(1.0 / (1.0 - rate)))
+        p_d = torch.where(keep, p * inv_keep, 0.0)
+        dp = torch.where(keep, dp * inv_keep, 0.0)
+    ds = p * (dp - delta) * scale
+    dq = _mma3(ds, k)
+    dk = _mma3(ds.transpose(-1, -2), q)
+    dv = _mma3(p_d.transpose(-1, -2), dctx)
+    dqkv = torch.cat([a.transpose(1, 2).reshape(b * t, hd)
+                      for a in (dq, dk, dv)], 1)
+    hi, lo = _split(dqkv)
+    w = w_qkv.float()
+    xt = x.float().reshape(b * t, dm).t()
+    dx = hi @ w.t() + lo @ w.t()
+    dw = xt @ hi + xt @ lo
+    dw_out = ctx.float().reshape(b * t, hd).t() @ g.float().reshape(b * t,
+                                                                    dm)
+    return (dx.reshape(b, t, dm).bfloat16(), dw.bfloat16(),
+            dw_out.bfloat16())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("name,n_head,t,bias_kind,causal", BF16_CASES)
+def test_pair_tensor_core_numerics_match_jax_kernels(name, n_head, t,
+                                                     bias_kind, causal,
+                                                     rate):
+    """The emulated arithmetic of the pair's tensor-core kernels (exact
+    bf16 projections, dW_out and dctx; q, k, v, dctx, p, ds and dq | dk |
+    dv split into hi/lo; three-term t x t products, two-term dx and dW)
+    on bf16 operands and _qkv_forward's ctx and lse, against
+    _qkv_backward in interpret mode on the same bf16 operands, residuals
+    and hash mask: dx (two steps), dW_qkv and dW_out within
+    _close_bf16."""
+    x, w_qkv, w_out, g, bias = _inputs(n_head, t, bias_kind, seed=3)
+    (tx, jx), (tw, jw), (to, jo), (tg, jg), (tb, jb) = _bf16(
+        x, w_qkv, w_out, g, bias)
+    seed = 0x2545F491
+    ok, bq, bk, _ = jax_attention._qkv_plan(jx, n_head, DH, 512, 512, True,
+                                            bias=jb)
+    assert ok
+    w3 = jax_attention._prep_w_qkv(jw, n_head, DH)
+    wo = jax_attention._prep_w_out(jo, n_head, DH)
+    seeds = jnp.asarray([seed], jnp.uint32)
+    _, ctx, lse = jax_attention._qkv_forward(
+        jx, w3, wo, jb, seeds, SCALE, causal, n_head, DH, bq, bk, True,
+        rate, False)
+    dx_q, dx_kv, dwq, dwk, dwv, dwo = jax_attention._qkv_backward(
+        jx, w3, wo, jb, seeds, ctx, lse, jg, SCALE, causal, n_head, DH, bq,
+        bk, True, rate, False)
+
+    def f32(a):
+        return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+    t_ctx = torch.from_numpy(np.array(f32(ctx))).transpose(1, 2).bfloat16()
+    t_lse = torch.from_numpy(np.array(f32(lse)))
+    dx, dw_qkv, dw_out = _tc_qkv_backward(tx, tw, to, tb, tg, t_ctx, t_lse,
+                                          n_head, SCALE, causal, rate, seed)
+    want_dx = (dx_q.astype(jnp.float32) + dx_kv.astype(jnp.float32)).astype(
+        jnp.bfloat16)
+    _close_bf16(dx.float(), f32(want_dx), 2)
+    _close_bf16(dw_qkv.float(), f32(jax_attention._unpack_dw_qkv(
+        dwq, dwk, dwv, jnp.float32)))
+    _close_bf16(dw_out.float(), f32(dwo.reshape(n_head * DH, DM)))

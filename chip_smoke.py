@@ -2096,12 +2096,18 @@ AMP_FLASH_CASES = (("cross tq 256 tk 256", 256, 256, "pad", False),
 
 
 def check_flash_attention_bf16(gen):
-    """#4, #6 and #7 in bf16 (amp) against their bf16 twins on
-    AMP_FLASH_CASES at rates 0 and DROPOUT, each called twice for equal
-    bits, by ``compare_bf16``; at the record case each timed beside its
-    twin and masked ``F.scaled_dot_product_attention`` in bf16 (its
-    backward for #6 and #7), bounds at 2 bytes an element and the bf16
-    tensor-core rate.  Returns {kernel name: record}."""
+    """#4, #6 and #7 in bf16 (amp), all on tensor cores, against their
+    bf16 twins on AMP_FLASH_CASES at rates 0 and DROPOUT, each called
+    twice for equal bits, by ``compare_bf16``; a row masked in the forward
+    (lse = +inf) gets dq = 0.  At the record case each is timed beside its
+    twin, the parent's kernel (``tensor_core_times``) and masked
+    ``F.scaled_dot_product_attention`` in bf16 (its backward for #6 and
+    #7), with and without the host's enqueue, bounds at 2 bytes an element
+    and the bf16 tensor-core rate, and the share of o, dq, dk and dv off
+    the float64 value rounded to bf16 at most TOL_OFF_ROUNDING (the
+    parent's share beside #6's and #7's).  A bias view at an odd element
+    gives the aligned bias's bits in all three.  Returns {kernel name:
+    record}."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import attention as ka
@@ -2138,6 +2144,12 @@ def check_flash_attention_bf16(gen):
             dk, dv = ka.flash_bwd_dkv(*bw, **kw)
             _require_same_bits(f"flash_bwd_dkv {what}", (dk, dv),
                                ka.flash_bwd_dkv(*bw, **kw))
+            if bias_kind == "masked":
+                # the row masked in the forward (lse = +inf) gets dq = 0
+                require(torch.isinf(lse[-1, :, tq - 5]).all().item()
+                        and not dq[-1, tq - 5].any().item(),
+                        f"flash_bwd_dq {what}: the masked row's dq is not "
+                        "0")
             want_dk, want_dv = ka.reference_flash_bwd_dkv(*bw, **kw)
             errs[rate] = (err_f, compare_bf16(
                 f"flash_bwd_dq {what}", dq,
@@ -2155,6 +2167,7 @@ def check_flash_attention_bf16(gen):
                            ka.flash_fwd(q, k, v, bias, **kw0)[0],
                            ka.reference_flash_fwd(*(a.double() for a in (
                                q, k, v, bias)), **kw0)[0])
+        bw_off = _flash_bwd_off_rounding(bw0, kw0)
         mask = bias
         lq, lk, lv = (a.transpose(1, 2).detach().requires_grad_()
                       for a in (q, k, v))
@@ -2176,7 +2189,11 @@ def check_flash_attention_bf16(gen):
         bias_bytes = BF16 * bias.numel()
         stats = F32 * 2 * b * h * tq
         hashes = ATTN_HASH_OPS * b * h * _visible_pairs(tq, tk, causal)
-        src = "paddle_tpu_torch/csrc/flash_attention.cu"
+        src = "paddle_tpu_torch/csrc/flash_bwd_tc.cuh"
+        # MMA FLOPs issued, in t x t products with the splits: #4 3 (s,
+        # p v twice), the dq walk 4, the dkv walk 6; the functions' 2, 3
+        # and 4 (``mult``)
+        mma_mult = (6, 8, 12)
         for i, (kernel, line, fn, twin, mult, nbytes) in enumerate((
                 ("flash_fwd", 550, ka.flash_fwd, ka.reference_flash_fwd, 4,
                  2 * rows + 2 * keys + bias_bytes + stats // 2),
@@ -2199,11 +2216,14 @@ def check_flash_attention_bf16(gen):
                        dropout_max_abs_err=errs[DROPOUT][i],
                        dropout_ms=cuda_ms(lambda: fn(*args_d, **kw_d)),
                        dropout_bound_ms=bound_bf16(mult * flops, nbytes,
-                                                   hashes)[0])
-            if i == 0:  # the parent's kernel (CUDA cores), same inputs
-                tensor_core_times(rec, lambda: fn(*args, **kw0),
-                                  lambda: fn(*args_d, **kw_d), lib_fwd)
-                rec["off_rounding_share"] = off
+                                                   hashes)[0],
+                       mma_flops=mma_mult[i] * flops)
+            # the parent's kernel (#4: tensor cores; #6, #7: the CUDA
+            # cores), same inputs
+            tensor_core_times(rec, lambda: fn(*args, **kw0),
+                              lambda: fn(*args_d, **kw_d),
+                              lib_fwd if i == 0 else lib_bwd)
+            rec["off_rounding_share"] = off if i == 0 else bw_off[kernel]
             out[kernel + "_bf16"] = rec
         del lib_out
     odd_gen = torch.Generator().manual_seed(4)
@@ -2213,7 +2233,34 @@ def check_flash_attention_bf16(gen):
                            lambda bias_, kw: ka.flash_fwd(q, k, v, bias_,
                                                           **kw),
                            bias, dict(scale=scale, causal=False))
+    do = randn(odd_gen, *q.shape).bfloat16()
+    o, lse = ka.flash_fwd(q, k, v, bias, scale=scale)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    _require_odd_bias_bits("flash_bwd_dq bf16 decoder self",
+                           lambda bias_, kw: (ka.flash_bwd_dq(
+                               q, k, v, bias_, do, lse, delta, **kw),),
+                           bias, dict(scale=scale, causal=False))
+    _require_odd_bias_bits("flash_bwd_dkv bf16 decoder self",
+                           lambda bias_, kw: ka.flash_bwd_dkv(
+                               q, k, v, bias_, do, lse, delta, **kw),
+                           bias, dict(scale=scale, causal=False))
     return out
+
+
+def _flash_bwd_off_rounding(bw, kw):
+    """#6's dq and #7's dk, dv in bf16 off the float64 twin's value rounded
+    to bf16: {"flash_bwd_dq": ``_off_rounding_shares``, "flash_bwd_dkv":
+    ...}."""
+    from paddle_tpu_torch.kernels import attention as ka
+
+    b64 = [None if a is None else a.double() for a in bw]
+    return {"flash_bwd_dq": _off_rounding_shares(
+                "flash_bwd_dq bf16", ("dq",), lambda: (ka.flash_bwd_dq(
+                    *bw, **kw),), (ka.reference_flash_bwd_dq(*b64, **kw),)),
+            "flash_bwd_dkv": _off_rounding_shares(
+                "flash_bwd_dkv bf16", ("dk", "dv"),
+                lambda: ka.flash_bwd_dkv(*bw, **kw),
+                ka.reference_flash_bwd_dkv(*b64, **kw))}
 
 
 def check_qkv_bf16(gen):
@@ -2372,27 +2419,34 @@ def check_qkv_bf16(gen):
     return out
 
 
-def _pair_off_rounding(bw, kw):
-    """The share of the bf16 pair's dx, dW_qkv and dW_out (walks 3) off
-    the float64 twin's value rounded to bf16, for this tree's kernels and
-    (with ``--parent``) the parent's: {"tree": [3], "parent": [3] or
-    None}; each of the tree's at most TOL_OFF_ROUNDING (compare_bf16
-    cannot tell whether an f32 intermediate keeps its hi/lo split)."""
-    from paddle_tpu_torch.kernels import attention as ka
-
-    exact = ka.reference_qkv_bwd(*(None if a is None else a.double()
-                                   for a in bw), **kw)
-    names = ("dx", "dW_qkv", "dW_out")
-    tree = [off_rounding(f"qkv_bwd bf16 {n}", a, e) for n, a, e in zip(
-        names, ka.qkv_bwd(*bw, **kw), exact)]
+def _off_rounding_shares(what, names, fn, exact):
+    """The share of each of fn()'s bf16 outputs ``names`` off ``exact``
+    (the float64 twin's) rounded to bf16, for this tree's kernels and (with
+    ``--parent``) the parent's: {"tree": [...], "parent": [...] or None};
+    each of the tree's at most TOL_OFF_ROUNDING (compare_bf16 cannot tell
+    whether an f32 intermediate keeps its hi/lo split)."""
+    tree = [off_rounding(f"{what} {n}", a, e)
+            for n, a, e in zip(names, fn(), exact)]
     parent = None
     if parent_lib() is not None:
         with kernel_library(parent_lib()):
-            got = ka.qkv_bwd(*bw, **kw)
+            got = fn()
             torch.cuda.synchronize()
         parent = [(a != e.to(a.dtype)).double().mean().item()
                   for a, e in zip(got, exact)]
     return dict(tree=tree, parent=parent)
+
+
+def _pair_off_rounding(bw, kw):
+    """The bf16 pair's dx, dW_qkv and dW_out (walks 3):
+    ``_off_rounding_shares``."""
+    from paddle_tpu_torch.kernels import attention as ka
+
+    return _off_rounding_shares(
+        "qkv_bwd bf16", ("dx", "dW_qkv", "dW_out"),
+        lambda: ka.qkv_bwd(*bw, **kw),
+        ka.reference_qkv_bwd(*(None if a is None else a.double()
+                               for a in bw), **kw))
 
 
 #: the pair's five products at a shape (b t rows, d_model dm, h 64 = hd):
@@ -2492,10 +2546,13 @@ def check_dropout_add_bf16(gen):
 # ---------------------------------------------------------------------------
 
 #: the tensor-core kernels (fragments of their mangled names) and the
-#: source whose object ``sass_mma`` reads for each: #4, #1's cluster route
-#: and its y tile, the pair's walks and its GEMM stages (the tile in the
-#: pair's five layouts), and the tile as gemm.cu exports it
+#: source whose object ``sass_mma`` reads for each: #4 and the walks of #6
+#: and #7 (one bf16 plane), #1's cluster route and its y tile, the pair's
+#: walks (hi/lo planes) and its GEMM stages (the tile in the pair's five
+#: layouts), and the tile as gemm.cu exports it
 TC_KERNELS = (("flash_fwd_tc_kernel", "flash_attention.cu"),
+              ("flash_dq_tc_kernel", "flash_attention.cu"),
+              ("flash_dkv_tc_kernel", "flash_attention.cu"),
               ("qkv_cluster_tc_kernel", "qkv_attention.cu"),
               ("gemm_tc_kernel", "qkv_attention.cu"),
               ("bwd_dq_tc_kernel", "qkv_attention_bwd.cu"),
@@ -2639,15 +2696,17 @@ def tensor_core_times(rec, fn, fn_d=None, lib=None):
 def check_parent_bits(gen):
     """With ``--parent``: the kernels this tree keeps as they were, each
     called on the same inputs with this tree's library and with the
-    parent's, must give the same bits: #4-#9 in f32 and #6, #7 in bf16 on
-    the decoder self-attention (BERT-base's for the bhtd ones), #1 in f32
-    on the cluster route (R 64 and 32) and the tiles route, #1's tiles
-    route in bf16, the pair #2 + #3 in f32, ``gemm.cuh``'s f32 tile at the
-    pair's products, #19 (its tile)
-    at ResNet-50's stage-1 conv3, and #16, #17 in f32 and bf16, each at
-    rates 0 and DROPOUT where it drops.  ``gen`` is a generator of its
-    own, so that the later checks draw the parent's inputs.  Returns the
-    names held, or None without a parent."""
+    parent's, must give the same bits: #4-#9 in f32 and #4 in bf16 on the
+    decoder self-attention (BERT-base's for the bhtd ones), #1 in f32 on
+    the cluster route (R 64 and 32) and the tiles route, #1 in bf16 with
+    its y on the cluster route (R 64) and the tiles route, the pair #2 +
+    #3 in f32 and in bf16 (both walks), ``gemm.cuh``'s f32 tile at the
+    pair's products and its tensor-core tile at GEMM_AMP_CASES, #19 (its
+    tile) at ResNet-50's stage-1 conv3, and #16, #17 in f32 and bf16, each
+    at rates 0 and DROPOUT where it drops.  (#6 and #7 in bf16 are this
+    tree's new walks.)  ``gen`` is a generator of its own, so that the
+    later checks draw the parent's inputs.  Returns the names held, or
+    None without a parent."""
     lib = parent_lib()
     if lib is None:
         return None
@@ -2680,12 +2739,12 @@ def check_parent_bits(gen):
                 q, k, v, do, bias = _bf16(q, k, v, do, bias)
             kw = dict(scale=dh ** -0.5, causal=False, dropout_rate=rate,
                       dropout_seed=seed)
-            if dtype == "f32":
-                same(f"flash_fwd f32 rate {rate}",
-                     lambda: ka.flash_fwd(q, k, v, bias, **kw))
+            same(f"flash_fwd {dtype} rate {rate}",
+                 lambda: ka.flash_fwd(q, k, v, bias, **kw))
+            if dtype == "bf16":
+                continue
             o, lse = ka.flash_fwd(q, k, v, bias, **kw)
-            delta = (do.float() * o.float()).sum(-1).transpose(
-                1, 2).contiguous()
+            delta = (do * o).sum(-1).transpose(1, 2).contiguous()
             bw = (q, k, v, bias, do, lse, delta)
             same(f"flash_bwd_dq {dtype} rate {rate}",
                  lambda: ka.flash_bwd_dq(*bw, **kw))
@@ -2713,15 +2772,9 @@ def check_parent_bits(gen):
             kw = dict(n_head=h, scale=dh ** -0.5, causal=False,
                       dropout_rate=rate, dropout_seed=seed)
             plan = ka.qkv_fwd_plan(x.shape[0], t, h, ka.sm_count(x.device))
-            if dtype == "f32":
-                same(f"qkv_attention_fwd f32 {plan} rate {rate}",
-                     lambda: ka.qkv_attention_fwd(x, w_qkv, w_out, bias,
-                                                  **kw))
-            elif plan[0] == "tiles":  # its ctx and lse; y is the new tile's
-                same(f"qkv_attention_fwd bf16 {plan} ctx, lse rate {rate}",
-                     lambda: ka.qkv_attention_fwd(x, w_qkv, w_out, bias,
-                                                  **kw)[1:])
-            if t == 256 and b is None and dtype == "f32":
+            same(f"qkv_attention_fwd {dtype} {plan} rate {rate}",
+                 lambda: ka.qkv_attention_fwd(x, w_qkv, w_out, bias, **kw))
+            if t == 256 and b is None:
                 _, ctx, lse = ka.qkv_attention_fwd(x, w_qkv, w_out, bias,
                                                    **kw)
                 same(f"qkv_bwd {dtype} rate {rate}",
@@ -2741,6 +2794,16 @@ def check_parent_bits(gen):
         a, b = (x.t().contiguous().t() if t_ else x.contiguous()
                 for x, t_ in ((a, a_t), (b, b_t)))
         same(f"gemm {name}", lambda: kg.gemm(a, b, split))
+    for name, m, n, k, a_t, b_t, split, a_bf, b_bf, c_bf in GEMM_AMP_CASES:
+        a = (randn(gen, k, m, scale=k ** -0.5).t() if a_t
+             else randn(gen, m, k, scale=k ** -0.5))
+        b = randn(gen, n, k).t() if b_t else randn(gen, k, n)
+        a, b = (x.t().contiguous().t() if t_ else x.contiguous()
+                for x, t_ in ((a, a_t), (b, b_t)))
+        a = a.bfloat16() if a_bf else kg.hi_lo(a)
+        b = b.bfloat16() if b_bf else kg.hi_lo(b)
+        c_dtype = torch.bfloat16 if c_bf else torch.float32
+        same(f"gemm_tc {name}", lambda: kg.gemm(a, b, split, c_dtype))
     x2, w2 = randn(gen, 256 * 56 * 56, 64), randn(gen, 256, 64)
     same("dot_col_stats stage-1 conv3", lambda: kc.dot_col_stats_fwd(x2, w2))
     return held
@@ -2766,18 +2829,20 @@ def build_registers(log):
 def parent_registers(log):
     """The f32 instantiations of the parent's PARENT_SOURCES against this
     tree's build: {"equal": n, "differ": [...], "unmatched": [...]}, by
-    mangled name without the anonymous namespace's per-source hash (a
-    kernel whose template lost its element type, f32 being the only one
-    left, is matched by its name and other template arguments)."""
+    mangled name without the anonymous namespace's per-source hash.  A
+    kernel whose template lost its element types, f32 being the only one
+    left (#1's tiles route its T; the flash walks their T and BT, so
+    ``flash_bwd_dq_kernel<Bthd, false, float, float>`` is now
+    ``flash_bwd_dq_kernel<Bthd, false>``), is matched by its name and its
+    other template arguments: the layout and DROP."""
     import re
 
     def key(name):
         return re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN_",
                       name)
 
-    def template(name):  # kernel and template arguments, f32 type dropped
-        head = name.split("EEv", 1)[0]
-        return head[:-1] if head.endswith("Ef") else head
+    def template(name):  # kernel and template arguments, f32 types dropped
+        return re.sub(r"(?<=E)f+$", "", name.split("EEv", 1)[0])
 
     mine = {key(n): r for n, r in build_registers(log).items()}
     by_template = {template(n): r for n, r in mine.items()}
@@ -5011,13 +5076,16 @@ def _attention_fwd_us(rows):
 
 def _walks_us(rows):
     """Device us of the backward walks (``csrc/flash_walk.cuh``'s dq and
-    dkv kernels, in every layout and inside the f32 pair; the bf16 pair's,
-    ``csrc/flash_bwd_tc.cuh``) among the profiler's rows."""
+    dkv kernels, in every layout and inside the f32 pair; the tensor-core
+    walks of ``csrc/flash_bwd_tc.cuh``, the bf16 pair's and #6's and #7's
+    in bf16) among the profiler's rows."""
     return sum(us for name, us in rows
                if "flash_bwd_dq_kernel<" in name
                or "flash_bwd_dkv_kernel<" in name
                or "::bwd_dq_tc_kernel<" in name
-               or "::bwd_dkv_tc_kernel<" in name)
+               or "::bwd_dkv_tc_kernel<" in name
+               or "::flash_dq_tc_kernel<" in name
+               or "::flash_dkv_tc_kernel<" in name)
 
 
 def profile_resnet(model):
@@ -5119,9 +5187,10 @@ def _builds(log, want):
                                layout=("bhtd" if "Bhtd" in args else "bthd")
                                if "flash" in kernel else None,
                                dtype="bf16" if "bfloat16" in args
-                               else "f32",
+                               or "_tc_" in kernel else "f32",
                                dropout="Lb1E" in args and (
-                                   "flash" in kernel or "qkv" in kernel),
+                                   "flash" in kernel or "qkv" in kernel
+                                   or kernel.startswith("bwd_")),
                                smem_bytes=smem(args) if callable(smem)
                                else smem)
                     out.append(cur)
@@ -5141,7 +5210,9 @@ def walk_builds(log, lib):
     """Each instantiation of the backward walks in the build (every source
     that compiles them) and of the bf16 tensor-core kernels (#4's
     forward, #1's cluster route at R 64 and 32, the tile in every source
-    that compiles it, the pair's walks): see ``_builds``."""
+    that compiles it, the tensor-core walks: the pair's on hi/lo planes in
+    qkv_attention_bwd.cu, #6's and #7's on one bf16 plane in
+    flash_attention.cu): see ``_builds``."""
     import re
 
     def tc_smem(args):  # the tile's template: A, B k-major; A, B split
@@ -5161,7 +5232,11 @@ def walk_builds(log, lib):
         "bwd_dq_tc_kernel": ("qkv_attention_bwd.cu",
                              lib.ptt_qkv_bwd_walk_smem(0)),
         "bwd_dkv_tc_kernel": ("qkv_attention_bwd.cu",
-                              lib.ptt_qkv_bwd_walk_smem(1))})
+                              lib.ptt_qkv_bwd_walk_smem(1)),
+        "flash_dq_tc_kernel": ("flash_attention.cu",
+                               lib.ptt_flash_walk_smem(4)),
+        "flash_dkv_tc_kernel": ("flash_attention.cu",
+                                lib.ptt_flash_walk_smem(5))})
 
 
 def tile_builds(log, lib):
@@ -5205,7 +5280,11 @@ def print_record(r, label):
           + (f" (the library call {r['library_device_ms']} ms)"
              if "library_device_ms" in r else "")
           + (f"; {r['off_rounding_share']:.3%} off the float64 value "
-             "rounded to bf16" if "off_rounding_share" in r else "")
+             "rounded to bf16" if isinstance(r.get("off_rounding_share"),
+                                             float) else "")
+          + (f"; shares off the float64 value rounded to bf16 (the tree's "
+             f"and the parent's outputs) {r['off_rounding_share']}"
+             if isinstance(r.get("off_rounding_share"), dict) else "")
           + (f"; 26 F.embedding calls {r['embedding_x26_ms']} ms"
              if "embedding_x26_ms" in r else "")
           + (f"; twin's bits: {r['twin_bit_equal']}"
@@ -5298,6 +5377,12 @@ def main():
     tiles = tile_builds(_build.build_log(), _build.lib())
     for r in builds + tiles:
         print(f"phase 1: {r}")
+    # bf16 operands of #6 and #7 reach the tensor-core walks only
+    require(not any(r["kernel"] in ("flash_bwd_dq_kernel",
+                                    "flash_bwd_dkv_kernel",
+                                    "flash_fwd_kernel")
+                    and r["dtype"] == "bf16" for r in builds + tiles),
+            "a bf16 instantiation of flash_walk.cuh's walks is in the build")
     mma = sass_mma(_build)
     for fn, n in mma.items():
         print(f"phase 1: SASS of {fn}: {n} HMMA/HGMMA instructions")
@@ -5447,6 +5532,10 @@ def main():
     # pair's, with its GEMM stages, on #2's and #3's records)
     for name, source, kernels in (
             ("flash_fwd_bf16", "flash_attention.cu", ("flash_fwd_tc_kernel",)),
+            ("flash_bwd_dq_bf16", "flash_attention.cu",
+             ("flash_dq_tc_kernel",)),
+            ("flash_bwd_dkv_bf16", "flash_attention.cu",
+             ("flash_dkv_tc_kernel",)),
             ("qkv_attention_fwd_bf16", "qkv_attention.cu",
              ("qkv_cluster_tc_kernel", "gemm_tc_kernel")),
             ("qkv_bwd_dq_bf16", "qkv_attention_bwd.cu",

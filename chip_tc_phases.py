@@ -3,8 +3,9 @@
 at the amp step's shapes (b 32, 8 heads of 64, t 256, d_model 512): #4's
 forward (``csrc/flash_tc.cuh``), #1's cluster route
 (``qkv_cluster_tc_kernel`` in ``csrc/qkv_attention.cu``), #1's y tile
-(``gemm_tc`` in ``csrc/gemm.cuh``) and the pair #2 + #3 (its walks in
-``csrc/flash_bwd_tc.cuh``, its GEMM stages on ``gemm_tc``).
+(``gemm_tc`` in ``csrc/gemm.cuh``), the pair #2 + #3 (its walks in
+``csrc/flash_bwd_tc.cuh``, its GEMM stages on ``gemm_tc``) and #6, #7
+(the same walks on bf16 rows).
 
     python3 chip_tc_phases.py
 
@@ -30,7 +31,12 @@ tree is not changed):
   tile's copies and the bias loads, s and dp, p and ds, the accumulating
   products, the epilogue), and copies without each low half in turn
   (q and k; dctx and v; p; ds; dq | dk | dv, in the dx and dW products),
-  and without all of them.
+  and without all of them;
+* #6 and #7 in bf16 (their walks on one bf16 plane, in
+  ``csrc/flash_attention.cu``): their walks' clocks, copies without p's
+  low half (in dv += p^T dO) and without ds's (in dq += ds k and dk +=
+  ds^T q), and copies with other tiles (2 blocks an SM, the dq walk in
+  128 registers, a third ring stage).
 
 #4's copies are timed on the cross-attention (pad bias) and the decoder
 self-attention (decoder bias) beside the tree's kernel and masked
@@ -38,12 +44,15 @@ self-attention (decoder bias) beside the tree's kernel and masked
 beside the tree's kernel; y's beside the tree's tile and
 ``torch.matmul``; the pair's on the decoder self-attention beside the
 tree's pair, with the profile's split of the tree's pair between its
-GEMM stages and its walks (``chip_smoke._pair_stages``), all device time
-only (``chip_smoke.cuda_ms`` with ``hide_host``).  What the hi/lo split
-buys: the tree's o (#4), ctx (#1) and dx, dW_qkv, dW_out (the pair), and
-the copies' without the low halves, against the float64 twin on the
-same bf16 operands (``error64``: the max abs error and the share of
-elements that are not the float64 value rounded to bf16).  Prints the
+GEMM stages and its walks (``chip_smoke._pair_stages``); #6's and #7's
+on the cross-attention and the decoder self-attention beside the
+backward of masked SDPA, at rates 0 and 0.1; all device time only
+(``chip_smoke.cuda_ms`` with ``hide_host``).  What the hi/lo split buys:
+the tree's o (#4), ctx (#1), dx, dW_qkv, dW_out (the pair) and dq, dk,
+dv (#6, #7), and the copies' without the low halves, against the
+float64 twin on the same bf16 operands (``error64``: the max abs error
+and the share of elements that are not the float64 value rounded to
+bf16).  Prints the
 card and its power limit, one JSON line per measurement, and last
 ``{"ok": true}``.  Exits 2 without a card.
 """
@@ -226,19 +235,28 @@ def qkv_variants():
     return {"qkv_no_p_lo": no_p_lo, "qkv_no_lo": no_lo}
 
 
-#: the pair's products in flash_bwd_tc.cuh, by call site
-PAIR_SITES = {"s_dq": "    bw_scores(s, q_s, k_s, warp);\n",
-              "dp_dq": "    bw_scores(dp, dc_s, v_s, warp);\n",
-              "acc_dq": "    bw_accumulate(acc, s, k_s);  // dq += ds k\n",
-              "s_dkv": "    bw_scores(s, k_s, q_t, warp);  // s^T = k q^T\n",
-              "dp_dkv": "    bw_scores(dp, v_s, dc_t, warp);  // dp^T = v "
-                        "dctx^T\n",
-              "acc_dv": "    bw_accumulate(dv, s, dc_t);  // dv += p^T "
+#: the walks' products in flash_bwd_tc.cuh, by call site: the pair's
+#: (hi/lo planes) and #6's, #7's (bf16 rows)
+PAIR_SITES = {"s_dq": "    bw_scores<true>(s, q_s, k_s, warp);\n",
+              "dp_dq": "    bw_scores<true>(dp, dc_s, v_s, warp);\n",
+              "acc_dq": "    bw_accumulate<true>(acc, s, k_s);  // dq += ds k\n",
+              "s_dkv": "    bw_scores<true>(s, k_s, q_t, warp);  // s^T = k "
+                       "q^T\n",
+              "dp_dkv": "    bw_scores<true>(dp, v_s, dc_t, warp);  // dp^T = "
+                        "v dctx^T\n",
+              "acc_dv": "    bw_accumulate<true>(dv, s, dc_t);  // dv += p^T "
                         "dctx\n",
-              "acc_dk": "    bw_accumulate(dk, dp, q_t);  // dk += ds^T q\n"}
+              "acc_dk": "    bw_accumulate<true>(dk, dp, q_t);  // dk += ds^T "
+                        "q\n"}
+FLASH_SITES = {"acc_dq": "    bw_accumulate<false>(acc, s, k_s);  // dq += ds "
+                         "k\n",
+               "acc_dv": "    bw_accumulate<false>(dv, s, dc_t);  // dv += "
+                         "p^T dO\n",
+               "acc_dk": "    bw_accumulate<false>(dk, dp, q_t);  // dk += "
+                         "ds^T q\n"}
 #: each copy's products without a low half: {site: "na" (no lo of the A
 #: operand), "nb" (no lo of B) or "hh" (hi hi only)}, and whether the dx
-#: and dW products drop dq | dk | dv's lo plane
+#: and dW products drop dq | dk | dv's lo plane.  The pair's copies
 PAIR_LO = {"no_qk_lo": ({"s_dq": "hh", "s_dkv": "hh", "acc_dq": "nb",
                          "acc_dk": "nb"}, False),
            "no_dctx_v_lo": ({"dp_dq": "hh", "dp_dkv": "hh",
@@ -247,46 +265,107 @@ PAIR_LO = {"no_qk_lo": ({"s_dq": "hh", "s_dkv": "hh", "acc_dq": "nb",
            "no_ds_lo": ({"acc_dq": "na", "acc_dk": "na"}, False),
            "no_dqkv_lo": ({}, True),
            "no_lo": ({site: "hh" for site in PAIR_SITES}, True)}
+#: ... and #6's, #7's on bf16 rows, whose only split operands are p and ds
+FLASH_BWD_LO = {"flash_no_p_lo": ({"acc_dv": "na"}, False),
+                "flash_no_ds_lo": ({"acc_dq": "na", "acc_dk": "na"}, False)}
+#: #6's and #7's walks with other tiles (the tree's bits, timing): 2
+#: blocks an SM, the dq walk in the 128 registers of 4 blocks an SM (its
+#: shared memory holds 3), a third ring stage at 2 blocks an SM
+FLASH_BWD_TILES = {
+    "flash_blocks_2": (("BW1_DQ_BLOCKS", 2), ("BW1_DKV_BLOCKS", 2)),
+    "flash_dq_blocks_4": (("BW1_DQ_BLOCKS", 4),),
+    "flash_stages_3": (("BW1_STAGES", 3), ("BW1_DQ_BLOCKS", 2),
+                       ("BW1_DKV_BLOCKS", 2))}
 WALK_PHASES = ("ring wait", "next copies and bias", "s", "p", "dp and ds",
                "accumulating products", "epilogue")
+#: each kind's clocked walks: (clocks name, kernel's first lines, its
+#: phase marks (text, mark, before it), its last statement)
+WALK_CLOCKS = {
+    "pair": (
+        ("dq", "template <bool DROP>\n__global__ void __launch_bounds__("
+         "BW_NT, BW_MIN_BLOCKS)\nbwd_dq_tc_kernel(", "  int qpos[2];\n", (
+             ("(and q, dctx) have landed; the\n                      "
+              "// slot the next load takes was consumed last step\n",
+              "    CLK(0)\n", 0),
+             ("    // p = exp(s * scale + bias", "    CLK(1)\n", 1),
+             ("    const bool edge = k0 + BW_ROWS", "    CLK(2)\n", 1),
+             ("    // ds = p (dp - delta)", "    CLK(3)\n", 1),
+             (PAIR_SITES["acc_dq"], "    CLK(4)\n", 1),
+             (PAIR_SITES["acc_dq"], "    CLK(5)\n", 0)),
+         "  bw_store<true>(dq, acc, bi, q0, t, head);\n"),
+        ("dkv", "template <bool DROP>\n__global__ void __launch_bounds__("
+         "BW_NT, BW_MIN_BLOCKS)\nbwd_dkv_tc_kernel(", "  int kpos[2];\n", (
+             ("the next load takes was consumed last step\n",
+              "    CLK(0)\n", 0),
+             ("    // p^T = exp(s^T * scale", "    CLK(1)\n", 1),
+             ("    const bool edge = q0 + BW_ROWS", "    CLK(2)\n", 1),
+             ("    // ds^T into dp, then p^T", "    CLK(3)\n", 1),
+             (PAIR_SITES["acc_dv"], "    CLK(4)\n", 1),
+             (PAIR_SITES["acc_dk"], "    CLK(5)\n", 0)),
+         "  bw_store<true>(dv_p, dv, bi, k0, t, head);\n")),
+    "flash": (
+        ("flash_dq", "template <bool DROP>\n__global__ void __launch_bounds__("
+         "BW_NT, BW1_DQ_BLOCKS)\nflash_dq_tc_kernel(", "  int qpos[2];\n", (
+             ("(and q, dO) have landed; the\n                      "
+              "// slot the next load takes was consumed last step\n",
+              "    CLK(0)\n", 0),
+             ("    // p = exp(s * scale + bias", "    CLK(1)\n", 1),
+             ("    const bool edge =\n        k0 + BW_ROWS", "    CLK(2)\n",
+              1),
+             ("    // ds = p (dp - delta)", "    CLK(3)\n", 1),
+             (FLASH_SITES["acc_dq"], "    CLK(4)\n", 1),
+             (FLASH_SITES["acc_dq"], "    CLK(5)\n", 0)),
+         "  bw_store<false>(PlanesOf<bf16>{a.dq, 0, hd}, acc, bi, q0, tq, "
+         "head);\n"),
+        ("flash_dkv", "template <bool DROP>\n__global__ void "
+         "__launch_bounds__(BW_NT, BW1_DKV_BLOCKS)\nflash_dkv_tc_kernel(",
+         "  int kpos[2];\n", (
+             ("the next load takes was consumed last step\n",
+              "    CLK(0)\n", 0),
+             ("    // p^T = exp(s^T * scale", "    CLK(1)\n", 1),
+             ("    const bool edge = q0 + BW_ROWS", "    CLK(2)\n", 1),
+             ("    // ds^T into dp, then p^T", "    CLK(3)\n", 1),
+             (FLASH_SITES["acc_dv"], "    CLK(4)\n", 1),
+             (FLASH_SITES["acc_dk"], "    CLK(5)\n", 0)),
+         "  bw_store<false>(PlanesOf<bf16>{a.dv, 0, hd}, dv, bi, k0, tk, "
+         "head);\n"))}
 
 
 def _hi_only(h, w):
-    """flash_bwd_tc.cuh with mma3, bw_scores and bw_accumulate copies that
-    drop A's lo (_na), B's lo (_nb) or both (_hh)."""
-    fns = {name: re.search(r"__device__ __forceinline__ void " + name
+    """flash_bwd_tc.cuh with copies of mma2, mma3, bw_scores and
+    bw_accumulate that drop A's lo (_na), B's lo (_nb) or both (_hh)."""
+    fns = {name: re.search(r"(template <bool SPLIT>\n)?__device__ "
+                           r"__forceinline__ void " + name
                            + r"\(.*?\n}\n", h, re.S).group(0)
-           for name in ("mma3", "bw_scores", "bw_accumulate")}
+           for name in ("mma2", "mma3", "bw_scores", "bw_accumulate")}
     text = ""
     for suffix, drop in (("na", ("al,",)), ("nb", ("bl[",)),
                          ("hh", ("al,", "bl["))):
-        text += "".join(line + "\n" for line in fns["mma3"].replace(
-            "void mma3(", f"void mma3_{suffix}(").splitlines()
-            if not any(d in line for d in drop))
+        for name in ("mma2", "mma3"):
+            text += "".join(line + "\n" for line in fns[name].replace(
+                f"void {name}(", f"void {name}_{suffix}(").splitlines()
+                if not any(d in line for d in drop))
         for name in ("bw_scores", "bw_accumulate"):
-            text += fns[name].replace(f"void {name}(",
-                                      f"void {name}_{suffix}(").replace(
-                "mma3(", f"mma3_{suffix}(")
+            text += fns[name].replace(
+                f"void {name}(", f"void {name}_{suffix}(").replace(
+                "mma3(", f"mma3_{suffix}(").replace(
+                "mma2(", f"mma2_{suffix}(")
     anchor = "__device__ __forceinline__ float bf16_bits"
     return ck.edit(h, anchor, text + anchor, w)
 
 
-def pair_variants():
-    """{name: qkv_attention_bwd.cu with an edited flash_bwd_tc.cuh (and,
-    for dq | dk | dv's lo, gemm.cuh) inlined}: PAIR_LO's copies (timing
-    and the split's worth), and the walks' clocks (dq_clocks,
-    dkv_clocks)."""
-    src, h, g = (read("qkv_attention_bwd.cu"), read("flash_bwd_tc.cuh"),
-                 read("gemm.cuh"))
+def _walk_copies(src, h, g, table, sites):
+    """{name: src with an edited flash_bwd_tc.cuh (and, for dq | dk | dv's
+    lo, gemm.cuh) inlined}, one a ``table`` entry over ``sites``."""
     w = "flash_bwd_tc.cuh"
     out = {}
-    for name, (sites, dqkv) in PAIR_LO.items():
+    for name, (edits, dqkv) in table.items():
         v = _hi_only(h, w)
-        for site, suffix in sites.items():
-            old = PAIR_SITES[site]
-            call = old.split("(", 1)[0]
-            v = ck.edit(v, old, old.replace(call + "(",
-                                            f"{call}_{suffix}("), w)
+        for site, suffix in edits.items():
+            old = sites[site]
+            call = old.split("<", 1)[0]
+            v = ck.edit(v, old, old.replace(call + "<",
+                                            f"{call}_{suffix}<"), w)
         copy = inline(src, "flash_bwd_tc.cuh", v, name)
         if dqkv:  # dx and dW_qkv: hi only of the split operand
             gv = ck.edit(ck.edit(
@@ -298,41 +377,56 @@ def pair_variants():
                 "++plane) {", "gemm.cuh")
             copy = inline(copy, "gemm.cuh", gv, name)
         out[name] = copy
-    for walk, kernel, start, edits, end in (
-            ("dq", "bwd_dq_tc_kernel", "  int qpos[2];\n", (
-                ("(and q, dctx) have landed; the\n                      "
-                 "// slot the next load takes was consumed last step\n",
-                 "    CLK(0)\n", 0),
-                ("    // p = exp(s * scale + bias", "    CLK(1)\n", 1),
-                ("    const bool edge = k0 + BW_ROWS", "    CLK(2)\n", 1),
-                ("    // ds = p (dp - delta)", "    CLK(3)\n", 1),
-                (PAIR_SITES["acc_dq"], "    CLK(4)\n", 1),
-                (PAIR_SITES["acc_dq"], "    CLK(5)\n", 0)),
-             "  bw_store(dq, acc, bi, q0, t, head);\n"),
-            ("dkv", "bwd_dkv_tc_kernel", "  int kpos[2];\n", (
-                ("the next load takes was consumed last step\n",
-                 "    CLK(0)\n", 0),
-                ("    // p^T = exp(s^T * scale", "    CLK(1)\n", 1),
-                ("    const bool edge = q0 + BW_ROWS", "    CLK(2)\n", 1),
-                ("    // ds^T into dp, then p^T", "    CLK(3)\n", 1),
-                (PAIR_SITES["acc_dv"], "    CLK(4)\n", 1),
-                (PAIR_SITES["acc_dk"], "    CLK(5)\n", 0)),
-             "  bw_store(dv_p, dv, bi, k0, t, head);\n")):
+    return out
+
+
+def _walk_clocks(src, h, kind):
+    """{"<walk>_clocks": src with a flash_bwd_tc.cuh whose walk sums its
+    phases' clocks}, for each walk of WALK_CLOCKS[kind] (the pair's in
+    qkv_attention_bwd.cu, #6's and #7's in flash_attention.cu)."""
+    out = {}
+    for walk, anchor, start, edits, end in WALK_CLOCKS[kind]:
         what = f"flash_bwd_tc.cuh ({walk} clocks)"
-        anchor = ("template <bool DROP>\n__global__ void __launch_bounds__("
-                  f"BW_NT, 2)\n{kernel}(")
         v = ck.edit(h, anchor, CLOCKS + anchor, what)
-        # the kernel's own text from here on: its start is unique there
-        head, body = v.split(CLOCKS + anchor, 1)
+        # the kernel's own text: from its first line to its closing brace
+        head, rest = v.split(CLOCKS + anchor, 1)
+        body, tail = rest.split("\n}\n", 1)
+        body += "\n}\n"
         body = ck.edit(body, start, CLOCKS_START + start, what)
         for old, new, before in edits:
             body = ck.edit(body, old, new + old if before else old + new,
                            what)
         body = ck.edit(body, end, end + "  CLK(6)\n" + CLOCKS_END, what)
-        out[f"{walk}_clocks"] = inline(src, "flash_bwd_tc.cuh",
-                                       head + CLOCKS + anchor + body,
-                                       walk) + CLOCKS_ENTRY
+        out[f"{walk}_clocks"] = inline(
+            src, "flash_bwd_tc.cuh", head + CLOCKS + anchor + body + tail,
+            walk) + CLOCKS_ENTRY
     return out
+
+
+def pair_variants():
+    """{name: qkv_attention_bwd.cu with an edited flash_bwd_tc.cuh (and,
+    for dq | dk | dv's lo, gemm.cuh) inlined}: PAIR_LO's copies (timing
+    and the split's worth), and the walks' clocks (dq_clocks,
+    dkv_clocks)."""
+    src, h, g = (read("qkv_attention_bwd.cu"), read("flash_bwd_tc.cuh"),
+                 read("gemm.cuh"))
+    return {**_walk_copies(src, h, g, PAIR_LO, PAIR_SITES),
+            **_walk_clocks(src, h, "pair")}
+
+
+def flash_bwd_variants():
+    """{name: flash_attention.cu with an edited flash_bwd_tc.cuh inlined}:
+    FLASH_BWD_LO's and FLASH_BWD_TILES' copies of #6's and #7's walks in
+    bf16, and their clocks (flash_dq_clocks, flash_dkv_clocks)."""
+    src, h = read("flash_attention.cu"), read("flash_bwd_tc.cuh")
+    tiles = {}
+    for name, consts in FLASH_BWD_TILES.items():
+        v = h
+        for const_name, value in consts:
+            v = const(v, const_name, value, name)
+        tiles[name] = inline(src, "flash_bwd_tc.cuh", v, name)
+    return {**_walk_copies(src, h, None, FLASH_BWD_LO, FLASH_SITES),
+            **tiles, **_walk_clocks(src, h, "flash")}
 
 
 def error64(got, exact):
@@ -369,12 +463,14 @@ def main():
     _build.lib()
     with tempfile.TemporaryDirectory() as out_dir:
         flash, gemm, qkv = flash_variants(), gemm_variants(), qkv_variants()
-        pair = pair_variants()
+        pair, flash_bwd = pair_variants(), flash_bwd_variants()
         libs = ck.build(_build, out_dir, {
-            **flash, **gemm, **qkv, **pair, "qkv_clocks": qkv_clocks(
-                read("qkv_attention.cu"))}, [])
+            **flash, **gemm, **qkv, **pair, **flash_bwd,
+            "qkv_clocks": qkv_clocks(read("qkv_attention.cu"))}, [])
     for name, lib in libs.items():
         entries = (["ptt_flash_fwd_bf16"] if name in flash
+                   else ["ptt_flash_bwd_dq_bf16", "ptt_flash_bwd_dkv_bf16"]
+                   if name in flash_bwd
                    else ["ptt_gemm_typed", "ptt_gemm_partials"]
                    if name in gemm else ["ptt_qkv_bwd_bf16",
                                          "ptt_qkv_bwd_scratch"]
@@ -452,8 +548,87 @@ def main():
             rec[name + "_ms"] = cs.cuda_ms(fn, hide_host=True)
     print(json.dumps(rec))
     pair_times(gen, pair, libs)
+    flash_bwd_times(gen, flash_bwd, libs)
     print(json.dumps({"ok": True}))
     return 0
+
+
+def flash_bwd_times(gen, variants, libs):
+    """#6's and #7's records in bf16 at the amp step's cross-attention
+    (pad bias) and decoder self-attention (decoder bias): each walk's time
+    at rates 0 and 0.1 beside the backward of masked
+    ``F.scaled_dot_product_attention``, dq, dk and dv against the float64
+    twin (``error64``), FLASH_BWD_LO's copies' times and errors,
+    FLASH_BWD_TILES' copies' times (each held to the tree's bits), and
+    each walk's clocks; all device time only."""
+    import chip_smoke as cs
+    from paddle_tpu_torch.kernels import attention as ka
+
+    b, h = cs.TRAIN_BATCH, cs.BASE["n_head"]
+    names = ("dq", "dk", "dv")
+    for case, bias_kind in (("cross", "pad"), ("decoder self", "decoder")):
+        q, k, v, do, bias = cs._bf16(*cs._flash_inputs(gen, 256, 256,
+                                                      bias_kind, False))
+        kw = dict(scale=0.125, causal=False)
+        o, lse = ka.flash_fwd(q, k, v, bias, **kw)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        bw = (q, k, v, bias, do, lse, delta)
+        b64 = [a.double() for a in bw]
+        exact = (ka.reference_flash_bwd_dq(*b64, **kw),
+                 *ka.reference_flash_bwd_dkv(*b64, **kw))
+        del b64
+        kw_d = dict(kw, dropout_rate=cs.DROPOUT, dropout_seed=1234)
+
+        def dq(**kw_):
+            return ka.flash_bwd_dq(*bw, **kw_)
+
+        def dkv(**kw_):
+            return ka.flash_bwd_dkv(*bw, **kw_)
+
+        def errors():
+            got = (dq(**kw), *dkv(**kw))
+            return {n: error64(a, e) for n, a, e in zip(names, got, exact)}
+
+        tree = (dq(**kw), *dkv(**kw))
+
+        def require_same(name, got):
+            cs.require(all(torch.equal(a, b) for a, b in zip(got, tree)),
+                       f"{name} {case}: not the tree's bits")
+
+        lq, lk, lv = (a.transpose(1, 2).detach().requires_grad_()
+                      for a in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv, attn_mask=bias, scale=0.125)
+        rec = dict(kernel="flash_bwd_bf16", case=case,
+                   dq_ms=cs.cuda_ms(lambda: dq(**kw), hide_host=True),
+                   dkv_ms=cs.cuda_ms(lambda: dkv(**kw), hide_host=True),
+                   dq_dropout_ms=cs.cuda_ms(lambda: dq(**kw_d),
+                                            hide_host=True),
+                   dkv_dropout_ms=cs.cuda_ms(lambda: dkv(**kw_d),
+                                             hide_host=True),
+                   sdpa_bwd_ms=cs.cuda_ms(lambda: torch.autograd.grad(
+                       lib_out, (lq, lk, lv), do.transpose(1, 2),
+                       retain_graph=True), hide_host=True),
+                   tree_err=errors())
+        del lib_out
+        for name in variants:
+            if name.endswith("_clocks"):
+                continue
+            with cs.kernel_library(libs[name]):
+                if name in FLASH_BWD_TILES:  # the same arithmetic
+                    require_same(name, (dq(**kw), *dkv(**kw)))
+                else:
+                    rec[name + "_err"] = errors()
+                rec[name + "_ms"] = (
+                    cs.cuda_ms(lambda: dq(**kw), hide_host=True),
+                    cs.cuda_ms(lambda: dkv(**kw), hide_host=True))
+        for walk, call in (("dq", dq), ("dkv", dkv)):
+            lib = libs[f"flash_{walk}_clocks"]
+            with cs.kernel_library(lib):
+                call(**kw)
+            rec[f"{walk}_phases"] = phase_shares(lib, 4 * h * b,
+                                                 WALK_PHASES)
+        print(json.dumps(rec))
 
 
 def pair_times(gen, pair, libs):

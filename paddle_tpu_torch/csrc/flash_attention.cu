@@ -53,12 +53,13 @@
 // that never hash.
 //
 // bf16 (amp, bthd only: ptt_flash_*_bf16): q, k, v, the bias, o, dO, dq,
-// dk and dv are bf16, lse and delta f32.  The forward runs on tensor
-// cores (flash_tc.cuh: exact bf16 products for s, p split into hi/lo
-// bf16s for p v); the backward walks compute f32 arithmetic, as the
-// reference's bthd kernels compute on bf16 operands, converting each tile
-// to f32 as it lands in shared memory (flash_walk.cuh).  The bhtd layout
-// (#5, #8, #9) is compiled in f32 only.
+// dk and dv are bf16, lse and delta f32, and all three passes run on
+// tensor cores: the forward in flash_tc.cuh (exact bf16 products for s, p
+// split into hi/lo bf16s for p v), the backward walks in flash_bwd_tc.cuh
+// on one bf16 plane (exact bf16 products for s and dp, p and ds split for
+// dq += ds k, dv += p^T dO and dk += ds^T q), each output rounded to bf16
+// once.  flash_walk.cuh's walks are f32 only.  The bhtd layout (#5, #8,
+// #9) is compiled in f32 only.
 //
 // Masking follows the TPU kernels: causal (bottom-right aligned, offset
 // tk - tq) and out-of-range keys score -1e30 in the forward; a row whose
@@ -70,63 +71,79 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_bwd_tc.cuh"
 #include "flash_tc.cuh"
 #include "flash_walk.cuh"
 
 namespace {
 
-// The three passes on operands of layout L (every tensor of a call shares
-// it: q, dout, o and dq have tq rows, k, v, dk and dv tk rows).
-// T is the element type of every tensor but lse and delta (f32).
-template <class L, class T>
-int run_fwd(L l, const T* q, const T* k, const T* v, const T* bias,
-            int64_t bs_b, int64_t bs_h, int64_t bs_q, int64_t bs_k, T* o,
-            float* lse, int b, int tq, int tk, int h, float scale,
-            int causal, double rate, unsigned seed, unsigned threshold,
-            void* stream) {
-  return (int)fwd(Rows<L, T>{q, l}, Rows<L, T>{k, l}, Rows<L, T>{v, l},
-                   BiasOf<T>{bias, bs_b, bs_h, bs_q, bs_k}, o, l, lse, b, tq,
-                   tk,
-                   h, scale, causal,
-                   hash_rng::make_dropout(rate, seed, threshold),
-                   static_cast<cudaStream_t>(stream));
+// The three passes in f32 on operands of layout L (every tensor of a
+// call shares it: q, dout, o and dq have tq rows, k, v, dk and dv tk
+// rows).
+template <class L>
+int run_fwd(L l, const float* q, const float* k, const float* v,
+            const float* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
+            int64_t bs_k, float* o, float* lse, int b, int tq, int tk, int h,
+            float scale, int causal, double rate, unsigned seed,
+            unsigned threshold, void* stream) {
+  return (int)fwd(Rows<L>{q, l}, Rows<L>{k, l}, Rows<L>{v, l},
+                  Bias{bias, bs_b, bs_h, bs_q, bs_k}, o, l, lse, b, tq, tk,
+                  h, scale, causal,
+                  hash_rng::make_dropout(rate, seed, threshold),
+                  static_cast<cudaStream_t>(stream));
 }
 
-template <class L, class T>
-int run_dq(L l, const T* q, const T* k, const T* v, const T* bias,
-           int64_t bs_b, int64_t bs_h, int64_t bs_q, int64_t bs_k,
-           const T* dout, const float* lse, const float* delta, T* dq,
-           int b, int tq, int tk, int h, float scale, int causal,
-           double rate, unsigned seed, unsigned threshold, void* stream) {
-  return (int)bwd_dq(Rows<L, T>{q, l}, Rows<L, T>{k, l}, Rows<L, T>{v, l},
-                     BiasOf<T>{bias, bs_b, bs_h, bs_q, bs_k},
-                     Rows<L, T>{dout, l},
+template <class L>
+int run_dq(L l, const float* q, const float* k, const float* v,
+           const float* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
+           int64_t bs_k, const float* dout, const float* lse,
+           const float* delta, float* dq, int b, int tq, int tk, int h,
+           float scale, int causal, double rate, unsigned seed,
+           unsigned threshold, void* stream) {
+  return (int)bwd_dq(Rows<L>{q, l}, Rows<L>{k, l}, Rows<L>{v, l},
+                     Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows<L>{dout, l},
                      lse, delta, dq, l, b, tq, tk, h, scale, causal,
                      hash_rng::make_dropout(rate, seed, threshold),
                      static_cast<cudaStream_t>(stream));
 }
 
-template <class L, class T>
-int run_dkv(L l, const T* q, const T* k, const T* v, const T* bias,
-            int64_t bs_b, int64_t bs_h, int64_t bs_q, int64_t bs_k,
-            const T* dout, const float* lse, const float* delta, T* dk,
-            T* dv, int b, int tq, int tk, int h, float scale, int causal,
-            double rate, unsigned seed, unsigned threshold, void* stream) {
-  return (int)bwd_dkv(Rows<L, T>{q, l}, Rows<L, T>{k, l}, Rows<L, T>{v, l},
-                      BiasOf<T>{bias, bs_b, bs_h, bs_q, bs_k},
-                      Rows<L, T>{dout, l},
+template <class L>
+int run_dkv(L l, const float* q, const float* k, const float* v,
+            const float* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
+            int64_t bs_k, const float* dout, const float* lse,
+            const float* delta, float* dk, float* dv, int b, int tq, int tk,
+            int h, float scale, int causal, double rate, unsigned seed,
+            unsigned threshold, void* stream) {
+  return (int)bwd_dkv(Rows<L>{q, l}, Rows<L>{k, l}, Rows<L>{v, l},
+                      Bias{bias, bs_b, bs_h, bs_q, bs_k}, Rows<L>{dout, l},
                       lse, delta, dk, dv, l, b, tq, tk, h, scale, causal,
                       hash_rng::make_dropout(rate, seed, threshold),
                       static_cast<cudaStream_t>(stream));
 }
 
+// #6 (walk 0) or #7 (walk 1) in bf16 on tensor cores, over [b, t, h, 64]
+// bf16 rows (one plane each); dq, or dk and dv, rounded to bf16.
+int run_bwd_tc(int walk, const bf16* q, const bf16* k, const bf16* v,
+               const bf16* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
+               int64_t bs_k, const bf16* dout, const float* lse,
+               const float* delta, bf16* dq, bf16* dk, bf16* dv, int b,
+               int tq, int tk, int h, float scale, int causal, double rate,
+               unsigned seed, unsigned threshold, void* stream) {
+  const FlashBw a{q, k, v, dout, BiasOf<bf16>{bias, bs_b, bs_h, bs_q, bs_k},
+                  lse, delta, dq, dk, dv, tq, tk, h, scale, causal,
+                  hash_rng::make_dropout(rate, seed, threshold)};
+  return (int)flash_bwd_tc(walk, a, b, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
-// Dynamic shared memory of a walk's block in bytes: the dq walk (0), the
-// dkv walk (1), the f32 forward (2) or the bf16 forward on tensor cores
-// (3).
+// Dynamic shared memory of a walk's block in bytes: the f32 dq walk (0),
+// the f32 dkv walk (1), the f32 forward (2), the bf16 forward on tensor
+// cores (3), the bf16 dq walk on tensor cores (4) or its dkv walk (5).
 extern "C" int64_t ptt_flash_walk_smem(int which) {
-  return (int64_t)(which == 3   ? kFwdTcSmem
+  return (int64_t)(which == 5   ? Bw<false>::kDkvSmem
+                   : which == 4 ? Bw<false>::kDqSmem
+                   : which == 3 ? kFwdTcSmem
                    : which == 2 ? kFwdSmem
                    : which      ? kDkvSmem
                                 : kDqSmem);
@@ -245,7 +262,7 @@ extern "C" int ptt_flash_fwd_bf16(const bf16* q, const bf16* k,
 }
 
 // #6 in bf16: as ptt_flash_bwd_dq with dout and dq bf16, lse and delta
-// f32.
+// f32, on tensor cores (flash_bwd_tc.cuh).
 extern "C" int ptt_flash_bwd_dq_bf16(const bf16* q, const bf16* k,
                                      const bf16* v, const bf16* bias,
                                      int64_t bs_b, int64_t bs_h,
@@ -255,12 +272,13 @@ extern "C" int ptt_flash_bwd_dq_bf16(const bf16* q, const bf16* k,
                                      int tq, int tk, int h, float scale,
                                      int causal, double rate, unsigned seed,
                                      unsigned threshold, void* stream) {
-  return run_dq(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
-                lse, delta, dq, b, tq, tk, h, scale, causal, rate, seed,
-                threshold, stream);
+  return run_bwd_tc(0, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout, lse,
+                    delta, dq, nullptr, nullptr, b, tq, tk, h, scale, causal,
+                    rate, seed, threshold, stream);
 }
 
-// #7 in bf16: as ptt_flash_bwd_dkv with dout, dk and dv bf16.
+// #7 in bf16: as ptt_flash_bwd_dkv with dout, dk and dv bf16, on tensor
+// cores.
 extern "C" int ptt_flash_bwd_dkv_bf16(const bf16* q, const bf16* k,
                                       const bf16* v, const bf16* bias,
                                       int64_t bs_b, int64_t bs_h,
@@ -271,7 +289,7 @@ extern "C" int ptt_flash_bwd_dkv_bf16(const bf16* q, const bf16* k,
                                       float scale, int causal, double rate,
                                       unsigned seed, unsigned threshold,
                                       void* stream) {
-  return run_dkv(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
-                 lse, delta, dk, dv, b, tq, tk, h, scale, causal, rate, seed,
-                 threshold, stream);
+  return run_bwd_tc(1, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout, lse,
+                    delta, nullptr, dk, dv, b, tq, tk, h, scale, causal,
+                    rate, seed, threshold, stream);
 }

@@ -1,10 +1,13 @@
-// Flash-attention walks: the forward and the two backward passes, f32
-// arithmetic on f32 or bf16 operands, for sm_90a.
+// Flash-attention walks: the forward and the two backward passes in f32,
+// for sm_90a.
 //
 // Shared by the flash kernels (flash_attention.cu: the forward #4 / #5 and
 // the backward #6, #7 / #8, #9) and the fused-projection backward in f32
 // (qkv_attention_bwd.cu: #2 and #3 walk the rows their projection GEMM
-// wrote; in bf16 they walk flash_bwd_tc.cuh's tensor-core walks).  Rows are addressed through a layout, a template parameter: Bthd
+// wrote).  The bf16 instantiations of these kernels (amp) run on tensor
+// cores in kernels of their own: the forward in flash_tc.cuh, both
+// backward walks (#6, #7 and the pair's) in flash_bwd_tc.cuh.  Rows are
+// addressed through a layout, a template parameter: Bthd
 // reads q, k, v from [b, t, h, 64] tensors (row stride h * 64) or from the
 // q|k|v columns of a [b * t, 3hd] projection (row stride 3hd); Bhtd from
 // [b, h, t, 64] tensors, whose heads are contiguous [t, 64] slabs.  The
@@ -73,17 +76,6 @@
 // Masking: causal keys (bottom-right aligned, offset tk - tq) and keys past
 // tk give p = 0; a row masked in the forward has lse = +inf, so p = 0 and
 // its gradients are zero.  Rows past t in a ragged tile load as zeros.
-//
-// bf16 (amp, the backward walks of #6 and #7): the rows (q, k, v, dO) and
-// the outputs (dq, dk, dv) are of one element type T, the bias of its own
-// type BT; lse and delta stay f32 and
-// all arithmetic is f32, as the reference's kernels compute on bf16
-// operands.  A bf16 tile or bias comes in through registers, 16 (bias: 8)
-// bytes a load, converted to f32 as it is stored into the stage, so every
-// shared-memory layout, budget and read is the f32 walk's; these loads
-// are synchronous (no cp.async ring: later work).  An output is rounded
-// to T as it is stored.  The f32 instantiations are the f32 walks
-// unchanged.  The forward in bf16 is flash_tc.cuh's, on tensor cores.
 
 #pragma once
 
@@ -230,37 +222,19 @@ __device__ __forceinline__ int walk_tx() {
 }
 
 // Start the copy of rows [r0, r0 + R) of head `head` of src into dst (row
-// stride TS); rows at or past t come in as zeros.  f32 rows by cp.async;
-// bf16 rows loaded 8 elements (16 bytes) a thread and stored as f32 now.
-template <int R, class L, class T>
-__device__ __forceinline__ void stage_rows(float* dst, Rows<L, T> src,
-                                           int bi, int r0, int t, int head) {
-  if constexpr (sizeof(T) == 4) {
+// stride TS) by cp.async; rows at or past t come in as zeros.
+template <int R, class L>
+__device__ __forceinline__ void stage_rows(float* dst, Rows<L> src, int bi,
+                                           int r0, int t, int head) {
 #pragma unroll
-    for (int u = 0; u < R * (DH / 4) / NT; ++u) {
-      const int idx = threadIdx.x + u * NT;
-      const int row = idx / (DH / 4);
-      const int c4 = idx % (DH / 4);
-      const bool in = r0 + row < t;
-      async_copy16(dst + row * TS + c4 * 4,
-                   src.at(bi, t, in ? r0 + row : r0, head) + c4 * 4,
-                   in ? 16 : 0);
-    }
-  } else {
-#pragma unroll
-    for (int u = 0; u < R * (DH / 8) / NT; ++u) {
-      const int idx = threadIdx.x + u * NT;
-      const int row = idx / (DH / 8);
-      const int c8 = idx % (DH / 8);
-      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-      if (r0 + row < t) {
-        const T* at = src.at(bi, t, r0 + row, head) + c8 * 8;
-        lo = load4(at);
-        hi = load4(at + 4);
-      }
-      *reinterpret_cast<float4*>(dst + row * TS + c8 * 8) = lo;
-      *reinterpret_cast<float4*>(dst + row * TS + c8 * 8 + 4) = hi;
-    }
+  for (int u = 0; u < R * (DH / 4) / NT; ++u) {
+    const int idx = threadIdx.x + u * NT;
+    const int row = idx / (DH / 4);
+    const int c4 = idx % (DH / 4);
+    const bool in = r0 + row < t;
+    async_copy16(dst + row * TS + c4 * 4,
+                 src.at(bi, t, in ? r0 + row : r0, head) + c4 * 4,
+                 in ? 16 : 0);
   }
 }
 
@@ -281,52 +255,31 @@ __device__ __forceinline__ void stage_stats(float* dst, const float* src,
 // broadcast along q (sq == 0) stages its one row.  Zero outside [tq] x
 // [tk].  Rows of contiguous keys, 16-byte aligned, come in 16 bytes a
 // copy, any other bias element by element.
-template <int NQ, int NK, class BT>
+template <int NQ, int NK>
 __device__ __forceinline__ void stage_bias(float* dst, int ld,
-                                           const BiasOf<BT>& bias, int bi,
+                                           const Bias& bias, int bi,
                                            int head, int q0, int tq, int k0,
                                            int tk) {
-  const BT* base = bias.p + bi * bias.sb + head * bias.sh;
+  const float* base = bias.p + bi * bias.sb + head * bias.sh;
   const int rows = bias.sq ? NQ : 1;
-  if constexpr (sizeof(BT) == 2) {  // bf16: loaded now, 4 elements a load
-    if (bias.sk == 1 && bias.sq % 4 == 0 && tk % 4 == 0 &&
-        reinterpret_cast<uintptr_t>(base) % 8 == 0) {
-      for (int idx = threadIdx.x; idx < rows * (NK / 4); idx += NT) {
-        const int r = idx / (NK / 4);
-        const int c = idx % (NK / 4) * 4;
-        const bool in = q0 + r < tq && k0 + c < tk;
-        *reinterpret_cast<float4*>(dst + r * ld + c) =
-            in ? load4(base + (q0 + r) * bias.sq + k0 + c)
-               : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      return;
+  if (bias.sk == 1 && bias.sq % 4 == 0 && tk % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(base) % 16 == 0) {
+    for (int idx = threadIdx.x; idx < rows * (NK / 4); idx += NT) {
+      const int r = idx / (NK / 4);
+      const int c = idx % (NK / 4) * 4;
+      const bool in = q0 + r < tq && k0 + c < tk;
+      async_copy16(dst + r * ld + c,
+                   base + (in ? (q0 + r) * bias.sq + k0 + c : 0),
+                   in ? 16 : 0);
     }
-    for (int idx = threadIdx.x; idx < rows * NK; idx += NT) {
-      const int q = q0 + idx / NK;
-      const int k = k0 + idx % NK;
-      dst[(idx / NK) * ld + idx % NK] =
-          q < tq && k < tk ? to_f32(base[q * bias.sq + k * bias.sk]) : 0.f;
-    }
-  } else {
-    if (bias.sk == 1 && bias.sq % 4 == 0 && tk % 4 == 0 &&
-        reinterpret_cast<uintptr_t>(base) % 16 == 0) {
-      for (int idx = threadIdx.x; idx < rows * (NK / 4); idx += NT) {
-        const int r = idx / (NK / 4);
-        const int c = idx % (NK / 4) * 4;
-        const bool in = q0 + r < tq && k0 + c < tk;
-        async_copy16(dst + r * ld + c,
-                     base + (in ? (q0 + r) * bias.sq + k0 + c : 0),
-                     in ? 16 : 0);
-      }
-      return;
-    }
-    for (int idx = threadIdx.x; idx < rows * NK; idx += NT) {
-      const int q = q0 + idx / NK;
-      const int k = k0 + idx % NK;
-      const bool in = q < tq && k < tk;
-      async_copy4(dst + (idx / NK) * ld + idx % NK,
-                  base + (in ? q * bias.sq + k * bias.sk : 0), in ? 4 : 0);
-    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < rows * NK; idx += NT) {
+    const int q = q0 + idx / NK;
+    const int k = k0 + idx % NK;
+    const bool in = q < tq && k < tk;
+    async_copy4(dst + (idx / NK) * ld + idx % NK,
+                base + (in ? q * bias.sq + k * bias.sk : 0), in ? 4 : 0);
   }
 }
 
@@ -386,9 +339,9 @@ __device__ __forceinline__ void zero_patch(float (&c)[8][4]) {
 }
 
 // Store a walk thread's patch of a [WM, 64] tile (rows ty + 16i, columns
-// 4tx..) into rows r0 + ty + 16i (below t) of head `head` of dst, as T.
-template <class L, class T>
-__device__ __forceinline__ void store_walk_rows(T* dst, L l,
+// 4tx..) into rows r0 + ty + 16i (below t) of head `head` of dst.
+template <class L>
+__device__ __forceinline__ void store_walk_rows(float* dst, L l,
                                                 const float (&c)[8][4],
                                                 int bi, int r0, int t,
                                                 int head) {
@@ -428,10 +381,10 @@ __device__ __forceinline__ void pair_sync() {
 // the head width's scale a power of two (1/8) o and lse do not depend on
 // how many rows a block owns: the f32 training steps, held to float64 at
 // twice the CPU's own error, see the same rounding as with 64-row blocks.
-template <class L, bool DROP, class T = float, class BT = float>
+template <class L, bool DROP>
 __global__ void __launch_bounds__(NT, 1)
-flash_fwd_kernel(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v, BiasOf<BT> bias,
-                 T* o, L o_l, float* __restrict__ lse, int tq, int tk, int h,
+flash_fwd_kernel(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias, float* o,
+                 L o_l, float* __restrict__ lse, int tq, int tk, int h,
                  float scale, int causal, Dropout drop) {
   extern __shared__ float smem[];
   float* q_s = smem;                   // [WM][TS] q
@@ -612,12 +565,11 @@ flash_fwd_kernel(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v, BiasOf<BT> bias,
 
 // dq of one (128-row q tile, head, batch row); lse and delta [b, h, tq];
 // dq laid out by dq_l.
-template <class L, bool DROP, class T = float, class BT = float>
+template <class L, bool DROP>
 __global__ void __launch_bounds__(NT, 1)
-flash_bwd_dq_kernel(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v,
-                    BiasOf<BT> bias, Rows<L, T> dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* dq, L dq_l,
+flash_bwd_dq_kernel(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
+                    Rows<L> dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* dq, L dq_l,
                     int tq, int tk, int h, float scale, int causal,
                     Dropout drop) {
   extern __shared__ float smem[];
@@ -717,12 +669,11 @@ flash_bwd_dq_kernel(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v,
 
 // dk and dv of one (128-row k tile, head, batch row), both laid out by
 // dkv_l.
-template <class L, bool DROP, class T = float, class BT = float>
+template <class L, bool DROP>
 __global__ void __launch_bounds__(NT, 1)
-flash_bwd_dkv_kernel(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v,
-                     BiasOf<BT> bias, Rows<L, T> dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* dk, T* dv,
+flash_bwd_dkv_kernel(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
+                     Rows<L> dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* dk, float* dv,
                      L dkv_l, int tq, int tk, int h, float scale,
                      int causal, Dropout drop) {
   extern __shared__ float smem[];
@@ -848,27 +799,27 @@ flash_bwd_dkv_kernel(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v,
   store_walk_rows(dv, dkv_l, dv_acc, bi, k0, tk, head);
 }
 
-template <class L, bool DROP, class T, class BT>
-cudaError_t launch_fwd(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v,
-                       BiasOf<BT> bias, T* o, L o_l, float* lse, int b,
-                       int tq, int tk, int h, float scale, int causal,
-                       Dropout drop, cudaStream_t stream) {
+template <class L, bool DROP>
+cudaError_t launch_fwd(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias, float* o,
+                       L o_l, float* lse, int b, int tq, int tk, int h,
+                       float scale, int causal, Dropout drop,
+                       cudaStream_t stream) {
   static bool configured = false;
-  cudaError_t err = allow_smem(flash_fwd_kernel<L, DROP, T, BT>, kFwdSmem,
-                               configured);
+  cudaError_t err =
+      allow_smem(flash_fwd_kernel<L, DROP>, kFwdSmem, configured);
   if (err != cudaSuccess) return err;
   dim3 grid((tq + WM - 1) / WM, h, b);
-  flash_fwd_kernel<L, DROP, T, BT><<<grid, NT, kFwdSmem, stream>>>(
+  flash_fwd_kernel<L, DROP><<<grid, NT, kFwdSmem, stream>>>(
       q, k, v, bias, o, o_l, lse, tq, tk, h, scale, causal, drop);
   return cudaGetLastError();
 }
 
 // The forward over a grid of (128-row q tiles, heads, batch rows): the
 // hashing instantiation only when drop.on.
-template <class L, class T, class BT>
-cudaError_t fwd(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v, BiasOf<BT> bias,
-                T* o, L o_l, float* lse, int b, int tq, int tk, int h,
-                float scale, int causal, Dropout drop, cudaStream_t stream) {
+template <class L>
+cudaError_t fwd(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias, float* o, L o_l,
+                float* lse, int b, int tq, int tk, int h, float scale,
+                int causal, Dropout drop, cudaStream_t stream) {
   return drop.on
       ? launch_fwd<L, true>(q, k, v, bias, o, o_l, lse, b, tq, tk, h, scale,
                             causal, drop, stream)
@@ -876,18 +827,18 @@ cudaError_t fwd(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v, BiasOf<BT> bias,
                              scale, causal, drop, stream);
 }
 
-template <class L, bool DROP, class T, class BT>
-cudaError_t launch_bwd_dq(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v,
-                          BiasOf<BT> bias, Rows<L, T> dout, const float* lse,
-                          const float* delta, T* dq, L dq_l, int b, int tq,
-                          int tk, int h, float scale, int causal,
-                          Dropout drop, cudaStream_t stream) {
+template <class L, bool DROP>
+cudaError_t launch_bwd_dq(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
+                          Rows<L> dout, const float* lse, const float* delta,
+                          float* dq, L dq_l, int b, int tq, int tk, int h,
+                          float scale, int causal, Dropout drop,
+                          cudaStream_t stream) {
   static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<L, DROP, T, BT>, kDqSmem,
-                               configured);
+  cudaError_t err =
+      allow_smem(flash_bwd_dq_kernel<L, DROP>, kDqSmem, configured);
   if (err != cudaSuccess) return err;
   dim3 grid((tq + WM - 1) / WM, h, b);
-  flash_bwd_dq_kernel<L, DROP, T, BT><<<grid, NT, kDqSmem, stream>>>(
+  flash_bwd_dq_kernel<L, DROP><<<grid, NT, kDqSmem, stream>>>(
       q, k, v, bias, dout, lse, delta, dq, dq_l, tq, tk, h, scale, causal,
       drop);
   return cudaGetLastError();
@@ -895,12 +846,11 @@ cudaError_t launch_bwd_dq(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v,
 
 // The dq walk over a grid of (128-row q tiles, heads, batch rows): the
 // hashing instantiation only when drop.on.
-template <class L, class T, class BT>
-cudaError_t bwd_dq(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v,
-                   BiasOf<BT> bias, Rows<L, T> dout, const float* lse,
-                   const float* delta, T* dq, L dq_l, int b, int tq, int tk,
-                   int h, float scale, int causal, Dropout drop,
-                   cudaStream_t stream) {
+template <class L>
+cudaError_t bwd_dq(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias, Rows<L> dout,
+                   const float* lse, const float* delta, float* dq, L dq_l,
+                   int b, int tq, int tk, int h, float scale, int causal,
+                   Dropout drop, cudaStream_t stream) {
   return drop.on
       ? launch_bwd_dq<L, true>(q, k, v, bias, dout, lse, delta, dq, dq_l, b,
                                tq, tk, h, scale, causal, drop, stream)
@@ -908,30 +858,30 @@ cudaError_t bwd_dq(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v,
                                 b, tq, tk, h, scale, causal, drop, stream);
 }
 
-template <class L, bool DROP, class T, class BT>
-cudaError_t launch_bwd_dkv(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v,
-                           BiasOf<BT> bias, Rows<L, T> dout,
-                           const float* lse, const float* delta, T* dk,
-                           T* dv, L dkv_l, int b, int tq, int tk, int h,
+template <class L, bool DROP>
+cudaError_t launch_bwd_dkv(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
+                           Rows<L> dout, const float* lse,
+                           const float* delta, float* dk, float* dv,
+                           L dkv_l, int b, int tq, int tk, int h,
                            float scale, int causal, Dropout drop,
                            cudaStream_t stream) {
   static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<L, DROP, T, BT>,
-                               kDkvSmem, configured);
+  cudaError_t err =
+      allow_smem(flash_bwd_dkv_kernel<L, DROP>, kDkvSmem, configured);
   if (err != cudaSuccess) return err;
   dim3 grid((tk + WM - 1) / WM, h, b);
-  flash_bwd_dkv_kernel<L, DROP, T, BT><<<grid, NT, kDkvSmem, stream>>>(
+  flash_bwd_dkv_kernel<L, DROP><<<grid, NT, kDkvSmem, stream>>>(
       q, k, v, bias, dout, lse, delta, dk, dv, dkv_l, tq, tk, h, scale,
       causal, drop);
   return cudaGetLastError();
 }
 
 // The dkv walk over a grid of (128-row k tiles, heads, batch rows).
-template <class L, class T, class BT>
-cudaError_t bwd_dkv(Rows<L, T> q, Rows<L, T> k, Rows<L, T> v,
-                    BiasOf<BT> bias, Rows<L, T> dout, const float* lse,
-                    const float* delta, T* dk, T* dv, L dkv_l, int b, int tq,
-                    int tk, int h, float scale, int causal, Dropout drop,
+template <class L>
+cudaError_t bwd_dkv(Rows<L> q, Rows<L> k, Rows<L> v, Bias bias,
+                    Rows<L> dout, const float* lse, const float* delta,
+                    float* dk, float* dv, L dkv_l, int b, int tq, int tk,
+                    int h, float scale, int causal, Dropout drop,
                     cudaStream_t stream) {
   return drop.on
       ? launch_bwd_dkv<L, true>(q, k, v, bias, dout, lse, delta, dk, dv,

@@ -163,7 +163,7 @@ extern "C" int64_t ptt_qkv_bwd_scratch(int walks, int b, int t, int dm,
 // Dynamic shared memory of a block of the bf16 pair's walks (walk 0: dq,
 // 1: dkv) in bytes.
 extern "C" int64_t ptt_qkv_bwd_walk_smem(int walk) {
-  return (int64_t)(walk ? kBwdDkvTcSmem : kBwdDqTcSmem);
+  return (int64_t)(walk ? Bw<true>::kDkvSmem : Bw<true>::kDqSmem);
 }
 
 namespace {

@@ -500,3 +500,83 @@ def test_tensor_core_numerics_match_jax_kernel(name, tq, tk, bias_kind,
     np.testing.assert_allclose(got_lse.numpy()[live], want_lse[live],
                                rtol=1e-5, atol=1e-5)
     _close_bf16(got_o.float(), np.asarray(out.astype(jnp.float32)))
+
+
+# ---------------------------------------------------------------------------
+# #6 and #7 in bf16 on tensor cores (csrc/flash_bwd_tc.cuh, one bf16
+# plane): their numerics, emulated
+# ---------------------------------------------------------------------------
+
+
+def _tc_flash_backward(q, k, v, bias, dout, lse, delta, scale, causal,
+                       rate=0.0, seed=0):
+    """#6's and #7's arithmetic on the card, in PyTorch: s = q k^T and dp
+    = dO v^T of the bf16 operands (exact products, f32 sums); p =
+    exp(s * scale + bias - lse), masked as the kernels mask it (causal
+    keys, and rows whose lse is +inf), and ds = p (dp - delta) * scale in
+    f32, dp dropped and scaled where the hash drops; dq = ds_hi k + ds_lo
+    k, dv = (p keep inv_keep)_hi^T dO + (...)_lo^T dO and dk = ds_hi^T q +
+    ds_lo^T q, summed in f32 and rounded to bf16 once.  q, dout [b, tq, h,
+    d] and k, v [b, tk, h, d] bf16, lse and delta f32 [b, h, tq]; returns
+    (dq, dk, dv) bf16 in the operands' layout."""
+    qh, kh, vh, dh = (a.float().transpose(1, 2) for a in (q, k, v, dout))
+    s = (qh @ kh.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.exp(s - lse[..., None])
+    tq, tk = s.shape[-2:]
+    if causal:
+        p = torch.where(ka._causal_keep(tq, tk, p.device), p, 0.0)
+    dp = dh @ vh.transpose(-1, -2)
+    pv = p
+    if rate:
+        keep = hash_rng.keep_mask_attn(seed, p.shape, rate)
+        inv_keep = float(np.float32(1.0 / (1.0 - rate)))
+        dp = torch.where(keep, dp * inv_keep, 0.0)
+        pv = torch.where(keep, p * inv_keep, 0.0)
+    ds = p * (dp - delta[..., None]) * scale
+    ds_hi, ds_lo = _split(ds)
+    pv_hi, pv_lo = _split(pv)
+    dq = ds_hi @ kh + ds_lo @ kh
+    dk = ds_hi.transpose(-1, -2) @ qh + ds_lo.transpose(-1, -2) @ qh
+    dv = pv_hi.transpose(-1, -2) @ dh + pv_lo.transpose(-1, -2) @ dh
+    return tuple(a.transpose(1, 2).bfloat16() for a in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("name,tq,tk,bias_kind,causal", BF16_CASES)
+def test_backward_tensor_core_numerics_match_jax_kernels(name, tq, tk,
+                                                         bias_kind, causal,
+                                                         rate):
+    """The emulated arithmetic of #6's and #7's tensor-core walks (exact
+    bf16 products for s and dp, p and ds split into hi/lo for dq, dk and
+    dv) against _flash_backward in interpret mode on the same bf16
+    operands, out, lse and hash mask: dq, dk, dv within _close_bf16, and
+    zero gradients on a row the forward masked."""
+    arrays = _inputs(tq, tk, bias_kind, seed=6)
+    tq_, tk_, tv, tg, tb = (None if a is None else
+                            torch.from_numpy(a).bfloat16() for a in arrays)
+    jq, jk, jv, jg, jb = (None if a is None else
+                          jnp.asarray(a).astype(jnp.bfloat16)
+                          for a in arrays)
+    seed = 0x2545F491
+    jseed = jnp.asarray([seed], jnp.uint32)
+    ok, bq, bk, _ = jax_attention._plan(jq, jk, 512, 512, True, "bthd")
+    assert ok
+    out, lse = jax_attention._flash_forward(
+        jq, jk, jv, jb, jseed, SCALE, causal, bq, bk, True, "bthd",
+        dropout_rate=rate)
+    want = jax_attention._flash_backward(
+        jq, jk, jv, jb, jseed, out, lse, jg, SCALE, causal, bq, bk, True,
+        "bthd", dropout_rate=rate)
+    o_ = torch.from_numpy(np.array(out.astype(jnp.float32)))
+    lse_ = torch.from_numpy(np.array(lse))
+    delta = (tg.float() * o_).sum(-1).transpose(1, 2).contiguous()
+    got = _tc_flash_backward(tq_, tk_, tv, tb, tg, lse_, delta, SCALE,
+                             causal, rate, seed)
+    for g_, w in zip(got, want):
+        assert g_.dtype == torch.bfloat16
+        _close_bf16(g_.float(), np.asarray(w.astype(jnp.float32)))
+    hidden = torch.isinf(lse_)  # [b, h, tq]
+    assert bool(hidden.any()) == (name != "key_padding")
+    assert not got[0].transpose(1, 2)[hidden].any()

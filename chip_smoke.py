@@ -68,7 +68,15 @@ Phases, each fatal on failure:
    exactly, with a keep share within a chi-square bound of 0.9; #17 must
    equal its twin bit for bit.  The bf16 instantiations (amp) are held
    against their bf16 twins on the card at the amp step's shapes: #16
-   (with and without a residual) and #17 at [32*256, 512] bit for bit;
+   (with and without a residual) and #17 at [32*256, 512] bit for bit,
+   and so on the inputs that test their packed bf16x2 rounding
+   (``dropout_bf16_cases``: every bf16 pattern of x, residuals that make
+   ties at bf16's last bit and exponent gaps of 9-30, subnormals, +-0,
+   +-inf, NaN and products that overflow, a numel of 8k + 5 and a view at
+   an odd element; a NaN matches any NaN); each is timed with and without
+   the host's enqueue beside the same-bytes ``torch.add`` /
+   ``torch.mul`` (not the same function), also after a flush that leaves
+   the L2's lines clean;
    #1 and the pair #2 + #3 (and #2, #3 alone) on QKV_CASES, #4, #6, #7 on
    AMP_FLASH_CASES (the cross-attention, the decoder bias, causal with a
    masked row, a ragged causal t 129), at rates 0 and 0.1, within one
@@ -242,7 +250,8 @@ Phases, each fatal on failure:
    steps at each batch on the ring cache and at b=64 on paged pools (the
    megastep's and the FFN's device ms a step beside the idle share), and
    over one training step on each route, on the dropout route, under
-   amp (j), of
+   amp (j) (its device time split by the launching op and by elementwise
+   kernel, #16/#17's share beside), of
    ResNet-50, of DeepFM (with #22's and #23's device ms a step) and of
    BERT-base on both kernel routes: device time by kernel beside host
    wall time, and for
@@ -320,22 +329,27 @@ def require(cond, msg):
         raise SmokeFailure(msg)
 
 
-def cuda_ms(fn, iters=20, warmup=3, hide_host=False):
+def cuda_ms(fn, iters=20, warmup=3, hide_host=False, clean=False):
     """Median device time of one fn() call, each timed alone with CUDA
     events after writing a 256 MB buffer: the main path finds the L2 cold
     (its 6 layers' weights, 88 MB in the decode step, exceed the 50 MB
     L2), so a kernel timed back to back on the same warm inputs would
-    read too fast.  The events also count any wait of the device for the
-    host to enqueue fn's launches; ``hide_host`` puts a 1 ms device-side
-    spin before the start event, so that the host has enqueued all of fn
-    (a sync-free fn) before the device reaches it and only device time
-    is counted."""
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    read too fast.  The write leaves the L2 full of dirty lines, which fn
+    writes back as it allocates its own; ``clean`` reads the buffer
+    instead, so that the L2 holds clean lines.  The events also count any
+    wait of the device for the host to enqueue fn's launches;
+    ``hide_host`` puts a 1 ms device-side spin before the start event, so
+    that the host has enqueued all of fn (a sync-free fn) before the
+    device reaches it and only device time is counted."""
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(iters):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         if hide_host:
             torch.cuda._sleep(2_000_000)   # ~1 ms at the H100's clock
         start = torch.cuda.Event(enable_timing=True)
@@ -1951,8 +1965,9 @@ def check_dropout_add(gen):
     """#16 and #17 at [32*256, 512] f32 against their plain twins: the
     keep pattern of x = 1, residual = 0 exactly (and its keep share within
     CHI2_BOUND of 0.9), #16 on random x and residual within TOL_KERNEL,
-    #16 without a residual (the embedding sites) and #17 bit for bit.
-    Returns (#16's record, #17's record)."""
+    #16 without a residual (the embedding sites) and #17 bit for bit;
+    timed with and without the host's enqueue, and beside the parent's
+    kernels with ``--parent``.  Returns (#16's record, #17's record)."""
     from paddle_tpu_torch.kernels import dropout_epilogue as kde
     from paddle_tpu_torch.kernels import hash_rng
 
@@ -1992,9 +2007,17 @@ def check_dropout_add(gen):
         err, lambda: kde.dropout_add_fwd(x, res, DROPOUT, seed),
         lambda: kde.reference_dropout_add(x, res, DROPOUT, seed), 0,
         3 * F32 * n, None, TRAIN_BATCH, int_ops=HASH_OPS * n)
+    tensor_core_times(fwd, lambda: kde.dropout_add_fwd(x, res, DROPOUT,
+                                                       seed))
+
+    def plain_fn():
+        return kde.dropout_add_fwd(x, None, DROPOUT, seed)
+
     fwd.update(keep_share=kept / n, keep_chi2=chi2,
-               no_residual_ms=cuda_ms(
-                   lambda: kde.dropout_add_fwd(x, None, DROPOUT, seed)),
+               no_residual_ms=cuda_ms(plain_fn),
+               no_residual_device_ms=cuda_ms(plain_fn, hide_host=True),
+               no_residual_parent_device_ms=parent_ms(plain_fn,
+                                                      hide_host=True),
                no_residual_bound_ms=bound(0, 2 * F32 * n,
                                           HASH_OPS * n)[0])
     bwd = timed_record(
@@ -2002,6 +2025,7 @@ def check_dropout_add(gen):
         0.0, lambda: kde.dropout_add_bwd(g, DROPOUT, seed),
         lambda: kde.reference_dropout_add_bwd(g, DROPOUT, seed), 0,
         2 * F32 * n, None, TRAIN_BATCH, int_ops=HASH_OPS * n)
+    tensor_core_times(bwd, lambda: kde.dropout_add_bwd(g, DROPOUT, seed))
     return fwd, bwd
 
 
@@ -2491,12 +2515,136 @@ def _pair_stages(fn, b, t, dm, hd):
                 matmul_ms=matmul, matmul_sum_ms=sum(matmul.values()))
 
 
+#: bf16 patterns of phase 2's special inputs to #16 and #17, each also
+#: negated: +0, the least and largest subnormals, the least normal, 1,
+#: 1.5, the largest x whose product with 1.109375 (rate 0.1) stays finite
+#: (0x7F66) and the least that overflows (0x7F67), 0x7F70, the largest
+#: finite value, inf and NaN
+SPECIAL_BF16 = (0x0000, 0x0001, 0x007F, 0x0080, 0x3F80, 0x3FC0, 0x7F66,
+                0x7F67, 0x7F70, 0x7F7F, 0x7F80, 0x7FC0)
+
+
+def _bf16_of_bits(bits):
+    """A bf16 tensor on the card holding the 16-bit patterns ``bits``."""
+    return torch.from_numpy(np.asarray(bits, np.uint16).view(
+        np.int16)).view(torch.bfloat16).cuda()
+
+
+def same_bf16_bits(a, b):
+    """True where the bf16 ``a`` and ``b`` hold the same bits everywhere,
+    a NaN matching any NaN (the card's canonical NaN need not be the
+    twin's)."""
+    nan = a.isnan()
+    return (torch.equal(nan, b.isnan())
+            and torch.equal(a.view(torch.int16)[~nan],
+                            b.view(torch.int16)[~nan]))
+
+
+def dropout_bf16_cases(gen):
+    """[(name, x, residual)] of bf16 inputs on the card that test #16's
+    and #17's packed bf16x2 arithmetic against the twins' f32-then-rounded
+    one: every bf16 pattern of x (each at 4 indices, so that nearly each
+    is kept at least once) beside a random residual; residuals that put
+    the sum with x's product (rounded to bf16) on a tie at its last bit,
+    at 1.5 and 2.5 steps or just off one, and residuals 9-30 binades below
+    the product; SPECIAL_BF16 against SPECIAL_BF16; a numel of 8k + 5
+    (the vector path and a 5-element tail) and views at an odd element
+    (the element-by-element path)."""
+    from paddle_tpu_torch.kernels import dropout_epilogue as kde
+
+    cases = []
+    every = np.tile(np.arange(2 ** 16), 4)
+    cases.append(("every x pattern", _bf16_of_bits(every),
+                  randn(gen, every.size).bfloat16()))
+    n = 2 ** 18
+    x = randn(gen, n).bfloat16()
+    p = (x * kde._scale(DROPOUT, torch.bfloat16)).float()
+    _, e = torch.frexp(p)  # |p| = m 2^e, m in [0.5, 1): p's step 2^(e-8)
+    sign = torch.where(torch.rand(n, generator=gen) < 0.5, -1.0, 1.0).cuda()
+    steps = torch.tensor((1.0, 1.0 + 2 ** -7, 1.0 - 2 ** -8, 3.0, 5.0))
+    half = steps[torch.randint(0, 5, (n,), generator=gen)].cuda()
+    cases.append(("ties", x, (sign * torch.ldexp(half, e - 9)).bfloat16()))
+    gap = torch.randint(9, 31, (n,), generator=gen).cuda()
+    frac = 1 + torch.randint(0, 128, (n,), generator=gen).cuda() / 128
+    cases.append(("exponent gaps 9-30", x,
+                  (sign * torch.ldexp(frac, e - 1 - gap)).bfloat16()))
+    special = [b | sign for b in SPECIAL_BF16 for sign in (0, 0x8000)]
+    xs, rs = np.meshgrid(special, special)
+    cases.append(("specials", _bf16_of_bits(np.tile(xs.ravel(), 16)),
+                  _bf16_of_bits(np.tile(rs.ravel(), 16))))
+    odd = 8 * 4099 + 5
+    cases.append(("numel 8k + 5", randn(gen, odd).bfloat16(),
+                  randn(gen, odd).bfloat16()))
+    xb, rb = (randn(gen, odd + 1).bfloat16() for _ in range(2))
+    cases.append(("views at element 1", xb[1:], rb[1:]))
+    return cases
+
+
+def check_dropout_bf16_bits(gen):
+    """#16 (with and without a residual) and #17 in bf16 on each of
+    ``dropout_bf16_cases``: the twins' bits (a NaN matching any NaN), and
+    with ``--parent`` the parent's kernels' too.  Returns {case: numel}."""
+    from paddle_tpu_torch.kernels import dropout_epilogue as kde
+
+    held = {}
+    for name, x, res in dropout_bf16_cases(gen):
+        seed = int(torch.randint(0, 2 ** 32, (1,), generator=gen))
+        calls = (
+            ("dropout_add_fwd", lambda: kde.dropout_add_fwd(
+                x, res, DROPOUT, seed), lambda: kde.reference_dropout_add(
+                x, res, DROPOUT, seed)),
+            ("dropout_add_fwd no residual", lambda: kde.dropout_add_fwd(
+                x, None, DROPOUT, seed), lambda: kde.reference_dropout_add(
+                x, None, DROPOUT, seed)),
+            ("dropout_add_bwd", lambda: kde.dropout_add_bwd(
+                x, DROPOUT, seed), lambda: kde.reference_dropout_add_bwd(
+                x, DROPOUT, seed)))
+        for what, fn, twin in calls:
+            got, want = fn(), twin()
+            torch.cuda.synchronize()
+            require(got.dtype == torch.bfloat16 and same_bf16_bits(got, want),
+                    f"{what} bf16 on {name}: not the twin's bits")
+            if parent_lib() is not None:
+                with kernel_library(parent_lib()):
+                    theirs = fn()
+                    torch.cuda.synchronize()
+                require(same_bf16_bits(got, theirs),
+                        f"{what} bf16 on {name}: not the parent's bits")
+        held[name] = x.numel()
+    return held
+
+
+def _same_bytes(rec, fn, call, prefix=""):
+    """Add to ``rec`` the times of ``fn``, one PyTorch call that moves the
+    kernel's bytes (``call`` names it), with and without the host's
+    enqueue: a yardstick of the card's copy rate, not the same function."""
+    rec[prefix + "same_bytes"] = f"{call}: same bytes, not the same function"
+    rec[prefix + "same_bytes_ms"] = cuda_ms(fn)
+    rec[prefix + "same_bytes_device_ms"] = cuda_ms(fn, hide_host=True)
+
+
+def _clean_flush(rec, fn, same_bytes):
+    """Add to ``rec`` the device-only times of the kernel ``fn``, of the
+    parent's (with ``--parent``) and of its same-bytes call after a flush
+    that leaves the L2's lines clean (``cuda_ms(clean=True)``): no dirty
+    line of the flush is written back in their time."""
+    kw = dict(hide_host=True, clean=True)
+    rec.update(clean_flush_device_ms=cuda_ms(fn, **kw),
+               clean_flush_parent_device_ms=parent_ms(fn, **kw),
+               clean_flush_same_bytes_device_ms=cuda_ms(same_bytes, **kw))
+
+
 def check_dropout_add_bf16(gen):
     """#16 (with and without a residual) and #17 in bf16 (amp) at
     [32*256, 512], the amp step's residual sites: equal to their bf16
     twins bit for bit (the reference's bf16 arithmetic) and to themselves
-    on a repeat; timed beside the twins, bounds at 2 bytes an element.
-    Returns (#16's record, #17's record)."""
+    on a repeat, and so on ``dropout_bf16_cases`` (and the parent's
+    kernels, with ``--parent``); timed beside the twins with and without
+    the host's enqueue, beside the parent's kernels and beside the
+    same-bytes ``torch.add(x, r)`` (#16) and ``torch.mul(g, s)`` (#17,
+    #16 without a residual), and again after a flush that leaves the L2
+    clean (``_clean_flush``); bounds at 2 bytes an element.  Returns
+    (#16's record, #17's record)."""
     from paddle_tpu_torch.kernels import dropout_epilogue as kde
 
     shape = (DROPOUT_ROWS, BASE["d_model"])
@@ -2518,25 +2666,49 @@ def check_dropout_add_bf16(gen):
         require(got.dtype == torch.bfloat16 and torch.equal(got, again)
                 and torch.equal(got, want),
                 f"{what} bf16: not the twin's bits or not repeated")
+    cases = check_dropout_bf16_bits(gen)
     src = "paddle_tpu_torch/csrc/dropout_add.cu"
+    scale = float(kde._scale(DROPOUT, torch.bfloat16))
+
+    def fwd_fn():
+        return kde.dropout_add_fwd(x, res, DROPOUT, seed)
+
+    def plain_fn():
+        return kde.dropout_add_fwd(x, None, DROPOUT, seed)
+
+    def bwd_fn():
+        return kde.dropout_add_bwd(g, DROPOUT, seed)
+
     fwd = timed_record(
         "dropout_add_fwd_bf16", src,
-        "paddle_tpu/kernels/dropout_epilogue.py:62", 0.0,
-        lambda: kde.dropout_add_fwd(x, res, DROPOUT, seed),
+        "paddle_tpu/kernels/dropout_epilogue.py:62", 0.0, fwd_fn,
         lambda: kde.reference_dropout_add(x, res, DROPOUT, seed), 0,
         3 * BF16 * n, None, TRAIN_BATCH, int_ops=HASH_OPS * n,
         bound_fn=bound_bf16)
-    fwd.update(dtype="bf16", twin_bit_equal=True, no_residual_ms=cuda_ms(
-        lambda: kde.dropout_add_fwd(x, None, DROPOUT, seed)),
-        no_residual_bound_ms=bound_bf16(0, 2 * BF16 * n, HASH_OPS * n)[0])
+    tensor_core_times(fwd, fwd_fn)
+    _same_bytes(fwd, lambda: torch.add(x, res), "torch.add(x, r)")
+    _clean_flush(fwd, fwd_fn, lambda: torch.add(x, res))
+    fwd.update(dtype="bf16", twin_bit_equal=True, bit_cases=cases,
+               no_residual_ms=cuda_ms(plain_fn),
+               no_residual_device_ms=cuda_ms(plain_fn, hide_host=True),
+               no_residual_parent_device_ms=parent_ms(plain_fn,
+                                                      hide_host=True),
+               no_residual_bound_ms=bound_bf16(0, 2 * BF16 * n,
+                                               HASH_OPS * n)[0])
+    _same_bytes(fwd, lambda: torch.mul(x, scale), "torch.mul(x, s)",
+                prefix="no_residual_")
     bwd = timed_record(
         "dropout_add_bwd_bf16", src,
-        "paddle_tpu/kernels/dropout_epilogue.py:76", 0.0,
-        lambda: kde.dropout_add_bwd(g, DROPOUT, seed),
+        "paddle_tpu/kernels/dropout_epilogue.py:76", 0.0, bwd_fn,
         lambda: kde.reference_dropout_add_bwd(g, DROPOUT, seed), 0,
         2 * BF16 * n, None, TRAIN_BATCH, int_ops=HASH_OPS * n,
         bound_fn=bound_bf16)
-    bwd.update(dtype="bf16", twin_bit_equal=True)
+    tensor_core_times(bwd, bwd_fn)
+    _same_bytes(bwd, lambda: torch.mul(g, scale), "torch.mul(g, s)")
+    _clean_flush(bwd, bwd_fn, lambda: torch.mul(g, scale))
+    bwd.update(dtype="bf16", twin_bit_equal=True, bit_cases=cases)
+    for r in (fwd, bwd):
+        r["device_bound_share"] = r["bound_ms"] / r["device_ms"]
     return fwd, bwd
 
 
@@ -2786,6 +2958,8 @@ def check_parent_bits(gen):
             if rate:
                 same(f"dropout_add_fwd {dtype}",
                      lambda: kde.dropout_add_fwd(x, res, rate, seed))
+                same(f"dropout_add_fwd no residual {dtype}",
+                     lambda: kde.dropout_add_fwd(x, None, rate, seed))
                 same(f"dropout_add_bwd {dtype}",
                      lambda: kde.dropout_add_bwd(x, rate, seed))
     for name, m, n, k, a_t, b_t, split in GEMM_CASES:
@@ -4943,12 +5117,14 @@ def run_bert(fused, flash, composed):
 
 
 def _device_kernels(prof):
-    """[(name, device us)] of the device-side events, largest first."""
+    """[(name, device us)] of the device-side events, largest first (not
+    the device-side spans of ``profile_training``'s "step: " ranges)."""
     from torch.autograd import DeviceType
 
     rows = [(e.key, getattr(e, "self_device_time_total", 0.0))
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("step: ")]
     return sorted(rows, key=lambda r: -r[1])
 
 
@@ -5013,9 +5189,12 @@ def profile_serving(model, b, steps=16, paged=False, tag=""):
 def profile_training(model, tag, feed=None, lr=TRAIN_LR):
     """Device time by kernel over one training step (forward, backward,
     Adam) on ``feed`` (the Transformer's timed batch by default), beside
-    host wall time; the table goes to
-    ``profile_training_step_<tag>.txt``."""
-    from torch.profiler import ProfilerActivity, profile
+    host wall time, and split by phase (``phases``: the forward, the
+    optimizer's step, and the backward as "other"), by the op that
+    launched it (``by_op``) and among PyTorch's elementwise and reduction
+    kernels by name (``elementwise``), #16/#17's (``dropout_add_ms``)
+    beside; the table goes to ``profile_training_step_<tag>.txt``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from paddle_tpu_torch import Adam
 
@@ -5024,14 +5203,24 @@ def profile_training(model, tag, feed=None, lr=TRAIN_LR):
         feed = _to(training_batch(seed=2), "cuda")
     opt.minimize(model(**feed)[0])  # warm: the allocator and the state
     torch.cuda.synchronize()
+    step = opt.step
+
+    def traced_step():
+        with record_function("step: optimizer"):
+            step()
+
+    opt.step = traced_step  # minimize's update, inside its own range
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        opt.minimize(model(**feed)[0])
+        with record_function("step: forward"):
+            loss = model(**feed)[0]
+        opt.minimize(loss)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = _device_kernels(prof)
     busy_us = sum(us for _, us in rows)
+    phases = _phase_device_ms(prof, ("step: forward", "step: optimizer"))
     with open(os.path.join(OUT_DIR, f"profile_training_step_{tag}.txt"),
               "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
@@ -5053,7 +5242,66 @@ def profile_training(model, tag, feed=None, lr=TRAIN_LR):
                     if ("gemm" in name.lower() or "cutlass" in name
                         or name.startswith("nvjet"))
                     and "(anonymous namespace)" not in name) / 1e3,
+                phases=phases,
+                dropout_add_ms=_dropout_add_us(rows) / 1e3,
+                elementwise_ms=sum(us for _, us in _elementwise(rows)) / 1e3,
+                elementwise=[(name[:160], us / 1e3)
+                             for name, us in _elementwise(rows)[:16]],
+                by_op=_op_device_ms(prof),
                 top=[(name[:60], us / 1e3) for name, us in rows[:12]])
+
+
+def _phase_device_ms(prof, ranges):
+    """{range: device ms} of the kernels that ran inside each of the
+    host-side ``ranges``' device-side spans (one stream runs its kernels
+    in launch order, so a span holds its range's kernels and no others),
+    and of the rest under "other" (the backward, between them); None
+    where the profiler recorded no device-side span."""
+    from torch.autograd import DeviceType
+
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = {e.name: e.time_range for e in device if e.name in ranges}
+    if len(spans) < len(ranges):
+        return None
+    out = dict.fromkeys([*ranges, "other"], 0.0)
+    for e in device:
+        if e.name.startswith("step: "):
+            continue
+        inside = [n for n, r in spans.items()
+                  if r.start <= e.time_range.start <= r.end]
+        out[inside[0] if inside else "other"] += (
+            e.time_range.end - e.time_range.start) / 1e3
+    return out
+
+
+def _dropout_add_us(rows):
+    """Device us of #16's and #17's kernels (``csrc/dropout_add.cu``, f32
+    and bf16, every path) among the profiler's rows."""
+    return sum(us for name, us in rows if "::dropout_kernel<" in name
+               or "::dropout_elements_kernel<" in name)
+
+
+def _elementwise(rows):
+    """The profiler's rows of PyTorch's elementwise and reduction kernels
+    (their names carry the functor: the op and its dtype), largest
+    first."""
+    return [(name, us) for name, us in rows
+            if name.startswith(("void at::native::", "at::native::"))
+            and ("elementwise" in name or "reduce_kernel" in name
+                 or "multi_tensor_apply" in name)]
+
+
+def _op_device_ms(prof, top=24):
+    """[(op, device ms)] of the host-side ops (aten ops, autograd nodes,
+    the port's Functions) by the device time of the kernels each launched
+    itself (``self_device_time_total``), largest first."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU
+            and not e.key.startswith("step: ")]
+    return sorted([r for r in rows if r[1] > 0], key=lambda r: -r[1])[:top]
 
 
 def _gemm_cuh_us(rows):
@@ -5292,7 +5540,21 @@ def print_record(r, label):
           + (f"; the parent's kernel {r['parent_ms']} ms"
              + (f", rate {DROPOUT} {r['parent_dropout_ms']} ms"
                 if r.get("parent_dropout_ms") is not None else "")
+             + (f", device only {r['parent_device_ms']} ms"
+                if r.get("parent_device_ms") is not None else "")
              if r.get("parent_ms") is not None else "")
+          + (f"; {r['same_bytes']}: {r['same_bytes_ms']} ms, device only "
+             f"{r['same_bytes_device_ms']} ms" if "same_bytes" in r else "")
+          + (f"; without a residual {r['no_residual_ms']} ms, device only "
+             f"{r.get('no_residual_device_ms')} ms (the parent's "
+             f"{r.get('no_residual_parent_device_ms')}), bound "
+             f"{r['no_residual_bound_ms']}" if "no_residual_ms" in r else "")
+          + (f"; bits held on {r['bit_cases']}" if "bit_cases" in r
+             else "")
+          + (f"; after a clean flush, device only {r['clean_flush_device_ms']}"
+             f" ms (the parent's {r['clean_flush_parent_device_ms']}, the "
+             f"same bytes {r['clean_flush_same_bytes_device_ms']})"
+             if "clean_flush_device_ms" in r else "")
           + (f"; a stable torch.sort of its ids {r['sort_ms']} ms, longest "
              f"run {r['run_max']}" if "sort_ms" in r else "")
           + (f"; {r['bound_share']:.1%} of the bound"
@@ -5762,7 +6024,13 @@ def main():
                 r = profile_training(m, tag, **kw)
         else:
             r = profile_training(m, tag, **kw)
-        profiles[tag] = {k: v for k, v in r.items() if k != "top"}
+        profiles[tag] = {k: v for k, v in r.items()
+                         if k not in ("top", "elementwise", "by_op")}
+        with open(os.path.join(OUT_DIR, f"profile_training_split_{tag}.json"),
+                  "w") as f:
+            json.dump({k: r[k] for k in ("phases", "dropout_add_ms",
+                                         "elementwise_ms", "elementwise",
+                                         "by_op")}, f, indent=1)
         if not r["device_busy_ms"]:
             print(f"phase 4: training step {tag}: device time not measured "
                   f"(the profiler saw no device events)")
@@ -5776,6 +6044,17 @@ def main():
               f"cuBLAS GEMMs {r['library_gemm_ms']} ms")
         for name, ms in r["top"]:
             print(f"    {ms:.4f} ms  {name}")
+        if tag.startswith("amp_bf16"):
+            print(f"phase 4: training step {tag}: device ms by phase "
+                  f"{r['phases']}; #16/#17 {r['dropout_add_ms']} ms, "
+                  f"PyTorch's elementwise and reduction kernels "
+                  f"{r['elementwise_ms']} ms; by kernel:")
+            for name, ms in r["elementwise"]:
+                print(f"    {ms:.4f} ms  {name}")
+            print(f"phase 4: training step {tag}: device time by launching "
+                  f"op:")
+            for name, ms in r["by_op"]:
+                print(f"    {ms:.4f} ms  {name}")
     profile_rn = profile_resnet(resnet)
     if profile_rn["dot_stats_ms"]:
         records[("dot_col_stats", max(BATCHES))]["per_step"] = {

@@ -5,9 +5,10 @@ forward (``csrc/flash_tc.cuh``), #1's cluster route
 (``qkv_cluster_tc_kernel`` in ``csrc/qkv_attention.cu``), #1's y tile
 (``gemm_tc`` in ``csrc/gemm.cuh``), the pair #2 + #3 (its walks in
 ``csrc/flash_bwd_tc.cuh``, its GEMM stages on ``gemm_tc``) and #6, #7
-(the same walks on bf16 rows).
+(the same walks on bf16 rows); and #16, #17 (``csrc/dropout_add.cu``,
+no tensor cores) alone with ``dropout``.
 
-    python3 chip_tc_phases.py
+    python3 chip_tc_phases.py [dropout]
 
 Builds temporary copies of the sources by ``chip_kernel_copies`` (the
 tree is not changed):
@@ -36,7 +37,16 @@ tree is not changed):
   ``csrc/flash_attention.cu``): their walks' clocks, copies without p's
   low half (in dv += p^T dO) and without ds's (in dq += ds k and dk +=
   ds^T q), and copies with other tiles (2 blocks an SM, the dq walk in
-  128 registers, a third ring stage).
+  128 registers, a third ring stage);
+* #16 and #17 (``dropout``, only they): copies with 1, 3 or 4 vectors a
+  thread in a round (the tree's kVecs is 2), without the streaming
+  hints, and with streaming loads but plain stores; each held to the
+  tree's bits on the amp step's [32*256, 512] in bf16 and f32 and timed
+  beside the tree after the repo's flush (the L2 left dirty) and after a
+  clean one (``cuda_ms(clean=True)``), with the same-bytes
+  ``torch.add`` / ``torch.mul`` beside; and the tree's SASS op counts
+  (conversions, packed and f32 arithmetic, loads and stores) of each
+  ``dropout_kernel`` instantiation.
 
 #4's copies are timed on the cross-attention (pad bias) and the decoder
 self-attention (decoder bias) beside the tree's kernel and masked
@@ -63,6 +73,7 @@ import ctypes
 import json
 import os
 import re
+import subprocess
 import sys
 import tempfile
 
@@ -448,6 +459,91 @@ def phase_shares(lib, n_blocks, phases):
                     .tolist()), block_clock=total)
 
 
+def dropout_variants():
+    """``csrc/dropout_add.cu`` as it is ("tree") and copies with another
+    round of vectors a thread or other cache hints."""
+    w = "dropout_add.cu"
+    src = read(w)
+    plain_stores = ck.edit(src, "    __stcs(p, v);", "    *p = v;", w)
+    return {"tree": src,
+            **{f"vecs_{n}": const(src, "kVecs", n, w) for n in (1, 3, 4)},
+            "no_hints": ck.edit(src, "constexpr bool kStream = true;",
+                                "constexpr bool kStream = false;", w),
+            "plain_stores": plain_stores}
+
+
+def sass_ops(build, so, kernel, ops):
+    """{function: {op: count}} of the functions of the shared object
+    ``so`` whose names hold ``kernel`` (``cuobjdump -sass``), for the
+    opcodes ``ops`` (modifiers dropped)."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if kernel in m.group(1) else None
+            if fn:
+                counts[fn] = dict.fromkeys(ops, 0)
+            continue
+        m = re.search(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if fn and m and m.group(1) in ops:
+            counts[fn][m.group(1)] += 1
+    return counts
+
+
+def dropout_times():
+    """#16 (with a residual) and #17 at [32*256, 512] in bf16 and f32: the
+    tree's and ``dropout_variants``' device ms after a dirty and a clean
+    flush, three rounds in turn, the same-bytes calls beside."""
+    import chip_smoke as cs
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import dropout_epilogue as kde
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        libs = ck.build(_build, out_dir, dropout_variants(), [
+            "ptt_dropout_add", "ptt_dropout_add_bwd", "ptt_dropout_add_bf16",
+            "ptt_dropout_add_bwd_bf16"])
+        print(json.dumps({"sass": sass_ops(
+            _build, os.path.join(out_dir, "libtree.so"), "dropout_kernel",
+            ("F2F", "F2FP", "HMUL2", "HADD2", "HFMA2", "FMUL", "FADD",
+             "LDG", "STG"))}))
+    gen = torch.Generator().manual_seed(0)
+    shape, rate, seed = (cs.DROPOUT_ROWS, cs.BASE["d_model"]), cs.DROPOUT, 7
+    for dtype in (torch.bfloat16, torch.float32):
+        x, r, g = (cs.randn(gen, *shape).to(dtype) for _ in range(3))
+        calls = {"fwd": lambda: kde.dropout_add_fwd(x, r, rate, seed),
+                 "bwd": lambda: kde.dropout_add_bwd(g, rate, seed)}
+        scale = float(kde._scale(rate, dtype))
+        same = {"fwd": lambda: torch.add(x, r),
+                "bwd": lambda: torch.mul(g, scale)}
+        with cs.kernel_library(libs["tree"]):
+            want = {k: fn() for k, fn in calls.items()}
+        times = {}
+        for rnd in range(3):
+            for name in (list(libs) if rnd % 2 == 0 else list(libs)[::-1]):
+                with cs.kernel_library(libs[name]):
+                    for k, fn in calls.items():
+                        if not torch.equal(fn(), want[k]):
+                            raise RuntimeError(f"{name} {k}: not the "
+                                               "tree's bits")
+                        for clean in (False, True):
+                            times.setdefault((name, k, clean), []).append(
+                                cs.cuda_ms(fn, hide_host=True, clean=clean))
+        for k in calls:
+            rec = dict(kernel=f"dropout_add_{k}", dtype=str(dtype)[6:])
+            for clean in (False, True):
+                flush = "clean" if clean else "dirty"
+                rec[f"same_bytes_{flush}_ms"] = cs.cuda_ms(
+                    same[k], hide_host=True, clean=clean)
+                for name in libs:
+                    rec[f"{name}_{flush}_ms"] = float(
+                        np.median(times[(name, k, clean)]))
+            print(json.dumps(rec))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_tc_phases: no CUDA device", file=sys.stderr)
@@ -459,6 +555,10 @@ def main():
     from paddle_tpu_torch.kernels import gemm as kg
 
     print(ck.card())
+    if sys.argv[1:] == ["dropout"]:
+        dropout_times()
+        print(json.dumps({"ok": True}))
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.lib()
     with tempfile.TemporaryDirectory() as out_dir:

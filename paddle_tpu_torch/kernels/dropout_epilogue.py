@@ -15,8 +15,9 @@ The plain twins are :func:`reference_dropout_add` and
 :func:`reference_dropout_add_bwd`.  CPU tensors take them; CUDA tensors
 launch ``csrc/dropout_add.cu`` or raise.  f32 and bf16 (amp) tensors each
 have their kernel; in bf16 the arithmetic is the reference's in x's dtype
-(inv_keep, each product and each sum rounded to bf16), counted under
-``dropout_add_fwd_bf16`` and ``dropout_add_bwd_bf16``.
+(inv_keep, each product and each sum rounded to bf16; the kernel's packed
+bf16x2 operations round the exact product and sum once, the same bits),
+counted under ``dropout_add_fwd_bf16`` and ``dropout_add_bwd_bf16``.
 """
 
 from __future__ import annotations

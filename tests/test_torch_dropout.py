@@ -239,6 +239,164 @@ def test_dropout_add_bf16_bit_equal_to_pallas(residual, rate):
             bits(want_dx))
 
 
+@pytest.mark.parametrize("shape,offset", [((8 * 37 + 5,), 0), ((7, 43), 0),
+                                          ((8 * 37 + 5,), 1), ((7, 43), 1)])
+def test_dropout_add_bf16_odd_sizes_bit_equal_to_reference(shape, offset):
+    """bf16 at a numel that is not a multiple of 8 (the kernels' scalar
+    tail) and on a view that starts at an odd element (their element-by-
+    element path): the port's twins of #16 (with and without a residual)
+    and #17 against the reference's dropout_add (its XLA fallback: the
+    columns are no multiple of 128) and jax.vjp, bit for bit."""
+    n = int(np.prod(shape))
+    rng = np.random.RandomState(11 + offset)
+    x, res, g = (rng.randn(n + offset).astype(np.float32) for _ in range(3))
+    seed = int(_u32(rng, 1)[0])
+    tx, tr, tg = (torch.from_numpy(a).bfloat16()[offset:].view(shape)
+                  for a in (x, res, g))
+    assert offset == 0 or tx.storage_offset() == offset
+    xb, rb, gb = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                  for t in (tx, tr, tg))
+    assert not jax_dropout._plan(xb.shape, xb.dtype, True)[0]
+    want, vjp = jax.vjp(lambda a: jax_dropout.dropout_add(
+        a, rb, RATE, _jseed(seed), interpret=True), xb)
+    (want_dx,) = vjp(gb)
+    plain = jax_dropout.dropout_add(xb, jnp.zeros_like(rb), RATE,
+                                    _jseed(seed), interpret=True)
+
+    def bits(a):
+        return np.asarray(a.astype(jnp.float32))
+
+    for got, ref in ((kde.reference_dropout_add(tx, tr, RATE, seed), want),
+                     (kde.reference_dropout_add(tx, None, RATE, seed), plain),
+                     (kde.reference_dropout_add_bwd(tg, RATE, seed),
+                      want_dx)):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(), bits(ref))
+        np.testing.assert_array_equal(np.signbit(got.float().numpy()),
+                                      np.signbit(bits(ref)))
+
+
+# ---------------------------------------------------------------------------
+# the premise of the bf16 kernels' packed arithmetic: PyTorch's bf16 x and
+# + (f32, then rounded to bf16), which the twins compute, round the exact
+# value once, as mul.rn.bf16x2 and add.rn.bf16x2 do on the card
+# ---------------------------------------------------------------------------
+
+
+def _bf16_parts(bits):
+    """(sign, m, e) of finite bf16 patterns (int arrays): the value is
+    (-1)^sign * m * 2^e, m an integer below 2^8."""
+    bits = np.asarray(bits, np.int64)
+    exp, frac = (bits >> 7) & 0xFF, bits & 0x7F
+    m = np.where(exp == 0, frac, frac | 0x80)
+    return bits >> 15, m, np.where(exp == 0, 1, exp) - 134
+
+
+def _round_bf16(a, e):
+    """The integers a >= 0 times 2^e (int64 arrays, a < 2^53) rounded once
+    to bf16, to nearest even, with bf16's subnormals (steps of 2^-133) and
+    overflow to inf: float64 magnitudes."""
+    _, length = np.frexp(a.astype(np.float64))  # a's bit length (0 at 0)
+    step = np.maximum(e + length - 1 - 7, -133)  # the result's bf16 step
+    shift = np.clip(step - e, 0, 62)
+    q = a >> shift
+    rem = a - (q << shift)
+    half = np.where(shift > 0, np.int64(1) << np.maximum(shift - 1, 0), 1)
+    q = q + ((rem > half) | ((rem == half) & (shift > 0) & (q % 2 == 1)))
+    value = np.ldexp(q.astype(np.float64), e + shift)
+    return np.where(value >= 2.0 ** 128, np.inf, value)
+
+
+def _bf16_tensor(bits):
+    return torch.from_numpy(np.asarray(bits, np.uint16).view(np.int16)).view(
+        torch.bfloat16)
+
+
+def _assert_same_values(got, want):
+    """bf16 ``got`` equals the float64 ``want`` everywhere, the sign of
+    zero included; a NaN matches a NaN."""
+    got = got.double().numpy()
+    np.testing.assert_array_equal(got, want)
+    number = ~np.isnan(want)
+    np.testing.assert_array_equal(np.signbit(got[number]),
+                                  np.signbit(want[number]))
+
+
+@pytest.mark.parametrize("rate", [RATE, 0.5])
+def test_bf16_product_rounds_the_exact_product_once(rate):
+    """Every bf16 x (all 65,536 patterns: subnormals, +-0, +-inf, NaN and
+    products that overflow included) times the bf16 inv_keep, as the twin
+    multiplies: equal to the exact product rounded once to bf16."""
+    bits = np.arange(2 ** 16)
+    scale = kde._scale(rate, torch.bfloat16)
+    got = _bf16_tensor(bits) * scale
+    s_sign, s_m, s_e = _bf16_parts(int(scale.view(torch.int16)) & 0xFFFF)
+    sign, m, e = _bf16_parts(bits)
+    exact = _round_bf16(m * s_m, e + s_e)
+    exact = np.where(sign ^ s_sign, -exact, exact)
+    x = _bf16_tensor(bits).double().numpy()
+    special = ~np.isfinite(x)
+    want = np.where(special, x * float(scale), exact)
+    _assert_same_values(got, want)
+
+
+def _sum_inputs(kind, rng):
+    """bf16 pattern pairs (a, b) of one kind: 2^20 random patterns of
+    each; ties (b half a step of a's bf16 grid, or 1.5, 2.5 steps, or just
+    off a half step); b 9-30 binades below a."""
+    if kind == "random":
+        return rng.randint(0, 2 ** 16, size=(2, 2 ** 20))
+    n = 2 ** 16
+    a = (rng.randint(0, 2, n) << 15) | (rng.randint(40, 227, n) << 7) | \
+        rng.randint(0, 128, n)
+    lead = ((a >> 7) & 0xFF) - 127  # a's binade: its step is 2^(lead - 7)
+    sign = np.where(rng.rand(n) < 0.5, -1.0, 1.0)
+    if kind == "ties":
+        size = np.array([1.0, 3.0, 5.0, 1 + 2 ** -7, 1 - 2 ** -8])[
+            rng.randint(0, 5, n)]
+        b = sign * np.ldexp(size, lead - 8)
+    else:
+        b = sign * np.ldexp(1 + rng.randint(0, 128, n) / 128,
+                            lead - rng.randint(9, 31, n))
+    b_bits = (b.astype(np.float32).view(np.uint32) >> 16).astype(np.int64)
+    assert np.array_equal(_bf16_tensor(b_bits).double().numpy(), b)
+    return np.stack([a, b_bits])
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "gaps"])
+def test_bf16_sum_rounds_the_exact_sum_once(kind):
+    """bf16 a + b, as the twin adds the residual: equal to the exact sum
+    rounded once to bf16, on 2^20 random pattern pairs (specials
+    included), on ties at the last bit and on exponent gaps of 9-30."""
+    a_bits, b_bits = _sum_inputs(kind, np.random.RandomState(21))
+    got = _bf16_tensor(a_bits) + _bf16_tensor(b_bits)
+    (sa, ma, ea), (sb, mb, eb) = _bf16_parts(a_bits), _bf16_parts(b_bits)
+    # align on the smaller exponent, at most 40 binades apart: a smaller
+    # operand further down only decides which side of the larger one the
+    # sum falls, which a unit 40 binades down decides the same way
+    hi = np.maximum(ea, eb)
+    low = hi - np.minimum(hi - np.minimum(ea, eb), 40)
+
+    def scaled(sign, m, e):  # the operand in units of 2^low
+        m = np.where(sign == 1, -m, m)
+        return np.where(e >= low, m << np.maximum(e - low, 0), np.sign(m))
+
+    total = scaled(sa, ma, ea) + scaled(sb, mb, eb)
+    exact = _round_bf16(np.abs(total), low)
+    zero_sign = np.where((sa == 1) & (sb == 1), -1.0, 1.0)
+    exact = np.where(total < 0, -exact,
+                     np.where(total == 0, zero_sign * 0.0, exact))
+    a = _bf16_tensor(a_bits).double().numpy()
+    b = _bf16_tensor(b_bits).double().numpy()
+    special = ~(np.isfinite(a) & np.isfinite(b))
+    with np.errstate(invalid="ignore"):
+        want = np.where(special, a + b, exact)
+    _assert_same_values(got, want)
+    if kind == "ties":  # most of them sit exactly on a half step
+        step = np.ldexp(1.0, np.frexp(a + b)[1] - 8)
+        assert np.mean(np.mod(a + b, step) == step / 2) > 0.5
+
+
 # ---------------------------------------------------------------------------
 # weights dropout in the attention kernels' twins
 # ---------------------------------------------------------------------------

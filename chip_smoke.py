@@ -79,7 +79,12 @@ Phases, each fatal on failure:
    the L2's lines clean;
    #1 and the pair #2 + #3 (and #2, #3 alone) on QKV_CASES, #4, #6, #7 on
    AMP_FLASH_CASES (the cross-attention, the decoder bias, causal with a
-   masked row, a ragged causal t 129), at rates 0 and 0.1, within one
+   masked row, a ragged causal t 129), #5, #8, #9 on BHTD_BF16_CASES
+   (BERT-base's self-attention with its padding bias, causal, causal tq >
+   tk with a masked row, tq < tk, two ragged cases; each output also the
+   bits of #4, #6, #7 on the transposed tensors), and #1 and the pair at
+   BERT-base's self-attention (b 128, t 128, d_model 768: the shapes of
+   (k)'s ``use_flash`` route), at rates 0 and 0.1, within one
    bf16 step (``compare_bf16``), each call repeated for equal bits, and
    timed beside masked ``F.scaled_dot_product_attention`` or
    ``F.multi_head_attention_forward`` in bf16; their bounds count 2
@@ -99,7 +104,10 @@ Phases, each fatal on failure:
    (a kernel that rounded p to one bf16 would pass ``compare_bf16`` and
    fail this); the row masked in the forward gets dx_q = 0 from #2; and
    a bias copy at an odd element (not 4-byte aligned) must give the
-   aligned bias's bits.  With ``--parent ROOT``
+   aligned bias's bits.  The bf16 ``gelu`` (the reference's bf16
+   arithmetic, plain PyTorch) must give the CPU's bits on the card on
+   all but GELU_CARD_SHARE of the finite bf16 inputs, ``F.gelu``'s
+   differences from it counted.  With ``--parent ROOT``
    (another checkout, e.g. the parent commit unpacked by ``git
    archive``), its attention, GEMM and dropout kernels are built beside
    this tree's: phase 1 compares the registers of every f32
@@ -235,7 +243,7 @@ Phases, each fatal on failure:
    kernel) the fused route's rate-0 loss within 1e-5.  Then 10 timed
    steps with fresh seeds on each kernel route (median step ms, tokens/s,
    f32 peak share by ``bench.py``'s ``bert_train_flops_per_token``, peak
-   memory), whose loss must fall;
+   memory), whose loss must fall.  (i) keeps the float64 step for (k);
    (j) bf16 amp training as ``bench_transformer`` runs it by default
    (``amp.enable``: the reference's cast policy; the default route at
    dropout 0.1, batch 32, length 256, Adam 1e-4) from (d)'s initial
@@ -246,6 +254,19 @@ Phases, each fatal on failure:
    held against (f)'s float64 step (TOL_AMP_LOSS, TOL_AMP_GRAD); then 10
    timed steps with fresh seeds (median step ms, target tokens/s, the
    bf16 peak share, peak memory) beside (f)'s f32 step;
+   (k) BERT-base pretraining under bf16 amp as ``bench_bert`` runs it
+   (``amp.enable`` on (i)'s two kernel-route models, reloaded with their
+   initial weights, fresh Adam state): the bhtd route (``attention_fuse``)
+   launches 12 each of #5, #8, #9 in bf16 per step, the ``use_flash``
+   route 12 each of #1-#3 in bf16, both 24 each of #16 and #17 in bf16
+   (the residual sites) and 1 each in f32 (the embedding's), and no f32
+   attention kernel.  Each route's step 1 under (i)'s seeds: at batch 4
+   held against (i)'s float64 step (TOL_AMP_LOSS, TOL_AMP_GRAD, every
+   gradient f32, the encoder output bf16), at batch 128 twice for equal
+   gradient bits; the two routes' losses within TOL_AMP_ROUTES_LOSS; then
+   10 timed steps with fresh seeds (median step ms, tokens/s, the bf16
+   peak share, peak memory) beside (i)'s f32 numbers, whose loss must
+   fall;
 4. where the time goes: torch.profiler over one prefill and 16 decode
    steps at each batch on the ring cache and at b=64 on paged pools (the
    megastep's and the FFN's device ms a step beside the idle share), and
@@ -253,8 +274,10 @@ Phases, each fatal on failure:
    amp (j) (its device time split by the launching op and by elementwise
    kernel, #16/#17's share beside), of
    ResNet-50, of DeepFM (with #22's and #23's device ms a step) and of
-   BERT-base on both kernel routes: device time by kernel beside host
-   wall time, and for
+   BERT-base on both kernel routes in f32 and under amp (k) (the amp
+   steps' device time split by phase, launching op and elementwise
+   kernel, and #5's, #8's and #9's device ms a step): device time by
+   kernel beside host wall time, and for
    ResNet-50 any layout-conversion kernel and #19's time a step beside the
    summed bound of its 36 sites.
    Every phase prints its seconds.
@@ -2271,20 +2294,324 @@ def check_flash_attention_bf16(gen):
     return out
 
 
-def _flash_bwd_off_rounding(bw, kw):
-    """#6's dq and #7's dk, dv in bf16 off the float64 twin's value rounded
-    to bf16: {"flash_bwd_dq": ``_off_rounding_shares``, "flash_bwd_dkv":
-    ...}."""
+def _flash_bwd_off_rounding(bw, kw, suffix=""):
+    """The layout's dq walk's dq and dkv walk's dk, dv in bf16 (#6, #7; #8,
+    #9 with ``suffix`` "_bhtd") off the float64 twin's value rounded to
+    bf16: {"flash_bwd_dq" + suffix: ``_off_rounding_shares``,
+    "flash_bwd_dkv" + suffix: ...}.  The parent's shares (``--parent``)
+    only for the bthd kernels, which the parent has in bf16."""
     from paddle_tpu_torch.kernels import attention as ka
 
     b64 = [None if a is None else a.double() for a in bw]
-    return {"flash_bwd_dq": _off_rounding_shares(
-                "flash_bwd_dq bf16", ("dq",), lambda: (ka.flash_bwd_dq(
-                    *bw, **kw),), (ka.reference_flash_bwd_dq(*b64, **kw),)),
-            "flash_bwd_dkv": _off_rounding_shares(
-                "flash_bwd_dkv bf16", ("dk", "dv"),
-                lambda: ka.flash_bwd_dkv(*bw, **kw),
-                ka.reference_flash_bwd_dkv(*b64, **kw))}
+    dq, dkv = (getattr(ka, name + suffix)
+               for name in ("flash_bwd_dq", "flash_bwd_dkv"))
+    dq64, dkv64 = (getattr(ka, "reference_" + name + suffix)
+                   for name in ("flash_bwd_dq", "flash_bwd_dkv"))
+    return {"flash_bwd_dq" + suffix: _off_rounding_shares(
+                "flash_bwd_dq" + suffix + " bf16", ("dq",),
+                lambda: (dq(*bw, **kw),), (dq64(*b64, **kw),),
+                not suffix),
+            "flash_bwd_dkv" + suffix: _off_rounding_shares(
+                "flash_bwd_dkv" + suffix + " bf16", ("dk", "dv"),
+                lambda: dkv(*bw, **kw), dkv64(*b64, **kw), not suffix)}
+
+
+#: phase 2's bf16 bhtd cases (#5, #8, #9 in bf16: amp's attention_fuse
+#: route) at BERT-base's self-attention, q, k, v [128, 12, t, 64] bf16:
+#: (name, tq, tk, bias, causal) as in BHTD_CASES; every case's outputs
+#: must also be the bthd bf16 kernels' (#4, #6, #7) bits on the transposed
+#: tensors, which holds those at BERT-base's shapes too
+BHTD_BF16_CASES = (("bert self", 128, 128, "pad", False),
+                   ("causal", 128, 128, "pad", True),
+                   ("causal tq>tk, -1e30 row", 128, 64, "masked", True),
+                   ("cross tq 64 tk 128", 64, 128, "pad", False),
+                   ("ragged tq 72 tk 200", 72, 200, "pad", False),
+                   ("ragged causal tq 200 tk 136", 200, 136, "pad", True))
+
+
+def check_flash_attention_bhtd_bf16(gen):
+    """#5, #8 and #9 in bf16 (amp), on tensor cores, against their bf16
+    twins on BHTD_BF16_CASES at rates 0 and DROPOUT, each called twice for
+    equal bits, by ``compare_bf16``; each output must equal the bthd bf16
+    kernel's on the transposed tensors bit for bit (the same kernels on
+    another row layout, the same mask); a row masked in the forward gets
+    dq = 0.  At BHTD_RECORD_CASE each is timed beside its twin and masked
+    ``F.scaled_dot_product_attention`` in bf16 on the same [b, h, t, 64]
+    tensors (its backward for #8 and #9), with and without the host's
+    enqueue, bounds at 2 bytes an element and the bf16 tensor-core rate,
+    and the share of o, dq, dk and dv off the float64 value rounded to
+    bf16 at most TOL_OFF_ROUNDING.  A bias view at an odd element gives
+    the aligned bias's bits in all three.  Returns {kernel name:
+    record}."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import attention as ka
+
+    b, h, dh = BERT_BATCH, BERT["n_head"], 64
+    scale = dh ** -0.5
+    out = {}
+    t_ = ka._bthd  # [b, h, t, d] <-> [b, t, h, d] (a view)
+    for case, tq, tk, bias_kind, causal in BHTD_BF16_CASES:
+        q, k, v, do, bias = _bf16(*_bhtd_inputs(gen, tq, tk, bias_kind))
+        qt, kt, vt, dot = (t_(a).contiguous() for a in (q, k, v, do))
+        errs = {}
+        for rate in (0.0, DROPOUT):
+            kw = dict(scale=scale, causal=causal, dropout_rate=rate,
+                      dropout_seed=int(torch.randint(0, 2 ** 32, (1,),
+                                                     generator=gen)))
+            what = f"bf16 {case} rate {rate}"
+            o, lse = ka.flash_fwd_bhtd(q, k, v, bias, **kw)
+            _require_same_bits(f"flash_fwd_bhtd {what}", (o, lse),
+                               ka.flash_fwd_bhtd(q, k, v, bias, **kw))
+            o_t, lse_t = ka.flash_fwd(qt, kt, vt, bias, **kw)
+            require(torch.equal(o, t_(o_t)) and torch.equal(lse, lse_t),
+                    f"flash_fwd_bhtd {what}: not flash_fwd's bits on the "
+                    "transposed tensors")
+            want_o, want_lse = ka.reference_flash_fwd_bhtd(q, k, v, bias,
+                                                           **kw)
+            hidden = torch.isinf(want_lse)
+            require(o.dtype == torch.bfloat16 and torch.equal(
+                hidden, torch.isinf(lse)), f"flash_fwd_bhtd {what}: masked "
+                "rows or dtype differ")
+            require(bool(hidden.any()) == (causal and tq > tk),
+                    f"flash_fwd_bhtd {what}: {int(hidden.sum())} masked "
+                    "rows")
+            err_f = max(compare_bf16(f"flash_fwd_bhtd {what}", o, want_o),
+                        compare(f"flash_fwd_bhtd {what} lse", lse[~hidden],
+                                want_lse[~hidden], TOL_KERNEL))
+            del want_o, o_t
+            delta = (do.float() * o.float()).sum(-1).contiguous()
+            bw = (q, k, v, bias, do, lse, delta)
+            dq = ka.flash_bwd_dq_bhtd(*bw, **kw)
+            _require_same_bits(f"flash_bwd_dq_bhtd {what}", (dq,),
+                               (ka.flash_bwd_dq_bhtd(*bw, **kw),))
+            dk, dv = ka.flash_bwd_dkv_bhtd(*bw, **kw)
+            _require_same_bits(f"flash_bwd_dkv_bhtd {what}", (dk, dv),
+                               ka.flash_bwd_dkv_bhtd(*bw, **kw))
+            bw_t = (qt, kt, vt, bias, dot, lse, delta)
+            dk_t, dv_t = ka.flash_bwd_dkv(*bw_t, **kw)
+            require(torch.equal(dq, t_(ka.flash_bwd_dq(*bw_t, **kw)))
+                    and torch.equal(dk, t_(dk_t))
+                    and torch.equal(dv, t_(dv_t)),
+                    f"flash_bwd_*_bhtd {what}: not the bthd walks' bits on "
+                    "the transposed tensors")
+            del dk_t, dv_t
+            if bias_kind == "masked":
+                # the row masked in the forward (lse = +inf) gets dq = 0
+                require(torch.isinf(lse[-1, :, tq - 5]).all().item()
+                        and not dq[-1, :, tq - 5].any().item(),
+                        f"flash_bwd_dq_bhtd {what}: the masked row's dq is "
+                        "not 0")
+            want_dk, want_dv = ka.reference_flash_bwd_dkv_bhtd(*bw, **kw)
+            errs[rate] = (err_f, compare_bf16(
+                f"flash_bwd_dq_bhtd {what}", dq,
+                ka.reference_flash_bwd_dq_bhtd(*bw, **kw)),
+                max(compare_bf16(f"flash_bwd_dkv_bhtd {what} dk", dk,
+                                 want_dk),
+                    compare_bf16(f"flash_bwd_dkv_bhtd {what} dv", dv,
+                                 want_dv)))
+            del want_dk, want_dv
+            if rate == 0.0:
+                bw0, kw0 = bw, kw
+            else:
+                bw_d, kw_d = bw, kw
+        del qt, kt, vt, dot
+        if case != BHTD_RECORD_CASE:
+            continue
+        off = off_rounding(f"flash_fwd_bhtd bf16 {case}",
+                           ka.flash_fwd_bhtd(q, k, v, bias, **kw0)[0],
+                           ka.reference_flash_fwd_bhtd(*(a.double() for a in (
+                               q, k, v, bias)), **kw0)[0])
+        bw_off = _flash_bwd_off_rounding(bw0, kw0, "_bhtd")
+        lq, lk, lv = (a.detach().requires_grad_() for a in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias,
+                                                 scale=scale)
+
+        def lib_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(
+                    lq, lk, lv, attn_mask=bias, scale=scale)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (lq, lk, lv), do,
+                                       retain_graph=True)
+
+        pairs = _visible_pairs(tq, tk, causal)
+        flops = b * h * pairs * dh
+        rows, keys = BF16 * b * h * tq * dh, BF16 * b * h * tk * dh
+        bias_bytes = BF16 * bias.numel()
+        stats = F32 * 2 * b * h * tq
+        hashes = ATTN_HASH_OPS * b * h * pairs
+        # MMA FLOPs issued, in t x t products with the splits: the forward
+        # 3 (s, p v twice), the dq walk 4, the dkv walk 6; the functions'
+        # 2, 3 and 4 (``mult``)
+        mma_mult = (6, 8, 12)
+        for i, (kernel, line, source, fn, twin, mult, nbytes) in enumerate((
+                ("flash_fwd_bhtd", 176, "flash_tc.cuh", ka.flash_fwd_bhtd,
+                 ka.reference_flash_fwd_bhtd, 4,
+                 2 * rows + 2 * keys + bias_bytes + stats // 2),
+                ("flash_bwd_dq_bhtd", 247, "flash_bwd_tc.cuh",
+                 ka.flash_bwd_dq_bhtd, ka.reference_flash_bwd_dq_bhtd, 6,
+                 3 * rows + 2 * keys + bias_bytes + stats),
+                ("flash_bwd_dkv_bhtd", 303, "flash_bwd_tc.cuh",
+                 ka.flash_bwd_dkv_bhtd, ka.reference_flash_bwd_dkv_bhtd, 8,
+                 2 * rows + 4 * keys + bias_bytes + stats))):
+            args, args_d = ((q, k, v, bias), (q, k, v, bias)) if i == 0 \
+                else (bw0, bw_d)
+            lib = lib_fwd if i == 0 else lib_bwd
+            rec = timed_record(
+                kernel + "_bf16", "paddle_tpu_torch/csrc/" + source,
+                f"paddle_tpu/kernels/attention.py:{line}", errs[0.0][i],
+                lambda: fn(*args, **kw0), lambda: twin(*args, **kw0),
+                mult * flops, nbytes, lib, b, bound_fn=bound_bf16)
+            rec.update(case=case, dtype="bf16",
+                       dropout_max_abs_err=errs[DROPOUT][i],
+                       dropout_ms=cuda_ms(lambda: fn(*args_d, **kw_d)),
+                       dropout_bound_ms=bound_bf16(mult * flops, nbytes,
+                                                   hashes)[0],
+                       mma_flops=mma_mult[i] * flops,
+                       device_ms=cuda_ms(lambda: fn(*args, **kw0),
+                                         hide_host=True),
+                       dropout_device_ms=cuda_ms(
+                           lambda: fn(*args_d, **kw_d), hide_host=True),
+                       library_device_ms=cuda_ms(lib, hide_host=True),
+                       off_rounding_share=off if i == 0 else bw_off[kernel],
+                       bthd_bit_equal=[c[0] for c in BHTD_BF16_CASES])
+            out[kernel + "_bf16"] = rec
+        del lib_out
+    odd_gen = torch.Generator().manual_seed(4)
+    q, k, v, do, bias = _bf16(*_bhtd_inputs(odd_gen, 128, 128, "head"))
+    _require_odd_bias_bits("flash_fwd_bhtd bf16 per-head bias",
+                           lambda bias_, kw: ka.flash_fwd_bhtd(
+                               q, k, v, bias_, **kw),
+                           bias, dict(scale=scale, causal=False))
+    o, lse = ka.flash_fwd_bhtd(q, k, v, bias, scale=scale)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    for name, fn in (("flash_bwd_dq_bhtd", lambda *a, **kw: (
+            ka.flash_bwd_dq_bhtd(*a, **kw),)),
+                     ("flash_bwd_dkv_bhtd", ka.flash_bwd_dkv_bhtd)):
+        _require_odd_bias_bits(f"{name} bf16 per-head bias",
+                               lambda bias_, kw, fn=fn: fn(
+                                   q, k, v, bias_, do, lse, delta, **kw),
+                               bias, dict(scale=scale, causal=False))
+    return out
+
+
+#: the share of bf16 inputs on which the card's bf16 gelu may differ from
+#: the CPU's (an erfc that rounds its last f32 bit otherwise moves a bf16
+#: rounding only near a tie)
+GELU_CARD_SHARE = 1e-3
+
+
+def check_gelu_bf16():
+    """``ops.nn_ops.gelu`` on bf16 (the reference's bf16 arithmetic, plain
+    PyTorch) on every finite bf16 input on the card against the same
+    function on the CPU: the card's must give the CPU's bits on all but
+    GELU_CARD_SHARE of the inputs (its erfc may round its last f32 bit
+    otherwise).  Returns the counts, with the inputs on which ``F.gelu``
+    in bf16 on the card differs from it."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.nn_ops import gelu
+
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    x = x[torch.isfinite(x)]
+    cpu = gelu(x)
+    card = gelu(x.cuda()).cpu()
+    lib = F.gelu(x.cuda(), approximate="none").cpu()
+
+    def differ(a, c):
+        return int((~((a == c) | (a.isnan() & c.isnan()))).sum())
+
+    rec = dict(inputs=x.numel(), card_vs_cpu=differ(card, cpu),
+               f_gelu_vs_port_card=differ(lib, card))
+    require(rec["card_vs_cpu"] <= GELU_CARD_SHARE * x.numel(),
+            f"gelu bf16: the card differs from the CPU on "
+            f"{rec['card_vs_cpu']} of {x.numel()} inputs")
+    return rec
+
+
+def check_qkv_bf16_bert(gen):
+    """#1 and the pair #2 + #3 in bf16 at BERT-base's self-attention
+    (QKV_PAIR_BERT: b 128, t 128, d_model 768, 12 heads; #1 on its plan's
+    cluster route, the pair's GEMMs at K 768 and N 2304 and its dW_qkv
+    over 16384 rows), the shapes phase 3 (k)'s ``use_flash`` route gives
+    them, at rates 0 and DROPOUT: each called twice for equal bits and
+    held to its bf16 twin by ``compare_bf16`` (y, ctx; dx, dW_qkv,
+    dW_out), ctx's and the pair's shares off the float64 value rounded to
+    bf16 at most TOL_OFF_ROUNDING, and each timed beside its twin and
+    ``F.multi_head_attention_forward`` in bf16 (its backward for the
+    pair), with and without the host's enqueue.  Returns
+    {"qkv_attention_fwd": record, "qkv_bwd": record}."""
+    from paddle_tpu_torch.kernels import attention as ka
+
+    case, b, t, dm, bias_kind, causal = QKV_PAIR_BERT
+    h, dh = dm // 64, 64
+    hd = h * dh
+    x, w_qkv, w_out, g, bias = _bf16(*_qkv_inputs(gen, t, bias_kind, b, dm))
+    fw = (x, w_qkv, w_out, bias)
+    errs, bws = {}, {}
+    for rate in (0.0, DROPOUT):
+        kw = dict(n_head=h, scale=dh ** -0.5, causal=causal,
+                  dropout_rate=rate, dropout_seed=int(torch.randint(
+                      0, 2 ** 32, (1,), generator=gen)))
+        what = f"bf16 {case} rate {rate}"
+        (y, ctx, lse), _, _, err_f = _held_qkv_fwd(
+            f"qkv_attention_fwd {what}", fw, kw, False)
+        bw = (x, w_qkv, w_out, bias, g, ctx, lse)
+        got = ka.qkv_bwd(*bw, **kw)
+        require(all(torch.equal(a, c) for a, c in zip(
+            got, ka.qkv_bwd(*bw, **kw))), f"qkv_bwd {what}: two calls "
+            "differ")
+        err_b = max(compare_bf16(f"qkv_bwd {what} {part}", a, w)
+                    for part, a, w in zip(("dx", "dW_qkv", "dW_out"), got,
+                                          ka.reference_qkv_bwd(*bw, **kw)))
+        del got
+        errs[rate], bws[rate] = (err_f, err_b), (bw, kw)
+    (bw, kw), (bw_d, kw_d) = bws[0.0], bws[DROPOUT]
+    off = off_rounding(f"qkv_attention_fwd bf16 {case} ctx",
+                       ka.qkv_attention_fwd(*fw, **kw)[1],
+                       ka.reference_qkv_fwd(*(a.double() for a in fw),
+                                            **kw)[1])
+    pair_off = _pair_off_rounding(bw, kw)
+    _, lib_fwd, lib_bwd = _library_mha(x, w_qkv, w_out, bias, g, h, causal)
+    pairs = _visible_pairs(t, t, causal)
+    proj, attn = 2 * b * t * dm * hd, 2 * b * h * pairs * dh
+    hashes = ATTN_HASH_OPS * b * h * pairs
+    io = (BF16 * (b * t * hd + dm * 3 * hd + hd * dm + bias.numel())
+          + F32 * b * h * t)
+    act = BF16 * b * t * dm
+    pair_bytes = BF16 * (3 * b * t * dm + b * t * hd + bias.numel()
+                         + 2 * (dm * 3 * hd + hd * dm)) + F32 * b * h * t
+    out = {}
+    for name, source, line, i, fn, twin, flops, nbytes, lib in (
+            ("qkv_attention_fwd", "qkv_attention.cu", "1377", 0,
+             ka.qkv_attention_fwd, ka.reference_qkv_fwd,
+             4 * proj + 2 * attn, 2 * act + io, lib_fwd),
+            ("qkv_bwd", "qkv_attention_bwd.cu", "1454 + :1546", 1,
+             ka.qkv_bwd, ka.reference_qkv_bwd, _qkv_pair_flops(proj, attn),
+             pair_bytes, lib_bwd)):
+        args, args_d = (fw, fw) if i == 0 else (bw, bw_d)
+        rec = timed_record(
+            name + "_bf16", "paddle_tpu_torch/csrc/" + source,
+            f"paddle_tpu/kernels/attention.py:{line}", errs[0.0][i],
+            lambda: fn(*args, **kw), lambda: twin(*args, **kw), flops,
+            nbytes, lib, b, bound_fn=bound_bf16)
+        rec.update(case=case, t=t, d_model=dm, dtype="bf16",
+                   dropout_max_abs_err=errs[DROPOUT][i],
+                   dropout_ms=cuda_ms(lambda: fn(*args_d, **kw_d)),
+                   dropout_bound_ms=bound_bf16(flops, nbytes, hashes)[0],
+                   device_ms=cuda_ms(lambda: fn(*args, **kw),
+                                     hide_host=True),
+                   library_device_ms=cuda_ms(lib, hide_host=True),
+                   off_rounding_share=off if i == 0 else pair_off)
+        if i == 0:
+            rec["plan"] = list(ka.qkv_fwd_plan(b, t, h,
+                                               ka.sm_count(x.device)))
+        out[name] = rec
+    return out
+
 
 
 def check_qkv_bf16(gen):
@@ -2443,16 +2770,17 @@ def check_qkv_bf16(gen):
     return out
 
 
-def _off_rounding_shares(what, names, fn, exact):
+def _off_rounding_shares(what, names, fn, exact, parent_has=True):
     """The share of each of fn()'s bf16 outputs ``names`` off ``exact``
     (the float64 twin's) rounded to bf16, for this tree's kernels and (with
-    ``--parent``) the parent's: {"tree": [...], "parent": [...] or None};
-    each of the tree's at most TOL_OFF_ROUNDING (compare_bf16 cannot tell
-    whether an f32 intermediate keeps its hi/lo split)."""
+    ``--parent``, where ``parent_has`` the kernels) the parent's: {"tree":
+    [...], "parent": [...] or None}; each of the tree's at most
+    TOL_OFF_ROUNDING (compare_bf16 cannot tell whether an f32
+    intermediate keeps its hi/lo split)."""
     tree = [off_rounding(f"{what} {n}", a, e)
             for n, a, e in zip(names, fn(), exact)]
     parent = None
-    if parent_lib() is not None:
+    if parent_has and parent_lib() is not None:
         with kernel_library(parent_lib()):
             got = fn()
             torch.cuda.synchronize()
@@ -2868,17 +3196,17 @@ def tensor_core_times(rec, fn, fn_d=None, lib=None):
 def check_parent_bits(gen):
     """With ``--parent``: the kernels this tree keeps as they were, each
     called on the same inputs with this tree's library and with the
-    parent's, must give the same bits: #4-#9 in f32 and #4 in bf16 on the
-    decoder self-attention (BERT-base's for the bhtd ones), #1 in f32 on
-    the cluster route (R 64 and 32) and the tiles route, #1 in bf16 with
-    its y on the cluster route (R 64) and the tiles route, the pair #2 +
-    #3 in f32 and in bf16 (both walks), ``gemm.cuh``'s f32 tile at the
-    pair's products and its tensor-core tile at GEMM_AMP_CASES, #19 (its
-    tile) at ResNet-50's stage-1 conv3, and #16, #17 in f32 and bf16, each
-    at rates 0 and DROPOUT where it drops.  (#6 and #7 in bf16 are this
-    tree's new walks.)  ``gen`` is a generator of its own, so that the
-    later checks draw the parent's inputs.  Returns the names held, or
-    None without a parent."""
+    parent's, must give the same bits: #4-#9 in f32 and #4, #6, #7 in
+    bf16 on the decoder self-attention (BERT-base's for the bhtd ones), #1
+    in f32 on the cluster route (R 64 and 32) and the tiles route, #1 in
+    bf16 with its y on the cluster route (R 64) and the tiles route, the
+    pair #2 + #3 in f32 and in bf16 (both walks), ``gemm.cuh``'s f32 tile
+    at the pair's products and its tensor-core tile at GEMM_AMP_CASES, #19
+    (its tile) at ResNet-50's stage-1 conv3, and #16, #17 in f32 and bf16,
+    each at rates 0 and DROPOUT where it drops.  (#5, #8 and #9 in bf16
+    are new: the parent has no bf16 bhtd kernels.)  ``gen`` is a generator
+    of its own, so that the later checks draw the parent's inputs.
+    Returns the names held, or None without a parent."""
     lib = parent_lib()
     if lib is None:
         return None
@@ -2913,10 +3241,9 @@ def check_parent_bits(gen):
                       dropout_seed=seed)
             same(f"flash_fwd {dtype} rate {rate}",
                  lambda: ka.flash_fwd(q, k, v, bias, **kw))
-            if dtype == "bf16":
-                continue
             o, lse = ka.flash_fwd(q, k, v, bias, **kw)
-            delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+            delta = (do.float() * o.float()).sum(-1).transpose(
+                1, 2).contiguous()
             bw = (q, k, v, bias, do, lse, delta)
             same(f"flash_bwd_dq {dtype} rate {rate}",
                  lambda: ka.flash_bwd_dq(*bw, **kw))
@@ -4988,7 +5315,9 @@ def run_bert(fused, flash, composed):
     (``use_flash=True``: 12 each of #1-#3) must give step 1's loss within
     TOL_ROUTES_LOSS under the same seeds (the same masks), and
     ``composed`` (no pass) the fused route's rate-0 loss.  Then both
-    kernel routes are timed.  Returns the (fused, flash) records."""
+    kernel routes are timed.  Returns the (fused, flash) records and the
+    float64 step for (k): {"seeds": {site: seed}, "exact": {name:
+    float64 gradient}, "loss64": its loss} at BERT_PARITY_BATCH."""
     from paddle_tpu_torch import Adam, BertPretrain, attention_fuse, kernels
 
     L = BERT["n_layer"]
@@ -5040,7 +5369,7 @@ def run_bert(fused, flash, composed):
                 f"the card, {f32} on the CPU in f32")
         worst_grad.append((card, f32, n))
     worst_grad.sort(reverse=True)
-    del card_small, exact, cpu_grads
+    del card_small, cpu_grads
 
     # step 1 at BERT_BATCH: repeated for equal bits, then counted
     feed = _to(bert_batch(BERT_BATCH, seed=1), DEV)
@@ -5108,6 +5437,114 @@ def run_bert(fused, flash, composed):
         cpu_parity_s=cpu_s, step1_loss=fused_loss,
         use_flash_step1_loss=flash_loss, rate0_loss=rate0_loss,
         composed_rate0_loss=composed_loss)
+    return records, dict(seeds=by_site, exact=exact, loss64=cpu_losses[0])
+
+
+#: (k): the two kernel routes' step-1 losses under the same seeds at
+#: BERT_BATCH, relative.  The routes round at other points in bf16 (the
+#: ``use_flash`` route projects q, k, v inside #1 and splits them hi/lo;
+#: the bhtd route rounds them to bf16 in its qkv ``mul`` before #5), so
+#: their losses differ by bf16 roundings averaged over the batch's
+#: masked-LM tokens: within a quarter of a bf16 step (1e-3), as
+#: TOL_AMP_LOSS
+TOL_AMP_ROUTES_LOSS = 1e-3
+
+
+def run_bert_amp(fused, flash, parity):
+    """Phase 3 (k): BERT-base pretraining under bf16 amp (``amp.enable``:
+    the reference's cast policy, as ``bench_bert`` runs it) on both kernel
+    routes, the models of (i) reloaded with their initial weights by the
+    caller and fresh Adam state.  Each route's step 1 under (i)'s per-site
+    seeds: at BERT_PARITY_BATCH the encoder output bf16, the loss f32 and
+    held against (i)'s float64 step by TOL_AMP_LOSS, every gradient f32 and
+    within TOL_AMP_GRAD of float64; at BERT_BATCH repeated to the bit by a
+    second run, with the exact launches (the bhtd route 12 each of #5, #8,
+    #9 in bf16, ``use_flash`` 12 each of #1-#3 in bf16; both 24 each of
+    #16 and #17 in bf16 at the residual sites and 1 each in f32 at the
+    embedding's; no f32 attention kernel); the two routes' losses within
+    TOL_AMP_ROUTES_LOSS.  Then BERT_TIMED_STEPS timed steps with fresh
+    seeds, whose loss must fall, their bf16 peak share beside.  Returns
+    the (bhtd, use_flash) records."""
+    from paddle_tpu_torch import Adam, amp, kernels
+
+    L = BERT["n_layer"]
+    drops = dict(dropout_add_fwd_bf16=2 * L, dropout_add_bwd_bf16=2 * L,
+                 dropout_add_fwd=1, dropout_add_bwd=1)
+    routes = (("bert amp bf16 bhtd (attention_fuse)", fused,
+               dict(flash_fwd_bhtd_bf16=L, flash_bwd_dq_bhtd_bf16=L,
+                    flash_bwd_dkv_bhtd_bf16=L, **drops)),
+              ("bert amp bf16 use_flash (fused qkv)", flash,
+               dict(qkv_attention_fwd_bf16=L, qkv_bwd_dq_bf16=L,
+                    qkv_bwd_dkv_bf16=L, **drops)))
+    by_site, exact, loss64 = (parity[k] for k in ("seeds", "exact",
+                                                   "loss64"))
+    small = _to(bert_batch(BERT_PARITY_BATCH, seed=3), DEV)
+    feed = _to(bert_batch(BERT_BATCH, seed=1), DEV)
+    records = []
+    for route, model, per_step in routes:
+        require(amp.is_enabled(model), f"{route}: the model is not enabled")
+        seeds = [by_site[name] for name in model.dropout_sites()]
+        names = {p: n for n, p in model.named_parameters()}
+        # step 1 at the parity batch against (i)'s float64 step
+        loss, enc = model(**small, dropout_seeds=seeds)
+        require(enc.dtype == torch.bfloat16 and loss.dtype == torch.float32,
+                f"{route}: encoder output {enc.dtype}, loss {loss.dtype}")
+        loss.backward()
+        small_loss = loss.item()
+        require(np.isfinite(small_loss) and abs(small_loss - loss64)
+                <= TOL_AMP_LOSS * abs(loss64), f"{route} batch "
+                f"{BERT_PARITY_BATCH}: loss {small_loss} on the card, "
+                f"{loss64} in float64")
+        require(exact.keys() == {n for n, _ in model.named_parameters()},
+                f"{route}: other parameters than (i)'s float64 step")
+        worst_grad = []
+        for n, p in model.named_parameters():
+            require(p.grad.dtype == torch.float32,
+                    f"{route}: the gradient of {n} is {p.grad.dtype}")
+            card = _grad_rel(p.grad.cpu(), exact[n])
+            require(card <= TOL_AMP_GRAD, f"{route} step 1: gradient of "
+                    f"{n} off float64 by {card}")
+            worst_grad.append((card, n))
+        model.zero_grad(set_to_none=True)
+        worst_grad.sort(reverse=True)
+
+        # step 1 at BERT_BATCH: repeated for equal bits, then counted
+        repeat = _step_grads(model, feed, dropout_seeds=seeds)
+        opt = Adam(model.parameters(), learning_rate=BERT_LR)
+        kernels.reset_launches()
+        loss, _ = model(**feed, dropout_seeds=seeds)
+        grads = {names[p]: g for p, g in opt.minimize(loss)}
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        require(counts == expected(**per_step),
+                f"{route} step 1: launches {counts}")
+        _require_repeat(grads, repeat, route)
+        require(all(g.dtype == torch.float32 for g in grads.values()),
+                f"{route}: a gradient reaches Adam in another dtype than "
+                "f32")
+        step1 = loss.item()
+        del grads, repeat, loss, enc
+        timed = _bert_timed(model, opt, per_step, seed=len(records) + 17)
+        for name, c in timed.pop("launches").items():
+            counts[name] += c
+        timed["bf16_peak_share"] = (timed["tokens_per_s"]
+                                    * timed["flops_per_token"]
+                                    / PEAK_BF16_FLOPS)
+        records.append(dict(
+            route=route, batch=BERT_BATCH, dropout_rate=DROPOUT,
+            launches=counts,
+            # (card, float64) step-1 losses at the parity batch
+            parity_losses=(small_loss, loss64),
+            # (card vs f64, name)
+            parity_grad_rel_worst=worst_grad[:4],
+            parity_grad_rel_median=float(np.median(
+                [w[0] for w in worst_grad])),
+            step1_loss=step1, **timed))
+        del opt
+    l0, l1 = records[0]["step1_loss"], records[1]["step1_loss"]
+    require(abs(l1 - l0) <= TOL_AMP_ROUTES_LOSS * abs(l0),
+            f"BERT amp step 1: use_flash loss {l1}, bhtd {l0} under the "
+            f"same seeds")
     return records
 
 
@@ -5243,6 +5680,12 @@ def profile_training(model, tag, feed=None, lr=TRAIN_LR):
                         or name.startswith("nvjet"))
                     and "(anonymous namespace)" not in name) / 1e3,
                 phases=phases,
+                # #5, #8 and #9 in bf16: the tensor-core kernels on Bhtd
+                bhtd_bf16_ms={k: sum(us for name, us in rows
+                                     if f"::{k}<" in name and "Bhtd" in name)
+                              / 1e3 for k in ("flash_fwd_tc_kernel",
+                                              "flash_dq_tc_kernel",
+                                              "flash_dkv_tc_kernel")},
                 dropout_add_ms=_dropout_add_us(rows) / 1e3,
                 elementwise_ms=sum(us for _, us in _elementwise(rows)) / 1e3,
                 elementwise=[(name[:160], us / 1e3)
@@ -5783,13 +6226,34 @@ def main():
         print_record(r, f" [{DROPOUT_ROWS}, {BASE['d_model']}] rate "
                         f"{DROPOUT}")
         records[(r["name"], max(BATCHES))] = r
-    # the bf16 instantiations (amp) at the amp step's shapes
-    amp_records = {**check_qkv_bf16(gen), **check_flash_attention_bf16(gen)}
+    # the bf16 instantiations (amp) at the amp step's shapes, and at
+    # BERT-base's (the bhtd kernels; #1 and the pair)
+    amp_records = {**check_qkv_bf16(gen), **check_flash_attention_bf16(gen),
+                   **check_flash_attention_bhtd_bf16(gen)}
     for r in check_dropout_add_bf16(gen):
         amp_records[r["name"]] = r
     for name, r in amp_records.items():
         print_record(r, f" {r.get('case', '')} b={r['batch']}")
         records[(name, max(BATCHES))] = r
+    bert_bf16 = check_qkv_bf16_bert(gen)
+    for r in bert_bf16.values():
+        print_record(r, f" {r['case']} b={r['batch']}")
+    # #1's bf16 record in the JSON line carries BERT-base's case, #2's and
+    # #3's the pair's there
+    bert_keys = ("case", "batch", "t", "d_model", "ms", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                 "dropout_ms", "dropout_bound_ms", "dropout_max_abs_err",
+                 "device_ms", "library_device_ms", "off_rounding_share")
+    records[("qkv_attention_fwd_bf16", max(BATCHES))]["bert"] = dict(
+        {k: bert_bf16["qkv_attention_fwd"][k] for k in bert_keys},
+        plan=bert_bf16["qkv_attention_fwd"]["plan"])
+    for name in ("qkv_bwd_dq_bf16", "qkv_bwd_dkv_bf16"):
+        records[(name, max(BATCHES))]["pair_bert"] = {
+            k: bert_bf16["qkv_bwd"][k] for k in bert_keys}
+    gelu = check_gelu_bf16()
+    print(f"phase 2: gelu bf16 (the reference's arithmetic) on the card "
+          f"against the CPU, and F.gelu against it, on every finite bf16 "
+          f"input: {gelu}")
     # the tensor-core kernels' records carry their builds and SASS (the
     # pair's, with its GEMM stages, on #2's and #3's records)
     for name, source, kernels in (
@@ -5798,19 +6262,29 @@ def main():
              ("flash_dq_tc_kernel",)),
             ("flash_bwd_dkv_bf16", "flash_attention.cu",
              ("flash_dkv_tc_kernel",)),
+            ("flash_fwd_bhtd_bf16", "flash_attention.cu",
+             ("flash_fwd_tc_kernel",)),
+            ("flash_bwd_dq_bhtd_bf16", "flash_attention.cu",
+             ("flash_dq_tc_kernel",)),
+            ("flash_bwd_dkv_bhtd_bf16", "flash_attention.cu",
+             ("flash_dkv_tc_kernel",)),
             ("qkv_attention_fwd_bf16", "qkv_attention.cu",
              ("qkv_cluster_tc_kernel", "gemm_tc_kernel")),
             ("qkv_bwd_dq_bf16", "qkv_attention_bwd.cu",
              ("bwd_dq_tc_kernel", "gemm_tc_kernel")),
             ("qkv_bwd_dkv_bf16", "qkv_attention_bwd.cu",
              ("bwd_dkv_tc_kernel", "gemm_tc_kernel"))):
+        # the flash kernels' builds of the record's layout
+        layout = ("bhtd" if "_bhtd" in name else "bthd"
+                  if name.startswith("flash") else None)
         records[(name, max(BATCHES))]["build"] = [
             dict({k: v for k, v in t.items() if k != "source"},
                  sass_mma=sum(n for fn, n in mma.items()
                               if fn.startswith(source + ":")
                               and t["kernel"] in fn and t["template"] in fn))
             for t in builds if t["kernel"] in kernels
-            and t["source"] == source]
+            and t["source"] == source
+            and (layout is None or t["layout"] == layout)]
     parent_bits = check_parent_bits(torch.Generator().manual_seed(18))
     if parent_bits is not None:
         print(f"phase 2: {len(parent_bits)} calls give the parent's bits: "
@@ -5967,7 +6441,11 @@ def main():
     # the earlier phases' cached blocks go back first
     torch.cuda.empty_cache()
     bert_fused, bert_flash, bert_composed = _bert_models()
-    training_bert = run_bert(bert_fused, bert_flash, bert_composed)
+    # (k) starts both kernel routes from these initial weights
+    bert_init = {k: v.detach().cpu().clone()
+                 for k, v in bert_fused.state_dict().items()}
+    training_bert, bert_parity = run_bert(bert_fused, bert_flash,
+                                          bert_composed)
     del bert_composed
     for r in training_bert:
         print("phase 3: " + ", ".join(f"{k} {v}" for k, v in r.items()))
@@ -5979,6 +6457,28 @@ def main():
           f"{training_bert[0]['f32_peak_share']} against "
           f"{training_bert[1]['f32_peak_share']}")
     t_phase = _phase_seconds("phase 3 (i)", t_phase)
+
+    # (k): BERT-base under bf16 amp on both kernel routes, (i)'s models from
+    # their initial weights, held against (i)'s float64 step
+    for m in (bert_fused, bert_flash):
+        m.load_state_dict(bert_init)
+        paddle_tpu_torch.amp.enable(m)
+    del bert_init
+    torch.cuda.empty_cache()
+    training_bert_amp = run_bert_amp(bert_fused, bert_flash, bert_parity)
+    del bert_parity
+    for r in training_bert_amp:
+        print("phase 3: " + ", ".join(f"{k} {v}" for k, v in r.items()))
+    for amp_r, f32_r in zip(training_bert_amp, training_bert):
+        print(f"phase 3: {amp_r['route']} against f32 ({f32_r['route']}): "
+              f"{amp_r['step_ms_median']} ms against "
+              f"{f32_r['step_ms_median']} ms, {amp_r['tokens_per_s']} "
+              f"against {f32_r['tokens_per_s']} tokens/s, bf16 peak share "
+              f"{amp_r['bf16_peak_share']} (f32 peak share "
+              f"{f32_r['f32_peak_share']} in f32), peak memory "
+              f"{amp_r['peak_memory_gb']} against "
+              f"{f32_r['peak_memory_gb']} GB")
+    t_phase = _phase_seconds("phase 3 (k)", t_phase)
 
     # the fused route's steps, then the unfused route's (#14/#15 at 12
     # launches a token) on ring caches at both batches and paged at b=64
@@ -6018,7 +6518,14 @@ def main():
                        ("bert_bhtd", bert_fused,
                         dict(feed=bert_feed, lr=BERT_LR)),
                        ("bert_use_flash", bert_flash,
+                        dict(feed=bert_feed, lr=BERT_LR)),
+                       ("bert_amp_bf16_bhtd", bert_fused,
+                        dict(feed=bert_feed, lr=BERT_LR)),
+                       ("bert_amp_bf16_use_flash", bert_flash,
                         dict(feed=bert_feed, lr=BERT_LR))):
+        if tag.startswith("bert"):  # (i)'s models are (k)'s: amp by tag
+            (paddle_tpu_torch.amp.enable if "amp" in tag
+             else paddle_tpu_torch.amp.disable)(m)
         if tag.endswith("_parent"):  # the same step on the parent's kernels
             with kernel_library(parent_lib()):
                 r = profile_training(m, tag, **kw)
@@ -6044,7 +6551,11 @@ def main():
               f"cuBLAS GEMMs {r['library_gemm_ms']} ms")
         for name, ms in r["top"]:
             print(f"    {ms:.4f} ms  {name}")
-        if tag.startswith("amp_bf16"):
+        if tag.startswith("bert_amp"):
+            print(f"phase 4: training step {tag}: #5, #8, #9 in bf16 "
+                  f"(flash_tc.cuh, flash_bwd_tc.cuh on Bhtd) "
+                  f"{r['bhtd_bf16_ms']} ms a step")
+        if "amp_bf16" in tag:
             print(f"phase 4: training step {tag}: device ms by phase "
                   f"{r['phases']}; #16/#17 {r['dropout_add_ms']} ms, "
                   f"PyTorch's elementwise and reduction kernels "
@@ -6095,7 +6606,7 @@ def main():
     # the ring paths (#11) and the paged ones (#13)
     paths = runs + serving + [training, training_fused, training_dropout,
                               training_amp, training_resnet, training_deepfm,
-                              demo, *training_bert]
+                              demo, *training_bert, *training_bert_amp]
     total = {name: sum(r["launches"][name] for r in paths)
              for name in paths[0]["launches"]}
     paged_ffn = sum(r["launches"]["ffn"] for r in paths
@@ -6125,6 +6636,8 @@ def main():
                       "training_resnet": training_resnet,
                       "training_deepfm": training_deepfm, "demo": demo,
                       "training_bert": training_bert,
+                      "training_bert_amp": training_bert_amp,
+                      "gelu_bf16": gelu,
                       "profile_resnet": {k: v for k, v in profile_rn.items()
                                          if k != "top"},
                       "profile_deepfm": profile_fm, "gemm": gemm_records,

@@ -1,6 +1,6 @@
 // Flash attention over [b, t, h, 64] tensors (the "bthd" layout) and over
 // [b, h, t, 64] tensors (the "bhtd" layout), forward and both backward
-// passes, f32, for sm_90a; the bthd passes also in bf16 (amp).
+// passes, in f32 and in bf16 (amp), for sm_90a.
 //
 // Replaces paddle_tpu/kernels/attention.py _fwd_kernel_bthd (#4),
 // _bwd_dq_kernel_bthd (#6) and _bwd_dkv_kernel_bthd (#7), the Pallas
@@ -52,14 +52,17 @@
 // in both layouts.  At rate 0 the entry points launch the instantiations
 // that never hash.
 //
-// bf16 (amp, bthd only: ptt_flash_*_bf16): q, k, v, the bias, o, dO, dq,
-// dk and dv are bf16, lse and delta f32, and all three passes run on
-// tensor cores: the forward in flash_tc.cuh (exact bf16 products for s, p
-// split into hi/lo bf16s for p v), the backward walks in flash_bwd_tc.cuh
-// on one bf16 plane (exact bf16 products for s and dp, p and ds split for
-// dq += ds k, dv += p^T dO and dk += ds^T q), each output rounded to bf16
-// once.  flash_walk.cuh's walks are f32 only.  The bhtd layout (#5, #8,
-// #9) is compiled in f32 only.
+// bf16 (amp, both layouts: ptt_flash_*_bf16 and ptt_flash_*_bhtd_bf16):
+// q, k, v, the bias, o, dO, dq, dk and dv are bf16, lse and delta f32, and
+// all three passes run on tensor cores (mma.sync): the forward in
+// flash_tc.cuh (exact bf16 products for s, p split into hi/lo bf16s for p
+// v), the backward walks in flash_bwd_tc.cuh on one bf16 plane (exact
+// bf16 products for s and dp, p and ds split for dq += ds k, dv += p^T dO
+// and dk += ds^T q), each output rounded to bf16 once.  Both files take
+// the row layout as a template parameter, so #5, #8 and #9 in bf16 are the
+// bthd kernels' instantiations on Bhtd.  The scale multiplies the f32
+// scores, as the reference's f32 q * scale product does up to f32
+// rounding.  flash_walk.cuh's walks are f32 only.
 //
 // Masking follows the TPU kernels: causal (bottom-right aligned, offset
 // tk - tq) and out-of-range keys score -1e30 in the forward; a row whose
@@ -121,18 +124,36 @@ int run_dkv(L l, const float* q, const float* k, const float* v,
                       static_cast<cudaStream_t>(stream));
 }
 
-// #6 (walk 0) or #7 (walk 1) in bf16 on tensor cores, over [b, t, h, 64]
-// bf16 rows (one plane each); dq, or dk and dv, rounded to bf16.
-int run_bwd_tc(int walk, const bf16* q, const bf16* k, const bf16* v,
+// The dq walk (walk 0: #6, #8) or the dkv walk (walk 1: #7, #9) in bf16
+// on tensor cores, over bf16 rows of layout L (one plane each); dq, or dk
+// and dv, rounded to bf16.
+template <class L>
+int run_bwd_tc(int walk, L l, const bf16* q, const bf16* k, const bf16* v,
                const bf16* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
                int64_t bs_k, const bf16* dout, const float* lse,
                const float* delta, bf16* dq, bf16* dk, bf16* dv, int b,
                int tq, int tk, int h, float scale, int causal, double rate,
                unsigned seed, unsigned threshold, void* stream) {
-  const FlashBw a{q, k, v, dout, BiasOf<bf16>{bias, bs_b, bs_h, bs_q, bs_k},
-                  lse, delta, dq, dk, dv, tq, tk, h, scale, causal,
-                  hash_rng::make_dropout(rate, seed, threshold)};
+  const FlashBw<L> a{q, k, v, dout,
+                     BiasOf<bf16>{bias, bs_b, bs_h, bs_q, bs_k}, lse, delta,
+                     dq, dk, dv, tq, tk, h, scale, causal,
+                     hash_rng::make_dropout(rate, seed, threshold), l};
   return (int)flash_bwd_tc(walk, a, b, static_cast<cudaStream_t>(stream));
+}
+
+// The forward in bf16 on tensor cores over rows of layout L.
+template <class L>
+int run_fwd_tc(L l, const bf16* q, const bf16* k, const bf16* v,
+               const bf16* bias, int64_t bs_b, int64_t bs_h, int64_t bs_q,
+               int64_t bs_k, bf16* o, float* lse, int b, int tq, int tk,
+               int h, float scale, int causal, double rate, unsigned seed,
+               unsigned threshold, void* stream) {
+  return (int)fwd_tc(Rows<L, bf16>{q, l}, Rows<L, bf16>{k, l},
+                     Rows<L, bf16>{v, l},
+                     BiasOf<bf16>{bias, bs_b, bs_h, bs_q, bs_k}, o, l, lse,
+                     b, tq, tk, h, scale, causal,
+                     hash_rng::make_dropout(rate, seed, threshold),
+                     static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -252,13 +273,9 @@ extern "C" int ptt_flash_fwd_bf16(const bf16* q, const bf16* k,
                                   int tq, int tk, int h, float scale,
                                   int causal, double rate, unsigned seed,
                                   unsigned threshold, void* stream) {
-  const Bthd l{h * DH};
-  return (int)fwd_tc(Rows<Bthd, bf16>{q, l}, Rows<Bthd, bf16>{k, l},
-                     Rows<Bthd, bf16>{v, l},
-                     BiasOf<bf16>{bias, bs_b, bs_h, bs_q, bs_k}, o, l, lse,
-                     b, tq, tk, h, scale, causal,
-                     hash_rng::make_dropout(rate, seed, threshold),
-                     static_cast<cudaStream_t>(stream));
+  return run_fwd_tc(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o,
+                    lse, b, tq, tk, h, scale, causal, rate, seed, threshold,
+                    stream);
 }
 
 // #6 in bf16: as ptt_flash_bwd_dq with dout and dq bf16, lse and delta
@@ -272,9 +289,9 @@ extern "C" int ptt_flash_bwd_dq_bf16(const bf16* q, const bf16* k,
                                      int tq, int tk, int h, float scale,
                                      int causal, double rate, unsigned seed,
                                      unsigned threshold, void* stream) {
-  return run_bwd_tc(0, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout, lse,
-                    delta, dq, nullptr, nullptr, b, tq, tk, h, scale, causal,
-                    rate, seed, threshold, stream);
+  return run_bwd_tc(0, Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k,
+                    dout, lse, delta, dq, nullptr, nullptr, b, tq, tk, h,
+                    scale, causal, rate, seed, threshold, stream);
 }
 
 // #7 in bf16: as ptt_flash_bwd_dkv with dout, dk and dv bf16, on tensor
@@ -289,7 +306,58 @@ extern "C" int ptt_flash_bwd_dkv_bf16(const bf16* q, const bf16* k,
                                       float scale, int causal, double rate,
                                       unsigned seed, unsigned threshold,
                                       void* stream) {
-  return run_bwd_tc(1, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout, lse,
-                    delta, nullptr, dk, dv, b, tq, tk, h, scale, causal,
+  return run_bwd_tc(1, Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k,
+                    dout, lse, delta, nullptr, dk, dv, b, tq, tk, h, scale,
+                    causal, rate, seed, threshold, stream);
+}
+
+// #5 in bf16 (amp): as ptt_flash_fwd_bhtd with q, k, v, the bias and o
+// bf16 [b, h, t, 64], lse f32, on tensor cores (flash_tc.cuh on Bhtd).
+extern "C" int ptt_flash_fwd_bhtd_bf16(const bf16* q, const bf16* k,
+                                       const bf16* v, const bf16* bias,
+                                       int64_t bs_b, int64_t bs_h,
+                                       int64_t bs_q, int64_t bs_k, bf16* o,
+                                       float* lse, int b, int tq, int tk,
+                                       int h, float scale, int causal,
+                                       double rate, unsigned seed,
+                                       unsigned threshold, void* stream) {
+  return run_fwd_tc(Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o, lse,
+                    b, tq, tk, h, scale, causal, rate, seed, threshold,
+                    stream);
+}
+
+// #8 in bf16: as ptt_flash_bwd_dq_bhtd with dout and dq bf16, lse and
+// delta f32, on tensor cores (flash_bwd_tc.cuh on Bhtd).
+extern "C" int ptt_flash_bwd_dq_bhtd_bf16(const bf16* q, const bf16* k,
+                                          const bf16* v, const bf16* bias,
+                                          int64_t bs_b, int64_t bs_h,
+                                          int64_t bs_q, int64_t bs_k,
+                                          const bf16* dout, const float* lse,
+                                          const float* delta, bf16* dq,
+                                          int b, int tq, int tk, int h,
+                                          float scale, int causal,
+                                          double rate, unsigned seed,
+                                          unsigned threshold, void* stream) {
+  return run_bwd_tc(0, Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
+                    lse, delta, dq, nullptr, nullptr, b, tq, tk, h, scale,
+                    causal, rate, seed, threshold, stream);
+}
+
+// #9 in bf16: as ptt_flash_bwd_dkv_bhtd with dout, dk and dv bf16, on
+// tensor cores.
+extern "C" int ptt_flash_bwd_dkv_bhtd_bf16(const bf16* q, const bf16* k,
+                                           const bf16* v, const bf16* bias,
+                                           int64_t bs_b, int64_t bs_h,
+                                           int64_t bs_q, int64_t bs_k,
+                                           const bf16* dout,
+                                           const float* lse,
+                                           const float* delta, bf16* dk,
+                                           bf16* dv, int b, int tq, int tk,
+                                           int h, float scale, int causal,
+                                           double rate, unsigned seed,
+                                           unsigned threshold,
+                                           void* stream) {
+  return run_bwd_tc(1, Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
+                    lse, delta, nullptr, dk, dv, b, tq, tk, h, scale, causal,
                     rate, seed, threshold, stream);
 }

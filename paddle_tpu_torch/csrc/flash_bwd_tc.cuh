@@ -8,10 +8,15 @@
 //     _qkv_bwd_dkv_kernel (#3) for bf16 operands, with the GEMM stages of
 //     qkv_attention_bwd.cu around them (ptt_qkv_bwd_bf16);
 //   * bf16 rows (one plane): #6 and #7 over bf16 [b, t, h, 64] tensors
-//     (flash_dq_tc_kernel, flash_dkv_tc_kernel).  Replaces
-//     _bwd_dq_kernel_bthd (#6) and _bwd_dkv_kernel_bthd (#7) for bf16
-//     operands (flash_attention.cu's ptt_flash_bwd_dq_bf16 and
-//     ptt_flash_bwd_dkv_bf16).
+//     and #8 and #9 over bf16 [b, h, t, 64] tensors, the same walks on
+//     the row layout L (flash_walk.cuh Bthd, Bhtd: flash_dq_tc_kernel,
+//     flash_dkv_tc_kernel).  Replace _bwd_dq_kernel_bthd (#6),
+//     _bwd_dkv_kernel_bthd (#7), _bwd_dq_kernel (#8) and _bwd_dkv_kernel
+//     (#9) for bf16 operands (flash_attention.cu's ptt_flash_bwd_dq_bf16,
+//     ptt_flash_bwd_dkv_bf16 and their _bhtd_bf16 twins).  In bhtd a
+//     head's rows are contiguous (a row stride of 64): the ring's 16-byte
+//     copies of a 64-row tile read one contiguous 8 KB block instead of 64
+//     rows at a stride of h * 128 bytes.
 //
 // Both kinds share the tile helpers (bw_stage, bw_scores, bw_accumulate
 // and bw_store take SPLIT) and keep kernels of their own: #6's and #7's
@@ -151,10 +156,23 @@ struct PlanesOf {
 };
 using Planes = PlanesOf<const bf16>;
 
-// #6's and #7's operands, bf16 [b, t, h, 64] rows (row stride h 64): q
-// and dout (dO) of tq rows, k and v of tk rows; lse and delta f32 [b, h,
-// tq]; dq (tq rows), dk and dv (tk rows) written by the walk that owns
-// them.
+// The bf16 rows of layout L (flash_walk.cuh Bthd, Bhtd) that a one-plane
+// walk writes.
+template <class L>
+struct OutRows {
+  bf16* p;
+  L l;
+  __device__ __forceinline__ bf16* at(int bi, int t, int r,
+                                      int head) const {
+    return p + l.at(bi, t, r, head);
+  }
+};
+
+// The one-plane walks' operands, bf16 rows of layout L (#6, #7: Bthd,
+// [b, t, h, 64]; #8, #9: Bhtd, [b, h, t, 64]): q and dout (dO) of tq
+// rows, k and v of tk rows; lse and delta f32 [b, h, tq]; dq (tq rows),
+// dk and dv (tk rows) written by the walk that owns them.
+template <class L>
 struct FlashBw {
   const bf16* q;
   const bf16* k;
@@ -170,14 +188,15 @@ struct FlashBw {
   float scale;
   int causal;
   Dropout drop;
+  L l;
 };
 
-// Start the copy of the 64 rows r0.. (each plane) of head `head` into dst
-// (and dst + BW_TILE for the lo plane); rows at or past t come in as
-// zeros.
-template <bool SPLIT>
-__device__ __forceinline__ void bw_stage(bf16* dst, const Planes& src,
-                                         int bi, int r0, int t, int head) {
+// Start the copy of the 64 rows r0.. (each plane) of head `head` of src
+// (Planes, or one plane's Rows of a layout) into dst (and dst + BW_TILE
+// for the lo plane); rows at or past t come in as zeros.
+template <bool SPLIT, class Src>
+__device__ __forceinline__ void bw_stage(bf16* dst, const Src& src, int bi,
+                                         int r0, int t, int head) {
 #pragma unroll
   for (int u = 0; u < Bw<SPLIT>::kPlanes * BW_ROWS * (DH / 8) / BW_NT;
        ++u) {
@@ -186,9 +205,9 @@ __device__ __forceinline__ void bw_stage(bf16* dst, const Planes& src,
     const int row = idx / (DH / 8) % BW_ROWS;
     const int c8 = idx % (DH / 8) * 8;
     const bool in = r0 + row < t;
-    tc::copy16(dst + plane * BW_TILE + row * BW_LD + c8,
-               src.at(bi, t, in ? r0 + row : r0, head) + plane * src.lo + c8,
-               in ? 16 : 0);
+    const bf16* from = src.at(bi, t, in ? r0 + row : r0, head) + c8;
+    if constexpr (SPLIT) from += plane * src.lo;
+    tc::copy16(dst + plane * BW_TILE + row * BW_LD + c8, from, in ? 16 : 0);
   }
 }
 
@@ -321,9 +340,10 @@ __device__ __forceinline__ void bw_accumulate(float (&acc)[8][4],
 
 // Store the warp's 16 rows (acc: row g and g + 8 of the lane, head columns
 // 8n + 2c..) at rows r0 + warp * 16.. below t of head `head` of dst: split
-// into its hi and lo planes, or rounded to bf16.
-template <bool SPLIT>
-__device__ __forceinline__ void bw_store(const PlanesOf<bf16>& dst,
+// into its hi and lo planes (PlanesOf<bf16>), or rounded to bf16 (one
+// plane's OutRows of a layout).
+template <bool SPLIT, class Dst>
+__device__ __forceinline__ void bw_store(const Dst& dst,
                                          const float (&acc)[8][4], int bi,
                                          int r0, int t, int head) {
   const int lane = threadIdx.x & 31;
@@ -684,13 +704,14 @@ cudaError_t bwd_tc(int walk, Planes qkv, Planes dctx, BiasOf<bf16> bias,
 }
 
 // ---------------------------------------------------------------------------
-// #6's and #7's walks (one bf16 plane)
+// #6's and #7's walks, and #8's and #9's (one bf16 plane, layout L)
 // ---------------------------------------------------------------------------
 
-// #6: dq of one (64-row q tile, head, batch row) over bf16 rows.
-template <bool DROP>
+// #6 (Bthd), #8 (Bhtd): dq of one (64-row q tile, head, batch row) over
+// bf16 rows.
+template <class L, bool DROP>
 __global__ void __launch_bounds__(BW_NT, BW1_DQ_BLOCKS)
-flash_dq_tc_kernel(const FlashBw a) {
+flash_dq_tc_kernel(const FlashBw<L> a) {
   constexpr int S = Bw<false>::kStages;
   extern __shared__ float smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);  // q
@@ -716,9 +737,8 @@ flash_dq_tc_kernel(const FlashBw a) {
     n_kv = last < 0 ? 0 : min(n_kv, last / BW_ROWS + 1);
   }
   const float scale2 = a.scale * tc::kLog2e;
-  const int hd = a.h * DH;
-  const Planes q{a.q, 0, hd}, k{a.k, 0, hd}, v{a.v, 0, hd};
-  const Planes dout{a.dout, 0, hd};
+  const Rows<L, bf16> q{a.q, a.l}, k{a.k, a.l}, v{a.v, a.l};
+  const Rows<L, bf16> dout{a.dout, a.l};
 
   int qpos[2];
   float lse2[2], dlt[2];
@@ -820,13 +840,14 @@ flash_dq_tc_kernel(const FlashBw a) {
       }
     bw_accumulate<false>(acc, s, k_s);  // dq += ds k
   }
-  bw_store<false>(PlanesOf<bf16>{a.dq, 0, hd}, acc, bi, q0, tq, head);
+  bw_store<false>(OutRows<L>{a.dq, a.l}, acc, bi, q0, tq, head);
 }
 
-// #7: dk and dv of one (64-row k tile, head, batch row) over bf16 rows.
-template <bool DROP>
+// #7 (Bthd), #9 (Bhtd): dk and dv of one (64-row k tile, head, batch
+// row) over bf16 rows.
+template <class L, bool DROP>
 __global__ void __launch_bounds__(BW_NT, BW1_DKV_BLOCKS)
-flash_dkv_tc_kernel(const FlashBw a) {
+flash_dkv_tc_kernel(const FlashBw<L> a) {
   constexpr int S = Bw<false>::kStages;
   extern __shared__ float smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);  // k
@@ -848,9 +869,8 @@ flash_dkv_tc_kernel(const FlashBw a) {
   const BiasOf<bf16>& bias = a.bias;
   const uint32_t hseed = block_head_seed<DROP>(a.drop, bi, a.h, head);
   const float scale2 = a.scale * tc::kLog2e;
-  const int hd = a.h * DH;
-  const Planes q{a.q, 0, hd}, k{a.k, 0, hd}, v{a.v, 0, hd};
-  const Planes dout{a.dout, 0, hd};
+  const Rows<L, bf16> q{a.q, a.l}, k{a.k, a.l}, v{a.v, a.l};
+  const Rows<L, bf16> dout{a.dout, a.l};
   const float* lse_h = a.lse + ((size_t)bi * a.h + head) * tq;
   const float* delta_h = a.delta + ((size_t)bi * a.h + head) * tq;
   // under the causal mask, q tiles wholly before this tile's first key
@@ -954,37 +974,40 @@ flash_dkv_tc_kernel(const FlashBw a) {
     bw_accumulate<false>(dv, s, dc_t);  // dv += p^T dO
     bw_accumulate<false>(dk, dp, q_t);  // dk += ds^T q
   }
-  bw_store<false>(PlanesOf<bf16>{a.dk, 0, hd}, dk, bi, k0, tk, head);
-  bw_store<false>(PlanesOf<bf16>{a.dv, 0, hd}, dv, bi, k0, tk, head);
+  bw_store<false>(OutRows<L>{a.dk, a.l}, dk, bi, k0, tk, head);
+  bw_store<false>(OutRows<L>{a.dv, a.l}, dv, bi, k0, tk, head);
 }
 
-template <bool DROP>
-cudaError_t launch_flash_bwd_tc(int walk, const FlashBw& a, int b,
+template <class L, bool DROP>
+cudaError_t launch_flash_bwd_tc(int walk, const FlashBw<L>& a, int b,
                                 cudaStream_t stream) {
   static bool configured[2] = {false, false};
   const dim3 grid(((walk ? a.tk : a.tq) + BW_ROWS - 1) / BW_ROWS, a.h, b);
   cudaError_t err;
   if (walk == 0) {
-    err = allow_smem(flash_dq_tc_kernel<DROP>, Bw<false>::kDqSmem,
+    err = allow_smem(flash_dq_tc_kernel<L, DROP>, Bw<false>::kDqSmem,
                      configured[0]);
     if (err != cudaSuccess) return err;
-    flash_dq_tc_kernel<DROP><<<grid, BW_NT, Bw<false>::kDqSmem, stream>>>(a);
+    flash_dq_tc_kernel<L, DROP>
+        <<<grid, BW_NT, Bw<false>::kDqSmem, stream>>>(a);
   } else {
-    err = allow_smem(flash_dkv_tc_kernel<DROP>, Bw<false>::kDkvSmem,
+    err = allow_smem(flash_dkv_tc_kernel<L, DROP>, Bw<false>::kDkvSmem,
                      configured[1]);
     if (err != cudaSuccess) return err;
-    flash_dkv_tc_kernel<DROP>
+    flash_dkv_tc_kernel<L, DROP>
         <<<grid, BW_NT, Bw<false>::kDkvSmem, stream>>>(a);
   }
   return cudaGetLastError();
 }
 
-// #6's walk (walk 0) or #7's (walk 1) over a grid of (64-row tiles, heads,
-// batch rows): the hashing instantiation only when a.drop.on.
-cudaError_t flash_bwd_tc(int walk, const FlashBw& a, int b,
+// The dq walk (walk 0: #6, #8) or the dkv walk (walk 1: #7, #9) over a
+// grid of (64-row tiles, heads, batch rows): the hashing instantiation
+// only when a.drop.on.
+template <class L>
+cudaError_t flash_bwd_tc(int walk, const FlashBw<L>& a, int b,
                          cudaStream_t stream) {
-  return a.drop.on ? launch_flash_bwd_tc<true>(walk, a, b, stream)
-                   : launch_flash_bwd_tc<false>(walk, a, b, stream);
+  return a.drop.on ? launch_flash_bwd_tc<L, true>(walk, a, b, stream)
+                   : launch_flash_bwd_tc<L, false>(walk, a, b, stream);
 }
 
 }  // namespace

@@ -1,8 +1,10 @@
-// #4 in bf16 (amp) on tensor cores: the flash forward o = softmax(q k^T *
-// scale + bias) v and lse over bf16 q, k, v [b, t, h, 64] tensors, for
+// #4 and #5 in bf16 (amp) on tensor cores: the flash forward o =
+// softmax(q k^T * scale + bias) v and lse over bf16 q, k, v rows of layout
+// L (flash_walk.cuh Bthd, [b, t, h, 64]; Bhtd, [b, h, t, 64]), for
 // sm_90a.  Replaces paddle_tpu/kernels/attention.py _fwd_kernel_bthd (#4)
-// for bf16 operands; flash_attention.cu's ptt_flash_fwd_bf16 launches it.
-// The f32 forward stays flash_walk.cuh's flash_fwd_kernel.
+// and _fwd_kernel (#5) for bf16 operands; flash_attention.cu's
+// ptt_flash_fwd_bf16 and ptt_flash_fwd_bhtd_bf16 launch it.  The f32
+// forward stays flash_walk.cuh's flash_fwd_kernel.
 //
 // Numerics (the reference widens q, k, v to f32 and computes s, p, l and
 // p v in f32, rounding o once): s = q k^T is one bf16 mma.sync a k16

@@ -178,8 +178,9 @@ _SIGNATURES = {
 _SIGNATURES.update({
     name + "_bf16": _SIGNATURES[name]
     for name in ("ptt_qkv_attention_fwd", "ptt_qkv_bwd", "ptt_flash_fwd",
-                 "ptt_flash_bwd_dq", "ptt_flash_bwd_dkv", "ptt_dropout_add",
-                 "ptt_dropout_add_bwd")})
+                 "ptt_flash_bwd_dq", "ptt_flash_bwd_dkv", "ptt_flash_fwd_bhtd",
+                 "ptt_flash_bwd_dq_bhtd", "ptt_flash_bwd_dkv_bhtd",
+                 "ptt_dropout_add", "ptt_dropout_add_bwd")})
 _SIGNATURES["ptt_gemm_typed"] = (
     _I, [_I, _P, _I, _I, _L, _P, _I, _I, _L, _P] + [_I] * 4 + [_P, _I, _I, _P])
 

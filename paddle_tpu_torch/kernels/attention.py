@@ -39,18 +39,19 @@ by 1 / (1 - rate), keyed on (seed, b * h + head, q * tk + k) as
 ``hash_rng.keep_mask_attn`` is, so both routes draw the reference's mask
 for the same seed.  The backward kernels regenerate it; no mask is stored.
 
-bf16 (amp): #1, the pair #2 + #3 and the bthd kernels #4, #6, #7 have bf16
-instantiations (entry points ``ptt_*_bf16``, counted under the kernel's
-name + "_bf16").  Their tensors are bf16 (x, the weights, the bias, y,
-ctx, dx, the dW in the fused kernels; q, k, v, the bias, o, dO, dq, dk, dv
-in the bthd ones), lse and delta f32.  The reference computes on the
-bf16 operands in f32, and so do the twins (the projections of bf16
-operands in f32, #1's ctx rounded to bf16 before the y product) and
-#6's and #7's kernels.  #4, #1 (its y too) and the pair run on tensor
-cores: exact bf16 products summed in f32, the f32 intermediates (p; #1's
-q, k, v and p; the pair's q, k, v, dctx, p, ds and dq | dk | dv) split
-into hi/lo bf16 pairs (``csrc/mma.cuh``).  The bhtd kernels (#5, #8,
-#9) are f32 only.
+bf16 (amp): #1, the pair #2 + #3 and the flash kernels of both layouts
+(#4, #6, #7 in bthd; #5, #8, #9 in bhtd) have bf16 instantiations (entry
+points ``ptt_*_bf16``, counted under the kernel's name + "_bf16", e.g.
+``flash_fwd_bhtd_bf16``).  Their tensors are bf16 (x, the weights, the
+bias, y, ctx, dx, the dW in the fused kernels; q, k, v, the bias, o, dO,
+dq, dk, dv in the flash ones), lse and delta f32.  The reference computes
+on the bf16 operands in f32 and stores in the operands' dtype, and so do
+the twins (the projections of bf16 operands in f32, #1's ctx rounded to
+bf16 before the y product).  Every bf16 kernel runs on tensor cores:
+exact bf16 products summed in f32, the f32 intermediates (p and ds; #1's
+q, k, v; the pair's q, k, v, dctx and dq | dk | dv) split into hi/lo bf16
+pairs (``csrc/mma.cuh``); #5, #8 and #9 are #4's, #6's and #7's kernels
+instantiated on the bhtd row layout.
 """
 
 from __future__ import annotations
@@ -681,13 +682,12 @@ def _kernel_args(what, fmt, q, k, bias, **more):
     """Check the operands of a flash kernel and return (b, tq, tk, h, bias
     strides, bias pointer, entry-point suffix).  Each tensor must be a
     contiguous [b, t, h, 64] (``fmt`` "bthd") or [b, h, t, 64] ("bhtd")
-    tensor of q's dtype (f32, or bf16 in bthd), the bias of that dtype
-    too, or, for lse and delta, an f32 [b, h, tq], on q's CUDA device and
-    16-byte aligned; the kernels index raw pointers."""
+    tensor of q's dtype (f32 or bf16), the bias of that dtype too, or, for
+    lse and delta, an f32 [b, h, tq], on q's CUDA device and 16-byte
+    aligned; the kernels index raw pointers."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for {q.device}")
-    dtype, suffix = _kernel_dtype(
-        q, what, KERNEL_DTYPES if fmt == "bthd" else {torch.float32: ""})
+    dtype, suffix = _kernel_dtype(q, what)
     b, h, tq, d = _dims(q, fmt)
     tk = _dims(k, fmt)[2]
     if d != KERNEL_D_HEAD:
@@ -898,7 +898,9 @@ def flash_attention(q, k, v, bias=None, scale=1.0, causal=False,
     reference's ``transpose2`` copies it.  The bias broadcasts to
     [b, 1|h, 1|tq, tk] in both layouts (the key-padding [b, 1, 1, tk] and
     decoder [b, 1, tq, tk] biases are read in place, never expanded);
-    ``causal`` masks keys past query + tk - tq.  f32.  On the CPU every
+    ``causal`` masks keys past query + tk - tq.  f32, or bf16 (amp: q, k,
+    v and the bias bf16, the output and the gradients bf16, each layout's
+    ``*_bf16`` kernels on the card).  On the CPU every
     pass runs its plain twin; on CUDA the kernels (head width 64; at a
     width % 64 != 0 the twins, as the reference's plan composes there,
     counted in ``kernels.composed``).  ``dropout_rate`` > 0 drops the

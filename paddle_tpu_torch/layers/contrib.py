@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+from .. import amp
 from ..kernels.attention import flash_attention
 from ..kernels.dropout_epilogue import dropout
 
@@ -25,6 +26,10 @@ def fused_attention(q, k, v, bias=None, scale=1.0, causal=False,
     op's in-kernel seed, or that ``dropout`` op's.  The caller passes
     rate 0 at inference.
 
+    While an amp-enabled model runs, the op's policy applies (WHITE, as
+    the reference's ``fused_attention`` op): q, k, v and the bias are cast
+    to bf16 and the bf16 kernels run.
+
     ``block_q`` and ``block_k`` are the TPU kernels' tile hints; the CUDA
     kernels tile by 64 rows whatever they say, so they are accepted and
     unused.  ``name`` is accepted as the reference's is."""
@@ -32,6 +37,7 @@ def fused_attention(q, k, v, bias=None, scale=1.0, causal=False,
     if dropout_rate and dropout_seed is None:
         raise ValueError("fused_attention: dropout_rate > 0 needs "
                          "dropout_seed")
+    q, k, v, bias = amp.cast("fused_attention", q, k, v, bias)
     in_kernel = dropout_rate if weights_dropout else 0.0
     out = flash_attention(q, k, v, bias, scale=scale, causal=causal,
                           fmt=fmt, dropout_rate=in_kernel,

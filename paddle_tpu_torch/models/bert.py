@@ -36,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import amp
 from ..device import resolve_device
 from ..ops.nn_ops import (dropout, dropout_add, fc, layer_norm, lookup_table,
                           masked_lm_loss)
@@ -238,15 +239,25 @@ class BertPretrain(nn.Module):
         In training mode with ``dropout_rate`` > 0 every site of
         :meth:`dropout_sites` drops with its uint32 seed from
         ``dropout_seeds`` (a sequence in that order), or, when none are
-        given, with seeds drawn on the host from ``generator``."""
+        given, with seeds drawn on the host from ``generator``.
+
+        With ``amp.enable(model)`` the step runs under the reference's bf16
+        cast policy (``paddle_tpu_torch.amp``), as ``pt.amp.enable`` runs
+        ``build_pretrain_net``: the embeddings summed, normalized and
+        dropped in f32; the matrix products and the attention in bf16 (the
+        attention bias too); from the first residual on every activation
+        bf16 (layer norm with f32 statistics, the fc biases and gelu
+        following their input); the logits bf16 and the loss f32; every
+        parameter's gradient f32."""
         rate = self.dropout_rate if self.training else 0.0
         seeds = self._seeds(dropout_seeds, generator) if rate else None
-        enc = self.encoder(src_ids, pos_ids, sent_ids, input_mask, rate,
-                           seeds)
-        logits = fc(enc, self.mlm_w, self.mlm_b)
-        return masked_lm_loss(logits.reshape(-1, self.vocab_size),
-                              mask_labels.reshape(-1, 1),
-                              mask_weights.reshape(-1, 1)), enc
+        with amp.policy_scope(self):
+            enc = self.encoder(src_ids, pos_ids, sent_ids, input_mask, rate,
+                               seeds)
+            logits = fc(enc, self.mlm_w, self.mlm_b)
+            return masked_lm_loss(logits.reshape(-1, self.vocab_size),
+                                  mask_labels.reshape(-1, 1),
+                                  mask_weights.reshape(-1, 1)), enc
 
 
 def make_batch(batch_size, seq_len, vocab_size, rng=None):

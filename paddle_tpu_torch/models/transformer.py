@@ -129,10 +129,15 @@ class MultiHeadAttention(nn.Module):
       around ``flash_attention(fmt="bthd")`` (#4, #6, #7);
     * without ``use_flash``, the reference's hand-written attention: the
       qkv ``mul``, split, the split-head transpose to [b, h, t, d],
-      ``matmul(q, k^T) * d_key^-0.5``, the bias added, ``softmax``, the
-      weights ``dropout`` (upscale_in_train over the flat [b, h, t, t]
-      index: ``keep_mask``, kernel #16 without a residual), ``matmul``
-      with v, the head merge and the output ``mul``;
+      ``matmul(q, k^T) * d_key^-0.5`` (the product, then alpha, as the
+      reference's ``matmul`` lowering applies it), the bias added
+      (``elementwise_add``), ``softmax``, the weights ``dropout``
+      (upscale_in_train over the flat [b, h, t, t] index: ``keep_mask``,
+      kernel #16 without a residual), ``matmul`` with v, the head merge
+      and the output ``mul``.  Under amp each takes the reference's
+      policy: both ``matmul``s WHITE (bf16 operands, so the f32 weights
+      are cast down), the bias add GRAY_FOLLOW (the f32 bias cast down),
+      ``softmax`` BLACK (f32), the dropout as its input comes;
     * the same once :func:`paddle_tpu_torch.passes.attention_fuse` has set
       :attr:`attention_fused`: the matmul-to-matmul chain becomes one
       ``layers.contrib.fused_attention(fmt="bhtd")`` (#5, #8, #9) with the
@@ -173,10 +178,13 @@ class MultiHeadAttention(nn.Module):
             ctx = fused_attention(q, k, v, bias, scale=d ** -0.5,
                                   dropout_rate=rate, dropout_seed=seed)
         else:
+            q, k = amp.cast("matmul", q, k)
             product = (q @ k.transpose(-1, -2)) * d ** -0.5
             if bias is not None:
-                product = product + bias
+                product = elementwise_add(product, bias)
+            (product,) = amp.cast("softmax", product)
             weights = dropout(torch.softmax(product, dim=-1), rate, seed)
+            weights, v = amp.cast("matmul", weights, v)
             ctx = weights @ v
         return mul(ctx.transpose(1, 2).reshape(b, t, h * d), self.attn_out_w)
 

@@ -167,10 +167,47 @@ def mul(x, w):
     return (x.reshape(-1, w.shape[0]) @ w).reshape(*x.shape[:-1], w.shape[1])
 
 
+#: sqrt(1/2) rounded to bf16, as the reference's bf16 gelu takes it
+_SQRT_HALF_BF16 = 0.70703125
+
+
+class _GeluBf16(torch.autograd.Function):
+    """gelu of a bf16 x in the reference's bf16 arithmetic (see
+    :func:`gelu`).  Its backward is gelu's derivative at x computed in f32
+    and rounded once (``F.gelu``'s backward, one kernel): the reference
+    differentiates its bf16 steps, which round at other points, so the
+    two agree to bf16 roundings.  Only x is saved."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        # 0.5 x is exact in bf16, and so is the f32 product of two bf16
+        # values, so the bf16 product rounds the reference's f32 product
+        # once, as it does
+        return (0.5 * x) * torch.special.erfc(
+            x.float().mul_(-_SQRT_HALF_BF16)).bfloat16()
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.ops.aten.gelu_backward(g, x, approximate="none")
+
+
 def gelu(x):
     """The reference's ``gelu`` with ``approximate=False``: the exact erf
-    form x * (1 + erf(x / sqrt(2))) / 2."""
-    return F.gelu(x, approximate="none")
+    form x * (1 + erf(x / sqrt(2))) / 2.
+
+    In bf16 (amp) it follows the reference's arithmetic rather than
+    ``F.gelu``'s, which computes in f32 and rounds once: the reference
+    (``jax.nn.gelu`` on bf16, as XLA compiles it) takes 0.5 * x in bf16
+    (exact), -x * sqrt(1/2) in f32 with sqrt(1/2) rounded to bf16, erfc
+    in f32 rounded to bf16, and their product rounded to bf16.  On the
+    CPU this gives the reference's bits for every bf16 input whose
+    result XLA does not flush to zero as a subnormal; ``F.gelu`` differs
+    on about a quarter of normally distributed inputs."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x, approximate="none")
+    return _GeluBf16.apply(x)
 
 
 #: fc activations the models use

@@ -15,7 +15,10 @@ forced run id, so its base key and, with the program's ``rng_id``s, every
 site's seed is known (``interop.dropout_seeds`` over the ids in their
 order, which is ``BertPretrain.dropout_sites()``'s).  Both take 2 steps on
 the same batch: losses, step 1's gradients, the parameters and the Adam
-moments must agree.
+moments must agree.  Each route and rate is built once more under
+``pt.amp.enable`` (bf16 amp): the port, ``amp.enable``d, follows its 2
+steps at bf16 tolerances, and the hand-written attention takes the
+reference's policy op by op.
 """
 
 import functools
@@ -31,7 +34,7 @@ from paddle_tpu import passes
 from paddle_tpu.core.executor import prng_key
 from paddle_tpu.flags import FLAGS
 from paddle_tpu.models import bert as jax_bert
-from paddle_tpu_torch import (Adam, BertPretrain, attention_fuse,
+from paddle_tpu_torch import (Adam, BertPretrain, amp, attention_fuse,
                               export_paddle_tpu_adam_state,
                               export_paddle_tpu_bert_params,
                               load_paddle_tpu_bert_params, make_bert_batch)
@@ -55,6 +58,23 @@ TOL_GRAD = 1e-5
 #: eps-regime elements moved apart (measured worst 1.2e-5)
 TOL_PARAM, TOL_PARAM_MOST, SHARE_BEYOND = 1e-4, 1e-6, 1e-4
 TOL_MOMENTS = 1e-4
+#: bf16 amp against the reference's program under ``pt.amp.enable`` on
+#: XLA's CPU.  Both round every matmul output, residual sum, layer-norm
+#: output and gelu to bf16 (a relative step of 2^-8 = 3.9e-3), in other
+#: orders and not always at the same points (XLA keeps some fused chains
+#: in f32), so single roundings differ by a bf16 step.  Measured over the
+#: 8 programs: the losses within 2.4e-4 relative, the step-1 gradients
+#: within 1.7% per tensor (norm).
+TOL_AMP_LOSS = 3e-3
+TOL_AMP_GRAD = 0.06
+#: Adam moves an element by at most lr a step (by about lr sign(g) where
+#: |g| >> eps), so where the two sides' bf16 gradients differ in sign an
+#: element can end up 2 lr apart a step: 2 steps bound it by 4 lr
+#: (measured worst 3.9e-3: an element whose gradients flip sign at both
+#: steps).  All but 5% of the elements stay within half of one step's lr
+#: (measured: all but 0.19%).
+TOL_AMP_PARAM = 2 * STEPS * LR
+TOL_AMP_PARAM_MOST, AMP_SHARE_BEYOND = 0.5 * LR, 5e-2
 #: the op types that draw a dropout seed in the reference's forward
 DROPOUT_OPS = ("dropout", "dropout_add", "fused_attention",
                "fused_qkv_attention")
@@ -83,7 +103,7 @@ class _Reference:
     parameters, and each step's loss, step 1's gradients, and the
     parameters and Adam state after the last step."""
 
-    def __init__(self, route, rate):
+    def __init__(self, route, rate, amp=False):
         use_flash, flag, fuse = ROUTES[route]
         if not flag:
             FLAGS.set("fused_qkv_attention", False)
@@ -101,6 +121,8 @@ class _Reference:
                         learning_rate=LR).minimize(avg_loss)
         finally:
             FLAGS.reset("fused_qkv_attention")
+        if amp:
+            pt.amp.enable(self.prog)
         ops = self.prog.global_block().ops
         types = [op.type for op in ops]
         n = WIDTHS["n_layer"]
@@ -146,8 +168,8 @@ class _Reference:
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(route, rate):
-    return _Reference(route, rate)
+def _reference(route, rate, amp=False):
+    return _Reference(route, rate, amp)
 
 
 def _port(route, rate, params):
@@ -314,3 +336,138 @@ def test_dropout_trains_and_eval_turns_it_off():
         grads.append({n: p.grad for n, p in m.named_parameters()})
     for n, g in grads[0].items():
         assert _rel(g.double().numpy(), grads[1][n].numpy()) <= TOL_GRAD, n
+
+
+# ---------------------------------------------------------------------------
+# bf16 amp
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_amp_two_adam_steps_match_reference(route, rate):
+    """Each route under ``amp.enable`` against the reference's program under
+    ``pt.amp.enable`` (the fused route after its ``attention_fuse``), each
+    step under the reference step's seeds: the encoder output bf16 and the
+    loss f32, each loss within TOL_AMP_LOSS, every step-1 gradient f32 and
+    within TOL_AMP_GRAD (norm), the parameters after 2 steps within
+    TOL_AMP_PARAM (all but AMP_SHARE_BEYOND of them within
+    TOL_AMP_PARAM_MOST); the amp step is not the f32 one."""
+    ref = _reference(route, rate, amp=True)
+    model = _port(route, rate, ref.start)
+    amp.enable(model)
+    opt = Adam(model.parameters(), learning_rate=LR)
+    params = dict(model.paddle_tpu_named_parameters())
+    for step in range(STEPS):
+        seeds = ref.seeds[step] if rate else None
+        loss, enc = model(**_feed(), dropout_seeds=seeds)
+        assert enc.dtype == torch.bfloat16 and loss.dtype == torch.float32
+        want = ref.losses[step]
+        assert abs(loss.item() - want) <= TOL_AMP_LOSS * abs(want), (
+            step, loss.item(), want)
+        if step == 0:
+            f32, _ = _port(route, rate, ref.start)(**_feed(),
+                                                  dropout_seeds=seeds)
+            assert f32.item() != loss.item()
+        params_grads = opt.minimize(loss)
+        if step == 0:
+            got = {p: g for p, g in params_grads}
+            assert len(got) == len(ref.trained)
+            for name in ref.trained:
+                p = params[name]
+                assert p.dtype == got[p].dtype == torch.float32, name
+                assert _rel(got[p], ref.grads[name]) <= TOL_AMP_GRAD, name
+    exported = export_paddle_tpu_bert_params(model)
+    beyond = total = 0
+    for name, got in exported.items():
+        want = ref.after[name]
+        np.testing.assert_allclose(got, want, atol=TOL_AMP_PARAM, rtol=0,
+                                   err_msg=name)
+        beyond += int((np.abs(got - want) > TOL_AMP_PARAM_MOST).sum())
+        total += got.size
+    assert beyond <= AMP_SHARE_BEYOND * total, (beyond, total)
+
+
+def test_hand_written_attention_takes_the_reference_policy(monkeypatch):
+    """The hand-written attention under amp, op by op: each op's inputs as
+    the port casts them are the reference's ``apply_cast_policy`` of the
+    same op on the same input dtypes, in the reference's op order (the
+    qkv ``mul``, ``matmul(q, k^T)``, the bias ``elementwise_add``,
+    ``softmax``, ``matmul`` with v, the output ``mul``): both matmuls take
+    bf16 (the f32 weights cast down), the f32 bias is cast down to the
+    bf16 product, softmax runs in f32, and the output is bf16."""
+    import jax.numpy as jnp
+
+    from paddle_tpu import amp as ref_amp
+    from paddle_tpu_torch.models.transformer import MultiHeadAttention
+
+    calls = []
+    cast = amp.cast
+
+    def recording(op, *tensors):
+        out = cast(op, *tensors)
+        calls.append((op, [t.dtype for t in tensors],
+                      [t.dtype for t in out]))
+        return out
+
+    monkeypatch.setattr(amp, "cast", recording)
+    d_model, n_head, t = 64, 2, 8
+    site = MultiHeadAttention(d_model, n_head, d_model // n_head, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    for p in site.parameters():
+        p.data = torch.randn(p.shape, generator=gen) * 0.1
+    x = torch.randn(2, t, d_model, generator=gen).bfloat16()
+    bias = torch.zeros(2, 1, 1, t)
+    bias[1, ..., t - 2:] = -1e9
+    holder = torch.nn.Module()
+    amp.enable(holder)
+    with amp.policy_scope(holder):
+        out = site(x, bias)
+    assert out.dtype == torch.bfloat16
+    assert [op for op, _, _ in calls] == [
+        "mul", "matmul", "elementwise_add", "softmax", "matmul", "mul"]
+    jdtype = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+    for op, ins, outs in calls:
+        want = ref_amp.apply_cast_policy(
+            op, {i: [jnp.zeros((1,), jdtype[d])] for i, d in enumerate(ins)})
+        assert outs == [torch.bfloat16 if want[i][0].dtype == jnp.bfloat16
+                        else torch.float32 for i in range(len(ins))], op
+    # the f32 bias cast down to the bf16 product
+    assert calls[2][1:] == ([torch.bfloat16, torch.float32],
+                            [torch.bfloat16] * 2)
+    assert calls[3][2] == [torch.float32]  # softmax in f32
+    # the f32 weights cast down for the product with v
+    assert calls[4][1:] == ([torch.float32, torch.bfloat16],
+                            [torch.bfloat16] * 2)
+
+
+def test_gelu_bf16_follows_reference_arithmetic():
+    """``gelu`` on bf16 against the reference's (``jax.nn.gelu`` with
+    approximate=False, jitted on XLA's CPU) on every finite bf16 input:
+    the same bits, except where XLA flushes a subnormal intermediate to
+    zero and returns +-0 for a result below 2^-123 in magnitude.
+    ``F.gelu`` in bf16 (f32 arithmetic, one rounding) is not the
+    reference's: it differs on over a thousand inputs; f32 inputs keep
+    ``F.gelu``."""
+    import jax.numpy as jnp
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.nn_ops import gelu
+
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16)
+    x = x[torch.isfinite(x)]
+    want = np.asarray(jax.jit(lambda a: jax.nn.gelu(a, approximate=False))(
+        jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)).astype(
+            jnp.float32))
+    got = gelu(x)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    same = (got == want) | (np.isnan(got) & np.isnan(want))
+    assert (~same).sum() < 600
+    assert (want[~same] == 0).all()
+    assert (np.abs(got[~same]) < 2.0 ** -123).all()
+    lib = F.gelu(x, approximate="none").float().numpy()
+    assert ((lib != want) & ~np.isnan(want)).sum() > 1000
+    x32 = torch.linspace(-6, 6, 101)
+    assert torch.equal(gelu(x32), F.gelu(x32, approximate="none"))

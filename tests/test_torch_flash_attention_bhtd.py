@@ -10,8 +10,14 @@ against ``jax.vjp`` of its ``flash_attention(fmt="bhtd")`` and against a
 small program of its ``layers.contrib.fused_attention``.  The CUDA kernels
 are held against the same twins on the card by chip_smoke.py.  Inputs are
 numpy arrays from seeds; dropout runs at the reference's hash masks under
-the same seed on both sides.
+the same seed on both sides.  In bf16 (amp) the twins, the Function's
+autograd and the tensor-core kernels' arithmetic (emulated in PyTorch by
+the bthd test file's ``_tc_flash_forward`` / ``_tc_flash_backward``, the
+same kernels on the other row layout) are held against the same Pallas
+kernels on the same bf16 operands, within bf16 steps.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -26,6 +32,8 @@ from paddle_tpu.kernels import attention as jax_attention
 from paddle_tpu_torch.interop import dropout_seeds
 from paddle_tpu_torch.kernels import attention as ka
 from paddle_tpu_torch.layers import contrib
+from test_torch_flash_attention import (_close_bf16, _tc_flash_backward,
+                                        _tc_flash_forward)
 
 #: f32 on both sides, abs and rel: the packages sum in other orders (the
 #: reference's tiles are whole 32- or 64-row blocks, the twins' one
@@ -285,3 +293,151 @@ def test_contrib_fused_attention_matches_reference_layer(weights_dropout):
     with pytest.raises(ValueError, match="needs dropout_seed"):
         contrib.fused_attention(*args, dropout_rate=RATE,
                                 weights_dropout=weights_dropout)
+
+
+# ---------------------------------------------------------------------------
+# bf16 (amp): #5, #8 and #9 in bf16
+# ---------------------------------------------------------------------------
+
+#: (name, tq, tk, bias kind, causal) of the bf16 cases: BERT's key-padding
+#: bias [b, 1, 1, tk], a full [b, 1, tq, tk] bias, none, causal with tq >
+#: tk and a row masked to -1e30, and a ragged tq < tk; each at RATES under
+#: SEED.  Tolerances are ``_close_bf16``'s (the bthd file's): 2^-7 of
+#: the value plus one bf16 step (2^-8) of the tensor's largest element,
+#: the two sides rounding once each from f32 sums in other orders; lse
+#: f32 within 1e-5
+BF16_CASES = [("key_padding", 32, 64, "pad", False),
+              ("full_q_bias", 32, 32, "full", False),
+              ("no_bias_causal", 64, 64, None, True),
+              ("causal_tq_gt_tk_masked_row", 64, 32, "masked", True),
+              ("ragged_pad", 40, 72, "pad", False)]
+
+
+def _f32(a):
+    return np.array(a.astype(jnp.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bf16(name, rate):
+    """The case's bf16 operands (numpy f32 arrays holding bf16 values) and
+    the reference's bhtd kernels on them in interpret mode: (arrays, out,
+    lse, (dq, dk, dv)), the outputs as numpy f32."""
+    _, tq, tk, bias_kind, causal = next(c for c in BF16_CASES
+                                        if c[0] == name)
+    arrays = tuple(None if a is None else
+                   torch.from_numpy(a).bfloat16().float().numpy()
+                   for a in _inputs(tq, tk, bias_kind, seed=5))
+    jq, jk, jv, jg, jb = (None if a is None else
+                          jnp.asarray(a).astype(jnp.bfloat16)
+                          for a in arrays)
+    ok, bq, bk, interp = jax_attention._plan(jq, jk, 512, 512, True, "bhtd")
+    assert ok and interp
+    seed = jnp.asarray([SEED], jnp.uint32)
+    out, lse = jax_attention._flash_forward(
+        jq, jk, jv, jb, seed, SCALE, causal, bq, bk, True, "bhtd",
+        dropout_rate=rate)
+    grads = jax_attention._flash_backward(
+        jq, jk, jv, jb, seed, out, lse, jg, SCALE, causal, bq, bk, True,
+        "bhtd", dropout_rate=rate)
+    assert out.dtype == grads[0].dtype == jnp.bfloat16
+    return (arrays, _f32(out), np.asarray(lse),
+            tuple(_f32(g) for g in grads))
+
+
+def _bf16_tensors(arrays):
+    return [None if a is None else torch.from_numpy(a).bfloat16()
+            for a in arrays]
+
+
+@pytest.mark.parametrize("rate", RATES)
+@pytest.mark.parametrize("name,tq,tk,bias_kind,causal", BF16_CASES)
+def test_bf16_matches_jax_kernels(name, tq, tk, bias_kind, causal, rate):
+    """#5's, #8's and #9's twins on bf16 operands (the bias too, as amp
+    casts it) against _fwd_kernel, _bwd_dq_kernel and _bwd_dkv_kernel in
+    interpret mode on the same bf16 operands and hash mask: out, dq, dk, dv
+    bf16 within ``_close_bf16``, lse f32 within 1e-5, rows that see no key
+    0 with lse = +inf.  The same through ``flash_attention(fmt="bhtd")``'s
+    autograd; at rate 0.1 the output is not the rate-0 output."""
+    arrays, out, lse, grads = _jax_bf16(name, rate)
+    q, k, v, g, bias = _bf16_tensors(arrays)
+    kw = _kw(causal, rate)
+    got_out, got_lse = ka.flash_fwd_bhtd(q, k, v, bias, **kw)
+    assert got_out.dtype == torch.bfloat16
+    assert got_lse.dtype == torch.float32
+    hidden = np.isinf(lse)
+    assert np.array_equal(np.isinf(got_lse.numpy()), hidden)
+    assert hidden.any() == (bias_kind == "masked")
+    np.testing.assert_allclose(got_lse.numpy()[~hidden], lse[~hidden],
+                               rtol=1e-5, atol=1e-5)
+    _close_bf16(got_out.float(), out)
+    assert not got_out[torch.from_numpy(hidden)].any()
+    delta = (g.float() * got_out.float()).sum(-1).contiguous()
+    bw = (q, k, v, bias, g, got_lse, delta)
+    dq = ka.flash_bwd_dq_bhtd(*bw, **kw)
+    dk, dv = ka.flash_bwd_dkv_bhtd(*bw, **kw)
+    for got, want in zip((dq, dk, dv), grads):
+        assert got.dtype == torch.bfloat16
+        _close_bf16(got.float(), want)
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    o = ka.flash_attention(*leaves, bias, fmt="bhtd", **kw)
+    assert torch.equal(o, got_out)
+    o.backward(g)
+    for leaf, got in zip(leaves, (dq, dk, dv)):
+        assert torch.equal(leaf.grad, got)
+    if rate:
+        rate0 = ka.flash_fwd_bhtd(q, k, v, bias, **_kw(causal, 0.0))[0]
+        assert (got_out.float() - rate0.float()).abs().max() > 0.1
+
+
+@pytest.mark.parametrize("rate", RATES)
+@pytest.mark.parametrize("name,tq,tk,bias_kind,causal", BF16_CASES)
+def test_tensor_core_numerics_match_jax_kernels(name, tq, tk, bias_kind,
+                                                causal, rate):
+    """The emulated arithmetic of the tensor-core kernels #5, #8 and #9
+    (#4's, #6's and #7's on the bhtd layout: exact bf16 products for s
+    and dp, p and ds split into hi/lo for p v, dq, dk and dv) on the
+    transposed bf16 operands against the reference's bhtd kernels in
+    interpret mode on the same operands and hash mask: o, dq, dk, dv
+    within ``_close_bf16``, lse within 1e-5, the same masked rows, and
+    zero gradients on a row the forward masked."""
+    arrays, out, lse, grads = _jax_bf16(name, rate)
+    q, k, v, g, bias = _bf16_tensors(arrays)
+    t = ka._bthd
+    got_o, got_lse = _tc_flash_forward(t(q), t(k), t(v), bias, SCALE, causal,
+                                       rate, SEED)
+    hidden = np.isinf(lse)
+    assert np.array_equal(np.isinf(got_lse.numpy()), hidden)
+    np.testing.assert_allclose(got_lse.numpy()[~hidden], lse[~hidden],
+                               rtol=1e-5, atol=1e-5)
+    _close_bf16(t(got_o).float(), out)
+    lse_ = torch.from_numpy(lse.copy())
+    delta = (g.float() * torch.from_numpy(out)).sum(-1).contiguous()
+    got = _tc_flash_backward(t(q), t(k), t(v), bias, t(g), lse_, delta,
+                             SCALE, causal, rate, SEED)
+    for g_, want in zip(got, grads):
+        assert g_.dtype == torch.bfloat16
+        _close_bf16(t(g_).float(), want)
+    assert not t(got[0])[torch.from_numpy(hidden)].any()
+
+
+@pytest.mark.parametrize("rate", RATES)
+def test_bhtd_bf16_is_bthd_bf16_transposed(rate):
+    """In bf16 the two layouts compute one function with one mask: bhtd on
+    q, k, v equals bthd on their transposes, output and gradients through
+    each layout's Function, bit for bit (the bhtd twins are the bthd bf16
+    twins on transposed views, unchanged)."""
+    q, k, v, g, bias = _bf16_tensors(_inputs(40, 72, "pad", seed=7))
+    outs = []
+    for fmt in ("bhtd", "bthd"):
+        conv = (lambda a: a) if fmt == "bhtd" else (
+            lambda a: a.transpose(1, 2).contiguous())
+        leaves = [conv(a).detach().requires_grad_() for a in (q, k, v)]
+        out = ka.flash_attention(*leaves, bias, fmt=fmt, **_kw(False, rate))
+        out.backward(conv(g))
+        got = [out.detach(), *(a.grad for a in leaves)]
+        if fmt == "bthd":
+            got = [a.transpose(1, 2) for a in got]
+        assert all(a.dtype == torch.bfloat16 for a in got)
+        outs.append(got)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

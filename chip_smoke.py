@@ -122,7 +122,15 @@ Phases, each fatal on failure:
    too, #20/#21 with and without residual and ReLU; #18, #20 and #21 also
    at C = 2 and 6, whose channels they read one by one),
    each called twice for equal bits; their sums are held to TOL_SUM of
-   the summed magnitudes against the same sums in float64.  cuDNN's output of the NHWC convolution must
+   the summed magnitudes against the same sums in float64.  The same
+   cases in bf16 (``check_conv_bn_bf16``): #20's out and #21's dx and
+   dres bit for bit against the bf16 twins, #19's y within one bf16 step
+   of ``torch.matmul`` in bf16 (its share off the rounded float64 product
+   recorded) and its sums against float64 sums over its own stored y, the
+   other sums against float64 over the same bf16 values; shapes and mixes
+   of types the kernels cannot take must raise before any launch
+   (``check_conv_bn_refusals``); with
+   ``--parent`` the f32 #18-#21 give the parent's bits.  cuDNN's output of the NHWC convolution must
    come back NHWC-contiguous.  The multi-table embedding kernels (#22,
    #23) are checked at DeepFM's shapes (26 tables of 1000001 rows, widths
    10 and 1, ids [26, 4096]): #22 on both groups, and with the ids mod
@@ -267,6 +275,18 @@ Phases, each fatal on failure:
    10 timed steps with fresh seeds (median step ms, tokens/s, the bf16
    peak share, peak memory) beside (i)'s f32 numbers, whose loss must
    fall;
+   (l) ResNet-50 training under bf16 amp as ``bench_resnet50`` runs it
+   (``amp.enable``, (g)'s initial weights, fresh Momentum state): 17
+   ``channel_stats_bf16``, 36 ``dot_col_stats_bf16``, 53 ``ssa_fwd_bf16``
+   and 53 ``ssa_bwd_bf16`` launches per step and no f32 conv + BN launch.
+   Step 1 at batch 16 against (g)'s float64 step (TOL_RESNET_AMP_*: the
+   loss, the running statistics, each gradient's and update's norm and
+   their median, their median cosine, the head's distance; the
+   stem's output and the pooled features bf16, predict, the loss and every
+   gradient f32); step 1 at batch 256 twice for equal bits and against
+   the card's plain route (TOL_RESNET_AMP_ROUTES_*); then 10 timed steps
+   (median step ms, images/s, the bf16 peak share, peak memory) beside
+   (g)'s f32 numbers, whose first update must lower the loss;
 4. where the time goes: torch.profiler over one prefill and 16 decode
    steps at each batch on the ring cache and at b=64 on paged pools (the
    megastep's and the FFN's device ms a step beside the idle share), and
@@ -278,15 +298,17 @@ Phases, each fatal on failure:
    steps' device time split by phase, launching op and elementwise
    kernel, and #5's, #8's and #9's device ms a step): device time by
    kernel beside host wall time, and for
-   ResNet-50 any layout-conversion kernel and #19's time a step beside the
-   summed bound of its 36 sites.
+   ResNet-50 in f32 and under amp (l) any layout-conversion kernel,
+   cuDNN's, cuBLAS's and the elementwise kernels' ms, each conv + BN
+   kernel's ms a step and #19's beside the summed bound of its 36 sites
+   (under amp each of #18-#21's beside its summed bf16 bound).
    Every phase prints its seconds.
 
 Prints the card and its power limit, the timings, one JSON line with a
 record per kernel, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero, printing no result, without a CUDA card or without the package
 beside it.  f32 with TF32 off for matmuls and cuDNN, but for the bf16
-checks of phase 2 and the amp step (j).
+checks of phase 2 and the amp steps (j), (k) and (l).
 """
 
 from __future__ import annotations
@@ -2942,11 +2964,13 @@ def check_dropout_bf16_bits(gen):
     return held
 
 
-def _same_bytes(rec, fn, call, prefix=""):
+def _same_bytes(rec, fn, call, prefix="",
+                note="same bytes, not the same function"):
     """Add to ``rec`` the times of ``fn``, one PyTorch call that moves the
-    kernel's bytes (``call`` names it), with and without the host's
-    enqueue: a yardstick of the card's copy rate, not the same function."""
-    rec[prefix + "same_bytes"] = f"{call}: same bytes, not the same function"
+    kernel's bytes (``call`` names it; ``note`` says how far), with and
+    without the host's enqueue: a yardstick of the card's copy rate, not
+    the same function."""
+    rec[prefix + "same_bytes"] = f"{call}: {note}"
     rec[prefix + "same_bytes_ms"] = cuda_ms(fn)
     rec[prefix + "same_bytes_device_ms"] = cuda_ms(fn, hide_host=True)
 
@@ -3202,7 +3226,8 @@ def check_parent_bits(gen):
     bf16 with its y on the cluster route (R 64) and the tiles route, the
     pair #2 + #3 in f32 and in bf16 (both walks), ``gemm.cuh``'s f32 tile
     at the pair's products and its tensor-core tile at GEMM_AMP_CASES, #19
-    (its tile) at ResNet-50's stage-1 conv3, and #16, #17 in f32 and bf16,
+    (its tile) at ResNet-50's stage-1 conv3, #18 at the stem and at C 6,
+    #20 and #21 in f32 at every CBN_SSA_CASES, and #16, #17 in f32 and bf16,
     each at rates 0 and DROPOUT where it drops.  (#5, #8 and #9 in bf16
     are new: the parent has no bf16 bhtd kernels.)  ``gen`` is a generator
     of its own, so that the later checks draw the parent's inputs.
@@ -3307,6 +3332,24 @@ def check_parent_bits(gen):
         same(f"gemm_tc {name}", lambda: kg.gemm(a, b, split, c_dtype))
     x2, w2 = randn(gen, 256 * 56 * 56, 64), randn(gen, 256, 64)
     same("dot_col_stats stage-1 conv3", lambda: kc.dot_col_stats_fwd(x2, w2))
+    del x2, w2
+    # #18, #20 and #21 in f32 (csrc/conv_bn.cu's walk now serves bf16
+    # too): the stem and C 6 for #18, every CBN_SSA_CASES mode for #20, #21
+    cgen = torch.Generator(device="cuda").manual_seed(
+        int(torch.randint(0, 2 ** 31, (1,), generator=gen)))
+    for case, shape in (CBN_STATS_CASES[0], CBN_STATS_CASES[-1]):
+        y = randn_card(cgen, *shape)
+        same(f"channel_stats {case}", lambda: kc.channel_stats_fwd(y))
+        del y
+    for case, rows, c, residual, relu in CBN_SSA_CASES:
+        x, g = randn_card(cgen, rows, c), randn_card(cgen, rows, c)
+        wv, bv = randn_card(cgen, c) + 1.0, randn_card(cgen, c)
+        res = randn_card(cgen, rows, c) if residual else None
+        same(f"ssa_fwd {case}", lambda: kc.ssa_fwd(x, wv, bv, res, relu))
+        out = kc.ssa_fwd(x, wv, bv, res, relu)
+        same(f"ssa_bwd {case}",
+             lambda: kc.ssa_bwd(g, x, out, wv, residual, relu))
+        del x, g, res, out
     return held
 
 
@@ -3477,8 +3520,10 @@ def check_conv_bn(gen):
     their plain twins on the card: outputs within TOL_KERNEL of the f32
     twin, per-channel sums within TOL_SUM of the twin in float64 (every
     sum is read before a sum out of bounds fails the phase); each kernel
-    called twice for equal bits.  Also checks that ``conv2d_nhwc``'s
-    output at the stem is NHWC-contiguous with no copy.  Returns {(name,
+    called twice for equal bits; #18's, #20's and #21's device-only times
+    beside the parent's kernels' (``tensor_core_times``, with
+    ``--parent``).  Also checks that ``conv2d_nhwc``'s output at the stem
+    is NHWC-contiguous with no copy.  Returns {(name,
     case): record}; a record's ``sum_err_of_terms`` is its sums' worst
     reading against TOL_SUM."""
     from paddle_tpu_torch.kernels import conv_bn as kc
@@ -3514,6 +3559,9 @@ def check_conv_bn(gen):
             F32 * (rows * c + 2 * c),
             lambda: torch.var_mean(y, dim=(0, 1, 2)), RESNET_BATCH)
         rec["sum_err_of_terms"] = max(w for _, w in sums)
+        # csrc/conv_bn.cu's walk serves bf16 too: the f32 kernel's device
+        # time beside the parent's (with --parent)
+        tensor_core_times(rec, lambda: kc.channel_stats_fwd(y))
         records[("channel_stats", case)] = rec
         del y
 
@@ -3600,10 +3648,230 @@ def check_conv_bn(gen):
             RESNET_BATCH)
         records[("ssa_bwd", case)]["sum_err_of_terms"] = max(
             w for _, w in sums)
+        tensor_core_times(records[("ssa_fwd", case)],
+                          lambda: kc.ssa_fwd(x, wv, bv, res, relu))
+        tensor_core_times(records[("ssa_bwd", case)],
+                          lambda: kc.ssa_bwd(g, x, out, wv, residual, relu))
         del x, g, res, out
     require(not failures, "conv + BN sums out of bounds: "
             + "; ".join(failures))
     return records
+
+
+#: #19 in bf16 at one site: FLOPs and bytes (bf16 x2, w2 and y, f32 sums)
+def dot_stats_bf16_bound_ms(m, k, n):
+    """#19 in bf16's bound at one site, as its phase-2 records count it."""
+    return bound_bf16(2 * m * n * k + 3 * m * n,
+                      BF16 * (m * k + n * k + m * n) + F32 * 2 * n)[0]
+
+
+def _bf16_card(gen, *shape, scale=1.0):
+    return randn_card(gen, *shape, scale=scale).bfloat16()
+
+
+def check_conv_bn_bf16(gen):
+    """#18-#21 in bf16 (amp) at CBN_*_CASES, against their plain twins on
+    the card: #20's out and #21's dx and dres bit for bit (the twins'
+    bf16 ops round each product and sum once, as the kernels'
+    mul.rn.bf16x2 / add.rn.bf16x2 do); #19's y within one bf16 step of the
+    twin's (``torch.matmul`` in bf16), its share off the float64 product
+    rounded to bf16 recorded; every per-channel sum within TOL_SUM of the
+    same sum in float64 over the same bf16 values (#19's over the
+    kernel's own stored y, so that the epilogue is held and not the
+    product's rounding).  Each kernel is called twice for equal bits.
+    Each record: ms after the L2 flush and device only, the bf16 bound
+    (2 B an element, FLOPs at the dense bf16 rate), and the library call
+    (#18: ``torch.var_mean`` on the bf16 tensor; #19: the bare bf16
+    product as ``matmul_ms``; #20 and #21 have none: the same-bytes
+    ``torch.add`` / ``torch.addcmul``, labelled so).  Returns {(name,
+    case): record}."""
+    from paddle_tpu_torch.kernels import conv_bn as kc
+
+    src = "paddle_tpu_torch/csrc/conv_bn.cu"
+    records, failures = {}, []
+    cgen = torch.Generator(device="cuda").manual_seed(
+        int(torch.randint(0, 2 ** 31, (1,), generator=gen)))
+
+    def finish(rec, fn):
+        rec.update(dtype="bf16", device_ms=cuda_ms(fn, hide_host=True))
+        rec["device_bound_share"] = rec["bound_ms"] / rec["device_ms"]
+        return rec
+
+    for case, shape in CBN_STATS_CASES:
+        y = _bf16_card(cgen, *shape)
+        rows, c = y.numel() // shape[-1], shape[-1]
+        got = kc.channel_stats_fwd(y)
+        _require_same_bits("channel_stats bf16", got, kc.channel_stats_fwd(y))
+        y64 = y.double()
+        exact = kc.reference_channel_stats(y64)
+        sums = [compare_sums(f"channel_stats bf16 s1 {case}", got[0],
+                             exact[0], y64.abs().sum((0, 1, 2)), failures),
+                compare_sums(f"channel_stats bf16 s2 {case}", got[1],
+                             exact[1], exact[1], failures)]
+        del y64, exact
+
+        def fn():
+            return kc.channel_stats_fwd(y)
+
+        rec = timed_record(
+            "channel_stats_bf16", src, "paddle_tpu/kernels/conv_bn.py:146",
+            max(e for e, _ in sums), fn,
+            lambda: kc.reference_channel_stats(y), 3 * rows * c,
+            BF16 * rows * c + F32 * 2 * c,
+            lambda: torch.var_mean(y, dim=(0, 1, 2)), RESNET_BATCH,
+            bound_fn=bound_bf16)
+        rec["sum_err_of_terms"] = max(w for _, w in sums)
+        records[("channel_stats_bf16", case)] = finish(rec, fn)
+        del y
+
+    for case, m, k, n, stride in CBN_DOT_CASES:
+        if stride > 1:
+            side = int(round((m // RESNET_BATCH) ** 0.5))
+            full = _bf16_card(cgen, RESNET_BATCH, side * stride,
+                              side * stride, k)
+            x2 = full[:, ::stride, ::stride, :].reshape(m, k)
+            del full
+        else:
+            x2 = _bf16_card(cgen, m, k)
+        w2 = _bf16_card(cgen, n, k, scale=k ** -0.5)
+        got = kc.dot_col_stats_fwd(x2, w2)
+        _require_same_bits("dot_col_stats bf16", got,
+                           kc.dot_col_stats_fwd(x2, w2))
+        require(got[0].dtype == torch.bfloat16, "dot_col_stats bf16: y is "
+                f"{got[0].dtype}")
+        err = compare_bf16(f"dot_col_stats bf16 y {case}", got[0],
+                           kc.reference_dot_col_stats(x2, w2)[0])
+        share = (got[0] != (x2.double() @ w2.double().t()).to(
+            torch.bfloat16)).double().mean().item()
+        # the statistics are of the stored y: the kernel's own, in float64
+        y64 = got[0].double()
+        exact = kc.reference_channel_stats(y64)
+        sums = [compare_sums(f"dot_col_stats bf16 s1 {case}", got[1],
+                             exact[0], y64.abs().sum(0), failures),
+                compare_sums(f"dot_col_stats bf16 s2 {case}", got[2],
+                             exact[1], exact[1], failures)]
+        del got, y64, exact
+
+        def fn():
+            return kc.dot_col_stats_fwd(x2, w2)
+
+        rec = timed_record(
+            "dot_col_stats_bf16", src, "paddle_tpu/kernels/conv_bn.py:225",
+            max([err] + [e for e, _ in sums]), fn,
+            lambda: kc.reference_dot_col_stats(x2, w2),
+            2 * m * n * k + 3 * m * n,
+            BF16 * (m * k + n * k + m * n) + F32 * 2 * n, None, RESNET_BATCH,
+            bound_fn=bound_bf16)
+        rec.update(matmul_ms=cuda_ms(lambda: x2 @ w2.t()),
+                   matmul_device_ms=cuda_ms(lambda: x2 @ w2.t(),
+                                            hide_host=True),
+                   off_rounding_share=share,
+                   sum_err_of_terms=max(w for _, w in sums), m=m, k=k, n=n)
+        records[("dot_col_stats_bf16", case)] = finish(rec, fn)
+        del x2, w2
+
+    for case, rows, c, residual, relu in CBN_SSA_CASES:
+        x, g = _bf16_card(cgen, rows, c), _bf16_card(cgen, rows, c)
+        wv, bv = randn_card(cgen, c) + 1.0, randn_card(cgen, c)
+        res = _bf16_card(cgen, rows, c) if residual else None
+        out = kc.ssa_fwd(x, wv, bv, res, relu)
+        require(out.dtype == torch.bfloat16 and torch.equal(
+            out, kc.ssa_fwd(x, wv, bv, res, relu)) and same_bf16_bits(
+            out, kc.reference_ssa_fwd(x, wv, bv, res, relu)),
+            f"ssa_fwd bf16 {case}: not the twin's bits or not repeated")
+        got = kc.ssa_bwd(g, x, out, wv, residual, relu)
+        _require_same_bits("ssa_bwd bf16", got, kc.ssa_bwd(g, x, out, wv,
+                                                           residual, relu))
+        want = kc.reference_ssa_bwd(g, x, out, wv, residual, relu)
+        require(got[0].dtype == torch.bfloat16
+                and same_bf16_bits(got[0], want[0])
+                and (not residual or same_bf16_bits(got[1], want[1])),
+                f"ssa_bwd bf16 {case}: dx or dres not the twin's bits")
+        del want
+        gm = (torch.where(out > 0, g, 0.0) if relu else g).double()  # g'
+        x64 = x.double()
+        sums = [compare_sums(f"ssa_bwd bf16 sg {case}", got[2], gm.sum(0),
+                             gm.abs().sum(0), failures)]
+        gm *= x64
+        sums.append(compare_sums(f"ssa_bwd bf16 sgx {case}", got[3],
+                                 gm.sum(0), gm.abs().sum(0), failures))
+        del got, gm, x64
+        n = rows * c
+        streams = 2 + residual
+
+        def fwd():
+            return kc.ssa_fwd(x, wv, bv, res, relu)
+
+        def bwd():
+            return kc.ssa_bwd(g, x, out, wv, residual, relu)
+
+        rec = timed_record(
+            "ssa_fwd_bf16", src, "paddle_tpu/kernels/conv_bn.py:409", 0.0,
+            fwd, lambda: kc.reference_ssa_fwd(x, wv, bv, res, relu),
+            (2 + residual + relu) * n, BF16 * streams * n + F32 * 2 * c,
+            None, RESNET_BATCH, bound_fn=bound_bf16)
+        rec["twin_bit_equal"] = True
+        if residual:
+            _same_bytes(rec, lambda: torch.add(x, res), "torch.add(x, r)")
+        records[("ssa_fwd_bf16", case)] = finish(rec, fwd)
+        rec = timed_record(
+            "ssa_bwd_bf16", src, "paddle_tpu/kernels/conv_bn.py:429",
+            max(e for e, _ in sums), bwd,
+            lambda: kc.reference_ssa_bwd(g, x, out, wv, residual, relu),
+            (4 + relu) * n,
+            BF16 * (3 + relu + residual) * n + F32 * 3 * c, None,
+            RESNET_BATCH, bound_fn=bound_bf16)
+        rec.update(twin_bit_equal=True,
+                   sum_err_of_terms=max(w for _, w in sums))
+        if residual and relu:
+            _same_bytes(rec, lambda: torch.addcmul(g, x, out),
+                        "torch.addcmul(g, x, out)",
+                        note="4 of the kernel's 5 streams (its 3 reads, 1 "
+                        "of its 2 writes), not the same function")
+        records[("ssa_bwd_bf16", case)] = finish(rec, bwd)
+        del x, g, res, out
+    require(not failures, "conv + BN bf16 sums out of bounds: "
+            + "; ".join(failures))
+    return records
+
+
+def check_conv_bn_refusals(gen):
+    """No fallback: on CUDA tensors each conv + BN wrapper raises, before
+    any launch and without running its twin, on a shape or a mix of types
+    its kernel cannot take: #19 in bf16 at K % 8 != 0 and at an odd N, bf16
+    activations beside an f32 operand or residual, bf16 (not f32) wv, fp16
+    activations.  Returns the refused calls' names."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import conv_bn as kc
+
+    cgen = torch.Generator(device="cuda").manual_seed(
+        int(torch.randint(0, 2 ** 31, (1,), generator=gen)))
+    x, w2 = _bf16_card(cgen, 256, 64), _bf16_card(cgen, 32, 64)
+    wv, bv = randn_card(cgen, 64) + 1.0, randn_card(cgen, 64)
+    calls = (
+        ("dot_col_stats bf16 K 60", lambda: kc.dot_col_stats_fwd(
+            _bf16_card(cgen, 256, 60), _bf16_card(cgen, 32, 60))),
+        ("dot_col_stats bf16 N 33", lambda: kc.dot_col_stats_fwd(
+            x, _bf16_card(cgen, 33, 64))),
+        ("dot_col_stats bf16 x2, f32 w2", lambda: kc.dot_col_stats_fwd(
+            x, w2.float())),
+        ("ssa_fwd bf16 x, f32 residual", lambda: kc.ssa_fwd(
+            x, wv, bv, x.float(), True)),
+        ("ssa_fwd bf16 wv", lambda: kc.ssa_fwd(x, wv.bfloat16(), bv)),
+        ("ssa_bwd f32 g, bf16 x", lambda: kc.ssa_bwd(
+            x.float(), x, x, wv, False, True)),
+        ("channel_stats fp16", lambda: kc.channel_stats_fwd(x.half())))
+    before, refused = dict(kernels.launches), []
+    for what, call in calls:
+        try:
+            call()
+        except ValueError:
+            refused.append(what)
+            continue
+        require(False, f"{what}: ran instead of raising")
+    torch.cuda.synchronize()
+    require(kernels.launches == before, "a refused conv + BN call launched")
+    return refused
 
 
 # -- #22 and #23: the multi-table embedding kernels of DeepFM ---------------
@@ -4721,7 +4989,8 @@ def resnet_batch(b, seed):
 @contextlib.contextmanager
 def plain_conv_bn():
     """The card's plain route: the wrappers of #18-#21 swapped for their
-    plain twins (on CUDA tensors) while the block runs."""
+    plain twins (on CUDA tensors, f32 or bf16: the twins compute in their
+    inputs' dtype) while the block runs."""
     from paddle_tpu_torch.kernels import conv_bn as kc
 
     swaps = {"channel_stats_fwd": kc.reference_channel_stats,
@@ -4753,10 +5022,10 @@ def _resnet_step(model, feed, opt=None):
     return loss.item(), acc.item(), grads
 
 
-def _resnet_timed(model, opt, feed):
+def _resnet_timed(model, opt, feed, per_step=RESNET_LAUNCHES):
     """RESNET_TIMED_STEPS Momentum steps of ``model`` on ``feed`` by the host
     clock, each ended by its loss's ``.item()``: (step ms, losses).  The
-    launches of #18-#21 must be RESNET_LAUNCHES a step (they stay counted
+    launches of #18-#21 must be ``per_step`` a step (they stay counted
     for the caller)."""
     from paddle_tpu_torch import kernels
 
@@ -4770,7 +5039,7 @@ def _resnet_timed(model, opt, feed):
         losses.append(loss.item())  # syncs: the step is done
         step_ms.append((time.perf_counter() - t0) * 1e3)
     require(kernels.launches == expected(**{
-        n: c * RESNET_TIMED_STEPS for n, c in RESNET_LAUNCHES.items()}),
+        n: c * RESNET_TIMED_STEPS for n, c in per_step.items()}),
         f"resnet timed steps: launches {kernels.launches}")
     return step_ms, losses
 
@@ -4788,7 +5057,11 @@ def run_resnet(model):
     card's plain route; then RESNET_TIMED_STEPS timed steps on one
     repeated batch.  Every counted step launches exactly RESNET_LAUNCHES.
     The parity and repeated steps run with cudnn.deterministic; the timed
-    ones with PyTorch's defaults.  Returns the run's record."""
+    ones with PyTorch's defaults.  Returns (the run's record, its parity:
+    ``init``, the initial state on the card; ``loss64``, ``exact`` and
+    ``exact_state``, the float64 CPU step's loss, gradients and state
+    after it; ``f32``, {(kind, name): (card vs float64, CPU f32 vs
+    float64)}), which (l) holds its amp step against."""
     from paddle_tpu_torch import Momentum, ResNet, kernels
 
     init = _state(model)
@@ -4855,7 +5128,11 @@ def run_resnet(model):
             f"{loss64} in float64")
     worst_nchw = sorted(held("resnet NCHW", grads_n, _state(nchw)),
                         reverse=True)
-    del grads, exact, cpu_grads, exact_state, cpu_state, cpu, nchw, grads_n
+    parity = dict(init=init, loss64=loss64, exact=exact,
+                  exact_state=exact_state,
+                  f32={(kind, n): (card, cpu32)
+                       for card, cpu32, kind, n in worst})
+    del grads, cpu_grads, cpu_state, cpu, nchw, grads_n
 
     feed = _to(resnet_batch(RESNET_BATCH, seed=2), "cuda")
     model.load_state_dict(init)
@@ -4930,7 +5207,265 @@ def run_resnet(model):
                                                    max(step_ms)),
                 images_per_s=ips,
                 f32_peak_share=ips * RESNET_FLOPS_PER_IMAGE / PEAK_F32_FLOPS,
-                timed_losses=losses, peak_memory_gb=peak_gb)
+                timed_losses=losses, peak_memory_gb=peak_gb), parity
+
+
+# -- (l): ResNet-50 under bf16 amp -------------------------------------------
+
+#: one amp step's launches: #18-#21 in bf16 at (g)'s sites, no f32 conv + BN
+#: launch
+RESNET_AMP_LAUNCHES = {n + "_bf16": c for n, c in RESNET_LAUNCHES.items()}
+#: (l) step 1 at RESNET_PARITY_BATCH against (g)'s float64 CPU step.
+#: The forward keeps its accuracy in bf16: the loss within
+#: TOL_RESNET_AMP_LOSS relative (measured on the H100: 8.9e-4), the
+#: running statistics after the step within TOL_RESNET_AMP_STATE at the
+#: median (0.0032).  The gradients do not: at initialization this step's
+#: gradient moves smoothly with its input until a change near 1e-8 flips
+#: a ReLU, and the flips move the gradients of every layer before them
+#: by 0.5-0.9% (float64 on the CPU, tools/torch_resnet_conditioning.py).
+#: f32's roundings flip a few ((g): 2-4% off float64 per tensor), bf16's
+#: many, so the amp gradient keeps each tensor's norm and a share of its
+#: direction: 1.33 relative off float64 at the median, which a zero
+#: gradient (1.0) would pass (the CPU reads the same of the reference's
+#: own amp program).  So each gradient and each parameter's update
+#: (after - before) is held by what a zero update and one in another
+#: direction fail: its |norm / float64's - 1| within TOL_RESNET_AMP_NORM
+#: (measured 0.39 at worst, conv1's bias) and at the median within
+#: TOL_RESNET_AMP_NORM_MEDIAN (0.022); the median cosine with float64 at
+#: least TOL_RESNET_AMP_COS (0.105; a zero or random direction reads 0);
+#: the head (RESNET_AMP_HEAD, which the loss reaches through no batch
+#: norm) within TOL_RESNET_AMP_HEAD relative (0.127 at worst, fc_w).  A
+#: #20 that drops its residual reads 8.5% on the loss, 244 on a norm, 11.9
+#: at the median, a median cosine of 0.002 and 0.66 on fc_w
+#: (chip_conv_bn_faults.py residual_bf16)
+TOL_RESNET_AMP_LOSS, TOL_RESNET_AMP_STATE = 5e-3, 0.01
+TOL_RESNET_AMP_NORM, TOL_RESNET_AMP_NORM_MEDIAN = 0.6, 0.06
+TOL_RESNET_AMP_COS, TOL_RESNET_AMP_HEAD = 0.05, 0.3
+#: the classifier and the last conv + BN's shift
+RESNET_AMP_HEAD = ("fc_w", "fc_b", "stages.3.2.conv3.bias")
+#: (l) at RESNET_BATCH, the kernels against the card's plain route (the
+#: bf16 twins): the loss, each gradient and its median, each running
+#: statistic (relative).  The routes round #19's y (0.003-0.03% of its
+#: elements differ) and sum the statistics in other orders, and at this
+#: condition a flipped bf16 rounding moves the gradients after it
+#: (measured: the loss 6.4e-5, the gradients 16% at the median and 24% at
+#: worst, the running statistics 2.1e-3).  #19 in bf16 with its
+#: statistics taken from the unrounded accumulators reads 1.02 at the
+#: median (chip_conv_bn_faults.py stats_unrounded; phase 2's TOL_SUM
+#: catches it too)
+TOL_RESNET_AMP_ROUTES_LOSS = 1e-3
+TOL_RESNET_AMP_ROUTES_GRAD, TOL_RESNET_AMP_ROUTES_MEDIAN = 0.6, 0.35
+TOL_RESNET_AMP_ROUTES_STATS = 1e-2
+
+
+@contextlib.contextmanager
+def _resnet_dtypes(model, seen):
+    """Record in ``seen`` the dtype of the stem's conv + BN output and of
+    the pooled features while the block runs."""
+    from paddle_tpu_torch.models import resnet as rm
+
+    hook = model.conv1.register_forward_hook(
+        lambda mod, args, out: seen.__setitem__("stem conv2d_bn", out.dtype))
+    pool = rm.pool2d
+
+    def recording(x, *args, **kw):
+        out = pool(x, *args, **kw)
+        if kw.get("global_pooling"):
+            seen["pooled"] = out.dtype
+        return out
+
+    rm.pool2d = recording
+    try:
+        yield
+    finally:
+        rm.pool2d = pool
+        hook.remove()
+
+
+def run_resnet_amp(model, parity, f32):
+    """Phase 3 (l): ResNet-50 training under bf16 amp (``amp.enable``, as
+    ``bench_resnet50`` trains) from (g)'s initial weights with fresh
+    Momentum state.  Step 1 at RESNET_PARITY_BATCH against (g)'s float64
+    CPU step (``parity``): the stem's conv + BN output and the pooled
+    features bf16, predict and the loss f32, every gradient reaching
+    Momentum f32, the loss within TOL_RESNET_AMP_LOSS, the running
+    statistics within TOL_RESNET_AMP_STATE at the median; each gradient's
+    and each parameter's update's norm within TOL_RESNET_AMP_NORM of
+    float64's (TOL_RESNET_AMP_NORM_MEDIAN at the median), their median
+    cosine with float64 at least TOL_RESNET_AMP_COS, and the head
+    (RESNET_AMP_HEAD) within TOL_RESNET_AMP_HEAD.  Step 1 at RESNET_BATCH
+    under cudnn.deterministic: repeated for equal bits, against the card's
+    plain route (``plain_conv_bn``: the bf16 twins) by TOL_RESNET_AMP_ROUTES_*.
+    Every counted step launches exactly RESNET_AMP_LAUNCHES and no f32
+    conv + BN kernel.  Then RESNET_TIMED_STEPS timed steps, whose loss
+    must fall, beside (g)'s f32 record ``f32``.  Returns the run's
+    record."""
+    from paddle_tpu_torch import Momentum, amp, kernels
+
+    require(amp.is_enabled(model), "resnet amp: the model is not enabled")
+    init, loss64 = parity["init"], parity["loss64"]
+    exact, exact_state = parity["exact"], parity["exact_state"]
+    names = {p: n for n, p in model.named_parameters()}
+    torch.backends.cudnn.deterministic = True
+    kernels.reset_launches()
+    seen = {}
+    opt = Momentum(model.parameters(), RESNET_LR, RESNET_MOMENTUM)
+    with _resnet_dtypes(model, seen):
+        loss, _, predict = model(**_to(resnet_batch(RESNET_PARITY_BATCH,
+                                                    seed=1), "cuda"))
+    require(seen == {"stem conv2d_bn": torch.bfloat16,
+                     "pooled": torch.bfloat16}
+            and predict.dtype == torch.float32
+            and loss.dtype == torch.float32,
+            f"resnet amp: dtypes {seen}, predict {predict.dtype}, loss "
+            f"{loss.dtype}")
+    del predict
+    grads = {names[p]: g for p, g in opt.minimize(loss)}
+    torch.cuda.synchronize()
+    require(kernels.launches == expected(**RESNET_AMP_LAUNCHES),
+            f"resnet amp step 1 (batch {RESNET_PARITY_BATCH}): launches "
+            f"{kernels.launches}")
+    counts = dict(kernels.launches)
+    loss16 = loss.item()
+    loss_rel = abs(loss16 - loss64) / abs(loss64)
+    require(np.isfinite(loss16) and loss_rel <= TOL_RESNET_AMP_LOSS,
+            f"resnet amp: loss {loss16} on the card, {loss64} in float64")
+    state = _state(model)
+    require(state.keys() == exact_state.keys() and grads.keys()
+            == exact.keys(), "resnet amp: other tensors than (g)'s float64 "
+            "step")
+    require(all(t.dtype == torch.float32 for t in [*grads.values(),
+                                                   *state.values()]),
+            "resnet amp: a gradient or a state tensor is not f32")
+    buffers = [n for n, _ in model.named_buffers()]
+    state_median = float(np.median([_grad_rel(state[n].cpu(),
+                                              exact_state[n])
+                                    for n in buffers]))
+    rel, norms, cosines, head = [], [], [], {}
+    for n, g in grads.items():
+        before = init[n].cpu().double()
+        for kind, got, want in (
+                ("grad", g.cpu(), exact[n]),
+                ("update", state[n].cpu().double() - before,
+                 exact_state[n].double() - before)):
+            got, want = got.double(), want.double()
+            norms.append((abs(got.norm().item() / want.norm().item() - 1),
+                          kind, n))
+            cosines.append((got.flatten() @ want.flatten()).item()
+                           / max(got.norm().item() * want.norm().item(),
+                                 1e-300))
+            if n in RESNET_AMP_HEAD:
+                head[(kind, n)] = _grad_rel(got, want)
+            if kind == "grad":
+                rel.append((_grad_rel(got, want), kind, n))
+    rel.sort(reverse=True)
+    norms.sort(reverse=True)
+    grad_median = float(np.median([r for r, _, _ in rel]))
+    norm_median = float(np.median([r for r, _, _ in norms]))
+    cos_median = float(np.median(cosines))
+    require(len(head) == 2 * len(RESNET_AMP_HEAD), f"resnet amp: head "
+            f"{sorted(head)}")
+    require(norms[0][0] <= TOL_RESNET_AMP_NORM
+            and norm_median <= TOL_RESNET_AMP_NORM_MEDIAN,
+            f"resnet amp step 1: the norm of the {norms[0][1]} of "
+            f"{norms[0][2]} off float64's by {norms[0][0]} (median "
+            f"{norm_median})")
+    require(cos_median >= TOL_RESNET_AMP_COS, f"resnet amp step 1: median "
+            f"cosine with float64 {cos_median}")
+    worst_head = max(head, key=head.get)
+    require(head[worst_head] <= TOL_RESNET_AMP_HEAD, f"resnet amp step 1: "
+            f"{worst_head} off float64 by {head[worst_head]}")
+    require(state_median <= TOL_RESNET_AMP_STATE, f"resnet amp step 1: "
+            f"running statistics off float64 by {state_median} at the "
+            "median")
+    del grads, loss, opt
+
+    feed = _to(resnet_batch(RESNET_BATCH, seed=2), "cuda")
+    model.load_state_dict(init)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    loss_k, _, grads_k = _resnet_step(model, feed)
+    torch.cuda.synchronize()
+    require(kernels.launches == expected(**RESNET_AMP_LAUNCHES),
+            f"resnet amp step 1 (batch {RESNET_BATCH}): launches "
+            f"{kernels.launches}")
+    counts = {n: c + kernels.launches[n] for n, c in counts.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats_k = {n: b.clone() for n, b in model.named_buffers()}
+    model.load_state_dict(init)
+    loss_r, _, grads_r = _resnet_step(model, feed)
+    require(loss_r == loss_k, f"resnet amp: a repeated step 1 gave loss "
+            f"{loss_r}, first {loss_k}")
+    _require_repeat(grads_k, grads_r, "resnet amp (batch 256)")
+    del grads_r
+    model.load_state_dict(init)
+    kernels.reset_launches()
+    with plain_conv_bn():
+        loss_p, _, grads_p = _resnet_step(model, feed)
+    torch.cuda.synchronize()
+    require(kernels.launches == expected(), "resnet amp plain route "
+            f"launched kernels: {kernels.launches}")
+    routes_loss = abs(loss_k - loss_p) / abs(loss_p)
+    require(routes_loss <= TOL_RESNET_AMP_ROUTES_LOSS,
+            f"resnet amp: loss {loss_k} on the kernels, {loss_p} on the "
+            f"plain route")
+    route_rel = sorted((_grad_rel(grads_k[n], grads_p[n]), n)
+                       for n in grads_p)
+    route_median = float(np.median([r for r, _ in route_rel]))
+    require(route_rel[-1][0] <= TOL_RESNET_AMP_ROUTES_GRAD
+            and route_median <= TOL_RESNET_AMP_ROUTES_MEDIAN,
+            f"resnet amp: gradient of {route_rel[-1][1]} differs between "
+            f"the routes by {route_rel[-1][0]} (median {route_median})")
+    stats_rel = max((_grad_rel(stats_k[n], b), n)
+                    for n, b in model.named_buffers())
+    require(stats_rel[0] <= TOL_RESNET_AMP_ROUTES_STATS,
+            f"resnet amp: running statistic {stats_rel[1]} differs between "
+            f"the routes by {stats_rel[0]}")
+    del grads_k, grads_p, stats_k
+
+    torch.backends.cudnn.deterministic = False
+    model.load_state_dict(init)
+    opt = Momentum(model.parameters(), RESNET_LR, RESNET_MOMENTUM)
+    step_ms, losses = _resnet_timed(model, opt, feed, RESNET_AMP_LAUNCHES)
+    counts = {n: c + kernels.launches[n] for n, c in counts.items()}
+    require(all(np.isfinite(losses)) and losses[1] < losses[0],
+            f"resnet amp: the loss did not fall on a repeated batch {losses}")
+    med = float(np.median(step_ms))
+    ips = RESNET_BATCH / (med / 1e3)
+    return dict(route="resnet50 training amp bf16", batch=RESNET_BATCH,
+                image=RESNET_SIZE, launches=counts,
+                parity_batch=RESNET_PARITY_BATCH,
+                parity_losses=(loss16, loss64), parity_loss_rel=loss_rel,
+                # (amp card vs f64, kind, name), and (g)'s f32 (card, CPU)
+                # distances of the same tensor
+                parity_rel_worst=[(r, kind, n, parity["f32"][(kind, n)])
+                                  for r, kind, n in rel[:4]],
+                parity_grad_rel_median=grad_median,
+                parity_state_rel_median=state_median,
+                # |norm / float64's - 1| of the gradients and updates:
+                # worst, median; their median cosine with float64; the
+                # head's distances
+                parity_norm_worst=norms[:3],
+                parity_norm_median=norm_median,
+                parity_cos_median=cos_median,
+                parity_head={f"{k} {n}": r for (k, n), r in head.items()},
+                f32_parity_grad_rel_median=float(np.median(
+                    [v[0] for (kind, _), v in parity["f32"].items()
+                     if kind == "grad"])),
+                routes_loss=(loss_k, loss_p),
+                routes_grad_rel_worst=route_rel[-3:],
+                routes_grad_rel_median=route_median,
+                routes_stats_rel_worst=stats_rel,
+                step_ms_median=med, step_ms_range=(min(step_ms),
+                                                   max(step_ms)),
+                images_per_s=ips,
+                bf16_peak_share=ips * RESNET_FLOPS_PER_IMAGE
+                / PEAK_BF16_FLOPS,
+                timed_losses=losses, peak_memory_gb=peak_gb,
+                f32=dict(step_ms_median=f32["step_ms_median"],
+                         images_per_s=f32["images_per_s"],
+                         f32_peak_share=f32["f32_peak_share"],
+                         peak_memory_gb=f32["peak_memory_gb"]))
 
 
 # -- (h): DeepFM -------------------------------------------------------------
@@ -5779,11 +6314,69 @@ def _walks_us(rows):
                or "::flash_dkv_tc_kernel<" in name)
 
 
-def profile_resnet(model):
+#: fragments of the conv + BN kernels' names (f32 and bf16) in a profile:
+#: #19 in bf16 is the ResNet step's only gemm_tc_kernel
+CONV_BN_KERNELS = {"#18": ("channel_stats_kernel<",),
+                   "#19": ("dot_stats_kernel", "gemm_tc_kernel<"),
+                   "#20": ("ssa_fwd_kernel<", "ssa_fwd_scalar_kernel<",
+                           "ssa_fwd_walk_kernel<"),
+                   "#21": ("ssa_bwd_kernel<",),
+                   "reduce_partials": ("reduce_partials",)}
+#: the ops whose kernels are cuDNN's convolutions and cuBLAS's GEMMs (the
+#: 1x1 sites' backward products, the classifier) in a ResNet step, by the
+#: op that launched them (kernel names do not tell cuDNN's GEMMs from
+#: cuBLAS's)
+CUDNN_OPS = ("aten::cudnn_convolution", "aten::convolution_backward")
+CUBLAS_OPS = ("aten::mm", "aten::addmm", "aten::bmm")
+
+
+def resnet_bn_sites(batch):
+    """(rows, C, residual, relu, 3x3) of the 53 conv + BN sites of one
+    ResNet-50 forward at ``batch`` images of RESNET_SIZE: #20 and #21 run
+    at each, #18 where the convolution is not 1x1 (the stem, each
+    bottleneck's conv2)."""
+    stem = batch * (RESNET_SIZE // 2) ** 2
+    sites, side = [(stem, 64, False, True, True)], RESNET_SIZE // 4
+    for blocks, mid, out, stride in RESNET50_STAGES:
+        for blk in range(blocks):
+            side_out = side // (stride if blk == 0 else 1)
+            rows = batch * side_out ** 2
+            if blk == 0:
+                sites.append((rows, out, False, False, False))
+            sites += [(rows, mid, False, True, False),
+                      (rows, mid, False, True, True),
+                      (rows, out, True, True, False)]
+            side = side_out
+    return sites
+
+
+def resnet_bf16_bounds(batch):
+    """{kernel: summed bf16 bound ms of one amp step's sites}: #18 at the
+    17 non-1x1 sites, #19 at the 36 1x1 sites, #20 and #21 at all 53."""
+    sites = resnet_bn_sites(batch)
+    return {
+        "#18": sum(bound_bf16(3 * r * c, BF16 * r * c + F32 * 2 * c)[0]
+                   for r, c, _, _, kxk in sites if kxk),
+        "#19": sum(dot_stats_bf16_bound_ms(*site)
+                   for site in resnet_dot_sites(batch)),
+        "#20": sum(bound_bf16((2 + res + relu) * r * c,
+                              BF16 * (2 + res) * r * c + F32 * 2 * c)[0]
+                   for r, c, res, relu, _ in sites),
+        "#21": sum(bound_bf16((4 + relu) * r * c,
+                              BF16 * (3 + relu + res) * r * c
+                              + F32 * 3 * c)[0]
+                   for r, c, res, relu, _ in sites)}
+
+
+def profile_resnet(model, tag="f32"):
     """Device time by kernel over one ResNet-50 step at RESNET_BATCH
     (forward, backward, Momentum), beside host wall time; the table goes
-    to ``profile_resnet_step.txt``.  Also lists every device kernel whose
-    name says it converts layouts (NCHW/NHWC or a transpose)."""
+    to ``profile_resnet_step[_<tag>].txt``.  Also lists every device kernel
+    whose name says it converts layouts (NCHW/NHWC or a transpose), and
+    sums cuDNN's and cuBLAS's kernels (by launching op: CUDNN_OPS,
+    CUBLAS_OPS), PyTorch's elementwise and reduction kernels and
+    each conv + BN kernel (CONV_BN_KERNELS); an amp step (``tag``
+    "amp_bf16") also gives each of #18-#21's summed bf16 bound."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch import Momentum
@@ -5800,23 +6393,43 @@ def profile_resnet(model):
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = _device_kernels(prof)
     busy_us = sum(us for _, us in rows)
-    with open(os.path.join(OUT_DIR, "profile_resnet_step.txt"), "w") as f:
+    name = "profile_resnet_step" + ("" if tag == "f32" else f"_{tag}")
+    with open(os.path.join(OUT_DIR, name + ".txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=80))
     layout = [(name[:80], us / 1e3) for name, us in rows
               if any(k in name.lower() for k in ("nchw", "nhwc",
                                                  "transpose"))]
+    conv_bn = {k: sum(us for name, us in rows
+                      if any(f in name for f in frags)) / 1e3
+               for k, frags in CONV_BN_KERNELS.items()}
+    by_op = _op_device_ms(prof, top=len(rows) + 1000)
+    out = dict(tag=tag, wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+               idle_share=1 - busy_us / wall_us if busy_us else None,
+               conv_bn_ms=conv_bn,
+               cudnn_ms=sum(ms for op, ms in by_op if op in CUDNN_OPS),
+               cublas_ms=sum(ms for op, ms in by_op if op in CUBLAS_OPS),
+               by_op=by_op[:12],
+               elementwise_ms=sum(us for _, us in _elementwise(rows)) / 1e3,
+               elementwise=[(name[:120], us / 1e3)
+                            for name, us in _elementwise(rows)[:8]],
+               top=[(name[:60], us / 1e3) for name, us in rows[:16]],
+               layout_kernels=layout)
     # #19 in the step: its 36 launches' device time beside the summed
     # bound of the 36 sites
-    dot_ms = sum(us for name, us in rows if "dot_stats_kernel" in name) / 1e3
-    dot_bound = sum(dot_stats_bound_ms(*site)
-                    for site in resnet_dot_sites(RESNET_BATCH))
-    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-                idle_share=1 - busy_us / wall_us if busy_us else None,
-                dot_stats_ms=dot_ms, dot_stats_bound_ms=dot_bound,
-                dot_stats_bound_share=dot_bound / dot_ms if dot_ms else None,
-                top=[(name[:60], us / 1e3) for name, us in rows[:16]],
-                layout_kernels=layout)
+    dot_ms = conv_bn["#19"]
+    if tag == "f32":
+        dot_bound = sum(dot_stats_bound_ms(*site)
+                        for site in resnet_dot_sites(RESNET_BATCH))
+    else:
+        bounds = resnet_bf16_bounds(RESNET_BATCH)
+        dot_bound = bounds["#19"]
+        out["bf16_bound_ms"] = bounds
+        out["bf16_bound_share"] = {k: b / conv_bn[k] if conv_bn[k] else None
+                                   for k, b in bounds.items()}
+    out.update(dot_stats_ms=dot_ms, dot_stats_bound_ms=dot_bound,
+               dot_stats_bound_share=dot_bound / dot_ms if dot_ms else None)
+    return out
 
 
 def profile_deepfm(model):
@@ -6296,6 +6909,14 @@ def main():
     records[("dot_col_stats", max(BATCHES))]["build"] = [
         {k: v for k, v in t.items() if k != "kernel"}
         for t in tiles if t["kernel"] == "dot_stats_kernel"]
+    # #18-#21 in bf16 (amp): the JSON line carries each one's first case
+    t_bf16 = time.perf_counter()
+    for (name, case), r in check_conv_bn_bf16(gen).items():
+        print_record(r, f" {case} b={r['batch']}")
+        records.setdefault((name, max(BATCHES)), r)
+    print(f"phase 2: conv + BN calls refused on the card, before any "
+          f"launch: {check_conv_bn_refusals(gen)}")
+    _phase_seconds("phase 2: conv + BN in bf16", t_bf16)
     # ... and each embedding kernel's first: #22 on the emb group, #23 in
     # Adam mode on it
     for r, label in check_embedding():
@@ -6421,10 +7042,31 @@ def main():
     # (g): ResNet-50 training
     resnet = paddle_tpu_torch.ResNet(RESNET_DEPTH,
                                      RESNET_CLASSES).init_params(seed=0)
-    training_resnet = run_resnet(resnet)
+    training_resnet, resnet_parity = run_resnet(resnet)
     print("phase 3: " + ", ".join(f"{k} {v}"
                                   for k, v in training_resnet.items()))
     t_phase = _phase_seconds("phase 3 (a)-(g) and (j)", t_phase)
+
+    # (l): ResNet-50 under bf16 amp from (g)'s initial weights, held
+    # against (g)'s float64 step
+    resnet_amp = paddle_tpu_torch.ResNet(RESNET_DEPTH, RESNET_CLASSES)
+    resnet_amp.load_state_dict(resnet_parity["init"])
+    paddle_tpu_torch.amp.enable(resnet_amp)
+    training_resnet_amp = run_resnet_amp(resnet_amp, resnet_parity,
+                                         training_resnet)
+    del resnet_parity
+    print("phase 3: " + ", ".join(f"{k} {v}"
+                                  for k, v in training_resnet_amp.items()))
+    print(f"phase 3: resnet50 step, amp bf16 against f32: "
+          f"{training_resnet_amp['step_ms_median']} ms against "
+          f"{training_resnet['step_ms_median']} ms, "
+          f"{training_resnet_amp['images_per_s']} against "
+          f"{training_resnet['images_per_s']} images/s, bf16 peak share "
+          f"{training_resnet_amp['bf16_peak_share']} (f32 peak share "
+          f"{training_resnet['f32_peak_share']} in f32), peak memory "
+          f"{training_resnet_amp['peak_memory_gb']} against "
+          f"{training_resnet['peak_memory_gb']} GB")
+    t_phase = _phase_seconds("phase 3 (l)", t_phase)
 
     # (h): DeepFM training; and the reference demo's head width 16 served
     deepfm = paddle_tpu_torch.DeepFM(hash_dim=DEEPFM_HASH,
@@ -6567,25 +7209,48 @@ def main():
             for name, ms in r["by_op"]:
                 print(f"    {ms:.4f} ms  {name}")
     profile_rn = profile_resnet(resnet)
+    profile_rn_amp = profile_resnet(resnet_amp, "amp_bf16")
     if profile_rn["dot_stats_ms"]:
         records[("dot_col_stats", max(BATCHES))]["per_step"] = {
             k: profile_rn[k] for k in ("dot_stats_ms", "dot_stats_bound_ms",
                                        "dot_stats_bound_share")}
-    if not profile_rn["device_busy_ms"]:
-        print("phase 4: resnet50 training step: device time not measured "
-              "(the profiler saw no device events)")
-    else:
-        print(f"phase 4: resnet50 training step (batch {RESNET_BATCH}): "
-              f"wall {profile_rn['wall_ms']} ms, device busy "
-              f"{profile_rn['device_busy_ms']} ms, idle share "
-              f"{profile_rn['idle_share']}; #19 {profile_rn['dot_stats_ms']} "
-              f"ms a step against its 36 sites' summed bound "
-              f"{profile_rn['dot_stats_bound_ms']} ms (share "
-              f"{profile_rn['dot_stats_bound_share']})")
-        for name, ms in profile_rn["top"]:
+    if profile_rn_amp["device_busy_ms"]:
+        for k, name in (("#18", "channel_stats_bf16"),
+                        ("#19", "dot_col_stats_bf16"),
+                        ("#20", "ssa_fwd_bf16"), ("#21", "ssa_bwd_bf16")):
+            records[(name, max(BATCHES))]["per_step"] = dict(
+                ms=profile_rn_amp["conv_bn_ms"][k],
+                bound_ms=profile_rn_amp["bf16_bound_ms"][k],
+                bound_share=profile_rn_amp["bf16_bound_share"][k])
+    for prof_rn in (profile_rn, profile_rn_amp):
+        label = f"resnet50 training step {prof_rn['tag']}"
+        if not prof_rn["device_busy_ms"]:
+            print(f"phase 4: {label}: device time not measured (the "
+                  "profiler saw no device events)")
+            continue
+        print(f"phase 4: {label} (batch {RESNET_BATCH}): wall "
+              f"{prof_rn['wall_ms']} ms, device busy "
+              f"{prof_rn['device_busy_ms']} ms, idle share "
+              f"{prof_rn['idle_share']}; #19 {prof_rn['dot_stats_ms']} ms a "
+              f"step against its 36 sites' summed bound "
+              f"{prof_rn['dot_stats_bound_ms']} ms (share "
+              f"{prof_rn['dot_stats_bound_share']}); cuDNN "
+              f"{prof_rn['cudnn_ms']} ms, cuBLAS {prof_rn['cublas_ms']} ms, "
+              f"PyTorch's elementwise and "
+              f"reduction kernels {prof_rn['elementwise_ms']} ms; conv + BN "
+              f"kernels a step {prof_rn['conv_bn_ms']} ms"
+              + (f" against their summed bf16 bounds "
+                 f"{prof_rn['bf16_bound_ms']} ms (shares "
+                 f"{prof_rn['bf16_bound_share']})"
+                 if "bf16_bound_ms" in prof_rn else ""))
+        for name, ms in prof_rn["top"]:
             print(f"    {ms:.4f} ms  {name}")
-        print("phase 4: resnet50 layout-conversion kernels (NCHW/NHWC, "
-              f"transpose): {profile_rn['layout_kernels'] or 'none'}")
+        print(f"phase 4: {label} device time by launching op: "
+              f"{prof_rn['by_op']}")
+        print(f"phase 4: {label} elementwise by kernel: "
+              f"{prof_rn['elementwise']}")
+        print(f"phase 4: {label} layout-conversion kernels (NCHW/NHWC, "
+              f"transpose): {prof_rn['layout_kernels'] or 'none'}")
     profile_fm = profile_deepfm(deepfm)
     if not profile_fm["device_busy_ms"]:
         print("phase 4: deepfm training step: device time not measured "
@@ -6605,7 +7270,8 @@ def main():
     # launches over every counted path; the FFN counter is split between
     # the ring paths (#11) and the paged ones (#13)
     paths = runs + serving + [training, training_fused, training_dropout,
-                              training_amp, training_resnet, training_deepfm,
+                              training_amp, training_resnet,
+                              training_resnet_amp, training_deepfm,
                               demo, *training_bert, *training_bert_amp]
     total = {name: sum(r["launches"][name] for r in paths)
              for name in paths[0]["launches"]}
@@ -6634,12 +7300,16 @@ def main():
                       "training_dropout": training_dropout,
                       "training_amp": training_amp,
                       "training_resnet": training_resnet,
+                      "training_resnet_amp": training_resnet_amp,
                       "training_deepfm": training_deepfm, "demo": demo,
                       "training_bert": training_bert,
                       "training_bert_amp": training_bert_amp,
                       "gelu_bf16": gelu,
                       "profile_resnet": {k: v for k, v in profile_rn.items()
                                          if k != "top"},
+                      "profile_resnet_amp": {
+                          k: v for k, v in profile_rn_amp.items()
+                          if k != "top"},
                       "profile_deepfm": profile_fm, "gemm": gemm_records,
                       "flash_bwd": flash_bwd, "walk_builds": builds,
                       "tile_builds": tiles, "sass_mma": mma,

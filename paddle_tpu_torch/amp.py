@@ -11,7 +11,8 @@ to each op's inputs at trace time.
 * GRAY_FOLLOW ops (``dropout_add``, the ``elementwise_*`` ops) cast the
   rest down to bf16 when any input is bf16, and leave f32 inputs alone;
 * SLOT_WHITE ops cast only the named slots (``conv2d_bn``'s convolution
-  operands and residual; its scale, bias and statistics stay f32);
+  operands and residual; its scale, bias and statistics stay f32), which
+  :func:`cast_slots` takes by name;
 * every other op takes its inputs as they come: ``layer_norm`` keeps its
   input's dtype (statistics in f32), ``relu`` follows its input,
   ``softmax_with_cross_entropy`` shifts bf16 logits in bf16 and
@@ -206,6 +207,17 @@ def cast(op_type: str, *tensors):
         return tensors
     ins = apply_cast_policy(op_type, {i: [t] for i, t in enumerate(tensors)})
     return tuple(ins[i][0] for i in range(len(tensors)))
+
+
+def cast_slots(op_type: str, **slots):
+    """The named inputs of one op as the policy casts them while it is
+    :func:`active`, else unchanged, in the order given: ``x, w, r =
+    amp.cast_slots("conv2d_bn", Input=x, Filter=w, Residual=r)``.  The
+    slot names are the reference's, so ``SLOT_WHITE_OPS`` applies."""
+    if not active():
+        return tuple(slots.values())
+    ins = apply_cast_policy(op_type, {k: [v] for k, v in slots.items()})
+    return tuple(ins[k][0] for k in slots)
 
 
 class LossScaler:

@@ -51,6 +51,7 @@
 
 #include <algorithm>
 
+#include "device.cuh"
 #include "dtype.cuh"
 #include "hash_rng.cuh"
 
@@ -63,8 +64,6 @@ constexpr int NT = 256;
 constexpr int kVecs = 2;
 //: streaming loads and stores (each byte is touched once)
 constexpr bool kStream = true;
-//: devices whose wave size a launch caches
-constexpr int kMaxDevices = 64;
 
 // One dropout site as the kernels take it.
 struct Drop {
@@ -231,21 +230,17 @@ dropout_elements_kernel(const T* __restrict__ x, const T* __restrict__ res,
 // the blocks an SM holds, cached a device.
 template <class T, bool RES, bool VEC>
 int wave_blocks() {
-  static int cached[kMaxDevices] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < kMaxDevices && cached[dev]) return cached[dev];
-  int sms = 0, per_sm = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (VEC)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, dropout_kernel<T, RES>, NT, 0);
-  else
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, dropout_elements_kernel<T, RES>, NT, 0);
-  const int blocks = std::max(sms, 1) * std::max(per_sm, 1);
-  if (dev < kMaxDevices) cached[dev] = blocks;
-  return blocks;
+  static int cache[kMaxDevices] = {};
+  return cached_per_device(cache, [](int) {
+    int per_sm = 0;
+    if (VEC)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, dropout_kernel<T, RES>, NT, 0);
+    else
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, dropout_elements_kernel<T, RES>, NT, 0);
+    return sm_count() * std::max(per_sm, 1);
+  });
 }
 
 // f's value rounded to bf16 (to nearest even; f finite), as its 16 bits.

@@ -5,7 +5,8 @@
 // Shared by the fused-projection kernels: the backward pair (#2 + #3 in
 // qkv_attention_bwd.cu: the q|k|v and dctx projections, dx and dW) and
 // #1's output projection (qkv_attention.cu: y = ctx W_out); conv_bn.cu's
-// #19 runs gemm_tile with a statistics epilogue of its own, and gemm.cu
+// #19 runs gemm_tile with a statistics epilogue of its own in f32, and
+// gemm_tc with the STATS epilogue in bf16 (gemm_tc_col_stats); gemm.cu
 // exports both tiles alone.  The f32 tile: 256 threads, an 8x8 patch of
 // each C tile per thread, operands staged k-major in shared memory and
 // read as float4.
@@ -338,11 +339,12 @@ int64_t gemm_partials(int M, int N, int K, int sms) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 products on tensor cores: #1's y and the pair's five (amp)
+// bf16 products on tensor cores: #1's y, #19's and the pair's five (amp)
 // ---------------------------------------------------------------------------
 //
 // C [M, N] = A B on mma.sync m16n8k16 with f32 accumulators: #1's y = ctx
-// W_out, and the pair #2 + #3's q|k|v = x W_qkv, dctx = g W_out^T, dx =
+// W_out, #19's y = x2 w2^T (with its column statistics), and the pair #2 +
+// #3's q|k|v = x W_qkv, dctx = g W_out^T, dx =
 // [dq | dk | dv] W_qkv^T, dW_qkv = x^T [dq | dk | dv] and dW_out = ctx^T g
 // (qkv_attention_bwd.cu).  An operand (TcOperand) is bf16, or an f32 value
 // held as two bf16 planes hi + lo (mma.cuh's split; lo != 0 is the lo
@@ -352,12 +354,14 @@ int64_t gemm_partials(int M, int N, int K, int sms) {
 // a bf16 one is two, hi and lo (the value to 2^-16 of itself; the other
 // operand is exact).  Element (i, k) of an operand is p[k * ld + i] when
 // it is k-major, else p[i * ld + k]: A i-major (x, g, ctx of y, the
-// pair's dq|dk|dv) or k-major (x^T, ctx^T of the dW products), B k-major
-// (W_qkv, W_out, g, dq|dk|dv) or i-major (W_out^T, W_qkv^T).  C is bf16
+// pair's dq|dk|dv, #19's x2) or k-major (x^T, ctx^T of the dW products),
+// B k-major (W_qkv, W_out, g, dq|dk|dv) or i-major (W_out^T, W_qkv^T,
+// #19's w2^T).  C is bf16
 // (rounded once), f32 (an f32 C, or the partial sums of a split product,
 // added in slab order by sum_splits), or hi/lo planes of its f32 value
 // (the pair's projections, which the walks read); the dctx product also
-// forms delta = rowsum(dctx * ctx) per head from its f32 accumulators.
+// forms delta = rowsum(dctx * ctx) per head from its f32 accumulators,
+// and #19 the column sums of its stored bf16 y (STATS).
 // The same 128 x 128 C tiles, split-K choice (gemm_splits: no dW sum
 // runs over more than kMaxSlab k) and partials as the f32 tile: every
 // element is summed in increasing k stages (two k16 steps a stage), no
@@ -473,7 +477,10 @@ __device__ __forceinline__ void store_pair(bf16* p, float x, float y) {
 // z's partial sums at c + z * split; with C_LO the hi plane of an f32 C,
 // its lo plane lo elements after c; with DELTA also delta[(bi * h + head)
 // * t + r] = sum over head's 64 columns of C(m, .) * ctx(m, .) for row m
-// = bi * t + r (ctx [M, N] of row stride ldc).
+// = bi * t + r (ctx [M, N] of row stride ldc); with STATS (#19 in bf16,
+// unsplit) also the sum and the sum of squares of each column of the
+// stored C (rounded to TC) over the block's rows, at part[(stat *
+// gridDim.y + blockIdx.y) * N + n] (stat 0 the sum, 1 the squares).
 template <class TC>
 struct TcOut {
   TC* c;
@@ -483,10 +490,21 @@ struct TcOut {
   const bf16* ctx;
   float* delta;
   int t, h;
+  float* part;
 };
 
+// The pair of values store_pair keeps at C, as f32.
+__device__ __forceinline__ float2 stored_pair(const float*, float x,
+                                              float y) {
+  return make_float2(x, y);
+}
+__device__ __forceinline__ float2 stored_pair(const bf16*, float x,
+                                              float y) {
+  return __bfloat1622float2(__floats2bfloat162_rn(x, y));
+}
+
 template <bool A_KM, bool B_KM, bool A_LO, bool B_LO, class TC,
-          bool C_LO = false, bool DELTA = false>
+          bool C_LO = false, bool DELTA = false, bool STATS = false>
 __global__ void __launch_bounds__(GNT, 2)
 gemm_tc_kernel(TcOperand a, TcOperand b, TcOut<TC> out, int M, int N,
                int K, int k_slab) {
@@ -573,6 +591,9 @@ gemm_tc_kernel(TcOperand a, TcOperand b, TcOut<TC> out, int M, int N,
   }
 
   TC* c = out.c + blockIdx.z * out.split;
+  // STATS: this thread's sums of its 8 columns (tile j, pair e) over its
+  // 8 rows, in increasing i, then r
+  float cs[4][2] = {}, cq[4][2] = {};
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -593,8 +614,45 @@ gemm_tc_kernel(TcOperand a, TcOperand b, TcOut<TC> out, int M, int N,
         } else {
           store_pair(c + (size_t)m * out.ldc + n, x, y);
         }
+        if constexpr (STATS) {
+          const float2 v = stored_pair(c, x, y);
+          cs[j][0] += v.x;
+          cs[j][1] += v.y;
+          cq[j][0] += v.x * v.x;
+          cq[j][1] += v.y * v.y;
+        }
       }
     }
+  if constexpr (STATS) {
+    // the 8 lanes of a column (lane bits 2-4) summed by xor shuffles, then
+    // the block's two warps of the column (rows 0-63, 64-127) in that
+    // order through shared memory: one partial per (128-row tile, column)
+    __syncthreads();  // the ring is read: its first 2 KB hold the sums
+    float* red = smem;  // [stat][warp row][GT]
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = cs[j][e], q = cq[j][e];
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+          q += __shfl_xor_sync(0xffffffffu, q, off);
+        }
+        if (lane < 4) {
+          const int col = wn + 8 * j + 2 * lane + e;
+          red[(warp >> 2) * GT + col] = s;
+          red[(2 + (warp >> 2)) * GT + col] = q;
+        }
+      }
+    __syncthreads();
+    const int col = threadIdx.x % GT;
+    const int stat = threadIdx.x / GT;
+    const int n = n0 + col;
+    if (n < N)
+      out.part[((size_t)stat * gridDim.y + blockIdx.y) * N + n] =
+          red[2 * stat * GT + col] + red[(2 * stat + 1) * GT + col];
+  }
   if constexpr (DELTA) {
     // each warp's sum over its 32 columns of C * ctx for its rows (the
     // quad's lanes summed by shuffles), then the two warps of a head's 64
@@ -635,17 +693,17 @@ gemm_tc_kernel(TcOperand a, TcOperand b, TcOut<TC> out, int M, int N,
 }
 
 template <bool A_KM, bool B_KM, bool A_LO, bool B_LO, class TC,
-          bool C_LO = false, bool DELTA = false>
+          bool C_LO = false, bool DELTA = false, bool STATS = false>
 cudaError_t launch_gemm_tc(dim3 grid, cudaStream_t stream, TcOperand a,
                            TcOperand b, TcOut<TC> out, int M, int N, int K,
                            int slab) {
   constexpr size_t kSmem = TcTile<A_KM, B_KM, A_LO, B_LO>::kSmem;
   static bool configured = false;
   cudaError_t err = allow_smem(
-      gemm_tc_kernel<A_KM, B_KM, A_LO, B_LO, TC, C_LO, DELTA>, kSmem,
+      gemm_tc_kernel<A_KM, B_KM, A_LO, B_LO, TC, C_LO, DELTA, STATS>, kSmem,
       configured);
   if (err != cudaSuccess) return err;
-  gemm_tc_kernel<A_KM, B_KM, A_LO, B_LO, TC, C_LO, DELTA>
+  gemm_tc_kernel<A_KM, B_KM, A_LO, B_LO, TC, C_LO, DELTA, STATS>
       <<<grid, GNT, kSmem, stream>>>(a, b, out, M, N, K, slab);
   return cudaGetLastError();
 }
@@ -709,6 +767,27 @@ cudaError_t gemm_tc_planes(TcOperand A, TcOperand B, bf16* c, int ldc,
   return launch_gemm_tc<false, B_KM, false, false, bf16, true, DELTA>(
       grid, stream, A, B, TcOut<bf16>{c, ldc, 0, lo, ctx, delta, t, h}, M,
       N, K, K);
+}
+
+// #19 in bf16: y [M, N] = x2 [M, K] w2^T (x2 and w2 [N, K] bf16, both
+// i-major) unsplit, y rounded to bf16, with the column sums and sums of
+// squares of the stored y at part[(stat * ceil(M / GT) + m tile) * N +
+// n].  cudaErrorInvalidValue unless both operands take the tile's copies
+// (tc_fits: K % 8 == 0, 16-byte aligned) and N is even.
+inline cudaError_t gemm_tc_col_stats(const bf16* x2, const bf16* w2, bf16* y,
+                                     float* part, int M, int N, int K,
+                                     cudaStream_t stream) {
+  const TcOperand A{x2, K, false, 0}, B{w2, K, false, 0};
+  if (!tc_fits(A, M, K) || !tc_fits(B, N, K) || N % 2 ||
+      reinterpret_cast<uintptr_t>(y) % 4)
+    return cudaErrorInvalidValue;
+  dim3 grid((N + GT - 1) / GT, (M + GT - 1) / GT, 1);
+  TcOut<bf16> out{};
+  out.c = y;
+  out.ldc = N;
+  out.part = part;
+  return launch_gemm_tc<false, false, false, false, bf16, false, false,
+                        true>(grid, stream, A, B, out, M, N, K, K);
 }
 
 template <bool A_KM, bool B_KM, class TA, class TB, class TC>

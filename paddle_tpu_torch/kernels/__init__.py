@@ -32,7 +32,8 @@ launches = {"qkv_attention_fwd": 0, "qkv_bwd_dq": 0, "qkv_bwd_dkv": 0,
 BF16_KERNELS = ("qkv_attention_fwd", "qkv_bwd_dq", "qkv_bwd_dkv",
                 "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                 "flash_fwd_bhtd", "flash_bwd_dq_bhtd", "flash_bwd_dkv_bhtd",
-                "dropout_add_fwd", "dropout_add_bwd")
+                "dropout_add_fwd", "dropout_add_bwd", "channel_stats",
+                "dot_col_stats", "ssa_fwd", "ssa_bwd")
 launches.update({name + "_bf16": 0 for name in BF16_KERNELS})
 #: element types those kernels are compiled for -> the suffix of their
 #: entry points and launch counters

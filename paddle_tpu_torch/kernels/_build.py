@@ -180,7 +180,9 @@ _SIGNATURES.update({
     for name in ("ptt_qkv_attention_fwd", "ptt_qkv_bwd", "ptt_flash_fwd",
                  "ptt_flash_bwd_dq", "ptt_flash_bwd_dkv", "ptt_flash_fwd_bhtd",
                  "ptt_flash_bwd_dq_bhtd", "ptt_flash_bwd_dkv_bhtd",
-                 "ptt_dropout_add", "ptt_dropout_add_bwd")})
+                 "ptt_dropout_add", "ptt_dropout_add_bwd", "ptt_stats_partials",
+                 "ptt_channel_stats", "ptt_dot_col_stats", "ptt_ssa_fwd",
+                 "ptt_ssa_bwd")})
 _SIGNATURES["ptt_gemm_typed"] = (
     _I, [_I, _P, _I, _I, _L, _P, _I, _I, _L, _P] + [_I] * 4 + [_P, _I, _I, _P])
 

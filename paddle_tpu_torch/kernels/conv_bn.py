@@ -1,21 +1,24 @@
 """Batch-norm statistics and epilogues of the fused conv + BN route:
-kernels #18-#21.
+kernels #18-#21, in f32 and in bf16 (amp).
 
 Counterpart of ``paddle_tpu/kernels/conv_bn.py``.  Every activation is a
 contiguous NHWC tensor, viewed as [rows, C] (channels fastest):
 
 * :func:`channel_stats` (#18): f32 per-channel sum and sum of squares of
-  y in one pass.  Its backward is gy = gs1 + 2 y gs2, in plain PyTorch;
+  y in one pass.  Its backward is gy = gs1 + 2 y gs2, in plain PyTorch,
+  cast to y's dtype;
 * :func:`dot_col_stats` (#19): a 1x1 convolution as y = x2 w2^T, with
   x2 [M, C_in] and w2 [C_out, C_in] (the OIHW filter's own 2-D view), and
-  the column sums of the stored y in the product's epilogue.  Its
-  backward folds the statistics' cotangents into gy_eff = gy + gs1 +
-  2 y gs2 and takes dx = gy_eff w2 and dw = gy_eff^T x2 with
-  ``torch.matmul``, as the reference leaves both to XLA;
+  the f32 column sums of the stored y (rounded to y's dtype) in the
+  product's epilogue.  Its backward folds the statistics' cotangents into
+  gy_eff = gy + gs1 + 2 y gs2 (in f32, cast to x2's dtype) and takes
+  dx = gy_eff w2 and dw = gy_eff^T x2 with ``torch.matmul``, as the
+  reference leaves both to XLA;
 * :func:`scale_shift_act` (#20 forward, #21 backward): out =
-  [relu](x wv + bv [+ residual]) with per-channel f32 vectors; its
-  backward regenerates the ReLU mask from the saved output and gives dx,
-  dresidual and, in the same pass, dwv = sum g' x and dbv = sum g';
+  [relu](x wv + bv [+ residual]) with per-channel f32 vectors rounded to
+  x's dtype; its backward regenerates the ReLU mask from the saved output
+  and gives dx and dresidual in x's dtype and, in the same pass, the f32
+  dwv = sum g' x and dbv = sum g';
 * :func:`bn_apply` folds scale, bias, mean and var into wv and bv
   (:func:`bn_fold`), in f32 and outside the autograd Function, so the gradients reach the batch
   statistics and through them #18's or #19's backward;
@@ -26,11 +29,18 @@ contiguous NHWC tensor, viewed as [rows, C] (channels fastest):
 Each kernel's wrapper (``channel_stats_fwd``, ``dot_col_stats_fwd``,
 ``ssa_fwd``, ``ssa_bwd``) runs its plain twin (``reference_*``) for CPU
 tensors; for CUDA tensors it launches ``csrc/conv_bn.cu`` or raises.  The
-kernels take contiguous f32 tensors at any channel count: #18, #20 and
-#21 move four channels as one float4 where C % 4 == 0 and the tensors
-are 16-byte aligned, and read them one by one otherwise (the reference
-launches its kernels at C = 1 and 2 and composes at 3, 5, 6, ...; the
-port launches at every C, computing the same function).
+kernels take contiguous activations, all f32 or all bf16 (amp: counted
+under the kernel's name + "_bf16"), with f32 per-channel vectors and
+sums.  bf16 is the reference's arithmetic in x's dtype: wv and bv rounded
+to bf16, each product and sum rounded to bf16, as the twins' bf16 ops
+round (bit for bit).  #18, #20 and #21 take any channel count, moving a
+16-byte vector of channels where C is a multiple of its lanes (4 f32, 8
+bf16) and the tensors are 16-byte aligned and one channel at a time
+otherwise (the reference launches its kernels at C = 1 and 2 and composes
+at 3, 5, 6, ...; the port launches at every C, computing the same
+function).  #19 in bf16 runs on tensor cores and takes K % 8 == 0, an
+even N and 16-byte aligned operands; any other shape raises before a
+launch.
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build, launches
+from . import KERNEL_DTYPES, _build, launches
 
 
 def _rows(x):
@@ -51,18 +61,25 @@ def _wide(t):
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def _on_card(what, tensors):
-    """False for CPU tensors (the plain twin runs), True for CUDA ones
-    that are contiguous f32 of the given shapes (``{name: (tensor,
-    shape)}``); raises on anything else."""
-    first = next(iter(tensors.values()))[0]
+def _on_card(what, acts, vectors=None):
+    """None for CPU tensors (the plain twin runs); for CUDA ones the
+    suffix of the kernel's element type ("" f32, "_bf16" bf16) when the
+    activations (``{name: (tensor, shape)}``) are contiguous and all f32
+    or all bf16 and the per-channel ``vectors`` contiguous f32 of their
+    shapes; raises on anything else."""
+    first = next(iter(acts.values()))[0]
     if first.device.type == "cpu":
-        return False
+        return None
     if first.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for {first.device}")
-    _build.require({n: (t, torch.float32, s) for n, (t, s) in
-                    tensors.items()}, first.device, what)
-    return True
+    if first.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{what}: no kernel for {first.dtype} activations "
+                         "(f32 or bf16)")
+    _build.require(
+        {**{n: (t, first.dtype, s) for n, (t, s) in acts.items()},
+         **{n: (t, torch.float32, s)
+            for n, (t, s) in (vectors or {}).items()}}, first.device, what)
+    return KERNEL_DTYPES[first.dtype]
 
 
 def _launch(what, entry, *args, like):
@@ -83,16 +100,17 @@ def reference_channel_stats(y):
 def channel_stats_fwd(y):
     """#18: :func:`reference_channel_stats` (CPU: the twin; CUDA: the
     kernel, or an error)."""
-    tensors = {"y": (y, y.shape)}
-    if not _on_card("channel_stats", tensors):
+    sfx = _on_card("channel_stats", {"y": (y, y.shape)})
+    if sfx is None:
         return reference_channel_stats(y)
     c = y.shape[-1]
     s1, s2 = (torch.empty(c, device=y.device) for _ in range(2))
     lib = _build.lib()
-    part = torch.empty(lib.ptt_stats_partials(_rows(y), c), device=y.device)
-    _launch("channel_stats", lib.ptt_channel_stats, y.data_ptr(),
-            part.data_ptr(), s1.data_ptr(), s2.data_ptr(), _rows(y), c,
-            like=y)
+    part = torch.empty(getattr(lib, "ptt_stats_partials" + sfx)(_rows(y), c),
+                       device=y.device)
+    _launch("channel_stats" + sfx, getattr(lib, "ptt_channel_stats" + sfx),
+            y.data_ptr(), part.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+            _rows(y), c, like=y)
     return s1, s2
 
 
@@ -119,28 +137,33 @@ def channel_stats(y):
 
 
 def reference_dot_col_stats(x2, w2):
-    """Plain twin of #19: (y, s1, s2) with y = x2 w2^T [M, N] and the f32
-    column sums of y."""
+    """Plain twin of #19: (y, s1, s2) with y = x2 w2^T [M, N] in x2's
+    dtype and the f32 column sums of that y."""
     y = x2 @ w2.t()
     return (y, *reference_channel_stats(y))
 
 
 def dot_col_stats_fwd(x2, w2):
     """#19: :func:`reference_dot_col_stats` (CPU: the twin; CUDA: the
-    kernel on the fixed-order f32 tiles of ``csrc/gemm.cuh``, or an
-    error)."""
+    kernel on the fixed-order tiles of ``csrc/gemm.cuh``, f32 or bf16 on
+    tensor cores, or an error)."""
     m, k = x2.shape
     n = w2.shape[0]
-    if not _on_card("dot_col_stats", {"w2": (w2, (n, k)),
-                                      "x2": (x2, (m, k))}):
+    sfx = _on_card("dot_col_stats", {"x2": (x2, (m, k)),
+                                     "w2": (w2, (n, k))})
+    if sfx is None:
         return reference_dot_col_stats(x2, w2)
-    y = torch.empty(m, n, device=x2.device)
+    if sfx and (k % 8 or n % 2 or x2.data_ptr() % 16 or w2.data_ptr() % 16):
+        raise ValueError(
+            f"dot_col_stats: the bf16 kernel takes K % 8 == 0, an even N and "
+            f"16-byte aligned operands, got M {m}, K {k}, N {n}")
+    y = torch.empty(m, n, device=x2.device, dtype=x2.dtype)
     s1, s2 = (torch.empty(n, device=x2.device) for _ in range(2))
     lib = _build.lib()
     part = torch.empty(lib.ptt_dot_stats_partials(m, n), device=x2.device)
-    _launch("dot_col_stats", lib.ptt_dot_col_stats, x2.data_ptr(),
-            w2.data_ptr(), y.data_ptr(), part.data_ptr(), s1.data_ptr(),
-            s2.data_ptr(), m, n, k, like=x2)
+    _launch("dot_col_stats" + sfx, getattr(lib, "ptt_dot_col_stats" + sfx),
+            x2.data_ptr(), w2.data_ptr(), y.data_ptr(), part.data_ptr(),
+            s1.data_ptr(), s2.data_ptr(), m, n, k, like=x2)
     return y, s1, s2
 
 
@@ -154,14 +177,15 @@ class _DotColStats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gs1, gs2):
         x2, w2, y = ctx.saved_tensors
-        gy_eff = gy + gs1 + 2.0 * y * gs2
+        gy_eff = (_wide(gy) + gs1 + 2.0 * _wide(y) * gs2).to(x2.dtype)
         return gy_eff @ w2, gy_eff.t() @ x2
 
 
 def dot_col_stats(x2, w2):
-    """(y, s1, s2): y = x2 w2^T for x2 [M, C_in] and w2 [C_out, C_in], and
-    f32 [C_out] column sums of y from the product's epilogue (#19);
-    differentiable in x2 and w2, the statistics included."""
+    """(y, s1, s2): y = x2 w2^T for x2 [M, C_in] and w2 [C_out, C_in] (in
+    their dtype), and f32 [C_out] column sums of y from the product's
+    epilogue (#19); differentiable in x2 and w2, the statistics
+    included."""
     return _DotColStats.apply(x2.contiguous(), w2.contiguous())
 
 
@@ -170,8 +194,8 @@ def dot_col_stats(x2, w2):
 
 def reference_ssa_fwd(x, wv, bv, residual=None, relu=False):
     """Plain twin of #20: [relu](x * wv + bv [+ residual]), per channel of
-    x [..., C]."""
-    out = x * wv + bv
+    x [..., C], in x's dtype (wv and bv rounded to it; each op rounds)."""
+    out = x * wv.to(x.dtype) + bv.to(x.dtype)
     if residual is not None:
         out = out + residual
     return torch.clamp_min(out, 0.0) if relu else out
@@ -179,14 +203,15 @@ def reference_ssa_fwd(x, wv, bv, residual=None, relu=False):
 
 def reference_ssa_bwd(g, x, out, wv, has_residual, relu):
     """Plain twin of #21: (dx, dres or None, sg, sgx) with g' = g where
-    out > 0 under ReLU (else g), dx = g' * wv, dres = g', and the
-    per-channel sums of g' and g' * x in f32 or wider."""
+    out > 0 under ReLU (else g), dx = g' * wv in g's dtype (wv rounded to
+    it), dres = g', and the per-channel sums of g' and g' * x in f32 or
+    wider."""
     if relu:
         g = torch.where(out > 0, g, torch.zeros((), dtype=g.dtype,
                                                 device=g.device))
     c = x.shape[-1]
     g2, x2 = _wide(g).reshape(-1, c), _wide(x).reshape(-1, c)
-    return (g * wv, g if has_residual else None, g2.sum(0),
+    return (g * wv.to(g.dtype), g if has_residual else None, g2.sum(0),
             (g2 * x2).sum(0))
 
 
@@ -194,14 +219,16 @@ def ssa_fwd(x, wv, bv, residual=None, relu=False):
     """#20: :func:`reference_ssa_fwd` (CPU: the twin; CUDA: the kernel, or
     an error)."""
     c = x.shape[-1]
-    tensors = {"x": (x, x.shape), "wv": (wv, (c,)), "bv": (bv, (c,))}
+    acts = {"x": (x, x.shape)}
     if residual is not None:
-        tensors["residual"] = (residual, x.shape)
-    if not _on_card("ssa_fwd", tensors):
+        acts["residual"] = (residual, x.shape)
+    sfx = _on_card("ssa_fwd", acts, {"wv": (wv, (c,)), "bv": (bv, (c,))})
+    if sfx is None:
         return reference_ssa_fwd(x, wv, bv, residual, relu)
     out = torch.empty_like(x)
-    _launch("ssa_fwd", _build.lib().ptt_ssa_fwd, x.data_ptr(), wv.data_ptr(),
-            bv.data_ptr(), None if residual is None else residual.data_ptr(),
+    _launch("ssa_fwd" + sfx, getattr(_build.lib(), "ptt_ssa_fwd" + sfx),
+            x.data_ptr(), wv.data_ptr(), bv.data_ptr(),
+            None if residual is None else residual.data_ptr(),
             out.data_ptr(), _rows(x), c, int(bool(relu)), like=x)
     return out
 
@@ -210,18 +237,21 @@ def ssa_bwd(g, x, out, wv, has_residual, relu):
     """#21: :func:`reference_ssa_bwd` (CPU: the twin; CUDA: the kernel, or
     an error).  ``out`` is read only under ``relu``."""
     c = x.shape[-1]
-    tensors = {"g": (g, x.shape), "x": (x, x.shape), "wv": (wv, (c,))}
+    acts = {"g": (g, x.shape), "x": (x, x.shape)}
     if relu:
-        tensors["out"] = (out, x.shape)
-    if not _on_card("ssa_bwd", tensors):
+        acts["out"] = (out, x.shape)
+    sfx = _on_card("ssa_bwd", acts, {"wv": (wv, (c,))})
+    if sfx is None:
         return reference_ssa_bwd(g, x, out, wv, has_residual, relu)
     dx = torch.empty_like(x)
     dres = torch.empty_like(x) if has_residual else None
     sg, sgx = (torch.empty(c, device=x.device) for _ in range(2))
     lib = _build.lib()
-    part = torch.empty(lib.ptt_stats_partials(_rows(x), c), device=x.device)
-    _launch("ssa_bwd", lib.ptt_ssa_bwd, g.data_ptr(), x.data_ptr(),
-            out.data_ptr() if relu else None, wv.data_ptr(), dx.data_ptr(),
+    part = torch.empty(getattr(lib, "ptt_stats_partials" + sfx)(_rows(x), c),
+                       device=x.device)
+    _launch("ssa_bwd" + sfx, getattr(lib, "ptt_ssa_bwd" + sfx),
+            g.data_ptr(), x.data_ptr(), out.data_ptr() if relu else None,
+            wv.data_ptr(), dx.data_ptr(),
             None if dres is None else dres.data_ptr(), part.data_ptr(),
             sg.data_ptr(), sgx.data_ptr(), _rows(x), c, int(bool(relu)),
             like=x)

@@ -22,6 +22,19 @@ forward with momentum 0.9.  Parameters keep the reference's layouts
 (OIHW filters, the fc weight [in, out]), so
 ``interop.load_paddle_tpu_resnet_params`` carries a JAX scope across.
 
+Under amp (``amp.enable(model)``, as ``bench_resnet50`` trains) the
+forward runs the reference's cast policy op by op: the image is permuted
+in f32 (``transpose`` is on no list), each ``conv2d_bn`` casts its input,
+filter and residual to bf16 (a SLOT_WHITE op; the unfused route's
+``conv2d`` is WHITE and its residual add GRAY_FOLLOW), so every activation
+after the stem is bf16 and the kernels run in bf16 (#19 on tensor cores),
+while the batch statistics, the running statistics and the folded
+scale and shift stay f32.  The classifier is the reference's softmax
+``fc``: ``mul`` (WHITE) and the bias add (GRAY_FOLLOW) in bf16, then the
+softmax (BLACK) in f32, so ``predict``, the cross entropy, its mean and
+the accuracy are f32.  The parameters stay f32 and their gradients reach
+the optimizer in f32.
+
 The card's f32 step needs TF32 off for cuDNN (``torch.backends.cudnn.
 allow_tf32 = False``), which PyTorch leaves on by default; the port does
 not change that global setting itself.
@@ -35,10 +48,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import amp
 from ..device import resolve_device
 from ..kernels.conv_bn import conv2d_nhwc
 from ..ops.nn_ops import (accuracy, batch_norm_composed, conv2d_bn,
-                          cross_entropy, pool2d)
+                          cross_entropy, elementwise_add, fc, pool2d)
 
 #: depth -> (blocks per stage, block kind), ``resnet_imagenet``'s table
 DEPTHS = {18: ([2, 2, 2, 1], "basic"), 34: ([3, 4, 6, 3], "basic"),
@@ -89,16 +103,16 @@ class ConvBN(nn.Module):
         """The reference's ``conv2d``, ``batch_norm`` and
         ``elementwise_add(residual, bn, act)``: (out, mean_out,
         var_out)."""
+        x, w = amp.cast("conv2d", x, self.weight)
         if self.data_format == "NCHW":
-            y = F.conv2d(x, self.weight, stride=self.stride,
-                         padding=self.padding)
+            y = F.conv2d(x, w, stride=self.stride, padding=self.padding)
         else:
-            y = conv2d_nhwc(x, self.weight, self.stride, self.padding)
+            y = conv2d_nhwc(x, w, self.stride, self.padding)
         out, mean, var = batch_norm_composed(
             y, self.scale, self.bias, self.mean, self.var, EPSILON, MOMENTUM,
             not self.training, self.data_format)
         if residual is not None:
-            out = residual + out
+            out = elementwise_add(residual, out)
         return (torch.relu(out) if self.act == "relu" else out), mean, var
 
 
@@ -221,13 +235,19 @@ class ResNet(nn.Module):
         return self
 
     def forward(self, image, label):
-        fmt = self.data_format
-        x = image if fmt == "NCHW" else image.permute(0, 2, 3, 1).contiguous()
-        x = pool2d(self.conv1(x), "max", 3, 2, 1, data_format=fmt)
-        for stage in self.stages:
-            x = stage(x)
-        x = pool2d(x, "avg", global_pooling=True, data_format=fmt)
-        predict = torch.softmax(x.reshape(x.shape[0], -1) @ self.fc_w
-                                + self.fc_b, dim=-1)
-        avg_cost = cross_entropy(predict, label).mean()
-        return avg_cost, accuracy(predict, label), predict
+        """(avg_cost, acc, predict); under the reference's bf16 policy when
+        the model is ``amp.enable``d."""
+        with amp.policy_scope(self):
+            fmt = self.data_format
+            x = (image if fmt == "NCHW"
+                 else image.permute(0, 2, 3, 1).contiguous())
+            x = pool2d(self.conv1(x), "max", 3, 2, 1, data_format=fmt)
+            for stage in self.stages:
+                x = stage(x)
+            x = pool2d(x, "avg", global_pooling=True, data_format=fmt)
+            (logits,) = amp.cast("softmax", fc(x.reshape(x.shape[0], -1),
+                                               self.fc_w, self.fc_b))
+            # f32 from here on: the BLACK ops after the softmax see f32
+            predict = torch.softmax(logits, dim=-1)
+            avg_cost = cross_entropy(predict, label).mean()
+            return avg_cost, accuracy(predict, label), predict

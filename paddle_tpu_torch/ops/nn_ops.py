@@ -6,7 +6,8 @@ and ``cross_entropy``, of ``paddle_tpu/ops/math_ops.py`` ``mul`` and
 of ``paddle_tpu/ops/metric_ops.py`` ``accuracy``.  Each differentiates
 through torch autograd as the reference's lowering does through
 ``jax.vjp``.  While an amp-enabled model runs (``paddle_tpu_torch.amp``),
-``mul``, ``elementwise_add`` and ``dropout_add`` cast their inputs by the
+``mul``, ``elementwise_add``, ``dropout_add`` and ``conv2d_bn`` (its
+``Input``, ``Filter`` and ``Residual`` slots) cast their inputs by the
 reference's policy; the other ops take their inputs' dtypes."""
 
 from __future__ import annotations
@@ -285,10 +286,18 @@ def conv2d_bn(x, w, scale, bias, mean, var, residual=None, strides=(1, 1),
     otherwise), the batch statistics, and ``bn_apply`` (#20, #21).  With
     ``use_global_stats`` (the reference's ``is_test``) it is the
     reference's composition over (mean, var), ``F.conv2d`` and plain
-    PyTorch, and the running statistics stay."""
+    PyTorch, and the running statistics stay.
+
+    Under amp (a SLOT_WHITE op) x, w and the residual are cast to bf16,
+    so the convolution, y and the output are bf16 and the kernels run
+    their bf16 instantiations; scale, bias, the running statistics, the
+    batch statistics (f32 sums) and the folded wv, bv stay f32.  Without
+    amp every tensor keeps its dtype (f32, or float64 on the CPU)."""
     if act not in ("", "relu", None):
         raise ValueError(f"conv2d_bn: unsupported act {act!r}")
     act = act or ""
+    x, w, residual = amp.cast_slots("conv2d_bn", Input=x, Filter=w,
+                                    Residual=residual)
     if use_global_stats:
         y = conv2d_nhwc(x, w, strides, paddings, dilations, groups)
         return (_global_stats_apply(y, scale, bias, mean, var, residual,
@@ -346,10 +355,18 @@ def pool2d(x, pool_type="max", pool_size=2, pool_stride=1, pool_padding=0,
            global_pooling=False, data_format="NHWC"):
     """Pooling as ResNet runs it, over NHWC x (or NCHW with
     ``data_format``): the global average (the mean over H and W, kept as
-    1 x 1), or a max window whose padding counts as -inf."""
+    1 x 1), or a max window whose padding counts as -inf.  The average of
+    a bf16 x (amp) is ``jnp.mean``'s: an f32 sum divided by the count and
+    rounded once to bf16 (``x.mean`` on CUDA multiplies the f32 sum by 1 /
+    count rounded to f32, one more rounding)."""
     nchw = data_format == "NCHW"
     if global_pooling and pool_type == "avg":
-        return x.mean(dim=(2, 3) if nchw else (1, 2), keepdim=True)
+        dims = (2, 3) if nchw else (1, 2)
+        if x.dtype in (torch.float32, torch.float64):
+            return x.mean(dim=dims, keepdim=True)
+        count = x.shape[dims[0]] * x.shape[dims[1]]
+        return (x.sum(dim=dims, keepdim=True, dtype=torch.float32)
+                / count).to(x.dtype)
     if global_pooling or pool_type != "max":
         raise NotImplementedError(
             f"pool2d: {'global ' if global_pooling else ''}{pool_type!r} "

@@ -39,7 +39,7 @@ import chip_kernel_copies as ck
 HERE = os.path.dirname(os.path.abspath(__file__))
 WHAT = "chip_decode_plans: csrc/decode_attention.cu"
 #: the kernel's first lines, before which the stamps are defined
-ANCHOR = "template <bool PAGED, int NW>\n__global__"
+ANCHOR = "template <int DH, bool PAGED, int NW>\n__global__"
 #: (case, side, b, full caches)
 CASES = (("b=64", "self", 64, False), ("b=64", "cross", 64, False),
          ("b=1", "self", 1, False), ("b=1", "cross", 1, False),
@@ -59,8 +59,7 @@ def stamped(src):
          "  extern __shared__ __align__(16) float smem[];\n  stamp(0);\n"),
         ("  cg::this_grid().sync();\n",
          "  stamp(1);\n  cg::this_grid().sync();\n  stamp(2);\n"),
-        ("P.batch, P.n_head, P.out);\n",
-         "P.batch, P.n_head, P.out);\n  stamp(3);\n")))
+        ("P.out);\n", "P.out);\n  stamp(3);\n")))
 
 
 def call(lib, paged, inputs, plan, scale):
@@ -76,12 +75,12 @@ def call(lib, paged, inputs, plan, scale):
         nb, bt = k_pool.shape[:2]
         err = lib.ptt_flash_decode_paged(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            table.data_ptr(), lens.data_ptr(), *head, h, nb, bt,
+            table.data_ptr(), lens.data_ptr(), *head, h, dh, nb, bt,
             table.shape[1], *plan.ints(), scale, stream)
     else:
         err = lib.ptt_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), *head,
-            k.shape[1], h, *plan.ints(), scale, stream)
+            k.shape[1], h, dh, *plan.ints(), scale, stream)
     _build.check(err, "flash_decode")
     return buf[:b * h * dh].view(b, h, dh)
 
@@ -122,7 +121,7 @@ def main():
                     if fits is None or fits[0] in plans:
                         continue
                     per_sm = tree.ptt_flash_decode_occupancy(
-                        int(paged), g, fits[0].smem)
+                        int(paged), dh, g, fits[0].smem)
                     if per_sm * sms >= fits[0].grid:
                         plans.append(fits[0])
                 errs = [(call(tree, paged, inputs, p, scale)

@@ -60,9 +60,26 @@ Phases, each fatal on failure:
    decoder, t 512 and t 640; causal and not, each bias kind, rates 0 and
    0.1), each call repeated for equal bits, masked rows with ctx 0 and
    lse +inf, each timed with and without the host's enqueue, and the
-   cluster occupancy of 8-block clusters printed;
-   ``flash_qkv_attention`` and ``flash_attention(fmt="bthd")`` at head
-   width 128 must raise before any launch (no kernel at that width).
+   cluster occupancy of 8-block clusters printed (at head widths 64 and
+   128);
+   head widths by kernel and dtype (``check_head_width_128``): at 128 the
+   serving path's f32 wrappers (#1 without a gradient, #14, #15, the
+   fused ring and paged decoder steps) each launch their head-width-128
+   instantiation once, counted under ``*_dh128`` (the FFN under ``ffn``),
+   while ``flash_qkv_attention`` with a gradient, ``flash_attention`` in
+   both layouts and the bf16 routes raise before any launch or
+   composition, and at 192 every wrapper and every (kernel, dtype) of
+   the route table raises.  The head-width-128 kernels themselves (C2
+   part 1, ``check_head128_kernels``) are held at BIG's widths (8 heads
+   of 128, d_model 1024): #1 at b=64 (clusters of 64 rows), b=1 (32
+   rows) and t 640 (the tiles route), #10 and #12 at b=64, b=1, b=33 and
+   full caches, the FFN after each at d_model 1024, #14 and #15 at b=64,
+   b=1 and b=33 on both sides and full cross caches at b=64, each twice
+   for equal bits, against its twin within TOL_KERNEL, timed beside its
+   twin, its bound, the library call (#1, #14, #15) and its head-width-64
+   instantiation on the same bytes (BIG64: 16 heads of 64, ``dh64_ms``);
+   phase 1 requires the head-width-128 instantiations in the build and
+   prints their registers and spills (``head128_builds``).
    The dropout-add kernels (#16, #17) are checked at [32*256, 512] f32:
    with x = 1 and residual 0, #16 must give the twin's keep pattern
    exactly, with a keep share within a chi-square bound of 0.9; #17 must
@@ -176,6 +193,17 @@ Phases, each fatal on failure:
    max_tokens tokens, the paged run must prefill once per prefix-registry
    leader, and the pools and the registry must drain; 16 sampled requests are
    replayed on a batch-1 session on the card, teacher-forced;
+   (m) serving at head width 128 (``run_head128``) on BIG: Transformer-
+   big's widths (d_model 1024, d_ff 4096, 6 + 6 layers, vocab 32000) with
+   8 heads of 128, seeded weights, source 256, 64 tokens, at b=1 and 64:
+   the ring fused route counted (6 ``qkv_attention_fwd_dh128`` a prefill,
+   6 ``megastep_dh128`` and 6 ``ffn`` a token), at b=1 held against the
+   CPU's plain path over all 64 tokens; the ring and paged unfused routes
+   (12 ``flash_decode_dh128`` / ``flash_decode_paged_dh128`` a token)
+   and the paged fused route (6 ``megastep_paged_dh128`` and 6 ``ffn``)
+   teacher-forced on its tokens, logits within TOL_E2E; each timed; then
+   the batcher on paged pools (64 slots, 48 requests); no composition;
+   and one profiled prefill and 16 steps at each batch;
    (d) training: ``Transformer(fused_qkv_attention=False)`` with Paddle's
    ``Adam(1e-4)`` at batch 32, source and target 256 with seeded padded
    tails (label weight 0 on the pads): 18 ``flash_fwd``, 18
@@ -438,13 +466,18 @@ def randn(gen, *shape, scale=1.0):
 # ---------------------------------------------------------------------------
 
 
-def check_qkv_attention(gen, b):
+def check_qkv_attention(gen, b, cfg=BASE, t=SRC_LEN):
+    """#1 at the prefill's shapes of ``cfg`` (serving: no gradient), twice
+    for equal bits, against its twin and ``F.multi_head_attention_forward``,
+    timed beside both; the record carries the plan."""
     import torch.nn.functional as F
 
+    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import attention as ka
 
-    t, dm, h, dh = SRC_LEN, BASE["d_model"], BASE["n_head"], BASE["d_key"]
+    dm, h, dh = cfg["d_model"], cfg["n_head"], cfg["d_key"]
     hd = h * dh
+    name = "qkv_attention_fwd" + kernels.width_suffix(dh)
     x = randn(gen, b, t, dm)
     w_qkv = randn(gen, dm, 3 * hd, scale=dm ** -0.5)
     w_out = randn(gen, hd, dm, scale=hd ** -0.5)
@@ -460,8 +493,8 @@ def check_qkv_attention(gen, b):
     want = ka.reference_qkv_attention(x, w_qkv, w_out, bias, **kw)
     torch.cuda.synchronize()
     require(torch.equal(got, again),
-            f"qkv_attention_fwd b={b}: two calls on the same inputs differ")
-    err = compare(f"qkv_attention_fwd b={b}", got, want, TOL_KERNEL)
+            f"{name} b={b} t={t}: two calls on the same inputs differ")
+    err = compare(f"{name} b={b} t={t}", got, want, TOL_KERNEL)
 
     # one PyTorch call computing the same function (a yardstick only)
     xt = x.transpose(0, 1)
@@ -477,19 +510,20 @@ def check_qkv_attention(gen, b):
     flops = b * (2 * t * dm * 3 * hd + 4 * t * t * hd + 2 * t * hd * dm)
     nbytes = F32 * (2 * b * t * dm + dm * 3 * hd + hd * dm + b * t)
     rec = timed_record(
-        "qkv_attention_fwd", "paddle_tpu_torch/csrc/qkv_attention.cu",
+        name, "paddle_tpu_torch/csrc/qkv_attention.cu",
         "paddle_tpu/kernels/attention.py:1377", err,
         lambda: ka.flash_qkv_attention(x, w_qkv, w_out, bias, **kw),
         lambda: ka.reference_qkv_attention(x, w_qkv, w_out, bias, **kw),
         flops, nbytes, library, b)
     rec["library_max_abs_err"] = lib_err
     rec["plan"] = list(ka.qkv_fwd_plan(b, t, h, ka.sm_count(x.device)))
+    rec["t"] = t
     return rec
 
 
-def _decode_weights(gen):
-    dm, h, dh = BASE["d_model"], BASE["n_head"], BASE["d_key"]
-    di = BASE["d_inner_hid"]
+def _decode_weights(gen, cfg=BASE):
+    dm, h, dh = cfg["d_model"], cfg["n_head"], cfg["d_key"]
+    di = cfg["d_inner_hid"]
     hd = h * dh
     w = dict(
         wqkv=randn(gen, dm, 3 * hd, scale=dm ** -0.5),
@@ -510,14 +544,14 @@ def _decode_weights(gen):
     return w, ffn
 
 
-def _decode_inputs(gen, b, full=False):
-    """The ring megastep's inputs at Transformer-base widths: self caches
-    of 128 rows and cross caches of SRC_LEN.  Ragged positions
-    mid-generation, the last lane inactive and lane 0 of a batch > 1 with
-    an empty cross cache; ``full``: every lane active at row 127 and
-    every cross cache full."""
-    h, dh, L = BASE["n_head"], BASE["d_key"], BASE["n_layer"]
-    w, ffn = _decode_weights(gen)
+def _decode_inputs(gen, b, full=False, cfg=BASE):
+    """The ring megastep's inputs at ``cfg``'s widths (Transformer-base's
+    by default): self caches of 128 rows and cross caches of SRC_LEN.
+    Ragged positions mid-generation, the last lane inactive and lane 0 of
+    a batch > 1 with an empty cross cache; ``full``: every lane active at
+    row 127 and every cross cache full."""
+    h, dh, L = cfg["n_head"], cfg["d_key"], cfg["n_layer"]
+    w, ffn = _decode_weights(gen, cfg)
     self_rows, cross_rows = 128, SRC_LEN
     caches = dict(
         cache_k=randn(gen, L, b, self_rows, h, dh),
@@ -535,15 +569,15 @@ def _decode_inputs(gen, b, full=False):
     ints = dict(pos=pos, lengths=pos + active, cross_lengths=cross_len,
                 active=active)
     ints = {k: v.to(torch.int32).cuda() for k, v in ints.items()}
-    x = randn(gen, b, 1, BASE["d_model"])
+    x = randn(gen, b, 1, cfg["d_model"])
     return x, w, ffn, caches, ints
 
 
-def _megastep_bytes_flops(b, ints, extra_bytes=0):
+def _megastep_bytes_flops(b, ints, extra_bytes=0, cfg=BASE):
     """(bytes, flops) of one megastep call: the weights once, x and out,
     the k/v row written, the rows the walks read (their valid rows), the
     int32 vectors; 2 FLOPs a weight a row and 4 a head dim a row walked."""
-    dm, hd = BASE["d_model"], BASE["n_head"] * BASE["d_key"]
+    dm, hd = cfg["d_model"], cfg["n_head"] * cfg["d_key"]
     act = ints["active"].long()
     self_rows = ints["lengths"].long().clamp(min=0).sum().item()
     cross_rows = ints["cross_lengths"].long().clamp(min=0).sum().item()
@@ -578,49 +612,52 @@ def _held_megastep(what, call, plain, caches, b):
     return err, want, copies[0], copies[2]
 
 
-def _plan_fields(x, paged, self_rows, cross_rows):
+def _plan_fields(x, paged, self_rows, cross_rows, cfg=BASE):
     """The megastep's plan on this card and its co-resident grid."""
     from paddle_tpu_torch.kernels import decode_step as kds
     from paddle_tpu_torch.kernels.attention import sm_count
 
     plan = kds.device_megastep_plan(x.device, paged, x.shape[0],
-                                    BASE["n_head"], BASE["d_model"],
-                                    self_rows, cross_rows)
+                                    cfg["n_head"], cfg["d_model"],
+                                    self_rows, cross_rows, cfg["d_key"])
     return dict(plan=plan._asdict(), co_resident_grid=plan.grid,
                 blocks_per_sm=plan.grid // sm_count(x.device))
 
 
-def check_megastep(x, w, caches, ints, b, label=""):
+def check_megastep(x, w, caches, ints, b, label="", cfg=BASE):
     """#10 at these inputs: twice for equal bits, against its twin, timed
     beside it; the record carries the plan."""
+    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import decode_step as kds
 
-    h, dh = BASE["n_head"], BASE["d_key"]
-    kw = dict(layer=BASE["n_layer"] // 2, n_head=h, scale=dh ** -0.5)
+    h, dh = cfg["n_head"], cfg["d_key"]
+    name = "megastep" + kernels.width_suffix(dh)
+    kw = dict(layer=cfg["n_layer"] // 2, n_head=h, scale=dh ** -0.5)
     err, want, mine, plain = _held_megastep(
-        f"megastep{label} b={b}",
+        f"{name}{label} b={b}",
         lambda c: kds.megastep(x, **w, **c, **ints, **kw),
         lambda c: kds.reference_megastep(x, **w, **c, **ints, **kw),
         caches, b)
-    nbytes, flops = _megastep_bytes_flops(b, ints)
+    nbytes, flops = _megastep_bytes_flops(b, ints, cfg=cfg)
     rec = timed_record(
-        "megastep", "paddle_tpu_torch/csrc/megastep.cu",
+        name, "paddle_tpu_torch/csrc/megastep.cu",
         "paddle_tpu/kernels/decode_step.py:229", err,
         lambda: kds.megastep(x, **w, **mine, **ints, **kw),
         lambda: kds.reference_megastep(x, **w, **plain, **ints, **kw),
         flops, nbytes, None, b)
     rec.update(_plan_fields(x, False, caches["cache_k"].shape[2],
-                            caches["cross_k"].shape[2]))
+                            caches["cross_k"].shape[2], cfg))
     return rec, want
 
 
-def check_decode_kernels(gen, b):
-    x, w, ffn, caches, ints = _decode_inputs(gen, b)
-    mega, want = check_megastep(x, w, caches, ints, b)
-    return mega, check_ffn(want, ffn, b, "ffn", FFN_REPLACES["ffn"])
+def check_decode_kernels(gen, b, cfg=BASE):
+    x, w, ffn, caches, ints = _decode_inputs(gen, b, cfg=cfg)
+    mega, want = check_megastep(x, w, caches, ints, b, cfg=cfg)
+    return mega, check_ffn(want, ffn, b, "ffn", FFN_REPLACES["ffn"],
+                           cfg=cfg)
 
 
-def check_ffn(x, ffn, b, name, replaces, label=""):
+def check_ffn(x, ffn, b, name, replaces, label="", cfg=BASE):
     """#11 (and #13, the same kernel after the paged megastep) on the
     megastep's plain output x: twice for equal bits, against its twin,
     timed beside it; the record carries the plan (``ffn_plan``) and the
@@ -628,7 +665,7 @@ def check_ffn(x, ffn, b, name, replaces, label=""):
     from paddle_tpu_torch.kernels import decode_step as kds
     from paddle_tpu_torch.kernels.attention import sm_count
 
-    dm, di = BASE["d_model"], BASE["d_inner_hid"]
+    dm, di = cfg["d_model"], cfg["d_inner_hid"]
     got = kds.ffn_epilogue(x, **ffn)
     again = kds.ffn_epilogue(x, **ffn)
     want = kds.reference_ffn(x, **ffn)
@@ -712,18 +749,18 @@ def _decode_plan_fields(q, paged, rows):
     from paddle_tpu_torch.kernels.attention import sm_count
 
     plan = kda.device_decode_plan(q.device, paged, q.shape[0], q.shape[1],
-                                  rows)
+                                  rows, q.shape[2])
     return dict(plan=plan._asdict(), co_resident_grid=plan.grid,
                 blocks_per_sm=-(-plan.grid // sm_count(q.device)))
 
 
-def _flash_decode_inputs(gen, b, side, full=False):
+def _flash_decode_inputs(gen, b, side, full=False, cfg=BASE):
     """One side's flash-decode draws: the self side (128 rows, lengths
     1-128) or the cross side (SRC_LEN rows, lengths 8-256), lane 0 empty
     (``full``: every lane at its capacity), and the same rows scattered
     over pools of BLOCK_T-row blocks through a shuffled table with holes.
     Returns (q, k, v, lengths, table, k_pool, v_pool)."""
-    h, dh, bt = BASE["n_head"], BASE["d_key"], BLOCK_T
+    h, dh, bt = cfg["n_head"], cfg["d_key"], BLOCK_T
     rows, lo = (128, 1) if side == "self" else (SRC_LEN, 8)
     q = randn(gen, b, h, dh)
     k, v = randn(gen, b, rows, h, dh), randn(gen, b, rows, h, dh)
@@ -739,19 +776,21 @@ def _flash_decode_inputs(gen, b, side, full=False):
     return q, k, v, lens, table, k_pool, v_pool
 
 
-def _held_flash_decode(gen, b, side, full=False):
+def _held_flash_decode(gen, b, side, full=False, cfg=BASE):
     """#14 and #15 on one side's draws (:func:`_flash_decode_inputs`), the
     paged walk over the same rows as the ring's.  Each kernel is called
     twice for equal bits and held against its twin, the paged one against
     the ring's twin too, and timed with the host's enqueue (``ms``) and
     without it (``device_ms``).  Returns (ring record, paged record)."""
+    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import decode_attention as kda
 
-    h, dh = BASE["n_head"], BASE["d_key"]
+    h, dh = cfg["n_head"], cfg["d_key"]
+    sfx = kernels.width_suffix(dh)
     label = f"{side} b={b}{' full' if full else ''}"
     scale = dh ** -0.5
     q, k, v, lens, table, k_pool, v_pool = _flash_decode_inputs(
-        gen, b, side, full)
+        gen, b, side, full, cfg)
     rows, mb = k.shape[1], table.shape[1]
     n_rows = lens.long().sum().item()
     flops = 4 * h * dh * n_rows
@@ -761,13 +800,14 @@ def _held_flash_decode(gen, b, side, full=False):
     want = kda.reference_decode(q, k, v, lens, scale)
     torch.cuda.synchronize()
     require(torch.equal(got, again),
-            f"flash_decode {label}: two calls on the same inputs differ")
-    err = compare(f"flash_decode {label}", got, want, TOL_KERNEL)
+            f"flash_decode{sfx} {label}: two calls on the same inputs "
+            f"differ")
+    err = compare(f"flash_decode{sfx} {label}", got, want, TOL_KERNEL)
     live = lens > 0
     lib_err = (_library_decode(q, k, v, lens, scale)[live]
                - want[live]).abs().max().item()
     ring = timed_record(
-        "flash_decode", "paddle_tpu_torch/csrc/decode_attention.cu",
+        "flash_decode" + sfx, "paddle_tpu_torch/csrc/decode_attention.cu",
         "paddle_tpu/kernels/decode_attention.py:61", err,
         lambda: kda.flash_decode(q, k, v, lens, scale),
         lambda: kda.reference_decode(q, k, v, lens, scale), flops, io,
@@ -777,6 +817,7 @@ def _held_flash_decode(gen, b, side, full=False):
                                                          scale),
                                 hide_host=True)
     ring.update(_decode_plan_fields(q, False, rows))
+    ring["side"] = side
 
     # the same rows scattered over a pool through a shuffled table
     got = kda.flash_decode_paged(q, k_pool, v_pool, table, lens, scale)
@@ -785,11 +826,11 @@ def _held_flash_decode(gen, b, side, full=False):
                                         scale)
     torch.cuda.synchronize()
     require(torch.equal(got, again),
-            f"flash_decode_paged {label}: two calls on the same inputs "
+            f"flash_decode_paged{sfx} {label}: two calls on the same inputs "
             f"differ")
-    err = max(compare(f"flash_decode_paged {label}", got, want_p,
+    err = max(compare(f"flash_decode_paged{sfx} {label}", got, want_p,
                       TOL_KERNEL),
-              compare(f"flash_decode_paged {label} vs ring", got, want,
+              compare(f"flash_decode_paged{sfx} {label} vs ring", got, want,
                       TOL_KERNEL))
 
     def library():
@@ -798,7 +839,8 @@ def _held_flash_decode(gen, b, side, full=False):
         return _library_decode(q, gk, gv, lens, scale)
 
     paged = timed_record(
-        "flash_decode_paged", "paddle_tpu_torch/csrc/decode_attention.cu",
+        "flash_decode_paged" + sfx,
+        "paddle_tpu_torch/csrc/decode_attention.cu",
         "paddle_tpu/kernels/decode_attention.py:282", err,
         lambda: kda.flash_decode_paged(q, k_pool, v_pool, table, lens,
                                        scale),
@@ -811,15 +853,16 @@ def _held_flash_decode(gen, b, side, full=False):
         lambda: kda.flash_decode_paged(q, k_pool, v_pool, table, lens,
                                        scale), hide_host=True)
     paged.update(_decode_plan_fields(q, True, rows))
+    paged["side"] = side
     return ring, paged
 
 
-def check_flash_decode(gen, b):
+def check_flash_decode(gen, b, cfg=BASE):
     """#14 and #15 at the unfused route's shapes, the self and the cross
     side (:func:`_held_flash_decode`).  Returns {(kernel, side): record}."""
     out = {}
     for side in ("self", "cross"):
-        ring, paged = _held_flash_decode(gen, b, side)
+        ring, paged = _held_flash_decode(gen, b, side, cfg=cfg)
         out[("flash_decode", side)] = ring
         out[("flash_decode_paged", side)] = paged
     return out
@@ -847,14 +890,14 @@ def check_flash_decode_cases():
     return out
 
 
-def _paged_inputs(gen, b, full=False):
+def _paged_inputs(gen, b, full=False, cfg=BASE):
     """The paged megastep's inputs: pools of 16-row blocks behind
     shuffled tables with holes, self lengths 1-128 and cross lengths
     8-256, the last lane inactive at row 0 (self length 0) and lane 0
     with an empty cross cache when b > 1; ``full``: every lane active at
     row 127 and every cross cache full (256 rows)."""
-    h, dh, L, bt = BASE["n_head"], BASE["d_key"], BASE["n_layer"], BLOCK_T
-    w, ffn = _decode_weights(gen)
+    h, dh, L, bt = cfg["n_head"], cfg["d_key"], cfg["n_layer"], BLOCK_T
+    w, ffn = _decode_weights(gen, cfg)
     stab, snb = _shuffled_table(gen, b, 128 // bt)
     ctab, cnb = _shuffled_table(gen, b, SRC_LEN // bt)
     pools = dict(cache_k=randn(gen, L, snb, bt, h, dh),
@@ -874,26 +917,28 @@ def _paged_inputs(gen, b, full=False):
                 active=active.to(torch.int32).cuda())
     if full:
         ints["cross_lengths"].fill_(SRC_LEN)
-    x = randn(gen, b, 1, BASE["d_model"])
+    x = randn(gen, b, 1, cfg["d_model"])
     return x, w, ffn, pools, ints
 
 
-def check_megastep_paged(x, w, pools, ints, b, label=""):
+def check_megastep_paged(x, w, pools, ints, b, label="", cfg=BASE):
     """#12 at these inputs, as :func:`check_megastep`."""
+    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import decode_step as kds
 
-    h, dh = BASE["n_head"], BASE["d_key"]
-    kw = dict(layer=BASE["n_layer"] // 2, n_head=h, scale=dh ** -0.5)
+    h, dh = cfg["n_head"], cfg["d_key"]
+    name = "megastep_paged" + kernels.width_suffix(dh)
+    kw = dict(layer=cfg["n_layer"] // 2, n_head=h, scale=dh ** -0.5)
     err, want, mine, plain = _held_megastep(
-        f"megastep_paged{label} b={b}",
+        f"{name}{label} b={b}",
         lambda c: kds.megastep_paged(x, **w, **c, **ints, **kw),
         lambda c: kds.reference_megastep_paged(x, **w, **c, **ints, **kw),
         pools, b)
     tables = 4 * b * (ints["self_table"].shape[1]
                       + ints["cross_table"].shape[1])
-    nbytes, flops = _megastep_bytes_flops(b, ints, tables)
+    nbytes, flops = _megastep_bytes_flops(b, ints, tables, cfg)
     rec = timed_record(
-        "megastep_paged", "paddle_tpu_torch/csrc/megastep.cu",
+        name, "paddle_tpu_torch/csrc/megastep.cu",
         "paddle_tpu/kernels/decode_step.py:642", err,
         lambda: kds.megastep_paged(x, **w, **mine, **ints, **kw),
         lambda: kds.reference_megastep_paged(x, **w, **plain, **ints, **kw),
@@ -901,16 +946,16 @@ def check_megastep_paged(x, w, pools, ints, b, label=""):
     bt = pools["cache_k"].shape[2]
     rec.update(_plan_fields(x, True, ints["self_table"].shape[1] * bt,
                             ints["cross_table"].shape[1]
-                            * pools["cross_k"].shape[2]))
+                            * pools["cross_k"].shape[2], cfg))
     return rec, want
 
 
-def check_paged_decode_kernels(gen, b):
+def check_paged_decode_kernels(gen, b, cfg=BASE):
     """#12 and #13 at the paged main path's shapes (:func:`_paged_inputs`)."""
-    x, w, ffn, pools, ints = _paged_inputs(gen, b)
-    mega, want = check_megastep_paged(x, w, pools, ints, b)
+    x, w, ffn, pools, ints = _paged_inputs(gen, b, cfg=cfg)
+    mega, want = check_megastep_paged(x, w, pools, ints, b, cfg=cfg)
     return mega, check_ffn(want, ffn, b, "ffn_paged",
-                           FFN_REPLACES["ffn_paged"])
+                           FFN_REPLACES["ffn_paged"], cfg=cfg)
 
 
 #: the fields of a megastep or FFN case kept in the JSON line
@@ -948,6 +993,104 @@ def check_megastep_cases():
                 " " + case)
         del caches, pools
     return out
+
+
+#: phase 3 (m)'s configuration: Transformer-big's widths (Vaswani et al.
+#: 2017, Table 3: d_model 1024, d_ff 4096, 6 + 6 layers) with its 1024
+#: split into 8 heads of 128, vocab 32000, served as BASE is (source 256,
+#: 64 greedy tokens, b 1 and 64)
+BIG = dict(BASE, n_head=8, d_key=128, d_value=128, d_model=1024,
+           d_inner_hid=4096)
+#: the same widths as 16 heads of 64: the head-width-64 instantiations on
+#: the same bytes, the yardstick of what width 128 costs
+BIG64 = dict(BIG, n_head=16, d_key=64, d_value=64)
+#: phase 2's decode caches at BIG's widths hold 2 layers (the kernels
+#: read one; 6 would only lengthen the host's draws)
+BIG_CACHE_LAYERS = 2
+#: the head-width-128 kernels and their phase-2 cases: (case, b, t) for
+#: #1 (b 1: clusters of 32 rows; b 64: 64 rows; t 640: the tiles route),
+#: (case, b, full) for the megasteps, (case, b, side, full) for
+#: flash-decode; the first case of each is the record's own
+HEAD128_QKV_CASES = (("b=64", 64, SRC_LEN), ("b=1", 1, SRC_LEN),
+                     ("tiles t 640", 2, 640))
+HEAD128_MEGASTEP_CASES = (("b=64", 64, False), ("b=1", 1, False),
+                          ("b=33", 33, False), ("full b=64", 64, True))
+HEAD128_DECODE_CASES = (("cross b=64", 64, "cross", False),
+                        ("self b=64", 64, "self", False),
+                        ("cross b=1", 1, "cross", False),
+                        ("self b=1", 1, "self", False),
+                        ("cross b=33", 33, "cross", False),
+                        ("self b=33", 33, "self", False),
+                        ("full cross b=64", 64, "cross", True))
+#: the fields of a head-width-128 case kept in the JSON line
+HEAD128_CASE_KEYS = ("batch", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "bound_share", "library_ms", "max_abs_err", "plan",
+                     "device_ms", "dh64_ms", "dh64_device_ms")
+
+
+def _head128_checks(cfg, seed):
+    """Phase 2's head-width cases at ``cfg``'s widths (BIG or BIG64), on a
+    generator of their own: {(kernel, case): record}, the kernel named
+    as at head width 64 (the FFN's records under "ffn" / "ffn_paged")."""
+    gen = torch.Generator().manual_seed(seed)
+    caches = dict(cfg, n_layer=BIG_CACHE_LAYERS)
+    out = {}
+    for case, b, t in HEAD128_QKV_CASES:
+        out[("qkv_attention_fwd", case)] = check_qkv_attention(gen, b, cfg,
+                                                               t)
+    for case, b, full in HEAD128_MEGASTEP_CASES:
+        x, w, ffn, c, ints = _decode_inputs(gen, b, full, caches)
+        out[("megastep", case)], y = check_megastep(x, w, c, ints, b,
+                                                    f" {case}", caches)
+        if not full:
+            out[("ffn", case)] = check_ffn(y, ffn, b, "ffn",
+                                           FFN_REPLACES["ffn"], f" {case}",
+                                           cfg)
+        del c
+        x, w, ffn, pools, ints = _paged_inputs(gen, b, full, caches)
+        out[("megastep_paged", case)], y = check_megastep_paged(
+            x, w, pools, ints, b, f" {case}", caches)
+        if not full:
+            out[("ffn_paged", case)] = check_ffn(
+                y, ffn, b, "ffn_paged", FFN_REPLACES["ffn_paged"],
+                f" {case}", cfg)
+        del pools
+    for case, b, side, full in HEAD128_DECODE_CASES:
+        ring, paged = _held_flash_decode(gen, b, side, full, cfg)
+        out[("flash_decode", case)] = ring
+        out[("flash_decode_paged", case)] = paged
+    torch.cuda.synchronize()
+    return out
+
+
+def check_head128_kernels():
+    """C2 part 1 on the card: #1 (both f32 routes), #10, #12, #14, #15 and
+    the FFN (#11, #13) at BIG's widths (8 heads of 128, d_model 1024),
+    each at the cases above against its twin, twice for equal bits, timed
+    beside its twin, its bound and (#1, #14, #15) the library call; and the
+    same cases at BIG64 (16 heads of 64: the same bytes and FLOPs), whose
+    kernel times each case carries as ``dh64_ms``.  Returns ({name:
+    record} for the JSON line, the head-width-128 kernels' records under
+    their ``_dh128`` names with their other cases under ``cases``, the
+    FFN's at d_model 1024 under "ffn_dm1024" / "ffn_paged_dm1024"; every
+    case's record, for printing)."""
+    big = _head128_checks(BIG, 128)
+    base = _head128_checks(BIG64, 64)
+    records, flat = {}, []
+    for (name, case), r in big.items():
+        twin = base[(name, case)]
+        r["dh64_ms"] = twin["ms"]
+        if "device_ms" in twin:
+            r["dh64_device_ms"] = twin["device_ms"]
+        r["case"] = case
+        flat.append(r)
+        key = name + ("_dm1024" if name.startswith("ffn") else "_dh128")
+        if key not in records:
+            records[key] = dict(r, name=key, cases={})
+        else:
+            records[key]["cases"][case] = {k: r[k] for k in HEAD128_CASE_KEYS
+                                           if k in r}
+    return records, flat
 
 
 #: phase 2's bthd flash-attention cases at the training path's shapes:
@@ -1905,11 +2048,13 @@ def check_qkv_plans(gen):
     from paddle_tpu_torch.kernels import attention as ka
 
     lib = _build.lib()
-    for rows in (32, 64):
-        n = lib.ptt_qkv_cluster_occupancy(rows, ka.CLUSTER_MAX)
-        require(n > 0, f"qkv cluster occupancy R={rows}: {n}")
-        print(f"phase 2: qkv_attention_fwd clusters of {ka.CLUSTER_MAX} "
-              f"blocks of {rows} rows resident at once: {n}")
+    for dh in (64, 128):
+        for rows in (32, 64):
+            n = lib.ptt_qkv_cluster_occupancy(rows, ka.CLUSTER_MAX, dh)
+            require(n > 0, f"qkv cluster occupancy R={rows} dh={dh}: {n}")
+            print(f"phase 2: qkv_attention_fwd clusters of "
+                  f"{ka.CLUSTER_MAX} blocks of {rows} rows at head width "
+                  f"{dh} resident at once: {n}")
     out = {}
     for name, b, t, dm, bias_kind, causal in QKV_PLAN_CASES:
         h, dh = dm // 64, 64
@@ -1954,46 +2099,123 @@ def check_qkv_plans(gen):
     return out
 
 
-#: phase 2's head-width-128 shape (C2): b, t, heads, head width
-HEAD128 = (2, 64, 2, 128)
+#: phase 2's head-width shape of the route checks (C2): b, t, heads
+HEAD128 = (2, 64, 2)
 
 
 def check_head_width_128(gen):
-    """C2 on the card: ``flash_qkv_attention`` and ``flash_attention(
-    fmt="bthd")`` at head width 128, where the reference launches its
-    kernels and the port's are compiled for 64 only, raise before any
-    launch: no kernel launched, nothing composed.  Returns the error
-    messages."""
+    """C2 on the card, by kernel, dtype and head width (``kernels.
+    HEAD_WIDTHS``).  At 128 the serving path's f32 kernels launch their
+    head-width-128 instantiations, each counted once under its ``_dh128``
+    name and nothing else: ``flash_qkv_attention`` with no gradient (#1),
+    ``flash_decode`` and ``flash_decode_paged`` (#14, #15) and
+    ``fused_decode_step`` and ``fused_decode_step_paged`` (#10 + #11, #12
+    + #13).  Where no kernel is compiled, the wrapper raises a ValueError
+    naming the kernel and the width before anything launches or composes:
+    ``flash_qkv_attention`` with a gradient (the pair #2 + #3 is compiled
+    for 64), ``flash_attention`` in both layouts (#4-#9), and #1 and the
+    flash kernels in bf16 at 128; every one of those wrappers and the
+    serving ones at 192; and every (kernel, dtype) of the route table at
+    192 (``head_route``).  Returns {call: launches or the error}."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import attention as ka
+    from paddle_tpu_torch.kernels import decode_attention as kda
+    from paddle_tpu_torch.kernels import decode_step as kds
 
-    b, t, h, dh = HEAD128
-    dm = h * dh
-    x = randn(gen, b, t, dm)
-    w_qkv = randn(gen, dm, 3 * dm, scale=dm ** -0.5)
-    w_out = randn(gen, dm, dm, scale=dm ** -0.5)
-    q, k, v = (randn(gen, b, t, h, dh) for _ in range(3))
+    b, t, h = HEAD128
+
+    def qkv(dh, dtype=torch.float32, grad=False):
+        dm = h * dh
+        x = randn(gen, b, t, dm).to(dtype).requires_grad_(grad)
+        w_qkv = randn(gen, dm, 3 * dm, scale=dm ** -0.5).to(dtype)
+        w_out = randn(gen, dm, dm, scale=dm ** -0.5).to(dtype)
+        return lambda: ka.flash_qkv_attention(x, w_qkv, w_out, n_head=h,
+                                              scale=dh ** -0.5)
+
+    def flash(dh, fmt, dtype=torch.float32):
+        q = randn(gen, b, t, h, dh).to(dtype)
+        return lambda: ka.flash_attention(q, q, q, scale=dh ** -0.5,
+                                          fmt=fmt)
+
+    def decode(dh, paged):
+        q = randn(gen, b, h, dh)
+        k, v = randn(gen, b, 32, h, dh), randn(gen, b, 32, h, dh)
+        lens = torch.tensor([5, 32], dtype=torch.int32).cuda()
+        if not paged:
+            return lambda: kda.flash_decode(q, k, v, lens, dh ** -0.5)
+        table = torch.arange(2 * b, dtype=torch.int32).reshape(b, 2).cuda()
+        pool_k, pool_v = (a.reshape(2 * b, 16, h, dh) for a in (k, v))
+        return lambda: kda.flash_decode_paged(q, pool_k, pool_v, table, lens,
+                                              dh ** -0.5)
+
+    def step(dh, paged):
+        cfg = dict(BASE, n_head=h, d_key=dh, d_value=dh, d_model=128,
+                   d_inner_hid=256, n_layer=2)
+        x, w, ffn, caches, ints = (_paged_inputs if paged
+                                   else _decode_inputs)(gen, b, cfg=cfg)
+        fn = kds.fused_decode_step_paged if paged else kds.fused_decode_step
+        return lambda: fn(x, **w, **ffn, **caches, **ints, layer=1,
+                          n_head=h, scale=dh ** -0.5)
+
+    launching = {
+        "flash_qkv_attention no grad": (qkv, {}, "qkv_attention_fwd"),
+        "flash_decode": (lambda dh: decode(dh, False), {}, "flash_decode"),
+        "flash_decode_paged": (lambda dh: decode(dh, True), {},
+                               "flash_decode_paged"),
+        "fused_decode_step": (lambda dh: step(dh, False), {"ffn": 1},
+                              "megastep"),
+        "fused_decode_step_paged": (lambda dh: step(dh, True), {"ffn": 1},
+                                    "megastep_paged")}
+    raising = {
+        "flash_qkv_attention with grad": lambda dh: qkv(dh, grad=True),
+        "flash_qkv_attention bf16": lambda dh: qkv(dh, torch.bfloat16),
+        "flash_attention bthd": lambda dh: flash(dh, "bthd"),
+        "flash_attention bhtd": lambda dh: flash(dh, "bhtd"),
+        "flash_attention bthd bf16": lambda dh: flash(dh, "bthd",
+                                                      torch.bfloat16)}
     out = {}
-    for what, call in (
-            ("qkv_attention_fwd",
-             lambda: ka.flash_qkv_attention(x, w_qkv, w_out, n_head=h,
-                                            scale=dh ** -0.5)),
-            ("flash_fwd",
-             lambda: ka.flash_attention(q, k, v, scale=dh ** -0.5,
-                                        fmt="bthd"))):
+
+    def raises(label, call, dh):
         kernels.reset_launches()
         try:
             call()
         except ValueError as exc:
-            out[what] = str(exc)
+            out[label] = str(exc)
         torch.cuda.synchronize()
-        require(what in out and "head width 128" in out[what],
-                f"head width 128 {what}: no error ({out.get(what)})")
+        require(label in out and f"head width {dh}" in out[label],
+                f"{label}: no error ({out.get(label)})")
         launches, composed = dict(kernels.launches), dict(kernels.composed)
-        require(launches == expected(),
-                f"head width 128 {what}: launched {launches}")
+        require(launches == expected(), f"{label}: launched {launches}")
         require(not any(composed.values()),
-                f"head width 128 {what}: composition counts {composed}")
+                f"{label}: composition counts {composed}")
+
+    for what, (make, more, kernel) in launching.items():
+        call = make(128)
+        kernels.reset_launches()
+        with torch.no_grad():
+            call()
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        require(launches == expected(**{kernel + "_dh128": 1}, **more),
+                f"head width 128 {what}: launches {launches}")
+        require(not any(kernels.composed.values()),
+                f"head width 128 {what}: composed {kernels.composed}")
+        out[f"{what} at 128"] = {k: v for k, v in launches.items() if v}
+        raises(f"{what} at 192", make(192), 192)
+    for what, make in raising.items():
+        raises(f"{what} at 128", make(128), 128)
+        raises(f"{what} at 192", make(192), 192)
+    for name in kernels.composed:
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.bfloat16 and name not in kernels.BF16_KERNELS:
+                continue
+            try:
+                kernels.head_route(name, 192, dtype)
+                require(False, f"{name} {dtype}: routes at head width 192")
+            except ValueError as exc:
+                require(name in str(exc) and "head width 192" in str(exc),
+                        f"{name} {dtype} at 192: {exc}")
+    out["every kernel and dtype at 192"] = "raises"
     kernels.reset_launches()
     return out
 
@@ -4199,11 +4421,16 @@ def expected(**counts):
     return {name: counts.get(name, 0) for name in kernels.launches}
 
 
-def run_main_path(model, cpu_model, b):
+def run_main_path(model, cpu_model, b, cfg=BASE):
+    """The ring cache's fused route at ``cfg``'s widths, counted; with a
+    ``cpu_model``, the plain path on the CPU teacher-forced on its tokens
+    (cross cache and every step's logits).  Then timed."""
     from paddle_tpu_torch import GenerationSession
     from paddle_tpu_torch import kernels
 
-    L = BASE["n_layer"]
+    L = cfg["n_layer"]
+    sfx = kernels.width_suffix(cfg["d_key"])
+    qkv, mega = "qkv_attention_fwd" + sfx, "megastep" + sfx
     src = source_batch(b, seed=b)
     # eos outside the vocabulary: every lane generates all 64 tokens, the
     # fixed work bench.py's bench_decode also uses
@@ -4214,7 +4441,7 @@ def run_main_path(model, cpu_model, b):
     sess = GenerationSession(model, **sess_kw)
     kernels.reset_launches()
     sess.prefill(src)
-    require(kernels.launches == expected(qkv_attention_fwd=L),
+    require(kernels.launches == expected(**{qkv: L}),
             f"b={b}: prefill launches {kernels.launches}")
     tokens, logits = [], []
     for _ in range(MAX_OUT):
@@ -4222,36 +4449,38 @@ def run_main_path(model, cpu_model, b):
         logits.append(sess.last_logits.clone())
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
-    require(counts == expected(qkv_attention_fwd=L, megastep=L * MAX_OUT,
+    require(counts == expected(**{qkv: L, mega: L * MAX_OUT},
                                ffn=L * MAX_OUT),
             f"b={b}: main-path launches {counts}")
     tokens = np.stack(tokens, axis=1)
     require(tokens.shape == (b, MAX_OUT), f"tokens {tokens.shape}")
-    require(((tokens >= 0) & (tokens < BASE["trg_vocab_size"])).all(),
+    require(((tokens >= 0) & (tokens < cfg["trg_vocab_size"])).all(),
             "token out of range")
+    route = "ring fused" + (f" d_head {cfg['d_key']}" if sfx else "")
+    max_err = decided = total = None
+    if cpu_model is not None:
+        # -- the plain path on the CPU, teacher-forced --------------------
+        plain = GenerationSession(cpu_model, **sess_kw)
+        plain.prefill(src)
+        for name in ("k", "v", "lengths"):
+            compare(f"b={b} cross cache {name}",
+                    getattr(sess.cross_cache, name).cpu(),
+                    getattr(plain.cross_cache, name), TOL_E2E)
+        max_err, decided, total = 0.0, 0, b * MAX_OUT
+        prev = np.zeros(b, np.int64)  # BOS
+        for step in range(MAX_OUT):
+            plain.last_tok.copy_(torch.from_numpy(prev))
+            plain.decode_step()
+            want = plain.last_logits
+            got = logits[step].cpu()
+            max_err = max(max_err, compare(f"b={b} step {step} logits", got,
+                                           want, TOL_E2E))
+            decided += argmax_held(b, step, tokens[:, step], want)
+            prev = tokens[:, step]
 
-    # -- the plain path on the CPU, teacher-forced ------------------------
-    plain = GenerationSession(cpu_model, **sess_kw)
-    plain.prefill(src)
-    for name in ("k", "v", "lengths"):
-        compare(f"b={b} cross cache {name}",
-                getattr(sess.cross_cache, name).cpu(),
-                getattr(plain.cross_cache, name), TOL_E2E)
-    max_err, decided = 0.0, 0
-    prev = np.zeros(b, np.int64)  # BOS
-    for step in range(MAX_OUT):
-        plain.last_tok.copy_(torch.from_numpy(prev))
-        plain.decode_step()
-        want = plain.last_logits
-        got = logits[step].cpu()
-        max_err = max(max_err, compare(f"b={b} step {step} logits", got,
-                                       want, TOL_E2E))
-        decided += argmax_held(b, step, tokens[:, step], want)
-        prev = tokens[:, step]
-
-    run = dict(batch=b, route="ring fused", launches=counts,
+    run = dict(batch=b, route=route, launches=counts,
                logits_max_abs_err=max_err, argmax_checked=decided,
-               argmax_total=b * MAX_OUT)
+               argmax_total=total)
     run.update(time_session(GenerationSession(model, **sess_kw), src))
     return run, tokens, logits
 
@@ -4342,28 +4571,30 @@ SERVE_BLOCKS, ARRIVAL_GAP_S, SERVE_WAIT_S = 256, 0.005, 300.0
 SERVE_RETRIES = 3
 
 
-def serving_traffic(seed=0):
-    """(prompts, max_tokens): prompt lengths uniform in 8-256 with ids in
-    [2, vocab), max_tokens uniform in 8-64; requests 0, 5, 10, ... (32 of
-    them) carry 4 shared prompts, 8 consecutive ones each (requests 0-35
-    the first, 40-75 the second, ...)."""
+def serving_traffic(seed=0, n=SERVE_REQUESTS):
+    """(prompts, max_tokens) of ``n`` requests: prompt lengths uniform in
+    8-256 with ids in [2, vocab), max_tokens uniform in 8-64; requests 0,
+    5, 10, ... carry 4 shared prompts, 8 consecutive ones each (requests
+    0-35 the first, 40-75 the second, ...)."""
     rng = np.random.RandomState(seed)
     vocab = BASE["src_vocab_size"]
 
     def prompt():
         return rng.randint(2, vocab, rng.randint(8, SRC_LEN + 1)).tolist()
 
-    prompts = [prompt() for _ in range(SERVE_REQUESTS)]
-    max_tokens = rng.randint(8, MAX_OUT + 1, SERVE_REQUESTS).tolist()
+    prompts = [prompt() for _ in range(n)]
+    max_tokens = rng.randint(8, MAX_OUT + 1, n).tolist()
     shared = [prompt() for _ in range(4)]
-    for j, n in enumerate(range(0, SERVE_REQUESTS, 5)):
-        prompts[n] = shared[j // 8 % 4]
+    for j, m in enumerate(range(0, n, 5)):
+        prompts[m] = shared[j // 8 % 4]
     return prompts, max_tokens
 
 
-def run_serving(model, paged):
-    """Phase 3 (c): the batcher on one cache layout under the traffic
-    above.  Returns (stats, results, prompts)."""
+def run_serving(model, paged, cfg=BASE, requests=SERVE_REQUESTS,
+                blocks=SERVE_BLOCKS):
+    """Phase 3 (c) (and (m) at ``cfg``'s widths): the batcher on one cache
+    layout under the traffic above, ``requests`` of them, paged pools of
+    ``blocks`` blocks a side.  Returns (stats, results, prompts)."""
     import threading
 
     from paddle_tpu_torch import GenerationSession, kernels
@@ -4372,18 +4603,19 @@ def run_serving(model, paged):
                                           GenerationServingModel,
                                           Overloaded)
 
-    name = "paged" if paged else "ring"
-    L = BASE["n_layer"]
+    sfx = kernels.width_suffix(cfg["d_key"])
+    name = ("paged" if paged else "ring") + sfx
+    L = cfg["n_layer"]
     sess = GenerationSession(model, SERVE_SLOTS, SRC_LEN, MAX_OUT, bos_id=0,
                              eos_id=-1, paged=paged,
-                             num_blocks=SERVE_BLOCKS if paged else 0)
+                             num_blocks=blocks if paged else 0)
     served = GenerationServingModel(
         GenerationConfig(name, slots=SERVE_SLOTS, max_tokens=MAX_OUT),
         session=sess)
     served.warmup()
     batcher = ContinuousBatcher(served)
-    prompts, max_tokens = serving_traffic()
-    results = [None] * SERVE_REQUESTS
+    prompts, max_tokens = serving_traffic(n=requests)
+    results = [None] * requests
     errors, shed = [], []
 
     def one(n):
@@ -4408,7 +4640,7 @@ def run_serving(model, paged):
     def client(c, t0):
         # open-loop arrivals: request n is submitted at t0 + n * gap
         workers = []
-        for n in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+        for n in range(c, requests, SERVE_CLIENTS):
             delay = t0 + n * ARRIVAL_GAP_S - time.perf_counter()
             if delay > 0:
                 time.sleep(delay)
@@ -4450,7 +4682,7 @@ def run_serving(model, paged):
     if paged:
         # every request either led its prompt's registry entry (one
         # prefill) or shared a registered one (no prefill)
-        require(prefills + hits == SERVE_REQUESTS and hits > 0,
+        require(prefills + hits == requests and hits > 0,
                 f"serving paged: prefills {prefills} + hits {hits}")
         require(c[f"generation.{name}.admission_holds_total"] > 0,
                 "serving paged: the block budget never held a request")
@@ -4458,22 +4690,22 @@ def run_serving(model, paged):
                 and sess.cross_cache.allocator.used_count == 0
                 and not batcher._prefix_map,
                 "serving paged: pools or prefix registry not drained")
-        mega = dict(megastep_paged=L * steps)
+        mega = {"megastep_paged" + sfx: L * steps}
     else:
-        require(prefills == SERVE_REQUESTS and hits == 0,
+        require(prefills == requests and hits == 0,
                 f"serving ring: prefills {prefills}, hits {hits}")
-        mega = dict(megastep=L * steps)
-    qkv = counts["qkv_attention_fwd"]
+        mega = {"megastep" + sfx: L * steps}
+    qkv = counts["qkv_attention_fwd" + sfx]
     require(qkv > 0 and qkv % L == 0
-            and counts == expected(qkv_attention_fwd=qkv, ffn=L * steps,
-                                   **mega),
+            and counts == expected(**{"qkv_attention_fwd" + sfx: qkv},
+                                   ffn=L * steps, **mega),
             f"serving {name}: launches {counts}")
     ttft = [res[1]["ttft_ms"] for res in results]
     stats = dict(
         route=f"serving {name}", launches=counts, wall_s=wall_s,
         shed=len(shed), retries=len(shed) - sum(
             1 for _, e in errors if "Overloaded" in e),
-        requests_per_s=SERVE_REQUESTS / wall_s,
+        requests=requests, requests_per_s=requests / wall_s,
         generated_tokens_per_s=tokens / wall_s, tokens=tokens,
         ttft_ms_p50=float(np.percentile(ttft, 50)),
         ttft_ms_p90=float(np.percentile(ttft, 90)),
@@ -4483,20 +4715,79 @@ def run_serving(model, paged):
                           if paged else None),
         admission_holds=(c[f"generation.{name}.admission_holds_total"]
                          if paged else None),
-        blocks_total=(2 * (SERVE_BLOCKS - 1) if paged else None),
+        blocks_total=(2 * (blocks - 1) if paged else None),
         kv_cache_bytes=served.kv_cache_bytes)
     return stats, results, prompts
 
 
+#: phase 3 (m): requests to the batcher at BIG's widths (64 slots, paged
+#: pools of 128 blocks a side: 201 MB a pool, the budget binds)
+HEAD128_SERVE_REQUESTS, HEAD128_SERVE_BLOCKS = 48, 128
+
+
+def run_head128(big):
+    """Phase 3 (m): serving at head width 128 (C2 part 1) on BIG's widths
+    (Transformer-big's, 8 heads of 128, 6 + 6 layers, seeded weights
+    ``big``).  At b=1 and b=64: the ring cache's fused route counted
+    (#1 at 128 L a prefill, #10 at 128 and #11 L a token), at b=1 held
+    against the CPU's plain path over all MAX_OUT tokens (teacher-forced,
+    TOL_E2E); the ring unfused (#14 at 128, 2 L a token), paged unfused
+    (#15 at 128) and paged fused (#12 at 128 and #13) routes teacher-forced
+    on its tokens, their logits within TOL_E2E of its logits on the card;
+    each timed (prefill ms, decode tokens/s).  Then the batcher on paged
+    pools (64 slots, HEAD128_SERVE_REQUESTS requests), a sample of its
+    requests replayed on a batch-1 session (:func:`check_sampled`).  No
+    composition anywhere.  Returns (runs, serving stats)."""
+    from paddle_tpu_torch import Transformer, kernels
+
+    L = BIG["n_layer"]
+    cpu_big = Transformer(**BIG, device="cpu")
+    cpu_big.load_state_dict(big.state_dict())
+    unfused = Transformer(**BIG, fused_decode_step=False)
+    unfused.load_state_dict(big.state_dict())
+    runs = []
+    kernels.reset_launches()
+    for b in BATCHES:
+        run, tokens, logits = run_main_path(
+            big, cpu_big if b == 1 else None, b, BIG)
+        runs.append(run)
+        src = source_batch(b, seed=b)
+        for paged in (False, True):
+            walk = "flash_decode_paged" if paged else "flash_decode"
+            runs.append(run_route(
+                unfused, b, src, tokens, logits,
+                expected(qkv_attention_fwd_dh128=L,
+                         **{walk + "_dh128": 2 * L * MAX_OUT}),
+                f"{'paged' if paged else 'ring'} unfused d_head 128",
+                paged=paged))
+        runs.append(run_route(
+            big, b, src, tokens, logits,
+            expected(qkv_attention_fwd_dh128=L,
+                     megastep_paged_dh128=L * MAX_OUT, ffn=L * MAX_OUT),
+            "paged fused d_head 128", paged=True))
+        del logits
+        torch.cuda.synchronize()
+    require(not any(kernels.composed.values()),
+            f"head width 128: composed {kernels.composed}")
+    del cpu_big, unfused
+    stats, results, prompts = run_serving(big, True, BIG,
+                                          HEAD128_SERVE_REQUESTS,
+                                          HEAD128_SERVE_BLOCKS)
+    stats["sampled_argmax"] = check_sampled(big, prompts, results)
+    require(not any(kernels.composed.values()),
+            f"head width 128 serving: composed {kernels.composed}")
+    return runs, stats
+
+
 def check_sampled(model, prompts, results):
-    """16 served requests (one whole sharer group and 8 others) replayed on
-    a batch-1 ring session on the card, teacher-forced on the batcher's
-    tokens: the argmax must agree wherever the top-2 gap is clear.
-    Returns (steps cleared, steps checked)."""
+    """Served requests (one whole sharer group, 0-35, and up to 8 others)
+    replayed on a batch-1 ring session on the card, teacher-forced on the
+    batcher's tokens: the argmax must agree wherever the top-2 gap is
+    clear.  Returns (steps cleared, steps checked)."""
     from paddle_tpu_torch import GenerationSession
 
     group = list(range(0, 40, 5))
-    others = [n for n in range(SERVE_REQUESTS) if n % 5][::16][:8]
+    others = [n for n in range(len(results)) if n % 5][::16][:8]
     sess = GenerationSession(model, 1, SRC_LEN, MAX_OUT, bos_id=0,
                              eos_id=-1)
     decided = total = 0
@@ -6531,7 +6822,7 @@ def walk_builds(log, lib):
         "qkv_cluster_tc_kernel": ("qkv_attention.cu", lambda args:
                                   lib.ptt_qkv_cluster_smem(
                                       64 if args.startswith("ILi64") else 32,
-                                      1)),
+                                      1, 64)),
         "gemm_tc_kernel": (None, tc_smem),
         "bwd_dq_tc_kernel": ("qkv_attention_bwd.cu",
                              lib.ptt_qkv_bwd_walk_smem(0)),
@@ -6541,6 +6832,24 @@ def walk_builds(log, lib):
                                lib.ptt_flash_walk_smem(4)),
         "flash_dkv_tc_kernel": ("flash_attention.cu",
                                 lib.ptt_flash_walk_smem(5))})
+
+
+def head128_builds(log, lib):
+    """The instantiations of the kernels compiled for head widths 64 and
+    128 (#1's f32 cluster and tiles kernels, the megastep, flash-decode):
+    see ``_builds``; the template's last integer is the head width (the
+    first, flash-decode's)."""
+    import re
+
+    def cluster_smem(args):  # <R, DROP, D>
+        r, dh = (int(n) for n in re.findall(r"Li(\d+)E", args)[:2])
+        return lib.ptt_qkv_cluster_smem(r, 0, dh)
+
+    return _builds(log, {
+        "qkv_cluster_fwd_kernel": ("qkv_attention.cu", cluster_smem),
+        "qkv_tiles_fwd_kernel": ("qkv_attention.cu", None),
+        "megastep_kernel": ("megastep.cu", None),
+        "decode_kernel": ("decode_attention.cu", None)})
 
 
 def tile_builds(log, lib):
@@ -6615,6 +6924,10 @@ def print_record(r, label):
              f"run {r['run_max']}" if "sort_ms" in r else "")
           + (f"; {r['bound_share']:.1%} of the bound"
              if "bound_share" in r else "")
+          + (f"; the head-width-64 instantiation on the same bytes "
+             f"{r['dh64_ms']} ms" + (f", device only {r['dh64_device_ms']}"
+                                     if "dh64_device_ms" in r else "")
+             if "dh64_ms" in r else "")
           + (f"; plan {r['plan']}, co-resident grid "
              f"{r['co_resident_grid']} ({r['blocks_per_sm']} an SM)"
              if "co_resident_grid" in r else "")
@@ -6693,8 +7006,16 @@ def main():
             print("  " + line.strip())
     builds = walk_builds(_build.build_log(), _build.lib())
     tiles = tile_builds(_build.build_log(), _build.lib())
-    for r in builds + tiles:
+    widths = head128_builds(_build.build_log(), _build.lib())
+    for r in builds + tiles + widths:
         print(f"phase 1: {r}")
+    # the head-width-128 instantiations of the serving path are built
+    require(all(any(r["kernel"] == kernel and "Li128E" in r["template"]
+                    for r in widths)
+                for kernel in ("qkv_cluster_fwd_kernel",
+                               "qkv_tiles_fwd_kernel", "megastep_kernel",
+                               "decode_kernel")),
+            "a head-width-128 instantiation is missing from the build")
     # bf16 operands of #6 and #7 reach the tensor-core walks only
     require(not any(r["kernel"] in ("flash_bwd_dq_kernel",
                                     "flash_bwd_dkv_kernel",
@@ -6833,8 +7154,24 @@ def main():
                                  "dropout_ms", "dropout_max_abs_err",
                                  "device_ms")}
         for case, r in plans.items()}
-    print(f"phase 2: head width 128 raises on the card: "
-          f"{check_head_width_128(gen)}")
+    print(f"phase 2: head widths 128 and 192 on the card, by kernel and "
+          f"dtype: {check_head_width_128(gen)}")
+    # C2 part 1: the serving path's kernels at head width 128 (BIG's
+    # widths) beside their head-width-64 instantiations on the same bytes
+    t_128 = time.perf_counter()
+    head128, head128_cases = check_head128_kernels()
+    for r in head128_cases:
+        print_record(r, f" d_model {BIG['d_model']} {r['case']}")
+    for name, r in head128.items():
+        if name.startswith("ffn"):
+            # the FFN has no head axis: its d_model-1024 cases ride on
+            # its own record
+            records[(name[:-len("_dm1024")], max(BATCHES))]["dm1024"] = {
+                case: {k: c[k] for k in HEAD128_CASE_KEYS if k in c}
+                for case, c in dict(r["cases"], **{r["case"]: r}).items()}
+        else:
+            records[(name, max(BATCHES))] = r
+    _phase_seconds("phase 2: head width 128", t_128)
     for r in check_dropout_add(gen):
         print_record(r, f" [{DROPOUT_ROWS}, {BASE['d_model']}] rate "
                         f"{DROPOUT}")
@@ -6968,6 +7305,37 @@ def main():
         serving.append(stats)
 
     del cpu_model, unfused
+    t_phase = _phase_seconds("phase 3 (main), (a)-(c)", t_phase)
+
+    # (m): serving at head width 128 on Transformer-big's widths
+    big = paddle_tpu_torch.Transformer(**BIG).init_params(seed=0)
+    runs_128, serving_128 = run_head128(big)
+    for run in runs_128:
+        print(f"phase 3 (m): {run['route']} b={run['batch']}: prefill "
+              f"{run['prefill_ms']} ms (median of 5, range "
+              f"{run['prefill_ms_range']}), decode "
+              f"{run['decode_tokens_per_s']} tokens/s "
+              f"({run['decode_ms_per_step']} ms/step mean, p50 "
+              f"{run['step_ms_p50']}, p80 {run['step_ms_p80']}), launches "
+              f"{ {k: v for k, v in run['launches'].items() if v} }, logits "
+              f"max_abs_err {run['logits_max_abs_err']}, argmax held on "
+              f"{run['argmax_checked']}/{run['argmax_total']} clear steps")
+    print(f"phase 3 (m): {serving_128['route']}: " + ", ".join(
+        f"{k} {v}" for k, v in serving_128.items() if k != "route"))
+    for b in BATCHES:
+        prof = profile_serving(big, b, tag="_dh128")
+        for phase, r in prof.items():
+            if r["device_busy_ms"]:
+                print(f"phase 3 (m): b={b} ring fused d_head 128 {phase} "
+                      f"per {'prefill' if phase == 'prefill' else 'step'}: "
+                      f"wall {r['wall_ms']} ms, device busy "
+                      f"{r['device_busy_ms']} ms, idle share "
+                      f"{r['idle_share']}, the megastep {r['megastep_ms']} "
+                      f"ms, the FFN {r['ffn_ms']} ms; top {r['top'][:4]}")
+    del big
+    torch.cuda.empty_cache()
+    t_phase = _phase_seconds("phase 3 (m)", t_phase)
+
     train_model = paddle_tpu_torch.Transformer(
         **BASE, fused_qkv_attention=False).init_params(seed=1)
     # (f)'s models start from the same initial weights
@@ -7045,7 +7413,7 @@ def main():
     training_resnet, resnet_parity = run_resnet(resnet)
     print("phase 3: " + ", ".join(f"{k} {v}"
                                   for k, v in training_resnet.items()))
-    t_phase = _phase_seconds("phase 3 (a)-(g) and (j)", t_phase)
+    t_phase = _phase_seconds("phase 3 (d)-(g) and (j)", t_phase)
 
     # (l): ResNet-50 under bf16 amp from (g)'s initial weights, held
     # against (g)'s float64 step
@@ -7269,14 +7637,15 @@ def main():
 
     # launches over every counted path; the FFN counter is split between
     # the ring paths (#11) and the paged ones (#13)
-    paths = runs + serving + [training, training_fused, training_dropout,
-                              training_amp, training_resnet,
-                              training_resnet_amp, training_deepfm,
-                              demo, *training_bert, *training_bert_amp]
+    paths = runs + serving + runs_128 + [
+        serving_128, training, training_fused, training_dropout,
+        training_amp, training_resnet, training_resnet_amp, training_deepfm,
+        demo, *training_bert, *training_bert_amp]
     total = {name: sum(r["launches"][name] for r in paths)
              for name in paths[0]["launches"]}
     paged_ffn = sum(r["launches"]["ffn"] for r in paths
-                    if r["launches"]["megastep_paged"])
+                    if r["launches"]["megastep_paged"]
+                    or r["launches"]["megastep_paged_dh128"])
     total["ffn_paged"] = paged_ffn
     total["ffn"] -= paged_ffn
     kernels_line = []
@@ -7289,13 +7658,16 @@ def main():
                  "ssa_fwd", "ssa_bwd", "multi_table_gather",
                  "multi_table_apply",
                  *(name + "_bf16"
-                   for name in paddle_tpu_torch.kernels.BF16_KERNELS)):
+                   for name in paddle_tpu_torch.kernels.BF16_KERNELS),
+                 *(name + "_dh128"
+                   for name in paddle_tpu_torch.kernels.DH128_KERNELS)):
         r = dict(records[(name, max(BATCHES))])
         r.pop("library_max_abs_err", None)
         r["launches"] = total[name]
         require(r["launches"] > 0, f"{name}: no launch on the main paths")
         kernels_line.append(r)
     print(json.dumps({"main_path": runs, "serving": serving,
+                      "head128": runs_128, "serving_head128": serving_128,
                       "training": training, "training_fused": training_fused,
                       "training_dropout": training_dropout,
                       "training_amp": training_amp,

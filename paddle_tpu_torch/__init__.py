@@ -70,7 +70,9 @@ other operation is plain PyTorch, the convolutions that are not 1x1
 included (cuDNN on the card; turn its TF32 off for the f32 step).  At a
 head width % 64 != 0 the attention and decode kernels give way to their
 plain composition by shape, as the reference's plans do, and count it in
-``kernels.composed``.  Pass ``device="cpu"`` to run every kernel's plain
+``kernels.composed``; at 128 the serving path's kernels launch their
+head-width-128 instantiations (``kernels.HEAD_WIDTHS``) and the others
+raise.  Pass ``device="cpu"`` to run every kernel's plain
 twin instead.  The package imports neither JAX nor ``paddle_tpu``.
 """
 

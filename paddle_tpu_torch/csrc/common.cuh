@@ -7,8 +7,6 @@
 
 namespace ptt {
 
-// head width the decode kernels are compiled for
-constexpr int DH = 64;
 // score of a masked row (the reference's -1e30)
 constexpr float kMaskValue = -1e30f;
 

@@ -10,9 +10,11 @@
 // (sequence, head)'s partials in split order, a warp a pair.  No atomics:
 // a repeated call gives the same bits.
 //
-// A block of the walk has NW warps, one a head of its item's group of at
-// most NW heads.  The head width is DH (common.cuh), a compile-time
-// constant.
+// A walk's item takes a group of at most GH heads, one warp a head, in
+// blocks of NT threads (GH <= NT / 32; the warps past GH copy but do not
+// score).  The head width DH, 64 or 128, is a template parameter: a lane
+// holds DH / 32 of a head's context dims (a float2 at 64, a float4 at
+// 128) and scores half of a row's DH dims.
 
 #pragma once
 
@@ -26,8 +28,8 @@ namespace ptt {
 
 // cache rows a walk stages at once (two lanes a row of a warp)
 constexpr int CR = 16;
-// floats of one walk partial: acc[DH], m, l, padding
-constexpr int PART = DH + 4;
+// floats of one walk partial of head width dh: acc[dh], m, l, padding
+__host__ __device__ constexpr int part_floats(int dh) { return dh + 4; }
 // walk splits a sequence at most (a merge lane each)
 constexpr int MAX_SPLITS = 32;
 
@@ -109,29 +111,63 @@ __device__ __forceinline__ int valid_rows(const Side& s, const int* lengths,
   return min(max(__ldg(lengths + seq), 0), capacity<PAGED>(s));
 }
 
-// Shared memory floats of a walk of nw-warp blocks: `stages` chunks of k
-// and v rows of a head group (at most nw heads; 8 floats of padding a
-// row), a q row each, and the batch's prefix sum of splits.
-__host__ __device__ __forceinline__ int walk_floats(int nw, int stages,
+// Shared memory floats of a walk of head width dh whose items take
+// groups of at most g heads: `stages` chunks of k and v rows of a head
+// group (8 floats of padding a row), a q row each, and the batch's prefix
+// sum of splits.
+__host__ __device__ __forceinline__ int walk_floats(int dh, int g, int stages,
                                                     int n_head, int batch) {
-  const int gw = (n_head < nw ? n_head : nw) * DH;
+  const int gw = (n_head < g ? n_head : g) * dh;
   return stages * (2 * CR * (gw + 8) + gw) + batch + 1;
 }
+
+// The DH / 32 context dims a lane holds: a float2 at 64, a float4 at 128.
+template <int DH>
+struct Lane;
+template <>
+struct Lane<64> {
+  using V = float2;
+  __device__ static V zero() { return make_float2(0.f, 0.f); }
+  __device__ static void fma(V& a, float p, const V& v) {
+    a.x += p * v.x;
+    a.y += p * v.y;
+  }
+  __device__ static V scaled(const V& a, float s) {
+    return make_float2(a.x * s, a.y * s);
+  }
+};
+template <>
+struct Lane<128> {
+  using V = float4;
+  __device__ static V zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ static void fma(V& a, float p, const V& v) {
+    a.x += p * v.x;
+    a.y += p * v.y;
+    a.z += p * v.z;
+    a.w += p * v.w;
+  }
+  __device__ static V scaled(const V& a, float s) {
+    return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
+  }
+};
 
 // A walk's contexts from its partials, after a grid barrier: ctx [b, hd],
 // one warp a (sequence, head) over the grid's warps (NW a block).  pre_s
 // is the walk's prefix sum of splits in this block's shared memory
 // (walk_phase's return), so the splits holding rows of sequence seq are
 // pre_s[seq + 1] - pre_s[seq], read without a trip to memory.  Lane s <
-// those splits reads split s's (m, l); the lane's two context dims sum
-// the splits in split order (ctx 0 where no split holds a row).  The
+// those splits reads split s's (m, l); the lane's DH / 32 context dims
+// sum the splits in split order (ctx 0 where no split holds a row).  The
 // dims of the first PRE splits are loaded with (m, l), before the
 // reductions: flash-decode's merge is its kernel's tail, and 16 takes an
 // L2 round trip off it; the megastep (PRE 0) measured slower with it.
-template <int NW, int PRE>
+template <int DH, int NW, int PRE>
 __device__ __noinline__ void merge_phase(const int* pre_s, const float* part,
                                          int ns, int batch, int h,
                                          float* ctx) {
+  using LV = Lane<DH>;
+  using V = typename LV::V;
+  constexpr int PART = part_floats(DH);
   const int lane = threadIdx.x & 31;
   const size_t step = (size_t)h * PART;
   for (int pair = blockIdx.x * NW + (threadIdx.x >> 5); pair < batch * h;
@@ -141,43 +177,40 @@ __device__ __noinline__ void merge_phase(const int* pre_s, const float* part,
     const float* pp = part + ((size_t)seq * ns * h + head) * PART;
     const float m = lane < nvs ? __ldcg(pp + lane * step + DH) : -INFINITY;
     const float l = lane < nvs ? __ldcg(pp + lane * step + DH + 1) : 0.f;
-    float2 a[PRE > 0 ? PRE : 1];
+    V a[PRE > 0 ? PRE : 1];
 #pragma unroll
     for (int s = 0; s < PRE; ++s)
-      a[s] = s < nvs ? __ldcg(reinterpret_cast<const float2*>(pp + s * step) +
-                              lane)
-                     : make_float2(0.f, 0.f);
+      a[s] = s < nvs ? __ldcg(reinterpret_cast<const V*>(pp + s * step) + lane)
+                     : LV::zero();
     const float mx = warp_max(m);
     const float e = lane < nvs ? expf(m - mx) : 0.f;
     const float total = warp_sum(l * e);
-    float ax = 0.f, ay = 0.f;
+    V acc = LV::zero();
 #pragma unroll
     for (int s = 0; s < PRE; ++s) {
       if (s < nvs) {
         const float es = __shfl_sync(0xffffffffu, e, s);
-        ax += a[s].x * es;
-        ay += a[s].y * es;
+        LV::fma(acc, es, a[s]);
       }
     }
 #pragma unroll 8
     for (int s = PRE; s < nvs; ++s) {
       const float es = __shfl_sync(0xffffffffu, e, s);
-      const float2 b =
-          __ldcg(reinterpret_cast<const float2*>(pp + s * step) + lane);
-      ax += b.x * es;
-      ay += b.y * es;
+      const V b = __ldcg(reinterpret_cast<const V*>(pp + s * step) + lane);
+      LV::fma(acc, es, b);
     }
     const float inv = nvs ? 1.f / total : 0.f;
-    *reinterpret_cast<float2*>(ctx + (size_t)seq * h * DH + head * DH +
-                               2 * lane) = make_float2(ax * inv, ay * inv);
+    *(reinterpret_cast<V*>(ctx + (size_t)seq * h * DH + head * DH) + lane) =
+        LV::scaled(acc, inv);
   }
 }
 
-// The online-softmax state of one warp for one head: the lane's two
-// context dims 2 lane, 2 lane + 1.
+// The online-softmax state of one warp for one head: the lane's DH / 32
+// context dims from (DH / 32) lane.
+template <int DH>
 struct Walk {
   float m, l;
-  float2 acc;
+  typename Lane<DH>::V acc;
 };
 
 // Where a walk is in a block's items: item `it` (of the phase's list of
@@ -190,28 +223,32 @@ struct Cursor {
   int it, seq, grp, sp, ch, ord, blk;
 };
 
-// One walk phase, run by every thread of NW-warp blocks.  Its items are
+// One walk phase, run by every thread of NT-thread blocks.  Its items are
 // the (head group, sequence, split) triples whose split holds rows,
 // numbered in that order from a prefix sum of the sequences' splits, and
 // block i takes items i, i + G, ...: every block gets as many as any
 // other, give or take one, whatever the lengths.  Each item's valid rows
 // go in chunks of CR, each chunk's k and v rows (the group's heads, at
-// most NW of them) and, with an item's first chunk, its q row staged by
-// cp.async STAGES - 1 chunks ahead, across items too; warp w walks head w
-// of the group; lanes 2r and 2r + 1 score row r of the chunk, each over
-// half of the head's DH dims, and the score is q.k times `scale`.  Leaves
+// most GH of them) and, with an item's first chunk, its q row staged by
+// cp.async STAGES - 1 chunks ahead, across items too, by all NT threads;
+// warp w < GH walks head w of the group; lanes 2r and 2r + 1 score row r of
+// the chunk, each over half of the head's DH dims, and the score is q.k
+// times `scale`.  Leaves
 // each (sequence, split, head)'s (acc, m, l) in part [b, ns, h, PART] and
 // returns the prefix sum of splits in smem that merge_phase reads.
-template <bool PAGED, int NW, int STAGES>
+template <int DH, bool PAGED, int GH, int NT, int STAGES>
 __device__ __noinline__ const int* walk_phase(const WalkDims& D, const Side& side,
                                         const int* lengths, const float* q,
                                         int split, int ns, float* part,
                                         float* smem, float scale) {
-  constexpr int NT = 32 * NW;
+  static_assert(GH * 32 <= NT, "a warp a head of the group");
+  using LV = Lane<DH>;
+  using V = typename LV::V;
+  constexpr int PART = part_floats(DH);
   constexpr int TPR = NT / CR;  // threads copying a chunk row
   const int h = D.n_head, hd = D.hd, b = D.batch;
-  const int ng = (h + NW - 1) / NW;
-  const int gw = min(h, NW) * DH;
+  const int ng = (h + GH - 1) / GH;
+  const int gw = min(h, GH) * DH;
   const int rs = gw + 8;  // conflict-free float4 scores: rs / 4 = 2 mod 8
   const int stage_f = 2 * CR * rs;
   float* q_s = smem + STAGES * stage_f;  // [STAGES][gw]
@@ -283,7 +320,7 @@ __device__ __noinline__ const int* walk_phase(const WalkDims& D, const Side& sid
   };
   auto issue = [&](const Cursor& c, int st) {
     const int nr = min(CR, rows_of(c) - c.ch * CR);
-    const int width = min(NW, h - c.grp * NW) * DH;
+    const int width = min(GH, h - c.grp * GH) * DH;
     float* ks = smem + st * stage_f;
     float* vs = ks + CR * rs;
     if (row < nr) {
@@ -300,7 +337,7 @@ __device__ __noinline__ const int* walk_phase(const WalkDims& D, const Side& sid
              q + (size_t)c.seq * hd + c.grp * gw + 4 * t, 16);
   };
 
-  Walk st{-INFINITY, 0.f, make_float2(0.f, 0.f)};
+  Walk<DH> st{-INFINITY, 0.f, LV::zero()};
   Cursor comp = item_at(blockIdx.x, 0);
   Cursor fill = comp;
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -320,10 +357,10 @@ __device__ __noinline__ const int* walk_phase(const WalkDims& D, const Side& sid
     copies_wait<STAGES - 1>();
     __syncthreads();
 
-    const int head = comp.grp * NW + warp;
+    const int head = comp.grp * GH + warp;
     const int nr = min(CR, rows_of(comp) - comp.ch * CR);
     const bool last = (comp.ch + 1) * CR >= rows_of(comp);
-    if (head < h) {
+    if (warp < GH && head < h) {
       const float* ks = smem + stage * stage_f;
       const float* vs = ks + CR * rs;
       const float* qh = q_s + (comp.ord % STAGES) * gw + warp * DH;
@@ -344,27 +381,24 @@ __device__ __noinline__ const int* walk_phase(const WalkDims& D, const Side& sid
       const float pe = expf(s - m_new);
       const float alpha = expf(st.m - m_new);
       st.l = st.l * alpha + warp_sum(half ? 0.f : pe);
-      st.acc.x *= alpha;
-      st.acc.y *= alpha;
-      const float* vp = vs + warp * DH + 2 * lane;
+      st.acc = LV::scaled(st.acc, alpha);
+      const float* vp = vs + warp * DH + (DH / 32) * lane;
 #pragma unroll 4
       for (int r = 0; r < nr; ++r) {
         const float pj = __shfl_sync(0xffffffffu, pe, 2 * r);
-        const float2 vv = *reinterpret_cast<const float2*>(vp + r * rs);
-        st.acc.x += pj * vv.x;
-        st.acc.y += pj * vv.y;
+        LV::fma(st.acc, pj, *reinterpret_cast<const V*>(vp + r * rs));
       }
       st.m = m_new;
       if (last) {
         // the item's last chunk: its partial, then a fresh state
         float* dst =
             part + (((size_t)comp.seq * ns + comp.sp) * h + head) * PART;
-        *reinterpret_cast<float2*>(dst + 2 * lane) = st.acc;
+        reinterpret_cast<V*>(dst)[lane] = st.acc;
         if (lane == 0) {
           dst[DH] = st.m;
           dst[DH + 1] = st.l;
         }
-        st = Walk{-INFINITY, 0.f, make_float2(0.f, 0.f)};
+        st = Walk<DH>{-INFINITY, 0.f, LV::zero()};
       }
     }
     __syncthreads();  // this stage and q row are free for the next issue

@@ -39,14 +39,16 @@
 //       reduction); q goes to scratch, k and v straight into the cache
 //       row of each active lane.
 //   P2  self walk: items of 16 cache rows of a (head group of up to 8
-//       heads, sequence), numbered over the rows that exist (a prefix sum
-//       of the lengths) so that every block gets as many as any other;
-//       k and v rows (2 KB a row a group) and q staged through a
-//       two-stage cp.async ring that runs on across the block's items; a
-//       warp a head, two lanes a row.  Each item leaves its (m, l, acc)
-//       per head in scratch; then the contexts, one warp a (sequence,
-//       head), the items merged in order.  The walk and its merge are
-//       decode_walk.cuh's, shared with flash-decode (decode_attention.cu).
+//       heads of 64, or 4 of 128, sequence), numbered over the rows that
+//       exist (a prefix sum of the lengths) so that every block gets as
+//       many as any other; k and v rows (2 KB a row a group) and q staged
+//       through a two-stage cp.async ring that runs on across the block's
+//       items; a warp a head, two lanes a row (at head width 128 four of
+//       the block's eight warps walk, and all eight copy).  Each item
+//       leaves its (m, l, acc) per head in scratch; then the contexts,
+//       one warp a (sequence, head), the items merged in order.  The walk
+//       and its merge are decode_walk.cuh's, shared with flash-decode
+//       (decode_attention.cu).
 //   P3  y = ctx Wout: as P1.  Each projection's first W tile is copied a
 //       phase ahead (P3's during P1 and P2, P4's during P3, P6's during
 //       P4 and P5), so that after a barrier only the rows that phase
@@ -74,13 +76,15 @@
 // the read-only path or L1.
 //
 // Shared memory: P3's and P6's W tile, K (ct + 4) floats, then the larger
-// of a walk, 2 (2*16 (gw + 8) + gw) floats with gw = 64 * min(h, 8) (134
-// KB at 8 heads of 64), and P1's or P4's W tile with the largest A^T and
-// the reduction buffer, K (max(rg, 4) + 4) + 4224 floats: 200.5 KB at
-// batch 64 (tiles (32, 32), (16, 16), (32, 8)), 150 KB at batch 1.  At
-// head width 128 (C2's later slice) a group of 8 heads is 1024 floats a
-// row and the walk would need 266 KB, over a block's 227 KB: groups of
-// 4 heads (134 KB) keep it.
+// of a walk, 2 (2*16 (gw + 8) + gw) floats with gw = dh * min(h, GH) (134
+// KB at 8 heads of 64 or 4 of 128), and P1's or P4's W tile with the
+// largest A^T and the reduction buffer, K (max(rg, 4) + 4) + 4224 floats:
+// 200.5 KB at batch 64 (tiles (32, 32), (16, 16), (32, 8)), 150 KB at
+// batch 1, at Transformer-base's widths.  At head width 128 a group of 8
+// heads is 1024 floats a row and its walk would need 266 KB, over a
+// block's 227 KB: the walk's group is GH = 4 heads there
+// (kernels/decode_step.py MEGASTEP_GROUPS).  The kernel is instantiated
+// for head widths 64 and 128.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -93,9 +97,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 using ptt::CR;
-using ptt::DH;
 using ptt::MAX_SPLITS;
-using ptt::PART;
 using ptt::Side;
 using ptt::capacity;
 using ptt::copies_commit;
@@ -107,6 +109,10 @@ using ptt::walk_phase;
 
 constexpr int NT = 256;
 constexpr int NW = NT / 32;
+// heads a walk item takes at head width dh (a warp each)
+__host__ __device__ constexpr int walk_group(int dh) {
+  return dh == 64 ? 8 : 4;
+}
 // walk chunks in the copy ring (STAGES - 1 in flight while one computes;
 // three ran no faster on the H100)
 constexpr int STAGES = 2;
@@ -147,7 +153,7 @@ struct Params {
   const int* active;
   float* out;
   // scratch: q [b, hd], cq [b, hd], ctx and cctx [b, hd], y [b, dm],
-  // y2 [b, dm], x1 [b, dm], the walks' partials [b, splits, h, PART]
+  // y2 [b, dm], x1 [b, dm], the walks' partials [b, splits, h, dh + 4]
   float* q1;
   float* q2;
   float* c1;
@@ -446,9 +452,10 @@ __device__ __noinline__ void project(const Params& P, int which, float* w_s,
   }
 }
 
-template <bool PAGED>
+template <bool PAGED, int DH>
 __global__ void __launch_bounds__(NT, 1)
     megastep_kernel(const __grid_constant__ Params P) {
+  constexpr int GH = walk_group(DH);
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const Plan& pl = P.plan;
@@ -469,11 +476,11 @@ __global__ void __launch_bounds__(NT, 1)
 
   // P2: the self walk, then its contexts
   const int* pre_s =
-      walk_phase<PAGED, NW, STAGES>(D, P.self_side, P.lengths, P.q1,
-                                    pl.split_self, P.ns_self, P.p1, rest,
-                                    1.f);
+      walk_phase<DH, PAGED, GH, NT, STAGES>(D, P.self_side, P.lengths, P.q1,
+                                           pl.split_self, P.ns_self, P.p1,
+                                           rest, 1.f);
   grid.sync();
-  merge_phase<NW, 0>(pre_s, P.p1, P.ns_self, b, P.n_head, P.c1);
+  merge_phase<DH, NW, 0>(pre_s, P.p1, P.ns_self, b, P.n_head, P.c1);
   grid.sync();
 
   // P3: y = ctx Wout; P4's first tile on its way
@@ -485,11 +492,11 @@ __global__ void __launch_bounds__(NT, 1)
   grid.sync();
 
   // P5: the cross walk, then its contexts
-  pre_s = walk_phase<PAGED, NW, STAGES>(D, P.cross_side, P.cross_lengths,
-                                        P.q2, pl.split_cross, P.ns_cross,
-                                        P.p2, rest, 1.f);
+  pre_s = walk_phase<DH, PAGED, GH, NT, STAGES>(
+      D, P.cross_side, P.cross_lengths, P.q2, pl.split_cross, P.ns_cross,
+      P.p2, rest, 1.f);
   grid.sync();
-  merge_phase<NW, 0>(pre_s, P.p2, P.ns_cross, b, P.n_head, P.c2);
+  merge_phase<DH, NW, 0>(pre_s, P.p2, P.ns_cross, b, P.n_head, P.c2);
   grid.sync();
 
   // P6: y2 = cctx Wcout
@@ -514,56 +521,66 @@ bool tile_ok(int ct, int rg) {
 // Shared memory floats the kernel lays out for this plan: P3's and P6's W
 // tile, then the larger of a walk and P1's or P4's W tile with the
 // largest A^T.
-int plan_floats(const Plan& pl, int batch, int dm, int n_head) {
-  const int hd = n_head * DH;
+int plan_floats(const Plan& pl, int batch, int dm, int n_head, int dh) {
+  const int hd = n_head * dh;
   const int at =
       max(max(rows_floats(dm, pl.rg_qkv), rows_floats(hd, pl.rg_out)),
           rows_floats(dm, pl.rg_cq));
   return tile_floats(hd, pl.ct_out) +
-         max(ptt::walk_floats(NW, STAGES, n_head, batch),
+         max(ptt::walk_floats(dh, walk_group(dh), STAGES, n_head, batch),
              tile_floats(dm, max(pl.ct_qkv, pl.ct_cq)) + at);
 }
 
 // cudaSuccess if the kernel can run `pl` at these widths.
-cudaError_t check_plan(const Plan& pl, int batch, int dm, int n_head) {
-  const bool ok = batch >= 1 && dm >= 4 && dm % 4 == 0 && n_head >= 1 &&
+cudaError_t check_plan(const Plan& pl, int batch, int dm, int n_head,
+                       int dh) {
+  const bool ok = (dh == 64 || dh == 128) && batch >= 1 && dm >= 4 &&
+                  dm % 4 == 0 && n_head >= 1 &&
                   pl.grid >= 1 && tile_ok(pl.ct_qkv, pl.rg_qkv) &&
                   tile_ok(pl.ct_out, pl.rg_out) &&
                   tile_ok(pl.ct_cq, pl.rg_cq) && pl.split_self >= CR &&
                   pl.split_self % CR == 0 && pl.split_cross >= CR &&
                   pl.split_cross % CR == 0 &&
-                  plan_floats(pl, batch, dm, n_head) <= pl.smem / 4;
+                  plan_floats(pl, batch, dm, n_head, dh) <= pl.smem / 4;
   return ok ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Raise the kernel's dynamic shared memory to `smem` bytes (once a size).
-template <bool PAGED>
-cudaError_t configure(int smem) {
-  static int configured = 0;
-  if (smem > configured) {
+// The instantiation of a layout and head width (64 or 128).
+const void* kernel_for(bool paged, int dh) {
+  if (dh == 64)
+    return paged ? (const void*)megastep_kernel<true, 64>
+                 : (const void*)megastep_kernel<false, 64>;
+  return paged ? (const void*)megastep_kernel<true, 128>
+               : (const void*)megastep_kernel<false, 128>;
+}
+
+// Raise an instantiation's dynamic shared memory to `smem` bytes (once a
+// size).
+cudaError_t configure(bool paged, int dh, int smem) {
+  static int configured[2][2] = {};
+  int& done = configured[paged][dh == 128];
+  if (smem > done) {
     const cudaError_t err = cudaFuncSetAttribute(
-        megastep_kernel<PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel_for(paged, dh), cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return err;
-    configured = smem;
+    done = smem;
   }
   return cudaSuccess;
 }
 
 int64_t splits(int rows, int split) { return (rows + split - 1) / split; }
 
-template <bool PAGED>
-int launch(Params& P, void* stream) {
+int launch(Params& P, bool paged, int dh, void* stream) {
   if (P.ns_self > MAX_SPLITS || P.ns_cross > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = check_plan(P.plan, P.batch, P.dm, P.n_head);
+  cudaError_t err = check_plan(P.plan, P.batch, P.dm, P.n_head, dh);
   if (err != cudaSuccess) return (int)err;
-  err = configure<PAGED>(P.plan.smem);
+  err = configure(paged, dh, P.plan.smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&P};
-  err = cudaLaunchCooperativeKernel((const void*)megastep_kernel<PAGED>,
-                                    dim3(P.plan.grid), dim3(NT), args,
-                                    (size_t)P.plan.smem,
+  err = cudaLaunchCooperativeKernel(kernel_for(paged, dh), dim3(P.plan.grid),
+                                    dim3(NT), args, (size_t)P.plan.smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -572,6 +589,7 @@ int launch(Params& P, void* stream) {
 // Carve the scratch into Params.
 void carve(Params& P, float* scratch) {
   const size_t b = P.batch, hd = P.hd, dm = P.dm, h = P.n_head;
+  const size_t part = ptt::part_floats(P.hd / P.n_head);
   P.q1 = scratch;
   P.q2 = P.q1 + b * hd;
   P.c1 = P.q2 + b * hd;
@@ -580,7 +598,7 @@ void carve(Params& P, float* scratch) {
   P.y2 = P.y1 + b * dm;
   P.x1 = P.y2 + b * dm;
   P.p1 = P.x1 + b * dm;
-  P.p2 = P.p1 + b * P.ns_self * h * PART;
+  P.p2 = P.p1 + b * P.ns_self * h * part;
 }
 
 }  // namespace
@@ -588,28 +606,28 @@ void carve(Params& P, float* scratch) {
 // Floats of the scratch a launch at these widths needs, with ns_self and
 // ns_cross splits a sequence (ceil(rows / split) of each walk).
 extern "C" int64_t ptt_megastep_scratch(int batch, int dm, int n_head,
-                                        int ns_self, int ns_cross) {
-  const int64_t b = batch, hd = (int64_t)n_head * DH;
+                                        int dh, int ns_self, int ns_cross) {
+  const int64_t b = batch, hd = (int64_t)n_head * dh;
   return 4 * b * hd + 3 * b * dm +
-         b * (int64_t)(ns_self + ns_cross) * n_head * PART;
+         b * (int64_t)(ns_self + ns_cross) * n_head * ptt::part_floats(dh);
 }
 
-// Blocks of the (paged) kernel an SM holds at once with `smem` bytes of
-// dynamic shared memory, or minus a CUDA error.
-extern "C" int ptt_megastep_occupancy(int paged, int smem) {
-  cudaError_t err = paged ? configure<true>(smem) : configure<false>(smem);
+// Blocks of the (paged) kernel of head width dh an SM holds at once with
+// `smem` bytes of dynamic shared memory, or minus a CUDA error.
+extern "C" int ptt_megastep_occupancy(int paged, int dh, int smem) {
+  if (dh != 64 && dh != 128) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = configure(paged, dh, smem);
   if (err != cudaSuccess) return -(int)err;
   int blocks = 0;
-  err = paged ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &blocks, megastep_kernel<true>, NT, smem)
-              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    &blocks, megastep_kernel<false>, NT, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel_for(paged, dh), NT, smem);
   return err != cudaSuccess ? -(int)err : blocks;
 }
 
-// x/out [b, dm]; caches [L, b, max_t|cross_t, n_head, 64]; the int32
-// vectors are [b].  cache_k/cache_v are updated in place.  scratch holds
-// ptt_megastep_scratch floats; the plan's integers follow the widths.
+// x/out [b, dm]; caches [L, b, max_t|cross_t, n_head, dh], dh 64 or 128;
+// the int32 vectors are [b].  cache_k/cache_v are updated in place.
+// scratch holds ptt_megastep_scratch floats; the plan's integers follow
+// the widths.
 extern "C" int ptt_megastep(
     const float* x, const float* wqkv, const float* wout, const float* ln1s,
     const float* ln1b, const float* wcq, const float* wcout,
@@ -617,7 +635,8 @@ extern "C" int ptt_megastep(
     const float* cross_k, const float* cross_v, const int* pos,
     const int* lengths, const int* cross_lengths, const int* active,
     float* out, float* scratch, int layer, int batch, int dm, int n_head,
-    int max_t, int cross_t, int grid, int ct_qkv, int rg_qkv, int ct_out,
+    int dh, int max_t, int cross_t, int grid, int ct_qkv, int rg_qkv,
+    int ct_out,
     int rg_out, int ct_cq, int rg_cq, int split_self, int split_cross,
     int smem, float scale, float eps, void* stream) {
   Params P{x, wqkv, wout, ln1s, ln1b, wcq, wcout, ln2s, ln2b, cache_k,
@@ -633,21 +652,22 @@ extern "C" int ptt_megastep(
   P.batch = batch;
   P.dm = dm;
   P.n_head = n_head;
-  P.hd = n_head * DH;
+  P.hd = n_head * dh;
   P.scale = scale;
   P.eps = eps;
   P.plan = Plan{grid,   ct_qkv, rg_qkv,     ct_out,      rg_out,
                 ct_cq,  rg_cq,  split_self, split_cross, smem};
-  if (max_t < 1 || cross_t < 1 || split_self < 1 || split_cross < 1)
+  if (max_t < 1 || cross_t < 1 || split_self < 1 || split_cross < 1 ||
+      n_head < 1)
     return (int)cudaErrorInvalidValue;
   P.ns_self = (int)splits(max_t, split_self);
   P.ns_cross = (int)splits(cross_t, split_cross);
   carve(P, scratch);
-  return launch<false>(P, stream);
+  return launch(P, false, dh, stream);
 }
 
-// x/out [b, dm]; pools [L, num_blocks, block_t, n_head, 64] (self) and
-// [L, cross_num_blocks, cross_block_t, n_head, 64] (cross); tables
+// x/out [b, dm]; pools [L, num_blocks, block_t, n_head, dh] (self) and
+// [L, cross_num_blocks, cross_block_t, n_head, dh] (cross); tables
 // [b, max_blocks] and [b, cross_max_blocks] of pool block ids; the int32
 // vectors are [b].  pool_k/pool_v are updated in place.
 extern "C" int ptt_megastep_paged(
@@ -657,8 +677,8 @@ extern "C" int ptt_megastep_paged(
     const float* cross_k, const float* cross_v, const int* pos,
     const int* lengths, const int* cross_lengths, const int* self_table,
     const int* cross_table, const int* active, float* out, float* scratch,
-    int layer, int batch, int dm, int n_head, int num_blocks, int block_t,
-    int max_blocks, int cross_num_blocks, int cross_block_t,
+    int layer, int batch, int dm, int n_head, int dh, int num_blocks,
+    int block_t, int max_blocks, int cross_num_blocks, int cross_block_t,
     int cross_max_blocks, int grid, int ct_qkv, int rg_qkv, int ct_out,
     int rg_out, int ct_cq, int rg_cq, int split_self, int split_cross,
     int smem, float scale, float eps, void* stream) {
@@ -677,16 +697,16 @@ extern "C" int ptt_megastep_paged(
   P.batch = batch;
   P.dm = dm;
   P.n_head = n_head;
-  P.hd = n_head * DH;
+  P.hd = n_head * dh;
   P.scale = scale;
   P.eps = eps;
   P.plan = Plan{grid,   ct_qkv, rg_qkv,     ct_out,      rg_out,
                 ct_cq,  rg_cq,  split_self, split_cross, smem};
   if (max_blocks < 1 || block_t < 1 || cross_max_blocks < 1 ||
-      cross_block_t < 1 || split_self < 1 || split_cross < 1)
+      cross_block_t < 1 || split_self < 1 || split_cross < 1 || n_head < 1)
     return (int)cudaErrorInvalidValue;
   P.ns_self = (int)splits(max_blocks * block_t, split_self);
   P.ns_cross = (int)splits(cross_max_blocks * cross_block_t, split_cross);
   carve(P, scratch);
-  return launch<true>(P, stream);
+  return launch(P, true, dh, stream);
 }

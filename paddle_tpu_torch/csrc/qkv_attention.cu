@@ -45,6 +45,14 @@
 //   every key tile it walks, that tile's k and v again (t / 64 times in
 //   all), with a 4x4 patch per thread and no copy pipeline.
 //
+// Both f32 routes are instantiated for head widths 64 and 128 (the
+// serving path's; the bf16 routes below are compiled for 64).  At 128 the
+// cluster block doubles its threads (256, a row group a warp) instead of
+// each thread's columns, so the projection's accumulators stay 96 a
+// thread at R = 64; its layout takes 187 KB (R = 64) or 135 KB (R = 32),
+// one block an SM.  The tiles block keeps its 256 threads and each owns
+// 8 columns of a 128-wide tile (159 KB).
+//
 // Weights dropout, as in the bthd forward (flash_attention.cu): l sums
 // the undropped p, the p tile multiplying v is dropped by
 // hash_rng::keep_attn at (seed, b * n_head + head, q * t + k), the same
@@ -74,7 +82,7 @@
 // function's 21.5.  The tiles route (t > 512) stays f32 arithmetic on
 // bf16 operands converted as they load.
 //
-// The context ctx [b, t, h, 64] and lse [b, h, t] (+inf on a masked row)
+// The context ctx [b, t, h, d_head] and lse [b, h, t] (+inf on a masked row)
 // are the residuals the backward kernels (#2, #3 in qkv_attention_bwd.cu)
 // read, as the TPU kernel always returns them; serving passes scratch.
 
@@ -98,23 +106,33 @@ using hash_rng::Dropout;
 
 constexpr int BQ = 64;       // query rows per block
 constexpr int BK = 64;       // key rows per walk step
-constexpr int DH = 64;       // head width (both routes)
+constexpr int DH = 64;       // head width of the bf16 routes
 constexpr int KC = 32;       // reduction chunk of the projections
 constexpr int NT = 256;      // threads per block
 constexpr int AS = KC + 1;   // row stride of the activation tile
-constexpr int QS = DH + 1;   // row stride of q / p tiles
-constexpr int TS = DH + 4;   // row stride of k^T / v tiles (float4 rows)
 constexpr float kMaskValue = -1e30f;
 
-// shared-memory layout, in floats
-constexpr int kAOff = 0;                       // x tile      [BQ][AS]
-constexpr int kBOff = kAOff + BQ * AS;         // two w tiles [2][KC][DH]
-constexpr int kQOff = kBOff + 2 * KC * DH;     // q           [BQ][QS]
-constexpr int kKOff = kQOff + BQ * QS;         // k^T         [DH][TS]
-constexpr int kVOff = kKOff + DH * TS;         // v           [BK][TS]
-constexpr int kPOff = kVOff + BK * TS;         // p           [BQ][QS]
-constexpr int kSmemFloats = kPOff + BQ * QS;
-constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
+// Shared-memory layout of qkv_tiles_fwd_kernel at head width D (64 or
+// 128), in floats.  Thread (ty, tx) = (tid / 16, tid % 16) owns rows
+// 4ty..4ty+3 of every tile, keys 4tx..4tx+3 of the score patch and CW = D
+// / 16 columns from CW tx of a D-wide tile.  At D = 64 it takes 91 KB, at
+// 128 159 KB.
+template <int D>
+struct Tiles {
+  static constexpr int CW = D / 16;  // columns of a D-wide tile a thread owns
+  static constexpr int QS = D + 1;   // row stride of q
+  static constexpr int KS = BK + 4;  // row stride of k^T (float4 rows)
+  static constexpr int VS = D + 4;   // row stride of v (float4 rows)
+  static constexpr int PS = BK + 1;  // row stride of p
+  static constexpr int kA = 0;                  // x tile      [BQ][AS]
+  static constexpr int kB = kA + BQ * AS;       // two w tiles [2][KC][D]
+  static constexpr int kQ = kB + 2 * KC * D;    // q           [BQ][QS]
+  static constexpr int kK = kQ + BQ * QS;       // k^T         [D][KS]
+  static constexpr int kV = kK + D * KS;        // v           [BK][VS]
+  static constexpr int kP = kV + BK * VS;       // p           [BQ][PS]
+  static constexpr int kFloats = kP + BQ * PS;
+  static constexpr size_t kBytes = kFloats * sizeof(float);
+};
 
 // Load the activation tile x[rows r0.., cols k0..k0+KC) (zero past t).
 template <class T>
@@ -132,19 +150,30 @@ __device__ __forceinline__ void load_x_tile(float* a_s, const T* xb,
   }
 }
 
-// Load the weight tile w[k0..k0+KC, col0..col0+DH) with row stride ldw.
-template <class T>
+// Load the weight tile w[k0..k0+KC, col0..col0+D) with row stride ldw.
+template <int D, class T>
 __device__ __forceinline__ void load_w_tile(float* b_s, const T* w,
                                             int ldw, int k0, int col0) {
-  for (int idx = threadIdx.x; idx < KC * (DH / 4); idx += NT) {
-    int row = idx / (DH / 4);
-    int c4 = idx % (DH / 4);
-    *reinterpret_cast<float4*>(b_s + row * DH + c4 * 4) =
+  for (int idx = threadIdx.x; idx < KC * (D / 4); idx += NT) {
+    int row = idx / (D / 4);
+    int c4 = idx % (D / 4);
+    *reinterpret_cast<float4*>(b_s + row * D + c4 * 4) =
         load4(w + (size_t)(k0 + row) * ldw + col0 + c4 * 4);
   }
 }
 
-template <bool DROP, class T = float>
+// acc[i][4c..4c+3] += a[i] * b for the four rows i of a thread's patch.
+template <int N>
+__device__ __forceinline__ void fma_rows4(float (&acc)[4][N], int c,
+                                          const float (&a)[4], float4 b) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc[i][4 * c] += a[i] * b.x; acc[i][4 * c + 1] += a[i] * b.y;
+    acc[i][4 * c + 2] += a[i] * b.z; acc[i][4 * c + 3] += a[i] * b.w;
+  }
+}
+
+template <bool DROP, class T = float, int D = DH>
 __global__ void __launch_bounds__(NT)
 qkv_tiles_fwd_kernel(const T* __restrict__ x,
                          const T* __restrict__ w_qkv,
@@ -153,21 +182,23 @@ qkv_tiles_fwd_kernel(const T* __restrict__ x,
                          int64_t bs_k, T* ctx, float* lse,
                          int t, int dm, int n_head, float scale,
                          int causal, Dropout drop) {
+  using L = Tiles<D>;
+  constexpr int CW = L::CW;
   extern __shared__ float smem[];
-  float* a_s = smem + kAOff;
-  float* b_s = smem + kBOff;
-  float* q_s = smem + kQOff;
-  float* kt_s = smem + kKOff;
-  float* v_s = smem + kVOff;
-  float* p_s = smem + kPOff;
+  float* a_s = smem + L::kA;
+  float* b_s = smem + L::kB;
+  float* q_s = smem + L::kQ;
+  float* kt_s = smem + L::kK;
+  float* v_s = smem + L::kV;
+  float* p_s = smem + L::kP;
 
   const int qt = blockIdx.x;
   const int head = blockIdx.y;
   const int bi = blockIdx.z;
   const int tid = threadIdx.x;
   const int ty = tid / 16;  // rows ty*4 .. ty*4+3 of every tile
-  const int tx = tid % 16;  // cols tx*4 .. tx*4+3 of every tile
-  const int hd = n_head * DH;
+  const int tx = tid % 16;  // keys tx*4.., columns tx*CW.. of a D tile
+  const int hd = n_head * D;
   const int ldw = 3 * hd;
   const int q0 = qt * BQ;
   const T* xb = x + (size_t)bi * t * dm;
@@ -176,41 +207,41 @@ qkv_tiles_fwd_kernel(const T* __restrict__ x,
            : 0u;
 
   // ---- q tile: (x[q0:q0+BQ] @ Wq_h) * scale ---------------------------
-  float acc[4][4];
+  float acc[4][CW];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < CW; ++j) acc[i][j] = 0.f;
   for (int k0 = 0; k0 < dm; k0 += KC) {
     load_x_tile(a_s, xb, q0, t, dm, k0);
-    load_w_tile(b_s, w_qkv, ldw, k0, head * DH);
+    load_w_tile<D>(b_s, w_qkv, ldw, k0, head * D);
     __syncthreads();
 #pragma unroll 8
     for (int kk = 0; kk < KC; ++kk) {
-      float4 bv = *reinterpret_cast<const float4*>(b_s + kk * DH + tx * 4);
+      float av[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float av = a_s[(ty * 4 + i) * AS + kk];
-        acc[i][0] += av * bv.x; acc[i][1] += av * bv.y;
-        acc[i][2] += av * bv.z; acc[i][3] += av * bv.w;
-      }
+      for (int i = 0; i < 4; ++i) av[i] = a_s[(ty * 4 + i) * AS + kk];
+#pragma unroll
+      for (int c = 0; c < CW / 4; ++c)
+        fma_rows4(acc, c, av, *reinterpret_cast<const float4*>(
+                                  b_s + kk * D + tx * CW + 4 * c));
     }
     __syncthreads();
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      q_s[(ty * 4 + i) * QS + tx * 4 + j] = acc[i][j] * scale;
+    for (int j = 0; j < CW; ++j)
+      q_s[(ty * 4 + i) * L::QS + tx * CW + j] = acc[i][j] * scale;
 
   // ---- online-softmax walk over key tiles -----------------------------
-  float m[4], l[4], o[4][4];
+  float m[4], l[4], o[4][CW];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+    for (int j = 0; j < CW; ++j) o[i][j] = 0.f;
   }
   int n_kv = (t + BK - 1) / BK;
   if (causal) {
@@ -222,28 +253,27 @@ qkv_tiles_fwd_kernel(const T* __restrict__ x,
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0r = kt * BK;
     // project this key tile's k and v into shared memory
-    float ka[4][4], va[4][4];
+    float ka[4][CW], va[4][CW];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) { ka[i][j] = 0.f; va[i][j] = 0.f; }
+      for (int j = 0; j < CW; ++j) { ka[i][j] = 0.f; va[i][j] = 0.f; }
     for (int k0 = 0; k0 < dm; k0 += KC) {
       load_x_tile(a_s, xb, k0r, t, dm, k0);
-      load_w_tile(b_s, w_qkv, ldw, k0, hd + head * DH);
-      load_w_tile(b_s + KC * DH, w_qkv, ldw, k0, 2 * hd + head * DH);
+      load_w_tile<D>(b_s, w_qkv, ldw, k0, hd + head * D);
+      load_w_tile<D>(b_s + KC * D, w_qkv, ldw, k0, 2 * hd + head * D);
       __syncthreads();
 #pragma unroll 4
       for (int kk = 0; kk < KC; ++kk) {
-        float4 bk = *reinterpret_cast<const float4*>(b_s + kk * DH + tx * 4);
-        float4 bv = *reinterpret_cast<const float4*>(b_s + KC * DH +
-                                                     kk * DH + tx * 4);
+        float av[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float av = a_s[(ty * 4 + i) * AS + kk];
-          ka[i][0] += av * bk.x; ka[i][1] += av * bk.y;
-          ka[i][2] += av * bk.z; ka[i][3] += av * bk.w;
-          va[i][0] += av * bv.x; va[i][1] += av * bv.y;
-          va[i][2] += av * bv.z; va[i][3] += av * bv.w;
+        for (int i = 0; i < 4; ++i) av[i] = a_s[(ty * 4 + i) * AS + kk];
+#pragma unroll
+        for (int c = 0; c < CW / 4; ++c) {
+          const float* w = b_s + kk * D + tx * CW + 4 * c;
+          fma_rows4(ka, c, av, *reinterpret_cast<const float4*>(w));
+          fma_rows4(va, c, av,
+                    *reinterpret_cast<const float4*>(w + KC * D));
         }
       }
       __syncthreads();
@@ -251,10 +281,14 @@ qkv_tiles_fwd_kernel(const T* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kt_s[(tx * 4 + j) * TS + ty * 4 + i] = ka[i][j];
-      *reinterpret_cast<float4*>(v_s + (ty * 4 + i) * TS + tx * 4) =
-          make_float4(va[i][0], va[i][1], va[i][2], va[i][3]);
+      for (int j = 0; j < CW; ++j)
+        kt_s[(tx * CW + j) * L::KS + ty * 4 + i] = ka[i][j];
+#pragma unroll
+      for (int c = 0; c < CW / 4; ++c)
+        *reinterpret_cast<float4*>(v_s + (ty * 4 + i) * L::VS + tx * CW +
+                                   4 * c) =
+            make_float4(va[i][4 * c], va[i][4 * c + 1], va[i][4 * c + 2],
+                        va[i][4 * c + 3]);
     }
     __syncthreads();
 
@@ -265,11 +299,11 @@ qkv_tiles_fwd_kernel(const T* __restrict__ x,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float4 kv = *reinterpret_cast<const float4*>(kt_s + d * TS + tx * 4);
+    for (int d = 0; d < D; ++d) {
+      float4 kv = *reinterpret_cast<const float4*>(kt_s + d * L::KS + tx * 4);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        float qv = q_s[(ty * 4 + i) * QS + d];
+        float qv = q_s[(ty * 4 + i) * L::QS + d];
         s[i][0] += qv * kv.x; s[i][1] += qv * kv.y;
         s[i][2] += qv * kv.z; s[i][3] += qv * kv.w;
       }
@@ -309,27 +343,28 @@ qkv_tiles_fwd_kernel(const T* __restrict__ x,
       m[i] = m_new;
       const int qpos = q0 + ty * 4 + i;
 #pragma unroll
+      for (int j = 0; j < CW; ++j) o[i][j] *= alpha;
+#pragma unroll
       for (int j = 0; j < 4; ++j) {
-        o[i][j] *= alpha;
         float pv = s[i][j];
         if (DROP && !hash_rng::keep_attn(
                 hseed, (uint32_t)qpos * t + k0r + tx * 4 + j,
                 drop.threshold))
           pv = 0.f;
-        p_s[(ty * 4 + i) * QS + tx * 4 + j] = pv;
+        p_s[(ty * 4 + i) * L::PS + tx * 4 + j] = pv;
       }
     }
     __syncthreads();
     // o += p @ v
 #pragma unroll 8
     for (int kk = 0; kk < BK; ++kk) {
-      float4 vv = *reinterpret_cast<const float4*>(v_s + kk * TS + tx * 4);
+      float pv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float pv = p_s[(ty * 4 + i) * QS + kk];
-        o[i][0] += pv * vv.x; o[i][1] += pv * vv.y;
-        o[i][2] += pv * vv.z; o[i][3] += pv * vv.w;
-      }
+      for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty * 4 + i) * L::PS + kk];
+#pragma unroll
+      for (int c = 0; c < CW / 4; ++c)
+        fma_rows4(o, c, pv, *reinterpret_cast<const float4*>(
+                                v_s + kk * L::VS + tx * CW + 4 * c));
     }
     __syncthreads();
   }
@@ -342,9 +377,11 @@ qkv_tiles_fwd_kernel(const T* __restrict__ x,
                              : (DROP ? drop.inv_keep / l[i] : 1.f / l[i]);
     const int qpos = q0 + ty * 4 + i;
     if (qpos >= t) continue;
-    store4(ctx + ((size_t)bi * t + qpos) * hd + head * DH + tx * 4,
-           make_float4(o[i][0] * inv, o[i][1] * inv, o[i][2] * inv,
-                       o[i][3] * inv));
+#pragma unroll
+    for (int c = 0; c < CW / 4; ++c)
+      store4(ctx + ((size_t)bi * t + qpos) * hd + head * D + tx * CW + 4 * c,
+             make_float4(o[i][4 * c] * inv, o[i][4 * c + 1] * inv,
+                         o[i][4 * c + 2] * inv, o[i][4 * c + 3] * inv));
     if (tx == 0)
       lse[((size_t)bi * n_head + head) * t + qpos] =
           masked ? INFINITY : m[i] + logf(l[i]);
@@ -358,42 +395,51 @@ qkv_tiles_fwd_kernel(const T* __restrict__ x,
 
 constexpr int kMaxCluster = 8;  // the portable cluster size
 
-// Shared-memory layout of qkv_cluster_fwd_kernel<R>, in floats.  Each of
-// the NT = 128 threads owns TR = R / 8 consecutive rows (ty * TR.., ty =
-// tid / 16) of its block's R rows and columns 4tx..4tx+3 (tx = tid % 16)
-// of a 64-wide tile.  Row-minor tiles (q^T, k^T, p^T, x^T) put a thread's
-// rows in TR / 4 float4s.  At R = 64 the layout takes 102 KB, so two
-// blocks share an SM and one block's barriers and waits overlap the
-// other's arithmetic.
-template <int R>
+// Shared-memory layout of qkv_cluster_fwd_kernel<R, D>, in floats, at
+// head width D (64 or 128).  Each of the NT = 2D threads owns TR = R / 8
+// consecutive rows (ty * TR.., ty = tid / TX) of its block's R rows and
+// columns 4tx..4tx+3 (tx = tid % TX, TX = D / 4) of a D-wide tile.  At D
+// = 128 the block has twice the threads (256) rather than each thread
+// twice the columns: the projection's accumulators stay 3 x TR x 4 a
+// thread (96 at R = 64), and a row group is one warp.  Row-minor tiles
+// (q^T, k^T, p^T, x^T) put a thread's rows in TR / 4 float4s.  At D = 64
+// and R = 64 the layout takes 102 KB, so two blocks share an SM and one
+// block's barriers and waits overlap the other's arithmetic; at D = 128
+// it takes 187 KB (R = 64) or 135 KB (R = 32), one block an SM.
+template <int R, int D = DH>
 struct Cluster {
+  static constexpr int TX = D / 4;         // threads across a D-wide tile
   static constexpr int TR = R / 8;         // rows a thread owns
-  static constexpr int NT = 16 * (R / TR); // threads per block
+  static constexpr int NT = 8 * TX;        // threads per block
   static constexpr int CK = 16;            // reduction chunk of the projection
-  static constexpr int KW = R / 16;        // key columns of a thread's s
+  static constexpr int KW = R / TX;        // key columns of a thread's s
   static constexpr int RS = R + 4;         // row stride of row-minor tiles
-  static constexpr int VS = DH + 4;        // row stride of v
-  static constexpr int WS = 3 * DH + 4;    // row stride of a W tile (q|k|v)
+  static constexpr int VS = D + 4;         // row stride of v
+  static constexpr int WS = 3 * D + 4;     // row stride of a W tile (q|k|v)
   // kept from the projection to the end: this block's k^T and v, which
   // its peers read, and its q^T
-  static constexpr int kK = 0;                       // k^T [DH][RS]
-  static constexpr int kV = kK + DH * RS;            // v   [R][VS]
-  static constexpr int kQ = kV + R * VS;             // q^T [DH][RS]
-  static constexpr int kStage = kQ + DH * RS;
+  static constexpr int kK = 0;                       // k^T [D][RS]
+  static constexpr int kV = kK + D * RS;             // v   [R][VS]
+  static constexpr int kQ = kV + R * VS;             // q^T [D][RS]
+  static constexpr int kStage = kQ + D * RS;
   // the staging area: three projection chunks (x^T [CK][RS], W
   // [CK][WS]); then, once projected, a peer's tiles (k^T and v as laid
   // out above) and the walk's probability tile p^T [R][RS]
   static constexpr int kChunk = CK * RS + CK * WS;
-  static constexpr int kPeer = DH * RS + R * VS;
+  static constexpr int kPeer = D * RS + R * VS;
   static constexpr int kP = kPeer;
   static constexpr int kStageFloats =
       3 * kChunk > kPeer + R * RS ? 3 * kChunk : kPeer + R * RS;
   static constexpr size_t kBytes = (kStage + kStageFloats) * sizeof(float);
-  // float4s of one chunk of x a thread loads
-  static constexpr int kXLoads = R * CK / 4 / NT;
+  // float4s of one chunk of x, and how many a thread loads (the last
+  // round partial at D = 128, R = 32)
+  static constexpr int kXFloat4s = R * CK / 4;
+  static constexpr int kXLoads = (kXFloat4s + NT - 1) / NT;
   // float4s of one peer tile a thread copies: its k^T, then its v
-  static constexpr int kCopyK = DH * R / 4 / NT;
+  static constexpr int kCopyK = D * R / 4 / NT;
   static constexpr int kCopy = 2 * kCopyK;
+  // blocks an SM holds at once
+  static constexpr int kMinBlocks = D == 64 ? 2 : 1;
 };
 
 // cp_async16 and cp_async_commit are gemm.cuh's.
@@ -405,14 +451,15 @@ __device__ __forceinline__ void cp_async_wait_all_but_last() {
 
 // Load this thread's float4s of x[r0.., k0..k0 + CK) (zeros past t) into
 // registers: consecutive threads read consecutive float4s of a row.
-template <int R>
-__device__ __forceinline__ void load_x(float4 (&xr)[Cluster<R>::kXLoads],
+template <int R, int D>
+__device__ __forceinline__ void load_x(float4 (&xr)[Cluster<R, D>::kXLoads],
                                        const float* xb, int r0, int t,
                                        int dm, int k0) {
-  using L = Cluster<R>;
+  using L = Cluster<R, D>;
 #pragma unroll
   for (int u = 0; u < L::kXLoads; ++u) {
     const int idx = threadIdx.x + u * L::NT;
+    if (L::kXLoads * L::NT != L::kXFloat4s && idx >= L::kXFloat4s) break;
     const int row = idx / (L::CK / 4);
     const int c4 = idx % (L::CK / 4);
     xr[u] = r0 + row < t ? load4(xb + (size_t)(r0 + row) * dm + k0 + c4 * 4)
@@ -421,13 +468,14 @@ __device__ __forceinline__ void load_x(float4 (&xr)[Cluster<R>::kXLoads],
 }
 
 // Store them transposed into a chunk's x^T [CK][RS].
-template <int R>
+template <int R, int D>
 __device__ __forceinline__ void store_x(
-    float* xt, const float4 (&xr)[Cluster<R>::kXLoads]) {
-  using L = Cluster<R>;
+    float* xt, const float4 (&xr)[Cluster<R, D>::kXLoads]) {
+  using L = Cluster<R, D>;
 #pragma unroll
   for (int u = 0; u < L::kXLoads; ++u) {
     const int idx = threadIdx.x + u * L::NT;
+    if (L::kXLoads * L::NT != L::kXFloat4s && idx >= L::kXFloat4s) break;
     float* dst = xt + (idx % (L::CK / 4)) * 4 * L::RS + idx / (L::CK / 4);
     dst[0] = xr[u].x;
     dst[L::RS] = xr[u].y;
@@ -438,18 +486,17 @@ __device__ __forceinline__ void store_x(
 
 // Start copying rows [k0, k0 + CK) of the head's three W slabs into a
 // chunk's W [CK][WS] by cp.async.
-template <int R>
+template <int R, int D>
 __device__ __forceinline__ void stage_w(float* ws, const float* w_qkv,
                                         int ldw, int hd, int head, int k0) {
-  using L = Cluster<R>;
-  for (int idx = threadIdx.x; idx < L::CK * 3 * (DH / 4); idx += L::NT) {
-    const int kk = idx / (3 * (DH / 4));
-    const int c4 = idx % (3 * (DH / 4));
-    const int slab = c4 / (DH / 4);
-    const int col = (c4 % (DH / 4)) * 4;
-    cp_async16(ws + kk * L::WS + slab * DH + col,
-               w_qkv + (size_t)(k0 + kk) * ldw + slab * hd + head * DH +
-                   col);
+  using L = Cluster<R, D>;
+  for (int idx = threadIdx.x; idx < L::CK * 3 * (D / 4); idx += L::NT) {
+    const int kk = idx / (3 * (D / 4));
+    const int c4 = idx % (3 * (D / 4));
+    const int slab = c4 / (D / 4);
+    const int col = (c4 % (D / 4)) * 4;
+    cp_async16(ws + kk * L::WS + slab * D + col,
+               w_qkv + (size_t)(k0 + kk) * ldw + slab * hd + head * D + col);
   }
 }
 
@@ -488,11 +535,11 @@ __device__ __forceinline__ void store_col(float* dst, const float (&acc)[N][M],
 }
 
 // Issue this thread's loads of peer `rank`'s k^T and v tiles.
-template <int R>
-__device__ __forceinline__ void load_peer(float4 (&reg)[Cluster<R>::kCopy],
+template <int R, int D>
+__device__ __forceinline__ void load_peer(float4 (&reg)[Cluster<R, D>::kCopy],
                                           cg::cluster_group& cluster,
                                           float* smem, int rank) {
-  using L = Cluster<R>;
+  using L = Cluster<R, D>;
   const float* kt = cluster.map_shared_rank(smem + L::kK, rank);
   const float* v = cluster.map_shared_rank(smem + L::kV, rank);
 #pragma unroll
@@ -501,37 +548,39 @@ __device__ __forceinline__ void load_peer(float4 (&reg)[Cluster<R>::kCopy],
     reg[c] = *reinterpret_cast<const float4*>(
         kt + (idx / (R / 4)) * L::RS + (idx % (R / 4)) * 4);
     reg[L::kCopyK + c] = *reinterpret_cast<const float4*>(
-        v + (idx / (DH / 4)) * L::VS + (idx % (DH / 4)) * 4);
+        v + (idx / (D / 4)) * L::VS + (idx % (D / 4)) * 4);
   }
 }
 
 // Store loaded peer tiles into `buf` in the same layout.
-template <int R>
+template <int R, int D>
 __device__ __forceinline__ void store_peer(
-    float* buf, const float4 (&reg)[Cluster<R>::kCopy]) {
-  using L = Cluster<R>;
+    float* buf, const float4 (&reg)[Cluster<R, D>::kCopy]) {
+  using L = Cluster<R, D>;
 #pragma unroll
   for (int c = 0; c < L::kCopyK; ++c) {
     const int idx = threadIdx.x + c * L::NT;
     *reinterpret_cast<float4*>(buf + (idx / (R / 4)) * L::RS +
                                (idx % (R / 4)) * 4) = reg[c];
-    *reinterpret_cast<float4*>(buf + DH * L::RS + (idx / (DH / 4)) * L::VS +
-                               (idx % (DH / 4)) * 4) = reg[L::kCopyK + c];
+    *reinterpret_cast<float4*>(buf + D * L::RS + (idx / (D / 4)) * L::VS +
+                               (idx % (D / 4)) * 4) = reg[L::kCopyK + c];
   }
 }
 
-// Grid (C, n_head, b), cluster (C, 1, 1), C = ceil(t / R) <= 8; f32.
-template <int R, bool DROP>
-__global__ void __launch_bounds__(Cluster<R>::NT, 2)
+// Grid (C, n_head, b), cluster (C, 1, 1), C = ceil(t / R) <= 8; f32, head
+// width D.
+template <int R, bool DROP, int D = DH>
+__global__ void __launch_bounds__(Cluster<R, D>::NT, Cluster<R, D>::kMinBlocks)
 qkv_cluster_fwd_kernel(const float* __restrict__ x,
                        const float* __restrict__ w_qkv,
                        const float* __restrict__ bias, int64_t bs_b,
                        int64_t bs_h, int64_t bs_q, int64_t bs_k, float* ctx,
                        float* lse, int t, int dm, int n_head, float scale,
                        int causal, Dropout drop) {
-  using L = Cluster<R>;
+  using L = Cluster<R, D>;
   constexpr int TR = L::TR;
   constexpr int KW = L::KW;
+  constexpr int TX = L::TX;
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   float* kt_s = smem + L::kK;
@@ -545,9 +594,9 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
   const int head = blockIdx.y;
   const int bi = blockIdx.z;
   const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int hd = n_head * DH;
+  const int ty = tid / TX;
+  const int tx = tid % TX;
+  const int hd = n_head * D;
   const int r0 = rank * R;
   const int row0 = r0 + ty * TR;  // this thread's first row
   const float* xb = x + (size_t)bi * t * dm;
@@ -563,25 +612,25 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
   const int n_chunk = dm / L::CK;
   const int ldw = 3 * hd;
   float4 xr[L::kXLoads];
-  load_x<R>(xr, xb, r0, t, dm, 0);
-  stage_w<R>(stage + L::CK * L::RS, w_qkv, ldw, hd, head, 0);
+  load_x<R, D>(xr, xb, r0, t, dm, 0);
+  stage_w<R, D>(stage + L::CK * L::RS, w_qkv, ldw, hd, head, 0);
   cp_async_commit();
-  store_x<R>(stage, xr);
+  store_x<R, D>(stage, xr);
   if (n_chunk > 1) {
-    load_x<R>(xr, xb, r0, t, dm, L::CK);
-    stage_w<R>(stage + L::kChunk + L::CK * L::RS, w_qkv, ldw, hd, head,
-               L::CK);
+    load_x<R, D>(xr, xb, r0, t, dm, L::CK);
+    stage_w<R, D>(stage + L::kChunk + L::CK * L::RS, w_qkv, ldw, hd, head,
+                  L::CK);
   }
   cp_async_commit();
   for (int c = 0; c < n_chunk; ++c) {
     cp_async_wait_all_but_last();  // W of chunk c has landed
     __syncthreads();  // ... for every thread, and chunk c - 1 is read
-    if (c + 1 < n_chunk) store_x<R>(stage + (c + 1) % 3 * L::kChunk, xr);
+    if (c + 1 < n_chunk) store_x<R, D>(stage + (c + 1) % 3 * L::kChunk, xr);
     if (c + 2 < n_chunk) {
       float* next = stage + (c + 2) % 3 * L::kChunk;
-      load_x<R>(xr, xb, r0, t, dm, (c + 2) * L::CK);
-      stage_w<R>(next + L::CK * L::RS, w_qkv, ldw, hd, head,
-                 (c + 2) * L::CK);
+      load_x<R, D>(xr, xb, r0, t, dm, (c + 2) * L::CK);
+      stage_w<R, D>(next + L::CK * L::RS, w_qkv, ldw, hd, head,
+                    (c + 2) * L::CK);
     }
     cp_async_commit();
     const float* xt = stage + c % 3 * L::kChunk;
@@ -592,8 +641,8 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
       load_row(a, xt + kk * L::RS + ty * TR);
       const float* w = ws + kk * L::WS + tx * 4;
       fma_outer(aq, a, *reinterpret_cast<const float4*>(w));
-      fma_outer(ak, a, *reinterpret_cast<const float4*>(w + DH));
-      fma_outer(av, a, *reinterpret_cast<const float4*>(w + 2 * DH));
+      fma_outer(ak, a, *reinterpret_cast<const float4*>(w + D));
+      fma_outer(av, a, *reinterpret_cast<const float4*>(w + 2 * D));
     }
   }
 #pragma unroll
@@ -623,14 +672,14 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
   }
   const int n_kv = causal ? rank + 1 : n_rank;
   float4 peer[L::kCopy];
-  load_peer<R>(peer, cluster, smem, 0);
-  store_peer<R>(stage, peer);
+  load_peer<R, D>(peer, cluster, smem, 0);
+  store_peer<R, D>(stage, peer);
   __syncthreads();
   const float* kt_b = stage;
-  const float* v_b = stage + DH * L::RS;
+  const float* v_b = stage + D * L::RS;
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0r = kt * R;
-    if (kt + 1 < n_kv) load_peer<R>(peer, cluster, smem, kt + 1);
+    if (kt + 1 < n_kv) load_peer<R, D>(peer, cluster, smem, kt + 1);
     // this patch's bias and masks, loaded before the products
     float sb[TR][KW];
 #pragma unroll
@@ -654,23 +703,25 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int j = 0; j < KW; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
+    for (int d = 0; d < D; ++d) {
       float qv[TR];
       load_row(qv, qt_s + d * L::RS + ty * TR);
       float kv[KW];
       if constexpr (KW == 4) {
         load_row(kv, kt_b + d * L::RS + tx * 4);
-      } else {
+      } else if constexpr (KW == 2) {
         const float2 k2 =
             *reinterpret_cast<const float2*>(kt_b + d * L::RS + tx * 2);
         kv[0] = k2.x; kv[1] = k2.y;
+      } else {
+        kv[0] = kt_b[d * L::RS + tx];
       }
 #pragma unroll
       for (int i = 0; i < TR; ++i)
 #pragma unroll
         for (int j = 0; j < KW; ++j) s[i][j] += qv[i] * kv[j];
     }
-    // row max / sum across the 16 threads that share a row group
+    // row max / sum across the TX threads that share a row group
 #pragma unroll
     for (int i = 0; i < TR; ++i) {
 #pragma unroll
@@ -680,7 +731,7 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int j = 1; j < KW; ++j) mx = fmaxf(mx, s[i][j]);
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+      for (int off = TX / 2; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
       const float alpha = expf(m[i] - m_new);
@@ -691,7 +742,7 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
         rs += s[i][j];
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+      for (int off = TX / 2; off > 0; off >>= 1)
         rs += __shfl_xor_sync(0xffffffffu, rs, off);
       l[i] = l[i] * alpha + rs;
       m[i] = m_new;
@@ -718,7 +769,7 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
     }
     __syncthreads();  // this tile and p^T are read
     if (kt + 1 < n_kv) {
-      store_peer<R>(stage, peer);
+      store_peer<R, D>(stage, peer);
       __syncthreads();  // the next tile is ready
     }
   }
@@ -731,7 +782,7 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
                              : (DROP ? drop.inv_keep / l[i] : 1.f / l[i]);
     const int qpos = row0 + i;
     if (qpos >= t) continue;
-    store4(ctx + ((size_t)bi * t + qpos) * hd + head * DH + tx * 4,
+    store4(ctx + ((size_t)bi * t + qpos) * hd + head * D + tx * 4,
            make_float4(o[i][0] * inv, o[i][1] * inv, o[i][2] * inv,
                        o[i][3] * inv));
     if (tx == 0)
@@ -1172,24 +1223,25 @@ struct FwdArgs {
   Dropout drop;
 };
 
-template <bool DROP, class T>
+template <bool DROP, class T, int D>
 cudaError_t launch_tiles(const FwdArgs<T>& a, cudaStream_t stream) {
+  constexpr size_t kBytes = Tiles<D>::kBytes;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        qkv_tiles_fwd_kernel<DROP, T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+        qkv_tiles_fwd_kernel<DROP, T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   dim3 grid((a.t + BQ - 1) / BQ, a.n_head, a.b);
-  qkv_tiles_fwd_kernel<DROP, T><<<grid, NT, kSmemBytes, stream>>>(
+  qkv_tiles_fwd_kernel<DROP, T, D><<<grid, NT, kBytes, stream>>>(
       a.x, a.w_qkv, a.bias, a.bs_b, a.bs_h, a.bs_q, a.bs_k, a.ctx, a.lse,
       a.t, a.dm, a.n_head, a.scale, a.causal, a.drop);
   return cudaGetLastError();
 }
 
-// Launch configuration of a cluster kernel of layout L (Cluster<R> or
+// Launch configuration of a cluster kernel of layout L (Cluster<R, D> or
 // ClusterTc<R>): grid (C, n_head, b), one cluster of C blocks along x.
 // `attr` must outlive the returned config.
 template <class L>
@@ -1210,23 +1262,23 @@ cudaLaunchConfig_t cluster_config(int c, int n_head, int b,
   return cfg;
 }
 
-template <int R, bool DROP>
+template <int R, bool DROP, int D>
 cudaError_t configure_cluster() {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        qkv_cluster_fwd_kernel<R, DROP>,
+        qkv_cluster_fwd_kernel<R, DROP, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)Cluster<R>::kBytes);
+        (int)Cluster<R, D>::kBytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   return cudaSuccess;
 }
 
-// The cluster route in f32 (qkv_cluster_fwd_kernel) or, on bf16 tensors,
-// on tensor cores (qkv_cluster_tc_kernel).
-template <int R, bool DROP, class T>
+// The cluster route in f32 (qkv_cluster_fwd_kernel, head width D) or, on
+// bf16 tensors, on tensor cores (qkv_cluster_tc_kernel, head width 64).
+template <int R, bool DROP, class T, int D>
 cudaError_t launch_cluster(const FwdArgs<T>& a, int c, cudaStream_t stream) {
   cudaError_t err;
   cudaLaunchAttribute attr[1];
@@ -1242,11 +1294,11 @@ cudaError_t launch_cluster(const FwdArgs<T>& a, int c, cudaStream_t stream) {
                              a.bs_k, a.ctx, a.lse, a.t, a.dm, a.n_head,
                              a.scale, a.causal, a.drop);
   } else {
-    err = configure_cluster<R, DROP>();
+    err = configure_cluster<R, DROP, D>();
     if (err != cudaSuccess) return err;
     const cudaLaunchConfig_t cfg =
-        cluster_config<Cluster<R>>(c, a.n_head, a.b, attr, stream);
-    err = cudaLaunchKernelEx(&cfg, qkv_cluster_fwd_kernel<R, DROP>, a.x,
+        cluster_config<Cluster<R, D>>(c, a.n_head, a.b, attr, stream);
+    err = cudaLaunchKernelEx(&cfg, qkv_cluster_fwd_kernel<R, DROP, D>, a.x,
                              a.w_qkv, a.bias, a.bs_b, a.bs_h, a.bs_q,
                              a.bs_k, a.ctx, a.lse, a.t, a.dm, a.n_head,
                              a.scale, a.causal, a.drop);
@@ -1255,12 +1307,22 @@ cudaError_t launch_cluster(const FwdArgs<T>& a, int c, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool DROP, class T>
+template <bool DROP, class T, int D>
 cudaError_t launch_attention(const FwdArgs<T>& a, int c, int r,
                              cudaStream_t stream) {
-  if (r == 0) return launch_tiles<DROP>(a, stream);
-  return r == 32 ? launch_cluster<32, DROP>(a, c, stream)
-                 : launch_cluster<64, DROP>(a, c, stream);
+  if (r == 0) return launch_tiles<DROP, T, D>(a, stream);
+  return r == 32 ? launch_cluster<32, DROP, T, D>(a, c, stream)
+                 : launch_cluster<64, DROP, T, D>(a, c, stream);
+}
+
+// The instantiation of a head width: f32 at 64 and 128, bf16 at 64.
+template <bool DROP, class T>
+cudaError_t launch_width(const FwdArgs<T>& a, int c, int r, int d_head,
+                         cudaStream_t stream) {
+  if (d_head == 64) return launch_attention<DROP, T, 64>(a, c, r, stream);
+  if constexpr (std::is_same<T, float>::value)
+    if (d_head == 128) return launch_attention<DROP, T, 128>(a, c, r, stream);
+  return cudaErrorInvalidValue;
 }
 
 // #1 on tensors of T: ptt_qkv_attention_fwd's arguments.
@@ -1269,24 +1331,28 @@ int qkv_attention_fwd(const T* x, const T* w_qkv, const T* w_out,
                       const T* bias, int64_t bs_b, int64_t bs_h,
                       int64_t bs_q, int64_t bs_k, T* y, T* ctx, float* lse,
                       float* partials, int b, int t, int dm, int n_head,
-                      int cluster_rows, int sms, float scale, int causal,
-                      double rate, unsigned seed, unsigned threshold,
-                      void* stream) {
+                      int d_head, int cluster_rows, int sms, float scale,
+                      int causal, double rate, unsigned seed,
+                      unsigned threshold, void* stream) {
   const int cluster_size =
       cluster_rows > 0 ? (t + cluster_rows - 1) / cluster_rows : 0;
   if (cluster_rows != 0 &&
       !((cluster_rows == 32 || cluster_rows == 64) &&
         cluster_size <= kMaxCluster))
     return (int)cudaErrorInvalidValue;
+  const bool f32 = std::is_same<T, float>::value;
+  if (!(d_head == 64 || (f32 && d_head == 128)))
+    return (int)cudaErrorInvalidValue;
   const FwdArgs<T> a{x, w_qkv, bias, bs_b, bs_h, bs_q, bs_k, ctx, lse, b, t,
                      dm, n_head, scale, causal,
                      hash_rng::make_dropout(rate, seed, threshold)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      a.drop.on ? launch_attention<true>(a, cluster_size, cluster_rows, st)
-                : launch_attention<false>(a, cluster_size, cluster_rows, st);
+      a.drop.on
+          ? launch_width<true>(a, cluster_size, cluster_rows, d_head, st)
+          : launch_width<false>(a, cluster_size, cluster_rows, d_head, st);
   if (err != cudaSuccess) return (int)err;
-  const int hd = n_head * DH;  // y [b*t, dm] = ctx [b*t, hd] W_out [hd, dm]
+  const int hd = n_head * d_head;  // y [b*t, dm] = ctx [b*t, hd] W_out [hd, dm]
   return (int)gemm<T, T, T>({ctx, hd, false}, {w_out, dm, true}, y, dm,
                             b * t, dm, hd, true, partials, sms, st);
 }
@@ -1296,81 +1362,101 @@ int qkv_attention_fwd(const T* x, const T* w_qkv, const T* w_out,
 // Floats of the `partials` buffer ptt_qkv_attention_fwd needs at this
 // shape on a card of `sms` SMs (0: pass null).
 extern "C" int64_t ptt_qkv_fwd_scratch(int b, int t, int dm, int n_head,
-                                       int sms) {
-  return gemm_partials(b * t, dm, n_head * DH, sms);
+                                       int d_head, int sms) {
+  return gemm_partials(b * t, dm, n_head * d_head, sms);
 }
 
-// How many clusters of `c` blocks of the R-row cluster kernel the card
-// holds at once (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
-extern "C" int ptt_qkv_cluster_occupancy(int r, int c) {
-  if ((r != 32 && r != 64) || c < 1 || c > kMaxCluster)
-    return -(int)cudaErrorInvalidValue;
-  cudaError_t err = r == 32 ? configure_cluster<32, false>()
-                            : configure_cluster<64, false>();
-  if (err != cudaSuccess) return -(int)err;
-  cudaLaunchAttribute attr[1];
+// The f32 cluster kernel of R rows at head width dh and its layout.
+template <class F>
+cudaError_t with_cluster(int r, int dh, F&& f) {
+  if (r == 32 && dh == 64)
+    return f(qkv_cluster_fwd_kernel<32, false, 64>, Cluster<32, 64>(),
+             configure_cluster<32, false, 64>());
+  if (r == 64 && dh == 64)
+    return f(qkv_cluster_fwd_kernel<64, false, 64>, Cluster<64, 64>(),
+             configure_cluster<64, false, 64>());
+  if (r == 32 && dh == 128)
+    return f(qkv_cluster_fwd_kernel<32, false, 128>, Cluster<32, 128>(),
+             configure_cluster<32, false, 128>());
+  if (r == 64 && dh == 128)
+    return f(qkv_cluster_fwd_kernel<64, false, 128>, Cluster<64, 128>(),
+             configure_cluster<64, false, 128>());
+  return cudaErrorInvalidValue;
+}
+
+// How many clusters of `c` blocks of the f32 cluster kernel of R rows at
+// head width dh (64 or 128) the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error.
+extern "C" int ptt_qkv_cluster_occupancy(int r, int c, int dh) {
+  if (c < 1 || c > kMaxCluster) return -(int)cudaErrorInvalidValue;
   int clusters = 0;
-  if (r == 32) {
-    const cudaLaunchConfig_t cfg =
-        cluster_config<Cluster<32>>(c, 1, 1, attr, 0);
-    err = cudaOccupancyMaxActiveClusters(
-        &clusters, qkv_cluster_fwd_kernel<32, false>, &cfg);
-  } else {
-    const cudaLaunchConfig_t cfg =
-        cluster_config<Cluster<64>>(c, 1, 1, attr, 0);
-    err = cudaOccupancyMaxActiveClusters(
-        &clusters, qkv_cluster_fwd_kernel<64, false>, &cfg);
-  }
+  const cudaError_t err =
+      with_cluster(r, dh, [&](auto kernel, auto layout, cudaError_t conf) {
+        if (conf != cudaSuccess) return conf;
+        cudaLaunchAttribute attr[1];
+        const cudaLaunchConfig_t cfg =
+            cluster_config<decltype(layout)>(c, 1, 1, attr, 0);
+        return cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+      });
   return err != cudaSuccess ? -(int)err : clusters;
 }
 
 // Dynamic shared memory of a cluster-route block in bytes: R rows (32 or
-// 64), f32 (qkv_cluster_fwd_kernel) or bf16 (qkv_cluster_tc_kernel); 0
-// for another R.
-extern "C" int64_t ptt_qkv_cluster_smem(int r, int bf16_tc) {
+// 64), f32 (qkv_cluster_fwd_kernel, head width dh 64 or 128) or bf16
+// (qkv_cluster_tc_kernel, dh 64); 0 for another R or width.
+extern "C" int64_t ptt_qkv_cluster_smem(int r, int bf16_tc, int dh) {
   if (r != 32 && r != 64) return 0;
   if (bf16_tc)
-    return (int64_t)(r == 32 ? ClusterTc<32>::kBytes : ClusterTc<64>::kBytes);
-  return (int64_t)(r == 32 ? Cluster<32>::kBytes : Cluster<64>::kBytes);
+    return dh != 64 ? 0
+                    : (int64_t)(r == 32 ? ClusterTc<32>::kBytes
+                                        : ClusterTc<64>::kBytes);
+  if (dh == 64)
+    return (int64_t)(r == 32 ? Cluster<32, 64>::kBytes
+                             : Cluster<64, 64>::kBytes);
+  if (dh == 128)
+    return (int64_t)(r == 32 ? Cluster<32, 128>::kBytes
+                             : Cluster<64, 128>::kBytes);
+  return 0;
 }
 
 // bias may be null; otherwise its element (b, h, q, k) lies at
-// b*bs_b + h*bs_h + q*bs_q + k*bs_k.  Writes ctx [b, t, h, 64], lse
+// b*bs_b + h*bs_h + q*bs_q + k*bs_k.  Writes ctx [b, t, h, d_head], lse
 // [b, h, t] and y [b, t, dm]; partials holds ptt_qkv_fwd_scratch floats.
 // The route is the caller's plan (`qkv_fwd_plan`): cluster_rows R (32 or
 // 64) runs the cluster kernel in clusters of C = ceil(t / R) blocks,
 // which must be <= 8; R == 0 runs the tiles kernel; anything else returns
 // cudaErrorInvalidValue.  sms is the card's SM count (y's split-K).
-// Requires d_head == 64 and dm % 32 == 0 (checked by the caller).  rate 0
-// runs without dropout; otherwise weights are kept where the hash of
-// (seed, b*n_head + head, q*t + k) >= threshold (t*t <= 2^32, checked by
-// the caller).
+// Requires d_head 64 or 128 and dm % 32 == 0 (checked by the caller).
+// rate 0 runs without dropout; otherwise weights are kept where the hash
+// of (seed, b*n_head + head, q*t + k) >= threshold (t*t <= 2^32, checked
+// by the caller).
 extern "C" int ptt_qkv_attention_fwd(const float* x, const float* w_qkv,
                                      const float* w_out, const float* bias,
                                      int64_t bs_b, int64_t bs_h,
                                      int64_t bs_q, int64_t bs_k, float* y,
                                      float* ctx, float* lse, float* partials,
                                      int b, int t, int dm, int n_head,
-                                     int cluster_rows, int sms,
+                                     int d_head, int cluster_rows, int sms,
                                      float scale, int causal, double rate,
                                      unsigned seed, unsigned threshold,
                                      void* stream) {
   return qkv_attention_fwd(x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, y,
-                           ctx, lse, partials, b, t, dm, n_head,
+                           ctx, lse, partials, b, t, dm, n_head, d_head,
                            cluster_rows, sms, scale, causal, rate, seed,
                            threshold, stream);
 }
 
 // #1 in bf16 (amp): as ptt_qkv_attention_fwd with x, the weights, the
-// bias, y and ctx bf16; lse and partials f32.
+// bias, y and ctx bf16; lse and partials f32; d_head 64 only.
 extern "C" int ptt_qkv_attention_fwd_bf16(
     const bf16* x, const bf16* w_qkv, const bf16* w_out, const bf16* bias,
     int64_t bs_b, int64_t bs_h, int64_t bs_q, int64_t bs_k, bf16* y,
     bf16* ctx, float* lse, float* partials, int b, int t, int dm,
-    int n_head, int cluster_rows, int sms, float scale, int causal,
-    double rate, unsigned seed, unsigned threshold, void* stream) {
+    int n_head, int d_head, int cluster_rows, int sms, float scale,
+    int causal, double rate, unsigned seed, unsigned threshold,
+    void* stream) {
   return qkv_attention_fwd(x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, y,
-                           ctx, lse, partials, b, t, dm, n_head,
+                           ctx, lse, partials, b, t, dm, n_head, d_head,
                            cluster_rows, sms, scale, causal, rate, seed,
                            threshold, stream);
 }

@@ -4,14 +4,23 @@ Each wrapper runs its plain version only for tensors on the CPU.  For a
 CUDA tensor it launches its kernel (built from ``csrc/`` at first use) or
 raises; there is no fallback.  Every launch adds one to the wrapper's
 entry in :data:`launches`; a kernel with a bf16 instantiation (amp,
-:data:`BF16_KERNELS`) counts its bf16 launches under its name + "_bf16".
+:data:`BF16_KERNELS`) counts its bf16 launches under its name + "_bf16",
+and one compiled for head width 128 (:data:`HEAD_WIDTHS`) its launches at
+that width under its name + "_dh128" (:func:`width_suffix`).
 
-The attention and decode kernels are compiled for head width 64.  Below
-that the reference's own plans decline their Pallas kernels by shape and
-run the XLA composition, so on the card the port's wrappers take their
-plain composition there: :func:`composes` chooses the route from the head
-width before any launch (never after a failed build or launch) and
-counts every composed call in :data:`composed`.
+The attention and decode kernels are compiled for head width 64, and the
+serving path's f32 ones (#1's forward, the megasteps and flash-decode)
+for 128 too: :data:`HEAD_WIDTHS` says which widths each kernel and dtype
+takes.  The FFN (#11, #13) has no head axis and runs at every width.
+Below a multiple of 64 the reference's own plans decline their Pallas
+kernels by shape and run the XLA composition, so on the card the port's
+wrappers take their plain composition there.  At a
+multiple of 64 the reference launches; the port's wrappers launch where
+their kernel is compiled for the width and raise elsewhere.
+:func:`composes` chooses the route from the kernel, the dtype and the
+head width before any launch (never after a failed build or launch),
+counts every composed call in :data:`composed` and raises, naming the
+kernel and the width, where no kernel is compiled.
 """
 
 from __future__ import annotations
@@ -49,32 +58,56 @@ composed = {name: 0 for name in ("qkv_attention_fwd", "qkv_bwd_dq",
                                  "flash_fwd_bhtd", "flash_bwd_dq_bhtd",
                                  "flash_bwd_dkv_bhtd")}
 
-#: head width the attention and decode kernels are compiled for
-KERNEL_D_HEAD = 64
+#: (kernel, dtype) -> the head widths its instantiation is compiled for,
+#: where more than 64: the serving path's f32 attention and decode
+#: kernels.  Every other one, and every bf16 instantiation, takes 64 only.
+HEAD_WIDTHS = {(name, torch.float32): (64, 128)
+               for name in ("qkv_attention_fwd", "megastep",
+                            "megastep_paged", "flash_decode",
+                            "flash_decode_paged")}
+#: the kernels with a head-width-128 instantiation, counted apart
+DH128_KERNELS = tuple(name for name, _ in HEAD_WIDTHS)
+launches.update({name + "_dh128": 0 for name in DH128_KERNELS})
 
 
-def head_route(d_head: int) -> str:
-    """The reference's plan for a head width: "kernel" at 64, "composed" at
-    d_head % 64 != 0 (its plans decline the kernel there and run the XLA
-    composition).  Other multiples of 64 raise: the reference launches its
-    kernels there, and the port's are compiled for 64 only."""
-    if d_head == KERNEL_D_HEAD:
-        return "kernel"
+def compiled_widths(name: str, dtype=torch.float32) -> tuple:
+    """The head widths kernel ``name``'s ``dtype`` instantiation is
+    compiled for."""
+    return HEAD_WIDTHS.get((name, dtype), (64,))
+
+
+def width_suffix(d_head: int) -> str:
+    """The suffix of a launch counter at this head width: "" at 64,
+    "_dh128" at 128."""
+    return "" if d_head == 64 else f"_dh{d_head}"
+
+
+def head_route(name: str, d_head: int, dtype=torch.float32) -> str:
+    """The route of kernel ``name`` on ``dtype`` tensors at this head
+    width, as the reference's plans decide it: "composed" at d_head % 64
+    != 0 (its plans decline the kernel and run the XLA composition),
+    "kernel" where the port's instantiation is compiled for the width.
+    Another multiple of 64 raises a ValueError naming the kernel and the
+    width: the reference launches there, and the port has no kernel."""
     if d_head % 64:
         return "composed"
+    widths = compiled_widths(name, dtype)
+    if d_head in widths:
+        return "kernel"
+    kind = "" if dtype == torch.float32 else f" {dtype}"
     raise ValueError(
-        f"head width {d_head}: the CUDA kernels are compiled for head width "
-        f"{KERNEL_D_HEAD}; other multiples of 64 are not ported")
+        f"{name}{kind}: no CUDA kernel for head width {d_head} (compiled "
+        f"for {', '.join(str(w) for w in widths)})")
 
 
-def composes(what: str, d_head: int) -> bool:
+def composes(name: str, d_head: int, dtype=torch.float32) -> bool:
     """For a wrapper called on CUDA tensors: True (and one more in
-    ``composed[what]``) when the head width sends the call to the plain
+    ``composed[name]``) when the head width sends the call to the plain
     composition, False when the kernel launches; raises where neither
     applies (:func:`head_route`)."""
-    if head_route(d_head) == "kernel":
+    if head_route(name, d_head, dtype) == "kernel":
         return False
-    composed[what] += 1
+    composed[name] += 1
     return True
 
 

@@ -124,25 +124,25 @@ _SIGNATURES = {
     "ptt_gemm_tc_smem": (_L, [_I] * 4),
     "ptt_gemm": (_I, [_P, _I, _I, _P, _I, _I, _P] + [_I] * 4
                  + [_P, _I, _I, _P]),
-    "ptt_qkv_fwd_scratch": (_L, [_I] * 5),
+    "ptt_qkv_fwd_scratch": (_L, [_I] * 6),
     "ptt_qkv_attention_fwd": (
-        _I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 6 + [_F, _I] + _DROP
+        _I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 7 + [_F, _I] + _DROP
         + [_P]),
-    "ptt_qkv_cluster_occupancy": (_I, [_I, _I]),
-    "ptt_qkv_cluster_smem": (_L, [_I, _I]),
+    "ptt_qkv_cluster_occupancy": (_I, [_I] * 3),
+    "ptt_qkv_cluster_smem": (_L, [_I] * 3),
     "ptt_qkv_bwd_scratch": (_L, [_I] * 6),
     "ptt_qkv_bwd_walk_smem": (_L, [_I]),
     "ptt_qkv_bwd": (_I, [_I] + [_P] * 4 + [_L] * 4 + [_P] * 7 + [_I] * 5
                     + [_F, _I] + _DROP + [_P]),
-    "ptt_megastep_scratch": (_L, [_I] * 5),
-    "ptt_megastep_occupancy": (_I, [_I, _I]),
+    "ptt_megastep_scratch": (_L, [_I] * 6),
+    "ptt_megastep_occupancy": (_I, [_I] * 3),
     "ptt_megastep": (
-        _I, [_P] * 19 + [_I] * 16 + [_F, _F, _P]),
+        _I, [_P] * 19 + [_I] * 17 + [_F, _F, _P]),
     "ptt_megastep_paged": (
-        _I, [_P] * 21 + [_I] * 20 + [_F, _F, _P]),
-    "ptt_flash_decode_occupancy": (_I, [_I] * 3),
-    "ptt_flash_decode": (_I, [_P] * 6 + [_I] * 7 + [_F, _P]),
-    "ptt_flash_decode_paged": (_I, [_P] * 7 + [_I] * 9 + [_F, _P]),
+        _I, [_P] * 21 + [_I] * 21 + [_F, _F, _P]),
+    "ptt_flash_decode_occupancy": (_I, [_I] * 4),
+    "ptt_flash_decode": (_I, [_P] * 6 + [_I] * 8 + [_F, _P]),
+    "ptt_flash_decode_paged": (_I, [_P] * 7 + [_I] * 10 + [_F, _P]),
     "ptt_ffn_occupancy": (_I, [_I]),
     "ptt_ffn": (_I, [_P] * 9 + [_I] * 11 + [_F, _P]),
     "ptt_flash_fwd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 2 + [_I] * 4

@@ -58,8 +58,8 @@ from __future__ import annotations
 
 import torch
 
-from . import (KERNEL_D_HEAD, KERNEL_DTYPES, _build, composes, hash_rng,
-               launches)
+from . import (KERNEL_DTYPES, _build, compiled_widths, composes, hash_rng,
+               head_route, launches, width_suffix)
 
 #: score given to causally hidden keys (the reference kernel's value)
 MASK_VALUE = -1e30
@@ -237,21 +237,23 @@ def _d_head(w_qkv, n_head):
 def _qkv_args(what, x, w_qkv, w_out, bias, n_head, **more):
     """Check the operands of a fused-projection kernel and return (b, t,
     dm, hd, bias strides, bias pointer).  x (and g)
-    [b, t, dm], w_qkv [dm, 3hd], w_out [hd, dm], ctx [b, t, h, 64] and the
+    [b, t, dm], w_qkv [dm, 3hd], w_out [hd, dm], ctx [b, t, h, dh] and the
     bias must be contiguous (the bias a broadcast view) tensors of x's
     dtype, f32 or bf16, and lse [b, h, t] f32, on x's CUDA device, 16-byte
-    aligned, with head width 64 and d_model % 32 == 0: the kernels index
-    raw pointers."""
+    aligned, with a head width the kernel is compiled for (64; #1 in f32
+    also 128) and d_model % 32 == 0: the kernels index raw pointers."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for {x.device}")
     dtype, _ = _kernel_dtype(x, what)
     b, t, dm = x.shape
     hd = w_qkv.shape[1] // 3
     dh = hd // n_head
-    if dh != KERNEL_D_HEAD or dm % 32:
+    widths = compiled_widths("qkv_bwd_dq" if what == "qkv_bwd" else what,
+                             dtype)
+    if dh not in widths or dm % 32:
         raise ValueError(
-            f"{what}: the CUDA kernel takes d_head 64 and d_model % 32 == "
-            f"0, got d_head {dh}, d_model {dm}")
+            f"{what}: the CUDA kernel takes d_head in {widths} and d_model "
+            f"% 32 == 0, got d_head {dh}, d_model {dm}")
     shapes = {"x": (b, t, dm), "w_qkv": (dm, 3 * hd), "w_out": (hd, dm),
               "g": (b, t, dm), "ctx": (b, t, n_head, dh),
               "lse": (b, n_head, t)}
@@ -284,6 +286,10 @@ def qkv_fwd_plan(b, t, n_head, sms):
     * ``("tiles",)`` for t > 512, where one cluster cannot hold a whole
       sequence: 64-row query tiles that each project the k and v tiles
       they walk.
+
+    The same plan holds at head width 128 (f32): there a block of either
+    R takes one SM (187 KB at R = 64, 135 KB at R = 32), so the choice
+    still turns on how many blocks the 64-row grid gives.
     """
     if t > CLUSTER_MAX * 64:
         return ("tiles",)
@@ -303,6 +309,7 @@ def _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
     """Launch #1 on the route of :func:`qkv_fwd_plan`: (y, ctx, lse)."""
     b, t, dm, hd, strides, bias_ptr = _qkv_args(
         "qkv_attention_fwd", x, w_qkv, w_out, bias, n_head)
+    dh = hd // n_head
     suffix = KERNEL_DTYPES[x.dtype]
     sms = sm_count(x.device)
     plan = qkv_fwd_plan(b, t, n_head, sms)
@@ -311,18 +318,18 @@ def _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
                          "qkv_attention_fwd")
     lib = _build.lib()
     y = torch.empty_like(x)
-    ctx = torch.empty((b, t, n_head, hd // n_head), dtype=x.dtype,
-                      device=x.device)
+    ctx = torch.empty((b, t, n_head, dh), dtype=x.dtype, device=x.device)
     lse = torch.empty((b, n_head, t), dtype=torch.float32, device=x.device)
-    partials = torch.empty(lib.ptt_qkv_fwd_scratch(b, t, dm, n_head, sms),
-                           dtype=torch.float32, device=x.device)
+    partials = torch.empty(
+        lib.ptt_qkv_fwd_scratch(b, t, dm, n_head, dh, sms),
+        dtype=torch.float32, device=x.device)
     err = getattr(lib, "ptt_qkv_attention_fwd" + suffix)(
         x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), bias_ptr,
         *strides, y.data_ptr(), ctx.data_ptr(), lse.data_ptr(),
-        partials.data_ptr(), b, t, dm, n_head, rows, sms, float(scale),
+        partials.data_ptr(), b, t, dm, n_head, dh, rows, sms, float(scale),
         int(bool(causal)), *drop, _build.stream_of(x))
     _build.check(err, "qkv_attention_fwd" + suffix)
-    launches["qkv_attention_fwd" + suffix] += 1
+    launches["qkv_attention_fwd" + suffix + width_suffix(dh)] += 1
     return y, ctx, lse
 
 
@@ -333,7 +340,7 @@ def qkv_attention_fwd(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
     the kernel or raise; at a head width the kernel does not take
     (``composes``) they take the twin too, as the reference's plan does."""
     if x.device.type == "cpu" or composes("qkv_attention_fwd",
-                                          _d_head(w_qkv, n_head)):
+                                          _d_head(w_qkv, n_head), x.dtype):
         return reference_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale,
                                  causal, dropout_rate, dropout_seed)
     return _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
@@ -412,8 +419,9 @@ def qkv_bwd(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1, scale=1.0,
     call, of each of ``qkv_bwd_dq`` and ``qkv_bwd_dkv``."""
     d_head = _d_head(w_qkv, n_head)
     # on the card both names are counted as composed, or neither is
-    if x.device.type == "cpu" or (composes("qkv_bwd_dq", d_head)
-                                  and composes("qkv_bwd_dkv", d_head)):
+    if x.device.type == "cpu" or (composes("qkv_bwd_dq", d_head, x.dtype)
+                                  and composes("qkv_bwd_dkv", d_head,
+                                               x.dtype)):
         return reference_qkv_bwd(x, w_qkv, w_out, bias, g, ctx, lse, n_head,
                                  scale, causal, dropout_rate, dropout_seed)
     return _launch_qkv_bwd(WALK_DQ | WALK_DKV, x, w_qkv, w_out, bias, g,
@@ -427,7 +435,7 @@ def qkv_bwd_dq(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1, scale=1.0,
     them (CPU: the twin; CUDA: ``ptt_qkv_bwd`` with the dq walk alone, the
     twin at a composed head width, or an error)."""
     if x.device.type == "cpu" or composes("qkv_bwd_dq",
-                                          _d_head(w_qkv, n_head)):
+                                          _d_head(w_qkv, n_head), x.dtype):
         return reference_qkv_bwd_dq(x, w_qkv, w_out, bias, g, ctx, lse,
                                     n_head, scale, causal, dropout_rate,
                                     dropout_seed)
@@ -442,7 +450,7 @@ def qkv_bwd_dkv(x, w_qkv, w_out, bias, g, ctx, lse, n_head=1, scale=1.0,
     dW_k and dW_v as views of its [dm, 2hd] output, the twin at a composed
     head width, or an error)."""
     if x.device.type == "cpu" or composes("qkv_bwd_dkv",
-                                          _d_head(w_qkv, n_head)):
+                                          _d_head(w_qkv, n_head), x.dtype):
         return reference_qkv_bwd_dkv(x, w_qkv, w_out, bias, g, ctx, lse,
                                      n_head, scale, causal, dropout_rate,
                                      dropout_seed)
@@ -505,10 +513,12 @@ def flash_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
     and, in the backward, the pair #2 + #3 in one call (gradients of x, w_qkv, w_out, and of
     the bias when it requires grad); otherwise #1 alone, as serving runs
     it under ``torch.no_grad()``.  CPU tensors take the plain twins; CUDA
-    tensors launch the kernels, which take dh == 64 and d_model % 32 == 0
-    and raise on anything else, except at dh % 64 != 0, where the
-    reference's plan runs its composition and so does the port (the
-    twins, counted in ``kernels.composed``).  ``dropout_rate`` > 0 drops
+    tensors launch the kernels, which take dh == 64 (#1 in f32 also 128,
+    so serving runs at 128; the pair #2 + #3 does not, so a gradient at
+    128 raises before #1 launches) and d_model % 32 == 0 and raise on
+    anything else, except at dh % 64 != 0, where the reference's plan
+    runs its composition and so does the port (the twins, counted in
+    ``kernels.composed``).  ``dropout_rate`` > 0 drops
     the attention weights inside the kernels under the site's uint32
     ``dropout_seed``
     (the mask of :func:`flash_attention` for the same seed); the caller
@@ -523,14 +533,20 @@ def flash_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
             f"divisible by 3*n_head={3 * n_head}")
     if bias is not None:
         bias = _bias_4d(bias, b, n_head, t, t, "flash_qkv_attention")
+    d_head = _d_head(w_qkv, n_head)
     if torch.is_grad_enabled() and any(
             a is not None and a.requires_grad
             for a in (x, w_qkv, w_out, bias)):
+        if x.device.type != "cpu":
+            # the backward's kernels must take this width before the
+            # forward launches (raises where they do not)
+            for name in ("qkv_bwd_dq", "qkv_bwd_dkv"):
+                head_route(name, d_head, x.dtype)
         return _FlashQKVAttention.apply(
             x.contiguous(), w_qkv.contiguous(), w_out.contiguous(), bias,
             n_head, float(scale), bool(causal), rate, seed)
-    if x.device.type == "cpu" or composes("qkv_attention_fwd",
-                                          _d_head(w_qkv, n_head)):
+    if x.device.type == "cpu" or composes("qkv_attention_fwd", d_head,
+                                          x.dtype):
         return reference_qkv_attention(x, w_qkv, w_out, bias, n_head,
                                        scale, causal, rate, seed)
     return _launch_qkv_fwd(x, w_qkv, w_out, bias, n_head, scale, causal,
@@ -690,9 +706,9 @@ def _kernel_args(what, fmt, q, k, bias, **more):
     dtype, suffix = _kernel_dtype(q, what)
     b, h, tq, d = _dims(q, fmt)
     tk = _dims(k, fmt)[2]
-    if d != KERNEL_D_HEAD:
-        raise ValueError(f"{what}: the CUDA kernel takes head width 64, "
-                         f"got {d}")
+    if d not in compiled_widths(what, dtype):
+        raise ValueError(f"{what}: the CUDA kernel takes head width "
+                         f"{compiled_widths(what, dtype)}, got {d}")
 
     def rows(t):
         return (b, t, h, d) if fmt == "bthd" else (b, h, t, d)
@@ -723,7 +739,7 @@ _LAYOUTS = {
 def _fwd(fmt, q, k, v, bias, scale, causal, dropout_rate, dropout_seed):
     suffix, (twin, _, _) = _LAYOUTS[fmt]
     what = "flash_fwd" + suffix
-    if q.device.type == "cpu" or composes(what, q.shape[-1]):
+    if q.device.type == "cpu" or composes(what, q.shape[-1], q.dtype):
         return twin(q, k, v, bias, scale, causal, dropout_rate, dropout_seed)
     b, tq, tk, h, strides, bias_ptr, suffix = _kernel_args(
         what, fmt, q, k, bias, v=v)
@@ -744,7 +760,7 @@ def _bwd_dq(fmt, q, k, v, bias, dout, lse, delta, scale, causal,
             dropout_rate, dropout_seed):
     suffix, (_, twin, _) = _LAYOUTS[fmt]
     what = "flash_bwd_dq" + suffix
-    if q.device.type == "cpu" or composes(what, q.shape[-1]):
+    if q.device.type == "cpu" or composes(what, q.shape[-1], q.dtype):
         return twin(q, k, v, bias, dout, lse, delta, scale, causal,
                     dropout_rate, dropout_seed)
     b, tq, tk, h, strides, bias_ptr, suffix = _kernel_args(
@@ -766,7 +782,7 @@ def _bwd_dkv(fmt, q, k, v, bias, dout, lse, delta, scale, causal,
              dropout_rate, dropout_seed):
     suffix, (_, _, twin) = _LAYOUTS[fmt]
     what = "flash_bwd_dkv" + suffix
-    if q.device.type == "cpu" or composes(what, q.shape[-1]):
+    if q.device.type == "cpu" or composes(what, q.shape[-1], q.dtype):
         return twin(q, k, v, bias, dout, lse, delta, scale, causal,
                     dropout_rate, dropout_seed)
     b, tq, tk, h, strides, bias_ptr, suffix = _kernel_args(

@@ -17,7 +17,11 @@ Both kernels are one cooperative launch of the megastep's walk
 sequence, split of rows) over the rows that exist, then, after a grid
 barrier, the partials merged in split order.  :func:`decode_plan` picks
 the group, the split and the grid from the shape and the card before the
-launch; the entry points reject a plan they cannot run.
+launch; the entry points reject a plan they cannot run.  Both are
+compiled for head widths 64 and 128 (launches at 128 counted under
+``flash_decode_dh128`` and ``flash_decode_paged_dh128``); at 128 a group
+of 8 heads does not fit a block's shared memory, so the plan takes 4 or
+fewer.
 
 The plain versions are :func:`reference_decode` and
 :func:`reference_decode_paged`.  A lane with length 0 gets a zero context
@@ -32,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import KERNEL_D_HEAD, _build, composes, launches
+from . import _build, compiled_widths, composes, launches, width_suffix
 from .attention import sm_count
 
 #: cache rows a walk stages at once (``csrc/decode_walk.cuh`` CR); a walk
@@ -40,8 +44,6 @@ from .attention import sm_count
 WALK_CHUNK = 16
 #: walk splits a sequence at most (MAX_SPLITS: a merge lane each)
 WALK_MAX_SPLITS = 32
-#: floats of one walk partial (PART: acc[64], m, l, padding)
-WALK_PART = KERNEL_D_HEAD + 4
 #: shared memory a block may opt into on the H100 (227 KB)
 SMEM_CAP = 232448
 #: shared memory of an SM (228 KB), and what each resident block reserves
@@ -55,6 +57,12 @@ DECODE_STAGES = 2
 DECODE_BLOCKS_PER_SM = 1
 
 
+def walk_part(d_head):
+    """Floats of one walk partial at this head width (``part_floats``:
+    acc[d_head], m, l, padding)."""
+    return d_head + 4
+
+
 def walk_split(rows):
     """(split, splits) of a walk over a cache of ``rows`` rows a sequence:
     one chunk an item, so that the blocks' shares even out over many
@@ -65,12 +73,13 @@ def walk_split(rows):
     return split, -(-rows // split)
 
 
-def walk_floats(group, stages, n_head, b):
-    """Shared memory floats of a walk of ``group``-warp blocks (as
-    ``csrc/decode_walk.cuh`` lays them out): ``stages`` chunks of k and v
-    rows of a head group (8 floats of padding a row), a q row each and the
-    batch's prefix sum of splits (b + 1 ints)."""
-    gw = min(n_head, group) * KERNEL_D_HEAD
+def walk_floats(d_head, group, stages, n_head, b):
+    """Shared memory floats of a walk of head width ``d_head`` whose items
+    take groups of at most ``group`` heads (as ``csrc/decode_walk.cuh``
+    lays them out): ``stages`` chunks of k and v rows of a head group (8
+    floats of padding a row), a q row each and the batch's prefix sum of
+    splits (b + 1 ints)."""
+    gw = min(n_head, group) * d_head
     return stages * (2 * WALK_CHUNK * (gw + 8) + gw) + b + 1
 
 
@@ -82,7 +91,8 @@ class DecodePlan(NamedTuple):
     (``group`` heads, sequence, ``split`` rows, a multiple of
     WALK_CHUNK), ``splits`` splits a sequence; ``smem`` bytes of dynamic
     shared memory a block (a ring of DECODE_STAGES chunks); ``scratch``
-    floats of partials [b, splits, h, WALK_PART] behind the output."""
+    floats of partials [b, splits, h, walk_part(d_head)] behind the
+    output."""
     group: int
     grid: int
     split: int
@@ -95,14 +105,14 @@ class DecodePlan(NamedTuple):
         return (self.group, self.grid, self.split, self.smem)
 
 
-def group_plan(group, b, n_head, rows, sms, blocks_per_sm):
+def group_plan(group, b, n_head, rows, sms, blocks_per_sm, d_head=64):
     """(plan with items of ``group`` heads, its items), or None where
     such a block does not fit an SM: the grid as many blocks as the SMs
     hold (``blocks_per_sm`` eight-warp blocks' worth of warps an SM, and
     what their shared memory allows), cut to what the walk's items and
     the merge's (sequence, head) pairs can use."""
     split, splits = walk_split(rows)
-    smem = 4 * walk_floats(group, DECODE_STAGES, n_head, b)
+    smem = 4 * walk_floats(d_head, group, DECODE_STAGES, n_head, b)
     per_sm = min(blocks_per_sm * 8 // group,
                  SM_SMEM // (smem + BLOCK_RESERVED_SMEM))
     if smem > SMEM_CAP or per_sm < 1:
@@ -110,48 +120,52 @@ def group_plan(group, b, n_head, rows, sms, blocks_per_sm):
     items = -(-n_head // group) * b * splits
     grid = min(sms * per_sm, max(items, -(-b * n_head // group)))
     return DecodePlan(group, grid, split, splits, smem,
-                      b * splits * n_head * WALK_PART), items
+                      b * splits * n_head * walk_part(d_head)), items
 
 
-def decode_plan(b, n_head, rows, sms, blocks_per_sm):
+def decode_plan(b, n_head, rows, sms, blocks_per_sm, d_head=64):
     """Flash-decode's work split for a batch of ``b`` sequences of
-    ``n_head`` heads over caches of ``rows`` rows a sequence (ring:
-    max_t; paged: max_blocks * block_t), on a card of ``sms`` SMs whose
-    grid holds ``blocks_per_sm`` eight-warp blocks' worth of warps an SM
-    (the launch is cooperative): the largest group of heads an item (8,
-    4, 2, 1) whose items at full caches give every block of its grid at
-    least two, else 1, so that a small batch still spreads over the card
-    (:func:`group_plan`).  The lengths are not known on the host, so the
-    group follows the caches' capacity.  Pure: the wrapper passes its
-    integers to the entry point."""
-    if min(b, n_head, rows, sms, blocks_per_sm) < 1:
-        raise ValueError(f"decode_plan: no plan for b {b}, {n_head} heads, "
-                         f"{rows} rows, {sms} SMs x {blocks_per_sm}")
+    ``n_head`` heads of width ``d_head`` over caches of ``rows`` rows a
+    sequence (ring: max_t; paged: max_blocks * block_t), on a card of
+    ``sms`` SMs whose grid holds ``blocks_per_sm`` eight-warp blocks'
+    worth of warps an SM (the launch is cooperative): the largest group of
+    heads an item (8, 4, 2, 1) whose block fits (at 128 a group of 8
+    heads' ring, 272 KB, does not) and whose items at full caches give
+    every block of its grid at least two, else 1, so that a small batch
+    still spreads over the card (:func:`group_plan`).  The lengths are not
+    known on the host, so the group follows the caches' capacity.  Pure:
+    the wrapper passes its integers to the entry point."""
+    if min(b, n_head, rows, sms, blocks_per_sm) < 1 or (
+            d_head not in compiled_widths("flash_decode")):
+        raise ValueError(f"decode_plan: no plan for b {b}, {n_head} heads "
+                         f"of {d_head}, {rows} rows, {sms} SMs x "
+                         f"{blocks_per_sm}")
     for g in DECODE_GROUPS:
-        fits = group_plan(g, b, n_head, rows, sms, blocks_per_sm)
+        fits = group_plan(g, b, n_head, rows, sms, blocks_per_sm, d_head)
         if fits is None:
             continue
         plan, items = fits
         if items >= 2 * plan.grid or g == DECODE_GROUPS[-1]:
             return plan
-    raise ValueError(f"flash_decode: no plan fits b {b}, {n_head} heads in "
-                     f"{SMEM_CAP} bytes of shared memory a block")
+    raise ValueError(f"flash_decode: no plan fits b {b}, {n_head} heads of "
+                     f"{d_head} in {SMEM_CAP} bytes of shared memory a "
+                     f"block")
 
 
-def device_decode_plan(device, paged, b, n_head, rows):
+def device_decode_plan(device, paged, b, n_head, rows, d_head=64):
     """:func:`decode_plan` as :func:`flash_decode` and
     :func:`flash_decode_paged` launch it on ``device``: its SM count,
     DECODE_BLOCKS_PER_SM, the kernel's occupancy at the plan's shared
     memory checked; made once a shape."""
-    return _device_plan(device, paged, b, n_head, rows)
+    return _device_plan(device, paged, b, n_head, rows, d_head)
 
 
 @functools.lru_cache(maxsize=256)
-def _device_plan(device, paged, b, n_head, rows):
+def _device_plan(device, paged, b, n_head, rows, d_head):
     sms = sm_count(device)
-    plan = decode_plan(b, n_head, rows, sms, DECODE_BLOCKS_PER_SM)
+    plan = decode_plan(b, n_head, rows, sms, DECODE_BLOCKS_PER_SM, d_head)
     per_sm = _build.lib().ptt_flash_decode_occupancy(
-        int(paged), plan.group, plan.smem)
+        int(paged), d_head, plan.group, plan.smem)
     if per_sm < 0:
         _build.check(-per_sm, "flash_decode occupancy")
     if per_sm * sms < plan.grid:
@@ -220,9 +234,10 @@ def paged_scatter_rows(cache, new, table, pos, active, layer):
 
 def _check_query(q, lengths, what):
     b, h, dh = q.shape
-    if q.device.type != "cuda" or dh != KERNEL_D_HEAD:
+    if q.device.type != "cuda" or dh not in compiled_widths(what):
         raise ValueError(f"{what}: no kernel for q {tuple(q.shape)} on "
-                         f"{q.device} (needs CUDA and d_head 64)")
+                         f"{q.device} (needs CUDA and d_head in "
+                         f"{compiled_widths(what)})")
     return {"q": (q, torch.float32, (b, h, dh)),
             "lengths": (lengths, torch.int32, (b,))}
 
@@ -233,7 +248,7 @@ def _launch_decode(what, paged, q, args, geometry, rows, scale):
     the batch, ``rows`` the rows a sequence the walk covers.  The output
     and the scratch are one allocation."""
     b, h, dh = q.shape
-    plan = device_decode_plan(q.device, paged, b, h, rows)
+    plan = device_decode_plan(q.device, paged, b, h, rows, dh)
     buf = torch.empty(b * h * dh + plan.scratch, dtype=torch.float32,
                       device=q.device)
     lib = _build.lib()
@@ -242,15 +257,16 @@ def _launch_decode(what, paged, q, args, geometry, rows, scale):
                 buf.data_ptr() + 4 * b * h * dh, b, *geometry, *plan.ints(),
                 float(scale), _build.stream_of(q))
     _build.check(err, what)
-    launches[what] += 1
+    launches[what + width_suffix(dh)] += 1
     return buf[:b * h * dh].view(b, h, dh)
 
 
 def flash_decode(q, k, v, lengths, scale=1.0):
     """Single-query attention against a length-masked ring cache slice.
     q [b, h, dh]; k/v [b, max_t, h, dh]; lengths [b] int32.  Returns
-    [b, h, dh].  On CUDA at a head width % 64 != 0 the plain walk (the
-    reference's plan declines the kernel there)."""
+    [b, h, dh].  On CUDA the kernel at head widths 64 and 128, the plain
+    walk at a width % 64 != 0 (the reference's plan declines the kernel
+    there), an error at any other."""
     if q.device.type == "cpu" or composes("flash_decode", q.shape[-1]):
         return reference_decode(q, k, v, lengths, scale)
     b, h, dh = q.shape
@@ -260,7 +276,7 @@ def flash_decode(q, k, v, lengths, scale=1.0):
                 v=(v, torch.float32, (b, max_t, h, dh)))
     _build.require(spec, q.device, "flash_decode")
     return _launch_decode("flash_decode", False, q, (q, k, v, lengths),
-                          (max_t, h), max_t, scale)
+                          (max_t, h, dh), max_t, scale)
 
 
 def flash_decode_paged(q, k_pool, v_pool, table, lengths, scale=1.0):
@@ -283,4 +299,4 @@ def flash_decode_paged(q, k_pool, v_pool, table, lengths, scale=1.0):
     _build.require(spec, q.device, "flash_decode_paged")
     return _launch_decode("flash_decode_paged", True, q,
                           (q, k_pool, v_pool, table, lengths),
-                          (h, nb, bt, mb), mb * bt, scale)
+                          (h, dh, nb, bt, mb), mb * bt, scale)

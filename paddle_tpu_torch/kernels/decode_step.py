@@ -17,7 +17,11 @@ The megastep is one cooperative launch of one block on each SM of the
 card, its work split by :func:`megastep_plan` (column tiles and row
 groups of the four projections, row splits of the two walks), chosen
 from the shape and the card before the launch and passed to the entry
-point, which rejects a plan it cannot run.  So is the FFN, split by
+point, which rejects a plan it cannot run.  It is compiled for head
+widths 64 and 128 (launches at 128 counted under ``megastep_dh128`` and
+``megastep_paged_dh128``); at 128 a walk item takes 4 heads
+(:data:`MEGASTEP_GROUPS`), whose ring fits beside the projections'
+tiles.  So is the FFN, split by
 :func:`ffn_plan` (column tiles of d_inner, then split-K slabs of W_out
 whose partials are summed in slab order).
 
@@ -38,8 +42,8 @@ from typing import NamedTuple
 
 import torch
 
-from . import (KERNEL_D_HEAD, _build, composed, composes, head_route,
-               launches)
+from . import (_build, compiled_widths, composed, composes, launches,
+               width_suffix)
 from .attention import sm_count
 from .decode_attention import (SMEM_CAP, WALK_CHUNK, WALK_MAX_SPLITS,
                                reference_decode, reference_decode_paged,
@@ -112,12 +116,14 @@ def _megastep_spec(what, x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
     vectors."""
     b, _, dm = x.shape
     n_layer, h, dh = cache_k.shape[0], cache_k.shape[-2], cache_k.shape[-1]
-    if (x.device.type != "cuda" or h != n_head or dh != KERNEL_D_HEAD
-            or dm % 4 or not 0 <= layer < n_layer):
+    if (x.device.type != "cuda" or h != n_head
+            or dh not in compiled_widths(what) or dm % 4
+            or not 0 <= layer < n_layer):
         raise ValueError(
             f"{what}: no kernel for x {tuple(x.shape)}, cache "
             f"{tuple(cache_k.shape)}, n_head {n_head}, layer {layer} on "
-            f"{x.device} (needs CUDA and d_head 64)")
+            f"{x.device} (needs CUDA and d_head in "
+            f"{compiled_widths(what)})")
     hd = h * dh
     f32, i32 = torch.float32, torch.int32
     vec = (dm,)
@@ -138,8 +144,11 @@ def _megastep_spec(what, x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
 MEGASTEP_THREADS = 256
 #: cache rows a walk stages at once (CR); a walk split is a multiple of it
 MEGASTEP_CHUNK = WALK_CHUNK
-#: heads a walk item stages (a block's warps)
-MEGASTEP_GROUP = 8
+#: head width -> heads a walk item stages, a warp each (csrc/megastep.cu
+#: walk_group): all 8 of a block's warps at 64; at 128 a group of 8 heads
+#: would need a 266 KB ring, so 4 heads walk and the other 4 warps only
+#: copy
+MEGASTEP_GROUPS = {64: 8, 128: 4}
 #: walk chunks in a block's copy ring (STAGES)
 MEGASTEP_STAGES = 2
 #: shared memory a block may opt into on the H100 (227 KB)
@@ -161,9 +170,9 @@ class MegastepPlan(NamedTuple):
     of ct output columns by rg batch rows, every output summed over the
     whole of k by one block (``qkv``: x Wqkv; ``out``: ctx Wout and cctx
     Wcout; ``cq``: x1 Wcq); each walk: items of (sequence, group of up to
-    MEGASTEP_GROUP heads, split of ``*_split`` cache rows, a multiple of
-    MEGASTEP_CHUNK), ``*_splits`` splits a sequence; ``smem`` bytes of
-    dynamic shared memory a block."""
+    MEGASTEP_GROUPS[d_head] heads, split of ``*_split`` cache rows, a
+    multiple of MEGASTEP_CHUNK), ``*_splits`` splits a sequence; ``smem``
+    bytes of dynamic shared memory a block."""
     grid: int
     qkv: tuple
     out: tuple
@@ -186,16 +195,17 @@ def _rows_floats(k, rg):
     return k * (max(rg, 4) + 4) + _RED
 
 
-def _plan_floats(b, d_model, n_head, qkv, out, cq):
+def _plan_floats(b, d_model, n_head, qkv, out, cq, d_head=64):
     """Shared memory floats of a block under these tiles, as
     ``csrc/megastep.cu`` lays them out: P3's and P6's W tile (prefetched
     a phase ahead), then the larger of a walk and P1's or P4's W tile
     with the largest A^T."""
-    hd = n_head * KERNEL_D_HEAD
+    hd = n_head * d_head
     rows = max(_rows_floats(d_model, qkv[1]), _rows_floats(hd, out[1]),
                _rows_floats(d_model, cq[1]))
     return hd * (out[0] + 4) + max(
-        walk_floats(MEGASTEP_GROUP, MEGASTEP_STAGES, n_head, b),
+        walk_floats(d_head, MEGASTEP_GROUPS[d_head], MEGASTEP_STAGES,
+                    n_head, b),
         d_model * (max(qkv[0], cq[0]) + 4) + rows)
 
 
@@ -225,75 +235,81 @@ def _proj_tile(n, k, b, grid, cap, max_rows=64):
 
 
 def megastep_plan(b, n_head, d_model, sms, blocks_per_sm, self_rows,
-                  cross_rows):
-    """The megastep's work split for a batch of ``b`` at these widths, on
-    a card of ``sms`` SMs with a grid of ``blocks_per_sm`` blocks an SM
-    (all co-resident: the launch is cooperative), over self and cross
-    caches of ``self_rows`` and ``cross_rows`` rows a sequence (ring:
-    max_t and cross_t; paged: max_blocks * block_t of each side): the
-    largest tiles (up to 32 columns and rows, then 16, 8, 4) whose shared
-    memory fits a block.  Pure: the wrapper passes its integers to the
-    entry point."""
+                  cross_rows, d_head=64):
+    """The megastep's work split for a batch of ``b`` at these widths
+    (``n_head`` heads of ``d_head``, 64 or 128), on a card of ``sms`` SMs
+    with a grid of ``blocks_per_sm`` blocks an SM (all co-resident: the
+    launch is cooperative), over self and cross caches of ``self_rows``
+    and ``cross_rows`` rows a sequence (ring: max_t and cross_t; paged:
+    max_blocks * block_t of each side): the largest tiles (up to 32
+    columns and rows, then 16, 8, 4) whose shared memory fits a block.
+    At d_model 1024 and 8 heads of 128, P3's W tile alone takes 1024 (ct
+    + 4) floats beside the 4-head walk's 134 KB, so the cap falls to 16
+    (b <= 16: x Wqkv in 16 columns, the others in 8) or 8 (b > 16: every
+    projection in (8, 8) items), 182 KB a block.
+    Pure: the wrapper passes its integers to the entry point."""
     if min(b, n_head, d_model, sms, blocks_per_sm, self_rows,
-           cross_rows) < 1:
+           cross_rows) < 1 or d_head not in compiled_widths("megastep"):
         raise ValueError(f"megastep_plan: no plan for b {b}, {n_head} "
-                         f"heads, d_model {d_model}, {sms} SMs x "
-                         f"{blocks_per_sm}, rows {self_rows}/{cross_rows}")
-    hd = n_head * KERNEL_D_HEAD
+                         f"heads of {d_head}, d_model {d_model}, {sms} SMs "
+                         f"x {blocks_per_sm}, rows {self_rows}/{cross_rows}")
+    hd = n_head * d_head
     grid = sms * blocks_per_sm
     for cap in (32, 16, 8, 4):
         qkv = _proj_tile(3 * hd, d_model, b, grid, cap)
         out = _proj_tile(d_model, hd, b, grid, cap)
         cq = _proj_tile(hd, d_model, b, grid, cap, MEGASTEP_LN_ROWS)
-        smem = 4 * _plan_floats(b, d_model, n_head, qkv, out, cq)
+        smem = 4 * _plan_floats(b, d_model, n_head, qkv, out, cq, d_head)
         if smem <= MEGASTEP_SMEM_CAP:
             return MegastepPlan(grid, qkv, out, cq, *walk_split(self_rows),
                                 *walk_split(cross_rows), smem)
-    raise ValueError(f"megastep: no plan fits b {b}, {n_head} heads, "
-                     f"d_model {d_model} in {MEGASTEP_SMEM_CAP} bytes of "
-                     f"shared memory a block")
+    raise ValueError(f"megastep: no plan fits b {b}, {n_head} heads of "
+                     f"{d_head}, d_model {d_model} in {MEGASTEP_SMEM_CAP} "
+                     f"bytes of shared memory a block")
 
 
 def device_megastep_plan(device, paged, b, n_head, d_model, self_rows,
-                         cross_rows):
+                         cross_rows, d_head=64):
     """:func:`megastep_plan` as :func:`megastep` and
     :func:`megastep_paged` launch it on ``device``."""
     return _device_launch(device, paged, b, n_head, d_model, self_rows,
-                          cross_rows)[0]
+                          cross_rows, d_head)[0]
 
 
 @functools.lru_cache(maxsize=256)
 def _device_launch(device, paged, b, n_head, d_model, self_rows,
-                   cross_rows):
+                   cross_rows, d_head=64):
     """(plan, its integers, the scratch floats) of a launch on ``device``:
     one block an SM of its SM count, the entry point's occupancy at the
     plan's shared memory checked; made once a shape."""
     plan = megastep_plan(b, n_head, d_model, sm_count(device), 1, self_rows,
-                         cross_rows)
+                         cross_rows, d_head)
     lib = _build.lib()
-    per_sm = lib.ptt_megastep_occupancy(int(paged), plan.smem)
+    per_sm = lib.ptt_megastep_occupancy(int(paged), d_head, plan.smem)
     if per_sm < 1:
         _build.check(-per_sm if per_sm < 0 else 1, "megastep occupancy")
     return plan, plan.ints(), lib.ptt_megastep_scratch(
-        b, d_model, n_head, plan.self_splits, plan.cross_splits)
+        b, d_model, n_head, d_head, plan.self_splits, plan.cross_splits)
 
 
 def _launch_megastep(what, paged, x, args, geometry, rows, layer, n_head,
-                     scale, eps):
+                     d_head, scale, eps):
     """Launch #10 (ring) or #12 (paged) on checked tensors: ``args`` the
     entry point's tensors in order, ``geometry`` its cache integers,
     ``rows`` the (self, cross) rows a sequence the walks cover.  The
     output and the scratch are one allocation."""
     b, _, dm = x.shape
-    _, ints, scratch = _device_launch(x.device, paged, b, n_head, dm, *rows)
+    _, ints, scratch = _device_launch(x.device, paged, b, n_head, dm, *rows,
+                                      d_head)
     buf = torch.empty(b * dm + scratch, dtype=torch.float32, device=x.device)
     lib = _build.lib()
     entry = lib.ptt_megastep_paged if paged else lib.ptt_megastep
     err = entry(*(a.data_ptr() for a in args), buf.data_ptr(),
-                buf.data_ptr() + 4 * b * dm, layer, b, dm, n_head, *geometry,
-                *ints, float(scale), float(eps), _build.stream_of(x))
+                buf.data_ptr() + 4 * b * dm, layer, b, dm, n_head, d_head,
+                *geometry, *ints, float(scale), float(eps),
+                _build.stream_of(x))
     _build.check(err, what)
-    launches[what] += 1
+    launches[what + width_suffix(d_head)] += 1
     return buf[:b * dm].view(b, 1, dm)
 
 def megastep(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout, ln2_scale,
@@ -319,7 +335,7 @@ def megastep(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout, ln2_scale,
                 cross_v=(cross_v, torch.float32, cross))
     _build.require(spec, x.device, "megastep")
     return _launch_megastep("megastep", False, x, args, (max_t, cross_t),
-                            (max_t, cross_t), layer, h, scale, eps)
+                            (max_t, cross_t), layer, h, dh, scale, eps)
 
 
 def reference_megastep_paged(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
@@ -382,7 +398,7 @@ def megastep_paged(x, wqkv, wout, ln1_scale, ln1_bias, wcq, wcout,
     _build.require(spec, x.device, "megastep_paged")
     return _launch_megastep("megastep_paged", True, x, args,
                             (nb, bt, mb, cnb, cbt, cmb),
-                            (mb * bt, cmb * cbt), layer, h, scale, eps)
+                            (mb * bt, cmb * cbt), layer, h, dh, scale, eps)
 
 
 #: threads of an FFN block (csrc/ffn.cu NT)
@@ -584,8 +600,9 @@ def _launch_ffn(x, weights, d_inner, eps):
 def _ffn_route(x, d_head):
     """The FFN half of a decoder step: :func:`ffn_epilogue`, or on CUDA at
     a head width % 64 != 0 its plain version (counted), since there the
-    reference's megastep plan declines the whole step, FFN included."""
-    if x.device.type == "cuda" and head_route(d_head) == "composed":
+    reference's megastep plan declines the whole step, FFN included.  The
+    FFN has no head axis, so every other width launches it."""
+    if x.device.type == "cuda" and d_head % 64:
         composed["ffn"] += 1
         return reference_ffn
     return ffn_epilogue

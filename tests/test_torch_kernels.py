@@ -234,22 +234,25 @@ def _decode_plan_sum(plan, q, k, v, lengths, scale):
     return out
 
 
+@pytest.mark.parametrize("d_head", [64, 128])
 @pytest.mark.parametrize("sms", [2, 132])
 @pytest.mark.parametrize("rows", [16, 128, 256])
 @pytest.mark.parametrize("b", [1, 3, 33, 64])
-def test_decode_plan_covers_every_item(b, rows, sms):
-    """Flash-decode's plan for 8 heads of 64 on a card of ``sms`` SMs: the
-    walk's items (the (head group, sequence, split) triples whose split
-    holds rows, item i on block i % grid) cover every valid row of every
-    (sequence, head) exactly once, lengths 0 and full included; the
-    blocks' shared memory fits a block and the SMs that hold them; the
-    scratch holds every split's partial; and a sum that follows the
-    plan's splits and merge order equals ``reference_decode``."""
+def test_decode_plan_covers_every_item(b, rows, sms, d_head):
+    """Flash-decode's plan for 8 heads of ``d_head`` on a card of ``sms``
+    SMs: the walk's items (the (head group, sequence, split) triples whose
+    split holds rows, item i on block i % grid) cover every valid row of
+    every (sequence, head) exactly once, lengths 0 and full included; the
+    blocks' shared memory fits a block (at 128 a group of 8 heads cannot:
+    the plan takes 4 or fewer) and the SMs that hold them; the scratch
+    holds every split's partial; and a sum that follows the plan's splits
+    and merge order equals ``reference_decode``."""
     h = 8
-    plan = kda.decode_plan(b, h, rows, sms, 1)
+    plan = kda.decode_plan(b, h, rows, sms, 1, d_head)
     assert plan.group in kda.DECODE_GROUPS
-    assert plan.smem == 4 * kda.walk_floats(plan.group, kda.DECODE_STAGES,
-                                            h, b)
+    assert plan.group <= (8 if d_head == 64 else 4)
+    assert plan.smem == 4 * kda.walk_floats(d_head, plan.group,
+                                            kda.DECODE_STAGES, h, b)
     assert plan.smem <= kda.SMEM_CAP
     per_sm = -(-plan.grid // sms)
     assert per_sm * (plan.smem + kda.BLOCK_RESERVED_SMEM) <= kda.SM_SMEM
@@ -257,10 +260,10 @@ def test_decode_plan_covers_every_item(b, rows, sms):
     assert plan.split % kda.WALK_CHUNK == 0
     assert plan.splits <= kda.WALK_MAX_SPLITS
     assert (plan.splits - 1) * plan.split < rows <= plan.splits * plan.split
-    assert plan.scratch == b * plan.splits * h * kda.WALK_PART
+    assert plan.scratch == b * plan.splits * h * kda.walk_part(d_head)
     assert plan.ints() == (plan.group, plan.grid, plan.split, plan.smem)
 
-    rng = np.random.RandomState(b * 1000 + rows + sms)
+    rng = np.random.RandomState(b * 1000 + rows + sms + d_head)
     lengths = rng.randint(0, rows + 1, b).astype(np.int32)
     if b > 1:
         lengths[0], lengths[-1] = 0, rows
@@ -281,12 +284,13 @@ def test_decode_plan_covers_every_item(b, rows, sms):
     assert (seen[~np.broadcast_to(valid, seen.shape)] == 0).all()
     assert blocks.max() - blocks.min() <= 1
 
-    q = rng.randn(b, h, 64).astype(np.float32)
-    k = rng.randn(b, rows, h, 64).astype(np.float32)
-    v = rng.randn(b, rows, h, 64).astype(np.float32)
+    q = rng.randn(b, h, d_head).astype(np.float32)
+    k = rng.randn(b, rows, h, d_head).astype(np.float32)
+    v = rng.randn(b, rows, h, d_head).astype(np.float32)
+    scale = d_head ** -0.5
     want = kda.reference_decode(*(torch.from_numpy(a)
-                                  for a in (q, k, v, lengths)), 0.125)
-    got = _decode_plan_sum(plan, q, k, v, lengths, 0.125)
+                                  for a in (q, k, v, lengths)), scale)
+    got = _decode_plan_sum(plan, q, k, v, lengths, scale)
     np.testing.assert_allclose(got, want.numpy(), rtol=1e-6, atol=1e-6)
     assert not got[lengths == 0].any()
 
@@ -371,24 +375,33 @@ def test_decode_wrappers_refuse_non_cpu_tensors():
         kds.ffn_epilogue(t[0], *t[9:15])
 
 
+@pytest.mark.parametrize("d_head", [64, 128])
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("n_head", [8, 12])
-def test_megastep_plan_covers_every_item(n_head, sms):
+def test_megastep_plan_covers_every_item(n_head, sms, d_head):
     """The megastep's plan for b in 1..64 on a card of ``sms`` SMs (the
-    H100 SXM's 132, the PCIe's 114), one block an SM: every output of
-    x Wqkv (3hd columns), ctx Wout (d_model) and x1 Wcq (hd) is owned by
-    exactly one (column tile, row group) item, each tile within the
-    block's threads, the whole layout within a block's shared memory;
-    every (sequence, head) walk's rows are covered exactly once by its
-    splits, whole 16-row chunks each."""
-    dm, hd = 512, n_head * 64
+    H100 SXM's 132, the PCIe's 114), one block an SM, at head width 64
+    (d_model 512) and 128 (d_model 1024, Transformer-big's, where the
+    projections' W tiles and the walk's ring compete for a block's shared
+    memory): every output of x Wqkv (3hd columns), ctx Wout (d_model) and
+    x1 Wcq (hd) is owned by exactly one (column tile, row group) item,
+    each tile within the block's threads, the whole layout within a
+    block's shared memory, the walk's group of heads (8 at 64, 4 at 128)
+    within it too; every (sequence, head) walk's rows are covered exactly
+    once by its splits, whole 16-row chunks each."""
+    dm, hd = 512 * d_head // 64, n_head * d_head
+    group = kds.MEGASTEP_GROUPS[d_head]
+    assert group * d_head <= 512  # a walk stage's row of k or v
     for b in range(1, 65):
         for self_rows, cross_rows in ((128, 256), (65, 258)):
             plan = kds.megastep_plan(b, n_head, dm, sms, 1, self_rows,
-                                     cross_rows)
+                                     cross_rows, d_head)
             assert plan.grid == sms
             assert plan.smem == 4 * kds._plan_floats(b, dm, n_head, plan.qkv,
-                                                     plan.out, plan.cq)
+                                                     plan.out, plan.cq,
+                                                     d_head)
+            assert plan.smem >= 4 * kda.walk_floats(
+                d_head, group, kds.MEGASTEP_STAGES, n_head, b)
             assert plan.smem <= kds.MEGASTEP_SMEM_CAP
             assert plan.cq[1] <= kds.MEGASTEP_LN_ROWS
             for (ct, rg), n in ((plan.qkv, 3 * hd), (plan.out, dm),

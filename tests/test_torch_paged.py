@@ -252,8 +252,8 @@ def test_launch_passes_the_plan_to_the_entry_point(monkeypatch, b):
     seen = {}
 
     class Lib:
-        def ptt_megastep_occupancy(self, paged, smem):
-            seen["occupancy"] = (paged, smem)
+        def ptt_megastep_occupancy(self, paged, dh, smem):
+            seen["occupancy"] = (paged, dh, smem)
             return 1
 
         def ptt_megastep_scratch(self, *args):
@@ -274,20 +274,20 @@ def test_launch_passes_the_plan_to_the_entry_point(monkeypatch, b):
     try:
         out = kds._launch_megastep("megastep_paged", True, x, args,
                                    (nb, bt, mb, cnb, bt, cmb),
-                                   (mb * bt, cmb * bt), 3, n_head, 0.125,
-                                   1e-5)
+                                   (mb * bt, cmb * bt), 3, n_head, 64,
+                                   0.125, 1e-5)
     finally:
         kds._device_launch.cache_clear()
     plan = kds.megastep_plan(b, n_head, dm, 132, 1, mb * bt, cmb * bt)
-    assert seen["occupancy"] == (1, plan.smem)
-    assert seen["scratch"] == (b, dm, n_head, plan.self_splits,
+    assert seen["occupancy"] == (1, 64, plan.smem)
+    assert seen["scratch"] == (b, dm, n_head, 64, plan.self_splits,
                                plan.cross_splits)
     entry = seen["entry"]
-    assert len(entry) == 21 + 20 + 3
+    assert len(entry) == 21 + 21 + 3
     assert entry[20] - entry[19] == 4 * b * dm  # out, then the scratch
-    assert entry[21:31] == (3, b, dm, n_head, nb, bt, mb, cnb, bt, cmb)
-    assert entry[31:41] == plan.ints() and plan.grid == 132
-    assert entry[41:] == (0.125, 1e-5, 7)
+    assert entry[21:32] == (3, b, dm, n_head, 64, nb, bt, mb, cnb, bt, cmb)
+    assert entry[32:42] == plan.ints() and plan.grid == 132
+    assert entry[42:] == (0.125, 1e-5, 7)
     assert out.shape == x.shape and kernels.launches["megastep_paged"] == 1
 
 
@@ -328,14 +328,14 @@ def test_decode_launch_passes_the_plan_to_the_entry_point(monkeypatch, b,
     what = "flash_decode_paged" if paged else "flash_decode"
     n_args = 5 if paged else 4
     args = [q] + [torch.zeros(1) for _ in range(n_args - 1)]
-    geometry = (h, nb, bt, mb) if paged else (mb * bt, h)
+    geometry = (h, dh, nb, bt, mb) if paged else (mb * bt, h, dh)
     try:
         out = kda._launch_decode(what, paged, q, args, geometry, mb * bt,
                                  0.125)
     finally:
         kda._device_plan.cache_clear()
     plan = kda.decode_plan(b, h, mb * bt, 132, kda.DECODE_BLOCKS_PER_SM)
-    assert seen["occupancy"] == (int(paged), plan.group, plan.smem)
+    assert seen["occupancy"] == (int(paged), dh, plan.group, plan.smem)
     entry = seen["entry"]
     assert len(entry) == n_args + 3 + len(geometry) + 4 + 2
     assert entry[:n_args] == tuple(a.data_ptr() for a in args)

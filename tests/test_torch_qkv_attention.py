@@ -500,7 +500,7 @@ def test_launch_passes_the_plan_to_the_entry_point(monkeypatch, b, t, rows):
     ka._launch_qkv_fwd(x, torch.zeros(dm, 3 * dm), torch.zeros(dm, dm),
                        None, n_head, SCALE, False, 0.0, 0)
     assert len(seen) == 1
-    assert seen[0][12:17] == (b, t, dm, n_head, rows)
+    assert seen[0][12:18] == (b, t, dm, n_head, DH, rows)
 
 
 #: head width 128 (C2): (name, t, bias kind, causal) at 2 heads
@@ -514,8 +514,9 @@ def test_head_width_128_matches_jax_kernels(name, t, bias_kind, causal):
     (interpret mode here), and the port's twins, which its wrappers run on
     CPU tensors, give their result: the output and the gradients of x,
     w_qkv and w_out against jax.vjp of the reference's
-    flash_qkv_attention, at the reference's tolerance.  (On the card the
-    wrappers raise at this width: no kernel is compiled for it.)"""
+    flash_qkv_attention, at the reference's tolerance.  (On the card #1's
+    f32 forward is compiled for this width, and serving launches it; the
+    pair #2 + #3 is not, so a call that needs a gradient raises.)"""
     dh, n_head = 128, 2
     x, w_qkv, w_out, g, bias = _inputs(n_head, t, bias_kind, seed=5, dh=dh)
     kw = dict(n_head=n_head, scale=dh ** -0.5, causal=causal)

@@ -12,8 +12,10 @@ exercised on a small seeded model.
 
 import sys
 import threading
+import types
 
 import pytest
+import torch
 
 from paddle_tpu import monitor
 from paddle_tpu.flags import FLAGS
@@ -21,6 +23,7 @@ from paddle_tpu.serving import generation as jax_generation
 from paddle_tpu_torch import GenerationSession, Transformer, kernels
 from paddle_tpu_torch.interop import (load_paddle_tpu_params,
                                       paddle_tpu_param_names)
+from paddle_tpu_torch.kernels import decode_step as kds
 from paddle_tpu_torch.serving import (ContinuousBatcher, GenerationConfig,
                                       GenerationServingModel, Overloaded,
                                       Unavailable,
@@ -130,25 +133,79 @@ def test_demo_at_reference_widths_matches_reference_tokens():
     assert [list(r.tokens) for r in reqs] == want
 
 
-@pytest.mark.parametrize("d_head,route", [(16, "composed"),
-                                          (32, "composed"), (64, "kernel"),
-                                          (128, None)])
-def test_head_width_route_mirrors_reference_plans(d_head, route):
-    """The route the CUDA wrappers take by head width, as the reference's
-    plans decide: the composition below a multiple of 64, the kernel at
-    64, and an error at 128 (the kernels are compiled for 64 only).  A
-    composed call is counted; a kernel route counts nothing here."""
+#: every attention and decode kernel the route table names (the FFN has no
+#: head axis: test_ffn_route_follows_the_step), with the dtypes it has
+#: instantiations of
+_HEAD_AXIS = [name for name in kernels.composed if name != "ffn"]
+_ROUTED = [(name, torch.float32) for name in _HEAD_AXIS] + [
+    (name, torch.bfloat16) for name in _HEAD_AXIS
+    if name in kernels.BF16_KERNELS]
+#: the serving path's f32 kernels, compiled for head width 128 too
+_SERVING = ("qkv_attention_fwd", "megastep", "megastep_paged",
+            "flash_decode", "flash_decode_paged")
+#: (d_head, route, kernel, dtype): the first four are flash_fwd's cases at
+#: 16, 32, 64 and 128; then every kernel and dtype at 64 (kernel), 96
+#: (composed), 128 (kernel where compiled, else an error) and 192 (an
+#: error everywhere)
+_ROUTE_CASES = [(16, "composed", "flash_fwd", torch.float32),
+                (32, "composed", "flash_fwd", torch.float32),
+                (64, "kernel", "flash_fwd", torch.float32),
+                (128, None, "flash_fwd", torch.float32)] + [
+    (d_head, route, name, dtype) for name, dtype in _ROUTED
+    for d_head, route in (
+        (64, "kernel"), (96, "composed"),
+        (128, "kernel" if name in _SERVING and dtype == torch.float32
+         else None),
+        (192, None))]
+_ROUTE_IDS = ["16-composed", "32-composed", "64-kernel", "128-None"] + [
+    f"{name}-{str(dtype)[6:]}-{d_head}-{route}"
+    for d_head, route, name, dtype in _ROUTE_CASES[4:]]
+
+
+@pytest.mark.parametrize("d_head,route,name,dtype", _ROUTE_CASES,
+                         ids=_ROUTE_IDS)
+def test_head_width_route_mirrors_reference_plans(d_head, route, name,
+                                                  dtype):
+    """The route the CUDA wrappers take by kernel, dtype and head width,
+    as the reference's plans decide: the composition below a multiple of
+    64, the kernel at 64, and at 128 the kernel where the port compiles
+    it (the serving path's f32 kernels: #1's forward, the megasteps and
+    flash-decode), an error naming the kernel and the width
+    elsewhere (training's kernels and every bf16 instantiation); 192 is
+    compiled nowhere.  A composed call is counted; a kernel route counts
+    nothing here."""
+    assert kernels.compiled_widths(name, dtype) == (
+        (64, 128) if name in _SERVING and dtype == torch.float32 else (64,))
     kernels.reset_launches()
     if route is None:
-        with pytest.raises(ValueError, match="head width 128"):
-            kernels.head_route(d_head)
-        with pytest.raises(ValueError, match="head width 128"):
-            kernels.composes("flash_fwd", d_head)
+        with pytest.raises(ValueError, match=f"{name}.*head width {d_head}"):
+            kernels.head_route(name, d_head, dtype)
+        with pytest.raises(ValueError, match=f"head width {d_head}"):
+            kernels.composes(name, d_head, dtype)
+        assert not any(kernels.composed.values())
         return
-    assert kernels.head_route(d_head) == route
-    assert kernels.composes("flash_fwd", d_head) == (route == "composed")
-    assert kernels.composed["flash_fwd"] == (route == "composed")
+    assert kernels.head_route(name, d_head, dtype) == route
+    assert kernels.composes(name, d_head, dtype) == (route == "composed")
+    assert kernels.composed[name] == (route == "composed")
     kernels.reset_launches()
+    assert not any(kernels.composed.values())
+
+
+@pytest.mark.parametrize("d_head,composed", [(64, False), (96, True),
+                                             (128, False), (192, False)])
+def test_ffn_route_follows_the_step(d_head, composed):
+    """The FFN half of a decoder step on CUDA tensors: its plain version
+    (counted) where the step composes (d_head % 64 != 0), else its kernel
+    at every width, as it has no head axis (at a width with no megastep
+    the step raises before it).  CPU tensors always take the plain
+    version, uncounted."""
+    cuda = types.SimpleNamespace(device=torch.device("cuda"))
+    kernels.reset_launches()
+    route = kds._ffn_route(cuda, d_head)
+    assert route is (kds.reference_ffn if composed else kds.ffn_epilogue)
+    assert kernels.composed["ffn"] == composed
+    kernels.reset_launches()
+    assert kds._ffn_route(torch.zeros(1), d_head) is kds.ffn_epilogue
     assert not any(kernels.composed.values())
 
 

@@ -204,6 +204,26 @@ Phases, each fatal on failure:
    teacher-forced on its tokens, logits within TOL_E2E; each timed; then
    the batcher on paged pools (64 slots, 48 requests); no composition;
    and one profiled prefill and 16 steps at each batch;
+   (n) amp training at head width 128 (``run_head128_amp``) on BIG's
+   widths at ``bench_transformer``'s config (batch 32, source and target
+   256, dropout 0.1, Adam at 1e-4, ``amp.enable``), on the default route
+   (12 each of ``qkv_attention_fwd_bf16_dh128``, ``qkv_bwd_dq_bf16_dh128``,
+   ``qkv_bwd_dkv_bf16_dh128`` and 6 each of ``flash_fwd_bf16_dh128``,
+   ``flash_bwd_dq_bf16_dh128``, ``flash_bwd_dkv_bf16_dh128`` a step) and
+   the flag-off route (18 each of the flash ones), 30 + 2 of #16/#17, no
+   composition: step 1 at batch 2, length 64 (HEAD128_AMP_PARITY) under
+   fixed seeds, repeated for equal bits, against a float64 CPU step of
+   the plain path (TOL_AMP_LOSS, TOL_AMP_GRAD), the routes' losses within
+   TOL_AMP_ROUTES_LOSS; then 8 timed steps through an ``amp.LossScaler``
+   on one repeated full batch whose loss must fall, with no overflow; one
+   profiled step a route (device busy, idle share).  Phase 2 holds the
+   bf16 kernels of this path at head width 128 (#1 on clusters of 64 and
+   32 rows and the tiles route, the pair and each walk, #4-#9 in both
+   layouts, with the bthd kernels' bits from the bhtd ones) against their
+   twins at BIG's widths, beside the same cases at 16 heads of 64
+   (``check_head128_amp_kernels``), and ``check_head_width_128`` the route
+   table: f32 training kernels and every kernel at 192 raise before any
+   launch;
    (d) training: ``Transformer(fused_qkv_attention=False)`` with Paddle's
    ``Adam(1e-4)`` at batch 32, source and target 256 with seeded padded
    tails (label weight 0 on the pads): 18 ``flash_fwd``, 18
@@ -1093,6 +1113,306 @@ def check_head128_kernels():
     return records, flat
 
 
+#: C2 part 2a: the bf16 training kernels at head width 128, phase 2's
+#: cases at the amp path's shapes (TRAIN_BATCH sequences of TRAIN_LEN at
+#: BIG's widths, and at BIG64's on the same bytes).  #4-#9: (case, tq,
+#: tk, bias, causal), each in bthd (#4, #6, #7) and on the same values in
+#: bhtd (#5, #8, #9, which must give the bthd kernels' bits); the first
+#: is the record's (the cross-attention under the source padding bias)
+HEAD128_AMP_FLASH_CASES = (("cross", 256, 256, "pad", False),
+                           ("decoder self", 256, 256, "decoder", False),
+                           ("causal tq>tk, -1e30 row", 256, 128, "masked",
+                            True),
+                           ("ragged causal tq 129 tk 129", 129, 129,
+                            "decoder", True))
+#: #1 and the pair: (case, b, t, bias, causal); b None is TRAIN_BATCH (32,
+#: clusters of 64 rows), b 1 takes clusters of 32, t 640 the tiles route
+#: (#1); the first is the record's
+HEAD128_AMP_QKV_CASES = (("encoder self", None, 256, "pad", False),
+                         ("decoder self", None, 256, "decoder", False),
+                         ("b=1 decoder self", 1, 256, "decoder", False),
+                         ("causal ragged t 200, -1e30 row", 4, 200,
+                          "masked", True),
+                         ("tiles t 640", 2, 640, "pad", False))
+#: a head-width-128 bf16 record's fields kept for its other cases
+HEAD128_AMP_CASE_KEYS = ("batch", "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "max_abs_err", "dropout_ms",
+                         "dropout_max_abs_err", "plan", "dh64_ms")
+
+
+def _head128_flash(gen, cfg, case, tq, tk, bias_kind, causal):
+    """#4-#9 in bf16 on one case at ``cfg``'s widths, rates 0 and DROPOUT:
+    each kernel twice for equal bits and against its twin by
+    ``compare_bf16``, the bhtd kernels on the same values with the bthd
+    kernels' bits, a row masked in the forward with dq = 0; at the record
+    case timed (rate 0 and DROPOUT) beside the twin, masked SDPA (its
+    backward for the walks) and the bound.  {(kernel, case): record}."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import attention as ka
+
+    b, h, dh = TRAIN_BATCH, cfg["n_head"], cfg["d_key"]
+    scale = dh ** -0.5
+    q, k, v, do, bias = _bf16(*_flash_inputs(gen, tq, tk, bias_kind, causal,
+                                             cfg))
+    t_ = [a.transpose(1, 2).contiguous() for a in (q, k, v, do)]
+    errs, calls = {}, {}
+    for rate in (0.0, DROPOUT):
+        kw = dict(scale=scale, causal=causal, dropout_rate=rate,
+                  dropout_seed=int(torch.randint(0, 2 ** 32, (1,),
+                                                 generator=gen)))
+        what = f"bf16 d_head {dh} {case} rate {rate}"
+        o, lse = ka.flash_fwd(q, k, v, bias, **kw)
+        _require_same_bits(f"flash_fwd {what}", (o, lse),
+                           ka.flash_fwd(q, k, v, bias, **kw))
+        want_o, want_lse = ka.reference_flash_fwd(q, k, v, bias, **kw)
+        hidden = torch.isinf(want_lse)
+        require(torch.equal(hidden, torch.isinf(lse)),
+                f"flash_fwd {what}: masked rows differ")
+        err_f = max(compare_bf16(f"flash_fwd {what}", o, want_o),
+                    compare(f"flash_fwd {what} lse", lse[~hidden],
+                            want_lse[~hidden], TOL_KERNEL))
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        bw = (q, k, v, bias, do, lse, delta)
+        dq = ka.flash_bwd_dq(*bw, **kw)
+        dk, dv = ka.flash_bwd_dkv(*bw, **kw)
+        _require_same_bits(f"flash_bwd_dq {what}", (dq,),
+                           (ka.flash_bwd_dq(*bw, **kw),))
+        _require_same_bits(f"flash_bwd_dkv {what}", (dk, dv),
+                           ka.flash_bwd_dkv(*bw, **kw))
+        if bias_kind == "masked":
+            require(torch.isinf(lse[-1, :, tq - 5]).all().item()
+                    and not dq[-1, tq - 5].any().item(),
+                    f"flash_bwd_dq {what}: the masked row's dq is not 0")
+        want_dk, want_dv = ka.reference_flash_bwd_dkv(*bw, **kw)
+        err_dq = compare_bf16(f"flash_bwd_dq {what}", dq,
+                              ka.reference_flash_bwd_dq(*bw, **kw))
+        err_dkv = max(compare_bf16(f"flash_bwd_dkv {what} dk", dk, want_dk),
+                      compare_bf16(f"flash_bwd_dkv {what} dv", dv, want_dv))
+        del want_dk, want_dv
+        # the bhtd kernels on the same values: the bthd kernels' bits
+        bw_t = (t_[0], t_[1], t_[2], bias, t_[3], lse,
+                delta.contiguous())
+        o_t, lse_t = ka.flash_fwd_bhtd(t_[0], t_[1], t_[2], bias, **kw)
+        dq_t = ka.flash_bwd_dq_bhtd(*bw_t, **kw)
+        dk_t, dv_t = ka.flash_bwd_dkv_bhtd(*bw_t, **kw)
+        for name, got, want in (("flash_fwd_bhtd", (o_t, lse_t), (o, lse)),
+                                ("flash_bwd_dq_bhtd", (dq_t,), (dq,)),
+                                ("flash_bwd_dkv_bhtd", (dk_t, dv_t),
+                                 (dk, dv))):
+            got = [a.transpose(1, 2) if a.dim() == 4 else a for a in got]
+            _require_same_bits(f"{name} {what}: the bthd kernels' bits",
+                               got, want)
+        errs[rate] = dict(flash_fwd=err_f, flash_bwd_dq=err_dq,
+                          flash_bwd_dkv=err_dkv)
+        errs[rate].update({k_ + "_bhtd": e for k_, e in list(
+            errs[rate].items())})
+        calls[rate] = (kw, bw, bw_t)
+    if case != HEAD128_AMP_FLASH_CASES[0][0]:
+        return {(name, case): dict(max_abs_err=errs[0.0][name],
+                                   dropout_max_abs_err=errs[DROPOUT][name],
+                                   batch=b)
+                for name in errs[0.0]}
+    (kw, bw, bw_t), (kw_d, bw_d, bw_td) = calls[0.0], calls[DROPOUT]
+    lq, lk, lv = (a.transpose(1, 2).detach().requires_grad_()
+                  for a in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias,
+                                             scale=scale)
+    lib_do = do.transpose(1, 2)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias,
+                                                  scale=scale)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (lq, lk, lv), lib_do,
+                                   retain_graph=True)
+
+    pairs = _visible_pairs(tq, tk, causal)
+    flops = b * h * pairs * dh
+    rows, keys = BF16 * b * h * tq * dh, BF16 * b * h * tk * dh
+    bias_bytes = BF16 * bias.numel()
+    stats = F32 * b * h * tq
+    hashes = ATTN_HASH_OPS * b * h * pairs
+    out = {}
+    for suffix, args in (("", (bw, bw_d)), ("_bhtd", (bw_t, bw_td))):
+        for name, source, line, mult, nbytes in (
+                ("flash_fwd", "flash_tc.cuh", 550 if not suffix else 176, 4,
+                 2 * rows + 2 * keys + bias_bytes + stats),
+                ("flash_bwd_dq", "flash_bwd_tc.cuh",
+                 618 if not suffix else 247, 6,
+                 3 * rows + 2 * keys + bias_bytes + 2 * stats),
+                ("flash_bwd_dkv", "flash_bwd_tc.cuh",
+                 678 if not suffix else 303, 8,
+                 2 * rows + 4 * keys + bias_bytes + 2 * stats)):
+            fn = getattr(ka, name + suffix)
+            twin = getattr(ka, "reference_" + name + suffix)
+            a0 = args[0][:3] + (bias,) if name == "flash_fwd" else args[0]
+            a1 = args[1][:3] + (bias,) if name == "flash_fwd" else args[1]
+            rec = timed_record(
+                name + suffix + "_bf16_dh128" if dh == 128
+                else name + suffix + "_bf16",
+                "paddle_tpu_torch/csrc/" + source,
+                f"paddle_tpu/kernels/attention.py:{line}",
+                errs[0.0][name + suffix], lambda: fn(*a0, **kw),
+                lambda: twin(*a0, **kw), mult * flops, nbytes,
+                lib_fwd if name == "flash_fwd" else lib_bwd, b,
+                bound_fn=bound_bf16)
+            rec.update(case=case, dtype="bf16", d_head=dh,
+                       dropout_max_abs_err=errs[DROPOUT][name + suffix],
+                       dropout_ms=cuda_ms(lambda: fn(*a1, **kw_d)),
+                       dropout_bound_ms=bound_bf16(mult * flops, nbytes,
+                                                   hashes)[0],
+                       device_ms=cuda_ms(lambda: fn(*a0, **kw),
+                                         hide_host=True))
+            out[(name + suffix, case)] = rec
+    del lib_out
+    return out
+
+
+def _head128_qkv(gen, cfg, case, b, t, bias_kind, causal):
+    """#1 and the pair #2 + #3 (and #2, #3 alone) in bf16 on one case at
+    ``cfg``'s widths, rates 0 and DROPOUT: twice for equal bits, against
+    the twins by ``compare_bf16``, a masked row's ctx 0 and dx_q 0; at the
+    record case timed beside the twins, ``F.multi_head_attention_forward``
+    in bf16 (its backward for the pair) and the bounds.  {(kernel, case):
+    record}, the pair's under "qkv_bwd"."""
+    from paddle_tpu_torch.kernels import attention as ka
+
+    b = b or TRAIN_BATCH
+    h, dh, dm = cfg["n_head"], cfg["d_key"], cfg["d_model"]
+    hd = h * dh
+    x, w_qkv, w_out, g, bias = _bf16(*_qkv_inputs(gen, t, bias_kind, b, dm))
+    fw = (x, w_qkv, w_out, bias)
+    errs, bws = {}, {}
+    plan = list(ka.qkv_fwd_plan(b, t, h, ka.sm_count(x.device)))
+    for rate in (0.0, DROPOUT):
+        kw = dict(n_head=h, scale=dh ** -0.5, causal=causal,
+                  dropout_rate=rate, dropout_seed=int(torch.randint(
+                      0, 2 ** 32, (1,), generator=gen)))
+        what = f"bf16 d_head {dh} {case} {plan} rate {rate}"
+        (y, ctx, lse), _, _, err_f = _held_qkv_fwd(
+            f"qkv_attention_fwd {what}", fw, kw, bias_kind == "masked")
+        bw = (x, w_qkv, w_out, bias, g, ctx, lse)
+        errs[rate] = dict(qkv_attention_fwd=err_f)
+        for kernel, fn, twin in (
+                ("qkv_bwd", ka.qkv_bwd, ka.reference_qkv_bwd),
+                ("qkv_bwd_dq", ka.qkv_bwd_dq, ka.reference_qkv_bwd_dq),
+                ("qkv_bwd_dkv", ka.qkv_bwd_dkv, ka.reference_qkv_bwd_dkv)):
+            got = fn(*bw, **kw)
+            _require_same_bits(f"{kernel} {what}", got, fn(*bw, **kw))
+            # dx is rounded twice in the reference (dx_q + dx_kv)
+            errs[rate][kernel] = max(
+                compare_bf16(f"{kernel} {what} part {i}", a, w)
+                for i, (a, w) in enumerate(zip(got, twin(*bw, **kw))))
+            if kernel == "qkv_bwd_dq" and bias_kind == "masked":
+                require(torch.isinf(lse[-1, :, t - 5]).all().item()
+                        and not got[0][-1, t - 5].any().item(),
+                        f"{kernel} {what}: the masked row's dx_q is not 0")
+            del got
+        bws[rate] = (bw, kw)
+    if case != HEAD128_AMP_QKV_CASES[0][0]:
+        return {(name, case): dict(max_abs_err=e,
+                                   dropout_max_abs_err=errs[DROPOUT][name],
+                                   batch=b, plan=plan)
+                for name, e in errs[0.0].items()}
+    (bw, kw), (bw_d, kw_d) = bws[0.0], bws[DROPOUT]
+    _, lib_fwd, lib_bwd = _library_mha(x, w_qkv, w_out, bias, g, h, causal)
+    pairs = _visible_pairs(t, t, causal)
+    proj = 2 * b * t * dm * hd
+    attn = 2 * b * h * pairs * dh
+    hashes = ATTN_HASH_OPS * b * h * pairs
+    io = (BF16 * (b * t * hd + dm * 3 * hd + hd * dm + bias.numel())
+          + F32 * b * h * t)
+    act = BF16 * b * t * dm
+    pair_bytes = (BF16 * (3 * b * t * dm + b * t * hd + bias.numel()
+                          + 2 * (dm * 3 * hd + hd * dm)) + F32 * b * h * t)
+    src = "paddle_tpu_torch/csrc/qkv_attention_bwd.cu"
+    out = {}
+    for name, source, line, fn, twin, flops, nbytes, lib in (
+            ("qkv_attention_fwd", "paddle_tpu_torch/csrc/qkv_attention.cu",
+             "1377", ka.qkv_attention_fwd, ka.reference_qkv_fwd,
+             4 * proj + 2 * attn, 2 * act + io, lib_fwd),
+            ("qkv_bwd", src, "1454 + :1546", ka.qkv_bwd,
+             ka.reference_qkv_bwd, _qkv_pair_flops(proj, attn), pair_bytes,
+             lib_bwd),
+            ("qkv_bwd_dq", src, "1454", ka.qkv_bwd_dq,
+             ka.reference_qkv_bwd_dq, 7 * proj + 3 * attn,
+             3 * act + io + BF16 * 2 * dm * hd, lib_bwd),
+            ("qkv_bwd_dkv", src, "1546", ka.qkv_bwd_dkv,
+             ka.reference_qkv_bwd_dkv, 8 * proj + 4 * attn,
+             3 * act + io + BF16 * 2 * dm * hd, lib_bwd)):
+        args, args_d = (fw, fw) if name == "qkv_attention_fwd" else (bw,
+                                                                     bw_d)
+        rec = timed_record(
+            name + ("_bf16_dh128" if dh == 128 else "_bf16"), source,
+            f"paddle_tpu/kernels/attention.py:{line}", errs[0.0][name],
+            lambda: fn(*args, **kw), lambda: twin(*args, **kw), flops,
+            nbytes, lib, b, bound_fn=bound_bf16)
+        rec.update(case=case, dtype="bf16", d_head=dh, plan=plan,
+                   dropout_max_abs_err=errs[DROPOUT][name],
+                   dropout_ms=cuda_ms(lambda: fn(*args_d, **kw_d)),
+                   dropout_bound_ms=bound_bf16(flops, nbytes, hashes)[0],
+                   device_ms=cuda_ms(lambda: fn(*args, **kw),
+                                     hide_host=True))
+        out[(name, case)] = rec
+    del lib_fwd, lib_bwd
+    return out
+
+
+def _head128_amp_checks(cfg, seed):
+    """Phase 2's bf16 training cases at ``cfg``'s widths (BIG or BIG64) on
+    a generator of their own: {(kernel, case): record}."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for case in HEAD128_AMP_FLASH_CASES:
+        out.update(_head128_flash(gen, cfg, *case))
+        torch.cuda.empty_cache()
+    for case in HEAD128_AMP_QKV_CASES:
+        out.update(_head128_qkv(gen, cfg, *case))
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return out
+
+
+def check_head128_amp_kernels():
+    """C2 part 2a on the card: #1 (clusters of 64 and 32 rows, the tiles
+    route), the pair #2 + #3 (and each walk alone) and #4-#9 in bf16 at
+    BIG's widths (8 heads of 128) on HEAD128_AMP_* at rates 0 and DROPOUT
+    against their bf16 twins, twice for equal bits, the bhtd kernels with
+    the bthd kernels' bits; the record cases timed beside the twin, the
+    library call and the bound; and the same cases at BIG64 (16 heads of
+    64, the same bytes and FLOPs), whose kernel time each record carries
+    as ``dh64_ms``.  Returns ({counter name: record} for the JSON line,
+    #2's and #3's carrying the pair's under "pair", each record's other
+    cases under "cases"; every record, for printing)."""
+    big = _head128_amp_checks(BIG, 25)
+    base = _head128_amp_checks(BIG64, 64)
+    records, flat = {}, []
+    for (name, case), r in big.items():
+        twin = base[(name, case)]
+        if "ms" in twin:
+            r["dh64_ms"] = twin["ms"]
+            r["dh64_device_ms"] = twin["device_ms"]
+        r["case"] = case
+        flat.append(dict(r, name=r.get("name", name + "_bf16_dh128")))
+        key = name + "_bf16_dh128"
+        if "ms" in r:
+            records[key] = dict(r, cases=records.get(key, {}).get(
+                "cases", {}))
+        else:
+            records.setdefault(key, {"cases": {}})["cases"][case] = {
+                k: r[k] for k in HEAD128_AMP_CASE_KEYS if k in r}
+    pair = records.pop("qkv_bwd_bf16_dh128")
+    for name in ("qkv_bwd_dq_bf16_dh128", "qkv_bwd_dkv_bf16_dh128"):
+        records[name]["pair"] = {k: pair[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "dropout_ms", "dropout_bound_ms", "device_ms",
+            "dh64_ms", "cases") if k in pair}
+    return records, flat
+
+
 #: phase 2's bthd flash-attention cases at the training path's shapes:
 #: (name, tq, tk, bias, causal).  "pad" is the key-padding bias [b, 1, 1,
 #: tk], "decoder" the causal-plus-padding bias [b, 1, tq, tk] (both -1e9),
@@ -1113,10 +1433,11 @@ FLASH_RECORD_CASE = "decoder self"
 TRAIN_BATCH, TRAIN_LEN = 32, 256
 
 
-def _flash_inputs(gen, tq, tk, bias_kind, causal):
-    """q, k, v, dO [b, t, 8, 64] and the case's bias; padded key tails of
-    ragged lengths (row 0 unpadded)."""
-    b, h, dh = TRAIN_BATCH, BASE["n_head"], BASE["d_key"]
+def _flash_inputs(gen, tq, tk, bias_kind, causal, cfg=BASE):
+    """q, k, v, dO [b, t, h, dh] at ``cfg``'s heads (8 of 64 by default)
+    and the case's bias; padded key tails of ragged lengths (row 0
+    unpadded)."""
+    b, h, dh = TRAIN_BATCH, cfg["n_head"], cfg["d_key"]
     q, do = randn(gen, b, tq, h, dh), randn(gen, b, tq, h, dh)
     k, v = randn(gen, b, tk, h, dh), randn(gen, b, tk, h, dh)
     lens = torch.randint(tk // 2, tk + 1, (b,), generator=gen)
@@ -2110,13 +2431,18 @@ def check_head_width_128(gen):
     name and nothing else: ``flash_qkv_attention`` with no gradient (#1),
     ``flash_decode`` and ``flash_decode_paged`` (#14, #15) and
     ``fused_decode_step`` and ``fused_decode_step_paged`` (#10 + #11, #12
-    + #13).  Where no kernel is compiled, the wrapper raises a ValueError
-    naming the kernel and the width before anything launches or composes:
-    ``flash_qkv_attention`` with a gradient (the pair #2 + #3 is compiled
-    for 64), ``flash_attention`` in both layouts (#4-#9), and #1 and the
-    flash kernels in bf16 at 128; every one of those wrappers and the
-    serving ones at 192; and every (kernel, dtype) of the route table at
-    192 (``head_route``).  Returns {call: launches or the error}."""
+    + #13); so do the bf16 training kernels, under their ``_bf16_dh128``
+    names: ``flash_qkv_attention`` in bf16 without a gradient (#1) and
+    with one, forward and backward (#1 and the pair #2 + #3), and
+    ``flash_attention`` in bf16 forward and backward in both layouts (#4,
+    #6, #7; #5, #8, #9).  Where no kernel is compiled, the wrapper raises
+    a ValueError naming the kernel and the width before anything launches
+    or composes: the f32 training kernels at 128 (``flash_qkv_attention``
+    with a gradient and the pair ``qkv_bwd`` itself, #2 + #3;
+    ``flash_attention`` in both layouts, #4-#9); every one of those
+    wrappers, the bf16 ones and the serving ones at 192; and every
+    (kernel, dtype) of the route table at 192 (``head_route``).  Returns
+    {call: launches or the error}."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import attention as ka
     from paddle_tpu_torch.kernels import decode_attention as kda
@@ -2129,13 +2455,32 @@ def check_head_width_128(gen):
         x = randn(gen, b, t, dm).to(dtype).requires_grad_(grad)
         w_qkv = randn(gen, dm, 3 * dm, scale=dm ** -0.5).to(dtype)
         w_out = randn(gen, dm, dm, scale=dm ** -0.5).to(dtype)
-        return lambda: ka.flash_qkv_attention(x, w_qkv, w_out, n_head=h,
-                                              scale=dh ** -0.5)
+        g = randn(gen, b, t, dm).to(dtype)
 
-    def flash(dh, fmt, dtype=torch.float32):
-        q = randn(gen, b, t, h, dh).to(dtype)
-        return lambda: ka.flash_attention(q, q, q, scale=dh ** -0.5,
-                                          fmt=fmt)
+        def call():
+            y = ka.flash_qkv_attention(x, w_qkv, w_out, n_head=h,
+                                       scale=dh ** -0.5)
+            if grad:
+                y.backward(g)
+        return call
+
+    def pair(dh):
+        dm = h * dh
+        x, g = randn(gen, b, t, dm), randn(gen, b, t, dm)
+        w_qkv = randn(gen, dm, 3 * dm, scale=dm ** -0.5)
+        w_out = randn(gen, dm, dm, scale=dm ** -0.5)
+        ctx, lse = randn(gen, b, t, h, dh), randn(gen, b, h, t)
+        return lambda: ka.qkv_bwd(x, w_qkv, w_out, None, g, ctx, lse,
+                                  n_head=h, scale=dh ** -0.5)
+
+    def flash(dh, fmt, dtype=torch.float32, grad=False):
+        q = randn(gen, b, t, h, dh).to(dtype).requires_grad_(grad)
+
+        def call():
+            o = ka.flash_attention(q, q, q, scale=dh ** -0.5, fmt=fmt)
+            if grad:
+                o.backward(torch.ones_like(o))
+        return call
 
     def decode(dh, paged):
         q = randn(gen, b, h, dh)
@@ -2157,22 +2502,38 @@ def check_head_width_128(gen):
         return lambda: fn(x, **w, **ffn, **caches, **ints, layer=1,
                           n_head=h, scale=dh ** -0.5)
 
+    bf16 = torch.bfloat16
+    # (make(dh), the launches at 128, under no_grad)
     launching = {
-        "flash_qkv_attention no grad": (qkv, {}, "qkv_attention_fwd"),
-        "flash_decode": (lambda dh: decode(dh, False), {}, "flash_decode"),
-        "flash_decode_paged": (lambda dh: decode(dh, True), {},
-                               "flash_decode_paged"),
-        "fused_decode_step": (lambda dh: step(dh, False), {"ffn": 1},
-                              "megastep"),
-        "fused_decode_step_paged": (lambda dh: step(dh, True), {"ffn": 1},
-                                    "megastep_paged")}
+        "flash_qkv_attention no grad": (qkv, {"qkv_attention_fwd": 1},
+                                        True),
+        "flash_decode": (lambda dh: decode(dh, False), {"flash_decode": 1},
+                         True),
+        "flash_decode_paged": (lambda dh: decode(dh, True),
+                               {"flash_decode_paged": 1}, True),
+        "fused_decode_step": (lambda dh: step(dh, False),
+                              {"megastep": 1, "ffn": 1}, True),
+        "fused_decode_step_paged": (lambda dh: step(dh, True),
+                                    {"megastep_paged": 1, "ffn": 1}, True),
+        "flash_qkv_attention bf16 no grad": (
+            lambda dh: qkv(dh, bf16), {"qkv_attention_fwd_bf16": 1}, True),
+        "flash_qkv_attention bf16 with grad": (
+            lambda dh: qkv(dh, bf16, grad=True),
+            {"qkv_attention_fwd_bf16": 1, "qkv_bwd_dq_bf16": 1,
+             "qkv_bwd_dkv_bf16": 1}, False),
+        "flash_attention bthd bf16 with grad": (
+            lambda dh: flash(dh, "bthd", bf16, grad=True),
+            {"flash_fwd_bf16": 1, "flash_bwd_dq_bf16": 1,
+             "flash_bwd_dkv_bf16": 1}, False),
+        "flash_attention bhtd bf16 with grad": (
+            lambda dh: flash(dh, "bhtd", bf16, grad=True),
+            {"flash_fwd_bhtd_bf16": 1, "flash_bwd_dq_bhtd_bf16": 1,
+             "flash_bwd_dkv_bhtd_bf16": 1}, False)}
     raising = {
         "flash_qkv_attention with grad": lambda dh: qkv(dh, grad=True),
-        "flash_qkv_attention bf16": lambda dh: qkv(dh, torch.bfloat16),
+        "qkv_bwd f32": pair,
         "flash_attention bthd": lambda dh: flash(dh, "bthd"),
-        "flash_attention bhtd": lambda dh: flash(dh, "bhtd"),
-        "flash_attention bthd bf16": lambda dh: flash(dh, "bthd",
-                                                      torch.bfloat16)}
+        "flash_attention bhtd": lambda dh: flash(dh, "bhtd")}
     out = {}
 
     def raises(label, call, dh):
@@ -2189,15 +2550,17 @@ def check_head_width_128(gen):
         require(not any(composed.values()),
                 f"{label}: composition counts {composed}")
 
-    for what, (make, more, kernel) in launching.items():
+    for what, (make, counts, no_grad) in launching.items():
         call = make(128)
         kernels.reset_launches()
-        with torch.no_grad():
+        with torch.set_grad_enabled(not no_grad):
             call()
         torch.cuda.synchronize()
         launches = dict(kernels.launches)
-        require(launches == expected(**{kernel + "_dh128": 1}, **more),
-                f"head width 128 {what}: launches {launches}")
+        require(launches == expected(**{
+            name + ("" if name == "ffn" else "_dh128"): n
+            for name, n in counts.items()}),
+            f"head width 128 {what}: launches {launches}")
         require(not any(kernels.composed.values()),
                 f"head width 128 {what}: composed {kernels.composed}")
         out[f"{what} at 128"] = {k: v for k, v in launches.items() if v}
@@ -3360,6 +3723,7 @@ def start_parent_build(root):
     from paddle_tpu_torch.kernels import _build
 
     csrc = os.path.join(os.path.abspath(root), "paddle_tpu_torch", "csrc")
+    _PARENT["root"] = os.path.abspath(root)
     out = os.path.join(_build.BUILD_DIR, "parent_ab")
     os.makedirs(out, exist_ok=True)
     jobs = [(src, os.path.join(out, src[:-3] + ".o")) for src in
@@ -3393,12 +3757,55 @@ def parent_lib():
         require(link.returncode == 0, f"parent's link failed: {link.stdout}"
                 f"{link.stderr}")
         lib = ctypes.CDLL(so)
+        mine = _entry_params(_build.CSRC_DIR)
+        theirs = _entry_params(os.path.join(_PARENT["root"],
+                                            "paddle_tpu_torch", "csrc"))
+        shims = {}
         for name, (restype, argtypes) in _build._SIGNATURES.items():
-            if hasattr(lib, name):
-                fn = getattr(lib, name)
-                fn.restype, fn.argtypes = restype, argtypes
-        _PARENT.update(lib=lib, log="\n".join(log))
+            if not hasattr(lib, name):
+                continue
+            fn = getattr(lib, name)
+            keep = [i for i, p in enumerate(mine[name]) if p in theirs[name]]
+            require([mine[name][i] for i in keep] == theirs[name],
+                    f"parent's {name}: parameters {theirs[name]} are not "
+                    f"a subsequence of {mine[name]}")
+            fn.restype = restype
+            fn.argtypes = [argtypes[i] for i in keep]
+            if len(keep) < len(argtypes):
+                # the tree's call with the arguments the parent lacks
+                # (a width it did not take) left out
+                shims[name] = (lambda fn, keep: lambda *a: fn(
+                    *(a[i] for i in keep)))(fn, keep)
+        _PARENT.update(lib=_Shimmed(lib, shims), log="\n".join(log))
     return _PARENT["lib"]
+
+
+def _entry_params(csrc):
+    """{entry point: [parameter names]} of the ``extern "C"`` functions of
+    ``csrc``'s ``*.cu`` files."""
+    import glob
+    import re
+
+    src = "\n".join(open(f).read() for f in sorted(
+        glob.glob(os.path.join(csrc, "*.cu"))))
+    return {m.group(1): [p.split()[-1].lstrip("*") for p in
+                         m.group(2).split(",") if p.strip()
+                         and p.strip() != "void"]
+            for m in re.finditer(r'extern "C"[\w\s*]+?\b(ptt_\w+)\s*'
+                                 r'\(([^)]*)\)', src)}
+
+
+class _Shimmed:
+    """A kernel library whose entry points take this tree's arguments:
+    ``shims`` (name: callable) where the parent's take fewer."""
+
+    def __init__(self, lib, shims):
+        self._lib, self._shims = lib, shims
+
+    def __getattr__(self, name):
+        if name in self._shims:
+            return self._shims[name]
+        return getattr(self._lib, name)
 
 
 @contextlib.contextmanager
@@ -3603,7 +4010,8 @@ def parent_registers(log):
     other template arguments: the layout and DROP."""
     import re
 
-    def key(name):
+    def key(name):  # the 64-wide layouts under their older names
+        name = re.sub(r"6(Bthd|Bhtd)OfILi64EE", r"4\1", name)
         return re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN_",
                       name)
 
@@ -4836,20 +5244,20 @@ def transformer_train_flops_per_token(n_layer, d_model, d_ff, n_head, d_key,
     return 3 * 2 * fwd_macs
 
 
-def training_batch(seed):
-    """The reference's make_batch at batch 32, source and target 256, with
-    padded tails (pad id 0) of lengths uniform in 128-256 on both sides
-    (row 0 unpadded) and label weight 0 on the target pads (numpy)."""
+def training_batch(seed, b=TRAIN_BATCH, t=TRAIN_LEN):
+    """The reference's make_batch at batch 32, source and target 256 (or
+    b and t), with padded tails (pad id 0) of lengths uniform in t/2-t on
+    both sides (row 0 unpadded) and label weight 0 on the target pads
+    (numpy)."""
     from paddle_tpu_torch import make_batch
 
     vocab = BASE["src_vocab_size"]
     rng = np.random.RandomState(seed)
-    batch = make_batch(TRAIN_BATCH, TRAIN_LEN, TRAIN_LEN, BASE["n_head"],
-                       vocab, vocab, rng)
+    batch = make_batch(b, t, t, BASE["n_head"], vocab, vocab, rng)
     for side in ("src_word", "trg_word"):
-        lens = rng.randint(TRAIN_LEN // 2, TRAIN_LEN + 1, TRAIN_BATCH)
-        lens[0] = TRAIN_LEN
-        pad = np.arange(TRAIN_LEN)[None, :] >= lens[:, None]
+        lens = rng.randint(t // 2, t + 1, b)
+        lens[0] = t
+        pad = np.arange(t)[None, :] >= lens[:, None]
         batch[side][pad] = 0
         if side == "trg_word":
             batch["lbl_weight"][pad] = 0.0
@@ -5253,6 +5661,169 @@ def run_training_amp(model, parity):
                     [w[0] for w in worst_grad])),
                 **timed,
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+#: (n) amp training at head width 128: BIG's widths at bench_transformer's
+#: config (batch TRAIN_BATCH, lengths TRAIN_LEN, DROPOUT, Adam at
+#: TRAIN_LR), on both routes; step 1 is held against a float64 step of
+#: the plain path on the CPU at BIG's widths and depth with the batch and
+#: lengths cut to HEAD128_AMP_PARITY (b, t): a float64 step of 0.25 B
+#: parameters at the full batch would take minutes
+HEAD128_AMP_PARITY = (2, 64)
+HEAD128_AMP_TIMED_STEPS = 8
+
+
+def run_head128_amp(models):
+    """Phase 3 (n): bf16 amp training at head width 128 (C2 part 2a) on
+    BIG's widths (Transformer-big's, 8 heads of 128, 6 + 6 layers, vocab
+    32000) at DROPOUT, ``models`` {"fused": the default route, "flag_off":
+    ``fused_qkv_attention=False``}, both ``amp.enable``d on the same
+    seeded weights.  Step 1 on HEAD128_AMP_PARITY's batch under fixed
+    seeds on each route: gradients f32, repeated to the bit, the loss
+    within TOL_AMP_LOSS and each gradient within TOL_AMP_GRAD of a float64
+    CPU copy's step under the same seeds; then HEAD128_AMP_TIMED_STEPS
+    steps on one repeated full batch (fresh seeds), driven through an
+    ``amp.LossScaler`` (the loss scaled, the gradients unscaled and
+    checked for overflow): every loss finite, no overflow, the loss
+    falling; each step's launches exact (fused: 12 each of #1-#3 and 6
+    each of #4, #6, #7 in bf16 at 128; flag-off: 18 each of #4, #6, #7;
+    30 + 2 of #16/#17), nothing composed.  Returns [record per route]."""
+    from paddle_tpu_torch import Adam, Transformer, amp, kernels
+
+    L = BIG["n_layer"]
+    base = dict(dropout_add_fwd_bf16=5 * L, dropout_add_bwd_bf16=5 * L,
+                dropout_add_fwd=2, dropout_add_bwd=2)
+    per_route = {
+        "fused": dict(base, qkv_attention_fwd_bf16_dh128=2 * L,
+                      qkv_bwd_dq_bf16_dh128=2 * L,
+                      qkv_bwd_dkv_bf16_dh128=2 * L, flash_fwd_bf16_dh128=L,
+                      flash_bwd_dq_bf16_dh128=L, flash_bwd_dkv_bf16_dh128=L),
+        "flag_off": dict(base, flash_fwd_bf16_dh128=3 * L,
+                         flash_bwd_dq_bf16_dh128=3 * L,
+                         flash_bwd_dkv_bf16_dh128=3 * L)}
+    n_sites = len(models["fused"].dropout_sites())
+    seeds = torch.randint(0, 2 ** 32, (n_sites,), generator=torch.Generator(
+        ).manual_seed(DROPOUT_STEP_SEED)).tolist()
+    pb, pt = HEAD128_AMP_PARITY
+    batch = training_batch(seed=1, b=pb, t=pt)
+    t0 = time.perf_counter()
+    cpu64 = Transformer(**BIG, dropout_rate=DROPOUT, device="cpu",
+                        fused_qkv_attention=False).to(torch.float64)
+    cpu64.load_state_dict(models["fused"].state_dict())
+    loss64, _ = cpu64(**_to(batch, "cpu"), dropout_seeds=seeds)
+    loss64.backward()
+    exact = {n: p.grad for n, p in cpu64.named_parameters()
+             if p.grad is not None}
+    loss64 = loss64.item()
+    del cpu64
+    cpu_s = time.perf_counter() - t0
+    feed = _to(batch, DEV)
+    timed_feed = _to(training_batch(seed=2), DEV)
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    flops_tok = transformer_train_flops_per_token(
+        L, BIG["d_model"], BIG["d_inner_hid"], BIG["n_head"], BIG["d_key"],
+        TRAIN_LEN, BIG["trg_vocab_size"])
+    records = []
+    for route, model in models.items():
+        require(amp.is_enabled(model), f"(n) {route}: amp is not enabled")
+        names = {p: n for n, p in model.named_parameters()}
+        repeat = _step_grads(model, feed, dropout_seeds=seeds)
+        kernels.reset_launches()
+        loss, predict = model(**feed, dropout_seeds=seeds)
+        require(predict.dtype == torch.bfloat16,
+                f"(n) {route}: logits {predict.dtype}")
+        del predict
+        loss.backward()
+        grads = {names[p]: p.grad for p in model.parameters()
+                 if p.grad is not None}
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        require(counts == expected(**per_route[route]),
+                f"(n) {route} step 1: launches {counts}")
+        require(not any(kernels.composed.values()),
+                f"(n) {route}: composed {kernels.composed}")
+        got = loss.item()
+        require(np.isfinite(got) and abs(got - loss64) <= TOL_AMP_LOSS
+                * abs(loss64), f"(n) {route}: loss {got} on the card, "
+                f"{loss64} in float64")
+        _require_repeat(grads, repeat, f"(n) {route}")
+        del repeat
+        require(grads.keys() == exact.keys(),
+                f"(n) {route}: other params trained than in float64")
+        worst = []
+        for n, g in grads.items():
+            require(g.dtype == torch.float32, f"(n) {route}: the gradient "
+                    f"of {n} is {g.dtype}")
+            rel = _grad_rel(g.cpu(), exact[n])
+            require(rel <= TOL_AMP_GRAD, f"(n) {route} step 1: gradient of "
+                    f"{n} off float64 by {rel}")
+            worst.append((rel, n))
+        del grads
+        worst.sort(reverse=True)
+        # the timed steps, through the loss scaler
+        opt = Adam(model.parameters(), learning_rate=TRAIN_LR)
+        scaler = amp.LossScaler()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        step_ms, losses, gen = [], [], torch.Generator().manual_seed(7)
+        for _ in range(HEAD128_AMP_TIMED_STEPS):
+            step_seeds = torch.randint(0, 2 ** 32, (n_sites,),
+                                       generator=gen).tolist()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = model(**timed_feed, dropout_seeds=step_seeds)
+            (loss * scaler.scale).backward()
+            finite = torch.ones((), dtype=torch.bool, device=DEV)
+            for p in opt.params:
+                if p.grad is not None:
+                    p.grad.div_(scaler.scale)
+                    finite &= torch.isfinite(p.grad).all()
+            overflow = not bool(finite)  # syncs: the backward is done
+            scaler.update(overflow)
+            if not overflow:
+                opt.step()
+            for p in opt.params:
+                p.grad = None
+            losses.append(loss.item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        n = HEAD128_AMP_TIMED_STEPS
+        require(dict(kernels.launches) == expected(**{
+            k: c * n for k, c in per_route[route].items()}),
+            f"(n) {route} timed: launches {kernels.launches}")
+        require(not any(kernels.composed.values()),
+                f"(n) {route} timed: composed {kernels.composed}")
+        require(all(np.isfinite(losses)) and scaler.overflow_steps == 0,
+                f"(n) {route}: losses {losses}, {scaler.overflow_steps} "
+                "overflowed steps")
+        require(losses[-1] < losses[0],
+                f"(n) {route}: the loss did not fall {losses}")
+        med = float(np.median(step_ms))
+        tok_s = tokens / (med / 1e3)
+        records.append(dict(
+            route=f"training amp bf16 d_head 128 {route}",
+            batch=TRAIN_BATCH, dropout_rate=DROPOUT,
+            launches={k: c * (n + 1) for k, c in
+                      expected(**per_route[route]).items()},
+            parity_batch=[pb, pt], parity_losses=(got, loss64),
+            parity_grad_rel_worst=worst[:4],
+            parity_grad_rel_median=float(np.median([w for w, _ in worst])),
+            cpu_parity_s=cpu_s, step_ms_median=med,
+            step_ms_range=(min(step_ms), max(step_ms)),
+            tokens_per_s=tok_s, flops_per_token=flops_tok,
+            bf16_peak_share=tok_s * flops_tok / PEAK_BF16_FLOPS,
+            timed_losses=losses, loss_scale=scaler.scale,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9))
+        del opt
+        torch.cuda.empty_cache()
+    records[1]["routes_loss_rel"] = abs(
+        records[1]["parity_losses"][0] - records[0]["parity_losses"][0]) / abs(
+        records[0]["parity_losses"][0])
+    require(records[1]["routes_loss_rel"] <= TOL_AMP_ROUTES_LOSS,
+            f"(n): the routes' step-1 losses {records[0]['parity_losses']}"
+            f" and {records[1]['parity_losses']}")
+    return records
 
 
 #: (g) the kernel route against the card's plain route (the twins of
@@ -6814,24 +7385,28 @@ def walk_builds(log, lib):
         return lib.ptt_gemm_tc_smem(*(int(f) for f in re.findall(
             r"Lb([01])E", args)[:4]))
 
+    def width(args):  # the tensor-core kernels' head width, 64 or 128
+        return 128 if "Li128E" in args else 64
+
+    def walk(which):
+        return lambda args: lib.ptt_flash_walk_smem(which, width(args))
+
+    def pair(which):
+        return lambda args: lib.ptt_qkv_bwd_walk_smem(which, width(args))
+
     return _builds(log, {
-        "flash_bwd_dq_kernel": (None, lib.ptt_flash_walk_smem(0)),
-        "flash_bwd_dkv_kernel": (None, lib.ptt_flash_walk_smem(1)),
-        "flash_fwd_tc_kernel": ("flash_attention.cu",
-                                lib.ptt_flash_walk_smem(3)),
+        "flash_bwd_dq_kernel": (None, lib.ptt_flash_walk_smem(0, 64)),
+        "flash_bwd_dkv_kernel": (None, lib.ptt_flash_walk_smem(1, 64)),
+        "flash_fwd_tc_kernel": ("flash_attention.cu", walk(3)),
         "qkv_cluster_tc_kernel": ("qkv_attention.cu", lambda args:
                                   lib.ptt_qkv_cluster_smem(
                                       64 if args.startswith("ILi64") else 32,
-                                      1, 64)),
+                                      1, width(args))),
         "gemm_tc_kernel": (None, tc_smem),
-        "bwd_dq_tc_kernel": ("qkv_attention_bwd.cu",
-                             lib.ptt_qkv_bwd_walk_smem(0)),
-        "bwd_dkv_tc_kernel": ("qkv_attention_bwd.cu",
-                              lib.ptt_qkv_bwd_walk_smem(1)),
-        "flash_dq_tc_kernel": ("flash_attention.cu",
-                               lib.ptt_flash_walk_smem(4)),
-        "flash_dkv_tc_kernel": ("flash_attention.cu",
-                                lib.ptt_flash_walk_smem(5))})
+        "bwd_dq_tc_kernel": ("qkv_attention_bwd.cu", pair(0)),
+        "bwd_dkv_tc_kernel": ("qkv_attention_bwd.cu", pair(1)),
+        "flash_dq_tc_kernel": ("flash_attention.cu", walk(4)),
+        "flash_dkv_tc_kernel": ("flash_attention.cu", walk(5))})
 
 
 def head128_builds(log, lib):
@@ -6852,6 +7427,53 @@ def head128_builds(log, lib):
         "decode_kernel": ("decode_attention.cu", None)})
 
 
+#: the tensor-core kernels of a bf16 counter at head width 128: (its
+#: source, its kernels' names)
+HEAD128_AMP_KERNELS = {
+    "qkv_attention_fwd": ("qkv_attention.cu", ("qkv_cluster_tc_kernel",)),
+    "qkv_bwd_dq": ("qkv_attention_bwd.cu", ("bwd_dq_tc_kernel",)),
+    "qkv_bwd_dkv": ("qkv_attention_bwd.cu", ("bwd_dkv_tc_kernel",)),
+    "flash_fwd": ("flash_attention.cu", ("flash_fwd_tc_kernel",)),
+    "flash_bwd_dq": ("flash_attention.cu", ("flash_dq_tc_kernel",)),
+    "flash_bwd_dkv": ("flash_attention.cu", ("flash_dkv_tc_kernel",))}
+
+
+def blocks_per_sm(registers, smem_bytes, threads):
+    """Blocks of a kernel an H100 SM holds at once, from its registers a
+    thread (allocated 256 a warp at a time of 64 K), its dynamic shared
+    memory (228 KB an SM, 1 KB reserved a block) and its threads (2048 an
+    SM)."""
+    warps = -(-threads // 32)
+    by_registers = 65536 // (-(-registers * 32 // 256) * 256) // warps
+    by_smem = 233472 // (smem_bytes + 1024)
+    return min(by_registers, by_smem, 2048 // threads, 32)
+
+
+def head128_amp_builds(builds, counter):
+    """The head-width-128 instantiations behind a ``_bf16_dh128`` counter
+    in ``walk_builds``' list: each with its registers, spills, shared
+    memory, threads and blocks an SM (:func:`blocks_per_sm`)."""
+    name = counter[:-len("_bf16_dh128")]
+    layout = "bhtd" if "_bhtd" in name else "bthd"
+    source, kernels = HEAD128_AMP_KERNELS[name.replace("_bhtd", "")]
+    out = []
+    for r in builds:
+        if (r["kernel"] not in kernels or r["source"] != source
+                or "Li128E" not in r["template"]
+                or (r["layout"] not in (None, layout))):
+            continue
+        if r["kernel"] == "qkv_cluster_tc_kernel":
+            threads = (64 if r["template"].startswith("ILi64") else 32) * 4
+        else:  # the pair's walks: two warps a row group at 128
+            threads = 256 if r["kernel"].startswith("bwd_") else 128
+        out.append(dict({k: v for k, v in r.items() if k != "source"},
+                        threads=threads, blocks_per_sm=blocks_per_sm(
+                            r.get("registers", 255), r["smem_bytes"],
+                            threads)))
+    require(out, f"{counter}: no head-width-128 instantiation in the build")
+    return out
+
+
 def tile_builds(log, lib):
     """The instantiations of #19's kernel, ``gemm.cuh``'s GEMM (as
     ``gemm.cu`` compiles it) and the flash forward (#4, #5): see
@@ -6860,7 +7482,7 @@ def tile_builds(log, lib):
         "dot_stats_kernel": ("conv_bn.cu", lib.ptt_dot_stats_smem()),
         "gemm_kernel": ("gemm.cu", lib.ptt_gemm_smem()),
         "flash_fwd_kernel": ("flash_attention.cu",
-                             lib.ptt_flash_walk_smem(2))})
+                             lib.ptt_flash_walk_smem(2, 64))})
 
 
 def print_record(r, label):
@@ -7172,6 +7794,30 @@ def main():
         else:
             records[(name, max(BATCHES))] = r
     _phase_seconds("phase 2: head width 128", t_128)
+    # C2 part 2a: the bf16 training kernels at head width 128 (BIG's
+    # widths) beside their head-width-64 instantiations on the same bytes,
+    # with their builds (registers, spills, blocks an SM)
+    t_128 = time.perf_counter()
+    amp128, amp128_cases = check_head128_amp_kernels()
+    for r in amp128_cases:
+        if "ms" in r:
+            print_record(r, f" d_model {BIG['d_model']} {r['case']}")
+            continue
+        with open(os.path.join(OUT_DIR, "phase2_records.jsonl"), "a") as f:
+            f.write(json.dumps(r) + "\n")
+        print(f"phase 2: {r['name']} d_model {BIG['d_model']} {r['case']}"
+              f" b={r['batch']}: max_abs_err {r['max_abs_err']:.3e}, rate "
+              f"{DROPOUT} {r['dropout_max_abs_err']:.3e}"
+              + (f", plan {r['plan']}" if "plan" in r else ""))
+    for name, r in amp128.items():
+        r["build"] = head128_amp_builds(builds, name)
+        records[(name, max(BATCHES))] = r
+    # #5, #8 and #9 at 128 run on no model's path (no model of head width
+    # 128 takes the bhtd layout): their records ride on the bthd kernels'
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        records[(name + "_bf16_dh128", max(BATCHES))]["bhtd"] = \
+            records.pop((name + "_bhtd_bf16_dh128", max(BATCHES)))
+    _phase_seconds("phase 2: bf16 at head width 128", t_128)
     for r in check_dropout_add(gen):
         print_record(r, f" [{DROPOUT_ROWS}, {BASE['d_model']}] rate "
                         f"{DROPOUT}")
@@ -7335,6 +7981,32 @@ def main():
     del big
     torch.cuda.empty_cache()
     t_phase = _phase_seconds("phase 3 (m)", t_phase)
+
+    # (n): amp training at head width 128 on Transformer-big's widths, on
+    # both routes from the same seeded weights
+    amp_big = {"fused": paddle_tpu_torch.Transformer(
+        **BIG, dropout_rate=DROPOUT).init_params(seed=0)}
+    amp_big["flag_off"] = paddle_tpu_torch.Transformer(
+        **BIG, dropout_rate=DROPOUT, fused_qkv_attention=False)
+    amp_big["flag_off"].load_state_dict(amp_big["fused"].state_dict())
+    for m in amp_big.values():
+        paddle_tpu_torch.amp.enable(m)
+    training_128 = run_head128_amp(amp_big)
+    big_feed = _to(training_batch(seed=2), DEV)
+    for r, (route, m) in zip(training_128, amp_big.items()):
+        prof = profile_training(m, f"amp_bf16_dh128_{route}", feed=big_feed)
+        r.update(device_busy_ms=prof["device_busy_ms"],
+                 idle_share=prof["idle_share"], wall_ms=prof["wall_ms"],
+                 profile_top=prof["top"][:8])
+        print("phase 3 (n): " + ", ".join(f"{k} {v}" for k, v in r.items()))
+    print(f"phase 3 (n): amp step at head width 128, fused route against "
+          f"flag-off: {training_128[0]['step_ms_median']} ms against "
+          f"{training_128[1]['step_ms_median']} ms, "
+          f"{training_128[0]['tokens_per_s']} against "
+          f"{training_128[1]['tokens_per_s']} target tokens/s")
+    del amp_big, big_feed
+    torch.cuda.empty_cache()
+    t_phase = _phase_seconds("phase 3 (n)", t_phase)
 
     train_model = paddle_tpu_torch.Transformer(
         **BASE, fused_qkv_attention=False).init_params(seed=1)
@@ -7637,7 +8309,7 @@ def main():
 
     # launches over every counted path; the FFN counter is split between
     # the ring paths (#11) and the paged ones (#13)
-    paths = runs + serving + runs_128 + [
+    paths = runs + serving + runs_128 + training_128 + [
         serving_128, training, training_fused, training_dropout,
         training_amp, training_resnet, training_resnet_amp, training_deepfm,
         demo, *training_bert, *training_bert_amp]
@@ -7660,7 +8332,9 @@ def main():
                  *(name + "_bf16"
                    for name in paddle_tpu_torch.kernels.BF16_KERNELS),
                  *(name + "_dh128"
-                   for name in paddle_tpu_torch.kernels.DH128_KERNELS)):
+                   for name in paddle_tpu_torch.kernels.DH128_KERNELS
+                   # on no path at 128: in the bthd kernels' records
+                   if "_bhtd_bf16" not in name)):
         r = dict(records[(name, max(BATCHES))])
         r.pop("library_max_abs_err", None)
         r["launches"] = total[name]
@@ -7668,6 +8342,7 @@ def main():
         kernels_line.append(r)
     print(json.dumps({"main_path": runs, "serving": serving,
                       "head128": runs_128, "serving_head128": serving_128,
+                      "training_head128_amp": training_128,
                       "training": training, "training_fused": training_fused,
                       "training_dropout": training_dropout,
                       "training_amp": training_amp,

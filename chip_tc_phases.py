@@ -8,7 +8,7 @@ forward (``csrc/flash_tc.cuh``), #1's cluster route
 (the same walks on bf16 rows); and #16, #17 (``csrc/dropout_add.cu``,
 no tensor cores) alone with ``dropout``.
 
-    python3 chip_tc_phases.py [dropout]
+    python3 chip_tc_phases.py [dropout | width128]
 
 Builds temporary copies of the sources by ``chip_kernel_copies`` (the
 tree is not changed):
@@ -46,7 +46,16 @@ tree is not changed):
   clean one (``cuda_ms(clean=True)``), with the same-bytes
   ``torch.add`` / ``torch.mul`` beside; and the tree's SASS op counts
   (conversions, packed and f32 arithmetic, loads and stores) of each
-  ``dropout_kernel`` instantiation.
+  ``dropout_kernel`` instantiation;
+* ``width128`` (only it): the backward walks at head width 128 with the
+  other split of a 16-row group's head columns (``Bw<SPLIT, D>::kCols``
+  in ``csrc/flash_bwd_tc.cuh``): #6's and #7's one-plane walks with two
+  warps a group (64 columns each, both computing s and dp) and the
+  pair's walks with one warp (all 128 columns); each copy's registers,
+  spills and stack at 128 beside the tree's (``-Xptxas -v``), its bits
+  against the tree's, and its time beside the tree's (alternated tree,
+  copy, copy, tree) at the amp step's cross-attention (#6, #7) and
+  encoder self-attention (the pair) at 8 heads of 128, d_model 1024.
 
 #4's copies are timed on the cross-attention (pad bias) and the decoder
 self-attention (decoder bias) beside the tree's kernel and masked
@@ -559,6 +568,10 @@ def main():
         dropout_times()
         print(json.dumps({"ok": True}))
         return 0
+    if sys.argv[1:] == ["width128"]:
+        width128_times()
+        print(json.dumps({"ok": True}))
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.lib()
     with tempfile.TemporaryDirectory() as out_dir:
@@ -651,6 +664,114 @@ def main():
     flash_bwd_times(gen, flash_bwd, libs)
     print(json.dumps({"ok": True}))
     return 0
+
+
+#: the tree's split of a row group's head columns, and the other one
+WIDTH_SPLIT = ("  static constexpr int kCols = SPLIT && D > BW_COLS ? BW_COLS "
+               ": D;\n",
+               "  static constexpr int kCols = !SPLIT && D > BW_COLS ? "
+               "BW_COLS : D;\n")
+
+
+def ptxas_registers(log, kernels):
+    """[(kernel, template arguments, registers, spill stores, stack
+    bytes)] of the head-width-128 instantiations of ``kernels`` in an
+    ``-Xptxas -v`` log."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = next((k for k in kernels if k in m.group(1)
+                        and "Li128E" in m.group(1)
+                        and not (k.startswith("bwd_") and "flash" in
+                                 m.group(1))), None)
+            if cur:
+                args = m.group(1).split(cur, 1)[1]
+                cur = [cur, args[:args.find("EE") + 2]]
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if cur and m:
+            cur += [int(m[2]), int(m[1])]
+        m = re.search(r"Used (\d+) registers", line)
+        if cur and m:
+            out.append((cur[0], cur[1], int(m[1]), *cur[2:]))
+            cur = None
+    return out
+
+
+def width128_times():
+    """The ``width128`` mode: the walks with the other split of a row
+    group's columns (WIDTH_SPLIT), built as copies of
+    ``flash_attention.cu`` and ``qkv_attention_bwd.cu``; one JSON line
+    each of the builds and of the timed walks."""
+    import chip_smoke as cs
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import attention as ka
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.lib()
+    walks = ("flash_dq_tc_kernel", "flash_dkv_tc_kernel", "bwd_dq_tc_kernel",
+             "bwd_dkv_tc_kernel")
+    print(json.dumps({"build": "tree", "walks": ptxas_registers(
+        _build.build_log(), walks)}))
+    h = ck.edit(read("flash_bwd_tc.cuh"), *WIDTH_SPLIT, "flash_bwd_tc.cuh")
+    libs = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        jobs = []
+        for src in ("flash_attention.cu", "qkv_attention_bwd.cu"):
+            path = os.path.join(out_dir, src)
+            with open(path, "w") as f:
+                f.write(inline(read(src), "flash_bwd_tc.cuh", h, src))
+            so = os.path.join(out_dir, f"lib{src[:-3]}.so")
+            jobs.append((src, so, subprocess.Popen(
+                [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-I",
+                 _build.CSRC_DIR, "-o", so, path], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        for src, so, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed on the {src} copy:\n{log}")
+            print(json.dumps({"build": "other split", "source": src,
+                              "walks": ptxas_registers(log, walks)}))
+            lib = ctypes.CDLL(so)
+            for name, (restype, argtypes) in _build._SIGNATURES.items():
+                if hasattr(lib, name):
+                    fn = getattr(lib, name)
+                    fn.restype, fn.argtypes = restype, argtypes
+            libs[src] = lib
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, do, bias = cs._bf16(*cs._flash_inputs(gen, 256, 256, "pad",
+                                                   False, cs.BIG))
+    kw = dict(scale=128 ** -0.5, causal=False)
+    o, lse = ka.flash_fwd(q, k, v, bias, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    bw = (q, k, v, bias, do, lse, delta)
+    x, w_qkv, w_out, g, qb = cs._bf16(*cs._qkv_inputs(
+        gen, 256, "pad", cs.TRAIN_BATCH, cs.BIG["d_model"]))
+    qkw = dict(n_head=cs.BIG["n_head"], scale=128 ** -0.5)
+    _, ctx, qlse = ka.qkv_attention_fwd(x, w_qkv, w_out, qb, **qkw)
+    pw = (x, w_qkv, w_out, qb, g, ctx, qlse)
+    for name, src, fn in (
+            ("flash_bwd_dq_bf16_dh128", "flash_attention.cu",
+             lambda: (ka.flash_bwd_dq(*bw, **kw),)),
+            ("flash_bwd_dkv_bf16_dh128", "flash_attention.cu",
+             lambda: ka.flash_bwd_dkv(*bw, **kw)),
+            ("qkv_bwd_bf16_dh128", "qkv_attention_bwd.cu",
+             lambda: ka.qkv_bwd(*pw, **qkw))):
+        tree = fn()
+        with cs.kernel_library(libs[src]):
+            other = fn()
+            torch.cuda.synchronize()
+        times = []
+        for lib in (None, libs[src], libs[src], None):
+            with cs.kernel_library(lib or _build.lib()):
+                times.append(cs.cuda_ms(fn, hide_host=True))
+        print(json.dumps({
+            "kernel": name, "same_bits": all(
+                torch.equal(a, c) for a, c in zip(tree, other)),
+            "tree_ms": [times[0], times[3]],
+            "other_split_ms": [times[1], times[2]], "card": ck.card()}))
 
 
 def flash_bwd_times(gen, variants, libs):

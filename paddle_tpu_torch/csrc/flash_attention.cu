@@ -62,7 +62,10 @@
 // the row layout as a template parameter, so #5, #8 and #9 in bf16 are the
 // bthd kernels' instantiations on Bhtd.  The scale multiplies the f32
 // scores, as the reference's f32 q * scale product does up to f32
-// rounding.  flash_walk.cuh's walks are f32 only.
+// rounding.  flash_walk.cuh's walks are f32 only.  Every entry point takes
+// the head width d_head after the heads: the f32 kernels take 64 (another
+// width returns cudaErrorInvalidValue), the bf16 ones 64 and 128, each
+// instantiated on BthdOf<d> or BhtdOf<d> (with_width).
 //
 // Masking follows the TPU kernels: causal (bottom-right aligned, offset
 // tk - tq) and out-of-range keys score -1e30 in the forward; a row whose
@@ -156,14 +159,35 @@ int run_fwd_tc(L l, const bf16* q, const bf16* k, const bf16* v,
                      static_cast<cudaStream_t>(stream));
 }
 
+// f(the layout of h heads of width d_head): BthdOf, or BhtdOf with BHTD,
+// at 64 or 128; cudaErrorInvalidValue at another width.
+template <bool BHTD, class F>
+int with_width(int h, int d_head, F&& f) {
+  if constexpr (BHTD) {
+    if (d_head == 64) return f(BhtdOf<64>{h});
+    if (d_head == 128) return f(BhtdOf<128>{h});
+  } else {
+    if (d_head == 64) return f(BthdOf<64>{h * 64});
+    if (d_head == 128) return f(BthdOf<128>{h * 128});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Dynamic shared memory of a walk's block in bytes: the f32 dq walk (0),
-// the f32 dkv walk (1), the f32 forward (2), the bf16 forward on tensor
-// cores (3), the bf16 dq walk on tensor cores (4) or its dkv walk (5).
-extern "C" int64_t ptt_flash_walk_smem(int which) {
-  return (int64_t)(which == 5   ? Bw<false>::kDkvSmem
-                   : which == 4 ? Bw<false>::kDqSmem
+// the f32 dkv walk (1), the f32 forward (2) at head width dh 64, or, at dh
+// 64 or 128, the bf16 forward on tensor cores (3), the bf16 dq walk on
+// tensor cores (4) or its dkv walk (5); 0 for another width.
+extern "C" int64_t ptt_flash_walk_smem(int which, int dh) {
+  if (dh == 128)
+    return (int64_t)(which == 5   ? Bw<false, 128>::kDkvSmem
+                     : which == 4 ? Bw<false, 128>::kDqSmem
+                     : which == 3 ? FtShape<128>::kSmem
+                                  : 0);
+  if (dh != 64) return 0;
+  return (int64_t)(which == 5   ? Bw<false, 64>::kDkvSmem
+                   : which == 4 ? Bw<false, 64>::kDqSmem
                    : which == 3 ? kFwdTcSmem
                    : which == 2 ? kFwdSmem
                    : which      ? kDkvSmem
@@ -172,17 +196,19 @@ extern "C" int64_t ptt_flash_walk_smem(int which) {
 
 // #4.  q [b, tq, h, 64], k and v [b, tk, h, 64], o like q, lse [b, h, tq];
 // all contiguous f32.  bias may be null; otherwise its element (b, h, q, k)
-// lies at b*bs_b + h*bs_h + q*bs_q + k*bs_k.  Head width 64 only (checked
-// by the caller).  rate 0 runs without dropout; otherwise weights are kept
-// where the hash of (seed, b*h + head, q*tk + k) >= threshold (tq*tk <=
-// 2^32, checked by the caller).
+// lies at b*bs_b + h*bs_h + q*bs_q + k*bs_k.  d_head is 64 (another width
+// returns cudaErrorInvalidValue; the caller checks it).  rate 0 runs
+// without dropout; otherwise weights are kept where the hash of (seed,
+// b*h + head, q*tk + k) >= threshold (tq*tk <= 2^32, checked by the
+// caller).
 extern "C" int ptt_flash_fwd(const float* q, const float* k, const float* v,
                              const float* bias, int64_t bs_b, int64_t bs_h,
                              int64_t bs_q, int64_t bs_k, float* o,
                              float* lse, int b, int tq, int tk, int h,
-                             float scale, int causal, double rate,
-                             unsigned seed, unsigned threshold,
+                             int d_head, float scale, int causal,
+                             double rate, unsigned seed, unsigned threshold,
                              void* stream) {
+  if (d_head != DH) return (int)cudaErrorInvalidValue;
   return run_fwd(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o,
                  lse, b, tq, tk, h, scale, causal, rate, seed, threshold,
                  stream);
@@ -196,9 +222,10 @@ extern "C" int ptt_flash_bwd_dq(const float* q, const float* k,
                                 int64_t bs_k, const float* dout,
                                 const float* lse, const float* delta,
                                 float* dq, int b, int tq, int tk, int h,
-                                float scale, int causal, double rate,
-                                unsigned seed, unsigned threshold,
-                                void* stream) {
+                                int d_head, float scale, int causal,
+                                double rate, unsigned seed,
+                                unsigned threshold, void* stream) {
+  if (d_head != DH) return (int)cudaErrorInvalidValue;
   return run_dq(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
                 lse, delta, dq, b, tq, tk, h, scale, causal, rate, seed,
                 threshold, stream);
@@ -211,9 +238,10 @@ extern "C" int ptt_flash_bwd_dkv(const float* q, const float* k,
                                  int64_t bs_k, const float* dout,
                                  const float* lse, const float* delta,
                                  float* dk, float* dv, int b, int tq, int tk,
-                                 int h, float scale, int causal, double rate,
-                                 unsigned seed, unsigned threshold,
-                                 void* stream) {
+                                 int h, int d_head, float scale, int causal,
+                                 double rate, unsigned seed,
+                                 unsigned threshold, void* stream) {
+  if (d_head != DH) return (int)cudaErrorInvalidValue;
   return run_dkv(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
                  lse, delta, dk, dv, b, tq, tk, h, scale, causal, rate, seed,
                  threshold, stream);
@@ -225,9 +253,11 @@ extern "C" int ptt_flash_fwd_bhtd(const float* q, const float* k,
                                   const float* v, const float* bias,
                                   int64_t bs_b, int64_t bs_h, int64_t bs_q,
                                   int64_t bs_k, float* o, float* lse, int b,
-                                  int tq, int tk, int h, float scale,
-                                  int causal, double rate, unsigned seed,
-                                  unsigned threshold, void* stream) {
+                                  int tq, int tk, int h, int d_head,
+                                  float scale, int causal, double rate,
+                                  unsigned seed, unsigned threshold,
+                                  void* stream) {
+  if (d_head != DH) return (int)cudaErrorInvalidValue;
   return run_fwd(Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o, lse, b,
                  tq, tk, h, scale, causal, rate, seed, threshold, stream);
 }
@@ -240,9 +270,10 @@ extern "C" int ptt_flash_bwd_dq_bhtd(const float* q, const float* k,
                                      const float* dout, const float* lse,
                                      const float* delta, float* dq,
                                      int b, int tq, int tk, int h,
-                                     float scale, int causal, double rate,
-                                     unsigned seed, unsigned threshold,
-                                     void* stream) {
+                                     int d_head, float scale, int causal,
+                                     double rate, unsigned seed,
+                                     unsigned threshold, void* stream) {
+  if (d_head != DH) return (int)cudaErrorInvalidValue;
   return run_dq(Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout, lse,
                 delta, dq, b, tq, tk, h, scale, causal, rate, seed,
                 threshold, stream);
@@ -253,49 +284,57 @@ extern "C" int ptt_flash_bwd_dkv_bhtd(const float* q, const float* k,
                                       const float* v, const float* bias,
                                       int64_t bs_b, int64_t bs_h,
                                       int64_t bs_q, int64_t bs_k,
-                                      const float* dout, const float* lse,
+                                      const float* dout,
+                                      const float* lse,
                                       const float* delta, float* dk,
                                       float* dv, int b, int tq, int tk,
-                                      int h, float scale, int causal,
-                                      double rate, unsigned seed,
+                                      int h, int d_head, float scale,
+                                      int causal, double rate, unsigned seed,
                                       unsigned threshold, void* stream) {
+  if (d_head != DH) return (int)cudaErrorInvalidValue;
   return run_dkv(Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout, lse,
                  delta, dk, dv, b, tq, tk, h, scale, causal, rate, seed,
                  threshold, stream);
 }
 
 // #4 in bf16 (amp): as ptt_flash_fwd with q, k, v, the bias and o bf16,
-// lse f32, on tensor cores (flash_tc.cuh).
+// lse f32, on tensor cores (flash_tc.cuh), at d_head 64 or 128.
 extern "C" int ptt_flash_fwd_bf16(const bf16* q, const bf16* k,
                                   const bf16* v, const bf16* bias,
                                   int64_t bs_b, int64_t bs_h, int64_t bs_q,
                                   int64_t bs_k, bf16* o, float* lse, int b,
-                                  int tq, int tk, int h, float scale,
-                                  int causal, double rate, unsigned seed,
-                                  unsigned threshold, void* stream) {
-  return run_fwd_tc(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o,
-                    lse, b, tq, tk, h, scale, causal, rate, seed, threshold,
-                    stream);
+                                  int tq, int tk, int h, int d_head,
+                                  float scale, int causal, double rate,
+                                  unsigned seed, unsigned threshold,
+                                  void* stream) {
+  return with_width<false>(h, d_head, [&](auto l) {
+    return run_fwd_tc(l, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o, lse, b,
+                      tq, tk, h, scale, causal, rate, seed, threshold,
+                      stream);
+  });
 }
 
 // #6 in bf16: as ptt_flash_bwd_dq with dout and dq bf16, lse and delta
-// f32, on tensor cores (flash_bwd_tc.cuh).
+// f32, on tensor cores (flash_bwd_tc.cuh), at d_head 64 or 128.
 extern "C" int ptt_flash_bwd_dq_bf16(const bf16* q, const bf16* k,
                                      const bf16* v, const bf16* bias,
                                      int64_t bs_b, int64_t bs_h,
                                      int64_t bs_q, int64_t bs_k,
                                      const bf16* dout, const float* lse,
                                      const float* delta, bf16* dq, int b,
-                                     int tq, int tk, int h, float scale,
-                                     int causal, double rate, unsigned seed,
-                                     unsigned threshold, void* stream) {
-  return run_bwd_tc(0, Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k,
-                    dout, lse, delta, dq, nullptr, nullptr, b, tq, tk, h,
-                    scale, causal, rate, seed, threshold, stream);
+                                     int tq, int tk, int h, int d_head,
+                                     float scale, int causal, double rate,
+                                     unsigned seed, unsigned threshold,
+                                     void* stream) {
+  return with_width<false>(h, d_head, [&](auto l) {
+    return run_bwd_tc(0, l, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
+                      lse, delta, dq, nullptr, nullptr, b, tq, tk, h, scale,
+                      causal, rate, seed, threshold, stream);
+  });
 }
 
 // #7 in bf16: as ptt_flash_bwd_dkv with dout, dk and dv bf16, on tensor
-// cores.
+// cores, at d_head 64 or 128.
 extern "C" int ptt_flash_bwd_dkv_bf16(const bf16* q, const bf16* k,
                                       const bf16* v, const bf16* bias,
                                       int64_t bs_b, int64_t bs_h,
@@ -303,31 +342,37 @@ extern "C" int ptt_flash_bwd_dkv_bf16(const bf16* q, const bf16* k,
                                       const bf16* dout, const float* lse,
                                       const float* delta, bf16* dk,
                                       bf16* dv, int b, int tq, int tk, int h,
-                                      float scale, int causal, double rate,
-                                      unsigned seed, unsigned threshold,
-                                      void* stream) {
-  return run_bwd_tc(1, Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k,
-                    dout, lse, delta, nullptr, dk, dv, b, tq, tk, h, scale,
-                    causal, rate, seed, threshold, stream);
+                                      int d_head, float scale, int causal,
+                                      double rate, unsigned seed,
+                                      unsigned threshold, void* stream) {
+  return with_width<false>(h, d_head, [&](auto l) {
+    return run_bwd_tc(1, l, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
+                      lse, delta, nullptr, dk, dv, b, tq, tk, h, scale,
+                      causal, rate, seed, threshold, stream);
+  });
 }
 
 // #5 in bf16 (amp): as ptt_flash_fwd_bhtd with q, k, v, the bias and o
-// bf16 [b, h, t, 64], lse f32, on tensor cores (flash_tc.cuh on Bhtd).
+// bf16 [b, h, t, d_head], lse f32, on tensor cores (flash_tc.cuh on
+// BhtdOf), at d_head 64 or 128.
 extern "C" int ptt_flash_fwd_bhtd_bf16(const bf16* q, const bf16* k,
                                        const bf16* v, const bf16* bias,
                                        int64_t bs_b, int64_t bs_h,
                                        int64_t bs_q, int64_t bs_k, bf16* o,
                                        float* lse, int b, int tq, int tk,
-                                       int h, float scale, int causal,
-                                       double rate, unsigned seed,
+                                       int h, int d_head, float scale,
+                                       int causal, double rate, unsigned seed,
                                        unsigned threshold, void* stream) {
-  return run_fwd_tc(Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o, lse,
-                    b, tq, tk, h, scale, causal, rate, seed, threshold,
-                    stream);
+  return with_width<true>(h, d_head, [&](auto l) {
+    return run_fwd_tc(l, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o, lse, b,
+                      tq, tk, h, scale, causal, rate, seed, threshold,
+                      stream);
+  });
 }
 
 // #8 in bf16: as ptt_flash_bwd_dq_bhtd with dout and dq bf16, lse and
-// delta f32, on tensor cores (flash_bwd_tc.cuh on Bhtd).
+// delta f32, on tensor cores (flash_bwd_tc.cuh on BhtdOf), at d_head 64
+// or 128.
 extern "C" int ptt_flash_bwd_dq_bhtd_bf16(const bf16* q, const bf16* k,
                                           const bf16* v, const bf16* bias,
                                           int64_t bs_b, int64_t bs_h,
@@ -335,16 +380,19 @@ extern "C" int ptt_flash_bwd_dq_bhtd_bf16(const bf16* q, const bf16* k,
                                           const bf16* dout, const float* lse,
                                           const float* delta, bf16* dq,
                                           int b, int tq, int tk, int h,
-                                          float scale, int causal,
-                                          double rate, unsigned seed,
-                                          unsigned threshold, void* stream) {
-  return run_bwd_tc(0, Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
-                    lse, delta, dq, nullptr, nullptr, b, tq, tk, h, scale,
-                    causal, rate, seed, threshold, stream);
+                                          int d_head, float scale,
+                                          int causal, double rate,
+                                          unsigned seed, unsigned threshold,
+                                          void* stream) {
+  return with_width<true>(h, d_head, [&](auto l) {
+    return run_bwd_tc(0, l, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
+                      lse, delta, dq, nullptr, nullptr, b, tq, tk, h, scale,
+                      causal, rate, seed, threshold, stream);
+  });
 }
 
 // #9 in bf16: as ptt_flash_bwd_dkv_bhtd with dout, dk and dv bf16, on
-// tensor cores.
+// tensor cores, at d_head 64 or 128.
 extern "C" int ptt_flash_bwd_dkv_bhtd_bf16(const bf16* q, const bf16* k,
                                            const bf16* v, const bf16* bias,
                                            int64_t bs_b, int64_t bs_h,
@@ -353,11 +401,13 @@ extern "C" int ptt_flash_bwd_dkv_bhtd_bf16(const bf16* q, const bf16* k,
                                            const float* lse,
                                            const float* delta, bf16* dk,
                                            bf16* dv, int b, int tq, int tk,
-                                           int h, float scale, int causal,
-                                           double rate, unsigned seed,
-                                           unsigned threshold,
+                                           int h, int d_head, float scale,
+                                           int causal, double rate,
+                                           unsigned seed, unsigned threshold,
                                            void* stream) {
-  return run_bwd_tc(1, Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
-                    lse, delta, nullptr, dk, dv, b, tq, tk, h, scale, causal,
-                    rate, seed, threshold, stream);
+  return with_width<true>(h, d_head, [&](auto l) {
+    return run_bwd_tc(1, l, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
+                      lse, delta, nullptr, dk, dv, b, tq, tk, h, scale,
+                      causal, rate, seed, threshold, stream);
+  });
 }

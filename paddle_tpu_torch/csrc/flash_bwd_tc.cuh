@@ -7,9 +7,9 @@
 //     paddle_tpu/kernels/attention.py _qkv_bwd_dq_kernel (#2) and
 //     _qkv_bwd_dkv_kernel (#3) for bf16 operands, with the GEMM stages of
 //     qkv_attention_bwd.cu around them (ptt_qkv_bwd_bf16);
-//   * bf16 rows (one plane): #6 and #7 over bf16 [b, t, h, 64] tensors
-//     and #8 and #9 over bf16 [b, h, t, 64] tensors, the same walks on
-//     the row layout L (flash_walk.cuh Bthd, Bhtd: flash_dq_tc_kernel,
+//   * bf16 rows (one plane): #6 and #7 over bf16 [b, t, h, d] tensors
+//     and #8 and #9 over bf16 [b, h, t, d] tensors, the same walks on
+//     the row layout L (flash_walk.cuh BthdOf, BhtdOf: flash_dq_tc_kernel,
 //     flash_dkv_tc_kernel).  Replace _bwd_dq_kernel_bthd (#6),
 //     _bwd_dkv_kernel_bthd (#7), _bwd_dq_kernel (#8) and _bwd_dkv_kernel
 //     (#9) for bf16 operands (flash_attention.cu's ptt_flash_bwd_dq_bf16,
@@ -84,6 +84,24 @@
 // holds them at a quarter of it is measured in PERF.md (chip_tc_phases.py:
 // the next tile's copies and the bias take the most of a block's clock).
 //
+// Head width 128 (the layouts' and Planes' width D, 64 or 128; the
+// pair's walks take it as a template argument).  Every tile's rows are D
+// + 8 elements; the bias tiles stay 64 keys wide (BW_BLD).  The one-plane
+// walks keep 4 warps, each summing all D columns of its 16 rows: at 128
+// dq takes 120 KB and 187-233 registers, dkv 121 KB and 255 registers
+// with 40-56 bytes of spills (dk and dv alone hold 128 f32 a lane), one
+// block an SM.  The pair's walks give each row group two warps, one for
+// each 64 columns of dq, or of dk and dv, both computing the group's s
+// and dp (12 products instead of 9 in the dq walk, 16 instead of 12 in
+// the dkv walk): 204 KB (dq) and 205 KB (dkv), 256 threads, one block
+// an SM, 244 and 255 registers with 20-68 bytes of spills, as at 64.
+// Measured on an H100 at the amp step's shapes (b 32, 8 heads of 128, t
+// 256; PERF.md): the one-plane walks with two warps a row group (187-255
+// registers, no spills) were 8-16% slower than with one; the pair's with
+// one (255 registers, 244-488 bytes of spills) 10% slower than with two.
+// Both give the same bits: each output element is summed in the same
+// order.
+//
 // Masking, bias, dropout: as flash_walk.cuh's bwd_dq and bwd_dkv.  Causal
 // keys (bottom-right aligned: a key k is kept where q + tk - tq >= k; the
 // pair has tq = tk) and keys past tk give p = 0, and the walks skip the
@@ -115,46 +133,70 @@
 namespace {
 
 constexpr int BW_ROWS = 64;          // own rows of a block, a tile's rows
-constexpr int BW_NT = 2 * BW_ROWS;   // a warp for each 16 own rows
-constexpr int BW_LD = DH + 8;        // row stride of the bf16 tiles
-constexpr int BW_TILE = BW_ROWS * BW_LD;  // elements of one plane's tile
+constexpr int BW_COLS = 64;          // the pair's head columns a warp sums
+constexpr int BW_BLD = BW_ROWS + 8;  // row stride of a bias tile
 constexpr int BW_STAGES = 2;         // the pair's walked tiles in the ring
-constexpr int BW_MIN_BLOCKS = 2;     // the pair's blocks an SM
+constexpr int BW_MIN_BLOCKS = 2;     // the pair's blocks an SM (width 64)
 constexpr int BW1_STAGES = 2;        // the one-plane walks' ring
 constexpr int BW1_DQ_BLOCKS = 3;     // blocks an SM: the one-plane dq walk
-constexpr int BW1_DKV_BLOCKS = 3;    // ... and its dkv walk
+constexpr int BW1_DKV_BLOCKS = 3;    // ... and its dkv walk (width 64)
 
-// The walks' shape for hi/lo planes (SPLIT) or one bf16 plane.
-template <bool SPLIT>
+// The walks' shape for hi/lo planes (SPLIT) or one bf16 plane at head
+// width D (64 or 128).  A block owns 64 rows: 4 row groups of 16, each
+// taken by kGroups warps, one for each kCols head columns of the outputs
+// (warp w: rows 16 (w % 4).., columns kCols (w / 4)..).  The warps of a
+// row group compute the same s and dp (over all D columns); each sums its
+// own columns of dq, or of dk and dv.  The pair's walks split a head of
+// 128 between two warps (kCols 64), so that a lane's accumulators stay 32
+// (dq) or 64 (dk, dv) f32 beside the planes' fragments; the one-plane
+// walks keep one warp a row group (kCols = D), its accumulators 64 or 128
+// f32 at 128: fewer s and dp products, some spills, and faster on an H100
+// (PERF.md, head width 128).
+template <bool SPLIT, int D>
 struct Bw {
+  static constexpr bool kSplit = SPLIT;
+  static constexpr int kWidth = D;
+  static constexpr int kCols = SPLIT && D > BW_COLS ? BW_COLS : D;
+  static constexpr int kGroups = D / kCols;
+  static constexpr int kNt = 2 * BW_ROWS * kGroups;  // threads a block
+  static constexpr int kLd = D + 8;            // row stride of the tiles
+  static constexpr int kTile = BW_ROWS * kLd;  // one plane's tile
   static constexpr int kPlanes = SPLIT ? 2 : 1;
   static constexpr int kStages = SPLIT ? BW_STAGES : BW1_STAGES;
-  //: the bias tiles of the one-plane walks' ring
+  //: the bias tiles of the one-plane walks' ring (64 keys wide at every
+  //: head width)
   static constexpr int kBiasTiles = SPLIT ? 0 : kStages;
+  static constexpr int kBiasTile = BW_ROWS * BW_BLD;
   //: the dq walk: q and dO, then the ring's k and v, each in its planes,
   //: then the ring's bias tiles
   static constexpr size_t kDqSmem =
-      ((2 + 2 * kStages) * kPlanes + kBiasTiles) * BW_TILE * sizeof(bf16);
+      ((2 + 2 * kStages) * kPlanes * kTile + kBiasTiles * kBiasTile) *
+      sizeof(bf16);
   //: the dkv walk: k and v, the ring's q and dO, the ring's lse and delta,
   //: then the ring's bias tiles
   static constexpr size_t kDkvSmem =
-      ((2 + 2 * kStages) * kPlanes + kBiasTiles) * BW_TILE * sizeof(bf16) +
-      kStages * 2 * BW_ROWS * sizeof(float);
+      kDqSmem + kStages * 2 * BW_ROWS * sizeof(float);
+  //: blocks an SM (__launch_bounds__): at 128 shared memory holds one
+  static constexpr int kDqBlocks =
+      D == 64 ? (SPLIT ? BW_MIN_BLOCKS : BW1_DQ_BLOCKS) : 1;
+  static constexpr int kDkvBlocks =
+      D == 64 ? (SPLIT ? BW_MIN_BLOCKS : BW1_DKV_BLOCKS) : 1;
 };
 
-// A [b * t, ld] matrix of bf16 rows: head `head` of row r of batch row bi
-// at hi + (bi * t + r) * ld + head * 64; with SPLIT an f32 matrix whose lo
-// plane lies lo elements after its hi plane.
-template <class T>
+// A [b * t, ld] matrix of bf16 rows of heads D wide: head `head` of row r
+// of batch row bi at hi + (bi * t + r) * ld + head * D; with SPLIT an f32
+// matrix whose lo plane lies lo elements after its hi plane.
+template <class T, int D>
 struct PlanesOf {
   T* hi;
   int64_t lo;
   int ld;
   __device__ __forceinline__ T* at(int bi, int t, int r, int head) const {
-    return hi + ((size_t)bi * t + r) * ld + head * DH;
+    return hi + ((size_t)bi * t + r) * ld + head * D;
   }
 };
-using Planes = PlanesOf<const bf16>;
+template <int D>
+using Planes = PlanesOf<const bf16, D>;
 
 // The bf16 rows of layout L (flash_walk.cuh Bthd, Bhtd) that a one-plane
 // walk writes.
@@ -192,31 +234,33 @@ struct FlashBw {
 };
 
 // Start the copy of the 64 rows r0.. (each plane) of head `head` of src
-// (Planes, or one plane's Rows of a layout) into dst (and dst + BW_TILE
+// (Planes, or one plane's Rows of a layout) into dst (and dst + S::kTile
 // for the lo plane); rows at or past t come in as zeros.
-template <bool SPLIT, class Src>
+template <class S, class Src>
 __device__ __forceinline__ void bw_stage(bf16* dst, const Src& src, int bi,
                                          int r0, int t, int head) {
+  constexpr int D = S::kWidth;
 #pragma unroll
-  for (int u = 0; u < Bw<SPLIT>::kPlanes * BW_ROWS * (DH / 8) / BW_NT;
-       ++u) {
-    const int idx = threadIdx.x + u * BW_NT;
-    const int plane = idx / (BW_ROWS * (DH / 8));
-    const int row = idx / (DH / 8) % BW_ROWS;
-    const int c8 = idx % (DH / 8) * 8;
+  for (int u = 0; u < S::kPlanes * BW_ROWS * (D / 8) / S::kNt; ++u) {
+    const int idx = threadIdx.x + u * S::kNt;
+    const int plane = idx / (BW_ROWS * (D / 8));
+    const int row = idx / (D / 8) % BW_ROWS;
+    const int c8 = idx % (D / 8) * 8;
     const bool in = r0 + row < t;
     const bf16* from = src.at(bi, t, in ? r0 + row : r0, head) + c8;
-    if constexpr (SPLIT) from += plane * src.lo;
-    tc::copy16(dst + plane * BW_TILE + row * BW_LD + c8, from, in ? 16 : 0);
+    if constexpr (S::kSplit) from += plane * src.lo;
+    tc::copy16(dst + plane * S::kTile + row * S::kLd + c8, from,
+               in ? 16 : 0);
   }
 }
 
-// Start the copy of a bias tile into dst (row stride BW_LD): rows r0.. (64
+// Start the copy of a bias tile into dst (row stride BW_BLD): rows r0.. (64
 // queries, or the one row of a bias broadcast along them: sr == 0) x
 // columns c0.. (64 keys), element (r, c) at base[r * sr + c * sc], zero
 // past (nr, nc).  Rows of contiguous, 16-byte aligned keys come in by
 // 16-byte cp.async; any other bias (a view at an odd element, say) is
-// read element by element and stored now.
+// read element by element and stored now.  NT threads share the copies.
+template <int NT>
 __device__ __forceinline__ void bw_stage_bias(bf16* dst, const bf16* base,
                                               int64_t sr, int64_t sc,
                                               int r0, int nr, int c0,
@@ -224,11 +268,11 @@ __device__ __forceinline__ void bw_stage_bias(bf16* dst, const bf16* base,
   const int rows = sr ? BW_ROWS : 1;
   if (sc == 1 && sr % 8 == 0 && nc % 8 == 0 &&
       reinterpret_cast<uintptr_t>(base) % 16 == 0) {
-    for (int idx = threadIdx.x; idx < rows * (BW_ROWS / 8); idx += BW_NT) {
+    for (int idx = threadIdx.x; idx < rows * (BW_ROWS / 8); idx += NT) {
       const int r = idx / (BW_ROWS / 8);
       const int c = idx % (BW_ROWS / 8) * 8;
       const bool in = r0 + r < nr && c0 + c < nc;
-      tc::copy16(dst + r * BW_LD + c,
+      tc::copy16(dst + r * BW_BLD + c,
                  base + (in ? (int64_t)(r0 + r) * sr + c0 + c : 0),
                  in ? 16 : 0);
     }
@@ -236,10 +280,10 @@ __device__ __forceinline__ void bw_stage_bias(bf16* dst, const bf16* base,
   }
   const uint16_t* b16 = reinterpret_cast<const uint16_t*>(base);
   uint16_t* d16 = reinterpret_cast<uint16_t*>(dst);
-  for (int idx = threadIdx.x; idx < rows * BW_ROWS; idx += BW_NT) {
+  for (int idx = threadIdx.x; idx < rows * BW_ROWS; idx += NT) {
     const int r = idx / BW_ROWS;
     const int c = idx % BW_ROWS;
-    d16[r * BW_LD + c] =
+    d16[r * BW_BLD + c] =
         r0 + r < nr && c0 + c < nc
             ? b16[(int64_t)(r0 + r) * sr + (int64_t)(c0 + c) * sc]
             : 0;
@@ -281,29 +325,30 @@ __device__ __forceinline__ void mma3(float (&d0)[4], float (&d1)[4],
   tc::mma(d1, al, bh[2], bh[3]);
 }
 
-// c (16 rows x 64 columns of the warp) = A B^T over the 64-deep rows: A
-// the warp's 16 rows of tile `a`, B the 64 rows of tile `b` (n tiles of 8
-// of its rows), each with its lo plane BW_TILE further under SPLIT.
-template <bool SPLIT>
+// c (16 rows x 64 columns of the warp) = A B^T over the D-deep rows: A
+// the 16 rows of row group rg of tile `a`, B the 64 rows of tile `b` (n
+// tiles of 8 of its rows), each with its lo plane S::kTile further under
+// SPLIT.
+template <class S>
 __device__ __forceinline__ void bw_scores(float (&c)[8][4], const bf16* a,
-                                          const bf16* b, int warp) {
+                                          const bf16* b, int rg) {
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
 #pragma unroll
-  for (int kc = 0; kc < DH / 16; ++kc) {
+  for (int kc = 0; kc < S::kWidth / 16; ++kc) {
     uint32_t ah[4], al[4];
-    const int ao = tc::frag_offset(BW_LD, warp * 16, kc * 16);
+    const int ao = tc::frag_offset(S::kLd, rg * 16, kc * 16);
     tc::ldsm4(ah, a + ao);
-    if constexpr (SPLIT) tc::ldsm4(al, a + BW_TILE + ao);
+    if constexpr (S::kSplit) tc::ldsm4(al, a + S::kTile + ao);
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
       uint32_t bh[4], bl[4];
-      const int bo = tc::frag_offset_nk(BW_LD, g * 16, kc * 16);
+      const int bo = tc::frag_offset_nk(S::kLd, g * 16, kc * 16);
       tc::ldsm4(bh, b + bo);
-      if constexpr (SPLIT) {
-        tc::ldsm4(bl, b + BW_TILE + bo);
+      if constexpr (S::kSplit) {
+        tc::ldsm4(bl, b + S::kTile + bo);
         mma3(c[2 * g], c[2 * g + 1], ah, al, bh, bl);
       } else {
         mma1(c[2 * g], c[2 * g + 1], ah, bh);
@@ -312,24 +357,24 @@ __device__ __forceinline__ void bw_scores(float (&c)[8][4], const bf16* a,
   }
 }
 
-// acc (16 rows x 64 head columns) += P B: P the warp's 16 x 64 f32
+// acc (16 rows x 64 head columns c0..) += P B: P the warp's 16 x 64 f32
 // fragments p (split here), B the 64 rows of tile `b` (its planes) read
 // along its rows (ldmatrix.trans).
-template <bool SPLIT>
-__device__ __forceinline__ void bw_accumulate(float (&acc)[8][4],
+template <class S>
+__device__ __forceinline__ void bw_accumulate(float (&acc)[S::kCols / 8][4],
                                               const float (&p)[8][4],
-                                              const bf16* b) {
+                                              const bf16* b, int c0) {
 #pragma unroll
   for (int kk = 0; kk < BW_ROWS / 16; ++kk) {
     uint32_t ph[4], pl[4];
     tc::split_a(p[2 * kk], p[2 * kk + 1], ph, pl);
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
+    for (int g = 0; g < S::kCols / 16; ++g) {
       uint32_t bh[4], bl[4];
-      const int bo = tc::frag_offset(BW_LD, kk * 16, g * 16);
+      const int bo = tc::frag_offset(S::kLd, kk * 16, c0 + g * 16);
       tc::ldsm4_t(bh, b + bo);
-      if constexpr (SPLIT) {
-        tc::ldsm4_t(bl, b + BW_TILE + bo);
+      if constexpr (S::kSplit) {
+        tc::ldsm4_t(bl, b + S::kTile + bo);
         mma3(acc[2 * g], acc[2 * g + 1], ph, pl, bh, bl);
       } else {
         mma2(acc[2 * g], acc[2 * g + 1], ph, pl, bh);
@@ -339,22 +384,23 @@ __device__ __forceinline__ void bw_accumulate(float (&acc)[8][4],
 }
 
 // Store the warp's 16 rows (acc: row g and g + 8 of the lane, head columns
-// 8n + 2c..) at rows r0 + warp * 16.. below t of head `head` of dst: split
-// into its hi and lo planes (PlanesOf<bf16>), or rounded to bf16 (one
-// plane's OutRows of a layout).
-template <bool SPLIT, class Dst>
+// c0 + 8n + 2c..) at rows r0 + rg * 16.. below t of head `head` of dst:
+// split into its hi and lo planes (PlanesOf<bf16, D>), or rounded to bf16
+// (one plane's OutRows of a layout).
+template <class S, class Dst>
 __device__ __forceinline__ void bw_store(const Dst& dst,
-                                         const float (&acc)[8][4], int bi,
-                                         int r0, int t, int head) {
+                                         const float (&acc)[S::kCols / 8][4],
+                                         int bi, int r0, int t, int head,
+                                         int rg, int c0) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = r0 + (threadIdx.x >> 5) * 16 + (lane >> 2) + 8 * r;
+    const int row = r0 + rg * 16 + (lane >> 2) + 8 * r;
     if (row >= t) continue;
-    bf16* p = dst.at(bi, t, row, head) + 2 * (lane & 3);
+    bf16* p = dst.at(bi, t, row, head) + c0 + 2 * (lane & 3);
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      if constexpr (SPLIT) {
+    for (int n = 0; n < S::kCols / 8; ++n) {
+      if constexpr (S::kSplit) {
         uint32_t hi, lo;
         tc::split(acc[n][2 * r], acc[n][2 * r + 1], hi, lo);
         *reinterpret_cast<uint32_t*>(p + 8 * n) = hi;
@@ -380,12 +426,14 @@ __device__ __forceinline__ float bf16_bits(uint32_t b) {
 // 3 h 64] (q at head columns of the first third, k the second, v the
 // third), dctx [b t, h 64], lse and delta [b, h, t]; dq into the first
 // third of the dq | dk | dv planes.
-template <bool DROP>
-__global__ void __launch_bounds__(BW_NT, BW_MIN_BLOCKS)
-bwd_dq_tc_kernel(Planes qkv, Planes dctx, BiasOf<bf16> bias,
+template <int D, bool DROP>
+__global__ void __launch_bounds__(Bw<true, D>::kNt, Bw<true, D>::kDqBlocks)
+bwd_dq_tc_kernel(Planes<D> qkv, Planes<D> dctx, BiasOf<bf16> bias,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, PlanesOf<bf16> dqkv,
+                 const float* __restrict__ delta, PlanesOf<bf16, D> dqkv,
                  int t, int h, float scale, int causal, Dropout drop) {
+  using S = Bw<true, D>;
+  constexpr int BW_TILE = S::kTile;
   extern __shared__ float smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);  // hi, lo
   bf16* dc_s = q_s + 2 * BW_TILE;             // hi, lo
@@ -395,16 +443,19 @@ bwd_dq_tc_kernel(Planes qkv, Planes dctx, BiasOf<bf16> bias,
   const int head = blockIdx.y;
   const int bi = blockIdx.z;
   const int warp = threadIdx.x >> 5;
+  // the warp's 16 own rows and its head columns
+  const int rg = S::kGroups == 1 ? warp : warp % 4;
+  const int c0 = S::kGroups == 1 ? 0 : warp / 4 * S::kCols;
   const int lane = threadIdx.x & 31;
   const int col = 2 * (lane & 3);
-  const int hd = h * DH;
+  const int hd = h * D;
   const uint32_t hseed = block_head_seed<DROP>(drop, bi, h, head);
   int n_kv = (t + BW_ROWS - 1) / BW_ROWS;
   if (causal) n_kv = min(n_kv, (min(q0 + BW_ROWS, t) - 1) / BW_ROWS + 1);
   const float scale2 = scale * tc::kLog2e;
-  const Planes q{qkv.hi, qkv.lo, qkv.ld};
-  const Planes k{qkv.hi + hd, qkv.lo, qkv.ld};
-  const Planes v{qkv.hi + 2 * hd, qkv.lo, qkv.ld};
+  const Planes<D> q{qkv.hi, qkv.lo, qkv.ld};
+  const Planes<D> k{qkv.hi + hd, qkv.lo, qkv.ld};
+  const Planes<D> v{qkv.hi + 2 * hd, qkv.lo, qkv.ld};
 
   int qpos[2];
   float lse2[2], dlt[2];
@@ -415,7 +466,7 @@ bwd_dq_tc_kernel(Planes qkv, Planes dctx, BiasOf<bf16> bias,
       bias.sq % 2 == 0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    qpos[r] = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    qpos[r] = q0 + rg * 16 + (lane >> 2) + 8 * r;
     const size_t at = ((size_t)bi * h + head) * t + qpos[r];
     lse2[r] = qpos[r] < t ? lse[at] * tc::kLog2e : INFINITY;
     dlt[r] = qpos[r] < t ? delta[at] : 0.f;
@@ -424,24 +475,24 @@ bwd_dq_tc_kernel(Planes qkv, Planes dctx, BiasOf<bf16> bias,
                 min(qpos[r], t - 1) * bias.sq;
   }
 
-  float acc[8][4];
+  float acc[S::kCols / 8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < S::kCols / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   // tile j in ring slot j % BW_STAGES, the own rows with tile 0; a group
   // is committed every step, so that wait<BW_STAGES - 2> always means
   // "tile kt has landed"
   if (n_kv > 0) {
-    bw_stage<true>(q_s, q, bi, q0, t, head);
-    bw_stage<true>(dc_s, dctx, bi, q0, t, head);
+    bw_stage<S>(q_s, q, bi, q0, t, head);
+    bw_stage<S>(dc_s, dctx, bi, q0, t, head);
   }
 #pragma unroll
   for (int j = 0; j < BW_STAGES - 1; ++j) {
     if (j < n_kv) {
-      bw_stage<true>(kv_s + 4 * j * BW_TILE, k, bi, j * BW_ROWS, t, head);
-      bw_stage<true>(kv_s + (4 * j + 2) * BW_TILE, v, bi, j * BW_ROWS, t,
-                     head);
+      bw_stage<S>(kv_s + 4 * j * BW_TILE, k, bi, j * BW_ROWS, t, head);
+      bw_stage<S>(kv_s + (4 * j + 2) * BW_TILE, v, bi, j * BW_ROWS, t,
+                  head);
     }
     tc::commit();
   }
@@ -456,8 +507,8 @@ bwd_dq_tc_kernel(Planes qkv, Planes dctx, BiasOf<bf16> bias,
     const int next = kt + BW_STAGES - 1;
     if (next < n_kv) {
       bf16* st = kv_s + next % BW_STAGES * 4 * BW_TILE;
-      bw_stage<true>(st, k, bi, next * BW_ROWS, t, head);
-      bw_stage<true>(st + 2 * BW_TILE, v, bi, next * BW_ROWS, t, head);
+      bw_stage<S>(st, k, bi, next * BW_ROWS, t, head);
+      bw_stage<S>(st + 2 * BW_TILE, v, bi, next * BW_ROWS, t, head);
     }
     tc::commit();
     // this lane's bias of the tile (keys 8n + col, + 1, as bf16 pairs),
@@ -485,7 +536,7 @@ bwd_dq_tc_kernel(Planes qkv, Planes dctx, BiasOf<bf16> bias,
     // p = exp(s * scale + bias - lse) into s, the bias's registers free
     // again before dp's
     float s[8][4], dp[8][4];
-    bw_scores<true>(s, q_s, k_s, warp);
+    bw_scores<S>(s, q_s, k_s, rg);
     const bool edge = k0 + BW_ROWS > t || (causal && k0 + BW_ROWS - 1 > q0);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
@@ -500,7 +551,7 @@ bwd_dq_tc_kernel(Planes qkv, Planes dctx, BiasOf<bf16> bias,
         if (edge && (kpos >= t || (causal && qpos[r] < kpos))) s[n][e] = 0.f;
       }
     // ds = p (dp - delta) * scale, into s
-    bw_scores<true>(dp, dc_s, v_s, warp);
+    bw_scores<S>(dp, dc_s, v_s, rg);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -515,21 +566,23 @@ bwd_dq_tc_kernel(Planes qkv, Planes dctx, BiasOf<bf16> bias,
                     : 0.f;
         s[n][e] = s[n][e] * (dpv - dlt[r]) * scale;
       }
-    bw_accumulate<true>(acc, s, k_s);  // dq += ds k
+    bw_accumulate<S>(acc, s, k_s, c0);  // dq += ds k
   }
-  const PlanesOf<bf16> dq{dqkv.hi, dqkv.lo, dqkv.ld};
-  bw_store<true>(dq, acc, bi, q0, t, head);
+  const PlanesOf<bf16, D> dq{dqkv.hi, dqkv.lo, dqkv.ld};
+  bw_store<S>(dq, acc, bi, q0, t, head, rg, c0);
 }
 
 // dk and dv of one (64-row k tile, head, batch row): the operands of
 // bwd_dq_tc_kernel; dk and dv into the second and third thirds of the dq
 // | dk | dv planes.
-template <bool DROP>
-__global__ void __launch_bounds__(BW_NT, BW_MIN_BLOCKS)
-bwd_dkv_tc_kernel(Planes qkv, Planes dctx, BiasOf<bf16> bias,
+template <int D, bool DROP>
+__global__ void __launch_bounds__(Bw<true, D>::kNt, Bw<true, D>::kDkvBlocks)
+bwd_dkv_tc_kernel(Planes<D> qkv, Planes<D> dctx, BiasOf<bf16> bias,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, PlanesOf<bf16> dqkv,
+                  const float* __restrict__ delta, PlanesOf<bf16, D> dqkv,
                   int t, int h, float scale, int causal, Dropout drop) {
+  using S = Bw<true, D>;
+  constexpr int BW_TILE = S::kTile;
   extern __shared__ float smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);  // hi, lo
   bf16* v_s = k_s + 2 * BW_TILE;              // hi, lo
@@ -541,14 +594,17 @@ bwd_dkv_tc_kernel(Planes qkv, Planes dctx, BiasOf<bf16> bias,
   const int head = blockIdx.y;
   const int bi = blockIdx.z;
   const int warp = threadIdx.x >> 5;
+  // the warp's 16 own rows and its head columns
+  const int rg = S::kGroups == 1 ? warp : warp % 4;
+  const int c0 = S::kGroups == 1 ? 0 : warp / 4 * S::kCols;
   const int lane = threadIdx.x & 31;
   const int col = 2 * (lane & 3);
-  const int hd = h * DH;
+  const int hd = h * D;
   const uint32_t hseed = block_head_seed<DROP>(drop, bi, h, head);
   const float scale2 = scale * tc::kLog2e;
-  const Planes q{qkv.hi, qkv.lo, qkv.ld};
-  const Planes k{qkv.hi + hd, qkv.lo, qkv.ld};
-  const Planes v{qkv.hi + 2 * hd, qkv.lo, qkv.ld};
+  const Planes<D> q{qkv.hi, qkv.lo, qkv.ld};
+  const Planes<D> k{qkv.hi + hd, qkv.lo, qkv.ld};
+  const Planes<D> v{qkv.hi + 2 * hd, qkv.lo, qkv.ld};
   const float* lse_h = lse + ((size_t)bi * h + head) * t;
   const float* delta_h = delta + ((size_t)bi * h + head) * t;
   // under the causal mask, q tiles wholly before this tile's first key see
@@ -560,7 +616,7 @@ bwd_dkv_tc_kernel(Planes qkv, Planes dctx, BiasOf<bf16> bias,
   const bf16* bcol[2] = {nullptr, nullptr};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    kpos[r] = k0 + warp * 16 + (lane >> 2) + 8 * r;
+    kpos[r] = k0 + rg * 16 + (lane >> 2) + 8 * r;
     if (bias.p)
       bcol[r] = bias.p + bi * bias.sb + head * bias.sh +
                 min(kpos[r], t - 1) * bias.sk;
@@ -569,24 +625,26 @@ bwd_dkv_tc_kernel(Planes qkv, Planes dctx, BiasOf<bf16> bias,
   auto stage = [&](int j) {
     const int q0 = j * BW_ROWS;
     bf16* st = qd_s + (j - first) % BW_STAGES * 4 * BW_TILE;
-    bw_stage<true>(st, q, bi, q0, t, head);
-    bw_stage<true>(st + 2 * BW_TILE, dctx, bi, q0, t, head);
+    bw_stage<S>(st, q, bi, q0, t, head);
+    bw_stage<S>(st + 2 * BW_TILE, dctx, bi, q0, t, head);
     float* stats = st_s + (j - first) % BW_STAGES * 2 * BW_ROWS;
     const int r = threadIdx.x % BW_ROWS;
     const bool in = q0 + r < t;
-    async_copy4(stats + threadIdx.x,
-                (threadIdx.x < BW_ROWS ? lse_h : delta_h) + (in ? q0 + r : 0),
-                in ? 4 : 0);
+    if (S::kNt == 2 * BW_ROWS || threadIdx.x < 2 * BW_ROWS)
+      async_copy4(stats + threadIdx.x,
+                  (threadIdx.x < BW_ROWS ? lse_h : delta_h) +
+                      (in ? q0 + r : 0),
+                  in ? 4 : 0);
   };
 
-  float dk[8][4], dv[8][4];
+  float dk[S::kCols / 8][4], dv[S::kCols / 8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < S::kCols / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
   if (first < n_q) {
-    bw_stage<true>(k_s, k, bi, k0, t, head);
-    bw_stage<true>(v_s, v, bi, k0, t, head);
+    bw_stage<S>(k_s, k, bi, k0, t, head);
+    bw_stage<S>(v_s, v, bi, k0, t, head);
   }
 #pragma unroll
   for (int j = 0; j < BW_STAGES - 1; ++j) {
@@ -622,7 +680,7 @@ bwd_dkv_tc_kernel(Planes qkv, Planes dctx, BiasOf<bf16> bias,
     // p^T = exp(s^T * scale + bias - lse) into s, the bias's registers
     // free again before dp^T's
     float s[8][4], dp[8][4];
-    bw_scores<true>(s, k_s, q_t, warp);  // s^T = k q^T
+    bw_scores<S>(s, k_s, q_t, rg);  // s^T = k q^T
     const bool edge = q0 + BW_ROWS > t || k0 + BW_ROWS > t ||
                       (causal && q0 < k0 + BW_ROWS - 1);
 #pragma unroll
@@ -640,7 +698,7 @@ bwd_dkv_tc_kernel(Planes qkv, Planes dctx, BiasOf<bf16> bias,
           s[n][e] = 0.f;
       }
     // ds^T into dp, then p^T dropped and scaled (for dv) into s
-    bw_scores<true>(dp, v_s, dc_t, warp);  // dp^T = v dctx^T
+    bw_scores<S>(dp, v_s, dc_t, rg);  // dp^T = v dctx^T
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -657,50 +715,53 @@ bwd_dkv_tc_kernel(Planes qkv, Planes dctx, BiasOf<bf16> bias,
         dp[n][e] = p * (dpv - delta_t[qc]) * scale;
         s[n][e] = pv;
       }
-    bw_accumulate<true>(dv, s, dc_t);  // dv += p^T dctx
-    bw_accumulate<true>(dk, dp, q_t);  // dk += ds^T q
+    bw_accumulate<S>(dv, s, dc_t, c0);  // dv += p^T dctx
+    bw_accumulate<S>(dk, dp, q_t, c0);  // dk += ds^T q
   }
-  const PlanesOf<bf16> dk_p{dqkv.hi + hd, dqkv.lo, dqkv.ld};
-  const PlanesOf<bf16> dv_p{dqkv.hi + 2 * hd, dqkv.lo, dqkv.ld};
-  bw_store<true>(dk_p, dk, bi, k0, t, head);
-  bw_store<true>(dv_p, dv, bi, k0, t, head);
+  const PlanesOf<bf16, D> dk_p{dqkv.hi + hd, dqkv.lo, dqkv.ld};
+  const PlanesOf<bf16, D> dv_p{dqkv.hi + 2 * hd, dqkv.lo, dqkv.ld};
+  bw_store<S>(dk_p, dk, bi, k0, t, head, rg, c0);
+  bw_store<S>(dv_p, dv, bi, k0, t, head, rg, c0);
 }
 
-template <bool DROP>
-cudaError_t launch_bwd_tc(int walk, Planes qkv, Planes dctx,
+template <int D, bool DROP>
+cudaError_t launch_bwd_tc(int walk, Planes<D> qkv, Planes<D> dctx,
                           BiasOf<bf16> bias, const float* lse,
-                          const float* delta, PlanesOf<bf16> dqkv, int b,
+                          const float* delta, PlanesOf<bf16, D> dqkv, int b,
                           int t, int h, float scale, int causal,
                           Dropout drop, cudaStream_t stream) {
+  using S = Bw<true, D>;
   static bool configured[2] = {false, false};
   const dim3 grid((t + BW_ROWS - 1) / BW_ROWS, h, b);
   cudaError_t err;
   if (walk == 0) {
-    err = allow_smem(bwd_dq_tc_kernel<DROP>, Bw<true>::kDqSmem, configured[0]);
+    err = allow_smem(bwd_dq_tc_kernel<D, DROP>, S::kDqSmem, configured[0]);
     if (err != cudaSuccess) return err;
-    bwd_dq_tc_kernel<DROP><<<grid, BW_NT, Bw<true>::kDqSmem, stream>>>(
+    bwd_dq_tc_kernel<D, DROP><<<grid, S::kNt, S::kDqSmem, stream>>>(
         qkv, dctx, bias, lse, delta, dqkv, t, h, scale, causal, drop);
   } else {
-    err = allow_smem(bwd_dkv_tc_kernel<DROP>, Bw<true>::kDkvSmem,
+    err = allow_smem(bwd_dkv_tc_kernel<D, DROP>, S::kDkvSmem,
                      configured[1]);
     if (err != cudaSuccess) return err;
-    bwd_dkv_tc_kernel<DROP><<<grid, BW_NT, Bw<true>::kDkvSmem, stream>>>(
+    bwd_dkv_tc_kernel<D, DROP><<<grid, S::kNt, S::kDkvSmem, stream>>>(
         qkv, dctx, bias, lse, delta, dqkv, t, h, scale, causal, drop);
   }
   return cudaGetLastError();
 }
 
 // The dq walk (walk 0) or the dkv walk (walk 1) over a grid of (64-row
-// tiles, heads, batch rows): the hashing instantiation only when drop.on.
-cudaError_t bwd_tc(int walk, Planes qkv, Planes dctx, BiasOf<bf16> bias,
-                   const float* lse, const float* delta, PlanesOf<bf16> dqkv,
-                   int b, int t, int h, float scale, int causal,
-                   Dropout drop, cudaStream_t stream) {
+// tiles, heads, batch rows) at head width D: the hashing instantiation
+// only when drop.on.
+template <int D>
+cudaError_t bwd_tc(int walk, Planes<D> qkv, Planes<D> dctx,
+                   BiasOf<bf16> bias, const float* lse, const float* delta,
+                   PlanesOf<bf16, D> dqkv, int b, int t, int h, float scale,
+                   int causal, Dropout drop, cudaStream_t stream) {
   return drop.on
-      ? launch_bwd_tc<true>(walk, qkv, dctx, bias, lse, delta, dqkv, b, t,
-                            h, scale, causal, drop, stream)
-      : launch_bwd_tc<false>(walk, qkv, dctx, bias, lse, delta, dqkv, b, t,
-                             h, scale, causal, drop, stream);
+      ? launch_bwd_tc<D, true>(walk, qkv, dctx, bias, lse, delta, dqkv, b,
+                               t, h, scale, causal, drop, stream)
+      : launch_bwd_tc<D, false>(walk, qkv, dctx, bias, lse, delta, dqkv, b,
+                                t, h, scale, causal, drop, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -710,9 +771,12 @@ cudaError_t bwd_tc(int walk, Planes qkv, Planes dctx, BiasOf<bf16> bias,
 // #6 (Bthd), #8 (Bhtd): dq of one (64-row q tile, head, batch row) over
 // bf16 rows.
 template <class L, bool DROP>
-__global__ void __launch_bounds__(BW_NT, BW1_DQ_BLOCKS)
+__global__ void __launch_bounds__(Bw<false, L::kWidth>::kNt,
+                                  Bw<false, L::kWidth>::kDqBlocks)
 flash_dq_tc_kernel(const FlashBw<L> a) {
-  constexpr int S = Bw<false>::kStages;
+  using W = Bw<false, L::kWidth>;
+  constexpr int S = W::kStages;
+  constexpr int BW_TILE = W::kTile;
   extern __shared__ float smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);  // q
   bf16* dc_s = q_s + BW_TILE;                 // dO
@@ -723,6 +787,9 @@ flash_dq_tc_kernel(const FlashBw<L> a) {
   const int head = blockIdx.y;
   const int bi = blockIdx.z;
   const int warp = threadIdx.x >> 5;
+  // the warp's 16 own rows and its head columns
+  const int rg = W::kGroups == 1 ? warp : warp % 4;
+  const int c0 = W::kGroups == 1 ? 0 : warp / 4 * W::kCols;
   const int lane = threadIdx.x & 31;
   const int col = 2 * (lane & 3);
   const int tq = a.tq, tk = a.tk;
@@ -744,37 +811,36 @@ flash_dq_tc_kernel(const FlashBw<L> a) {
   float lse2[2], dlt[2];
   const bf16* bias_h =
       bias.p ? bias.p + bi * bias.sb + head * bias.sh : nullptr;
-  const int bld = bias.sq ? BW_LD : 0;  // a staged tile's row stride
+  const int bld = bias.sq ? BW_BLD : 0;  // a staged tile's row stride
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    qpos[r] = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    qpos[r] = q0 + rg * 16 + (lane >> 2) + 8 * r;
     const size_t at = ((size_t)bi * a.h + head) * tq + qpos[r];
     lse2[r] = qpos[r] < tq ? __ldg(a.lse + at) * tc::kLog2e : INFINITY;
     dlt[r] = qpos[r] < tq ? __ldg(a.delta + at) : 0.f;
   }
 
-  float acc[8][4];
+  float acc[W::kCols / 8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < W::kCols / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   // tile j in ring slot j % S, the own rows with tile 0; a group is
   // committed every step, so that wait<S - 2> always means "tile kt has
   // landed"
   if (n_kv > 0) {
-    bw_stage<false>(q_s, q, bi, q0, tq, head);
-    bw_stage<false>(dc_s, dout, bi, q0, tq, head);
+    bw_stage<W>(q_s, q, bi, q0, tq, head);
+    bw_stage<W>(dc_s, dout, bi, q0, tq, head);
   }
 #pragma unroll
   for (int j = 0; j < S - 1; ++j) {
     if (j < n_kv) {
-      bw_stage<false>(kv_s + 2 * j * BW_TILE, k, bi, j * BW_ROWS, tk,
-                      head);
-      bw_stage<false>(kv_s + (2 * j + 1) * BW_TILE, v, bi,
-                      j * BW_ROWS, tk, head);
+      bw_stage<W>(kv_s + 2 * j * BW_TILE, k, bi, j * BW_ROWS, tk, head);
+      bw_stage<W>(kv_s + (2 * j + 1) * BW_TILE, v, bi, j * BW_ROWS, tk,
+                  head);
       if (bias.p)
-        bw_stage_bias(bs_s + j * BW_TILE, bias_h, bias.sq, bias.sk, q0, tq,
-                      j * BW_ROWS, tk);
+        bw_stage_bias<W::kNt>(bs_s + j * W::kBiasTile, bias_h, bias.sq,
+                              bias.sk, q0, tq, j * BW_ROWS, tk);
     }
     tc::commit();
   }
@@ -783,25 +849,25 @@ flash_dq_tc_kernel(const FlashBw<L> a) {
     const int k0 = kt * BW_ROWS;
     const bf16* k_s = kv_s + kt % S * 2 * BW_TILE;
     const bf16* v_s = k_s + BW_TILE;
-    const bf16* b_s = bs_s + kt % S * BW_TILE;
+    const bf16* b_s = bs_s + kt % S * W::kBiasTile;
     tc::wait<S - 2>();
     __syncthreads();  // this step's k and v (and q, dO) have landed; the
                       // slot the next load takes was consumed last step
     const int next = kt + S - 1;
     if (next < n_kv) {
       bf16* st = kv_s + next % S * 2 * BW_TILE;
-      bw_stage<false>(st, k, bi, next * BW_ROWS, tk, head);
-      bw_stage<false>(st + BW_TILE, v, bi, next * BW_ROWS, tk, head);
+      bw_stage<W>(st, k, bi, next * BW_ROWS, tk, head);
+      bw_stage<W>(st + BW_TILE, v, bi, next * BW_ROWS, tk, head);
       if (bias.p)
-        bw_stage_bias(bs_s + next % S * BW_TILE, bias_h, bias.sq, bias.sk,
-                      q0, tq, next * BW_ROWS, tk);
+        bw_stage_bias<W::kNt>(bs_s + next % S * W::kBiasTile, bias_h,
+                              bias.sq, bias.sk, q0, tq, next * BW_ROWS, tk);
     }
     tc::commit();
     // p = exp(s * scale + bias - lse) into s, this lane's bias pairs (keys
     // 8n + col, + 1) read from the staged tile
     uint32_t sb[8][2];
     float s[8][4], dp[8][4];
-    bw_scores<false>(s, q_s, k_s, warp);
+    bw_scores<W>(s, q_s, k_s, rg);
     const bool edge =
         k0 + BW_ROWS > tk || (a.causal && k0 + BW_ROWS - 1 > q0 + offset);
 #pragma unroll
@@ -812,7 +878,7 @@ flash_dq_tc_kernel(const FlashBw<L> a) {
         const int kpos = k0 + 8 * n + col + (e & 1);
         if ((e & 1) == 0)
           sb[n][r] = bias.p ? *reinterpret_cast<const uint32_t*>(
-                                  b_s + (warp * 16 + (lane >> 2) + 8 * r) *
+                                  b_s + (rg * 16 + (lane >> 2) + 8 * r) *
                                             bld + 8 * n + col)
                             : 0u;
         s[n][e] = tc::ex2(fmaf(s[n][e], scale2,
@@ -823,7 +889,7 @@ flash_dq_tc_kernel(const FlashBw<L> a) {
           s[n][e] = 0.f;
       }
     // ds = p (dp - delta) * scale, into s
-    bw_scores<false>(dp, dc_s, v_s, warp);
+    bw_scores<W>(dp, dc_s, v_s, rg);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -838,17 +904,20 @@ flash_dq_tc_kernel(const FlashBw<L> a) {
                     : 0.f;
         s[n][e] = s[n][e] * (dpv - dlt[r]) * a.scale;
       }
-    bw_accumulate<false>(acc, s, k_s);  // dq += ds k
+    bw_accumulate<W>(acc, s, k_s, c0);  // dq += ds k
   }
-  bw_store<false>(OutRows<L>{a.dq, a.l}, acc, bi, q0, tq, head);
+  bw_store<W>(OutRows<L>{a.dq, a.l}, acc, bi, q0, tq, head, rg, c0);
 }
 
 // #7 (Bthd), #9 (Bhtd): dk and dv of one (64-row k tile, head, batch
 // row) over bf16 rows.
 template <class L, bool DROP>
-__global__ void __launch_bounds__(BW_NT, BW1_DKV_BLOCKS)
+__global__ void __launch_bounds__(Bw<false, L::kWidth>::kNt,
+                                  Bw<false, L::kWidth>::kDkvBlocks)
 flash_dkv_tc_kernel(const FlashBw<L> a) {
-  constexpr int S = Bw<false>::kStages;
+  using W = Bw<false, L::kWidth>;
+  constexpr int S = W::kStages;
+  constexpr int BW_TILE = W::kTile;
   extern __shared__ float smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);  // k
   bf16* v_s = k_s + BW_TILE;                  // v
@@ -862,6 +931,9 @@ flash_dkv_tc_kernel(const FlashBw<L> a) {
   const int head = blockIdx.y;
   const int bi = blockIdx.z;
   const int warp = threadIdx.x >> 5;
+  // the warp's 16 own rows and its head columns
+  const int rg = W::kGroups == 1 ? warp : warp % 4;
+  const int c0 = W::kGroups == 1 ? 0 : warp / 4 * W::kCols;
   const int lane = threadIdx.x & 31;
   const int col = 2 * (lane & 3);
   const int tq = a.tq, tk = a.tk;
@@ -880,35 +952,37 @@ flash_dkv_tc_kernel(const FlashBw<L> a) {
 
   const bf16* bias_h =
       bias.p ? bias.p + bi * bias.sb + head * bias.sh : nullptr;
-  const int bld = bias.sq ? BW_LD : 0;  // a staged tile's row stride
+  const int bld = bias.sq ? BW_BLD : 0;  // a staged tile's row stride
   int kpos[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) kpos[r] = k0 + warp * 16 + (lane >> 2) + 8 * r;
+  for (int r = 0; r < 2; ++r) kpos[r] = k0 + rg * 16 + (lane >> 2) + 8 * r;
   // stage of q tile j: q, dO, its rows' lse and delta and its bias
   auto stage = [&](int j) {
     const int q0 = j * BW_ROWS;
     bf16* st = qd_s + (j - first) % S * 2 * BW_TILE;
-    bw_stage<false>(st, q, bi, q0, tq, head);
-    bw_stage<false>(st + BW_TILE, dout, bi, q0, tq, head);
+    bw_stage<W>(st, q, bi, q0, tq, head);
+    bw_stage<W>(st + BW_TILE, dout, bi, q0, tq, head);
     float* stats = st_s + (j - first) % S * 2 * BW_ROWS;
     const int r = threadIdx.x % BW_ROWS;
     const bool in = q0 + r < tq;
-    async_copy4(stats + threadIdx.x,
-                (threadIdx.x < BW_ROWS ? lse_h : delta_h) + (in ? q0 + r : 0),
-                in ? 4 : 0);
+    if (W::kNt == 2 * BW_ROWS || threadIdx.x < 2 * BW_ROWS)
+      async_copy4(stats + threadIdx.x,
+                  (threadIdx.x < BW_ROWS ? lse_h : delta_h) +
+                      (in ? q0 + r : 0),
+                  in ? 4 : 0);
     if (bias.p)
-      bw_stage_bias(bs_s + (j - first) % S * BW_TILE, bias_h, bias.sq,
-                    bias.sk, q0, tq, k0, tk);
+      bw_stage_bias<W::kNt>(bs_s + (j - first) % S * W::kBiasTile, bias_h,
+                            bias.sq, bias.sk, q0, tq, k0, tk);
   };
 
-  float dk[8][4], dv[8][4];
+  float dk[W::kCols / 8][4], dv[W::kCols / 8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < W::kCols / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
   if (first < n_q) {
-    bw_stage<false>(k_s, k, bi, k0, tk, head);
-    bw_stage<false>(v_s, v, bi, k0, tk, head);
+    bw_stage<W>(k_s, k, bi, k0, tk, head);
+    bw_stage<W>(v_s, v, bi, k0, tk, head);
   }
 #pragma unroll
   for (int j = 0; j < S - 1; ++j) {
@@ -923,7 +997,7 @@ flash_dkv_tc_kernel(const FlashBw<L> a) {
     const float* lse_t = st_s + (qt - first) % S * 2 * BW_ROWS;
     const float* delta_t = lse_t + BW_ROWS;
     const uint16_t* b_s = reinterpret_cast<const uint16_t*>(
-        bs_s + (qt - first) % S * BW_TILE);
+        bs_s + (qt - first) % S * W::kBiasTile);
     tc::wait<S - 2>();
     __syncthreads();  // this step's tile (and k, v) has landed; the slot
                       // the next load takes was consumed last step
@@ -933,7 +1007,7 @@ flash_dkv_tc_kernel(const FlashBw<L> a) {
     // elements (key kpos[e >> 1], query q0 + 8n + col + (e & 1)) read from
     // the staged tile
     float s[8][4], dp[8][4];
-    bw_scores<false>(s, k_s, q_t, warp);  // s^T = k q^T
+    bw_scores<W>(s, k_s, q_t, rg);  // s^T = k q^T
     const bool edge = q0 + BW_ROWS > tq || k0 + BW_ROWS > tk ||
                       (a.causal && q0 + offset < k0 + BW_ROWS - 1);
 #pragma unroll
@@ -944,7 +1018,7 @@ flash_dkv_tc_kernel(const FlashBw<L> a) {
         const int qc = 8 * n + col + (e & 1);
         const int qpos = q0 + qc;
         const uint32_t bb =
-            bias.p ? b_s[qc * bld + warp * 16 + (lane >> 2) + 8 * r] : 0u;
+            bias.p ? b_s[qc * bld + rg * 16 + (lane >> 2) + 8 * r] : 0u;
         s[n][e] = tc::ex2(fmaf(s[n][e], scale2,
                                bf16_bits(bb) * tc::kLog2e) -
                           lse_t[qc] * tc::kLog2e);
@@ -953,7 +1027,7 @@ flash_dkv_tc_kernel(const FlashBw<L> a) {
           s[n][e] = 0.f;
       }
     // ds^T into dp, then p^T dropped and scaled (for dv) into s
-    bw_scores<false>(dp, v_s, dc_t, warp);  // dp^T = v dO^T
+    bw_scores<W>(dp, v_s, dc_t, rg);  // dp^T = v dO^T
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -971,31 +1045,29 @@ flash_dkv_tc_kernel(const FlashBw<L> a) {
         dp[n][e] = p * (dpv - delta_t[qc]) * a.scale;
         s[n][e] = pv;
       }
-    bw_accumulate<false>(dv, s, dc_t);  // dv += p^T dO
-    bw_accumulate<false>(dk, dp, q_t);  // dk += ds^T q
+    bw_accumulate<W>(dv, s, dc_t, c0);  // dv += p^T dO
+    bw_accumulate<W>(dk, dp, q_t, c0);  // dk += ds^T q
   }
-  bw_store<false>(OutRows<L>{a.dk, a.l}, dk, bi, k0, tk, head);
-  bw_store<false>(OutRows<L>{a.dv, a.l}, dv, bi, k0, tk, head);
+  bw_store<W>(OutRows<L>{a.dk, a.l}, dk, bi, k0, tk, head, rg, c0);
+  bw_store<W>(OutRows<L>{a.dv, a.l}, dv, bi, k0, tk, head, rg, c0);
 }
 
 template <class L, bool DROP>
 cudaError_t launch_flash_bwd_tc(int walk, const FlashBw<L>& a, int b,
                                 cudaStream_t stream) {
+  using W = Bw<false, L::kWidth>;
   static bool configured[2] = {false, false};
   const dim3 grid(((walk ? a.tk : a.tq) + BW_ROWS - 1) / BW_ROWS, a.h, b);
   cudaError_t err;
   if (walk == 0) {
-    err = allow_smem(flash_dq_tc_kernel<L, DROP>, Bw<false>::kDqSmem,
-                     configured[0]);
+    err = allow_smem(flash_dq_tc_kernel<L, DROP>, W::kDqSmem, configured[0]);
     if (err != cudaSuccess) return err;
-    flash_dq_tc_kernel<L, DROP>
-        <<<grid, BW_NT, Bw<false>::kDqSmem, stream>>>(a);
+    flash_dq_tc_kernel<L, DROP><<<grid, W::kNt, W::kDqSmem, stream>>>(a);
   } else {
-    err = allow_smem(flash_dkv_tc_kernel<L, DROP>, Bw<false>::kDkvSmem,
+    err = allow_smem(flash_dkv_tc_kernel<L, DROP>, W::kDkvSmem,
                      configured[1]);
     if (err != cudaSuccess) return err;
-    flash_dkv_tc_kernel<L, DROP>
-        <<<grid, BW_NT, Bw<false>::kDkvSmem, stream>>>(a);
+    flash_dkv_tc_kernel<L, DROP><<<grid, W::kNt, W::kDkvSmem, stream>>>(a);
   }
   return cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // #4 and #5 in bf16 (amp) on tensor cores: the flash forward o =
 // softmax(q k^T * scale + bias) v and lse over bf16 q, k, v rows of layout
-// L (flash_walk.cuh Bthd, [b, t, h, 64]; Bhtd, [b, h, t, 64]), for
-// sm_90a.  Replaces paddle_tpu/kernels/attention.py _fwd_kernel_bthd (#4)
-// and _fwd_kernel (#5) for bf16 operands; flash_attention.cu's
+// L (flash_walk.cuh BthdOf, [b, t, h, d]; BhtdOf, [b, h, t, d]; head
+// width d = L::kWidth, 64 or 128), for sm_90a.  Replaces
+// paddle_tpu/kernels/attention.py _fwd_kernel_bthd (#4) and _fwd_kernel
+// (#5) for bf16 operands; flash_attention.cu's
 // ptt_flash_fwd_bf16 and ptt_flash_fwd_bhtd_bf16 launch it.  The f32
 // forward stays flash_walk.cuh's flash_fwd_kernel.
 //
@@ -36,6 +37,12 @@
 // walk is held by its loads and latencies (a fifth of a block's clock
 // waits on the ring), more than by the tensor cores.
 //
+// At head width 128 the tiles' rows are 136 elements (85 KB a block), s
+// sums over 8 k16 chunks and o is 16 tiles of 8 columns a warp (64 f32 a
+// lane): 202-214 registers and no spills at FtShape<128>::kMinBlocks = 2,
+// the blocks an SM its shared memory allows (at 4, its 128 registers
+// would spill o).
+//
 // Masking, bias strides (BiasOf), dropout and the ragged tails follow
 // flash_fwd_kernel: causal (offset tk - tq) and out-of-range keys score
 // -1e30; the bias is read from device memory at each element a thread
@@ -59,36 +66,49 @@ namespace {
 constexpr int FT_ROWS = 64;           // query rows of a block
 constexpr int FT_NT = 2 * FT_ROWS;    // a warp for each 16 rows
 constexpr int FT_STAGES = 2;          // k / v tiles in the ring
-constexpr int FT_MIN_BLOCKS = 4;      // blocks an SM (__launch_bounds__)
-constexpr int FT_LD = DH + 8;         // row stride of the bf16 tiles
-constexpr int FT_TILE = BT * FT_LD;   // elements of a 64-row k or v tile
-//: q, then the ring's stages of k and v
-constexpr size_t kFwdTcSmem =
-    (FT_ROWS * FT_LD + 2 * FT_STAGES * FT_TILE) * sizeof(bf16);
+
+// The forward's shape at head width D (64 or 128): bf16 tiles of rows
+// padded to D + 8 elements; q, then the ring's stages of k and v, in
+// kSmem bytes (45 KB at 64, 85 KB at 128); kMinBlocks blocks an SM
+// (__launch_bounds__): 4 at 64 (128 registers), 2 at 128, where o's
+// accumulators double (64 f32 a lane) and shared memory holds two blocks.
+template <int D>
+struct FtShape {
+  static constexpr int kLd = D + 8;
+  static constexpr int kTile = BT * kLd;  // a 64-row k or v tile
+  static constexpr size_t kSmem =
+      (FT_ROWS * kLd + 2 * FT_STAGES * kTile) * sizeof(bf16);
+  static constexpr int kMinBlocks = D == 64 ? 4 : 2;
+};
+constexpr size_t kFwdTcSmem = FtShape<DH>::kSmem;
 
 // Start the copy of ROWS rows r0.. of head `head` of src into dst (row
-// stride FT_LD); rows at or past t come in as zeros.
+// stride D + 8); rows at or past t come in as zeros.
 template <int ROWS, class L>
 __device__ __forceinline__ void ft_stage(bf16* dst, Rows<L, bf16> src,
                                          int bi, int r0, int t, int head) {
+  constexpr int D = L::kWidth;
 #pragma unroll
-  for (int u = 0; u < ROWS * (DH / 8) / FT_NT; ++u) {
+  for (int u = 0; u < ROWS * (D / 8) / FT_NT; ++u) {
     const int idx = threadIdx.x + u * FT_NT;
-    const int row = idx / (DH / 8);
-    const int c8 = idx % (DH / 8);
+    const int row = idx / (D / 8);
+    const int c8 = idx % (D / 8);
     const bool in = r0 + row < t;
-    tc::copy16(dst + row * FT_LD + c8 * 8,
+    tc::copy16(dst + row * FtShape<D>::kLd + c8 * 8,
                src.at(bi, t, in ? r0 + row : r0, head) + c8 * 8,
                in ? 16 : 0);
   }
 }
 
 template <class L, bool DROP>
-__global__ void __launch_bounds__(FT_NT, FT_MIN_BLOCKS)
+__global__ void __launch_bounds__(FT_NT, FtShape<L::kWidth>::kMinBlocks)
 flash_fwd_tc_kernel(Rows<L, bf16> q, Rows<L, bf16> k, Rows<L, bf16> v,
                     BiasOf<bf16> bias, bf16* o, L o_l,
                     float* __restrict__ lse, int tq, int tk, int h,
                     float scale, int causal, Dropout drop) {
+  constexpr int D = L::kWidth;
+  constexpr int FT_LD = FtShape<D>::kLd;
+  constexpr int FT_TILE = FtShape<D>::kTile;
   extern __shared__ float smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
   bf16* kv_s = q_s + FT_ROWS * FT_LD;  // stage s: k at 2s tiles, v after
@@ -132,9 +152,9 @@ flash_fwd_tc_kernel(Rows<L, bf16> q, Rows<L, bf16> k, Rows<L, bf16> v,
 
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
-  float acc[8][4];  // o of the warp's 16 rows, 8 tiles of 8 head columns
+  float acc[D / 8][4];  // o of the warp's 16 rows, tiles of 8 head columns
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   // tile j in ring slot j % FT_STAGES, q with tile 0; a group is
@@ -195,7 +215,7 @@ flash_fwd_tc_kernel(Rows<L, bf16> q, Rows<L, bf16> k, Rows<L, bf16> v,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
+    for (int kc = 0; kc < D / 16; ++kc) {
       uint32_t qf[4];
       tc::ldsm4(qf, q_s + tc::frag_offset(FT_LD, warp * 16, kc * 16));
 #pragma unroll
@@ -242,8 +262,11 @@ flash_fwd_tc_kernel(Rows<L, bf16> q, Rows<L, bf16> k, Rows<L, bf16> v,
         const int r = e >> 1;
         s[n][e] = tc::ex2(s[n][e] - m[r]);
         rs[r] += s[n][e];
-        acc[n][e] *= alpha[r];
       }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
@@ -267,7 +290,7 @@ flash_fwd_tc_kernel(Rows<L, bf16> q, Rows<L, bf16> k, Rows<L, bf16> v,
       uint32_t ph[4], pl[4];
       tc::split_a(s[2 * kk], s[2 * kk + 1], ph, pl);
 #pragma unroll
-      for (int dg = 0; dg < 4; ++dg) {
+      for (int dg = 0; dg < D / 16; ++dg) {
         uint32_t vf[4];
         tc::ldsm4_t(vf, v_s + tc::frag_offset(FT_LD, kk * 16, dg * 16));
         tc::mma(acc[2 * dg], ph, vf[0], vf[1]);
@@ -286,7 +309,7 @@ flash_fwd_tc_kernel(Rows<L, bf16> q, Rows<L, bf16> k, Rows<L, bf16> v,
     if (qpos[r] >= tq) continue;
     bf16* dst = o + o_l.at(bi, tq, qpos[r], head) + col;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(dst + 8 * n) =
           tc::pack(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
     if ((lane & 3) == 0)
@@ -300,12 +323,13 @@ cudaError_t launch_fwd_tc(Rows<L, bf16> q, Rows<L, bf16> k, Rows<L, bf16> v,
                           BiasOf<bf16> bias, bf16* o, L o_l, float* lse,
                           int b, int tq, int tk, int h, float scale,
                           int causal, Dropout drop, cudaStream_t stream) {
+  constexpr size_t kSmem = FtShape<L::kWidth>::kSmem;
   static bool configured = false;
-  cudaError_t err = allow_smem(flash_fwd_tc_kernel<L, DROP>, kFwdTcSmem,
+  cudaError_t err = allow_smem(flash_fwd_tc_kernel<L, DROP>, kSmem,
                                configured);
   if (err != cudaSuccess) return err;
   dim3 grid((tq + FT_ROWS - 1) / FT_ROWS, h, b);
-  flash_fwd_tc_kernel<L, DROP><<<grid, FT_NT, kFwdTcSmem, stream>>>(
+  flash_fwd_tc_kernel<L, DROP><<<grid, FT_NT, kSmem, stream>>>(
       q, k, v, bias, o, o_l, lse, tq, tk, h, scale, causal, drop);
   return cudaGetLastError();
 }

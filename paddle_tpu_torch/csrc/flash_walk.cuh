@@ -6,7 +6,9 @@
 // (qkv_attention_bwd.cu: #2 and #3 walk the rows their projection GEMM
 // wrote).  The bf16 instantiations of these kernels (amp) run on tensor
 // cores in kernels of their own: the forward in flash_tc.cuh, both
-// backward walks (#6, #7 and the pair's) in flash_bwd_tc.cuh.  Rows are
+// backward walks (#6, #7 and the pair's) in flash_bwd_tc.cuh, which take
+// the head width (64 or 128) from the layout (BthdOf<W>, BhtdOf<W>); the
+// f32 walks here take 64 (Bthd, Bhtd).  Rows are
 // addressed through a layout, a template parameter: Bthd
 // reads q, k, v from [b, t, h, 64] tensors (row stride h * 64) or from the
 // q|k|v columns of a [b * t, 3hd] projection (row stride 3hd); Bhtd from
@@ -126,25 +128,33 @@ struct BiasOf {
 };
 using Bias = BiasOf<float>;
 
-// Layout of a [b * t, ld] matrix: head `head` of row r of batch row bi
-// starts at (bi * t + r) * ld + head * 64.
-struct Bthd {
+// Layout of a [b * t, ld] matrix of heads W wide: head `head` of row r of
+// batch row bi starts at (bi * t + r) * ld + head * W.  The f32 walks take
+// W = 64 (Bthd); the tensor-core kernels (flash_tc.cuh, flash_bwd_tc.cuh)
+// read their head width from the layout, 64 or 128.
+template <int W>
+struct BthdOf {
+  static constexpr int kWidth = W;
   int ld;
   __device__ __forceinline__ size_t at(int bi, int t, int r,
                                        int head) const {
-    return ((size_t)bi * t + r) * ld + head * DH;
+    return ((size_t)bi * t + r) * ld + head * W;
   }
 };
+using Bthd = BthdOf<DH>;
 
-// Layout of a [b, h, t, 64] tensor of h heads: row r of head `head` of
-// batch row bi starts at ((bi * h + head) * t + r) * 64.
-struct Bhtd {
+// Layout of a [b, h, t, W] tensor of h heads: row r of head `head` of
+// batch row bi starts at ((bi * h + head) * t + r) * W.
+template <int W>
+struct BhtdOf {
+  static constexpr int kWidth = W;
   int h;
   __device__ __forceinline__ size_t at(int bi, int t, int r,
                                        int head) const {
-    return (((size_t)bi * h + head) * t + r) * DH;
+    return (((size_t)bi * h + head) * t + r) * W;
   }
 };
+using Bhtd = BhtdOf<DH>;
 
 // The rows of one operand of T elements: its base pointer and its layout.
 template <class L, class T = float>

@@ -475,9 +475,10 @@ __device__ __forceinline__ void store_pair(bf16* p, float x, float y) {
 
 // Where a tensor-core product's C goes: c [M, N] of row stride ldc, split
 // z's partial sums at c + z * split; with C_LO the hi plane of an f32 C,
-// its lo plane lo elements after c; with DELTA also delta[(bi * h + head)
-// * t + r] = sum over head's 64 columns of C(m, .) * ctx(m, .) for row m
-// = bi * t + r (ctx [M, N] of row stride ldc); with STATS (#19 in bf16,
+// its lo plane lo elements after c; with DELTA (a head width, 64 or 128)
+// also delta[(bi * h + head) * t + r] = sum over head's DELTA columns of
+// C(m, .) * ctx(m, .) for row m = bi * t + r (ctx [M, N] of row stride
+// ldc); with STATS (#19 in bf16,
 // unsplit) also the sum and the sum of squares of each column of the
 // stored C (rounded to TC) over the block's rows, at part[(stat *
 // gridDim.y + blockIdx.y) * N + n] (stat 0 the sum, 1 the squares).
@@ -504,7 +505,7 @@ __device__ __forceinline__ float2 stored_pair(const bf16*, float x,
 }
 
 template <bool A_KM, bool B_KM, bool A_LO, bool B_LO, class TC,
-          bool C_LO = false, bool DELTA = false, bool STATS = false>
+          bool C_LO = false, int DELTA = 0, bool STATS = false>
 __global__ void __launch_bounds__(GNT, 2)
 gemm_tc_kernel(TcOperand a, TcOperand b, TcOut<TC> out, int M, int N,
                int K, int k_slab) {
@@ -655,8 +656,10 @@ gemm_tc_kernel(TcOperand a, TcOperand b, TcOut<TC> out, int M, int N,
   }
   if constexpr (DELTA) {
     // each warp's sum over its 32 columns of C * ctx for its rows (the
-    // quad's lanes summed by shuffles), then the two warps of a head's 64
-    // columns added in order
+    // quad's lanes summed by shuffles), then the warps of a head's
+    // columns added in one fixed order: the two of a 64-wide head; at
+    // width 128 (the tile's columns, one head) the first two and the last
+    // two, then those halves
     __syncthreads();  // the ring is read: its first 2 KB hold the sums
     float* red = smem;  // [GT][4]
 #pragma unroll
@@ -681,19 +684,29 @@ gemm_tc_kernel(TcOperand a, TcOperand b, TcOut<TC> out, int M, int N,
         if ((lane & 3) == 0) red[row * 4 + (warp & 3)] = s;
       }
     __syncthreads();
-    const int row = threadIdx.x >> 1;
-    const int half = threadIdx.x & 1;
-    const int m = m0 + row;
-    const int col = n0 + 64 * half;
-    if (m < M && col < N)
-      out.delta[((size_t)(m / out.t) * out.h + col / 64) * out.t +
-                m % out.t] = red[row * 4 + 2 * half] +
-                             red[row * 4 + 2 * half + 1];
+    static_assert(DELTA == 64 || DELTA == GT, "a head is 64 or GT columns");
+    if constexpr (DELTA == 64) {
+      const int row = threadIdx.x >> 1;
+      const int half = threadIdx.x & 1;
+      const int m = m0 + row;
+      const int col = n0 + 64 * half;
+      if (m < M && col < N)
+        out.delta[((size_t)(m / out.t) * out.h + col / 64) * out.t +
+                  m % out.t] = red[row * 4 + 2 * half] +
+                               red[row * 4 + 2 * half + 1];
+    } else {
+      const int row = threadIdx.x;
+      const int m = m0 + row;
+      if (row < GT && m < M && n0 < N)
+        out.delta[((size_t)(m / out.t) * out.h + n0 / GT) * out.t +
+                  m % out.t] = (red[row * 4] + red[row * 4 + 1]) +
+                               (red[row * 4 + 2] + red[row * 4 + 3]);
+    }
   }
 }
 
 template <bool A_KM, bool B_KM, bool A_LO, bool B_LO, class TC,
-          bool C_LO = false, bool DELTA = false, bool STATS = false>
+          bool C_LO = false, int DELTA = 0, bool STATS = false>
 cudaError_t launch_gemm_tc(dim3 grid, cudaStream_t stream, TcOperand a,
                            TcOperand b, TcOut<TC> out, int M, int N, int K,
                            int slab) {
@@ -751,17 +764,17 @@ cudaError_t gemm_tc(TcOperand A, TcOperand B, TC* c, int ldc, int M, int N,
 
 // The pair's projections on tensor cores: C [M, N] = A B (A bf16 i-major,
 // B bf16 k-major or, B_KM false, i-major) unsplit, stored as the hi/lo
-// planes of its f32 value (c, c + lo, row stride ldc); with delta (the
-// dctx product, C = dctx [b t, h 64]) also delta [b, h, t] = rowsum(C *
-// ctx) per head, from the f32 accumulators.
-template <bool B_KM, bool DELTA>
+// planes of its f32 value (c, c + lo, row stride ldc); with DELTA, a head
+// width (the dctx product, C = dctx [b t, h DELTA]), also delta [b, h, t]
+// = rowsum(C * ctx) per head, from the f32 accumulators.
+template <bool B_KM, int DELTA>
 cudaError_t gemm_tc_planes(TcOperand A, TcOperand B, bf16* c, int ldc,
                            int64_t lo, const bf16* ctx, float* delta, int t,
                            int h, int M, int N, int K, cudaStream_t stream) {
   if (A.kmajor || A.lo || B.lo || B.kmajor != B_KM || !tc_fits(A, M, K) ||
       !tc_fits(B, N, K) || N % 2 || ldc % 2 || lo % 2 ||
       reinterpret_cast<uintptr_t>(c) % 4 ||
-      (DELTA && (N % 64 || reinterpret_cast<uintptr_t>(ctx) % 4)))
+      (DELTA && (N % DELTA || reinterpret_cast<uintptr_t>(ctx) % 4)))
     return cudaErrorInvalidValue;
   dim3 grid((N + GT - 1) / GT, (M + GT - 1) / GT, 1);
   return launch_gemm_tc<false, B_KM, false, false, bf16, true, DELTA>(
@@ -786,7 +799,7 @@ inline cudaError_t gemm_tc_col_stats(const bf16* x2, const bf16* w2, bf16* y,
   out.c = y;
   out.ldc = N;
   out.part = part;
-  return launch_gemm_tc<false, false, false, false, bf16, false, false,
+  return launch_gemm_tc<false, false, false, false, bf16, false, 0,
                         true>(grid, stream, A, B, out, M, N, K, K);
 }
 

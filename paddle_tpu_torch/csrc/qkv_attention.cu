@@ -45,8 +45,8 @@
 //   every key tile it walks, that tile's k and v again (t / 64 times in
 //   all), with a 4x4 patch per thread and no copy pipeline.
 //
-// Both f32 routes are instantiated for head widths 64 and 128 (the
-// serving path's; the bf16 routes below are compiled for 64).  At 128 the
+// Both routes are instantiated for head widths 64 and 128, in f32 (the
+// serving path's) and in bf16 (amp training's).  At 128 the
 // cluster block doubles its threads (256, a row group a warp) instead of
 // each thread's columns, so the projection's accumulators stay 96 a
 // thread at R = 64; its layout takes 187 KB (R = 64) or 135 KB (R = 32),
@@ -80,7 +80,11 @@
 // 32, t 256, d_model 512, 8 heads: the projections' 12.9 GFLOP once, s
 // and p v 3x their 4.3 (the split), y 4.3: 30 GFLOP of MMAs for the
 // function's 21.5.  The tiles route (t > 512) stays f32 arithmetic on
-// bf16 operands converted as they load.
+// bf16 operands converted as they load.  At head width 128 the
+// tensor-core block gives each row group two warps, one for each 64
+// columns of q, k, v and o (both compute the group's s): 256 threads at R
+// = 64, 190.5 KB (one block an SM, 242 registers), 132 KB at R = 32;
+// the bf16 tiles block takes the f32 tiles' layout (159 KB).
 //
 // The context ctx [b, t, h, d_head] and lse [b, h, t] (+inf on a masked row)
 // are the residuals the backward kernels (#2, #3 in qkv_attention_bwd.cu)
@@ -796,23 +800,31 @@ qkv_cluster_fwd_kernel(const float* __restrict__ x,
 // cluster route in bf16 (amp), on tensor cores
 // ---------------------------------------------------------------------------
 
-// Shared-memory layout of qkv_cluster_tc_kernel<R>, in bf16 elements.  R /
-// 16 warps own 16 of the block's R rows each.  Kept from the projection
-// to the end: the block's k and v as hi/lo bf16 tiles (k_hi, k_lo, v_hi,
-// v_lo, [R][LD] each, stacked), which its peers read, and its q as hi/lo
-// tiles (each warp reads only its own rows).  The staging area holds the
-// projection's ring of three x / W chunks, then the copy of the key tile
-// being walked (its four tiles, as laid out above).  Rows are padded to
-// 72 (x: 40, W: 200) elements, so the 8 rows an ldmatrix reads fall in
-// distinct 16-byte bank groups.
-template <int R>
+// Shared-memory layout of qkv_cluster_tc_kernel<R, DROP, D>, in bf16
+// elements, at head width D (64 or 128).  R / 16 row groups of 16 of the
+// block's R rows, each taken by G = D / 64 warps, one for each 64 columns
+// of the head (warp w: rows 16 (w % (R / 16)).., columns 64 (w / (R /
+// 16))..), so that a lane's projection accumulators stay 96 f32 (16 rows
+// x 64 columns of each of q, k and v) and its o 32 at either width.
+// Kept from the projection to the end: the block's k and v as hi/lo bf16
+// tiles (k_hi, k_lo, v_hi, v_lo, [R][LD] each, stacked), which its peers
+// read, and its q as hi/lo tiles (the warps of a row group read their
+// rows).  The staging area holds the projection's ring of three x / W
+// chunks, then the copy of the key tile being walked (its four tiles, as
+// laid out above).  Rows are padded to D + 8 (x: 40, W: 3 D + 8)
+// elements, so the 8 rows an ldmatrix reads fall in distinct 16-byte bank
+// groups.  At 64: 106.5 KB (R 64) and 55.5 KB (R 32), two blocks an SM;
+// at 128: 190.5 KB and 132 KB, one.
+template <int R, int D>
 struct ClusterTc {
-  static constexpr int NW = R / 16;          // warps
+  static constexpr int G = D / 64;           // warps of a row group
+  static constexpr int NW = R / 16 * G;      // warps
   static constexpr int NT = 32 * NW;         // threads per block
-  static constexpr int LD = DH + 8;          // row stride of a q, k, v tile
+  static constexpr int LD = D + 8;           // row stride of a q, k, v tile
   static constexpr int CK = 32;              // depth of a projection chunk
   static constexpr int XLD = CK + 8;         // row stride of x [R][CK]
-  static constexpr int WLD = 3 * DH + 8;     // row stride of W [CK][q|k|v]
+  static constexpr int WLD = 3 * D + 8;      // row stride of W [CK][q|k|v]
+  static constexpr int kMinBlocks = D == 64 ? 2 : 1;
   static constexpr int kTile = R * LD;
   static constexpr int kKV = 4 * kTile;      // k_hi, k_lo, v_hi, v_lo
   static constexpr int kQ = kKV;             // then q_hi, q_lo
@@ -824,17 +836,17 @@ struct ClusterTc {
   static constexpr size_t kBytes =
       (size_t)(kStage + kStageElems) * sizeof(bf16);
   // 16-byte pieces of two of a key tile's four tiles a thread copies
-  static constexpr int kCopy = 2 * R * (DH / 8) / NT;
+  static constexpr int kCopy = 2 * R * (D / 8) / NT;
 };
 
 // Start the copy of projection chunk k0.. into st: x rows r0.. (zeros
-// past t) [R][CK] and rows k0.. of the head's three W slabs [CK][192].
-template <int R>
+// past t) [R][CK] and rows k0.. of the head's three W slabs [CK][3 D].
+template <int R, int D>
 __device__ __forceinline__ void stage_chunk_tc(bf16* st, const bf16* xb,
                                                const bf16* w_qkv, int r0,
                                                int t, int dm, int ldw,
                                                int hd, int head, int k0) {
-  using L = ClusterTc<R>;
+  using L = ClusterTc<R, D>;
 #pragma unroll
   for (int u = 0; u < R * (L::CK / 8) / L::NT; ++u) {
     const int idx = threadIdx.x + u * L::NT;
@@ -847,46 +859,46 @@ __device__ __forceinline__ void stage_chunk_tc(bf16* st, const bf16* xb,
   }
   bf16* ws = st + R * L::XLD;
 #pragma unroll
-  for (int u = 0; u < L::CK * 3 * (DH / 8) / L::NT; ++u) {
+  for (int u = 0; u < L::CK * 3 * (D / 8) / L::NT; ++u) {
     const int idx = threadIdx.x + u * L::NT;
-    const int kk = idx / (3 * (DH / 8));
-    const int c = idx % (3 * (DH / 8));
-    const int slab = c / (DH / 8);
-    const int c8 = c % (DH / 8) * 8;
-    tc::copy16(ws + kk * L::WLD + slab * DH + c8,
-               w_qkv + (size_t)(k0 + kk) * ldw + slab * hd + head * DH + c8,
+    const int kk = idx / (3 * (D / 8));
+    const int c = idx % (3 * (D / 8));
+    const int slab = c / (D / 8);
+    const int c8 = c % (D / 8) * 8;
+    tc::copy16(ws + kk * L::WLD + slab * D + c8,
+               w_qkv + (size_t)(k0 + kk) * ldw + slab * hd + head * D + c8,
                16);
   }
 }
 
 // Issue this thread's loads of half `half` (0: k_hi, k_lo; 1: v_hi, v_lo)
 // of peer `rank`'s key tile.
-template <int R>
+template <int R, int D>
 __device__ __forceinline__ void load_peer_tc(
-    uint4 (&reg)[ClusterTc<R>::kCopy], cg::cluster_group& cluster,
+    uint4 (&reg)[ClusterTc<R, D>::kCopy], cg::cluster_group& cluster,
     bf16* kv_s, int rank, int half) {
-  using L = ClusterTc<R>;
+  using L = ClusterTc<R, D>;
   const bf16* peer =
       cluster.map_shared_rank(kv_s, rank) + half * 2 * L::kTile;
 #pragma unroll
   for (int u = 0; u < L::kCopy; ++u) {
     const int idx = threadIdx.x + u * L::NT;
     reg[u] = *reinterpret_cast<const uint4*>(
-        peer + (idx / (DH / 8)) * L::LD + idx % (DH / 8) * 8);
+        peer + (idx / (D / 8)) * L::LD + idx % (D / 8) * 8);
   }
 }
 
 // Store a loaded half into `buf`, laid out as the peer's tiles.
-template <int R>
+template <int R, int D>
 __device__ __forceinline__ void store_peer_tc(
-    bf16* buf, const uint4 (&reg)[ClusterTc<R>::kCopy], int half) {
-  using L = ClusterTc<R>;
+    bf16* buf, const uint4 (&reg)[ClusterTc<R, D>::kCopy], int half) {
+  using L = ClusterTc<R, D>;
   buf += half * 2 * L::kTile;
 #pragma unroll
   for (int u = 0; u < L::kCopy; ++u) {
     const int idx = threadIdx.x + u * L::NT;
-    *reinterpret_cast<uint4*>(buf + (idx / (DH / 8)) * L::LD +
-                              idx % (DH / 8) * 8) = reg[u];
+    *reinterpret_cast<uint4*>(buf + (idx / (D / 8)) * L::LD +
+                              idx % (D / 8) * 8) = reg[u];
   }
 }
 
@@ -930,15 +942,16 @@ __device__ __forceinline__ void store_split(bf16* hi_s, bf16* lo_s, int ld,
 // Per-phase clocks on an H100 (chip_tc_phases.py, PERF.md): the
 // projection's MMAs take a third of a block, s a sixth, the peer copies
 // and their barriers an eighth.
-template <int R, bool DROP>
-__global__ void __launch_bounds__(ClusterTc<R>::NT, 2)
+template <int R, bool DROP, int D>
+__global__ void __launch_bounds__(ClusterTc<R, D>::NT,
+                                  ClusterTc<R, D>::kMinBlocks)
 qkv_cluster_tc_kernel(const bf16* __restrict__ x,
                       const bf16* __restrict__ w_qkv,
                       const bf16* __restrict__ bias, int64_t bs_b,
                       int64_t bs_h, int64_t bs_q, int64_t bs_k, bf16* ctx,
                       float* lse, int t, int dm, int n_head, float scale,
                       int causal, Dropout drop) {
-  using L = ClusterTc<R>;
+  using L = ClusterTc<R, D>;
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   bf16* kv_s = reinterpret_cast<bf16*>(smem);  // k_hi, k_lo, v_hi, v_lo
@@ -950,14 +963,18 @@ qkv_cluster_tc_kernel(const bf16* __restrict__ x,
   const int head = blockIdx.y;
   const int bi = blockIdx.z;
   const int lane = threadIdx.x & 31;
-  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first row
-  const int col = 2 * (lane & 3);         // the lane's first column
-  const int hd = n_head * DH;
+  const int warp = threadIdx.x >> 5;
+  // the warp's first row and its first head column
+  const int wr = (L::G == 1 ? warp : warp % (R / 16)) * 16;
+  const int c0 = L::G == 1 ? 0 : warp / (R / 16) * 64;
+  const int col = 2 * (lane & 3);       // the lane's first column
+  const int hd = n_head * D;
   const int ldw = 3 * hd;
   const int r0 = rank * R;
   const bf16* xb = x + (size_t)bi * t * dm;
 
-  // ---- project rows r0 + wr.. of q | k | v: 24 tiles of 8 columns ------
+  // ---- project rows r0 + wr.. of q | k | v, columns c0.. of each: 24
+  // tiles of 8 columns ------
   {
     float pa[24][4];
 #pragma unroll
@@ -970,18 +987,18 @@ qkv_cluster_tc_kernel(const bf16* __restrict__ x,
 #pragma unroll
     for (int c = 0; c < L::kStages - 1; ++c) {
       if (c < n_chunk)
-        stage_chunk_tc<R>(stage + c * L::kChunk, xb, w_qkv, r0, t, dm, ldw,
-                          hd, head, c * L::CK);
+        stage_chunk_tc<R, D>(stage + c * L::kChunk, xb, w_qkv, r0, t, dm,
+                             ldw, hd, head, c * L::CK);
       tc::commit();
     }
     for (int c = 0; c < n_chunk; ++c) {
       tc::wait<L::kStages - 2>();
       __syncthreads();  // chunk c has landed; slot (c + 2) % 3 is consumed
       if (c + L::kStages - 1 < n_chunk)
-        stage_chunk_tc<R>(stage + (c + L::kStages - 1) % L::kStages *
-                                      L::kChunk,
-                          xb, w_qkv, r0, t, dm, ldw, hd, head,
-                          (c + L::kStages - 1) * L::CK);
+        stage_chunk_tc<R, D>(stage + (c + L::kStages - 1) % L::kStages *
+                                         L::kChunk,
+                             xb, w_qkv, r0, t, dm, ldw, hd, head,
+                             (c + L::kStages - 1) * L::CK);
       tc::commit();
       const bf16* xs = stage + c % L::kStages * L::kChunk;
       const bf16* ws = xs + R * L::XLD;
@@ -990,9 +1007,11 @@ qkv_cluster_tc_kernel(const bf16* __restrict__ x,
         uint32_t af[4];
         tc::ldsm4(af, xs + tc::frag_offset(L::XLD, wr, 16 * ks));
 #pragma unroll
-        for (int jp = 0; jp < 12; ++jp) {
+        for (int jp = 0; jp < 12; ++jp) {  // slab jp / 4, 16 columns jp % 4
           uint32_t bf[4];
-          tc::ldsm4_t(bf, ws + tc::frag_offset(L::WLD, 16 * ks, 16 * jp));
+          tc::ldsm4_t(bf, ws + tc::frag_offset(L::WLD, 16 * ks,
+                                               jp / 4 * D + c0 +
+                                                   16 * (jp % 4)));
           tc::mma(pa[2 * jp], af, bf[0], bf[1]);
           tc::mma(pa[2 * jp + 1], af, bf[2], bf[3]);
         }
@@ -1003,9 +1022,10 @@ qkv_cluster_tc_kernel(const bf16* __restrict__ x,
     const float q_mul = scale * tc::kLog2e;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      store_split(q_s, q_s + L::kTile, L::LD, wr, n, pa[n], q_mul);
-      store_split(kv_s, kv_s + L::kTile, L::LD, wr, n, pa[8 + n], 1.f);
-      store_split(kv_s + 2 * L::kTile, kv_s + 3 * L::kTile, L::LD, wr, n,
+      const int nc = c0 / 8 + n;  // the 8-column tile of the head
+      store_split(q_s, q_s + L::kTile, L::LD, wr, nc, pa[n], q_mul);
+      store_split(kv_s, kv_s + L::kTile, L::LD, wr, nc, pa[8 + n], 1.f);
+      store_split(kv_s + 2 * L::kTile, kv_s + 3 * L::kTile, L::LD, wr, nc,
                   pa[16 + n], 1.f);
     }
   }
@@ -1045,14 +1065,14 @@ qkv_cluster_tc_kernel(const bf16* __restrict__ x,
   uint4 peer[L::kCopy];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    load_peer_tc<R>(peer, cluster, kv_s, 0, half);
-    store_peer_tc<R>(stage, peer, half);
+    load_peer_tc<R, D>(peer, cluster, kv_s, 0, half);
+    store_peer_tc<R, D>(stage, peer, half);
   }
   __syncthreads();
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0r = kt * R;
     const bool more = kt + 1 < n_kv;
-    if (more) load_peer_tc<R>(peer, cluster, kv_s, kt + 1, 0);
+    if (more) load_peer_tc<R, D>(peer, cluster, kv_s, kt + 1, 0);
     // this lane's bias pairs of the tile (keys 8n + col, + 1), loaded
     // before the products
     uint32_t sb[R / 8][2];
@@ -1072,14 +1092,14 @@ qkv_cluster_tc_kernel(const bf16* __restrict__ x,
           sb[n][r] = lo | hi << 16;
         }
       }
-    // s = q k^T in base 2, over the head's 4 chunks of 16 columns
+    // s = q k^T in base 2, over the head's D / 16 chunks of 16 columns
     float s[R / 8][4];
 #pragma unroll
     for (int n = 0; n < R / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
+    for (int kc = 0; kc < D / 16; ++kc) {
       uint32_t qh[4], ql[4];
       const int qa = tc::frag_offset(L::LD, wr, 16 * kc);
       tc::ldsm4(qh, q_s + qa);
@@ -1155,10 +1175,10 @@ qkv_cluster_tc_kernel(const bf16* __restrict__ x,
     }
     if (more) {  // the next tile's k replaces this one's, read by now
       __syncthreads();
-      store_peer_tc<R>(stage, peer, 0);
-      load_peer_tc<R>(peer, cluster, kv_s, kt + 1, 1);
+      store_peer_tc<R, D>(stage, peer, 0);
+      load_peer_tc<R, D>(peer, cluster, kv_s, kt + 1, 1);
     }
-    // o += p v over the tile's k16 chunks
+    // o += p v over the tile's k16 chunks, the warp's 64 head columns
 #pragma unroll
     for (int kk = 0; kk < R / 16; ++kk) {
       uint32_t ph[4], pl[4];
@@ -1166,7 +1186,7 @@ qkv_cluster_tc_kernel(const bf16* __restrict__ x,
 #pragma unroll
       for (int dg = 0; dg < 4; ++dg) {
         uint32_t vh[4], vl[4];
-        const int at = tc::frag_offset(L::LD, 16 * kk, 16 * dg);
+        const int at = tc::frag_offset(L::LD, 16 * kk, c0 + 16 * dg);
         tc::ldsm4_t(vh, vh_s + at);
         tc::ldsm4_t(vl, vl_s + at);
 #pragma unroll
@@ -1179,7 +1199,7 @@ qkv_cluster_tc_kernel(const bf16* __restrict__ x,
     }
     if (more) {  // ... and its v this one's
       __syncthreads();
-      store_peer_tc<R>(stage, peer, 1);
+      store_peer_tc<R, D>(stage, peer, 1);
       __syncthreads();  // the next tile is whole
     }
   }
@@ -1192,12 +1212,13 @@ qkv_cluster_tc_kernel(const bf16* __restrict__ x,
     const float inv = masked ? 0.f
                              : (DROP ? drop.inv_keep / l[r] : 1.f / l[r]);
     if (qpos[r] >= t) continue;
-    bf16* dst = ctx + ((size_t)bi * t + qpos[r]) * hd + head * DH + col;
+    bf16* dst =
+        ctx + ((size_t)bi * t + qpos[r]) * hd + head * D + c0 + col;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
       *reinterpret_cast<uint32_t*>(dst + 8 * n) =
           tc::pack(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
-    if ((lane & 3) == 0)
+    if ((lane & 3) == 0 && c0 == 0)
       lse[((size_t)bi * n_head + head) * t + qpos[r]] =
           masked ? INFINITY : m[r] * tc::kLn2 + logf(l[r]);
   }
@@ -1242,7 +1263,7 @@ cudaError_t launch_tiles(const FwdArgs<T>& a, cudaStream_t stream) {
 }
 
 // Launch configuration of a cluster kernel of layout L (Cluster<R, D> or
-// ClusterTc<R>): grid (C, n_head, b), one cluster of C blocks along x.
+// ClusterTc<R, D>): grid (C, n_head, b), one cluster of C blocks along x.
 // `attr` must outlive the returned config.
 template <class L>
 cudaLaunchConfig_t cluster_config(int c, int n_head, int b,
@@ -1276,20 +1297,20 @@ cudaError_t configure_cluster() {
   return cudaSuccess;
 }
 
-// The cluster route in f32 (qkv_cluster_fwd_kernel, head width D) or, on
-// bf16 tensors, on tensor cores (qkv_cluster_tc_kernel, head width 64).
+// The cluster route in f32 (qkv_cluster_fwd_kernel) or, on bf16 tensors,
+// on tensor cores (qkv_cluster_tc_kernel), at head width D.
 template <int R, bool DROP, class T, int D>
 cudaError_t launch_cluster(const FwdArgs<T>& a, int c, cudaStream_t stream) {
   cudaError_t err;
   cudaLaunchAttribute attr[1];
   if constexpr (std::is_same<T, bf16>::value) {
     static bool configured = false;
-    err = allow_smem(qkv_cluster_tc_kernel<R, DROP>, ClusterTc<R>::kBytes,
-                     configured);
+    err = allow_smem(qkv_cluster_tc_kernel<R, DROP, D>,
+                     ClusterTc<R, D>::kBytes, configured);
     if (err != cudaSuccess) return err;
     const cudaLaunchConfig_t cfg =
-        cluster_config<ClusterTc<R>>(c, a.n_head, a.b, attr, stream);
-    err = cudaLaunchKernelEx(&cfg, qkv_cluster_tc_kernel<R, DROP>, a.x,
+        cluster_config<ClusterTc<R, D>>(c, a.n_head, a.b, attr, stream);
+    err = cudaLaunchKernelEx(&cfg, qkv_cluster_tc_kernel<R, DROP, D>, a.x,
                              a.w_qkv, a.bias, a.bs_b, a.bs_h, a.bs_q,
                              a.bs_k, a.ctx, a.lse, a.t, a.dm, a.n_head,
                              a.scale, a.causal, a.drop);
@@ -1315,13 +1336,12 @@ cudaError_t launch_attention(const FwdArgs<T>& a, int c, int r,
                  : launch_cluster<64, DROP, T, D>(a, c, stream);
 }
 
-// The instantiation of a head width: f32 at 64 and 128, bf16 at 64.
+// The instantiation of a head width: f32 and bf16 at 64 and 128.
 template <bool DROP, class T>
 cudaError_t launch_width(const FwdArgs<T>& a, int c, int r, int d_head,
                          cudaStream_t stream) {
   if (d_head == 64) return launch_attention<DROP, T, 64>(a, c, r, stream);
-  if constexpr (std::is_same<T, float>::value)
-    if (d_head == 128) return launch_attention<DROP, T, 128>(a, c, r, stream);
+  if (d_head == 128) return launch_attention<DROP, T, 128>(a, c, r, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1340,9 +1360,7 @@ int qkv_attention_fwd(const T* x, const T* w_qkv, const T* w_out,
       !((cluster_rows == 32 || cluster_rows == 64) &&
         cluster_size <= kMaxCluster))
     return (int)cudaErrorInvalidValue;
-  const bool f32 = std::is_same<T, float>::value;
-  if (!(d_head == 64 || (f32 && d_head == 128)))
-    return (int)cudaErrorInvalidValue;
+  if (d_head != 64 && d_head != 128) return (int)cudaErrorInvalidValue;
   const FwdArgs<T> a{x, w_qkv, bias, bs_b, bs_h, bs_q, bs_k, ctx, lse, b, t,
                      dm, n_head, scale, causal,
                      hash_rng::make_dropout(rate, seed, threshold)};
@@ -1402,14 +1420,17 @@ extern "C" int ptt_qkv_cluster_occupancy(int r, int c, int dh) {
 }
 
 // Dynamic shared memory of a cluster-route block in bytes: R rows (32 or
-// 64), f32 (qkv_cluster_fwd_kernel, head width dh 64 or 128) or bf16
-// (qkv_cluster_tc_kernel, dh 64); 0 for another R or width.
+// 64), f32 (qkv_cluster_fwd_kernel) or bf16 (qkv_cluster_tc_kernel) at
+// head width dh 64 or 128; 0 for another R or width.
 extern "C" int64_t ptt_qkv_cluster_smem(int r, int bf16_tc, int dh) {
   if (r != 32 && r != 64) return 0;
-  if (bf16_tc)
-    return dh != 64 ? 0
-                    : (int64_t)(r == 32 ? ClusterTc<32>::kBytes
-                                        : ClusterTc<64>::kBytes);
+  if (bf16_tc && dh == 64)
+    return (int64_t)(r == 32 ? ClusterTc<32, 64>::kBytes
+                             : ClusterTc<64, 64>::kBytes);
+  if (bf16_tc && dh == 128)
+    return (int64_t)(r == 32 ? ClusterTc<32, 128>::kBytes
+                             : ClusterTc<64, 128>::kBytes);
+  if (bf16_tc) return 0;
   if (dh == 64)
     return (int64_t)(r == 32 ? Cluster<32, 64>::kBytes
                              : Cluster<64, 64>::kBytes);
@@ -1447,7 +1468,7 @@ extern "C" int ptt_qkv_attention_fwd(const float* x, const float* w_qkv,
 }
 
 // #1 in bf16 (amp): as ptt_qkv_attention_fwd with x, the weights, the
-// bias, y and ctx bf16; lse and partials f32; d_head 64 only.
+// bias, y and ctx bf16; lse and partials f32; d_head 64 or 128.
 extern "C" int ptt_qkv_attention_fwd_bf16(
     const bf16* x, const bf16* w_qkv, const bf16* w_out, const bf16* bias,
     int64_t bs_b, int64_t bs_h, int64_t bs_q, int64_t bs_k, bf16* y,

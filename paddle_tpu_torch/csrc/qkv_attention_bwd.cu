@@ -4,7 +4,7 @@
 // _qkv_bwd_dkv_kernel (#3), the Pallas kernels of flash_qkv_attention's
 // VJP, as one pair.  Inputs: x [b, t, dm], the packed w_qkv [dm, 3hd]
 // (q|k|v, heads in order within each third), w_out [hd, dm], the bias, g =
-// dL/dy [b, t, dm] and #1's residuals ctx [b, t, h, 64] and lse [b, h, t].
+// dL/dy [b, t, dm] and #1's residuals ctx [b, t, h, d] and lse [b, h, t].
 // With q|k|v = x w_qkv, dctx = g w_out^T, delta = rowsum(dctx * ctx),
 // p = exp(q k^T * scale + bias - lse), ds = p (dctx v^T - delta) * scale:
 //
@@ -63,6 +63,10 @@
 // them.  MMA work at the amp step's shapes (b 32, t 256, d_model 512, 8
 // heads): 73.0 GFLOP in the GEMM stages and 45.1 in the walks, for the
 // function's 47.2 + 15.0.
+//
+// Head width: the f32 pair takes d = 64; the bf16 pair 64 and 128
+// (qkv_bwd_tc<D>: the walks' Planes<D>, the dctx epilogue's delta summed
+// over a head's 64 or 128 columns in one fixed order, gemm.cuh).
 //
 // Masking follows #1: causal and out-of-range keys score nothing; a row
 // whose lse is +inf (masked in the forward) gets p = 0, so zero gradients;
@@ -128,8 +132,8 @@ struct Scratch {
   float* delta;
 };
 
-int64_t scratch_floats(int walks, int b, int t, int dm, int hd, int sms,
-                       Scratch* s, float* base) {
+int64_t scratch_floats(int walks, int b, int t, int dm, int hd, int dh,
+                       int sms, Scratch* s, float* base) {
   const int64_t bt = (int64_t)b * t;
   const Cols cols = walk_cols(walks, hd);
   const int64_t part = std::max(
@@ -142,7 +146,7 @@ int64_t scratch_floats(int walks, int b, int t, int dm, int hd, int sms,
     s->partials = s->dqkv + bt * 3 * hd;
     s->delta = s->partials + part;
   }
-  return bt * 7 * hd + part + bt * (hd / DH);
+  return bt * 7 * hd + part + bt * (hd / dh);
 }
 
 // The projected q, k, v of one call as the walks read them, and where they
@@ -154,16 +158,22 @@ Rows<Bthd> qkv_rows(const float* m, int hd, int third) {
 }  // namespace
 
 // Floats of scratch the wrapper allocates for one ptt_qkv_bwd call with
-// these walks on a card of `sms` SMs.
+// these walks at head width d_head on a card of `sms` SMs.
 extern "C" int64_t ptt_qkv_bwd_scratch(int walks, int b, int t, int dm,
-                                       int n_head, int sms) {
-  return scratch_floats(walks, b, t, dm, n_head * DH, sms, nullptr, nullptr);
+                                       int n_head, int d_head, int sms) {
+  return scratch_floats(walks, b, t, dm, n_head * d_head, d_head, sms,
+                        nullptr, nullptr);
 }
 
 // Dynamic shared memory of a block of the bf16 pair's walks (walk 0: dq,
-// 1: dkv) in bytes.
-extern "C" int64_t ptt_qkv_bwd_walk_smem(int walk) {
-  return (int64_t)(walk ? Bw<true>::kDkvSmem : Bw<true>::kDqSmem);
+// 1: dkv) at head width dh (64 or 128; 0 for another) in bytes.
+extern "C" int64_t ptt_qkv_bwd_walk_smem(int walk, int dh) {
+  if (dh == 64)
+    return (int64_t)(walk ? Bw<true, 64>::kDkvSmem : Bw<true, 64>::kDqSmem);
+  if (dh == 128)
+    return (int64_t)(walk ? Bw<true, 128>::kDkvSmem
+                          : Bw<true, 128>::kDqSmem);
+  return 0;
 }
 
 namespace {
@@ -183,7 +193,7 @@ int qkv_bwd(int walks, const float* x, const float* w_qkv,
   const int bt = b * t;
   const Cols cols = walk_cols(walks, hd);
   Scratch s;
-  scratch_floats(walks, b, t, dm, hd, sms, &s, scratch);
+  scratch_floats(walks, b, t, dm, hd, DH, sms, &s, scratch);
 
   // 1. q|k|v = x w_qkv, dctx = g w_out^T, delta = rowsum(dctx * ctx)
   cudaError_t err = gemm<T, T, float>({x, dm, false}, {w_qkv, 3 * hd, true},
@@ -231,8 +241,10 @@ int qkv_bwd(int walks, const float* x, const float* w_qkv,
                             dm, bt, true, s.partials, sms, stream);
 }
 
-// The pair in bf16 on tensor cores: ptt_qkv_bwd_bf16's arguments.  The
-// scratch's q|k|v, dctx and dq|dk|dv regions hold hi/lo bf16 planes.
+// The pair in bf16 on tensor cores at head width D: ptt_qkv_bwd_bf16's
+// arguments.  The scratch's q|k|v, dctx and dq|dk|dv regions hold hi/lo
+// bf16 planes.
+template <int D>
 int qkv_bwd_tc(int walks, const bf16* x, const bf16* w_qkv,
                const bf16* w_out, const bf16* bias, int64_t bs_b,
                int64_t bs_h, int64_t bs_q, int64_t bs_k, const bf16* g,
@@ -242,11 +254,11 @@ int qkv_bwd_tc(int walks, const bf16* x, const bf16* w_qkv,
                unsigned threshold, void* stream_ptr) {
   if (walks < 1 || walks > 3) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int hd = n_head * DH;
+  const int hd = n_head * D;
   const int bt = b * t;
   const Cols cols = walk_cols(walks, hd);
   Scratch s;
-  scratch_floats(walks, b, t, dm, hd, sms, &s, scratch);
+  scratch_floats(walks, b, t, dm, hd, D, sms, &s, scratch);
   // each region's hi plane, its lo plane after it
   bf16* qkv = reinterpret_cast<bf16*>(s.qkv);
   bf16* dctx = reinterpret_cast<bf16*>(s.dctx);
@@ -255,20 +267,20 @@ int qkv_bwd_tc(int walks, const bf16* x, const bf16* w_qkv,
   const int64_t dctx_lo = (int64_t)bt * hd;
 
   // 1. q|k|v = x w_qkv; dctx = g w_out^T with delta = rowsum(dctx * ctx)
-  cudaError_t err = gemm_tc_planes<true, false>(
+  cudaError_t err = gemm_tc_planes<true, 0>(
       {x, dm, false, 0}, {w_qkv, 3 * hd, true, 0}, qkv, 3 * hd, qkv_lo,
       nullptr, nullptr, t, n_head, bt, 3 * hd, dm, stream);
   if (err != cudaSuccess) return (int)err;
-  err = gemm_tc_planes<false, true>(
+  err = gemm_tc_planes<false, D>(
       {g, dm, false, 0}, {w_out, dm, false, 0}, dctx, hd, dctx_lo, ctx,
       s.delta, t, n_head, bt, hd, dm, stream);
   if (err != cudaSuccess) return (int)err;
 
   // 2. the walks, into the q|k|v columns of dqkv
   const BiasOf<bf16> bs{bias, bs_b, bs_h, bs_q, bs_k};
-  const Planes qkv_p{qkv, qkv_lo, 3 * hd};
-  const Planes dctx_p{dctx, dctx_lo, hd};
-  const PlanesOf<bf16> dqkv_p{dqkv, qkv_lo, 3 * hd};
+  const Planes<D> qkv_p{qkv, qkv_lo, 3 * hd};
+  const Planes<D> dctx_p{dctx, dctx_lo, hd};
+  const PlanesOf<bf16, D> dqkv_p{dqkv, qkv_lo, 3 * hd};
   const Dropout drop = hash_rng::make_dropout(rate, seed, threshold);
   for (int walk = 0; walk < 2; ++walk) {
     if (!(walks & (walk ? kWalkDkv : kWalkDq))) continue;
@@ -298,7 +310,8 @@ int qkv_bwd_tc(int walks, const bf16* x, const bf16* w_qkv,
 // #2 + #3.  walks: bit 0 runs the dq walk (#2), bit 1 the dkv walk (#3);
 // with both the pair shares one projection stage and one set of output
 // GEMMs.  x, g, dx [b, t, dm]; w_qkv [dm, 3hd]; w_out [hd, dm]; ctx
-// [b, t, h, 64]; lse [b, h, t]; all contiguous f32, hd = 64 * n_head.
+// [b, t, h, d_head]; lse [b, h, t]; all contiguous f32, hd = d_head *
+// n_head; d_head 64 (anything else returns cudaErrorInvalidValue).
 // dx is the selected walks' part of dL/dx; dw [dm, w] holds dW_qkv's
 // columns [c0, c0 + w) of the selected walks (dW_q for bit 0 alone, dW_k
 // | dW_v for bit 1 alone, the packed [dm, 3hd] for both); dw_out [hd, dm]
@@ -312,9 +325,10 @@ extern "C" int ptt_qkv_bwd(int walks, const float* x, const float* w_qkv,
                            int64_t bs_k, const float* g, const float* ctx,
                            const float* lse, float* scratch, float* dx,
                            float* dw, float* dw_out, int b, int t, int dm,
-                           int n_head, int sms, float scale, int causal,
-                           double rate, unsigned seed, unsigned threshold,
-                           void* stream_ptr) {
+                           int n_head, int d_head, int sms, float scale,
+                           int causal, double rate, unsigned seed,
+                           unsigned threshold, void* stream_ptr) {
+  if (d_head != DH) return (int)cudaErrorInvalidValue;
   return qkv_bwd(walks, x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, g,
                  ctx, lse, scratch, dx, dw, dw_out, b, t, dm, n_head, sms,
                  scale, causal, rate, seed, threshold, stream_ptr);
@@ -322,17 +336,26 @@ extern "C" int ptt_qkv_bwd(int walks, const float* x, const float* w_qkv,
 
 // #2 + #3 in bf16 (amp), on tensor cores: as ptt_qkv_bwd with x, the
 // weights, the bias, g, ctx, dx, dw and dw_out bf16, lse f32, and the
-// scratch of ptt_qkv_bwd_scratch floats (its regions hold bf16 planes).
+// scratch of ptt_qkv_bwd_scratch floats (its regions hold bf16 planes);
+// d_head 64 or 128.
 extern "C" int ptt_qkv_bwd_bf16(int walks, const bf16* x, const bf16* w_qkv,
                                 const bf16* w_out, const bf16* bias,
                                 int64_t bs_b, int64_t bs_h, int64_t bs_q,
                                 int64_t bs_k, const bf16* g, const bf16* ctx,
                                 const float* lse, float* scratch, bf16* dx,
                                 bf16* dw, bf16* dw_out, int b, int t, int dm,
-                                int n_head, int sms, float scale, int causal,
-                                double rate, unsigned seed,
+                                int n_head, int d_head, int sms, float scale,
+                                int causal, double rate, unsigned seed,
                                 unsigned threshold, void* stream_ptr) {
-  return qkv_bwd_tc(walks, x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, g,
-                    ctx, lse, scratch, dx, dw, dw_out, b, t, dm, n_head, sms,
-                    scale, causal, rate, seed, threshold, stream_ptr);
+  if (d_head == 64)
+    return qkv_bwd_tc<64>(walks, x, w_qkv, w_out, bias, bs_b, bs_h, bs_q,
+                          bs_k, g, ctx, lse, scratch, dx, dw, dw_out, b, t,
+                          dm, n_head, sms, scale, causal, rate, seed,
+                          threshold, stream_ptr);
+  if (d_head == 128)
+    return qkv_bwd_tc<128>(walks, x, w_qkv, w_out, bias, bs_b, bs_h, bs_q,
+                           bs_k, g, ctx, lse, scratch, dx, dw, dw_out, b, t,
+                           dm, n_head, sms, scale, causal, rate, seed,
+                           threshold, stream_ptr);
+  return (int)cudaErrorInvalidValue;
 }

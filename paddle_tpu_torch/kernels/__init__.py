@@ -6,12 +6,16 @@ raises; there is no fallback.  Every launch adds one to the wrapper's
 entry in :data:`launches`; a kernel with a bf16 instantiation (amp,
 :data:`BF16_KERNELS`) counts its bf16 launches under its name + "_bf16",
 and one compiled for head width 128 (:data:`HEAD_WIDTHS`) its launches at
-that width under its name + "_dh128" (:func:`width_suffix`).
+that width under that name + "_dh128" (:func:`width_suffix`): #4 at 128
+in f32 would count under ``flash_fwd_dh128``, in bf16 under
+``flash_fwd_bf16_dh128``.
 
-The attention and decode kernels are compiled for head width 64, and the
-serving path's f32 ones (#1's forward, the megasteps and flash-decode)
-for 128 too: :data:`HEAD_WIDTHS` says which widths each kernel and dtype
-takes.  The FFN (#11, #13) has no head axis and runs at every width.
+The attention and decode kernels are compiled for head width 64; for 128
+too the serving path's f32 ones (#1's forward, the megasteps and
+flash-decode) and the bf16 training kernels (#1 to #9, amp's attention):
+:data:`HEAD_WIDTHS` says which widths each kernel and dtype takes.  The
+f32 training kernels (the pair #2 + #3 and #4 to #9) take 64 only.  The
+FFN (#11, #13) has no head axis and runs at every width.
 Below a multiple of 64 the reference's own plans decline their Pallas
 kernels by shape and run the XLA composition, so on the card the port's
 wrappers take their plain composition there.  At a
@@ -60,13 +64,21 @@ composed = {name: 0 for name in ("qkv_attention_fwd", "qkv_bwd_dq",
 
 #: (kernel, dtype) -> the head widths its instantiation is compiled for,
 #: where more than 64: the serving path's f32 attention and decode
-#: kernels.  Every other one, and every bf16 instantiation, takes 64 only.
-HEAD_WIDTHS = {(name, torch.float32): (64, 128)
-               for name in ("qkv_attention_fwd", "megastep",
-                            "megastep_paged", "flash_decode",
-                            "flash_decode_paged")}
-#: the kernels with a head-width-128 instantiation, counted apart
-DH128_KERNELS = tuple(name for name, _ in HEAD_WIDTHS)
+#: kernels, and the bf16 attention kernels amp trains with.  Every other
+#: one (the f32 training kernels among them) takes 64 only.
+HEAD_WIDTHS = {
+    **{(name, torch.float32): (64, 128)
+       for name in ("qkv_attention_fwd", "megastep", "megastep_paged",
+                    "flash_decode", "flash_decode_paged")},
+    **{(name, torch.bfloat16): (64, 128)
+       for name in ("qkv_attention_fwd", "qkv_bwd_dq", "qkv_bwd_dkv",
+                    "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                    "flash_fwd_bhtd", "flash_bwd_dq_bhtd",
+                    "flash_bwd_dkv_bhtd")}}
+#: the counters of the head-width-128 instantiations, less "_dh128": the
+#: kernel's name and its dtype's suffix (``flash_fwd_bf16``)
+DH128_KERNELS = tuple(name + KERNEL_DTYPES[dtype]
+                      for name, dtype in HEAD_WIDTHS)
 launches.update({name + "_dh128": 0 for name in DH128_KERNELS})
 
 

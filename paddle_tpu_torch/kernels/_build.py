@@ -130,9 +130,9 @@ _SIGNATURES = {
         + [_P]),
     "ptt_qkv_cluster_occupancy": (_I, [_I] * 3),
     "ptt_qkv_cluster_smem": (_L, [_I] * 3),
-    "ptt_qkv_bwd_scratch": (_L, [_I] * 6),
-    "ptt_qkv_bwd_walk_smem": (_L, [_I]),
-    "ptt_qkv_bwd": (_I, [_I] + [_P] * 4 + [_L] * 4 + [_P] * 7 + [_I] * 5
+    "ptt_qkv_bwd_scratch": (_L, [_I] * 7),
+    "ptt_qkv_bwd_walk_smem": (_L, [_I] * 2),
+    "ptt_qkv_bwd": (_I, [_I] + [_P] * 4 + [_L] * 4 + [_P] * 7 + [_I] * 6
                     + [_F, _I] + _DROP + [_P]),
     "ptt_megastep_scratch": (_L, [_I] * 6),
     "ptt_megastep_occupancy": (_I, [_I] * 3),
@@ -145,19 +145,19 @@ _SIGNATURES = {
     "ptt_flash_decode_paged": (_I, [_P] * 7 + [_I] * 10 + [_F, _P]),
     "ptt_ffn_occupancy": (_I, [_I]),
     "ptt_ffn": (_I, [_P] * 9 + [_I] * 11 + [_F, _P]),
-    "ptt_flash_fwd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 2 + [_I] * 4
+    "ptt_flash_fwd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 2 + [_I] * 5
                       + [_F, _I] + _DROP + [_P]),
-    "ptt_flash_bwd_dq": (_I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 4
+    "ptt_flash_bwd_dq": (_I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 5
                          + [_F, _I] + _DROP + [_P]),
-    "ptt_flash_bwd_dkv": (_I, [_P] * 4 + [_L] * 4 + [_P] * 5 + [_I] * 4
+    "ptt_flash_bwd_dkv": (_I, [_P] * 4 + [_L] * 4 + [_P] * 5 + [_I] * 5
                           + [_F, _I] + _DROP + [_P]),
-    "ptt_flash_fwd_bhtd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 2 + [_I] * 4
+    "ptt_flash_fwd_bhtd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 2 + [_I] * 5
                            + [_F, _I] + _DROP + [_P]),
-    "ptt_flash_walk_smem": (_L, [_I]),
-    "ptt_flash_bwd_dq_bhtd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 4
+    "ptt_flash_walk_smem": (_L, [_I] * 2),
+    "ptt_flash_bwd_dq_bhtd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 4 + [_I] * 5
                               + [_F, _I] + _DROP + [_P]),
     "ptt_flash_bwd_dkv_bhtd": (_I, [_P] * 4 + [_L] * 4 + [_P] * 5
-                               + [_I] * 4 + [_F, _I] + _DROP + [_P]),
+                               + [_I] * 5 + [_F, _I] + _DROP + [_P]),
     "ptt_dropout_add": (_I, [_P] * 3 + [_L] + _DROP + [_P]),
     "ptt_dropout_add_bwd": (_I, [_P] * 2 + [_L] + _DROP + [_P]),
 

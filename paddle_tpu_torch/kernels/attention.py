@@ -42,7 +42,10 @@ for the same seed.  The backward kernels regenerate it; no mask is stored.
 bf16 (amp): #1, the pair #2 + #3 and the flash kernels of both layouts
 (#4, #6, #7 in bthd; #5, #8, #9 in bhtd) have bf16 instantiations (entry
 points ``ptt_*_bf16``, counted under the kernel's name + "_bf16", e.g.
-``flash_fwd_bhtd_bf16``).  Their tensors are bf16 (x, the weights, the
+``flash_fwd_bhtd_bf16``), compiled for head widths 64 and 128 (counted at
+128 under ``flash_fwd_bhtd_bf16_dh128``); the f32 pair and the f32 flash
+kernels take 64, and #1 in f32 64 and 128.  Their tensors are bf16 (x,
+the weights, the
 bias, y, ctx, dx, the dW in the fused kernels; q, k, v, the bias, o, dO,
 dq, dk, dv in the flash ones), lse and delta f32.  The reference computes
 on the bf16 operands in f32 and stores in the operands' dtype, and so do
@@ -240,8 +243,9 @@ def _qkv_args(what, x, w_qkv, w_out, bias, n_head, **more):
     [b, t, dm], w_qkv [dm, 3hd], w_out [hd, dm], ctx [b, t, h, dh] and the
     bias must be contiguous (the bias a broadcast view) tensors of x's
     dtype, f32 or bf16, and lse [b, h, t] f32, on x's CUDA device, 16-byte
-    aligned, with a head width the kernel is compiled for (64; #1 in f32
-    also 128) and d_model % 32 == 0: the kernels index raw pointers."""
+    aligned, with a head width the kernel is compiled for
+    (``compiled_widths``: 64; #1, and the pair in bf16, also 128) and
+    d_model % 32 == 0: the kernels index raw pointers."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for {x.device}")
     dtype, _ = _kernel_dtype(x, what)
@@ -287,9 +291,10 @@ def qkv_fwd_plan(b, t, n_head, sms):
       sequence: 64-row query tiles that each project the k and v tiles
       they walk.
 
-    The same plan holds at head width 128 (f32): there a block of either
-    R takes one SM (187 KB at R = 64, 135 KB at R = 32), so the choice
-    still turns on how many blocks the 64-row grid gives.
+    The same plan holds at head width 128: there a block of either R
+    takes one SM (f32: 187 KB at R = 64, 135 KB at R = 32; bf16: 190.5
+    and 132 KB, against two an SM at 64), so the choice still turns on how
+    many blocks the 64-row grid gives.
     """
     if t > CLUSTER_MAX * 64:
         return ("tiles",)
@@ -364,11 +369,12 @@ def _launch_qkv_bwd(walks, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
     b, t, dm, hd, strides, bias_ptr = _qkv_args(
         what, x, w_qkv, w_out, bias, n_head, g=g, ctx=ctx, lse=lse)
     suffix = KERNEL_DTYPES[x.dtype]
+    dh = hd // n_head
     drop = _dropout_args(dropout_rate, dropout_seed, t, t, what)
     sms = sm_count(x.device)
     lib = _build.lib()
     scratch = torch.empty(
-        lib.ptt_qkv_bwd_scratch(walks, b, t, dm, n_head, sms),
+        lib.ptt_qkv_bwd_scratch(walks, b, t, dm, n_head, dh, sms),
         dtype=torch.float32, device=x.device)
     cols = hd * ((1 if walks & WALK_DQ else 0) + (2 if walks & WALK_DKV
                                                   else 0))
@@ -380,12 +386,12 @@ def _launch_qkv_bwd(walks, x, w_qkv, w_out, bias, g, ctx, lse, n_head,
         walks, x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), bias_ptr,
         *strides, g.data_ptr(), ctx.data_ptr(), lse.data_ptr(),
         scratch.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-        None if dw_out is None else dw_out.data_ptr(), b, t, dm, n_head, sms,
-        float(scale), int(bool(causal)), *drop, _build.stream_of(x))
+        None if dw_out is None else dw_out.data_ptr(), b, t, dm, n_head, dh,
+        sms, float(scale), int(bool(causal)), *drop, _build.stream_of(x))
     _build.check(err, what + suffix)
     for bit, name in ((WALK_DQ, "qkv_bwd_dq"), (WALK_DKV, "qkv_bwd_dkv")):
         if walks & bit:
-            launches[name + suffix] += 1
+            launches[name + suffix + width_suffix(dh)] += 1
     return dx, dw, dw_out
 
 
@@ -513,10 +519,11 @@ def flash_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
     and, in the backward, the pair #2 + #3 in one call (gradients of x, w_qkv, w_out, and of
     the bias when it requires grad); otherwise #1 alone, as serving runs
     it under ``torch.no_grad()``.  CPU tensors take the plain twins; CUDA
-    tensors launch the kernels, which take dh == 64 (#1 in f32 also 128,
-    so serving runs at 128; the pair #2 + #3 does not, so a gradient at
-    128 raises before #1 launches) and d_model % 32 == 0 and raise on
-    anything else, except at dh % 64 != 0, where the reference's plan
+    tensors launch the kernels, which take dh == 64 or, in bf16 (amp), 128
+    (#1 in f32 also 128, so f32 serving runs at 128; the f32 pair #2 + #3
+    does not, so an f32 gradient at 128 raises before #1 launches) and
+    d_model % 32 == 0 and raise on anything else, except at dh % 64 != 0,
+    where the reference's plan
     runs its composition and so does the port (the twins, counted in
     ``kernels.composed``).  ``dropout_rate`` > 0 drops
     the attention weights inside the kernels under the site's uint32
@@ -695,10 +702,11 @@ def _dims(a, fmt):
 
 
 def _kernel_args(what, fmt, q, k, bias, **more):
-    """Check the operands of a flash kernel and return (b, tq, tk, h, bias
-    strides, bias pointer, entry-point suffix).  Each tensor must be a
-    contiguous [b, t, h, 64] (``fmt`` "bthd") or [b, h, t, 64] ("bhtd")
-    tensor of q's dtype (f32 or bf16), the bias of that dtype too, or, for
+    """Check the operands of a flash kernel and return (b, tq, tk, h, d,
+    bias strides, bias pointer, entry-point suffix).  Each tensor must be a
+    contiguous [b, t, h, d] (``fmt`` "bthd") or [b, h, t, d] ("bhtd")
+    tensor of q's dtype (f32 or bf16), at a head width d the kernel is
+    compiled for (64; bf16 also 128), the bias of that dtype too, or, for
     lse and delta, an f32 [b, h, tq], on q's CUDA device and 16-byte
     aligned; the kernels index raw pointers."""
     if q.device.type != "cuda":
@@ -722,7 +730,7 @@ def _kernel_args(what, fmt, q, k, bias, **more):
     _require_aligned(what, **tensors)
     if bias is not None:
         bias = _bias_view(bias, b, h, tq, tk, what)
-    return ((b, tq, tk, h) + _bias_strides(bias, q.device, what, dtype)
+    return ((b, tq, tk, h, d) + _bias_strides(bias, q.device, what, dtype)
             + (suffix,))
 
 
@@ -741,7 +749,7 @@ def _fwd(fmt, q, k, v, bias, scale, causal, dropout_rate, dropout_seed):
     what = "flash_fwd" + suffix
     if q.device.type == "cpu" or composes(what, q.shape[-1], q.dtype):
         return twin(q, k, v, bias, scale, causal, dropout_rate, dropout_seed)
-    b, tq, tk, h, strides, bias_ptr, suffix = _kernel_args(
+    b, tq, tk, h, d, strides, bias_ptr, suffix = _kernel_args(
         what, fmt, q, k, bias, v=v)
     what += suffix
     drop = _dropout_args(dropout_rate, dropout_seed, tq, tk, what)
@@ -749,10 +757,10 @@ def _fwd(fmt, q, k, v, bias, scale, causal, dropout_rate, dropout_seed):
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     err = getattr(_build.lib(), "ptt_" + what)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, *strides,
-        out.data_ptr(), lse.data_ptr(), b, tq, tk, h, float(scale),
+        out.data_ptr(), lse.data_ptr(), b, tq, tk, h, d, float(scale),
         int(bool(causal)), *drop, _build.stream_of(q))
     _build.check(err, what)
-    launches[what] += 1
+    launches[what + width_suffix(d)] += 1
     return out, lse
 
 
@@ -763,7 +771,7 @@ def _bwd_dq(fmt, q, k, v, bias, dout, lse, delta, scale, causal,
     if q.device.type == "cpu" or composes(what, q.shape[-1], q.dtype):
         return twin(q, k, v, bias, dout, lse, delta, scale, causal,
                     dropout_rate, dropout_seed)
-    b, tq, tk, h, strides, bias_ptr, suffix = _kernel_args(
+    b, tq, tk, h, d, strides, bias_ptr, suffix = _kernel_args(
         what, fmt, q, k, bias, v=v, dout=dout, lse=lse, delta=delta)
     what += suffix
     drop = _dropout_args(dropout_rate, dropout_seed, tq, tk, what)
@@ -771,10 +779,10 @@ def _bwd_dq(fmt, q, k, v, bias, dout, lse, delta, scale, causal,
     err = getattr(_build.lib(), "ptt_" + what)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, *strides,
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b,
-        tq, tk, h, float(scale), int(bool(causal)), *drop,
+        tq, tk, h, d, float(scale), int(bool(causal)), *drop,
         _build.stream_of(q))
     _build.check(err, what)
-    launches[what] += 1
+    launches[what + width_suffix(d)] += 1
     return dq
 
 
@@ -785,7 +793,7 @@ def _bwd_dkv(fmt, q, k, v, bias, dout, lse, delta, scale, causal,
     if q.device.type == "cpu" or composes(what, q.shape[-1], q.dtype):
         return twin(q, k, v, bias, dout, lse, delta, scale, causal,
                     dropout_rate, dropout_seed)
-    b, tq, tk, h, strides, bias_ptr, suffix = _kernel_args(
+    b, tq, tk, h, d, strides, bias_ptr, suffix = _kernel_args(
         what, fmt, q, k, bias, v=v, dout=dout, lse=lse, delta=delta)
     what += suffix
     drop = _dropout_args(dropout_rate, dropout_seed, tq, tk, what)
@@ -794,10 +802,10 @@ def _bwd_dkv(fmt, q, k, v, bias, dout, lse, delta, scale, causal,
     err = getattr(_build.lib(), "ptt_" + what)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, *strides,
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, tq, tk, h, float(scale), int(bool(causal)), *drop,
-        _build.stream_of(q))
+        dv.data_ptr(), b, tq, tk, h, d, float(scale), int(bool(causal)),
+        *drop, _build.stream_of(q))
     _build.check(err, what)
-    launches[what] += 1
+    launches[what + width_suffix(d)] += 1
     return dk, dv
 
 
@@ -917,9 +925,10 @@ def flash_attention(q, k, v, bias=None, scale=1.0, causal=False,
     ``causal`` masks keys past query + tk - tq.  f32, or bf16 (amp: q, k,
     v and the bias bf16, the output and the gradients bf16, each layout's
     ``*_bf16`` kernels on the card).  On the CPU every
-    pass runs its plain twin; on CUDA the kernels (head width 64; at a
-    width % 64 != 0 the twins, as the reference's plan composes there,
-    counted in ``kernels.composed``).  ``dropout_rate`` > 0 drops the
+    pass runs its plain twin; on CUDA the kernels (head width 64, and 128
+    in bf16; at a width % 64 != 0 the twins, as the reference's plan
+    composes there, counted in ``kernels.composed``).  ``dropout_rate`` >
+    0 drops the
     attention weights inside the kernels under the site's uint32
     ``dropout_seed`` (the same mask in both layouts); the caller passes 0
     at inference."""

@@ -1,15 +1,18 @@
-"""paddle_tpu_torch at head width 128 (the serving path's kernels), on the
-CPU, against the JAX package.
+"""paddle_tpu_torch at head width 128 (the serving path's kernels and the
+route table), on the CPU, against the JAX package.
 
 The reference launches its decode kernels at any d_head % 64 == 0; the
 port compiles #1's f32 forward, the megasteps (#10, #12), the FFN and
-flash-decode (#14, #15) for 128 too.  On CPU tensors each wrapper runs its
-plain version, held here against the reference's Pallas kernels in
-interpret mode at 8 heads of 128 (d_model 256, which passes the
-reference's % 128 gate).  The wrappers' launches at 128 are held with a
-recording stand-in for the library: the plan at the width, the width
-passed to the entry point, and the ``_dh128`` launch counters.  The
-whole-slice generation tests are in ``test_torch_head128_serving.py``.
+flash-decode (#14, #15) for 128 too, and the bf16 training kernels (#1 to
+#9, amp's).  On CPU tensors each wrapper runs its plain version, held here
+against the reference's Pallas kernels in interpret mode at 8 heads of
+128 (d_model 256, which passes the reference's % 128 gate).  The
+wrappers' launches at 128 are held with a recording stand-in for the
+library: the plan at the width, the width passed to the entry point, and
+the ``_dh128`` launch counters (``_bf16_dh128`` for the bf16 kernels).
+The whole-slice generation tests are in ``test_torch_head128_serving.py``,
+the bf16 kernels against the reference and amp training at 128 in
+``test_torch_head128_amp.py``.
 """
 
 import numpy as np
@@ -323,11 +326,12 @@ def _meta_qkv(dh, requires_grad):
 
 
 def test_qkv_attention_with_a_gradient_at_128_raises_before_any_launch():
-    """#1 is compiled for 128 but the pair #2 + #3 is not: a call on
-    non-CPU tensors that autograd would differentiate raises, naming the
-    backward kernel and the width, before #1 runs (no launch counter or
-    composition counter moves); without a gradient the same call reaches
-    #1's launch (here refused for the meta device, after the route)."""
+    """#1 in f32 is compiled for 128 but the f32 pair #2 + #3 is not: an
+    f32 call on non-CPU tensors that autograd would differentiate raises,
+    naming the backward kernel and the width, before #1 runs (no launch
+    counter or composition counter moves); without a gradient the same
+    call reaches #1's launch (here refused for the meta device, after the
+    route)."""
     kernels.reset_launches()
     x, w_qkv, w_out = _meta_qkv(128, True)
     with pytest.raises(ValueError, match="qkv_bwd_dq: .*head width 128"):
@@ -359,22 +363,157 @@ def test_qkv_attention_with_a_gradient_below_128_takes_its_route(dh):
 @pytest.mark.parametrize("what", ["bf16 qkv", "flash bthd", "flash bhtd",
                                   "bf16 flash"])
 def test_training_and_bf16_routes_raise_at_128(what):
-    """The bthd and bhtd flash kernels (#4-#9) and every bf16
-    instantiation are compiled for 64: at 128 their wrappers raise,
-    naming the kernel and the width, before any launch or composition."""
+    """What no kernel takes raises, naming the kernel and the width,
+    before any launch or composition: the f32 training kernels at 128
+    (the bthd and bhtd flash kernels, #4-#9; "bf16 qkv": the f32 pair #2 +
+    #3 called itself) and the bf16 instantiations, compiled for 64 and
+    128, at 192 ("bf16 qkv": #1 and the pair; "bf16 flash": #4 in both
+    layouts)."""
     kernels.reset_launches()
     q = torch.zeros(2, 16, 2, 128, device="meta")
-    with pytest.raises(ValueError, match="head width 128"):
-        if what == "bf16 qkv":
+    if what == "bf16 qkv":
+        x, w_qkv, w_out = _meta_qkv(128, False)
+        g, ctx = torch.zeros_like(x), torch.zeros(2, 16, 2, 128,
+                                                  device="meta")
+        lse = torch.zeros(2, 2, 16, device="meta")
+        with pytest.raises(ValueError, match="qkv_bwd_dq: .*head width 128"):
+            ka.qkv_bwd(x, w_qkv, w_out, None, g, ctx, lse, n_head=2)
+        for grad in (False, True):
             x, w_qkv, w_out = (a.to(torch.bfloat16)
-                               for a in _meta_qkv(128, False))
-            with torch.no_grad():
+                               for a in _meta_qkv(192, grad))
+            with torch.set_grad_enabled(grad), pytest.raises(
+                    ValueError, match="bfloat16: .*head width 192"):
                 ka.flash_qkv_attention(x, w_qkv, w_out, n_head=2, scale=0.1)
-        elif what == "bf16 flash":
-            qb = q.to(torch.bfloat16)
-            ka.flash_attention(qb, qb, qb, scale=0.1, fmt="bthd")
-        else:
-            fmt = what.split()[1]
+    elif what == "bf16 flash":
+        qb = torch.zeros(2, 16, 2, 192, device="meta", dtype=torch.bfloat16)
+        for fmt in ("bthd", "bhtd"):
+            with pytest.raises(ValueError, match="head width 192"):
+                ka.flash_attention(qb, qb, qb, scale=0.1, fmt=fmt)
+    else:
+        fmt = what.split()[1]
+        with pytest.raises(ValueError, match="head width 128"):
             ka.flash_attention(q, q, q, scale=0.1, fmt=fmt)
     assert not any(kernels.launches.values())
     assert not any(kernels.composed.values())
+
+
+def _stand_in(monkeypatch, b, t, dm, dh):
+    """A recording stand-in for the kernel library, with the operand
+    checks stubbed for meta tensors (whose data pointers are 0): returns
+    the list of (entry, args) calls it sees."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls.append((name, args))
+                return 1 if name.endswith("scratch") else 0
+            return entry
+
+    def flash_args(what, fmt, q, k, bias, **more):
+        bq, hq, tq, d = ka._dims(q, fmt)
+        return (bq, tq, ka._dims(k, fmt)[2], hq, d, (0,) * 4, None,
+                "_bf16")
+
+    monkeypatch.setattr(_build, "lib", Lib)
+    monkeypatch.setattr(_build, "stream_of", lambda x: 0)
+    monkeypatch.setattr(ka, "sm_count", lambda device: 132)
+    monkeypatch.setattr(ka, "_qkv_args", lambda what, x, w_qkv, w_out,
+                        bias, n_head, **more: (b, t, dm, n_head * dh,
+                                               (0,) * 4, None))
+    monkeypatch.setattr(ka, "_kernel_args", flash_args)
+    return calls
+
+
+#: the bf16 wrappers compiled for 128: (wrapper, layout or None for the
+#: fused kernels, its entry point, the counters it moves)
+BF16_LAUNCHES = [
+    ("flash_fwd", "bthd", "ptt_flash_fwd_bf16", ["flash_fwd"]),
+    ("flash_bwd_dq", "bthd", "ptt_flash_bwd_dq_bf16", ["flash_bwd_dq"]),
+    ("flash_bwd_dkv", "bthd", "ptt_flash_bwd_dkv_bf16", ["flash_bwd_dkv"]),
+    ("flash_fwd_bhtd", "bhtd", "ptt_flash_fwd_bhtd_bf16",
+     ["flash_fwd_bhtd"]),
+    ("flash_bwd_dq_bhtd", "bhtd", "ptt_flash_bwd_dq_bhtd_bf16",
+     ["flash_bwd_dq_bhtd"]),
+    ("flash_bwd_dkv_bhtd", "bhtd", "ptt_flash_bwd_dkv_bhtd_bf16",
+     ["flash_bwd_dkv_bhtd"]),
+    ("qkv_attention_fwd", None, "ptt_qkv_attention_fwd_bf16",
+     ["qkv_attention_fwd"]),
+    ("qkv_bwd", None, "ptt_qkv_bwd_bf16", ["qkv_bwd_dq", "qkv_bwd_dkv"]),
+    ("qkv_bwd_dq", None, "ptt_qkv_bwd_bf16", ["qkv_bwd_dq"]),
+    ("qkv_bwd_dkv", None, "ptt_qkv_bwd_bf16", ["qkv_bwd_dkv"])]
+
+
+@pytest.mark.parametrize("name,fmt,entry,counters", BF16_LAUNCHES,
+                         ids=[c[0] for c in BF16_LAUNCHES])
+def test_bf16_wrappers_launch_at_128(monkeypatch, name, fmt, entry,
+                                     counters):
+    """Each bf16 training wrapper on non-CPU tensors at 2 heads of 128
+    launches its kernel: its entry point takes the width 128 after the
+    heads, and each of its kernels counts one launch under its
+    ``_bf16_dh128`` counter, nothing else moving."""
+    b, t, h, dh = 2, 16, 2, 128
+    dm = h * dh
+    calls = _stand_in(monkeypatch, b, t, dm, dh)
+    kernels.reset_launches()
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    if fmt is not None:
+        shape = (b, t, h, dh) if fmt == "bthd" else (b, h, t, dh)
+        q = torch.zeros(shape, **meta)
+        stats = torch.zeros(b, h, t, device="meta")
+        args = (q, q, q, None) if "fwd" in name else (q, q, q, None, q,
+                                                      stats, stats)
+        getattr(ka, name)(*args, scale=0.1)
+        # the arguments before b: the tensors' pointers and the bias's
+        # four strides
+        at = 10 if "fwd" in name else 12 if "dq" in name else 13
+        assert calls[-1][0] == entry
+        assert calls[-1][1][at:at + 5] == (b, t, t, h, dh)
+    else:
+        x = torch.zeros(b, t, dm, **meta)
+        w_qkv = torch.zeros(dm, 3 * dm, **meta)
+        w_out = torch.zeros(dm, dm, **meta)
+        if name == "qkv_attention_fwd":
+            ka.qkv_attention_fwd(x, w_qkv, w_out, None, n_head=h)
+            assert calls[-1][0] == entry
+            assert calls[-1][1][12:17] == (b, t, dm, h, dh)
+        else:
+            ctx = torch.zeros(b, t, h, dh, **meta)
+            lse = torch.zeros(b, h, t, device="meta")
+            getattr(ka, name)(x, w_qkv, w_out, None, x, ctx, lse, n_head=h)
+            assert [c[0] for c in calls] == ["ptt_qkv_bwd_scratch", entry]
+            assert calls[0][1][1:7] == (b, t, dm, h, dh, 132)
+            assert calls[1][1][16:22] == (b, t, dm, h, dh, 132)
+    assert {k: n for k, n in kernels.launches.items() if n} == {
+        c + "_bf16_dh128": 1 for c in counters}
+    assert not any(kernels.composed.values())
+    kernels.reset_launches()
+
+
+def test_qkv_attention_bf16_with_a_gradient_at_128_launches_the_pair(
+        monkeypatch):
+    """In bf16 (amp) the pair #2 + #3 is compiled for 128: a call that
+    autograd differentiates runs #1 forward and, in the backward, the pair
+    in one ``ptt_qkv_bwd_bf16`` call with both walks at width 128, counted
+    once each under ``qkv_attention_fwd_bf16_dh128``,
+    ``qkv_bwd_dq_bf16_dh128`` and ``qkv_bwd_dkv_bf16_dh128``."""
+    b, t, h, dh = 2, 16, 2, 128
+    dm = h * dh
+    calls = _stand_in(monkeypatch, b, t, dm, dh)
+    kernels.reset_launches()
+    meta = dict(device="meta", dtype=torch.bfloat16, requires_grad=True)
+    x = torch.zeros(b, t, dm, **meta)
+    w_qkv = torch.zeros(dm, 3 * dm, **meta)
+    w_out = torch.zeros(dm, dm, **meta)
+    y = ka.flash_qkv_attention(x, w_qkv, w_out, n_head=h, scale=dh ** -0.5)
+    y.backward(torch.zeros_like(y))
+    entries = [name for name, _ in calls if not name.endswith("scratch")]
+    assert entries == ["ptt_qkv_attention_fwd_bf16", "ptt_qkv_bwd_bf16"]
+    pair = [args for name, args in calls if name == "ptt_qkv_bwd_bf16"][0]
+    assert pair[0] == ka.WALK_DQ | ka.WALK_DKV
+    assert pair[16:22] == (b, t, dm, h, dh, 132)
+    assert {k: n for k, n in kernels.launches.items() if n} == {
+        "qkv_attention_fwd_bf16_dh128": 1, "qkv_bwd_dq_bf16_dh128": 1,
+        "qkv_bwd_dkv_bf16_dh128": 1}
+    assert x.grad.shape == x.shape and w_qkv.grad.shape == w_qkv.shape
+    kernels.reset_launches()

@@ -247,8 +247,8 @@ def test_backward_makes_one_pair_call(monkeypatch):
     pair = [args for name, args in calls if name == "ptt_qkv_bwd"]
     assert len(pair) == 1
     assert pair[0][0] == ka.WALK_DQ | ka.WALK_DKV == 3
-    assert pair[0][16:21] == (b, t, dm, n_head, 132)
-    assert ("ptt_qkv_bwd_scratch", (3, b, t, dm, n_head, 132)) in calls
+    assert pair[0][16:22] == (b, t, dm, n_head, DH, 132)
+    assert ("ptt_qkv_bwd_scratch", (3, b, t, dm, n_head, DH, 132)) in calls
     assert kernels.launches == dict(kernels.launches, qkv_attention_fwd=1,
                                     qkv_bwd_dq=1, qkv_bwd_dkv=1)
     assert not any(n for k, n in kernels.launches.items()

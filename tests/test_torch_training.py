@@ -498,11 +498,14 @@ class _Replayed(torch.autograd.Function):
         return g, None
 
 
-def _replayed_grads(ref, names, monkeypatch):
+def _replayed_grads(ref, names, monkeypatch, fused=True):
     """The port's amp step-1 gradients on the reference's replayed forward:
     each call of a REPLAY_OPS function returns the reference's output of
     that op, after its own output is held within TOL_AMP_OP of it on the
-    same inputs.  {reference name: gradient}."""
+    same inputs.  ``fused`` is the route of the port and of ``ref``: on the
+    flag-off route the self-attention's q/k/v and output ``mul``s are
+    replayed, as that program has no ``fused_qkv_attention``.  {reference
+    name: gradient}."""
     values = iter(ref.forward)
     drift = []
 
@@ -516,10 +519,11 @@ def _replayed_grads(ref, names, monkeypatch):
             return _Replayed.apply(mine, want)
         return replayed
 
-    model = _port(ref.start, fused_qkv_attention=True, dropout_rate=DROPOUT)
+    model = _port(ref.start, fused_qkv_attention=fused, dropout_rate=DROPOUT)
     amp.enable(model)
     with monkeypatch.context() as patch:
-        for name in set(REPLAY_OPS.values()):
+        for name in set(REPLAY_OPS.values()) - (
+                set() if fused else {"self_attention"}):
             patch.setattr(port_transformer, name,
                           replay(getattr(port_transformer, name)))
         loss, _ = model(**_padded_feed(), dropout_seeds=ref.seeds[0])

@@ -64,12 +64,12 @@ Phases, each fatal on failure:
    128);
    head widths by kernel and dtype (``check_head_width_128``): at 128 the
    serving path's f32 wrappers (#1 without a gradient, #14, #15, the
-   fused ring and paged decoder steps) each launch their head-width-128
-   instantiation once, counted under ``*_dh128`` (the FFN under ``ffn``),
-   while ``flash_qkv_attention`` with a gradient, ``flash_attention`` in
-   both layouts and the bf16 routes raise before any launch or
-   composition, and at 192 every wrapper and every (kernel, dtype) of
-   the route table raises.  The head-width-128 kernels themselves (C2
+   fused ring and paged decoder steps) and the training wrappers in f32
+   and bf16 (``flash_qkv_attention`` with a gradient, the pair,
+   ``flash_attention`` in both layouts) each launch their head-width-128
+   instantiations once, counted under ``*_dh128`` (the FFN under
+   ``ffn``), and at 192 every wrapper and every (kernel, dtype) of the
+   route table raises before any launch or composition.  The head-width-128 kernels themselves (C2
    part 1, ``check_head128_kernels``) are held at BIG's widths (8 heads
    of 128, d_model 1024): #1 at b=64 (clusters of 64 rows), b=1 (32
    rows) and t 640 (the tiles route), #10 and #12 at b=64, b=1, b=33 and
@@ -204,14 +204,14 @@ Phases, each fatal on failure:
    teacher-forced on its tokens, logits within TOL_E2E; each timed; then
    the batcher on paged pools (64 slots, 48 requests); no composition;
    and one profiled prefill and 16 steps at each batch;
-   (n) amp training at head width 128 (``run_head128_amp``) on BIG's
+   (n) amp training at head width 128 (``run_head128_train``) on BIG's
    widths at ``bench_transformer``'s config (batch 32, source and target
    256, dropout 0.1, Adam at 1e-4, ``amp.enable``), on the default route
    (12 each of ``qkv_attention_fwd_bf16_dh128``, ``qkv_bwd_dq_bf16_dh128``,
    ``qkv_bwd_dkv_bf16_dh128`` and 6 each of ``flash_fwd_bf16_dh128``,
    ``flash_bwd_dq_bf16_dh128``, ``flash_bwd_dkv_bf16_dh128`` a step) and
    the flag-off route (18 each of the flash ones), 30 + 2 of #16/#17, no
-   composition: step 1 at batch 2, length 64 (HEAD128_AMP_PARITY) under
+   composition: step 1 at batch 2, length 64 (HEAD128_TRAIN_PARITY) under
    fixed seeds, repeated for equal bits, against a float64 CPU step of
    the plain path (TOL_AMP_LOSS, TOL_AMP_GRAD), the routes' losses within
    TOL_AMP_ROUTES_LOSS; then 8 timed steps through an ``amp.LossScaler``
@@ -221,9 +221,27 @@ Phases, each fatal on failure:
    32 rows and the tiles route, the pair and each walk, #4-#9 in both
    layouts, with the bthd kernels' bits from the bhtd ones) against their
    twins at BIG's widths, beside the same cases at 16 heads of 64
-   (``check_head128_amp_kernels``), and ``check_head_width_128`` the route
-   table: f32 training kernels and every kernel at 192 raise before any
-   launch;
+   (``check_head128_train_kernels(torch.bfloat16, ...)``), and
+   ``check_head_width_128`` the route table: every kernel at 192 raises
+   before any launch;
+   (o) f32 training at head width 128 (``run_head128_train``): (n)'s model,
+   configuration and routes in f32 with TF32 off (12 each of
+   ``qkv_attention_fwd_dh128``, ``qkv_bwd_dq_dh128``,
+   ``qkv_bwd_dkv_dh128`` and 6 each of ``flash_fwd_dh128``,
+   ``flash_bwd_dq_dh128``, ``flash_bwd_dkv_dh128`` a fused step; 18 each
+   of the flash ones a flag-off step; 32 each of #16/#17), every step's
+   launches checked, no composition: step 1 at batch 2, length 64 (cut as
+   (n)'s) under fixed seeds, repeated for equal bits, against a float64
+   CPU step of the plain path (TOL_TRAIN_LOSS; each gradient within
+   TOL_TRAIN_GRAD or twice an f32 CPU copy's error), the routes' losses
+   within TOL_ROUTES_LOSS; then 8 timed Adam steps on one repeated full
+   batch whose loss must fall; one profiled step a route.  Phase 2 holds
+   the f32 kernels of this path at 128 (``check_head128_train_kernels(
+   torch.float32, ...)``: the same cases as in bf16, within TOL_KERNEL of
+   the f32 twins, the record cases also against the twins in float64);
+   every phase-3 record goes to a file of its own in OUT_DIR
+   (``keep_phase3``) and a short summary of each is printed before the
+   kernels line;
    (d) training: ``Transformer(fused_qkv_attention=False)`` with Paddle's
    ``Adam(1e-4)`` at batch 32, source and target 256 with seeded padded
    tails (label weight 0 on the pads): 18 ``flash_fwd``, 18
@@ -1113,55 +1131,74 @@ def check_head128_kernels():
     return records, flat
 
 
-#: C2 part 2a: the bf16 training kernels at head width 128, phase 2's
-#: cases at the amp path's shapes (TRAIN_BATCH sequences of TRAIN_LEN at
-#: BIG's widths, and at BIG64's on the same bytes).  #4-#9: (case, tq,
-#: tk, bias, causal), each in bthd (#4, #6, #7) and on the same values in
-#: bhtd (#5, #8, #9, which must give the bthd kernels' bits); the first
-#: is the record's (the cross-attention under the source padding bias)
-HEAD128_AMP_FLASH_CASES = (("cross", 256, 256, "pad", False),
-                           ("decoder self", 256, 256, "decoder", False),
-                           ("causal tq>tk, -1e30 row", 256, 128, "masked",
-                            True),
-                           ("ragged causal tq 129 tk 129", 129, 129,
-                            "decoder", True))
+#: C2 part 2: the training kernels at head width 128 in bf16 (part 2a,
+#: amp) and in f32 (part 2b), phase 2's cases at the training path's
+#: shapes (TRAIN_BATCH sequences of TRAIN_LEN at BIG's widths, and at
+#: BIG64's on the same bytes).  #4-#9: (case, tq, tk, bias, causal), each
+#: in bthd (#4, #6, #7) and on the same values in bhtd (#5, #8, #9, which
+#: must give the bthd kernels' bits); the first is the record's (the
+#: cross-attention under the source padding bias)
+HEAD128_TRAIN_FLASH_CASES = (("cross", 256, 256, "pad", False),
+                             ("decoder self", 256, 256, "decoder", False),
+                             ("causal tq>tk, -1e30 row", 256, 128,
+                              "masked", True),
+                             ("ragged causal tq 129 tk 129", 129, 129,
+                              "decoder", True))
 #: #1 and the pair: (case, b, t, bias, causal); b None is TRAIN_BATCH (32,
 #: clusters of 64 rows), b 1 takes clusters of 32, t 640 the tiles route
 #: (#1); the first is the record's
-HEAD128_AMP_QKV_CASES = (("encoder self", None, 256, "pad", False),
-                         ("decoder self", None, 256, "decoder", False),
-                         ("b=1 decoder self", 1, 256, "decoder", False),
-                         ("causal ragged t 200, -1e30 row", 4, 200,
-                          "masked", True),
-                         ("tiles t 640", 2, 640, "pad", False))
-#: a head-width-128 bf16 record's fields kept for its other cases
-HEAD128_AMP_CASE_KEYS = ("batch", "ms", "plain_ms", "bound_ms", "bound_by",
-                         "library_ms", "max_abs_err", "dropout_ms",
-                         "dropout_max_abs_err", "plan", "dh64_ms")
+HEAD128_TRAIN_QKV_CASES = (("encoder self", None, 256, "pad", False),
+                           ("decoder self", None, 256, "decoder", False),
+                           ("b=1 decoder self", 1, 256, "decoder", False),
+                           ("causal ragged t 200, -1e30 row", 4, 200,
+                            "masked", True),
+                           ("tiles t 640", 2, 640, "pad", False))
+#: the case of HEAD128_TRAIN_QKV_CASES on #1's tiles route, where #1 is
+#: timed too
+HEAD128_TILES_CASE = "tiles t 640"
+#: a head-width-128 training record's fields kept for its other cases
+HEAD128_TRAIN_CASE_KEYS = ("batch", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms", "max_abs_err",
+                           "dropout_ms", "dropout_max_abs_err", "plan",
+                           "dh64_ms", "dh64")
 
 
-def _head128_flash(gen, cfg, case, tq, tk, bias_kind, causal):
-    """#4-#9 in bf16 on one case at ``cfg``'s widths, rates 0 and DROPOUT:
-    each kernel twice for equal bits and against its twin by
-    ``compare_bf16``, the bhtd kernels on the same values with the bthd
+def _held(dtype):
+    """How phase 2 holds a ``dtype`` kernel to its twin: (name, got,
+    want) -> max abs error; bf16 by ``compare_bf16``, f32 within
+    TOL_KERNEL."""
+    if dtype == torch.bfloat16:
+        return compare_bf16
+    return lambda name, got, want: compare(name, got, want, TOL_KERNEL)
+
+
+def _head128_flash(gen, cfg, case, tq, tk, bias_kind, causal, dtype):
+    """#4-#9 in ``dtype`` (f32 or bf16) on one case at ``cfg``'s widths,
+    rates 0 and DROPOUT: each kernel twice for equal bits and against its
+    twin (``_held``), the bhtd kernels on the same values with the bthd
     kernels' bits, a row masked in the forward with dq = 0; at the record
     case timed (rate 0 and DROPOUT) beside the twin, masked SDPA (its
-    backward for the walks) and the bound.  {(kernel, case): record}."""
+    backward for the walks) and the bound, and in f32 held to the twin in
+    float64 (``f64_max_abs_err``: the kernel's and the f32 twin's, each
+    within TOL_KERNEL).  {(kernel, case): record}."""
     import torch.nn.functional as F
 
+    from paddle_tpu_torch.kernels import KERNEL_DTYPES
     from paddle_tpu_torch.kernels import attention as ka
 
     b, h, dh = TRAIN_BATCH, cfg["n_head"], cfg["d_key"]
+    f32 = dtype == torch.float32
+    held, size = _held(dtype), F32 if f32 else BF16
     scale = dh ** -0.5
-    q, k, v, do, bias = _bf16(*_flash_inputs(gen, tq, tk, bias_kind, causal,
-                                             cfg))
+    q, k, v, do, bias = [a.to(dtype).contiguous() for a in _flash_inputs(
+        gen, tq, tk, bias_kind, causal, cfg)]
     t_ = [a.transpose(1, 2).contiguous() for a in (q, k, v, do)]
     errs, calls = {}, {}
     for rate in (0.0, DROPOUT):
         kw = dict(scale=scale, causal=causal, dropout_rate=rate,
                   dropout_seed=int(torch.randint(0, 2 ** 32, (1,),
                                                  generator=gen)))
-        what = f"bf16 d_head {dh} {case} rate {rate}"
+        what = f"{'f32' if f32 else 'bf16'} d_head {dh} {case} rate {rate}"
         o, lse = ka.flash_fwd(q, k, v, bias, **kw)
         _require_same_bits(f"flash_fwd {what}", (o, lse),
                            ka.flash_fwd(q, k, v, bias, **kw))
@@ -1169,7 +1206,7 @@ def _head128_flash(gen, cfg, case, tq, tk, bias_kind, causal):
         hidden = torch.isinf(want_lse)
         require(torch.equal(hidden, torch.isinf(lse)),
                 f"flash_fwd {what}: masked rows differ")
-        err_f = max(compare_bf16(f"flash_fwd {what}", o, want_o),
+        err_f = max(held(f"flash_fwd {what}", o, want_o),
                     compare(f"flash_fwd {what} lse", lse[~hidden],
                             want_lse[~hidden], TOL_KERNEL))
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -1185,10 +1222,10 @@ def _head128_flash(gen, cfg, case, tq, tk, bias_kind, causal):
                     and not dq[-1, tq - 5].any().item(),
                     f"flash_bwd_dq {what}: the masked row's dq is not 0")
         want_dk, want_dv = ka.reference_flash_bwd_dkv(*bw, **kw)
-        err_dq = compare_bf16(f"flash_bwd_dq {what}", dq,
-                              ka.reference_flash_bwd_dq(*bw, **kw))
-        err_dkv = max(compare_bf16(f"flash_bwd_dkv {what} dk", dk, want_dk),
-                      compare_bf16(f"flash_bwd_dkv {what} dv", dv, want_dv))
+        err_dq = held(f"flash_bwd_dq {what}", dq,
+                      ka.reference_flash_bwd_dq(*bw, **kw))
+        err_dkv = max(held(f"flash_bwd_dkv {what} dk", dk, want_dk),
+                      held(f"flash_bwd_dkv {what} dv", dv, want_dv))
         del want_dk, want_dv
         # the bhtd kernels on the same values: the bthd kernels' bits
         bw_t = (t_[0], t_[1], t_[2], bias, t_[3], lse,
@@ -1207,13 +1244,37 @@ def _head128_flash(gen, cfg, case, tq, tk, bias_kind, causal):
                           flash_bwd_dkv=err_dkv)
         errs[rate].update({k_ + "_bhtd": e for k_, e in list(
             errs[rate].items())})
-        calls[rate] = (kw, bw, bw_t)
-    if case != HEAD128_AMP_FLASH_CASES[0][0]:
+        calls[rate] = (kw, bw, bw_t, (o, lse, dq, dk, dv))
+    if case != HEAD128_TRAIN_FLASH_CASES[0][0]:
         return {(name, case): dict(max_abs_err=errs[0.0][name],
                                    dropout_max_abs_err=errs[DROPOUT][name],
                                    batch=b)
                 for name in errs[0.0]}
-    (kw, bw, bw_t), (kw_d, bw_d, bw_td) = calls[0.0], calls[DROPOUT]
+    (kw, bw, bw_t, outs), (kw_d, bw_d, bw_td, _) = calls[0.0], calls[DROPOUT]
+    f64 = {}
+    if f32:  # the kernels and the f32 twins against the twins in float64
+        wide = [None if a is None else a.double() for a in bw]
+        twins = (ka.reference_flash_fwd(*bw[:4], **kw),
+                 ka.reference_flash_bwd_dq(*bw, **kw),
+                 ka.reference_flash_bwd_dkv(*bw, **kw))
+        exact = (ka.reference_flash_fwd(*wide[:4], **kw),
+                 ka.reference_flash_bwd_dq(*wide, **kw),
+                 ka.reference_flash_bwd_dkv(*wide, **kw))
+        o, lse, dq, dk, dv = outs
+        live = ~torch.isinf(exact[0][1])
+        for name, got, twin, want in (
+                ("flash_fwd", (o,), twins[0][:1], exact[0][:1]),
+                ("flash_bwd_dq", (dq,), (twins[1],), (exact[1],)),
+                ("flash_bwd_dkv", (dk, dv), twins[2], exact[2])):
+            f64[name] = [max(compare(f"{name} f32 d_head {dh} {case} "
+                                     f"against float64", a, w, TOL_KERNEL)
+                             for a, w in zip(got, want)),
+                         max((f.double() - w).abs().max().item()
+                             for f, w in zip(twin, want))]
+        f64["flash_fwd"][0] = max(f64["flash_fwd"][0], compare(
+            f"flash_fwd f32 d_head {dh} {case} lse against float64",
+            lse[live], exact[0][1][live], TOL_KERNEL))
+        del wide, twins, exact
     lq, lk, lv = (a.transpose(1, 2).detach().requires_grad_()
                   for a in (q, k, v))
     lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias,
@@ -1231,67 +1292,78 @@ def _head128_flash(gen, cfg, case, tq, tk, bias_kind, causal):
 
     pairs = _visible_pairs(tq, tk, causal)
     flops = b * h * pairs * dh
-    rows, keys = BF16 * b * h * tq * dh, BF16 * b * h * tk * dh
-    bias_bytes = BF16 * bias.numel()
+    rows, keys = size * b * h * tq * dh, size * b * h * tk * dh
+    bias_bytes = size * bias.numel()
     stats = F32 * b * h * tq
     hashes = ATTN_HASH_OPS * b * h * pairs
+    bound_fn = bound if f32 else bound_bf16
+    sources = (("flash_walk.cuh",) * 3 if f32 else
+               ("flash_tc.cuh", "flash_bwd_tc.cuh", "flash_bwd_tc.cuh"))
     out = {}
     for suffix, args in (("", (bw, bw_d)), ("_bhtd", (bw_t, bw_td))):
         for name, source, line, mult, nbytes in (
-                ("flash_fwd", "flash_tc.cuh", 550 if not suffix else 176, 4,
+                ("flash_fwd", sources[0], 550 if not suffix else 176, 4,
                  2 * rows + 2 * keys + bias_bytes + stats),
-                ("flash_bwd_dq", "flash_bwd_tc.cuh",
-                 618 if not suffix else 247, 6,
+                ("flash_bwd_dq", sources[1], 618 if not suffix else 247, 6,
                  3 * rows + 2 * keys + bias_bytes + 2 * stats),
-                ("flash_bwd_dkv", "flash_bwd_tc.cuh",
-                 678 if not suffix else 303, 8,
+                ("flash_bwd_dkv", sources[2], 678 if not suffix else 303, 8,
                  2 * rows + 4 * keys + bias_bytes + 2 * stats)):
             fn = getattr(ka, name + suffix)
             twin = getattr(ka, "reference_" + name + suffix)
             a0 = args[0][:3] + (bias,) if name == "flash_fwd" else args[0]
             a1 = args[1][:3] + (bias,) if name == "flash_fwd" else args[1]
             rec = timed_record(
-                name + suffix + "_bf16_dh128" if dh == 128
-                else name + suffix + "_bf16",
+                name + suffix + KERNEL_DTYPES[dtype]
+                + ("_dh128" if dh == 128 else ""),
                 "paddle_tpu_torch/csrc/" + source,
                 f"paddle_tpu/kernels/attention.py:{line}",
                 errs[0.0][name + suffix], lambda: fn(*a0, **kw),
                 lambda: twin(*a0, **kw), mult * flops, nbytes,
                 lib_fwd if name == "flash_fwd" else lib_bwd, b,
-                bound_fn=bound_bf16)
-            rec.update(case=case, dtype="bf16", d_head=dh,
+                bound_fn=bound_fn)
+            rec.update(case=case, dtype="f32" if f32 else "bf16",
+                       d_head=dh,
                        dropout_max_abs_err=errs[DROPOUT][name + suffix],
                        dropout_ms=cuda_ms(lambda: fn(*a1, **kw_d)),
-                       dropout_bound_ms=bound_bf16(mult * flops, nbytes,
-                                                   hashes)[0],
+                       dropout_bound_ms=bound_fn(mult * flops, nbytes,
+                                                 hashes)[0],
                        device_ms=cuda_ms(lambda: fn(*a0, **kw),
                                          hide_host=True))
+            if name in f64:
+                rec["f64_max_abs_err"] = f64[name]
             out[(name + suffix, case)] = rec
     del lib_out
     return out
 
 
-def _head128_qkv(gen, cfg, case, b, t, bias_kind, causal):
-    """#1 and the pair #2 + #3 (and #2, #3 alone) in bf16 on one case at
-    ``cfg``'s widths, rates 0 and DROPOUT: twice for equal bits, against
-    the twins by ``compare_bf16``, a masked row's ctx 0 and dx_q 0; at the
-    record case timed beside the twins, ``F.multi_head_attention_forward``
-    in bf16 (its backward for the pair) and the bounds.  {(kernel, case):
-    record}, the pair's under "qkv_bwd"."""
+def _head128_qkv(gen, cfg, case, b, t, bias_kind, causal, dtype):
+    """#1 and the pair #2 + #3 (and #2, #3 alone) in ``dtype`` (f32 or
+    bf16) on one case at ``cfg``'s widths, rates 0 and DROPOUT: twice for
+    equal bits, against the twins (``_held``), a masked row's ctx 0 and
+    dx_q 0; at the record case timed beside the twins,
+    ``F.multi_head_attention_forward`` in the same dtype (its backward for
+    the pair) and the bounds, and in f32 the pair held to its float64 twin
+    (``_held_qkv_pair_f64``, ``vs_float64``).  {(kernel, case): record},
+    the pair's under "qkv_bwd"."""
+    from paddle_tpu_torch.kernels import KERNEL_DTYPES
     from paddle_tpu_torch.kernels import attention as ka
 
     b = b or TRAIN_BATCH
     h, dh, dm = cfg["n_head"], cfg["d_key"], cfg["d_model"]
     hd = h * dh
-    x, w_qkv, w_out, g, bias = _bf16(*_qkv_inputs(gen, t, bias_kind, b, dm))
+    f32 = dtype == torch.float32
+    held, size = _held(dtype), F32 if f32 else BF16
+    x, w_qkv, w_out, g, bias = [a.to(dtype).contiguous() for a in
+                                _qkv_inputs(gen, t, bias_kind, b, dm)]
     fw = (x, w_qkv, w_out, bias)
-    errs, bws = {}, {}
+    errs, bws, vs_f64 = {}, {}, {}
     plan = list(ka.qkv_fwd_plan(b, t, h, ka.sm_count(x.device)))
     for rate in (0.0, DROPOUT):
         kw = dict(n_head=h, scale=dh ** -0.5, causal=causal,
                   dropout_rate=rate, dropout_seed=int(torch.randint(
                       0, 2 ** 32, (1,), generator=gen)))
-        what = f"bf16 d_head {dh} {case} {plan} rate {rate}"
+        what = (f"{'f32' if f32 else 'bf16'} d_head {dh} {case} {plan} "
+                f"rate {rate}")
         (y, ctx, lse), _, _, err_f = _held_qkv_fwd(
             f"qkv_attention_fwd {what}", fw, kw, bias_kind == "masked")
         bw = (x, w_qkv, w_out, bias, g, ctx, lse)
@@ -1302,34 +1374,41 @@ def _head128_qkv(gen, cfg, case, b, t, bias_kind, causal):
                 ("qkv_bwd_dkv", ka.qkv_bwd_dkv, ka.reference_qkv_bwd_dkv)):
             got = fn(*bw, **kw)
             _require_same_bits(f"{kernel} {what}", got, fn(*bw, **kw))
-            # dx is rounded twice in the reference (dx_q + dx_kv)
+            # in bf16 dx is rounded twice in the reference (dx_q + dx_kv)
             errs[rate][kernel] = max(
-                compare_bf16(f"{kernel} {what} part {i}", a, w)
+                held(f"{kernel} {what} part {i}", a, w)
                 for i, (a, w) in enumerate(zip(got, twin(*bw, **kw))))
             if kernel == "qkv_bwd_dq" and bias_kind == "masked":
                 require(torch.isinf(lse[-1, :, t - 5]).all().item()
                         and not got[0][-1, t - 5].any().item(),
                         f"{kernel} {what}: the masked row's dx_q is not 0")
             del got
+        if f32 and case == HEAD128_TRAIN_QKV_CASES[0][0]:
+            vs_f64[rate] = _held_qkv_pair_f64(f"qkv_bwd {what}", bw, kw)[1]
         bws[rate] = (bw, kw)
-    if case != HEAD128_AMP_QKV_CASES[0][0]:
-        return {(name, case): dict(max_abs_err=e,
-                                   dropout_max_abs_err=errs[DROPOUT][name],
-                                   batch=b, plan=plan)
-                for name, e in errs[0.0].items()}
+    # timed: every kernel at the record case, #1 alone on the tiles route
+    timed = (tuple(errs[0.0]) if case == HEAD128_TRAIN_QKV_CASES[0][0]
+             else ("qkv_attention_fwd",) if case == HEAD128_TILES_CASE
+             else ())
+    out = {(name, case): dict(max_abs_err=e,
+                              dropout_max_abs_err=errs[DROPOUT][name],
+                              batch=b, plan=plan)
+           for name, e in errs[0.0].items() if name not in timed}
+    if not timed:
+        return out
     (bw, kw), (bw_d, kw_d) = bws[0.0], bws[DROPOUT]
     _, lib_fwd, lib_bwd = _library_mha(x, w_qkv, w_out, bias, g, h, causal)
     pairs = _visible_pairs(t, t, causal)
     proj = 2 * b * t * dm * hd
     attn = 2 * b * h * pairs * dh
     hashes = ATTN_HASH_OPS * b * h * pairs
-    io = (BF16 * (b * t * hd + dm * 3 * hd + hd * dm + bias.numel())
+    io = (size * (b * t * hd + dm * 3 * hd + hd * dm + bias.numel())
           + F32 * b * h * t)
-    act = BF16 * b * t * dm
-    pair_bytes = (BF16 * (3 * b * t * dm + b * t * hd + bias.numel()
+    act = size * b * t * dm
+    pair_bytes = (size * (3 * b * t * dm + b * t * hd + bias.numel()
                           + 2 * (dm * 3 * hd + hd * dm)) + F32 * b * h * t)
+    bound_fn = bound if f32 else bound_bf16
     src = "paddle_tpu_torch/csrc/qkv_attention_bwd.cu"
-    out = {}
     for name, source, line, fn, twin, flops, nbytes, lib in (
             ("qkv_attention_fwd", "paddle_tpu_torch/csrc/qkv_attention.cu",
              "1377", ka.qkv_attention_fwd, ka.reference_qkv_fwd,
@@ -1339,77 +1418,91 @@ def _head128_qkv(gen, cfg, case, b, t, bias_kind, causal):
              lib_bwd),
             ("qkv_bwd_dq", src, "1454", ka.qkv_bwd_dq,
              ka.reference_qkv_bwd_dq, 7 * proj + 3 * attn,
-             3 * act + io + BF16 * 2 * dm * hd, lib_bwd),
+             3 * act + io + size * 2 * dm * hd, lib_bwd),
             ("qkv_bwd_dkv", src, "1546", ka.qkv_bwd_dkv,
              ka.reference_qkv_bwd_dkv, 8 * proj + 4 * attn,
-             3 * act + io + BF16 * 2 * dm * hd, lib_bwd)):
+             3 * act + io + size * 2 * dm * hd, lib_bwd)):
+        if name not in timed:
+            continue
         args, args_d = (fw, fw) if name == "qkv_attention_fwd" else (bw,
                                                                      bw_d)
         rec = timed_record(
-            name + ("_bf16_dh128" if dh == 128 else "_bf16"), source,
-            f"paddle_tpu/kernels/attention.py:{line}", errs[0.0][name],
-            lambda: fn(*args, **kw), lambda: twin(*args, **kw), flops,
-            nbytes, lib, b, bound_fn=bound_bf16)
-        rec.update(case=case, dtype="bf16", d_head=dh, plan=plan,
-                   dropout_max_abs_err=errs[DROPOUT][name],
+            name + KERNEL_DTYPES[dtype] + ("_dh128" if dh == 128 else ""),
+            source, f"paddle_tpu/kernels/attention.py:{line}",
+            errs[0.0][name], lambda: fn(*args, **kw),
+            lambda: twin(*args, **kw), flops, nbytes, lib, b,
+            bound_fn=bound_fn)
+        rec.update(case=case, dtype="f32" if f32 else "bf16", d_head=dh,
+                   plan=plan, dropout_max_abs_err=errs[DROPOUT][name],
                    dropout_ms=cuda_ms(lambda: fn(*args_d, **kw_d)),
-                   dropout_bound_ms=bound_bf16(flops, nbytes, hashes)[0],
+                   dropout_bound_ms=bound_fn(flops, nbytes, hashes)[0],
                    device_ms=cuda_ms(lambda: fn(*args, **kw),
                                      hide_host=True))
+        if name == "qkv_bwd" and vs_f64:
+            rec["vs_float64"] = vs_f64
         out[(name, case)] = rec
     del lib_fwd, lib_bwd
     return out
 
 
-def _head128_amp_checks(cfg, seed):
-    """Phase 2's bf16 training cases at ``cfg``'s widths (BIG or BIG64) on
-    a generator of their own: {(kernel, case): record}."""
+def _head128_train_checks(cfg, seed, dtype):
+    """Phase 2's training cases in ``dtype`` at ``cfg``'s widths (BIG or
+    BIG64) on a generator of their own: {(kernel, case): record}."""
     gen = torch.Generator().manual_seed(seed)
     out = {}
-    for case in HEAD128_AMP_FLASH_CASES:
-        out.update(_head128_flash(gen, cfg, *case))
+    for case in HEAD128_TRAIN_FLASH_CASES:
+        out.update(_head128_flash(gen, cfg, *case, dtype))
         torch.cuda.empty_cache()
-    for case in HEAD128_AMP_QKV_CASES:
-        out.update(_head128_qkv(gen, cfg, *case))
+    for case in HEAD128_TRAIN_QKV_CASES:
+        out.update(_head128_qkv(gen, cfg, *case, dtype))
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return out
 
 
-def check_head128_amp_kernels():
-    """C2 part 2a on the card: #1 (clusters of 64 and 32 rows, the tiles
-    route), the pair #2 + #3 (and each walk alone) and #4-#9 in bf16 at
-    BIG's widths (8 heads of 128) on HEAD128_AMP_* at rates 0 and DROPOUT
-    against their bf16 twins, twice for equal bits, the bhtd kernels with
-    the bthd kernels' bits; the record cases timed beside the twin, the
-    library call and the bound; and the same cases at BIG64 (16 heads of
-    64, the same bytes and FLOPs), whose kernel time each record carries
-    as ``dh64_ms``.  Returns ({counter name: record} for the JSON line,
-    #2's and #3's carrying the pair's under "pair", each record's other
-    cases under "cases"; every record, for printing)."""
-    big = _head128_amp_checks(BIG, 25)
-    base = _head128_amp_checks(BIG64, 64)
+def check_head128_train_kernels(dtype, seed):
+    """C2 part 2 on the card, in ``dtype``: #1 (clusters of 64 and 32
+    rows, the tiles route), the pair #2 + #3 (and each walk alone) and
+    #4-#9 at BIG's widths (8 heads of 128) on HEAD128_TRAIN_* at rates 0
+    and DROPOUT against their twins, twice for equal bits, the bhtd
+    kernels with the bthd kernels' bits; the record cases, and #1 on its
+    tiles route (t 640), timed beside the twin, the library call and the
+    bound (in f32 also held to the twins in float64); and the same cases
+    at BIG64 (16 heads of 64, the same bytes and FLOPs), whose kernel
+    time each timed record carries as ``dh64_ms`` (with the 64-wide
+    twin's, library's and bound's under ``dh64``).  Returns ({counter name: record} for the JSON line, #2's
+    and #3's carrying the pair's under "pair", each record's other cases
+    under "cases"; every record, for printing)."""
+    from paddle_tpu_torch.kernels import KERNEL_DTYPES
+
+    big = _head128_train_checks(BIG, seed, dtype)
+    base = _head128_train_checks(BIG64, 64, dtype)
+    suffix = KERNEL_DTYPES[dtype] + "_dh128"
     records, flat = {}, []
     for (name, case), r in big.items():
         twin = base[(name, case)]
         if "ms" in twin:
             r["dh64_ms"] = twin["ms"]
             r["dh64_device_ms"] = twin["device_ms"]
+            r["dh64"] = {k: twin[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err",
+                "dropout_ms") if k in twin}
         r["case"] = case
-        flat.append(dict(r, name=r.get("name", name + "_bf16_dh128")))
-        key = name + "_bf16_dh128"
-        if "ms" in r:
+        flat.append(dict(r, name=r.get("name", name + suffix)))
+        key = name + suffix
+        if case in (HEAD128_TRAIN_FLASH_CASES[0][0],
+                    HEAD128_TRAIN_QKV_CASES[0][0]):
             records[key] = dict(r, cases=records.get(key, {}).get(
                 "cases", {}))
         else:
             records.setdefault(key, {"cases": {}})["cases"][case] = {
-                k: r[k] for k in HEAD128_AMP_CASE_KEYS if k in r}
-    pair = records.pop("qkv_bwd_bf16_dh128")
-    for name in ("qkv_bwd_dq_bf16_dh128", "qkv_bwd_dkv_bf16_dh128"):
+                k: r[k] for k in HEAD128_TRAIN_CASE_KEYS if k in r}
+    pair = records.pop("qkv_bwd" + suffix)
+    for name in ("qkv_bwd_dq" + suffix, "qkv_bwd_dkv" + suffix):
         records[name]["pair"] = {k: pair[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err", "dropout_ms", "dropout_bound_ms", "device_ms",
-            "dh64_ms", "cases") if k in pair}
+            "dh64_ms", "vs_float64", "cases") if k in pair}
     return records, flat
 
 
@@ -2426,23 +2519,21 @@ HEAD128 = (2, 64, 2)
 
 def check_head_width_128(gen):
     """C2 on the card, by kernel, dtype and head width (``kernels.
-    HEAD_WIDTHS``).  At 128 the serving path's f32 kernels launch their
-    head-width-128 instantiations, each counted once under its ``_dh128``
-    name and nothing else: ``flash_qkv_attention`` with no gradient (#1),
-    ``flash_decode`` and ``flash_decode_paged`` (#14, #15) and
-    ``fused_decode_step`` and ``fused_decode_step_paged`` (#10 + #11, #12
-    + #13); so do the bf16 training kernels, under their ``_bf16_dh128``
-    names: ``flash_qkv_attention`` in bf16 without a gradient (#1) and
-    with one, forward and backward (#1 and the pair #2 + #3), and
-    ``flash_attention`` in bf16 forward and backward in both layouts (#4,
-    #6, #7; #5, #8, #9).  Where no kernel is compiled, the wrapper raises
-    a ValueError naming the kernel and the width before anything launches
-    or composes: the f32 training kernels at 128 (``flash_qkv_attention``
-    with a gradient and the pair ``qkv_bwd`` itself, #2 + #3;
-    ``flash_attention`` in both layouts, #4-#9); every one of those
-    wrappers, the bf16 ones and the serving ones at 192; and every
-    (kernel, dtype) of the route table at 192 (``head_route``).  Returns
-    {call: launches or the error}."""
+    HEAD_WIDTHS``).  At 128 every attention and decode wrapper launches
+    its head-width-128 instantiation, each kernel counted once under its
+    ``_dh128`` name (``_bf16_dh128`` in bf16) and nothing else: the
+    serving path's f32 kernels (``flash_qkv_attention`` with no gradient,
+    #1; ``flash_decode`` and ``flash_decode_paged``, #14, #15;
+    ``fused_decode_step`` and ``fused_decode_step_paged``, #10 + #11, #12
+    + #13), the f32 training kernels (``flash_qkv_attention`` with a
+    gradient, forward and backward: #1 and the pair #2 + #3; the pair
+    ``qkv_bwd`` itself; ``flash_attention`` forward and backward in both
+    layouts: #4, #6, #7; #5, #8, #9) and the same training kernels in
+    bf16.  At 192, where no kernel is compiled, every one of those
+    wrappers raises a ValueError naming the kernel and the width before
+    anything launches or composes, and so does every (kernel, dtype) of
+    the route table (``head_route``).  Returns {call: launches or the
+    error}."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import attention as ka
     from paddle_tpu_torch.kernels import decode_attention as kda
@@ -2515,6 +2606,18 @@ def check_head_width_128(gen):
                               {"megastep": 1, "ffn": 1}, True),
         "fused_decode_step_paged": (lambda dh: step(dh, True),
                                     {"megastep_paged": 1, "ffn": 1}, True),
+        "flash_qkv_attention with grad": (
+            lambda dh: qkv(dh, grad=True),
+            {"qkv_attention_fwd": 1, "qkv_bwd_dq": 1, "qkv_bwd_dkv": 1},
+            False),
+        "qkv_bwd f32": (pair, {"qkv_bwd_dq": 1, "qkv_bwd_dkv": 1}, False),
+        "flash_attention bthd with grad": (
+            lambda dh: flash(dh, "bthd", grad=True),
+            {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}, False),
+        "flash_attention bhtd with grad": (
+            lambda dh: flash(dh, "bhtd", grad=True),
+            {"flash_fwd_bhtd": 1, "flash_bwd_dq_bhtd": 1,
+             "flash_bwd_dkv_bhtd": 1}, False),
         "flash_qkv_attention bf16 no grad": (
             lambda dh: qkv(dh, bf16), {"qkv_attention_fwd_bf16": 1}, True),
         "flash_qkv_attention bf16 with grad": (
@@ -2529,11 +2632,6 @@ def check_head_width_128(gen):
             lambda dh: flash(dh, "bhtd", bf16, grad=True),
             {"flash_fwd_bhtd_bf16": 1, "flash_bwd_dq_bhtd_bf16": 1,
              "flash_bwd_dkv_bhtd_bf16": 1}, False)}
-    raising = {
-        "flash_qkv_attention with grad": lambda dh: qkv(dh, grad=True),
-        "qkv_bwd f32": pair,
-        "flash_attention bthd": lambda dh: flash(dh, "bthd"),
-        "flash_attention bhtd": lambda dh: flash(dh, "bhtd")}
     out = {}
 
     def raises(label, call, dh):
@@ -2564,9 +2662,6 @@ def check_head_width_128(gen):
         require(not any(kernels.composed.values()),
                 f"head width 128 {what}: composed {kernels.composed}")
         out[f"{what} at 128"] = {k: v for k, v in launches.items() if v}
-        raises(f"{what} at 192", make(192), 192)
-    for what, make in raising.items():
-        raises(f"{what} at 128", make(128), 128)
         raises(f"{what} at 192", make(192), 192)
     for name in kernels.composed:
         for dtype in (torch.float32, torch.bfloat16):
@@ -4007,11 +4102,14 @@ def parent_registers(log):
     left (#1's tiles route its T; the flash walks their T and BT, so
     ``flash_bwd_dq_kernel<Bthd, false, float, float>`` is now
     ``flash_bwd_dq_kernel<Bthd, false>``), is matched by its name and its
-    other template arguments: the layout and DROP."""
+    other template arguments: the layout and DROP.  Under "bf16" the same
+    for the bf16 instantiations, matched by name only ("unmatched" a
+    count)."""
     import re
 
-    def key(name):  # the 64-wide layouts under their older names
+    def key(name):  # the 64-wide layouts and row_delta under older names
         name = re.sub(r"6(Bthd|Bhtd)OfILi64EE", r"4\1", name)
+        name = re.sub(r"row_deltaIfLi64EE", "row_deltaIfE", name)
         return re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN_",
                       name)
 
@@ -4020,10 +4118,18 @@ def parent_registers(log):
 
     mine = {key(n): r for n, r in build_registers(log).items()}
     by_template = {template(n): r for n, r in mine.items()}
-    out = {"equal": 0, "differ": [], "unmatched": []}
+    out = {"equal": 0, "differ": [], "unmatched": [],
+           "bf16": {"equal": 0, "differ": [], "unmatched": 0}}
     for name, regs in build_registers(_PARENT.get("log", "")).items():
         name = key(name)
         if "bfloat16" in name:
+            bf16, got = out["bf16"], mine.get(name)
+            if got is None:
+                bf16["unmatched"] += 1
+            elif got == regs:
+                bf16["equal"] += 1
+            else:
+                bf16["differ"].append((name, regs, got))
             continue
         got = mine.get(name, by_template.get(template(name)))
         if got is None:
@@ -5663,60 +5769,78 @@ def run_training_amp(model, parity):
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
-#: (n) amp training at head width 128: BIG's widths at bench_transformer's
-#: config (batch TRAIN_BATCH, lengths TRAIN_LEN, DROPOUT, Adam at
-#: TRAIN_LR), on both routes; step 1 is held against a float64 step of
-#: the plain path on the CPU at BIG's widths and depth with the batch and
-#: lengths cut to HEAD128_AMP_PARITY (b, t): a float64 step of 0.25 B
-#: parameters at the full batch would take minutes
-HEAD128_AMP_PARITY = (2, 64)
-HEAD128_AMP_TIMED_STEPS = 8
+#: (n) amp and (o) f32 training at head width 128: BIG's widths at
+#: bench_transformer's config (batch TRAIN_BATCH, lengths TRAIN_LEN,
+#: DROPOUT, Adam at TRAIN_LR), on both routes; step 1 is held against a
+#: float64 step of the plain path on the CPU at BIG's widths and depth
+#: with the batch and lengths cut to HEAD128_TRAIN_PARITY (b, t): a
+#: float64 step of 0.25 B parameters at the full batch would take minutes
+HEAD128_TRAIN_PARITY = (2, 64)
+HEAD128_TRAIN_TIMED_STEPS = 8
 
 
-def run_head128_amp(models):
-    """Phase 3 (n): bf16 amp training at head width 128 (C2 part 2a) on
-    BIG's widths (Transformer-big's, 8 heads of 128, 6 + 6 layers, vocab
-    32000) at DROPOUT, ``models`` {"fused": the default route, "flag_off":
-    ``fused_qkv_attention=False``}, both ``amp.enable``d on the same
-    seeded weights.  Step 1 on HEAD128_AMP_PARITY's batch under fixed
-    seeds on each route: gradients f32, repeated to the bit, the loss
-    within TOL_AMP_LOSS and each gradient within TOL_AMP_GRAD of a float64
-    CPU copy's step under the same seeds; then HEAD128_AMP_TIMED_STEPS
-    steps on one repeated full batch (fresh seeds), driven through an
-    ``amp.LossScaler`` (the loss scaled, the gradients unscaled and
+def run_head128_train(models, dtype):
+    """Phase 3 (n) (``dtype`` bf16: amp, C2 part 2a) or (o) (f32 with
+    TF32 off, C2 part 2b): training at head width 128 on BIG's widths
+    (Transformer-big's, 8 heads of 128, 6 + 6 layers, vocab 32000) at
+    DROPOUT, ``models`` {"fused": the default route, "flag_off":
+    ``fused_qkv_attention=False``} on the same seeded weights, under amp
+    both ``amp.enable``d.  Step 1 on HEAD128_TRAIN_PARITY's batch under
+    fixed seeds on each route: gradients f32, repeated to the bit, held
+    against a float64 CPU copy's step of the plain path under the same
+    seeds (amp: the loss within TOL_AMP_LOSS, each gradient within
+    TOL_AMP_GRAD; f32: the loss within TOL_TRAIN_LOSS, each gradient
+    within TOL_TRAIN_GRAD or no further than twice an f32 CPU copy's, as
+    (f)), the routes' losses within TOL_AMP_ROUTES_LOSS (amp) or
+    TOL_ROUTES_LOSS; then HEAD128_TRAIN_TIMED_STEPS Adam steps on one
+    repeated full batch (fresh seeds a step; under amp through an
+    ``amp.LossScaler``: the loss scaled, the gradients unscaled and
     checked for overflow): every loss finite, no overflow, the loss
-    falling; each step's launches exact (fused: 12 each of #1-#3 and 6
-    each of #4, #6, #7 in bf16 at 128; flag-off: 18 each of #4, #6, #7;
-    30 + 2 of #16/#17), nothing composed.  Returns [record per route]."""
+    falling; every step's launches exact (fused: 12 each of #1-#3 and 6
+    each of #4, #6, #7 at 128; flag-off: 18 each of #4, #6, #7; 32 each
+    of #16/#17, under amp 30 of them in bf16), all under the ``_dh128``
+    counters (``_bf16_dh128`` under amp), nothing composed.  Returns
+    [record per route]."""
     from paddle_tpu_torch import Adam, Transformer, amp, kernels
 
+    is_amp = dtype == torch.bfloat16
+    phase, sfx = ("(n)", "_bf16") if is_amp else ("(o)", "")
     L = BIG["n_layer"]
-    base = dict(dropout_add_fwd_bf16=5 * L, dropout_add_bwd_bf16=5 * L,
-                dropout_add_fwd=2, dropout_add_bwd=2)
+    # the 5 residual sites a layer in the step's dtype, the 2 embedding
+    # sites in f32
+    base = {f"dropout_add_{d}{sfx}": 5 * L for d in ("fwd", "bwd")}
+    for d in ("fwd", "bwd"):
+        base[f"dropout_add_{d}"] = base.get(f"dropout_add_{d}", 0) + 2
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     per_route = {
-        "fused": dict(base, qkv_attention_fwd_bf16_dh128=2 * L,
-                      qkv_bwd_dq_bf16_dh128=2 * L,
-                      qkv_bwd_dkv_bf16_dh128=2 * L, flash_fwd_bf16_dh128=L,
-                      flash_bwd_dq_bf16_dh128=L, flash_bwd_dkv_bf16_dh128=L),
-        "flag_off": dict(base, flash_fwd_bf16_dh128=3 * L,
-                         flash_bwd_dq_bf16_dh128=3 * L,
-                         flash_bwd_dkv_bf16_dh128=3 * L)}
+        "fused": dict(base, **{f"{k}{sfx}_dh128": 2 * L for k in (
+            "qkv_attention_fwd", "qkv_bwd_dq", "qkv_bwd_dkv")},
+            **{f"{k}{sfx}_dh128": L for k in flash}),
+        "flag_off": dict(base, **{f"{k}{sfx}_dh128": 3 * L for k in flash})}
     n_sites = len(models["fused"].dropout_sites())
     seeds = torch.randint(0, 2 ** 32, (n_sites,), generator=torch.Generator(
         ).manual_seed(DROPOUT_STEP_SEED)).tolist()
-    pb, pt = HEAD128_AMP_PARITY
+    pb, pt = HEAD128_TRAIN_PARITY
     batch = training_batch(seed=1, b=pb, t=pt)
     t0 = time.perf_counter()
-    cpu64 = Transformer(**BIG, dropout_rate=DROPOUT, device="cpu",
-                        fused_qkv_attention=False).to(torch.float64)
-    cpu64.load_state_dict(models["fused"].state_dict())
-    loss64, _ = cpu64(**_to(batch, "cpu"), dropout_seeds=seeds)
-    loss64.backward()
-    exact = {n: p.grad for n, p in cpu64.named_parameters()
-             if p.grad is not None}
-    loss64 = loss64.item()
-    del cpu64
+    # float64, and in f32 an f32 copy: its error bounds the card's
+    exact, cpu_grads, cpu_losses = {}, {}, []
+    copies = [(torch.float64, exact)]
+    if not is_amp:
+        copies.append((torch.float32, cpu_grads))
+    for copy_dtype, grads in copies:
+        copy = Transformer(**BIG, dropout_rate=DROPOUT, device="cpu",
+                           fused_qkv_attention=False).to(copy_dtype)
+        copy.load_state_dict(models["fused"].state_dict())
+        loss, _ = copy(**_to(batch, "cpu"), dropout_seeds=seeds)
+        loss.backward()
+        cpu_losses.append(loss.item())
+        grads.update((n, p.grad) for n, p in copy.named_parameters()
+                     if p.grad is not None)
+        del copy, loss
+    loss64 = cpu_losses[0]
     cpu_s = time.perf_counter() - t0
+    tol_loss = TOL_AMP_LOSS if is_amp else TOL_TRAIN_LOSS
     feed = _to(batch, DEV)
     timed_feed = _to(training_batch(seed=2), DEV)
     tokens = TRAIN_BATCH * TRAIN_LEN
@@ -5725,13 +5849,14 @@ def run_head128_amp(models):
         TRAIN_LEN, BIG["trg_vocab_size"])
     records = []
     for route, model in models.items():
-        require(amp.is_enabled(model), f"(n) {route}: amp is not enabled")
+        require(amp.is_enabled(model) == is_amp,
+                f"{phase} {route}: amp enabled {amp.is_enabled(model)}")
         names = {p: n for n, p in model.named_parameters()}
         repeat = _step_grads(model, feed, dropout_seeds=seeds)
         kernels.reset_launches()
         loss, predict = model(**feed, dropout_seeds=seeds)
-        require(predict.dtype == torch.bfloat16,
-                f"(n) {route}: logits {predict.dtype}")
+        require(predict.dtype == dtype,
+                f"{phase} {route}: logits {predict.dtype}")
         del predict
         loss.backward()
         grads = {names[p]: p.grad for p in model.parameters()
@@ -5741,88 +5866,110 @@ def run_head128_amp(models):
         torch.cuda.synchronize()
         counts = dict(kernels.launches)
         require(counts == expected(**per_route[route]),
-                f"(n) {route} step 1: launches {counts}")
+                f"{phase} {route} step 1: launches {counts}")
         require(not any(kernels.composed.values()),
-                f"(n) {route}: composed {kernels.composed}")
+                f"{phase} {route}: composed {kernels.composed}")
         got = loss.item()
-        require(np.isfinite(got) and abs(got - loss64) <= TOL_AMP_LOSS
-                * abs(loss64), f"(n) {route}: loss {got} on the card, "
+        require(np.isfinite(got) and abs(got - loss64) <= tol_loss
+                * abs(loss64), f"{phase} {route}: loss {got} on the card, "
                 f"{loss64} in float64")
-        _require_repeat(grads, repeat, f"(n) {route}")
+        _require_repeat(grads, repeat, f"{phase} {route}")
         del repeat
-        require(grads.keys() == exact.keys(),
-                f"(n) {route}: other params trained than in float64")
+        require(grads.keys() == exact.keys()
+                and (is_amp or cpu_grads.keys() == exact.keys()),
+                f"{phase} {route}: other params trained than on the CPU")
         worst = []
         for n, g in grads.items():
-            require(g.dtype == torch.float32, f"(n) {route}: the gradient "
-                    f"of {n} is {g.dtype}")
-            rel = _grad_rel(g.cpu(), exact[n])
-            require(rel <= TOL_AMP_GRAD, f"(n) {route} step 1: gradient of "
-                    f"{n} off float64 by {rel}")
-            worst.append((rel, n))
+            require(g.dtype == torch.float32, f"{phase} {route}: the "
+                    f"gradient of {n} is {g.dtype}")
+            card = _grad_rel(g.cpu(), exact[n])
+            if is_amp:
+                require(card <= TOL_AMP_GRAD, f"{phase} {route} step 1: "
+                        f"gradient of {n} off float64 by {card}")
+                worst.append((card, n))
+            else:
+                f32 = _grad_rel(cpu_grads[n], exact[n])
+                require(card <= max(TOL_TRAIN_GRAD, 2 * f32),
+                        f"{phase} {route} step 1: gradient of {n} off "
+                        f"float64 by {card} on the card, {f32} on the CPU "
+                        "in f32")
+                worst.append((card, f32, n))
         del grads
         worst.sort(reverse=True)
-        # the timed steps, through the loss scaler
+        # the timed steps, each one's launches counted on their own
         opt = Adam(model.parameters(), learning_rate=TRAIN_LR)
-        scaler = amp.LossScaler()
+        scaler = amp.LossScaler() if is_amp else None
         torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
         step_ms, losses, gen = [], [], torch.Generator().manual_seed(7)
-        for _ in range(HEAD128_AMP_TIMED_STEPS):
+        for i in range(HEAD128_TRAIN_TIMED_STEPS):
             step_seeds = torch.randint(0, 2 ** 32, (n_sites,),
                                        generator=gen).tolist()
+            kernels.reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             loss, _ = model(**timed_feed, dropout_seeds=step_seeds)
-            (loss * scaler.scale).backward()
-            finite = torch.ones((), dtype=torch.bool, device=DEV)
-            for p in opt.params:
-                if p.grad is not None:
-                    p.grad.div_(scaler.scale)
-                    finite &= torch.isfinite(p.grad).all()
-            overflow = not bool(finite)  # syncs: the backward is done
-            scaler.update(overflow)
-            if not overflow:
-                opt.step()
-            for p in opt.params:
-                p.grad = None
-            losses.append(loss.item())
+            if scaler is None:
+                opt.minimize(loss)
+            else:
+                (loss * scaler.scale).backward()
+                finite = torch.ones((), dtype=torch.bool, device=DEV)
+                for p in opt.params:
+                    if p.grad is not None:
+                        p.grad.div_(scaler.scale)
+                        finite &= torch.isfinite(p.grad).all()
+                overflow = not bool(finite)  # syncs: the backward is done
+                scaler.update(overflow)
+                if not overflow:
+                    opt.step()
+                for p in opt.params:
+                    p.grad = None
+            losses.append(loss.item())  # syncs: the step is done
             step_ms.append((time.perf_counter() - t0) * 1e3)
-        n = HEAD128_AMP_TIMED_STEPS
-        require(dict(kernels.launches) == expected(**{
-            k: c * n for k, c in per_route[route].items()}),
-            f"(n) {route} timed: launches {kernels.launches}")
-        require(not any(kernels.composed.values()),
-                f"(n) {route} timed: composed {kernels.composed}")
-        require(all(np.isfinite(losses)) and scaler.overflow_steps == 0,
-                f"(n) {route}: losses {losses}, {scaler.overflow_steps} "
-                "overflowed steps")
-        require(losses[-1] < losses[0],
-                f"(n) {route}: the loss did not fall {losses}")
+            require(dict(kernels.launches) == expected(**per_route[route]),
+                    f"{phase} {route} timed step {i}: launches "
+                    f"{kernels.launches}")
+            require(not any(kernels.composed.values()),
+                    f"{phase} {route} timed step {i}: composed "
+                    f"{kernels.composed}")
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and (scaler is None or scaler.overflow_steps == 0),
+                f"{phase} {route}: losses {losses}, "
+                f"{scaler and scaler.overflow_steps} overflowed steps")
+        n = HEAD128_TRAIN_TIMED_STEPS
         med = float(np.median(step_ms))
         tok_s = tokens / (med / 1e3)
+        peak = ("bf16", PEAK_BF16_FLOPS) if is_amp else ("f32",
+                                                         PEAK_F32_FLOPS)
         records.append(dict(
-            route=f"training amp bf16 d_head 128 {route}",
+            route=f"training {'amp bf16' if is_amp else 'f32'} d_head 128 "
+                  f"{route}",
             batch=TRAIN_BATCH, dropout_rate=DROPOUT,
             launches={k: c * (n + 1) for k, c in
                       expected(**per_route[route]).items()},
-            parity_batch=[pb, pt], parity_losses=(got, loss64),
+            parity_batch=[pb, pt],
+            # (card, float64[, CPU f32]) step-1 losses under one seed set
+            parity_losses=(got, *cpu_losses),
+            # (card vs f64[, CPU f32 vs f64], name)
             parity_grad_rel_worst=worst[:4],
-            parity_grad_rel_median=float(np.median([w for w, _ in worst])),
+            parity_grad_rel_median=[float(np.median([w[i] for w in worst]))
+                                    for i in range(len(worst[0]) - 1)],
             cpu_parity_s=cpu_s, step_ms_median=med,
             step_ms_range=(min(step_ms), max(step_ms)),
             tokens_per_s=tok_s, flops_per_token=flops_tok,
-            bf16_peak_share=tok_s * flops_tok / PEAK_BF16_FLOPS,
-            timed_losses=losses, loss_scale=scaler.scale,
+            **{f"{peak[0]}_peak_share": tok_s * flops_tok / peak[1]},
+            timed_losses=losses,
+            **({"loss_scale": scaler.scale} if is_amp else {}),
             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9))
         del opt
         torch.cuda.empty_cache()
     records[1]["routes_loss_rel"] = abs(
         records[1]["parity_losses"][0] - records[0]["parity_losses"][0]) / abs(
         records[0]["parity_losses"][0])
-    require(records[1]["routes_loss_rel"] <= TOL_AMP_ROUTES_LOSS,
-            f"(n): the routes' step-1 losses {records[0]['parity_losses']}"
-            f" and {records[1]['parity_losses']}")
+    require(records[1]["routes_loss_rel"] <= (
+        TOL_AMP_ROUTES_LOSS if is_amp else TOL_ROUTES_LOSS),
+            f"{phase}: the routes' step-1 losses "
+            f"{records[0]['parity_losses']} and "
+            f"{records[1]['parity_losses']}")
     return records
 
 
@@ -7385,7 +7532,7 @@ def walk_builds(log, lib):
         return lib.ptt_gemm_tc_smem(*(int(f) for f in re.findall(
             r"Lb([01])E", args)[:4]))
 
-    def width(args):  # the tensor-core kernels' head width, 64 or 128
+    def width(args):  # a kernel's head width, 64 or 128
         return 128 if "Li128E" in args else 64
 
     def walk(which):
@@ -7395,8 +7542,8 @@ def walk_builds(log, lib):
         return lambda args: lib.ptt_qkv_bwd_walk_smem(which, width(args))
 
     return _builds(log, {
-        "flash_bwd_dq_kernel": (None, lib.ptt_flash_walk_smem(0, 64)),
-        "flash_bwd_dkv_kernel": (None, lib.ptt_flash_walk_smem(1, 64)),
+        "flash_bwd_dq_kernel": (None, walk(0)),
+        "flash_bwd_dkv_kernel": (None, walk(1)),
         "flash_fwd_tc_kernel": ("flash_attention.cu", walk(3)),
         "qkv_cluster_tc_kernel": ("qkv_attention.cu", lambda args:
                                   lib.ptt_qkv_cluster_smem(
@@ -7427,15 +7574,26 @@ def head128_builds(log, lib):
         "decode_kernel": ("decode_attention.cu", None)})
 
 
-#: the tensor-core kernels of a bf16 counter at head width 128: (its
-#: source, its kernels' names)
-HEAD128_AMP_KERNELS = {
-    "qkv_attention_fwd": ("qkv_attention.cu", ("qkv_cluster_tc_kernel",)),
-    "qkv_bwd_dq": ("qkv_attention_bwd.cu", ("bwd_dq_tc_kernel",)),
-    "qkv_bwd_dkv": ("qkv_attention_bwd.cu", ("bwd_dkv_tc_kernel",)),
-    "flash_fwd": ("flash_attention.cu", ("flash_fwd_tc_kernel",)),
-    "flash_bwd_dq": ("flash_attention.cu", ("flash_dq_tc_kernel",)),
-    "flash_bwd_dkv": ("flash_attention.cu", ("flash_dkv_tc_kernel",))}
+#: the kernels behind a head-width-128 training counter, by dtype: (their
+#: source, their names); bf16 on tensor cores, f32 on the CUDA cores (the
+#: pair's walks are flash_walk.cuh's, instantiated in its own source)
+HEAD128_TRAIN_KERNELS = {
+    torch.bfloat16: {
+        "qkv_attention_fwd": ("qkv_attention.cu",
+                              ("qkv_cluster_tc_kernel",)),
+        "qkv_bwd_dq": ("qkv_attention_bwd.cu", ("bwd_dq_tc_kernel",)),
+        "qkv_bwd_dkv": ("qkv_attention_bwd.cu", ("bwd_dkv_tc_kernel",)),
+        "flash_fwd": ("flash_attention.cu", ("flash_fwd_tc_kernel",)),
+        "flash_bwd_dq": ("flash_attention.cu", ("flash_dq_tc_kernel",)),
+        "flash_bwd_dkv": ("flash_attention.cu", ("flash_dkv_tc_kernel",))},
+    torch.float32: {
+        "qkv_attention_fwd": ("qkv_attention.cu",
+                              ("qkv_cluster_fwd_kernel",)),
+        "qkv_bwd_dq": ("qkv_attention_bwd.cu", ("flash_bwd_dq_kernel",)),
+        "qkv_bwd_dkv": ("qkv_attention_bwd.cu", ("flash_bwd_dkv_kernel",)),
+        "flash_fwd": ("flash_attention.cu", ("flash_fwd_kernel",)),
+        "flash_bwd_dq": ("flash_attention.cu", ("flash_bwd_dq_kernel",)),
+        "flash_bwd_dkv": ("flash_attention.cu", ("flash_bwd_dkv_kernel",))}}
 
 
 def blocks_per_sm(registers, smem_bytes, threads):
@@ -7449,13 +7607,18 @@ def blocks_per_sm(registers, smem_bytes, threads):
     return min(by_registers, by_smem, 2048 // threads, 32)
 
 
-def head128_amp_builds(builds, counter):
-    """The head-width-128 instantiations behind a ``_bf16_dh128`` counter
-    in ``walk_builds``' list: each with its registers, spills, shared
-    memory, threads and blocks an SM (:func:`blocks_per_sm`)."""
-    name = counter[:-len("_bf16_dh128")]
+def head128_train_builds(builds, counter):
+    """The head-width-128 instantiations behind a ``_dh128`` training
+    counter (``_bf16_dh128`` in bf16) in a list of ``_builds`` records
+    (``walk_builds``, ``tile_builds`` and ``head128_builds``'): each with
+    its registers, spills, shared memory, threads and blocks an SM
+    (:func:`blocks_per_sm`)."""
+    from paddle_tpu_torch.kernels import KERNEL_DTYPES
+
+    dtype = torch.bfloat16 if "_bf16" in counter else torch.float32
+    name = counter[:-len(KERNEL_DTYPES[dtype] + "_dh128")]
     layout = "bhtd" if "_bhtd" in name else "bthd"
-    source, kernels = HEAD128_AMP_KERNELS[name.replace("_bhtd", "")]
+    source, kernels = HEAD128_TRAIN_KERNELS[dtype][name.replace("_bhtd", "")]
     out = []
     for r in builds:
         if (r["kernel"] not in kernels or r["source"] != source
@@ -7464,6 +7627,10 @@ def head128_amp_builds(builds, counter):
             continue
         if r["kernel"] == "qkv_cluster_tc_kernel":
             threads = (64 if r["template"].startswith("ILi64") else 32) * 4
+        elif r["kernel"] == "qkv_cluster_fwd_kernel":
+            threads = 2 * 128
+        elif dtype == torch.float32:  # flash_walk.cuh's walks
+            threads = 256
         else:  # the pair's walks: two warps a row group at 128
             threads = 256 if r["kernel"].startswith("bwd_") else 128
         out.append(dict({k: v for k, v in r.items() if k != "source"},
@@ -7481,8 +7648,9 @@ def tile_builds(log, lib):
     return _builds(log, {
         "dot_stats_kernel": ("conv_bn.cu", lib.ptt_dot_stats_smem()),
         "gemm_kernel": ("gemm.cu", lib.ptt_gemm_smem()),
-        "flash_fwd_kernel": ("flash_attention.cu",
-                             lib.ptt_flash_walk_smem(2, 64))})
+        "flash_fwd_kernel": ("flash_attention.cu", lambda args:
+                             lib.ptt_flash_walk_smem(
+                                 2, 128 if "Li128E" in args else 64))})
 
 
 def print_record(r, label):
@@ -7574,6 +7742,36 @@ class _Tee:
         self.stream.flush()
 
 
+#: a phase-3 record's fields that its summary shows, where it has them
+SUMMARY_KEYS = ("route", "batch", "prefill_ms", "decode_tokens_per_s",
+                "requests_per_s", "generated_tokens_per_s", "ttft_ms_p50",
+                "step_ms_median", "tokens_per_s", "images_per_s",
+                "examples_per_s", "f32_peak_share", "bf16_peak_share",
+                "device_busy_ms", "idle_share", "peak_memory_gb")
+
+
+def keep_phase3(kept, tag, records):
+    """Write each of phase 3's ``records`` (one record or a list) to a
+    file of its own in OUT_DIR (``phase3_<tag>.json``, ``_<i>`` after the
+    tag in a list) as it comes, and append its summary to ``kept`` for
+    :func:`print_phase3`: the standard output's tail may not reach back
+    to phase 3."""
+    many = isinstance(records, list)
+    for i, r in enumerate(records if many else [records]):
+        name = f"phase3_{tag}{f'_{i}' if many else ''}.json"
+        with open(os.path.join(OUT_DIR, name), "w") as f:
+            json.dump(r, f, indent=1, default=str)
+        kept.append((tag, {k: r[k] for k in SUMMARY_KEYS if k in r}))
+
+
+def print_phase3(kept):
+    """One short line a kept phase-3 record (at most 300 characters): its
+    summary fields, the whole record being in its file."""
+    for tag, summary in kept:
+        line = json.dumps(summary, default=str)
+        print(f"phase 3 {tag}: {line[:280]}")
+
+
 def _phase_seconds(label, t0):
     """Print a phase's seconds; returns the time it ended."""
     now = time.perf_counter()
@@ -7619,7 +7817,9 @@ def main():
         start_parent_build(args.parent)
     _build.lib()
     print(f"phase 1: kernels built and loaded in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s; the host gives this process "
+          f"{len(os.sched_getaffinity(0))} of {os.cpu_count()} CPUs, torch "
+          f"{torch.get_num_threads()} threads")
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         f.write(_build.build_log())
     open(os.path.join(OUT_DIR, "phase2_records.jsonl"), "w").close()
@@ -7653,7 +7853,7 @@ def main():
         print(f"phase 1: the parent's kernels ({args.parent}) built in "
               f"{time.perf_counter() - t0:.1f} s")
         registers = parent_registers(_build.build_log())
-        print(f"phase 1: f32 registers against the parent's: {registers}")
+        print(f"phase 1: registers against the parent's: {registers}")
 
     gen = torch.Generator().manual_seed(0)
     records = {}
@@ -7714,12 +7914,14 @@ def main():
         records[(name, max(BATCHES))]["build"] = [
             {k: v for k, v in r.items() if k not in ("kernel", "layout")}
             for r in builds if r["kernel"] == kernel and r["dtype"] == "f32"
-            and r["layout"] == layout and r["source"] == "flash_attention.cu"]
+            and r["layout"] == layout and r["source"] == "flash_attention.cu"
+            and "Li128E" not in r["template"]]
     for name, layout in (("flash_fwd", "bthd"), ("flash_fwd_bhtd", "bhtd")):
         records[(name, max(BATCHES))]["build"] = [
             {k: v for k, v in r.items() if k not in ("kernel", "layout")}
             for r in tiles if r["kernel"] == "flash_fwd_kernel"
-            and r["layout"] == layout and r["dtype"] == "f32"]
+            and r["layout"] == layout and r["dtype"] == "f32"
+            and "Li128E" not in r["template"]]
     pair = {}
     for (name, case), r in check_qkv_training(gen).items():
         residuals = " (residuals)" if name == "qkv_attention_fwd" else ""
@@ -7794,30 +7996,43 @@ def main():
         else:
             records[(name, max(BATCHES))] = r
     _phase_seconds("phase 2: head width 128", t_128)
-    # C2 part 2a: the bf16 training kernels at head width 128 (BIG's
-    # widths) beside their head-width-64 instantiations on the same bytes,
-    # with their builds (registers, spills, blocks an SM)
-    t_128 = time.perf_counter()
-    amp128, amp128_cases = check_head128_amp_kernels()
-    for r in amp128_cases:
-        if "ms" in r:
-            print_record(r, f" d_model {BIG['d_model']} {r['case']}")
-            continue
-        with open(os.path.join(OUT_DIR, "phase2_records.jsonl"), "a") as f:
-            f.write(json.dumps(r) + "\n")
-        print(f"phase 2: {r['name']} d_model {BIG['d_model']} {r['case']}"
-              f" b={r['batch']}: max_abs_err {r['max_abs_err']:.3e}, rate "
-              f"{DROPOUT} {r['dropout_max_abs_err']:.3e}"
-              + (f", plan {r['plan']}" if "plan" in r else ""))
-    for name, r in amp128.items():
-        r["build"] = head128_amp_builds(builds, name)
-        records[(name, max(BATCHES))] = r
-    # #5, #8 and #9 at 128 run on no model's path (no model of head width
-    # 128 takes the bhtd layout): their records ride on the bthd kernels'
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        records[(name + "_bf16_dh128", max(BATCHES))]["bhtd"] = \
-            records.pop((name + "_bhtd_bf16_dh128", max(BATCHES)))
-    _phase_seconds("phase 2: bf16 at head width 128", t_128)
+    # C2 part 2: the training kernels at head width 128 (BIG's widths), in
+    # bf16 (amp, part 2a) and in f32 (part 2b), beside their head-width-64
+    # instantiations on the same bytes, with their builds (registers,
+    # spills, shared memory, blocks an SM)
+    for dtype, seed in ((torch.bfloat16, 25), (torch.float32, 26)):
+        t_128 = time.perf_counter()
+        suffix = paddle_tpu_torch.kernels.KERNEL_DTYPES[dtype] + "_dh128"
+        train128, train128_cases = check_head128_train_kernels(dtype, seed)
+        for r in train128_cases:
+            if "ms" in r:
+                print_record(r, f" d_model {BIG['d_model']} {r['case']}")
+                continue
+            with open(os.path.join(OUT_DIR, "phase2_records.jsonl"),
+                      "a") as f:
+                f.write(json.dumps(r) + "\n")
+            print(f"phase 2: {r['name']} d_model {BIG['d_model']} "
+                  f"{r['case']} b={r['batch']}: max_abs_err "
+                  f"{r['max_abs_err']:.3e}, rate {DROPOUT} "
+                  f"{r['dropout_max_abs_err']:.3e}"
+                  + (f", plan {r['plan']}" if "plan" in r else ""))
+        for name, r in train128.items():
+            r["build"] = head128_train_builds(builds + tiles + widths, name)
+            if name == "qkv_attention_fwd_dh128":
+                # #1's f32 record at 128 is the serving one (phase 2's
+                # head width 128), with the training step's residual mode
+                # beside it
+                records[(name, max(BATCHES))]["residual"] = r
+            else:
+                records[(name, max(BATCHES))] = r
+        # #5, #8 and #9 at 128 run on no model's path (no model of head
+        # width 128 takes the bhtd layout): their records ride on the bthd
+        # kernels'
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            records[(name + suffix, max(BATCHES))]["bhtd"] = records.pop(
+                (name + "_bhtd" + suffix, max(BATCHES)))
+        _phase_seconds(f"phase 2: {dtype} training at head width 128",
+                       t_128)
     for r in check_dropout_add(gen):
         print_record(r, f" [{DROPOUT_ROWS}, {BASE['d_model']}] rate "
                         f"{DROPOUT}")
@@ -7906,6 +8121,7 @@ def main():
         print_record(r, label)
         records.setdefault((r["name"], max(BATCHES)), r)
     t_phase = _phase_seconds("phase 2", t_phase)
+    phase3 = []  # each phase-3 record's summary, printed before the kernels
 
     model = paddle_tpu_torch.Transformer(**BASE).init_params(seed=0)
     cpu_model = paddle_tpu_torch.Transformer(**BASE, device="cpu")
@@ -7941,6 +8157,7 @@ def main():
               f"{MAX_OUT}), launches {run['launches']}, logits max_abs_err "
               f"{run['logits_max_abs_err']:.3e}, argmax held on "
               f"{run['argmax_checked']}/{run['argmax_total']} clear steps")
+    keep_phase3(phase3, "main_path", runs)
 
     serving = []
     for paged in (False, True):
@@ -7949,6 +8166,7 @@ def main():
         print(f"phase 3: {stats['route']}: " + ", ".join(
             f"{k} {v}" for k, v in stats.items() if k != "route"))
         serving.append(stats)
+    keep_phase3(phase3, "c_serving", serving)
 
     del cpu_model, unfused
     t_phase = _phase_seconds("phase 3 (main), (a)-(c)", t_phase)
@@ -7968,6 +8186,8 @@ def main():
               f"{run['argmax_checked']}/{run['argmax_total']} clear steps")
     print(f"phase 3 (m): {serving_128['route']}: " + ", ".join(
         f"{k} {v}" for k, v in serving_128.items() if k != "route"))
+    keep_phase3(phase3, "m_head128", runs_128)
+    keep_phase3(phase3, "m_serving_head128", serving_128)
     for b in BATCHES:
         prof = profile_serving(big, b, tag="_dh128")
         for phase, r in prof.items():
@@ -7982,31 +8202,43 @@ def main():
     torch.cuda.empty_cache()
     t_phase = _phase_seconds("phase 3 (m)", t_phase)
 
-    # (n): amp training at head width 128 on Transformer-big's widths, on
-    # both routes from the same seeded weights
-    amp_big = {"fused": paddle_tpu_torch.Transformer(
-        **BIG, dropout_rate=DROPOUT).init_params(seed=0)}
-    amp_big["flag_off"] = paddle_tpu_torch.Transformer(
-        **BIG, dropout_rate=DROPOUT, fused_qkv_attention=False)
-    amp_big["flag_off"].load_state_dict(amp_big["fused"].state_dict())
-    for m in amp_big.values():
-        paddle_tpu_torch.amp.enable(m)
-    training_128 = run_head128_amp(amp_big)
-    big_feed = _to(training_batch(seed=2), DEV)
-    for r, (route, m) in zip(training_128, amp_big.items()):
-        prof = profile_training(m, f"amp_bf16_dh128_{route}", feed=big_feed)
-        r.update(device_busy_ms=prof["device_busy_ms"],
-                 idle_share=prof["idle_share"], wall_ms=prof["wall_ms"],
-                 profile_top=prof["top"][:8])
-        print("phase 3 (n): " + ", ".join(f"{k} {v}" for k, v in r.items()))
-    print(f"phase 3 (n): amp step at head width 128, fused route against "
-          f"flag-off: {training_128[0]['step_ms_median']} ms against "
-          f"{training_128[1]['step_ms_median']} ms, "
-          f"{training_128[0]['tokens_per_s']} against "
-          f"{training_128[1]['tokens_per_s']} target tokens/s")
-    del amp_big, big_feed
-    torch.cuda.empty_cache()
-    t_phase = _phase_seconds("phase 3 (n)", t_phase)
+    # (n) amp and (o) f32 training at head width 128 on Transformer-big's
+    # widths, on both routes from the same seeded weights
+    training_128 = {}
+    for letter, dtype, kind in (("n", torch.bfloat16, "amp"),
+                                ("o", torch.float32, "f32")):
+        big = {"fused": paddle_tpu_torch.Transformer(
+            **BIG, dropout_rate=DROPOUT).init_params(seed=0)}
+        big["flag_off"] = paddle_tpu_torch.Transformer(
+            **BIG, dropout_rate=DROPOUT, fused_qkv_attention=False)
+        big["flag_off"].load_state_dict(big["fused"].state_dict())
+        if kind == "amp":
+            for m in big.values():
+                paddle_tpu_torch.amp.enable(m)
+        recs = training_128[kind] = run_head128_train(big, dtype)
+        big_feed = _to(training_batch(seed=2), DEV)
+        tag = "amp_bf16" if kind == "amp" else "f32"
+        for r, (route, m) in zip(recs, big.items()):
+            prof = profile_training(m, f"{tag}_dh128_{route}", feed=big_feed)
+            r.update(device_busy_ms=prof["device_busy_ms"],
+                     idle_share=prof["idle_share"], wall_ms=prof["wall_ms"],
+                     walks_ms=prof["walks_ms"],
+                     gemm_cuh_ms=prof["gemm_cuh_ms"],
+                     library_gemm_ms=prof["library_gemm_ms"],
+                     profile_top=prof["top"][:8])
+            print(f"phase 3 ({letter}): " + ", ".join(
+                f"{k} {v}" for k, v in r.items()))
+        share = "bf16_peak_share" if kind == "amp" else "f32_peak_share"
+        print(f"phase 3 ({letter}): {kind} step at head width 128, fused "
+              f"route against flag-off: {recs[0]['step_ms_median']} ms "
+              f"against {recs[1]['step_ms_median']} ms, "
+              f"{recs[0]['tokens_per_s']} against "
+              f"{recs[1]['tokens_per_s']} target tokens/s, {share} "
+              f"{recs[0][share]} against {recs[1][share]}")
+        keep_phase3(phase3, f"{letter}_training_head128_{kind}", recs)
+        del big, big_feed
+        torch.cuda.empty_cache()
+        t_phase = _phase_seconds(f"phase 3 ({letter})", t_phase)
 
     train_model = paddle_tpu_torch.Transformer(
         **BASE, fused_qkv_attention=False).init_params(seed=1)
@@ -8024,10 +8256,12 @@ def main():
     training, parity = run_training(train_model, *cpu_copies)
     del cpu_copies
     print("phase 3: " + ", ".join(f"{k} {v}" for k, v in training.items()))
+    keep_phase3(phase3, "d_training", training)
     training_fused = run_training_fused(fused_train, parity)
     del parity
     print("phase 3: " + ", ".join(f"{k} {v}"
                                   for k, v in training_fused.items()))
+    keep_phase3(phase3, "e_training_fused", training_fused)
     print(f"phase 3: training step, fused route against flag-off: "
           f"{training_fused['step_ms_median']} ms against "
           f"{training['step_ms_median']} ms, "
@@ -8051,6 +8285,7 @@ def main():
     del drop_cpu, drop_models[1]
     print("phase 3: " + ", ".join(f"{k} {v}"
                                   for k, v in training_dropout.items()))
+    keep_phase3(phase3, "f_training_dropout", training_dropout)
 
     # (j): bf16 amp on the default route at dropout 0.1, from the same
     # initial weights, held against (f)'s float64 step
@@ -8062,6 +8297,7 @@ def main():
     del amp_parity
     print("phase 3: " + ", ".join(f"{k} {v}"
                                   for k, v in training_amp.items()))
+    keep_phase3(phase3, "j_training_amp", training_amp)
     print(f"phase 3: training step, amp bf16 against f32 (dropout "
           f"{DROPOUT}, fused route): {training_amp['step_ms_median']} ms "
           f"against {training_dropout['step_ms_median']} ms, "
@@ -8085,6 +8321,7 @@ def main():
     training_resnet, resnet_parity = run_resnet(resnet)
     print("phase 3: " + ", ".join(f"{k} {v}"
                                   for k, v in training_resnet.items()))
+    keep_phase3(phase3, "g_resnet", training_resnet)
     t_phase = _phase_seconds("phase 3 (d)-(g) and (j)", t_phase)
 
     # (l): ResNet-50 under bf16 amp from (g)'s initial weights, held
@@ -8097,6 +8334,7 @@ def main():
     del resnet_parity
     print("phase 3: " + ", ".join(f"{k} {v}"
                                   for k, v in training_resnet_amp.items()))
+    keep_phase3(phase3, "l_resnet_amp", training_resnet_amp)
     print(f"phase 3: resnet50 step, amp bf16 against f32: "
           f"{training_resnet_amp['step_ms_median']} ms against "
           f"{training_resnet['step_ms_median']} ms, "
@@ -8114,8 +8352,10 @@ def main():
     training_deepfm = run_deepfm(deepfm)
     print("phase 3: " + ", ".join(f"{k} {v}"
                                   for k, v in training_deepfm.items()))
+    keep_phase3(phase3, "h_deepfm", training_deepfm)
     demo = run_demo_head16()
     print("phase 3: " + ", ".join(f"{k} {v}" for k, v in demo.items()))
+    keep_phase3(phase3, "demo_head16", demo)
     t_phase = _phase_seconds("phase 3 (h) and the head-width-16 demo",
                              t_phase)
 
@@ -8131,6 +8371,7 @@ def main():
     del bert_composed
     for r in training_bert:
         print("phase 3: " + ", ".join(f"{k} {v}" for k, v in r.items()))
+    keep_phase3(phase3, "i_bert", training_bert)
     print(f"phase 3: BERT-base step, attention_fuse (bhtd) route against "
           f"use_flash: {training_bert[0]['step_ms_median']} ms against "
           f"{training_bert[1]['step_ms_median']} ms, "
@@ -8151,6 +8392,7 @@ def main():
     del bert_parity
     for r in training_bert_amp:
         print("phase 3: " + ", ".join(f"{k} {v}" for k, v in r.items()))
+    keep_phase3(phase3, "k_bert_amp", training_bert_amp)
     for amp_r, f32_r in zip(training_bert_amp, training_bert):
         print(f"phase 3: {amp_r['route']} against f32 ({f32_r['route']}): "
               f"{amp_r['step_ms_median']} ms against "
@@ -8309,10 +8551,11 @@ def main():
 
     # launches over every counted path; the FFN counter is split between
     # the ring paths (#11) and the paged ones (#13)
-    paths = runs + serving + runs_128 + training_128 + [
-        serving_128, training, training_fused, training_dropout,
-        training_amp, training_resnet, training_resnet_amp, training_deepfm,
-        demo, *training_bert, *training_bert_amp]
+    paths = runs + serving + runs_128 + [
+        *training_128["amp"], *training_128["f32"], serving_128, training,
+        training_fused, training_dropout, training_amp, training_resnet,
+        training_resnet_amp, training_deepfm, demo, *training_bert,
+        *training_bert_amp]
     total = {name: sum(r["launches"][name] for r in paths)
              for name in paths[0]["launches"]}
     paged_ffn = sum(r["launches"]["ffn"] for r in paths
@@ -8334,7 +8577,7 @@ def main():
                  *(name + "_dh128"
                    for name in paddle_tpu_torch.kernels.DH128_KERNELS
                    # on no path at 128: in the bthd kernels' records
-                   if "_bhtd_bf16" not in name)):
+                   if "_bhtd" not in name)):
         r = dict(records[(name, max(BATCHES))])
         r.pop("library_max_abs_err", None)
         r["launches"] = total[name]
@@ -8342,7 +8585,8 @@ def main():
         kernels_line.append(r)
     print(json.dumps({"main_path": runs, "serving": serving,
                       "head128": runs_128, "serving_head128": serving_128,
-                      "training_head128_amp": training_128,
+                      "training_head128_amp": training_128["amp"],
+                      "training_head128_f32": training_128["f32"],
                       "training": training, "training_fused": training_fused,
                       "training_dropout": training_dropout,
                       "training_amp": training_amp,
@@ -8365,6 +8609,7 @@ def main():
                       "parent_bits": parent_bits,
                       "profile_training": profiles,
                       "power": smi}))
+    print_phase3(phase3)
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

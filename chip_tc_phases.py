@@ -8,7 +8,7 @@ forward (``csrc/flash_tc.cuh``), #1's cluster route
 (the same walks on bf16 rows); and #16, #17 (``csrc/dropout_add.cu``,
 no tensor cores) alone with ``dropout``.
 
-    python3 chip_tc_phases.py [dropout | width128]
+    python3 chip_tc_phases.py [dropout | width128 | walk128]
 
 Builds temporary copies of the sources by ``chip_kernel_copies`` (the
 tree is not changed):
@@ -55,7 +55,13 @@ tree is not changed):
   spills and stack at 128 beside the tree's (``-Xptxas -v``), its bits
   against the tree's, and its time beside the tree's (alternated tree,
   copy, copy, tree) at the amp step's cross-attention (#6, #7) and
-  encoder self-attention (the pair) at 8 heads of 128, d_model 1024.
+  encoder self-attention (the pair) at 8 heads of 128, d_model 1024;
+* ``walk128`` (only it): the same for the f32 walks of
+  ``csrc/flash_walk.cuh`` at head width 128 (#6, #7 and the pair's, on
+  the CUDA cores) with another ring of walked tiles (one
+  buffer of each operand, each step's loads behind its products, where
+  the tree keeps two stages of the operand a step reads twice), built
+  by the text edits of WALK128_RING2.
 
 #4's copies are timed on the cross-attention (pad bias) and the decoder
 self-attention (decoder bias) beside the tree's kernel and masked
@@ -82,6 +88,7 @@ import ctypes
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -572,6 +579,10 @@ def main():
         width128_times()
         print(json.dumps({"ok": True}))
         return 0
+    if sys.argv[1:] == ["walk128"]:
+        walk128_times()
+        print(json.dumps({"ok": True}))
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.lib()
     with tempfile.TemporaryDirectory() as out_dir:
@@ -700,29 +711,29 @@ def ptxas_registers(log, kernels):
     return out
 
 
-def width128_times():
-    """The ``width128`` mode: the walks with the other split of a row
-    group's columns (WIDTH_SPLIT), built as copies of
-    ``flash_attention.cu`` and ``qkv_attention_bwd.cu``; one JSON line
-    each of the builds and of the timed walks."""
-    import chip_smoke as cs
+def _width_copies(texts, walks, label, headers=None):
+    """Build ``texts`` ({source: its edited text}, one ``nvcc`` each, all
+    started together) and bind each library's entry points; print each
+    copy's head-width-128 builds of ``walks`` as one JSON line under
+    ``label``.  With ``headers`` ({header: its edited text}) the copies
+    compile beside a copy of ``csrc`` holding those headers, so that every
+    header which includes one reads the edited text.  Returns {source:
+    library}."""
     from paddle_tpu_torch.kernels import _build
-    from paddle_tpu_torch.kernels import attention as ka
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    _build.lib()
-    walks = ("flash_dq_tc_kernel", "flash_dkv_tc_kernel", "bwd_dq_tc_kernel",
-             "bwd_dkv_tc_kernel")
-    print(json.dumps({"build": "tree", "walks": ptxas_registers(
-        _build.build_log(), walks)}))
-    h = ck.edit(read("flash_bwd_tc.cuh"), *WIDTH_SPLIT, "flash_bwd_tc.cuh")
     libs = {}
     with tempfile.TemporaryDirectory() as out_dir:
+        if headers:
+            for name in os.listdir(_build.CSRC_DIR):
+                shutil.copy(os.path.join(_build.CSRC_DIR, name), out_dir)
+            for name, text in headers.items():
+                with open(os.path.join(out_dir, name), "w") as f:
+                    f.write(text)
         jobs = []
-        for src in ("flash_attention.cu", "qkv_attention_bwd.cu"):
+        for src, text in texts.items():
             path = os.path.join(out_dir, src)
             with open(path, "w") as f:
-                f.write(inline(read(src), "flash_bwd_tc.cuh", h, src))
+                f.write(text)
             so = os.path.join(out_dir, f"lib{src[:-3]}.so")
             jobs.append((src, so, subprocess.Popen(
                 [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-I",
@@ -732,7 +743,7 @@ def width128_times():
             log, _ = proc.communicate()
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed on the {src} copy:\n{log}")
-            print(json.dumps({"build": "other split", "source": src,
+            print(json.dumps({"build": label, "source": src,
                               "walks": ptxas_registers(log, walks)}))
             lib = ctypes.CDLL(so)
             for name, (restype, argtypes) in _build._SIGNATURES.items():
@@ -740,38 +751,179 @@ def width128_times():
                     fn = getattr(lib, name)
                     fn.restype, fn.argtypes = restype, argtypes
             libs[src] = lib
-    gen = torch.Generator().manual_seed(3)
-    q, k, v, do, bias = cs._bf16(*cs._flash_inputs(gen, 256, 256, "pad",
-                                                   False, cs.BIG))
+    return libs
+
+
+def _alternated(name, fn, lib, label):
+    """One JSON line: ``fn`` (a call returning tensors) on the tree's
+    kernels and on ``lib``'s, their bits compared, each timed device only
+    in turns (tree, copy, copy, tree)."""
+    import chip_smoke as cs
+    from paddle_tpu_torch.kernels import _build
+
+    tree = fn()
+    with cs.kernel_library(lib):
+        other = fn()
+        torch.cuda.synchronize()
+    times = []
+    for which in (None, lib, lib, None):
+        with cs.kernel_library(which or _build.lib()):
+            times.append(cs.cuda_ms(fn, hide_host=True))
+    print(json.dumps({
+        "kernel": name, "same_bits": all(
+            torch.equal(a, c) for a, c in zip(tree, other)),
+        "tree_ms": [times[0], times[3]], label + "_ms": [times[1], times[2]],
+        "card": ck.card()}))
+
+
+def _width128_inputs(gen, dtype):
+    """The walks' inputs at 8 heads of 128 in ``dtype``: #6's and #7's at
+    the cross-attention (b 32, t 256, pad bias) and the pair's at the
+    encoder self-attention (d_model 1024)."""
+    import chip_smoke as cs
+    from paddle_tpu_torch.kernels import attention as ka
+
+    q, k, v, do, bias = [a.to(dtype).contiguous() for a in cs._flash_inputs(
+        gen, 256, 256, "pad", False, cs.BIG)]
     kw = dict(scale=128 ** -0.5, causal=False)
     o, lse = ka.flash_fwd(q, k, v, bias, **kw)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     bw = (q, k, v, bias, do, lse, delta)
-    x, w_qkv, w_out, g, qb = cs._bf16(*cs._qkv_inputs(
-        gen, 256, "pad", cs.TRAIN_BATCH, cs.BIG["d_model"]))
+    x, w_qkv, w_out, g, qb = [a.to(dtype).contiguous() for a in
+                              cs._qkv_inputs(gen, 256, "pad", cs.TRAIN_BATCH,
+                                             cs.BIG["d_model"])]
     qkw = dict(n_head=cs.BIG["n_head"], scale=128 ** -0.5)
     _, ctx, qlse = ka.qkv_attention_fwd(x, w_qkv, w_out, qb, **qkw)
     pw = (x, w_qkv, w_out, qb, g, ctx, qlse)
-    for name, src, fn in (
-            ("flash_bwd_dq_bf16_dh128", "flash_attention.cu",
-             lambda: (ka.flash_bwd_dq(*bw, **kw),)),
-            ("flash_bwd_dkv_bf16_dh128", "flash_attention.cu",
-             lambda: ka.flash_bwd_dkv(*bw, **kw)),
-            ("qkv_bwd_bf16_dh128", "qkv_attention_bwd.cu",
-             lambda: ka.qkv_bwd(*pw, **qkw))):
-        tree = fn()
-        with cs.kernel_library(libs[src]):
-            other = fn()
-            torch.cuda.synchronize()
-        times = []
-        for lib in (None, libs[src], libs[src], None):
-            with cs.kernel_library(lib or _build.lib()):
-                times.append(cs.cuda_ms(fn, hide_host=True))
-        print(json.dumps({
-            "kernel": name, "same_bits": all(
-                torch.equal(a, c) for a, c in zip(tree, other)),
-            "tree_ms": [times[0], times[3]],
-            "other_split_ms": [times[1], times[2]], "card": ck.card()}))
+    return (
+        ("flash_bwd_dq", "flash_attention.cu",
+         lambda: (ka.flash_bwd_dq(*bw, **kw),)),
+        ("flash_bwd_dkv", "flash_attention.cu",
+         lambda: ka.flash_bwd_dkv(*bw, **kw)),
+        ("qkv_bwd", "qkv_attention_bwd.cu", lambda: ka.qkv_bwd(*pw, **qkw)))
+
+
+def width128_times():
+    """The ``width128`` mode: the walks with the other split of a row
+    group's columns (WIDTH_SPLIT), built as copies of
+    ``flash_attention.cu`` and ``qkv_attention_bwd.cu``; one JSON line
+    each of the builds and of the timed walks."""
+    from paddle_tpu_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.lib()
+    walks = ("flash_dq_tc_kernel", "flash_dkv_tc_kernel", "bwd_dq_tc_kernel",
+             "bwd_dkv_tc_kernel")
+    print(json.dumps({"build": "tree", "walks": ptxas_registers(
+        _build.build_log(), walks)}))
+    h = ck.edit(read("flash_bwd_tc.cuh"), *WIDTH_SPLIT, "flash_bwd_tc.cuh")
+    libs = _width_copies({src: inline(read(src), "flash_bwd_tc.cuh", h, src)
+                          for src in ("flash_attention.cu",
+                                      "qkv_attention_bwd.cu")},
+                         walks, "other split")
+    for name, src, fn in _width128_inputs(torch.Generator().manual_seed(3),
+                                          torch.bfloat16):
+        _alternated(name + "_bf16_dh128", fn, libs[src], "other_split")
+
+
+#: ``walk128``: the f32 backward walks at head width 128 with a ring of
+#: two walked tiles (one buffer of each operand; the tree keeps two stages
+#: of the operand a step reads twice and one buffer of the other): the
+#: (old, new) edits of ``csrc/flash_walk.cuh`` that build it
+WALK128_RING2 = (
+    ("  static constexpr int kRing = W == 64 ? 4 : 3;\n",
+     "  static constexpr int kRing = W == 64 ? 4 : 2;\n"),
+    # dq: the next k staged after this step's last product, not at its top
+    ("    if (more) {  // the next k (and v) into the stage the last step "
+     "left\n"
+     "      stage_rows<WN>(k_tile(kt + 1), k, bi, k0 + WN, tk, head);\n"
+     "      if (kRing == 4) stage_rows<WN>(v_tile(kt + 1), v, bi, k0 + WN, "
+     "tk, head);\n"
+     "      async_commit();\n"
+     "    }\n", ""),
+    ("    if (kt == 0 || kRing < 4) {  // this step's v (at kt 0 dO and the "
+     "bias)\n"
+     "      if (more)\n"
+     "        async_wait<1>();\n"
+     "      else\n"
+     "        async_wait<0>();\n"
+     "      __syncthreads();\n"
+     "    }\n",
+     "    async_wait<0>();  // this step's v (at kt 0 dO and the bias)\n"
+     "    __syncthreads();\n"),
+    ("    if (kRing == 3)\n"
+     "      async_wait<1>();  // the next k; its v and bias may be in "
+     "flight\n"
+     "    else\n"
+     "      async_wait<0>();\n",
+     "    __syncthreads();  // the next k into the one stage\n"
+     "    if (more) {\n"
+     "      stage_rows<WN>(k_tile(kt + 1), k, bi, k0 + WN, tk, head);\n"
+     "      async_commit();\n"
+     "    }\n"
+     "    async_wait<0>();\n"),
+    # dkv: the next q, lse and delta staged after this step's last product
+    ("    if (more) {  // the next q (and dO), lse, delta into the stage the\n"
+     "                 // last step left\n"
+     "      float* next_st = st_s + (slot ^ 1) * 2 * WN;\n"
+     "      stage_rows<WN>(q_tile(slot ^ 1), q, bi, q0 + WN, tq, head);\n"
+     "      if (kRing == 4)\n"
+     "        stage_rows<WN>(do_tile(slot ^ 1), dout, bi, q0 + WN, tq, "
+     "head);\n"
+     "      stage_stats(next_st, lse_h, q0 + WN, tq, 0);\n"
+     "      stage_stats(next_st + WN, delta_h, q0 + WN, tq, WN);\n"
+     "      async_commit();\n"
+     "    }\n", ""),
+    ("    if (qt == lo || kRing < 4) {  // this step's dO and bias (at the "
+     "first\n"
+     "                                  // step v, lse and delta)\n"
+     "      if (more)\n"
+     "        async_wait<1>();\n"
+     "      else\n"
+     "        async_wait<0>();\n"
+     "      __syncthreads();\n"
+     "    }\n",
+     "    async_wait<0>();  // this step's dO and bias\n"
+     "    __syncthreads();\n"),
+    ("    if (kRing == 3)\n"
+     "      async_wait<1>();  // the next q; its dO may be in flight\n"
+     "    else\n"
+     "      async_wait<0>();\n",
+     "    __syncthreads();  // the next q, lse and delta into the one stage\n"
+     "    if (more) {\n"
+     "      float* next_st = st_s + (slot ^ 1) * 2 * WN;\n"
+     "      stage_rows<WN>(q_tile(slot ^ 1), q, bi, q0 + WN, tq, head);\n"
+     "      stage_stats(next_st, lse_h, q0 + WN, tq, 0);\n"
+     "      stage_stats(next_st + WN, delta_h, q0 + WN, tq, WN);\n"
+     "      async_commit();\n"
+     "    }\n"
+     "    async_wait<0>();\n"))
+
+
+def walk128_times():
+    """The ``walk128`` mode: the f32 backward walks at head width 128 (#6,
+    #7 and the pair's, ``csrc/flash_walk.cuh``) with a ring of two walked
+    tiles (WALK128_RING2), built as copies of ``flash_attention.cu`` and
+    ``qkv_attention_bwd.cu``; the copies' registers, spills and stack
+    beside the tree's, their bits against the tree's and their times
+    beside the tree's."""
+    from paddle_tpu_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.lib()
+    walks = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+    print(json.dumps({"build": "tree", "walks": ptxas_registers(
+        _build.build_log(), walks)}))
+    h = read("flash_walk.cuh")
+    for old, new in WALK128_RING2:
+        h = ck.edit(h, old, new, "flash_walk.cuh")
+    # flash_tc.cuh and flash_bwd_tc.cuh include the walks too
+    libs = _width_copies({src: read(src) for src in ("flash_attention.cu",
+                                                     "qkv_attention_bwd.cu")},
+                         walks, "ring 2", headers={"flash_walk.cuh": h})
+    for name, src, fn in _width128_inputs(torch.Generator().manual_seed(3),
+                                          torch.float32):
+        _alternated(name + "_dh128", fn, libs[src], "ring_2")
 
 
 def flash_bwd_times(gen, variants, libs):

@@ -1,6 +1,6 @@
-// Flash attention over [b, t, h, 64] tensors (the "bthd" layout) and over
-// [b, h, t, 64] tensors (the "bhtd" layout), forward and both backward
-// passes, in f32 and in bf16 (amp), for sm_90a.
+// Flash attention over [b, t, h, d] tensors (the "bthd" layout) and over
+// [b, h, t, d] tensors (the "bhtd" layout), forward and both backward
+// passes, in f32 and in bf16 (amp), at head width d 64 or 128, for sm_90a.
 //
 // Replaces paddle_tpu/kernels/attention.py _fwd_kernel_bthd (#4),
 // _bwd_dq_kernel_bthd (#6) and _bwd_dkv_kernel_bthd (#7), the Pallas
@@ -15,34 +15,36 @@
 //   dkv      dv = sum_q p^T dO,  dk = sum_q (p (dp - delta) * scale)^T q
 //
 // The two layouts are instantiations of the same kernels on a row layout
-// (flash_walk.cuh Bthd, Bhtd), so each layout has its own kernels and
-// entry points and both compute in the same order.  In bhtd a head's
-// [t, 64] slab is contiguous, so a k or v tile is one contiguous 16 KB
-// block (a single bulk copy for a later TMA design); the staging here reads
-// it as the bthd kernels read their strided rows.
+// (flash_walk.cuh BthdOf<d>, BhtdOf<d>), so each layout has its own
+// kernels and entry points and both compute in the same order.  In bhtd a
+// head's [t, d] slab is contiguous, so a k or v tile is one contiguous 16
+// or 32 KB block (a single bulk copy for a later TMA design); the staging
+// here reads it as the bthd kernels read their strided rows.
 //
-// Grid: every pass takes one block of 256 threads per (128-row tile, head,
-// batch row): the forward and dq per q tile, walking the 64-row k tiles;
-// dkv per k tile, walking the 64-row q tiles.  The TPU kernels walk all
+// Grid (f32): every pass takes one block of 256 threads per (WM-row tile,
+// head, batch row), WM 128 at d 64 and 64 at d 128: the forward and dq per
+// q tile, walking the 64-row k tiles; dkv per k tile, walking the 64-row q
+// tiles.  The TPU kernels walk all
 // heads of a batch row in one grid step in bthd (whole-head tiles suit
 // Mosaic's (8, 128) layout) and one (batch row, head) per grid row in
-// bhtd; here a head is a block in both, so b * h * t / 128 blocks fill the
+// bhtd; here a head is a block in both, so b * h * t / WM blocks fill the
 // card.  Every output element belongs to one block, which sums in a fixed
 // order: no atomics, and the results are the same from run to run.
 //
 // The kernels live in flash_walk.cuh, which the fused-projection backward
-// (#2, #3) shares: one block an SM, an 8x4 patch a thread of every [128,
-// 64] tile product, each operand tile staged once as it lies in memory
-// through a two-stage cp.async ring, the bias staged row by row.  The
-// forward computes s = q k^T and acc += p v on that patch, with its online
-// softmax on the 8 rows a thread owns.
+// (#2, #3) shares: one block an SM, 32 accumulators a thread of every
+// output tile product (an 8x4 patch at d 64, 4x8 at 128), each operand
+// tile staged once as it lies in memory through a cp.async ring, the bias
+// staged row by row.  The forward computes s = q k^T and acc += p v on
+// those patches, with its online softmax on the rows a thread owns.
 //
 // Bound: f32 FMA work on the CUDA cores (the run is f32 with TF32 off):
-// 4, 6 and 8 * b*h*tq*tk*64 FLOPs for forward, dq and dkv against 67
-// TFLOP/s.  Each reads 3 to 6 [b, t, h, 64] tensors once per tile walk,
-// about a third of the FLOP time at t = 256.  Every product does 128 FMAs
-// per 12 float4 reads of shared memory, which caps it at two thirds of the
-// FMA rate.  No tensor cores (wgmma, TF32), no TMA: later work.
+// 4, 6 and 8 * b*h*tq*tk*d FLOPs for forward, dq and dkv against 67
+// TFLOP/s.  Each reads 3 to 6 [b, t, h, d] tensors once per tile walk,
+// about a third of the FLOP time at t = 256.  An 8x4 or 4x8 patch does 128
+// FMAs per 12 float4 reads of shared memory, which caps a product at two
+// thirds of the FMA rate; the 4x4 score patches at d 128, 64 FMAs per 8
+// reads, at half.  No tensor cores (wgmma, TF32), no TMA: later work.
 //
 // Weights dropout (the reference's dropout on the softmax, inside the
 // kernels): the normalizer l sums the undropped p, the p tile multiplying
@@ -63,9 +65,9 @@
 // bthd kernels' instantiations on Bhtd.  The scale multiplies the f32
 // scores, as the reference's f32 q * scale product does up to f32
 // rounding.  flash_walk.cuh's walks are f32 only.  Every entry point takes
-// the head width d_head after the heads: the f32 kernels take 64 (another
-// width returns cudaErrorInvalidValue), the bf16 ones 64 and 128, each
-// instantiated on BthdOf<d> or BhtdOf<d> (with_width).
+// the head width d_head after the heads, 64 or 128 (another width returns
+// cudaErrorInvalidValue), f32 and bf16 alike, each kernel instantiated on
+// BthdOf<d> or BhtdOf<d> (with_width).
 //
 // Masking follows the TPU kernels: causal (bottom-right aligned, offset
 // tk - tq) and out-of-range keys score -1e30 in the forward; a row whose
@@ -175,32 +177,34 @@ int with_width(int h, int d_head, F&& f) {
 
 }  // namespace
 
-// Dynamic shared memory of a walk's block in bytes: the f32 dq walk (0),
-// the f32 dkv walk (1), the f32 forward (2) at head width dh 64, or, at dh
-// 64 or 128, the bf16 forward on tensor cores (3), the bf16 dq walk on
-// tensor cores (4) or its dkv walk (5); 0 for another width.
+// Dynamic shared memory of a walk's block in bytes at head width dh (64
+// or 128; 0 for another width): the f32 dq walk (0), the f32 dkv walk (1),
+// the f32 forward (2), the bf16 forward on tensor cores (3), the bf16 dq
+// walk on tensor cores (4) or its dkv walk (5).
 extern "C" int64_t ptt_flash_walk_smem(int which, int dh) {
   if (dh == 128)
     return (int64_t)(which == 5   ? Bw<false, 128>::kDkvSmem
                      : which == 4 ? Bw<false, 128>::kDqSmem
                      : which == 3 ? FtShape<128>::kSmem
-                                  : 0);
+                     : which == 2 ? WalkShape<128>::kFwdSmem
+                     : which      ? WalkShape<128>::kDkvSmem
+                                  : WalkShape<128>::kDqSmem);
   if (dh != 64) return 0;
   return (int64_t)(which == 5   ? Bw<false, 64>::kDkvSmem
                    : which == 4 ? Bw<false, 64>::kDqSmem
                    : which == 3 ? kFwdTcSmem
-                   : which == 2 ? kFwdSmem
-                   : which      ? kDkvSmem
-                                : kDqSmem);
+                   : which == 2 ? WalkShape<64>::kFwdSmem
+                   : which      ? WalkShape<64>::kDkvSmem
+                                : WalkShape<64>::kDqSmem);
 }
 
-// #4.  q [b, tq, h, 64], k and v [b, tk, h, 64], o like q, lse [b, h, tq];
+// #4.  q [b, tq, h, d], k and v [b, tk, h, d], o like q, lse [b, h, tq];
 // all contiguous f32.  bias may be null; otherwise its element (b, h, q, k)
-// lies at b*bs_b + h*bs_h + q*bs_q + k*bs_k.  d_head is 64 (another width
-// returns cudaErrorInvalidValue; the caller checks it).  rate 0 runs
-// without dropout; otherwise weights are kept where the hash of (seed,
-// b*h + head, q*tk + k) >= threshold (tq*tk <= 2^32, checked by the
-// caller).
+// lies at b*bs_b + h*bs_h + q*bs_q + k*bs_k.  d = d_head is 64 or 128
+// (another width returns cudaErrorInvalidValue; the caller checks it).
+// rate 0 runs without dropout; otherwise weights are kept where the hash
+// of (seed, b*h + head, q*tk + k) >= threshold (tq*tk <= 2^32, checked by
+// the caller).
 extern "C" int ptt_flash_fwd(const float* q, const float* k, const float* v,
                              const float* bias, int64_t bs_b, int64_t bs_h,
                              int64_t bs_q, int64_t bs_k, float* o,
@@ -208,10 +212,10 @@ extern "C" int ptt_flash_fwd(const float* q, const float* k, const float* v,
                              int d_head, float scale, int causal,
                              double rate, unsigned seed, unsigned threshold,
                              void* stream) {
-  if (d_head != DH) return (int)cudaErrorInvalidValue;
-  return run_fwd(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o,
-                 lse, b, tq, tk, h, scale, causal, rate, seed, threshold,
-                 stream);
+  return with_width<false>(h, d_head, [&](auto l) {
+    return run_fwd(l, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o, lse, b,
+                   tq, tk, h, scale, causal, rate, seed, threshold, stream);
+  });
 }
 
 // #6.  dout like q; lse and delta = rowsum(dout * o) [b, h, tq]; dq like
@@ -225,10 +229,11 @@ extern "C" int ptt_flash_bwd_dq(const float* q, const float* k,
                                 int d_head, float scale, int causal,
                                 double rate, unsigned seed,
                                 unsigned threshold, void* stream) {
-  if (d_head != DH) return (int)cudaErrorInvalidValue;
-  return run_dq(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
-                lse, delta, dq, b, tq, tk, h, scale, causal, rate, seed,
-                threshold, stream);
+  return with_width<false>(h, d_head, [&](auto l) {
+    return run_dq(l, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout, lse,
+                  delta, dq, b, tq, tk, h, scale, causal, rate, seed,
+                  threshold, stream);
+  });
 }
 
 // #7.  As ptt_flash_bwd_dq; dk and dv like k.
@@ -241,14 +246,15 @@ extern "C" int ptt_flash_bwd_dkv(const float* q, const float* k,
                                  int h, int d_head, float scale, int causal,
                                  double rate, unsigned seed,
                                  unsigned threshold, void* stream) {
-  if (d_head != DH) return (int)cudaErrorInvalidValue;
-  return run_dkv(Bthd{h * DH}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout,
-                 lse, delta, dk, dv, b, tq, tk, h, scale, causal, rate, seed,
-                 threshold, stream);
+  return with_width<false>(h, d_head, [&](auto l) {
+    return run_dkv(l, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout, lse,
+                   delta, dk, dv, b, tq, tk, h, scale, causal, rate, seed,
+                   threshold, stream);
+  });
 }
 
-// #5.  As ptt_flash_fwd over [b, h, t, 64] tensors: q and o [b, h, tq, 64],
-// k and v [b, h, tk, 64]; lse [b, h, tq].
+// #5.  As ptt_flash_fwd over [b, h, t, d] tensors: q and o [b, h, tq, d],
+// k and v [b, h, tk, d]; lse [b, h, tq].
 extern "C" int ptt_flash_fwd_bhtd(const float* q, const float* k,
                                   const float* v, const float* bias,
                                   int64_t bs_b, int64_t bs_h, int64_t bs_q,
@@ -257,12 +263,13 @@ extern "C" int ptt_flash_fwd_bhtd(const float* q, const float* k,
                                   float scale, int causal, double rate,
                                   unsigned seed, unsigned threshold,
                                   void* stream) {
-  if (d_head != DH) return (int)cudaErrorInvalidValue;
-  return run_fwd(Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o, lse, b,
-                 tq, tk, h, scale, causal, rate, seed, threshold, stream);
+  return with_width<true>(h, d_head, [&](auto l) {
+    return run_fwd(l, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, o, lse, b,
+                   tq, tk, h, scale, causal, rate, seed, threshold, stream);
+  });
 }
 
-// #8.  As ptt_flash_bwd_dq over [b, h, t, 64] tensors.
+// #8.  As ptt_flash_bwd_dq over [b, h, t, d] tensors.
 extern "C" int ptt_flash_bwd_dq_bhtd(const float* q, const float* k,
                                      const float* v, const float* bias,
                                      int64_t bs_b, int64_t bs_h,
@@ -273,13 +280,14 @@ extern "C" int ptt_flash_bwd_dq_bhtd(const float* q, const float* k,
                                      int d_head, float scale, int causal,
                                      double rate, unsigned seed,
                                      unsigned threshold, void* stream) {
-  if (d_head != DH) return (int)cudaErrorInvalidValue;
-  return run_dq(Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout, lse,
-                delta, dq, b, tq, tk, h, scale, causal, rate, seed,
-                threshold, stream);
+  return with_width<true>(h, d_head, [&](auto l) {
+    return run_dq(l, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout, lse,
+                  delta, dq, b, tq, tk, h, scale, causal, rate, seed,
+                  threshold, stream);
+  });
 }
 
-// #9.  As ptt_flash_bwd_dkv over [b, h, t, 64] tensors.
+// #9.  As ptt_flash_bwd_dkv over [b, h, t, d] tensors.
 extern "C" int ptt_flash_bwd_dkv_bhtd(const float* q, const float* k,
                                       const float* v, const float* bias,
                                       int64_t bs_b, int64_t bs_h,
@@ -291,10 +299,11 @@ extern "C" int ptt_flash_bwd_dkv_bhtd(const float* q, const float* k,
                                       int h, int d_head, float scale,
                                       int causal, double rate, unsigned seed,
                                       unsigned threshold, void* stream) {
-  if (d_head != DH) return (int)cudaErrorInvalidValue;
-  return run_dkv(Bhtd{h}, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout, lse,
-                 delta, dk, dv, b, tq, tk, h, scale, causal, rate, seed,
-                 threshold, stream);
+  return with_width<true>(h, d_head, [&](auto l) {
+    return run_dkv(l, q, k, v, bias, bs_b, bs_h, bs_q, bs_k, dout, lse,
+                   delta, dk, dv, b, tq, tk, h, scale, causal, rate, seed,
+                   threshold, stream);
+  });
 }
 
 // #4 in bf16 (amp): as ptt_flash_fwd with q, k, v, the bias and o bf16,

@@ -80,7 +80,7 @@ struct FtShape {
       (FT_ROWS * kLd + 2 * FT_STAGES * kTile) * sizeof(bf16);
   static constexpr int kMinBlocks = D == 64 ? 4 : 2;
 };
-constexpr size_t kFwdTcSmem = FtShape<DH>::kSmem;
+constexpr size_t kFwdTcSmem = FtShape<64>::kSmem;
 
 // Start the copy of ROWS rows r0.. of head `head` of src into dst (row
 // stride D + 8); rows at or past t come in as zeros.
@@ -121,15 +121,7 @@ flash_fwd_tc_kernel(Rows<L, bf16> q, Rows<L, bf16> k, Rows<L, bf16> v,
   const int col = 2 * (lane & 3);  // this lane's first column of a tile
   const int offset = tk - tq;
   const uint32_t hseed = block_head_seed<DROP>(drop, bi, h, head);
-  // 64-key tiles the block walks: all, or under the causal mask those with
-  // a key at or before its last query + offset (kv_tiles' count for
-  // FT_ROWS rows, written out: kv_tiles keeps the one row count its f32
-  // callers pass, so that their code is what it was)
-  int n_kv = (tk + BT - 1) / BT;
-  if (causal) {
-    const int last = min(q0 + FT_ROWS, tq) - 1 + offset;
-    n_kv = last < 0 ? 0 : min(n_kv, last / BT + 1);
-  }
+  const int n_kv = kv_tiles<FT_ROWS>(q0, tq, tk, causal);
   const float scale2 = scale * tc::kLog2e;  // the scores in base 2
   // this lane's two rows: r = 0 the warp's row g, r = 1 row g + 8
   int qpos[2];

@@ -24,7 +24,7 @@
 //      t/64 times the work (4x at t = 256).
 //   2. the flash backward walks of flash_walk.cuh over the projected rows:
 //      dq (#2, keys walked), dk and dv (#3, queries walked), one block per
-//      (128-row tile, head, batch row), as #6 and #7 walk theirs.  They
+//      (WM-row tile, head, batch row), as #6 and #7 walk theirs.  They
 //      write the columns of one [b*t, 3hd] buffer dq|dk|dv in w_qkv's
 //      q|k|v order.
 //   3. gemm_kernel: dx as one product over the selected walks' columns (K
@@ -39,8 +39,9 @@
 // products of b*t*dm*hd MACs (3 projections, dctx, 3 for dx, 3 for
 // dW_qkv, dW_out) and seven t x t ones per head (three in the dq walk,
 // four in the dkv walk).  Stages 1 and 3 run on gemm.cuh's pipelined f32
-// tile; the walks are #6's and #7's (flash_walk.cuh: 128-row blocks, an
-// 8x4 patch a thread, a two-stage cp.async ring).
+// tile; the walks are #6's and #7's (flash_walk.cuh: 128-row blocks and
+// an 8x4 patch a thread at d 64, 64-row blocks and a 4x8 patch at 128,
+// a cp.async ring).
 //
 // Weights dropout: the walks of flash_walk.cuh regenerate #1's mask (the
 // same hash of (seed, b * h + head, q * t + k)) from the seed, with delta
@@ -64,9 +65,11 @@
 // heads): 73.0 GFLOP in the GEMM stages and 45.1 in the walks, for the
 // function's 47.2 + 15.0.
 //
-// Head width: the f32 pair takes d = 64; the bf16 pair 64 and 128
-// (qkv_bwd_tc<D>: the walks' Planes<D>, the dctx epilogue's delta summed
-// over a head's 64 or 128 columns in one fixed order, gemm.cuh).
+// Head width: both pairs take d = 64 and 128: in f32 qkv_bwd<D> (the
+// walks on BthdOf<D>, row_delta summing a head's D columns in one fixed
+// order; the GEMM stages take any hd), in bf16 qkv_bwd_tc<D> (the walks'
+// Planes<D>, the dctx epilogue's delta summed over a head's 64 or 128
+// columns in one fixed order, gemm.cuh).
 //
 // Masking follows #1: causal and out-of-range keys score nothing; a row
 // whose lse is +inf (masked in the forward) gets p = 0, so zero gradients;
@@ -89,9 +92,10 @@ constexpr int kWalkDq = 1;   // #2
 constexpr int kWalkDkv = 2;  // #3
 
 // delta[(bi * h + head) * t + r] = sum_d dctx(row, head, d) * ctx(row,
-// head, d) over two [b * t, h * 64] matrices (dctx f32, ctx of T), row =
-// bi * t + r: one thread per (row, head), summed in d order.
-template <class T>
+// head, d) over two [b * t, h * D] matrices (dctx f32, ctx of T), row =
+// bi * t + r: one thread per (row, head), summed in d order over the
+// head's D columns.
+template <class T, int D>
 __global__ void __launch_bounds__(NT)
 row_delta(const float* __restrict__ dctx, const T* __restrict__ ctx,
           float* delta, int b, int t, int h) {
@@ -99,11 +103,11 @@ row_delta(const float* __restrict__ dctx, const T* __restrict__ ctx,
   if (i >= (int64_t)b * t * h) return;
   const int head = (int)(i % h);
   const int64_t row = i / h;
-  const float4* a = reinterpret_cast<const float4*>(dctx + i * DH);
-  const T* c = ctx + i * DH;
+  const float4* a = reinterpret_cast<const float4*>(dctx + i * D);
+  const T* c = ctx + i * D;
   float s = 0.f;
 #pragma unroll
-  for (int d = 0; d < DH / 4; ++d) {
+  for (int d = 0; d < D / 4; ++d) {
     const float4 x = a[d];
     const float4 y = load4(c + 4 * d);
     s += x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
@@ -149,10 +153,12 @@ int64_t scratch_floats(int walks, int b, int t, int dm, int hd, int dh,
   return bt * 7 * hd + part + bt * (hd / dh);
 }
 
-// The projected q, k, v of one call as the walks read them, and where they
-// write dq, dk, dv: column offsets 0, hd, 2hd of a [b*t, 3hd] matrix.
-Rows<Bthd> qkv_rows(const float* m, int hd, int third) {
-  return Rows<Bthd>{m + third * hd, Bthd{3 * hd}};
+// The projected q, k, v of one call as the walks read them (heads D wide),
+// and where they write dq, dk, dv: column offsets 0, hd, 2hd of a [b*t,
+// 3hd] matrix.
+template <int D>
+Rows<BthdOf<D>> qkv_rows(const float* m, int hd, int third) {
+  return Rows<BthdOf<D>>{m + third * hd, BthdOf<D>{3 * hd}};
 }
 
 }  // namespace
@@ -178,7 +184,8 @@ extern "C" int64_t ptt_qkv_bwd_walk_smem(int walk, int dh) {
 
 namespace {
 
-// The pair in f32: ptt_qkv_bwd's arguments.
+// The pair in f32 at head width D: ptt_qkv_bwd's arguments.
+template <int D>
 int qkv_bwd(int walks, const float* x, const float* w_qkv,
             const float* w_out, const float* bias, int64_t bs_b,
             int64_t bs_h, int64_t bs_q, int64_t bs_k, const float* g,
@@ -189,11 +196,11 @@ int qkv_bwd(int walks, const float* x, const float* w_qkv,
   using T = float;
   if (walks < 1 || walks > 3) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int hd = n_head * DH;
+  const int hd = n_head * D;
   const int bt = b * t;
   const Cols cols = walk_cols(walks, hd);
   Scratch s;
-  scratch_floats(walks, b, t, dm, hd, DH, sms, &s, scratch);
+  scratch_floats(walks, b, t, dm, hd, D, sms, &s, scratch);
 
   // 1. q|k|v = x w_qkv, dctx = g w_out^T, delta = rowsum(dctx * ctx)
   cudaError_t err = gemm<T, T, float>({x, dm, false}, {w_qkv, 3 * hd, true},
@@ -204,25 +211,26 @@ int qkv_bwd(int walks, const float* x, const float* w_qkv,
                           bt, hd, dm, false, nullptr, sms, stream);
   if (err != cudaSuccess) return (int)err;
   const int64_t rows = (int64_t)bt * n_head;
-  row_delta<T><<<(unsigned)((rows + NT - 1) / NT), NT, 0, stream>>>(
+  row_delta<T, D><<<(unsigned)((rows + NT - 1) / NT), NT, 0, stream>>>(
       s.dctx, ctx, s.delta, b, t, n_head);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   // 2. the walks, into the q|k|v columns of dqkv
   const BiasOf<T> bs{bias, bs_b, bs_h, bs_q, bs_k};
-  const Rows<Bthd> dctx{s.dctx, Bthd{hd}};
+  const Rows<BthdOf<D>> dctx{s.dctx, BthdOf<D>{hd}};
   const Dropout drop = hash_rng::make_dropout(rate, seed, threshold);
   if (walks & kWalkDq) {
-    err = bwd_dq(qkv_rows(s.qkv, hd, 0), qkv_rows(s.qkv, hd, 1),
-                 qkv_rows(s.qkv, hd, 2), bs, dctx, lse, s.delta, s.dqkv,
-                 Bthd{3 * hd}, b, t, t, n_head, scale, causal, drop, stream);
+    err = bwd_dq(qkv_rows<D>(s.qkv, hd, 0), qkv_rows<D>(s.qkv, hd, 1),
+                 qkv_rows<D>(s.qkv, hd, 2), bs, dctx, lse, s.delta, s.dqkv,
+                 BthdOf<D>{3 * hd}, b, t, t, n_head, scale, causal, drop,
+                 stream);
     if (err != cudaSuccess) return (int)err;
   }
   if (walks & kWalkDkv) {
-    err = bwd_dkv(qkv_rows(s.qkv, hd, 0), qkv_rows(s.qkv, hd, 1),
-                  qkv_rows(s.qkv, hd, 2), bs, dctx, lse, s.delta,
-                  s.dqkv + hd, s.dqkv + 2 * hd, Bthd{3 * hd}, b, t, t,
+    err = bwd_dkv(qkv_rows<D>(s.qkv, hd, 0), qkv_rows<D>(s.qkv, hd, 1),
+                  qkv_rows<D>(s.qkv, hd, 2), bs, dctx, lse, s.delta,
+                  s.dqkv + hd, s.dqkv + 2 * hd, BthdOf<D>{3 * hd}, b, t, t,
                   n_head, scale, causal, drop, stream);
     if (err != cudaSuccess) return (int)err;
   }
@@ -311,7 +319,7 @@ int qkv_bwd_tc(int walks, const bf16* x, const bf16* w_qkv,
 // with both the pair shares one projection stage and one set of output
 // GEMMs.  x, g, dx [b, t, dm]; w_qkv [dm, 3hd]; w_out [hd, dm]; ctx
 // [b, t, h, d_head]; lse [b, h, t]; all contiguous f32, hd = d_head *
-// n_head; d_head 64 (anything else returns cudaErrorInvalidValue).
+// n_head; d_head 64 or 128 (anything else returns cudaErrorInvalidValue).
 // dx is the selected walks' part of dL/dx; dw [dm, w] holds dW_qkv's
 // columns [c0, c0 + w) of the selected walks (dW_q for bit 0 alone, dW_k
 // | dW_v for bit 1 alone, the packed [dm, 3hd] for both); dw_out [hd, dm]
@@ -328,10 +336,16 @@ extern "C" int ptt_qkv_bwd(int walks, const float* x, const float* w_qkv,
                            int n_head, int d_head, int sms, float scale,
                            int causal, double rate, unsigned seed,
                            unsigned threshold, void* stream_ptr) {
-  if (d_head != DH) return (int)cudaErrorInvalidValue;
-  return qkv_bwd(walks, x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k, g,
-                 ctx, lse, scratch, dx, dw, dw_out, b, t, dm, n_head, sms,
-                 scale, causal, rate, seed, threshold, stream_ptr);
+  if (d_head == 64)
+    return qkv_bwd<64>(walks, x, w_qkv, w_out, bias, bs_b, bs_h, bs_q, bs_k,
+                       g, ctx, lse, scratch, dx, dw, dw_out, b, t, dm, n_head,
+                       sms, scale, causal, rate, seed, threshold, stream_ptr);
+  if (d_head == 128)
+    return qkv_bwd<128>(walks, x, w_qkv, w_out, bias, bs_b, bs_h, bs_q,
+                        bs_k, g, ctx, lse, scratch, dx, dw, dw_out, b, t, dm,
+                        n_head, sms, scale, causal, rate, seed, threshold,
+                        stream_ptr);
+  return (int)cudaErrorInvalidValue;
 }
 
 // #2 + #3 in bf16 (amp), on tensor cores: as ptt_qkv_bwd with x, the

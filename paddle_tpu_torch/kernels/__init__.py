@@ -7,14 +7,14 @@ entry in :data:`launches`; a kernel with a bf16 instantiation (amp,
 :data:`BF16_KERNELS`) counts its bf16 launches under its name + "_bf16",
 and one compiled for head width 128 (:data:`HEAD_WIDTHS`) its launches at
 that width under that name + "_dh128" (:func:`width_suffix`): #4 at 128
-in f32 would count under ``flash_fwd_dh128``, in bf16 under
+counts in f32 under ``flash_fwd_dh128``, in bf16 under
 ``flash_fwd_bf16_dh128``.
 
-The attention and decode kernels are compiled for head width 64; for 128
-too the serving path's f32 ones (#1's forward, the megasteps and
-flash-decode) and the bf16 training kernels (#1 to #9, amp's attention):
+Every attention and decode kernel is compiled for head widths 64 and 128,
+in f32 and, where it has a bf16 instantiation, in bf16: the serving
+path's (#1's forward, the megasteps and flash-decode) and the training
+kernels (#1 to #9, the f32 ones and amp's);
 :data:`HEAD_WIDTHS` says which widths each kernel and dtype takes.  The
-f32 training kernels (the pair #2 + #3 and #4 to #9) take 64 only.  The
 FFN (#11, #13) has no head axis and runs at every width.
 Below a multiple of 64 the reference's own plans decline their Pallas
 kernels by shape and run the XLA composition, so on the card the port's
@@ -62,19 +62,20 @@ composed = {name: 0 for name in ("qkv_attention_fwd", "qkv_bwd_dq",
                                  "flash_fwd_bhtd", "flash_bwd_dq_bhtd",
                                  "flash_bwd_dkv_bhtd")}
 
-#: (kernel, dtype) -> the head widths its instantiation is compiled for,
-#: where more than 64: the serving path's f32 attention and decode
-#: kernels, and the bf16 attention kernels amp trains with.  Every other
-#: one (the f32 training kernels among them) takes 64 only.
-HEAD_WIDTHS = {
-    **{(name, torch.float32): (64, 128)
-       for name in ("qkv_attention_fwd", "megastep", "megastep_paged",
-                    "flash_decode", "flash_decode_paged")},
-    **{(name, torch.bfloat16): (64, 128)
-       for name in ("qkv_attention_fwd", "qkv_bwd_dq", "qkv_bwd_dkv",
+#: the attention kernels training runs (#1 to #9), in f32 and in bf16 (amp)
+TRAINING_KERNELS = ("qkv_attention_fwd", "qkv_bwd_dq", "qkv_bwd_dkv",
                     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                     "flash_fwd_bhtd", "flash_bwd_dq_bhtd",
-                    "flash_bwd_dkv_bhtd")}}
+                    "flash_bwd_dkv_bhtd")
+#: (kernel, dtype) -> the head widths its instantiation is compiled for,
+#: where more than 64: the serving path's f32 attention and decode
+#: kernels, and the training kernels in f32 and in bf16.
+HEAD_WIDTHS = {
+    **{(name, torch.float32): (64, 128)
+       for name in TRAINING_KERNELS + ("megastep", "megastep_paged",
+                                       "flash_decode",
+                                       "flash_decode_paged")},
+    **{(name, torch.bfloat16): (64, 128) for name in TRAINING_KERNELS}}
 #: the counters of the head-width-128 instantiations, less "_dh128": the
 #: kernel's name and its dtype's suffix (``flash_fwd_bf16``)
 DH128_KERNELS = tuple(name + KERNEL_DTYPES[dtype]

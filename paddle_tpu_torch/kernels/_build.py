@@ -20,6 +20,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -60,7 +62,9 @@ def _digest() -> str:
 def build() -> str:
     """Compile (if needed) and return the path of the shared library.
     The compiler's output, including ``-Xptxas -v``'s register and
-    shared-memory report, is kept in ``_build/build-<digest>.log``."""
+    shared-memory report, is kept in ``_build/build-<digest>.log``, each
+    source's under a line with its exit code and the seconds from the
+    start of the build to the end of its ``nvcc``."""
     digest = _digest()
     so_path = os.path.join(BUILD_DIR, f"libpaddle_tpu_torch-{digest}.so")
     if os.path.exists(so_path):
@@ -69,17 +73,23 @@ def build() -> str:
     obj_dir = os.path.join(BUILD_DIR, f"obj-{digest}")
     os.makedirs(obj_dir, exist_ok=True)
     jobs = []
+    t0 = time.perf_counter()
     for src in _sources():
         obj = os.path.join(obj_dir, os.path.basename(src)[:-3] + ".o")
         cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
         jobs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
+    def finish(job):  # the compiler's output and when it ended
+        out, _ = job[2].communicate()
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        ends = list(pool.map(finish, jobs))
     log, failed = [], []
-    for src, _, proc in jobs:
-        out, _ = proc.communicate()
-        log.append(f"== {os.path.basename(src)} (rc {proc.returncode})\n"
-                   f"{out}")
+    for (src, _, proc), (out, secs) in zip(jobs, ends):
+        log.append(f"== {os.path.basename(src)} (rc {proc.returncode}, "
+                   f"{secs:.1f} s)\n{out}")
         if proc.returncode:
             failed.append(os.path.basename(src))
     with open(os.path.join(BUILD_DIR, f"build-{digest}.log"), "w") as f:

@@ -39,13 +39,14 @@ by 1 / (1 - rate), keyed on (seed, b * h + head, q * tk + k) as
 ``hash_rng.keep_mask_attn`` is, so both routes draw the reference's mask
 for the same seed.  The backward kernels regenerate it; no mask is stored.
 
+Head widths: every kernel here is compiled for 64 and 128, in f32 and in
+bf16; a launch at 128 counts under its counter + "_dh128"
+(``flash_fwd_dh128``, ``flash_fwd_bhtd_bf16_dh128``).
+
 bf16 (amp): #1, the pair #2 + #3 and the flash kernels of both layouts
 (#4, #6, #7 in bthd; #5, #8, #9 in bhtd) have bf16 instantiations (entry
 points ``ptt_*_bf16``, counted under the kernel's name + "_bf16", e.g.
-``flash_fwd_bhtd_bf16``), compiled for head widths 64 and 128 (counted at
-128 under ``flash_fwd_bhtd_bf16_dh128``); the f32 pair and the f32 flash
-kernels take 64, and #1 in f32 64 and 128.  Their tensors are bf16 (x,
-the weights, the
+``flash_fwd_bhtd_bf16``).  Their tensors are bf16 (x, the weights, the
 bias, y, ctx, dx, the dW in the fused kernels; q, k, v, the bias, o, dO,
 dq, dk, dv in the flash ones), lse and delta f32.  The reference computes
 on the bf16 operands in f32 and stores in the operands' dtype, and so do
@@ -244,8 +245,8 @@ def _qkv_args(what, x, w_qkv, w_out, bias, n_head, **more):
     bias must be contiguous (the bias a broadcast view) tensors of x's
     dtype, f32 or bf16, and lse [b, h, t] f32, on x's CUDA device, 16-byte
     aligned, with a head width the kernel is compiled for
-    (``compiled_widths``: 64; #1, and the pair in bf16, also 128) and
-    d_model % 32 == 0: the kernels index raw pointers."""
+    (``compiled_widths``: 64 and 128) and d_model % 32 == 0: the kernels
+    index raw pointers."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for {x.device}")
     dtype, _ = _kernel_dtype(x, what)
@@ -519,11 +520,10 @@ def flash_qkv_attention(x, w_qkv, w_out, bias=None, n_head=1, scale=1.0,
     and, in the backward, the pair #2 + #3 in one call (gradients of x, w_qkv, w_out, and of
     the bias when it requires grad); otherwise #1 alone, as serving runs
     it under ``torch.no_grad()``.  CPU tensors take the plain twins; CUDA
-    tensors launch the kernels, which take dh == 64 or, in bf16 (amp), 128
-    (#1 in f32 also 128, so f32 serving runs at 128; the f32 pair #2 + #3
-    does not, so an f32 gradient at 128 raises before #1 launches) and
-    d_model % 32 == 0 and raise on anything else, except at dh % 64 != 0,
-    where the reference's plan
+    tensors launch the kernels, which take dh 64 or 128, in f32 and in
+    bf16 (amp), and d_model % 32 == 0; where a gradient is wanted the
+    pair's width is checked before #1 launches, so another width (192)
+    raises before anything runs.  At dh % 64 != 0 the reference's plan
     runs its composition and so does the port (the twins, counted in
     ``kernels.composed``).  ``dropout_rate`` > 0 drops
     the attention weights inside the kernels under the site's uint32
@@ -706,7 +706,7 @@ def _kernel_args(what, fmt, q, k, bias, **more):
     bias strides, bias pointer, entry-point suffix).  Each tensor must be a
     contiguous [b, t, h, d] (``fmt`` "bthd") or [b, h, t, d] ("bhtd")
     tensor of q's dtype (f32 or bf16), at a head width d the kernel is
-    compiled for (64; bf16 also 128), the bias of that dtype too, or, for
+    compiled for (64 or 128), the bias of that dtype too, or, for
     lse and delta, an f32 [b, h, tq], on q's CUDA device and 16-byte
     aligned; the kernels index raw pointers."""
     if q.device.type != "cuda":
@@ -925,9 +925,9 @@ def flash_attention(q, k, v, bias=None, scale=1.0, causal=False,
     ``causal`` masks keys past query + tk - tq.  f32, or bf16 (amp: q, k,
     v and the bias bf16, the output and the gradients bf16, each layout's
     ``*_bf16`` kernels on the card).  On the CPU every
-    pass runs its plain twin; on CUDA the kernels (head width 64, and 128
-    in bf16; at a width % 64 != 0 the twins, as the reference's plan
-    composes there, counted in ``kernels.composed``).  ``dropout_rate`` >
+    pass runs its plain twin; on CUDA the kernels (head width 64 or 128;
+    at a width % 64 != 0 the twins, as the reference's plan composes
+    there, counted in ``kernels.composed``).  ``dropout_rate`` >
     0 drops the
     attention weights inside the kernels under the site's uint32
     ``dropout_seed`` (the same mask in both layouts); the caller passes 0

@@ -311,39 +311,66 @@ def test_kernel_wrappers_refuse_non_cpu_tensors():
         ka.flash_bwd_dkv(*meta[:3], None, meta[3], lse, lse)
 
 
-@pytest.mark.parametrize("name,tq,tk,bias_kind,causal", [
-    ("key_padding", 32, 64, "pad", False),
-    ("causal_tq_gt_tk", 64, 32, "pad", True)])
-def test_head_width_128_matches_jax_kernels(name, tq, tk, bias_kind, causal):
-    """At head width 128 the reference's plan launches its bthd kernels
-    (interpret mode here), and the port's twins, which its wrappers run on
-    CPU tensors, give their result: out and lse against _flash_forward,
-    and the output and dq, dk, dv against jax.vjp of the reference's
-    flash_attention, 1e-5 abs and rel.  (On the card the wrappers raise
-    at this width: no kernel is compiled for it.)"""
+#: head width 128: (name, tq, tk, bias kind, causal, layout, weights-dropout
+#: rate); the bthd cases keep their first ids
+W128_CASES = [
+    pytest.param("key_padding", 32, 64, "pad", False, "bthd", 0.0,
+                 id="key_padding-32-64-pad-False"),
+    pytest.param("causal_tq_gt_tk", 64, 32, "pad", True, "bthd", 0.0,
+                 id="causal_tq_gt_tk-64-32-pad-True"),
+    pytest.param("key_padding", 32, 64, "pad", False, "bhtd", 0.0,
+                 id="bhtd-key_padding"),
+    pytest.param("causal_tq_gt_tk", 64, 32, "pad", True, "bhtd", 0.0,
+                 id="bhtd-causal_tq_gt_tk"),
+    pytest.param("ragged_pad_dropout", 40, 72, "pad", False, "bthd", 0.1,
+                 id="bthd-ragged_pad-dropout"),
+    pytest.param("causal_dropout", 72, 72, "full", True, "bhtd", 0.1,
+                 id="bhtd-causal-dropout"),
+]
+
+
+@pytest.mark.parametrize("name,tq,tk,bias_kind,causal,fmt,rate", W128_CASES)
+def test_head_width_128_matches_jax_kernels(name, tq, tk, bias_kind, causal,
+                                            fmt, rate):
+    """At head width 128 the reference's plan launches its flash kernels
+    (interpret mode here) in both layouts, and the port's twins, which its
+    wrappers run on CPU tensors, give their result: out and lse against
+    _flash_forward, and the output and dq, dk, dv against jax.vjp of the
+    reference's flash_attention, 1e-5 abs and rel; at rate 0.1 under one
+    fixed seed, the same hash mask.  (On the card the same wrappers launch
+    the f32 kernels compiled for this width: #4, #6, #7 in bthd, #5, #8, #9
+    in bhtd.)"""
     d = 128
     scale = d ** -0.5
-    q, k, v, g, bias = _inputs(tq, tk, bias_kind, seed=6, d=d)
+    seed = 0x2545F491
+    arrays = _inputs(tq, tk, bias_kind, seed=6, d=d)
+    if fmt == "bhtd":  # [b, t, h, d] -> [b, h, t, d]
+        arrays = [a.transpose(0, 2, 1, 3).copy() for a in arrays[:4]] + [
+            arrays[4]]
+    q, k, v, g, bias = arrays
     jq, jk, jv = (_j(a) for a in (q, k, v))
-    ok, bq, bk, _ = jax_attention._plan(jq, jk, 512, 512, True, "bthd")
+    ok, bq, bk, _ = jax_attention._plan(jq, jk, 512, 512, True, fmt)
     assert ok  # the reference's kernels run, not its XLA fallback
     want_out, want_lse = jax_attention._flash_forward(
-        jq, jk, jv, _j(bias), jnp.zeros((1,), jnp.uint32), scale, causal, bq,
-        bk, True, "bthd")
-    out, lse = ka.flash_fwd(*(_t(a) for a in (q, k, v, bias)), scale, causal)
+        jq, jk, jv, _j(bias), jnp.asarray([seed], jnp.uint32), scale,
+        causal, bq, bk, True, fmt, dropout_rate=rate)
+    fwd = ka.flash_fwd if fmt == "bthd" else ka.flash_fwd_bhtd
+    kw = dict(scale=scale, causal=causal, dropout_rate=rate,
+              dropout_seed=seed if rate else 0)
+    out, lse = fwd(*(_t(a) for a in (q, k, v, bias)), **kw)
     _close(out, want_out)
     _close(lse, want_lse)
 
     def f(q_, k_, v_):
         return jax_attention.flash_attention(
-            q_, k_, v_, _j(bias), scale=scale, causal=causal, fmt="bthd",
-            interpret=True)
+            q_, k_, v_, _j(bias), scale=scale, causal=causal, fmt=fmt,
+            interpret=True, dropout_rate=rate,
+            dropout_seed=jnp.asarray(seed, jnp.uint32) if rate else None)
 
     want, vjp = jax.vjp(f, jq, jk, jv)
     want_grads = vjp(_j(g))
     args = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
-    got = ka.flash_attention(*args, _t(bias), scale=scale, causal=causal,
-                             fmt="bthd")
+    got = ka.flash_attention(*args, _t(bias), fmt=fmt, **kw)
     got.backward(_t(g))
     _close(got.detach(), want)
     for a, w in zip(args, want_grads):

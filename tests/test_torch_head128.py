@@ -3,8 +3,9 @@ route table), on the CPU, against the JAX package.
 
 The reference launches its decode kernels at any d_head % 64 == 0; the
 port compiles #1's f32 forward, the megasteps (#10, #12), the FFN and
-flash-decode (#14, #15) for 128 too, and the bf16 training kernels (#1 to
-#9, amp's).  On CPU tensors each wrapper runs its plain version, held here
+flash-decode (#14, #15) for 128 too, and the training kernels (#1 to #9)
+in f32 and in bf16 (amp's).  On CPU tensors each wrapper runs its plain
+version, held here
 against the reference's Pallas kernels in interpret mode at 8 heads of
 128 (d_model 256, which passes the reference's % 128 gate).  The
 wrappers' launches at 128 are held with a recording stand-in for the
@@ -12,7 +13,8 @@ library: the plan at the width, the width passed to the entry point, and
 the ``_dh128`` launch counters (``_bf16_dh128`` for the bf16 kernels).
 The whole-slice generation tests are in ``test_torch_head128_serving.py``,
 the bf16 kernels against the reference and amp training at 128 in
-``test_torch_head128_amp.py``.
+``test_torch_head128_amp.py``, f32 training at 128 in
+``test_torch_head128_f32.py``.
 """
 
 import numpy as np
@@ -314,7 +316,7 @@ def test_qkv_launch_at_128_passes_the_width(monkeypatch, b, t, rows):
 
 
 # ---------------------------------------------------------------------------
-# what raises at 128 before any launch
+# what raises at 192 before any launch
 # ---------------------------------------------------------------------------
 
 
@@ -326,22 +328,28 @@ def _meta_qkv(dh, requires_grad):
 
 
 def test_qkv_attention_with_a_gradient_at_128_raises_before_any_launch():
-    """#1 in f32 is compiled for 128 but the f32 pair #2 + #3 is not: an
-    f32 call on non-CPU tensors that autograd would differentiate raises,
-    naming the backward kernel and the width, before #1 runs (no launch
-    counter or composition counter moves); without a gradient the same
-    call reaches #1's launch (here refused for the meta device, after the
-    route)."""
+    """#1 and the pair #2 + #3 are compiled for 128 in f32, and for no
+    width above: at 128 an f32 call on non-CPU tensors that autograd would
+    differentiate passes the backward's width check and reaches #1's
+    launch (here refused for the meta device, after the route); at 192
+    the same call raises, naming the backward kernel and the width,
+    before #1 runs (no launch counter or composition counter moves), and
+    without a gradient it raises naming #1."""
     kernels.reset_launches()
     x, w_qkv, w_out = _meta_qkv(128, True)
-    with pytest.raises(ValueError, match="qkv_bwd_dq: .*head width 128"):
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        ka.flash_qkv_attention(x, w_qkv, w_out, n_head=2, scale=0.1)
+    x, w_qkv, w_out = _meta_qkv(192, True)
+    with pytest.raises(ValueError, match="qkv_bwd_dq: .*head width 192"):
         ka.flash_qkv_attention(x, w_qkv, w_out, n_head=2, scale=0.1)
     assert not any(kernels.launches.values())
     assert not any(kernels.composed.values())
     with torch.no_grad():
-        with pytest.raises(ValueError, match="no kernel for meta"):
+        with pytest.raises(ValueError,
+                           match="qkv_attention_fwd: .*head width 192"):
             ka.flash_qkv_attention(x, w_qkv, w_out, n_head=2, scale=0.1)
     assert not any(kernels.launches.values())
+    assert not any(kernels.composed.values())
 
 
 @pytest.mark.parametrize("dh", [64, 96])
@@ -364,19 +372,18 @@ def test_qkv_attention_with_a_gradient_below_128_takes_its_route(dh):
                                   "bf16 flash"])
 def test_training_and_bf16_routes_raise_at_128(what):
     """What no kernel takes raises, naming the kernel and the width,
-    before any launch or composition: the f32 training kernels at 128
-    (the bthd and bhtd flash kernels, #4-#9; "bf16 qkv": the f32 pair #2 +
-    #3 called itself) and the bf16 instantiations, compiled for 64 and
-    128, at 192 ("bf16 qkv": #1 and the pair; "bf16 flash": #4 in both
-    layouts)."""
+    before any launch or composition: the training kernels, compiled for
+    64 and 128 in f32 and in bf16, at 192 (the bthd and bhtd flash kernels
+    in f32, #4-#9; "bf16 qkv": the f32 pair #2 + #3 called itself, and #1
+    and the pair in bf16; "bf16 flash": #4 in both layouts in bf16)."""
     kernels.reset_launches()
-    q = torch.zeros(2, 16, 2, 128, device="meta")
+    q = torch.zeros(2, 16, 2, 192, device="meta")
     if what == "bf16 qkv":
-        x, w_qkv, w_out = _meta_qkv(128, False)
-        g, ctx = torch.zeros_like(x), torch.zeros(2, 16, 2, 128,
+        x, w_qkv, w_out = _meta_qkv(192, False)
+        g, ctx = torch.zeros_like(x), torch.zeros(2, 16, 2, 192,
                                                   device="meta")
         lse = torch.zeros(2, 2, 16, device="meta")
-        with pytest.raises(ValueError, match="qkv_bwd_dq: .*head width 128"):
+        with pytest.raises(ValueError, match="qkv_bwd_dq: .*head width 192"):
             ka.qkv_bwd(x, w_qkv, w_out, None, g, ctx, lse, n_head=2)
         for grad in (False, True):
             x, w_qkv, w_out = (a.to(torch.bfloat16)
@@ -391,7 +398,7 @@ def test_training_and_bf16_routes_raise_at_128(what):
                 ka.flash_attention(qb, qb, qb, scale=0.1, fmt=fmt)
     else:
         fmt = what.split()[1]
-        with pytest.raises(ValueError, match="head width 128"):
+        with pytest.raises(ValueError, match="head width 192"):
             ka.flash_attention(q, q, q, scale=0.1, fmt=fmt)
     assert not any(kernels.launches.values())
     assert not any(kernels.composed.values())
@@ -413,7 +420,7 @@ def _stand_in(monkeypatch, b, t, dm, dh):
     def flash_args(what, fmt, q, k, bias, **more):
         bq, hq, tq, d = ka._dims(q, fmt)
         return (bq, tq, ka._dims(k, fmt)[2], hq, d, (0,) * 4, None,
-                "_bf16")
+                kernels.KERNEL_DTYPES[q.dtype])
 
     monkeypatch.setattr(_build, "lib", Lib)
     monkeypatch.setattr(_build, "stream_of", lambda x: 0)
@@ -444,19 +451,21 @@ BF16_LAUNCHES = [
     ("qkv_bwd_dkv", None, "ptt_qkv_bwd_bf16", ["qkv_bwd_dkv"])]
 
 
-@pytest.mark.parametrize("name,fmt,entry,counters", BF16_LAUNCHES,
-                         ids=[c[0] for c in BF16_LAUNCHES])
-def test_bf16_wrappers_launch_at_128(monkeypatch, name, fmt, entry,
-                                     counters):
-    """Each bf16 training wrapper on non-CPU tensors at 2 heads of 128
-    launches its kernel: its entry point takes the width 128 after the
-    heads, and each of its kernels counts one launch under its
-    ``_bf16_dh128`` counter, nothing else moving."""
+#: the same wrappers in f32: their entry points without "_bf16"
+F32_LAUNCHES = [(name, fmt, entry[:-len("_bf16")], counters)
+                for name, fmt, entry, counters in BF16_LAUNCHES]
+
+
+def _launches_at_128(monkeypatch, name, fmt, entry, counters, dtype):
+    """Call training wrapper ``name`` on non-CPU ``dtype`` tensors at 2
+    heads of 128 through the stand-in library: its entry point must take
+    the width 128 after the heads, and each of its kernels count one
+    launch under its dtype's ``_dh128`` counter, nothing else moving."""
     b, t, h, dh = 2, 16, 2, 128
     dm = h * dh
     calls = _stand_in(monkeypatch, b, t, dm, dh)
     kernels.reset_launches()
-    meta = dict(device="meta", dtype=torch.bfloat16)
+    meta = dict(device="meta", dtype=dtype)
     if fmt is not None:
         shape = (b, t, h, dh) if fmt == "bthd" else (b, h, t, dh)
         q = torch.zeros(shape, **meta)
@@ -485,8 +494,63 @@ def test_bf16_wrappers_launch_at_128(monkeypatch, name, fmt, entry,
             assert calls[0][1][1:7] == (b, t, dm, h, dh, 132)
             assert calls[1][1][16:22] == (b, t, dm, h, dh, 132)
     assert {k: n for k, n in kernels.launches.items() if n} == {
-        c + "_bf16_dh128": 1 for c in counters}
+        c + kernels.KERNEL_DTYPES[dtype] + "_dh128": 1 for c in counters}
     assert not any(kernels.composed.values())
+    kernels.reset_launches()
+
+
+@pytest.mark.parametrize("name,fmt,entry,counters", BF16_LAUNCHES,
+                         ids=[c[0] for c in BF16_LAUNCHES])
+def test_bf16_wrappers_launch_at_128(monkeypatch, name, fmt, entry,
+                                     counters):
+    """Each bf16 training wrapper on non-CPU tensors at 2 heads of 128
+    launches its kernel: its entry point takes the width 128 after the
+    heads, and each of its kernels counts one launch under its
+    ``_bf16_dh128`` counter, nothing else moving."""
+    _launches_at_128(monkeypatch, name, fmt, entry, counters,
+                     torch.bfloat16)
+
+
+@pytest.mark.parametrize("name,fmt,entry,counters", F32_LAUNCHES,
+                         ids=[c[0] for c in F32_LAUNCHES])
+def test_f32_wrappers_launch_at_128(monkeypatch, name, fmt, entry,
+                                    counters):
+    """Each f32 training wrapper (#1 with residuals, the pair and each
+    walk, #4-#9) on non-CPU tensors at 2 heads of 128 launches its kernel:
+    its entry point takes the width 128 after the heads, and each of its
+    kernels counts one launch under its ``_dh128`` counter, nothing else
+    moving."""
+    _launches_at_128(monkeypatch, name, fmt, entry, counters,
+                     torch.float32)
+
+
+def _pair_with_a_gradient_at_128(monkeypatch, dtype):
+    """flash_qkv_attention in ``dtype`` with a gradient at 2 heads of 128
+    through the stand-in library: #1 forward, then in the backward the
+    pair in one call with both walks at width 128, counted once each
+    under the dtype's ``_dh128`` counters."""
+    b, t, h, dh = 2, 16, 2, 128
+    dm = h * dh
+    suffix = kernels.KERNEL_DTYPES[dtype]
+    calls = _stand_in(monkeypatch, b, t, dm, dh)
+    kernels.reset_launches()
+    meta = dict(device="meta", dtype=dtype, requires_grad=True)
+    x = torch.zeros(b, t, dm, **meta)
+    w_qkv = torch.zeros(dm, 3 * dm, **meta)
+    w_out = torch.zeros(dm, dm, **meta)
+    y = ka.flash_qkv_attention(x, w_qkv, w_out, n_head=h, scale=dh ** -0.5)
+    y.backward(torch.zeros_like(y))
+    entries = [name for name, _ in calls if not name.endswith("scratch")]
+    assert entries == ["ptt_qkv_attention_fwd" + suffix,
+                       "ptt_qkv_bwd" + suffix]
+    pair = [args for name, args in calls
+            if name == "ptt_qkv_bwd" + suffix][0]
+    assert pair[0] == ka.WALK_DQ | ka.WALK_DKV
+    assert pair[16:22] == (b, t, dm, h, dh, 132)
+    assert {k: n for k, n in kernels.launches.items() if n} == {
+        name + suffix + "_dh128": 1
+        for name in ("qkv_attention_fwd", "qkv_bwd_dq", "qkv_bwd_dkv")}
+    assert x.grad.shape == x.shape and w_qkv.grad.shape == w_qkv.shape
     kernels.reset_launches()
 
 
@@ -497,23 +561,13 @@ def test_qkv_attention_bf16_with_a_gradient_at_128_launches_the_pair(
     in one ``ptt_qkv_bwd_bf16`` call with both walks at width 128, counted
     once each under ``qkv_attention_fwd_bf16_dh128``,
     ``qkv_bwd_dq_bf16_dh128`` and ``qkv_bwd_dkv_bf16_dh128``."""
-    b, t, h, dh = 2, 16, 2, 128
-    dm = h * dh
-    calls = _stand_in(monkeypatch, b, t, dm, dh)
-    kernels.reset_launches()
-    meta = dict(device="meta", dtype=torch.bfloat16, requires_grad=True)
-    x = torch.zeros(b, t, dm, **meta)
-    w_qkv = torch.zeros(dm, 3 * dm, **meta)
-    w_out = torch.zeros(dm, dm, **meta)
-    y = ka.flash_qkv_attention(x, w_qkv, w_out, n_head=h, scale=dh ** -0.5)
-    y.backward(torch.zeros_like(y))
-    entries = [name for name, _ in calls if not name.endswith("scratch")]
-    assert entries == ["ptt_qkv_attention_fwd_bf16", "ptt_qkv_bwd_bf16"]
-    pair = [args for name, args in calls if name == "ptt_qkv_bwd_bf16"][0]
-    assert pair[0] == ka.WALK_DQ | ka.WALK_DKV
-    assert pair[16:22] == (b, t, dm, h, dh, 132)
-    assert {k: n for k, n in kernels.launches.items() if n} == {
-        "qkv_attention_fwd_bf16_dh128": 1, "qkv_bwd_dq_bf16_dh128": 1,
-        "qkv_bwd_dkv_bf16_dh128": 1}
-    assert x.grad.shape == x.shape and w_qkv.grad.shape == w_qkv.shape
-    kernels.reset_launches()
+    _pair_with_a_gradient_at_128(monkeypatch, torch.bfloat16)
+
+
+def test_qkv_attention_f32_with_a_gradient_at_128_launches_the_pair(
+        monkeypatch):
+    """In f32 too: #1 forward with its residuals and the pair in one
+    ``ptt_qkv_bwd`` call at width 128, counted under
+    ``qkv_attention_fwd_dh128``, ``qkv_bwd_dq_dh128`` and
+    ``qkv_bwd_dkv_dh128``."""
+    _pair_with_a_gradient_at_128(monkeypatch, torch.float32)

@@ -14,7 +14,7 @@ the whole slice: a 2 + 2-layer Transformer of 2 heads of 128 (d_model
 against the reference's program under ``pt.amp.enable``, held as
 ``test_torch_training.py`` holds the 64-wide model.  The CUDA kernels are
 held against the same twins on the card by chip_smoke.py (phase 2's
-``check_head128_amp_kernels``, phase 3 (n)).
+``check_head128_train_kernels`` in bf16, phase 3 (n)).
 """
 
 import numpy as np

@@ -503,35 +503,46 @@ def test_launch_passes_the_plan_to_the_entry_point(monkeypatch, b, t, rows):
     assert seen[0][12:18] == (b, t, dm, n_head, DH, rows)
 
 
-#: head width 128 (C2): (name, t, bias kind, causal) at 2 heads
-W128_CASES = [("pad", 32, "pad", False), ("causal_decoder", 32, "decoder",
-                                          True)]
+#: head width 128 (C2): (name, t, bias kind, causal, weights-dropout rate)
+#: at 2 heads; the rate-0 cases keep their first ids
+W128_CASES = [pytest.param("pad", 32, "pad", False, 0.0,
+                           id="pad-32-pad-False"),
+              pytest.param("causal_decoder", 32, "decoder", True, 0.0,
+                           id="causal_decoder-32-decoder-True"),
+              pytest.param("decoder_dropout", 40, "decoder", False, 0.1,
+                           id="decoder-40-dropout")]
 
 
-@pytest.mark.parametrize("name,t,bias_kind,causal", W128_CASES)
-def test_head_width_128_matches_jax_kernels(name, t, bias_kind, causal):
+@pytest.mark.parametrize("name,t,bias_kind,causal,rate", W128_CASES)
+def test_head_width_128_matches_jax_kernels(name, t, bias_kind, causal,
+                                            rate):
     """At head width 128 the reference's plan launches its fused kernels
     (interpret mode here), and the port's twins, which its wrappers run on
     CPU tensors, give their result: the output and the gradients of x,
     w_qkv and w_out against jax.vjp of the reference's
-    flash_qkv_attention, at the reference's tolerance.  (On the card #1's
-    f32 forward is compiled for this width, and serving launches it; the
-    pair #2 + #3 is not, so a call that needs a gradient raises.)"""
+    flash_qkv_attention, at the reference's tolerance; at rate 0.1 under
+    one fixed seed, the same hash mask.  (On the card the same call
+    launches #1 with its residuals and, in the backward, the pair #2 + #3,
+    both compiled for this width in f32.)"""
     dh, n_head = 128, 2
     x, w_qkv, w_out, g, bias = _inputs(n_head, t, bias_kind, seed=5, dh=dh)
-    kw = dict(n_head=n_head, scale=dh ** -0.5, causal=causal)
+    seed = 0x9E3779B9
+    kw = dict(n_head=n_head, scale=dh ** -0.5, causal=causal,
+              dropout_rate=rate)
     ok = jax_attention._qkv_plan(_j(x), n_head, dh, 512, 512, True,
                                  bias=_j(bias))[0]
     assert ok  # the reference's fused kernels run, not its composition
 
     def f(*p):
-        return jax_attention.flash_qkv_attention(*p, _j(bias),
-                                                 interpret=True, **kw)
+        return jax_attention.flash_qkv_attention(
+            *p, _j(bias), interpret=True,
+            dropout_seed=jnp.asarray(seed, jnp.uint32) if rate else None,
+            **kw)
 
     want, vjp = jax.vjp(f, *(_j(a) for a in (x, w_qkv, w_out)))
     want_grads = vjp(_j(g))
     args = [torch.from_numpy(a).requires_grad_() for a in (x, w_qkv, w_out)]
-    out = ka.flash_qkv_attention(*args, _t(bias), **kw)
+    out = ka.flash_qkv_attention(*args, _t(bias), dropout_seed=seed, **kw)
     out.backward(_t(g))
     _close(out.detach(), want)
     for a, w in zip(args, want_grads):

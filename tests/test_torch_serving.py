@@ -143,24 +143,25 @@ _ROUTED = [(name, torch.float32) for name in _HEAD_AXIS] + [
 #: the serving path's f32 kernels, compiled for head width 128 too
 _SERVING = ("qkv_attention_fwd", "megastep", "megastep_paged",
             "flash_decode", "flash_decode_paged")
-#: the bf16 training kernels (amp's #1-#9), compiled for head width 128 too
-_AMP_TRAINING = ("qkv_attention_fwd", "qkv_bwd_dq", "qkv_bwd_dkv",
-                 "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                 "flash_fwd_bhtd", "flash_bwd_dq_bhtd", "flash_bwd_dkv_bhtd")
+#: the training kernels (#1-#9), compiled for head width 128 too in f32
+#: and in bf16 (amp's)
+_TRAINING = ("qkv_attention_fwd", "qkv_bwd_dq", "qkv_bwd_dkv",
+             "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+             "flash_fwd_bhtd", "flash_bwd_dq_bhtd", "flash_bwd_dkv_bhtd")
 
 
 def _at_128(name, dtype):
     """Whether (kernel, dtype) is compiled for head width 128."""
-    return (name in _SERVING if dtype == torch.float32
-            else name in _AMP_TRAINING)
+    return (name in _SERVING + _TRAINING if dtype == torch.float32
+            else name in _TRAINING)
 #: (d_head, route, kernel, dtype): the first four are flash_fwd's cases at
-#: 16, 32, 64 and 128; then every kernel and dtype at 64 (kernel), 96
-#: (composed), 128 (kernel where compiled, else an error) and 192 (an
-#: error everywhere)
+#: 16, 32, 64 and 128 (the last under its first id, "128-None"); then
+#: every kernel and dtype at 64 (kernel), 96 (composed), 128 (kernel where
+#: compiled, else an error) and 192 (an error everywhere)
 _ROUTE_CASES = [(16, "composed", "flash_fwd", torch.float32),
                 (32, "composed", "flash_fwd", torch.float32),
                 (64, "kernel", "flash_fwd", torch.float32),
-                (128, None, "flash_fwd", torch.float32)] + [
+                (128, "kernel", "flash_fwd", torch.float32)] + [
     (d_head, route, name, dtype) for name, dtype in _ROUTED
     for d_head, route in (
         (64, "kernel"), (96, "composed"),
@@ -177,12 +178,12 @@ def test_head_width_route_mirrors_reference_plans(d_head, route, name,
                                                   dtype):
     """The route the CUDA wrappers take by kernel, dtype and head width,
     as the reference's plans decide: the composition below a multiple of
-    64, the kernel at 64, and at 128 the kernel where the port compiles
-    it (the serving path's f32 kernels: #1's forward, the megasteps and
-    flash-decode; the bf16 training kernels #1-#9), an error naming the
-    kernel and the width elsewhere (the f32 training kernels); 192 is
-    compiled nowhere.  A composed call is counted; a kernel route counts
-    nothing here."""
+    64, the kernel at 64, and at 128 the kernel, which the port compiles
+    for every attention and decode kernel in each of its dtypes (the
+    serving path's f32 kernels: #1's forward, the megasteps and
+    flash-decode; the training kernels #1-#9 in f32 and in bf16); 192 is
+    compiled nowhere and raises, naming the kernel and the width.  A
+    composed call is counted; a kernel route counts nothing here."""
     assert kernels.compiled_widths(name, dtype) == (
         (64, 128) if _at_128(name, dtype) else (64,))
     kernels.reset_launches()
